@@ -1,0 +1,59 @@
+"""aainterp_torch: area-average (conservative) image resampling in PyTorch,
+with hand-written CUDA kernels for NVIDIA Hopper (H100).
+
+The PyTorch port of the JAX package ``aainterp``, which stays the
+reference.  This package imports torch and numpy, never jax or aainterp.
+Ported so far (ROADMAP.md slice 1): axis-aligned resampling (any multiple
+of 90 degrees) through the separable banded apply, with the CUDA kernel
+``csrc/separable_apply.cu`` on CUDA tensors and plain torch on CPU
+tensors, and exact gradients through ``autodiff.SeparableLinear``.
+
+    import torch, aainterp_torch as aa
+    frames = torch.rand(8, 2160, 3840, device="cuda").to(torch.bfloat16)
+    res = aa.area_average_interpolate(frames, 2.0, 1.0, (0.0, 0.0), 0.0)
+    res.dst.shape   # (8, 1080, 1920), bf16
+"""
+
+from .api import (
+    InterpResult,
+    apply_operator,
+    area_average_interpolate,
+    build_operator,
+)
+from .autodiff import SeparableLinear, separable_linear_for
+from .convert import operator_from_numpy
+from .grids import (
+    DBL_EPSILON,
+    GridSpec,
+    ValidationError,
+    make_grid_spec,
+    validate_args,
+)
+from .ops.cuda_apply import apply_separable_kernel, apply_separable_plain
+from .ops.weights import (
+    OperatorValidationError,
+    SeparableOperator,
+    separable_operator,
+    validate_operator,
+)
+
+__all__ = [
+    "DBL_EPSILON",
+    "GridSpec",
+    "InterpResult",
+    "OperatorValidationError",
+    "SeparableLinear",
+    "SeparableOperator",
+    "ValidationError",
+    "apply_operator",
+    "apply_separable_kernel",
+    "apply_separable_plain",
+    "area_average_interpolate",
+    "build_operator",
+    "make_grid_spec",
+    "operator_from_numpy",
+    "separable_linear_for",
+    "separable_operator",
+    "validate_args",
+    "validate_operator",
+]

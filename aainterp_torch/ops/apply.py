@@ -1,0 +1,133 @@
+"""Apply stage, plain PyTorch: the separable banded apply and the box mean.
+
+Counterpart of the plain part of ``aainterp/ops/apply.py``.  These are
+the reference implementations the CUDA kernel (``ops/cuda_apply.py``) is
+held to, and the route a CPU tensor takes.  The stencil, aligned and ELL
+applies wait for later slices (ROADMAP.md, slices 2 and 3).
+
+Accumulation is float32 (or the weight dtype) regardless of image dtype,
+and the output is in the accumulation dtype: bf16 or uint8 pixels give a
+float32 result here, as the JAX XLA route does.  The kernel route keeps
+bf16 in -> bf16 out instead (see ``cuda_apply``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def quadrant_rotate(src: torch.Tensor, quadrant: int) -> torch.Tensor:
+    """90-degree quadrant pre-rotation of the source image.
+
+    Cell-level equivalent of the reference's replication loop rotation cases
+    (Source.cpp:159-172): quadrant k (k*90 degrees clockwise) is
+    ``rot90(src, -k)`` on the trailing two axes.
+    """
+    return torch.rot90(src, k=-int(quadrant), dims=(-2, -1))
+
+
+def _band_index(start: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """(n_dst, k) source indices of a band, clamped into [0, n).
+
+    When a band is wider than the image the trailing indices go out of
+    range (their weights are 0); torch's index_select raises on them,
+    where jnp.take fills, so they are clamped first.
+    """
+    idx = start.to(torch.int64)[:, None] + torch.arange(
+        k, dtype=torch.int64, device=start.device)
+    return idx.clamp_(0, n - 1)
+
+
+def apply_separable_banded(
+    q: torch.Tensor,
+    y_start: torch.Tensor,  # (Hd,) int
+    y_w: torch.Tensor,      # (Hd, ky)
+    x_start: torch.Tensor,  # (Wd,) int
+    x_w: torch.Tensor,      # (Wd, kx)
+) -> torch.Tensor:
+    """dst = (Wy @ q) @ Wx.T with banded row-normalised weights.
+
+    O(k) work per output pixel instead of the dense O(n).  q may have
+    arbitrary leading batch dims: (..., H, W) -> (..., Hd, Wd).  The
+    tables must lie on q's device.
+    """
+    acc_dtype = y_w.dtype
+    Hd, ky = y_w.shape
+    Wd, kx = x_w.shape
+    H, W = q.shape[-2], q.shape[-1]
+    lead = q.shape[:-2]
+    rows = _band_index(y_start, ky, H)                       # (Hd, ky)
+    g = q.index_select(-2, rows.reshape(-1))                 # (..., Hd*ky, W)
+    g = g.reshape(lead + (Hd, ky, W)).to(acc_dtype)
+    t = torch.einsum("hk,...hkw->...hw", y_w, g)             # (..., Hd, W)
+    cols = _band_index(x_start, kx, W)                       # (Wd, kx)
+    g2 = t.index_select(-1, cols.reshape(-1))                # (..., Hd, Wd*kx)
+    g2 = g2.reshape(lead + (Hd, Wd, kx))
+    return torch.einsum("wk,...hwk->...hw", x_w.to(acc_dtype), g2)
+
+
+def uniform_box_params(y_start, y_w, x_start, x_w, H: int, W: int):
+    """(my, mx) if the banded separable operator is an exact uniform integer
+    box filter; None otherwise.
+
+    Integer-ratio downscales whose dst-cell edges land on src-cell edges
+    produce bands of constant stride m whose m live taps all carry weight
+    1/m: the area-average reduces to an m x m box mean.  Edge alignment
+    requires the forward-mapped isocenter fraction (m-1)/(2m) per axis,
+    i.e. src_isocenter = ((m-1)/2, (m-1)/2) — NOTE the flagship iso=(0,0)
+    ratio-2 grid is offset half a src cell (3-tap [1/4, 1/2, 1/4]
+    stencil) and is correctly rejected here.  Detection is exact: strides
+    must equal m with zero anchor offset, H == m * Hd, all live taps
+    bit-identical, and m * w0 == 1 within one rounding of 1/m.
+    Host numpy on the band tables.
+    """
+    params = []
+    for start, w, n in ((y_start, y_w, H), (x_start, x_w, W)):
+        s = np.asarray(start).astype(np.int64)
+        wt = np.asarray(w)
+        nd, k = wt.shape
+        if nd == 0:
+            return None
+        live = wt != 0.0
+        m = int(live[0].sum())
+        if m < 1 or (live.sum(axis=1) != m).any():
+            return None
+        # live taps must be one contiguous run (boundary rows store a
+        # clamped `start` with the weights shifted into trailing columns)
+        first = live.argmax(axis=1)
+        run = (first[:, None] <= np.arange(k)) & (np.arange(k)
+                                                  < first[:, None] + m)
+        if (live != run).any():
+            return None
+        w0 = wt[0, first[0]]
+        if (np.where(run, wt, w0) != w0).any():
+            return None
+        if abs(m * float(w0) - 1.0) > 4e-7:  # one f32 rounding of 1/m
+            return None
+        eff = s + first  # effective first source row of each dst cell
+        if n != m * nd or (eff != m * np.arange(nd)).any():
+            return None
+        params.append(m)
+    return tuple(params)
+
+
+def apply_box_mean(q: torch.Tensor, my: int, mx: int,
+                   acc_dtype=torch.float32) -> torch.Tensor:
+    """Exact uniform integer-ratio area average: strided slices + mean.
+
+    Equivalent (to accumulation rounding) to apply_separable_banded with the
+    stride-m uniform bands that uniform_box_params detects, but touches each
+    source pixel exactly once with zero weight traffic.  Same summation
+    order as the JAX version: rows first in the accumulation dtype, then
+    columns, then one multiply by 1/(my*mx).
+    """
+    t = None
+    for i in range(my):
+        part = q[..., i::my, :].to(acc_dtype)
+        t = part if t is None else t + part
+    o = None
+    for j in range(mx):
+        part = t[..., j::mx]
+        o = part if o is None else o + part
+    return o * torch.tensor(1.0 / (my * mx), dtype=acc_dtype, device=o.device)
