@@ -3,15 +3,24 @@ with hand-written CUDA kernels for NVIDIA Hopper (H100).
 
 The PyTorch port of the JAX package ``aainterp``, which stays the
 reference.  This package imports torch and numpy, never jax or aainterp.
-Ported so far (ROADMAP.md slice 1): axis-aligned resampling (any multiple
-of 90 degrees) through the separable banded apply, with the CUDA kernel
-``csrc/separable_apply.cu`` on CUDA tensors and plain torch on CPU
-tensors, and exact gradients through ``autodiff.SeparableLinear``.
+Ported so far (ROADMAP.md slices 1 and 3):
+
+* axis-aligned resampling (any multiple of 90 degrees) through the
+  separable banded apply, with the CUDA kernel ``csrc/separable_apply.cu``
+  on CUDA tensors and plain torch on CPU tensors, and exact gradients
+  through ``autodiff.SeparableLinear``;
+* exact rotated resampling (modes exact and fast) through the ELL
+  operator (native C++ weight-gen, built with g++ at first use) and the
+  three CUDA kernels of ``csrc/ell_shear.cu`` (vertical shear, horizontal
+  shear, window contraction), with plain torch routes beside them.
 
     import torch, aainterp_torch as aa
     frames = torch.rand(8, 2160, 3840, device="cuda").to(torch.bfloat16)
     res = aa.area_average_interpolate(frames, 2.0, 1.0, (0.0, 0.0), 0.0)
     res.dst.shape   # (8, 1080, 1920), bf16
+    rot = aa.area_average_interpolate(frames[..., :2048, :2048], 1.0, 0.5,
+                                      (1024.0, 1024.0), 30.0)
+    rot.dst.shape   # (8, 1399, 1399), bf16
 """
 
 from .api import (
@@ -21,7 +30,7 @@ from .api import (
     build_operator,
 )
 from .autodiff import SeparableLinear, separable_linear_for
-from .convert import operator_from_numpy
+from .convert import ell_operator_from_numpy, operator_from_numpy
 from .grids import (
     DBL_EPSILON,
     GridSpec,
@@ -31,14 +40,17 @@ from .grids import (
 )
 from .ops.cuda_apply import apply_separable_kernel, apply_separable_plain
 from .ops.weights import (
+    EllOperator,
     OperatorValidationError,
     SeparableOperator,
+    ell_operator,
     separable_operator,
     validate_operator,
 )
 
 __all__ = [
     "DBL_EPSILON",
+    "EllOperator",
     "GridSpec",
     "InterpResult",
     "OperatorValidationError",
@@ -50,6 +62,8 @@ __all__ = [
     "apply_separable_plain",
     "area_average_interpolate",
     "build_operator",
+    "ell_operator",
+    "ell_operator_from_numpy",
     "make_grid_spec",
     "operator_from_numpy",
     "separable_linear_for",

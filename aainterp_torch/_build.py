@@ -1,15 +1,27 @@
-"""Build the CUDA kernel with nvcc at first use and load it with ctypes.
+"""Build the port's native libraries at first use and load them with ctypes.
 
-The source under ``csrc/`` has a plain C interface (no PyTorch headers),
-so one ``nvcc`` call builds it in seconds.  The shared library lands in
-``aainterp_torch/_build/`` under a name that carries a hash of the source
-and flags: a changed source rebuilds, an unchanged one loads the library
-already there.  Nothing is built when the package is imported.
+Three libraries, each from one source with a plain C interface (no
+PyTorch headers), so each builds in seconds:
+
+* ``separable_apply`` — ``csrc/separable_apply.cu`` through nvcc;
+* ``ell_shear`` — ``csrc/ell_shear.cu`` (the rotated apply's three
+  kernels) through nvcc;
+* ``aainterp_native`` — the repository's host weight-gen engine,
+  ``native/aainterp_native.cpp``, through g++ with the flags of
+  ``native/Makefile``.
+
+Each shared library lands in ``aainterp_torch/_build/`` under a name that
+carries a hash of its source, compiler and flags: a changed source
+rebuilds, an unchanged one loads the library already there.  The
+compiler writes a temporary file that is renamed into place, so
+concurrent processes (parallel test workers) never load a half-written
+library.  Nothing is built when the package is imported.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -17,89 +29,168 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from typing import Dict, Sequence, Tuple
+
+import numpy as np
 
 _PKG = Path(__file__).resolve().parent
-SOURCE = _PKG / "csrc" / "separable_apply.cu"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+# native/Makefile's CXXFLAGS; -ffp-contract=off keeps the double results
+# equal to the numpy weight-gen's (no fused multiply-adds)
+GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread", "-Wall",
+             "-ffp-contract=off")
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# aainterp_separable_apply(src, out, ys, wy, xs, wx, col_base,
-#     F, H, W, Hd, Wd, ky, kx, TY, TX, S, in_code, out_code, stream)
-ARGTYPES = [_P] * 7 + [_I] * 12 + [_P]
-
-_LOADED: list = []   # the loaded CDLL, once per process
+_I32P = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_F64P = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 
 
-def nvcc_path() -> str:
-    """The nvcc to build with: CUDA_HOME's, else the one on PATH."""
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    if home and (Path(home) / "bin" / "nvcc").exists():
-        return str(Path(home) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
+@dataclasses.dataclass(frozen=True)
+class Library:
+    """One shared library: its source, compiler and C symbols."""
+
+    name: str
+    source: Path
+    compiler: str                       # "nvcc" or "g++"
+    flags: Tuple[str, ...]
+    # symbol -> (argtypes, restype)
+    symbols: Tuple[Tuple[str, tuple, object], ...]
+
+
+SEPARABLE = Library(
+    "separable_apply", _PKG / "csrc" / "separable_apply.cu", "nvcc",
+    NVCC_FLAGS,
+    # aainterp_separable_apply(src, out, ys, wy, xs, wx, col_base,
+    #     F, H, W, Hd, Wd, ky, kx, TY, TX, S, in_code, out_code, stream)
+    (("aainterp_separable_apply", (_P,) * 7 + (_I,) * 12 + (_P,),
+      ctypes.c_int),))
+
+ELL_SHEAR = Library(
+    "ell_shear", _PKG / "csrc" / "ell_shear.cu", "nvcc", NVCC_FLAGS,
+    (
+        # aainterp_vshear(q, S, gy, F, qH, qW, TH, elem_bytes, stream)
+        ("aainterp_vshear", (_P,) * 3 + (_I,) * 5 + (_P,), ctypes.c_int),
+        # aainterp_hshear(S, T, hx, F, TH, qW, TW, elem_bytes, stream)
+        ("aainterp_hshear", (_P,) * 3 + (_I,) * 5 + (_P,), ctypes.c_int),
+        # aainterp_contract(T, out, ry0, cx0, w2, F, TH, TW, Hd, Wd, Ka,
+        #     Kb, dtype_code, stream)
+        ("aainterp_contract", (_P,) * 5 + (_I,) * 8 + (_P,), ctypes.c_int),
+    ))
+
+NATIVE = Library(
+    "aainterp_native", _PKG.parent / "native" / "aainterp_native.cpp", "g++",
+    GXX_FLAGS,
+    # aai_ell_weights(Hd, Wd, K, qH, qW, p00x, p00y, exx, exy, eyx, eyy,
+    #     L, cos, sin, scale, mode, normalise, n_threads, base, w, sums)
+    (("aai_ell_weights", (ctypes.c_int,) * 5 + (ctypes.c_double,) * 10
+      + (ctypes.c_int,) * 3 + (_I32P, _F64P, _F64P), None),))
+
+_LOADED: Dict[str, ctypes.CDLL] = {}   # library name -> CDLL, once per process
+
+
+def _which(names: Sequence[str], env_homes: Sequence[str], default: str,
+           what: str) -> str:
+    for var in env_homes:
+        home = os.environ.get(var)
+        if home and (Path(home) / "bin" / names[0]).exists():
+            return str(Path(home) / "bin" / names[0])
+    for n in names:
+        found = shutil.which(n)
+        if found:
+            return found
+    if default and Path(default).exists():
+        return default
     raise RuntimeError(
-        "nvcc not found (set CUDA_HOME or put nvcc on PATH); the CUDA "
-        "kernel of aainterp_torch is built from source at first use")
+        f"{what} not found; aainterp_torch builds its native libraries "
+        "from source at first use")
 
 
-def library_path() -> Path:
-    """Where the library for the current source and flags lives."""
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libseparable_apply_{h.hexdigest()[:16]}.so"
+def compiler_path(compiler: str) -> str:
+    """The executable for ``compiler``: nvcc from CUDA_HOME / CUDA_PATH /
+    PATH / /usr/local/cuda, g++ from CXX / PATH."""
+    if compiler == "nvcc":
+        return _which(["nvcc"], ["CUDA_HOME", "CUDA_PATH"],
+                      "/usr/local/cuda/bin/nvcc",
+                      "nvcc (set CUDA_HOME or put nvcc on PATH)")
+    cxx = os.environ.get("CXX")
+    if cxx and shutil.which(cxx):
+        return shutil.which(cxx)
+    return _which(["g++", "c++"], [], "", "g++ (set CXX or put g++ on PATH)")
 
 
-def build() -> Path:
-    """Compile the library if its hashed .so is missing; return its path.
-
-    The compiler writes to a temporary file that is renamed into place, so
-    concurrent processes never load a half-written library.
-    """
-    so = library_path()
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                f"{res.stdout}{res.stderr}")
-        if res.stderr.strip():
-            print(res.stderr.strip())
-        os.replace(tmp, so)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return so
+def library_path(lib: Library) -> Path:
+    """Where ``lib`` built from its current source and flags lives."""
+    h = hashlib.sha256(lib.source.read_bytes())
+    h.update(" ".join((lib.compiler,) + lib.flags).encode())
+    return BUILD_DIR / f"lib{lib.name}_{h.hexdigest()[:16]}.so"
 
 
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the library, with its argtypes set.
+def build_many(libs: Sequence[Library]) -> Dict[str, Path]:
+    """Compile every library whose hashed .so is missing, all compilers
+    running at once; return {name: path}.  Raises on any failure."""
+    jobs, paths = [], {}
+    for lib in libs:
+        so = library_path(lib)
+        paths[lib.name] = so
+        if so.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [compiler_path(lib.compiler), *lib.flags, "-o", tmp,
+               str(lib.source)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs.append((lib, so, tmp, cmd, proc))
+    errors = []
+    for lib, so, tmp, cmd, proc in jobs:
+        try:
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{lib.compiler} failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{out}{err}")
+                continue
+            if err.strip():
+                print(err.strip())
+            os.replace(tmp, so)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return paths
+
+
+def build(lib: Library) -> Path:
+    """Compile ``lib`` if its hashed .so is missing; return its path."""
+    return build_many([lib])[lib.name]
+
+
+def load(lib: Library) -> ctypes.CDLL:
+    """Build (if needed) and load ``lib``, with its argtypes set.
 
     Loaded once per process: the source is hashed at the first call only
     (re-reading it on every launch cost ~100 µs of host time).
     """
-    if _LOADED:
-        return _LOADED[0]
-    lib = ctypes.CDLL(str(build()))
-    lib.aainterp_separable_apply.argtypes = ARGTYPES
-    lib.aainterp_separable_apply.restype = ctypes.c_int
-    _LOADED.append(lib)
-    return lib
+    hit = _LOADED.get(lib.name)
+    if hit is not None:
+        return hit
+    cdll = ctypes.CDLL(str(build(lib)))
+    for sym, argtypes, restype in lib.symbols:
+        fn = getattr(cdll, sym)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+    _LOADED[lib.name] = cdll
+    return cdll
 
 
-def timed_build() -> float:
-    """Seconds to build the library from scratch (removes its old .so)."""
-    library_path().unlink(missing_ok=True)
+def timed_build(libs: Sequence[Library] = (SEPARABLE,)) -> float:
+    """Seconds to build ``libs`` from scratch, in parallel (removes their
+    old .so files first)."""
+    for lib in libs:
+        library_path(lib).unlink(missing_ok=True)
     t0 = time.perf_counter()
-    build()
+    build_many(libs)
     return time.perf_counter() - t0

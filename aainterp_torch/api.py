@@ -1,12 +1,14 @@
 """Public API: area-average (conservative) interpolation in PyTorch.
 
-Counterpart of the separable part of ``aainterp/api.py``:
+Counterpart of ``aainterp/api.py``, separable and exact rotated (ELL)
+families:
 
     spec = make_grid_spec(...)            # geometry (grids.py)
     op   = build_operator(spec, mode)     # host float64, cacheable (ops/weights.py)
     dst  = apply_operator(op, src)        # torch / CUDA apply
 
-Routing (``apply_operator``, counterpart of api.py:185-236):
+Separable routes (``apply_operator`` on a SeparableOperator, counterpart
+of api.py:185-236):
 
 * a CUDA tensor with ``impl='auto'`` always goes to the CUDA kernel, at
   every size, through :class:`autodiff.SeparableLinear`;
@@ -16,29 +18,59 @@ Routing (``apply_operator``, counterpart of api.py:185-236):
   ``impl='banded'`` (JAX's 'xla') and ``impl='box'`` force the plain
   routes on either device.
 
-Dtypes follow the route, as in JAX: the kernel keeps bf16 in -> bf16 out
-(Pallas contract); the plain routes give f32 for bf16 input (XLA
+Rotated routes (``apply_operator`` on an EllOperator, counterpart of
+api.py:237-317).  The quadrant pre-rotation is folded into the tables
+(``weights.fold_quadrant_ell_cached``) and only the small output pays a
+flip/transpose:
+
+* ``impl='kernel'`` (JAX's 'pallas'): the three CUDA kernels of
+  ``ops/cuda_shear.py``; raises on a CPU tensor or where
+  ``build_shear_plan`` rejects the geometry;
+* ``impl='sheared'`` (JAX's 'sheared'): the same shear pipeline in plain
+  torch, on either device;
+* ``impl='gather'`` (JAX's 'xla'): the plain flat-gather ``apply_ell``;
+* ``impl='auto'`` takes 'kernel' for a CUDA tensor at every size and
+  'gather' for a CPU tensor.  Where the geometry has no shear plan
+  (sheared window wider than 24, or an empty operator) it takes 'gather'
+  with a RuntimeWarning, counted in ``SHEAR_PLAN_FALLBACKS``; the choice is
+  made before any launch.
+
+Dtypes follow the route, as in JAX: the kernel routes keep bf16 in ->
+bf16 out (Pallas contract); the plain routes give f32 for bf16 input (XLA
 contract).  uint8 input gives f32 on every route at this level.
 
-Rotated geometries, ``mode='shear'``, ``fused=True`` and ``method='ell'``
-raise NotImplementedError naming the ROADMAP.md slice that brings them.
+Not yet ported, raising NotImplementedError naming the ROADMAP.md slice
+that brings them: ``mode='shear'`` (slice 4); rotated ``mode='compat'``,
+``fused=True`` and ``differentiable=True`` on an EllOperator (slice 3).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import warnings
+from typing import Optional, Tuple, Union
 
 import torch
 
 from . import autodiff
 from .grids import GridSpec, make_grid_spec
 from .ops import apply as apply_ops
+from .ops import cuda_shear
 from .ops import weights as weights_ops
+from .utils.digest import array_digest
+from .utils.lru import LruDict
 
-Operator = weights_ops.SeparableOperator
+Operator = Union[weights_ops.SeparableOperator, weights_ops.EllOperator]
 
 IMPLS = ("auto", "kernel", "banded", "box")
+ELL_IMPLS = ("auto", "kernel", "sheared", "gather")
+
+# 'auto' rotated applies that took 'gather' because the geometry has no
+# shear plan (see apply_operator)
+SHEAR_PLAN_FALLBACKS = 0
+
+# device copies of ELL tables for the 'gather' route, content-keyed
+_GATHER_CACHE = LruDict(4, max_bytes=4 << 30)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,8 +84,8 @@ class InterpResult:
 
 def _rotated_not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} needs the exact rotated (ELL) family, which the PyTorch "
-        "port brings in ROADMAP.md slice 3; use the JAX package aainterp "
+        f"{what} is still to come in the PyTorch port's exact rotated "
+        "family (ROADMAP.md slice 3); use the JAX package aainterp "
         "meanwhile")
 
 
@@ -63,20 +95,28 @@ def build_operator(
     method: str = "auto",
     validate: bool = True,
 ) -> Operator:
-    """Build the (host, float64, row-normalised) separable operator.
+    """Build the (host, float64, row-normalised) resampling operator.
 
-    method: 'auto' or 'separable' (zero residual rotation).  validate runs
-    the numerical sanitizer (weights.validate_operator) on the result.
+    method: 'auto' picks separable for zero residual rotation, ELL
+    otherwise.  The ELL weight-gen runs on the native C++ engine (built
+    with g++ at first use) and falls back to numpy with a RuntimeWarning.
+    validate runs the numerical sanitizer (weights.validate_operator) on
+    the result.
     """
     if mode not in ("exact", "fast", "compat"):
         raise ValueError(
             f"build_operator mode must be exact/fast/compat, got {mode!r}")
-    if method == "ell" or (method == "auto" and not spec.is_axis_aligned):
-        raise _rotated_not_ported("an ELL operator (rotated geometry or "
-                                  "method='ell')")
-    if method not in ("auto", "separable"):
+    if method == "auto":
+        method = "separable" if spec.is_axis_aligned else "ell"
+    if method == "separable":
+        op = weights_ops.separable_operator(spec, mode=mode)
+    elif method == "ell":
+        if mode == "compat":
+            raise _rotated_not_ported(
+                "the compat ELL weight-gen (rotated mode='compat')")
+        op = weights_ops.ell_operator(spec, mode=mode)
+    else:
         raise ValueError(f"unknown method {method!r}")
-    op = weights_ops.separable_operator(spec, mode=mode)
     if validate:
         weights_ops.validate_operator(op)
     return op
@@ -99,15 +139,19 @@ def apply_operator(
     impl: str = "auto",
     differentiable: bool = False,
 ) -> torch.Tensor:
-    """Apply a prebuilt separable operator to (..., H, W) image(s).
+    """Apply a prebuilt operator to (..., H, W) image(s).
 
-    See the module docstring for ``impl``.  Gradients: the kernel route
-    always carries the transposed-band backward (autodiff.SeparableLinear);
-    ``differentiable=True`` routes the plain banded apply through the same
-    Function (otherwise torch differentiates the plain ops directly).
+    See the module docstring for ``impl``.  Gradients (separable only):
+    the kernel route always carries the transposed-band backward
+    (autodiff.SeparableLinear); ``differentiable=True`` routes the plain
+    banded apply through the same Function (otherwise torch
+    differentiates the plain ops directly).
     """
+    if isinstance(op, weights_ops.EllOperator):
+        return _apply_ell_operator(op, src, weight_dtype, impl,
+                                   differentiable)
     if not isinstance(op, weights_ops.SeparableOperator):
-        raise _rotated_not_ported(f"applying a {type(op).__name__}")
+        raise TypeError(f"unknown operator type {type(op)!r}")
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
     autodiff.numpy_weight_dtype(weight_dtype)  # raises on other dtypes
@@ -144,6 +188,85 @@ def apply_operator(
     return lin(src) if differentiable else lin.forward(src)
 
 
+def _gather_tables(op: weights_ops.EllOperator, weight_dtype: torch.dtype,
+                   device: torch.device):
+    """(base, weights) of ``op`` on ``device``, uploaded once per table
+    content, dtype and device."""
+    key = (array_digest(op.weights), array_digest(op.base),
+           op.weights.shape, weight_dtype, device)
+    hit = _GATHER_CACHE.get(key)
+    if hit is None:
+        hit = (torch.from_numpy(op.base).to(device),
+               torch.from_numpy(op.weights).to(device=device,
+                                                dtype=weight_dtype))
+        _GATHER_CACHE.put(key, hit)
+    return hit
+
+
+def _ell_route(op: weights_ops.EllOperator, impl: str, on_cuda: bool):
+    """(route, shear plan or None) for a quadrant-0 (folded) EllOperator.
+
+    'auto' takes 'kernel' for a CUDA tensor and 'gather' for a CPU one; a
+    geometry without a shear plan sends 'auto' to 'gather' with a
+    RuntimeWarning (counted in SHEAR_PLAN_FALLBACKS), decided here before
+    any launch.  Forced 'kernel' / 'sheared' raise ValueError instead.
+    """
+    global SHEAR_PLAN_FALLBACKS
+    if impl == "auto":
+        if not on_cuda:
+            return "gather", None
+        try:
+            return "kernel", cuda_shear.kernel_plan(op)
+        except ValueError as e:
+            warnings.warn(f"rotated apply takes the plain gather route: {e}",
+                          RuntimeWarning)
+            SHEAR_PLAN_FALLBACKS += 1
+            return "gather", None
+    if impl == "kernel" and not on_cuda:
+        raise ValueError(
+            "impl='kernel' needs a CUDA tensor (use impl='auto', 'sheared' "
+            "or 'gather' on the CPU)")
+    if impl in ("kernel", "sheared"):
+        return impl, cuda_shear.kernel_plan(op)
+    return "gather", None
+
+
+def _apply_ell_operator(op, src, weight_dtype, impl, differentiable):
+    """The rotated routes of ``apply_operator`` (module docstring)."""
+    if impl not in ELL_IMPLS:
+        raise ValueError(f"unknown impl {impl!r} for an EllOperator; "
+                         f"expected one of {ELL_IMPLS}")
+    if differentiable:
+        raise _rotated_not_ported(
+            "differentiable=True on an EllOperator (the ELL custom VJP)")
+    autodiff.numpy_weight_dtype(weight_dtype)  # raises on other dtypes
+    src = torch.as_tensor(src)
+    post = None
+    if op.spec.quadrant % 4:
+        # the rot90 pre-rotation folds into the table: the apply reads the
+        # ORIGINAL image and only the small output is flipped/transposed
+        op, post = weights_ops.fold_quadrant_ell_cached(op)
+    qH, qW = op.spec.qrot_shape
+    if tuple(src.shape[-2:]) != (qH, qW):
+        raise ValueError(f"source (..., H, W) must end in {(qH, qW)} for "
+                         f"this operator, got {tuple(src.shape)}")
+    route, plan = _ell_route(op, impl, src.is_cuda)
+    if route == "gather":
+        base, w = _gather_tables(op, weight_dtype, src.device)
+        out = apply_ops.apply_ell(src, base, w)
+    else:
+        # the shear pipeline computes in f32 whatever weight_dtype says
+        lead = src.shape[:-2]
+        frames = src.reshape((-1, qH, qW))
+        if route == "kernel":
+            out = cuda_shear.apply_ell_shear_kernel(frames.contiguous(), plan)
+        else:
+            out = cuda_shear.apply_ell_shear_plain(frames, plan,
+                                                   out_dtype=torch.float32)
+        out = out.reshape(lead + out.shape[-2:])
+    return out if post is None else post(out)
+
+
 def area_average_interpolate(
     src,
     src_resolution: float,
@@ -158,14 +281,17 @@ def area_average_interpolate(
     fused: bool = False,
     differentiable: bool = False,
 ) -> InterpResult:
-    """Area-average interpolation with an axis-aligned rotation (k * 90°).
+    """Area-average interpolation with optional rotation about an isocenter.
 
     Parameters mirror the reference program's signature (Source.cpp:55-57):
     ``src`` is a (..., H, W) tensor; resolutions are scalar; ``src_isocenter``
     is (x, y) in source pixels; ``rotation_angle`` is degrees, clockwise
     positive.  mode: 'exact' (true overlap areas), 'fast' (replica-center
     counting, Source.cpp mode 2) or 'compat' (equal to 'exact' when the
-    geometry is axis-aligned).  The apply takes apply_operator's auto route.
+    geometry is axis-aligned; rotated compat is not ported yet).  The
+    operator is built here unless ``operator=`` passes a prebuilt one
+    (reuse it across requests: the rotated weight-gen is the costly step),
+    and the apply takes apply_operator's auto route.
     """
     if mode == "shear":
         raise NotImplementedError(
@@ -174,11 +300,8 @@ def area_average_interpolate(
     if mode not in ("exact", "fast", "compat"):
         raise ValueError(f"mode must be exact/fast/compat, got {mode!r}")
     if fused:
-        raise NotImplementedError(
-            "fused on-device ELL weight-gen comes to the PyTorch port in "
-            "ROADMAP.md slice 3")
-    if method == "ell":
-        raise _rotated_not_ported("method='ell'")
+        raise _rotated_not_ported(
+            "fused=True (on-device ELL weight-gen, a torch ell_weights)")
     src = torch.as_tensor(src)
     spec = make_grid_spec(
         (src.shape[-2], src.shape[-1]),
@@ -187,10 +310,11 @@ def area_average_interpolate(
         src_isocenter,
         rotation_angle,
     )
-    if not spec.is_axis_aligned:
-        raise _rotated_not_ported(
-            f"rotation_angle={rotation_angle} (not a multiple of 90 degrees)")
-    if mode == "compat":
+    if mode == "compat" and method == "auto":
+        if not spec.is_axis_aligned:
+            raise _rotated_not_ported(
+                "rotated mode='compat' (the reference's exact-mode defects, "
+                "ops/compat.py)")
         # axis-aligned compat == exact separable (no taxonomy involved)
         mode = "exact"
     if operator is None:

@@ -1,6 +1,6 @@
 """Carry an operator's host tables into the port as plain numpy.
 
-The port's "parameters" are the operator's band tables.  A separable
+The port's "parameters" are the operator's tables.  A separable or ELL
 operator built anywhere (the JAX package, a disk cache, another process)
 can be unpacked into numpy arrays and rebuilt here, so both sides apply
 identical tables.  Nothing here imports the JAX package.
@@ -14,7 +14,7 @@ import numpy as np
 
 from .grids import GridSpec
 from .ops.overlap1d import Band1D
-from .ops.weights import SeparableOperator
+from .ops.weights import EllOperator, SeparableOperator
 
 
 def band_from_numpy(band: Sequence) -> Band1D:
@@ -59,3 +59,29 @@ def operator_from_numpy(
                       np.asarray(sx, dtype=np.float64)),
         mode=mode,
     )
+
+
+def ell_operator_from_numpy(
+    spec_fields: Mapping,
+    base: np.ndarray,
+    weights: np.ndarray,
+    raw_row_sums: np.ndarray,
+    mode: str = "exact",
+) -> EllOperator:
+    """The port's EllOperator from plain numpy tables: ``base`` (Hd, Wd, 2)
+    int32 window bases, ``weights`` (Hd, Wd, K, K) and ``raw_row_sums``
+    (Hd, Wd), as an EllOperator of the JAX package holds them."""
+    spec = spec_from_fields(spec_fields)
+    base = np.ascontiguousarray(base, dtype=np.int32)
+    weights = np.ascontiguousarray(weights, dtype=np.float64)
+    raw_row_sums = np.ascontiguousarray(raw_row_sums, dtype=np.float64)
+    Hd, Wd = spec.dst_shape
+    if (base.shape != (Hd, Wd, 2) or weights.ndim != 4
+            or weights.shape[:2] != (Hd, Wd)
+            or weights.shape[2] != weights.shape[3]
+            or raw_row_sums.shape != (Hd, Wd)):
+        raise ValueError(
+            f"ELL tables base {base.shape} / weights {weights.shape} / raw "
+            f"sums {raw_row_sums.shape} do not match dst {(Hd, Wd)}")
+    return EllOperator(spec=spec, base=base, weights=weights,
+                       raw_row_sums=raw_row_sums, mode=mode)

@@ -1,9 +1,11 @@
-"""Apply stage, plain PyTorch: the separable banded apply and the box mean.
+"""Apply stage, plain PyTorch: the separable banded apply, the box mean
+and the ELL (rotated) gather apply.
 
 Counterpart of the plain part of ``aainterp/ops/apply.py``.  These are
-the reference implementations the CUDA kernel (``ops/cuda_apply.py``) is
-held to, and the route a CPU tensor takes.  The stencil, aligned and ELL
-applies wait for later slices (ROADMAP.md, slices 2 and 3).
+the reference implementations the CUDA kernels (``ops/cuda_apply.py``,
+``ops/cuda_shear.py``) are held to, and the routes a CPU tensor takes.
+The stencil and aligned applies wait for slice 2, the ELL transpose for
+the rest of slice 3 (ROADMAP.md).
 
 Accumulation is float32 (or the weight dtype) regardless of image dtype,
 and the output is in the accumulation dtype: bf16 or uint8 pixels give a
@@ -131,3 +133,31 @@ def apply_box_mean(q: torch.Tensor, my: int, mx: int,
         part = t[..., j::mx]
         o = part if o is None else o + part
     return o * torch.tensor(1.0 / (my * mx), dtype=acc_dtype, device=o.device)
+
+
+def apply_ell(
+    q: torch.Tensor,
+    base: torch.Tensor,     # (Hd, Wd, 2) int
+    weights: torch.Tensor,  # (Hd, Wd, K, K)
+) -> torch.Tensor:
+    """Gather-weighted window reduction for the rotated operator.
+
+    For each dst pixel, gathers its K x K candidate source cells (indices
+    clamped into the image, as jnp.take does; clamped taps carry zero
+    weight) and reduces them with the pre-normalised overlap weights, in
+    the weights' dtype.  q: (..., qH, qW) -> (..., Hd, Wd), on q's device
+    (the tables must lie there too).
+    """
+    K = weights.shape[-1]
+    qH, qW = q.shape[-2], q.shape[-1]
+    lead = q.shape[:-2]
+    a = torch.arange(K, dtype=torch.int64, device=base.device)
+    ry = (base[..., 0:1].to(torch.int64) + a).clamp_(0, qH - 1)  # (Hd, Wd, K)
+    rx = (base[..., 1:2].to(torch.int64) + a).clamp_(0, qW - 1)
+    idx = ry[..., :, None] * qW + rx[..., None, :]               # (Hd, Wd, K, K)
+    # tap axis leads, as in the JAX version: (K*K, Hd, Wd)
+    idx = idx.reshape(idx.shape[:-2] + (K * K,)).movedim(-1, 0)
+    w_t = weights.reshape(weights.shape[:-2] + (K * K,)).movedim(-1, 0)
+    vals = q.reshape(lead + (qH * qW,)).index_select(-1, idx.reshape(-1))
+    vals = vals.reshape(lead + tuple(idx.shape)).to(weights.dtype)
+    return (vals * w_t).sum(dim=-3)

@@ -186,7 +186,7 @@ def apply_separable_kernel(frames: torch.Tensor, y_start, y_w, x_start, x_w,
         raise ValueError("frames have an empty spatial axis")
     plan = _plan_for(ys, yw, xs, xw)
     d_ys, d_yw, d_xs, d_xw, d_c0 = _device_tables(plan, frames.device)
-    fn = _build.load_library().aainterp_separable_apply
+    fn = _build.load(_build.SEPARABLE).aainterp_separable_apply
     with torch.cuda.device(frames.device):
         stream = torch.cuda.current_stream(frames.device).cuda_stream
         rc = fn(frames.data_ptr(), out.data_ptr(), d_ys.data_ptr(),

@@ -1,8 +1,10 @@
-"""Weight-generation: the separable resampling operator from a GridSpec.
+"""Weight-generation: the resampling operators from a GridSpec.
 
-Counterpart of the separable part of ``aainterp/ops/weights.py``
-(host numpy float64, carried over).  The ELL, compose and squared
-operators wait for later slices (ROADMAP.md, slices 2 and 3).
+Counterpart of ``aainterp/ops/weights.py`` (host numpy float64, carried
+over): the separable operator (axis-aligned geometries) and the ELL
+operator (rotated geometries), with the operator sanitizer and the
+quadrant folds.  The compose and squared operators wait for slice 2, the
+compat ELL weight-gen for the rest of slice 3 (ROADMAP.md).
 
 Weight-gen is a data-independent stage producing a static-shape operator
 with ``dst = (Wy @ q) @ Wx.T`` where each row of Wy / Wx is pre-normalised
@@ -15,14 +17,27 @@ row-normalised.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
-from typing import Tuple
+import warnings
+from typing import Callable, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..grids import DBL_EPSILON, GridSpec
+from ..utils.digest import array_digest
+from ..utils.lru import LruDict
 from . import overlap1d
+from .clipper import quad_rect_overlap_area, quad_vertices
+
+# folded quadrant ELL operators, content-keyed (fold_quadrant_ell_cached);
+# the fold copies the (Hd, Wd, K, K) table, hundreds of MB at 2048^2
+_FOLD_CACHE = LruDict(4, max_bytes=3 << 30)
+
+# which engine built each ELL operator (ell_operator): 'native' or 'numpy'
+WEIGHT_GEN_ENGINES = {"native": 0, "numpy": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +96,43 @@ def separable_operator(spec: GridSpec, mode: str = "exact") -> SeparableOperator
                              raw_row_sums=(sy, sx), mode=mode)
 
 
+@dataclasses.dataclass(frozen=True)
+class EllOperator:
+    """Fixed-window sparse operator for rotated resampling.
+
+    ``weights[dy, dx, a, b]`` multiplies the quadrant-rotated source cell
+    ``(base[dy, dx, 0] + a, base[dy, dx, 1] + b)``; rows are pre-normalised.
+    """
+
+    spec: GridSpec
+    base: np.ndarray     # (Hd, Wd, 2) int32 — (jy0, jx0)
+    weights: np.ndarray  # (Hd, Wd, K, K)
+    raw_row_sums: np.ndarray  # (Hd, Wd) pre-normalisation overlap totals
+    mode: str = "exact"
+
+    @property
+    def window(self) -> int:
+        return self.weights.shape[-1]
+
+    def dense(self) -> np.ndarray:
+        """(Hd*Wd, qH*qW) dense matrix — tests only."""
+        qH, qW = self.spec.qrot_shape
+        Hd, Wd = self.spec.dst_shape
+        K = self.window
+        W = np.zeros((Hd * Wd, qH * qW), dtype=self.weights.dtype)
+        for dy in range(Hd):
+            for dx in range(Wd):
+                jy0, jx0 = self.base[dy, dx]
+                for a in range(K):
+                    for b in range(K):
+                        jy, jx = jy0 + a, jx0 + b
+                        if 0 <= jy < qH and 0 <= jx < qW:
+                            W[dy * Wd + dx, jy * qW + jx] = self.weights[
+                                dy, dx, a, b
+                            ]
+        return W
+
+
 class OperatorValidationError(ValueError):
     """A built/loaded operator failed the numerical sanitizer."""
 
@@ -91,48 +143,68 @@ def _check(cond, msg) -> None:
         raise OperatorValidationError(msg)
 
 
-def validate_operator(op: SeparableOperator) -> dict:
-    """Numerical sanitizer for a built separable operator.
+def validate_operator(op) -> dict:
+    """Numerical sanitizer for a built separable or ELL operator.
 
     Checks: finite weights; normalised rows sum to 1 (or exactly 0 for
-    empty footprints); raw row sums within [0, the per-axis bound of the
-    weight-gen mode].  Returns a dict of stats; raises
-    OperatorValidationError on violation.
+    empty footprints); raw row sums within [0, the bound of the
+    weight-gen mode]; ELL window bases inside the rotated source.
+    Returns a dict of stats; raises OperatorValidationError on violation.
     """
-    if not isinstance(op, SeparableOperator):
-        raise TypeError(
-            f"validate_operator takes a SeparableOperator, got "
-            f"{type(op).__name__} (ELL operators arrive with the rotated "
-            "slice, ROADMAP.md slice 3)")
+    if not isinstance(op, (SeparableOperator, EllOperator)):
+        raise TypeError(f"validate_operator takes a SeparableOperator or "
+                        f"an EllOperator, got {type(op).__name__}")
     L = op.spec.dst_side
     mode = op.mode
     # per-axis raw-sum upper bound by weight-gen semantics:
     #  exact — true overlap length, <= L
-    #  compat — the reference's type-2 defect can overcount (rotated only,
-    #           but the bound is kept as in the JAX package)
+    #  compat — the reference's type-2 defect can overcount its areas
     #  fast — raw sums are COUNTS of unit-spaced replica centers inside the
     #         L-side footprint (Source.cpp:899-905), at most floor(L)+1
     if mode == "fast":
         bound_1d = math.floor(L + 1e-9) + 1.0
+        # rotated footprint: centers inside the square lie in its bbox of
+        # side L*(|cos|+|sin|)
+        span = L * (abs(op.spec.cos) + abs(op.spec.sin))
+        bound_2d = (math.floor(span + 1e-9) + 1.0) ** 2
     elif mode == "compat":
         bound_1d = 2.0 * L
+        bound_2d = 2.0 * L * L
     else:
         bound_1d = L * (1.0 + 1e-9)
-    stats = {}
-    for name, band, sums in (
-        ("y", op.wy, op.raw_row_sums[0]),
-        ("x", op.wx, op.raw_row_sums[1]),
-    ):
-        w = band.weights
-        _check(np.isfinite(w).all(), f"non-finite {name} weights")
-        rs = w.sum(axis=1)
-        ok = np.isclose(rs, 1.0, atol=1e-9) | (rs == 0.0)
-        _check(ok.all(), f"{name} rows not normalised")
-        _check((sums >= -1e-12).all(), f"negative {name} raw sums")
-        _check((sums <= bound_1d + 1e-9).all(),
-               f"{name} raw sums exceed the {mode} bound {bound_1d}")
-        stats[f"{name}_zero_rows"] = int((rs == 0.0).sum())
-    return stats
+        bound_2d = L * L * (1.0 + 1e-9)
+    if isinstance(op, SeparableOperator):
+        stats = {}
+        for name, band, sums in (
+            ("y", op.wy, op.raw_row_sums[0]),
+            ("x", op.wx, op.raw_row_sums[1]),
+        ):
+            w = band.weights
+            _check(np.isfinite(w).all(), f"non-finite {name} weights")
+            rs = w.sum(axis=1)
+            ok = np.isclose(rs, 1.0, atol=1e-9) | (rs == 0.0)
+            _check(ok.all(), f"{name} rows not normalised")
+            _check((sums >= -1e-12).all(), f"negative {name} raw sums")
+            _check((sums <= bound_1d + 1e-9).all(),
+                   f"{name} raw sums exceed the {mode} bound {bound_1d}")
+            stats[f"{name}_zero_rows"] = int((rs == 0.0).sum())
+        return stats
+    w = op.weights
+    _check(np.isfinite(w).all(), "non-finite ELL weights")
+    rs = w.sum(axis=(-1, -2))
+    ok = np.isclose(rs, 1.0, atol=1e-9) | (rs == 0.0)
+    _check(ok.all(), "ELL rows not normalised")
+    _check((op.raw_row_sums >= -1e-12).all(), "negative ELL raw sums")
+    _check((op.raw_row_sums <= bound_2d + 1e-9).all(),
+           f"ELL raw sums exceed the {mode} bound {bound_2d}")
+    qH, qW = op.spec.qrot_shape
+    K = op.window
+    _check((op.base >= 0).all(), "negative ELL window base")
+    _check((op.base[..., 0] + K <= max(qH, K)).all(),
+           "ELL window base exceeds rotated rows")
+    _check((op.base[..., 1] + K <= max(qW, K)).all(),
+           "ELL window base exceeds rotated cols")
+    return {"zero_rows": int((rs == 0.0).sum())}
 
 
 def fold_quadrant_separable(op: SeparableOperator):
@@ -161,3 +233,275 @@ def fold_quadrant_separable(op: SeparableOperator):
     if q == 2:
         return overlap1d.flip_band(op.wy), overlap1d.flip_band(op.wx), False
     return op.wx, overlap1d.flip_band(op.wy), True
+
+
+def _window_base(p, radius, scale, n, K):
+    """First candidate cell index covering [p - radius, p + radius], clamped.
+
+    Smallest j with j*scale + scale - 0.5 > p - radius; clamped to [0, n-K]
+    so gathers are in-range (out-of-range cells are masked to weight 0, and
+    the clamp never shifts a genuinely-overlapping in-range cell out of the
+    window — see window-size bound in GridSpec.window_cells).
+    """
+    j0 = np.floor((p - radius + 0.5) / scale - 1.0).astype(np.int32) + 1
+    return np.clip(j0, 0, max(n - K, 0))
+
+
+def ell_weights(
+    spec: GridSpec,
+    mode: str = "exact",
+    dy_slice: Optional[Tuple[int, int]] = None,
+):
+    """Compute (base, weights, raw_sums) for dst rows [dy0, dy1), float64,
+    rows normalised.
+
+    Static output shapes: (R, Wd, 2), (R, Wd, K, K), (R, Wd).
+    """
+    dtype = np.float64
+    Hd, Wd = spec.dst_shape
+    dy0, dy1 = dy_slice if dy_slice is not None else (0, Hd)
+    R = dy1 - dy0
+    K = spec.window_cells
+    qH, qW = spec.qrot_shape
+    s = float(spec.scale)
+    L = spec.dst_side
+    c, sn = spec.cos, spec.sin
+
+    p00, ex, ey = spec.linear_map
+    dx = np.arange(Wd, dtype=dtype)
+    dy = np.arange(dy0, dy1, dtype=dtype)
+    px = p00[0] + dx[None, :] * ex[0] + dy[:, None] * ey[0]   # (R, Wd)
+    py = p00[1] + dx[None, :] * ex[1] + dy[:, None] * ey[1]
+
+    radius = L * (abs(c) + abs(sn)) / 2.0
+    jy0 = _window_base(py, radius, s, qH, K)                   # (R, Wd)
+    jx0 = _window_base(px, radius, s, qW, K)
+
+    a = np.arange(K, dtype=dtype)
+    jy = jy0[..., None].astype(dtype) + a                      # (R, Wd, K)
+    jx = jx0[..., None].astype(dtype) + a
+
+    # local coordinates relative to the dst pixel center (px, py)
+    # candidate cell rectangles: [j*s - 0.5 - p, j*s + s - 0.5 - p]
+    cell_ylo = jy * s - 0.5 - py[..., None]
+    cell_xlo = jx * s - 0.5 - px[..., None]
+
+    if mode == "exact":
+        zero = np.zeros((R, Wd), dtype=dtype)
+        qx, qy = quad_vertices(zero, zero, L, c, sn)           # (R, Wd, 4)
+        # broadcast to (R, Wd, K, K)
+        lo_y = cell_ylo[..., :, None] + np.zeros_like(cell_xlo[..., None, :])
+        lo_x = cell_xlo[..., None, :] + np.zeros_like(cell_ylo[..., :, None])
+        w = quad_rect_overlap_area(
+            np.broadcast_to(qx[..., None, None, :], (R, Wd, K, K, 4)),
+            np.broadcast_to(qy[..., None, None, :], (R, Wd, K, K, 4)),
+            lo_x,
+            lo_y,
+            lo_x + s,
+            lo_y + s,
+        )
+        # zero out numerical slivers: the clamp-clip shoelace leaves
+        # O(eps * extent^2) noise on empty/tangent overlaps; without this, a
+        # dst pixel whose footprint misses the image entirely would normalise
+        # noise into a garbage value (the reference gets exact zeros there via
+        # its empty search window, Source.cpp:426-429/577)
+        extent = K * s + L
+        machine_eps = float(np.finfo(np.dtype(dtype)).eps)
+        sliver = 64.0 * machine_eps * extent * extent
+        w = np.where(w > sliver, w, np.zeros_like(w))
+    elif mode == "fast":
+        # count replica centers (j*s + m) inside the rotated dst square:
+        # |R(theta) (center - p)|_inf <= L/2 (boundary inclusive, matching the
+        # DBL_EPSILON-fuzzed ray cast at Source.cpp:837-864)
+        eps = 1e-9
+        w = np.zeros((R, Wd, K, K), dtype=dtype)
+        scale_i = int(spec.scale)
+        for my in range(scale_i):
+            for mx in range(scale_i):
+                cy = (cell_ylo + 0.5 + my)[..., :, None]       # (R, Wd, K, 1)
+                cx = (cell_xlo + 0.5 + mx)[..., None, :]       # (R, Wd, 1, K)
+                u = cx * c - cy * sn
+                v = cx * sn + cy * c
+                inside = np.logical_and(
+                    np.abs(u) <= L / 2.0 + eps, np.abs(v) <= L / 2.0 + eps
+                )
+                w = w + inside.astype(dtype)
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+
+    # mask out-of-range cells
+    valid = np.logical_and(
+        np.logical_and(jy[..., :, None] >= 0, jy[..., :, None] <= qH - 1),
+        np.logical_and(jx[..., None, :] >= 0, jx[..., None, :] <= qW - 1),
+    )
+    w = np.where(valid, w, np.zeros_like(w))
+
+    sums = np.sum(w, axis=(-1, -2))
+    guard = DBL_EPSILON
+    safe = np.where(np.abs(sums) > guard, sums, np.ones_like(sums))
+    w = np.where(
+        (np.abs(sums) > guard)[..., None, None], w / safe[..., None, None],
+        np.zeros_like(w),
+    )
+    base = np.stack([jy0, jx0], axis=-1)
+    return base, w, sums
+
+
+def ell_operator(spec: GridSpec, mode: str = "exact", row_chunk: int = 0,
+                 prefer_native: bool = True) -> EllOperator:
+    """Host (float64) ELL operator, modes 'exact' and 'fast'.
+
+    Uses the multithreaded native C++ engine (``aainterp_torch.native``,
+    built with g++ at first use; about 10-50x the numpy path on large
+    grids, equal to it within 1e-13), falling back to numpy chunked over
+    dst rows with a RuntimeWarning when the engine cannot be built or
+    loaded.  ``WEIGHT_GEN_ENGINES`` counts which engine ran.
+    """
+    if mode == "compat":
+        raise NotImplementedError(
+            "the compat (bug-for-bug reference) ELL weight-gen is still to "
+            "come in the PyTorch port (ROADMAP.md slice 3, ops/compat.py); "
+            "use mode='exact' or 'fast', or the JAX package")
+    if mode not in ("exact", "fast"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if prefer_native:
+        from .. import native
+
+        try:
+            base, w, sums = native.ell_weights_native(spec, mode=mode)
+        except (RuntimeError, OSError, AttributeError, TypeError,
+                ValueError, ctypes.ArgumentError) as e:
+            # observable fallback: the numpy weight-gen is correct, but a
+            # silent ~30x slowdown would hide a broken native build
+            warnings.warn(
+                f"native weight-gen failed ({type(e).__name__}: {e}); "
+                "falling back to the numpy path", RuntimeWarning)
+        else:
+            WEIGHT_GEN_ENGINES["native"] += 1
+            return EllOperator(spec=spec, base=base, weights=w,
+                               raw_row_sums=sums, mode=mode)
+    Hd, Wd = spec.dst_shape
+    K = spec.window_cells
+    if row_chunk <= 0:
+        # keep the clip batch (~36 vertices * a few temporaries, float64)
+        # around a few hundred MB
+        row_chunk = max(1, int(8.0e6 / max(Wd * K * K, 1)))
+    base = np.empty((Hd, Wd, 2), dtype=np.int32)
+    weights = np.empty((Hd, Wd, K, K), dtype=np.float64)
+    sums = np.empty((Hd, Wd), dtype=np.float64)
+    for dy0 in range(0, Hd, row_chunk):
+        dy1 = min(dy0 + row_chunk, Hd)
+        b, w, sm = ell_weights(spec, mode=mode, dy_slice=(dy0, dy1))
+        base[dy0:dy1] = b
+        weights[dy0:dy1] = w
+        sums[dy0:dy1] = sm
+    WEIGHT_GEN_ENGINES["numpy"] += 1
+    return EllOperator(spec=spec, base=base, weights=weights,
+                       raw_row_sums=sums, mode=mode)
+
+
+def fold_quadrant_ell(op: EllOperator):
+    """Fold the quadrant pre-rotation into the ELL table itself.
+
+    The op consumes B = rot90(A, -quadrant) (Source.cpp:159-172, cell
+    permutation); every K x K window of B is a (flipped/transposed) K x K
+    window of the ORIGINAL image A, so the rotation folds into the table:
+    re-indexed bases + tap-permuted weights that consume A directly.  To
+    keep the folded base_y monotone in the table row (the property the
+    shear decomposition relies on), the dst index is permuted by the
+    matching axis map, so the folded tables have exactly the un-rotated
+    +theta structure again and build_shear_plan's gy/hx serve them
+    unchanged.
+
+    Returns ``(folded_op, post)`` or ``None`` for quadrant 0:
+
+    * ``folded_op`` — EllOperator with quadrant=0 whose source is A
+      (qrot_shape = A.shape) and whose dst axes are permuted
+      (transposed for quadrants 1/3); ``raw_row_sums`` ride the same
+      permutation.
+    * ``post`` — torch callable mapping the folded output (trailing two
+      axes) back to the true dst orientation: a dst-sized flip /
+      transpose, r^2 cheaper than the source-sized rot90 at ratio r.
+
+    Zero-weight clamped fringe taps are preserved by construction
+    (apply_ell clamps indices; clamped taps carry zero weight).
+    """
+    q = op.spec.quadrant % 4
+    if q == 0:
+        return None
+    qH, qW = op.spec.qrot_shape
+    K = op.window
+    base = np.asarray(op.base)
+    w = np.asarray(op.weights)
+    rrs = np.asarray(op.raw_row_sums)
+    by, bx = base[..., 0], base[..., 1]
+    # A (original source) shape: rot90 swaps axes for quadrants 1/3
+    H, W = (qW, qH) if q in (1, 3) else (qH, qW)
+    if q == 1:
+        # B[i, j] = A[H-1-j, i]: window base (H-K-bx, by), taps
+        # (a, b) = (K-1-dx, dy)
+        nb_y, nb_x = H - K - bx, by
+        nw = np.swapaxes(w[..., :, ::-1], -1, -2)
+        dst_perm = (lambda x: np.swapaxes(x[::-1], 0, 1))
+        post = (lambda t: torch.flip(torch.transpose(t, -2, -1), dims=(-2,)))
+    elif q == 2:
+        # B[i, j] = A[H-1-i, W-1-j]: base (H-K-by, W-K-bx), taps reversed
+        nb_y, nb_x = H - K - by, W - K - bx
+        nw = w[..., ::-1, ::-1]
+        dst_perm = (lambda x: x[::-1, ::-1])
+        post = (lambda t: torch.flip(t, dims=(-2, -1)))
+    else:
+        # B[i, j] = A[j, W-1-i]: base (bx, W-K-by), taps (K-1-dy -> b)
+        nb_y, nb_x = bx, W - K - by
+        nw = np.swapaxes(w[..., ::-1, :], -1, -2)
+        dst_perm = (lambda x: np.swapaxes(x[:, ::-1], 0, 1))
+        post = (lambda t: torch.flip(torch.transpose(t, -2, -1), dims=(-1,)))
+    nb = np.stack([dst_perm(nb_y), dst_perm(nb_x)], axis=-1)
+    nw = np.ascontiguousarray(dst_perm(nw))
+    spec2 = dataclasses.replace(
+        op.spec, quadrant=0, qrot_shape=(H, W),
+        dst_shape=tuple(int(s) for s in nw.shape[:2]))
+    folded = EllOperator(
+        spec=spec2, base=np.ascontiguousarray(nb).astype(base.dtype),
+        weights=nw, raw_row_sums=np.ascontiguousarray(dst_perm(rrs)),
+        mode=op.mode)
+    return folded, post
+
+
+def fold_quadrant_ell_cached(op: EllOperator):
+    """LRU-cached fold_quadrant_ell, keyed by table content.
+
+    The fold copies the (Hd, Wd, K, K) table; content-keyed reuse makes
+    repeat calls free.  quadrant/qrot_shape are part of the key: at exact
+    90-deg multiples different quadrants share identical tables.
+    raw_row_sums and mode join the key too, so two operators with equal
+    normalised weights but differently scaled cell areas do not alias.
+    """
+    key = (array_digest(op.weights), array_digest(op.base),
+           array_digest(op.raw_row_sums), op.mode,
+           op.spec.quadrant, op.spec.qrot_shape)
+    hit = _FOLD_CACHE.get(key)
+    if hit is None:
+        hit = fold_quadrant_ell(op)
+        _FOLD_CACHE.put(key, hit)
+    return hit
+
+
+def ell_fold_post_inv(quadrant: int) -> Optional[Callable]:
+    """Inverse of fold_quadrant_ell's ``post`` dst permutation, or None.
+
+    ``post`` maps the folded-orientation output to the true dst; its
+    inverse carries dst cotangents (or any true-dst array) back into the
+    folded orientation — permutations transpose to their inverses, so
+    this is also the VJP of ``post``.
+    """
+    q = quadrant % 4
+    if q == 0:
+        return None
+    if q == 1:
+        # post: out[r, c] = t[c, Hd-1-r]  ->  inv: t[R, C] = y[Hd-1-C, R]
+        return lambda y: torch.transpose(torch.flip(y, dims=(-2,)), -2, -1)
+    if q == 2:
+        return lambda y: torch.flip(y, dims=(-2, -1))
+    # post: out[r, c] = t[Wd-1-c, r]  ->  inv: t[R, C] = y[C, Wd-1-R]
+    return lambda y: torch.flip(torch.transpose(y, -2, -1), dims=(-2,))

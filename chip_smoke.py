@@ -1,26 +1,39 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (aainterp_torch) on one NVIDIA GPU.
 
-Drives the port's main path — batched 4K->1080p area-average resize,
-8 frames of bf16 pixels with f32 accumulation, through
-``aainterp_torch.area_average_interpolate`` — on the card.  It builds the
-CUDA kernel from ``aainterp_torch/csrc`` with nvcc, holds every result
-against the plain PyTorch version on the same inputs, checks a small
-input against a dense float64 numpy reference, and times the kernel, the
-plain version and a device-to-device copy (the bytes bound).
+Drives the port's two main paths on the card, through
+``aainterp_torch.area_average_interpolate``:
+
+* the separable flagship — batched 4K->1080p area-average resize, 8 frames
+  of bf16 pixels with f32 accumulation, on ``csrc/separable_apply.cu``;
+* the rotated flagship — 8 frames of 2048x2048 bf16 at 30 degrees (the
+  JAX package's rot30 bench geometry) -> 8x1399x1399 bf16, exact mode:
+  native C++ weight-gen on the host, then the three kernels of
+  ``csrc/ell_shear.cu`` (vertical shear, horizontal shear, window
+  contraction).
+
+It builds every kernel from ``aainterp_torch/csrc`` with nvcc (and the
+host engine ``native/aainterp_native.cpp`` with g++), all compilers at
+once; holds every kernel against its plain PyTorch version on the same
+inputs; checks small inputs against dense float64 references; and times
+the kernels, their plain versions and a device-to-device copy (the bytes
+bound).
 
     python3 chip_smoke.py
 
-Any failure (no GPU, no nvcc, a build or launch error, a mismatch)
+Any failure (no GPU, no nvcc or g++, a build or launch error, a mismatch)
 raises and exits non-zero before any result is printed.  On success the
 second-to-last line of stdout is the kernels' JSON summary and the last
 line is ``{"ok": true, "device": {...}}``.
 
-Tolerances, kernel against plain: f32 atol 1e-5 on [0, 1] inputs; bf16
-output atol 1e-2 (one bf16 ulp on [0, 1]); uint8 output within one gray
-level (summation order can flip a .5 rounding); uint8 -> f32 atol 1e-3
-(values up to 255); gradients atol 1e-5.  TF32 is switched off for
-matmul and cuDNN so the plain version's einsum runs in full f32.
+Tolerances, kernel against plain.  Separable: f32 atol 1e-5 on [0, 1]
+inputs; bf16 output atol 1e-2 (one bf16 ulp on [0, 1]); uint8 output
+within one gray level (summation order can flip a .5 rounding); uint8 ->
+f32 atol 1e-3 (values up to 255); gradients atol 1e-5.  Rotated: both
+shears bit-equal; contraction and route f32 atol 1e-6 on [0, 1] inputs
+(1e-6 * 255 for uint8 input); bf16 output within one bf16 ulp of the
+plain f32 result; dense float64 reference atol 1e-6.  TF32 is switched
+off for matmul and cuDNN so the plain versions' einsums run in full f32.
 """
 
 from __future__ import annotations
@@ -29,17 +42,24 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
 
 import aainterp_torch as at
 from aainterp_torch import _build
-from aainterp_torch.ops import cuda_apply
+from aainterp_torch.ops import cuda_apply, cuda_shear
+from aainterp_torch.ops import weights as weights_ops
 
 H, W, F = 2160, 3840, 8                 # the flagship: 4K -> 1080p, 8 frames
 RATIO = (2.0, 1.0)                      # (src_resolution, dst_resolution)
 ISO = (0.0, 0.0)
+# the rotated flagship (the JAX package's rot30 bench, bench.py:359-434)
+RH, RW = 2048, 2048
+ROT = (1.0, 0.5, (1024.0, 1024.0), 30.0)   # resolutions, isocenter, angle
+ROT_DST = (1399, 1399)
+SHEAR_KERNELS = ("vshear", "hshear", "contract")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -64,6 +84,30 @@ class Inputs:
         if dtype == torch.uint8:
             return (x * 255.0).round().to(torch.uint8)
         return x.to(dtype)
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at |x| (8 significant bits), as f64."""
+    a = x.detach().double().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def within_bf16_ulp(a: torch.Tensor, ref: torch.Tensor, what: str) -> float:
+    """Check |a - ref| <= one bf16 ulp of ref everywhere; return the max
+    absolute difference."""
+    check(a.shape == ref.shape, f"{what}: shape {tuple(a.shape)} != "
+          f"{tuple(ref.shape)}")
+    d = (a.detach().double() - ref.detach().double()).abs()
+    bad = int((d > bf16_ulp(ref)).sum())
+    check(bad == 0, f"{what}: {bad} elements differ by more than one bf16 "
+          f"ulp (max |diff| {float(d.max()):.3e})")
+    return float(d.max())
+
+
+def reset_launches() -> None:
+    cuda_apply.LAUNCHES = 0
+    for k in SHEAR_KERNELS:
+        cuda_shear.LAUNCHES[k] = 0
 
 
 def folded_tables(op):
@@ -115,6 +159,266 @@ def graph_ms(fn, inputs, reps: int) -> float:
         graphs.append(g)
     return _events_ms(lambda i: graphs[i].replay(), len(graphs), reps)
 
+def ell_operator_for(shape, res_src, res_dst, iso, angle, mode="exact"):
+    """Build a rotated operator once (host, native weight-gen) and check
+    that the native engine, not the numpy fallback, built it."""
+    before = dict(weights_ops.WEIGHT_GEN_ENGINES)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)   # no numpy fallback
+        t0 = time.perf_counter()
+        op = at.build_operator(at.make_grid_spec(shape, res_src, res_dst,
+                                                 iso, angle), mode=mode)
+        secs = time.perf_counter() - t0
+    check(isinstance(op, at.EllOperator), f"{type(op).__name__} built")
+    check(weights_ops.WEIGHT_GEN_ENGINES["native"] == before["native"] + 1
+          and weights_ops.WEIGHT_GEN_ENGINES["numpy"] == before["numpy"],
+          f"weight-gen did not run on the native engine: "
+          f"{weights_ops.WEIGHT_GEN_ENGINES} (before {before})")
+    return op, secs
+
+
+def rotated_phases(make, card):
+    """Phases 9-15: the rotated family.  Returns the three kernels'
+    entries of the JSON summary."""
+    frames_shape = (F, RH, RW)
+
+    # ---- 9. host: native weight-gen, shear plan ----------------------------
+    op, wgen_s = ell_operator_for((RH, RW), *ROT)
+    t0 = time.perf_counter()
+    plan = cuda_shear.kernel_plan(op)
+    plan_s = time.perf_counter() - t0
+    check((op.spec.quadrant, op.spec.dst_shape, op.window,
+           plan.Ka, plan.Kb) == (0, ROT_DST, 6, 5, 5),
+          f"rotated flagship geometry: quadrant {op.spec.quadrant}, dst "
+          f"{op.spec.dst_shape}, K {op.window}, Ka x Kb {plan.Ka}x{plan.Kb}")
+    print(f"[9 rotated host] {RH}x{RW} at {ROT[3]} deg -> {op.spec.dst_shape},"
+          f" K {op.window}: native weight-gen {wgen_s:.3f} s (ELL table "
+          f"{op.weights.nbytes / 1e6:.1f} MB f64); shear plan {plan_s:.3f} s "
+          f"(Ka x Kb {plan.Ka}x{plan.Kb}, T {plan.TH}x{plan.TW}, w2 "
+          f"{plan.w2.nbytes / 1e6:.1f} MB f32)")
+
+    # ---- 10. rotated flagship through the public entry point --------------
+    requests = [make(torch.bfloat16, frames_shape) for _ in range(3)]
+    torch.cuda.synchronize()
+    reset_launches()
+    outs = [at.area_average_interpolate(x, *ROT, operator=op).dst
+            for x in requests]
+    torch.cuda.synchronize()
+    launches = dict(cuda_shear.LAUNCHES)
+    check(all(launches[k] == len(requests) for k in SHEAR_KERNELS),
+          f"rotated main path launched {launches} for {len(requests)} "
+          "requests (want each kernel once per request)")
+    check(cuda_apply.LAUNCHES == 0, "rotated path launched the separable "
+          "kernel")
+    route_err = {"sheared": 0.0, "gather": 0.0}
+    for x, out in zip(requests, outs):
+        check(out.dtype == torch.bfloat16 and tuple(out.shape) ==
+              (F,) + ROT_DST, f"rotated out {out.dtype} {tuple(out.shape)}")
+        check(bool(torch.isfinite(out).all()), "rotated output not finite")
+        for impl in route_err:
+            ref = at.apply_operator(op, x, impl=impl)
+            route_err[impl] = max(route_err[impl], within_bf16_ulp(
+                out, ref, f"rotated kernel route vs {impl!r}"))
+    print(f"[10 rotated flagship] {F}x{RH}x{RW} bf16 -> {tuple(outs[0].shape)}"
+          f" bf16 via area_average_interpolate (operator built once): "
+          f"launches {launches} for {len(requests)} requests; within one "
+          f"bf16 ulp of 'sheared' (max {route_err['sheared']:.3e}) and of "
+          f"'gather' (max {route_err['gather']:.3e})")
+    del outs
+
+    # ---- 11. each kernel against its plain version, flagship intermediates
+    kerr = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q = requests[0].to(dtype)
+        s_k = cuda_shear.vshear_kernel(q, plan)
+        t_k = cuda_shear.hshear_kernel(s_k, plan)
+        o_k = cuda_shear.contract_kernel(t_k, plan)
+        torch.cuda.synchronize()
+        check(torch.equal(s_k, cuda_shear.vshear_plain(q, plan)),
+              f"vshear {dtype} differs from its plain version")
+        check(torch.equal(t_k, cuda_shear.hshear_plain(s_k, plan)),
+              f"hshear {dtype} differs from its plain version")
+        ref = cuda_shear.contract_plain(t_k, plan, out_dtype=torch.float32)
+        if dtype == torch.bfloat16:
+            e = within_bf16_ulp(o_k, ref, "contract bf16 vs plain")
+            kerr.update(vshear=0.0, hshear=0.0, contract=e)
+        else:
+            e = max_err(o_k, ref)
+            check(e <= 1e-6, f"contract f32 err {e} > 1e-6")
+        print(f"[11 kernels] {dtype}: vshear and hshear bit-equal to plain; "
+              f"contract max |kernel - plain| {e:.3e}")
+        # both shears overwrite every element of a NaN-filled plane
+        for name, src, shape in (("vshear", q, s_k.shape),
+                                 ("hshear", s_k, t_k.shape)):
+            buf = torch.full(shape, float("nan"), dtype=dtype,
+                             device=q.device)
+            getattr(cuda_shear, f"{name}_kernel")(src, plan, out=buf)
+            torch.cuda.synchronize()
+            check(torch.equal(buf, s_k if name == "vshear" else t_k),
+                  f"{name} into a NaN plane left unwritten elements")
+        del q, s_k, t_k, o_k, ref, buf
+    print("[11 kernels] both shears write every element of a NaN-filled "
+          "plane")
+
+    # ---- 12. f32 and u8 -> f32 at the flagship shape ------------------------
+    for dtype, atol in ((torch.float32, 1e-6), (torch.uint8, 1e-6 * 255)):
+        x = make(dtype, frames_shape)
+        before = dict(cuda_shear.LAUNCHES)
+        out = at.area_average_interpolate(x, *ROT, operator=op).dst
+        check(out.dtype == torch.float32, f"{dtype} -> {out.dtype}")
+        check(all(cuda_shear.LAUNCHES[k] == before[k] + 1
+                  for k in SHEAR_KERNELS), f"{dtype}: kernels not launched")
+        e = max_err(out, at.apply_operator(op, x, impl="gather"))
+        check(e <= atol, f"rotated {dtype} err {e} > {atol}")
+        print(f"[12 {str(dtype).split('.')[-1]}] -> f32, max |kernel - "
+              f"gather| {e:.3e}")
+        del x, out
+
+    # ---- 13. quadrant 1: 1024x768 at 120 deg ---------------------------------
+    qop, _ = ell_operator_for((1024, 768), 1.0, 0.5, (384.0, 512.0), 120.0)
+    folded = weights_ops.fold_quadrant_ell_cached(qop)[0]
+    qplan = cuda_shear.kernel_plan(folded)
+    check((qop.spec.quadrant, qop.spec.dst_shape, qplan.Ka, qplan.Kb) ==
+          (1, (589, 635), 5, 5), f"quadrant geometry {qop.spec.quadrant} "
+          f"{qop.spec.dst_shape} {qplan.Ka}x{qplan.Kb}")
+    x = make(torch.float32, (4, 1024, 768))
+    before = dict(cuda_shear.LAUNCHES)
+    out = at.area_average_interpolate(x, 1.0, 0.5, (384.0, 512.0), 120.0,
+                                      operator=qop).dst
+    check(cuda_shear.LAUNCHES["contract"] == before["contract"] + 1,
+          "quadrant: no launch")
+    e = max(max_err(out, at.apply_operator(qop, x, impl=impl))
+            for impl in ("gather", "sheared"))
+    check(e <= 1e-6, f"quadrant err {e} > 1e-6")
+    print(f"[13 quadrant] (4, 1024, 768) f32 at 120 deg -> {tuple(out.shape)}"
+          f" (quadrant 1 folded, Ka x Kb {qplan.Ka}x{qplan.Kb}): max |kernel"
+          f" - plain| {e:.3e}")
+
+    # ---- 14. the film geometry, fast mode (README example) -----------------
+    fop, _ = ell_operator_for((910, 910), 150.0, 25.4, (455.0, 455.0), 1.5,
+                              mode="fast")
+    fplan = cuda_shear.kernel_plan(fop)
+    check((fop.spec.dst_shape, fop.window, fplan.Ka, fplan.Kb) ==
+          ((158, 158), 12, 7, 7), f"film geometry {fop.spec.dst_shape} K "
+          f"{fop.window} {fplan.Ka}x{fplan.Kb}")
+    x = make(torch.float32, (2, 910, 910))
+    out = at.area_average_interpolate(x, 150.0, 25.4, (455.0, 455.0), 1.5,
+                                      mode="fast", operator=fop).dst
+    e = max(max_err(out, at.apply_operator(fop, x, impl=impl))
+            for impl in ("gather", "sheared"))
+    check(e <= 1e-6, f"film fast err {e} > 1e-6")
+    print(f"[14 film fast] (2, 910, 910) f32, 150 -> 25.4 at 1.5 deg, fast "
+          f"-> {tuple(out.shape)} (K 12, Ka x Kb {fplan.Ka}x{fplan.Kb}): max "
+          f"|kernel - plain| {e:.3e}")
+
+    # ---- 15. a dense float64 reference ------------------------------------
+    small = np.random.default_rng(0).uniform(0, 1, (2, 48, 64))
+    dop, _ = ell_operator_for((48, 64), 1.0, 0.5, (32.0, 24.0), 30.0)
+    ref = (dop.dense() @ small.reshape(2, -1).T).T.reshape(
+        (2,) + dop.spec.dst_shape)
+    out = at.area_average_interpolate(
+        torch.tensor(small, dtype=torch.float32, device="cuda:0"), 1.0, 0.5,
+        (32.0, 24.0), 30.0, operator=dop).dst
+    e = float(np.abs(out.cpu().double().numpy() - ref).max())
+    check(e <= 1e-6, f"rotated dense reference err {e} > 1e-6")
+    print(f"[15 dense ref] (2, 48, 64) at 30 deg vs float64 "
+          f"EllOperator.dense(): max err {e:.3e}")
+    del x, out
+
+    # ---- 16. timing -------------------------------------------------------
+    timing = rotated_timing(make, card, op, plan)
+    return [{
+        "name": name,
+        "route": "cuda",
+        "source": "aainterp_torch/csrc/ell_shear.cu",
+        "replaces": f"aainterp/ops/pallas_shear.py:{line}",
+        "launches": launches[name],
+        "max_abs_err": kerr[name],
+        "ms": timing[f"{name}_kernel_device_ms"],
+        "plain_ms": timing[f"{name}_plain_device_ms"],
+    } for name, line in (("vshear", 59), ("hshear", 114), ("contract", 164))]
+
+
+def rotated_timing(make, card, op, plan) -> dict:
+    """Device (CUDA-graph replay) and eager time of each rotated kernel,
+    its plain version, and the three routes, at the rotated flagship; the
+    route's bytes per batch against the measured copy bandwidth."""
+    n = 4                                    # distinct batches, 67 MB each
+    qs = [make(torch.bfloat16, (F, RH, RW)) for _ in range(n)]
+    ss = [cuda_shear.vshear_kernel(q, plan) for q in qs]
+    ts = [cuda_shear.hshear_kernel(s, plan) for s in ss]
+    copy_dst = torch.empty_like(qs[0])
+    fns = {
+        "vshear_kernel": (lambda q: cuda_shear.vshear_kernel(q, plan), qs),
+        "vshear_plain": (lambda q: cuda_shear.vshear_plain(q, plan), qs),
+        "hshear_kernel": (lambda s: cuda_shear.hshear_kernel(s, plan), ss),
+        "hshear_plain": (lambda s: cuda_shear.hshear_plain(s, plan), ss),
+        "contract_kernel": (lambda t: cuda_shear.contract_kernel(t, plan), ts),
+        "contract_plain": (lambda t: cuda_shear.contract_plain(t, plan), ts),
+        "route_kernel": (lambda q: at.apply_operator(op, q), qs),
+        "route_sheared": (lambda q: at.apply_operator(op, q, impl="sheared"),
+                          qs),
+        "route_gather": (lambda q: at.apply_operator(op, q, impl="gather"),
+                         qs),
+        "copy": (lambda q: copy_dst.copy_(q), qs),
+    }
+    timing = {"card": card, "shape": [F, RH, RW], "dtype": "bfloat16",
+              "angle": ROT[3], "dst": list(ROT_DST)}
+    order = list(fns) + list(reversed(fns))          # two turns, mirrored
+    for name in order:
+        fn, inputs = fns[name]
+        reps = 20 if name.endswith(("kernel", "copy")) else 5
+        for how, timer in (("device", graph_ms), ("eager", eager_ms)):
+            ms = timer(fn, inputs, reps)
+            timing.setdefault(f"{name}_{how}_ms", []).append(ms)
+    for key in [k for k in timing if k.endswith("_ms")]:
+        timing[key] = min(timing[key])
+    e = 2                                             # bf16 bytes
+    q_b = F * RH * RW * e
+    s_b = F * plan.TH * plan.qW * e
+    t_b = F * plan.TH * plan.TW * e
+    w_b = plan.w2.nbytes
+    o_b = F * plan.Hd * plan.Wd * e
+    route_bytes = q_b + 2 * s_b + 2 * t_b + w_b + o_b
+    fused_bytes = q_b + w_b + o_b        # the fused redesign's floor
+    copy_bw = 2 * q_b / (timing["copy_device_ms"] * 1e-3)        # B/s
+    px = F * RH * RW
+    for name in ("route_kernel", "route_sheared", "route_gather"):
+        for how in ("device", "eager"):
+            timing[f"{name}_{how}_gpixel_s"] = (
+                px / (timing[f"{name}_{how}_ms"] * 1e-3) / 1e9)
+    timing.update(
+        bytes_per_batch={"q": q_b, "S_write_read": 2 * s_b,
+                         "T_write_read": 2 * t_b, "w2": w_b, "out": o_b,
+                         "route": route_bytes, "fused_floor": fused_bytes},
+        copy_gb_s=copy_bw / 1e9,
+        route_bound_ms=route_bytes / copy_bw * 1e3,
+        route_bound_gpixel_s=px / (route_bytes / copy_bw) / 1e9,
+        fused_bound_ms=fused_bytes / copy_bw * 1e3,
+        route_kernel_device_gb_s=(route_bytes / (
+            timing["route_kernel_device_ms"] * 1e-3) / 1e9))
+    t = timing
+    print(f"[16 rotated timing] {card}, {F}x{RH}x{RW} bf16 at 30 deg, best of"
+          f" 2 turns, device ms per batch (CUDA graph replay) kernel / plain:"
+          f" vshear {t['vshear_kernel_device_ms']:.4f} / "
+          f"{t['vshear_plain_device_ms']:.4f}, hshear "
+          f"{t['hshear_kernel_device_ms']:.4f} / "
+          f"{t['hshear_plain_device_ms']:.4f}, contract "
+          f"{t['contract_kernel_device_ms']:.4f} / "
+          f"{t['contract_plain_device_ms']:.4f}; route kernel "
+          f"{t['route_kernel_device_ms']:.4f} ms = "
+          f"{t['route_kernel_device_gpixel_s']:.3f} Gpixel/s (eager "
+          f"{t['route_kernel_eager_ms']:.4f} ms), sheared "
+          f"{t['route_sheared_device_ms']:.4f}, gather "
+          f"{t['route_gather_device_ms']:.4f}; route moves "
+          f"{route_bytes / 1e6:.1f} MB/batch, copy {t['copy_gb_s']:.1f} GB/s "
+          f"-> bound {t['route_bound_ms']:.4f} ms = "
+          f"{t['route_bound_gpixel_s']:.3f} Gpixel/s (fused floor "
+          f"{fused_bytes / 1e6:.1f} MB -> {t['fused_bound_ms']:.4f} ms)")
+    print(json.dumps({"rotated_timing": timing}))
+    return timing
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -138,17 +442,22 @@ def main() -> int:
     print("[1 device] TF32 off for matmul and cuDNN")
     make = Inputs(dev)
 
-    # ---- 2. build ----------------------------------------------------------
-    build_s = _build.timed_build()
-    _build.load_library()
-    print(f"[2 build] nvcc {' '.join(_build.NVCC_FLAGS)}: {build_s:.2f} s")
+    # ---- 2. build: every library, all compilers at once ---------------------
+    libs = (_build.SEPARABLE, _build.ELL_SHEAR, _build.NATIVE)
+    build_s = _build.timed_build(libs)
+    for lib in libs:
+        _build.load(lib)
+    print(f"[2 build] nvcc {' '.join(_build.NVCC_FLAGS)} "
+          f"(separable_apply.cu, ell_shear.cu) and g++ "
+          f"{' '.join(_build.GXX_FLAGS)} (aainterp_native.cpp), in "
+          f"parallel: {build_s:.2f} s")
 
     # ---- 3. flagship through the public entry point ------------------------
     op0 = operator((H, W), 0.0)
     tabs0 = folded_tables(op0)
     requests = [make(torch.bfloat16) for _ in range(3)]
     torch.cuda.synchronize()
-    cuda_apply.LAUNCHES = 0
+    reset_launches()
     outs = [at.area_average_interpolate(x, *RATIO, ISO, 0.0).dst
             for x in requests]
     torch.cuda.synchronize()
@@ -156,6 +465,8 @@ def main() -> int:
     check(launches == len(requests),
           f"main path launched the kernel {launches} times for "
           f"{len(requests)} requests")
+    check(all(cuda_shear.LAUNCHES[k] == 0 for k in SHEAR_KERNELS),
+          f"the separable path launched rotated kernels: {cuda_shear.LAUNCHES}")
     flag_err = 0.0
     for x, out in zip(requests, outs):
         check(out.dtype == torch.bfloat16 and tuple(out.shape) ==
@@ -296,6 +607,9 @@ def main() -> int:
           f"{timing['copy_gb_s']:.1f} GB/s -> bytes bound "
           f"{bound_us:.3f} us/frame = {timing['bound_gpixel_s']:.3f} Gpixel/s")
     print(json.dumps({"timing": timing}))
+    del batches, copy_dst, fns
+
+    rotated = rotated_phases(make, card)
 
     print(json.dumps({"kernels": [{
         "name": "separable_apply",
@@ -306,7 +620,7 @@ def main() -> int:
         "max_abs_err": flag_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
-    }]}))
+    }] + rotated}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

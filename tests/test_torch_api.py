@@ -156,10 +156,11 @@ def test_unported_and_invalid_routes_raise():
         at.apply_operator(op, x, weight_dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="kind"):
         t_autodiff.separable_linear_for(op, torch.float32, "xla")
-    for kw, slice_no in ((dict(rotation_angle=30.0), "slice 3"),
+    for kw, slice_no in ((dict(rotation_angle=30.0, mode="compat"),
+                          "slice 3"),
                          (dict(mode="shear"), "slice 4"),
                          (dict(fused=True), "slice 3"),
-                         (dict(method="ell"), "slice 3")):
+                         (dict(method="ell", mode="compat"), "slice 3")):
         args = dict(rotation_angle=0.0)
         args.update(kw)
         angle = args.pop("rotation_angle")
@@ -168,7 +169,7 @@ def test_unported_and_invalid_routes_raise():
                                         **args)
     with pytest.raises(NotImplementedError, match="slice 3"):
         at.build_operator(at.make_grid_spec((32, 48), 2.0, 1.0, (0.0, 0.0),
-                                            30.0))
+                                            30.0), mode="compat")
     with pytest.raises(ValueError, match="mode"):
         at.area_average_interpolate(x, 2.0, 1.0, (0.0, 0.0), 0.0,
                                     mode="bogus")

@@ -174,7 +174,10 @@ def test_array_digest_memoized_and_content_keyed():
 def test_import_pulls_in_neither_jax_nor_aainterp():
     code = (
         "import sys, aainterp_torch, aainterp_torch.api, "
-        "aainterp_torch.ops.cuda_apply, aainterp_torch.convert\n"
+        "aainterp_torch.ops.cuda_apply, aainterp_torch.convert, "
+        "aainterp_torch.native, aainterp_torch.ops.clipper, "
+        "aainterp_torch.ops.shear_apply, aainterp_torch.ops.cuda_shear, "
+        "aainterp_torch.ops.weights, aainterp_torch.ops.apply\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'aainterp') "
         "or m.startswith(('jax.', 'jaxlib', 'aainterp.')))\n"
         "print(bad)\n"

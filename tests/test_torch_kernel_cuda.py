@@ -1,5 +1,6 @@
-"""The CUDA kernel ``aainterp_torch/csrc/separable_apply.cu`` against its
-plain PyTorch version, on a GPU.
+"""The CUDA kernels ``aainterp_torch/csrc/separable_apply.cu`` and
+``aainterp_torch/csrc/ell_shear.cu`` against their plain PyTorch
+versions, on a GPU.
 
 Skips without ``torch.cuda.is_available()``.  Imports no JAX, so it runs
 on a machine with only PyTorch; there, skip the repo's conftest (which
@@ -7,8 +8,11 @@ sets up JAX) from the repo root:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernel_cuda.py
 
-Tolerances, kernel against plain: f32 atol 1e-5 on [0, 1] inputs; bf16
-output atol 1e-2 (one bf16 ulp on [0, 1]); uint8 within one gray level.
+Tolerances, kernel against plain: separable f32 atol 1e-5 on [0, 1]
+inputs; bf16 output atol 1e-2 (one bf16 ulp on [0, 1]); uint8 within one
+gray level.  Rotated: both shears bit-equal; contraction and route f32
+atol 1e-6 on [0, 1] inputs (1e-6 * 255 for u8 input), bf16 within one
+bf16 ulp of the plain f32 result.
 """
 
 import numpy as np
@@ -16,7 +20,9 @@ import pytest
 import torch
 
 import aainterp_torch as at
-from aainterp_torch.ops import cuda_apply
+from aainterp_torch import api as t_api
+from aainterp_torch.ops import cuda_apply, cuda_shear
+from aainterp_torch.ops import weights as t_weights
 
 pytestmark = pytest.mark.cuda
 
@@ -142,3 +148,133 @@ def test_kernel_matches_dense_reference(cuda):
         torch.tensor(a, dtype=torch.float32, device=cuda), 150.0, 60.0,
         (1.0, 2.0), 90.0).dst
     np.testing.assert_allclose(got.cpu().double().numpy(), ref, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the rotated apply's three kernels (csrc/ell_shear.cu)
+# ---------------------------------------------------------------------------
+
+ROT_GEOMS = [
+    ((96, 128), 1.0, 0.5, (64.0, 48.0), 30.0, "exact"),
+    ((128, 96), 1.0, 0.5, (40.0, 70.0), 120.0, "exact"),
+    ((120, 120), 150.0, 25.4, (60.0, 60.0), 1.5, "fast"),
+    ((80, 100), 1.0, 1.0, (50.0, 40.0), 300.5, "exact"),
+]
+
+
+def _bf16_ulp(x):
+    a = x.double().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def _rot_plan(args):
+    shape, sr, dr, iso, angle, mode = args
+    op = at.build_operator(at.make_grid_spec(shape, sr, dr, iso, angle),
+                           mode=mode)
+    folded = op
+    if op.spec.quadrant:
+        folded = t_weights.fold_quadrant_ell(op)[0]
+    return op, cuda_shear.kernel_plan(folded)
+
+
+@pytest.mark.parametrize("args", ROT_GEOMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_shear_kernels_match_plain(cuda, args, dtype):
+    _, plan = _rot_plan(args)
+    q = _frames((3, plan.qH, plan.qW), dtype, cuda)
+    before = dict(cuda_shear.LAUNCHES)
+    s = cuda_shear.vshear_kernel(q, plan)
+    t = cuda_shear.hshear_kernel(s, plan)
+    out = cuda_shear.contract_kernel(t, plan)
+    torch.cuda.synchronize()
+    assert {k: cuda_shear.LAUNCHES[k] - before[k] for k in before} == {
+        "vshear": 1, "hshear": 1, "contract": 1}
+    assert torch.equal(s, cuda_shear.vshear_plain(q, plan))
+    assert torch.equal(t, cuda_shear.hshear_plain(s, plan))
+    assert out.dtype == dtype and out.shape == (3, plan.Hd, plan.Wd)
+    ref = cuda_shear.contract_plain(t, plan, out_dtype=torch.float32)
+    err = (out.double() - ref.double()).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 1e-6
+    else:
+        assert (err <= _bf16_ulp(ref)).all()
+
+
+@pytest.mark.parametrize("stage", ["vshear", "hshear"])
+def test_shear_kernels_write_every_element(cuda, stage):
+    _, plan = _rot_plan(ROT_GEOMS[0])
+    if stage == "vshear":
+        src = _frames((2, plan.qH, plan.qW), torch.float32, cuda)
+        shape = (2, plan.TH, plan.qW)
+    else:
+        src = _frames((2, plan.TH, plan.qW), torch.float32, cuda)
+        shape = (2, plan.TH, plan.TW)
+    out = torch.full(shape, float("nan"), device=cuda)
+    getattr(cuda_shear, f"{stage}_kernel")(src, plan, out=out)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, getattr(cuda_shear, f"{stage}_plain")(src, plan))
+
+
+def test_shear_kernels_reject_shapes_that_do_not_match_the_plan(cuda):
+    _, plan = _rot_plan(ROT_GEOMS[0])
+    before = dict(cuda_shear.LAUNCHES)
+    bad = torch.zeros(2, plan.qH + 1, plan.qW, device=cuda)
+    for fn in (cuda_shear.vshear_kernel, cuda_shear.hshear_kernel,
+               cuda_shear.contract_kernel):
+        with pytest.raises(ValueError, match="for this plan"):
+            fn(bad, plan)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_shear.vshear_kernel(
+            torch.zeros(2, plan.qW, plan.qH, device=cuda).transpose(1, 2),
+            plan)
+    assert cuda_shear.LAUNCHES == before
+
+
+@pytest.mark.parametrize("args", ROT_GEOMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.uint8])
+def test_rotated_api_routes(cuda, args, dtype):
+    shape, sr, dr, iso, angle, mode = args
+    op, _ = _rot_plan(args)
+    x = _frames((2,) + shape, dtype, cuda)
+    before = dict(cuda_shear.LAUNCHES)
+    got = at.area_average_interpolate(x, sr, dr, iso, angle, mode=mode,
+                                      operator=op).dst
+    torch.cuda.synchronize()
+    assert all(cuda_shear.LAUNCHES[k] == before[k] + 1 for k in before)
+    want_dtype = torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
+    assert got.dtype == want_dtype and got.is_cuda
+    scale = 255.0 if dtype == torch.uint8 else 1.0
+    for impl in ("sheared", "gather"):
+        ref = at.apply_operator(op, x, impl=impl)
+        assert ref.dtype == torch.float32
+        err = (got.double() - ref.double()).abs()
+        if dtype == torch.bfloat16:
+            assert (err <= _bf16_ulp(ref)).all(), impl
+        else:
+            assert err.max().item() <= 1e-6 * scale, impl
+
+
+def test_rotated_dense_reference(cuda):
+    rng = np.random.default_rng(1)
+    a = rng.uniform(0, 1, (2, 48, 64))
+    spec = at.make_grid_spec((48, 64), 1.0, 0.5, (32.0, 24.0), 30.0)
+    op = at.build_operator(spec)
+    ref = (op.dense() @ a.reshape(2, -1).T).T.reshape((2,) + spec.dst_shape)
+    got = at.apply_operator(op, torch.tensor(a, dtype=torch.float32,
+                                             device=cuda))
+    np.testing.assert_allclose(got.cpu().double().numpy(), ref, atol=1e-6)
+
+
+def test_rotated_wide_window_falls_back_before_launch(cuda):
+    op = at.build_operator(at.make_grid_spec((64, 64), 20.0, 1.0,
+                                             (32.0, 32.0), 30.0))
+    x = _frames((2, 64, 64), torch.float32, cuda)
+    before = dict(cuda_shear.LAUNCHES), t_api.SHEAR_PLAN_FALLBACKS
+    with pytest.warns(RuntimeWarning, match="gather"):
+        got = at.apply_operator(op, x)
+    assert cuda_shear.LAUNCHES == before[0]
+    assert t_api.SHEAR_PLAN_FALLBACKS == before[1] + 1
+    torch.testing.assert_close(got, at.apply_operator(op, x, impl="gather"))
+    with pytest.raises(ValueError, match="too large"):
+        at.apply_operator(op, x, impl="kernel")
