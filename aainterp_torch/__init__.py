@@ -3,7 +3,7 @@ with hand-written CUDA kernels for NVIDIA Hopper (H100).
 
 The PyTorch port of the JAX package ``aainterp``, which stays the
 reference.  This package imports torch and numpy, never jax or aainterp.
-Ported so far (ROADMAP.md slices 1 and 3):
+Ported so far (ROADMAP.md slices 1, 3 and 4):
 
 * axis-aligned resampling (any multiple of 90 degrees) through the
   separable banded apply, with the CUDA kernel ``csrc/separable_apply.cu``
@@ -12,7 +12,11 @@ Ported so far (ROADMAP.md slices 1 and 3):
 * exact rotated resampling (modes exact and fast) through the ELL
   operator (native C++ weight-gen, built with g++ at first use) and the
   three CUDA kernels of ``csrc/ell_shear.cu`` (vertical shear, horizontal
-  shear, window contraction), with plain torch routes beside them.
+  shear, window contraction), with plain torch routes beside them;
+* the approximate rotated mode ``mode='shear'`` (3 conservative 1-D
+  passes, ``ops/shear3.py``) on the two CUDA stage kernels of
+  ``csrc/shear3_stage.cu``, differentiable through
+  ``ops.cuda_shear3.Shear3Linear``, with a plain torch pipeline beside it.
 
     import torch, aainterp_torch as aa
     frames = torch.rand(8, 2160, 3840, device="cuda").to(torch.bfloat16)
@@ -21,6 +25,9 @@ Ported so far (ROADMAP.md slices 1 and 3):
     rot = aa.area_average_interpolate(frames[..., :2048, :2048], 1.0, 0.5,
                                       (1024.0, 1024.0), 30.0)
     rot.dst.shape   # (8, 1399, 1399), bf16
+    fast = aa.area_average_interpolate(frames[..., :2048, :2048], 1.0, 0.5,
+                                       (1024.0, 1024.0), 30.0, mode="shear")
+    fast.dst.shape  # (8, 1399, 1399), bf16
 """
 
 from .api import (
@@ -30,7 +37,11 @@ from .api import (
     build_operator,
 )
 from .autodiff import SeparableLinear, separable_linear_for
-from .convert import ell_operator_from_numpy, operator_from_numpy
+from .convert import (
+    ell_operator_from_numpy,
+    operator_from_numpy,
+    shear3_plan_from_numpy,
+)
 from .grids import (
     DBL_EPSILON,
     GridSpec,
@@ -39,6 +50,7 @@ from .grids import (
     validate_args,
 )
 from .ops.cuda_apply import apply_separable_kernel, apply_separable_plain
+from .ops.cuda_shear3 import Shear3Linear, make_shear3_linear
 from .ops.weights import (
     EllOperator,
     OperatorValidationError,
@@ -56,6 +68,7 @@ __all__ = [
     "OperatorValidationError",
     "SeparableLinear",
     "SeparableOperator",
+    "Shear3Linear",
     "ValidationError",
     "apply_operator",
     "apply_separable_kernel",
@@ -65,9 +78,11 @@ __all__ = [
     "ell_operator",
     "ell_operator_from_numpy",
     "make_grid_spec",
+    "make_shear3_linear",
     "operator_from_numpy",
     "separable_linear_for",
     "separable_operator",
+    "shear3_plan_from_numpy",
     "validate_args",
     "validate_operator",
 ]

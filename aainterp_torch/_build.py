@@ -1,11 +1,13 @@
 """Build the port's native libraries at first use and load them with ctypes.
 
-Three libraries, each from one source with a plain C interface (no
+Four libraries, each from one source with a plain C interface (no
 PyTorch headers), so each builds in seconds:
 
 * ``separable_apply`` — ``csrc/separable_apply.cu`` through nvcc;
 * ``ell_shear`` — ``csrc/ell_shear.cu`` (the rotated apply's three
   kernels) through nvcc;
+* ``shear3_stage`` — ``csrc/shear3_stage.cu`` (the two stage kernels of
+  ``mode='shear'``) through nvcc;
 * ``aainterp_native`` — the repository's host weight-gen engine,
   ``native/aainterp_native.cpp``, through g++ with the flags of
   ``native/Makefile``.
@@ -78,6 +80,14 @@ ELL_SHEAR = Library(
         #     Kb, dtype_code, stream)
         ("aainterp_contract", (_P,) * 5 + (_I,) * 8 + (_P,), ctypes.c_int),
     ))
+
+SHEAR3_STAGE = Library(
+    "shear3_stage", _PKG / "csrc" / "shear3_stage.cu", "nvcc", NVCC_FLAGS,
+    # aainterp_shear3_{y,x}stage(x, out, d, f, start, w, inv_cov, F,
+    #     n_lines, n_in, n_mid, n_t, crop, n_out, K, form, in_code,
+    #     out_code, stream)
+    tuple((f"aainterp_shear3_{axis}stage", (_P,) * 7 + (_I,) * 11 + (_P,),
+           ctypes.c_int) for axis in ("y", "x")))
 
 NATIVE = Library(
     "aainterp_native", _PKG.parent / "native" / "aainterp_native.cpp", "g++",

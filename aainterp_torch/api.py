@@ -39,9 +39,30 @@ Dtypes follow the route, as in JAX: the kernel routes keep bf16 in ->
 bf16 out (Pallas contract); the plain routes give f32 for bf16 input (XLA
 contract).  uint8 input gives f32 on every route at this level.
 
+``mode='shear'`` (``area_average_interpolate`` only; counterpart of
+api.py:393-460, 606-619): the 3-pass conservative shear approximation
+of ``ops/shear3.py``, with no Operator.  The plan is cached per geometry
+and ``shear_decomposition`` ('quality' x-y-x, the default, or 'fast'
+y-x-y); the source is quadrant-rotated first.  ``method``:
+
+* ``'kernel'`` (JAX's 'pallas'): the two CUDA stage kernels of
+  ``ops/cuda_shear3.py``, three launches; bf16 intermediates for bf16
+  and uint8 input, f32 for f32; raises on a CPU tensor;
+* ``'plain'`` (JAX's 'xla'): the plain torch pipeline, f32 throughout;
+* ``'auto'``: 'kernel' for a CUDA tensor, 'plain' for a CPU tensor.
+
+Both shear routes return the input's dtype (bf16, f32 or uint8) and
+compute in f32 whatever ``weight_dtype`` says (f32 or f64 accepted; JAX's
+routes cast the tables to the f32 working type too).
+``differentiable=True`` on the kernel route goes through
+``cuda_shear3.Shear3Linear`` (backward = the adjoint plan on the same
+kernels); the plain route differentiates natively.  Axis-aligned
+geometries take ``mode='exact'``, with 'kernel' and 'plain' mapped to the
+separable impls 'kernel' and 'banded'.
+
 Not yet ported, raising NotImplementedError naming the ROADMAP.md slice
-that brings them: ``mode='shear'`` (slice 4); rotated ``mode='compat'``,
-``fused=True`` and ``differentiable=True`` on an EllOperator (slice 3).
+that brings them: rotated ``mode='compat'``, ``fused=True`` and
+``differentiable=True`` on an EllOperator (slice 3).
 """
 
 from __future__ import annotations
@@ -55,7 +76,8 @@ import torch
 from . import autodiff
 from .grids import GridSpec, make_grid_spec
 from .ops import apply as apply_ops
-from .ops import cuda_shear
+from .ops import cuda_shear, cuda_shear3
+from .ops import shear3 as shear3_ops
 from .ops import weights as weights_ops
 from .utils.digest import array_digest
 from .utils.lru import LruDict
@@ -64,6 +86,14 @@ Operator = Union[weights_ops.SeparableOperator, weights_ops.EllOperator]
 
 IMPLS = ("auto", "kernel", "banded", "box")
 ELL_IMPLS = ("auto", "kernel", "sheared", "gather")
+SHEAR_METHODS = ("auto", "kernel", "plain")
+# the separable impl an axis-aligned mode='shear' takes, per shear method
+_SHEAR_AXIS_ALIGNED_IMPLS = {"auto": "auto", "kernel": "kernel",
+                             "plain": "banded"}
+
+# mode='shear' plans, keyed by (spec, decomposition): O(H + W) tables and
+# an (Hd, Wd) coverage image; byte-bounded like the other table caches
+_SHEAR3_CACHE = LruDict(8, max_bytes=1 << 30)
 
 # 'auto' rotated applies that took 'gather' because the geometry has no
 # shear plan (see apply_operator)
@@ -105,7 +135,10 @@ def build_operator(
     """
     if mode not in ("exact", "fast", "compat"):
         raise ValueError(
-            f"build_operator mode must be exact/fast/compat, got {mode!r}")
+            f"build_operator mode must be exact/fast/compat, got {mode!r}"
+            + (" (mode='shear' is operator-free: call "
+               "area_average_interpolate(mode='shear'))"
+               if mode == "shear" else ""))
     if method == "auto":
         method = "separable" if spec.is_axis_aligned else "ell"
     if method == "separable":
@@ -267,6 +300,36 @@ def _apply_ell_operator(op, src, weight_dtype, impl, differentiable):
     return out if post is None else post(out)
 
 
+def _shear3_plan(spec: GridSpec,
+                 decomposition: str) -> shear3_ops.Shear3Plan:
+    """The cached mode='shear' plan of one geometry and decomposition."""
+    key = (spec, decomposition)
+    plan = _SHEAR3_CACHE.get(key)
+    if plan is None:
+        plan = shear3_ops.build_shear3_plan(spec, decomposition=decomposition)
+        _SHEAR3_CACHE.put(key, plan)
+    return plan
+
+
+def _apply_shear3(spec: GridSpec, src: torch.Tensor, method: str,
+                  decomposition: str, differentiable: bool) -> torch.Tensor:
+    """The rotated mode='shear' routes (module docstring)."""
+    plan = _shear3_plan(spec, decomposition)
+    q = apply_ops.quadrant_rotate(src, spec.quadrant)
+    if method == "auto":
+        method = "kernel" if q.is_cuda else "plain"
+    if method == "plain":
+        # torch differentiates the plain pipeline itself
+        return shear3_ops.apply_shear3_plain(q, plan)
+    if not q.is_cuda:
+        raise ValueError(
+            "method='kernel' needs a CUDA tensor; got one on "
+            f"{q.device} (use method='auto' or 'plain' on the CPU)")
+    if differentiable or q.requires_grad:
+        return cuda_shear3.make_shear3_linear(plan)(q)
+    return cuda_shear3.apply_shear3_kernel(q, plan)
+
+
 def area_average_interpolate(
     src,
     src_resolution: float,
@@ -280,6 +343,7 @@ def area_average_interpolate(
     weight_dtype: torch.dtype = torch.float32,
     fused: bool = False,
     differentiable: bool = False,
+    shear_decomposition: str = "quality",
 ) -> InterpResult:
     """Area-average interpolation with optional rotation about an isocenter.
 
@@ -287,21 +351,21 @@ def area_average_interpolate(
     ``src`` is a (..., H, W) tensor; resolutions are scalar; ``src_isocenter``
     is (x, y) in source pixels; ``rotation_angle`` is degrees, clockwise
     positive.  mode: 'exact' (true overlap areas), 'fast' (replica-center
-    counting, Source.cpp mode 2) or 'compat' (equal to 'exact' when the
-    geometry is axis-aligned; rotated compat is not ported yet).  The
-    operator is built here unless ``operator=`` passes a prebuilt one
+    counting, Source.cpp mode 2), 'compat' (equal to 'exact' when the
+    geometry is axis-aligned; rotated compat is not ported yet) or 'shear'
+    (the 3-pass conservative shear approximation, ops/shear3.py: exact
+    flux conservation, bilinear-class smearing against the exact operator;
+    axis-aligned geometries fall through to 'exact').  For the first three
+    the operator is built here unless ``operator=`` passes a prebuilt one
     (reuse it across requests: the rotated weight-gen is the costly step),
-    and the apply takes apply_operator's auto route.
+    and the apply takes apply_operator's auto route.  With mode='shear' no
+    Operator is built: ``method`` picks the route ('auto', 'kernel',
+    'plain'; module docstring) and ``shear_decomposition`` the plan
+    ('quality' or 'fast').
     """
-    if mode == "shear":
-        raise NotImplementedError(
-            "mode='shear' (3-pass conservative shear) comes to the PyTorch "
-            "port in ROADMAP.md slice 4; use mode='exact' or the JAX package")
-    if mode not in ("exact", "fast", "compat"):
-        raise ValueError(f"mode must be exact/fast/compat, got {mode!r}")
-    if fused:
-        raise _rotated_not_ported(
-            "fused=True (on-device ELL weight-gen, a torch ell_weights)")
+    if mode not in ("exact", "fast", "compat", "shear"):
+        raise ValueError(
+            f"mode must be exact/fast/compat/shear, got {mode!r}")
     src = torch.as_tensor(src)
     spec = make_grid_spec(
         (src.shape[-2], src.shape[-1]),
@@ -310,6 +374,29 @@ def area_average_interpolate(
         src_isocenter,
         rotation_angle,
     )
+    impl = "auto"
+    if mode == "shear":
+        if method not in SHEAR_METHODS:
+            raise ValueError(f"unknown shear method {method!r} (expected "
+                             f"{'/'.join(SHEAR_METHODS)})")
+        if spec.is_axis_aligned:
+            # a zero-angle shear decomposition IS the exact separable
+            # operator; the shear method picks the separable impl
+            mode, impl, method = ("exact", _SHEAR_AXIS_ALIGNED_IMPLS[method],
+                                  "auto")
+        else:
+            if operator is not None or fused:
+                raise ValueError(
+                    "mode='shear' builds no Operator (pass mode='exact' to "
+                    "use an explicit operator, and fused=False)")
+            autodiff.numpy_weight_dtype(weight_dtype)  # raises on others
+            dst = _apply_shear3(spec, src, method, shear_decomposition,
+                                differentiable)
+            return InterpResult(dst=dst, dst_isocenter=spec.dst_isocenter,
+                                spec=spec)
+    if fused:
+        raise _rotated_not_ported(
+            "fused=True (on-device ELL weight-gen, a torch ell_weights)")
     if mode == "compat" and method == "auto":
         if not spec.is_axis_aligned:
             raise _rotated_not_ported(
@@ -320,5 +407,5 @@ def area_average_interpolate(
     if operator is None:
         operator = build_operator(spec, mode=mode, method=method)
     dst = apply_operator(operator, src, weight_dtype=weight_dtype,
-                         differentiable=differentiable)
+                         impl=impl, differentiable=differentiable)
     return InterpResult(dst=dst, dst_isocenter=spec.dst_isocenter, spec=spec)

@@ -1,19 +1,21 @@
 """Carry an operator's host tables into the port as plain numpy.
 
 The port's "parameters" are the operator's tables.  A separable or ELL
-operator built anywhere (the JAX package, a disk cache, another process)
-can be unpacked into numpy arrays and rebuilt here, so both sides apply
-identical tables.  Nothing here imports the JAX package.
+operator, or a mode='shear' plan, built anywhere (the JAX package, a disk
+cache, another process) can be unpacked into numpy arrays and rebuilt
+here, so both sides apply identical tables.  Nothing here imports the JAX
+package.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Sequence, Tuple
+from typing import Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
 from .grids import GridSpec
 from .ops.overlap1d import Band1D
+from .ops.shear3 import Pass1D, Shear3Plan
 from .ops.weights import EllOperator, SeparableOperator
 
 
@@ -85,3 +87,43 @@ def ell_operator_from_numpy(
             f"sums {raw_row_sums.shape} do not match dst {(Hd, Wd)}")
     return EllOperator(spec=spec, base=base, weights=weights,
                        raw_row_sums=raw_row_sums, mode=mode)
+
+
+def shear3_plan_from_numpy(
+    spec_fields: Mapping,
+    passes: Sequence[Mapping],
+    inv_cov: Optional[np.ndarray],
+    in_shape: Optional[Tuple[int, int]] = None,
+    out_shape: Optional[Tuple[int, int]] = None,
+) -> Shear3Plan:
+    """The port's mode='shear' plan from plain numpy tables, as a
+    ``Shear3Plan`` of the JAX package holds them.
+
+    Each pass is a mapping with ``axis`` ('x' or 'y'), ``band`` (None or
+    ``(start, weights, n_src, n_dst)``), ``band_first``, ``d`` and ``f``
+    (one per line), ``n_t``, ``crop`` and ``n_out``.  ``inv_cov`` is the
+    (Hd, Wd) reciprocal coverage, or None for an adjoint plan.  The stage
+    plan checks the chain of shapes when the plan is first applied.
+    """
+    out = []
+    for p in passes:
+        if p["axis"] not in ("x", "y"):
+            raise ValueError(f"pass axis must be 'x' or 'y', got "
+                             f"{p['axis']!r}")
+        d = np.ascontiguousarray(p["d"], dtype=np.int32)
+        f = np.ascontiguousarray(p["f"], dtype=np.float32)
+        if d.ndim != 1 or d.shape != f.shape:
+            raise ValueError(f"pass shifts d {d.shape} / fractions f "
+                             f"{f.shape} do not match")
+        band = None if p["band"] is None else band_from_numpy(p["band"])
+        out.append(Pass1D(axis=p["axis"], band=band,
+                          band_first=bool(p["band_first"]), d=d, f=f,
+                          n_t=int(p["n_t"]), crop=int(p["crop"]),
+                          n_out=int(p["n_out"])))
+    if inv_cov is not None:
+        inv_cov = np.ascontiguousarray(inv_cov, dtype=np.float32)
+    return Shear3Plan(
+        spec=spec_from_fields(spec_fields), passes=tuple(out),
+        inv_cov=inv_cov,
+        in_shape=None if in_shape is None else tuple(in_shape),
+        out_shape=None if out_shape is None else tuple(out_shape))

@@ -24,8 +24,11 @@ def quadrant_rotate(src: torch.Tensor, quadrant: int) -> torch.Tensor:
 
     Cell-level equivalent of the reference's replication loop rotation cases
     (Source.cpp:159-172): quadrant k (k*90 degrees clockwise) is
-    ``rot90(src, -k)`` on the trailing two axes.
+    ``rot90(src, -k)`` on the trailing two axes.  Quadrant 0 returns
+    ``src`` itself (``torch.rot90`` with k=0 would copy it).
     """
+    if int(quadrant) % 4 == 0:
+        return src
     return torch.rot90(src, k=-int(quadrant), dims=(-2, -1))
 
 

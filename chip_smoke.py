@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (aainterp_torch) on one NVIDIA GPU.
 
-Drives the port's two main paths on the card, through
+Drives the port's three main paths on the card, through
 ``aainterp_torch.area_average_interpolate``:
 
 * the separable flagship — batched 4K->1080p area-average resize, 8 frames
@@ -10,7 +10,11 @@ Drives the port's two main paths on the card, through
   JAX package's rot30 bench geometry) -> 8x1399x1399 bf16, exact mode:
   native C++ weight-gen on the host, then the three kernels of
   ``csrc/ell_shear.cu`` (vertical shear, horizontal shear, window
-  contraction).
+  contraction);
+* the shear flagship — the same 8x2048x2048 bf16 frames at 30 degrees in
+  ``mode='shear'`` (3 conservative 1-D passes), both decompositions
+  ('quality' x-y-x and 'fast' y-x-y), on the two stage kernels of
+  ``csrc/shear3_stage.cu``, and the ``Shear3Linear`` gradient.
 
 It builds every kernel from ``aainterp_torch/csrc`` with nvcc (and the
 host engine ``native/aainterp_native.cpp`` with g++), all compilers at
@@ -32,8 +36,14 @@ within one gray level (summation order can flip a .5 rounding); uint8 ->
 f32 atol 1e-3 (values up to 255); gradients atol 1e-5.  Rotated: both
 shears bit-equal; contraction and route f32 atol 1e-6 on [0, 1] inputs
 (1e-6 * 255 for uint8 input); bf16 output within one bf16 ulp of the
-plain f32 result; dense float64 reference atol 1e-6.  TF32 is switched
-off for matmul and cuDNN so the plain versions' einsums run in full f32.
+plain f32 result; dense float64 reference atol 1e-6.  Shear mode: each
+stage kernel against its plain stage f32 atol 1e-6 and bf16 within one
+bf16 ulp (both sum the same f32 products in the same order); the route
+within one bf16 ulp (u8: one gray level) of the bf16-staged plain
+pipeline and within 2e-2 of the f32-staged one on [0, 1] inputs (JAX's
+bf16-staging contract, tests/test_shear3.py:256-259); gradient atol 1e-5;
+dense float64 reference atol 2e-5.  TF32 is switched off for matmul and
+cuDNN so the plain versions' einsums run in full f32.
 """
 
 from __future__ import annotations
@@ -49,7 +59,9 @@ import torch
 
 import aainterp_torch as at
 from aainterp_torch import _build
-from aainterp_torch.ops import cuda_apply, cuda_shear
+from aainterp_torch import api as t_api
+from aainterp_torch.ops import apply as apply_ops
+from aainterp_torch.ops import cuda_apply, cuda_shear, cuda_shear3, shear3
 from aainterp_torch.ops import weights as weights_ops
 
 H, W, F = 2160, 3840, 8                 # the flagship: 4K -> 1080p, 8 frames
@@ -60,6 +72,10 @@ RH, RW = 2048, 2048
 ROT = (1.0, 0.5, (1024.0, 1024.0), 30.0)   # resolutions, isocenter, angle
 ROT_DST = (1399, 1399)
 SHEAR_KERNELS = ("vshear", "hshear", "contract")
+# mode='shear' on the rotated flagship: both decompositions and their passes
+SHEAR3_KERNELS = ("ystage", "xstage")
+SHEAR_DECS = ("quality", "fast")
+SHEAR_AXES = {"quality": ("x", "y", "x"), "fast": ("y", "x", "y")}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -108,6 +124,13 @@ def reset_launches() -> None:
     cuda_apply.LAUNCHES = 0
     for k in SHEAR_KERNELS:
         cuda_shear.LAUNCHES[k] = 0
+    for k in SHEAR3_KERNELS:
+        cuda_shear3.LAUNCHES[k] = 0
+
+
+def other_paths_idle(*counters) -> bool:
+    """True if no kernel of the given LAUNCHES dicts was launched."""
+    return all(v == 0 for c in counters for v in c.values())
 
 
 def folded_tables(op):
@@ -208,8 +231,8 @@ def rotated_phases(make, card):
     check(all(launches[k] == len(requests) for k in SHEAR_KERNELS),
           f"rotated main path launched {launches} for {len(requests)} "
           "requests (want each kernel once per request)")
-    check(cuda_apply.LAUNCHES == 0, "rotated path launched the separable "
-          "kernel")
+    check(cuda_apply.LAUNCHES == 0 and other_paths_idle(cuda_shear3.LAUNCHES),
+          "rotated path launched a kernel of another path")
     route_err = {"sheared": 0.0, "gather": 0.0}
     for x, out in zip(requests, outs):
         check(out.dtype == torch.bfloat16 and tuple(out.shape) ==
@@ -419,6 +442,335 @@ def rotated_timing(make, card, op, plan) -> dict:
     return timing
 
 
+def shear3_stage_fn(st):
+    """(kernel wrapper, plain version) of a stage's axis."""
+    name = f"{st.axis}stage"
+    return getattr(cuda_shear3, f"{name}_kernel"), getattr(shear3,
+                                                           f"{name}_plain")
+
+
+def pass_shapes(sp) -> str:
+    forms = {shear3.TRANSLATE: "translate", shear3.PRE_BAND: "pre-band",
+             shear3.POST_BAND: "post-band"}
+    return "; ".join(
+        f"{st.axis} {forms[st.form]}{f' K {st.K}' if st.K else ''} n_t "
+        f"{st.n_t} crop {st.crop}: {st.in_shape[0]}x{st.in_shape[1]} -> "
+        f"{st.out_shape[0]}x{st.out_shape[1]}" for st in sp.stages)
+
+
+def shear3_phases(make, card):
+    """Phases 17-23: mode='shear', both decompositions.  Returns the two
+    stage kernels' entries of the JSON summary."""
+    frames_shape = (F, RH, RW)
+    spec = at.make_grid_spec((RH, RW), *ROT)
+    check((spec.quadrant, spec.scale, spec.dst_side, spec.dst_shape) ==
+          (0, 1, 2.0, ROT_DST), f"shear flagship geometry {spec}")
+
+    # ---- 17. host: both plans --------------------------------------------
+    plans, sps = {}, {}
+    for dec in SHEAR_DECS:
+        t0 = time.perf_counter()
+        plans[dec] = t_api._shear3_plan(spec, dec)       # the route's cache
+        plan_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sps[dec] = shear3.stage_plan(plans[dec])
+        sps[dec].tables(torch.device("cuda:0"))
+        torch.cuda.synchronize()
+        stage_s = time.perf_counter() - t0
+        check(tuple(st.axis for st in sps[dec].stages) == SHEAR_AXES[dec],
+              f"{dec}: passes {[st.axis for st in sps[dec].stages]}")
+        print(f"[17 shear host] {RH}x{RW} at {ROT[3]} deg -> {ROT_DST}, "
+              f"{dec}: build_shear3_plan {plan_s:.3f} s, stage plan + "
+              f"upload {stage_s:.3f} s; {pass_shapes(sps[dec])}")
+
+    # ---- 18. the shear flagship through the public entry point -----------
+    requests = [make(torch.bfloat16, frames_shape) for _ in range(3)]
+    launches = {k: 0 for k in SHEAR3_KERNELS}
+    route_err = {"bf16_plain": 0.0, "f32_plain": 0.0}
+    for dec in SHEAR_DECS:
+        torch.cuda.synchronize()
+        reset_launches()
+        outs = [at.area_average_interpolate(x, *ROT, mode="shear",
+                                            shear_decomposition=dec).dst
+                for x in requests]
+        torch.cuda.synchronize()
+        got = dict(cuda_shear3.LAUNCHES)
+        want = {f"{a}stage": len(requests) * SHEAR_AXES[dec].count(a)
+                for a in "yx"}
+        check(got == want, f"shear {dec} launched {got} for "
+              f"{len(requests)} requests (want {want})")
+        check(cuda_apply.LAUNCHES == 0 and
+              other_paths_idle(cuda_shear.LAUNCHES),
+              "the shear path launched a kernel of another path")
+        for k in SHEAR3_KERNELS:
+            launches[k] += got[k]
+        for x, out in zip(requests, outs):
+            check(out.dtype == torch.bfloat16 and tuple(out.shape) ==
+                  (F,) + ROT_DST, f"shear out {out.dtype} {tuple(out.shape)}")
+            check(bool(torch.isfinite(out).all()), "shear output not finite")
+            ref = shear3.apply_shear3_plain(x, plans[dec],
+                                            mid_dtype=torch.bfloat16)
+            route_err["bf16_plain"] = max(route_err["bf16_plain"],
+                                          within_bf16_ulp(
+                out, ref, f"shear {dec} route vs bf16-staged plain"))
+            e = max_err(out, shear3.apply_shear3_plain(x, plans[dec]))
+            check(e <= 2e-2, f"shear {dec} vs f32-staged plain: {e} > 2e-2")
+            route_err["f32_plain"] = max(route_err["f32_plain"], e)
+        print(f"[18 shear flagship] {dec}: {F}x{RH}x{RW} bf16 -> "
+              f"{tuple(outs[0].shape)} bf16 via area_average_interpolate("
+              f"mode='shear'): launches {got} for {len(requests)} requests; "
+              f"max |route - bf16-staged plain| {route_err['bf16_plain']:.3e}"
+              f" (one ulp allowed), |route - f32-staged plain| "
+              f"{route_err['f32_plain']:.3e} (2e-2 allowed)")
+        del outs
+
+    # ---- 19. each stage kernel against its plain stage --------------------
+    # quality: x translate, y post-band, x post-band; fast: y pre-band,
+    # x pre-band, y translate + crop -- every form along both axes
+    kerr = {k: 0.0 for k in SHEAR3_KERNELS}
+    bit_equal = True
+    for dec in SHEAR_DECS:
+        sp = sps[dec]
+        for dtype in (torch.float32, torch.bfloat16):
+            x = requests[0].to(dtype)
+            for i, st in enumerate(sp.stages):
+                kern, plain = shear3_stage_fn(st)
+                out = torch.full((F,) + st.out_shape, float("nan"),
+                                 dtype=dtype, device=x.device)
+                got = kern(x, sp, i, out_dtype=dtype, out=out)
+                want = plain(x, sp, i, out_dtype=dtype)
+                torch.cuda.synchronize()
+                check(got is out and bool(torch.isfinite(out).all()),
+                      f"{dec} stage {i} left elements of a NaN output")
+                what = f"{dec} stage {i} ({st.axis}, form {st.form}) {dtype}"
+                if dtype == torch.float32:
+                    e = max_err(got, want)
+                    check(e <= 1e-6, f"{what}: err {e} > 1e-6")
+                else:
+                    e = within_bf16_ulp(got, want, what)
+                    kerr[f"{st.axis}stage"] = max(kerr[f"{st.axis}stage"], e)
+                bit_equal = bit_equal and torch.equal(got, want)
+                x = got
+            del x, out, got, want
+    print(f"[19 shear stages] every stage of both plans, f32 and bf16, into "
+          f"NaN-filled outputs: all written, max |kernel - plain| in bf16 "
+          f"ystage {kerr['ystage']:.3e} xstage {kerr['xstage']:.3e}; "
+          f"bit-equal to plain: {bit_equal}")
+
+    # ---- 20. f32 and u8 input, quadrant 1, equal resolution ---------------
+    for dtype, atol in ((torch.float32, 1e-6), (torch.uint8, 1.0)):
+        x = make(dtype, frames_shape)
+        before = dict(cuda_shear3.LAUNCHES)
+        out = at.area_average_interpolate(x, *ROT, mode="shear").dst
+        check(out.dtype == dtype, f"shear {dtype} -> {out.dtype}")
+        check(sum(cuda_shear3.LAUNCHES[k] - before[k] for k in before) == 3,
+              f"shear {dtype}: not 3 launches")
+        e = max_err(out, shear3.apply_shear3_plain(
+            x, plans["quality"], mid_dtype=torch.bfloat16))
+        check(e <= atol, f"shear {dtype} err {e} > {atol}")
+        print(f"[20 shear {str(dtype).split('.')[-1]}] -> "
+              f"{str(out.dtype).split('.')[-1]}, max |kernel - plain| {e:.3e}"
+              f" ({atol:g} allowed)")
+        del x, out
+    for shape, args, dtype in (
+            ((4, 1024, 768), (1.0, 0.5, (384.0, 512.0), 120.0),
+             torch.float32),
+            ((2, 1024, 1024), (1.0, 1.0, (512.0, 512.0), 30.0),
+             torch.bfloat16)):
+        x = make(dtype, shape)
+        qspec = at.make_grid_spec(shape[1:], *args)
+        for dec in SHEAR_DECS:
+            before = dict(cuda_shear3.LAUNCHES)
+            out = at.area_average_interpolate(x, *args, mode="shear",
+                                              shear_decomposition=dec).dst
+            check(sum(cuda_shear3.LAUNCHES[k] - before[k]
+                      for k in before) == 3, f"{args}: not 3 launches")
+            plan = t_api._shear3_plan(qspec, dec)
+            ref = shear3.apply_shear3_plain(
+                apply_ops.quadrant_rotate(x, qspec.quadrant), plan,
+                mid_dtype=torch.bfloat16)
+            if dtype == torch.float32:
+                e = max_err(out, ref)
+                check(e <= 1e-6, f"{args} {dec}: err {e} > 1e-6")
+            else:
+                e = within_bf16_ulp(out, ref, f"{args} {dec}")
+            crops = [st.crop for st in shear3.stage_plan(plan).stages]
+            print(f"[20 shear geometry] {shape} {str(dtype).split('.')[-1]} "
+                  f"{args[0]} -> {args[1]} at {args[3]} deg (quadrant "
+                  f"{qspec.quadrant}, scale {qspec.scale}, L "
+                  f"{qspec.dst_side:g}), {dec}: -> {tuple(out.shape)}, crops "
+                  f"{crops}, max |kernel - plain| {e:.3e}")
+        del x, out
+
+    # ---- 21. gradient: Shear3Linear on one full-width f32 frame ----------
+    x = make(torch.float32, (1, RH, RW))
+    xk = x.clone().requires_grad_(True)
+    yk = at.area_average_interpolate(xk, *ROT, mode="shear",
+                                     differentiable=True).dst
+    g = make(torch.float32, tuple(yk.shape))
+    before = dict(cuda_shear3.LAUNCHES)
+    (gk,) = torch.autograd.grad(yk, xk, g)
+    torch.cuda.synchronize()
+    check(sum(cuda_shear3.LAUNCHES[k] - before[k] for k in before) == 3,
+          "Shear3Linear backward did not launch the stage kernels 3 times")
+    xp = x.clone().requires_grad_(True)
+    yp = at.area_average_interpolate(xp, *ROT, mode="shear",
+                                     method="plain").dst
+    (gp,) = torch.autograd.grad(yp, xp, g)
+    # both gradients against the float64 adjoint P^T(inv_cov * g).  Torch
+    # autograd of the plain pipeline scatter-adds with atomics, in no fixed
+    # order, through intermediates that boundary slivers (inv_cov up to
+    # 1e6) make large: it strays further from float64 than the adjoint
+    # plan does, so the kernel is held to float64 at 1e-5 and to autograd
+    # at 5e-5 of the gradient's scale
+    plan = plans["quality"]
+    g64 = g[0].double().cpu().numpy() * plan.inv_cov
+    ref = torch.from_numpy(shear3.apply_shear3_np(
+        shear3.transpose_shear3_plan(plan), g64, normalize=False))[None]
+    ef, eg = max_err(yk, yp), max_err(gk, gp)
+    ek, ep = max_err(gk.cpu(), ref), max_err(gp.cpu(), ref)
+    scale = max(1.0, float(ref.abs().max()))
+    check(ef <= 1e-6 and ek <= 1e-5 * scale and eg <= 5e-5 * scale,
+          f"shear gradient: forward err {ef}, grad err vs float64 {ek}, vs "
+          f"autograd {eg} (scale {scale})")
+    print(f"[21 shear gradient] (1, {RH}, {RW}) f32, Shear3Linear (3 launches "
+          f"forward, 3 backward on the adjoint plan): forward err vs plain "
+          f"{ef:.3e}; grad err vs torch autograd of the plain f32 pipeline "
+          f"{eg:.3e}; vs the float64 adjoint: kernel {ek:.3e}, autograd "
+          f"{ep:.3e} (max |grad| {scale:.3e})")
+    del x, xk, xp, yk, yp, g, gk, gp
+
+    # ---- 22. a dense float64 reference -----------------------------------
+    small = np.random.default_rng(0).uniform(0, 1, (2, 48, 64))
+    sspec = at.make_grid_spec((48, 64), 1.0, 0.5, (32.0, 24.0), 30.0)
+    for dec in SHEAR_DECS:
+        ref = shear3.apply_shear3_np(t_api._shear3_plan(sspec, dec), small)
+        out = at.area_average_interpolate(
+            torch.tensor(small, dtype=torch.float32, device="cuda:0"), 1.0,
+            0.5, (32.0, 24.0), 30.0, mode="shear",
+            shear_decomposition=dec).dst
+        e = float(np.abs(out.cpu().double().numpy() - ref).max())
+        check(e <= 2e-5, f"shear {dec} dense reference err {e} > 2e-5")
+        print(f"[22 shear dense ref] (2, 48, 64) at 30 deg, {dec}, vs float64 "
+              f"apply_shear3_np: max err {e:.3e}")
+
+    # ---- 23. timing -------------------------------------------------------
+    timing = shear3_timing(make, card, plans, sps)
+    entries = []
+    for name, line in (("ystage", 230), ("xstage", 342)):
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "aainterp_torch/csrc/shear3_stage.cu",
+            "replaces": f"aainterp/ops/pallas_shear3.py:{line}",
+            "launches": launches[name],
+            "max_abs_err": kerr[name],
+            "ms": timing[f"{name}_kernel_device_ms"],
+            "plain_ms": timing[f"{name}_plain_device_ms"],
+        })
+    return entries
+
+
+def shear3_timing(make, card, plans, sps) -> dict:
+    """Device (CUDA-graph replay) and eager ms per batch of each stage of
+    both plans, kernel and plain, and of both routes, at the shear
+    flagship; bytes per batch against the copy bandwidth of this run."""
+    n = 4                                    # distinct batches, 67 MB each
+    qs = [make(torch.bfloat16, (F, RH, RW)) for _ in range(n)]
+    copy_dst = torch.empty_like(qs[0])
+    fns = {"copy": (lambda q: copy_dst.copy_(q), qs)}
+    stage_keys = []
+    for dec in SHEAR_DECS:
+        sp = sps[dec]
+        xs = qs
+        for i, st in enumerate(sp.stages):
+            kern, plain = shear3_stage_fn(st)
+            od = torch.bfloat16
+
+            def k_fn(x, kern=kern, sp=sp, i=i, od=od):
+                return kern(x, sp, i, out_dtype=od)
+
+            def p_fn(x, plain=plain, sp=sp, i=i, od=od):
+                return plain(x, sp, i, out_dtype=od)
+
+            key = f"{dec}_s{i}"
+            stage_keys.append((key, st))
+            fns[f"{key}_kernel"] = (k_fn, xs)
+            fns[f"{key}_plain"] = (p_fn, xs)
+            xs = [k_fn(x) for x in xs]
+        fns[f"{dec}_route_kernel"] = (
+            lambda q, dec=dec: at.area_average_interpolate(
+                q, *ROT, mode="shear", shear_decomposition=dec).dst, qs)
+        fns[f"{dec}_route_plain"] = (
+            lambda q, dec=dec: at.area_average_interpolate(
+                q, *ROT, mode="shear", method="plain",
+                shear_decomposition=dec).dst, qs)
+    timing = {"card": card, "shape": [F, RH, RW], "dtype": "bfloat16",
+              "angle": ROT[3], "dst": list(ROT_DST)}
+    order = list(fns) + list(reversed(fns))          # two turns, mirrored
+    for name in order:
+        fn, inputs = fns[name]
+        reps = 3 if name.endswith("plain") else 20
+        hows = (("device", graph_ms), ("eager", eager_ms)) \
+            if "route" in name or name == "copy" else (("device", graph_ms),)
+        for how, timer in hows:
+            ms = timer(fn, inputs, reps)
+            timing.setdefault(f"{name}_{how}_ms", []).append(ms)
+    for key in [k for k in timing if k.endswith("_ms")]:
+        timing[key] = min(timing[key])
+    e = 2                                             # bf16 bytes
+    copy_bw = 2 * qs[0].nbytes / (timing["copy_device_ms"] * 1e-3)    # B/s
+    px = F * RH * RW
+    for dec in SHEAR_DECS:
+        sp = sps[dec]
+        stage_bytes = [F * e * (st.in_shape[0] * st.in_shape[1]
+                                + st.out_shape[0] * st.out_shape[1])
+                       for st in sp.stages]
+        route_bytes = sum(stage_bytes) + sp.inv_cov.nbytes
+        timing[f"{dec}_bytes_per_batch"] = route_bytes
+        timing[f"{dec}_bound_ms"] = route_bytes / copy_bw * 1e3
+        for i, b in enumerate(stage_bytes):
+            timing[f"{dec}_s{i}_bytes"] = b
+            timing[f"{dec}_s{i}_kernel_gb_s"] = b / (
+                timing[f"{dec}_s{i}_kernel_device_ms"] * 1e-3) / 1e9
+        for route in ("kernel", "plain"):
+            for how in ("device", "eager"):
+                t = timing[f"{dec}_route_{route}_{how}_ms"]
+                timing[f"{dec}_route_{route}_{how}_gpixel_s"] = (
+                    px / (t * 1e-3) / 1e9)
+        t = timing[f"{dec}_route_kernel_device_ms"]
+        timing[f"{dec}_route_kernel_gb_s"] = route_bytes / (t * 1e-3) / 1e9
+        timing[f"{dec}_bound_share"] = timing[f"{dec}_bound_ms"] / t
+    # per kernel: its stages over one quality and one fast request
+    for name in SHEAR3_KERNELS:
+        for how in ("kernel", "plain"):
+            timing[f"{name}_{how}_device_ms"] = sum(
+                timing[f"{key}_{how}_device_ms"] for key, st in stage_keys
+                if f"{st.axis}stage" == name)
+    timing["copy_gb_s"] = copy_bw / 1e9
+    t = timing
+    for dec in SHEAR_DECS:
+        stages = ", ".join(
+            f"{st.axis}/{st.form} {t[f'{key}_kernel_device_ms']:.4f} / "
+            f"{t[f'{key}_plain_device_ms']:.4f} ms "
+            f"({t[f'{key}_kernel_gb_s']:.0f} GB/s)"
+            for key, st in stage_keys if key.startswith(dec))
+        print(f"[23 shear timing] {card}, {F}x{RH}x{RW} bf16 at 30 deg, "
+              f"{dec}, best of 2 turns, device ms per batch (CUDA graph "
+              f"replay) kernel / plain per stage (axis/form): {stages}; "
+              f"route kernel {t[f'{dec}_route_kernel_device_ms']:.4f} ms = "
+              f"{t[f'{dec}_route_kernel_device_gpixel_s']:.3f} Gpixel/s "
+              f"(eager {t[f'{dec}_route_kernel_eager_ms']:.4f} ms), plain "
+              f"{t[f'{dec}_route_plain_device_ms']:.4f} ms; route moves "
+              f"{t[f'{dec}_bytes_per_batch'] / 1e6:.1f} MB/batch = "
+              f"{t[f'{dec}_route_kernel_gb_s']:.1f} GB/s, copy "
+              f"{t['copy_gb_s']:.1f} GB/s -> bound "
+              f"{t[f'{dec}_bound_ms']:.4f} ms "
+              f"({100 * t[f'{dec}_bound_share']:.1f} % of it reached)")
+    print(json.dumps({"shear_timing": timing}))
+    return timing
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -443,12 +795,13 @@ def main() -> int:
     make = Inputs(dev)
 
     # ---- 2. build: every library, all compilers at once ---------------------
-    libs = (_build.SEPARABLE, _build.ELL_SHEAR, _build.NATIVE)
+    libs = (_build.SEPARABLE, _build.ELL_SHEAR, _build.SHEAR3_STAGE,
+            _build.NATIVE)
     build_s = _build.timed_build(libs)
     for lib in libs:
         _build.load(lib)
     print(f"[2 build] nvcc {' '.join(_build.NVCC_FLAGS)} "
-          f"(separable_apply.cu, ell_shear.cu) and g++ "
+          f"(separable_apply.cu, ell_shear.cu, shear3_stage.cu) and g++ "
           f"{' '.join(_build.GXX_FLAGS)} (aainterp_native.cpp), in "
           f"parallel: {build_s:.2f} s")
 
@@ -465,8 +818,9 @@ def main() -> int:
     check(launches == len(requests),
           f"main path launched the kernel {launches} times for "
           f"{len(requests)} requests")
-    check(all(cuda_shear.LAUNCHES[k] == 0 for k in SHEAR_KERNELS),
-          f"the separable path launched rotated kernels: {cuda_shear.LAUNCHES}")
+    check(other_paths_idle(cuda_shear.LAUNCHES, cuda_shear3.LAUNCHES),
+          f"the separable path launched rotated kernels: {cuda_shear.LAUNCHES}"
+          f" {cuda_shear3.LAUNCHES}")
     flag_err = 0.0
     for x, out in zip(requests, outs):
         check(out.dtype == torch.bfloat16 and tuple(out.shape) ==
@@ -610,6 +964,7 @@ def main() -> int:
     del batches, copy_dst, fns
 
     rotated = rotated_phases(make, card)
+    sheared = shear3_phases(make, card)
 
     print(json.dumps({"kernels": [{
         "name": "separable_apply",
@@ -620,7 +975,7 @@ def main() -> int:
         "max_abs_err": flag_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
-    }] + rotated}))
+    }] + rotated + sheared}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -158,7 +158,6 @@ def test_unported_and_invalid_routes_raise():
         t_autodiff.separable_linear_for(op, torch.float32, "xla")
     for kw, slice_no in ((dict(rotation_angle=30.0, mode="compat"),
                           "slice 3"),
-                         (dict(mode="shear"), "slice 4"),
                          (dict(fused=True), "slice 3"),
                          (dict(method="ell", mode="compat"), "slice 3")):
         args = dict(rotation_angle=0.0)
@@ -173,6 +172,12 @@ def test_unported_and_invalid_routes_raise():
     with pytest.raises(ValueError, match="mode"):
         at.area_average_interpolate(x, 2.0, 1.0, (0.0, 0.0), 0.0,
                                     mode="bogus")
+    # mode='shear' is ported (slice 4): axis-aligned it is mode='exact'
+    torch.testing.assert_close(
+        at.area_average_interpolate(x, 2.0, 1.0, (0.0, 0.0), 0.0,
+                                    mode="shear").dst,
+        at.area_average_interpolate(x, 2.0, 1.0, (0.0, 0.0), 0.0).dst,
+        atol=0, rtol=0)
 
 
 def _run_smoke(cwd):

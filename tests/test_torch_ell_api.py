@@ -151,8 +151,11 @@ def test_rotated_errors_and_unported_options():
             at.area_average_interpolate(x, *args[1:], **kw)
     with pytest.raises(NotImplementedError, match="slice 3"):
         at.build_operator(at.make_grid_spec(*args), mode="compat")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        at.area_average_interpolate(x, *args[1:], mode="shear")
+    # mode='shear' is ported (slice 4) and builds no operator
+    res = at.area_average_interpolate(x, *args[1:], mode="shear")
+    assert res.dst.shape == (1,) + res.spec.dst_shape
+    with pytest.raises(ValueError, match="builds no Operator"):
+        at.area_average_interpolate(x, *args[1:], mode="shear", operator=op)
 
 
 def _wide_window_op():

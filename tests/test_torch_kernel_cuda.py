@@ -1,5 +1,6 @@
-"""The CUDA kernels ``aainterp_torch/csrc/separable_apply.cu`` and
-``aainterp_torch/csrc/ell_shear.cu`` against their plain PyTorch
+"""The CUDA kernels ``aainterp_torch/csrc/separable_apply.cu``,
+``aainterp_torch/csrc/ell_shear.cu`` and
+``aainterp_torch/csrc/shear3_stage.cu`` against their plain PyTorch
 versions, on a GPU.
 
 Skips without ``torch.cuda.is_available()``.  Imports no JAX, so it runs
@@ -12,7 +13,11 @@ Tolerances, kernel against plain: separable f32 atol 1e-5 on [0, 1]
 inputs; bf16 output atol 1e-2 (one bf16 ulp on [0, 1]); uint8 within one
 gray level.  Rotated: both shears bit-equal; contraction and route f32
 atol 1e-6 on [0, 1] inputs (1e-6 * 255 for u8 input), bf16 within one
-bf16 ulp of the plain f32 result.
+bf16 ulp of the plain f32 result.  Shear mode: each stage kernel against
+its plain stage f32 atol 1e-6 and bf16 within one bf16 ulp (same sums in
+the same order); the route within one bf16 ulp (u8: one gray level) of
+the bf16-staged plain pipeline and within 2e-2 of the f32-staged one
+(test_shear3.py:256-259); gradients atol 1e-5.
 """
 
 import numpy as np
@@ -21,7 +26,7 @@ import torch
 
 import aainterp_torch as at
 from aainterp_torch import api as t_api
-from aainterp_torch.ops import cuda_apply, cuda_shear
+from aainterp_torch.ops import cuda_apply, cuda_shear, cuda_shear3, shear3
 from aainterp_torch.ops import weights as t_weights
 
 pytestmark = pytest.mark.cuda
@@ -278,3 +283,130 @@ def test_rotated_wide_window_falls_back_before_launch(cuda):
     torch.testing.assert_close(got, at.apply_operator(op, x, impl="gather"))
     with pytest.raises(ValueError, match="too large"):
         at.apply_operator(op, x, impl="kernel")
+
+
+# ---------------------------------------------------------------------------
+# the shear mode's two stage kernels (csrc/shear3_stage.cu)
+# ---------------------------------------------------------------------------
+
+SHEAR3_GEOMS = [
+    ((96, 128), 1.0, 0.5, (64.0, 48.0), 30.0),     # band branch, quadrant 0
+    ((80, 64), 1.0, 1.0, (32.0, 40.0), 30.0),      # s == L: translate + crop
+    ((64, 96), 2.0, 1.5, (48.0, 32.0), 104.0),     # quadrant 1, scale 2
+]
+
+
+def _shear3_plans(args):
+    """Forward and adjoint plans of every decomposition ``args`` admits."""
+    spec = at.make_grid_spec(*args)
+    decs = ("xyx", "yxy") if spec.scale < spec.dst_side else ("xyx",)
+    plans = []
+    for dec in decs:
+        plan = shear3.build_shear3_plan(spec, dec)
+        plans += [plan, shear3.transpose_shear3_plan(plan)]
+    return plans
+
+
+@pytest.mark.parametrize("args", SHEAR3_GEOMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_shear3_stages_match_plain(cuda, args, dtype):
+    for plan in _shear3_plans(args):
+        sp = shear3.stage_plan(plan)
+        x = _frames((3,) + sp.src_shape, dtype, cuda)
+        for i, st in enumerate(sp.stages):
+            name = f"{st.axis}stage"
+            kern = getattr(cuda_shear3, f"{name}_kernel")
+            plain = getattr(shear3, f"{name}_plain")
+            before = cuda_shear3.LAUNCHES[name]
+            out = torch.full((3,) + st.out_shape, float("nan"), dtype=dtype,
+                             device=cuda)
+            got = kern(x, sp, i, out_dtype=dtype, out=out)
+            torch.cuda.synchronize()
+            assert got is out and cuda_shear3.LAUNCHES[name] == before + 1
+            want = plain(x, sp, i, out_dtype=dtype)
+            # same f32 sums in the same order, each product rounded first
+            err = (got.double() - want.double()).abs()
+            if dtype == torch.float32:
+                assert err.max().item() <= 1e-6, (i, st.form)
+            else:
+                assert (err <= _bf16_ulp(want)).all(), (i, st.form)
+            assert torch.isfinite(got.float()).all()
+            x = want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.uint8])
+def test_shear3_route_and_launches(cuda, dtype):
+    shape, sr, dr, iso, angle = SHEAR3_GEOMS[0]
+    x = _frames((2,) + shape, dtype, cuda)
+    for dec in ("quality", "fast"):
+        before = dict(cuda_shear3.LAUNCHES)
+        got = at.area_average_interpolate(x, sr, dr, iso, angle, mode="shear",
+                                          shear_decomposition=dec).dst
+        torch.cuda.synchronize()
+        axes = "xyx" if dec == "quality" else "yxy"
+        assert {k: cuda_shear3.LAUNCHES[k] - before[k] for k in before} == {
+            "ystage": axes.count("y"), "xstage": axes.count("x")}
+        assert got.dtype == dtype and got.is_cuda
+        plan = t_api._shear3_plan(at.make_grid_spec(shape, sr, dr, iso,
+                                                    angle), dec)
+        ref = shear3.apply_shear3_plain(x, plan, mid_dtype=torch.bfloat16)
+        err = (got.double() - ref.double()).abs()
+        if dtype == torch.bfloat16:
+            assert (err <= _bf16_ulp(ref)).all()
+        else:
+            assert err.max().item() <= (1.0 if dtype == torch.uint8 else 1e-6)
+        f32 = at.area_average_interpolate(x, sr, dr, iso, angle, mode="shear",
+                                          method="plain",
+                                          shear_decomposition=dec).dst
+        scale = 255.0 if dtype == torch.uint8 else 1.0
+        assert (got.double() - f32.double()).abs().max().item() <= \
+            2e-2 * scale
+
+
+def test_shear3_gradient_runs_the_kernels(cuda):
+    shape, sr, dr, iso, angle = SHEAR3_GEOMS[2]
+    x = _frames((2,) + shape, torch.float32, cuda)
+    xk = x.clone().requires_grad_(True)
+    yk = at.area_average_interpolate(xk, sr, dr, iso, angle, mode="shear",
+                                     differentiable=True).dst
+    g = torch.rand_like(yk)
+    before = dict(cuda_shear3.LAUNCHES)
+    (gk,) = torch.autograd.grad(yk, xk, g)
+    assert sum(cuda_shear3.LAUNCHES[k] - before[k] for k in before) == 3
+    xp = x.clone().requires_grad_(True)
+    yp = at.area_average_interpolate(xp, sr, dr, iso, angle, mode="shear",
+                                     method="plain").dst
+    (gp,) = torch.autograd.grad(yp, xp, g)
+    torch.testing.assert_close(yk, yp, atol=1e-6, rtol=0)
+    torch.testing.assert_close(gk, gp, atol=1e-5, rtol=0)
+
+
+def test_shear3_axis_aligned_kernel_is_the_separable_kernel(cuda):
+    x = _frames((2, 96, 128), torch.bfloat16, cuda)
+    before = cuda_apply.LAUNCHES
+    got = at.area_average_interpolate(x, 2.0, 1.0, (0.0, 0.0), 0.0,
+                                      mode="shear", method="kernel").dst
+    assert cuda_apply.LAUNCHES == before + 1
+    assert torch.equal(got, at.area_average_interpolate(
+        x, 2.0, 1.0, (0.0, 0.0), 0.0).dst)
+    plain = at.area_average_interpolate(x, 2.0, 1.0, (0.0, 0.0), 0.0,
+                                        mode="shear", method="plain").dst
+    assert plain.dtype == torch.float32        # the separable 'banded' route
+
+
+def test_shear3_kernels_reject_bad_input(cuda):
+    plan = _shear3_plans(SHEAR3_GEOMS[0])[0]
+    sp = shear3.stage_plan(plan)
+    st = sp.stages[0]
+    before = dict(cuda_shear3.LAUNCHES)
+    bad = torch.zeros((2, st.in_shape[1], st.in_shape[0]), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_shear3.xstage_kernel(bad.transpose(1, 2), sp, 0)
+    with pytest.raises(ValueError, match="for this plan"):
+        cuda_shear3.xstage_kernel(bad, sp, 0)
+    with pytest.raises(ValueError, match="needs a CUDA"):
+        at.area_average_interpolate(torch.zeros((96, 128)), 1.0, 0.5,
+                                    (64.0, 48.0), 30.0, mode="shear",
+                                    method="kernel")
+    assert cuda_shear3.LAUNCHES == before
