@@ -3,7 +3,8 @@ with hand-written CUDA kernels for NVIDIA Hopper (H100).
 
 The PyTorch port of the JAX package ``aainterp``, which stays the
 reference.  This package imports torch and numpy, never jax or aainterp.
-Ported so far (ROADMAP.md slices 1, 3 and 4):
+Ported so far (ROADMAP.md slices 1, 3 and 4, and slice 2's regrid and
+resize front doors):
 
 * axis-aligned resampling (any multiple of 90 degrees) through the
   separable banded apply, with the CUDA kernel ``csrc/separable_apply.cu``
@@ -16,7 +17,15 @@ Ported so far (ROADMAP.md slices 1, 3 and 4):
 * the approximate rotated mode ``mode='shear'`` (3 conservative 1-D
   passes, ``ops/shear3.py``) on the two CUDA stage kernels of
   ``csrc/shear3_stage.cu``, differentiable through
-  ``ops.cuda_shear3.Shear3Linear``, with a plain torch pipeline beside it.
+  ``ops.cuda_shear3.Shear3Linear``, with a plain torch pipeline beside it;
+* the band-operator family: the conservative lat-lon regrid
+  (``regrid.py``, masked and unmasked) and the area-resize front doors
+  (``area_resize``, ``resize``, ``resize_bands``, ``area_resize_nd``,
+  ``area_pyramid``), on the aligned integer-ratio route (plain torch) or
+  the 2-D banded-tile CUDA kernel ``csrc/separable_apply_2d.cu``.
+
+Entry points compute where a tensor input lies; other input (numpy, a
+list) goes to ``device=`` or, by default, the GPU.
 
     import torch, aainterp_torch as aa
     frames = torch.rand(8, 2160, 3840, device="cuda").to(torch.bfloat16)
@@ -28,13 +37,22 @@ Ported so far (ROADMAP.md slices 1, 3 and 4):
     fast = aa.area_average_interpolate(frames[..., :2048, :2048], 1.0, 0.5,
                                        (1024.0, 1024.0), 30.0, mode="shear")
     fast.dst.shape  # (8, 1399, 1399), bf16
+    fields = torch.rand(8, 1800, 3600, device="cuda") * 50 + 250
+    aa.conservative_regrid(fields, aa.LatLonGrid(1800, 3600),
+                           aa.LatLonGrid(720, 1440)).shape  # (8, 720, 1440)
+    aa.area_resize(frames, (720, 1280)).shape               # (8, 720, 1280)
 """
 
 from .api import (
     InterpResult,
     apply_operator,
     area_average_interpolate,
+    area_pyramid,
+    area_resize,
+    area_resize_nd,
     build_operator,
+    resize,
+    resize_bands,
 )
 from .autodiff import SeparableLinear, separable_linear_for
 from .convert import (
@@ -50,6 +68,10 @@ from .grids import (
     validate_args,
 )
 from .ops.cuda_apply import apply_separable_kernel, apply_separable_plain
+from .ops.cuda_apply_2d import (
+    apply_separable_2d_plain,
+    apply_separable_kernel_2d,
+)
 from .ops.cuda_shear3 import Shear3Linear, make_shear3_linear
 from .ops.weights import (
     EllOperator,
@@ -59,27 +81,48 @@ from .ops.weights import (
     separable_operator,
     validate_operator,
 )
+from .regrid import (
+    LatLonGrid,
+    apply_band_operators,
+    apply_band_operators_masked,
+    area_weighted_mean,
+    conservative_regrid,
+    conservative_regrid_operator,
+)
 
 __all__ = [
     "DBL_EPSILON",
     "EllOperator",
     "GridSpec",
     "InterpResult",
+    "LatLonGrid",
     "OperatorValidationError",
     "SeparableLinear",
     "SeparableOperator",
     "Shear3Linear",
     "ValidationError",
+    "apply_band_operators",
+    "apply_band_operators_masked",
     "apply_operator",
+    "apply_separable_2d_plain",
     "apply_separable_kernel",
+    "apply_separable_kernel_2d",
     "apply_separable_plain",
     "area_average_interpolate",
+    "area_pyramid",
+    "area_resize",
+    "area_resize_nd",
+    "area_weighted_mean",
     "build_operator",
+    "conservative_regrid",
+    "conservative_regrid_operator",
     "ell_operator",
     "ell_operator_from_numpy",
     "make_grid_spec",
     "make_shear3_linear",
     "operator_from_numpy",
+    "resize",
+    "resize_bands",
     "separable_linear_for",
     "separable_operator",
     "shear3_plan_from_numpy",

@@ -1,9 +1,11 @@
 """Build the port's native libraries at first use and load them with ctypes.
 
-Four libraries, each from one source with a plain C interface (no
+Five libraries, each from one source with a plain C interface (no
 PyTorch headers), so each builds in seconds:
 
 * ``separable_apply`` — ``csrc/separable_apply.cu`` through nvcc;
+* ``separable_apply_2d`` — ``csrc/separable_apply_2d.cu`` (the 2-D
+  banded-tile apply of the band-operator family) through nvcc;
 * ``ell_shear`` — ``csrc/ell_shear.cu`` (the rotated apply's three
   kernels) through nvcc;
 * ``shear3_stage`` — ``csrc/shear3_stage.cu`` (the two stage kernels of
@@ -67,6 +69,15 @@ SEPARABLE = Library(
     # aainterp_separable_apply(src, out, ys, wy, xs, wx, col_base,
     #     F, H, W, Hd, Wd, ky, kx, TY, TX, S, in_code, out_code, stream)
     (("aainterp_separable_apply", (_P,) * 7 + (_I,) * 12 + (_P,),
+      ctypes.c_int),))
+
+SEPARABLE_2D = Library(
+    "separable_apply_2d", _PKG / "csrc" / "separable_apply_2d.cu", "nvcc",
+    NVCC_FLAGS,
+    # aainterp_separable_apply_2d(src, out, ys, wy, xs, wx, row_base,
+    #     col_base, F, H, W, Hd, Wd, ky, kx, TY, TX, SY, SX, mode, in_code,
+    #     out_code, stream)
+    (("aainterp_separable_apply_2d", (_P,) * 8 + (_I,) * 14 + (_P,),
       ctypes.c_int),))
 
 ELL_SHEAR = Library(

@@ -60,25 +60,44 @@ kernels); the plain route differentiates natively.  Axis-aligned
 geometries take ``mode='exact'``, with 'kernel' and 'plain' mapped to the
 separable impls 'kernel' and 'banded'.
 
+Area-resize front doors (counterparts of api.py:636-882): ``area_resize``
+(any (Hd, Wd), axes resized independently), ``resize`` (``method='area'``),
+``resize_bands``, ``area_resize_nd`` (any set of axes of an N-D array) and
+``area_pyramid``.  They build unit-cell interval-overlap bands and ride
+``regrid.apply_band_operators`` (routes 'auto', 'aligned', 'kernel' on
+the 2-D CUDA kernel, 'banded'), with its ``mask=``, ``impl=`` and
+``precision=`` knobs; JAX's ``interpret=`` has no counterpart.
+
+Device: every entry point takes ``device=``, and computes there when it
+is given, moving a tensor from another device.  Without it a
+``torch.Tensor`` input keeps its device and any other input (numpy, a
+list) goes to the GPU, raising RuntimeError where there is none
+(``utils.device.as_input``).
+
 Not yet ported, raising NotImplementedError naming the ROADMAP.md slice
 that brings them: rotated ``mode='compat'``, ``fused=True`` and
-``differentiable=True`` on an EllOperator (slice 3).
+``differentiable=True`` on an EllOperator (slice 3); ``resize``'s
+bilinear and bicubic methods (slice 5).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Optional, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from . import autodiff
+from . import regrid
 from .grids import GridSpec, make_grid_spec
 from .ops import apply as apply_ops
 from .ops import cuda_shear, cuda_shear3
 from .ops import shear3 as shear3_ops
 from .ops import weights as weights_ops
+from .ops.overlap1d import Band1D
+from .utils.device import Device, as_input
 from .utils.digest import array_digest
 from .utils.lru import LruDict
 
@@ -171,15 +190,17 @@ def apply_operator(
     weight_dtype: torch.dtype = torch.float32,
     impl: str = "auto",
     differentiable: bool = False,
+    device: Device = None,
 ) -> torch.Tensor:
     """Apply a prebuilt operator to (..., H, W) image(s).
 
-    See the module docstring for ``impl``.  Gradients (separable only):
-    the kernel route always carries the transposed-band backward
-    (autodiff.SeparableLinear); ``differentiable=True`` routes the plain
-    banded apply through the same Function (otherwise torch
+    See the module docstring for ``impl`` and ``device``.  Gradients
+    (separable only): the kernel route always carries the transposed-band
+    backward (autodiff.SeparableLinear); ``differentiable=True`` routes
+    the plain banded apply through the same Function (otherwise torch
     differentiates the plain ops directly).
     """
+    src = as_input(src, device)
     if isinstance(op, weights_ops.EllOperator):
         return _apply_ell_operator(op, src, weight_dtype, impl,
                                    differentiable)
@@ -188,7 +209,6 @@ def apply_operator(
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
     autodiff.numpy_weight_dtype(weight_dtype)  # raises on other dtypes
-    src = torch.as_tensor(src)
     quadrant = op.spec.quadrant
 
     def _box_params():
@@ -273,7 +293,6 @@ def _apply_ell_operator(op, src, weight_dtype, impl, differentiable):
         raise _rotated_not_ported(
             "differentiable=True on an EllOperator (the ELL custom VJP)")
     autodiff.numpy_weight_dtype(weight_dtype)  # raises on other dtypes
-    src = torch.as_tensor(src)
     post = None
     if op.spec.quadrant % 4:
         # the rot90 pre-rotation folds into the table: the apply reads the
@@ -344,6 +363,7 @@ def area_average_interpolate(
     fused: bool = False,
     differentiable: bool = False,
     shear_decomposition: str = "quality",
+    device: Device = None,
 ) -> InterpResult:
     """Area-average interpolation with optional rotation about an isocenter.
 
@@ -361,12 +381,12 @@ def area_average_interpolate(
     and the apply takes apply_operator's auto route.  With mode='shear' no
     Operator is built: ``method`` picks the route ('auto', 'kernel',
     'plain'; module docstring) and ``shear_decomposition`` the plan
-    ('quality' or 'fast').
+    ('quality' or 'fast').  ``device``: see the module docstring.
     """
     if mode not in ("exact", "fast", "compat", "shear"):
         raise ValueError(
             f"mode must be exact/fast/compat/shear, got {mode!r}")
-    src = torch.as_tensor(src)
+    src = as_input(src, device)
     spec = make_grid_spec(
         (src.shape[-2], src.shape[-1]),
         src_resolution,
@@ -409,3 +429,197 @@ def area_average_interpolate(
     dst = apply_operator(operator, src, weight_dtype=weight_dtype,
                          impl=impl, differentiable=differentiable)
     return InterpResult(dst=dst, dst_isocenter=spec.dst_isocenter, spec=spec)
+
+
+def _unit_resize_band(n_src: int, n_dst: int) -> Band1D:
+    """Row-normalised interval-overlap band for resizing a unit-cell axis
+    of ``n_src`` cells to ``n_dst`` equal destination cells (each dst
+    weight row is the exact area-average stencil; rows sum to 1)."""
+    band = max(2, -(-n_src // n_dst) + 2)
+    b = regrid._interval_overlap_band(
+        np.linspace(0.0, float(n_src), n_src + 1),
+        np.linspace(0.0, float(n_src), n_dst + 1),
+        band,
+    )
+    s = b.weights.sum(axis=1, keepdims=True)  # == n_src/n_dst exactly
+    return Band1D(start=b.start, weights=b.weights / s,
+                  n_src=n_src, n_dst=n_dst)
+
+
+def area_resize(
+    image,
+    dst_shape: Tuple[int, int],
+    *,
+    mask=None,
+    fill_value: float = float("nan"),
+    min_coverage: float = 1e-6,
+    impl: str = "auto",
+    precision: str = "auto",
+    device: Device = None,
+) -> torch.Tensor:
+    """Conservative (area-average) resize of (..., H, W) to any shape.
+
+    Each destination pixel is the exact area-weighted mean of the source
+    pixels its footprint covers, the two axes resized independently;
+    the mean is conserved at any ratio, up or down.  ``impl`` and
+    ``precision`` as in ``regrid.apply_band_operators``.
+
+    mask: optional validity mask broadcastable to the trailing (H, W)
+    dims (nonzero = valid): the result is the valid-cell-renormalised
+    mean, and destination pixels whose valid coverage is <= min_coverage
+    get fill_value.  Masked output is float.
+    """
+    image = as_input(image, device)
+    H, W = int(image.shape[-2]), int(image.shape[-1])
+    Hd, Wd = int(dst_shape[0]), int(dst_shape[1])
+    if Hd <= 0 or Wd <= 0:
+        raise ValueError(f"dst_shape must be positive, got {dst_shape!r}")
+    by, bx = _unit_resize_band(H, Hd), _unit_resize_band(W, Wd)
+    if mask is not None:
+        out, _ = regrid.apply_band_operators_masked(
+            image, mask, by, bx, fill_value=fill_value,
+            min_coverage=min_coverage, impl=impl, precision=precision)
+        return out
+    return regrid.apply_band_operators(image, by, bx, impl=impl,
+                                       precision=precision)
+
+
+def resize(image, dst_shape: Tuple[int, int], *, method: str = "area",
+           **kwargs) -> torch.Tensor:
+    """One resize entry: ``method='area'`` is ``area_resize`` (with its
+    mask=/impl=/precision=/device= knobs).  'bilinear' and 'bicubic' (the
+    JAX package's ``baselines.resize_baseline``) are not ported yet."""
+    if method == "area":
+        return area_resize(image, dst_shape, **kwargs)
+    if method in ("bilinear", "bicubic"):
+        raise NotImplementedError(
+            f"resize(method={method!r}) comes with the PyTorch port's "
+            "baselines.py (ROADMAP.md slice 5); use the JAX package "
+            "aainterp meanwhile")
+    raise ValueError(
+        f"method must be 'area', 'bilinear' or 'bicubic', got {method!r}")
+
+
+def resize_bands(src_shape: Tuple[int, int],
+                 dst_shape: Tuple[int, int]) -> Tuple[Band1D, Band1D]:
+    """The ``(by, bx)`` Band1D pair behind ``area_resize``, for reuse with
+    ``regrid.apply_band_operators``."""
+    H, W = int(src_shape[0]), int(src_shape[1])
+    Hd, Wd = int(dst_shape[0]), int(dst_shape[1])
+    if H <= 0 or W <= 0 or Hd <= 0 or Wd <= 0:
+        raise ValueError(
+            f"shapes must be positive, got {src_shape!r} -> {dst_shape!r}")
+    return _unit_resize_band(H, Hd), _unit_resize_band(W, Wd)
+
+
+def area_resize_nd(
+    volume,
+    dst_shape: Sequence[int],
+    *,
+    axes: Optional[Sequence[int]] = None,
+    mask=None,
+    fill_value: float = float("nan"),
+    min_coverage: float = 1e-6,
+    impl: str = "auto",
+    precision: str = "auto",
+    device: Device = None,
+) -> torch.Tensor:
+    """Conservative (area-average) resize along any set of axes of an N-D
+    array (volumes, hyperspectral stacks, video cubes).
+
+    dst_shape: target sizes for ``axes``; ``axes`` defaults to the last
+    ``len(dst_shape)`` axes.  Axes whose size does not change are
+    skipped.  When both trailing axes are resized they ride
+    ``regrid.apply_band_operators`` (``impl``/``precision``); every other
+    axis runs one contraction (``ops.apply.apply_aligned_axis`` for
+    integer-ratio axes, else ``apply_band_axis``).  uint8 input quantises
+    once at the end (round half to even, saturate), except the pure
+    trailing-2-D case, which takes the band apply's own u8 route.
+
+    mask: optional validity mask broadcastable to ``volume`` (nonzero =
+    valid): the result is R(x*m)/R(m), with cells whose valid coverage is
+    <= min_coverage set to fill_value.  Masked output is float32.
+    """
+    volume = as_input(volume, device)
+    nd = volume.ndim
+    dst_shape = tuple(int(s) for s in dst_shape)
+    if axes is None:
+        if len(dst_shape) > nd:
+            raise ValueError(
+                f"dst_shape has {len(dst_shape)} entries for a {nd}-D array")
+        axes = tuple(range(nd - len(dst_shape), nd))
+    axes = tuple(a % nd for a in axes)
+    if len(axes) != len(dst_shape):
+        raise ValueError(
+            f"axes {axes!r} and dst_shape {dst_shape!r} length mismatch")
+    if len(set(axes)) != len(axes):
+        raise ValueError(f"duplicate axis in {axes!r}")
+    if any(s <= 0 for s in dst_shape):
+        raise ValueError(f"dst_shape must be positive, got {dst_shape!r}")
+
+    # per-axis bands, skipping no-op axes
+    bands = {
+        ax: _unit_resize_band(int(volume.shape[ax]), s)
+        for ax, s in zip(axes, dst_shape)
+        if int(volume.shape[ax]) != s
+    }
+
+    def _resize(x):
+        todo = dict(bands)
+        if nd - 2 in todo and nd - 1 in todo:
+            by, bx = todo.pop(nd - 2), todo.pop(nd - 1)
+            x = regrid.apply_band_operators(x, by, bx, impl=impl,
+                                            precision=precision)
+        for ax in sorted(todo):
+            b = todo[ax]
+            # integer-ratio axes skip the gather (reshape + weighted tap
+            # sum; ops/apply.aligned_axis_plan)
+            plan = apply_ops.aligned_axis_plan(b.start, b.weights, b.n_src)
+            if plan is not None:
+                x = apply_ops.apply_aligned_axis(x, plan, ax)
+            else:
+                x = apply_ops.apply_band_axis(
+                    x, torch.as_tensor(b.start, device=x.device),
+                    torch.as_tensor(b.weights, dtype=torch.float32,
+                                    device=x.device), ax)
+        return x
+
+    if mask is not None:
+        m = (torch.as_tensor(mask, device=volume.device).to(torch.float32)
+             != 0).broadcast_to(volume.shape).to(torch.float32)
+        num = _resize(volume.to(torch.float32) * m)
+        den = _resize(m)
+        return regrid._masked_ratio(num, den, fill_value, min_coverage)
+
+    if not bands:
+        return volume
+    u8 = volume.dtype == torch.uint8
+    if u8 and set(bands) == {nd - 2, nd - 1}:
+        return _resize(volume)  # the band apply's u8 route, rounds once
+    out = _resize(volume.to(torch.float32) if u8 else volume)
+    return regrid._quantise_u8(out) if u8 else out
+
+
+def area_pyramid(image, num_levels: int, *, factor: int = 2,
+                 min_size: int = 1, device: Device = None,
+                 **kwargs) -> List[torch.Tensor]:
+    """Flux-conserving image pyramid: successive ``area_resize`` by
+    ``1/factor`` per level (ceil division, floored at ``min_size``).
+
+    Returns ``[image, level1, ...]`` with at most ``num_levels`` entries
+    (fewer once both axes reach ``min_size``); every level has the input's
+    mean to float tolerance.  kwargs pass to ``area_resize``
+    (impl/precision/mask...).
+    """
+    if num_levels < 1:
+        raise ValueError(f"num_levels must be >= 1, got {num_levels}")
+    if factor < 2:
+        raise ValueError(f"factor must be >= 2, got {factor}")
+    levels = [as_input(image, device)]
+    while len(levels) < num_levels:
+        H, W = int(levels[-1].shape[-2]), int(levels[-1].shape[-1])
+        nxt = (max(min_size, -(-H // factor)), max(min_size, -(-W // factor)))
+        if nxt == (H, W):
+            break
+        levels.append(area_resize(levels[-1], nxt, **kwargs))
+    return levels

@@ -3,9 +3,12 @@ and the ELL (rotated) gather apply.
 
 Counterpart of the plain part of ``aainterp/ops/apply.py``.  These are
 the reference implementations the CUDA kernels (``ops/cuda_apply.py``,
-``ops/cuda_shear.py``) are held to, and the routes a CPU tensor takes.
-The stencil and aligned applies wait for slice 2, the ELL transpose for
-the rest of slice 3 (ROADMAP.md).
+``ops/cuda_shear.py``, ``ops/cuda_apply_2d.py``) are held to, and the
+routes a CPU tensor takes.  The aligned integer-ratio applies and the
+one-axis band contraction serve the band-operator family (``regrid.py``,
+the area-resize front doors).  The stencil path and the dense apply wait
+for slice 2's remainder, the ELL transpose for the rest of slice 3
+(ROADMAP.md).
 
 Accumulation is float32 (or the weight dtype) regardless of image dtype,
 and the output is in the accumulation dtype: bf16 or uint8 pixels give a
@@ -70,6 +73,102 @@ def apply_separable_banded(
     g2 = t.index_select(-1, cols.reshape(-1))                # (..., Hd, Wd*kx)
     g2 = g2.reshape(lead + (Hd, Wd, kx))
     return torch.einsum("wk,...hwk->...hw", x_w.to(acc_dtype), g2)
+
+
+def apply_band_axis(q: torch.Tensor, start: torch.Tensor, w: torch.Tensor,
+                    axis: int) -> torch.Tensor:
+    """Banded contraction along ONE axis of an N-D array.
+
+    out[..., i, ...] = sum_k w[i, k] * q[..., clamp(start[i] + k), ...]
+    along ``axis``, in ``w``'s dtype (counterpart of apply.py:69-99; the
+    building block of ``api.area_resize_nd``).  The tables must lie on
+    q's device.
+    """
+    k = w.shape[1]
+    v = q.movedim(axis, -1)
+    idx = _band_index(start, k, v.shape[-1])                 # (n_dst, k)
+    g = v.index_select(-1, idx.reshape(-1))
+    g = g.reshape(v.shape[:-1] + tuple(idx.shape)).to(w.dtype)
+    return torch.einsum("nk,...nk->...n", w, g).movedim(-1, axis)
+
+
+def aligned_axis_plan(start, w, n: int):
+    """dict(m, c0, wk) for an exactly aligned integer-ratio band, else None.
+
+    Aligned means the destination cells PARTITION a contiguous run of
+    source cells into equal blocks of m: every dst cell i has exactly m
+    contiguous live taps whose first source index is c0 + m*i, and the
+    run c0 .. c0 + m*n_dst fits inside the n source cells.  Weights may
+    vary per row (the sin-lat weights of an integer-ratio conservative
+    regrid qualify: the config-5 0.1 deg -> 1 deg case, m = 10).  Host
+    numpy, carried from apply.py:175-218; ``wk`` is the (n_dst, m)
+    compacted tap table.
+    """
+    s = np.asarray(start).astype(np.int64)
+    wt = np.asarray(w)
+    nd, k = wt.shape
+    if nd == 0:
+        return None
+    live = wt != 0.0
+    m = int(live[0].sum())
+    if m < 1 or m > k or (live.sum(axis=1) != m).any():
+        return None
+    first = live.argmax(axis=1)
+    idx = np.arange(k)
+    run = (first[:, None] <= idx) & (idx < first[:, None] + m)
+    if (live != run).any():
+        return None  # live taps not one contiguous run
+    eff = s + first
+    c0 = int(eff[0])
+    if c0 < 0 or (eff != c0 + m * np.arange(nd)).any() or c0 + m * nd > n:
+        return None
+    wk = wt[np.arange(nd)[:, None], first[:, None] + idx[None, :m]]
+    return dict(m=m, c0=c0, wk=np.ascontiguousarray(wk))
+
+
+def _as_weights(wk, acc_dtype, device) -> torch.Tensor:
+    if isinstance(wk, torch.Tensor):
+        return wk.to(device=device, dtype=acc_dtype)
+    return torch.as_tensor(np.asarray(wk), dtype=acc_dtype, device=device)
+
+
+def apply_separable_aligned(q: torch.Tensor, y_plan, x_plan,
+                            acc_dtype=torch.float32) -> torch.Tensor:
+    """Aligned integer-ratio separable apply: reshape + weighted tap sum.
+
+    (..., H, W) -> (..., Hd, Wd) for band pairs whose ``aligned_axis_plan``
+    exists on both axes; rows first, then columns, in ``acc_dtype`` (the
+    order of apply.py:221-249).  Plain torch and differentiable; ``wk``
+    may be host arrays or tensors.
+    """
+    my, cy = int(y_plan["m"]), int(y_plan["c0"])
+    mx, cx = int(x_plan["m"]), int(x_plan["c0"])
+    wy = _as_weights(y_plan["wk"], acc_dtype, q.device)
+    wx = _as_weights(x_plan["wk"], acc_dtype, q.device)
+    hd, wd = wy.shape[0], wx.shape[0]
+    lead = q.shape[:-2]
+    if cy or q.shape[-2] != cy + my * hd:
+        q = q.narrow(-2, cy, my * hd)
+    t = (q.reshape(lead + (hd, my, q.shape[-1])).to(acc_dtype)
+         * wy[:, :, None]).sum(dim=-2)
+    if cx or t.shape[-1] != cx + mx * wd:
+        t = t.narrow(-1, cx, mx * wd)
+    return (t.reshape(lead + (hd, wd, mx)) * wx).sum(dim=-1)
+
+
+def apply_aligned_axis(q: torch.Tensor, plan, axis: int,
+                       acc_dtype=torch.float32) -> torch.Tensor:
+    """Aligned integer-ratio banded contraction along ONE axis (the N-D
+    sibling of ``apply_separable_aligned``, apply.py:252-271)."""
+    m, c0 = int(plan["m"]), int(plan["c0"])
+    wk = _as_weights(plan["wk"], acc_dtype, q.device)
+    nd_out = wk.shape[0]
+    v = q.movedim(axis, -1)
+    if c0 or v.shape[-1] != c0 + m * nd_out:
+        v = v.narrow(-1, c0, m * nd_out)
+    out = (v.reshape(v.shape[:-1] + (nd_out, m)).to(acc_dtype)
+           * wk).sum(dim=-1)
+    return out.movedim(-1, axis)
 
 
 def uniform_box_params(y_start, y_w, x_start, x_w, H: int, W: int):

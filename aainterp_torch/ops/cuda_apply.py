@@ -52,11 +52,45 @@ def _host(a, dtype) -> np.ndarray:
     return np.asarray(a, dtype=dtype)
 
 
+def table_on(t, dtype, device) -> torch.Tensor:
+    """A band table (host array or tensor on any device) as a ``dtype``
+    tensor on ``device``; a tensor already there is used as it is."""
+    if isinstance(t, torch.Tensor):
+        return t.to(device=device, dtype=dtype)
+    return torch.as_tensor(np.asarray(t), dtype=dtype, device=device)
+
+
 def _resolve_out_dtype(in_dtype: torch.dtype, out_dtype=None) -> torch.dtype:
     """The output dtype for frames of ``in_dtype`` (pallas_apply.py:514-517)."""
     if out_dtype is not None:
         return out_dtype
     return in_dtype if in_dtype in _DTYPE_CODES else torch.float32
+
+
+def check_inputs(frames: torch.Tensor, y_start, y_w, x_start, x_w,
+                 out_dtype=None):
+    """The checks and conversions both separable kernel wrappers share.
+
+    ``frames`` is a contiguous (F, H, W) tensor; a dtype the kernels do
+    not read is cast to f32.  Returns (frames, out_dtype, ys, yw, xs, xw)
+    with the band tables as host int32 starts and f32 weights.
+    """
+    if frames.ndim != 3:
+        raise ValueError(f"frames must be (F, H, W) or (H, W), got shape "
+                         f"{tuple(frames.shape)}")
+    if not frames.is_contiguous():
+        raise ValueError("frames must be contiguous")
+    if frames.dtype.is_complex or frames.dtype == torch.bool:
+        raise TypeError(f"unsupported frame dtype {frames.dtype}")
+    out_dtype = _resolve_out_dtype(frames.dtype, out_dtype)
+    if frames.dtype not in _DTYPE_CODES:
+        frames = frames.to(torch.float32)   # pallas_apply.py:583-584
+    ys, yw = _host(y_start, np.int32), _host(y_w, np.float32)
+    xs, xw = _host(x_start, np.int32), _host(x_w, np.float32)
+    if yw.ndim != 2 or xw.ndim != 2 or ys.shape != yw.shape[:1] \
+            or xs.shape != xw.shape[:1]:
+        raise ValueError("band tables must be start (n,) and weights (n, k)")
+    return frames, out_dtype, ys, yw, xs, xw
 
 
 def plan_separable(ys: np.ndarray, xs: np.ndarray, ky: int, kx: int,
@@ -124,15 +158,11 @@ def apply_separable_plain(frames: torch.Tensor, y_start, y_w, x_start, x_w,
     """
     out_dtype = _resolve_out_dtype(frames.dtype, out_dtype)
     dev = frames.device
-
-    def on_device(t, dtype):
-        if isinstance(t, torch.Tensor):
-            return t.to(device=dev, dtype=dtype)
-        return torch.as_tensor(np.asarray(t), dtype=dtype, device=dev)
-
     out = apply_separable_banded(
-        frames, on_device(y_start, torch.int64), on_device(y_w, torch.float32),
-        on_device(x_start, torch.int64), on_device(x_w, torch.float32))
+        frames, table_on(y_start, torch.int64, dev),
+        table_on(y_w, torch.float32, dev),
+        table_on(x_start, torch.int64, dev),
+        table_on(x_w, torch.float32, dev))
     if out_dtype == torch.uint8:
         out = out.round().clamp(0.0, 255.0)
     return out.to(out_dtype)
@@ -151,23 +181,8 @@ def apply_separable_kernel(frames: torch.Tensor, y_start, y_w, x_start, x_w,
     if frames.ndim == 2:
         return apply_separable_kernel(frames[None], y_start, y_w, x_start,
                                       x_w, out_dtype=out_dtype)[0]
-    if frames.ndim != 3:
-        raise ValueError(f"frames must be (F, H, W) or (H, W), got shape "
-                         f"{tuple(frames.shape)}")
-    if not frames.is_contiguous():
-        raise ValueError("frames must be contiguous")
-    if frames.dtype.is_complex or frames.dtype == torch.bool:
-        raise TypeError(f"unsupported frame dtype {frames.dtype}")
-    out_dtype = _resolve_out_dtype(frames.dtype, out_dtype)
-    if frames.dtype not in _DTYPE_CODES:
-        frames = frames.to(torch.float32)   # pallas_apply.py:583-584
-    ys = _host(y_start, np.int32)
-    yw = _host(y_w, np.float32)
-    xs = _host(x_start, np.int32)
-    xw = _host(x_w, np.float32)
-    if yw.ndim != 2 or xw.ndim != 2 or ys.shape != yw.shape[:1] \
-            or xs.shape != xw.shape[:1]:
-        raise ValueError("band tables must be start (n,) and weights (n, k)")
+    frames, out_dtype, ys, yw, xs, xw = check_inputs(
+        frames, y_start, y_w, x_start, x_w, out_dtype)
 
     if frames.device.type == "cpu":
         return apply_separable_plain(frames, ys, yw, xs, xw,

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (aainterp_torch) on one NVIDIA GPU.
 
-Drives the port's three main paths on the card, through
-``aainterp_torch.area_average_interpolate``:
+Drives the port's four main paths on the card, through the public entry
+points (``aainterp_torch.area_average_interpolate`` for the first three):
 
 * the separable flagship — batched 4K->1080p area-average resize, 8 frames
   of bf16 pixels with f32 accumulation, on ``csrc/separable_apply.cu``;
@@ -14,14 +14,26 @@ Drives the port's three main paths on the card, through
 * the shear flagship — the same 8x2048x2048 bf16 frames at 30 degrees in
   ``mode='shear'`` (3 conservative 1-D passes), both decompositions
   ('quality' x-y-x and 'fast' y-x-y), on the two stage kernels of
-  ``csrc/shear3_stage.cu``, and the ``Shear3Linear`` gradient.
+  ``csrc/shear3_stage.cu``, and the ``Shear3Linear`` gradient;
+* the band-operator family — the conservative lat-lon regrid of 8 fields
+  at 0.1 degree (1800x3600) to 1 degree (180x360, BASELINE config 5,
+  ``bench.py:469-491``) and to 0.25 degree (720x1440), through
+  ``conservative_regrid``, and the area-resize front doors
+  (``area_resize``, ``area_pyramid``) on 4K frames, on the 2-D
+  banded-tile kernel of ``csrc/separable_apply_2d.cu`` (every dtype on
+  the card, the f32 config-5 regrid too), and its gradient, whose backward
+  is the same kernel on the transposed bands.
 
 It builds every kernel from ``aainterp_torch/csrc`` with nvcc (and the
 host engine ``native/aainterp_native.cpp`` with g++), all compilers at
 once; holds every kernel against its plain PyTorch version on the same
 inputs; checks small inputs against dense float64 references; and times
-the kernels, their plain versions and a device-to-device copy (the bytes
-bound).
+the kernels, their plain versions, one PyTorch library call per kernel
+where one computes the same function (a dense ``torch.einsum``, a
+``torch.gather``) and a device-to-device copy.  Each kernel's bound is
+the larger of its bytes (each input read once, each output written once)
+over the H100's published 3.35 TB/s and its operations over the
+published 67 TFLOP/s of float32 outside the tensor cores.
 
     python3 chip_smoke.py
 
@@ -42,8 +54,17 @@ bf16 ulp (both sum the same f32 products in the same order); the route
 within one bf16 ulp (u8: one gray level) of the bf16-staged plain
 pipeline and within 2e-2 of the f32-staged one on [0, 1] inputs (JAX's
 bf16-staging contract, tests/test_shear3.py:256-259); gradient atol 1e-5;
-dense float64 reference atol 2e-5.  TF32 is switched off for matmul and
-cuDNN so the plain versions' einsums run in full f32.
+dense float64 reference atol 2e-5.  Band-operator family, 2-D kernel
+against its plain version on fields in [250, 300]: f32 rtol 1e-6, atol
+1e-3 (tests/test_pallas.py:168-169); bf16 within one bf16 ulp; uint8
+within one gray level; precisions 'default' and 'bf16x3' rtol 1e-6 (the
+same bf16 operands summed in the same order); the aligned route against
+the kernel rtol 1e-6, atol 1e-3; the kernel route's gradient against the
+banded route's rtol 1e-5, atol 1e-6; masked coverage atol 1e-6; the
+spherical-area mean of the regrid within 1e-6 relative of the input's,
+in float64; dense float64 reference rtol 1e-6.  TF32 is switched off for
+matmul and cuDNN so the plain versions' and library calls' einsums run
+in full f32.
 """
 
 from __future__ import annotations
@@ -60,8 +81,10 @@ import torch
 import aainterp_torch as at
 from aainterp_torch import _build
 from aainterp_torch import api as t_api
+from aainterp_torch import regrid as t_regrid
 from aainterp_torch.ops import apply as apply_ops
-from aainterp_torch.ops import cuda_apply, cuda_shear, cuda_shear3, shear3
+from aainterp_torch.ops import (cuda_apply, cuda_apply_2d, cuda_shear,
+                                cuda_shear3, shear3)
 from aainterp_torch.ops import weights as weights_ops
 
 H, W, F = 2160, 3840, 8                 # the flagship: 4K -> 1080p, 8 frames
@@ -76,6 +99,12 @@ SHEAR_KERNELS = ("vshear", "hshear", "contract")
 SHEAR3_KERNELS = ("ystage", "xstage")
 SHEAR_DECS = ("quality", "fast")
 SHEAR_AXES = {"quality": ("x", "y", "x"), "fast": ("y", "x", "y")}
+# the conservative regrid: BASELINE config 5 (0.1 -> 1 degree) and the
+# 0.1 -> 0.25 degree regrid onto the cell-centred grid of ERA5-class data
+RG_F, RG_SRC, RG_DST, RG_QDEG = 8, (1800, 3600), (180, 360), (720, 1440)
+# NVIDIA's data sheet for the H100 SXM (dense rates, 700 W)
+PEAK_BYTES_S = 3.35e12           # HBM3
+PEAK_F32_FLOP_S = 67e12          # float32 outside the tensor cores
 
 
 def check(cond: bool, msg: str) -> None:
@@ -122,6 +151,7 @@ def within_bf16_ulp(a: torch.Tensor, ref: torch.Tensor, what: str) -> float:
 
 def reset_launches() -> None:
     cuda_apply.LAUNCHES = 0
+    cuda_apply_2d.LAUNCHES = 0
     for k in SHEAR_KERNELS:
         cuda_shear.LAUNCHES[k] = 0
     for k in SHEAR3_KERNELS:
@@ -131,6 +161,31 @@ def reset_launches() -> None:
 def other_paths_idle(*counters) -> bool:
     """True if no kernel of the given LAUNCHES dicts was launched."""
     return all(v == 0 for c in counters for v in c.values())
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take for work that moves ``nbytes``
+    and does ``flops`` float32 operations: the larger of the two times at
+    the published peaks, and which of them bounds it."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOP_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def table_bytes(*tables) -> int:
+    return int(sum(np.asarray(t).nbytes for t in tables))
+
+
+def dense_band(start, weights, n_src: int) -> np.ndarray:
+    """The (n_dst, n_src) float64 matrix of a band (taps outside the
+    source carry zero weight and are dropped)."""
+    n_dst, k = weights.shape
+    m = np.zeros((n_dst, n_src))
+    for a in range(k):
+        cols = np.asarray(start, np.int64) + a
+        ok = (cols >= 0) & (cols < n_src)
+        np.add.at(m, (np.nonzero(ok)[0], cols[ok]), weights[ok, a])
+    return m
 
 
 def folded_tables(op):
@@ -231,7 +286,8 @@ def rotated_phases(make, card):
     check(all(launches[k] == len(requests) for k in SHEAR_KERNELS),
           f"rotated main path launched {launches} for {len(requests)} "
           "requests (want each kernel once per request)")
-    check(cuda_apply.LAUNCHES == 0 and other_paths_idle(cuda_shear3.LAUNCHES),
+    check(cuda_apply.LAUNCHES == 0 and cuda_apply_2d.LAUNCHES == 0
+          and other_paths_idle(cuda_shear3.LAUNCHES),
           "rotated path launched a kernel of another path")
     route_err = {"sheared": 0.0, "gather": 0.0}
     for x, out in zip(requests, outs):
@@ -359,6 +415,10 @@ def rotated_phases(make, card):
         "max_abs_err": kerr[name],
         "ms": timing[f"{name}_kernel_device_ms"],
         "plain_ms": timing[f"{name}_plain_device_ms"],
+        **timing["bounds"][name],
+        # contraction: no single PyTorch call computes a K x K window
+        # contraction with per-pixel weights
+        "library_ms": timing.get(f"{name}_library_device_ms"),
     } for name, line in (("vshear", 59), ("hshear", 114), ("contract", 164))]
 
 
@@ -371,7 +431,19 @@ def rotated_timing(make, card, op, plan) -> dict:
     ss = [cuda_shear.vshear_kernel(q, plan) for q in qs]
     ts = [cuda_shear.hshear_kernel(s, plan) for s in ss]
     copy_dst = torch.empty_like(qs[0])
+    # the library calls: one torch.gather each with the clamped index
+    # precomputed (the zero fill outside the source is left out, so each
+    # is a lower bound of a library route)
+    tab = plan.tables(qs[0].device)
+    rows = (torch.arange(plan.TH, device=qs[0].device)[:, None]
+            - tab["gy"][None, :].to(torch.int64)).clamp(0, plan.qH - 1)
+    rows = rows.expand(F, -1, -1)
+    cols = (torch.arange(plan.TW, device=qs[0].device)[None, :]
+            - tab["hx"][:, None].to(torch.int64)).clamp(0, plan.qW - 1)
+    cols = cols.expand(F, -1, -1)
     fns = {
+        "vshear_library": (lambda q: torch.gather(q, 1, rows), qs),
+        "hshear_library": (lambda s: torch.gather(s, 2, cols), ss),
         "vshear_kernel": (lambda q: cuda_shear.vshear_kernel(q, plan), qs),
         "vshear_plain": (lambda q: cuda_shear.vshear_plain(q, plan), qs),
         "hshear_kernel": (lambda s: cuda_shear.hshear_kernel(s, plan), ss),
@@ -410,6 +482,12 @@ def rotated_timing(make, card, op, plan) -> dict:
         for how in ("device", "eager"):
             timing[f"{name}_{how}_gpixel_s"] = (
                 px / (timing[f"{name}_{how}_ms"] * 1e-3) / 1e9)
+    timing["bounds"] = {
+        "vshear": bound(q_b + s_b + plan.gy.nbytes, 0),
+        "hshear": bound(s_b + t_b + plan.hx.nbytes, 0),
+        "contract": bound(t_b + w_b + o_b + table_bytes(plan.ry0, plan.cx0),
+                          2 * F * plan.Hd * plan.Wd * plan.Ka * plan.Kb),
+    }
     timing.update(
         bytes_per_batch={"q": q_b, "S_write_read": 2 * s_b,
                          "T_write_read": 2 * t_b, "w2": w_b, "out": o_b,
@@ -428,7 +506,9 @@ def rotated_timing(make, card, op, plan) -> dict:
           f"{t['hshear_kernel_device_ms']:.4f} / "
           f"{t['hshear_plain_device_ms']:.4f}, contract "
           f"{t['contract_kernel_device_ms']:.4f} / "
-          f"{t['contract_plain_device_ms']:.4f}; route kernel "
+          f"{t['contract_plain_device_ms']:.4f}; library gathers: vshear "
+          f"{t['vshear_library_device_ms']:.4f}, hshear "
+          f"{t['hshear_library_device_ms']:.4f}; route kernel "
           f"{t['route_kernel_device_ms']:.4f} ms = "
           f"{t['route_kernel_device_gpixel_s']:.3f} Gpixel/s (eager "
           f"{t['route_kernel_eager_ms']:.4f} ms), sheared "
@@ -499,8 +579,8 @@ def shear3_phases(make, card):
                 for a in "yx"}
         check(got == want, f"shear {dec} launched {got} for "
               f"{len(requests)} requests (want {want})")
-        check(cuda_apply.LAUNCHES == 0 and
-              other_paths_idle(cuda_shear.LAUNCHES),
+        check(cuda_apply.LAUNCHES == 0 and cuda_apply_2d.LAUNCHES == 0
+              and other_paths_idle(cuda_shear.LAUNCHES),
               "the shear path launched a kernel of another path")
         for k in SHEAR3_KERNELS:
             launches[k] += got[k]
@@ -667,6 +747,9 @@ def shear3_phases(make, card):
             "max_abs_err": kerr[name],
             "ms": timing[f"{name}_kernel_device_ms"],
             "plain_ms": timing[f"{name}_plain_device_ms"],
+            **timing["bounds"][name],
+            # no single PyTorch call computes a translate-band-crop stage
+            "library_ms": None,
         })
     return entries
 
@@ -741,7 +824,21 @@ def shear3_timing(make, card, plans, sps) -> dict:
         t = timing[f"{dec}_route_kernel_device_ms"]
         timing[f"{dec}_route_kernel_gb_s"] = route_bytes / (t * 1e-3) / 1e9
         timing[f"{dec}_bound_share"] = timing[f"{dec}_bound_ms"] / t
-    # per kernel: its stages over one quality and one fast request
+    # per kernel: its stages over one quality and one fast request; the
+    # bound counts each stage's input, output, tables and inv_cov once, and
+    # 2 operations per tap (2 translate taps, plus K band taps)
+    work = {k: [0, 0] for k in SHEAR3_KERNELS}
+    for dec in SHEAR_DECS:
+        sp = sps[dec]
+        for i, st in enumerate(sp.stages):
+            w = work[f"{st.axis}stage"]
+            n_out = F * st.out_shape[0] * st.out_shape[1]
+            w[0] += timing[f"{dec}_s{i}_bytes"] + table_bytes(
+                st.d, st.f, st.start, st.w)
+            if i == len(sp.stages) - 1 and sp.inv_cov is not None:
+                w[0] += sp.inv_cov.nbytes
+            w[1] += 2 * n_out * (2 + (st.K or 0))
+    timing["bounds"] = {k: bound(*w) for k, w in work.items()}
     for name in SHEAR3_KERNELS:
         for how in ("kernel", "plain"):
             timing[f"{name}_{how}_device_ms"] = sum(
@@ -772,6 +869,395 @@ def shear3_timing(make, card, plans, sps) -> dict:
 
 
 
+def regrid_tables(by, bx):
+    """The 2-D kernel's host tables of a band pair."""
+    return (by.start, by.weights.astype(np.float32), bx.start,
+            bx.weights.astype(np.float32))
+
+
+def regrid_phases(dev, card):
+    """Phases 24-30: the band-operator family (conservative regrid and the
+    area-resize front doors) on the 2-D banded-tile kernel.  Returns its
+    entry of the JSON summary."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def fields(dtype=torch.float32, shape=(RG_F,) + RG_SRC):
+        """Seeded fields: uniform in [250, 300] (bench.py:479-480), or
+        uniform gray levels for uint8."""
+        x = torch.rand(shape, generator=gen, device=dev)
+        if dtype == torch.uint8:
+            return (x * 255.0).round().to(torch.uint8)
+        return (x * 50.0 + 250.0).to(dtype)
+
+    src, dst, qdeg = (at.LatLonGrid(*RG_SRC), at.LatLonGrid(*RG_DST),
+                      at.LatLonGrid(*RG_QDEG))
+
+    # ---- 24. host: the operators and the kernel's plans ---------------------
+    t0 = time.perf_counter()
+    by, bx = at.conservative_regrid_operator(src, dst)
+    op_s = time.perf_counter() - t0
+    qy, qx = at.conservative_regrid_operator(src, qdeg)
+    tabs, qtabs = regrid_tables(by, bx), regrid_tables(qy, qx)
+    t0 = time.perf_counter()
+    plan = cuda_apply_2d.kernel_plan(*tabs)
+    plan_s = time.perf_counter() - t0
+    qplan = cuda_apply_2d.kernel_plan(*qtabs)
+    aligned = t_regrid.band_tables(by, bx).aligned
+    check(aligned is not None and t_regrid.band_tables(qy, qx).aligned is None,
+          "config 5 must take the aligned route and 0.25 deg must not")
+    check((by.band, bx.band, aligned[0]["m"], aligned[1]["m"], qy.band,
+           qx.band) == (12, 12, 10, 10, 5, 5),
+          f"regrid bands: K {by.band}x{bx.band}, 0.25 deg {qy.band}x{qx.band}")
+    check(not plan["direct"] and not qplan["direct"],
+          "the regrid plans must stage their blocks in shared memory")
+    for name, p in (("config 5", plan), ("0.25 deg", qplan)):
+        print(f"[24 regrid host] {name}: TY {p['TY']} TX {p['TX']} SY "
+              f"{p['SY']} SX {p['SX']}, {p['nty']}x{p['ntx']} tiles, "
+              f"{p['smem']} B of shared memory per block")
+    print(f"[24 regrid host] {RG_SRC} -> {RG_DST}: conservative_regrid_operator"
+          f" {op_s:.4f} s, K {by.band}x{bx.band}, aligned m 10; 2-D plan "
+          f"{plan_s:.4f} s; {RG_SRC} -> {RG_QDEG}: K {qy.band}x{qx.band}")
+
+    # ---- 25. the regrid path through the public entry points --------------
+    reqs = [fields() for _ in range(2)]
+    bf = [x.to(torch.bfloat16) for x in reqs]
+    u8 = [fields(torch.uint8) for _ in range(2)]
+    calls = (
+        # (what, call, 2-D kernel launches per call)
+        ("config 5 f32 auto",
+         lambda i: at.conservative_regrid(reqs[i], src, dst), 1),
+        ("config 5 f32 impl='aligned'",
+         lambda i: at.conservative_regrid(reqs[i], src, dst, impl="aligned"),
+         0),
+        ("config 5 bf16 auto",
+         lambda i: at.conservative_regrid(bf[i], src, dst), 1),
+        ("config 5 u8 auto",
+         lambda i: at.conservative_regrid(u8[i], src, dst), 1),
+        ("0.25 deg f32 auto",
+         lambda i: at.conservative_regrid(reqs[i], src, qdeg), 1),
+    )
+    torch.cuda.synchronize()
+    reset_launches()
+    outs = {}
+    for what, fn, n in calls:
+        for i in range(len(reqs)):
+            before = cuda_apply_2d.LAUNCHES
+            outs[what, i] = fn(i)
+            check(cuda_apply_2d.LAUNCHES == before + n,
+                  f"{what}: {cuda_apply_2d.LAUNCHES - before} launches, want "
+                  f"{n}")
+    torch.cuda.synchronize()
+    launches = cuda_apply_2d.LAUNCHES
+    check(launches == len(reqs) * sum(n for _, _, n in calls),
+          f"regrid path launched the 2-D kernel {launches} times")
+    check(cuda_apply.LAUNCHES == 0 and
+          other_paths_idle(cuda_shear.LAUNCHES, cuda_shear3.LAUNCHES),
+          "the regrid path launched a kernel of another path")
+    errs = {}
+    for i in range(len(reqs)):
+        plain = cuda_apply_2d.apply_separable_2d_plain(reqs[i], *tabs)
+        for what in ("config 5 f32 auto", "config 5 f32 impl='aligned'"):
+            out = outs[what, i]
+            check(out.dtype == torch.float32 and tuple(out.shape) ==
+                  (RG_F,) + RG_DST and bool(torch.isfinite(out).all()),
+                  f"{what}: {out.dtype} {tuple(out.shape)}")
+            torch.testing.assert_close(out, plain, rtol=1e-6, atol=1e-3)
+            errs[what] = max(errs.get(what, 0.0), max_err(out, plain))
+        out = outs["config 5 bf16 auto", i]
+        check(out.dtype == torch.bfloat16, f"bf16 regrid gave {out.dtype}")
+        errs["bf16"] = max(errs.get("bf16", 0.0), within_bf16_ulp(
+            out, cuda_apply_2d.apply_separable_2d_plain(
+                bf[i], *tabs, out_dtype=torch.float32), "bf16 regrid"))
+        out = outs["config 5 u8 auto", i]
+        check(out.dtype == torch.uint8, f"u8 regrid gave {out.dtype}")
+        e = max_err(out, cuda_apply_2d.apply_separable_2d_plain(u8[i], *tabs))
+        check(e <= 1.0, f"u8 regrid err {e} > 1 gray level")
+        errs["u8"] = max(errs.get("u8", 0.0), e)
+        out = outs["0.25 deg f32 auto", i]
+        qref = cuda_apply_2d.apply_separable_2d_plain(reqs[i], *qtabs)
+        check(tuple(out.shape) == (RG_F,) + RG_QDEG,
+              f"0.25 deg out {tuple(out.shape)}")
+        torch.testing.assert_close(out, qref, rtol=1e-6, atol=1e-3)
+        errs["0.25 deg"] = max(errs.get("0.25 deg", 0.0), max_err(out, qref))
+    kernel_err = max(errs["config 5 f32 auto"], errs["0.25 deg"])
+    print(f"[25 regrid path] {RG_F}x{RG_SRC[0]}x{RG_SRC[1]} fields via "
+          f"conservative_regrid, {len(reqs)} requests per call: 2-D kernel "
+          f"launches {launches} (f32, bf16, u8 and 0.25 deg auto: 1 each; "
+          f"f32 impl='aligned': 0); max |out - plain|: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    del outs
+
+    # ---- 26. the kernel against its plain version, every precision -------
+    perr = {}
+    for name, x, t in (("config 5", reqs[0], tabs), ("0.25 deg", reqs[1],
+                                                      qtabs)):
+        for precision in ("auto", "default", "bf16x3"):
+            for dtype in (torch.float32, torch.bfloat16):
+                xd = x.to(dtype)
+                Hd, Wd = t[1].shape[0], t[3].shape[0]
+                buf = torch.full((RG_F, Hd, Wd), float("nan"), dtype=dtype,
+                                 device=dev)
+                got = cuda_apply_2d.apply_separable_kernel_2d(
+                    xd, *t, precision=precision, out=buf)
+                want = cuda_apply_2d.apply_separable_2d_plain(
+                    xd, *t, precision=precision)
+                torch.cuda.synchronize()
+                what = f"{name} {precision} {dtype}"
+                check(got is buf and bool(torch.isfinite(buf.float()).all()),
+                      f"{what}: elements of a NaN-filled output left")
+                if precision != "auto":
+                    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+                elif dtype == torch.float32:
+                    torch.testing.assert_close(got, want, rtol=1e-6,
+                                               atol=1e-3)
+                else:
+                    within_bf16_ulp(got, cuda_apply_2d.apply_separable_2d_plain(
+                        xd, *t, out_dtype=torch.float32), what)
+                perr[what] = max_err(got, want)
+    al = at.apply_band_operators(reqs[0], by, bx, impl="aligned")
+    k2 = at.apply_band_operators(reqs[0], by, bx, impl="kernel")
+    torch.testing.assert_close(al, k2, rtol=1e-6, atol=1e-3)
+    e_al = max_err(al, k2)
+    # bands whose one-pixel block exceeds shared memory: the direct form
+    wide = t_regrid.Band1D(start=np.zeros(4, np.int32),
+                           weights=np.full((4, 480), 1 / 480), n_src=480,
+                           n_dst=4)
+    wtabs = regrid_tables(wide, wide)
+    check(cuda_apply_2d.kernel_plan(*wtabs)["direct"],
+          "480-tap bands must take the direct form")
+    xw = fields(shape=(RG_F, 480, 480))
+    for precision in ("auto", "default", "bf16x3"):
+        buf = torch.full((RG_F, 4, 4), float("nan"), device=dev)
+        got = cuda_apply_2d.apply_separable_kernel_2d(
+            xw, *wtabs, precision=precision, out=buf)
+        want = cuda_apply_2d.apply_separable_2d_plain(xw, *wtabs,
+                                                      precision=precision)
+        check(bool(torch.isfinite(buf).all()), "direct form left elements")
+        torch.testing.assert_close(got, want, rtol=1e-6,
+                                   atol=1e-3 if precision == "auto" else 0)
+        perr[f"direct {precision}"] = max_err(got, want)
+    print(f"[26 regrid kernel] every precision, f32 and bf16, into NaN-filled"
+          f" outputs: all written; max |kernel - plain| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in perr.items())
+          + f"; aligned route vs kernel {e_al:.3e}")
+
+    # the kernel route's gradient: backward = the kernel on Wy^T, Wx^T
+    g = torch.rand((RG_F,) + RG_DST, generator=gen, device=dev)
+    xk = reqs[1].clone().requires_grad_(True)
+    before = cuda_apply_2d.LAUNCHES
+    (at.conservative_regrid(xk, src, dst) * g).sum().backward()
+    check(cuda_apply_2d.LAUNCHES == before + 2,
+          "regrid gradient: want 2 launches (forward, backward)")
+    xb = reqs[1].clone().requires_grad_(True)
+    (at.conservative_regrid(xb, src, dst, impl="banded") * g).sum().backward()
+    torch.testing.assert_close(xk.grad, xb.grad, rtol=1e-5, atol=1e-6)
+    print(f"[26 regrid gradient] config 5 f32 'auto' (kernel) backward vs "
+          f"the banded route's autograd: 2 launches, max "
+          f"{max_err(xk.grad, xb.grad):.3e}")
+    del xk, xb, g
+
+    # ---- 27. masked regrid, and the flux -------------------------------------
+    mask = (torch.rand(RG_SRC, generator=gen, device=dev) > 0.3).float()
+    x = reqs[0]
+    before = cuda_apply_2d.LAUNCHES
+    out_k, cov_k = at.apply_band_operators_masked(x, mask, by, bx,
+                                                  impl="kernel")
+    check(cuda_apply_2d.LAUNCHES == before + 2,
+          "masked kernel route: want 2 launches (numerator, one shared "
+          "denominator)")
+    out_b, cov_b = at.apply_band_operators_masked(x, mask, by, bx,
+                                                  impl="banded")
+    torch.testing.assert_close(out_k, out_b, rtol=1e-6, atol=1e-3,
+                               equal_nan=True)
+    torch.testing.assert_close(cov_k, cov_b, rtol=0, atol=1e-6)
+    w_src = torch.as_tensor(np.abs(np.diff(np.sin(np.radians(src.lat_edges)))),
+                            device=dev)[:, None]
+    w_dst = torch.as_tensor(np.abs(np.diff(np.sin(np.radians(dst.lat_edges)))),
+                            device=dev)[:, None]
+
+    def mean64(f, w):
+        f = f.double()
+        return (f * w).sum(dim=(-2, -1)) / (w.sum() * f.shape[-1])
+
+    flux = {}
+    for what, out in (("aligned", at.conservative_regrid(x, src, dst)),
+                      ("kernel", at.conservative_regrid(x, src, dst,
+                                                        impl="kernel"))):
+        rel = ((mean64(out, w_dst) - mean64(x, w_src)).abs()
+               / mean64(x, w_src).abs()).max().item()
+        check(rel <= 1e-6, f"regrid flux ({what}): relative change {rel}")
+        flux[what] = rel
+    awm = float((at.area_weighted_mean(out, dst)
+                 - at.area_weighted_mean(x, src)).abs().max())
+    print(f"[27 masked regrid] 70 % valid mask, kernel route vs banded: out "
+          f"max {max_err(torch.nan_to_num(out_k), torch.nan_to_num(out_b)):.3e},"
+          f" coverage max {max_err(cov_k, cov_b):.3e}; spherical-area mean "
+          f"kept (float64): aligned {flux['aligned']:.3e}, kernel "
+          f"{flux['kernel']:.3e} relative; area_weighted_mean f32 |diff| "
+          f"{awm:.3e}")
+    del out_k, cov_k, out_b, cov_b
+
+    # ---- 28. the area-resize front doors on 4K frames ----------------------
+    frames = torch.rand((F, H, W), generator=gen, device=dev).to(torch.bfloat16)
+    for shape in ((720, 1280), (768, 1366)):
+        before = cuda_apply_2d.LAUNCHES
+        out = at.area_resize(frames, shape)
+        check(cuda_apply_2d.LAUNCHES == before + 1 and out.dtype ==
+              torch.bfloat16 and tuple(out.shape) == (F,) + shape,
+              f"area_resize to {shape}: {out.dtype} {tuple(out.shape)}")
+        e = within_bf16_ulp(out, at.area_resize(frames, shape, impl="banded"),
+                            f"area_resize {shape}")
+        print(f"[28 area_resize] {F}x{H}x{W} bf16 -> {shape}: 1 launch, "
+              f"within one bf16 ulp of 'banded' (max {e:.3e})")
+    before = cuda_apply_2d.LAUNCHES
+    levels = at.area_pyramid(frames[0], 4)
+    check(cuda_apply_2d.LAUNCHES == before + 3, "area_pyramid: not 3 launches")
+    for lo, hi in zip(levels, levels[1:]):
+        within_bf16_ulp(hi, at.area_resize(lo, tuple(hi.shape), impl="banded"),
+                        f"pyramid level {tuple(hi.shape)}")
+    print(f"[28 area_pyramid] one 4K bf16 frame, 4 levels "
+          f"{[tuple(v.shape) for v in levels]}: 3 launches, each level within"
+          f" one bf16 ulp of 'banded' on the level above")
+    del frames, levels, out
+
+    # ---- 29. a dense float64 reference -------------------------------------
+    rng = np.random.default_rng(0)
+    small = rng.uniform(250, 300, (2, 360, 720)).astype(np.float32)
+    sy, sx = at.conservative_regrid_operator(at.LatLonGrid(360, 720),
+                                             at.LatLonGrid(36, 72))
+    ref = (dense_band(sy.start, sy.weights, 360) @ small.astype(np.float64)
+           @ dense_band(sx.start, sx.weights, 720).T)
+    out = at.conservative_regrid(torch.from_numpy(small).to(dev),
+                                 at.LatLonGrid(360, 720), at.LatLonGrid(36, 72),
+                                 impl="kernel").cpu().double().numpy()
+    rel = float(np.abs(out - ref).max() / np.abs(ref).min())
+    check(rel <= 1e-6, f"regrid dense reference relative err {rel}")
+    print(f"[29 regrid dense ref] (2, 360, 720) -> (36, 72) kernel route vs "
+          f"float64 Wy @ A @ Wx^T: max relative err {rel:.3e}")
+
+    # ---- 30. timing -----------------------------------------------------------
+    timing = regrid_timing(card, fields, tabs, qtabs, by, bx)
+    return [{
+        "name": "separable_apply_2d",
+        "route": "cuda",
+        "source": "aainterp_torch/csrc/separable_apply_2d.cu",
+        "replaces": "aainterp/ops/pallas_apply.py:849",
+        "launches": launches,
+        "max_abs_err": kernel_err,
+        "ms": timing["k2d_f32_device_ms"],
+        "plain_ms": timing["plain_f32_device_ms"],
+        **timing["bounds"]["k2d_f32"],
+        "library_ms": timing["library_f32_device_ms"],
+    }]
+
+
+def regrid_timing(card, fields, tabs, qtabs, by, bx) -> dict:
+    """Device (CUDA-graph replay) ms per batch of the 2-D kernel at config
+    5 (f32 forced, bf16) and at 0.25 degree, of the aligned route, the
+    plain version, kernel 1 on the same tables, the dense einsum library
+    call and a copy of the f32 batch (207 MB, beyond the 50 MB L2)."""
+    n = 4                                    # distinct batches, 207 MB each
+    xs = [fields() for _ in range(n)]
+    xb = [x.to(torch.bfloat16) for x in xs]
+    copy_dst = torch.empty_like(xs[0])
+    dev = xs[0].device
+    dense = {}
+    for key, t, n_src in (("c5", tabs, RG_SRC), ("q", qtabs, RG_SRC)):
+        dense[key] = (torch.as_tensor(dense_band(t[0], t[1], n_src[0]),
+                                      dtype=torch.float32, device=dev),
+                      torch.as_tensor(dense_band(t[2], t[3], n_src[1]),
+                                      dtype=torch.float32, device=dev))
+    k2d = cuda_apply_2d.apply_separable_kernel_2d
+    # the plain version's tables on the card already: an upload would be a
+    # host copy inside the graph capture
+    dtabs, dqtabs = (tuple(torch.as_tensor(a, device=dev) for a in t)
+                     for t in (tabs, qtabs))
+    fns = {
+        "k2d_f32": (lambda x: k2d(x, *tabs), xs),
+        "k2d_bf16": (lambda x: k2d(x, *tabs), xb),
+        "k2d_q_f32": (lambda x: k2d(x, *qtabs), xs),
+        "aligned_f32": (lambda x: at.apply_band_operators(
+            x, by, bx, impl="aligned"), xs),
+        "kernel1_f32": (lambda x: cuda_apply.apply_separable_kernel(x, *tabs),
+                        xs),
+        "plain_f32": (lambda x: cuda_apply_2d.apply_separable_2d_plain(
+            x, *dtabs), xs),
+        "plain_q_f32": (lambda x: cuda_apply_2d.apply_separable_2d_plain(
+            x, *dqtabs), xs),
+        "library_f32": (lambda x: torch.einsum("hy,fyx,wx->fhw", dense["c5"][0],
+                                               x, dense["c5"][1]), xs),
+        "library_q_f32": (lambda x: torch.einsum(
+            "hy,fyx,wx->fhw", dense["q"][0], x, dense["q"][1]), xs),
+        "copy": (lambda x: copy_dst.copy_(x), xs),
+    }
+    timing = {"card": card, "shape": [RG_F, *RG_SRC], "dst": list(RG_DST),
+              "dst_0.25": list(RG_QDEG)}
+    order = list(fns) + list(reversed(fns))          # two turns, mirrored
+    for name in order:
+        fn, inputs = fns[name]
+        reps = 3 if name.startswith(("plain", "library")) else 20
+        ms = graph_ms(fn, inputs, reps)
+        timing.setdefault(f"{name}_device_ms", []).append(ms)
+    timing["aligned_f32_eager_ms"] = eager_ms(fns["aligned_f32"][0], xs, 20)
+    timing["k2d_f32_api_eager_ms"] = eager_ms(
+        lambda x: at.apply_band_operators(x, by, bx), xs, 20)
+    for key in [k for k in timing if k.endswith("_device_ms")]:
+        timing[key] = min(timing[key])
+    f32, bf = 4, 2
+    px = RG_F * RG_SRC[0] * RG_SRC[1]
+    n_c5 = RG_F * RG_DST[0] * RG_DST[1]
+    n_q = RG_F * RG_QDEG[0] * RG_QDEG[1]
+    ky, kx, qky, qkx = tabs[1].shape[1], tabs[3].shape[1], qtabs[1].shape[1], \
+        qtabs[3].shape[1]
+
+    def ops(dst, k_y, k_x):          # 2 operations per tap, y pass then x
+        return 2 * RG_F * dst[0] * (RG_SRC[1] * k_y + dst[1] * k_x)
+
+    work = {
+        "k2d_f32": (px * f32 + n_c5 * f32 + table_bytes(*tabs),
+                    ops(RG_DST, ky, kx)),
+        "k2d_bf16": (px * bf + n_c5 * bf + table_bytes(*tabs),
+                     ops(RG_DST, ky, kx)),
+        "k2d_q_f32": (px * f32 + n_q * f32 + table_bytes(*qtabs),
+                      ops(RG_QDEG, qky, qkx)),
+    }
+    work["aligned_f32"] = work["kernel1_f32"] = work["k2d_f32"]
+    timing["bounds"] = {k: bound(*w) for k, w in work.items()}
+    copy_bw = 2 * xs[0].nbytes / (timing["copy_device_ms"] * 1e-3)   # B/s
+    timing["copy_gb_s"] = copy_bw / 1e9
+    for k, (nbytes, _) in work.items():
+        t = timing[f"{k}_device_ms"]
+        timing[f"{k}_gb_s"] = nbytes / (t * 1e-3) / 1e9
+        timing[f"{k}_gpixel_s"] = px / (t * 1e-3) / 1e9
+        timing[f"{k}_bytes"] = nbytes
+        timing[f"{k}_copy_bound_ms"] = nbytes / copy_bw * 1e3
+        timing[f"{k}_share_of_bound"] = timing["bounds"][k]["bound_ms"] / t
+        timing[f"{k}_share_of_copy_bound"] = timing[f"{k}_copy_bound_ms"] / t
+    t = timing
+    for k, what in (("k2d_f32", "2-D kernel, config 5 f32"),
+                    ("k2d_bf16", "2-D kernel, config 5 bf16"),
+                    ("k2d_q_f32", "2-D kernel, 0.25 deg f32"),
+                    ("aligned_f32", "aligned route, config 5 f32"),
+                    ("kernel1_f32", "kernel 1 on the config-5 tables")):
+        print(f"[30 regrid timing] {card}: {what}: "
+              f"{t[f'{k}_device_ms']:.4f} ms per batch = "
+              f"{t[f'{k}_gpixel_s']:.3f} Gpixel/s, {t[f'{k}_gb_s']:.1f} GB/s "
+              f"of {t[f'{k}_bytes'] / 1e6:.1f} MB; bound "
+              f"{t['bounds'][k]['bound_ms']:.4f} ms at 3.35 TB/s "
+              f"({100 * t[f'{k}_share_of_bound']:.1f} % of it reached), "
+              f"{t[f'{k}_copy_bound_ms']:.4f} ms at the measured copy rate "
+              f"({100 * t[f'{k}_share_of_copy_bound']:.1f} %)")
+    print(f"[30 regrid timing] plain f32 {t['plain_f32_device_ms']:.4f} ms "
+          f"(0.25 deg {t['plain_q_f32_device_ms']:.4f}); library einsum f32 "
+          f"{t['library_f32_device_ms']:.4f} ms (0.25 deg "
+          f"{t['library_q_f32_device_ms']:.4f}); eager: aligned "
+          f"{t['aligned_f32_eager_ms']:.4f} ms, kernel route "
+          f"{t['k2d_f32_api_eager_ms']:.4f} ms; copy of the 207 MB f32 batch "
+          f"{t['copy_gb_s']:.1f} GB/s")
+    print(json.dumps({"regrid_timing": timing}))
+    return timing
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -795,13 +1281,14 @@ def main() -> int:
     make = Inputs(dev)
 
     # ---- 2. build: every library, all compilers at once ---------------------
-    libs = (_build.SEPARABLE, _build.ELL_SHEAR, _build.SHEAR3_STAGE,
-            _build.NATIVE)
+    libs = (_build.SEPARABLE, _build.SEPARABLE_2D, _build.ELL_SHEAR,
+            _build.SHEAR3_STAGE, _build.NATIVE)
     build_s = _build.timed_build(libs)
     for lib in libs:
         _build.load(lib)
     print(f"[2 build] nvcc {' '.join(_build.NVCC_FLAGS)} "
-          f"(separable_apply.cu, ell_shear.cu, shear3_stage.cu) and g++ "
+          f"(separable_apply.cu, separable_apply_2d.cu, ell_shear.cu, "
+          f"shear3_stage.cu) and g++ "
           f"{' '.join(_build.GXX_FLAGS)} (aainterp_native.cpp), in "
           f"parallel: {build_s:.2f} s")
 
@@ -818,9 +1305,11 @@ def main() -> int:
     check(launches == len(requests),
           f"main path launched the kernel {launches} times for "
           f"{len(requests)} requests")
-    check(other_paths_idle(cuda_shear.LAUNCHES, cuda_shear3.LAUNCHES),
-          f"the separable path launched rotated kernels: {cuda_shear.LAUNCHES}"
-          f" {cuda_shear3.LAUNCHES}")
+    check(cuda_apply_2d.LAUNCHES == 0 and
+          other_paths_idle(cuda_shear.LAUNCHES, cuda_shear3.LAUNCHES),
+          f"the separable path launched another path's kernels: "
+          f"{cuda_apply_2d.LAUNCHES} {cuda_shear.LAUNCHES} "
+          f"{cuda_shear3.LAUNCHES}")
     flag_err = 0.0
     for x, out in zip(requests, outs):
         check(out.dtype == torch.bfloat16 and tuple(out.shape) ==
@@ -918,10 +1407,15 @@ def main() -> int:
     batches = [make(torch.bfloat16) for _ in range(6)]
     dev_tabs = tuple(torch.as_tensor(t, device=dev) for t in tabs0)
     copy_dst = torch.empty_like(batches[0])
+    # the library call: one einsum with the dense operator matrices, bf16
+    # like the frames (f32 sums inside each product)
+    wy0, wx0 = (torch.as_tensor(m, dtype=torch.bfloat16, device=dev)
+                for m in op0.dense())
     fns = {
         "kernel": lambda b: cuda_apply.apply_separable_kernel(b, *tabs0),
         "plain": lambda b: cuda_apply.apply_separable_plain(b, *dev_tabs),
         "api": lambda b: at.apply_operator(op0, b),
+        "library": lambda b: torch.einsum("hy,fyx,wx->fhw", wy0, b, wx0),
         "copy": lambda b: copy_dst.copy_(b),
     }
     px = F * H * W
@@ -929,9 +1423,9 @@ def main() -> int:
     timing = {"card": card, "shape": [F, H, W], "dtype": "bfloat16",
               "bytes_per_frame": frame_bytes}
     # device time (CUDA graphs) and eager per-call time, in turns
-    for name in ("kernel", "plain", "copy", "api", "api", "copy", "plain",
-                 "kernel"):
-        reps = 10 if name == "plain" else 30
+    for name in ("kernel", "plain", "library", "copy", "api", "api", "copy",
+                 "library", "plain", "kernel"):
+        reps = 10 if name in ("plain", "library") else 30
         for how, timer in (("device", graph_ms), ("eager", eager_ms)):
             ms = timer(fns[name], batches, reps)
             timing.setdefault(f"{name}_{how}_ms", []).append(ms)
@@ -944,7 +1438,12 @@ def main() -> int:
             t = ms[f"{name}_{how}_ms"]
             timing[f"{name}_{how}_us_per_frame"] = t * 1e3 / F
             timing[f"{name}_{how}_gpixel_s"] = px / (t * 1e-3) / 1e9
+    ky, kx = tabs0[1].shape[1], tabs0[3].shape[1]
+    flagship_bound = bound(
+        F * frame_bytes + table_bytes(*tabs0),
+        2 * F * ((H // 2) * W * ky + (H // 2) * (W // 2) * kx))
     timing.update(
+        library_device_ms=ms["library_device_ms"], **flagship_bound,
         kernel_device_gb_s=F * frame_bytes / (kernel_ms * 1e-3) / 1e9,
         copy_gb_s=copy_bw / 1e9,
         bound_us_per_frame=bound_us,
@@ -957,7 +1456,10 @@ def main() -> int:
           f"{timing['plain_device_gpixel_s']:.3f} Gpixel/s; eager per call: "
           f"kernel {timing['kernel_eager_us_per_frame']:.3f}, api "
           f"{timing['api_eager_us_per_frame']:.3f}, plain "
-          f"{timing['plain_eager_us_per_frame']:.3f} us/frame; copy "
+          f"{timing['plain_eager_us_per_frame']:.3f} us/frame; library "
+          f"einsum {ms['library_device_ms']:.4f} ms/batch; bound "
+          f"{flagship_bound['bound_ms']:.4f} ms/batch at the published "
+          f"peaks ({flagship_bound['bound_by']}); copy "
           f"{timing['copy_gb_s']:.1f} GB/s -> bytes bound "
           f"{bound_us:.3f} us/frame = {timing['bound_gpixel_s']:.3f} Gpixel/s")
     print(json.dumps({"timing": timing}))
@@ -965,6 +1467,7 @@ def main() -> int:
 
     rotated = rotated_phases(make, card)
     sheared = shear3_phases(make, card)
+    banded = regrid_phases(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "separable_apply",
@@ -975,7 +1478,9 @@ def main() -> int:
         "max_abs_err": flag_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
-    }] + rotated + sheared}))
+        **flagship_bound,
+        "library_ms": ms["library_device_ms"],
+    }] + rotated + sheared + banded}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -178,7 +178,9 @@ def test_import_pulls_in_neither_jax_nor_aainterp():
         "aainterp_torch.native, aainterp_torch.ops.clipper, "
         "aainterp_torch.ops.shear_apply, aainterp_torch.ops.cuda_shear, "
         "aainterp_torch.ops.weights, aainterp_torch.ops.apply, "
-        "aainterp_torch.ops.shear3, aainterp_torch.ops.cuda_shear3\n"
+        "aainterp_torch.ops.shear3, aainterp_torch.ops.cuda_shear3, "
+        "aainterp_torch.regrid, aainterp_torch.ops.cuda_apply_2d, "
+        "aainterp_torch.utils.device\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'aainterp') "
         "or m.startswith(('jax.', 'jaxlib', 'aainterp.')))\n"
         "print(bad)\n"

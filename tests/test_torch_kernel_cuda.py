@@ -1,7 +1,7 @@
 """The CUDA kernels ``aainterp_torch/csrc/separable_apply.cu``,
-``aainterp_torch/csrc/ell_shear.cu`` and
-``aainterp_torch/csrc/shear3_stage.cu`` against their plain PyTorch
-versions, on a GPU.
+``aainterp_torch/csrc/ell_shear.cu``, ``aainterp_torch/csrc/shear3_stage.cu``
+and ``aainterp_torch/csrc/separable_apply_2d.cu`` against their plain
+PyTorch versions, on a GPU.
 
 Skips without ``torch.cuda.is_available()``.  Imports no JAX, so it runs
 on a machine with only PyTorch; there, skip the repo's conftest (which
@@ -17,7 +17,10 @@ bf16 ulp of the plain f32 result.  Shear mode: each stage kernel against
 its plain stage f32 atol 1e-6 and bf16 within one bf16 ulp (same sums in
 the same order); the route within one bf16 ulp (u8: one gray level) of
 the bf16-staged plain pipeline and within 2e-2 of the f32-staged one
-(test_shear3.py:256-259); gradients atol 1e-5.
+(test_shear3.py:256-259); gradients atol 1e-5.  2-D banded-tile kernel:
+f32 atol 1e-5 on [0, 1] inputs, bf16 within one bf16 ulp, uint8 within
+one gray level; 'default' and 'bf16x3' rtol 1e-6 (the same bf16 operands
+summed in the same order).
 """
 
 import numpy as np
@@ -26,7 +29,9 @@ import torch
 
 import aainterp_torch as at
 from aainterp_torch import api as t_api
-from aainterp_torch.ops import cuda_apply, cuda_shear, cuda_shear3, shear3
+from aainterp_torch import regrid as t_regrid
+from aainterp_torch.ops import (cuda_apply, cuda_apply_2d, cuda_shear,
+                                cuda_shear3, shear3)
 from aainterp_torch.ops import weights as t_weights
 
 pytestmark = pytest.mark.cuda
@@ -410,3 +415,152 @@ def test_shear3_kernels_reject_bad_input(cuda):
                                     (64.0, 48.0), 30.0, mode="shear",
                                     method="kernel")
     assert cuda_shear3.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# the 2-D banded-tile kernel of the band-operator family
+# (csrc/separable_apply_2d.cu)
+# ---------------------------------------------------------------------------
+
+BAND_GEOMS = {
+    "regrid_aligned": ("regrid", (360, 720), (36, 72)),
+    "regrid_2.5x": ("regrid", (360, 720), (144, 288)),
+    "regrid_up": ("regrid", (18, 36), (40, 50)),
+    "regrid_n_src_lt_band": ("regrid", (3, 3), (1, 1)),
+    "resize_odd": ("resize", (200, 500), (90, 171)),
+    "resize_up": ("resize", (96, 250), (336, 875)),
+}
+
+
+def _band_pair(name):
+    kind, src, dst = BAND_GEOMS[name]
+    if kind == "regrid":
+        return src, t_regrid.conservative_regrid_operator(
+            at.LatLonGrid(*src), at.LatLonGrid(*dst))
+    return src, at.resize_bands(src, dst)
+
+
+def _band_tabs(by, bx):
+    return (by.start, by.weights.astype(np.float32), bx.start,
+            bx.weights.astype(np.float32))
+
+
+@pytest.mark.parametrize("name", sorted(BAND_GEOMS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.uint8])
+@pytest.mark.parametrize("precision", ["auto", "default", "bf16x3"])
+def test_kernel_2d_matches_plain(cuda, name, dtype, precision):
+    src, (by, bx) = _band_pair(name)
+    tabs = _band_tabs(by, bx)
+    x = _frames((3,) + src, dtype, cuda)
+    out = torch.full((3, by.n_dst, bx.n_dst), float("nan"), device=cuda
+                     ).to(dtype)
+    before = cuda_apply_2d.LAUNCHES
+    got = cuda_apply_2d.apply_separable_kernel_2d(x, *tabs,
+                                                  precision=precision, out=out)
+    torch.cuda.synchronize()
+    assert got is out and cuda_apply_2d.LAUNCHES == before + 1
+    assert torch.isfinite(got.float()).all()
+    want = cuda_apply_2d.apply_separable_2d_plain(x, *tabs,
+                                                  precision=precision)
+    err = (got.double() - want.double()).abs()
+    if dtype == torch.uint8:
+        assert err.max().item() <= 1.0
+    elif precision != "auto":
+        assert (err <= 1e-6 * want.double().abs() + 1e-30).all()
+    elif dtype == torch.float32:
+        assert err.max().item() <= 1e-5
+    else:
+        assert (err <= _bf16_ulp(want)).all()
+
+
+def test_kernel_2d_rounds_half_to_even(cuda):
+    # a 2-wide box mean of (1, 2) is exactly 1.5 and of (2, 3) 2.5: half to
+    # even gives 2 and 2 (roundf would give 2 and 3)
+    tabs = (np.zeros(1, np.int32), np.ones((1, 1), np.float32),
+            np.array([0, 2], np.int32), np.full((2, 2), 0.5, np.float32))
+    x = torch.tensor([[[1, 2, 2, 3]]], dtype=torch.uint8, device=cuda)
+    got = cuda_apply_2d.apply_separable_kernel_2d(x, *tabs)
+    assert got.dtype == torch.uint8 and got.cpu().tolist() == [[[2, 2]]]
+
+
+def test_band_apply_routes_and_launches(cuda):
+    src, (by, bx) = _band_pair("regrid_aligned")
+    before = cuda_apply_2d.LAUNCHES
+    x = _frames((2,) + src, torch.float32, cuda)
+    aligned = at.apply_band_operators(x, by, bx, impl="aligned")
+    assert cuda_apply_2d.LAUNCHES == before
+    auto = at.apply_band_operators(x, by, bx)     # on the card: the kernel
+    assert cuda_apply_2d.LAUNCHES == before + 1
+    torch.testing.assert_close(auto, aligned, rtol=1e-6, atol=1e-6)
+    for dtype in (torch.bfloat16, torch.uint8):
+        xd = _frames((2,) + src, dtype, cuda)
+        n = cuda_apply_2d.LAUNCHES
+        got = at.apply_band_operators(xd, by, bx)
+        assert cuda_apply_2d.LAUNCHES == n + 1 and got.dtype == dtype
+        banded = at.apply_band_operators(xd, by, bx, impl="banded")
+        assert banded.dtype == (torch.uint8 if dtype == torch.uint8
+                                else torch.float32)
+    # an input that requires grad stays on the kernel: one launch forward,
+    # one backward on the transposed tables
+    src, (by, bx) = _band_pair("regrid_2.5x")
+    x = _frames((2,) + src, torch.float32, cuda)
+    g = torch.rand((2, by.n_dst, bx.n_dst), device=cuda)
+    xk = x.clone().requires_grad_(True)
+    n = cuda_apply_2d.LAUNCHES
+    (at.apply_band_operators(xk, by, bx) * g).sum().backward()
+    assert cuda_apply_2d.LAUNCHES == n + 2
+    xp = x.clone().requires_grad_(True)
+    (at.apply_band_operators(xp, by, bx, impl="banded") * g).sum().backward()
+    torch.testing.assert_close(xk.grad, xp.grad, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.uint8])
+@pytest.mark.parametrize("precision", ["auto", "default", "bf16x3"])
+def test_kernel_2d_wide_band_takes_the_direct_form(cuda, dtype, precision):
+    # one dst pixel's block beyond shared memory: the direct form, one
+    # launch, the plain version's bits in the bf16 modes
+    band = t_regrid.Band1D(start=np.zeros(3, np.int32),
+                           weights=np.full((3, 400), 1 / 400), n_src=400,
+                           n_dst=3)
+    tabs = t_regrid.band_tables(band, band)
+    assert tabs.plan["direct"]
+    x = _frames((2, 400, 400), dtype, cuda)
+    out = torch.full((2, 3, 3), float("nan"), device=cuda).to(dtype)
+    before = cuda_apply_2d.LAUNCHES
+    got = cuda_apply_2d.apply_separable_kernel_2d(
+        x, tabs.ys, tabs.yw, tabs.xs, tabs.xw, precision=precision, out=out,
+        plan=tabs.plan)
+    torch.cuda.synchronize()
+    assert got is out and cuda_apply_2d.LAUNCHES == before + 1
+    assert torch.isfinite(got.float()).all()
+    want = cuda_apply_2d.apply_separable_2d_plain(
+        x, tabs.ys, tabs.yw, tabs.xs, tabs.xw, precision=precision)
+    err = (got.double() - want.double()).abs()
+    if dtype == torch.uint8:
+        assert err.max().item() <= 1.0
+    elif precision != "auto":
+        assert (err <= 1e-6 * want.double().abs() + 1e-30).all()
+    elif dtype == torch.float32:
+        assert err.max().item() <= 1e-5
+    else:
+        assert (err <= _bf16_ulp(want)).all()
+    n = cuda_apply_2d.LAUNCHES
+    routed = at.apply_band_operators(x, band, band, precision=precision)
+    assert cuda_apply_2d.LAUNCHES == n + 1
+    assert torch.equal(routed, got)
+
+
+def test_front_doors_on_the_kernel(cuda):
+    x = _frames((2, 270, 480), torch.bfloat16, cuda)
+    before = cuda_apply_2d.LAUNCHES
+    got = at.area_resize(x, (160, 283))
+    assert cuda_apply_2d.LAUNCHES == before + 1 and got.dtype == torch.bfloat16
+    ref = at.area_resize(x, (160, 283), impl="banded")
+    assert (((got.double() - ref.double()).abs()) <= _bf16_ulp(ref)).all()
+    levels = at.area_pyramid(x[0], 4)
+    assert [tuple(v.shape) for v in levels] == [(270, 480), (135, 240),
+                                                (68, 120), (34, 60)]
+    assert cuda_apply_2d.LAUNCHES == before + 4
+    # numpy input goes to the GPU by default
+    out = at.area_resize(np.ones((2, 30, 40), np.float32), (7, 9))
+    assert out.is_cuda
