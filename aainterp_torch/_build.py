@@ -94,10 +94,10 @@ ELL_SHEAR = Library(
 
 SHEAR3_STAGE = Library(
     "shear3_stage", _PKG / "csrc" / "shear3_stage.cu", "nvcc", NVCC_FLAGS,
-    # aainterp_shear3_{y,x}stage(x, out, d, f, start, w, inv_cov, F,
-    #     n_lines, n_in, n_mid, n_t, crop, n_out, K, form, in_code,
-    #     out_code, stream)
-    tuple((f"aainterp_shear3_{axis}stage", (_P,) * 7 + (_I,) * 11 + (_P,),
+    # aainterp_shear3_{y,x}stage(x, out, d, f, start, w, inv_cov, win, F,
+    #     n_lines, n_in, n_mid, n_t, crop, n_out, K, form, TL, TU, max_win,
+    #     max_mid, in_code, out_code, stream)
+    tuple((f"aainterp_shear3_{axis}stage", (_P,) * 8 + (_I,) * 15 + (_P,),
            ctypes.c_int) for axis in ("y", "x")))
 
 NATIVE = Library(

@@ -4,8 +4,10 @@ Counterpart of ``aainterp/ops/pallas_shear3.py``
 (``apply_shear3_pallas``, ``make_shear3_linear`` and the kernels
 ``_build_y_stage`` / ``_build_x_stage``).  Each kernel runs one whole
 pass of a ``Shear3Plan`` in one launch, from the plan's own tables
-(``shear3.stage_plan``): none of the Pallas plan's 128/16 padding,
-aligned crop lifts, densified MXU band blocks or bit rolls remain.
+(``shear3.stage_plan``), one block per tile of the stage's work split
+(``Stage.tiles``: each tile's input window, staged in shared memory):
+none of the Pallas plan's 128/16 padding, aligned crop lifts, densified
+MXU band blocks or bit rolls remain.
 
 * ``ystage_kernel`` / ``xstage_kernel`` are the wrappers, each counting
   its launches in ``LAUNCHES``.  A CUDA tensor launches the kernel or
@@ -67,20 +69,22 @@ def _stage_kernel(x: torch.Tensor, sp: StagePlan, i: int, axis: str,
     lib = _build.load(_build.SHEAR3_STAGE)
     fn = lib.aainterp_shear3_ystage if axis == "y" \
         else lib.aainterp_shear3_xstage
+    tiles = st.tiles
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), out.data_ptr(), t["d"].data_ptr(),
                 t["f"].data_ptr(), t["start"].data_ptr(), t["w"].data_ptr(),
-                cov.data_ptr() if use_cov else None,
+                cov.data_ptr() if use_cov else None, t["win"].data_ptr(),
                 F, st.n_lines, st.n_in, st.n_mid, st.n_t, st.crop, st.n_out,
-                st.K, st.form, _DTYPE_CODES[x.dtype],
+                st.K, st.form, tiles.TL, tiles.TU, tiles.max_win,
+                tiles.max_mid, _DTYPE_CODES[x.dtype],
                 _DTYPE_CODES[out_dtype], stream)
     name = f"{axis}stage"
     if rc != 0:
         raise RuntimeError(
             f"{name} kernel launch failed: CUDA error {rc} (F={F}, "
             f"lines={st.n_lines}, n_in={st.n_in}, n_out={st.n_out}, "
-            f"form={st.form}, K={st.K})")
+            f"form={st.form}, K={st.K}, tile {tiles.TL}x{tiles.TU})")
     LAUNCHES[name] += 1
     return out
 

@@ -27,6 +27,9 @@ ELL operator.
   stages and the kernels take (int32 shifts, f32 fractions and band
   weights, each stage's input size), cached by table content; each stage
   plan uploads its tables to a device once and keeps them.
+* ``plan_tiles`` / ``StageTiles``: each stage's work split for the CUDA
+  kernels, tiles of lines by output cells with the input window each
+  tile stages (``tile_windows``).
 * ``ystage_plain`` / ``xstage_plain``: one pass in plain torch, the
   reference the kernels are held to.  Sums are f32, in the order of the
   JAX XLA route (translate tap ``(1-f)`` first, band taps in order, each
@@ -499,10 +502,30 @@ _DTYPES = (torch.float32, torch.bfloat16, torch.uint8)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
+class StageTiles:
+    """The stage kernels' work split: tiles of ``TL`` lines by ``TU``
+    output cells, one block each, and each tile's window.
+
+    ``win[a, b]`` = (lo, hi, mlo, mhi) for output tile ``a`` and line
+    tile ``b``: input cells [lo, hi) along the pass axis hold every tap
+    that the tile's outputs read inside the input, and for a PRE_BAND
+    stage mid cells [mlo, mhi) every mid cell they read inside
+    [0, n_mid).  All four are 0 for an empty tile, whose outputs are 0
+    whatever the input."""
+
+    TL: int
+    TU: int
+    win: np.ndarray          # (n_out tiles, n_lines tiles, 4) int32
+    max_win: int             # max hi - lo
+    max_mid: int             # max mhi - mlo (PRE_BAND), else 0
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class Stage:
     """One pass: ``form`` TRANSLATE (translate, crop), PRE_BAND (band to
     ``n_mid``, translate, crop) or POST_BAND (translate over the grid of
-    ``n_t``, band to ``n_out``).  Lines run along the other axis."""
+    ``n_t``, band to ``n_out``).  Lines run along the other axis;
+    ``tiles`` is the kernels' work split (``stage_tiles``)."""
 
     axis: str
     form: int
@@ -517,6 +540,7 @@ class Stage:
     f: np.ndarray        # (n_lines,) float32
     start: np.ndarray    # (band rows,) int32; empty without a band
     w: np.ndarray        # (band rows, K) float32; empty without a band
+    tiles: Optional[StageTiles] = None
 
     def frame_shape(self, n: int) -> Tuple[int, int]:
         """(rows, cols) of a frame with ``n`` cells along the pass axis."""
@@ -543,13 +567,15 @@ class StagePlan:
         default_factory=dict, repr=False)
 
     def tables(self, device) -> tuple:
-        """(per-stage dicts of d, f, start, w; inv_cov or None) on
-        ``device``, uploaded once and kept."""
+        """(per-stage dicts of d, f, start, w and the tile windows
+        ``win``; inv_cov or None) on ``device``, uploaded once and
+        kept."""
         device = torch.device(device)
         hit = self.dev.get(device)
         if hit is None:
-            per = tuple({k: torch.from_numpy(getattr(st, k)).to(device)
-                         for k in ("d", "f", "start", "w")}
+            per = tuple({**{k: torch.from_numpy(getattr(st, k)).to(device)
+                            for k in ("d", "f", "start", "w")},
+                         "win": torch.from_numpy(st.tiles.win).to(device)}
                         for st in self.stages)
             cov = (None if self.inv_cov is None
                    else torch.from_numpy(self.inv_cov).to(device))
@@ -588,12 +614,140 @@ def _stage(p: Pass1D, n_in: int, n_lines: int) -> Stage:
     else:
         start = np.ascontiguousarray(p.band.start, dtype=np.int32)
         w = np.ascontiguousarray(p.band.weights, dtype=np.float32)
-    return Stage(axis=p.axis, form=form, n_in=int(n_in),
-                 n_lines=int(n_lines), n_mid=int(n_mid), n_t=int(p.n_t),
-                 crop=int(p.crop), n_out=int(p.n_out), K=int(K),
-                 d=np.ascontiguousarray(p.d, dtype=np.int32),
-                 f=np.ascontiguousarray(p.f, dtype=np.float32),
-                 start=start, w=w)
+    st = Stage(axis=p.axis, form=form, n_in=int(n_in),
+               n_lines=int(n_lines), n_mid=int(n_mid), n_t=int(p.n_t),
+               crop=int(p.crop), n_out=int(p.n_out), K=int(K),
+               d=np.ascontiguousarray(p.d, dtype=np.int32),
+               f=np.ascontiguousarray(p.f, dtype=np.float32),
+               start=start, w=w)
+    return dataclasses.replace(st, tiles=plan_tiles(st))
+
+
+# ----------------------------------------------------------------------
+# the stage kernels' tiles (csrc/shear3_stage.cu)
+# ----------------------------------------------------------------------
+
+# tile shapes (TL lines, TU outputs), in order of preference (measured at
+# the shear flagship on the H100, PERF.md): a y-stage block owns TL
+# neighbouring columns by TU rows, an x-stage block TL rows by TU
+# neighbouring cells.  Each of a block's _THREADS threads computes 4 lines
+# at a time: y takes TL <= 128, x TL <= 4 * _THREADS / 32 and a
+# power-of-two TU (csrc/shear3_stage.cu, run_stage)
+_THREADS = 128
+_Y_TILES = ((64, 64), (32, 64), (32, 32), (16, 32), (16, 16), (8, 16), (8, 8),
+            (4, 8), (4, 4), (4, 2), (4, 1))
+_X_TILES = ((8, 256), (8, 128), (4, 128), (4, 64), (4, 32), (4, 16), (4, 8),
+            (4, 4))
+# the first tile whose shared memory at f32 fits this is taken (bf16 and u8
+# stage in less)
+SMEM_BUDGET = 72 * 1024
+
+
+def seg_pitch(seg_bytes: int, stride_bytes: int) -> int:
+    """Shared-memory pitch of one staged segment: at least ``seg_bytes`` +
+    32 and equal to the segment's global stride mod 16, so a 16-byte
+    global chunk lands on a 16-byte shared address and element e of
+    segment s sits at ``base + s * pitch + e * elem`` (csrc/shear3_stage.cu,
+    ``Dims::pitch``)."""
+    p = seg_bytes + 32
+    return p + (stride_bytes - p) % 16
+
+
+def stage_smem(st: Stage, TL: int, max_win: int, max_mid: int,
+               elem: int) -> int:
+    """Dynamic shared memory, in bytes, of a block of ``st`` staging
+    ``elem``-byte input: the window's segments (y: one per input row, TL
+    lines wide; x: one per line, ``max_win`` cells long), the f32 mid
+    cells of a PRE_BAND stage, and the f32 output transpose (4 outputs of
+    each thread)."""
+    if st.axis == "y":
+        segs, pitch = max_win, seg_pitch(TL * elem, st.n_lines * elem)
+    else:
+        segs, pitch = TL, seg_pitch(max_win * elem, st.n_in * elem)
+
+    def up16(n):
+        return -(-n // 16) * 16
+    mid = 4 * TL * max_mid if st.form == PRE_BAND else 0
+    return up16(32 + segs * pitch) + up16(mid) + 4 * _THREADS * 4
+
+
+def _range_reduce(a: np.ndarray, lo: np.ndarray, hi: np.ndarray, op):
+    """op(a[lo:hi]) for each pair (lo < hi) of the index arrays, by a
+    sparse table of power-of-two spans."""
+    levels = [a]
+    while 2 ** len(levels) <= len(a):
+        prev, h = levels[-1], 2 ** (len(levels) - 1)
+        levels.append(op(prev[:-h], prev[h:]))
+    n = np.maximum(hi - lo, 1)
+    k = np.floor(np.log2(n)).astype(np.int64)
+    out = np.empty(lo.shape, a.dtype)
+    for lv in np.unique(k):
+        sel = k == lv
+        tab = levels[lv]
+        out[sel] = op(tab[lo[sel]], tab[hi[sel] - 2 ** lv])
+    return out
+
+
+def tile_windows(st: Stage, TL: int, TU: int) -> np.ndarray:
+    """(lo, hi, mlo, mhi) of every tile of ``TL`` lines by ``TU`` output
+    cells of ``st``, (n_out tiles, n_lines tiles, 4) int32: see
+    ``StageTiles``.  A window is the union over the tile's lines of the
+    taps its outputs read, clipped to the input (and the mid line)."""
+    d = st.d.astype(np.int64)
+    l0 = np.arange(0, st.n_lines, TL)
+    dmin = np.minimum.reduceat(d, l0)[None, :]
+    dmax = np.maximum.reduceat(d, l0)[None, :]
+    u0 = np.arange(0, st.n_out, TU)
+    u1 = np.minimum(u0 + TU, st.n_out) - 1          # last output of a tile
+    zero = np.zeros((len(u0), len(l0)), np.int64)
+    mlo = mhi = zero
+    empty = np.zeros(zero.shape, bool)
+    if st.form == TRANSLATE:
+        # out[u] reads in[u + crop - d - 1 .. u + crop - d]
+        lo = (u0 + st.crop)[:, None] - dmax - 1
+        hi = (u1 + st.crop)[:, None] - dmin + 1
+    elif st.form == POST_BAND:
+        # out[u] reads the translate grid cells c = start[u] + k inside
+        # [0, n_t), and T[c] reads in[c - d - 1 .. c - d]
+        s = st.start.astype(np.int64)
+        cmin = np.maximum(np.minimum.reduceat(s, u0), 0)
+        cmax = np.minimum(np.maximum.reduceat(s, u0) + st.K - 1, st.n_t - 1)
+        lo = cmin[:, None] - dmax - 1
+        hi = cmax[:, None] - dmin + 1
+        empty |= (cmin > cmax)[:, None]
+    else:
+        # out[u] reads mid[u + crop - d - 1 .. u + crop - d] inside
+        # [0, n_mid), and mid[m] reads in[start[m] .. start[m] + K - 1]
+        mlo = np.clip((u0 + st.crop)[:, None] - dmax - 1, 0, st.n_mid)
+        mhi = np.clip((u1 + st.crop)[:, None] - dmin + 1, 0, st.n_mid)
+        empty |= mhi <= mlo
+        s = st.start.astype(np.int64)
+        a, b = np.where(empty, 0, mlo), np.where(empty, 1, mhi)
+        lo = _range_reduce(s, a.ravel(), b.ravel(), np.minimum
+                           ).reshape(a.shape)
+        hi = _range_reduce(s, a.ravel(), b.ravel(), np.maximum
+                           ).reshape(a.shape) + st.K
+    lo = np.clip(lo, 0, st.n_in)
+    hi = np.clip(hi, 0, st.n_in)
+    empty |= hi <= lo
+    win = np.stack([lo, hi, mlo, mhi], axis=-1)
+    win[empty] = 0
+    return np.ascontiguousarray(win, dtype=np.int32)
+
+
+def plan_tiles(st: Stage) -> StageTiles:
+    """The first tile shape of the stage's axis whose block fits
+    ``SMEM_BUDGET`` at f32, with its windows (the smallest shape if none
+    fits; the launch then asks for more shared memory, up to the card's
+    opt-in limit)."""
+    for TL, TU in (_Y_TILES if st.axis == "y" else _X_TILES):
+        win = tile_windows(st, TL, TU)
+        max_win = int((win[..., 1] - win[..., 0]).max())
+        max_mid = int((win[..., 3] - win[..., 2]).max())
+        if stage_smem(st, TL, max_win, max_mid, 4) <= SMEM_BUDGET:
+            break
+    return StageTiles(TL=TL, TU=TU, win=win, max_win=max_win,
+                      max_mid=max_mid)
 
 
 def stage_plan(plan: Shear3Plan) -> StagePlan:

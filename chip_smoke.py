@@ -49,9 +49,9 @@ f32 atol 1e-3 (values up to 255); gradients atol 1e-5.  Rotated: both
 shears bit-equal; contraction and route f32 atol 1e-6 on [0, 1] inputs
 (1e-6 * 255 for uint8 input); bf16 output within one bf16 ulp of the
 plain f32 result; dense float64 reference atol 1e-6.  Shear mode: each
-stage kernel against its plain stage f32 atol 1e-6 and bf16 within one
-bf16 ulp (both sum the same f32 products in the same order); the route
-within one bf16 ulp (u8: one gray level) of the bf16-staged plain
+stage kernel equal to its plain stage bit for bit, f32 and bf16, forward
+and adjoint plans (both sum the same f32 products in the same order); the
+route within one bf16 ulp (u8: one gray level) of the bf16-staged plain
 pipeline and within 2e-2 of the f32-staged one on [0, 1] inputs (JAX's
 bf16-staging contract, tests/test_shear3.py:256-259); gradient atol 1e-5;
 dense float64 reference atol 2e-5.  Band-operator family, 2-D kernel
@@ -604,38 +604,44 @@ def shear3_phases(make, card):
               f"{route_err['f32_plain']:.3e} (2e-2 allowed)")
         del outs
 
-    # ---- 19. each stage kernel against its plain stage --------------------
+    # ---- 19. each stage kernel against its plain stage, bit for bit -------
     # quality: x translate, y post-band, x post-band; fast: y pre-band,
-    # x pre-band, y translate + crop -- every form along both axes
+    # x pre-band, y translate + crop; their adjoints swap pre- and
+    # post-bands -- every form along both axes
     kerr = {k: 0.0 for k in SHEAR3_KERNELS}
-    bit_equal = True
+    n_stages = 0
     for dec in SHEAR_DECS:
-        sp = sps[dec]
-        for dtype in (torch.float32, torch.bfloat16):
-            x = requests[0].to(dtype)
-            for i, st in enumerate(sp.stages):
-                kern, plain = shear3_stage_fn(st)
-                out = torch.full((F,) + st.out_shape, float("nan"),
-                                 dtype=dtype, device=x.device)
-                got = kern(x, sp, i, out_dtype=dtype, out=out)
-                want = plain(x, sp, i, out_dtype=dtype)
-                torch.cuda.synchronize()
-                check(got is out and bool(torch.isfinite(out).all()),
-                      f"{dec} stage {i} left elements of a NaN output")
-                what = f"{dec} stage {i} ({st.axis}, form {st.form}) {dtype}"
-                if dtype == torch.float32:
+        adjoint = shear3.stage_plan(
+            cuda_shear3.make_shear3_linear(plans[dec]).plan_T)
+        for name, sp, x0 in ((dec, sps[dec], requests[0]),
+                             (f"{dec} adjoint", adjoint,
+                              make(torch.float32, (F,) + adjoint.src_shape))):
+            for dtype in (torch.float32, torch.bfloat16):
+                x = x0.to(dtype)
+                for i, st in enumerate(sp.stages):
+                    kern, plain = shear3_stage_fn(st)
+                    out = torch.full((F,) + st.out_shape, float("nan"),
+                                     dtype=dtype, device=x.device)
+                    got = kern(x, sp, i, out_dtype=dtype, out=out)
+                    want = plain(x, sp, i, out_dtype=dtype)
+                    torch.cuda.synchronize()
+                    what = (f"{name} stage {i} ({st.axis}, form {st.form}) "
+                            f"{dtype}")
+                    check(got is out and bool(torch.isfinite(out).all()),
+                          f"{what} left elements of a NaN output")
                     e = max_err(got, want)
-                    check(e <= 1e-6, f"{what}: err {e} > 1e-6")
-                else:
-                    e = within_bf16_ulp(got, want, what)
+                    check(torch.equal(got, want),
+                          f"{what}: not bit-equal to its plain stage (max "
+                          f"|diff| {e:.3e})")
                     kerr[f"{st.axis}stage"] = max(kerr[f"{st.axis}stage"], e)
-                bit_equal = bit_equal and torch.equal(got, want)
-                x = got
-            del x, out, got, want
-    print(f"[19 shear stages] every stage of both plans, f32 and bf16, into "
-          f"NaN-filled outputs: all written, max |kernel - plain| in bf16 "
-          f"ystage {kerr['ystage']:.3e} xstage {kerr['xstage']:.3e}; "
-          f"bit-equal to plain: {bit_equal}")
+                    n_stages += 1
+                    x = got
+                del x, out, got, want
+    print(f"[19 shear stages] {n_stages} stage runs (every stage of both "
+          f"plans and their adjoint plans, f32 and bf16) into NaN-filled "
+          f"outputs: all written and bit-equal to the plain stages (max "
+          f"|kernel - plain| ystage {kerr['ystage']:.3e} xstage "
+          f"{kerr['xstage']:.3e})")
 
     # ---- 20. f32 and u8 input, quadrant 1, equal resolution ---------------
     for dtype, atol in ((torch.float32, 1e-6), (torch.uint8, 1.0)):
@@ -831,13 +837,19 @@ def shear3_timing(make, card, plans, sps) -> dict:
     for dec in SHEAR_DECS:
         sp = sps[dec]
         for i, st in enumerate(sp.stages):
-            w = work[f"{st.axis}stage"]
+            key = f"{dec}_s{i}"
             n_out = F * st.out_shape[0] * st.out_shape[1]
-            w[0] += timing[f"{dec}_s{i}_bytes"] + table_bytes(
+            nbytes = timing[f"{key}_bytes"] + table_bytes(
                 st.d, st.f, st.start, st.w)
             if i == len(sp.stages) - 1 and sp.inv_cov is not None:
-                w[0] += sp.inv_cov.nbytes
-            w[1] += 2 * n_out * (2 + (st.K or 0))
+                nbytes += sp.inv_cov.nbytes
+            ops = 2 * n_out * (2 + (st.K or 0))
+            timing[f"{key}_bound_ms"] = bound(nbytes, ops)["bound_ms"]
+            timing[f"{key}_bound_share"] = (
+                timing[f"{key}_bound_ms"] / timing[f"{key}_kernel_device_ms"])
+            w = work[f"{st.axis}stage"]
+            w[0] += nbytes
+            w[1] += ops
     timing["bounds"] = {k: bound(*w) for k, w in work.items()}
     for name in SHEAR3_KERNELS:
         for how in ("kernel", "plain"):
@@ -850,7 +862,9 @@ def shear3_timing(make, card, plans, sps) -> dict:
         stages = ", ".join(
             f"{st.axis}/{st.form} {t[f'{key}_kernel_device_ms']:.4f} / "
             f"{t[f'{key}_plain_device_ms']:.4f} ms "
-            f"({t[f'{key}_kernel_gb_s']:.0f} GB/s)"
+            f"({t[f'{key}_kernel_gb_s']:.0f} GB/s, "
+            f"{100 * t[f'{key}_bound_share']:.1f} % of its "
+            f"{t[f'{key}_bound_ms']:.4f} ms bound)"
             for key, st in stage_keys if key.startswith(dec))
         print(f"[23 shear timing] {card}, {F}x{RH}x{RW} bf16 at 30 deg, "
               f"{dec}, best of 2 turns, device ms per batch (CUDA graph "

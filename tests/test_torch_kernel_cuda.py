@@ -15,7 +15,9 @@ gray level.  Rotated: both shears bit-equal; contraction and route f32
 atol 1e-6 on [0, 1] inputs (1e-6 * 255 for u8 input), bf16 within one
 bf16 ulp of the plain f32 result.  Shear mode: each stage kernel against
 its plain stage f32 atol 1e-6 and bf16 within one bf16 ulp (same sums in
-the same order); the route within one bf16 ulp (u8: one gray level) of
+the same order), and bit for bit into NaN-filled outputs on ragged tiles,
+single lines, unaligned row pitches, u8 and mixed dtypes, empty tile rows
+and the adjoint plans; the route within one bf16 ulp (u8: one gray level) of
 the bf16-staged plain pipeline and within 2e-2 of the f32-staged one
 (test_shear3.py:256-259); gradients atol 1e-5.  2-D banded-tile kernel:
 f32 atol 1e-5 on [0, 1] inputs, bf16 within one bf16 ulp, uint8 within
@@ -398,6 +400,117 @@ def test_shear3_axis_aligned_kernel_is_the_separable_kernel(cuda):
     plain = at.area_average_interpolate(x, 2.0, 1.0, (0.0, 0.0), 0.0,
                                         mode="shear", method="plain").dst
     assert plain.dtype == torch.float32        # the separable 'banded' route
+
+
+def _synthetic_stage(axis, form, n_in, n_lines, *, d0=0.3, slope=0.6,
+                     ratio=0.5, crop=3, inv_cov=True, seed=0):
+    """A one-stage plan: shifts d0 + slope * line (steps of at most one
+    cell), a 1-D overlap band at ``ratio`` output cells per input cell,
+    and a random reciprocal coverage on its output."""
+    delta = d0 + slope * np.arange(n_lines)
+    d = np.floor(delta).astype(np.int32)
+    f = (delta - d).astype(np.float32)
+    n_t = n_in + int(d.max()) + 2
+    band = None
+    if form == shear3.PRE_BAND:
+        n_mid = int(np.ceil(n_in * ratio)) + 2
+        band = shear3._interval_band(0.0, ratio, n_in, n_mid)
+        n_t = n_mid + int(d.max()) + 2
+    elif form == shear3.POST_BAND:
+        crop = 0
+        band = shear3._interval_band(0.0, ratio, n_t,
+                                     int(np.ceil(n_t * ratio)))
+    n_out = band.n_dst if form == shear3.POST_BAND else n_t - crop
+    p = shear3.Pass1D(axis=axis, band=band,
+                      band_first=form == shear3.PRE_BAND, d=d, f=f, n_t=n_t,
+                      crop=crop, n_out=n_out)
+    st = shear3._stage(p, n_in, n_lines)
+    cov = None
+    if inv_cov:
+        cov = np.random.default_rng(seed).uniform(
+            0.5, 2.0, st.out_shape).astype(np.float32)
+    return shear3.StagePlan(stages=(st,), inv_cov=cov, src_shape=st.in_shape,
+                            dst_shape=st.out_shape)
+
+
+def _nan_out(shape, dtype, device):
+    if dtype == torch.uint8:
+        return torch.full(shape, 77, dtype=dtype, device=device)
+    return torch.full(shape, float("nan"), dtype=dtype, device=device)
+
+
+def _stage_bit_equal(sp, i, x, out_dtype):
+    st = sp.stages[i]
+    name = f"{st.axis}stage"
+    before = cuda_shear3.LAUNCHES[name]
+    out = _nan_out((x.shape[0],) + st.out_shape, out_dtype, x.device)
+    got = getattr(cuda_shear3, f"{name}_kernel")(x, sp, i, out_dtype=out_dtype,
+                                                 out=out)
+    torch.cuda.synchronize()
+    assert got is out and cuda_shear3.LAUNCHES[name] == before + 1
+    want = getattr(shear3, f"{name}_plain")(x, sp, i, out_dtype=out_dtype)
+    assert torch.isfinite(got.float()).all(), (i, st.form)
+    assert torch.equal(got, want), (i, st.axis, st.form,
+                                    (got.double() - want.double()).abs().max())
+    return got
+
+
+_FORMS = {"translate": shear3.TRANSLATE, "pre": shear3.PRE_BAND,
+          "post": shear3.POST_BAND}
+# (axis, form, n_in, n_lines, F, in dtype, out dtype, synthetic kwargs)
+STAGE_CASES = {
+    # line counts and output lengths that are not multiples of the tile
+    **{f"ragged_{a}_{k}": (a, k, 157, 203, 3, torch.bfloat16, torch.bfloat16,
+                           {}) for a in "yx" for k in _FORMS},
+    # a single line, one frame
+    **{f"one_line_{a}_{k}": (a, k, 75, 1, 1, torch.float32, torch.float32, {})
+       for a in "yx" for k in _FORMS},
+    # rows whose byte pitch is not a multiple of 16
+    "pitch_1399_y_bf16": ("y", "post", 40, 1399, 2, torch.bfloat16,
+                          torch.bfloat16, {}),
+    "pitch_1399_y_u8": ("y", "translate", 40, 1399, 2, torch.uint8,
+                        torch.uint8, {}),
+    "pitch_1399_x_bf16": ("x", "pre", 1399, 9, 2, torch.bfloat16,
+                          torch.bfloat16, {}),
+    "pitch_1399_x_u8": ("x", "post", 1399, 9, 2, torch.uint8, torch.uint8,
+                        {}),
+    # u8 in, f32 out of bf16 in, and an upsampling band
+    "u8_in_f32_out_y": ("y", "pre", 130, 150, 2, torch.uint8, torch.float32,
+                        {}),
+    "bf16_in_f32_out_x": ("x", "post", 301, 33, 2, torch.bfloat16,
+                          torch.float32, {"ratio": 1.7}),
+    "f32_in_bf16_out_y": ("y", "post", 90, 130, 2, torch.float32,
+                          torch.bfloat16, {"ratio": 2.5, "inv_cov": False}),
+    # shifts far beyond the input: whole rows of tiles read nothing
+    "empty_tile_rows_y": ("y", "translate", 40, 300, 2, torch.bfloat16,
+                          torch.bfloat16, {"d0": 400.0, "slope": 0.9}),
+    "empty_tile_rows_x": ("x", "translate", 900, 12, 2, torch.float32,
+                          torch.float32, {"d0": 1500.0, "slope": 0.9}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STAGE_CASES))
+def test_shear3_stage_kernel_cases_bit_equal(cuda, case):
+    axis, form, n_in, n_lines, F, in_dtype, out_dtype, kw = STAGE_CASES[case]
+    sp = _synthetic_stage(axis, _FORMS[form], n_in, n_lines, **kw)
+    st = sp.stages[0]
+    if case.startswith("ragged"):
+        assert st.n_lines % st.tiles.TL and st.n_out % st.tiles.TU
+    if case.startswith("empty"):
+        empty = st.tiles.win[..., 1] <= st.tiles.win[..., 0]
+        assert empty.all(axis=1).any()
+    x = _frames((F,) + st.in_shape, in_dtype, cuda, seed=1)
+    _stage_bit_equal(sp, 0, x, out_dtype)
+
+
+@pytest.mark.parametrize("args", SHEAR3_GEOMS)
+def test_shear3_adjoint_stages_bit_equal_f32(cuda, args):
+    plans = _shear3_plans(args)
+    for plan in plans[1::2]:                      # the adjoint plans
+        sp = shear3.stage_plan(plan)
+        x = _frames((2,) + sp.src_shape, torch.float32, cuda)
+        for i in range(len(sp.stages)):
+            x = _stage_bit_equal(sp, i, x, torch.float32)
 
 
 def test_shear3_kernels_reject_bad_input(cuda):
