@@ -5,7 +5,9 @@ PyTorch headers), so each builds in seconds:
 
 * ``separable_apply`` — ``csrc/separable_apply.cu`` through nvcc;
 * ``separable_apply_2d`` — ``csrc/separable_apply_2d.cu`` (the 2-D
-  banded-tile apply of the band-operator family) through nvcc;
+  banded-tile apply of the band-operator family) through nvcc; both
+  separable kernels include the shared device code of
+  ``csrc/band_apply.cuh``;
 * ``ell_shear`` — ``csrc/ell_shear.cu`` (the rotated apply's three
   kernels) through nvcc;
 * ``shear3_stage`` — ``csrc/shear3_stage.cu`` (the two stage kernels of
@@ -15,7 +17,8 @@ PyTorch headers), so each builds in seconds:
   ``native/Makefile``.
 
 Each shared library lands in ``aainterp_torch/_build/`` under a name that
-carries a hash of its source, compiler and flags: a changed source
+carries a hash of its source, the headers it includes, its compiler and
+flags: a changed source
 rebuilds, an unchanged one loads the library already there.  The
 compiler writes a temporary file that is renamed into place, so
 concurrent processes (parallel test workers) never load a half-written
@@ -61,24 +64,30 @@ class Library:
     flags: Tuple[str, ...]
     # symbol -> (argtypes, restype)
     symbols: Tuple[Tuple[str, tuple, object], ...]
+    headers: Tuple[Path, ...] = ()     # files the source includes
 
+
+_BAND_HEADER = _PKG / "csrc" / "band_apply.cuh"
 
 SEPARABLE = Library(
     "separable_apply", _PKG / "csrc" / "separable_apply.cu", "nvcc",
     NVCC_FLAGS,
-    # aainterp_separable_apply(src, out, ys, wy, xs, wx, col_base,
-    #     F, H, W, Hd, Wd, ky, kx, TY, TX, S, in_code, out_code, stream)
-    (("aainterp_separable_apply", (_P,) * 7 + (_I,) * 12 + (_P,),
-      ctypes.c_int),))
+    # aainterp_separable_apply(src, out, ys, wy, xs, wx, row_base,
+    #     col_base, F, H, W, Hd, Wd, ky, kx, TY, TX, SY, SX, in_code,
+    #     out_code, stream)
+    (("aainterp_separable_apply", (_P,) * 8 + (_I,) * 13 + (_P,),
+      ctypes.c_int),),
+    headers=(_BAND_HEADER,))
 
 SEPARABLE_2D = Library(
     "separable_apply_2d", _PKG / "csrc" / "separable_apply_2d.cu", "nvcc",
     NVCC_FLAGS,
     # aainterp_separable_apply_2d(src, out, ys, wy, xs, wx, row_base,
-    #     col_base, F, H, W, Hd, Wd, ky, kx, TY, TX, SY, SX, mode, in_code,
-    #     out_code, stream)
+    #     col_base, F, H, W, Hd, Wd, ky, kx, TY, TX, SY, SX, mode,
+    #     in_code, out_code, stream)
     (("aainterp_separable_apply_2d", (_P,) * 8 + (_I,) * 14 + (_P,),
-      ctypes.c_int),))
+      ctypes.c_int),),
+    headers=(_BAND_HEADER,))
 
 ELL_SHEAR = Library(
     "ell_shear", _PKG / "csrc" / "ell_shear.cu", "nvcc", NVCC_FLAGS,
@@ -144,6 +153,8 @@ def compiler_path(compiler: str) -> str:
 def library_path(lib: Library) -> Path:
     """Where ``lib`` built from its current source and flags lives."""
     h = hashlib.sha256(lib.source.read_bytes())
+    for header in lib.headers:
+        h.update(header.read_bytes())
     h.update(" ".join((lib.compiler,) + lib.flags).encode())
     return BUILD_DIR / f"lib{lib.name}_{h.hexdigest()[:16]}.so"
 

@@ -52,8 +52,11 @@ y-x-y); the source is quadrant-rotated first.  ``method``:
 * ``'auto'``: 'kernel' for a CUDA tensor, 'plain' for a CPU tensor.
 
 Both shear routes return the input's dtype (bf16, f32 or uint8) and
-compute in f32 whatever ``weight_dtype`` says (f32 or f64 accepted; JAX's
-routes cast the tables to the f32 working type too).
+compute in f32 whatever ``weight_dtype`` says (f32 or f64 accepted).  So
+do JAX's: its XLA route keeps float64 tables with x64 on
+(shear3.py:458-472) but casts them to the f32 working type where it uses
+them (:454, :507), and the plain route here gives its bits
+(tests/test_torch_shear3_api.py pins them against JAX with x64 on).
 ``differentiable=True`` on the kernel route goes through
 ``cuda_shear3.Shear3Linear`` (backward = the adjoint plan on the same
 kernels); the plain route differentiates natively.  Axis-aligned

@@ -75,9 +75,14 @@
 //     nothing and writes zeros: its outputs are exactly 0 whatever the
 //     input (decided by the host table, not by the data);
 //   * EVERY output element is written, zeros included, so a torch.empty
-//     output holds no stale NaN where a later zero weight reads it.
+//     output holds no stale NaN where a later zero weight reads it;
+//   * a stage whose smallest tile needs more shared memory than the card's
+//     opt-in limit (a heavy downscale: one y pre-band tile of 8192^2 ->
+//     4x4 spans its whole input) takes the direct form, one thread per
+//     output element reading its taps from device memory with the same
+//     arithmetic.
 //
-// Measured on the H100 (PERF.md, chip_sweep_shear3.py): with the compute
+// Measured on the H100 (PERF.md, chip_sweep.py): with the compute
 // removed a stage still takes 73 % (y) and 89 % (x) of its time, with the
 // staging removed 88-90 %: the two phases overlap across blocks but not
 // within one, and each alone runs at about the same rate.
@@ -245,10 +250,25 @@ struct MidLine {
   }
 };
 
+// One line of the input read straight from device memory (the direct
+// form): cell j of n, 0 outside; get<false> skips the test.
+template <typename In>
+struct GLine {
+  const In* p;     // cell 0
+  long long step;  // elements between cells
+  int n;
+  __device__ __forceinline__ bool holds(int a, int b) const { return a >= 0 && b < n; }
+  template <bool kCheck>
+  __device__ __forceinline__ float get(int j) const {
+    if (kCheck && static_cast<unsigned>(j) >= static_cast<unsigned>(n)) return 0.0f;
+    return to_f32(p[j * step]);
+  }
+};
+
 // sum_k w[i,k] v(start[i] + k) for kN lines, taps in order; the band's
 // start and weights are read once for all kN lines
-template <int kN, typename In>
-__device__ __forceinline__ void band_rows(const Line<In>* v, const StageTables& t, int i, int K,
+template <int kN, typename L>
+__device__ __forceinline__ void band_rows(const L* v, const StageTables& t, int i, int K,
                                           float* r) {
   const int s = __ldg(t.start + i);
   const float* wr = t.w + static_cast<long long>(i) * K;
@@ -289,11 +309,29 @@ __device__ __forceinline__ void translate(const V* v, int t, const int* d, const
   }
 }
 
+// the mid cells of one line computed where they are read (the direct
+// form's pre-band): mid cell m = band row m of the input line, 0 outside
+// [0, n)
+template <typename In>
+struct GMid {
+  GLine<In> v;
+  const StageTables* t;
+  int K, n;
+  __device__ __forceinline__ bool holds(int a, int b) const { return a >= 0 && b < n; }
+  template <bool kCheck>
+  __device__ __forceinline__ float get(int m) const {
+    if (kCheck && static_cast<unsigned>(m) >= static_cast<unsigned>(n)) return 0.0f;
+    float r;
+    band_rows<1>(&v, *t, m, K, &r);
+    return r;
+  }
+};
+
 // band row u over the translate grid T[t] = tr(v, t), t in [0, n_t), for
 // kN lines: each line's K+1 input cells v(s-d-1 .. s+K-1-d) are read once,
 // and the band's start, weights and grid test once for all kN lines
-template <bool kCheck, int kN, typename In>
-__device__ __forceinline__ void post_band_taps(const Line<In>* v, int s, const float* wr,
+template <bool kCheck, int kN, typename L>
+__device__ __forceinline__ void post_band_taps(const L* v, int s, const float* wr,
                                                int K, int n_t, const int* d, const float* f,
                                                float* r) {
   float prev[kN], g[kN];
@@ -317,8 +355,8 @@ __device__ __forceinline__ void post_band_taps(const Line<In>* v, int s, const f
   }
 }
 
-template <int kN, typename In>
-__device__ __forceinline__ void post_band(const Line<In>* v, const StageTables& t, int u, int K,
+template <int kN, typename L>
+__device__ __forceinline__ void post_band(const L* v, const StageTables& t, int u, int K,
                                           int n_t, const int* d, const float* f, int dmin,
                                           int dmax, float* r) {
   const int s = __ldg(t.start + u);
@@ -522,6 +560,49 @@ __global__ void __launch_bounds__(kThreads) stage_kernel(
   }
 }
 
+// The direct form, for stages whose smallest tile needs more shared memory
+// than the card has (shear3.plan_tiles): one thread per output element,
+// taps read from device memory, in the staged form's order with the same
+// roundings (a pre-band's mid cells computed where they are read), so the
+// same bits.  e runs over the output (F, n_out, n_lines) for y and (F,
+// n_lines, n_out) for x.
+template <bool kY, int kForm, typename In, typename Out>
+__global__ void __launch_bounds__(kThreads) stage_direct_kernel(
+    const In* __restrict__ x, Out* __restrict__ out, StageTables t, StageDims s,
+    long long total) {
+  const long long e = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (e >= total) return;
+  const int n_a = kY ? s.n_lines : s.n_out;  // the output's fastest axis
+  const int n_b = kY ? s.n_out : s.n_lines;
+  const int ia = static_cast<int>(e % n_a);
+  const long long q = e / n_a;
+  const int ib = static_cast<int>(q % n_b);
+  const long long fr = q / n_b;
+  const int l = kY ? ia : ib;
+  const int u = kY ? ib : ia;
+  GLine<In> v;
+  v.p = kY ? x + fr * s.n_in * static_cast<long long>(s.n_lines) + l
+           : x + (fr * s.n_lines + l) * static_cast<long long>(s.n_in);
+  v.step = kY ? s.n_lines : 1;
+  v.n = s.n_in;
+  const int d = __ldg(t.d + l);
+  const float f = __ldg(t.f + l);
+  float r;
+  if (kForm == kPostBand) {
+    post_band<1>(&v, t, u, s.K, s.n_t, &d, &f, d, d, &r);
+  } else if (kForm == kPreBand) {
+    const GMid<In> mid{v, &t, s.K, s.n_mid};
+    translate<1>(&mid, u + s.crop, &d, &f, d, d, &r);
+  } else {
+    translate<1>(&v, u + s.crop, &d, &f, d, d, &r);
+  }
+  if (t.inv_cov != nullptr) {
+    r = __fmul_rn(r, __ldg(t.inv_cov + (kY ? static_cast<long long>(u) * s.n_lines + l
+                                           : static_cast<long long>(l) * s.n_out + u)));
+  }
+  store4(out + e, 1, &r);
+}
+
 // the least p >= bytes + 32 with p = stride (mod 16): shear3.seg_pitch
 long long seg_pitch(long long bytes, long long stride) {
   const long long p = bytes + 32;
@@ -532,6 +613,14 @@ template <bool kY, int kForm, typename In, typename Out>
 int launch(const void* x, void* out, const StageTables& t, const StageDims& s, int F,
            cudaStream_t st) {
   constexpr int es = sizeof(In);
+  if (s.TL == 0) {  // the direct form
+    const long long total = static_cast<long long>(F) * s.n_lines * s.n_out;
+    const long long blocks = (total + kThreads - 1) / kThreads;
+    if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+    stage_direct_kernel<kY, kForm, In, Out><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+        static_cast<const In*>(x), static_cast<Out*>(out), t, s, total);
+    return static_cast<int>(cudaGetLastError());
+  }
   Geo g;
   g.n_tl = (s.n_lines + s.TL - 1) / s.TL;
   g.n_tu = (s.n_out + s.TU - 1) / s.TU;
@@ -603,9 +692,11 @@ int run_stage(const void* x, void* out, const void* d, const void* f, const void
   const bool banded = s.form == kPreBand || s.form == kPostBand;
   // y: TL/4 <= 32 lanes per line group; x: TL/4 line groups of at least a
   // warp each, TU/4 threads per output row of an empty tile
-  const bool tiles_ok = kY ? pow2_in(s.TL, kVec, 32 * kVec) && s.TU > 0
-                           : pow2_in(s.TL, kVec, kVec * kThreads / 32) &&
-                                 pow2_in(s.TU, kVec, kVec * kThreads);
+  // TL = TU = 0: the direct form
+  const bool tiles_ok = (s.TL == 0 && s.TU == 0) ||
+                        (kY ? pow2_in(s.TL, kVec, 32 * kVec) && s.TU > 0
+                            : pow2_in(s.TL, kVec, kVec * kThreads / 32) &&
+                                  pow2_in(s.TU, kVec, kVec * kThreads));
   if (x == nullptr || out == nullptr || d == nullptr || f == nullptr || win == nullptr ||
       F <= 0 || s.n_lines <= 0 || s.n_in <= 0 || s.n_out <= 0 || s.n_t <= 0 || s.crop < 0 ||
       s.form < kTranslate || s.form > kPostBand ||
@@ -631,7 +722,8 @@ int run_stage(const void* x, void* out, const void* d, const void* f, const void
 
 // win: the stage's tile windows (shear3.StageTiles.win, int32 (n_out tiles,
 // n_lines tiles, 4)), for tiles of TL lines by TU output cells; max_win and
-// max_mid their largest window and mid range
+// max_mid their largest window and mid range.  TL = TU = 0 selects the
+// direct form (win, max_win and max_mid unused).
 extern "C" int aainterp_shear3_ystage(const void* x, void* out, const void* d, const void* f,
                                       const void* start, const void* w, const void* inv_cov,
                                       const void* win, int F, int n_lines, int n_in, int n_mid,

@@ -11,13 +11,13 @@ with f32 sums, the y pass first.  It serves the band-operator family
 (``regrid.apply_band_operators`` and the area-resize front doors), whose
 bands are wide (the config-5 regrid: 12 taps at a 10x ratio).
 
-* ``plan_separable_2d`` is the host planner: for each dst row tile and
-  column tile the source block base (the least band start of the tile),
-  and for all tiles a common span SY x SX that holds every tap.  It halves
-  TX, then TY (the larger first), from 32 x 32 until the f32 block
-  (SY * SX) plus the y-pass rows (TY * SX) fit ``SMEM_TARGET`` (64 KB:
-  three blocks per SM); at one dst pixel per block it accepts up to the
-  card's 227 KB limit.  Beyond that the plan is the kernel's direct form
+* ``plan_separable_2d`` is the host planner: ``cuda_apply.band_plan``
+  (shared with kernel 1) from 32 x 32 tiles, halving TX, then TY (the
+  larger first), until the block (the raw source window, the f32 y-pass
+  rows, the tile's tap table and an output tile; ``cuda_apply.band_smem``
+  at f32) fits ``SMEM_TARGET``; at one dst pixel per tile it accepts up to
+  the card's 227 KB limit.  Each block takes one row tile of one column
+  strip.  Beyond the limit the plan is the kernel's direct form
   (one thread per output element, taps read from device memory, the same
   bits), so no band pair is rejected.  None of the TPU kernel's 8/32/128
   alignments or padding remain.
@@ -57,12 +57,12 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils.device import SMEM_LIMIT, out_buffer
 from ..utils.digest import array_digest
 from ..utils.lru import LruDict
 from .apply import _band_index, apply_separable_banded
-from .cuda_apply import (_DTYPE_CODES, _resolve_out_dtype, check_inputs,
-                         table_on)
-from .shear3 import out_buffer
+from .cuda_apply import (_DTYPE_CODES, _resolve_out_dtype, band_plan,
+                         check_inputs, table_on)
 
 # Kernel launches so far, counted where the wrapper launches its kernel.
 LAUNCHES = 0
@@ -70,8 +70,7 @@ LAUNCHES = 0
 PRECISIONS = ("auto", "default", "high", "highest", "bf16x3")
 _MODES = {"auto": 0, "high": 0, "highest": 0, "default": 1, "bf16x3": 2}
 TILE = 32
-SMEM_TARGET = 64 * 1024         # bytes of dynamic shared memory a block aims at
-SMEM_LIMIT = 232448             # the H100's per-block maximum (227 KB)
+SMEM_TARGET = 112 * 1024        # bytes of dynamic shared memory a block aims at
 
 # bounded: each plan holds its host tables plus one device copy per device
 _PLAN_CACHE = LruDict(32, max_bytes=256 << 20)
@@ -93,14 +92,6 @@ def _mode(precision: str, in_dtype: torch.dtype) -> int:
     return mode
 
 
-def _tiles(starts: np.ndarray, k: int, tile: int):
-    """(base per tile, common span) of a band's dst tiles of ``tile``."""
-    edges = np.arange(0, starts.shape[0], tile)
-    base = np.minimum.reduceat(starts, edges)
-    span = int((np.maximum.reduceat(starts, edges) + k - base).max())
-    return base, span
-
-
 def plan_separable_2d(ys: np.ndarray, xs: np.ndarray, ky: int, kx: int,
                       smem_target: int = SMEM_TARGET,
                       smem_limit: int = SMEM_LIMIT) -> dict:
@@ -108,34 +99,22 @@ def plan_separable_2d(ys: np.ndarray, xs: np.ndarray, ky: int, kx: int,
 
     Returns dict(direct, TY, TX, SY, SX, nty, ntx, smem, row_base,
     col_base): every tap of dst row i lies in rows [row_base[i // TY], +SY)
-    and every tap of dst column j in columns [col_base[j // TX], +SX).
-    Starts need not be monotone (descending sin-lat bands are reversed,
-    clamped starts repeat).  Where one dst pixel's block exceeds
-    ``smem_limit`` bytes the plan is the direct form: ``direct`` True,
-    1 x 1 tiles and no shared memory.
+    and every tap of dst column j in columns [col_base[j // TX], +SX); a
+    block takes one row tile of one strip.  Starts need not be monotone
+    (descending sin-lat bands are reversed, clamped starts repeat).  Where
+    one dst pixel's block exceeds ``smem_limit`` bytes the plan is the
+    direct form: ``direct`` True, 1 x 1 tiles, spans ky x kx and no shared
+    memory.
     """
-    ys64, xs64 = ys.astype(np.int64), xs.astype(np.int64)
-    Hd, Wd = int(ys64.shape[0]), int(xs64.shape[0])
-    TY, TX = max(1, min(TILE, Hd)), max(1, min(TILE, Wd))
-    while True:
-        row_base, SY = _tiles(ys64, ky, TY)
-        col_base, SX = _tiles(xs64, kx, TX)
-        smem = (SY * SX + TY * SX) * 4
-        if smem <= smem_target:
-            break
-        if TX > 1 and TX >= TY:
-            TX //= 2
-        elif TY > 1:
-            TY //= 2
-        else:
-            break
-    direct = smem > smem_limit
-    if direct:
-        smem = 0
-    return dict(direct=direct, TY=TY, TX=TX, SY=SY, SX=SX, nty=-(-Hd // TY),
-                ntx=-(-Wd // TX), smem=smem,
-                row_base=row_base.astype(np.int32),
-                col_base=col_base.astype(np.int32))
+    plan = band_plan(ys, xs, ky, kx, tile_y=TILE, tile_x=TILE,
+                     smem_target=smem_target, smem_limit=smem_limit)
+    if plan is not None:
+        return dict(plan, direct=False)
+    Hd, Wd = int(ys.shape[0]), int(xs.shape[0])
+    return dict(direct=True, TY=1, TX=1, SY=int(ky), SX=int(kx), nty=Hd,
+                ntx=Wd, smem=0,
+                row_base=np.asarray(ys, np.int32).copy(),
+                col_base=np.asarray(xs, np.int32).copy())
 
 
 def make_plan(ys: np.ndarray, yw: np.ndarray, xs: np.ndarray,
@@ -307,6 +286,7 @@ def apply_separable_kernel_2d(frames: torch.Tensor, y_start, y_w, x_start,
             f"separable_apply_2d kernel launch failed: CUDA error {rc} "
             f"(F={F}, H={H}, W={W}, Hd={Hd}, Wd={Wd}, ky={ky}, kx={kx}, "
             f"plan TY={plan['TY']} TX={plan['TX']} SY={plan['SY']} "
-            f"SX={plan['SX']} direct={plan['direct']}, mode {mode})")
+            f"SX={plan['SX']} direct={plan['direct']}, "
+            f"mode {mode})")
     LAUNCHES += 1
     return out if kernel_out == out_dtype else out.to(out_dtype)

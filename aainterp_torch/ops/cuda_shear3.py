@@ -5,7 +5,8 @@ Counterpart of ``aainterp/ops/pallas_shear3.py``
 ``_build_y_stage`` / ``_build_x_stage``).  Each kernel runs one whole
 pass of a ``Shear3Plan`` in one launch, from the plan's own tables
 (``shear3.stage_plan``), one block per tile of the stage's work split
-(``Stage.tiles``: each tile's input window, staged in shared memory):
+(``Stage.tiles``: each tile's input window, staged in shared memory;
+a stage beyond the card's shared memory takes the direct form):
 none of the Pallas plan's 128/16 padding, aligned crop lifts, densified
 MXU band blocks or bit rolls remain.
 
@@ -35,6 +36,7 @@ from typing import Optional
 import torch
 
 from .. import _build
+from ..utils.device import out_buffer
 from ..utils.lru import LruDict
 from . import shear3 as shear3_ops
 from .shear3 import Shear3Plan, StagePlan
@@ -61,8 +63,7 @@ def _stage_kernel(x: torch.Tensor, sp: StagePlan, i: int, axis: str,
         raise TypeError(f"out_dtype must be one of {tuple(_DTYPE_CODES)}, "
                         f"got {out_dtype}")
     F = x.shape[0]
-    out = shear3_ops.out_buffer(out, (F,) + st.out_shape, out_dtype,
-                                x.device)
+    out = out_buffer(out, (F,) + st.out_shape, out_dtype, x.device)
     per, cov = sp.tables(x.device)
     t = per[i]
     use_cov = i == len(sp.stages) - 1 and cov is not None
@@ -70,13 +71,15 @@ def _stage_kernel(x: torch.Tensor, sp: StagePlan, i: int, axis: str,
     fn = lib.aainterp_shear3_ystage if axis == "y" \
         else lib.aainterp_shear3_xstage
     tiles = st.tiles
+    # TL = TU = 0 launches the direct form
+    TL, TU = (0, 0) if tiles.direct else (tiles.TL, tiles.TU)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), out.data_ptr(), t["d"].data_ptr(),
                 t["f"].data_ptr(), t["start"].data_ptr(), t["w"].data_ptr(),
                 cov.data_ptr() if use_cov else None, t["win"].data_ptr(),
                 F, st.n_lines, st.n_in, st.n_mid, st.n_t, st.crop, st.n_out,
-                st.K, st.form, tiles.TL, tiles.TU, tiles.max_win,
+                st.K, st.form, TL, TU, tiles.max_win,
                 tiles.max_mid, _DTYPE_CODES[x.dtype],
                 _DTYPE_CODES[out_dtype], stream)
     name = f"{axis}stage"
@@ -84,7 +87,8 @@ def _stage_kernel(x: torch.Tensor, sp: StagePlan, i: int, axis: str,
         raise RuntimeError(
             f"{name} kernel launch failed: CUDA error {rc} (F={F}, "
             f"lines={st.n_lines}, n_in={st.n_in}, n_out={st.n_out}, "
-            f"form={st.form}, K={st.K}, tile {tiles.TL}x{tiles.TU})")
+            f"form={st.form}, K={st.K}, tile {tiles.TL}x{tiles.TU}, "
+            f"direct={tiles.direct})")
     LAUNCHES[name] += 1
     return out
 

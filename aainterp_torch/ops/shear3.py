@@ -29,7 +29,10 @@ ELL operator.
   plan uploads its tables to a device once and keeps them.
 * ``plan_tiles`` / ``StageTiles``: each stage's work split for the CUDA
   kernels, tiles of lines by output cells with the input window each
-  tile stages (``tile_windows``).
+  tile stages (``tile_windows``); a stage whose smallest tile needs more
+  shared memory than the card's opt-in limit takes the kernels' direct
+  form (``StageTiles.direct``: one thread per output, taps read from
+  device memory, the same bits).
 * ``ystage_plain`` / ``xstage_plain``: one pass in plain torch, the
   reference the kernels are held to.  Sums are f32, in the order of the
   JAX XLA route (translate tap ``(1-f)`` first, band taps in order, each
@@ -50,6 +53,7 @@ import numpy as np
 import torch
 
 from ..grids import GridSpec
+from ..utils.device import SMEM_LIMIT, out_buffer
 from ..utils.digest import array_digest
 from ..utils.lru import LruDict
 from .overlap1d import Band1D
@@ -511,13 +515,17 @@ class StageTiles:
     that the tile's outputs read inside the input, and for a PRE_BAND
     stage mid cells [mlo, mhi) every mid cell they read inside
     [0, n_mid).  All four are 0 for an empty tile, whose outputs are 0
-    whatever the input."""
+    whatever the input.  ``direct``: even the smallest tile's block needs
+    more shared memory than the card's opt-in limit, so the kernels take
+    their direct form (one thread per output element, taps read from
+    device memory in the same order; the tiles are then unused)."""
 
     TL: int
     TU: int
     win: np.ndarray          # (n_out tiles, n_lines tiles, 4) int32
     max_win: int             # max hi - lo
     max_mid: int             # max mhi - mlo (PRE_BAND), else 0
+    direct: bool = False
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -737,17 +745,19 @@ def tile_windows(st: Stage, TL: int, TU: int) -> np.ndarray:
 
 def plan_tiles(st: Stage) -> StageTiles:
     """The first tile shape of the stage's axis whose block fits
-    ``SMEM_BUDGET`` at f32, with its windows (the smallest shape if none
-    fits; the launch then asks for more shared memory, up to the card's
-    opt-in limit)."""
+    ``SMEM_BUDGET`` at f32, with its windows.  If none fits, the smallest
+    shape: the launch then asks for more shared memory, up to the card's
+    opt-in limit ``SMEM_LIMIT``, and beyond it the stage takes the direct
+    form (``StageTiles.direct``)."""
     for TL, TU in (_Y_TILES if st.axis == "y" else _X_TILES):
         win = tile_windows(st, TL, TU)
         max_win = int((win[..., 1] - win[..., 0]).max())
         max_mid = int((win[..., 3] - win[..., 2]).max())
-        if stage_smem(st, TL, max_win, max_mid, 4) <= SMEM_BUDGET:
+        smem = stage_smem(st, TL, max_win, max_mid, 4)
+        if smem <= SMEM_BUDGET:
             break
     return StageTiles(TL=TL, TU=TU, win=win, max_win=max_win,
-                      max_mid=max_mid)
+                      max_mid=max_mid, direct=smem > SMEM_LIMIT)
 
 
 def stage_plan(plan: Shear3Plan) -> StagePlan:
@@ -821,17 +831,6 @@ def check_stage_input(x: torch.Tensor, st: Stage, axis: str) -> None:
     if x.dtype not in _DTYPES:
         raise TypeError(f"stage input must be one of {_DTYPES}, got "
                         f"{x.dtype}")
-
-
-def out_buffer(out, shape, dtype, device) -> torch.Tensor:
-    if out is None:
-        return torch.empty(shape, dtype=dtype, device=device)
-    if (tuple(out.shape) != tuple(shape) or out.dtype != dtype
-            or out.device != torch.device(device)
-            or not out.is_contiguous()):
-        raise ValueError(f"out must be a contiguous {dtype} tensor of shape "
-                         f"{tuple(shape)} on {device}")
-    return out
 
 
 # ----------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Where a public entry point puts its input.
+"""Where a public entry point puts its input, where a kernel wrapper
+writes its output, and the card's shared-memory limit the planners use.
 
 The port's entry points run on the card unless the caller asks for the
 CPU.  ``device=``, where given, is where the call computes: any input,
@@ -17,6 +18,9 @@ from typing import Optional, Union
 import torch
 
 Device = Optional[Union[torch.device, str]]
+
+# the H100's per-block opt-in maximum of dynamic shared memory (227 KB)
+SMEM_LIMIT = 232448
 
 
 def _same(a: torch.device, b: torch.device) -> bool:
@@ -37,3 +41,16 @@ def as_input(x, device: Device = None) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x if _same(x.device, device) else x.to(device)
     return torch.as_tensor(x, device=device)
+
+
+def out_buffer(out, shape, dtype, device) -> torch.Tensor:
+    """``out`` checked to be a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``, or a new empty one when it is None."""
+    if out is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    if (tuple(out.shape) != tuple(shape) or out.dtype != dtype
+            or out.device != torch.device(device)
+            or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous {dtype} tensor of shape "
+                         f"{tuple(shape)} on {device}")
+    return out

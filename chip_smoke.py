@@ -30,10 +30,13 @@ once; holds every kernel against its plain PyTorch version on the same
 inputs; checks small inputs against dense float64 references; and times
 the kernels, their plain versions, one PyTorch library call per kernel
 where one computes the same function (a dense ``torch.einsum``, a
-``torch.gather``) and a device-to-device copy.  Each kernel's bound is
-the larger of its bytes (each input read once, each output written once)
-over the H100's published 3.35 TB/s and its operations over the
-published 67 TFLOP/s of float32 outside the tensor cores.
+``torch.gather``) and a device-to-device copy; the separable kernels in
+every input dtype (phase 8: kernel 1 at bf16, f32 and u8; phase 30:
+kernel 2 at f32, bf16, u8, 0.25 degree and in its direct form).  Each
+kernel's bound is the larger of its bytes (each input read once, each
+output written once) over the H100's published 3.35 TB/s and its
+operations over the published 67 TFLOP/s of float32 outside the tensor
+cores.
 
     python3 chip_smoke.py
 
@@ -1167,12 +1170,21 @@ def regrid_phases(dev, card):
 
 def regrid_timing(card, fields, tabs, qtabs, by, bx) -> dict:
     """Device (CUDA-graph replay) ms per batch of the 2-D kernel at config
-    5 (f32 forced, bf16) and at 0.25 degree, of the aligned route, the
+    5 (f32 forced, bf16, u8 -> u8), at 0.25 degree and in its direct form
+    (480-tap bands, 8 fields 480x480 -> 4x4), of the aligned route, the
     plain version, kernel 1 on the same tables, the dense einsum library
     call and a copy of the f32 batch (207 MB, beyond the 50 MB L2)."""
     n = 4                                    # distinct batches, 207 MB each
     xs = [fields() for _ in range(n)]
     xb = [x.to(torch.bfloat16) for x in xs]
+    xu = [fields(torch.uint8) for _ in range(n)]
+    wide = t_regrid.Band1D(start=np.zeros(4, np.int32),
+                           weights=np.full((4, 480), 1 / 480), n_src=480,
+                           n_dst=4)
+    wtabs = regrid_tables(wide, wide)
+    check(cuda_apply_2d.kernel_plan(*wtabs)["direct"],
+          "480-tap bands must take the direct form")
+    xw = [fields(shape=(RG_F, 480, 480)) for _ in range(n)]
     copy_dst = torch.empty_like(xs[0])
     dev = xs[0].device
     dense = {}
@@ -1189,7 +1201,9 @@ def regrid_timing(card, fields, tabs, qtabs, by, bx) -> dict:
     fns = {
         "k2d_f32": (lambda x: k2d(x, *tabs), xs),
         "k2d_bf16": (lambda x: k2d(x, *tabs), xb),
+        "k2d_u8": (lambda x: k2d(x, *tabs), xu),
         "k2d_q_f32": (lambda x: k2d(x, *qtabs), xs),
+        "k2d_direct_f32": (lambda x: k2d(x, *wtabs), xw),
         "aligned_f32": (lambda x: at.apply_band_operators(
             x, by, bx, impl="aligned"), xs),
         "kernel1_f32": (lambda x: cuda_apply.apply_separable_kernel(x, *tabs),
@@ -1232,8 +1246,12 @@ def regrid_timing(card, fields, tabs, qtabs, by, bx) -> dict:
                     ops(RG_DST, ky, kx)),
         "k2d_bf16": (px * bf + n_c5 * bf + table_bytes(*tabs),
                      ops(RG_DST, ky, kx)),
+        "k2d_u8": (px + n_c5 + table_bytes(*tabs), ops(RG_DST, ky, kx)),
         "k2d_q_f32": (px * f32 + n_q * f32 + table_bytes(*qtabs),
                       ops(RG_QDEG, qky, qkx)),
+        "k2d_direct_f32": (RG_F * (480 * 480 + 4 * 4) * f32
+                           + table_bytes(*wtabs),
+                           2 * RG_F * 4 * (480 * 480 + 4 * 480)),
     }
     work["aligned_f32"] = work["kernel1_f32"] = work["k2d_f32"]
     timing["bounds"] = {k: bound(*w) for k, w in work.items()}
@@ -1242,7 +1260,8 @@ def regrid_timing(card, fields, tabs, qtabs, by, bx) -> dict:
     for k, (nbytes, _) in work.items():
         t = timing[f"{k}_device_ms"]
         timing[f"{k}_gb_s"] = nbytes / (t * 1e-3) / 1e9
-        timing[f"{k}_gpixel_s"] = px / (t * 1e-3) / 1e9
+        pixels = RG_F * 480 * 480 if k == "k2d_direct_f32" else px
+        timing[f"{k}_gpixel_s"] = pixels / (t * 1e-3) / 1e9
         timing[f"{k}_bytes"] = nbytes
         timing[f"{k}_copy_bound_ms"] = nbytes / copy_bw * 1e3
         timing[f"{k}_share_of_bound"] = timing["bounds"][k]["bound_ms"] / t
@@ -1250,7 +1269,10 @@ def regrid_timing(card, fields, tabs, qtabs, by, bx) -> dict:
     t = timing
     for k, what in (("k2d_f32", "2-D kernel, config 5 f32"),
                     ("k2d_bf16", "2-D kernel, config 5 bf16"),
+                    ("k2d_u8", "2-D kernel, config 5 u8 -> u8"),
                     ("k2d_q_f32", "2-D kernel, 0.25 deg f32"),
+                    ("k2d_direct_f32", "2-D kernel, direct form, 480-tap "
+                     "bands, 8x480x480 f32"),
                     ("aligned_f32", "aligned route, config 5 f32"),
                     ("kernel1_f32", "kernel 1 on the config-5 tables")):
         print(f"[30 regrid timing] {card}: {what}: "
@@ -1425,8 +1447,13 @@ def main() -> int:
     # like the frames (f32 sums inside each product)
     wy0, wx0 = (torch.as_tensor(m, dtype=torch.bfloat16, device=dev)
                 for m in op0.dense())
+    batches_f32 = [b.float() for b in batches[:4]]
+    batches_u8 = [(b.float() * 255).round().to(torch.uint8)
+                  for b in batches[:4]]
     fns = {
         "kernel": lambda b: cuda_apply.apply_separable_kernel(b, *tabs0),
+        "kernel_f32": lambda b: cuda_apply.apply_separable_kernel(b, *tabs0),
+        "kernel_u8": lambda b: cuda_apply.apply_separable_kernel(b, *tabs0),
         "plain": lambda b: cuda_apply.apply_separable_plain(b, *dev_tabs),
         "api": lambda b: at.apply_operator(op0, b),
         "library": lambda b: torch.einsum("hy,fyx,wx->fhw", wy0, b, wx0),
@@ -1436,12 +1463,17 @@ def main() -> int:
     frame_bytes = H * W * 2 + (H // 2) * (W // 2) * 2   # bf16 read + write
     timing = {"card": card, "shape": [F, H, W], "dtype": "bfloat16",
               "bytes_per_frame": frame_bytes}
-    # device time (CUDA graphs) and eager per-call time, in turns
-    for name in ("kernel", "plain", "library", "copy", "api", "api", "copy",
-                 "library", "plain", "kernel"):
+    # device time (CUDA graphs) and eager per-call time, in turns; kernel 1
+    # at f32 and u8 (u8 in, u8 out) on the same frames, device time only
+    inputs = {"kernel_f32": batches_f32, "kernel_u8": batches_u8}
+    for name in ("kernel", "kernel_f32", "kernel_u8", "plain", "library",
+                 "copy", "api", "api", "copy", "library", "plain", "kernel_u8",
+                 "kernel_f32", "kernel"):
         reps = 10 if name in ("plain", "library") else 30
         for how, timer in (("device", graph_ms), ("eager", eager_ms)):
-            ms = timer(fns[name], batches, reps)
+            if how == "eager" and name in inputs:
+                continue
+            ms = timer(fns[name], inputs.get(name, batches), reps)
             timing.setdefault(f"{name}_{how}_ms", []).append(ms)
     ms = {k: min(v) for k, v in timing.items() if k.endswith("_ms")}
     kernel_ms, plain_ms = ms["kernel_device_ms"], ms["plain_device_ms"]
@@ -1456,6 +1488,15 @@ def main() -> int:
     flagship_bound = bound(
         F * frame_bytes + table_bytes(*tabs0),
         2 * F * ((H // 2) * W * ky + (H // 2) * (W // 2) * kx))
+    dtype_bounds = {
+        name: bound(F * (H * W + (H // 2) * (W // 2)) * es
+                    + table_bytes(*tabs0),
+            2 * F * ((H // 2) * W * ky + (H // 2) * (W // 2) * kx))
+        for name, es in (("kernel_f32", 4), ("kernel_u8", 1))}
+    for name, b in dtype_bounds.items():
+        timing[f"{name}_bound_ms"] = b["bound_ms"]
+        timing[f"{name}_share_of_bound"] = b["bound_ms"] / ms[
+            f"{name}_device_ms"]
     timing.update(
         library_device_ms=ms["library_device_ms"], **flagship_bound,
         kernel_device_gb_s=F * frame_bytes / (kernel_ms * 1e-3) / 1e9,
@@ -1476,8 +1517,16 @@ def main() -> int:
           f"peaks ({flagship_bound['bound_by']}); copy "
           f"{timing['copy_gb_s']:.1f} GB/s -> bytes bound "
           f"{bound_us:.3f} us/frame = {timing['bound_gpixel_s']:.3f} Gpixel/s")
+    for name, what in (("kernel", "bf16"), ("kernel_f32", "f32"),
+                       ("kernel_u8", "u8 -> u8")):
+        b = flagship_bound if name == "kernel" else dtype_bounds[name]
+        print(f"[8 timing] {card}: kernel 1 {what}: "
+              f"{ms[f'{name}_device_ms']:.4f} ms per batch, bound "
+              f"{b['bound_ms']:.4f} ms at 3.35 TB/s "
+              f"({100 * b['bound_ms'] / ms[f'{name}_device_ms']:.1f} % of it "
+              f"reached)")
     print(json.dumps({"timing": timing}))
-    del batches, copy_dst, fns
+    del batches, batches_f32, batches_u8, copy_dst, fns
 
     rotated = rotated_phases(make, card)
     sheared = shear3_phases(make, card)

@@ -1,0 +1,307 @@
+#!/usr/bin/env python3
+"""Timing, plan and ablation sweep of the port's hand-written kernels on one
+GPU: the two separable band-apply kernels (``csrc/separable_apply.cu``,
+kernel 1, and ``csrc/separable_apply_2d.cu``, kernel 2, both built on
+``csrc/band_apply.cuh``) and the shear-mode stage kernels
+(``csrc/shear3_stage.cu``).
+
+    python3 chip_sweep.py [--repo DIR] [--cells k1,k2,s3]
+        [--variants cur,nostage,...] [--set 'MOD.NAME=VALUE;...']...
+
+Cells are chosen by name, or by a prefix of their names (``k1``, ``k2``,
+``s3``).  Each is timed as ``chip_smoke.py`` times it: device ms per batch
+from CUDA-graph replays on distinct inputs (``chip_smoke.graph_ms``), best
+of two.
+
+* ``k1_bf16``, ``k1_f32``, ``k1_u8``: kernel 1 at the flagship, 8 frames
+  2160x3840 -> 1080x1920 (4-tap bands);
+* ``k2_f32``, ``k2_bf16``, ``k2_u8``: kernel 2 at the config-5 regrid, 8
+  fields 1800x3600 -> 180x360 (12-tap bands); ``k2q_f32``: 0.1 -> 0.25
+  degree (720x1440, 5-tap bands); ``k2_direct``: its direct form on 8
+  fields 480x480 -> 4x4 (480-tap bands);
+* ``s3_quality_s0`` .. ``s3_fast_s2``: the six stages of the shear flagship
+  (8 frames of 2048x2048 bf16 at 30 degrees, 1.0 -> 0.5, both
+  decompositions), each stage on the plain output of the one before.
+
+Each cell's kernel output is checked against its plain version first
+(kernel 1 and 2 within a bf16 ulp or one grey level, the shear stages bit
+for bit), except in the build variants that skip work.
+
+``--repo`` imports ``aainterp_torch`` and ``chip_smoke`` from another
+checkout (the parent commit, for a before/after comparison in one run on
+one card).  ``--variants`` lists build variants: edits of the sources
+(``VARIANTS``, regular expression -> replacement per source file), built
+with nvcc into ``aainterp_torch/_build/sweep/<variant>/``; a library whose
+files a variant does not edit is used as it is.  Each ``--set`` is one
+plan setting: ``;``-separated assignments to constants of
+``aainterp_torch.ops`` modules, each value a Python literal, made on the
+defaults; the plan caches are emptied between settings.  For example,
+shear tile shapes: ``--set 'shear3._Y_TILES=((32, 64),);shear3._X_TILES=
+((8, 256),);shear3.SMEM_BUDGET=1073741824'``.
+
+Prints the card's name and power limit, then one JSON line per (variant,
+setting) with each cell's ms and plan.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ast
+import ctypes
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+NOT_REACHED = "if (off < -(1 << 30)) cp_async16"
+VARIANTS = {
+    "cur": {},
+    # no source window is copied (the passes read stale shared memory)
+    "nostage": {
+        "band_apply.cuh": [(r"if \(off < nbytes\) cp_async16", NOT_REACHED)],
+        "shear3_stage.cu": [(r"if \(off < seg_bytes\) cp_async16",
+                             NOT_REACHED)]},
+    # band_apply.cuh: the y pass reads no tap (T = 0 sums)
+    "noy": {"band_apply.cuh": [(r"for \(int a = 0; a < ky; \+\+a\)",
+                                "for (int a = 0; a < 0; ++a)")]},
+    # band_apply.cuh: the x pass reads no tap
+    "nox": {"band_apply.cuh": [
+        (r"if \(x_pairs\)", "if (false)"),
+        (r"if \(b < d\.kx\) acc\.add\(wreg\[b\], tr\[b\]\);", ""),
+        (r"for \(int b = 0; b < d\.kx; \+\+b\) acc\.add\(__ldg\(wxj \+ b\), "
+         r"tr\[b\]\);", "")]},
+    # band_apply.cuh: the output tile is not written out
+    "nostore": {"band_apply.cuh": [(r"if \(off >= obytes\) continue;",
+                                    "continue;")]},
+    # band_apply.cuh: 8 columns per lane in the y pass instead of 4
+    "lane8": {"band_apply.cuh": [(r"constexpr int kLaneCols = 4;",
+                                  "constexpr int kLaneCols = 8;")]},
+    # shear3_stage.cu: 256 threads per block instead of 128
+    "t256": {"shear3_stage.cu": [(r"constexpr int kThreads = 128;",
+                                  "constexpr int kThreads = 256;")]},
+    # shear3_stage.cu: no output or mid cell is computed (zeros stored)
+    "nocompute": {"shear3_stage.cu": [
+        (r"out_cells<kForm, kVec>\([^;]*;",
+         "for (int q = 0; q < kVec; ++q) r[q] = 0.0f;"),
+        (r"band_rows<kVec>\(bv, t, mlo \+ mi, s\.K, r\);",
+         "for (int q = 0; q < kVec; ++q) r[q] = 0.0f;")]},
+}
+EXACT = ("cur", "lane8", "t256")       # variants that compute everything
+
+
+def variant_sources(lib, name: str) -> dict:
+    """{file name: text} of ``lib``'s source and headers with ``name``'s
+    edits, or {} where the variant edits none of them."""
+    edits = VARIANTS[name]
+    if not edits:
+        return {}
+    files = (lib.source,) + tuple(getattr(lib, "headers", ()))
+    if not any(p.name in edits for p in files):
+        return {}
+    texts = {}
+    for path in files:
+        text = path.read_text()
+        for pattern, repl in edits.get(path.name, ()):
+            text, n = re.subn(pattern, repl, text)
+            if n == 0:
+                raise RuntimeError(f"variant {name}: {pattern!r} not in "
+                                   f"{path.name}")
+        texts[path.name] = text
+    return texts
+
+
+def build_variant(_build, lib, name: str):
+    """``lib`` built with ``name``'s edits, loaded; None if it has none."""
+    texts = variant_sources(lib, name)
+    if not texts:
+        return None
+    out = _build.BUILD_DIR / "sweep" / name
+    out.mkdir(parents=True, exist_ok=True)
+    for fname, text in texts.items():
+        (out / fname).write_text(text)
+    so = out / f"{lib.name}.so"
+    subprocess.run([_build.compiler_path("nvcc"), *lib.flags, "-o", str(so),
+                    str(out / lib.source.name)], check=True)
+    cdll = ctypes.CDLL(str(so))
+    for sym, argtypes, restype in lib.symbols:
+        fn = getattr(cdll, sym)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+    return cdll
+
+
+def make_cells(dev):
+    """{name: (prepare, inputs, tol)}: ``prepare()`` gives (kernel fn,
+    plain fn, plan summary) under the current settings, ``inputs()`` the
+    cell's distinct inputs (made once), ``tol`` the check's tolerance (0:
+    bit for bit)."""
+    import numpy as np
+    import torch
+
+    import aainterp_torch as at
+    from aainterp_torch import api as t_api
+    from aainterp_torch.ops import (cuda_apply, cuda_apply_2d, cuda_shear3,
+                                    shear3)
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    made = {}
+
+    def rand(key, shape, dtype, scale=1.0, shift=0.0, n=4):
+        if key not in made:
+            xs = []
+            for _ in range(n):
+                x = torch.rand(shape, generator=gen, device=dev)
+                xs.append((x * 255).round().to(torch.uint8)
+                          if dtype == torch.uint8
+                          else (x * scale + shift).to(dtype))
+            made[key] = xs
+        return made[key]
+
+    op = at.build_operator(at.make_grid_spec((2160, 3840), 2.0, 1.0,
+                                             (0.0, 0.0), 0.0))
+    t1 = at.separable_linear_for(op, torch.float32, "kernel").tables
+    tabs = {}
+    for key, dst in (("c5", (180, 360)), ("q", (720, 1440))):
+        by, bx = at.conservative_regrid_operator(at.LatLonGrid(1800, 3600),
+                                                 at.LatLonGrid(*dst))
+        tabs[key] = (by.start, by.weights.astype(np.float32), bx.start,
+                     bx.weights.astype(np.float32))
+    wide = (np.zeros(4, np.int32), np.full((4, 480), 1 / 480, np.float32))
+    tabs["wide"] = wide + wide
+    keys = ("TY", "TX", "SY", "SX", "smem", "direct")
+
+    def k1_cell(dtype):
+        def prepare():
+            p = cuda_apply._plan_for(*t1)
+            return (lambda x: cuda_apply.apply_separable_kernel(x, *t1),
+                    lambda x: cuda_apply.apply_separable_plain(x, *t1),
+                    {k: p[k] for k in keys if k in p})
+        return (prepare, lambda: rand(("flag", dtype), (8, 2160, 3840), dtype),
+                {torch.uint8: 1.0, torch.bfloat16: 1e-2}.get(dtype, 1e-5))
+
+    def k2_cell(key, dtype, shape=(8, 1800, 3600)):
+        t = tabs[key]
+
+        def prepare():
+            p = cuda_apply_2d.kernel_plan(*t)
+            return (lambda x: cuda_apply_2d.apply_separable_kernel_2d(x, *t),
+                    lambda x: cuda_apply_2d.apply_separable_2d_plain(x, *t),
+                    {k: p[k] for k in keys if k in p})
+        # fields of 250-300: one bf16 ulp is 2
+        return (prepare, lambda: rand((shape, dtype), shape, dtype, 50.0,
+                                      250.0),
+                {torch.uint8: 1.0, torch.bfloat16: 2.0}.get(dtype, 1e-3))
+
+    cells = {f"k1_{n}": k1_cell(dt) for n, dt in
+             (("bf16", torch.bfloat16), ("f32", torch.float32),
+              ("u8", torch.uint8))}
+    cells.update({f"k2_{n}": k2_cell("c5", dt) for n, dt in
+                  (("f32", torch.float32), ("bf16", torch.bfloat16),
+                   ("u8", torch.uint8))})
+    cells["k2q_f32"] = k2_cell("q", torch.float32)
+    cells["k2_direct"] = k2_cell("wide", torch.float32, (8, 480, 480))
+
+    spec = at.make_grid_spec((2048, 2048), 1.0, 0.5, (1024.0, 1024.0), 30.0)
+    bf16 = torch.bfloat16
+    stage_in = {}                   # (dec, i) -> the stage's inputs
+
+    def s3_cell(dec, i):
+        plan = t_api._shear3_plan(spec, dec)
+
+        def inputs():
+            if (dec, i) not in stage_in:
+                xs = rand("s3", (8, 2048, 2048), bf16)
+                sp = shear3.stage_plan(plan)
+                for k in range(i):
+                    plain = getattr(shear3, f"{sp.stages[k].axis}stage_plain")
+                    xs = [plain(x, sp, k, out_dtype=bf16) for x in xs]
+                stage_in[(dec, i)] = xs
+            return stage_in[(dec, i)]
+
+        def prepare():
+            sp = shear3.stage_plan(plan)
+            st = sp.stages[i]
+            kern = getattr(cuda_shear3, f"{st.axis}stage_kernel")
+            plain = getattr(shear3, f"{st.axis}stage_plain")
+            return (lambda x: kern(x, sp, i, out_dtype=bf16),
+                    lambda x: plain(x, sp, i, out_dtype=bf16),
+                    {"axis": st.axis, "form": st.form, "TL": st.tiles.TL,
+                     "TU": st.tiles.TU,
+                     "direct": getattr(st.tiles, "direct", False)})
+        return prepare, inputs, 0.0
+
+    for dec in ("quality", "fast"):
+        for i in range(3):
+            cells[f"s3_{dec}_s{i}"] = s3_cell(dec, i)
+    return cells
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--repo", default=str(Path(__file__).resolve().parent))
+    ap.add_argument("--cells", default="k1,k2,s3")
+    ap.add_argument("--variants", default="cur")
+    ap.add_argument("--set", action="append", default=[])
+    args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.repo).resolve()))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from aainterp_torch import _build
+    from aainterp_torch.ops import cuda_apply, cuda_apply_2d, shear3
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(card, flush=True)
+    cells = make_cells(torch.device("cuda:0"))
+    wanted = [c for c in cells
+              if any(c.startswith(p) for p in args.cells.split(","))]
+    mods = {"cuda_apply": cuda_apply, "cuda_apply_2d": cuda_apply_2d,
+            "shear3": shear3}
+    caches = (cuda_apply._PLAN_CACHE, cuda_apply_2d._PLAN_CACHE,
+              shear3._STAGE_CACHE)
+    libs = (_build.SEPARABLE, _build.SEPARABLE_2D, _build.SHEAR3_STAGE)
+    defaults = {}      # (module, name) -> value before any setting
+    for variant in args.variants.split(","):
+        for lib in libs:
+            _build._LOADED.pop(lib.name, None)
+            cdll = build_variant(_build, lib, variant)
+            if cdll is not None:
+                _build._LOADED[lib.name] = cdll
+        for setting in args.set or [""]:
+            for (mod, name), value in defaults.items():
+                setattr(mods[mod], name, value)
+            for assign in filter(None, setting.split(";")):
+                lhs, value = assign.split("=", 1)
+                mod, name = lhs.strip().split(".")
+                defaults.setdefault((mod, name), getattr(mods[mod], name))
+                setattr(mods[mod], name, ast.literal_eval(value.strip()))
+            for c in caches:
+                c.clear()
+            ms, plans = {}, {}
+            for name in wanted:
+                prepare, inputs, tol = cells[name]
+                xs = inputs()
+                fn, plain, plans[name] = prepare()
+                if variant in EXACT:
+                    got, want = fn(xs[0]), plain(xs[0])
+                    err = (got.double() - want.double()).abs().max().item()
+                    if err > tol or (tol == 0 and not torch.equal(got, want)):
+                        raise RuntimeError(f"{variant} {name}: |kernel - "
+                                           f"plain| {err}")
+                ms[name] = round(min(cs.graph_ms(fn, xs, 20)
+                                     for _ in range(2)), 4)
+            print(json.dumps({"repo": args.repo, "variant": variant,
+                              "set": setting, "card": card, "ms": ms,
+                              "plans": plans}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,8 +6,11 @@
   against ``apply_separable_pallas(..., interpret=True)``: f32 atol 1e-5,
   bf16 out atol 1e-2 (one bf16 ulp on [0, 1]), uint8 within one gray level;
 * the kernel's host tile plan, run through a numpy emulation of the
-  kernel's y-pass/x-pass tiling, against the plain version (the CUDA
-  kernel itself runs in tests/test_torch_kernel_cuda.py on a GPU).
+  staged form (strips, runs of row tiles, raw windows copied in aligned
+  16-byte chunks, clamped or zero-filled taps), against the plain version
+  (the CUDA kernel itself runs in tests/test_torch_kernel_cuda.py on a
+  GPU); the emulation also serves kernel 2's plans
+  (tests/test_torch_regrid_apply.py).
 """
 
 import numpy as np
@@ -22,7 +25,8 @@ from aainterp.ops.pallas_apply import apply_separable_pallas
 
 import aainterp_torch as at
 from aainterp_torch.ops import apply as t_apply
-from aainterp_torch.ops import cuda_apply
+from aainterp_torch import regrid as t_regrid
+from aainterp_torch.ops import cuda_apply, cuda_apply_2d, overlap1d
 from aainterp_torch.ops import weights as t_weights
 
 GEOMS = [
@@ -189,63 +193,203 @@ def test_kernel_wrapper_rejects_bad_input():
 
 
 # ----------------------------------------------------------------------
-# the kernel's tile plan, emulated in numpy
+# the staged form's plan (csrc/band_apply.cuh), emulated in numpy
 # ----------------------------------------------------------------------
 
 
-def _emulate_kernel(frames, ys, yw, xs, xw, plan):
-    """The kernel's arithmetic per (row tile, column tile), in float64."""
+def _seg_pitch(nbytes, stride):
+    p = nbytes + 32
+    return p + (stride - p) % 16
+
+
+def emulate_band_kernel(frames, ys, yw, xs, xw, plan, *, clamp, addr0=0):
+    """The staged form of csrc/band_apply.cuh, block by block, in float64.
+
+    ``frames`` is (F, H, W) of a 1-, 2- or 4-byte integer or float dtype
+    whose first byte sits at address ``addr0`` (mod 16).  Each block (frame,
+    strip of TX dst columns, row tile of TY dst rows) copies the tile's window
+    of source rows into a byte array the way the kernel's cp.async loop
+    does: the 16-byte aligned chunks of each row's image part, to shared
+    offset wbase + r * pitch + off with the pitch equal to the row stride
+    mod 16.  The y and x passes then read pixels back from those bytes at
+    the kernel's offsets, clamped (kernel 1) or zero-filled (kernel 2), and
+    the test fails if any read falls on a byte that no chunk wrote.
+    Returns the (F, Hd, Wd) output, NaN where nothing was written."""
     F, H, W = frames.shape
     Hd, ky = yw.shape
     Wd, kx = xw.shape
-    TY, TX, S, c0 = plan["TY"], plan["TX"], plan["S"], plan["col_base"]
+    es = frames.dtype.itemsize
+    TY, TX, SY, SX = (plan[k] for k in ("TY", "TX", "SY", "SX"))
+    nty, ntx = plan["nty"], plan["ntx"]
+    assert nty == -(-Hd // TY) and ntx == -(-Wd // TX)
+    # the global bytes, with 16 bytes either side: a chunk may overhang
+    # the rows it serves, never the 16-byte block that holds their bytes
+    pad = 16 + (addr0 % 16)
+    glob = np.concatenate([np.full(pad, 0xAB, np.uint8),
+                           frames.reshape(-1).view(np.uint8),
+                           np.full(32, 0xAB, np.uint8)])
+    stride = W * es
+    pitch = _seg_pitch(SX * es, stride)
+
+    def clip(lo, n, size):
+        if clamp:
+            return min(max(lo, 0), size - 1), min(max(lo + n - 1, 0), size - 1) + 1
+        return max(lo, 0), min(lo + n, size)
+
     out = np.full((F, Hd, Wd), np.nan)
-    for ty in range(plan["nty"]):
-        i = np.arange(ty * TY, min((ty + 1) * TY, Hd))
-        rows = np.clip(ys[i][:, None] + np.arange(ky), 0, H - 1)
-        for tx in range(plan["ntx"]):
-            j = np.arange(tx * TX, min((tx + 1) * TX, Wd))
-            cols = np.clip(c0[tx] + np.arange(S), 0, W - 1)
-            band = frames[:, rows][..., cols]                 # (F, r, ky, S)
-            T = np.einsum("rk,frkc->frc", yw[i], band)        # shared memory
-            off = xs[j][:, None] - c0[tx] + np.arange(kx)     # (c, kx)
-            assert off.min() >= 0 and off.max() < S
-            out[:, i[:, None], j[None, :]] = np.einsum(
-                "jk,frjk->frj", xw[j], T[:, :, off])
+    for f in range(F):
+        for strip in range(ntx):
+            j = np.arange(strip * TX, min((strip + 1) * TX, Wd))
+            cb = int(plan["col_base"][strip])
+            xa, xb = clip(cb, SX, W)
+            off_x = xs[j][:, None] - cb + np.arange(kx)          # T columns
+            assert off_x.min() >= 0 and off_x.max() < SX
+            for rt in range(nty):
+                i = np.arange(rt * TY, min((rt + 1) * TY, Hd))
+                rb = int(plan["row_base"][rt])
+                ya, yb = clip(rb, SY, H)
+                rel = ys[i][:, None] - rb + np.arange(ky)
+                assert rel.min() >= 0 and rel.max() < SY
+                smem = np.zeros(16 + 32 + SY * pitch, np.uint8)
+                written = np.zeros(smem.shape, bool)
+                nb = (xb - xa) * es
+                a0 = addr0 + ((f * H + ya) * W + xa) * es
+                wbase = 16 + a0 % 16
+                for r in range(max(yb - ya, 0) if nb > 0 else 0):
+                    a = a0 + r * stride
+                    for c in range((nb + 30) // 16):
+                        off = c * 16 - a % 16
+                        if off >= nb:
+                            continue
+                        dst = wbase + r * pitch + off
+                        assert dst % 16 == 0 and (a + off) % 16 == 0
+                        g = a + off - addr0 + pad
+                        smem[dst:dst + 16] = glob[g:g + 16]
+                        written[dst:dst + 16] = True
+
+                def pix(y, x):
+                    """the kernel's read of source pixel (y, x)"""
+                    if clamp:
+                        y = min(max(y, 0), H - 1)
+                        x = min(max(x, 0), W - 1)
+                    elif not (ya <= y < yb and xa <= x < xb):
+                        return 0.0
+                    o = wbase + (y - ya) * pitch + (x - xa) * es
+                    assert written[o:o + es].all(), (y, x)
+                    return float(smem[o:o + es].view(frames.dtype)[0])
+
+                T = np.array([[sum(yw[ii, a] * pix(ys[ii] + a, cb + c)
+                                   for a in range(ky))
+                               for c in range(SX)] for ii in i])
+                out[f, i[:, None], j[None, :]] = np.einsum(
+                    "jk,rjk->rj", xw[j], T[:, off_x])
     return out
 
 
-@pytest.mark.parametrize("H,W,sr,dr,angle,iso,budget", [
-    (64, 96, 2.0, 1.0, 0.0, (0.0, 0.0), cuda_apply.SMEM_BUDGET),
-    (64, 96, 2.0, 1.0, 180.0, (0.0, 0.0), cuda_apply.SMEM_BUDGET),  # flipped
-    (48, 80, 150.0, 60.0, 90.0, (0.0, 0.0), cuda_apply.SMEM_BUDGET),
-    (24, 24, 2.0, 1.0, 0.0, (4.0, 4.0), cuda_apply.SMEM_BUDGET),    # wide band
-    (40, 56, 1.0, 2.5, 270.0, (0.0, 0.0), cuda_apply.SMEM_BUDGET),  # upscale
-    (60, 500, 40.0, 1.0, 0.0, (0.0, 0.0), 400),   # 42-tap band: TX halves to 1
-    (60, 500, 40.0, 1.0, 0.0, (0.0, 0.0), 200),   # and TY halves to 1
+@pytest.mark.parametrize("H,W,sr,dr,angle,iso,target", [
+    (64, 96, 2.0, 1.0, 0.0, (0.0, 0.0), cuda_apply.SMEM_TARGET),
+    (64, 96, 2.0, 1.0, 180.0, (0.0, 0.0), cuda_apply.SMEM_TARGET),  # flipped
+    (48, 80, 150.0, 60.0, 90.0, (0.0, 0.0), cuda_apply.SMEM_TARGET),
+    (24, 24, 2.0, 1.0, 0.0, (4.0, 4.0), cuda_apply.SMEM_TARGET),    # wide band
+    (40, 56, 1.0, 2.5, 270.0, (0.0, 0.0), cuda_apply.SMEM_TARGET),  # upscale
+    (60, 500, 40.0, 1.0, 0.0, (0.0, 0.0), 24000),  # 42-tap band: TX halves
+    (60, 500, 40.0, 1.0, 0.0, (0.0, 0.0), 1),      # and TY: 1-pixel tiles
 ])
-def test_tile_plan_emulation_matches_plain(H, W, sr, dr, angle, iso, budget):
+def test_tile_plan_emulation_matches_plain(H, W, sr, dr, angle, iso, target):
     rng = np.random.default_rng(7)
     ys, yw, xs, xw = _tables(H, W, sr, dr, angle, iso)
-    frames = rng.uniform(0, 1, (2, H, W))   # folded tables read the original
+    frames = rng.uniform(0, 1, (2, H, W)).astype(np.float32)
     plan = cuda_apply.plan_separable(ys, xs, yw.shape[1], xw.shape[1],
-                                     smem_budget=budget)
-    assert plan["TY"] * plan["S"] * 4 <= budget
-    got = _emulate_kernel(frames, ys, yw.astype(np.float64), xs,
-                          xw.astype(np.float64), plan)
+                                     smem_target=target)
+    assert plan["smem"] <= max(target, cuda_apply.SMEM_LIMIT)
+    assert plan["smem"] == cuda_apply.band_smem(
+        plan["TY"], plan["TX"], plan["SY"], plan["SX"], yw.shape[1])
+    if target == 1:
+        assert (plan["TY"], plan["TX"]) == (1, 1)
+    got = emulate_band_kernel(frames, ys, yw.astype(np.float64), xs,
+                              xw.astype(np.float64), plan, clamp=True,
+                              addr0=4 * (H % 4))
+    want = cuda_apply.apply_separable_plain(torch.from_numpy(frames), ys, yw,
+                                            xs, xw)
+    np.testing.assert_allclose(got, want.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,W,addr0", [
+    (np.uint8, 37, 3), (np.uint16, 45, 6), (np.uint16, 40, 0),
+    (np.float32, 33, 12)])
+def test_tile_plan_emulation_unaligned_rows(dtype, W, addr0):
+    # rows whose byte stride is not a multiple of 16 and frames that start
+    # off a 16-byte boundary: the chunks still land where the passes read
+    rng = np.random.default_rng(8)
+    ys, yw, xs, xw = _tables(30, W, 3.0, 2.0, 90.0, (1.0, 2.0))
+    frames = rng.integers(0, 200, (2, 30, W)).astype(dtype)
+    plan = cuda_apply.plan_separable(ys, xs, yw.shape[1], xw.shape[1],
+                                     smem_target=6000)
+    got = emulate_band_kernel(frames, ys, yw.astype(np.float64), xs,
+                              xw.astype(np.float64), plan, clamp=True,
+                              addr0=addr0)
     want = cuda_apply.apply_separable_plain(
         torch.from_numpy(frames.astype(np.float32)), ys, yw, xs, xw)
-    np.testing.assert_allclose(got, want.numpy(), atol=1e-5)
+    np.testing.assert_allclose(got, want.numpy(), atol=1e-3)
+
+
+KERNEL_2D_PLANS = {
+    # (kind, src, dst, shared-memory target): a 10x regrid (config 5's
+    # ratio), an upsampling regrid, a band wider than its source, an odd
+    # resize and its flipped bands; small targets force several strips and
+    # runs
+    "regrid_10x": ("regrid", (90, 180), (9, 18), 14000),
+    "regrid_up": ("regrid", (18, 36), (40, 50), 9000),
+    "n_src_lt_band": ("regrid", (3, 3), (1, 1), cuda_apply_2d.SMEM_TARGET),
+    "resize_odd": ("resize", (60, 150), (27, 52), 7000),
+    "flipped": ("flipped", (60, 150), (27, 52), 7000),
+}
+
+
+@pytest.mark.parametrize("name", sorted(KERNEL_2D_PLANS))
+@pytest.mark.parametrize("dtype,addr0", [(np.float32, 0), (np.uint16, 6),
+                                         (np.uint8, 9)])
+def test_kernel_2d_plan_emulation_matches_plain(name, dtype, addr0):
+    # kernel 2's plans through the same staged form, taps outside the image
+    # zero-filled: every tap of every output lies in its block's window
+    kind, src, dst, target = KERNEL_2D_PLANS[name]
+    if kind == "regrid":
+        by, bx = t_regrid.conservative_regrid_operator(
+            t_regrid.LatLonGrid(*src), t_regrid.LatLonGrid(*dst))
+    else:
+        by, bx = at.resize_bands(src, dst)
+        if kind == "flipped":
+            by, bx = overlap1d.flip_band(by), overlap1d.flip_band(bx)
+    ys, yw, xs, xw = (by.start, by.weights.astype(np.float32), bx.start,
+                      bx.weights.astype(np.float32))
+    plan = cuda_apply_2d.plan_separable_2d(ys, xs, yw.shape[1], xw.shape[1],
+                                           smem_target=target)
+    assert not plan["direct"]
+    frames = np.random.default_rng(9).integers(0, 250, (2,) + src).astype(
+        dtype)
+    got = emulate_band_kernel(frames, ys, yw.astype(np.float64), xs,
+                              xw.astype(np.float64), plan, clamp=False,
+                              addr0=addr0)
+    want = cuda_apply_2d.apply_separable_2d_plain(
+        torch.from_numpy(frames.astype(np.float32)), ys, yw, xs, xw)
+    np.testing.assert_allclose(got, want.numpy(), rtol=1e-6, atol=1e-3)
 
 
 def test_tile_plan_shapes():
     ys, yw, xs, xw = _tables(2160, 3840, 2.0, 1.0)
     plan = cuda_apply.plan_separable(ys, xs, yw.shape[1], xw.shape[1])
-    # flagship: full 16 x 128 tiles, span 2 * 127 + 4 source columns
-    assert (plan["TY"], plan["TX"], plan["S"]) == (16, 128, 258)
-    assert (plan["nty"], plan["ntx"]) == (68, 15)
-    with pytest.raises(ValueError, match="shared"):
-        cuda_apply.plan_separable(ys, xs, yw.shape[1], 30000)
+    # flagship: strips of 240 dst columns (482 source columns), row tiles
+    # of 8 dst rows (18 source rows), one row tile per block
+    assert (plan["TY"], plan["TX"], plan["SY"], plan["SX"]) == \
+        (8, 240, 18, 482)
+    assert (plan["nty"], plan["ntx"]) == (135, 8)
+    assert plan["smem"] <= cuda_apply.SMEM_TARGET
+    # a band whose one-pixel window exceeds the card's shared memory: kernel
+    # 1's planner does not take it, and the wrapper sends it to kernel 2
+    assert cuda_apply.plan_separable(ys, xs, yw.shape[1], 30000) is None
+    wide = np.full((xs.shape[0], 30000), 1 / 30000, np.float32)
+    assert cuda_apply._plan_for(ys, yw, xs, wide)["kernel_2d"]
+    assert not cuda_apply._plan_for(ys, yw, xs, xw)["kernel_2d"]
 
 
 def test_plan_cache_uploads_tables_once():

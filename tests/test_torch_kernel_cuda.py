@@ -17,8 +17,9 @@ bf16 ulp of the plain f32 result.  Shear mode: each stage kernel against
 its plain stage f32 atol 1e-6 and bf16 within one bf16 ulp (same sums in
 the same order), and bit for bit into NaN-filled outputs on ragged tiles,
 single lines, unaligned row pitches, u8 and mixed dtypes, empty tile rows
-and the adjoint plans; the route within one bf16 ulp (u8: one gray level) of
-the bf16-staged plain pipeline and within 2e-2 of the f32-staged one
+and the adjoint plans, and in the direct form (stages beyond shared memory)
+for every (axis, form) and whole pipelines; the route within one bf16 ulp
+(u8: one gray level) of the bf16-staged plain pipeline and within 2e-2 of the f32-staged one
 (test_shear3.py:256-259); gradients atol 1e-5.  2-D banded-tile kernel:
 f32 atol 1e-5 on [0, 1] inputs, bf16 within one bf16 ulp, uint8 within
 one gray level; 'default' and 'bf16x3' rtol 1e-6 (the same bf16 operands
@@ -677,3 +678,133 @@ def test_front_doors_on_the_kernel(cuda):
     # numpy input goes to the GPU by default
     out = at.area_resize(np.ones((2, 30, 40), np.float32), (7, 9))
     assert out.is_cuda
+
+
+# ---------------------------------------------------------------------------
+# the redesigned separable kernels (csrc/band_apply.cuh): raw windows at any
+# row alignment, ragged strips and row tiles, every element written, and
+# kernel 1's route to kernel 2 for bands beyond shared memory
+# ---------------------------------------------------------------------------
+
+# (H, W, sr, dr, angle): rows of 1399 bf16 (2798 bytes) and 1001 u8 cells are
+# not multiples of 16 bytes; dst widths and heights leave ragged last strips
+# and row tiles
+STAGED_GEOMS = [
+    (121, 1399, 2.0, 1.0, 0.0),
+    (121, 1399, 2.0, 1.0, 90.0),
+    (300, 1001, 3.0, 2.0, 180.0),
+    (97, 1001, 150.0, 60.0, 270.0),
+    (2, 3, 1.0, 2.5, 0.0),          # one row tile, one strip, upscale
+]
+
+
+@pytest.mark.parametrize("g", STAGED_GEOMS, ids=lambda g: f"{g[0]}x{g[1]}"
+                         f"@{g[4]:g}")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.uint8])
+def test_staged_kernels_unaligned_rows_into_nan_outputs(cuda, g, dtype):
+    H, W, sr, dr, angle = g
+    _, tabs = _tables(H, W, sr, dr, angle)
+    x = _frames((3, H, W), dtype, cuda, seed=2)
+    Hd, Wd = tabs[1].shape[0], tabs[3].shape[0]
+    plan = cuda_apply._plan_for(*tabs)
+    assert not plan["kernel_2d"]
+    if Hd > 16:
+        assert Hd % plan["TY"] or Wd % plan["TX"]
+    out = _nan_out((3, Hd, Wd), dtype, cuda)
+    n1, n2 = cuda_apply.LAUNCHES, cuda_apply_2d.LAUNCHES
+    got = cuda_apply.apply_separable_kernel(x, *tabs, out=out)
+    torch.cuda.synchronize()
+    assert got is out and cuda_apply.LAUNCHES == n1 + 1
+    assert cuda_apply_2d.LAUNCHES == n2
+    want = cuda_apply.apply_separable_plain(x, *tabs)
+    err = (got.double() - want.double()).abs().max().item()
+    assert err <= {torch.float32: 1e-5, torch.bfloat16: 1e-2,
+                   torch.uint8: 1.0}[dtype], err
+    if dtype == torch.uint8:
+        assert (got != 77).any()
+    # kernel 2 on the same tables: 'default' and 'bf16x3' bit-equal to plain
+    for precision in ("default", "bf16x3"):
+        out2 = _nan_out((3, Hd, Wd), dtype, cuda)
+        got2 = cuda_apply_2d.apply_separable_kernel_2d(
+            x, *tabs, precision=precision, out=out2)
+        torch.cuda.synchronize()
+        want2 = cuda_apply_2d.apply_separable_2d_plain(x, *tabs,
+                                                       precision=precision)
+        assert torch.equal(got2, want2), (precision, (
+            got2.double() - want2.double()).abs().max().item())
+    assert cuda_apply_2d.LAUNCHES == n2 + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.uint8])
+def test_kernel_1_band_beyond_shared_memory_takes_kernel_2(cuda, dtype):
+    # one dst column reads 30,000 source columns (above the 24,576 kernel 1
+    # took before): the route is kernel 2, chosen on the host, 1 launch
+    ys = np.arange(0, 8, 2, dtype=np.int32)
+    yw = np.full((4, 2), 0.5, np.float32)
+    xs = np.zeros(1, np.int32)
+    xw = np.full((1, 30000), 1 / 30000, np.float32)
+    assert cuda_apply._plan_for(ys, yw, xs, xw)["kernel_2d"]
+    x = _frames((2, 8, 30000), dtype, cuda, seed=3)
+    n1, n2 = cuda_apply.LAUNCHES, cuda_apply_2d.LAUNCHES
+    got = cuda_apply.apply_separable_kernel(x, ys, yw, xs, xw)
+    torch.cuda.synchronize()
+    assert (cuda_apply.LAUNCHES, cuda_apply_2d.LAUNCHES) == (n1, n2 + 1)
+    assert got.dtype == dtype and tuple(got.shape) == (2, 4, 1)
+    want = cuda_apply.apply_separable_plain(x, ys, yw, xs, xw)
+    # a 30,000-term f32 sum in another order: 1e-4 on means of [0, 1]
+    atol = 1.0 if dtype == torch.uint8 else 1e-4
+    assert (got.double() - want.double()).abs().max().item() <= atol
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_shear3_stage_beyond_shared_memory_direct_form_bit_equal(cuda,
+                                                                 out_dtype):
+    # 8192^2 at 30 deg, 1.0 -> 1/3000, 'fast': stage 0's smallest tile needs
+    # 290,208 bytes of shared memory; its direct form equals the plain stage
+    spec = at.make_grid_spec((8192, 8192), 1.0, 1 / 3000, (4096.0, 4096.0),
+                             30.0)
+    sp = shear3.stage_plan(t_api._shear3_plan(spec, "fast"))
+    assert sp.stages[0].tiles.direct
+    in_dtype = torch.float32 if out_dtype == torch.float32 else torch.bfloat16
+    x = _frames((1, 8192, 8192), in_dtype, cuda, seed=4)
+    _stage_bit_equal(sp, 0, x, out_dtype)
+
+
+@pytest.mark.parametrize("axis,form", [(a, k) for a in "yx" for k in _FORMS])
+def test_shear3_direct_form_every_stage_form_bit_equal(cuda, monkeypatch, axis,
+                                                       form):
+    # with no shared memory to spare every stage takes the direct form: each
+    # (axis, form), with the reciprocal coverage of the plan's last stage
+    # (indexed (out row, line) along y and (line, out cell) along x)
+    monkeypatch.setattr(shear3, "SMEM_LIMIT", 0)
+    sp = _synthetic_stage(axis, _FORMS[form], 157, 203)
+    assert sp.stages[0].tiles.direct and sp.inv_cov is not None
+    for in_dtype, out_dtype in ((torch.float32, torch.float32),
+                                (torch.bfloat16, torch.bfloat16),
+                                (torch.bfloat16, torch.float32)):
+        x = _frames((2,) + sp.stages[0].in_shape, in_dtype, cuda, seed=7)
+        _stage_bit_equal(sp, 0, x, out_dtype)
+
+
+@pytest.mark.parametrize("dec", ["xyx", "yxy"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_shear3_direct_form_pipelines_bit_equal(cuda, monkeypatch, dec, dtype):
+    # every stage of a decomposition and of its adjoint in the direct form:
+    # stage by stage and through the whole pipeline, equal to the plain one
+    monkeypatch.setattr(shear3, "SMEM_LIMIT", 0)
+    monkeypatch.setattr(shear3, "_STAGE_CACHE", type(shear3._STAGE_CACHE)(
+        16, max_bytes=1 << 30))
+    plan = shear3.build_shear3_plan(at.make_grid_spec(*SHEAR3_GEOMS[0]), dec)
+    for p in (plan, shear3.transpose_shear3_plan(plan)):
+        sp = shear3.stage_plan(p)
+        assert all(st.tiles.direct for st in sp.stages)
+        x0 = _frames((2,) + sp.src_shape, dtype, cuda, seed=8)
+        x = x0
+        for i in range(len(sp.stages)):
+            x = _stage_bit_equal(sp, i, x, dtype)
+        before = dict(cuda_shear3.LAUNCHES)
+        got = cuda_shear3.apply_shear3_kernel(x0, p, mid_dtype=dtype)
+        torch.cuda.synchronize()
+        assert sum(cuda_shear3.LAUNCHES[k] - before[k] for k in before) == 3
+        assert torch.equal(got, shear3.apply_shear3_plain(x0, p,
+                                                          mid_dtype=dtype))

@@ -13,7 +13,7 @@ from aainterp.ops import apply as j_apply
 from aainterp_torch import api as t_api
 from aainterp_torch import regrid as t_regrid
 from aainterp_torch.ops import apply as t_apply
-from aainterp_torch.ops import cuda_apply_2d, overlap1d
+from aainterp_torch.ops import cuda_apply, cuda_apply_2d, overlap1d
 
 
 def _bands_equal(a, b):
@@ -92,8 +92,8 @@ def _plan_holds_every_tap(plan, ys, xs, ky, kx):
         tile_of = np.arange(starts.shape[0]) // tile
         off = starts.astype(np.int64) - base[tile_of]
         assert (off >= 0).all() and (off + k <= span).all()
-    assert plan["smem"] == (plan["SY"] * plan["SX"]
-                            + plan["TY"] * plan["SX"]) * 4
+    assert plan["smem"] == cuda_apply.band_smem(
+        plan["TY"], plan["TX"], plan["SY"], plan["SX"], ky)
     assert plan["nty"] == -(-ys.shape[0] // plan["TY"])
     assert plan["ntx"] == -(-xs.shape[0] // plan["TX"])
 
@@ -128,8 +128,8 @@ def test_plan_2d_handles_non_monotone_and_negative_starts():
 def test_plan_2d_budget_and_rejection():
     # one dst pixel's block above the target but within the 227 KB limit:
     # accepted at 1 x 1 tiles
-    ys, xs = np.zeros(3, np.int32), np.zeros(2, np.int32)
-    plan = cuda_apply_2d.plan_separable_2d(ys, xs, 150, 150)
+    ys, xs = np.zeros(40, np.int32), np.zeros(2, np.int32)
+    plan = cuda_apply_2d.plan_separable_2d(ys, xs, 200, 200)
     assert (plan["TY"], plan["TX"], plan["direct"]) == (1, 1, False)
     assert cuda_apply_2d.SMEM_TARGET < plan["smem"] <= cuda_apply_2d.SMEM_LIMIT
     # beyond the limit: not rejected, but the direct form (no shared memory)

@@ -217,3 +217,28 @@ def test_api_differentiable_matches_jax_grad():
                                         differentiable=True).dst ** 2).sum()
     (g,) = torch.autograd.grad(loss, x)
     np.testing.assert_allclose(g.numpy(), g_ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dec", ["quality", "fast"])
+def test_weight_dtype_float64_matches_jax_x64(dec):
+    # JAX's XLA route with x64 on keeps the plan's band weights and inv_cov
+    # in float64 (aainterp/ops/shear3.py:458-472) but casts them to the f32
+    # pipeline's dtype where it uses them (:454, :507): the result is f32,
+    # and the port's plain route, which computes in f32 whatever
+    # weight_dtype says, gives the same bits
+    H, W, sr, dr, ang = 72, 56, 1.0, 0.6, 37.0
+    iso = (W / 2, H / 2)
+    src = _frames((2, H, W), 6)
+    with jax.enable_x64(True):
+        ref = aa.area_average_interpolate(
+            jnp.asarray(src), sr, dr, iso, ang, mode="shear", method="xla",
+            weight_dtype=jnp.float64, shear_decomposition=dec).dst
+        ref = np.asarray(ref)
+    assert ref.dtype == np.float32
+    for method in ("auto", "plain"):
+        got = at.area_average_interpolate(
+            torch.from_numpy(src), sr, dr, iso, ang, mode="shear",
+            method=method, weight_dtype=torch.float64,
+            shear_decomposition=dec).dst
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), ref)

@@ -178,3 +178,25 @@ def test_tile_windows_property(h, w, angle, src, dst):
         for i, st in enumerate(sp.stages):
             empty = _check_windows(st)
             _check_empty_tiles_are_zero(sp, i, empty)
+
+
+def test_stage_beyond_the_opt_in_takes_the_direct_form():
+    # 8192^2 at 30 deg, 1.0 -> 1/3000 (dst 4x4), 'fast': stage 0, a y
+    # pre-band of some 3000 taps, needs 290,208 bytes of shared memory on
+    # its smallest tile (4 lines x 1 output), above the card's 232,448
+    spec = at.make_grid_spec((8192, 8192), 1.0, 1 / 3000, (4096.0, 4096.0),
+                             30.0)
+    assert spec.dst_shape == (4, 4)
+    sp = shear3.stage_plan(shear3.build_shear3_plan(spec, "fast"))
+    st = sp.stages[0]
+    t = st.tiles
+    assert (st.axis, st.form, t.TL, t.TU) == ("y", shear3.PRE_BAND, 4, 1)
+    smem = shear3.stage_smem(st, t.TL, t.max_win, t.max_mid, 4)
+    assert smem == 290208 and smem > shear3.SMEM_LIMIT == 232448
+    assert t.direct
+    # the other stages fit and keep their staged tiles
+    for st in sp.stages[1:]:
+        t = st.tiles
+        assert not t.direct
+        assert shear3.stage_smem(st, t.TL, t.max_win, t.max_mid, 4) <= \
+            shear3.SMEM_LIMIT
