@@ -8,13 +8,16 @@ PyTorch headers), so each builds in seconds:
   banded-tile apply of the band-operator family) through nvcc; both
   separable kernels include the shared device code of
   ``csrc/band_apply.cuh``;
-* ``ell_shear`` — ``csrc/ell_shear.cu`` (the rotated apply's three
-  kernels) through nvcc;
+* ``ell_shear`` — ``csrc/ell_shear.cu`` (the rotated apply's shear
+  kernel, in three forms, and its contraction) through nvcc;
 * ``shear3_stage`` — ``csrc/shear3_stage.cu`` (the two stage kernels of
   ``mode='shear'``) through nvcc;
 * ``aainterp_native`` — the repository's host weight-gen engine,
   ``native/aainterp_native.cpp``, through g++ with the flags of
   ``native/Makefile``.
+
+The four CUDA sources include ``csrc/stage_common.cuh``, the staging
+helpers of their staged kernels.
 
 Each shared library lands in ``aainterp_torch/_build/`` under a name that
 carries a hash of its source, the headers it includes, its compiler and
@@ -67,7 +70,8 @@ class Library:
     headers: Tuple[Path, ...] = ()     # files the source includes
 
 
-_BAND_HEADER = _PKG / "csrc" / "band_apply.cuh"
+_STAGE_HEADER = _PKG / "csrc" / "stage_common.cuh"
+_BAND_HEADERS = (_PKG / "csrc" / "band_apply.cuh", _STAGE_HEADER)
 
 SEPARABLE = Library(
     "separable_apply", _PKG / "csrc" / "separable_apply.cu", "nvcc",
@@ -77,7 +81,7 @@ SEPARABLE = Library(
     #     out_code, stream)
     (("aainterp_separable_apply", (_P,) * 8 + (_I,) * 13 + (_P,),
       ctypes.c_int),),
-    headers=(_BAND_HEADER,))
+    headers=_BAND_HEADERS)
 
 SEPARABLE_2D = Library(
     "separable_apply_2d", _PKG / "csrc" / "separable_apply_2d.cu", "nvcc",
@@ -87,19 +91,25 @@ SEPARABLE_2D = Library(
     #     in_code, out_code, stream)
     (("aainterp_separable_apply_2d", (_P,) * 8 + (_I,) * 14 + (_P,),
       ctypes.c_int),),
-    headers=(_BAND_HEADER,))
+    headers=_BAND_HEADERS)
 
 ELL_SHEAR = Library(
     "ell_shear", _PKG / "csrc" / "ell_shear.cu", "nvcc", NVCC_FLAGS,
     (
-        # aainterp_vshear(q, S, gy, F, qH, qW, TH, elem_bytes, stream)
-        ("aainterp_vshear", (_P,) * 3 + (_I,) * 5 + (_P,), ctypes.c_int),
-        # aainterp_hshear(S, T, hx, F, TH, qW, TW, elem_bytes, stream)
-        ("aainterp_hshear", (_P,) * 3 + (_I,) * 5 + (_P,), ctypes.c_int),
+        # aainterp_vshear(q, S, gy, win, F, qH, qW, TH, TY, TX, win_rows,
+        #     win_cols, elem_bytes, stream)
+        ("aainterp_vshear", (_P,) * 4 + (_I,) * 9 + (_P,), ctypes.c_int),
+        # aainterp_hshear(S, T, hx, win, F, TH, qW, TW, TY, TX, win_rows,
+        #     win_cols, elem_bytes, stream)
+        ("aainterp_hshear", (_P,) * 4 + (_I,) * 9 + (_P,), ctypes.c_int),
+        # aainterp_vhshear(q, T, gy, hx, win, F, qH, qW, TH, TW, TY, TX,
+        #     win_rows, win_cols, elem_bytes, stream)
+        ("aainterp_vhshear", (_P,) * 5 + (_I,) * 10 + (_P,), ctypes.c_int),
         # aainterp_contract(T, out, ry0, cx0, w2, F, TH, TW, Hd, Wd, Ka,
         #     Kb, dtype_code, stream)
         ("aainterp_contract", (_P,) * 5 + (_I,) * 8 + (_P,), ctypes.c_int),
-    ))
+    ),
+    headers=(_STAGE_HEADER,))
 
 SHEAR3_STAGE = Library(
     "shear3_stage", _PKG / "csrc" / "shear3_stage.cu", "nvcc", NVCC_FLAGS,
@@ -107,7 +117,8 @@ SHEAR3_STAGE = Library(
     #     n_lines, n_in, n_mid, n_t, crop, n_out, K, form, TL, TU, max_win,
     #     max_mid, in_code, out_code, stream)
     tuple((f"aainterp_shear3_{axis}stage", (_P,) * 8 + (_I,) * 15 + (_P,),
-           ctypes.c_int) for axis in ("y", "x")))
+           ctypes.c_int) for axis in ("y", "x")),
+    headers=(_STAGE_HEADER,))
 
 NATIVE = Library(
     "aainterp_native", _PKG.parent / "native" / "aainterp_native.cpp", "g++",

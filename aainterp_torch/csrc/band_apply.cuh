@@ -74,6 +74,8 @@
 #include <atomic>
 #include <climits>
 
+#include "stage_common.cuh"
+
 // internal linkage: each library that includes this header keeps its own
 // kernels and its own once-per-device opt-in flags
 namespace {
@@ -83,8 +85,11 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kLaneCols = 4;                   // y pass: columns per lane
 constexpr int kRegTaps = 16;                   // x pass: taps kept in registers
-constexpr size_t kDefaultSmem = 48 * 1024;
-constexpr int kMaxDevices = 64;
+
+using stage::cp_async16;
+using stage::seg_pitch;
+using stage::up16;
+using Walk = stage::Walk<kThreads>;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -130,39 +135,6 @@ struct Acc {
   }
   __device__ __forceinline__ float sum() const { return MODE == 2 ? (s1 + s2) + s3 : s1; }
 };
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-// (r, c) of a row-major index over rows of width w, advanced by kThreads at
-// a time without a division per step
-struct Walk {
-  int r, c, dr, dc, w;
-  __device__ Walk(int e, int w_) : w(w_) {
-    r = e / w;
-    c = e - r * w;
-    dr = kThreads / w;
-    dc = kThreads - dr * w;
-  }
-  __device__ __forceinline__ void next() {
-    r += dr;
-    c += dc;
-    if (c >= w) {
-      c -= w;
-      ++r;
-    }
-  }
-};
-
-// the least p >= bytes + 32 with p = stride (mod 16)
-__host__ __device__ inline long long seg_pitch(long long bytes, long long stride) {
-  const long long p = bytes + 32;
-  return p + (((stride - p) % 16) + 16) % 16;
-}
-
-__host__ __device__ inline long long up16(long long n) { return (n + 15) / 16 * 16; }
 
 struct Dims {
   int H, W, Hd, Wd, ky, kx;
@@ -441,23 +413,8 @@ int launch_staged(const void* src, void* out, const void* ys, const void* wy, co
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
   const Geo g = make_geo(d, sizeof(Tin), sizeof(Tout));
   auto kern = band_apply_kernel<Tin, Tout, MODE, kClamp>;
-  if (static_cast<size_t>(g.smem) > kDefaultSmem) {
-    static std::atomic<int> opted_in[kMaxDevices];  // the limit, 0 until set
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-    int limit = opted_in[dev].load();
-    if (limit == 0) {
-      e = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-      if (e == cudaSuccess) {
-        e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
-      }
-      if (e != cudaSuccess) return static_cast<int>(e);
-      opted_in[dev].store(limit);
-    }
-    if (g.smem > limit) return static_cast<int>(cudaErrorInvalidValue);
-  }
+  static std::atomic<int> opted_in[stage::kMaxDevices];  // kern's limit per device
+  if (const int e = stage::opt_in(reinterpret_cast<const void*>(kern), g.smem, opted_in)) return e;
   kern<<<static_cast<unsigned>(blocks), kThreads, static_cast<size_t>(g.smem), stream>>>(
       static_cast<const Tin*>(src), static_cast<Tout*>(out), static_cast<const int*>(ys),
       static_cast<const float*>(wy), static_cast<const int*>(xs), static_cast<const float*>(wx),

@@ -100,6 +100,8 @@
 #include <atomic>
 #include <climits>
 
+#include "stage_common.cuh"
+
 // the block's dynamic shared memory: the staged window, the mid cells
 // (form 1), then the output transpose
 extern __shared__ __align__(16) unsigned char smem[];
@@ -108,8 +110,10 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kVec = 4;  // lines a thread computes at once; outputs per store
-constexpr size_t kDefaultSmem = 48 * 1024;
-constexpr int kMaxDevices = 64;
+
+using stage::cp_async16;
+using stage::seg_pitch;
+using Walk = stage::Walk<kThreads>;
 
 enum Form { kTranslate = 0, kPreBand = 1, kPostBand = 2 };
 
@@ -198,25 +202,6 @@ __device__ __forceinline__ void scale4(const float* __restrict__ p, int n, float
 __device__ __forceinline__ float madd(float acc, float a, float b) {
   return __fadd_rn(acc, __fmul_rn(a, b));
 }
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-// (r, c) of a row-major index over rows of width w, advanced by kThreads at
-// a time without a division per step
-struct Walk {
-  int r, c, dr, dc, w;
-  __device__ Walk(int e, int w_) : w(w_) {
-    r = e / w; c = e - r * w;
-    dr = kThreads / w; dc = kThreads - dr * w;
-  }
-  __device__ __forceinline__ void next() {
-    r += dr; c += dc;
-    if (c >= w) { c -= w; ++r; }
-  }
-};
 
 // One line of the staged window: cell j along the pass axis, 0 outside
 // [lo, lo + n) (which holds every tap inside the input).  get<false>
@@ -603,12 +588,6 @@ __global__ void __launch_bounds__(kThreads) stage_direct_kernel(
   store4(out + e, 1, &r);
 }
 
-// the least p >= bytes + 32 with p = stride (mod 16): shear3.seg_pitch
-long long seg_pitch(long long bytes, long long stride) {
-  const long long p = bytes + 32;
-  return p + (((stride - p) % 16) + 16) % 16;
-}
-
 template <bool kY, int kForm, typename In, typename Out>
 int launch(const void* x, void* out, const StageTables& t, const StageDims& s, int F,
            cudaStream_t st) {
@@ -637,24 +616,8 @@ int launch(const void* x, void* out, const StageTables& t, const StageDims& s, i
   g.mid_off = static_cast<int>(head);
   g.xch_off = static_cast<int>(xch);
   auto kern = stage_kernel<kY, kForm, In, Out>;
-  if (smem > static_cast<long long>(kDefaultSmem)) {
-    // the device's opt-in limit, queried and set once per device
-    static std::atomic<int> opted_in[kMaxDevices];  // the limit, 0 until set
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-    int limit = opted_in[dev].load();
-    if (limit == 0) {
-      e = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-      if (e == cudaSuccess) {
-        e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
-      }
-      if (e != cudaSuccess) return static_cast<int>(e);
-      opted_in[dev].store(limit);
-    }
-    if (smem > limit) return static_cast<int>(cudaErrorInvalidValue);
-  }
+  static std::atomic<int> opted_in[stage::kMaxDevices];  // kern's limit per device
+  if (const int e = stage::opt_in(reinterpret_cast<const void*>(kern), smem, opted_in)) return e;
   kern<<<static_cast<unsigned>(blocks), kThreads, static_cast<size_t>(smem), st>>>(
       static_cast<const In*>(x), static_cast<Out*>(out), t, s, g);
   return static_cast<int>(cudaGetLastError());

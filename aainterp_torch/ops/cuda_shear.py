@@ -7,27 +7,34 @@ contraction, with the exact ELL weights re-indexed by
 ``ops.shear_apply.build_shear_plan``.
 
 * ``ShearKernelPlan`` is the host plan in the layout the kernels take:
-  ``gy`` (qW,), ``hx`` (TH,), ``ry0`` (Hd,), ``cx0`` (Wd,) int32 and the
-  weights tap-major, ``w2`` (Ka*Kb, Hd, Wd) f32.  None of the TPU's
-  8/16/128 alignments, one-hot selectors or residual-roll bases remain:
-  a GPU thread reads any address.  Each plan uploads its tables to a
-  device once and keeps them.
+  ``gy`` (qW,), ``hx`` (TH,), ``ry0`` (Hd,), ``cx0`` (Wd,) int32, the
+  weights tap-major, ``w2`` (Ka*Kb, Hd, Wd) f32, and the shear kernel's
+  tile table of each form it launches (``ShearTiles``: each output tile's
+  source window, ``shear_tiles`` / ``plan_tiles``), planned at the form's
+  first launch, so a plan that only plain routes use builds none.  None
+  of the TPU's 8/16/128 alignments, one-hot selectors or residual-roll
+  bases remain: a GPU thread reads any address.  Each plan uploads its
+  tables to a device once and keeps them.
 * ``kernel_plan(op)`` builds it from an EllOperator, cached by table
   content (the counterpart of ``aainterp/api.py::_pallas_shear_plan``;
   in memory only).  Geometries that ``build_shear_plan`` rejects raise
   ValueError, and the rejection is cached too.
-* ``vshear_kernel``, ``hshear_kernel``, ``contract_kernel`` are the
-  wrappers, each counting its launches in ``LAUNCHES``.  A CUDA tensor
-  launches the kernel or raises — there is no fallback.  A CPU tensor
-  takes the plain version (``vshear_plain``, ``hshear_plain``,
+* The shear kernel has three forms: ``vshear_kernel`` (S from q),
+  ``hshear_kernel`` (T from S) and ``vhshear_kernel`` (T from q, both
+  shears at once); ``contract_kernel`` is the window contraction.  Each
+  wrapper counts its launches in ``LAUNCHES``.  A CUDA tensor launches the
+  kernel or raises — there is no fallback.  A CPU tensor takes the plain
+  version (``vshear_plain``, ``hshear_plain``, ``vhshear_plain``,
   ``contract_plain``, torch indexing).
-* ``apply_ell_shear_kernel`` / ``apply_ell_shear_plain`` compose them.
+* ``apply_ell_shear_kernel`` is the route on the card: the fused shear,
+  then the contraction (two launches; S never reaches device memory).
+  ``apply_ell_shear_plain`` composes the three plain stages.
 
 Dtype contract (pallas_shear.py:789-792): bf16 and f32 frames give that
 dtype out; any other real dtype is cast to f32 first and gives f32.
-Accumulation is f32 with f32 weights.  Both shears write every element of
-their output (zeros where the source index leaves the plane), so a
-zero-weight tap never meets an uninitialised value.
+Accumulation is f32 with f32 weights.  Every shear form writes every
+element of its output (zeros where the source index leaves the plane), so
+a zero-weight tap never meets an uninitialised value.
 """
 
 from __future__ import annotations
@@ -41,22 +48,147 @@ import torch
 from .. import _build
 from ..utils.digest import array_digest
 from ..utils.lru import LruDict
+from ..utils.device import SMEM_LIMIT
 from .shear_apply import build_shear_plan
 from .weights import EllOperator
 
 # Kernel launches so far, counted where each wrapper launches its kernel.
-LAUNCHES = {"vshear": 0, "hshear": 0, "contract": 0}
+LAUNCHES = {"vshear": 0, "hshear": 0, "vhshear": 0, "contract": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# the shear kernel's forms: which shift tables each reads (gy, hx)
+FORMS = {"vshear": (True, False), "hshear": (False, True),
+         "vhshear": (True, True)}
+# output tile shapes (TY rows x TX columns), the first whose largest window
+# fits SMEM_BUDGET at f32 is taken (bf16 stages in half); the last one's
+# windows fit the card's opt-in for every geometry build_shear_plan takes
+_TILES = ((64, 64), (32, 64), (32, 32), (16, 32), (8, 32), (4, 16), (1, 16))
+SMEM_BUDGET = 48 * 1024
 
 # bounded: each plan holds its f32 weight table (196 MB at 2048^2/30 deg)
 # on the host and once more per device
 _PLAN_CACHE = LruDict(4, max_bytes=4 << 30)
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShearTiles:
+    """One shear form's tiles: TY x TX output cells each, row-major over
+    the output plane, and each tile's source window."""
+
+    TY: int
+    TX: int
+    win: np.ndarray   # (tiles, 4) int32 (r_lo, r_hi, c_lo, c_hi); all 0: empty
+    rows: int         # the largest window's rows ...
+    cols: int         # ... and columns
+
+
+def _range_min_max(a: np.ndarray, lo: np.ndarray, hi: np.ndarray):
+    """(min, max) of a[lo:hi] for each pair of index arrays with lo < hi
+    (a sparse table; pairs with lo >= hi give any value)."""
+    n = len(a)
+    mins, maxs = [a.astype(np.int64)], [a.astype(np.int64)]
+    while 2 << (len(mins) - 1) <= n:
+        h = 1 << (len(mins) - 1)
+        mins.append(np.minimum(mins[-1][:-h], mins[-1][h:]))
+        maxs.append(np.maximum(maxs[-1][:-h], maxs[-1][h:]))
+    span = np.maximum(hi - lo, 1)
+    k = np.floor(np.log2(span)).astype(np.int64)
+    lo = np.clip(lo, 0, n - 1)
+    out = []
+    for levels in (mins, maxs):
+        table = np.stack([np.pad(t, (0, n - len(t)), mode="edge")
+                          for t in levels])
+        j = np.clip(lo + span - (1 << k), 0, n - 1)
+        pick = np.minimum if levels is mins else np.maximum
+        out.append(pick(table[k, lo], table[k, j]))
+    return out[0], out[1]
+
+
+def shear_tiles(gy: Optional[np.ndarray], hx: Optional[np.ndarray],
+                src_shape, dst_shape, TY: int, TX: int) -> ShearTiles:
+    """Tiles of ``out[y, x] = src[y - gy[c], c]``, ``c = x - hx[y]`` (0
+    where the index leaves ``src``; gy None: 0, hx None: 0) and the source
+    window of each: rows [r_lo, r_hi) and columns [c_lo, c_hi), clipped
+    to the source.  Every source element a tile reads lies in its window;
+    a tile that reads nothing is empty (all four 0) and is all zero fill.
+    A row of a tile reads the columns [x0 - hx[y], x1 - hx[y]) inside the
+    source and, of those, the rows between y - max gy and y - min gy
+    inside it; the window bounds the rows that read anything."""
+    sH, sW = src_shape
+    dH, dW = dst_shape
+    n_ty, n_tx = -(-dH // TY), -(-dW // TX)
+    y = np.arange(n_ty * TY, dtype=np.int64)[:, None]
+    x0 = np.arange(n_tx, dtype=np.int64)[None, :] * TX
+    x1 = np.minimum(x0 + TX, dW)
+    h = np.zeros((n_ty * TY, 1), np.int64)
+    if hx is not None:
+        h[:dH, 0] = hx[:dH]
+    clo = np.maximum(x0 - h, 0)
+    chi = np.minimum(x1 - h, sW)
+    read = (clo < chi) & (y < dH)
+    if gy is None:
+        rlo, rhi = y, y + 1
+    else:
+        gmin, gmax = _range_min_max(gy, clo, chi)
+        rlo, rhi = y - gmax, y - gmin + 1
+    rlo, rhi = np.maximum(rlo, 0), np.minimum(rhi, sH)
+    read &= rlo < rhi
+    big = np.int64(1) << 40
+    win = []
+    for v, fill, pick in ((rlo, big, np.min), (rhi, -big, np.max),
+                          (clo, big, np.min), (chi, -big, np.max)):
+        v = np.broadcast_to(v, read.shape)
+        win.append(pick(np.where(read, v, fill).reshape(n_ty, TY, n_tx),
+                        axis=1))
+    win = np.stack(win, -1).reshape(-1, 4)
+    win[~read.reshape(n_ty, TY, n_tx).any(axis=1).reshape(-1)] = 0
+    return ShearTiles(TY=TY, TX=TX,
+                      win=np.ascontiguousarray(win, dtype=np.int32),
+                      rows=int((win[:, 1] - win[:, 0]).max()),
+                      cols=int((win[:, 3] - win[:, 2]).max()))
+
+
+def shear_smem(form: str, TY: int, rows: int, cols: int, elem: int) -> int:
+    """Dynamic shared memory, in bytes, of a block of ``form`` staging
+    windows of up to rows x cols words of ``elem`` bytes (ell_shear.cu's
+    ``shear_smem``): the shift tables, 16 bytes of lead, each row at its
+    pitch (``seg_pitch``: 32-47 bytes beyond the row), 32 bytes of tail."""
+    use_gy, use_hx = FORMS[form]
+    tab = -(-4 * ((TY if use_hx else 0) + (cols if use_gy else 0)) // 16) * 16
+    return tab + 48 + rows * (cols * elem + 47)
+
+
+def _form_shapes(plan, form: str):
+    """(source, output) plane shapes of a shear form."""
+    return {"vshear": ((plan.qH, plan.qW), (plan.TH, plan.qW)),
+            "hshear": ((plan.TH, plan.qW), (plan.TH, plan.TW)),
+            "vhshear": ((plan.qH, plan.qW), (plan.TH, plan.TW))}[form]
+
+
+def plan_tiles(plan, form: str) -> ShearTiles:
+    """A shear form's tiles: the first shape of ``_TILES`` whose largest
+    window fits ``SMEM_BUDGET`` at f32, else the last one.  Raises
+    RuntimeError where even that one's window exceeds the card's opt-in
+    (``SMEM_LIMIT``): a limit of the kernel, not a geometry to route
+    elsewhere.  No geometry that ``build_shear_plan`` accepts comes near
+    it (tests/test_torch_ell_tiles.py)."""
+    use_gy, use_hx = FORMS[form]
+    src, dst = _form_shapes(plan, form)
+    for TY, TX in _TILES:
+        t = shear_tiles(plan.gy if use_gy else None,
+                        plan.hx if use_hx else None, src, dst, TY, TX)
+        if shear_smem(form, TY, t.rows, t.cols, 4) <= SMEM_BUDGET:
+            return t
+    if shear_smem(form, TY, t.rows, t.cols, 4) > SMEM_LIMIT:
+        raise RuntimeError(f"{form} window {t.rows}x{t.cols} of a {TY}x{TX} "
+                           "tile exceeds the shared memory of a block")
+    return t
+
+
 @dataclasses.dataclass(eq=False)
 class ShearKernelPlan:
-    """Host tables of the three kernels for one EllOperator."""
+    """Host tables of the kernels for one EllOperator."""
 
     qH: int
     qW: int
@@ -71,11 +203,23 @@ class ShearKernelPlan:
     ry0: np.ndarray   # (Hd,) int32 first T row of each dst row's window
     cx0: np.ndarray   # (Wd,) int32 first T column of each dst column's window
     w2: np.ndarray    # (Ka*Kb, Hd, Wd) float32, tap a*Kb+b
+    # the tiles of each shear form planned so far (form_tiles)
+    tiles: Dict[str, ShearTiles] = dataclasses.field(
+        default_factory=dict, repr=False)
     dev: Dict[torch.device, Dict[str, torch.Tensor]] = dataclasses.field(
         default_factory=dict, repr=False)
 
+    def form_tiles(self, form: str) -> ShearTiles:
+        """``form``'s tiles (``plan_tiles``), planned at the first call
+        and kept."""
+        hit = self.tiles.get(form)
+        if hit is None:
+            hit = self.tiles[form] = plan_tiles(self, form)
+        return hit
+
     def tables(self, device: torch.device) -> Dict[str, torch.Tensor]:
-        """The plan's tables on ``device``, uploaded once and kept."""
+        """The plan's tables on ``device``, uploaded once and kept; a
+        form's tile windows join them as ``win_<form>`` (``form_windows``)."""
         device = torch.device(device)
         hit = self.dev.get(device)
         if hit is None:
@@ -83,6 +227,15 @@ class ShearKernelPlan:
                    for name in ("gy", "hx", "ry0", "cx0", "w2")}
             self.dev[device] = hit
         return hit
+
+    def form_windows(self, form: str, device: torch.device) -> torch.Tensor:
+        """``form``'s tile windows on ``device``, (tiles, 4) int32,
+        planned and uploaded at the first call."""
+        tabs = self.tables(device)
+        key = f"win_{form}"
+        if key not in tabs:
+            tabs[key] = torch.from_numpy(self.form_tiles(form).win).to(device)
+        return tabs[key]
 
 
 def plan_from_operator(op: EllOperator) -> ShearKernelPlan:
@@ -200,6 +353,29 @@ def hshear_plain(s: torch.Tensor, plan: ShearKernelPlan, *,
     return _out_buffer(out, t.shape, s).copy_(t)
 
 
+def vhshear_plain(q: torch.Tensor, plan: ShearKernelPlan, *,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Both shears at once, T[f, y, x] = q[f, y - gy[c], c] with
+    c = x - hx[y], zero outside: (F, qH, qW) -> (F, TH, TW), one gather."""
+    _check_frames(q, (plan.qH, plan.qW), "q")
+    tabs = plan.tables(q.device)
+    cols = (torch.arange(plan.TW, device=q.device)[None, :]
+            - tabs["hx"][:, None].to(torch.int64))               # (TH, TW)
+    valid = (cols >= 0) & (cols < plan.qW)
+    cols = cols.clamp(0, plan.qW - 1)
+    rows = (torch.arange(plan.TH, device=q.device)[:, None]
+            - tabs["gy"].to(torch.int64)[cols])
+    valid &= (rows >= 0) & (rows < plan.qH)
+    idx = (rows.clamp(0, plan.qH - 1) * plan.qW + cols).reshape(1, -1)
+    F = q.shape[0]
+    t = torch.gather(q.reshape(F, -1), 1, idx.expand(F, -1)).reshape(
+        F, plan.TH, plan.TW)
+    t = torch.where(valid, t, torch.zeros((), dtype=q.dtype, device=q.device))
+    if out is None:
+        return t
+    return _out_buffer(out, t.shape, q).copy_(t)
+
+
 def contract_plain(t: torch.Tensor, plan: ShearKernelPlan, *,
                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """out[f, dy, dx] = sum_ab w2[a*Kb+b, dy, dx] * T[f, ry0[dy]+a, cx0[dx]+b]
@@ -236,45 +412,61 @@ def apply_ell_shear_plain(q: torch.Tensor, plan: ShearKernelPlan, *,
 # ---------------------------------------------------------------------------
 
 
+_PLAIN = {"vshear": vshear_plain, "hshear": hshear_plain,
+          "vhshear": vhshear_plain}
+
+
+def _shear_kernel(form: str, x: torch.Tensor, plan: ShearKernelPlan,
+                  out: Optional[torch.Tensor]) -> torch.Tensor:
+    """Launch one form of the shear kernel (a CPU tensor takes the plain
+    version); every element of ``out`` is written."""
+    src, dst = _form_shapes(plan, form)
+    what = "S" if form == "hshear" else "q"
+    _check_frames(x, src, what)
+    if x.device.type == "cpu":
+        return _PLAIN[form](x, plan, out=out)
+    _cuda_frames(x, what)
+    F = x.shape[0]
+    out = _out_buffer(out, (F,) + dst, x)
+    tiles = plan.form_tiles(form)
+    win = plan.form_windows(form, x.device)
+    tabs = plan.tables(x.device)
+    use_gy, use_hx = FORMS[form]
+    ptrs = ([x.data_ptr(), out.data_ptr()]
+            + [tabs[n].data_ptr() for n, on in (("gy", use_gy),
+                                                 ("hx", use_hx)) if on]
+            + [win.data_ptr()])
+    dims = src + ((dst[0],) if use_gy else ()) + ((dst[1],) if use_hx else ())
+    fn = getattr(_build.load(_build.ELL_SHEAR), f"aainterp_{form}")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _launch(form, fn, (*ptrs, F, *dims, tiles.TY, tiles.TX, tiles.rows,
+                           tiles.cols, x.element_size(), stream),
+                f"F={F}, {src} -> {dst}, tiles {tiles.TY}x{tiles.TX}, "
+                f"windows up to {tiles.rows}x{tiles.cols}")
+    return out
+
+
 def vshear_kernel(q: torch.Tensor, plan: ShearKernelPlan, *,
                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Vertical shear (F, qH, qW) -> (F, TH, qW) on the CUDA kernel; a CPU
     tensor takes ``vshear_plain``.  ``out`` may be given (any contents:
     every element is written)."""
-    _check_frames(q, (plan.qH, plan.qW), "q")
-    if q.device.type == "cpu":
-        return vshear_plain(q, plan, out=out)
-    _cuda_frames(q, "q")
-    F = q.shape[0]
-    out = _out_buffer(out, (F, plan.TH, plan.qW), q)
-    fn = _build.load(_build.ELL_SHEAR).aainterp_vshear
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        _launch("vshear", fn, (
-            q.data_ptr(), out.data_ptr(), plan.tables(q.device)["gy"].data_ptr(),
-            F, plan.qH, plan.qW, plan.TH, q.element_size(), stream),
-            f"F={F}, qH={plan.qH}, qW={plan.qW}, TH={plan.TH}")
-    return out
+    return _shear_kernel("vshear", q, plan, out)
 
 
 def hshear_kernel(s: torch.Tensor, plan: ShearKernelPlan, *,
                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Horizontal shear (F, TH, qW) -> (F, TH, TW) on the CUDA kernel; a
     CPU tensor takes ``hshear_plain``."""
-    _check_frames(s, (plan.TH, plan.qW), "S")
-    if s.device.type == "cpu":
-        return hshear_plain(s, plan, out=out)
-    _cuda_frames(s, "S")
-    F = s.shape[0]
-    out = _out_buffer(out, (F, plan.TH, plan.TW), s)
-    fn = _build.load(_build.ELL_SHEAR).aainterp_hshear
-    with torch.cuda.device(s.device):
-        stream = torch.cuda.current_stream(s.device).cuda_stream
-        _launch("hshear", fn, (
-            s.data_ptr(), out.data_ptr(), plan.tables(s.device)["hx"].data_ptr(),
-            F, plan.TH, plan.qW, plan.TW, s.element_size(), stream),
-            f"F={F}, TH={plan.TH}, qW={plan.qW}, TW={plan.TW}")
-    return out
+    return _shear_kernel("hshear", s, plan, out)
+
+
+def vhshear_kernel(q: torch.Tensor, plan: ShearKernelPlan, *,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Both shears at once, (F, qH, qW) -> (F, TH, TW), on the CUDA kernel;
+    a CPU tensor takes ``vhshear_plain``."""
+    return _shear_kernel("vhshear", q, plan, out)
 
 
 def contract_kernel(t: torch.Tensor, plan: ShearKernelPlan) -> torch.Tensor:
@@ -302,9 +494,10 @@ def contract_kernel(t: torch.Tensor, plan: ShearKernelPlan) -> torch.Tensor:
 
 def apply_ell_shear_kernel(q: torch.Tensor,
                            plan: ShearKernelPlan) -> torch.Tensor:
-    """The rotated apply on the three kernels: (F, qH, qW) -> (F, Hd, Wd);
-    (qH, qW) -> (Hd, Wd).  Frames of a dtype other than bf16/f32 are cast
-    to f32 first (pallas_shear.py:789-792)."""
+    """The rotated apply on two kernels, the fused shear and the
+    contraction: (F, qH, qW) -> (F, Hd, Wd); (qH, qW) -> (Hd, Wd).  Frames
+    of a dtype other than bf16/f32 are cast to f32 first
+    (pallas_shear.py:789-792)."""
     if not isinstance(q, torch.Tensor):
         raise TypeError(f"frames must be a torch.Tensor, got {type(q)}")
     if q.ndim == 2:
@@ -312,4 +505,4 @@ def apply_ell_shear_kernel(q: torch.Tensor,
     if q.dtype.is_complex or q.dtype == torch.bool:
         raise TypeError(f"unsupported frame dtype {q.dtype}")
     q = q.to(_out_dtype(q.dtype)).contiguous()
-    return contract_kernel(hshear_kernel(vshear_kernel(q, plan), plan), plan)
+    return contract_kernel(vhshear_kernel(q, plan), plan)

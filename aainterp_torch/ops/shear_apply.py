@@ -38,16 +38,12 @@ class ShearPlan:
     weights: np.ndarray  # (Hd, Wd, Ka, Kb) re-indexed exact weights
 
 
-def build_shear_plan(op: EllOperator, max_window: int = 24) -> ShearPlan:
-    """Re-index an ELL operator into the sheared layout (host, float64).
-
-    Raises ValueError for an empty operator or a sheared window wider
-    than ``max_window`` on either axis.
-    """
-    spec = op.spec
+def shear_shifts(spec):
+    """(gy, hx, TH, TW) of a grid spec's two integer shears: gy (qW,) the
+    vertical shift of each source column, hx (TH,) the horizontal shift
+    of each sheared row (>= 0), int64, and the sheared planes' height and
+    width."""
     qH, qW = spec.qrot_shape
-    Hd, Wd = spec.dst_shape
-    K = op.window
     c, sn = spec.cos, spec.sin
     tan = sn / c if c != 0 else 0.0
 
@@ -61,6 +57,20 @@ def build_shear_plan(op: EllOperator, max_window: int = 24) -> ShearPlan:
     hx_raw = -np.round(u * (sn * c)).astype(np.int64)
     hx = hx_raw - hx_raw.min()
     TW = int(qW + hx.max() + 1)
+    return gy, hx, TH, TW
+
+
+def build_shear_plan(op: EllOperator, max_window: int = 24) -> ShearPlan:
+    """Re-index an ELL operator into the sheared layout (host, float64).
+
+    Raises ValueError for an empty operator or a sheared window wider
+    than ``max_window`` on either axis.
+    """
+    spec = op.spec
+    qH, qW = spec.qrot_shape
+    Hd, Wd = spec.dst_shape
+    K = op.window
+    gy, hx, TH, TW = shear_shifts(spec)
 
     # int32 working set: (Hd, Wd, K, K) reaches ~70M cells at 2048^2 —
     # narrow dtypes + no broadcast materialisation keep this pass in

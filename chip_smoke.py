@@ -8,9 +8,11 @@ points (``aainterp_torch.area_average_interpolate`` for the first three):
   of bf16 pixels with f32 accumulation, on ``csrc/separable_apply.cu``;
 * the rotated flagship — 8 frames of 2048x2048 bf16 at 30 degrees (the
   JAX package's rot30 bench geometry) -> 8x1399x1399 bf16, exact mode:
-  native C++ weight-gen on the host, then the three kernels of
-  ``csrc/ell_shear.cu`` (vertical shear, horizontal shear, window
-  contraction);
+  native C++ weight-gen on the host, then the two kernels of
+  ``csrc/ell_shear.cu`` that the route launches (the shear kernel's fused
+  form, which writes the sheared plane T straight from the frames, and the
+  window contraction); the shear kernel's single-shear forms (vertical,
+  horizontal) are held and timed beside them;
 * the shear flagship — the same 8x2048x2048 bf16 frames at 30 degrees in
   ``mode='shear'`` (3 conservative 1-D passes), both decompositions
   ('quality' x-y-x and 'fast' y-x-y), on the two stage kernels of
@@ -48,8 +50,9 @@ line is ``{"ok": true, "device": {...}}``.
 Tolerances, kernel against plain.  Separable: f32 atol 1e-5 on [0, 1]
 inputs; bf16 output atol 1e-2 (one bf16 ulp on [0, 1]); uint8 output
 within one gray level (summation order can flip a .5 rounding); uint8 ->
-f32 atol 1e-3 (values up to 255); gradients atol 1e-5.  Rotated: both
-shears bit-equal; contraction and route f32 atol 1e-6 on [0, 1] inputs
+f32 atol 1e-3 (values up to 255); gradients atol 1e-5.  Rotated: every
+shear form bit-equal (the fused one also to the two plain shears);
+contraction and route f32 atol 1e-6 on [0, 1] inputs
 (1e-6 * 255 for uint8 input); bf16 output within one bf16 ulp of the
 plain f32 result; dense float64 reference atol 1e-6.  Shear mode: each
 stage kernel equal to its plain stage bit for bit, f32 and bf16, forward
@@ -97,7 +100,9 @@ ISO = (0.0, 0.0)
 RH, RW = 2048, 2048
 ROT = (1.0, 0.5, (1024.0, 1024.0), 30.0)   # resolutions, isocenter, angle
 ROT_DST = (1399, 1399)
-SHEAR_KERNELS = ("vshear", "hshear", "contract")
+SHEAR_KERNELS = ("vshear", "hshear", "vhshear", "contract")
+# the rotated route's kernels: the fused shear, then the contraction
+ROUTE_KERNELS = ("vhshear", "contract")
 # mode='shear' on the rotated flagship: both decompositions and their passes
 SHEAR3_KERNELS = ("ystage", "xstage")
 SHEAR_DECS = ("quality", "fast")
@@ -286,9 +291,11 @@ def rotated_phases(make, card):
             for x in requests]
     torch.cuda.synchronize()
     launches = dict(cuda_shear.LAUNCHES)
-    check(all(launches[k] == len(requests) for k in SHEAR_KERNELS),
-          f"rotated main path launched {launches} for {len(requests)} "
-          "requests (want each kernel once per request)")
+    want = {k: len(requests) if k in ROUTE_KERNELS else 0
+            for k in SHEAR_KERNELS}
+    check(launches == want, f"rotated main path launched {launches} for "
+          f"{len(requests)} requests (want {want}: the fused shear and the "
+          "contraction once per request)")
     check(cuda_apply.LAUNCHES == 0 and cuda_apply_2d.LAUNCHES == 0
           and other_paths_idle(cuda_shear3.LAUNCHES),
           "rotated path launched a kernel of another path")
@@ -314,33 +321,40 @@ def rotated_phases(make, card):
         q = requests[0].to(dtype)
         s_k = cuda_shear.vshear_kernel(q, plan)
         t_k = cuda_shear.hshear_kernel(s_k, plan)
-        o_k = cuda_shear.contract_kernel(t_k, plan)
+        f_k = cuda_shear.vhshear_kernel(q, plan)
+        o_k = cuda_shear.contract_kernel(f_k, plan)
         torch.cuda.synchronize()
-        check(torch.equal(s_k, cuda_shear.vshear_plain(q, plan)),
+        s_p = cuda_shear.vshear_plain(q, plan)
+        check(torch.equal(s_k, s_p),
               f"vshear {dtype} differs from its plain version")
         check(torch.equal(t_k, cuda_shear.hshear_plain(s_k, plan)),
               f"hshear {dtype} differs from its plain version")
-        ref = cuda_shear.contract_plain(t_k, plan, out_dtype=torch.float32)
+        check(torch.equal(f_k, cuda_shear.vhshear_plain(q, plan)),
+              f"fused shear {dtype} differs from its plain version")
+        check(torch.equal(f_k, cuda_shear.hshear_plain(s_p, plan)),
+              f"fused shear {dtype} differs from the two plain shears")
+        ref = cuda_shear.contract_plain(f_k, plan, out_dtype=torch.float32)
         if dtype == torch.bfloat16:
             e = within_bf16_ulp(o_k, ref, "contract bf16 vs plain")
-            kerr.update(vshear=0.0, hshear=0.0, contract=e)
+            kerr.update(vshear=0.0, hshear=0.0, vhshear=0.0, contract=e)
         else:
             e = max_err(o_k, ref)
             check(e <= 1e-6, f"contract f32 err {e} > 1e-6")
-        print(f"[11 kernels] {dtype}: vshear and hshear bit-equal to plain; "
-              f"contract max |kernel - plain| {e:.3e}")
-        # both shears overwrite every element of a NaN-filled plane
-        for name, src, shape in (("vshear", q, s_k.shape),
-                                 ("hshear", s_k, t_k.shape)):
-            buf = torch.full(shape, float("nan"), dtype=dtype,
+        print(f"[11 kernels] {dtype}: vshear, hshear and the fused shear "
+              f"bit-equal to plain (the fused one also to the two plain "
+              f"shears); contract max |kernel - plain| {e:.3e}")
+        # every shear form overwrites every element of a NaN-filled plane
+        for name, src, want in (("vshear", q, s_k), ("hshear", s_k, t_k),
+                                ("vhshear", q, f_k)):
+            buf = torch.full(want.shape, float("nan"), dtype=dtype,
                              device=q.device)
             getattr(cuda_shear, f"{name}_kernel")(src, plan, out=buf)
             torch.cuda.synchronize()
-            check(torch.equal(buf, s_k if name == "vshear" else t_k),
+            check(torch.equal(buf, want),
                   f"{name} into a NaN plane left unwritten elements")
-        del q, s_k, t_k, o_k, ref, buf
-    print("[11 kernels] both shears write every element of a NaN-filled "
-          "plane")
+        del q, s_k, s_p, t_k, f_k, o_k, ref, buf
+    print("[11 kernels] every shear form writes every element of a "
+          "NaN-filled plane")
 
     # ---- 12. f32 and u8 -> f32 at the flagship shape ------------------------
     for dtype, atol in ((torch.float32, 1e-6), (torch.uint8, 1e-6 * 255)):
@@ -348,7 +362,7 @@ def rotated_phases(make, card):
         before = dict(cuda_shear.LAUNCHES)
         out = at.area_average_interpolate(x, *ROT, operator=op).dst
         check(out.dtype == torch.float32, f"{dtype} -> {out.dtype}")
-        check(all(cuda_shear.LAUNCHES[k] == before[k] + 1
+        check(all(cuda_shear.LAUNCHES[k] == before[k] + (k in ROUTE_KERNELS)
                   for k in SHEAR_KERNELS), f"{dtype}: kernels not launched")
         e = max_err(out, at.apply_operator(op, x, impl="gather"))
         check(e <= atol, f"rotated {dtype} err {e} > {atol}")
@@ -422,35 +436,47 @@ def rotated_phases(make, card):
         # contraction: no single PyTorch call computes a K x K window
         # contraction with per-pixel weights
         "library_ms": timing.get(f"{name}_library_device_ms"),
-    } for name, line in (("vshear", 59), ("hshear", 114), ("contract", 164))]
+    } for name, line in (("vshear", "59"), ("hshear", "114"),
+                         ("vhshear", "59,114"), ("contract", "164"))]
 
 
 def rotated_timing(make, card, op, plan) -> dict:
-    """Device (CUDA-graph replay) and eager time of each rotated kernel,
-    its plain version, and the three routes, at the rotated flagship; the
+    """Device (CUDA-graph replay) and eager time of each rotated kernel
+    (the three shear forms and the contraction), its plain version, its
+    library call, and the three routes, at the rotated flagship; the
     route's bytes per batch against the measured copy bandwidth."""
     n = 4                                    # distinct batches, 67 MB each
     qs = [make(torch.bfloat16, (F, RH, RW)) for _ in range(n)]
     ss = [cuda_shear.vshear_kernel(q, plan) for q in qs]
-    ts = [cuda_shear.hshear_kernel(s, plan) for s in ss]
+    ts = [cuda_shear.vhshear_kernel(q, plan) for q in qs]
     copy_dst = torch.empty_like(qs[0])
     # the library calls: one torch.gather each with the clamped index
     # precomputed (the zero fill outside the source is left out, so each
-    # is a lower bound of a library route)
-    tab = plan.tables(qs[0].device)
-    rows = (torch.arange(plan.TH, device=qs[0].device)[:, None]
+    # is a lower bound of a library route); the fused shear's gathers the
+    # flattened frames at r * qW + c
+    dev = qs[0].device
+    tab = plan.tables(dev)
+    rows = (torch.arange(plan.TH, device=dev)[:, None]
             - tab["gy"][None, :].to(torch.int64)).clamp(0, plan.qH - 1)
+    cols = (torch.arange(plan.TW, device=dev)[None, :]
+            - tab["hx"][:, None].to(torch.int64))                # (TH, TW)
+    fcols = cols.clamp(0, plan.qW - 1)
+    frows = (torch.arange(plan.TH, device=dev)[:, None]
+             - tab["gy"].to(torch.int64)[fcols]).clamp(0, plan.qH - 1)
+    flat = (frows * plan.qW + fcols).reshape(1, -1).expand(F, -1)
     rows = rows.expand(F, -1, -1)
-    cols = (torch.arange(plan.TW, device=qs[0].device)[None, :]
-            - tab["hx"][:, None].to(torch.int64)).clamp(0, plan.qW - 1)
-    cols = cols.expand(F, -1, -1)
+    cols = cols.clamp(0, plan.qW - 1).expand(F, -1, -1)
     fns = {
         "vshear_library": (lambda q: torch.gather(q, 1, rows), qs),
         "hshear_library": (lambda s: torch.gather(s, 2, cols), ss),
+        "vhshear_library": (lambda q: torch.gather(
+            q.reshape(F, -1), 1, flat), qs),
         "vshear_kernel": (lambda q: cuda_shear.vshear_kernel(q, plan), qs),
         "vshear_plain": (lambda q: cuda_shear.vshear_plain(q, plan), qs),
         "hshear_kernel": (lambda s: cuda_shear.hshear_kernel(s, plan), ss),
         "hshear_plain": (lambda s: cuda_shear.hshear_plain(s, plan), ss),
+        "vhshear_kernel": (lambda q: cuda_shear.vhshear_kernel(q, plan), qs),
+        "vhshear_plain": (lambda q: cuda_shear.vhshear_plain(q, plan), qs),
         "contract_kernel": (lambda t: cuda_shear.contract_kernel(t, plan), ts),
         "contract_plain": (lambda t: cuda_shear.contract_plain(t, plan), ts),
         "route_kernel": (lambda q: at.apply_operator(op, q), qs),
@@ -477,24 +503,33 @@ def rotated_timing(make, card, op, plan) -> dict:
     t_b = F * plan.TH * plan.TW * e
     w_b = plan.w2.nbytes
     o_b = F * plan.Hd * plan.Wd * e
-    route_bytes = q_b + 2 * s_b + 2 * t_b + w_b + o_b
-    fused_bytes = q_b + w_b + o_b        # the fused redesign's floor
+    route_bytes = q_b + 2 * t_b + w_b + o_b   # S never leaves the chip
+    fused_bytes = q_b + w_b + o_b        # a route with T kept on chip too
     copy_bw = 2 * q_b / (timing["copy_device_ms"] * 1e-3)        # B/s
     px = F * RH * RW
     for name in ("route_kernel", "route_sheared", "route_gather"):
         for how in ("device", "eager"):
             timing[f"{name}_{how}_gpixel_s"] = (
                 px / (timing[f"{name}_{how}_ms"] * 1e-3) / 1e9)
+    tiles = {form: plan.form_tiles(form) for form in cuda_shear.FORMS}
     timing["bounds"] = {
-        "vshear": bound(q_b + s_b + plan.gy.nbytes, 0),
-        "hshear": bound(s_b + t_b + plan.hx.nbytes, 0),
+        "vshear": bound(q_b + s_b + table_bytes(
+            plan.gy, tiles["vshear"].win), 0),
+        "hshear": bound(s_b + t_b + table_bytes(
+            plan.hx, tiles["hshear"].win), 0),
+        "vhshear": bound(q_b + t_b + table_bytes(
+            plan.gy, plan.hx, tiles["vhshear"].win), 0),
         "contract": bound(t_b + w_b + o_b + table_bytes(plan.ry0, plan.cx0),
                           2 * F * plan.Hd * plan.Wd * plan.Ka * plan.Kb),
     }
     timing.update(
-        bytes_per_batch={"q": q_b, "S_write_read": 2 * s_b,
+        bytes_per_batch={"q": q_b, "S_single_shears": s_b,
                          "T_write_read": 2 * t_b, "w2": w_b, "out": o_b,
                          "route": route_bytes, "fused_floor": fused_bytes},
+        tiles={form: {"TY": t.TY, "TX": t.TX, "rows": t.rows,
+                      "cols": t.cols,
+                      "empty": float((t.win[:, 1] <= t.win[:, 0]).mean())}
+               for form, t in tiles.items()},
         copy_gb_s=copy_bw / 1e9,
         route_bound_ms=route_bytes / copy_bw * 1e3,
         route_bound_gpixel_s=px / (route_bytes / copy_bw) / 1e9,
@@ -507,11 +542,15 @@ def rotated_timing(make, card, op, plan) -> dict:
           f" vshear {t['vshear_kernel_device_ms']:.4f} / "
           f"{t['vshear_plain_device_ms']:.4f}, hshear "
           f"{t['hshear_kernel_device_ms']:.4f} / "
-          f"{t['hshear_plain_device_ms']:.4f}, contract "
+          f"{t['hshear_plain_device_ms']:.4f}, fused shear "
+          f"{t['vhshear_kernel_device_ms']:.4f} / "
+          f"{t['vhshear_plain_device_ms']:.4f} (bound "
+          f"{t['bounds']['vhshear']['bound_ms']:.4f}), contract "
           f"{t['contract_kernel_device_ms']:.4f} / "
           f"{t['contract_plain_device_ms']:.4f}; library gathers: vshear "
           f"{t['vshear_library_device_ms']:.4f}, hshear "
-          f"{t['hshear_library_device_ms']:.4f}; route kernel "
+          f"{t['hshear_library_device_ms']:.4f}, fused "
+          f"{t['vhshear_library_device_ms']:.4f}; route kernel "
           f"{t['route_kernel_device_ms']:.4f} ms = "
           f"{t['route_kernel_device_gpixel_s']:.3f} Gpixel/s (eager "
           f"{t['route_kernel_eager_ms']:.4f} ms), sheared "
@@ -519,7 +558,7 @@ def rotated_timing(make, card, op, plan) -> dict:
           f"{t['route_gather_device_ms']:.4f}; route moves "
           f"{route_bytes / 1e6:.1f} MB/batch, copy {t['copy_gb_s']:.1f} GB/s "
           f"-> bound {t['route_bound_ms']:.4f} ms = "
-          f"{t['route_bound_gpixel_s']:.3f} Gpixel/s (fused floor "
+          f"{t['route_bound_gpixel_s']:.3f} Gpixel/s (T kept on chip too: "
           f"{fused_bytes / 1e6:.1f} MB -> {t['fused_bound_ms']:.4f} ms)")
     print(json.dumps({"rotated_timing": timing}))
     return timing

@@ -2,14 +2,15 @@
 """Timing, plan and ablation sweep of the port's hand-written kernels on one
 GPU: the two separable band-apply kernels (``csrc/separable_apply.cu``,
 kernel 1, and ``csrc/separable_apply_2d.cu``, kernel 2, both built on
-``csrc/band_apply.cuh``) and the shear-mode stage kernels
-(``csrc/shear3_stage.cu``).
+``csrc/band_apply.cuh``), the shear-mode stage kernels
+(``csrc/shear3_stage.cu``) and the exact rotated route's kernels
+(``csrc/ell_shear.cu``).
 
-    python3 chip_sweep.py [--repo DIR] [--cells k1,k2,s3]
+    python3 chip_sweep.py [--repo DIR] [--cells k1,k2,s3,r]
         [--variants cur,nostage,...] [--set 'MOD.NAME=VALUE;...']...
 
 Cells are chosen by name, or by a prefix of their names (``k1``, ``k2``,
-``s3``).  Each is timed as ``chip_smoke.py`` times it: device ms per batch
+``s3``, ``r``).  Each is timed as ``chip_smoke.py`` times it: device ms per batch
 from CUDA-graph replays on distinct inputs (``chip_smoke.graph_ms``), best
 of two.
 
@@ -21,11 +22,16 @@ of two.
   fields 480x480 -> 4x4 (480-tap bands);
 * ``s3_quality_s0`` .. ``s3_fast_s2``: the six stages of the shear flagship
   (8 frames of 2048x2048 bf16 at 30 degrees, 1.0 -> 0.5, both
-  decompositions), each stage on the plain output of the one before.
+  decompositions), each stage on the plain output of the one before;
+* ``r_vshear``, ``r_hshear``, ``r_vhshear``, ``r_contract``: the rotated
+  flagship's kernels (the same frames, exact mode): the shear kernel's
+  three forms (S from q, T from S, T from q) and the contraction (on the
+  plain T).  Their tile tables are planned anew under each ``--set`` (for
+  example ``--set 'cuda_shear._TILES=((32, 128),)'``).
 
 Each cell's kernel output is checked against its plain version first
-(kernel 1 and 2 within a bf16 ulp or one grey level, the shear stages bit
-for bit), except in the build variants that skip work.
+(kernel 1 and 2 and the contraction within a bf16 ulp or one grey level,
+the shear stages and the rotated shear forms bit for bit), except in the build variants that skip work.
 
 ``--repo`` imports ``aainterp_torch`` and ``chip_smoke`` from another
 checkout (the parent commit, for a before/after comparison in one run on
@@ -61,7 +67,8 @@ VARIANTS = {
     "nostage": {
         "band_apply.cuh": [(r"if \(off < nbytes\) cp_async16", NOT_REACHED)],
         "shear3_stage.cu": [(r"if \(off < seg_bytes\) cp_async16",
-                             NOT_REACHED)]},
+                             NOT_REACHED)],
+        "ell_shear.cu": [(r"if \(off < nbytes\) cp_async16", NOT_REACHED)]},
     # band_apply.cuh: the y pass reads no tap (T = 0 sums)
     "noy": {"band_apply.cuh": [(r"for \(int a = 0; a < ky; \+\+a\)",
                                 "for (int a = 0; a < 0; ++a)")]},
@@ -71,15 +78,37 @@ VARIANTS = {
         (r"if \(b < d\.kx\) acc\.add\(wreg\[b\], tr\[b\]\);", ""),
         (r"for \(int b = 0; b < d\.kx; \+\+b\) acc\.add\(__ldg\(wxj \+ b\), "
          r"tr\[b\]\);", "")]},
-    # band_apply.cuh: the output tile is not written out
+    # band_apply.cuh, ell_shear.cu: the output tile is not written out
     "nostore": {"band_apply.cuh": [(r"if \(off >= obytes\) continue;",
-                                    "continue;")]},
+                                    "continue;")],
+                "ell_shear.cu": [(r"if \(off >= obytes\) continue;",
+                                  "continue;")]},
+    # ell_shear.cu: empty tiles write nothing (the cost of their zero fill)
+    "noempty": {"ell_shear.cu": [(r"const int nc = w\.w - w\.z;",
+                                  "const int nc = w.w - w.z;\n"
+                                  "  if (nr <= 0) return;")]},
+    # ell_shear.cu, block order: the frames of one tile side by side on
+    # grid.x (tile-major), or each frame's tiles column by column
+    "tilemajor": {"ell_shear.cu": [(
+        r"const int tile = blockIdx\.x % g\.n_tiles;\n"
+        r"  const long long f = blockIdx\.x / g\.n_tiles;",
+        "const int n_f = gridDim.x / g.n_tiles;\n"
+        "  const int tile = blockIdx.x / n_f;\n"
+        "  const long long f = blockIdx.x % n_f;")]},
+    "colmajor": {"ell_shear.cu": [(
+        r"const int tile = blockIdx\.x % g\.n_tiles;",
+        "const int n_ty = g.n_tiles / g.n_tx;\n"
+        "  const int walk = blockIdx.x % g.n_tiles;\n"
+        "  const int tile = (walk % n_ty) * g.n_tx + walk / n_ty;")]},
     # band_apply.cuh: 8 columns per lane in the y pass instead of 4
     "lane8": {"band_apply.cuh": [(r"constexpr int kLaneCols = 4;",
                                   "constexpr int kLaneCols = 8;")]},
-    # shear3_stage.cu: 256 threads per block instead of 128
+    # shear3_stage.cu: 256 threads per block instead of 128; ell_shear.cu:
+    # 128 instead of 256
     "t256": {"shear3_stage.cu": [(r"constexpr int kThreads = 128;",
                                   "constexpr int kThreads = 256;")]},
+    "t128": {"ell_shear.cu": [(r"constexpr int kThreads = 256;",
+                               "constexpr int kThreads = 128;")]},
     # shear3_stage.cu: no output or mid cell is computed (zeros stored)
     "nocompute": {"shear3_stage.cu": [
         (r"out_cells<kForm, kVec>\([^;]*;",
@@ -87,7 +116,8 @@ VARIANTS = {
         (r"band_rows<kVec>\(bv, t, mlo \+ mi, s\.K, r\);",
          "for (int q = 0; q < kVec; ++q) r[q] = 0.0f;")]},
 }
-EXACT = ("cur", "lane8", "t256")       # variants that compute everything
+EXACT = ("cur", "lane8", "t256", "t128", "tilemajor",   # variants that
+         "colmajor")                                # compute everything
 
 
 def variant_sources(lib, name: str) -> dict:
@@ -141,8 +171,8 @@ def make_cells(dev):
 
     import aainterp_torch as at
     from aainterp_torch import api as t_api
-    from aainterp_torch.ops import (cuda_apply, cuda_apply_2d, cuda_shear3,
-                                    shear3)
+    from aainterp_torch.ops import (cuda_apply, cuda_apply_2d, cuda_shear,
+                                    cuda_shear3, shear3)
 
     gen = torch.Generator(device=dev).manual_seed(11)
     made = {}
@@ -234,13 +264,53 @@ def make_cells(dev):
     for dec in ("quality", "fast"):
         for i in range(3):
             cells[f"s3_{dec}_s{i}"] = s3_cell(dec, i)
+
+    rot = {}                        # the rotated flagship's plan, made once
+
+    def rot_plan():
+        if not rot:
+            op = at.build_operator(spec)
+            rot["plan"] = cuda_shear.kernel_plan(op)
+            rot["q"] = rand("s3", (8, 2048, 2048), bf16)
+        return rot["plan"]
+
+    def r_cell(name):
+        def inputs():
+            plan, qs = rot_plan(), rot["q"]
+            if name in ("vshear", "vhshear"):
+                return qs
+            if name == "hshear":
+                return [cuda_shear.vshear_plain(q, plan) for q in qs]
+            return [cuda_shear.hshear_plain(cuda_shear.vshear_plain(
+                q, plan), plan) for q in qs]
+
+        def prepare():
+            plan = rot_plan()
+            summary = {"Ka": plan.Ka, "Kb": plan.Kb}
+            if hasattr(plan, "form_tiles"):     # not in older checkouts
+                plan.tiles.clear()              # re-planned under --set
+                plan.dev.clear()
+                if name in cuda_shear.FORMS:
+                    t = plan.form_tiles(name)
+                    summary = {"TY": t.TY, "TX": t.TX, "rows": t.rows,
+                               "cols": t.cols}
+            kern = getattr(cuda_shear, f"{name}_kernel")
+            plain = getattr(cuda_shear, f"{name}_plain")
+            return (lambda x: kern(x, plan), lambda x: plain(x, plan),
+                    summary)
+        # the contraction's bf16 output: one bf16 ulp on [0, 1]
+        return prepare, inputs, 1e-2 if name == "contract" else 0.0
+
+    for name in ("vshear", "hshear", "vhshear", "contract"):
+        if hasattr(cuda_shear, f"{name}_kernel"):
+            cells[f"r_{name}"] = r_cell(name)
     return cells
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--repo", default=str(Path(__file__).resolve().parent))
-    ap.add_argument("--cells", default="k1,k2,s3")
+    ap.add_argument("--cells", default="k1,k2,s3,r")
     ap.add_argument("--variants", default="cur")
     ap.add_argument("--set", action="append", default=[])
     args = ap.parse_args()
@@ -252,7 +322,7 @@ def main() -> int:
         return 1
     import chip_smoke as cs
     from aainterp_torch import _build
-    from aainterp_torch.ops import cuda_apply, cuda_apply_2d, shear3
+    from aainterp_torch.ops import cuda_apply, cuda_apply_2d, cuda_shear, shear3
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -263,10 +333,11 @@ def main() -> int:
     wanted = [c for c in cells
               if any(c.startswith(p) for p in args.cells.split(","))]
     mods = {"cuda_apply": cuda_apply, "cuda_apply_2d": cuda_apply_2d,
-            "shear3": shear3}
+            "cuda_shear": cuda_shear, "shear3": shear3}
     caches = (cuda_apply._PLAN_CACHE, cuda_apply_2d._PLAN_CACHE,
               shear3._STAGE_CACHE)
-    libs = (_build.SEPARABLE, _build.SEPARABLE_2D, _build.SHEAR3_STAGE)
+    libs = (_build.SEPARABLE, _build.SEPARABLE_2D, _build.SHEAR3_STAGE,
+            _build.ELL_SHEAR)
     defaults = {}      # (module, name) -> value before any setting
     for variant in args.variants.split(","):
         for lib in libs:

@@ -4,7 +4,8 @@ Each plain shear stage of ``ops/cuda_shear.py`` against a numpy statement
 of its formula; the plain shear pipeline and the plain ``apply_ell``
 against JAX's ``apply_ell`` and against JAX's Pallas rotated apply in
 interpret mode (``make_pallas_shear_apply(op, interpret=True)``, as
-tests/test_pallas_shear.py runs it).  The kernel wrappers take these plain
+tests/test_pallas_shear.py runs it), both as the three plain stages and
+as the card's route (the fused shear, then the contraction).  The kernel wrappers take these plain
 versions on CPU tensors; the kernels themselves are checked on the card
 (tests/test_torch_kernel_cuda.py, chip_smoke.py).
 
@@ -127,7 +128,7 @@ def test_contract_plain_formula(args):
             <= bf16_ulp(ref_b)).all()
 
 
-@pytest.mark.parametrize("stage", ["vshear", "hshear"])
+@pytest.mark.parametrize("stage", ["vshear", "hshear", "vhshear"])
 def test_shears_write_every_element_of_a_nan_plane(stage):
     # a zero-weight contraction tap reads whatever the shears left in T:
     # the shears must overwrite every element, zeros included (NaN * 0 is
@@ -137,6 +138,10 @@ def test_shears_write_every_element_of_a_nan_plane(stage):
         src = torch.from_numpy(_frames((2, plan.qH, plan.qW)))
         shape, fns = (2, plan.TH, plan.qW), (cuda_shear.vshear_plain,
                                              cuda_shear.vshear_kernel)
+    elif stage == "vhshear":
+        src = torch.from_numpy(_frames((2, plan.qH, plan.qW)))
+        shape, fns = (2, plan.TH, plan.TW), (cuda_shear.vhshear_plain,
+                                             cuda_shear.vhshear_kernel)
     else:
         src = torch.from_numpy(_frames((2, plan.TH, plan.qW)))
         shape, fns = (2, plan.TH, plan.TW), (cuda_shear.hshear_plain,
@@ -202,14 +207,20 @@ def test_shear_pipeline_matches_pallas_interpret(args, dtype):
     xt = torch.from_numpy(np.array(jnp.asarray(x, jdt).astype(jnp.float32)))
     xt = xt.to(getattr(torch, dtype))
     got = cuda_shear.apply_ell_shear_plain(xt, plan)
+    # the card's route: the fused shear (T straight from q), then the
+    # contraction
+    fused = cuda_shear.contract_plain(cuda_shear.vhshear_plain(xt, plan),
+                                      plan)
     assert got.dtype == xt.dtype and ref.dtype == jdt
+    assert fused.dtype == xt.dtype
     ref_t = torch.from_numpy(np.asarray(ref.astype(jnp.float32)))
-    if dtype == "float32":
-        np.testing.assert_allclose(got.numpy(), ref_t.numpy(), atol=1e-5,
-                                   rtol=0)
-    else:
-        assert ((got.double() - ref_t.double()).abs()
-                <= bf16_ulp(ref_t)).all()
+    for out in (got, fused):
+        if dtype == "float32":
+            np.testing.assert_allclose(out.numpy(), ref_t.numpy(), atol=1e-5,
+                                       rtol=0)
+        else:
+            assert ((out.double() - ref_t.double()).abs()
+                    <= bf16_ulp(ref_t)).all()
 
 
 # ---------------------------------------------------------------------------
@@ -235,7 +246,8 @@ def test_kernel_wrappers_take_the_plain_version_on_cpu():
         atol=0)
 
 
-@pytest.mark.parametrize("stage", ["vshear", "hshear", "contract"])
+@pytest.mark.parametrize("stage", ["vshear", "hshear", "vhshear",
+                                   "contract"])
 def test_wrappers_reject_shapes_that_do_not_match_the_plan(stage):
     plan = _plan(_ops(GEOMS[0])[1])
     fn = getattr(cuda_shear, f"{stage}_kernel")

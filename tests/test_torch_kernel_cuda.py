@@ -11,7 +11,9 @@ sets up JAX) from the repo root:
 
 Tolerances, kernel against plain: separable f32 atol 1e-5 on [0, 1]
 inputs; bf16 output atol 1e-2 (one bf16 ulp on [0, 1]); uint8 within one
-gray level.  Rotated: both shears bit-equal; contraction and route f32
+gray level.  Rotated: every shear form (vshear, hshear, the fused form)
+bit-equal, into NaN-filled outputs at every start address mod 16, F 1 and
+3, the smallest tile and an all-empty plan; contraction and route f32
 atol 1e-6 on [0, 1] inputs (1e-6 * 255 for u8 input), bf16 within one
 bf16 ulp of the plain f32 result.  Shear mode: each stage kernel against
 its plain stage f32 atol 1e-6 and bf16 within one bf16 ulp (same sums in
@@ -25,6 +27,8 @@ f32 atol 1e-5 on [0, 1] inputs, bf16 within one bf16 ulp, uint8 within
 one gray level; 'default' and 'bf16x3' rtol 1e-6 (the same bf16 operands
 summed in the same order).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -198,12 +202,15 @@ def test_shear_kernels_match_plain(cuda, args, dtype):
     before = dict(cuda_shear.LAUNCHES)
     s = cuda_shear.vshear_kernel(q, plan)
     t = cuda_shear.hshear_kernel(s, plan)
+    t2 = cuda_shear.vhshear_kernel(q, plan)
     out = cuda_shear.contract_kernel(t, plan)
     torch.cuda.synchronize()
     assert {k: cuda_shear.LAUNCHES[k] - before[k] for k in before} == {
-        "vshear": 1, "hshear": 1, "contract": 1}
+        "vshear": 1, "hshear": 1, "vhshear": 1, "contract": 1}
     assert torch.equal(s, cuda_shear.vshear_plain(q, plan))
     assert torch.equal(t, cuda_shear.hshear_plain(s, plan))
+    assert torch.equal(t2, cuda_shear.vhshear_plain(q, plan))
+    assert torch.equal(t2, t)
     assert out.dtype == dtype and out.shape == (3, plan.Hd, plan.Wd)
     ref = cuda_shear.contract_plain(t, plan, out_dtype=torch.float32)
     err = (out.double() - ref.double()).abs()
@@ -213,12 +220,15 @@ def test_shear_kernels_match_plain(cuda, args, dtype):
         assert (err <= _bf16_ulp(ref)).all()
 
 
-@pytest.mark.parametrize("stage", ["vshear", "hshear"])
+@pytest.mark.parametrize("stage", ["vshear", "hshear", "vhshear"])
 def test_shear_kernels_write_every_element(cuda, stage):
     _, plan = _rot_plan(ROT_GEOMS[0])
     if stage == "vshear":
         src = _frames((2, plan.qH, plan.qW), torch.float32, cuda)
         shape = (2, plan.TH, plan.qW)
+    elif stage == "vhshear":
+        src = _frames((2, plan.qH, plan.qW), torch.float32, cuda)
+        shape = (2, plan.TH, plan.TW)
     else:
         src = _frames((2, plan.TH, plan.qW), torch.float32, cuda)
         shape = (2, plan.TH, plan.TW)
@@ -234,7 +244,7 @@ def test_shear_kernels_reject_shapes_that_do_not_match_the_plan(cuda):
     before = dict(cuda_shear.LAUNCHES)
     bad = torch.zeros(2, plan.qH + 1, plan.qW, device=cuda)
     for fn in (cuda_shear.vshear_kernel, cuda_shear.hshear_kernel,
-               cuda_shear.contract_kernel):
+               cuda_shear.vhshear_kernel, cuda_shear.contract_kernel):
         with pytest.raises(ValueError, match="for this plan"):
             fn(bad, plan)
     with pytest.raises(ValueError, match="contiguous"):
@@ -254,7 +264,9 @@ def test_rotated_api_routes(cuda, args, dtype):
     got = at.area_average_interpolate(x, sr, dr, iso, angle, mode=mode,
                                       operator=op).dst
     torch.cuda.synchronize()
-    assert all(cuda_shear.LAUNCHES[k] == before[k] + 1 for k in before)
+    # the route: the fused shear (T straight from q), then the contraction
+    assert {k: cuda_shear.LAUNCHES[k] - before[k] for k in before} == {
+        "vshear": 0, "hshear": 0, "vhshear": 1, "contract": 1}
     want_dtype = torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
     assert got.dtype == want_dtype and got.is_cuda
     scale = 255.0 if dtype == torch.uint8 else 1.0
@@ -266,6 +278,77 @@ def test_rotated_api_routes(cuda, args, dtype):
             assert (err <= _bf16_ulp(ref)).all(), impl
         else:
             assert err.max().item() <= 1e-6 * scale, impl
+
+
+# odd source and sheared widths: rows start at every address mod 16
+UNALIGNED_GEOMS = [
+    ((77, 101), 1.0, 0.5, (50.0, 38.0), 30.0, "exact"),    # qW 101, TW 160
+    ((101, 77), 1.0, 0.7, (30.0, 40.0), 17.0, "exact"),    # qW 77, TW 113
+    ((77, 101), 1.0, 0.5, (50.0, 38.0), 250.0, "exact"),   # qW 101, TW 215
+]
+SHEAR_FORMS = ("vshear", "hshear", "vhshear")
+
+
+def _shear_form_case(plan, form, dtype, F, device, in_off, out_off):
+    """One shear form on frames and into a NaN-filled output, both views
+    ``in_off`` / ``out_off`` elements into a buffer (so their rows start
+    at other addresses mod 16); the kernel against its plain version."""
+    src, dst = cuda_shear._form_shapes(plan, form)
+    n_in, n_out = F * src[0] * src[1], F * dst[0] * dst[1]
+    buf = torch.empty(n_in + 16, dtype=dtype, device=device)
+    x = buf[in_off:in_off + n_in].view((F,) + src)
+    x.copy_(_frames((F,) + src, dtype, device, seed=in_off))
+    obuf = torch.full((n_out + 16,), float("nan"), dtype=dtype, device=device)
+    out = obuf[out_off:out_off + n_out].view((F,) + dst)
+    before = cuda_shear.LAUNCHES[form]
+    got = getattr(cuda_shear, f"{form}_kernel")(x, plan, out=out)
+    torch.cuda.synchronize()
+    assert got is out and cuda_shear.LAUNCHES[form] == before + 1
+    want = getattr(cuda_shear, f"{form}_plain")(x, plan)
+    assert torch.equal(out, want), (form, dtype, F, in_off, out_off)
+    # nothing written outside the output
+    assert torch.isnan(obuf[:out_off]).all()
+    assert torch.isnan(obuf[out_off + n_out:]).all()
+
+
+@pytest.mark.parametrize("args", UNALIGNED_GEOMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F", [1, 3])
+def test_shear_forms_unaligned_into_nan_outputs(cuda, args, dtype, F):
+    _, plan = _rot_plan(args)
+    steps = 16 // torch.tensor([], dtype=dtype).element_size()
+    for form in SHEAR_FORMS:
+        for k in range(steps):                  # every start mod 16
+            _shear_form_case(plan, form, dtype, F, cuda, k, (k * 3) % steps)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_shear_forms_smallest_tile(cuda, monkeypatch, dtype):
+    # the last tile shape, which every accepted geometry fits, forced on
+    # every form
+    monkeypatch.setattr(cuda_shear, "_TILES", cuda_shear._TILES[-1:])
+    for args in (ROT_GEOMS[0], UNALIGNED_GEOMS[2]):
+        _, plan = _rot_plan(args)
+        small = dataclasses.replace(plan, tiles={}, dev={})
+        for form in SHEAR_FORMS:
+            t = small.form_tiles(form)
+            assert (t.TY, t.TX) == cuda_shear._TILES[-1]
+            _shear_form_case(small, form, dtype, 3, cuda, 1, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_shear_forms_all_empty_plan(cuda, dtype):
+    # shifts that move every source element out of the output: every tile
+    # is empty and the output all zero fill
+    _, plan = _rot_plan(ROT_GEOMS[0])
+    empty = dataclasses.replace(plan, gy=plan.gy + plan.TH,
+                                hx=plan.hx + plan.TW, tiles={}, dev={})
+    for form in SHEAR_FORMS:
+        assert not empty.form_tiles(form).win.any()
+        _shear_form_case(empty, form, dtype, 2, cuda, 0, 1)
+        src, _ = cuda_shear._form_shapes(empty, form)
+        x = _frames((2,) + src, dtype, cuda)
+        assert not getattr(cuda_shear, f"{form}_kernel")(x, empty).any()
 
 
 def test_rotated_dense_reference(cuda):
