@@ -54,6 +54,7 @@ GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread", "-Wall",
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _I32P = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_I64P = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 _F64P = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 
 
@@ -126,7 +127,11 @@ NATIVE = Library(
     # aai_ell_weights(Hd, Wd, K, qH, qW, p00x, p00y, exx, exy, eyx, eyy,
     #     L, cos, sin, scale, mode, normalise, n_threads, base, w, sums)
     (("aai_ell_weights", (ctypes.c_int,) * 5 + (ctypes.c_double,) * 10
-      + (ctypes.c_int,) * 3 + (_I32P, _F64P, _F64P), None),))
+      + (ctypes.c_int,) * 3 + (_I32P, _F64P, _F64P), None),
+     # aai_compat_cell_areas(n_pix, Km, modH, modW, qvx, qvy, mx0, my0,
+     #     n_threads, areas)
+     ("aai_compat_cell_areas", (ctypes.c_int64,) + (ctypes.c_int,) * 3
+      + (_F64P, _F64P, _I64P, _I64P, ctypes.c_int, _F64P), None)))
 
 _LOADED: Dict[str, ctypes.CDLL] = {}   # library name -> CDLL, once per process
 

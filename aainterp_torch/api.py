@@ -39,6 +39,23 @@ Dtypes follow the route, as in JAX: the kernel routes keep bf16 in ->
 bf16 out (Pallas contract); the plain routes give f32 for bf16 input (XLA
 contract).  uint8 input gives f32 on every route at this level.
 
+Rotated gradients: ``differentiable=True``, or an input that requires
+grad, sends every rotated route through ``autodiff.EllLinear``: the
+route's own forward (on the card the same two kernel launches), and a
+backward that scatters the cotangent into the original image
+(``ops.apply.apply_ell_transpose``, ``index_add_``), returning the
+input's dtype; uint8 raises TypeError.  A CUDA input stays on the
+kernels.
+
+``mode='compat'`` (the reference's exact mode, defects included,
+``ops/compat.py``): an axis-aligned geometry takes ``mode='exact'``; a
+rotated one builds a compat EllOperator (``method='ell'``, native engine)
+whose wider window rides the same rotated routes.  ``fused=True`` (modes
+exact and fast; compat raises ValueError) generates the ELL weights in
+float32 on the input's device (``weights.ell_weights_torch``), chunked
+over dst rows, and applies them with the plain gather; it returns f32
+whatever ``weight_dtype`` says, as JAX's ``_fused_ell_jit`` does.
+
 ``mode='shear'`` (``area_average_interpolate`` only; counterpart of
 api.py:393-460, 606-619): the 3-pass conservative shear approximation
 of ``ops/shear3.py``, with no Operator.  The plan is cached per geometry
@@ -77,10 +94,15 @@ is given, moving a tensor from another device.  Without it a
 list) goes to the GPU, raising RuntimeError where there is none
 (``utils.device.as_input``).
 
+Reference-named front doors (api.py:885-953): ``area_rotate`` (equal
+resolutions, about the image center by default),
+``area_average_interpolation`` (exact) and
+``fast_area_average_interpolation`` (fast), which return
+``(dst, dst_isocenter)``; and ``propagate_variance`` (the squared
+operator on the same routes).
+
 Not yet ported, raising NotImplementedError naming the ROADMAP.md slice
-that brings them: rotated ``mode='compat'``, ``fused=True`` and
-``differentiable=True`` on an EllOperator (slice 3); ``resize``'s
-bilinear and bicubic methods (slice 5).
+that brings them: ``resize``'s bilinear and bicubic methods (slice 5).
 """
 
 from __future__ import annotations
@@ -121,8 +143,15 @@ _SHEAR3_CACHE = LruDict(8, max_bytes=1 << 30)
 # shear plan (see apply_operator)
 SHEAR_PLAN_FALLBACKS = 0
 
-# device copies of ELL tables for the 'gather' route, content-keyed
-_GATHER_CACHE = LruDict(4, max_bytes=4 << 30)
+# dst cells per chunk of the fused route's on-device weight-gen: bounds
+# its clip temporaries (36 vertices per candidate cell)
+_FUSED_CHUNK_CELLS = 1 << 20
+
+# propagate_variance's squared operators, keyed by their parent's tables:
+# squaring and digesting the table of a 2048^2 rotated operator anew cost
+# 0.68 s of host time per call (chip_smoke.py phase 35, "NVIDIA H100 80GB
+# HBM3, 700.00 W" host)
+_SQUARED_CACHE = LruDict(4, max_bytes=4 << 30)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,13 +163,6 @@ class InterpResult:
     spec: GridSpec
 
 
-def _rotated_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is still to come in the PyTorch port's exact rotated "
-        "family (ROADMAP.md slice 3); use the JAX package aainterp "
-        "meanwhile")
-
-
 def build_operator(
     spec: GridSpec,
     mode: str = "exact",
@@ -150,10 +172,10 @@ def build_operator(
     """Build the (host, float64, row-normalised) resampling operator.
 
     method: 'auto' picks separable for zero residual rotation, ELL
-    otherwise.  The ELL weight-gen runs on the native C++ engine (built
-    with g++ at first use) and falls back to numpy with a RuntimeWarning.
-    validate runs the numerical sanitizer (weights.validate_operator) on
-    the result.
+    otherwise.  The ELL weight-gen (modes exact, fast and compat) runs on
+    the native C++ engine (built with g++ at first use) and falls back to
+    numpy with a RuntimeWarning.  validate runs the numerical sanitizer
+    (weights.validate_operator) on the result.
     """
     if mode not in ("exact", "fast", "compat"):
         raise ValueError(
@@ -166,9 +188,6 @@ def build_operator(
     if method == "separable":
         op = weights_ops.separable_operator(spec, mode=mode)
     elif method == "ell":
-        if mode == "compat":
-            raise _rotated_not_ported(
-                "the compat ELL weight-gen (rotated mode='compat')")
         op = weights_ops.ell_operator(spec, mode=mode)
     else:
         raise ValueError(f"unknown method {method!r}")
@@ -197,11 +216,13 @@ def apply_operator(
 ) -> torch.Tensor:
     """Apply a prebuilt operator to (..., H, W) image(s).
 
-    See the module docstring for ``impl`` and ``device``.  Gradients
-    (separable only): the kernel route always carries the transposed-band
-    backward (autodiff.SeparableLinear); ``differentiable=True`` routes
-    the plain banded apply through the same Function (otherwise torch
-    differentiates the plain ops directly).
+    See the module docstring for ``impl`` and ``device``.  Gradients:
+    on a SeparableOperator the kernel route always carries the
+    transposed-band backward (autodiff.SeparableLinear), and
+    ``differentiable=True`` routes the plain banded apply through the same
+    Function (otherwise torch differentiates the plain ops directly); on
+    an EllOperator ``differentiable=True`` or an input that requires grad
+    takes autodiff.EllLinear on every route.
     """
     src = as_input(src, device)
     if isinstance(op, weights_ops.EllOperator):
@@ -244,21 +265,6 @@ def apply_operator(
     return lin(src) if differentiable else lin.forward(src)
 
 
-def _gather_tables(op: weights_ops.EllOperator, weight_dtype: torch.dtype,
-                   device: torch.device):
-    """(base, weights) of ``op`` on ``device``, uploaded once per table
-    content, dtype and device."""
-    key = (array_digest(op.weights), array_digest(op.base),
-           op.weights.shape, weight_dtype, device)
-    hit = _GATHER_CACHE.get(key)
-    if hit is None:
-        hit = (torch.from_numpy(op.base).to(device),
-               torch.from_numpy(op.weights).to(device=device,
-                                                dtype=weight_dtype))
-        _GATHER_CACHE.put(key, hit)
-    return hit
-
-
 def _ell_route(op: weights_ops.EllOperator, impl: str, on_cuda: bool):
     """(route, shear plan or None) for a quadrant-0 (folded) EllOperator.
 
@@ -292,33 +298,24 @@ def _apply_ell_operator(op, src, weight_dtype, impl, differentiable):
     if impl not in ELL_IMPLS:
         raise ValueError(f"unknown impl {impl!r} for an EllOperator; "
                          f"expected one of {ELL_IMPLS}")
-    if differentiable:
-        raise _rotated_not_ported(
-            "differentiable=True on an EllOperator (the ELL custom VJP)")
     autodiff.numpy_weight_dtype(weight_dtype)  # raises on other dtypes
-    post = None
-    if op.spec.quadrant % 4:
+    orig_quadrant = op.spec.quadrant
+    post = post_inv = None
+    if orig_quadrant % 4:
         # the rot90 pre-rotation folds into the table: the apply reads the
-        # ORIGINAL image and only the small output is flipped/transposed
+        # ORIGINAL image and only the small output is flipped/transposed;
+        # the backward carries cotangents through post's inverse
         op, post = weights_ops.fold_quadrant_ell_cached(op)
+        post_inv = weights_ops.ell_fold_post_inv(orig_quadrant)
     qH, qW = op.spec.qrot_shape
     if tuple(src.shape[-2:]) != (qH, qW):
         raise ValueError(f"source (..., H, W) must end in {(qH, qW)} for "
                          f"this operator, got {tuple(src.shape)}")
     route, plan = _ell_route(op, impl, src.is_cuda)
-    if route == "gather":
-        base, w = _gather_tables(op, weight_dtype, src.device)
-        out = apply_ops.apply_ell(src, base, w)
-    else:
-        # the shear pipeline computes in f32 whatever weight_dtype says
-        lead = src.shape[:-2]
-        frames = src.reshape((-1, qH, qW))
-        if route == "kernel":
-            out = cuda_shear.apply_ell_shear_kernel(frames.contiguous(), plan)
-        else:
-            out = cuda_shear.apply_ell_shear_plain(frames, plan,
-                                                   out_dtype=torch.float32)
-        out = out.reshape(lead + out.shape[-2:])
+    if differentiable or src.requires_grad:
+        return autodiff.ell_linear_for(op, route, plan, weight_dtype, post,
+                                       post_inv, orig_quadrant)(src)
+    out = autodiff.ell_forward(op, route, plan, src, weight_dtype)
     return out if post is None else post(out)
 
 
@@ -374,8 +371,9 @@ def area_average_interpolate(
     ``src`` is a (..., H, W) tensor; resolutions are scalar; ``src_isocenter``
     is (x, y) in source pixels; ``rotation_angle`` is degrees, clockwise
     positive.  mode: 'exact' (true overlap areas), 'fast' (replica-center
-    counting, Source.cpp mode 2), 'compat' (equal to 'exact' when the
-    geometry is axis-aligned; rotated compat is not ported yet) or 'shear'
+    counting, Source.cpp mode 2), 'compat' (the reference's exact mode,
+    its rotated type-2 area defect included, for bit-compatible migration;
+    PARITY.md; equal to 'exact' when the geometry is axis-aligned) or 'shear'
     (the 3-pass conservative shear approximation, ops/shear3.py: exact
     flux conservation, bilinear-class smearing against the exact operator;
     axis-aligned geometries fall through to 'exact').  For the first three
@@ -384,7 +382,10 @@ def area_average_interpolate(
     and the apply takes apply_operator's auto route.  With mode='shear' no
     Operator is built: ``method`` picks the route ('auto', 'kernel',
     'plain'; module docstring) and ``shear_decomposition`` the plan
-    ('quality' or 'fast').  ``device``: see the module docstring.
+    ('quality' or 'fast').  ``fused=True`` (exact and fast) builds no host
+    operator: the weights are generated on the input's device in float32
+    and applied by the plain gather (module docstring).  ``device``: see
+    the module docstring.
     """
     if mode not in ("exact", "fast", "compat", "shear"):
         raise ValueError(
@@ -417,21 +418,45 @@ def area_average_interpolate(
                                 differentiable)
             return InterpResult(dst=dst, dst_isocenter=spec.dst_isocenter,
                                 spec=spec)
-    if fused:
-        raise _rotated_not_ported(
-            "fused=True (on-device ELL weight-gen, a torch ell_weights)")
     if mode == "compat" and method == "auto":
-        if not spec.is_axis_aligned:
-            raise _rotated_not_ported(
-                "rotated mode='compat' (the reference's exact-mode defects, "
-                "ops/compat.py)")
-        # axis-aligned compat == exact separable (no taxonomy involved)
-        mode = "exact"
+        # axis-aligned compat == exact separable (no taxonomy involved);
+        # rotated compat is an ELL operator (api.py:588-597)
+        if spec.is_axis_aligned:
+            mode = "exact"
+        else:
+            method = "ell"
+    if fused:
+        if mode not in ("exact", "fast"):
+            raise ValueError(
+                "fused weight-gen supports mode='exact'/'fast' only "
+                "(compat weight-gen is host-side, ops/compat.py)")
+        dst = _apply_fused(spec, src, mode)
+        return InterpResult(dst=dst, dst_isocenter=spec.dst_isocenter,
+                            spec=spec)
     if operator is None:
         operator = build_operator(spec, mode=mode, method=method)
     dst = apply_operator(operator, src, weight_dtype=weight_dtype,
                          impl=impl, differentiable=differentiable)
     return InterpResult(dst=dst, dst_isocenter=spec.dst_isocenter, spec=spec)
+
+
+def _apply_fused(spec: GridSpec, src: torch.Tensor,
+                 mode: str) -> torch.Tensor:
+    """Weight-gen and apply on the input's device, chunked over dst rows
+    (the counterpart of api.py:114-129): float32 ELL weights
+    (``weights.ell_weights_torch``) and the plain gather, f32 out.  A
+    chunk's weights equal those of one piece; only the gather's summation
+    order may follow the chunk's shape."""
+    q = apply_ops.quadrant_rotate(src, spec.quadrant)
+    Hd, Wd = spec.dst_shape
+    K = spec.window_cells
+    rows = max(1, _FUSED_CHUNK_CELLS // max(Wd * K * K, 1))
+    outs = []
+    for dy0 in range(0, Hd, rows):
+        base, w, _ = weights_ops.ell_weights_torch(
+            spec, mode, (dy0, min(dy0 + rows, Hd)), device=q.device)
+        outs.append(apply_ops.apply_ell(q, base, w))
+    return torch.cat(outs, dim=-2)
 
 
 def _unit_resize_band(n_src: int, n_dst: int) -> Band1D:
@@ -626,3 +651,72 @@ def area_pyramid(image, num_levels: int, *, factor: int = 2,
             break
         levels.append(area_resize(levels[-1], nxt, **kwargs))
     return levels
+
+
+def area_rotate(image, angle: float, *, isocenter=None, mode: str = "exact",
+                device: Device = None, **kwargs) -> torch.Tensor:
+    """Flux-conserving rotation of (..., H, W) about ``isocenter``
+    (default: the image center, (W/2, H/2) in (x, y) source pixels).
+
+    ``area_average_interpolate`` at equal source and destination
+    resolution: each output pixel is the exact overlap-area-weighted mean
+    of the input pixels under the rotated footprint.  Returns the rotated
+    array; use ``area_average_interpolate`` for the destination isocenter.
+    kwargs pass to it (``method``, ``operator``, ``differentiable``, ...).
+    """
+    image = as_input(image, device)
+    H, W = image.shape[-2], image.shape[-1]
+    if isocenter is None:
+        isocenter = (W / 2.0, H / 2.0)
+    return area_average_interpolate(
+        image, 1.0, 1.0, isocenter, angle, mode=mode, **kwargs).dst
+
+
+def propagate_variance(op: Operator, var, *, impl: str = "auto",
+                       weight_dtype: torch.dtype = torch.float32,
+                       device: Device = None) -> torch.Tensor:
+    """Exact variance map of a resampled image: ``Var(out) = A2 @ var``
+    where A2 is ``op`` with elementwise-squared weights
+    (``weights.squared_operator``), for independent input pixels (a
+    diagonal input covariance).  Correlated inputs need the full A Σ A^T,
+    which this does not compute.  Rides ``apply_operator``'s routes (the
+    kernels on the card), so a (mean, variance) pair costs two applies.
+    The squared operator is cached by the parent's table content.
+    """
+    if isinstance(op, weights_ops.EllOperator):
+        tables = (op.weights, op.base)
+    elif isinstance(op, weights_ops.SeparableOperator):
+        tables = (op.wy.weights, op.wy.start, op.wx.weights, op.wx.start)
+    else:
+        raise TypeError(f"unknown operator type {type(op)!r}")
+    key = (type(op).__name__, op.spec) + tuple(array_digest(t)
+                                                 for t in tables)
+    sq = _SQUARED_CACHE.get(key)
+    if sq is None:
+        sq = weights_ops.squared_operator(op)
+        _SQUARED_CACHE.put(key, sq)
+    return apply_operator(sq, var, weight_dtype=weight_dtype, impl=impl,
+                          device=device)
+
+
+# ----------------------------------------------------------------------
+# Reference-named wrappers (Source.cpp API surface)
+# ----------------------------------------------------------------------
+
+
+def area_average_interpolation(src, src_resolution, dst_resolution,
+                               src_isocenter, rotation_angle, **kwargs):
+    """Reference-parity wrapper: exact mode.  Returns (dst, dst_isocenter)."""
+    r = area_average_interpolate(
+        src, src_resolution, dst_resolution, src_isocenter, rotation_angle,
+        mode="exact", **kwargs)
+    return r.dst, r.dst_isocenter
+
+
+def fast_area_average_interpolation(src, src_resolution, dst_resolution,
+                                    src_isocenter, rotation_angle, **kwargs):
+    """Reference-parity wrapper: fast mode.  Returns (dst, dst_isocenter)."""
+    r = area_average_interpolate(
+        src, src_resolution, dst_resolution, src_isocenter, rotation_angle,
+        mode="fast", **kwargs)
+    return r.dst, r.dst_isocenter

@@ -1,14 +1,16 @@
-"""Apply stage, plain PyTorch: the separable banded apply, the box mean
-and the ELL (rotated) gather apply.
+"""Apply stage, plain PyTorch: the separable banded and dense applies,
+the box mean, the ELL (rotated) gather apply and its scatter adjoint.
 
 Counterpart of the plain part of ``aainterp/ops/apply.py``.  These are
 the reference implementations the CUDA kernels (``ops/cuda_apply.py``,
 ``ops/cuda_shear.py``, ``ops/cuda_apply_2d.py``) are held to, and the
 routes a CPU tensor takes.  The aligned integer-ratio applies and the
 one-axis band contraction serve the band-operator family (``regrid.py``,
-the area-resize front doors).  The stencil path and the dense apply wait
-for slice 2's remainder, the ELL transpose for the rest of slice 3
-(ROADMAP.md).
+the area-resize front doors).  ``apply_ell_transpose`` is the backward of
+the rotated apply on every route and device: the JAX package computes it
+with XLA's scatter outside any Pallas kernel, and here it is
+``index_add_``, whose CUDA form sums with atomics in no fixed order.  The
+strided-stencil path (JAX's ``impl='stencil'``) is not ported.
 
 Accumulation is float32 (or the weight dtype) regardless of image dtype,
 and the output is in the accumulation dtype: bf16 or uint8 pixels give a
@@ -237,6 +239,20 @@ def apply_box_mean(q: torch.Tensor, my: int, mx: int,
     return o * torch.tensor(1.0 / (my * mx), dtype=acc_dtype, device=o.device)
 
 
+def apply_separable_dense(q: torch.Tensor, wy: torch.Tensor,
+                          wx: torch.Tensor) -> torch.Tensor:
+    """dst = Wy @ q @ Wx.T with dense (Hd, H) / (Wd, W) operators.
+
+    Two matrix products, in float32 (float64 when ``wy`` is float64):
+    wasteful for narrow bands, but a cross-check of the banded applies
+    and a route for very wide bands.  The operators must lie on q's
+    device.
+    """
+    acc = torch.float64 if wy.dtype == torch.float64 else torch.float32
+    t = torch.einsum("yh,...hw->...yw", wy.to(acc), q.to(acc))
+    return torch.einsum("...yw,xw->...yx", t, wx.to(acc))
+
+
 def apply_ell(
     q: torch.Tensor,
     base: torch.Tensor,     # (Hd, Wd, 2) int
@@ -263,3 +279,33 @@ def apply_ell(
     vals = q.reshape(lead + (qH * qW,)).index_select(-1, idx.reshape(-1))
     vals = vals.reshape(lead + tuple(idx.shape)).to(weights.dtype)
     return (vals * w_t).sum(dim=-3)
+
+
+def apply_ell_transpose(
+    g: torch.Tensor,
+    base: torch.Tensor,     # (Hd, Wd, 2) int
+    weights: torch.Tensor,  # (Hd, Wd, K, K)
+    q_shape,
+) -> torch.Tensor:
+    """Adjoint of ``apply_ell``: scatter dst cotangents into source cells.
+
+    out[jy, jx] = sum over (dy, dx, a, b) with clip(base[dy,dx] + (a,b))
+    == (jy, jx) of weights[dy,dx,a,b] * g[..., dy, dx] — the exact
+    transpose of the matrix ``apply_ell`` evaluates (indices clipped the
+    same way; clipped taps carry zero weight).  ``index_add_`` in the
+    weights' dtype; on a CUDA tensor its atomics sum each source cell's
+    terms in no fixed order, so two runs may differ by a few float
+    roundings.  g: (..., Hd, Wd) -> (..., qH, qW), on g's device (the
+    tables must lie there too).
+    """
+    qH, qW = int(q_shape[0]), int(q_shape[1])
+    K = weights.shape[-1]
+    lead = g.shape[:-2]
+    a = torch.arange(K, dtype=torch.int64, device=base.device)
+    ry = (base[..., 0:1].to(torch.int64) + a).clamp_(0, qH - 1)  # (Hd, Wd, K)
+    rx = (base[..., 1:2].to(torch.int64) + a).clamp_(0, qW - 1)
+    idx = (ry[..., :, None] * qW + rx[..., None, :]).reshape(-1)
+    contrib = weights * g[..., None, None].to(weights.dtype)
+    out = torch.zeros(lead + (qH * qW,), dtype=weights.dtype, device=g.device)
+    out.index_add_(-1, idx, contrib.reshape(lead + (-1,)))
+    return out.reshape(lead + (qH, qW))

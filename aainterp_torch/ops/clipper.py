@@ -1,8 +1,12 @@
 """Exact quad∩cell overlap areas, branch-free and fully elementwise.
 
-Counterpart of ``aainterp/ops/clipper.py``, numpy path only (host
-float64 weight-gen), carried over: the same operations in the same order,
-so the areas are bit-identical to the JAX package's numpy path.
+Counterpart of ``aainterp/ops/clipper.py``, carried over.  The numpy
+path (host float64 weight-gen) does the same operations in the same
+order, so its areas are bit-identical to the JAX package's numpy path.
+The torch path (``quad_vertices_torch``, ``quad_rect_overlap_area_torch``;
+any device and float dtype) repeats them on tensors, the counterpart of
+the JAX package's jax.numpy path that the fused on-device weight-gen runs
+in float32.
 
 This routine replaces the reference's whole overlap-area engine
 (Source.cpp:914-1431: intersection points and types, the per-cell state
@@ -25,6 +29,7 @@ stay about the dst side length.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def _interleave3(a, b, c):
@@ -99,6 +104,69 @@ def quad_vertices(px, py, dst_side, cos_v, sin_v):
     h = dst_side / 2.0
     us = np.asarray([-h, h, h, -h], dtype=px.dtype)
     vs = np.asarray([-h, -h, h, h], dtype=px.dtype)
+    qx = px[..., None] + us * cos_v + vs * sin_v
+    qy = py[..., None] - us * sin_v + vs * cos_v
+    return qx, qy
+
+
+# ---------------------------------------------------------------------------
+# torch path: the same operations in the same order, on tensors
+# ---------------------------------------------------------------------------
+
+
+def _interleave3_torch(a, b, c):
+    out = torch.stack([a, b, c], dim=-1)
+    return out.reshape(a.shape[:-1] + (3 * a.shape[-1],))
+
+
+def _clamp_pass_torch(u, w, lo, hi):
+    """``_clamp_pass`` on tensors."""
+    u_n = torch.roll(u, -1, dims=-1)
+    w_n = torch.roll(w, -1, dims=-1)
+
+    du = u_n - u
+    safe = torch.where(du != 0.0, du, 1.0)
+
+    cross_lo = (u < lo) != (u_n < lo)
+    cross_hi = (u > hi) != (u_n > hi)
+    t_lo = torch.where(cross_lo, (lo - u) / safe, 2.0)
+    t_hi = torch.where(cross_hi, (hi - u) / safe, 2.0)
+
+    t1 = torch.minimum(t_lo, t_hi)
+    t2 = torch.maximum(t_lo, t_hi)
+    pick_lo = t_lo <= t_hi
+    lo_u, hi_u = lo + torch.zeros_like(u), hi + torch.zeros_like(u)
+    u1 = torch.where(pick_lo, lo_u, hi_u)
+    u2 = torch.where(pick_lo, hi_u, lo_u)
+
+    uc = torch.minimum(torch.maximum(u, lo), hi)
+    has1 = t1 <= 1.0
+    has2 = t2 <= 1.0
+
+    s1_u = torch.where(has1, u1, uc)
+    s1_w = torch.where(has1, w + t1 * (w_n - w), w)
+    s2_u = torch.where(has2, u2, s1_u)
+    s2_w = torch.where(has2, w + t2 * (w_n - w), s1_w)
+
+    return (_interleave3_torch(uc, s1_u, s2_u),
+            _interleave3_torch(w, s1_w, s2_w))
+
+
+def quad_rect_overlap_area_torch(quad_x, quad_y, lo_x, lo_y, hi_x, hi_y):
+    """``quad_rect_overlap_area`` on tensors of one float dtype."""
+    vx, vy = _clamp_pass_torch(quad_x, quad_y, lo_x[..., None],
+                               hi_x[..., None])
+    vy, vx = _clamp_pass_torch(vy, vx, lo_y[..., None], hi_y[..., None])
+    x_n = torch.roll(vx, -1, dims=-1)
+    y_n = torch.roll(vy, -1, dims=-1)
+    return 0.5 * torch.abs(torch.sum(vx * y_n - x_n * vy, dim=-1))
+
+
+def quad_vertices_torch(px, py, dst_side, cos_v, sin_v):
+    """``quad_vertices`` on tensors: (...,) centers -> (..., 4) x and y."""
+    h = dst_side / 2.0
+    us = torch.tensor([-h, h, h, -h], dtype=px.dtype, device=px.device)
+    vs = torch.tensor([-h, -h, h, h], dtype=px.dtype, device=px.device)
     qx = px[..., None] + us * cos_v + vs * sin_v
     qy = py[..., None] - us * sin_v + vs * cos_v
     return qx, qy

@@ -2,7 +2,7 @@
 
 Counterpart of ``aainterp/ops/overlap1d.py`` (host numpy, carried over so
 the port never imports the JAX package; the tests hold both to identical
-tables).  ``compose_band`` waits for the separable-family slice.
+tables).
 
 For axis-aligned resampling (residual rotation == 0) the exact overlap area
 between a destination pixel and a source cell factors into a product of two
@@ -217,3 +217,46 @@ def flip_band(band: Band1D) -> Band1D:
                               np.clip(old_tap, 0, K - 1)], 0.0)
     return Band1D(start=start_new.astype(np.int32), weights=w,
                   n_src=band.n_src, n_dst=band.n_dst)
+
+
+def compose_band(outer: Band1D, inner: Band1D) -> Band1D:
+    """Band of the matrix product ``outer @ inner`` (one fused operator).
+
+    ``inner`` maps n_src -> n_mid and ``outer`` maps n_mid -> n_dst; the
+    product of two banded operators is banded (width < inner.band +
+    outer.band * stride), so a multi-stage resampling pipeline — e.g.
+    coarsen then regrid, or two chained resizes — collapses into ONE
+    banded apply: one pass over the pixels instead of one per stage,
+    with the intermediate image never materialised.  Exact (float64
+    host arithmetic); row-normalised inputs stay row-normalised.
+    """
+    if outer.n_src != inner.n_dst:
+        raise ValueError(
+            f"outer.n_src ({outer.n_src}) != inner.n_dst ({inner.n_dst})")
+    n_dst, n_src = outer.n_dst, inner.n_src
+    ko, ki = outer.band, inner.band
+    j = outer.start.astype(np.int64)[:, None] + np.arange(ko)[None, :]
+    valid = (j >= 0) & (j < inner.n_dst) & (outer.weights != 0.0)
+    jc = np.clip(j, 0, inner.n_dst - 1)
+    s_inner = inner.start.astype(np.int64)[jc]          # (n_dst, ko)
+    big = np.iinfo(np.int64).max
+    lo = np.where(valid, s_inner, big).min(axis=1)
+    hi = np.where(valid, s_inner + ki, 0).max(axis=1)
+    empty = ~valid.any(axis=1)
+    lo = np.where(empty, 0, lo)
+    hi = np.where(empty, 1, hi)
+    Kc = int((hi - lo).max())
+    # reference clamp convention: start + band - 1 < n_src when possible
+    start = np.clip(np.minimum(lo, n_src - Kc), 0, None)
+    w = np.zeros((n_dst, Kc), dtype=np.float64)
+    rows = np.repeat(np.arange(n_dst), ki)
+    taps = np.arange(ki)[None, :]
+    for t in range(ko):
+        off = s_inner[:, t] - start                      # (n_dst,) >= 0
+        contrib = (outer.weights[:, t:t + 1]
+                   * inner.weights[jc[:, t]]
+                   * valid[:, t:t + 1])
+        cols = np.clip(off[:, None] + taps, 0, Kc - 1).ravel()
+        np.add.at(w, (rows, cols), contrib.ravel())
+    return Band1D(start=start.astype(np.int32), weights=w,
+                  n_src=n_src, n_dst=n_dst)

@@ -1,10 +1,13 @@
 """Weight-generation: the resampling operators from a GridSpec.
 
 Counterpart of ``aainterp/ops/weights.py`` (host numpy float64, carried
-over): the separable operator (axis-aligned geometries) and the ELL
-operator (rotated geometries), with the operator sanitizer and the
-quadrant folds.  The compose and squared operators wait for slice 2, the
-compat ELL weight-gen for the rest of slice 3 (ROADMAP.md).
+over): the separable operator (axis-aligned geometries), its composition
+(``compose_separable``) and the ELL operator (rotated geometries; modes
+exact, fast and the reference-compatible compat of ``ops/compat.py``),
+with the operator sanitizer, the squared operator of variance maps and
+the quadrant folds.  ``ell_weights_torch`` is the ELL weight-gen on
+tensors (any device, float32 by default), the counterpart of the JAX
+package's jax.numpy path that its fused route runs on the device.
 
 Weight-gen is a data-independent stage producing a static-shape operator
 with ``dst = (Wy @ q) @ Wx.T`` where each row of Wy / Wx is pre-normalised
@@ -29,8 +32,10 @@ import torch
 from ..grids import DBL_EPSILON, GridSpec
 from ..utils.digest import array_digest
 from ..utils.lru import LruDict
+from . import compat as compat_ops
 from . import overlap1d
-from .clipper import quad_rect_overlap_area, quad_vertices
+from .clipper import (quad_rect_overlap_area, quad_rect_overlap_area_torch,
+                      quad_vertices, quad_vertices_torch)
 
 # folded quadrant ELL operators, content-keyed (fold_quadrant_ell_cached);
 # the fold copies the (Hd, Wd, K, K) table, hundreds of MB at 2048^2
@@ -94,6 +99,53 @@ def separable_operator(spec: GridSpec, mode: str = "exact") -> SeparableOperator
     bx_n, sx = _normalise_band(bx)
     return SeparableOperator(spec=spec, wy=by_n, wx=bx_n,
                              raw_row_sums=(sy, sx), mode=mode)
+
+
+def compose_separable(outer: SeparableOperator,
+                      inner: SeparableOperator) -> SeparableOperator:
+    """Fuse two axis-aligned resampling stages into ONE operator.
+
+    ``inner`` maps the source grid to an intermediate grid, ``outer``
+    maps that intermediate to the final grid; the returned operator is
+    their exact matrix product per axis (overlap1d.compose_band, float64
+    host arithmetic), so a chained pipeline runs as a single banded
+    apply: one pass over the pixels, the intermediate image never
+    materialised, every apply and autograd path available unchanged.
+    Row-normalised stages compose to a row-normalised operator (rows of
+    W2 @ W1 sum to 1).
+
+    Both stages must be quadrant-0 (fold a quadrant rotation into one of
+    the stages before composing).  Metadata: dst-side fields (shape,
+    side, isocenter, raw_row_sums, mode) come from ``outer``; source-
+    side fields from ``inner``.
+    """
+    if inner.spec.quadrant != 0 or outer.spec.quadrant != 0:
+        raise ValueError(
+            "compose_separable requires quadrant-0 stages (fold the "
+            "rot90 into a single stage before composing)")
+    if (outer.wy.n_src, outer.wx.n_src) != (inner.wy.n_dst,
+                                            inner.wx.n_dst):
+        raise ValueError(
+            f"stage shapes don't chain: outer source "
+            f"{(outer.wy.n_src, outer.wx.n_src)} != inner dst "
+            f"{(inner.wy.n_dst, inner.wx.n_dst)}")
+    spec = dataclasses.replace(
+        outer.spec,
+        src_shape=inner.spec.src_shape,
+        src_resolution=inner.spec.src_resolution,
+        src_isocenter=inner.spec.src_isocenter,
+        scale=inner.spec.scale,
+        qrot_shape=inner.spec.qrot_shape,
+        mod_shape=inner.spec.mod_shape,
+        mod_isocenter=inner.spec.mod_isocenter,
+    )
+    return SeparableOperator(
+        spec=spec,
+        wy=overlap1d.compose_band(outer.wy, inner.wy),
+        wx=overlap1d.compose_band(outer.wx, inner.wx),
+        raw_row_sums=outer.raw_row_sums,
+        mode=outer.mode,
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -347,21 +399,159 @@ def ell_weights(
     return base, w, sums
 
 
+def _window_base_torch(p, radius, scale, n, K):
+    """``_window_base`` on a tensor: int32 first candidate cells."""
+    j0 = torch.floor((p - radius + 0.5) / scale - 1.0).to(torch.int32) + 1
+    return torch.clamp(j0, 0, max(n - K, 0))
+
+
+def ell_weights_torch(
+    spec: GridSpec,
+    mode: str = "exact",
+    dy_slice: Optional[Tuple[int, int]] = None,
+    *,
+    device=None,
+    dtype: torch.dtype = torch.float32,
+):
+    """``ell_weights`` on tensors, on ``device`` in ``dtype``: (base (R, Wd,
+    2) int32, weights (R, Wd, K, K), sums (R, Wd)) for dst rows [dy0, dy1),
+    rows normalised.
+
+    The counterpart of the JAX package's jax.numpy path (weights.py:271-
+    386), which its fused route runs on the device in float32: the same
+    operations in the same order.  Geometry in dst-local coordinates keeps
+    float32 accurate to about 1e-6.  The float32 normalisation guard is
+    1e-12, as there.
+    """
+    Hd, Wd = spec.dst_shape
+    dy0, dy1 = dy_slice if dy_slice is not None else (0, Hd)
+    R = dy1 - dy0
+    K = spec.window_cells
+    qH, qW = spec.qrot_shape
+    s = float(spec.scale)
+    L = float(spec.dst_side)
+    c, sn = float(spec.cos), float(spec.sin)
+
+    p00, ex, ey = (tuple(float(v) for v in t) for t in spec.linear_map)
+    dx = torch.arange(Wd, dtype=dtype, device=device)
+    dy = torch.arange(dy0, dy1, dtype=dtype, device=device)
+    px = p00[0] + dx[None, :] * ex[0] + dy[:, None] * ey[0]   # (R, Wd)
+    py = p00[1] + dx[None, :] * ex[1] + dy[:, None] * ey[1]
+
+    radius = L * (abs(c) + abs(sn)) / 2.0
+    jy0 = _window_base_torch(py, radius, s, qH, K)             # (R, Wd)
+    jx0 = _window_base_torch(px, radius, s, qW, K)
+
+    a = torch.arange(K, dtype=dtype, device=device)
+    jy = jy0[..., None].to(dtype) + a                          # (R, Wd, K)
+    jx = jx0[..., None].to(dtype) + a
+
+    # local coordinates relative to the dst pixel center (px, py)
+    cell_ylo = jy * s - 0.5 - py[..., None]
+    cell_xlo = jx * s - 0.5 - px[..., None]
+
+    if mode == "exact":
+        zero = torch.zeros((R, Wd), dtype=dtype, device=device)
+        qx, qy = quad_vertices_torch(zero, zero, L, c, sn)     # (R, Wd, 4)
+        lo_y = (cell_ylo[..., :, None]
+                + torch.zeros_like(cell_xlo[..., None, :]))
+        lo_x = (cell_xlo[..., None, :]
+                + torch.zeros_like(cell_ylo[..., :, None]))
+        w = quad_rect_overlap_area_torch(
+            qx[..., None, None, :].expand(R, Wd, K, K, 4),
+            qy[..., None, None, :].expand(R, Wd, K, K, 4),
+            lo_x,
+            lo_y,
+            lo_x + s,
+            lo_y + s,
+        )
+        # zero out numerical slivers (see ell_weights)
+        extent = K * s + L
+        sliver = 64.0 * torch.finfo(dtype).eps * extent * extent
+        w = torch.where(w > sliver, w, torch.zeros_like(w))
+    elif mode == "fast":
+        # count replica centers inside the rotated dst square (ell_weights)
+        eps = 1e-9
+        w = torch.zeros((R, Wd, K, K), dtype=dtype, device=device)
+        scale_i = int(spec.scale)
+        for my in range(scale_i):
+            for mx in range(scale_i):
+                cy = (cell_ylo + 0.5 + my)[..., :, None]       # (R, Wd, K, 1)
+                cx = (cell_xlo + 0.5 + mx)[..., None, :]       # (R, Wd, 1, K)
+                u = cx * c - cy * sn
+                v = cx * sn + cy * c
+                inside = torch.logical_and(
+                    torch.abs(u) <= L / 2.0 + eps,
+                    torch.abs(v) <= L / 2.0 + eps)
+                w = w + inside.to(dtype)
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+
+    # mask out-of-range cells
+    valid = torch.logical_and(
+        torch.logical_and(jy[..., :, None] >= 0, jy[..., :, None] <= qH - 1),
+        torch.logical_and(jx[..., None, :] >= 0, jx[..., None, :] <= qW - 1),
+    )
+    w = torch.where(valid, w, torch.zeros_like(w))
+
+    sums = torch.sum(w, dim=(-1, -2))
+    guard = DBL_EPSILON if dtype == torch.float64 else 1e-12
+    safe = torch.where(torch.abs(sums) > guard, sums, torch.ones_like(sums))
+    w = torch.where(
+        (torch.abs(sums) > guard)[..., None, None], w / safe[..., None, None],
+        torch.zeros_like(w),
+    )
+    base = torch.stack([jy0, jx0], dim=-1)
+    return base, w, sums
+
+
+def _compat_operator(spec: GridSpec, row_chunk: int,
+                     prefer_native: bool) -> EllOperator:
+    """The compat ELL operator, chunked over dst rows (the per-cell state
+    machine is memory-heavy), as weights.py:399-419 does; ``row_chunk``
+    rows at a time, or the JAX package's sizing where it is <= 0."""
+    Hd, Wd = spec.dst_shape
+    Km = spec.window_cells  # proxy for sizing
+    chunk = (row_chunk if row_chunk > 0
+             else max(1, int(2.0e6 / max(Wd * Km * Km, 1))))
+    numpy_before = compat_ops.ENGINES["numpy"]
+    base = None
+    for dy0 in range(0, Hd, chunk):
+        dy1 = min(dy0 + chunk, Hd)
+        b, w_c, s_c = compat_ops.compat_ell_weights(
+            spec, dy_slice=(dy0, dy1), prefer_native=prefer_native)
+        if base is None:
+            Kc = w_c.shape[-1]
+            base = np.empty((Hd, Wd, 2), dtype=np.int32)
+            w = np.empty((Hd, Wd, Kc, Kc), dtype=np.float64)
+            sums = np.empty((Hd, Wd), dtype=np.float64)
+        base[dy0:dy1] = b
+        w[dy0:dy1] = w_c
+        sums[dy0:dy1] = s_c
+    engine = ("numpy" if compat_ops.ENGINES["numpy"] > numpy_before
+              else "native")
+    WEIGHT_GEN_ENGINES[engine] += 1
+    return EllOperator(spec=spec, base=base, weights=w, raw_row_sums=sums,
+                       mode="compat")
+
+
 def ell_operator(spec: GridSpec, mode: str = "exact", row_chunk: int = 0,
                  prefer_native: bool = True) -> EllOperator:
-    """Host (float64) ELL operator, modes 'exact' and 'fast'.
+    """Host (float64) ELL operator, modes 'exact', 'fast' and 'compat'.
 
     Uses the multithreaded native C++ engine (``aainterp_torch.native``,
     built with g++ at first use; about 10-50x the numpy path on large
-    grids, equal to it within 1e-13), falling back to numpy chunked over
-    dst rows with a RuntimeWarning when the engine cannot be built or
-    loaded.  ``WEIGHT_GEN_ENGINES`` counts which engine ran.
+    grids, equal to it within 1e-13 in modes exact and fast and bit for
+    bit in compat), falling back to numpy chunked over dst rows with a
+    RuntimeWarning when the engine cannot be built or loaded.
+    ``WEIGHT_GEN_ENGINES`` counts which engine ran ('numpy' where any
+    chunk of a compat operator took the replica).  The compat window
+    (``ops/compat.py``) may exceed ``spec.window_cells``.  ``row_chunk``
+    sets the dst rows per chunk of the numpy and compat paths (<= 0: sized
+    to bound their temporaries); chunking changes no value.
     """
     if mode == "compat":
-        raise NotImplementedError(
-            "the compat (bug-for-bug reference) ELL weight-gen is still to "
-            "come in the PyTorch port (ROADMAP.md slice 3, ops/compat.py); "
-            "use mode='exact' or 'fast', or the JAX package")
+        return _compat_operator(spec, row_chunk, prefer_native)
     if mode not in ("exact", "fast"):
         raise ValueError(f"unknown mode {mode!r}")
     if prefer_native:
@@ -398,6 +588,28 @@ def ell_operator(spec: GridSpec, mode: str = "exact", row_chunk: int = 0,
     WEIGHT_GEN_ENGINES["numpy"] += 1
     return EllOperator(spec=spec, base=base, weights=weights,
                        raw_row_sums=sums, mode=mode)
+
+
+def squared_operator(op):
+    """The same operator with elementwise-SQUARED weights.
+
+    For a linear resampling ``out = sum_j w_j x_j`` of independent
+    pixels, ``Var(out) = sum_j w_j^2 Var(x_j)`` — and the squared
+    operator stays banded/separable (the combined separable weight
+    wy*wx squares to wy^2 * wx^2), so variance maps ride the exact same
+    apply kernels.  Row sums are intentionally NOT renormalised (they
+    are < 1 for any genuine average); do not validate_operator the
+    result.  raw_row_sums are kept from the parent (unused by applies).
+    """
+    if isinstance(op, SeparableOperator):
+        def sq(b: overlap1d.Band1D) -> overlap1d.Band1D:
+            return overlap1d.Band1D(start=b.start, weights=b.weights ** 2,
+                                    n_src=b.n_src, n_dst=b.n_dst)
+
+        return dataclasses.replace(op, wy=sq(op.wy), wx=sq(op.wx))
+    if isinstance(op, EllOperator):
+        return dataclasses.replace(op, weights=op.weights ** 2)
+    raise TypeError(f"unknown operator type {type(op)!r}")
 
 
 def fold_quadrant_ell(op: EllOperator):

@@ -24,7 +24,16 @@ points (``aainterp_torch.area_average_interpolate`` for the first three):
   (``area_resize``, ``area_pyramid``) on 4K frames, on the 2-D
   banded-tile kernel of ``csrc/separable_apply_2d.cu`` (every dtype on
   the card, the f32 config-5 regrid too), and its gradient, whose backward
-  is the same kernel on the transposed bands.
+  is the same kernel on the transposed bands;
+* the rest of the exact rotated family and the reference-named front doors
+  (phases 31-36), on the rotated flagship's frames: ``mode='compat'`` (the
+  reference's exact mode, native weight-gen, its wider window on the same
+  two rotated kernels), the ELL custom gradient (``differentiable=True``,
+  quadrants 0 and 1: the kernel forward, a scatter-add backward),
+  ``fused=True`` (float32 weight-gen and gather on the card, no kernel),
+  ``area_rotate`` (equal resolution, 2798^2 out), the transposed apply and
+  variance maps at both flagships (kernel 1; the rotated kernels), and
+  ``compose_separable`` of 4K -> 1080p -> 540p on kernel 1.
 
 It builds every kernel from ``aainterp_torch/csrc`` with nvcc (and the
 host engine ``native/aainterp_native.cpp`` with g++), all compilers at
@@ -68,14 +77,31 @@ same bf16 operands summed in the same order); the aligned route against
 the kernel rtol 1e-6, atol 1e-3; the kernel route's gradient against the
 banded route's rtol 1e-5, atol 1e-6; masked coverage atol 1e-6; the
 spherical-area mean of the regrid within 1e-6 relative of the input's,
-in float64; dense float64 reference rtol 1e-6.  TF32 is switched off for
-matmul and cuDNN so the plain versions' and library calls' einsums run
-in full f32.
+in float64; dense float64 reference rtol 1e-6.  The rest of the rotated
+family: compat on the kernel route against its 'gather' route f32 atol
+1e-6 on [0, 1] inputs and bf16 within one bf16 ulp, the native compat
+areas equal to the numpy replica bit for bit, dense float64 reference
+atol 1e-6; the differentiable forward equal to the kernel route bit for
+bit, its gradient against native autograd of the plain gather f32 atol
+1e-5 (bf16: one bf16 ulp + 1e-6; the scatter's atomics sum in no fixed
+order), <A u, v> = <u, A^T v> rel 1e-5 in f32 (float64 sums); fused
+within 2e-4 of the host operator's gather at the JAX package's pins
+(tests/test_api.py:95-122: fewer than 1 % of pixels zero on one side
+only, left out) and, at the flagships, exact mode for the pixels at least
+half inside the image, fast mode (float32 replica counts flip at the
+footprint's edge) for all but 0.1 % of them;
+area_rotate within one bf16 ulp of 'gather' and its f32 flux of
+zero-bordered frames kept to rel 1e-5; the separable transpose and
+variance at bf16 atol 1e-2 of their plain versions, the rotated variance
+within one bf16 ulp of 'gather'; the composed operator against the two
+applies f32 atol 1e-5.  TF32 is switched off for matmul and cuDNN so the
+plain versions' and library calls' einsums run in full f32.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -87,8 +113,10 @@ import torch
 import aainterp_torch as at
 from aainterp_torch import _build
 from aainterp_torch import api as t_api
+from aainterp_torch import autodiff as t_autodiff
 from aainterp_torch import regrid as t_regrid
 from aainterp_torch.ops import apply as apply_ops
+from aainterp_torch.ops import compat as compat_ops
 from aainterp_torch.ops import (cuda_apply, cuda_apply_2d, cuda_shear,
                                 cuda_shear3, shear3)
 from aainterp_torch.ops import weights as weights_ops
@@ -100,6 +128,10 @@ ISO = (0.0, 0.0)
 RH, RW = 2048, 2048
 ROT = (1.0, 0.5, (1024.0, 1024.0), 30.0)   # resolutions, isocenter, angle
 ROT_DST = (1399, 1399)
+ROT_Q1 = (1.0, 0.5, (1024.0, 1024.0), 120.0)    # the same frames, quadrant 1
+# area_rotate's geometry: equal resolution, 30 degrees about the center
+EQ = (1.0, 1.0, (1024.0, 1024.0), 30.0)
+EQ_DST = (2798, 2798)
 SHEAR_KERNELS = ("vshear", "hshear", "vhshear", "contract")
 # the rotated route's kernels: the fused shear, then the contraction
 ROUTE_KERNELS = ("vhshear", "contract")
@@ -1207,6 +1239,422 @@ def regrid_phases(dev, card):
     }]
 
 
+def _launched(want: dict, what: str, fallbacks: int) -> None:
+    """Check, after ``reset_launches()``, that the rotated kernels ran
+    ``want`` times, no other kernel ran, and no geometry fell back to the
+    plain gather."""
+    got = dict(cuda_shear.LAUNCHES)
+    check(got == want, f"{what}: rotated launches {got}, want {want}")
+    check(cuda_apply.LAUNCHES == 0 and cuda_apply_2d.LAUNCHES == 0
+          and other_paths_idle(cuda_shear3.LAUNCHES),
+          f"{what}: launched a kernel of another path")
+    check(t_api.SHEAR_PLAN_FALLBACKS == fallbacks,
+          f"{what}: the plain gather took over (SHEAR_PLAN_FALLBACKS "
+          f"{t_api.SHEAR_PLAN_FALLBACKS}, was {fallbacks})")
+
+
+def _route(n: int) -> dict:
+    """The rotated route's launches for ``n`` requests."""
+    return {k: n if k in ROUTE_KERNELS else 0 for k in SHEAR_KERNELS}
+
+
+def _adjoint_rel(apply, transpose, u, v) -> float:
+    """|<A u, v> - <u, A^T v>| / |<A u, v>|, the sums in float64."""
+    lhs = float((apply(u).double() * v.double()).sum())
+    rhs = float((u.double() * transpose(v).double()).sum())
+    return abs(lhs - rhs) / abs(lhs)
+
+
+def rotated_rest_phases(make, card, dev) -> dict:
+    """Phases 31-36: the rest of the exact rotated family and the
+    reference-named front doors at the flagships (compat, the ELL custom
+    gradient, fused weight-gen, area_rotate, the transposed apply and
+    variance maps, composition).  Returns their timing."""
+    frames_shape = (F, RH, RW)
+    timing = {"card": card}
+    counts = {}
+
+    # ---- 31. compat: native weight-gen, plan, route ------------------------
+    replica_before = compat_ops.ENGINES["numpy"]
+    cop, wgen_s = ell_operator_for((RH, RW), *ROT, mode="compat")
+    check(compat_ops.ENGINES["numpy"] == replica_before,
+          "compat cell areas took the numpy replica")
+    t0 = time.perf_counter()
+    cplan = cuda_shear.kernel_plan(cop)       # raises if the plan rejects it
+    plan_s = time.perf_counter() - t0
+    spec = cop.spec
+    km = int(math.ceil(spec.dst_side * math.sqrt(2.0) + 2.0)) + 3
+    check((cop.mode, spec.dst_shape, cop.window) == ("compat", ROT_DST, 10),
+          f"compat flagship: {cop.mode} dst {spec.dst_shape} Kc {cop.window}")
+    timing.update(compat_weight_gen_s=wgen_s, compat_plan_s=plan_s)
+    print(f"[31 compat host] {RH}x{RW} at {ROT[3]} deg, compat: native "
+          f"weight-gen {wgen_s:.3f} s (Km {km} mod cells, Kc {cop.window} "
+          f"cells where exact has K {spec.window_cells}; table "
+          f"{cop.weights.nbytes / 1e6:.1f} MB f64); shear plan {plan_s:.3f} s"
+          f" accepts it: Ka x Kb {cplan.Ka}x{cplan.Kb}, T {cplan.TH}x"
+          f"{cplan.TW}")
+    r0 = spec.dst_shape[0] // 2
+    nat = compat_ops.compat_ell_weights(spec, dy_slice=(r0, r0 + 2),
+                                        prefer_native=True)
+    rep = compat_ops.compat_ell_weights(spec, dy_slice=(r0, r0 + 2),
+                                        prefer_native=False)
+    check(all(np.array_equal(a, b) for a, b in zip(nat, rep)),
+          "native compat areas differ from the numpy replica")
+    check(np.array_equal(nat[1], cop.weights[r0:r0 + 2]),
+          "compat rows differ from the chunked operator's")
+    print(f"[31 compat host] dst rows {r0}-{r0 + 1}: native engine equal to "
+          "the numpy replica bit for bit (and to the operator's rows)")
+    cerr = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        reqs = [make(dtype, frames_shape) for _ in range(2)]
+        torch.cuda.synchronize()
+        fb = t_api.SHEAR_PLAN_FALLBACKS
+        reset_launches()
+        outs = [at.area_average_interpolate(x, *ROT, mode="compat",
+                                            operator=cop).dst for x in reqs]
+        torch.cuda.synchronize()
+        _launched(_route(len(reqs)), f"compat {dtype}", fb)
+        counts[f"compat_{str(dtype)[6:]}"] = dict(cuda_shear.LAUNCHES)
+        e = 0.0
+        for x, out in zip(reqs, outs):
+            check(out.dtype == dtype and tuple(out.shape) == (F,) + ROT_DST,
+                  f"compat out {out.dtype} {tuple(out.shape)}")
+            check(bool(torch.isfinite(out).all()), "compat out not finite")
+            ref = at.apply_operator(cop, x, impl="gather")
+            if dtype == torch.bfloat16:
+                e = max(e, within_bf16_ulp(out, ref, "compat bf16 vs gather"))
+            else:
+                e = max(e, max_err(out, ref))
+                check(e <= 1e-6, f"compat f32 err {e} > 1e-6")
+        cerr[str(dtype)[6:]] = e
+        del reqs, outs, ref
+    print(f"[31 compat route] {F}x{RH}x{RW} -> {(F,) + ROT_DST} via "
+          f"area_average_interpolate(mode='compat'): {_route(1)} per request,"
+          f" no fallback; kernel vs 'gather': bf16 within one bf16 ulp (max "
+          f"{cerr['bfloat16']:.3e}), f32 max {cerr['float32']:.3e}")
+    small = np.random.default_rng(0).uniform(0, 1, (2, 48, 64))
+    sop, _ = ell_operator_for((48, 64), 1.0, 0.5, (32.0, 24.0), 30.0,
+                              mode="compat")
+    ref = (sop.dense() @ small.reshape(2, -1).T).T.reshape(
+        (2,) + sop.spec.dst_shape)
+    out = at.area_average_interpolate(
+        torch.tensor(small, dtype=torch.float32, device=dev), 1.0, 0.5,
+        (32.0, 24.0), 30.0, mode="compat", operator=sop).dst
+    e = float(np.abs(out.cpu().double().numpy() - ref).max())
+    check(e <= 1e-6, f"compat dense reference err {e} > 1e-6")
+    print(f"[31 compat dense ref] (2, 48, 64) at 30 deg vs float64 "
+          f"EllOperator.dense(): max err {e:.3e}")
+    # ---- 32. the ELL custom gradient (EllLinear), quadrants 0 and 1 -------
+    op, _ = ell_operator_for((RH, RW), *ROT)
+    # compat beside exact on the same frames, in mirrored turns
+    qs = [make(torch.bfloat16, frames_shape) for _ in range(4)]
+    for name in ("exact", "compat", "compat", "exact"):
+        o = op if name == "exact" else cop
+        timing.setdefault(f"{name}_route_device_ms", []).append(graph_ms(
+            lambda q: at.apply_operator(o, q), qs, 20))
+    for name in ("exact", "compat"):
+        timing[f"{name}_route_device_ms"] = min(
+            timing[f"{name}_route_device_ms"])
+    print(f"[31 compat timing] {card}: compat route "
+          f"{timing['compat_route_device_ms']:.4f} ms per batch, exact "
+          f"{timing['exact_route_device_ms']:.4f} (mirrored turns, best of 2)")
+    del cop, cplan, sop
+    q1op, _ = ell_operator_for((RH, RW), *ROT_Q1)
+    check(q1op.spec.quadrant == 1 and q1op.spec.dst_shape == ROT_DST,
+          f"quadrant-1 flagship {q1op.spec.quadrant} {q1op.spec.dst_shape}")
+    gerr, adj = {}, {}
+    for name, o, args in (("q0", op, ROT), ("q1", q1op, ROT_Q1)):
+        base, w = t_autodiff.ell_tables(o, torch.float32, dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = make(dtype, frames_shape)
+            plain_fwd = at.apply_operator(o, x)          # the kernel route
+            xk = x.clone().requires_grad_(True)
+            torch.cuda.synchronize()
+            fb = t_api.SHEAR_PLAN_FALLBACKS
+            reset_launches()
+            y = at.area_average_interpolate(xk, *args, operator=o,
+                                            differentiable=True).dst
+            g = make(torch.float32, tuple(y.shape)).to(dtype)
+            (gk,) = torch.autograd.grad(y, xk, g)
+            torch.cuda.synchronize()
+            what = f"differentiable {name} {dtype}"
+            _launched(_route(1), what, fb)
+            counts[f"grad_{name}_{str(dtype)[6:]}"] = dict(cuda_shear.LAUNCHES)
+            check(torch.equal(y.detach(), plain_fwd),
+                  f"{what}: forward differs from the kernel route's")
+            check(gk.dtype == dtype and gk.device == x.device,
+                  f"{what}: grad {gk.dtype} on {gk.device}")
+            # native autograd of the plain gather on the unfolded tables
+            xp = x.float().requires_grad_(True)
+            yp = apply_ops.apply_ell(
+                apply_ops.quadrant_rotate(xp, o.spec.quadrant), base, w)
+            (gp,) = torch.autograd.grad(yp, xp, g.float())
+            d = (gk.double() - gp.double()).abs()
+            if dtype == torch.float32:
+                e = float(d.max())
+                check(e <= 1e-5, f"{what}: grad err {e} > 1e-5")
+            else:
+                bad = int((d > bf16_ulp(gp) + 1e-6).sum())
+                check(bad == 0, f"{what}: {bad} grads beyond one bf16 ulp")
+                e = float(d.max())
+            gerr[f"{name}_{str(dtype)[6:]}"] = e
+            del x, xk, y, g, gk, xp, yp, gp, d, plain_fwd
+        u = make(torch.float32, frames_shape)
+        v = make(torch.float32, (F,) + ROT_DST)
+        adj[name] = _adjoint_rel(lambda t: at.apply_operator(o, t),
+                                 lambda t: at.apply_operator_transpose(o, t),
+                                 u, v)
+        check(adj[name] <= 1e-5, f"{name}: adjoint identity rel "
+              f"{adj[name]} > 1e-5")
+        del u, v, base, w
+    print(f"[32 ELL gradient] {F}x{RH}x{RW} at 30 deg (quadrant 0) and 120 "
+          f"deg (quadrant 1), f32 and bf16, through area_average_interpolate("
+          f"differentiable=True): forward bit-equal to the kernel route, "
+          f"{_route(1)} per step, no fallback; grad vs native autograd of the "
+          "plain gather: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in gerr.items())
+          + "; <A u, v> = <u, A^T v> rel " + ", ".join(
+              f"{k} {v:.3e}" for k, v in adj.items()))
+    plan = cuda_shear.kernel_plan(op)
+    fn = t_autodiff.ell_linear_for(op, "kernel", plan, torch.float32)
+    gs = [make(torch.float32, (F,) + ROT_DST).to(torch.bfloat16)
+          for _ in range(4)]
+    xg = [q.clone().requires_grad_(True) for q in qs]
+    timing.update(
+        ell_forward_device_ms=graph_ms(fn.forward, qs, 20),
+        ell_forward_eager_ms=eager_ms(fn, qs, 10),
+        ell_backward_eager_ms=eager_ms(fn.backward, gs, 10),
+        ell_step_eager_ms=_events_ms(
+            lambda i: torch.autograd.grad(fn(xg[i]), xg[i], gs[i]), 4, 10))
+    timing["ell_backward_over_forward"] = (timing["ell_backward_eager_ms"]
+                                           / timing["ell_forward_device_ms"])
+    del q1op, xg
+
+    # ---- 33. fused=True: on-device weight-gen + gather ---------------------
+    fop, _ = ell_operator_for((RH, RW), *EQ, mode="fast")
+    ferr = {}
+    for mode, args, hop in (("exact", ROT, op), ("fast", EQ, fop)):
+        x = qs[0]
+        host = at.apply_operator(hop, x, impl="gather")          # f32
+        torch.cuda.synchronize()
+        reset_launches()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = at.area_average_interpolate(x, *args, mode=mode,
+                                          fused=True).dst
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base_mem
+        _launched(_route(0), f"fused {mode}", t_api.SHEAR_PLAN_FALLBACKS)
+        check(out.dtype == torch.float32 and out.shape == host.shape,
+              f"fused {mode} out {out.dtype} {tuple(out.shape)}")
+        a, b = out.double(), host.double()
+        edge = (a == 0) != (b == 0)
+        share = float(edge.double().mean())
+        check(share < 0.01, f"fused {mode}: {share:.4f} of pixels zero on "
+              "one side only (>= 1 %)")
+        d = (a - b).abs()
+        if mode == "exact":
+            # a pixel whose footprint barely meets the image normalises
+            # float32 slivers into a large share of its weights: hold the
+            # pixels at least half inside it (tests/test_torch_fused.py)
+            keep = torch.from_numpy(
+                hop.raw_row_sums >= 0.5 * hop.spec.dst_side ** 2).to(dev)
+            e = float(d[keep.expand_as(a) & ~edge].max())
+            check(e <= 2e-4, f"fused exact vs host err {e} > 2e-4")
+            over = float((d[~edge] > 2e-4).double().mean())
+        else:
+            # float32 coordinates near 2048 move replica centres across the
+            # footprint's edge, so a few counts differ from float64's (in
+            # the JAX package's fused route too): hold their share
+            e = float(d[~edge].max())
+            over = float((d[~edge] > 2e-4).double().mean())
+            check(over < 1e-3, f"fused fast: {over:.2e} of pixels beyond "
+                  "2e-4 of the host route (>= 1e-3)")
+        ferr[mode] = {"max": e, "share_beyond_2e-4": over}
+        timing[f"fused_{mode}_first_s"] = secs
+        timing[f"fused_{mode}_eager_ms"] = eager_ms(
+            lambda q: at.area_average_interpolate(q, *args, mode=mode,
+                                                  fused=True).dst, qs, 3)
+        timing[f"fused_{mode}_peak_extra_bytes"] = int(peak)
+        print(f"[33 fused {mode}] {F}x{RH}x{RW} bf16 at {args[3]} deg, "
+              f"{args[0]} -> {args[1]} -> {tuple(out.shape)} f32 on the card "
+              "(no kernel: float32 weight-gen + gather, chunked): vs the "
+              f"host operator's gather max {e:.3e}, {over:.2e} of pixels "
+              f"beyond 2e-4 (zero on one side only: {share:.2e}); first call "
+              f"{secs:.3f} s, then "
+              f"{timing[f'fused_{mode}_eager_ms']:.2f} ms per batch; peak "
+              f"device memory above the call's start {peak / 1e9:.3f} GB")
+        del host, out, a, b, d, edge
+    counts["fused"] = _route(0)
+    del fop
+    # the JAX package's own fused pins at their size (tests/test_api.py:
+    # 95-122): exact at 1.0 -> 0.5 and fast at equal resolution
+    pin_err = {}
+    for mode, res in (("exact", (1.0, 0.5)), ("fast", (1.0, 1.0))):
+        src = torch.tensor(np.random.default_rng(1).uniform(0, 1, (2, 24, 24)),
+                           dtype=torch.float32, device=dev)
+        pop, _ = ell_operator_for((24, 24), *res, (11.5, 12.5), 30.0,
+                                  mode=mode)
+        a = at.area_average_interpolate(src, *res, (11.5, 12.5), 30.0,
+                                        mode=mode, fused=True).dst.double()
+        b = at.apply_operator(pop, src, impl="gather").double()
+        edge = (a == 0) != (b == 0)
+        check(float(edge.double().mean()) < 0.01, f"fused pin {mode}: edges")
+        pin_err[mode] = float((a - b).abs()[~edge].max())
+        check(pin_err[mode] <= 2e-4, f"fused pin {mode}: err "
+              f"{pin_err[mode]} > 2e-4")
+    ferr["pins"] = pin_err
+    print(f"[33 fused pins] (2, 24, 24) about (11.5, 12.5) at 30 deg, the "
+          f"JAX package's pins: exact 1.0 -> 0.5 max {pin_err['exact']:.3e},"
+          f" fast 1.0 -> 1.0 max {pin_err['fast']:.3e} (<= 2e-4)")
+
+    # ---- 34. area_rotate: equal resolution, dst 2798^2, K 5 ----------------
+    aop, wgen_s = ell_operator_for((RH, RW), *EQ)
+    t0 = time.perf_counter()
+    aplan = cuda_shear.kernel_plan(aop)
+    plan_s = time.perf_counter() - t0
+    check((aop.spec.dst_shape, aop.window) == (EQ_DST, 5),
+          f"area_rotate geometry {aop.spec.dst_shape} K {aop.window}")
+    fb = t_api.SHEAR_PLAN_FALLBACKS
+    reset_launches()
+    outs = [at.area_rotate(x, EQ[3], operator=aop) for x in qs[:2]]
+    torch.cuda.synchronize()
+    _launched(_route(2), "area_rotate", fb)
+    counts["area_rotate"] = _route(1)
+    e = 0.0
+    for x, out in zip(qs[:2], outs):
+        check(out.dtype == torch.bfloat16 and tuple(out.shape) ==
+              (F,) + EQ_DST, f"area_rotate out {out.dtype} {out.shape}")
+        e = max(e, within_bf16_ulp(out, at.apply_operator(
+            aop, x, impl="gather"), "area_rotate vs gather"))
+    xf = make(torch.float32, frames_shape)
+    xf[..., :2, :] = 0
+    xf[..., -2:, :] = 0
+    xf[..., :, :2] = 0
+    xf[..., :, -2:] = 0
+    out = at.area_rotate(xf, EQ[3], operator=aop)
+    raw = torch.from_numpy(aop.raw_row_sums).to(dev) / aop.spec.scale ** 2
+    flux_in = xf.double().sum(dim=(-2, -1))
+    flux_out = (out.double() * raw).sum(dim=(-2, -1))
+    rel = float(((flux_out - flux_in).abs() / flux_in).max())
+    check(rel <= 1e-5, f"area_rotate flux rel err {rel} > 1e-5")
+    timing.update(area_rotate_weight_gen_s=wgen_s, area_rotate_plan_s=plan_s,
+                  area_rotate_device_ms=graph_ms(
+                      lambda q: at.area_rotate(q, EQ[3], operator=aop),
+                      qs, 20))
+    print(f"[34 area_rotate] {F}x{RH}x{RW} bf16 by {EQ[3]} deg -> "
+          f"{(F,) + EQ_DST} bf16 (K {aop.window}, Ka x Kb {aplan.Ka}x"
+          f"{aplan.Kb}; weight-gen {wgen_s:.3f} s, plan {plan_s:.3f} s): "
+          f"{_route(1)} per request; within one bf16 ulp of 'gather' (max "
+          f"{e:.3e}); f32 flux of zero-bordered frames kept to rel {rel:.3e};"
+          f" {timing['area_rotate_device_ms']:.4f} ms per batch")
+    del aop, aplan, outs, xf, out, raw
+
+    # ---- 35. apply_operator_transpose and propagate_variance ---------------
+    op0 = operator((H, W), 0.0)
+    lin0 = at.separable_linear_for(op0, torch.float32, "kernel")
+    sq0 = at.separable_linear_for(at.squared_operator(op0), torch.float32,
+                                  "kernel")
+    cots = [make(torch.bfloat16, (F, H // 2, W // 2)) for _ in range(3)]
+    reset_launches()
+    tq = at.apply_operator_transpose(op0, cots[0])
+    torch.cuda.synchronize()
+    check(cuda_apply.LAUNCHES == 1 and cuda_apply_2d.LAUNCHES == 0 and
+          other_paths_idle(cuda_shear.LAUNCHES, cuda_shear3.LAUNCHES),
+          "separable transpose did not launch kernel 1 once")
+    check(tq.dtype == torch.bfloat16 and tuple(tq.shape) == (F, H, W),
+          f"separable transpose {tq.dtype} {tuple(tq.shape)}")
+    et = max_err(tq, cuda_apply.apply_separable_plain(
+        cots[0], *lin0.t_tables, out_dtype=torch.float32))
+    check(et <= 1e-2, f"separable transpose bf16 err {et} > 1e-2")
+    var = make(torch.bfloat16, (F, H, W))
+    reset_launches()
+    pv = at.propagate_variance(op0, var)
+    torch.cuda.synchronize()
+    check(cuda_apply.LAUNCHES == 1, "separable variance: not one launch")
+    ev = max_err(pv, cuda_apply.apply_separable_plain(
+        var, *sq0.tables, out_dtype=torch.float32))
+    check(ev <= 1e-2, f"separable variance bf16 err {ev} > 1e-2")
+    u = make(torch.float32, (F, H, W))
+    v = make(torch.float32, (F, H // 2, W // 2))
+    adj_sep = _adjoint_rel(lambda t: at.apply_operator(op0, t),
+                           lambda t: at.apply_operator_transpose(op0, t),
+                           u, v)
+    check(adj_sep <= 1e-5, f"separable adjoint identity rel {adj_sep}")
+    counts["separable_transpose"] = counts["separable_variance"] = 1
+    del u, v, tq, pv
+    vs = [make(torch.bfloat16, frames_shape) for _ in range(2)]
+    fb = t_api.SHEAR_PLAN_FALLBACKS
+    reset_launches()
+    rv = at.propagate_variance(op, vs[0])
+    torch.cuda.synchronize()
+    _launched(_route(1), "rotated variance", fb)
+    counts["rotated_variance"] = _route(1)
+    erv = within_bf16_ulp(rv, at.apply_operator(
+        at.squared_operator(op), vs[0], impl="gather"),
+        "rotated variance vs gather")
+    rt = at.apply_operator_transpose(op, make(torch.float32, (F,) + ROT_DST))
+    check(tuple(rt.shape) == frames_shape and bool(torch.isfinite(rt).all()),
+          f"rotated transpose {tuple(rt.shape)}")
+    gs32 = [g.float() for g in gs]
+    timing.update(
+        separable_transpose_device_ms=graph_ms(
+            lambda c: at.apply_operator_transpose(op0, c), cots, 20),
+        separable_variance_device_ms=graph_ms(
+            lambda q: at.propagate_variance(op0, q),
+            [make(torch.bfloat16, (F, H, W)) for _ in range(3)], 20),
+        rotated_transpose_eager_ms=eager_ms(
+            lambda c: at.apply_operator_transpose(op, c), gs32, 10),
+        rotated_variance_device_ms=graph_ms(
+            lambda q: at.propagate_variance(op, q), vs, 20),
+        rotated_variance_eager_ms=eager_ms(
+            lambda q: at.propagate_variance(op, q), vs, 10))
+    print(f"[35 transpose/variance] separable flagship bf16: "
+          f"apply_operator_transpose 1 kernel-1 launch, max |kernel - plain| "
+          f"{et:.3e}, {timing['separable_transpose_device_ms']:.4f} ms; "
+          f"propagate_variance 1 launch, err {ev:.3e}, "
+          f"{timing['separable_variance_device_ms']:.4f} ms; f32 adjoint "
+          f"identity rel {adj_sep:.3e}.  Rotated flagship: variance "
+          f"{_route(1)}, within one bf16 ulp of 'gather' (max {erv:.3e}), "
+          f"{timing['rotated_variance_device_ms']:.4f} ms ("
+          f"{timing['rotated_variance_eager_ms']:.4f} eager; the squared "
+          f"operator cached); transpose (index_add_ scatter) "
+          f"{timing['rotated_transpose_eager_ms']:.3f} ms eager")
+    del rv, rt, vs, gs, gs32, cots, op, plan, fn
+
+    # ---- 36. compose: 4K -> 1080p -> 540p as one operator ------------------
+    op2 = operator((H // 2, W // 2), 0.0)
+    comp = at.compose_separable(op2, op0)
+    x = make(torch.float32, (F, H, W))
+    reset_launches()
+    one = at.apply_operator(comp, x)
+    torch.cuda.synchronize()
+    check(cuda_apply.LAUNCHES == 1, "composed apply: not one launch")
+    chained = at.apply_operator(op2, at.apply_operator(op0, x))
+    ec = max_err(one, chained)
+    check(ec <= 1e-5, f"composed vs chained f32 err {ec} > 1e-5")
+    counts["compose"] = 1
+    xb = [make(torch.bfloat16, (F, H, W)) for _ in range(3)]
+    timing.update(
+        compose_device_ms=graph_ms(lambda q: at.apply_operator(comp, q), xb,
+                                   20),
+        chained_device_ms=graph_ms(
+            lambda q: at.apply_operator(op2, at.apply_operator(op0, q)), xb,
+            20))
+    print(f"[36 compose] compose_separable(1080p -> 540p, 4K -> 1080p): "
+          f"bands {comp.wy.band}x{comp.wx.band}, 1 kernel-1 launch per batch, "
+          f"vs the two applies in sequence f32 max {ec:.3e}; bf16 "
+          f"{timing['compose_device_ms']:.4f} ms vs chained "
+          f"{timing['chained_device_ms']:.4f} ms per batch")
+    timing["launches"] = counts
+    timing["errors"] = {"compat": cerr, "grad": gerr, "adjoint": adj,
+                        "adjoint_separable": adj_sep, "fused": ferr}
+    print(json.dumps({"rotated_rest_timing": timing}))
+    return timing
+
+
 def regrid_timing(card, fields, tabs, qtabs, by, bx) -> dict:
     """Device (CUDA-graph replay) ms per batch of the 2-D kernel at config
     5 (f32 forced, bf16, u8 -> u8), at 0.25 degree and in its direct form
@@ -1570,6 +2018,7 @@ def main() -> int:
     rotated = rotated_phases(make, card)
     sheared = shear3_phases(make, card)
     banded = regrid_phases(dev, card)
+    rotated_rest_phases(make, card, dev)
 
     print(json.dumps({"kernels": [{
         "name": "separable_apply",

@@ -156,19 +156,27 @@ def test_unported_and_invalid_routes_raise():
         at.apply_operator(op, x, weight_dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="kind"):
         t_autodiff.separable_linear_for(op, torch.float32, "xla")
-    for kw, slice_no in ((dict(rotation_angle=30.0, mode="compat"),
-                          "slice 3"),
-                         (dict(fused=True), "slice 3"),
-                         (dict(method="ell", mode="compat"), "slice 3")):
-        args = dict(rotation_angle=0.0)
-        args.update(kw)
-        angle = args.pop("rotation_angle")
-        with pytest.raises(NotImplementedError, match=slice_no):
-            at.area_average_interpolate(x, 2.0, 1.0, (0.0, 0.0), angle,
-                                        **args)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        at.build_operator(at.make_grid_spec((32, 48), 2.0, 1.0, (0.0, 0.0),
-                                            30.0), mode="compat")
+    # rotated mode='compat', fused=True and method='ell' with compat are
+    # ported (the rest of slice 3): each runs, and what is left raises
+    rot_spec = at.make_grid_spec((32, 48), 2.0, 1.0, (0.0, 0.0), 30.0)
+    cop = at.build_operator(rot_spec, mode="compat")
+    assert isinstance(cop, at.EllOperator) and cop.mode == "compat"
+    torch.testing.assert_close(
+        at.area_average_interpolate(x, 2.0, 1.0, (0.0, 0.0), 30.0,
+                                    mode="compat").dst,
+        at.apply_operator(cop, x), atol=0, rtol=0)
+    fused = at.area_average_interpolate(x, 2.0, 1.0, (0.0, 0.0), 0.0,
+                                        fused=True).dst
+    assert fused.dtype == torch.float32
+    torch.testing.assert_close(fused, at.apply_operator(op, x), atol=2e-4,
+                               rtol=0)
+    ell = at.area_average_interpolate(x, 2.0, 1.0, (0.0, 0.0), 0.0,
+                                      method="ell", mode="compat").dst
+    torch.testing.assert_close(ell, at.apply_operator(op, x), atol=1e-6,
+                               rtol=0)
+    with pytest.raises(ValueError, match="fused"):
+        at.area_average_interpolate(x, 2.0, 1.0, (0.0, 0.0), 30.0,
+                                    mode="compat", fused=True)
     with pytest.raises(ValueError, match="mode"):
         at.area_average_interpolate(x, 2.0, 1.0, (0.0, 0.0), 0.0,
                                     mode="bogus")

@@ -145,12 +145,23 @@ def test_rotated_errors_and_unported_options():
         at.apply_operator(op, torch.rand(1, 44, 36))
     with pytest.raises(ValueError, match="weight_dtype"):
         at.apply_operator(op, x, weight_dtype=torch.bfloat16)
-    for kw in (dict(mode="compat"), dict(fused=True),
-               dict(differentiable=True)):
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            at.area_average_interpolate(x, *args[1:], **kw)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        at.build_operator(at.make_grid_spec(*args), mode="compat")
+    # compat, fused=True and differentiable=True are ported (the rest of
+    # slice 3); what is left of them raises
+    res = at.area_average_interpolate(x, *args[1:], mode="compat")
+    assert res.dst.shape == (1,) + res.spec.dst_shape
+    assert at.build_operator(at.make_grid_spec(*args),
+                             mode="compat").mode == "compat"
+    assert at.area_average_interpolate(
+        x, *args[1:], fused=True).dst.dtype == torch.float32
+    xg = x.clone().requires_grad_(True)
+    at.area_average_interpolate(xg, *args[1:],
+                                differentiable=True).dst.sum().backward()
+    assert xg.grad.shape == x.shape
+    with pytest.raises(ValueError, match="fused"):
+        at.area_average_interpolate(x, *args[1:], mode="compat", fused=True)
+    with pytest.raises(TypeError, match="float-only"):
+        at.area_average_interpolate((x * 255).to(torch.uint8), *args[1:],
+                                    differentiable=True)
     # mode='shear' is ported (slice 4) and builds no operator
     res = at.area_average_interpolate(x, *args[1:], mode="shear")
     assert res.dst.shape == (1,) + res.spec.dst_shape

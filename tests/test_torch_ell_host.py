@@ -22,6 +22,7 @@ import torch
 
 import aainterp as aa
 from aainterp.ops import clipper as j_clipper
+from aainterp.ops import compat as j_compat
 from aainterp.ops import shear_apply as j_shear
 from aainterp.ops import weights as j_weights
 
@@ -213,9 +214,14 @@ def test_validate_rejects_unknown_operator_types():
         t_weights.validate_operator(object())
 
 
-def test_compat_ell_not_ported():
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        t_weights.ell_operator(_specs(GEOMS[0])[1], mode="compat")
+def test_compat_ell_operator_and_unknown_modes():
+    js, ts = _specs(GEOMS[0])
+    top = t_weights.ell_operator(ts, mode="compat", prefer_native=False)
+    base, w, sums = j_compat.compat_ell_weights(js, prefer_native=False)
+    assert top.mode == "compat" and top.window > ts.window_cells
+    for a, b in ((base, top.base), (w, top.weights),
+                 (sums, top.raw_row_sums)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
     with pytest.raises(ValueError, match="mode"):
         t_weights.ell_operator(_specs(GEOMS[0])[1], mode="bogus",
                                prefer_native=False)

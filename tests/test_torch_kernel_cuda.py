@@ -25,7 +25,13 @@ for every (axis, form) and whole pipelines; the route within one bf16 ulp
 (test_shear3.py:256-259); gradients atol 1e-5.  2-D banded-tile kernel:
 f32 atol 1e-5 on [0, 1] inputs, bf16 within one bf16 ulp, uint8 within
 one gray level; 'default' and 'bf16x3' rtol 1e-6 (the same bf16 operands
-summed in the same order).
+summed in the same order).  The rest of the rotated family: compat on the
+kernel route as the exact operator's (1 fused shear + 1 contraction per
+request); ``EllLinear``'s forward bit-equal to the kernel route and its
+gradient within f32 atol 1e-5 (bf16: one bf16 ulp) of native autograd of
+the plain gather (the scatter's atomics sum in no fixed order); fused
+within 2e-4 of the host route (the JAX package's pin); the separable
+transpose and variance on kernel 1 within f32 atol 1e-5 of the CPU.
 """
 
 import dataclasses
@@ -36,7 +42,9 @@ import torch
 
 import aainterp_torch as at
 from aainterp_torch import api as t_api
+from aainterp_torch import autodiff as t_autodiff
 from aainterp_torch import regrid as t_regrid
+from aainterp_torch.ops import apply as apply_ops
 from aainterp_torch.ops import (cuda_apply, cuda_apply_2d, cuda_shear,
                                 cuda_shear3, shear3)
 from aainterp_torch.ops import weights as t_weights
@@ -891,3 +899,129 @@ def test_shear3_direct_form_pipelines_bit_equal(cuda, monkeypatch, dec, dtype):
         assert sum(cuda_shear3.LAUNCHES[k] - before[k] for k in before) == 3
         assert torch.equal(got, shear3.apply_shear3_plain(x0, p,
                                                           mid_dtype=dtype))
+
+
+# ---------------------------------------------------------------------------
+# the rest of the exact rotated family on the card: compat, EllLinear, fused
+# ---------------------------------------------------------------------------
+
+COMPAT_GEOMS = [
+    ((96, 96), 1.0, 0.5, (48.0, 48.0), 30.0),
+    ((96, 80), 1.0, 0.5, (40.0, 48.0), 120.0),     # quadrant 1
+]
+
+
+@pytest.mark.parametrize("args", COMPAT_GEOMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_compat_kernel_route_matches_gather(cuda, args, dtype):
+    op = at.build_operator(at.make_grid_spec(*args), mode="compat")
+    assert op.mode == "compat" and op.window == 10
+    x = _frames((3,) + args[0], dtype, cuda)
+    before = dict(cuda_shear.LAUNCHES), t_api.SHEAR_PLAN_FALLBACKS
+    got = at.area_average_interpolate(x, *args[1:], mode="compat").dst
+    torch.cuda.synchronize()
+    assert {k: cuda_shear.LAUNCHES[k] - before[0][k] for k in before[0]} == {
+        "vshear": 0, "hshear": 0, "vhshear": 1, "contract": 1}
+    assert t_api.SHEAR_PLAN_FALLBACKS == before[1]
+    assert got.dtype == dtype
+    ref = at.apply_operator(op, x, impl="gather")
+    err = (got.double() - ref.double()).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 1e-6
+    else:
+        assert (err <= _bf16_ulp(ref)).all()
+
+
+@pytest.mark.parametrize("angle", [30.0, 120.0, 210.0, 300.5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ell_linear_kernel_route_gradient(cuda, angle, dtype):
+    args = ((96, 80), 1.0, 0.5, (40.0, 48.0), angle)
+    op = at.build_operator(at.make_grid_spec(*args))
+    x = _frames((2,) + args[0], dtype, cuda, seed=3)
+    plain = at.apply_operator(op, x)                     # the kernel route
+    xk = x.clone().requires_grad_(True)
+    before = dict(cuda_shear.LAUNCHES), t_api.SHEAR_PLAN_FALLBACKS
+    y = at.apply_operator(op, xk, differentiable=True)
+    g = _frames(tuple(y.shape), torch.float32, cuda, seed=4).to(dtype)
+    (gk,) = torch.autograd.grad(y, xk, g)
+    torch.cuda.synchronize()
+    assert {k: cuda_shear.LAUNCHES[k] - before[0][k] for k in before[0]} == {
+        "vshear": 0, "hshear": 0, "vhshear": 1, "contract": 1}
+    assert t_api.SHEAR_PLAN_FALLBACKS == before[1]
+    assert torch.equal(y.detach(), plain) and gk.dtype == dtype
+    # native autograd of the plain gather on the unfolded tables
+    base, w = t_autodiff.ell_tables(op, torch.float32, cuda)
+    xp = x.float().clone().requires_grad_(True)
+    yp = apply_ops.apply_ell(apply_ops.quadrant_rotate(xp, op.spec.quadrant),
+                             base, w)
+    (gp,) = torch.autograd.grad(yp, xp, g.float())
+    # the scatter's atomics sum each source cell's terms in no fixed order
+    tol = 1e-5 if dtype == torch.float32 else None
+    if tol is None:
+        assert ((gk.double() - gp.double()).abs()
+                <= _bf16_ulp(gp) + 1e-6).all()
+    else:
+        assert (gk.double() - gp.double()).abs().max().item() <= tol
+
+
+def test_requires_grad_input_stays_on_the_kernels(cuda):
+    args = COMPAT_GEOMS[0]
+    op = at.build_operator(at.make_grid_spec(*args))
+    x = _frames((2,) + args[0], torch.float32, cuda).requires_grad_(True)
+    before = dict(cuda_shear.LAUNCHES), t_api.SHEAR_PLAN_FALLBACKS
+    y = at.area_average_interpolate(x, *args[1:], operator=op).dst
+    assert type(y.grad_fn).__name__ == "EllLinearBackward"
+    y.square().sum().backward()
+    torch.cuda.synchronize()
+    assert cuda_shear.LAUNCHES["vhshear"] == before[0]["vhshear"] + 1
+    assert cuda_shear.LAUNCHES["contract"] == before[0]["contract"] + 1
+    assert t_api.SHEAR_PLAN_FALLBACKS == before[1]
+    assert x.grad.is_cuda and torch.isfinite(x.grad).all()
+    with pytest.raises(TypeError, match="float-only"):
+        at.apply_operator(op, (x.detach() * 255).to(torch.uint8),
+                          differentiable=True)
+
+
+@pytest.mark.parametrize("args,mode", [
+    (((24, 24), 1.0, 0.5, (11.5, 12.5), 30.0), "exact"),
+    (((24, 24), 1.0, 1.0, (11.5, 12.5), 30.0), "fast"),
+    (((256, 200), 1.0, 0.5, (100.0, 128.0), 120.0), "exact"),
+])
+def test_fused_on_the_card_matches_the_host_route(cuda, args, mode):
+    x = _frames((2,) + args[0], torch.float32, cuda, seed=5)
+    before = dict(cuda_shear.LAUNCHES)
+    got = at.area_average_interpolate(x, *args[1:], mode=mode,
+                                      fused=True).dst
+    assert cuda_shear.LAUNCHES == before      # no kernel: weight-gen + gather
+    assert got.is_cuda and got.dtype == torch.float32
+    host = at.area_average_interpolate(x, *args[1:], mode=mode).dst
+    a, b = got.cpu().numpy(), host.cpu().numpy()
+    edge = (a == 0.0) != (b == 0.0)
+    assert edge.mean() < 0.01
+    if args[0] == (24, 24):
+        # the JAX package's pin, tests/test_api.py:95-122
+        np.testing.assert_allclose(a[~edge], b[~edge], atol=2e-4, rtol=0)
+    else:
+        spec = at.make_grid_spec(*args)
+        op = at.build_operator(spec)
+        inside = np.broadcast_to(op.raw_row_sums >= 0.5 * spec.dst_side ** 2,
+                                 a.shape)
+        np.testing.assert_allclose(a[inside], b[inside], atol=2e-4, rtol=0)
+
+
+@pytest.mark.parametrize("angle", [0.0, 90.0])
+def test_transpose_and_variance_on_the_separable_kernel(cuda, angle):
+    op = at.build_operator(at.make_grid_spec((256, 384), 2.0, 1.0,
+                                             (0.0, 0.0), angle))
+    g = _frames((2,) + op.spec.dst_shape, torch.float32, cuda, seed=6)
+    before = cuda_apply.LAUNCHES
+    got = at.apply_operator_transpose(op, g)
+    var = at.propagate_variance(op, _frames((2, 256, 384), torch.float32,
+                                            cuda, seed=7))
+    torch.cuda.synchronize()
+    assert cuda_apply.LAUNCHES == before + 2
+    ref = at.apply_operator_transpose(op, g.cpu())
+    assert (got.cpu() - ref).abs().max().item() <= 1e-5
+    vref = at.propagate_variance(op, _frames((2, 256, 384), torch.float32,
+                                             cuda, seed=7).cpu())
+    assert (var.cpu() - vref).abs().max().item() <= 1e-5
