@@ -3,7 +3,7 @@ with hand-written CUDA kernels for NVIDIA Hopper (H100).
 
 The PyTorch port of the JAX package ``aainterp``, which stays the
 reference.  This package imports torch and numpy, never jax or aainterp.
-Ported so far (ROADMAP.md slices 1-4; slice 2 without its strided-stencil
+Ported so far (ROADMAP.md slices 1-5; slice 2 without its strided-stencil
 path):
 
 * axis-aligned resampling (any multiple of 90 degrees) through the
@@ -29,7 +29,15 @@ path):
 * the transposed apply (``apply_operator_transpose``), variance maps
   (``propagate_variance``), operator composition (``compose_separable``),
   ``area_rotate`` and the reference-named ``area_average_interpolation``
-  and ``fast_area_average_interpolation``.
+  and ``fast_area_average_interpolation``;
+* serving and tooling: the reference-parity command line (``cli.py``,
+  ``python -m aainterp_torch``), the streaming executor on CUDA streams
+  (``pipeline.stream_apply``, ``stream_apply_files``), the operator disk
+  cache (``utils/cache.py``, the JAX package's format) and the shear-plan
+  disk cache (``ops.cuda_shear.kernel_plan_cached``), CSV / raster I/O
+  (``utils/io.py``), logging and profiling (``utils/log.py``), the quality
+  metrics (``metrics.py``) and the bilinear / bicubic baselines
+  (``baselines.py``).
 
 Entry points compute where a tensor input lies; other input (numpy, a
 list) goes to ``device=`` or, by default, the GPU.
@@ -101,6 +109,7 @@ from .ops.weights import (
     squared_operator,
     validate_operator,
 )
+from .pipeline import stream_apply
 from .regrid import (
     LatLonGrid,
     apply_band_operators,
@@ -155,6 +164,7 @@ __all__ = [
     "separable_operator",
     "shear3_plan_from_numpy",
     "squared_operator",
+    "stream_apply",
     "validate_args",
     "validate_operator",
 ]

@@ -12,7 +12,7 @@ PyTorch headers), so each builds in seconds:
   kernel, in three forms, and its contraction) through nvcc;
 * ``shear3_stage`` — ``csrc/shear3_stage.cu`` (the two stage kernels of
   ``mode='shear'``) through nvcc;
-* ``aainterp_native`` — the repository's host weight-gen engine,
+* ``aainterp_native`` — the repository's host weight-gen and CSV engine,
   ``native/aainterp_native.cpp``, through g++ with the flags of
   ``native/Makefile``.
 
@@ -131,7 +131,14 @@ NATIVE = Library(
      # aai_compat_cell_areas(n_pix, Km, modH, modW, qvx, qvy, mx0, my0,
      #     n_threads, areas)
      ("aai_compat_cell_areas", (ctypes.c_int64,) + (ctypes.c_int,) * 3
-      + (_F64P, _F64P, _I64P, _I64P, ctypes.c_int, _F64P), None)))
+      + (_F64P, _F64P, _I64P, _I64P, ctypes.c_int, _F64P), None),
+     # aai_csv_read(path, buf, cap_rows, cap_cols, &h, &w) -> rc
+     ("aai_csv_read", (ctypes.c_char_p, _F64P, ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int),
+                       ctypes.POINTER(ctypes.c_int)), ctypes.c_int),
+     # aai_csv_write(path, data, h, w, sig_digits) -> rc
+     ("aai_csv_write", (ctypes.c_char_p, _F64P) + (ctypes.c_int,) * 3,
+      ctypes.c_int)))
 
 _LOADED: Dict[str, ctypes.CDLL] = {}   # library name -> CDLL, once per process
 

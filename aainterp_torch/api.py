@@ -101,8 +101,9 @@ resolutions, about the image center by default),
 ``(dst, dst_isocenter)``; and ``propagate_variance`` (the squared
 operator on the same routes).
 
-Not yet ported, raising NotImplementedError naming the ROADMAP.md slice
-that brings them: ``resize``'s bilinear and bicubic methods (slice 5).
+``resize(method='bilinear'|'bicubic')`` takes the baselines of
+``baselines.py`` (``F.interpolate`` with antialias, a library call as
+the JAX package's ``jax.image.resize`` is).
 """
 
 from __future__ import annotations
@@ -272,13 +273,16 @@ def _ell_route(op: weights_ops.EllOperator, impl: str, on_cuda: bool):
     geometry without a shear plan sends 'auto' to 'gather' with a
     RuntimeWarning (counted in SHEAR_PLAN_FALLBACKS), decided here before
     any launch.  Forced 'kernel' / 'sheared' raise ValueError instead.
+    The kernel route's plan goes through the disk plan cache
+    (``cuda_shear.kernel_plan_cached``, as the JAX package persists the
+    Pallas plan, its api.py:469-472); the plain routes write nothing.
     """
     global SHEAR_PLAN_FALLBACKS
     if impl == "auto":
         if not on_cuda:
             return "gather", None
         try:
-            return "kernel", cuda_shear.kernel_plan(op)
+            return "kernel", cuda_shear.kernel_plan_cached(op)
         except ValueError as e:
             warnings.warn(f"rotated apply takes the plain gather route: {e}",
                           RuntimeWarning)
@@ -288,7 +292,9 @@ def _ell_route(op: weights_ops.EllOperator, impl: str, on_cuda: bool):
         raise ValueError(
             "impl='kernel' needs a CUDA tensor (use impl='auto', 'sheared' "
             "or 'gather' on the CPU)")
-    if impl in ("kernel", "sheared"):
+    if impl == "kernel":
+        return impl, cuda_shear.kernel_plan_cached(op)
+    if impl == "sheared":
         return impl, cuda_shear.kernel_plan(op)
     return "gather", None
 
@@ -513,17 +519,22 @@ def area_resize(
 
 
 def resize(image, dst_shape: Tuple[int, int], *, method: str = "area",
-           **kwargs) -> torch.Tensor:
+           device: Device = None, **kwargs) -> torch.Tensor:
     """One resize entry: ``method='area'`` is ``area_resize`` (with its
-    mask=/impl=/precision=/device= knobs).  'bilinear' and 'bicubic' (the
-    JAX package's ``baselines.resize_baseline``) are not ported yet."""
+    mask=/impl=/precision= knobs); 'bilinear' and 'bicubic' are the
+    standard interpolators of ``baselines.resize_baseline`` (a library
+    call, ``F.interpolate`` with antialias, as JAX's is
+    ``jax.image.resize``), which take no other options."""
     if method == "area":
-        return area_resize(image, dst_shape, **kwargs)
+        return area_resize(image, dst_shape, device=device, **kwargs)
     if method in ("bilinear", "bicubic"):
-        raise NotImplementedError(
-            f"resize(method={method!r}) comes with the PyTorch port's "
-            "baselines.py (ROADMAP.md slice 5); use the JAX package "
-            "aainterp meanwhile")
+        if kwargs:
+            raise TypeError(
+                f"method={method!r} takes no extra options, got "
+                f"{sorted(kwargs)}")
+        from .baselines import resize_baseline
+
+        return resize_baseline(image, dst_shape, method, device=device)
     raise ValueError(
         f"method must be 'area', 'bilinear' or 'bicubic', got {method!r}")
 

@@ -34,7 +34,7 @@ from .ops import apply as apply_ops
 from .ops import cuda_apply, cuda_shear
 from .ops import overlap1d
 from .ops import weights as weights_ops
-from .utils.device import Device, as_input
+from .utils.device import Device, as_input, upload
 from .utils.digest import array_digest
 from .utils.lru import LruDict
 
@@ -211,16 +211,16 @@ _ELL_LINEAR_CACHE = LruDict(8, max_bytes=4 << 30)
 
 
 def ell_tables(op: weights_ops.EllOperator, weight_dtype: torch.dtype,
-               device: torch.device):
+               device: torch.device, pinned: bool = False):
     """(base, weights) of ``op`` on ``device``, weights in
-    ``weight_dtype``, uploaded once per table content, dtype and device."""
+    ``weight_dtype``, uploaded once per table content, dtype and device
+    (``pinned``: see ``utils.device.upload``)."""
     key = (array_digest(op.weights), array_digest(op.base),
            op.weights.shape, weight_dtype, torch.device(device))
     hit = _ELL_TABLES.get(key)
     if hit is None:
-        hit = (torch.from_numpy(op.base).to(device),
-               torch.from_numpy(op.weights).to(device=device,
-                                                dtype=weight_dtype))
+        hit = (upload(op.base, device, pinned=pinned),
+               upload(op.weights, device, weight_dtype, pinned=pinned))
         _ELL_TABLES.put(key, hit)
     return hit
 

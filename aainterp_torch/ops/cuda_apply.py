@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..utils.device import SMEM_LIMIT, out_buffer
+from ..utils.device import SMEM_LIMIT, out_buffer, upload
 from ..utils.digest import array_digest
 from ..utils.lru import LruDict
 from .apply import apply_separable_banded
@@ -195,12 +195,13 @@ def _plan_for(ys, yw, xs, xw):
     return plan
 
 
-def _device_tables(plan, device: torch.device):
-    """The plan's tables on ``device``, uploaded once and kept on the plan."""
+def _device_tables(plan, device: torch.device, pinned: bool = False):
+    """The plan's tables on ``device``, uploaded once and kept on the plan
+    (``pinned``: see ``utils.device.upload``)."""
+    device = torch.device(device)
     dev = plan["dev"].get(device)
     if dev is None:
-        dev = tuple(torch.from_numpy(np.ascontiguousarray(t)).to(device)
-                    for t in plan["tables"])
+        dev = tuple(upload(t, device, pinned=pinned) for t in plan["tables"])
         plan["dev"][device] = dev
     return dev
 

@@ -57,7 +57,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..utils.device import SMEM_LIMIT, out_buffer
+from ..utils.device import SMEM_LIMIT, out_buffer, upload
 from ..utils.digest import array_digest
 from ..utils.lru import LruDict
 from .apply import _band_index, apply_separable_banded
@@ -139,14 +139,14 @@ def kernel_plan(ys: np.ndarray, yw: np.ndarray, xs: np.ndarray,
     return plan
 
 
-def device_tables(plan, device: torch.device):
+def device_tables(plan, device: torch.device, pinned: bool = False):
     """The plan's tables (ys, yw, xs, xw, row_base, col_base) on
-    ``device``, uploaded once and kept on the plan."""
+    ``device``, uploaded once and kept on the plan (``pinned``: see
+    ``utils.device.upload``)."""
     device = torch.device(device)
     dev = plan["dev"].get(device)
     if dev is None:
-        dev = tuple(torch.from_numpy(np.ascontiguousarray(t)).to(device)
-                    for t in plan["tables"])
+        dev = tuple(upload(t, device, pinned=pinned) for t in plan["tables"])
         plan["dev"][device] = dev
     return dev
 

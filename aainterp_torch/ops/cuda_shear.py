@@ -15,10 +15,13 @@ contraction, with the exact ELL weights re-indexed by
   of the TPU's 8/16/128 alignments, one-hot selectors or residual-roll
   bases remain: a GPU thread reads any address.  Each plan uploads its
   tables to a device once and keeps them.
-* ``kernel_plan(op)`` builds it from an EllOperator, cached by table
-  content (the counterpart of ``aainterp/api.py::_pallas_shear_plan``;
-  in memory only).  Geometries that ``build_shear_plan`` rejects raise
-  ValueError, and the rejection is cached too.
+* ``kernel_plan(op)`` builds it from an EllOperator, cached in memory by
+  table content (the counterpart of ``aainterp/api.py::_pallas_shear_plan``).
+  Geometries that ``build_shear_plan`` rejects raise ValueError, and the
+  rejection is cached too.  ``kernel_plan_cached(op)`` (the counterpart of
+  ``build_kernel_plan_cached``, pallas_shear.py:715-748) keeps the plan's
+  tables on disk as well, keyed by geometry and mode, so a new process
+  loads what another built; the rotated kernel route uses it.
 * The shear kernel has three forms: ``vshear_kernel`` (S from q),
   ``hshear_kernel`` (T from S) and ``vhshear_kernel`` (T from q, both
   shears at once); ``contract_kernel`` is the window contraction.  Each
@@ -40,6 +43,12 @@ a zero-weight tap never meets an uninitialised value.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
+import os
+import tempfile
+import warnings
+import zipfile
 from typing import Dict, Optional
 
 import numpy as np
@@ -48,7 +57,7 @@ import torch
 from .. import _build
 from ..utils.digest import array_digest
 from ..utils.lru import LruDict
-from ..utils.device import SMEM_LIMIT
+from ..utils.device import SMEM_LIMIT, upload
 from .shear_apply import build_shear_plan
 from .weights import EllOperator
 
@@ -217,13 +226,15 @@ class ShearKernelPlan:
             hit = self.tiles[form] = plan_tiles(self, form)
         return hit
 
-    def tables(self, device: torch.device) -> Dict[str, torch.Tensor]:
+    def tables(self, device: torch.device,
+               pinned: bool = False) -> Dict[str, torch.Tensor]:
         """The plan's tables on ``device``, uploaded once and kept; a
-        form's tile windows join them as ``win_<form>`` (``form_windows``)."""
+        form's tile windows join them as ``win_<form>`` (``form_windows``).
+        ``pinned``: see ``utils.device.upload``."""
         device = torch.device(device)
         hit = self.dev.get(device)
         if hit is None:
-            hit = {name: torch.from_numpy(getattr(self, name)).to(device)
+            hit = {name: upload(getattr(self, name), device, pinned=pinned)
                    for name in ("gy", "hx", "ry0", "cx0", "w2")}
             self.dev[device] = hit
         return hit
@@ -255,17 +266,143 @@ def plan_from_operator(op: EllOperator) -> ShearKernelPlan:
         w2=w2)
 
 
+def _plan_key(op: EllOperator):
+    return (array_digest(op.weights), array_digest(op.base),
+            op.weights.shape, op.spec.qrot_shape)
+
+
 def kernel_plan(op: EllOperator) -> ShearKernelPlan:
     """Cached ``plan_from_operator``: keyed by the operator's table
     content; a rejected geometry is cached as its ValueError message."""
-    key = (array_digest(op.weights), array_digest(op.base),
-           op.weights.shape, op.spec.qrot_shape)
+    key = _plan_key(op)
     hit = _PLAN_CACHE.get(key)
     if hit is None:
         try:
             hit = plan_from_operator(op)
         except ValueError as e:
             hit = str(e)
+        _PLAN_CACHE.put(key, hit)
+    if isinstance(hit, str):
+        raise ValueError(hit)
+    return hit
+
+
+# the disk plan cache: the key's method tag, the plan's array and integer
+# fields, and what each process built or loaded (kernel_plan_cached)
+PLAN_CACHE_VERSION = "cuda_shear_v1"
+_PLAN_ARRAYS = ("gy", "hx", "ry0", "cx0", "w2")
+_PLAN_DIMS = ("qH", "qW", "TH", "TW", "Hd", "Wd", "Ka", "Kb")
+PLAN_DISK = {"built": 0, "loaded": 0}
+
+
+def table_fingerprint(op: EllOperator) -> str:
+    """A fingerprint of ``op``'s tables that is stable across processes:
+    their shapes, dtypes and a strided sample of at most 2^20 elements of
+    each.  Two operators of one geometry and mode but other weights (the
+    squared operator of ``propagate_variance``) differ in it."""
+    h = hashlib.blake2b(digest_size=16)
+    for a in (op.base, op.weights):
+        a = np.asarray(a)
+        flat = a.reshape(-1)
+        h.update(f"{a.shape}{a.dtype.str}".encode())
+        h.update(np.ascontiguousarray(flat[::max(1, flat.size >> 20)]))
+    return h.hexdigest()
+
+
+def plan_cache_path(op: EllOperator, cache_dir: Optional[str] = None) -> str:
+    """The file of ``op``'s plan in the disk cache: ``<key>.plan.npz``,
+    key ``utils.cache.spec_key(op.spec, op.mode, PLAN_CACHE_VERSION)``."""
+    from ..utils import cache
+
+    key = cache.spec_key(op.spec, op.mode, PLAN_CACHE_VERSION)
+    return os.path.join(cache_dir or cache.DEFAULT_CACHE_DIR,
+                        f"{key}.plan.npz")
+
+
+def save_plan(plan: ShearKernelPlan, op: EllOperator,
+              cache_dir: Optional[str] = None) -> str:
+    """Write ``plan`` (its integer fields, the table fingerprint and its
+    arrays gy, hx, ry0, cx0, w2) to the disk cache through a temporary
+    file of a unique name, renamed into place: two processes saving at
+    once each write their own file, and a reader sees a whole file or
+    none.  Tile tables are not stored (planned at a form's first
+    launch)."""
+    path = plan_cache_path(op, cache_dir)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    meta = {d: int(getattr(plan, d)) for d in _PLAN_DIMS}
+    meta["fingerprint"] = table_fingerprint(op)
+    fd, tmp = tempfile.mkstemp(prefix=os.path.basename(path) + ".",
+                               suffix=".tmp", dir=os.path.dirname(path))
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, __meta__=json.dumps(meta),
+                     **{n: getattr(plan, n) for n in _PLAN_ARRAYS})
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return path
+
+
+def load_plan(op: EllOperator,
+              cache_dir: Optional[str] = None) -> Optional[ShearKernelPlan]:
+    """``op``'s plan from the disk cache, or None: no entry, an entry of
+    another operator of the same geometry (fingerprint), or an entry that
+    cannot be read (with a RuntimeWarning; the caller rebuilds it, as
+    ``utils.cache.load_operator``'s contract is)."""
+    path = plan_cache_path(op, cache_dir)
+    if not os.path.exists(path):
+        return None
+    try:
+        with np.load(path, allow_pickle=False) as z:
+            meta = json.loads(str(z["__meta__"]))
+            if meta["fingerprint"] != table_fingerprint(op):
+                return None
+            plan = ShearKernelPlan(
+                **{d: int(meta[d]) for d in _PLAN_DIMS},
+                **{n: np.ascontiguousarray(z[n]) for n in _PLAN_ARRAYS})
+        shapes = {"gy": (plan.qW,), "hx": (plan.TH,), "ry0": (plan.Hd,),
+                  "cx0": (plan.Wd,), "w2": (plan.Ka * plan.Kb, plan.Hd,
+                                            plan.Wd)}
+        for n, shape in shapes.items():
+            a = getattr(plan, n)
+            want = np.float32 if n == "w2" else np.int32
+            if a.shape != shape or a.dtype != want:
+                raise ValueError(f"{n} is {a.dtype} {a.shape}, expected "
+                                 f"{np.dtype(want)} {shape}")
+    except (OSError, KeyError, ValueError, EOFError,
+            zipfile.BadZipFile) as e:
+        warnings.warn(f"ignoring unreadable shear plan cache entry {path}: "
+                      f"{type(e).__name__}: {e}", RuntimeWarning)
+        return None
+    return plan
+
+
+def kernel_plan_cached(op: EllOperator,
+                       cache_dir: Optional[str] = None) -> ShearKernelPlan:
+    """``kernel_plan`` with a disk cache (``cache_dir``, default
+    ``utils.cache.DEFAULT_CACHE_DIR``): the in-memory cache first, then
+    the disk, then a build that is saved (a save that fails warns and
+    the plan is used all the same).  ``PLAN_DISK`` counts the builds and
+    loads.  Rejected geometries raise ValueError and are not saved."""
+    key = _plan_key(op)
+    hit = _PLAN_CACHE.get(key)
+    if hit is None:
+        hit = load_plan(op, cache_dir)
+        if hit is not None:
+            PLAN_DISK["loaded"] += 1
+        else:
+            try:
+                hit = plan_from_operator(op)
+            except ValueError as e:
+                hit = str(e)
+            else:
+                PLAN_DISK["built"] += 1
+                try:
+                    save_plan(hit, op, cache_dir)
+                except OSError as e:
+                    warnings.warn(f"shear plan not saved: {e}",
+                                  RuntimeWarning)
         _PLAN_CACHE.put(key, hit)
     if isinstance(hit, str):
         raise ValueError(hit)

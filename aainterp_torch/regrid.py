@@ -56,7 +56,7 @@ from .ops.apply import (
     aligned_axis_plan, apply_separable_aligned, apply_separable_banded,
 )
 from .ops.overlap1d import Band1D
-from .utils.device import Device, as_input
+from .utils.device import Device, as_input, upload
 from .utils.digest import array_digest
 from .utils.lru import LruDict
 
@@ -211,17 +211,18 @@ class BandTables:
                    aligned=None if xp is None else (yp, xp),
                    plan=cuda_apply_2d.make_plan(ys, yw, xs, xw))
 
-    def tables(self, device: torch.device) -> dict:
+    def tables(self, device: torch.device, pinned: bool = False) -> dict:
         """Device copies: 'banded' (ys, yw, xs, xw; the kernel plan's own
-        copies) and 'aligned' plans."""
+        copies) and 'aligned' plans (``pinned``: see
+        ``utils.device.upload``)."""
         device = torch.device(device)
         hit = self.dev.get(device)
         if hit is None:
-            hit = {"banded": cuda_apply_2d.device_tables(self.plan,
-                                                         device)[:4]}
+            hit = {"banded": cuda_apply_2d.device_tables(
+                self.plan, device, pinned)[:4]}
             if self.aligned is not None:
                 hit["aligned"] = tuple(
-                    dict(p, wk=torch.from_numpy(p["wk"]).to(device))
+                    dict(p, wk=upload(p["wk"], device, pinned=pinned))
                     for p in self.aligned)
             self.dev[device] = hit
         return hit

@@ -1,5 +1,6 @@
 """Where a public entry point puts its input, where a kernel wrapper
-writes its output, and the card's shared-memory limit the planners use.
+writes its output, how host tables reach a device (``upload``), and the
+card's shared-memory limit the planners use.
 
 The port's entry points run on the card unless the caller asks for the
 CPU.  ``device=``, where given, is where the call computes: any input,
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 Device = Optional[Union[torch.device, str]]
@@ -28,16 +30,24 @@ def _same(a: torch.device, b: torch.device) -> bool:
     return a.type == b.type and (b.index is None or a.index == b.index)
 
 
-def as_input(x, device: Device = None) -> torch.Tensor:
-    """``x`` as a tensor on the device an entry point computes on."""
-    if isinstance(x, torch.Tensor) and device is None:
-        return x
+def target(device: Device = None) -> torch.device:
+    """The device an entry point without a tensor input computes on:
+    ``device``, or ``cuda`` where it is None; raises RuntimeError where
+    that is CUDA and there is no CUDA device."""
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "aainterp_torch computes on the GPU, and no CUDA device is "
             "available: pass a CPU tensor or device='cpu' to compute on "
             "the CPU")
+    return device
+
+
+def as_input(x, device: Device = None) -> torch.Tensor:
+    """``x`` as a tensor on the device an entry point computes on."""
+    if isinstance(x, torch.Tensor) and device is None:
+        return x
+    device = target(device)
     if isinstance(x, torch.Tensor):
         return x if _same(x.device, device) else x.to(device)
     return torch.as_tensor(x, device=device)
@@ -54,3 +64,26 @@ def out_buffer(out, shape, dtype, device) -> torch.Tensor:
         raise ValueError(f"out must be a contiguous {dtype} tensor of shape "
                          f"{tuple(shape)} on {device}")
     return out
+
+
+def upload(a, device, dtype: Optional[torch.dtype] = None, *,
+           pinned: bool = False) -> torch.Tensor:
+    """A host table (numpy, possibly a read-only memory map) as a new
+    tensor on ``device``, in ``dtype`` (default: the table's own).
+
+    ``pinned=True`` on a CUDA device stages the table in pinned host
+    memory and copies it with ``non_blocking=True`` on the current
+    stream: the call returns before the copy lands, and work queued on
+    that stream sees the table (work on another stream must wait for
+    this one).  Otherwise the copy is synchronous."""
+    a = np.asarray(a)
+    device = torch.device(device)
+    if pinned and device.type == "cuda":
+        dtype = dtype or torch.from_numpy(np.empty(0, a.dtype)).dtype
+        host = torch.empty(a.shape, dtype=dtype, pin_memory=True)
+        np.copyto(host.numpy(), a, casting="unsafe")
+        return host.to(device, non_blocking=True)
+    if not a.flags.writeable or not a.flags.c_contiguous:
+        a = np.array(a, order="C")          # torch.from_numpy needs both
+    t = torch.from_numpy(a)
+    return t.to(device=device, dtype=dtype or t.dtype)

@@ -33,7 +33,20 @@ points (``aainterp_torch.area_average_interpolate`` for the first three):
   ``fused=True`` (float32 weight-gen and gather on the card, no kernel),
   ``area_rotate`` (equal resolution, 2798^2 out), the transposed apply and
   variance maps at both flagships (kernel 1; the rotated kernels), and
-  ``compose_separable`` of 4K -> 1080p -> 540p on kernel 1.
+  ``compose_separable`` of 4K -> 1080p -> 540p on kernel 1;
+* serving and tooling (phases 37-41): the reference-parity command line
+  (``aainterp_torch.cli``) at the reference program's own geometry — a
+  910x910 film-dose CSV, 150 -> 25.4 dpi, 1.5 degrees about (455, 455) —
+  in modes 2, 1, 1 with ``--compat`` and at 0 degrees, in this process
+  (launches counted) and once as ``python3 -m aainterp_torch``, with
+  ``--cache-dir`` reuse; the ``resize`` (area, bicubic), ``rotate`` and
+  ``regrid`` subcommands; the streaming executor (``pipeline.stream_apply``,
+  pinned ring on CUDA streams) at bench.py's stream geometry, 48 distinct
+  4K frames 4K -> 1080p in batches of 8, bf16 and u8 at depth 1 and 3, and
+  16 rotated 2048^2 frames, with the pinned copy rates beside them;
+  ``stream_apply_files`` through the multi-input command on 16 film CSVs;
+  and the operator and shear-plan disk caches at the rotated flagship and
+  its compat operator, build against load.
 
 It builds every kernel from ``aainterp_torch/csrc`` with nvcc (and the
 host engine ``native/aainterp_native.cpp`` with g++), all compilers at
@@ -94,16 +107,31 @@ area_rotate within one bf16 ulp of 'gather' and its f32 flux of
 zero-bordered frames kept to rel 1e-5; the separable transpose and
 variance at bf16 atol 1e-2 of their plain versions, the rotated variance
 within one bf16 ulp of 'gather'; the composed operator against the two
-applies f32 atol 1e-5.  TF32 is switched off for matmul and cuDNN so the
-plain versions' and library calls' einsums run in full f32.
+applies f32 atol 1e-5.  Serving and tooling: the command's CSVs equal
+the in-process apply written at 6 significant digits (the same kernels
+on the same f32 input), the subprocess's stdout (timings masked) and CSV
+bytes equal the in-process run's, every streamed frame ``torch.equal`` to
+the direct apply of its batch, every multi-input CSV byte-equal to the
+single-file command's, the loaded shear plan equal to the built one field
+for field and its route output bit-equal.  TF32 is switched off for
+matmul and cuDNN so the plain versions' and library calls' einsums run in
+full f32.  Shear plans and operators go to a disk cache in a temporary
+directory of the run's own, removed at its end.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
 import math
+import os
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -114,7 +142,12 @@ import aainterp_torch as at
 from aainterp_torch import _build
 from aainterp_torch import api as t_api
 from aainterp_torch import autodiff as t_autodiff
+from aainterp_torch import cli as t_cli
+from aainterp_torch import pipeline
 from aainterp_torch import regrid as t_regrid
+from aainterp_torch.utils import cache as t_cache
+from aainterp_torch.utils import io as t_io
+from aainterp_torch.utils import log as t_log
 from aainterp_torch.ops import apply as apply_ops
 from aainterp_torch.ops import compat as compat_ops
 from aainterp_torch.ops import (cuda_apply, cuda_apply_2d, cuda_shear,
@@ -142,6 +175,21 @@ SHEAR_AXES = {"quality": ("x", "y", "x"), "fast": ("y", "x", "y")}
 # the conservative regrid: BASELINE config 5 (0.1 -> 1 degree) and the
 # 0.1 -> 0.25 degree regrid onto the cell-centred grid of ERA5-class data
 RG_F, RG_SRC, RG_DST, RG_QDEG = 8, (1800, 3600), (180, 360), (720, 1440)
+# the reference program's own geometry (SURVEY.md §L5, Source.cpp:1528-1534):
+# a 910 x 910 film-dose image at 150 dpi -> 25.4 dpi, 1.5 degrees about
+# (455, 455); the legacy command's runs and the operator mode of each
+FILM = (910, 910)
+FILM_ARGS = ["--src-resolution", "150", "--dst-resolution", "25.4",
+             "--isocenter", "455", "455"]
+LEGACY_RUNS = {
+    "mode2": (["--angle", "1.5", "--mode", "2"], "fast"),
+    "mode1": (["--angle", "1.5", "--mode", "1"], "exact"),
+    "compat": (["--angle", "1.5", "--mode", "1", "--compat"], "compat"),
+    "angle0": (["--angle", "0", "--mode", "1"], "exact"),
+}
+# bench.py's stream case (bench.py:306-357): 48 distinct 4K frames, batch 8
+STREAM_N, STREAM_BATCH = 48, 8
+REPO = os.path.dirname(os.path.abspath(__file__))
 # NVIDIA's data sheet for the H100 SXM (dense rates, 700 W)
 PEAK_BYTES_S = 3.35e12           # HBM3
 PEAK_F32_FLOP_S = 67e12          # float32 outside the tensor cores
@@ -1655,6 +1703,469 @@ def rotated_rest_phases(make, card, dev) -> dict:
     return timing
 
 
+# ---------------------------------------------------------------------------
+# Phases 37-41: the reference-parity CLI, the stream, the disk caches
+# ---------------------------------------------------------------------------
+
+
+def film_dose(seed: int, shape=FILM) -> np.ndarray:
+    """A seeded film-dose image in Gy: a square field with a sigmoid
+    penumbra, its centre jittered, plus 1 % noise, non-negative."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:shape[0], 0:shape[1]].astype(np.float64)
+    cy = (shape[0] - 1) / 2 + rng.uniform(-20, 20)
+    cx = (shape[1] - 1) / 2 + rng.uniform(-20, 20)
+    half = 0.3 * min(shape)
+
+    def edge(d):
+        return 1.0 / (1.0 + np.exp((np.abs(d) - half) / 8.0))
+
+    dose = 2.0 * edge(y - cy) * edge(x - cx)
+    return np.clip(dose + rng.normal(0.0, 0.02, shape), 0.0, None)
+
+
+def run_cli(argv) -> tuple:
+    """``cli.main(argv)`` in this process: (return code, stdout)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = t_cli.main(list(argv))
+    return rc, buf.getvalue()
+
+
+_TIME_LINE = re.compile(r"Calculation time : (\S+) \[ms\]")
+
+
+def mask_times(text: str) -> str:
+    text = _TIME_LINE.sub("Calculation time : ? [ms]", text)
+    return re.sub(r"\(\S+ ms/file\)", "(? ms/file)", text)
+
+
+def at_6_digits(a) -> np.ndarray:
+    """``a`` as the CLI's CSV holds it: %.6g, read back as float64."""
+    a = a.detach().double().cpu().numpy() if isinstance(a, torch.Tensor) \
+        else np.asarray(a, np.float64)
+    return np.char.mod("%.6g", a).astype(np.float64)
+
+
+def _idle_but(name: str) -> bool:
+    """No kernel ran since reset_launches() other than ``name``'s path
+    ('separable', 'band', 'rotated' or None)."""
+    return ((name == "separable" or cuda_apply.LAUNCHES == 0)
+            and (name == "band" or cuda_apply_2d.LAUNCHES == 0)
+            and (name == "rotated" or other_paths_idle(cuda_shear.LAUNCHES))
+            and other_paths_idle(cuda_shear3.LAUNCHES))
+
+
+def cli_phases(dev, work: str) -> dict:
+    """Phases 37-38: the legacy command at the reference's own geometry
+    and the subcommands, through ``cli.main`` (and once as
+    ``python3 -m aainterp_torch``).  Returns their timing."""
+    timing = {}
+    src = film_dose(0)
+    inp = os.path.join(work, "film.csv")
+    t_io.csv_write(inp, src)
+    src = t_io.csv_read(inp)                # the values the command reads
+    x = torch.from_numpy(src.astype(np.float32)).to(dev)
+    iso = (455.0, 455.0)
+    outputs = {}
+
+    # ---- 37. the legacy command --------------------------------------------
+    for name, (extra, mode) in LEGACY_RUNS.items():
+        out = os.path.join(work, f"film_{name}.csv")
+        angle = float(extra[extra.index("--angle") + 1])
+        fb = t_api.SHEAR_PLAN_FALLBACKS
+        torch.cuda.synchronize()
+        reset_launches()
+        rc, text = run_cli([inp] + FILM_ARGS + extra + ["--output", out])
+        torch.cuda.synchronize()
+        n1, nr = cuda_apply.LAUNCHES, dict(cuda_shear.LAUNCHES)
+        check(rc == 0, f"CLI {name} returned {rc}:\n{text}")
+        if angle == 0.0:
+            check(cuda_apply.LAUNCHES == 1 and _idle_but("separable"),
+                  f"CLI {name}: kernel 1 launched {cuda_apply.LAUNCHES} "
+                  "times, or another kernel ran")
+        else:
+            _launched(_route(1), f"CLI {name}", fb)
+        fn = ("AreaAverageInterpolation::areaAverageInterpolation"
+              if "1" == extra[extra.index("--mode") + 1] else
+              "AreaAverageInterpolation::fastAreaAverageInterpolation")
+        want = t_log.banner(fn, 150.0, 25.4, iso, angle).splitlines()
+        lines = text.splitlines()
+        check(lines[:-2] == want and _TIME_LINE.fullmatch(lines[-2])
+              and lines[-1] == "Run terminated correctly.",
+              f"CLI {name} stdout is not banner, timing, end:\n{text}")
+        ref = at.area_average_interpolate(x, 150.0, 25.4, iso, angle,
+                                          mode=mode).dst
+        got = t_io.csv_read(out)
+        check(got.shape == tuple(ref.shape)
+              and np.array_equal(got, at_6_digits(ref)),
+              f"CLI {name}: the CSV differs from the in-process apply at 6 "
+              "significant digits")
+        timing[f"cli_{name}_ms"] = float(_TIME_LINE.search(text).group(1))
+        outputs[name] = (out, text)
+        print(f"[37 cli] {name}: {' '.join(extra)}: rc 0, banner + timing "
+              f"+ end, {n1} kernel-1 / {nr['vhshear']} fused-shear / "
+              f"{nr['contract']} contraction launches, "
+              f"{FILM[0]}x{FILM[1]} -> {got.shape}, CSV equal to the "
+              f"in-process apply at 6 digits; "
+              f"{timing[f'cli_{name}_ms']:.3f} ms")
+    out = os.path.join(work, "film_sub.csv")
+    env = dict(os.environ, PYTHONPATH=REPO,
+               AAINTERP_CACHE_DIR=t_cache.DEFAULT_CACHE_DIR)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "aainterp_torch", inp] + FILM_ARGS
+        + LEGACY_RUNS["mode2"][0] + ["--output", out], capture_output=True,
+        text=True, cwd=REPO, env=env, timeout=600)
+    sub_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"python3 -m aainterp_torch returned "
+          f"{proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
+    check(mask_times(proc.stdout) == mask_times(outputs["mode2"][1]),
+          "the subprocess's stdout differs from the in-process run's")
+    check(open(out, "rb").read() == open(outputs["mode2"][0], "rb").read(),
+          "the subprocess's CSV differs from the in-process run's")
+    timing["cli_subprocess_s"] = sub_s
+    print(f"[37 cli] python3 -m aainterp_torch --mode 2: rc 0, stdout and "
+          f"CSV bytes equal to the in-process run's ({sub_s:.2f} s, process "
+          "start included)")
+    cache = os.path.join(work, "opcache")
+    for i in range(2):
+        before = sum(weights_ops.WEIGHT_GEN_ENGINES.values())
+        out = os.path.join(work, f"film_cached{i}.csv")
+        rc, text = run_cli([inp] + FILM_ARGS + LEGACY_RUNS["mode2"][0]
+                           + ["--cache-dir", cache, "--output", out])
+        moved = sum(weights_ops.WEIGHT_GEN_ENGINES.values()) - before
+        check(rc == 0 and moved == (1 - i),
+              f"--cache-dir run {i}: rc {rc}, weight-gen ran {moved} times")
+        check(open(out, "rb").read() == open(outputs["mode2"][0],
+                                             "rb").read(),
+              f"--cache-dir run {i}: the CSV differs")
+        timing[f"cli_cache_run{i}_ms"] = float(
+            _TIME_LINE.search(text).group(1))
+    print(f"[37 cli] --cache-dir: run 1 builds and saves the operator "
+          f"({timing['cli_cache_run0_ms']:.3f} ms), run 2 loads it, weight-"
+          f"gen counters unmoved ({timing['cli_cache_run1_ms']:.3f} ms); "
+          "CSVs equal")
+
+    # ---- 38. the subcommands -------------------------------------------------
+    field = np.random.default_rng(38).uniform(250.0, 300.0, (180, 360))
+    fpath = os.path.join(work, "field.csv")
+    t_io.csv_write(fpath, field)
+    f32 = torch.from_numpy(t_io.csv_read(fpath).astype(np.float32)).to(dev)
+    subs = {
+        "resize_area": (["resize", inp, "--shape", "455", "300"], "band",
+                        lambda: at.resize(x, (455, 300))),
+        "resize_bicubic": (["resize", inp, "--shape", "300", "455",
+                            "--method", "bicubic"], None,
+                           lambda: at.resize(x, (300, 455),
+                                             method="bicubic")),
+        "rotate": (["rotate", inp, "--angle", "30"], "rotated",
+                   lambda: at.area_rotate(x, 30.0)),
+        "regrid": (["regrid", fpath, "--dst-grid", "90", "180",
+                    "--conserve-check"], "band",
+                   lambda: at.conservative_regrid(
+                       f32, at.LatLonGrid(180, 360), at.LatLonGrid(90, 180))),
+    }
+    for name, (argv, path, direct) in subs.items():
+        out = os.path.join(work, f"sub_{name}.csv")
+        torch.cuda.synchronize()
+        reset_launches()
+        rc, text = run_cli(argv + ["--output", out])
+        torch.cuda.synchronize()
+        check(rc == 0 and text.endswith("Run terminated correctly.\n"),
+              f"{name}: rc {rc}:\n{text}")
+        n = {"band": cuda_apply_2d.LAUNCHES, "rotated":
+             cuda_shear.LAUNCHES["vhshear"], None: 0}[path]
+        check(_idle_but(path) and (path is None or n == 1)
+              and (path != "rotated" or cuda_shear.LAUNCHES["contract"] == 1),
+              f"{name}: launches {cuda_apply.LAUNCHES} "
+              f"{cuda_apply_2d.LAUNCHES} {cuda_shear.LAUNCHES}")
+        got = t_io.csv_read(out)
+        check(np.array_equal(got, at_6_digits(direct())),
+              f"{name}: the CSV differs from the in-process apply")
+        if name == "regrid":
+            err = float(re.search(r"relative error (\S+)", text).group(1))
+            check(err < 1e-6, f"regrid flux error {err}")
+        timing[f"{name}_ms"] = float(_TIME_LINE.search(text).group(1))
+        print(f"[38 subcommand] {' '.join(a for a in argv if a not in (inp, fpath))}"
+              f": rc 0, {n} launch(es) of its kernel, CSV {got.shape} equal "
+              f"to the in-process apply at 6 digits"
+              + (f", flux error {err:.3e}" if name == "regrid" else ""))
+    png = os.path.join(work, "frame.png")
+    with open(png, "wb") as f:
+        f.write(b"\x89PNG not an image")
+    try:
+        import PIL  # noqa: F401
+        have_pil = True
+    except ImportError:
+        have_pil = False
+    saved = sys.modules.get("PIL", "absent")
+    sys.modules["PIL"] = None               # as on a machine without Pillow
+    try:
+        rc, text = run_cli(["resize", png, "--shape", "8", "8"])
+    finally:
+        if saved == "absent":
+            del sys.modules["PIL"]
+        else:
+            sys.modules["PIL"] = saved
+    check(rc == -1 and text.startswith("Failed to read image file.")
+          and text.endswith("Run terminated abnormally.\n"),
+          f"a .png without Pillow: rc {rc}:\n{text}")
+    proc = subprocess.run(
+        [sys.executable, "-m", "aainterp_torch", "resize", png, "--shape",
+         "8", "8"], capture_output=True, text=True, cwd=REPO, env=env,
+        timeout=600)
+    check(proc.returncode == 255 and "Traceback" not in proc.stderr
+          and proc.stdout.endswith("Run terminated abnormally.\n"),
+          f"resize of a bad .png: rc {proc.returncode}\n{proc.stdout}\n"
+          f"{proc.stderr}")
+    print(f"[38 subcommand] a .png with Pillow hidden: {text.splitlines()[0]!r}"
+          f", return -1; as a process (Pillow "
+          f"{'present' if have_pil else 'absent'} here): exit 255, no "
+          "traceback")
+    return timing
+
+
+def _copy_gb_s(dst, src, reps: int = 5) -> float:
+    """GB/s of ``dst.copy_(src, non_blocking=True)`` on CUDA events."""
+    dst.copy_(src, non_blocking=True)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        dst.copy_(src, non_blocking=True)
+    end.record()
+    end.synchronize()
+    return reps * src.nbytes / (start.elapsed_time(end) * 1e-3) / 1e9
+
+
+def stream_phases(dev, card, work: str) -> dict:
+    """Phases 39-40: the stream at bench.py's stream geometry (and a
+    rotated one), and stream_apply_files through the CLI's multi-input
+    path.  Returns their timing."""
+    timing = {"card": card, "frames": STREAM_N, "batch": STREAM_BATCH,
+              "shape": [H, W]}
+    op = operator((H, W), 0.0)
+    yb, xb, out_t = weights_ops.fold_quadrant_separable(op)
+    check(not out_t, "4K -> 1080p folded with a transpose")
+    gen = torch.Generator().manual_seed(39)
+
+    def frames(dtype, n, shape=(H, W)):
+        if dtype == torch.uint8:
+            return [torch.randint(0, 256, shape, dtype=torch.uint8,
+                                  generator=gen) for _ in range(n)]
+        return [torch.rand(shape, generator=gen).to(dtype)
+                for _ in range(n)]
+
+    # ---- 39. the stream: 48 distinct 4K frames, batch 8 -------------------
+    # depths in mirrored turns (1, 3, 3, 1), each after a warm-up stream of
+    # its own frames; the best of each depth's two turns is reported
+    n_batches = STREAM_N // STREAM_BATCH
+    for dtype in (torch.bfloat16, torch.uint8):
+        name = str(dtype)[6:]
+        fr = frames(dtype, STREAM_N)
+        warm = frames(dtype, 2 * STREAM_BATCH)
+        for depth in (1, 3, 3, 1):
+            for _ in pipeline.stream_apply(op, warm, batch=STREAM_BATCH,
+                                           depth=depth):
+                pass
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            outs = list(pipeline.stream_apply(op, fr, batch=STREAM_BATCH,
+                                              depth=depth))
+            dt = time.perf_counter() - t0
+            check(len(outs) == STREAM_N, f"stream gave {len(outs)} frames")
+            check(cuda_apply_2d.LAUNCHES == n_batches and _idle_but("band"),
+                  f"stream {name} depth {depth}: kernel 2 launched "
+                  f"{cuda_apply_2d.LAUNCHES} times, want {n_batches}")
+            for b in range(n_batches):
+                xb_ = torch.stack(fr[b * STREAM_BATCH:(b + 1) * STREAM_BATCH])
+                ref = at.apply_band_operators(xb_.to(dev), yb, xb).cpu()
+                for i in range(STREAM_BATCH):
+                    check(torch.equal(outs[b * STREAM_BATCH + i], ref[i]),
+                          f"stream {name} depth {depth}: frame "
+                          f"{b * STREAM_BATCH + i} differs from the direct "
+                          "apply of its batch")
+            gp = STREAM_N * H * W / dt / 1e9
+            turns = timing.setdefault(f"{name}_depth{depth}_turns_s", [])
+            turns.append(dt)
+            timing[f"{name}_depth{depth}_gpixel_s"] = \
+                STREAM_N * H * W / min(turns) / 1e9
+            print(f"[39 stream] {STREAM_N} x {H}x{W} {name} -> "
+                  f"{tuple(outs[0].shape)} {outs[0].dtype}, batch "
+                  f"{STREAM_BATCH}, depth {depth}: {gp:.3f} Gpixel/s "
+                  f"({dt:.3f} s), {n_batches} kernel-2 launches, every frame "
+                  "equal to the direct apply of its batch")
+            del outs
+        # the copies a batch of this dtype makes, in the same run
+        es = fr[0].element_size()
+        host = torch.empty((STREAM_BATCH, H, W), dtype=dtype,
+                           pin_memory=True)
+        devb = torch.empty((STREAM_BATCH, H, W), dtype=dtype, device=dev)
+        hout = torch.empty((STREAM_BATCH, H // 2, W // 2), dtype=dtype,
+                           pin_memory=True)
+        dout = torch.zeros((STREAM_BATCH, H // 2, W // 2), dtype=dtype,
+                           device=dev)
+        t0 = time.perf_counter()
+        for r in range(3):
+            for i in range(STREAM_BATCH):
+                host[i].copy_(fr[(r * STREAM_BATCH + i) % STREAM_N])
+        fill = 3 * host.nbytes / (time.perf_counter() - t0) / 1e9
+        h2d, d2h = _copy_gb_s(devb, host), _copy_gb_s(hout, dout)
+        in_b = STREAM_N * H * W * es
+        out_b = STREAM_N * (H // 2) * (W // 2) * es
+        # copy engines run both ways at once: the slower direction bounds
+        t_bound = max(in_b / (h2d * 1e9), out_b / (d2h * 1e9))
+        timing.update({f"{name}_h2d_gb_s": h2d, f"{name}_d2h_gb_s": d2h,
+                       f"{name}_host_fill_gb_s": fill,
+                       f"{name}_transfer_bound_gpixel_s":
+                           STREAM_N * H * W / t_bound / 1e9,
+                       f"{name}_host_fill_bound_gpixel_s": fill / es})
+        print(f"[39 stream] {card}, {name}: pinned H2D {h2d:.2f} GB/s, D2H "
+              f"{d2h:.2f} GB/s -> transfer bound "
+              f"{timing[f'{name}_transfer_bound_gpixel_s']:.3f} Gpixel/s; "
+              f"host copy into pinned memory {fill:.2f} GB/s -> "
+              f"{timing[f'{name}_host_fill_bound_gpixel_s']:.3f} Gpixel/s")
+        del fr, warm, host, devb, hout, dout
+    rop, _ = ell_operator_for((RH, RW), *ROT)
+    rfr = frames(torch.bfloat16, 16, (RH, RW))
+    fb = t_api.SHEAR_PLAN_FALLBACKS
+    for _ in pipeline.stream_apply(rop, frames(torch.bfloat16, 8, (RH, RW)),
+                                   batch=8):
+        pass
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = list(pipeline.stream_apply(rop, rfr, batch=8, depth=2))
+    dt = time.perf_counter() - t0
+    _launched(_route(2), "rotated stream", fb)
+    for b in range(2):
+        xb_ = torch.stack(rfr[8 * b:8 * b + 8])
+        ref = at.apply_operator(rop, xb_.to(dev)).cpu()
+        for i in range(8):
+            check(torch.equal(outs[8 * b + i], ref[i]),
+                  f"rotated stream frame {8 * b + i} differs from the route")
+    timing["rotated_bf16_gpixel_s"] = 16 * RH * RW / dt / 1e9
+    print(f"[39 stream] rotated: 16 x {RH}x{RW} bf16 at {ROT[3]} deg -> "
+          f"{tuple(outs[0].shape)} {outs[0].dtype}, batch 8, depth 2: "
+          f"{timing['rotated_bf16_gpixel_s']:.3f} Gpixel/s, 2 + 2 launches, "
+          "every frame equal to the route on its batch")
+    del outs, rfr
+
+    # ---- 40. stream_apply_files through the multi-input command ------------
+    paths = []
+    for i in range(16):
+        p = os.path.join(work, f"film{i:02d}.csv")
+        t_io.csv_write(p, film_dose(100 + i), sig_digits=6)
+        paths.append(p)
+    common = FILM_ARGS + LEGACY_RUNS["mode2"][0]
+    fb = t_api.SHEAR_PLAN_FALLBACKS
+    torch.cuda.synchronize()
+    reset_launches()
+    rc, text = run_cli(paths + common + ["--batch", "8", "--depth", "2"])
+    torch.cuda.synchronize()
+    check(rc == 0 and "Streamed 16 files" in text,
+          f"multi-input command: rc {rc}:\n{text}")
+    _launched(_route(2), "multi-input command", fb)
+    ms_file = float(re.search(r"\((\S+) ms/file\)", text).group(1))
+    for i, p in enumerate(paths):
+        single = os.path.join(work, f"single{i:02d}.csv")
+        rc, _ = run_cli([p] + common + ["--no-banner", "--output", single])
+        check(rc == 0, f"single-file command on {p}: rc {rc}")
+        check(open(single, "rb").read() == open(
+            t_io.default_output_path(p), "rb").read(),
+            f"file {i}: the streamed CSV differs from the single-file one")
+    timing["files_ms_per_file"] = ms_file
+    print(f"[40 files] 16 film CSVs {FILM[0]}x{FILM[1]} through the "
+          f"multi-input command (batch 8, depth 2): {ms_file:.3g} ms/file, "
+          "2 + 2 launches; every <base>_mod.csv equal byte for byte to the "
+          "single-file command's")
+    print(json.dumps({"stream_timing": timing}))
+    return timing
+
+
+def cache_phases(dev, card, work: str) -> dict:
+    """Phase 41: the operator and shear-plan disk caches at the rotated
+    flagship and its compat operator, in a temporary cache directory.
+    Returns their timing."""
+    timing = {"card": card}
+    cdir = tempfile.mkdtemp(prefix="caches.", dir=work)
+    default_dir = t_cache.DEFAULT_CACHE_DIR
+    spec = at.make_grid_spec((RH, RW), *ROT)
+    x = torch.rand((F, RH, RW), generator=torch.Generator().manual_seed(41)
+                   ).to(torch.bfloat16).to(dev)
+    for mode in ("exact", "compat"):
+        t0 = time.perf_counter()
+        op = t_cache.build_operator_cached(spec, mode=mode, cache_dir=cdir)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        op2 = t_cache.load_operator(spec, mode, "ell", cache_dir=cdir)
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        op3 = t_cache.build_operator_cached(spec, mode=mode, cache_dir=cdir)
+        cached_s = time.perf_counter() - t0
+        check(all(np.array_equal(a, b) and np.array_equal(a, c) for a, b, c
+                  in ((op.base, op2.base, op3.base),
+                      (op.weights, op2.weights, op3.weights)))
+              and op2.mode == mode, f"{mode}: the loaded operator differs")
+        cuda_shear._PLAN_CACHE.clear()
+        d0 = dict(cuda_shear.PLAN_DISK)
+        t0 = time.perf_counter()
+        built = cuda_shear.kernel_plan_cached(op, cache_dir=cdir)
+        plan_build_s = time.perf_counter() - t0
+        cuda_shear._PLAN_CACHE.clear()
+        t0 = time.perf_counter()
+        loaded = cuda_shear.kernel_plan_cached(op2, cache_dir=cdir)
+        plan_load_s = time.perf_counter() - t0
+        check(cuda_shear.PLAN_DISK == {"built": d0["built"] + 1,
+                                       "loaded": d0["loaded"] + 1},
+              f"{mode}: plan cache {cuda_shear.PLAN_DISK}, was {d0}")
+        for fld in dataclasses.fields(cuda_shear.ShearKernelPlan):
+            if fld.name in ("tiles", "dev"):
+                continue
+            a, b = getattr(built, fld.name), getattr(loaded, fld.name)
+            same = (a.dtype == b.dtype and np.array_equal(a, b)) \
+                if isinstance(a, np.ndarray) else a == b
+            check(same, f"{mode}: the loaded plan's {fld.name} differs")
+        a = cuda_shear.apply_ell_shear_kernel(x, built)
+        b = cuda_shear.apply_ell_shear_kernel(x, loaded)
+        check(torch.equal(a, b), f"{mode}: the loaded plan's output differs")
+        # the route itself, its in-memory plans cleared, loads from disk
+        cuda_shear._PLAN_CACHE.clear()
+        d1 = dict(cuda_shear.PLAN_DISK)
+        t_cache.DEFAULT_CACHE_DIR = cdir
+        try:
+            c = at.apply_operator(op2, x)
+        finally:
+            t_cache.DEFAULT_CACHE_DIR = default_dir
+        check(cuda_shear.PLAN_DISK == {"built": d1["built"],
+                                       "loaded": d1["loaded"] + 1}
+              and torch.equal(c, a),
+              f"{mode}: the route did not load its plan or differs")
+        timing.update({f"{mode}_operator_build_s": build_s,
+                       f"{mode}_operator_load_s": load_s,
+                       f"{mode}_operator_cached_s": cached_s,
+                       f"{mode}_plan_build_s": plan_build_s,
+                       f"{mode}_plan_load_s": plan_load_s,
+                       f"{mode}_operator_mb": (op.weights.nbytes
+                                               + op.base.nbytes) / 1e6,
+                       f"{mode}_plan_mb": os.path.getsize(
+                           cuda_shear.plan_cache_path(op, cdir)) / 1e6})
+        print(f"[41 caches] {card}, {RH}x{RW} at {ROT[3]} deg, {mode}: "
+              f"operator build + save {build_s:.3f} s, mmap load "
+              f"{load_s:.4f} s, load + validate {cached_s:.3f} s "
+              f"({timing[f'{mode}_operator_mb']:.0f} MB); shear plan build + "
+              f"save {plan_build_s:.3f} s, load {plan_load_s:.3f} s "
+              f"({timing[f'{mode}_plan_mb']:.0f} MB); loaded plan equal field "
+              "for field, route output bit-equal, the route loads it")
+        del op, op2, op3, built, loaded, a, b, c
+    cuda_shear._PLAN_CACHE.clear()
+    print(json.dumps({"cache_timing": timing}))
+    return timing
+
+
 def regrid_timing(card, fields, tabs, qtabs, by, bx) -> dict:
     """Device (CUDA-graph replay) ms per batch of the 2-D kernel at config
     5 (f32 forced, bf16, u8 -> u8), at 0.25 degree and in its direct form
@@ -1786,7 +2297,18 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs on an NVIDIA GPU only", file=sys.stderr)
         return 1
+    work = tempfile.mkdtemp(prefix="aainterp_smoke.")
+    # the shear plans and operators of every phase go to this run's own
+    # disk cache, removed with the run's files at the end
+    t_cache.DEFAULT_CACHE_DIR = os.path.join(work, "cache")
+    try:
+        return run(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
+
+def run(work: str) -> int:
+    """Phases 1-41; ``work`` is a temporary directory for files."""
     # ---- 1. device -------------------------------------------------------
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
@@ -2019,6 +2541,9 @@ def main() -> int:
     sheared = shear3_phases(make, card)
     banded = regrid_phases(dev, card)
     rotated_rest_phases(make, card, dev)
+    cli_phases(dev, work)
+    stream_phases(dev, card, work)
+    cache_phases(dev, card, work)
 
     print(json.dumps({"kernels": [{
         "name": "separable_apply",

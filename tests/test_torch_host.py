@@ -181,7 +181,11 @@ def test_import_pulls_in_neither_jax_nor_aainterp():
         "aainterp_torch.ops.shear3, aainterp_torch.ops.cuda_shear3, "
         "aainterp_torch.regrid, aainterp_torch.ops.cuda_apply_2d, "
         "aainterp_torch.utils.device, aainterp_torch.ops.compat, "
-        "aainterp_torch.autodiff, aainterp_torch.ops.overlap1d\n"
+        "aainterp_torch.autodiff, aainterp_torch.ops.overlap1d, "
+        "aainterp_torch.cli, aainterp_torch.__main__, "
+        "aainterp_torch.pipeline, aainterp_torch.baselines, "
+        "aainterp_torch.metrics, aainterp_torch.utils.io, "
+        "aainterp_torch.utils.log, aainterp_torch.utils.cache\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'aainterp') "
         "or m.startswith(('jax.', 'jaxlib', 'aainterp.')))\n"
         "print(bad)\n"

@@ -1025,3 +1025,87 @@ def test_transpose_and_variance_on_the_separable_kernel(cuda, angle):
     vref = at.propagate_variance(op, _frames((2, 256, 384), torch.float32,
                                              cuda, seed=7).cpu())
     assert (var.cpu() - vref).abs().max().item() <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# Streaming executor on CUDA streams; prefetch_operator's pinned uploads
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.uint8])
+def test_stream_ring_equals_direct_apply(cuda, dtype):
+    """The pinned ring at batch 2, depth 3 over 20 distinct frames: every
+    yielded frame equals the direct apply of its frame (one kernel-2 launch
+    per batch), though the consumer overwrites each one as it arrives."""
+    from aainterp_torch import pipeline
+
+    op, _ = _tables(96, 160, 2.0, 1.0, 90.0)
+    frames = [_frames((96, 160), dtype, "cpu", seed=100 + i)
+              for i in range(20)]
+    before = cuda_apply_2d.LAUNCHES
+    got = []
+    for g in pipeline.stream_apply(op, frames, batch=2, depth=3):
+        assert g.device.type == "cpu"
+        got.append(g.clone())
+        g.fill_(0)
+    assert cuda_apply_2d.LAUNCHES == before + 10
+    yb, xb, out_t = t_weights.fold_quadrant_separable(op)
+    assert out_t
+    for f, g in zip(frames, got):
+        ref = at.apply_band_operators(f.to(cuda), yb, xb).transpose(-1, -2)
+        assert g.dtype == dtype and torch.equal(g, ref.cpu())
+
+
+def test_stream_failing_step_raises(cuda):
+    from aainterp_torch import pipeline
+
+    calls = []
+
+    def step(x):
+        calls.append(x.device.type)
+        if len(calls) == 3:
+            raise RuntimeError("step failed")
+        return x * 2
+
+    frames = [torch.full((8, 8), float(i)) for i in range(12)]
+    it = pipeline.stream_apply(step, frames, batch=2, depth=2)
+    got = [next(it) for _ in range(2)]
+    assert all(torch.equal(g, f * 2) for g, f in zip(got, frames))
+    with pytest.raises(RuntimeError, match="step failed"):
+        list(it)
+    assert calls == ["cuda"] * 3
+
+
+def test_prefetch_then_apply_does_not_reupload(cuda, tmp_path):
+    """prefetch_operator fills the caches the applies read, from pinned
+    memory; the applies after it take those very tensors."""
+    from aainterp_torch import autodiff, regrid
+    from aainterp_torch.utils import cache as t_cache
+
+    op, tabs = _tables(256, 512, 2.0, 1.0)
+    assert t_cache.prefetch_operator(op) is op
+    plan = cuda_apply._plan_for(*tabs)
+    dev1 = plan["dev"][cuda]
+    yb, xb, _ = t_weights.fold_quadrant_separable(op)
+    band = regrid.band_tables(yb, xb).dev[cuda]
+    x = _frames((2, 256, 512), torch.float32, cuda)
+    out = at.apply_operator(op, x)
+    assert plan["dev"][cuda] is dev1
+    assert regrid.band_tables(yb, xb).dev[cuda] is band
+    assert (out - at.apply_operator(op, x.cpu()).to(cuda)).abs().max() <= 1e-5
+    rop = at.build_operator(at.make_grid_spec((160, 160), 1.0, 0.5,
+                                              (80.0, 80.0), 120.0))
+    t_cache.prefetch_operator(rop)
+    folded, _ = t_weights.fold_quadrant_ell_cached(rop)
+    kplan = cuda_shear.kernel_plan_cached(folded)
+    ktabs = kplan.dev[cuda]
+    gather = autodiff.ell_tables(folded, torch.float32, cuda)
+    assert all(t.is_cuda for t in gather)
+    xr = _frames((2, 160, 160), torch.float32, cuda, seed=3)
+    before = dict(cuda_shear.LAUNCHES)
+    got = at.apply_operator(rop, xr)
+    assert cuda_shear.LAUNCHES["vhshear"] == before["vhshear"] + 1
+    assert kplan.dev[cuda] is ktabs
+    assert autodiff.ell_tables(folded, torch.float32, cuda) is gather
+    ref = at.apply_operator(rop, xr, impl="gather")
+    assert (got - ref).abs().max().item() <= 1e-6

@@ -267,10 +267,15 @@ def test_area_resize_masked_and_resize_matches_jax(src, dst):
 
 def test_resize_errors():
     x = torch.zeros(1, 8, 8)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        at.resize(x, (4, 4), method="bilinear")
-    with pytest.raises(NotImplementedError, match="baselines"):
-        at.resize(x, (4, 4), method="bicubic")
+    # bilinear and bicubic are the baselines (baselines.resize_baseline),
+    # held to jax.image.resize; they take no area-resize options
+    img = np.random.default_rng(3).uniform(0, 1, (2, 8, 8)).astype(np.float32)
+    for method in ("bilinear", "bicubic"):
+        got = at.resize(torch.from_numpy(img), (4, 6), method=method)
+        ref = np.asarray(aa.resize(img, (4, 6), method=method))
+        np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)
+        with pytest.raises(TypeError, match="no extra options"):
+            at.resize(x, (4, 4), method=method, impl="banded")
     with pytest.raises(ValueError, match="method must be"):
         at.resize(x, (4, 4), method="nearest")
     with pytest.raises(ValueError, match="positive"):
