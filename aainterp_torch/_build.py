@@ -1,6 +1,6 @@
 """Build the port's native libraries at first use and load them with ctypes.
 
-Five libraries, each from one source with a plain C interface (no
+Six libraries, each from one source with a plain C interface (no
 PyTorch headers), so each builds in seconds:
 
 * ``separable_apply`` — ``csrc/separable_apply.cu`` through nvcc;
@@ -12,12 +12,16 @@ PyTorch headers), so each builds in seconds:
   kernel, in three forms, and its contraction) through nvcc;
 * ``shear3_stage`` — ``csrc/shear3_stage.cu`` (the two stage kernels of
   ``mode='shear'``) through nvcc;
+* ``probes`` — ``csrc/probes.cu`` (the row-tiled copy of the copy
+  ceiling and the rotated contraction's probe modes) through nvcc;
 * ``aainterp_native`` — the repository's host weight-gen and CSV engine,
   ``native/aainterp_native.cpp``, through g++ with the flags of
   ``native/Makefile``.
 
-The four CUDA sources include ``csrc/stage_common.cuh``, the staging
-helpers of their staged kernels.
+The four CUDA sources of the production kernels include
+``csrc/stage_common.cuh``, the staging helpers of their staged kernels;
+``ell_shear.cu`` and ``probes.cu`` include ``csrc/contract.cuh``, the
+contraction's body under its probe modes.
 
 Each shared library lands in ``aainterp_torch/_build/`` under a name that
 carries a hash of its source, the headers it includes, its compiler and
@@ -72,6 +76,7 @@ class Library:
 
 
 _STAGE_HEADER = _PKG / "csrc" / "stage_common.cuh"
+_CONTRACT_HEADER = _PKG / "csrc" / "contract.cuh"
 _BAND_HEADERS = (_PKG / "csrc" / "band_apply.cuh", _STAGE_HEADER)
 
 SEPARABLE = Library(
@@ -110,7 +115,7 @@ ELL_SHEAR = Library(
         #     Kb, dtype_code, stream)
         ("aainterp_contract", (_P,) * 5 + (_I,) * 8 + (_P,), ctypes.c_int),
     ),
-    headers=(_STAGE_HEADER,))
+    headers=(_CONTRACT_HEADER, _STAGE_HEADER))
 
 SHEAR3_STAGE = Library(
     "shear3_stage", _PKG / "csrc" / "shear3_stage.cu", "nvcc", NVCC_FLAGS,
@@ -120,6 +125,18 @@ SHEAR3_STAGE = Library(
     tuple((f"aainterp_shear3_{axis}stage", (_P,) * 8 + (_I,) * 15 + (_P,),
            ctypes.c_int) for axis in ("y", "x")),
     headers=(_STAGE_HEADER,))
+
+PROBES = Library(
+    "probes", _PKG / "csrc" / "probes.cu", "nvcc", NVCC_FLAGS,
+    (
+        # aainterp_copy_rows(src, dst, F, H, W, TY, elem_bytes, stream)
+        ("aainterp_copy_rows", (_P,) * 2 + (_I,) * 5 + (_P,), ctypes.c_int),
+        # aainterp_contract_probe(T, out, ry0, cx0, w2, F, TH, TW, Hd, Wd,
+        #     Ka, Kb, mode, dtype_code, stream)
+        ("aainterp_contract_probe", (_P,) * 5 + (_I,) * 9 + (_P,),
+         ctypes.c_int),
+    ),
+    headers=(_CONTRACT_HEADER,))
 
 NATIVE = Library(
     "aainterp_native", _PKG.parent / "native" / "aainterp_native.cpp", "g++",

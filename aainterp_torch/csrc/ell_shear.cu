@@ -67,7 +67,9 @@
 //     (once per batch at the flagship's 8), not once per frame — the
 //     reason the TPU grid runs frames innermost (pallas_shear.py:197-199).
 //     Weights are tap-major, so neighbouring threads read neighbouring
-//     words; T rows shared by neighbouring dst rows come from L2.
+//     words; T rows shared by neighbouring dst rows come from L2.  Its
+//     body lives in csrc/contract.cuh, under a probe mode; this file
+//     launches the production mode only (csrc/probes.cu the probes).
 //
 // Plain C interface for ctypes; each launch goes on the caller's stream and
 // does not synchronise.  The return value is cudaGetLastError() after the
@@ -80,24 +82,17 @@
 #include <atomic>
 #include <climits>
 
+#include "contract.cuh"
 #include "stage_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kFrames = 8;
-constexpr long long kMaxGridY = 65535;
 
 using stage::cp_async16;
 using stage::seg_pitch;
 using stage::up16;
 using Walk = stage::Walk<kThreads>;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 // 16 bytes of words, first word at the lowest address
 __device__ __forceinline__ uint4 pack(const uint16_t (&v)[8]) {
@@ -217,54 +212,6 @@ __global__ void __launch_bounds__(kThreads) shear_kernel(
   }
 }
 
-// out[f, dy, dx] = sum_ab w2[a*Kb+b, dy, dx] * T[f, ry0[dy]+a, cx0[dx]+b];
-// one thread per (dy, dx), frames looped inside, kFrames sums in registers.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) contract_kernel(
-    const T* __restrict__ t, T* __restrict__ out,
-    const int* __restrict__ ry0, const int* __restrict__ cx0,
-    const float* __restrict__ w2,
-    int F, int TH, int TW, int Hd, int Wd, int Ka, int Kb) {
-  const int dx = blockIdx.y * blockDim.x + threadIdx.x;
-  if (dx >= Wd) return;
-  const int dy = blockIdx.x;
-  const long long plane = static_cast<long long>(Hd) * Wd;
-  const long long tplane = static_cast<long long>(TH) * TW;
-  const long long pix = static_cast<long long>(dy) * Wd + dx;
-  const int r0 = ry0[dy];
-  const int c0 = cx0[dx];
-  for (int f0 = 0; f0 < F; f0 += kFrames) {
-    const int nf = min(kFrames, F - f0);
-    const T* tf = t + f0 * tplane;
-    float acc[kFrames];
-#pragma unroll
-    for (int i = 0; i < kFrames; ++i) acc[i] = 0.0f;
-    for (int a = 0; a < Ka; ++a) {
-      const T* trow = tf + static_cast<long long>(min(max(r0 + a, 0), TH - 1)) * TW;
-      for (int b = 0; b < Kb; ++b) {
-        const int c = min(max(c0 + b, 0), TW - 1);
-        const float w = w2[static_cast<long long>(a * Kb + b) * plane + pix];
-#pragma unroll
-        for (int i = 0; i < kFrames; ++i) {
-          if (i < nf) acc[i] = fmaf(w, to_f32(trow[i * tplane + c]), acc[i]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kFrames; ++i) {
-      if (i < nf) store(out + (f0 + i) * plane + pix, acc[i]);
-    }
-  }
-}
-
-// one block per (row, kThreads columns); false if the grid does not fit
-bool row_grid(long long rows, int cols, dim3* grid) {
-  const long long ny = (cols + kThreads - 1) / kThreads;
-  if (rows <= 0 || rows > 0x7fffffffLL || ny <= 0 || ny > kMaxGridY) return false;
-  *grid = dim3(static_cast<unsigned>(rows), static_cast<unsigned>(ny));
-  return true;
-}
-
 // Dynamic shared memory of a shear block with windows of at most win_rows x
 // win_cols words of e bytes (ops/cuda_shear.shear_smem is the same sum):
 // the shift tables, then 16 bytes of lead, the rows at their pitch (a row's
@@ -358,7 +305,7 @@ extern "C" int aainterp_contract(const void* t, void* out, const void* ry0,
                                  int Ka, int Kb, int dtype_code, void* stream) {
   dim3 grid;
   if (F <= 0 || TH <= 0 || TW <= 0 || Ka <= 0 || Kb <= 0 ||
-      !row_grid(Hd, Wd, &grid)) {
+      !contract::row_grid(Hd, Wd, &grid)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -366,11 +313,11 @@ extern "C" int aainterp_contract(const void* t, void* out, const void* ry0,
   const int* c = static_cast<const int*>(cx0);
   const float* w = static_cast<const float*>(w2);
   if (dtype_code == 0) {
-    contract_kernel<float><<<grid, kThreads, 0, st>>>(
+    contract::contract_kernel<float><<<grid, contract::kThreads, 0, st>>>(
         static_cast<const float*>(t), static_cast<float*>(out), r, c, w,
         F, TH, TW, Hd, Wd, Ka, Kb);
   } else if (dtype_code == 1) {
-    contract_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+    contract::contract_kernel<__nv_bfloat16><<<grid, contract::kThreads, 0, st>>>(
         static_cast<const __nv_bfloat16*>(t), static_cast<__nv_bfloat16*>(out), r, c, w,
         F, TH, TW, Hd, Wd, Ka, Kb);
   } else {

@@ -46,7 +46,18 @@ points (``aainterp_torch.area_average_interpolate`` for the first three):
   16 rotated 2048^2 frames, with the pinned copy rates beside them;
   ``stream_apply_files`` through the multi-input command on 16 film CSVs;
   and the operator and shear-plan disk caches at the rotated flagship and
-  its compat operator, build against load.
+  its compat operator, build against load;
+* the probe kernels of ``csrc/probes.cu`` (phases 42-44), through their
+  entry points ``aainterp_torch.probes.copy_ceiling.measure`` and
+  ``aainterp_torch.probes.rot_experiments.EXPS``: the row-tiled copy at
+  four frame geometries (8 x 2160 x 3840 bf16, TY 120; the rotated
+  flagship's 8 x 2048^2 bf16 and rgb1024's 8 x 1024^2 bf16, TY 128; the
+  regrid's 8 x 1800 x 3600 f32, TY 120) beside torch's ``copy_``; the
+  rotated contraction's probe modes (noweight, tshare, wshare, bothshare,
+  pipelined: ``csrc/contract.cuh``) on 4 random T stacks per dtype at the
+  rotated flagship; and the flagship's decomposition (the route, its
+  shear forms, the contraction and each probe), one ``probe_timing``
+  JSON line.
 
 It builds every kernel from ``aainterp_torch/csrc`` with nvcc (and the
 host engine ``native/aainterp_native.cpp`` with g++), all compilers at
@@ -113,7 +124,14 @@ on the same f32 input), the subprocess's stdout (timings masked) and CSV
 bytes equal the in-process run's, every streamed frame ``torch.equal`` to
 the direct apply of its batch, every multi-input CSV byte-equal to the
 single-file command's, the loaded shear plan equal to the built one field
-for field and its route output bit-equal.  TF32 is switched off for
+for field and its route output bit-equal.  Probes: the copy ``torch.equal``
+to its plain version into 0xFF-filled outputs at every geometry (and u8
+with a ragged last tile and 1023-byte rows); noweight and the share modes
+f32 atol 1e-6 on [0, 1] inputs and bf16 within one bf16 ulp of their
+plain f32 results (the production contraction's tolerances), into
+NaN-filled outputs; pipelined ``torch.equal`` to the production
+contraction; one launch per probe call, the production counts unmoved.
+TF32 is switched off for
 matmul and cuDNN so the plain versions' and library calls' einsums run in
 full f32.  Shear plans and operators go to a disk cache in a temporary
 directory of the run's own, removed at its end.
@@ -153,6 +171,8 @@ from aainterp_torch.ops import compat as compat_ops
 from aainterp_torch.ops import (cuda_apply, cuda_apply_2d, cuda_shear,
                                 cuda_shear3, shear3)
 from aainterp_torch.ops import weights as weights_ops
+from aainterp_torch.probes import copy_ceiling, rot_experiments
+from aainterp_torch.probes import harness as probe_harness
 
 H, W, F = 2160, 3840, 8                 # the flagship: 4K -> 1080p, 8 frames
 RATIO = (2.0, 1.0)                      # (src_resolution, dst_resolution)
@@ -187,6 +207,17 @@ LEGACY_RUNS = {
     "compat": (["--angle", "1.5", "--mode", "1", "--compat"], "compat"),
     "angle0": (["--angle", "0", "--mode", "1"], "exact"),
 }
+# the copy ceiling's frame geometries (phase 42): copy_ceiling.py's default,
+# the rotated flagship's frames, rgb1024_experiments.py's, the regrid's fields
+COPY_GEOMS = (("4k", 2160, 3840, 120, torch.bfloat16),
+              ("rot2048", 2048, 2048, 128, torch.bfloat16),
+              ("rgb1024", 1024, 1024, 128, torch.bfloat16),
+              ("regrid", 1800, 3600, 120, torch.float32))
+PROBE_MODES = tuple(rot_experiments.MODES)
+SHARE_MODES = ("tshare", "wshare", "bothshare")
+# phase 44's experiments, in rot_experiments.py's names
+PROBE_EXPS = ("full", "shears", "contract", "noweight", "tshare", "wshare",
+              "bothshare", "pipelined")
 # bench.py's stream case (bench.py:306-357): 48 distinct 4K frames, batch 8
 STREAM_N, STREAM_BATCH = 48, 8
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -244,6 +275,9 @@ def reset_launches() -> None:
         cuda_shear.LAUNCHES[k] = 0
     for k in SHEAR3_KERNELS:
         cuda_shear3.LAUNCHES[k] = 0
+    copy_ceiling.LAUNCHES = 0
+    for k in rot_experiments.LAUNCHES:
+        rot_experiments.LAUNCHES[k] = 0
 
 
 def other_paths_idle(*counters) -> bool:
@@ -2292,6 +2326,230 @@ def regrid_timing(card, fields, tabs, qtabs, by, bx) -> dict:
     return timing
 
 
+def filled(shape, dtype, device, byte: int = 0xFF) -> torch.Tensor:
+    """A tensor whose every byte is ``byte`` (bf16 / f32: NaN)."""
+    x = torch.empty(shape, dtype=dtype, device=device)
+    x.view(torch.uint8).fill_(byte)
+    return x
+
+
+def copy_phases(make, card) -> dict:
+    """Phase 42: the copy ceiling.  Returns the copy kernel's entry of the
+    JSON summary."""
+    dev = make.device
+    # the entry point at each geometry, the counts read around it alone
+    torch.cuda.synchronize()
+    reset_launches()
+    runs = {name: copy_ceiling.measure(Hc, Wc, ty, F, dtype, dev)
+            for name, Hc, Wc, ty, dtype in COPY_GEOMS}
+    torch.cuda.synchronize()
+    launches = copy_ceiling.LAUNCHES
+    want = len(COPY_GEOMS) * (copy_ceiling.K + 1)    # warm-up + capture
+    check(launches == want, f"copy ceiling: {launches} copy launches, want "
+          f"{want} (one warm-up and {copy_ceiling.K} captured per geometry)")
+    check(cuda_apply.LAUNCHES == 0 and cuda_apply_2d.LAUNCHES == 0 and
+          other_paths_idle(cuda_shear.LAUNCHES, cuda_shear3.LAUNCHES,
+                           rot_experiments.LAUNCHES),
+          "the copy ceiling launched another kernel")
+    geoms, err = {}, 0.0
+    for name, Hc, Wc, ty, dtype in COPY_GEOMS:
+        xs = [make(dtype, (F, Hc, Wc)) for _ in range(copy_ceiling.K + 1)]
+        rows = Hc // ty * ty
+        buf = filled((F, rows, Wc), dtype, dev)
+        out = copy_ceiling.copy_rows_kernel(xs[0], ty, out=buf)
+        torch.cuda.synchronize()
+        plain = copy_ceiling.copy_rows_plain(xs[0], ty)
+        check(out is buf and torch.equal(out, plain),
+              f"copy {name}: kernel differs from its plain version")
+        err = max(err, max_err(out, plain))
+        dst = torch.empty_like(plain)
+        fns = {"kernel": lambda x: copy_ceiling.copy_rows_kernel(x, ty),
+               "plain": lambda x: copy_ceiling.copy_rows_plain(x, ty),
+               "library": lambda x: dst.copy_(x[:, :rows])}
+        ms = {}
+        for fname in list(fns) + list(reversed(fns)):     # mirrored turns
+            t = probe_harness.graph_ms(fns[fname], xs[1:], xs[:1])
+            ms[fname] = min(ms.get(fname, t), t)
+        nbytes = 2 * F * rows * Wc * xs[0].element_size()
+        b = bound(nbytes, 0)
+        geoms[name] = {
+            "shape": [F, Hc, Wc], "tile_y": ty,
+            "dtype": str(dtype).split(".")[-1], "entry_ms":
+            runs[name]["ms_per_batch"], "kernel_ms": ms["kernel"],
+            "plain_ms": ms["plain"], "library_ms": ms["library"], **b,
+            "bytes": nbytes,
+            "kernel_gb_s": nbytes / (ms["kernel"] * 1e-3) / 1e9,
+            "library_gb_s": nbytes / (ms["library"] * 1e-3) / 1e9,
+            "entry_gb_s_combined": runs[name]["gb_s_combined"]}
+        g = geoms[name]
+        print(f"[42 copy ceiling] {card}, {name} {F}x{Hc}x{Wc} "
+              f"{g['dtype']} tile_y {ty}: copy_rows {ms['kernel']:.4f} ms = "
+              f"{g['kernel_gb_s']:.1f} GB/s combined (entry point "
+              f"{g['entry_gb_s_combined']:.1f}), copy_ {ms['library']:.4f} "
+              f"ms = {g['library_gb_s']:.1f} GB/s, plain clone "
+              f"{ms['plain']:.4f} ms; bound {b['bound_ms']:.4f} ms "
+              f"({100 * b['bound_ms'] / ms['kernel']:.1f} % of it reached); "
+              f"torch.equal to plain into a 0xFF-filled output")
+        del xs, buf, out, plain, dst
+    # ragged tiles, a row pitch that is no multiple of 16 bytes, u8
+    x = make(torch.uint8, (3, 1001, 1023))
+    buf = filled((3, 1000, 1023), torch.uint8, dev)
+    check(torch.equal(copy_ceiling.copy_rows_kernel(x, 125, out=buf),
+                      copy_ceiling.copy_rows_plain(x, 125)),
+          "copy u8 (3, 1001, 1023) TY 125 differs from its plain version")
+    print("[42 copy ceiling] u8 (3, 1001, 1023), TY 125 (a ragged last "
+          "tile, 1023-byte rows): torch.equal to plain")
+    print(json.dumps({"copy_timing": {"card": card, "geometries": geoms}}))
+    top = geoms["4k"]
+    return {
+        "name": "copy_rows",
+        "route": "cuda",
+        "source": "aainterp_torch/csrc/probes.cu",
+        "replaces": "benchmarks/copy_ceiling.py:32,"
+                    "benchmarks/rgb1024_experiments.py:67",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": top["kernel_ms"],
+        "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"],
+        "bound_by": top["bound_by"],
+        # torch's copy_ of the same rows
+        "library_ms": top["library_ms"],
+        "geometries": {k: {f: v[f] for f in ("kernel_ms", "plain_ms",
+                                             "library_ms", "bound_ms")}
+                       for k, v in geoms.items()},
+    }
+
+
+def contract_probe_phases(make, card) -> list:
+    """Phases 43-44: the contraction's probe modes against their plain
+    versions, then the rotated flagship's decomposition through
+    rot_experiments' entry points.  Returns the probes' entries of the
+    JSON summary."""
+    dev = make.device
+    spec, op, kp = rot_experiments._plan((RH, RW), ROT[3])
+    check((spec.dst_shape, op.window, kp.Ka, kp.Kb) == (ROT_DST, 6, 5, 5),
+          f"probe plan: dst {spec.dst_shape}, K {op.window}, Ka x Kb "
+          f"{kp.Ka}x{kp.Kb}")
+
+    # ---- 43. every probe mode against its plain version ----------------------
+    err = {m: 0.0 for m in PROBE_MODES}
+    for dtype in (torch.bfloat16, torch.float32):
+        for i in range(4):
+            t = make(dtype, (F, kp.TH, kp.TW))
+            prod = cuda_shear.contract_kernel(t, kp)
+            torch.cuda.synchronize()
+            shear_before = dict(cuda_shear.LAUNCHES)
+            for mode in PROBE_MODES:
+                before = rot_experiments.LAUNCHES[mode]
+                buf = torch.full((F, kp.Hd, kp.Wd), float("nan"), dtype=dtype,
+                                 device=dev)
+                got = rot_experiments.contract_probe_kernel(t, kp, mode,
+                                                            out=buf)
+                torch.cuda.synchronize()
+                check(got is buf and rot_experiments.LAUNCHES[mode] ==
+                      before + 1, f"{mode}: not one launch per call")
+                if mode == "pipelined":
+                    check(torch.equal(got, prod), f"pipelined {dtype} is not "
+                          "bit-equal to the production contraction")
+                    continue
+                ref = rot_experiments.contract_probe_plain(
+                    t, kp, mode, out_dtype=torch.float32)
+                if dtype == torch.bfloat16:
+                    err[mode] = max(err[mode], within_bf16_ulp(
+                        got, ref, f"{mode} bf16 vs plain"))
+                else:
+                    e = max_err(got, ref)
+                    check(e <= 1e-6, f"{mode} f32 err {e} > 1e-6")
+            check(dict(cuda_shear.LAUNCHES) == shear_before,
+                  f"the probes moved the production counts: "
+                  f"{dict(cuda_shear.LAUNCHES)} (was {shear_before})")
+            del t, prod, buf, got
+    print(f"[43 contraction probes] {F}x{kp.TH}x{kp.TW} T stacks (4 per "
+          f"dtype) -> {F}x{kp.Hd}x{kp.Wd}, bf16 and f32, into NaN-filled "
+          f"outputs: noweight and the share modes within one bf16 ulp (bf16;"
+          f" f32 atol 1e-6) of plain, max bf16 |diff| "
+          + ", ".join(f"{m} {err[m]:.3e}" for m in PROBE_MODES
+                      if m != "pipelined")
+          + "; pipelined bit-equal to the production contraction; one "
+          "launch per call, the production counts unmoved")
+
+    # ---- 44. the decomposition through the entry points --------------------
+    torch.cuda.synchronize()
+    reset_launches()
+    runs = {exp: rot_experiments.EXPS[exp](F, torch.bfloat16, dev,
+                                           (RH, RW), ROT[3])
+            for exp in PROBE_EXPS}
+    torch.cuda.synchronize()
+    launches = dict(rot_experiments.LAUNCHES)
+    check(launches == {m: 5 for m in PROBE_MODES},
+          f"decomposition: probe launches {launches}, want 5 each (one "
+          "warm-up and 4 captured)")
+    check(cuda_apply.LAUNCHES == 0 and cuda_apply_2d.LAUNCHES == 0 and
+          copy_ceiling.LAUNCHES == 0 and other_paths_idle(
+              cuda_shear3.LAUNCHES), "the decomposition launched a kernel "
+          "of another path")
+    # the plain versions on the same kind of inputs (seconds each: 2 reps)
+    ts = [make(torch.bfloat16, (F, kp.TH, kp.TW)) for _ in range(5)]
+    plain_ms = {m: probe_harness.graph_ms(
+        lambda t, m=m: rot_experiments.contract_probe_plain(t, kp, m),
+        ts[1:], ts[:1], reps=2) for m in PROBE_MODES}
+    del ts
+    timing = {"card": card, "shape": [F, RH, RW], "dtype": "bfloat16",
+              "angle": ROT[3], "T": [kp.TH, kp.TW], "exps": {}}
+    for exp, r in runs.items():
+        nbytes, ops = rot_experiments.traffic(kp, F, 2, exp)
+        timing["exps"][exp] = {"ms": r["ms_per_batch"],
+                               "gpixel_s": r["gpixel_s"], "bytes": nbytes,
+                               **bound(nbytes, ops)}
+        if exp == "shears":
+            for form in ("vshear", "hshear"):
+                nb, _ = rot_experiments.traffic(kp, F, 2, form)
+                timing["exps"][form] = {"ms": r[f"{form}_ms"], "bytes": nb,
+                                        **bound(nb, 0)}
+    ex = timing["exps"]
+    c = ex["contract"]["ms"]
+    # what each probe removes, in ms of the production contraction
+    timing["split_ms"] = {
+        "weights_load_and_multiply": c - ex["noweight"]["ms"],
+        "T_traffic": c - ex["tshare"]["ms"],
+        "weight_traffic": c - ex["wshare"]["ms"],
+        "both_streams": c - ex["bothshare"]["ms"],
+        "issue_order": c - ex["pipelined"]["ms"]}
+    timing["plain_ms"] = plain_ms
+    print(f"[44 decomposition] {card}, {F}x{RH}x{RW} bf16 at {ROT[3]} deg, "
+          "device ms per batch (CUDA-graph replays, best of 2) / bound ms: "
+          + ", ".join(f"{e} {v['ms']:.4f} / {v['bound_ms']:.4f}"
+                      for e, v in ex.items())
+          + "; the contraction's split (contract minus the probe): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in timing["split_ms"].items()))
+    print(json.dumps({"probe_timing": timing}))
+
+    def row(name, line, modes):
+        m0 = modes[0]
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "aainterp_torch/csrc/probes.cu",
+            "replaces": f"benchmarks/rot_experiments.py:{line}",
+            "launches": sum(launches[m] for m in modes),
+            "max_abs_err": max(err[m] for m in modes),
+            "ms": ex[m0]["ms"],
+            "plain_ms": plain_ms[m0],
+            "bound_ms": ex[m0]["bound_ms"],
+            "bound_by": ex[m0]["bound_by"],
+            # no single PyTorch call contracts windows with per-pixel weights
+            "library_ms": None,
+            "modes": {m: {"launches": launches[m], "ms": ex[m]["ms"],
+                          "plain_ms": plain_ms[m], "max_abs_err": err[m],
+                          "bound_ms": ex[m]["bound_ms"]} for m in modes},
+        }
+
+    return [row("contract_noweight", "130", ("noweight",)),
+            row("contract_share", "247", SHARE_MODES),
+            row("contract_pipelined", "392", ("pipelined",))]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2308,7 +2566,7 @@ def main() -> int:
 
 
 def run(work: str) -> int:
-    """Phases 1-41; ``work`` is a temporary directory for files."""
+    """Phases 1-44; ``work`` is a temporary directory for files."""
     # ---- 1. device -------------------------------------------------------
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
@@ -2327,13 +2585,13 @@ def run(work: str) -> int:
 
     # ---- 2. build: every library, all compilers at once ---------------------
     libs = (_build.SEPARABLE, _build.SEPARABLE_2D, _build.ELL_SHEAR,
-            _build.SHEAR3_STAGE, _build.NATIVE)
+            _build.SHEAR3_STAGE, _build.PROBES, _build.NATIVE)
     build_s = _build.timed_build(libs)
     for lib in libs:
         _build.load(lib)
     print(f"[2 build] nvcc {' '.join(_build.NVCC_FLAGS)} "
           f"(separable_apply.cu, separable_apply_2d.cu, ell_shear.cu, "
-          f"shear3_stage.cu) and g++ "
+          f"shear3_stage.cu, probes.cu) and g++ "
           f"{' '.join(_build.GXX_FLAGS)} (aainterp_native.cpp), in "
           f"parallel: {build_s:.2f} s")
 
@@ -2544,6 +2802,7 @@ def run(work: str) -> int:
     cli_phases(dev, work)
     stream_phases(dev, card, work)
     cache_phases(dev, card, work)
+    probes = [copy_phases(make, card)] + contract_probe_phases(make, card)
 
     print(json.dumps({"kernels": [{
         "name": "separable_apply",
@@ -2556,7 +2815,7 @@ def run(work: str) -> int:
         "plain_ms": plain_ms,
         **flagship_bound,
         "library_ms": ms["library_device_ms"],
-    }] + rotated + sheared + banded}))
+    }] + rotated + sheared + banded + probes}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -185,7 +185,10 @@ def test_import_pulls_in_neither_jax_nor_aainterp():
         "aainterp_torch.cli, aainterp_torch.__main__, "
         "aainterp_torch.pipeline, aainterp_torch.baselines, "
         "aainterp_torch.metrics, aainterp_torch.utils.io, "
-        "aainterp_torch.utils.log, aainterp_torch.utils.cache\n"
+        "aainterp_torch.utils.log, aainterp_torch.utils.cache, "
+        "aainterp_torch.probes, aainterp_torch.probes.harness, "
+        "aainterp_torch.probes.copy_ceiling, "
+        "aainterp_torch.probes.rot_experiments\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'aainterp') "
         "or m.startswith(('jax.', 'jaxlib', 'aainterp.')))\n"
         "print(bad)\n"

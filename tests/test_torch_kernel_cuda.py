@@ -1109,3 +1109,99 @@ def test_prefetch_then_apply_does_not_reupload(cuda, tmp_path):
     assert autodiff.ell_tables(folded, torch.float32, cuda) is gather
     ref = at.apply_operator(rop, xr, impl="gather")
     assert (got - ref).abs().max().item() <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# the probe kernels (csrc/probes.cu): the row-tiled copy and the
+# contraction's probe modes
+# ---------------------------------------------------------------------------
+
+
+def _ff(shape, dtype, device):
+    """A tensor whose every byte is 0xFF (bf16 / f32: NaN)."""
+    x = torch.empty(shape, dtype=dtype, device=device)
+    x.view(torch.uint8).fill_(0xFF)
+    return x
+
+
+@pytest.mark.parametrize("shape,ty", [
+    ((3, 64, 256), 16),          # whole tiles, 16-byte row pitches
+    ((3, 70, 256), 16),          # a ragged last tile (rows 64-69 dropped)
+    ((2, 31, 37), 5),            # odd row pitch: spans differ mod 16
+    ((1, 7, 5), 3),              # tiny, misaligned, F = 1
+    ((2, 1080, 1919), 120),      # a 4K-class odd width
+])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.bfloat16,
+                                   torch.float32])
+def test_copy_rows_kernel_matches_plain(cuda, shape, ty, dtype):
+    from aainterp_torch.probes import copy_ceiling
+
+    x = _frames(shape, dtype, cuda)
+    rows = shape[1] // ty * ty
+    buf = _ff((shape[0], rows, shape[2]), dtype, cuda)
+    before = copy_ceiling.LAUNCHES
+    got = copy_ceiling.copy_rows_kernel(x, ty, out=buf)
+    torch.cuda.synchronize()
+    assert got is buf and copy_ceiling.LAUNCHES == before + 1
+    assert torch.equal(got, copy_ceiling.copy_rows_plain(x, ty))
+    assert torch.equal(copy_ceiling.copy_rows_kernel(x, ty),
+                       copy_ceiling.copy_rows_plain(x, ty))
+
+
+def test_copy_rows_kernel_at_a_view_offset(cuda):
+    from aainterp_torch.probes import copy_ceiling
+
+    base = _frames((2 * 40 * 33 + 3,), torch.bfloat16, cuda)
+    x = base[3:].view(2, 40, 33)                 # starts 6 bytes in
+    out = _ff((2, 40, 33), torch.bfloat16, cuda)
+    copy_ceiling.copy_rows_kernel(x, 8, out=out)
+    torch.cuda.synchronize()
+    assert torch.equal(out, x)
+    with pytest.raises(ValueError, match="contiguous"):
+        copy_ceiling.copy_rows_kernel(x.transpose(1, 2), 8)
+
+
+PROBE_GEOMS = [((300, 260), 1.0, 0.5, (130.0, 150.0), 17.0, "exact"),
+               ROT_GEOMS[0], ROT_GEOMS[2]]
+
+
+@pytest.mark.parametrize("frames", [3, 9])
+@pytest.mark.parametrize("args", PROBE_GEOMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_contract_probes_match_plain(cuda, args, dtype, frames):
+    from aainterp_torch.probes import rot_experiments
+
+    _, plan = _rot_plan(args)
+    t = _frames((frames, plan.TH, plan.TW), dtype, cuda, seed=5)
+    prod = cuda_shear.contract_kernel(t, plan)
+    torch.cuda.synchronize()
+    shear_before = dict(cuda_shear.LAUNCHES)
+    for mode in rot_experiments.MODES:
+        before = rot_experiments.LAUNCHES[mode]
+        buf = torch.full((frames, plan.Hd, plan.Wd), float("nan"),
+                         dtype=dtype, device=cuda)
+        got = rot_experiments.contract_probe_kernel(t, plan, mode, out=buf)
+        torch.cuda.synchronize()
+        assert got is buf and rot_experiments.LAUNCHES[mode] == before + 1
+        if mode == "pipelined":
+            assert torch.equal(got, prod)
+            continue
+        ref = rot_experiments.contract_probe_plain(t, plan, mode,
+                                                   out_dtype=torch.float32)
+        err = (got.double() - ref.double()).abs()
+        if dtype == torch.float32:
+            assert err.max().item() <= 1e-6, mode
+        else:
+            assert (err <= _bf16_ulp(ref)).all(), mode
+    assert dict(cuda_shear.LAUNCHES) == shear_before
+
+
+def test_contract_probe_rejects_what_it_cannot_take(cuda):
+    from aainterp_torch.probes import rot_experiments
+
+    _, plan = _rot_plan(ROT_GEOMS[0])
+    t = _frames((2, plan.TH, plan.TW), torch.float32, cuda)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        rot_experiments.contract_probe_kernel(t.double(), plan, "noweight")
+    with pytest.raises(ValueError, match="probe mode"):
+        rot_experiments.contract_probe_kernel(t, plan, "none")
