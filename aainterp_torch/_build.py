@@ -1,6 +1,6 @@
 """Build the port's native libraries at first use and load them with ctypes.
 
-Six libraries, each from one source with a plain C interface (no
+Seven libraries, each from one source with a plain C interface (no
 PyTorch headers), so each builds in seconds:
 
 * ``separable_apply`` — ``csrc/separable_apply.cu`` through nvcc;
@@ -14,6 +14,9 @@ PyTorch headers), so each builds in seconds:
   ``mode='shear'``) through nvcc;
 * ``probes`` — ``csrc/probes.cu`` (the row-tiled copy of the copy
   ceiling and the rotated contraction's probe modes) through nvcc;
+* ``band_probes`` — ``csrc/band_probes.cu`` (kernel 1's probe modes:
+  the instances of ``csrc/band_apply.cuh`` under its probe modes) through
+  nvcc, a library of its own so that it builds beside the others;
 * ``aainterp_native`` — the repository's host weight-gen and CSV engine,
   ``native/aainterp_native.cpp``, through g++ with the flags of
   ``native/Makefile``.
@@ -21,7 +24,10 @@ PyTorch headers), so each builds in seconds:
 The four CUDA sources of the production kernels include
 ``csrc/stage_common.cuh``, the staging helpers of their staged kernels;
 ``ell_shear.cu`` and ``probes.cu`` include ``csrc/contract.cuh``, the
-contraction's body under its probe modes.
+contraction's body under its probe modes; ``separable_apply.cu``,
+``separable_apply_2d.cu`` and ``band_probes.cu`` include
+``csrc/band_apply.cuh``, the separable kernels' body under its probe
+modes.
 
 Each shared library lands in ``aainterp_torch/_build/`` under a name that
 carries a hash of its source, the headers it includes, its compiler and
@@ -111,9 +117,13 @@ ELL_SHEAR = Library(
         # aainterp_vhshear(q, T, gy, hx, win, F, qH, qW, TH, TW, TY, TX,
         #     win_rows, win_cols, elem_bytes, stream)
         ("aainterp_vhshear", (_P,) * 5 + (_I,) * 10 + (_P,), ctypes.c_int),
-        # aainterp_contract(T, out, ry0, cx0, w2, F, TH, TW, Hd, Wd, Ka,
-        #     Kb, dtype_code, stream)
-        ("aainterp_contract", (_P,) * 5 + (_I,) * 8 + (_P,), ctypes.c_int),
+        # aainterp_contract(T, out, ry0, cx0, w2, span, F, TH, TW, Hd, Wd,
+        #     Ka, Kb, dtype_code, stream)
+        ("aainterp_contract", (_P,) * 6 + (_I,) * 8 + (_P,), ctypes.c_int),
+        # aainterp_contract_unmasked(T, out, ry0, cx0, w2, F, TH, TW, Hd,
+        #     Wd, Ka, Kb, dtype_code, stream)
+        ("aainterp_contract_unmasked", (_P,) * 5 + (_I,) * 8 + (_P,),
+         ctypes.c_int),
     ),
     headers=(_CONTRACT_HEADER, _STAGE_HEADER))
 
@@ -131,12 +141,20 @@ PROBES = Library(
     (
         # aainterp_copy_rows(src, dst, F, H, W, TY, elem_bytes, stream)
         ("aainterp_copy_rows", (_P,) * 2 + (_I,) * 5 + (_P,), ctypes.c_int),
-        # aainterp_contract_probe(T, out, ry0, cx0, w2, F, TH, TW, Hd, Wd,
-        #     Ka, Kb, mode, dtype_code, stream)
-        ("aainterp_contract_probe", (_P,) * 5 + (_I,) * 9 + (_P,),
+        # aainterp_contract_probe(T, out, ry0, cx0, w2, span, F, TH, TW,
+        #     Hd, Wd, Ka, Kb, mode, dtype_code, stream)
+        ("aainterp_contract_probe", (_P,) * 6 + (_I,) * 9 + (_P,),
          ctypes.c_int),
     ),
     headers=(_CONTRACT_HEADER,))
+
+BAND_PROBES = Library(
+    "band_probes", _PKG / "csrc" / "band_probes.cu", "nvcc", NVCC_FLAGS,
+    # aainterp_band_probe(src, out, ys, wy, xs, wx, row_base, col_base, F,
+    #     H, W, Hd, Wd, ky, kx, TY, TX, SY, SX, mode, steps, dtype_code,
+    #     stream)
+    (("aainterp_band_probe", (_P,) * 8 + (_I,) * 14 + (_P,), ctypes.c_int),),
+    headers=_BAND_HEADERS)
 
 NATIVE = Library(
     "aainterp_native", _PKG.parent / "native" / "aainterp_native.cpp", "g++",

@@ -1,0 +1,153 @@
+// Kernel 1's probe modes for Hopper (sm_90a): the production separable
+// kernel (csrc/band_apply.cuh, band_apply_kernel, clamped taps, IEEE f32)
+// with one thing changed per mode, at kernel 1's own plan
+// (ops/cuda_apply.band_plan: 8 x 240 dst tiles at the 4K flagship).
+//
+// Replaces the TPU Pallas probes of benchmarks/:
+//
+//   kStage, kStageY      <- flagship_experiments.py:73 _build_band_probe
+//                           (pallas_call at :137; with_y False "dma", True
+//                           "ypass") and u8_experiments.py:86
+//                           _build_stage_probe (:226) stages dma, ydot,
+//                           xstore
+//   kWalk2/3/4           <- flagship_experiments.py:144 _build_full_nslot
+//                           (:218): full2, full3, full4
+//   kU8Words             <- flagship_experiments.py:341 _build_u8bitcast
+//                           (:428), in the byte order that :305
+//                           discover_u8_pack_order asks the TPU for (on the
+//                           card a 32-bit word holds 4 neighbouring pixels of
+//                           a row, little-endian)
+//   kU8Convert1/2/4      <- u8_experiments.py stage extract (n = 1) and
+//                           flagship_experiments.py:497 _build_u8chunk
+//                           (:591; n = 2, 4)
+//   kXPair               <- u8_experiments.py stage xpair (:150-169)
+//
+// What each keeps and stores (band_apply.cuh's Probe): kStage the window
+// staging and the output stores (the first tap's pixel); kStageY those and
+// the y pass (T at the first x tap); kWalk<n> production's output from a
+// block that walks `steps` row tiles of one strip with n - 1 windows in
+// flight; kU8Words, kU8Convert<n> and kXPair production's output with the
+// y pass reading 4 u8 pixels per 32-bit word, the window converted to f32
+// in shared memory in n column chunks, or an x pass for an exact ratio-2
+// band from a (4, Wd) table.  What bounds them: bytes, as kernel 1; a mode
+// whose shared memory exceeds the card's opt-in returns
+// cudaErrorInvalidValue before any launch (the host checks it first).
+//
+// Plain C interface for ctypes; the launch goes on the caller's stream and
+// does not synchronise.  The return value is cudaGetLastError() after the
+// launch (0 on success).
+
+#include "band_apply.cuh"
+
+namespace {
+
+using band::Dims;
+using band::Geo;
+
+template <typename Tin, typename Tout, int P>
+int launch_probe(const void* src, void* out, const void* ys, const void* wy, const void* xs,
+                 const void* wx, const void* row_base, const void* col_base, int F, Dims d,
+                 int steps, cudaStream_t stream) {
+  constexpr int kSlots = band::walk_slots(P);
+  constexpr int kChunks = band::convert_chunks(P);
+  d.n_strip = (d.Wd + d.TX - 1) / d.TX;
+  d.n_rt = (d.Hd + d.TY - 1) / d.TY;
+  const Geo g = band::make_geo(d, sizeof(Tin), sizeof(Tout));
+  long long smem = g.smem;
+  if constexpr (kSlots > 0) smem += static_cast<long long>(kSlots - 1) * g.zero_off;
+  if constexpr (kChunks > 0) {
+    smem += band::up16(4LL * d.SY * ((d.SX + kChunks - 1) / kChunks));
+  }
+  if (smem > INT_MAX || (kSlots > 0 && steps <= 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long runs = kSlots > 0 ? (d.n_rt + steps - 1) / steps : d.n_rt;
+  const long long blocks = static_cast<long long>(F) * d.n_strip * runs;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const Tin* s = static_cast<const Tin*>(src);
+  Tout* o = static_cast<Tout*>(out);
+  const int* y = static_cast<const int*>(ys);
+  const float* a = static_cast<const float*>(wy);
+  const int* x = static_cast<const int*>(xs);
+  const float* b = static_cast<const float*>(wx);
+  const int* rb = static_cast<const int*>(row_base);
+  const int* cb = static_cast<const int*>(col_base);
+  const dim3 grid(static_cast<unsigned>(blocks));
+  const size_t bytes = static_cast<size_t>(smem);
+  static std::atomic<int> opted_in[stage::kMaxDevices];  // kern's limit per device
+  if constexpr (kSlots > 0) {
+    auto kern = band::band_walk_kernel<Tin, Tout, kSlots>;
+    if (const int e = stage::opt_in(reinterpret_cast<const void*>(kern), smem, opted_in)) {
+      return e;
+    }
+    kern<<<grid, band::kThreads, bytes, stream>>>(s, o, y, a, x, b, rb, cb, d, g, steps);
+  } else {
+    auto kern = band::band_apply_kernel<Tin, Tout, 0, true, P>;
+    if (const int e = stage::opt_in(reinterpret_cast<const void*>(kern), smem, opted_in)) {
+      return e;
+    }
+    kern<<<grid, band::kThreads, bytes, stream>>>(s, o, y, a, x, b, rb, cb, d, g);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the flagship module's modes, in = out = float32 or bfloat16
+template <typename T>
+int float_modes(int mode, const void* src, void* out, const void* ys, const void* wy,
+                const void* xs, const void* wx, const void* rb, const void* cb, int F,
+                const Dims& d, int steps, cudaStream_t st) {
+  switch (mode) {
+    case band::kStage: return launch_probe<T, T, band::kStage>(src, out, ys, wy, xs, wx, rb, cb, F, d, steps, st);
+    case band::kStageY: return launch_probe<T, T, band::kStageY>(src, out, ys, wy, xs, wx, rb, cb, F, d, steps, st);
+    case band::kWalk2: return launch_probe<T, T, band::kWalk2>(src, out, ys, wy, xs, wx, rb, cb, F, d, steps, st);
+    case band::kWalk3: return launch_probe<T, T, band::kWalk3>(src, out, ys, wy, xs, wx, rb, cb, F, d, steps, st);
+    case band::kWalk4: return launch_probe<T, T, band::kWalk4>(src, out, ys, wy, xs, wx, rb, cb, F, d, steps, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// the u8 module's modes, uint8 in and out
+int u8_modes(int mode, const void* src, void* out, const void* ys, const void* wy,
+             const void* xs, const void* wx, const void* rb, const void* cb, int F,
+             const Dims& d, int steps, cudaStream_t st) {
+  using U = uint8_t;
+  switch (mode) {
+    case band::kStage: return launch_probe<U, U, band::kStage>(src, out, ys, wy, xs, wx, rb, cb, F, d, steps, st);
+    case band::kStageY: return launch_probe<U, U, band::kStageY>(src, out, ys, wy, xs, wx, rb, cb, F, d, steps, st);
+    case band::kU8Words: return launch_probe<U, U, band::kU8Words>(src, out, ys, wy, xs, wx, rb, cb, F, d, steps, st);
+    case band::kXPair: return launch_probe<U, U, band::kXPair>(src, out, ys, wy, xs, wx, rb, cb, F, d, steps, st);
+    case band::kU8Convert1: return launch_probe<U, U, band::kU8Convert1>(src, out, ys, wy, xs, wx, rb, cb, F, d, steps, st);
+    case band::kU8Convert2: return launch_probe<U, U, band::kU8Convert2>(src, out, ys, wy, xs, wx, rb, cb, F, d, steps, st);
+    case band::kU8Convert4: return launch_probe<U, U, band::kU8Convert4>(src, out, ys, wy, xs, wx, rb, cb, F, d, steps, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// mode: band_apply.cuh's Probe (1 stage, 2 stagey, 3 u8words, 4 xpair,
+// 5-7 u8 convert in 1/2/4 chunks, 8-10 walk with 2/3/4 slots); dtype_code
+// (input and output): 0 = float32, 1 = bfloat16 (stage, stagey, walk), 2 =
+// uint8 (stage, stagey, u8words, xpair, u8 convert).  The other arguments
+// are aainterp_separable_apply's (csrc/separable_apply.cu); for xpair wx
+// is the (4, Wd) table of source columns 2j - 1 .. 2j + 2 and xs is not
+// read; steps: row tiles per block of the walk.
+extern "C" int aainterp_band_probe(
+    const void* src, void* out, const void* ys, const void* wy, const void* xs,
+    const void* wx, const void* row_base, const void* col_base, int F, int H, int W,
+    int Hd, int Wd, int ky, int kx, int TY, int TX, int SY, int SX, int mode, int steps,
+    int dtype_code, void* stream) {
+  if (F <= 0 || H <= 0 || W <= 0 || Hd <= 0 || Wd <= 0 || ky <= 0 || kx <= 0 || TY <= 0 ||
+      TX <= 0 || TX > band::kThreads || SY < ky || SX < kx ||
+      (mode == band::kXPair && kx > 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Dims d{H, W, Hd, Wd, ky, kx, TY, TX, SY, SX, 0, 0};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype_code) {
+    case 0: return float_modes<float>(mode, src, out, ys, wy, xs, wx, row_base, col_base, F, d, steps, s);
+    case 1: return float_modes<__nv_bfloat16>(mode, src, out, ys, wy, xs, wx, row_base, col_base, F, d, steps, s);
+    case 2: return u8_modes(mode, src, out, ys, wy, xs, wx, row_base, col_base, F, d, steps, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

@@ -8,12 +8,29 @@
 // with f32 accumulation (fmaf, taps a-major then b).  One thread per
 // (dy, dx), frames looped inside, up to kFrames at a time with the sums in
 // registers, so each weight tap is read from device memory once per
-// kFrames frames.  csrc/ell_shear.cu launches the production form
-// (contract_kernel, Probe kNone); csrc/probes.cu launches the others
-// (contract_probe_kernel), the H100 counterparts of the TPU contraction
-// probes of benchmarks/rot_experiments.py.  Each probe is the production
-// kernel with one thing changed, so a later redesign of this body carries
-// the probes with it:
+// kFrames frames.
+//
+// The dead-pixel skip (kMasked, the counterpart of the TPU kernel's
+// masked=True, pallas_shear.py:164-240, tile_masks :307): span[dy] =
+// (lo, hi) is the half-open range of dst columns of row dy whose Ka*Kb
+// weights are not all 0 (host table, ops/cuda_shear.py; lo == hi for a row
+// with none).  A thread whose dx lies outside it writes 0 to its F outputs
+// and reads neither T nor w2; a block wholly outside does only that.
+// Inside the span the arithmetic and the sum order are the unmasked
+// kernel's, so every output is bit-equal to it for finite T (a dead pixel
+// sums zero weights).  With NaN or Inf in T a pixel outside its row's span
+// gives 0 where the unmasked kernel can give NaN: the area average over no
+// source area is 0.  The rotated flagship (2048^2 at 30 degrees) has 46 %
+// of its dst pixels outside their spans.
+//
+// csrc/ell_shear.cu launches the production form (contract_kernel: Probe
+// kNone, masked) and the unmasked instance (contract_unmasked_kernel);
+// csrc/probes.cu launches the others (contract_probe_kernel), the H100
+// counterparts of the TPU contraction probes of
+// benchmarks/rot_experiments.py.  Each probe is the production kernel with
+// one thing changed, so a later redesign of this body carries the probes
+// with it; like the TPU probes, the share and pipelined modes skip dead
+// pixels and noweight does not:
 //
 //   kNoWeight  (_build_contract_noweight, :130)  out = sum_ab T window: no
 //              weight load, no multiply (acc += v);
@@ -40,7 +57,9 @@
 // weight traffic (wshare), or the issue order (pipelined).
 //
 // What bounds the contraction: bytes (T, the f32 weight table w2 and the
-// output; PERF.md), so the probes measure which stream the time follows.
+// output); but the probes show that its time follows the per-tap gathers'
+// instruction stream, not those streams (PERF.md), so the skipped pixels'
+// work is time.
 
 #pragma once
 
@@ -78,11 +97,12 @@ inline bool row_grid(long long rows, int cols, dim3* grid) {
 
 // The body.  fstride is T's frame stride in elements: TH * TW, or 0 (a
 // runtime value) for the T-sharing probes.
-template <typename T, Probe P>
+// kMasked: the dead-pixel skip on span (Hd, 2).
+template <typename T, Probe P, bool kMasked>
 __device__ __forceinline__ void body(
     const T* __restrict__ t, T* __restrict__ out,
     const int* __restrict__ ry0, const int* __restrict__ cx0,
-    const float* __restrict__ w2,
+    const float* __restrict__ w2, const int* __restrict__ span,
     int F, int TH, int TW, int Hd, int Wd, int Ka, int Kb, long long fstride) {
   constexpr bool kShareT = P == kTShare || P == kBothShare;
   constexpr bool kShareW = P == kWShare || P == kBothShare;
@@ -91,6 +111,13 @@ __device__ __forceinline__ void body(
   const int dy = blockIdx.x;
   const long long plane = static_cast<long long>(Hd) * Wd;
   const long long pix = static_cast<long long>(dy) * Wd + dx;
+  if constexpr (kMasked) {
+    const int2 s = __ldg(reinterpret_cast<const int2*>(span) + dy);
+    if (dx < s.x || dx >= s.y) {
+      for (int f = 0; f < F; ++f) store(out + f * plane + pix, 0.0f);
+      return;
+    }
+  }
   const long long wpix = kShareW ? static_cast<long long>(dx) : pix;
   const int r0 = ry0[kShareT ? 0 : dy];
   const int c0 = cx0[dx];
@@ -164,27 +191,39 @@ __device__ __forceinline__ void body(
   }
 }
 
-// The production contraction (ell_shear.cu's aainterp_contract).
+// The production contraction, masked (ell_shear.cu's aainterp_contract).
 template <typename T>
 __global__ void __launch_bounds__(kThreads) contract_kernel(
     const T* __restrict__ t, T* __restrict__ out,
     const int* __restrict__ ry0, const int* __restrict__ cx0,
-    const float* __restrict__ w2,
+    const float* __restrict__ w2, const int* __restrict__ span,
     int F, int TH, int TW, int Hd, int Wd, int Ka, int Kb) {
-  body<T, kNone>(t, out, ry0, cx0, w2, F, TH, TW, Hd, Wd, Ka, Kb,
-                 static_cast<long long>(TH) * TW);
+  body<T, kNone, true>(t, out, ry0, cx0, w2, span, F, TH, TW, Hd, Wd, Ka, Kb,
+                       static_cast<long long>(TH) * TW);
 }
 
-// A probe (P != kNone); zero is 0 at run time.
+// The same without the skip (ell_shear.cu's aainterp_contract_unmasked).
+template <typename T>
+__global__ void __launch_bounds__(kThreads) contract_unmasked_kernel(
+    const T* __restrict__ t, T* __restrict__ out,
+    const int* __restrict__ ry0, const int* __restrict__ cx0,
+    const float* __restrict__ w2,
+    int F, int TH, int TW, int Hd, int Wd, int Ka, int Kb) {
+  body<T, kNone, false>(t, out, ry0, cx0, w2, nullptr, F, TH, TW, Hd, Wd, Ka, Kb,
+                        static_cast<long long>(TH) * TW);
+}
+
+// A probe (P != kNone), masked but for kNoWeight; zero is 0 at run time.
 template <typename T, Probe P>
 __global__ void __launch_bounds__(kThreads) contract_probe_kernel(
     const T* __restrict__ t, T* __restrict__ out,
     const int* __restrict__ ry0, const int* __restrict__ cx0,
-    const float* __restrict__ w2,
+    const float* __restrict__ w2, const int* __restrict__ span,
     int F, int TH, int TW, int Hd, int Wd, int Ka, int Kb, int zero) {
   constexpr bool kShareT = P == kTShare || P == kBothShare;
-  body<T, P>(t, out, ry0, cx0, w2, F, TH, TW, Hd, Wd, Ka, Kb,
-             kShareT ? static_cast<long long>(zero) : static_cast<long long>(TH) * TW);
+  body<T, P, P != kNoWeight>(
+      t, out, ry0, cx0, w2, span, F, TH, TW, Hd, Wd, Ka, Kb,
+      kShareT ? static_cast<long long>(zero) : static_cast<long long>(TH) * TW);
 }
 
 }  // namespace contract

@@ -6,7 +6,9 @@
 //   aainterp_vshear   <- _build_vshear   (:59, pallas_call at :100)
 //   aainterp_hshear   <- _build_hshear   (:114, pallas_call at :150)
 //   aainterp_vhshear  <- both at once: the rotated route's shear
-//   aainterp_contract <- _build_contract (:164, pallas_call at :291)
+//   aainterp_contract <- _build_contract (:164, pallas_call at :291),
+//                        masked=True as the route launches it (:802);
+//                        aainterp_contract_unmasked is masked=False
 //
 // With the host plan of ops/shear_apply.build_shear_plan (gy, hx, ry0, cx0
 // and the re-indexed weights w2, laid out by ops/cuda_shear.py, which also
@@ -67,9 +69,12 @@
 //     (once per batch at the flagship's 8), not once per frame — the
 //     reason the TPU grid runs frames innermost (pallas_shear.py:197-199).
 //     Weights are tap-major, so neighbouring threads read neighbouring
-//     words; T rows shared by neighbouring dst rows come from L2.  Its
-//     body lives in csrc/contract.cuh, under a probe mode; this file
-//     launches the production mode only (csrc/probes.cu the probes).
+//     words; T rows shared by neighbouring dst rows come from L2.  A
+//     per-row span of live dst columns (host table) lets a thread outside
+//     it store zeros and read nothing: 46 % of the flagship's dst pixels.
+//     Its body lives in csrc/contract.cuh, under a probe mode; this file
+//     launches the production mode, masked and unmasked (csrc/probes.cu
+//     the probes).
 //
 // Plain C interface for ctypes; each launch goes on the caller's stream and
 // does not synchronise.  The return value is cudaGetLastError() after the
@@ -298,11 +303,13 @@ extern "C" int aainterp_vhshear(const void* q, void* t, const void* gy, const vo
                            elem_bytes, stream);
 }
 
-// dtype_code: 0 = float32, 1 = bfloat16 (T and out share it)
-extern "C" int aainterp_contract(const void* t, void* out, const void* ry0,
-                                 const void* cx0, const void* w2,
-                                 int F, int TH, int TW, int Hd, int Wd,
-                                 int Ka, int Kb, int dtype_code, void* stream) {
+namespace {
+
+// the production contraction (masked: span is (Hd, 2) int32) or, with span
+// null, its unmasked instance
+int contract_launch(const void* t, void* out, const void* ry0, const void* cx0,
+                    const void* w2, const void* span, int F, int TH, int TW, int Hd,
+                    int Wd, int Ka, int Kb, int dtype_code, void* stream) {
   dim3 grid;
   if (F <= 0 || TH <= 0 || TW <= 0 || Ka <= 0 || Kb <= 0 ||
       !contract::row_grid(Hd, Wd, &grid)) {
@@ -312,16 +319,51 @@ extern "C" int aainterp_contract(const void* t, void* out, const void* ry0,
   const int* r = static_cast<const int*>(ry0);
   const int* c = static_cast<const int*>(cx0);
   const float* w = static_cast<const float*>(w2);
+  const int* sp = static_cast<const int*>(span);
   if (dtype_code == 0) {
-    contract::contract_kernel<float><<<grid, contract::kThreads, 0, st>>>(
-        static_cast<const float*>(t), static_cast<float*>(out), r, c, w,
-        F, TH, TW, Hd, Wd, Ka, Kb);
+    const float* tt = static_cast<const float*>(t);
+    float* o = static_cast<float*>(out);
+    if (sp) {
+      contract::contract_kernel<float><<<grid, contract::kThreads, 0, st>>>(
+          tt, o, r, c, w, sp, F, TH, TW, Hd, Wd, Ka, Kb);
+    } else {
+      contract::contract_unmasked_kernel<float><<<grid, contract::kThreads, 0, st>>>(
+          tt, o, r, c, w, F, TH, TW, Hd, Wd, Ka, Kb);
+    }
   } else if (dtype_code == 1) {
-    contract::contract_kernel<__nv_bfloat16><<<grid, contract::kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(t), static_cast<__nv_bfloat16*>(out), r, c, w,
-        F, TH, TW, Hd, Wd, Ka, Kb);
+    const __nv_bfloat16* tt = static_cast<const __nv_bfloat16*>(t);
+    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+    if (sp) {
+      contract::contract_kernel<__nv_bfloat16><<<grid, contract::kThreads, 0, st>>>(
+          tt, o, r, c, w, sp, F, TH, TW, Hd, Wd, Ka, Kb);
+    } else {
+      contract::contract_unmasked_kernel<__nv_bfloat16>
+          <<<grid, contract::kThreads, 0, st>>>(tt, o, r, c, w, F, TH, TW, Hd, Wd, Ka, Kb);
+    }
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// dtype_code: 0 = float32, 1 = bfloat16 (T and out share it); span: (Hd, 2)
+// int32, each dst row's live columns [lo, hi) (outside them out is 0)
+extern "C" int aainterp_contract(const void* t, void* out, const void* ry0,
+                                 const void* cx0, const void* w2, const void* span,
+                                 int F, int TH, int TW, int Hd, int Wd,
+                                 int Ka, int Kb, int dtype_code, void* stream) {
+  if (span == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return contract_launch(t, out, ry0, cx0, w2, span, F, TH, TW, Hd, Wd, Ka, Kb,
+                         dtype_code, stream);
+}
+
+// the same without the dead-pixel skip: every dst pixel sums its taps
+extern "C" int aainterp_contract_unmasked(const void* t, void* out, const void* ry0,
+                                          const void* cx0, const void* w2, int F, int TH,
+                                          int TW, int Hd, int Wd, int Ka, int Kb,
+                                          int dtype_code, void* stream) {
+  return contract_launch(t, out, ry0, cx0, w2, nullptr, F, TH, TW, Hd, Wd, Ka, Kb,
+                         dtype_code, stream);
 }

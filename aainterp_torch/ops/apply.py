@@ -24,6 +24,25 @@ import numpy as np
 import torch
 
 
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``fmaf(a, b, c)`` of float32 tensors (broadcast): a * b + c rounded
+    once to float32, as the CUDA kernels' fused multiply-adds are, so a
+    plain version built on it repeats their sums bit for bit.  The product
+    is exact in float64 (24 + 24 bits) and the sum's rounding error exact
+    by TwoSum; rounding the sum to odd where it was inexact, then to
+    float32, rounds once (53 >= 24 + 2 bits)."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
+                         torch.full_like(s, float("-inf")))
+    return torch.where((err != 0) & even, torch.nextafter(s, toward),
+                       s).float()
+
+
 def quadrant_rotate(src: torch.Tensor, quadrant: int) -> torch.Tensor:
     """90-degree quadrant pre-rotation of the source image.
 

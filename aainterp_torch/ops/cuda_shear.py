@@ -8,7 +8,8 @@ contraction, with the exact ELL weights re-indexed by
 
 * ``ShearKernelPlan`` is the host plan in the layout the kernels take:
   ``gy`` (qW,), ``hx`` (TH,), ``ry0`` (Hd,), ``cx0`` (Wd,) int32, the
-  weights tap-major, ``w2`` (Ka*Kb, Hd, Wd) f32, and the shear kernel's
+  weights tap-major, ``w2`` (Ka*Kb, Hd, Wd) f32, each dst row's live
+  span ``span`` (Hd, 2) int32 (``live_spans``), and the shear kernel's
   tile table of each form it launches (``ShearTiles``: each output tile's
   source window, ``shear_tiles`` / ``plan_tiles``), planned at the form's
   first launch, so a plan that only plain routes use builds none.  None
@@ -29,9 +30,20 @@ contraction, with the exact ELL weights re-indexed by
   kernel or raises — there is no fallback.  A CPU tensor takes the plain
   version (``vshear_plain``, ``hshear_plain``, ``vhshear_plain``,
   ``contract_plain``, torch indexing).
+* The contraction skips dead pixels, as the TPU route's
+  (``_build_contract(masked=True)``, pallas_shear.py:802) skips dead
+  tiles: a dst pixel outside its row's span of live columns is 0 and
+  reads neither T nor the weights.  For finite T the output is the
+  unmasked sum's (a dead pixel sums zero weights); with NaN or Inf in T a
+  pixel outside its row's span is 0 where the unmasked sum can be NaN (JAX
+  gives 0 on its dead 128 x 128 tiles and NaN on dead pixels of live
+  ones): the area average over no source area is 0.
+  ``contract_unmasked_kernel`` launches the same kernel without the
+  skip (``contract_plain(masked=False)`` its plain version).
 * ``apply_ell_shear_kernel`` is the route on the card: the fused shear,
-  then the contraction (two launches; S never reaches device memory).
-  ``apply_ell_shear_plain`` composes the three plain stages.
+  then the masked contraction (two launches; S never reaches device
+  memory).  ``apply_ell_shear_plain`` composes the three plain stages
+  unmasked (JAX's 'sheared' route has no mask either).
 
 Dtype contract (pallas_shear.py:789-792): bf16 and f32 frames give that
 dtype out; any other real dtype is cast to f32 first and gives f32.
@@ -58,11 +70,13 @@ from .. import _build
 from ..utils.digest import array_digest
 from ..utils.lru import LruDict
 from ..utils.device import SMEM_LIMIT, upload
+from .apply import fma32
 from .shear_apply import build_shear_plan
 from .weights import EllOperator
 
 # Kernel launches so far, counted where each wrapper launches its kernel.
-LAUNCHES = {"vshear": 0, "hshear": 0, "vhshear": 0, "contract": 0}
+LAUNCHES = {"vshear": 0, "hshear": 0, "vhshear": 0, "contract": 0,
+            "contract_unmasked": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -212,6 +226,7 @@ class ShearKernelPlan:
     ry0: np.ndarray   # (Hd,) int32 first T row of each dst row's window
     cx0: np.ndarray   # (Wd,) int32 first T column of each dst column's window
     w2: np.ndarray    # (Ka*Kb, Hd, Wd) float32, tap a*Kb+b
+    span: np.ndarray  # (Hd, 2) int32 live columns [lo, hi) per dst row
     # the tiles of each shear form planned so far (form_tiles)
     tiles: Dict[str, ShearTiles] = dataclasses.field(
         default_factory=dict, repr=False)
@@ -235,7 +250,7 @@ class ShearKernelPlan:
         hit = self.dev.get(device)
         if hit is None:
             hit = {name: upload(getattr(self, name), device, pinned=pinned)
-                   for name in ("gy", "hx", "ry0", "cx0", "w2")}
+                   for name in _PLAN_ARRAYS}
             self.dev[device] = hit
         return hit
 
@@ -247,6 +262,22 @@ class ShearKernelPlan:
         if key not in tabs:
             tabs[key] = torch.from_numpy(self.form_tiles(form).win).to(device)
         return tabs[key]
+
+
+def live_spans(w2: np.ndarray) -> np.ndarray:
+    """(Hd, 2) int32: for each dst row of the tap-major weights ``w2``
+    (taps, Hd, Wd), the half-open range [lo, hi) from its first to one
+    past its last column whose taps are not all 0; (0, 0) for a row with
+    none.  The counterpart of JAX's ``lv_row`` / ``lv_col`` and
+    ``tile_masks`` (pallas_shear.py:307, 371-373), per row rather than per
+    128 x 128 tile."""
+    live = np.zeros(w2.shape[1:], bool)
+    for tap in w2:
+        live |= tap != 0
+    any_ = live.any(axis=1)
+    lo = np.where(any_, live.argmax(axis=1), 0)
+    hi = np.where(any_, live.shape[1] - live[:, ::-1].argmax(axis=1), 0)
+    return np.ascontiguousarray(np.stack([lo, hi], axis=1), dtype=np.int32)
 
 
 def plan_from_operator(op: EllOperator) -> ShearKernelPlan:
@@ -263,7 +294,7 @@ def plan_from_operator(op: EllOperator) -> ShearKernelPlan:
         hx=np.ascontiguousarray(sp.hx, dtype=np.int32),
         ry0=np.ascontiguousarray(sp.ry0, dtype=np.int32),
         cx0=np.ascontiguousarray(sp.cx0, dtype=np.int32),
-        w2=w2)
+        w2=w2, span=live_spans(w2))
 
 
 def _plan_key(op: EllOperator):
@@ -288,9 +319,11 @@ def kernel_plan(op: EllOperator) -> ShearKernelPlan:
 
 
 # the disk plan cache: the key's method tag, the plan's array and integer
-# fields, and what each process built or loaded (kernel_plan_cached)
-PLAN_CACHE_VERSION = "cuda_shear_v1"
-_PLAN_ARRAYS = ("gy", "hx", "ry0", "cx0", "w2")
+# fields, and what each process built or loaded (kernel_plan_cached).  v2
+# stores the live spans; a v1 entry (no spans) has another key, and an
+# entry without spans is not read as a plan
+PLAN_CACHE_VERSION = "cuda_shear_v2"
+_PLAN_ARRAYS = ("gy", "hx", "ry0", "cx0", "w2", "span")
 _PLAN_DIMS = ("qH", "qW", "TH", "TW", "Hd", "Wd", "Ka", "Kb")
 PLAN_DISK = {"built": 0, "loaded": 0}
 
@@ -322,7 +355,7 @@ def plan_cache_path(op: EllOperator, cache_dir: Optional[str] = None) -> str:
 def save_plan(plan: ShearKernelPlan, op: EllOperator,
               cache_dir: Optional[str] = None) -> str:
     """Write ``plan`` (its integer fields, the table fingerprint and its
-    arrays gy, hx, ry0, cx0, w2) to the disk cache through a temporary
+    arrays gy, hx, ry0, cx0, w2, span) to the disk cache through a temporary
     file of a unique name, renamed into place: two processes saving at
     once each write their own file, and a reader sees a whole file or
     none.  Tile tables are not stored (planned at a form's first
@@ -363,7 +396,7 @@ def load_plan(op: EllOperator,
                 **{n: np.ascontiguousarray(z[n]) for n in _PLAN_ARRAYS})
         shapes = {"gy": (plan.qW,), "hx": (plan.TH,), "ry0": (plan.Hd,),
                   "cx0": (plan.Wd,), "w2": (plan.Ka * plan.Kb, plan.Hd,
-                                            plan.Wd)}
+                                            plan.Wd), "span": (plan.Hd, 2)}
         for n, shape in shapes.items():
             a = getattr(plan, n)
             want = np.float32 if n == "w2" else np.int32
@@ -513,11 +546,23 @@ def vhshear_plain(q: torch.Tensor, plan: ShearKernelPlan, *,
     return _out_buffer(out, t.shape, q).copy_(t)
 
 
+def live_mask(plan: ShearKernelPlan, device) -> torch.Tensor:
+    """(Hd, Wd) bool on ``device``: dst pixels inside their row's span."""
+    span = plan.tables(device)["span"].to(torch.int64)
+    cols = torch.arange(plan.Wd, device=device)[None, :]
+    return (cols >= span[:, :1]) & (cols < span[:, 1:])
+
+
 def contract_plain(t: torch.Tensor, plan: ShearKernelPlan, *,
-                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                   out_dtype: Optional[torch.dtype] = None,
+                   masked: bool = True, fused: bool = False) -> torch.Tensor:
     """out[f, dy, dx] = sum_ab w2[a*Kb+b, dy, dx] * T[f, ry0[dy]+a, cx0[dx]+b]
     in f32 (taps a-major, then b), cast to ``out_dtype`` (default: T's
-    dtype for bf16/f32, else f32)."""
+    dtype for bf16/f32, else f32); ``masked`` (the kernel's dead-pixel
+    skip): 0 outside each dst row's span, whatever T holds; ``fused``:
+    each tap a fused multiply-add rounded once (``ops.apply.fma32``), the
+    kernel's arithmetic bit for bit (otherwise a product and a sum, each
+    rounded)."""
     _check_frames(t, (plan.TH, plan.TW), "T")
     tabs = plan.tables(t.device)
     ry0 = tabs["ry0"].to(torch.int64)
@@ -528,20 +573,27 @@ def contract_plain(t: torch.Tensor, plan: ShearKernelPlan, *,
         rows = t.index_select(1, (ry0 + a).clamp(0, plan.TH - 1))
         for b in range(plan.Kb):
             vals = rows.index_select(2, (cx0 + b).clamp(0, plan.TW - 1))
-            acc = acc + tabs["w2"][a * plan.Kb + b] * vals.to(torch.float32)
+            w = tabs["w2"][a * plan.Kb + b]
+            if fused:
+                acc = fma32(w, vals.to(torch.float32), acc)
+            else:
+                acc = acc + w * vals.to(torch.float32)
+    if masked:
+        acc = torch.where(live_mask(plan, t.device), acc, 0.0)
     return acc.to(out_dtype or _out_dtype(t.dtype))
 
 
 def apply_ell_shear_plain(q: torch.Tensor, plan: ShearKernelPlan, *,
                           out_dtype: Optional[torch.dtype] = None
                           ) -> torch.Tensor:
-    """The three plain stages: (F, qH, qW) -> (F, Hd, Wd); (qH, qW) ->
-    (Hd, Wd).  Frames of a dtype other than bf16/f32 are cast to f32."""
+    """The three plain stages, the contraction unmasked (JAX's 'sheared'
+    route): (F, qH, qW) -> (F, Hd, Wd); (qH, qW) -> (Hd, Wd).  Frames of a
+    dtype other than bf16/f32 are cast to f32."""
     if q.ndim == 2:
         return apply_ell_shear_plain(q[None], plan, out_dtype=out_dtype)[0]
     q = q.to(_out_dtype(q.dtype))
     return contract_plain(hshear_plain(vshear_plain(q, plan), plan), plan,
-                          out_dtype=out_dtype)
+                          out_dtype=out_dtype, masked=False)
 
 
 # ---------------------------------------------------------------------------
@@ -606,32 +658,56 @@ def vhshear_kernel(q: torch.Tensor, plan: ShearKernelPlan, *,
     return _shear_kernel("vhshear", q, plan, out)
 
 
-def contract_kernel(t: torch.Tensor, plan: ShearKernelPlan) -> torch.Tensor:
-    """Window contraction (F, TH, TW) -> (F, Hd, Wd) in T's dtype on the
-    CUDA kernel; a CPU tensor takes ``contract_plain``."""
+def _contract(name: str, t: torch.Tensor, plan: ShearKernelPlan,
+              masked: bool, out: Optional[torch.Tensor]) -> torch.Tensor:
+    """Launch the contraction, masked or not (a CPU tensor takes
+    ``contract_plain``); every element of ``out`` is written."""
     _check_frames(t, (plan.TH, plan.TW), "T")
-    if t.device.type == "cpu":
-        return contract_plain(t, plan)
-    _cuda_frames(t, "T")
     F = t.shape[0]
-    out = torch.empty((F, plan.Hd, plan.Wd), dtype=t.dtype, device=t.device)
+    if t.device.type == "cpu":
+        y = contract_plain(t, plan, masked=masked)
+        return y if out is None else _out_buffer(out, y.shape, y).copy_(y)
+    _cuda_frames(t, "T")
+    out = _out_buffer(out, (F, plan.Hd, plan.Wd), t)
     tabs = plan.tables(t.device)
-    fn = _build.load(_build.ELL_SHEAR).aainterp_contract
+    lib = _build.load(_build.ELL_SHEAR)
+    ptrs = [t.data_ptr(), out.data_ptr(), tabs["ry0"].data_ptr(),
+            tabs["cx0"].data_ptr(), tabs["w2"].data_ptr()]
+    if masked:
+        fn = lib.aainterp_contract
+        ptrs.append(tabs["span"].data_ptr())
+    else:
+        fn = lib.aainterp_contract_unmasked
     with torch.cuda.device(t.device):
         stream = torch.cuda.current_stream(t.device).cuda_stream
-        _launch("contract", fn, (
-            t.data_ptr(), out.data_ptr(), tabs["ry0"].data_ptr(),
-            tabs["cx0"].data_ptr(), tabs["w2"].data_ptr(),
-            F, plan.TH, plan.TW, plan.Hd, plan.Wd, plan.Ka, plan.Kb,
+        _launch(name, fn, (
+            *ptrs, F, plan.TH, plan.TW, plan.Hd, plan.Wd, plan.Ka, plan.Kb,
             _DTYPE_CODES[t.dtype], stream),
             f"F={F}, TH={plan.TH}, TW={plan.TW}, Hd={plan.Hd}, "
             f"Wd={plan.Wd}, Ka={plan.Ka}, Kb={plan.Kb}")
     return out
 
 
+def contract_kernel(t: torch.Tensor, plan: ShearKernelPlan, *,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Window contraction (F, TH, TW) -> (F, Hd, Wd) in T's dtype on the
+    CUDA kernel, dead pixels skipped (0 outside each dst row's span); a
+    CPU tensor takes ``contract_plain``.  ``out`` may be given (any
+    contents: every element is written)."""
+    return _contract("contract", t, plan, True, out)
+
+
+def contract_unmasked_kernel(t: torch.Tensor, plan: ShearKernelPlan, *,
+                             out: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """The contraction without the dead-pixel skip: every dst pixel sums
+    its taps (a CPU tensor takes ``contract_plain(masked=False)``)."""
+    return _contract("contract_unmasked", t, plan, False, out)
+
+
 def apply_ell_shear_kernel(q: torch.Tensor,
                            plan: ShearKernelPlan) -> torch.Tensor:
-    """The rotated apply on two kernels, the fused shear and the
+    """The rotated apply on two kernels, the fused shear and the masked
     contraction: (F, qH, qW) -> (F, Hd, Wd); (qH, qW) -> (Hd, Wd).  Frames
     of a dtype other than bf16/f32 are cast to f32 first
     (pallas_shear.py:789-792)."""

@@ -5,15 +5,22 @@
   ``aainterp_copy_rows``): the card's copy ceiling at a frame geometry
   (``benchmarks/copy_ceiling.py``, and rgb1024's copy probe);
 * ``rot_experiments`` — the rotated route's decomposition at the rotated
-  flagship: the route, its shear forms, the contraction and the
-  contraction's probe modes (``csrc/contract.cuh`` under ``probes.cu``:
-  noweight, tshare, wshare, bothshare, pipelined;
-  ``benchmarks/rot_experiments.py``);
+  flagship: the route, its shear forms, the contraction with and without
+  its dead-pixel skip and the contraction's probe modes
+  (``csrc/contract.cuh`` under ``probes.cu``: noweight, tshare, wshare,
+  bothshare, pipelined; ``benchmarks/rot_experiments.py``);
+* ``band_probes`` — kernel 1's probe modes (``csrc/band_probes.cu`` on
+  ``csrc/band_apply.cuh``: stage, stagey, walk2-4, u8words, u8convert1/2/4,
+  xpair), their plain versions and byte counts, run at the 4K flagship by
+  ``flagship_experiments`` (bf16, f32; ``benchmarks/flagship_experiments.py``)
+  and ``u8_experiments`` (u8; ``benchmarks/u8_experiments.py``);
 * ``harness`` — their timer (CUDA-graph replays on distinct inputs, CUDA
   events).
 
     python -m aainterp_torch.probes.copy_ceiling --H 2160 --W 3840
     python -m aainterp_torch.probes.rot_experiments --exp noweight
+    python -m aainterp_torch.probes.flagship_experiments --exp stage
+    python -m aainterp_torch.probes.u8_experiments --exp u8words
 
 Both run on the card; ``--device cpu`` runs the plain versions on the
 CPU, timed on the host's clock (not a device time).

@@ -1,0 +1,394 @@
+"""Kernel 1's probe modes: the production separable kernel
+(``csrc/band_apply.cuh``) with one thing changed per mode, on
+``csrc/band_probes.cu``, at kernel 1's own plan (``ops/cuda_apply``:
+8 x 240 dst tiles at the 4K flagship).  ``flagship_experiments`` and
+``u8_experiments`` run them; this module holds what both share.
+
+Modes (``MODES``; each stores one value per dst element of the
+production's tiles, derived from what it keeps):
+
+* ``stage`` — the window staging and the output stores, no y or x pass:
+  ``out[f, i, j] = cast(frames[f, ys[i], xs[j]])``, the first tap's pixel
+  (clamped to the image, as every tap is);
+* ``stagey`` — staging and the y pass: ``out[f, i, j] = cast(T[i, xs[j]])``
+  with ``T`` the y pass's f32 sums, the first x tap's y sum;
+* ``walk2``, ``walk3``, ``walk4`` — production's output from a block that
+  walks ``WALK_TILES`` row tiles of one strip with n - 1 windows in flight;
+* ``u8words`` (u8) — production's output, the y pass reading 4 pixels per
+  32-bit shared word, byte k of a word the pixel of column x0 + k
+  (little-endian, ``word_bytes``);
+* ``u8convert1``, ``u8convert2``, ``u8convert4`` (u8) — production's
+  output, the staged window converted to f32 in shared memory in n column
+  chunks, each followed by its part of the y pass;
+* ``xpair`` (u8) — production's output from an x pass for an exact ratio-2
+  band: dst column j reads source columns 2j - 1 .. 2j + 2 with weights
+  from a (4, Wd) table (``xpair_table``; ``ValueError`` on other bands).
+
+``band_probe_kernel(frames, tables, mode)`` launches one (a CPU tensor
+takes ``band_probe_plain``), counted per mode in ``LAUNCHES``.  The plain
+versions repeat the kernel's arithmetic exactly: each tap is one fused
+multiply-add rounded once to f32 (``ops.apply.fma32``), the y taps
+summed in order from 0, then the x taps; so every mode equals its plain
+version bit for bit.  A mode whose shared
+memory exceeds the card's opt-in (``smem_bytes``) raises ``ValueError``
+before any launch.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import _build
+from ..api import build_operator
+from ..autodiff import separable_linear_for
+from ..grids import make_grid_spec
+from ..ops import cuda_apply
+from ..ops.apply import fma32
+from ..utils.device import SMEM_LIMIT, out_buffer
+
+# probe mode -> the kernel's mode code (band_apply.cuh's Probe)
+MODES = {"stage": 1, "stagey": 2, "u8words": 3, "xpair": 4,
+         "u8convert1": 5, "u8convert2": 6, "u8convert4": 7,
+         "walk2": 8, "walk3": 9, "walk4": 10}
+# the modes each input dtype has (the kernel's instances)
+FLOAT_MODES = ("stage", "stagey", "walk2", "walk3", "walk4")
+U8_MODES = ("stage", "stagey", "u8words", "u8convert1", "u8convert2",
+            "u8convert4", "xpair")
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
+# kernel launches so far per mode, counted where the wrapper launches
+LAUNCHES = {m: 0 for m in MODES}
+WALK_TILES = 9      # row tiles a walking block takes (135 = 15 x 9 at 4K)
+
+H, W = 2160, 3840   # the flagship: 4K -> 1080p, exact
+
+
+@functools.lru_cache(maxsize=4)
+def flagship_tables(shape=(H, W)):
+    """Kernel 1's host tables (ys, yw, xs, xw) of ``shape`` at 2.0 -> 1.0
+    (the 4K -> 1080p flagship by default), exact, no rotation."""
+    op = build_operator(make_grid_spec(tuple(shape), 2.0, 1.0, (0.0, 0.0),
+                                       0.0))
+    return tuple(np.ascontiguousarray(t) for t in
+                 separable_linear_for(op, torch.float32, "kernel").tables)
+
+
+def _host(tables):
+    ys, yw, xs, xw = tables
+    return (np.asarray(ys, np.int32), np.asarray(yw, np.float32),
+            np.asarray(xs, np.int32), np.asarray(xw, np.float32))
+
+
+def _check_mode(mode: str, dtype: torch.dtype) -> None:
+    if mode not in MODES:
+        raise ValueError(f"probe mode must be one of {sorted(MODES)}, got "
+                         f"{mode!r}")
+    have = U8_MODES if dtype == torch.uint8 else FLOAT_MODES
+    if dtype not in _DTYPE_CODES or mode not in have:
+        raise ValueError(f"probe mode {mode!r} has no {dtype} instance "
+                         f"(float32 / bfloat16: {FLOAT_MODES}; uint8: "
+                         f"{U8_MODES})")
+
+
+def _plan(tables):
+    plan = cuda_apply._plan_for(*_host(tables))
+    if plan["kernel_2d"]:
+        raise ValueError("these bands take kernel 2: kernel 1 has no plan "
+                         "for them, nor its probes")
+    return plan
+
+
+def _seg_pitch(nbytes: int, stride: int) -> int:
+    p = nbytes + 32
+    return p + (stride - p) % 16
+
+
+def _up16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def smem_bytes(plan: dict, mode: str, Ws: int, Wd: int, ky: int,
+               elem: int) -> int:
+    """Dynamic shared memory of ``mode``'s block for frames Ws pixels wide
+    (dst Wd) of ``elem``-byte pixels in and out: the production layout
+    (band_apply.cuh's ``make_geo``), plus n - 1 more windows (walk<n>) or
+    the f32 chunk buffer (u8convert<n>)."""
+    TY, TX, SY, SX = plan["TY"], plan["TX"], plan["SY"], plan["SX"]
+    pitch_in = _seg_pitch(SX * elem, Ws * elem)
+    zero_off = _up16(32 + SY * pitch_in)
+    o_off = (zero_off + _up16(pitch_in + 32) + _up16(4 * TY * SX)
+             + _up16(8 * TY * ky))
+    total = o_off + _up16(32 + TY * _seg_pitch(TX * elem, Wd * elem))
+    if mode.startswith("walk"):
+        total += (int(mode[-1]) - 1) * zero_off
+    if mode.startswith("u8convert"):
+        n = int(mode[-1])
+        total += _up16(4 * SY * -(-SX // n))
+    return total
+
+
+def xpair_table(xs: np.ndarray, xw: np.ndarray) -> np.ndarray:
+    """(4, Wd) f32: row b holds dst column j's weight of source column
+    2j - 1 + b, as ``u8_experiments._stage_tables('xpair')`` tables it
+    (rows o_prev, e, o, e_next); ``ValueError`` where a nonzero tap lies
+    elsewhere (the band is no exact ratio-2 partition)."""
+    xs = np.asarray(xs, np.int64)
+    xw = np.asarray(xw, np.float32)
+    Wd, kx = xw.shape
+    tab = np.zeros((4, Wd), np.float32)
+    j = np.arange(Wd)[:, None]
+    b = xs[:, None] + np.arange(kx)[None, :] - (2 * j - 1)
+    live = xw != 0
+    if ((b < 0) | (b > 3))[live].any():
+        raise ValueError("xpair needs an exact ratio-2 band: every nonzero "
+                         "tap of dst column j on source columns 2j - 1 .. "
+                         "2j + 2")
+    jj, kk = np.nonzero(live)
+    np.add.at(tab, (b[jj, kk], jj), xw[jj, kk])
+    return tab
+
+
+def _xpair_device(plan: dict, tables, device) -> torch.Tensor:
+    """The plan's (4, Wd) xpair table on ``device``, built and uploaded
+    once (kept on the plan)."""
+    key = ("xpair", torch.device(device))
+    if key not in plan:
+        ys, yw, xs, xw = _host(tables)
+        plan[key] = torch.from_numpy(xpair_table(xs, xw)).to(device)
+    return plan[key]
+
+
+# ---------------------------------------------------------------------------
+# plain versions: the kernel's arithmetic, exactly
+# ---------------------------------------------------------------------------
+
+
+def _cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The kernel's store: bf16 round to nearest even; u8 round half to
+    even, then saturate."""
+    if dtype == torch.uint8:
+        return x.round().clamp(0.0, 255.0).to(torch.uint8)
+    return x.to(dtype)
+
+
+def _tabs(tables, device):
+    """(ys, yw, xs, xw) on ``device``: the plan's copies, uploaded once (so
+    a plain version can run inside CUDA-graph capture), starts as int64."""
+    ys, yw, xs, xw, _, _ = cuda_apply._device_tables(_plan(tables), device)
+    return ys.long(), yw, xs.long(), xw
+
+
+def y_sums(frames: torch.Tensor, tables) -> torch.Tensor:
+    """The y pass, (F, H, W) -> (F, Hd, W) f32: T[f, i, x] = the taps
+    wy[i, a] * frames[f, clamp(ys[i] + a), x] fused-multiply-added in
+    order from 0."""
+    ys, yw, _, _ = _tabs(tables, frames.device)
+    F, Hs, Ws = frames.shape
+    acc = torch.zeros((F, ys.shape[0], Ws), dtype=torch.float32,
+                      device=frames.device)
+    for a in range(yw.shape[1]):
+        v = frames.index_select(1, (ys + a).clamp(0, Hs - 1)).float()
+        acc = fma32(yw[:, a, None], v, acc)
+    return acc
+
+
+def x_sums(t: torch.Tensor, xs: torch.Tensor,
+           xw: torch.Tensor) -> torch.Tensor:
+    """The x pass, (F, Hd, W) f32 -> (F, Hd, Wd): the taps xw[j, b] *
+    t[f, i, clamp(xs[j] + b)] fused-multiply-added in order from 0."""
+    Ws = t.shape[2]
+    acc = torch.zeros(t.shape[:2] + (xs.shape[0],), dtype=torch.float32,
+                      device=t.device)
+    for b in range(xw.shape[1]):
+        v = t.index_select(2, (xs + b).clamp(0, Ws - 1))
+        acc = fma32(xw[:, b], v, acc)
+    return acc
+
+
+def band_probe_plain(frames: torch.Tensor, tables, mode: str) -> torch.Tensor:
+    """The probe ``mode``'s function in plain torch, on ``frames``' device,
+    bit for bit the kernel's (output dtype = input dtype)."""
+    _check_frames(frames)
+    _check_mode(mode, frames.dtype)
+    ys, yw, xs, xw = _tabs(tables, frames.device)
+    Hs, Ws = frames.shape[1:]
+    if mode == "stage":
+        out = frames.index_select(1, ys.clamp(0, Hs - 1)).index_select(
+            2, xs.clamp(0, Ws - 1)).float()
+    elif mode == "stagey":
+        out = y_sums(frames, tables).index_select(2, xs.clamp(0, Ws - 1))
+    elif mode == "xpair":
+        tab = _xpair_device(_plan(tables), tables, frames.device)
+        first = 2 * torch.arange(xs.shape[0], device=frames.device) - 1
+        out = x_sums(y_sums(frames, tables), first, tab.T.contiguous())
+    else:                       # walk, u8words, u8convert: production's
+        out = x_sums(y_sums(frames, tables), xs, xw)
+    return _cast(out, frames.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the kernel wrapper
+# ---------------------------------------------------------------------------
+
+
+def _check_frames(frames) -> None:
+    if not isinstance(frames, torch.Tensor):
+        raise TypeError(f"frames must be a torch.Tensor, got {type(frames)}")
+    if frames.ndim != 3 or 0 in frames.shape:
+        raise ValueError(f"frames must be (F, H, W) with none of them 0, got "
+                         f"{tuple(frames.shape)}")
+
+
+def band_probe_kernel(frames: torch.Tensor, tables, mode: str, *,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The probe ``mode`` on ``csrc/band_probes.cu``: (F, H, W) -> (F, Hd,
+    Wd) in the frames' dtype; ``tables`` are kernel 1's host tables (ys,
+    yw, xs, xw).  A CPU tensor takes ``band_probe_plain``; ``out`` may be
+    given (any contents: every element is written)."""
+    _check_frames(frames)
+    _check_mode(mode, frames.dtype)
+    ys, yw, xs, xw = _host(tables)
+    F, Hs, Ws = frames.shape
+    shape = (F, yw.shape[0], xw.shape[0])
+    if frames.device.type == "cpu":
+        y = band_probe_plain(frames, tables, mode)
+        return y if out is None else out_buffer(
+            out, shape, frames.dtype, frames.device).copy_(y)
+    if frames.device.type != "cuda":
+        raise ValueError(f"no kernel for device {frames.device}")
+    if not frames.is_contiguous():
+        raise ValueError("frames must be contiguous")
+    plan = _plan(tables)
+    need = smem_bytes(plan, mode, Ws, shape[2], yw.shape[1],
+                      frames.element_size())
+    if need > SMEM_LIMIT:
+        raise ValueError(f"probe mode {mode!r} needs {need} bytes of shared "
+                         f"memory a block, over the card's {SMEM_LIMIT}")
+    if mode == "xpair":
+        xpair_table(xs, xw)                          # raises on other bands
+    out = out_buffer(out, shape, frames.dtype, frames.device)
+    d_ys, d_yw, d_xs, d_xw, d_rb, d_cb = cuda_apply._device_tables(
+        plan, frames.device)
+    wx_ptr = (_xpair_device(plan, tables, frames.device) if mode == "xpair"
+              else d_xw).data_ptr()
+    fn = _build.load(_build.BAND_PROBES).aainterp_band_probe
+    with torch.cuda.device(frames.device):
+        stream = torch.cuda.current_stream(frames.device).cuda_stream
+        rc = fn(frames.data_ptr(), out.data_ptr(), d_ys.data_ptr(),
+                d_yw.data_ptr(), d_xs.data_ptr(), wx_ptr, d_rb.data_ptr(),
+                d_cb.data_ptr(), F, Hs, Ws, shape[1], shape[2], yw.shape[1],
+                xw.shape[1], plan["TY"], plan["TX"], plan["SY"], plan["SX"],
+                MODES[mode], WALK_TILES, _DTYPE_CODES[frames.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"band probe {mode} launch failed: CUDA error {rc}"
+                           f" (F={F}, H={Hs}, W={Ws}, plan TY={plan['TY']} "
+                           f"TX={plan['TX']} SY={plan['SY']} "
+                           f"SX={plan['SX']}, {need} bytes of shared memory)")
+    LAUNCHES[mode] += 1
+    return out
+
+
+def traffic(mode: str, tables, shape, elem: int) -> tuple:
+    """(bytes, operations) of one batch of (F, H, W) frames of
+    ``elem``-byte pixels through ``mode`` ('full': the production kernel):
+    the frames read once, the output written once, the tables the mode
+    reads; 2 operations per tap of each pass it keeps (``stage`` keeps
+    none, ``stagey`` the y pass)."""
+    ys, yw, xs, xw = _host(tables)
+    F, Hs, Ws = shape
+    Hd, ky = yw.shape
+    Wd, kx = xw.shape
+    frames, outb = F * Hs * Ws * elem, F * Hd * Wd * elem
+    plan = _plan(tables)
+    bases = plan["row_base"].nbytes + plan["col_base"].nbytes
+    y_tab = ys.nbytes + yw.nbytes
+    y_ops = 2 * F * Hd * Ws * ky
+    x_ops = 2 * F * Hd * Wd * kx
+    if mode == "stage":
+        return frames + outb + y_tab + xs.nbytes + bases, 0
+    if mode == "stagey":
+        return frames + outb + y_tab + xs.nbytes + bases, y_ops
+    if mode == "xpair":                  # the (4, Wd) table, 4 taps
+        return (frames + outb + y_tab + 4 * Wd * 4 + bases,
+                y_ops + 2 * F * Hd * Wd * 4)
+    return (frames + outb + y_tab + xs.nbytes + xw.nbytes + bases,
+            y_ops + x_ops)
+
+
+def word_pixels(buf: np.ndarray, p: int) -> np.ndarray:
+    """The 4 pixels that u8words' y pass reads at shared byte ``p`` of
+    ``buf`` (uint8): the two aligned 32-bit words at ``p & ~3``, joined and
+    shifted right by 8 * (p & 3) (``__funnelshift_r``), then byte k of the
+    word, (v >> 8k) & 0xff, as the pixel of column x0 + k.  The card's
+    words are little-endian, as the host's."""
+    lo = p & ~3
+    w = np.frombuffer(buf[lo:lo + 8].tobytes(), "<u4").astype(np.uint64)
+    v = int(((w[1] << np.uint64(32)) | w[0]) >> np.uint64(8 * (p & 3)))
+    return np.array([(v >> (8 * k)) & 0xFF for k in range(4)], np.uint8)
+
+
+def run_exp(exp: str, mode: Optional[str], batch: int, dtype, device,
+            shape=(H, W), **extra) -> dict:
+    """Time ``mode`` (None: the production kernel,
+    ``cuda_apply.apply_separable_kernel``) on K = 8 distinct seeded frame
+    batches of (batch, *shape) in ``dtype`` on ``device`` (default: the
+    card), warmed up on one more; the result carries the batch's bytes and
+    operations (``traffic``)."""
+    from ..utils.device import target
+    from . import harness
+
+    dev = target(device)
+    tables = flagship_tables(tuple(shape))
+    gen = harness.seeded(dev, 0)
+    xs = [harness.uniform((batch,) + tuple(shape), dtype, gen, dev)
+          for _ in range(9)]
+    if mode is None:
+        def fn(x):
+            return cuda_apply.apply_separable_kernel(x, *tables)
+    else:
+        def fn(x):
+            return band_probe_kernel(x, tables, mode)
+    t = harness.measure(fn, xs[1:], xs[:1])
+    nbytes, ops = traffic(mode or "full", tables, (batch,) + tuple(shape),
+                          xs[0].element_size())
+    px = batch * shape[0] * shape[1]
+    return {"exp": exp, "mode": mode or "full", "ms_per_batch": t.ms,
+            "gpixel_s": px / (t.ms * 1e-3) / 1e9,
+            "us_per_frame": t.ms * 1e3 / batch, "batch": batch,
+            "dtype": str(dtype).split(".")[-1], "shape": list(shape),
+            "bytes": nbytes, "operations": ops, "clock": t.clock,
+            "device": t.device, **extra}
+
+
+def main(exps: dict, doc: str, dtypes, argv=None) -> int:
+    """The probe modules' command line: ``--exp`` (one of ``exps``),
+    ``--batch``, ``--dtype`` (one of ``dtypes``), ``--device``,
+    ``--shape``."""
+    import argparse
+    import sys
+
+    ap = argparse.ArgumentParser(description=doc.split("\n\n")[0])
+    ap.add_argument("--exp", required=True, choices=sorted(exps))
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--dtype", default=dtypes[0], choices=dtypes)
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--shape", type=int, nargs=2, default=(H, W),
+                    metavar=("H", "W"), help="frame shape (2.0 -> 1.0)")
+    args = ap.parse_args(argv)
+    try:
+        r = exps[args.exp](args.batch, getattr(torch, args.dtype),
+                           args.device, tuple(args.shape))
+    except (RuntimeError, ValueError) as e:
+        print(e, file=sys.stderr)
+        return 2
+    print(f"{args.exp}: {r['gpixel_s']:.2f} Gpixel/s  "
+          f"({r['us_per_frame']:.1f} us/frame)")
+    if r.get("runs"):
+        print(f"({args.exp}: {r['runs']})")
+    if r["clock"] != "cuda_events":
+        print(f"({r['device']}: the plain versions on the host's clock, not "
+              "a device time)")
+    return 0

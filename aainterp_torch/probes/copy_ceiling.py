@@ -3,7 +3,8 @@
 
 ``copy_rows_kernel(x, tile_y)`` computes ``_build_copy``'s function, (F, H,
 W) -> (F, nt * TY, W) with nt = H // TY, on ``csrc/probes.cu``
-``aainterp_copy_rows``: one block per (frame, row tile), 16-byte loads and
+``aainterp_copy_rows``: each (frame, row tile) split into parts of one
+block's sweep, one block each (``grid_blocks``), 16-byte loads and
 stores, raw bytes, so any dtype of 1, 2, 4 or 8 bytes copies bit for bit.
 The same kernel is the counterpart of ``benchmarks/rgb1024_experiments.py``
 ``_build_copy`` (H = W = 1024, TY 128).  A CUDA tensor launches the kernel
@@ -32,6 +33,16 @@ from . import harness
 # kernel launches so far, counted where the wrapper launches the kernel
 LAUNCHES = 0
 K = 8              # distinct batches measure() times (JAX's timed_scan: 8)
+# probes.cu: a part is about one sweep of a block (128 threads, 4 loads of
+# 16 bytes each), one block per part
+PART_BYTES = 16 * 4 * 128
+
+
+def grid_blocks(F: int, H: int, W: int, tile_y: int, elem: int) -> int:
+    """The blocks of one launch (``launch_copy`` in probes.cu): each of the
+    F * (H // tile_y) row tiles split into parts of about PART_BYTES, one
+    block each."""
+    return F * (H // tile_y) * max(1, tile_y * W * elem // PART_BYTES)
 
 
 def _rows(x: torch.Tensor, tile_y: int) -> int:

@@ -3,9 +3,12 @@ counterpart of ``benchmarks/rot_experiments.py``.
 
 The route is two kernels (``ops/cuda_shear.py``): the fused shear, which
 writes the sheared plane T straight from the frames, and the window
-contraction.  The contraction's probe modes (``csrc/contract.cuh`` under
-``csrc/probes.cu``, each the production kernel with one thing changed)
-split its time between the streams it reads:
+contraction with its dead-pixel skip (0 outside each dst row's span of
+live columns: JAX's masked contraction).  The contraction's probe modes
+(``csrc/contract.cuh`` under ``csrc/probes.cu``, each the production
+kernel with one thing changed) split its time between the streams it
+reads; like JAX's, the share and pipelined modes skip dead pixels and
+noweight does not:
 
 * ``noweight`` — ``out = sum_ab T window``: no weight load, no multiply
   (``_build_contract_noweight``, rot_experiments.py:130);
@@ -24,8 +27,9 @@ versions are ``ops.cuda_shear.contract_plain`` with those substitutions.
 
 ``EXPS`` are the JAX file's experiments under its names: ``full`` (the
 route's two kernels), ``shears`` (the fused shear, with the single forms
-beside it), ``contract``, ``contract_masked`` (the port's contraction has
-no tile mask: it runs ``contract`` and says so), and the five probes.
+beside it), ``contract`` (the contraction without the skip,
+``contract_unmasked_kernel``), ``contract_masked`` (the route's
+contraction, ``contract_kernel``), and the five probes.
 Each builds the flagship's plan (``_plan``: 2048^2 at 1.0 -> 0.5, 30
 degrees about the center, exact; K 6, Ka x Kb 5 x 5), makes seeded
 inputs on the device and times the kernels with ``harness.measure``.
@@ -45,6 +49,7 @@ import functools
 import sys
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .. import _build
@@ -77,7 +82,9 @@ def contract_probe_plain(t: torch.Tensor, plan: cuda_shear.ShearKernelPlan,
     a-major, then b) cast to ``out_dtype`` (default: T's dtype for
     bf16/f32, else f32): ``contract_plain`` with T of frame 0 in dst row
     0's window (tshare, bothshare), the weights of dst row 0 (wshare,
-    bothshare), no weights (noweight), or as it is (pipelined)."""
+    bothshare), no weights (noweight), or as it is (pipelined); every mode
+    but noweight is 0 outside each dst row's span, as the route's
+    contraction is."""
     share_t, share_w = _shares(mode)
     if mode == "pipelined":
         return cuda_shear.contract_plain(t, plan, out_dtype=out_dtype)
@@ -97,6 +104,8 @@ def contract_probe_plain(t: torch.Tensor, plan: cuda_shear.ShearKernelPlan,
                 continue
             w = tabs["w2"][a * plan.Kb + b]
             acc = acc + (w[:1] if share_w else w) * vals.to(torch.float32)
+    if mode != "noweight":
+        acc = torch.where(cuda_shear.live_mask(plan, t.device), acc, 0.0)
     return acc.to(out_dtype or cuda_shear._out_dtype(t.dtype))
 
 
@@ -121,7 +130,8 @@ def contract_probe_kernel(t: torch.Tensor, plan: cuda_shear.ShearKernelPlan,
     with torch.cuda.device(t.device):
         stream = torch.cuda.current_stream(t.device).cuda_stream
         rc = fn(t.data_ptr(), out.data_ptr(), tabs["ry0"].data_ptr(),
-                tabs["cx0"].data_ptr(), tabs["w2"].data_ptr(), t.shape[0],
+                tabs["cx0"].data_ptr(), tabs["w2"].data_ptr(),
+                tabs["span"].data_ptr(), t.shape[0],
                 plan.TH, plan.TW, plan.Hd, plan.Wd, plan.Ka, plan.Kb,
                 MODES[mode], cuda_shear._DTYPE_CODES[t.dtype], stream)
     if rc != 0:
@@ -132,37 +142,66 @@ def contract_probe_kernel(t: torch.Tensor, plan: cuda_shear.ShearKernelPlan,
     return out
 
 
+def _live(plan: cuda_shear.ShearKernelPlan):
+    """(live dst pixels, live columns, T elements their windows read) of
+    the dead-pixel skip: the pixels inside their rows' spans, the columns
+    inside any span, and the T elements the windows of the live pixels
+    touch."""
+    span = plan.span.astype(np.int64)
+    width = span[:, 1] - span[:, 0]
+    rows = np.nonzero(width > 0)[0]
+    cols = np.zeros(plan.Wd, bool)
+    touched = np.zeros((plan.TH, plan.TW), bool)
+    for dy in rows:
+        lo, hi = span[dy]
+        cols[lo:hi] = True
+        c = np.clip(plan.cx0[lo:hi, None] + np.arange(plan.Kb), 0,
+                    plan.TW - 1)
+        r = np.clip(plan.ry0[dy] + np.arange(plan.Ka), 0, plan.TH - 1)
+        touched[np.ix_(r, np.unique(c))] = True
+    return int(width.sum()), int(cols.sum()), int(touched.sum())
+
+
 def traffic(plan: cuda_shear.ShearKernelPlan, batch: int, elem: int,
             what: str) -> tuple:
     """(bytes, operations) of one batch of ``what`` (an experiment, a
     probe mode, or a shear form): each input read once and each output
     written once, as far as this plan's data needs it (a shared T is
-    frame 0's Ka rows; shared weights are one dst row); 2 operations per
-    weighted tap, 1 per unweighted one."""
+    frame 0's Ka rows; shared weights are one dst row; the dead-pixel
+    skip reads the weights of the live pixels and the T elements of their
+    windows, and does their taps only); 2 operations per weighted tap, 1
+    per unweighted one."""
     p = plan
+    n_live, c_live, t_live = _live(p)
+    taps = p.Ka * p.Kb
     t_b = batch * p.TH * p.TW * elem
+    t_lb = batch * t_live * elem                 # T the live windows read
     t_rows = p.Ka * p.TW * elem                  # frame 0, Ka rows of T
     q_b = batch * p.qH * p.qW * elem
     s_b = batch * p.TH * p.qW * elem
-    w_b = p.Ka * p.Kb * p.Hd * p.Wd * 4
-    w_row = p.Ka * p.Kb * p.Wd * 4
+    w_b = taps * p.Hd * p.Wd * 4
+    w_lb = taps * n_live * 4                     # the live pixels' weights
+    w_row = taps * c_live * 4                    # one dst row, live columns
     o_b = batch * p.Hd * p.Wd * elem
     idx = (p.Hd + p.Wd) * 4                       # ry0, cx0
-    taps = batch * p.Hd * p.Wd * p.Ka * p.Kb
+    sp = p.Hd * 8                                 # span
+    ops = batch * p.Hd * p.Wd * taps
+    ops_l = batch * n_live * taps
+    masked = (t_lb + w_lb + o_b + idx + sp, 2 * ops_l)
     return {
         "vshear": (q_b + s_b + p.qW * 4, 0),
         "hshear": (s_b + t_b + p.TH * 4, 0),
         "shears": (q_b + t_b + (p.qW + p.TH) * 4, 0),
-        "contract": (t_b + w_b + o_b + idx, 2 * taps),
-        "contract_masked": (t_b + w_b + o_b + idx, 2 * taps),
-        "pipelined": (t_b + w_b + o_b + idx, 2 * taps),
-        "noweight": (t_b + o_b + idx, taps),
-        "wshare": (t_b + w_row + o_b + idx, 2 * taps),
-        "tshare": (t_rows + w_b + o_b + idx, 2 * taps),
-        "bothshare": (t_rows + w_row + o_b + idx, 2 * taps),
-        # T written by the fused shear, read by the contraction
-        "full": (q_b + 2 * t_b + w_b + o_b + (p.qW + p.TH) * 4 + idx,
-                 2 * taps),
+        "contract": (t_b + w_b + o_b + idx, 2 * ops),
+        "contract_masked": masked,
+        "pipelined": masked,
+        "noweight": (t_b + o_b + idx, ops),
+        "wshare": (t_lb + w_row + o_b + idx + sp, 2 * ops_l),
+        "tshare": (t_rows + w_lb + o_b + idx + sp, 2 * ops_l),
+        "bothshare": (t_rows + w_row + o_b + idx + sp, 2 * ops_l),
+        # T written by the fused shear, its live windows read by the
+        # masked contraction
+        "full": (q_b + t_b + (p.qW + p.TH) * 4 + masked[0], masked[1]),
     }[what]
 
 
@@ -242,8 +281,10 @@ def exp_shears(batch: int = 8, dtype=torch.bfloat16, device: Device = None,
 
 def exp_contract(batch: int = 8, dtype=torch.bfloat16, device: Device = None,
                  shape=(2048, 2048), angle: float = 30.0):
-    """The production contraction on K = 4 random T stacks."""
-    return _timed("contract", cuda_shear.contract_kernel,
+    """The contraction without the dead-pixel skip
+    (``contract_unmasked_kernel``, JAX's ``masked=False``) on K = 4
+    random T stacks."""
+    return _timed("contract", cuda_shear.contract_unmasked_kernel,
                   lambda kp, dev: _contract_inputs(kp, batch, dtype, dev),
                   batch, dtype, device, shape, angle)
 
@@ -251,13 +292,11 @@ def exp_contract(batch: int = 8, dtype=torch.bfloat16, device: Device = None,
 def exp_contract_masked(batch: int = 8, dtype=torch.bfloat16,
                         device: Device = None, shape=(2048, 2048),
                         angle: float = 30.0):
-    """JAX's masked contraction skips dst tiles whose weights are all 0;
-    the port's contraction has no tiles to mask, so this runs
-    ``contract``."""
-    print("contract_masked: the port's contraction has no tile mask; "
-          "running contract")
-    r = exp_contract(batch, dtype, device, shape, angle)
-    return dict(r, exp="contract_masked", runs="contract")
+    """The route's contraction, dead pixels skipped (``contract_kernel``,
+    JAX's ``masked=True``), on K = 4 random T stacks."""
+    return _timed("contract_masked", cuda_shear.contract_kernel,
+                  lambda kp, dev: _contract_inputs(kp, batch, dtype, dev),
+                  batch, dtype, device, shape, angle)
 
 
 def _probe_exp(mode: str):

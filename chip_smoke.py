@@ -56,8 +56,15 @@ points (``aainterp_torch.area_average_interpolate`` for the first three):
   rotated contraction's probe modes (noweight, tshare, wshare, bothshare,
   pipelined: ``csrc/contract.cuh``) on 4 random T stacks per dtype at the
   rotated flagship; and the flagship's decomposition (the route, its
-  shear forms, the contraction and each probe), one ``probe_timing``
-  JSON line.
+  shear forms, the contraction with and without its dead-pixel skip and
+  each probe), one ``probe_timing`` JSON line;
+* the route's masked contraction (phase 45: the dead-pixel skip against
+  the unmasked instance and its plain version, at the rotated flagship
+  and for compat, its dead shares and time), the copy's grid (phase 46)
+  and kernel 1's probe modes (phase 47: ``csrc/band_probes.cu`` on
+  ``csrc/band_apply.cuh``) at the 4K flagship in bf16, f32 and u8,
+  through ``aainterp_torch.probes.flagship_experiments.EXPS`` and
+  ``u8_experiments.EXPS``, one ``flagship_probe_timing`` JSON line.
 
 It builds every kernel from ``aainterp_torch/csrc`` with nvcc (and the
 host engine ``native/aainterp_native.cpp`` with g++), all compilers at
@@ -131,6 +138,13 @@ f32 atol 1e-6 on [0, 1] inputs and bf16 within one bf16 ulp of their
 plain f32 results (the production contraction's tolerances), into
 NaN-filled outputs; pipelined ``torch.equal`` to the production
 contraction; one launch per probe call, the production counts unmoved.
+The masked contraction ``torch.equal`` to the unmasked instance and to
+``contract_plain(fused=True)`` on finite T into NaN-filled outputs, and
+exactly 0 outside every dst row's span on NaN T.  Kernel 1's probe modes
+``torch.equal`` to their plain versions (which repeat the kernels' fused
+multiply-adds exactly) into 0xFF-filled outputs, the modes with
+production's output also to kernel 1 (``xpair`` is held to one level,
+its tap order being production's only for the exact ratio-2 band).
 TF32 is switched off for
 matmul and cuDNN so the plain versions' and library calls' einsums run in
 full f32.  Shear plans and operators go to a disk cache in a temporary
@@ -171,7 +185,9 @@ from aainterp_torch.ops import compat as compat_ops
 from aainterp_torch.ops import (cuda_apply, cuda_apply_2d, cuda_shear,
                                 cuda_shear3, shear3)
 from aainterp_torch.ops import weights as weights_ops
-from aainterp_torch.probes import copy_ceiling, rot_experiments
+from aainterp_torch.probes import (band_probes, copy_ceiling,
+                                   flagship_experiments, rot_experiments,
+                                   u8_experiments)
 from aainterp_torch.probes import harness as probe_harness
 
 H, W, F = 2160, 3840, 8                 # the flagship: 4K -> 1080p, 8 frames
@@ -185,7 +201,8 @@ ROT_Q1 = (1.0, 0.5, (1024.0, 1024.0), 120.0)    # the same frames, quadrant 1
 # area_rotate's geometry: equal resolution, 30 degrees about the center
 EQ = (1.0, 1.0, (1024.0, 1024.0), 30.0)
 EQ_DST = (2798, 2798)
-SHEAR_KERNELS = ("vshear", "hshear", "vhshear", "contract")
+SHEAR_KERNELS = ("vshear", "hshear", "vhshear", "contract",
+                 "contract_unmasked")
 # the rotated route's kernels: the fused shear, then the contraction
 ROUTE_KERNELS = ("vhshear", "contract")
 # mode='shear' on the rotated flagship: both decompositions and their passes
@@ -216,8 +233,33 @@ COPY_GEOMS = (("4k", 2160, 3840, 120, torch.bfloat16),
 PROBE_MODES = tuple(rot_experiments.MODES)
 SHARE_MODES = ("tshare", "wshare", "bothshare")
 # phase 44's experiments, in rot_experiments.py's names
-PROBE_EXPS = ("full", "shears", "contract", "noweight", "tshare", "wshare",
-              "bothshare", "pipelined")
+PROBE_EXPS = ("full", "shears", "contract", "contract_masked", "noweight",
+              "tshare", "wshare", "bothshare", "pipelined")
+# phase 47: kernel 1's probe modes per frame dtype, through the entry
+# points' experiments (flagship_experiments.py / u8_experiments.py names)
+BAND_EXPS = {torch.bfloat16: (flagship_experiments, ("stage", "ypass",
+                                                     "full", "full2", "full3",
+                                                     "full4")),
+             torch.float32: (flagship_experiments, ("stage", "ypass", "full",
+                                                    "full2", "full3",
+                                                    "full4")),
+             torch.uint8: (u8_experiments, ("stage", "extract", "ydot",
+                                            "u8words", "u8chunk2", "u8chunk4",
+                                            "xpair", "full"))}
+# each probe mode's JAX probe, file:line
+BAND_REPLACES = {
+    "stage": "benchmarks/flagship_experiments.py:73,"
+             "benchmarks/u8_experiments.py:86",
+    "stagey": "benchmarks/flagship_experiments.py:73,"
+              "benchmarks/u8_experiments.py:86",
+    "walk2": "benchmarks/flagship_experiments.py:144",
+    "walk3": "benchmarks/flagship_experiments.py:144",
+    "walk4": "benchmarks/flagship_experiments.py:144",
+    "u8words": "benchmarks/flagship_experiments.py:341,305",
+    "u8convert1": "benchmarks/u8_experiments.py:86",
+    "u8convert2": "benchmarks/flagship_experiments.py:497",
+    "u8convert4": "benchmarks/flagship_experiments.py:497",
+    "xpair": "benchmarks/u8_experiments.py:86"}
 # bench.py's stream case (bench.py:306-357): 48 distinct 4K frames, batch 8
 STREAM_N, STREAM_BATCH = 48, 8
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -278,6 +320,8 @@ def reset_launches() -> None:
     copy_ceiling.LAUNCHES = 0
     for k in rot_experiments.LAUNCHES:
         rot_experiments.LAUNCHES[k] = 0
+    for k in band_probes.LAUNCHES:
+        band_probes.LAUNCHES[k] = 0
 
 
 def other_paths_idle(*counters) -> bool:
@@ -378,8 +422,8 @@ def ell_operator_for(shape, res_src, res_dst, iso, angle, mode="exact"):
 
 
 def rotated_phases(make, card):
-    """Phases 9-15: the rotated family.  Returns the three kernels'
-    entries of the JSON summary."""
+    """Phases 9-16: the rotated family.  Returns the kernels' entries of
+    the JSON summary, the flagship's operator and its shear plan."""
     frames_shape = (F, RH, RW)
 
     # ---- 9. host: native weight-gen, shear plan ----------------------------
@@ -537,7 +581,7 @@ def rotated_phases(make, card):
 
     # ---- 16. timing -------------------------------------------------------
     timing = rotated_timing(make, card, op, plan)
-    return [{
+    return op, plan, [{
         "name": name,
         "route": "cuda",
         "source": "aainterp_torch/csrc/ell_shear.cu",
@@ -633,8 +677,9 @@ def rotated_timing(make, card, op, plan) -> dict:
             plan.hx, tiles["hshear"].win), 0),
         "vhshear": bound(q_b + t_b + table_bytes(
             plan.gy, plan.hx, tiles["vhshear"].win), 0),
-        "contract": bound(t_b + w_b + o_b + table_bytes(plan.ry0, plan.cx0),
-                          2 * F * plan.Hd * plan.Wd * plan.Ka * plan.Kb),
+        # the dead-pixel skip: the live pixels' weights and windows
+        "contract": bound(*rot_experiments.traffic(plan, F, e,
+                                                   "contract_masked")),
     }
     timing.update(
         bytes_per_batch={"q": q_b, "S_single_shears": s_b,
@@ -1347,11 +1392,12 @@ def _adjoint_rel(apply, transpose, u, v) -> float:
     return abs(lhs - rhs) / abs(lhs)
 
 
-def rotated_rest_phases(make, card, dev) -> dict:
+def rotated_rest_phases(make, card, dev):
     """Phases 31-36: the rest of the exact rotated family and the
     reference-named front doors at the flagships (compat, the ELL custom
     gradient, fused weight-gen, area_rotate, the transposed apply and
-    variance maps, composition).  Returns their timing."""
+    variance maps, composition).  Returns the compat operator's shear
+    plan (phase 45 holds the masked contraction on it)."""
     frames_shape = (F, RH, RW)
     timing = {"card": card}
     counts = {}
@@ -1440,7 +1486,7 @@ def rotated_rest_phases(make, card, dev) -> dict:
     print(f"[31 compat timing] {card}: compat route "
           f"{timing['compat_route_device_ms']:.4f} ms per batch, exact "
           f"{timing['exact_route_device_ms']:.4f} (mirrored turns, best of 2)")
-    del cop, cplan, sop
+    del cop, sop
     q1op, _ = ell_operator_for((RH, RW), *ROT_Q1)
     check(q1op.spec.quadrant == 1 and q1op.spec.dst_shape == ROT_DST,
           f"quadrant-1 flagship {q1op.spec.quadrant} {q1op.spec.dst_shape}")
@@ -1734,7 +1780,7 @@ def rotated_rest_phases(make, card, dev) -> dict:
     timing["errors"] = {"compat": cerr, "grad": gerr, "adjoint": adj,
                         "adjoint_separable": adj_sep, "fused": ferr}
     print(json.dumps({"rotated_rest_timing": timing}))
-    return timing
+    return cplan
 
 
 # ---------------------------------------------------------------------------
@@ -2508,20 +2554,23 @@ def contract_probe_phases(make, card) -> list:
                 timing["exps"][form] = {"ms": r[f"{form}_ms"], "bytes": nb,
                                         **bound(nb, 0)}
     ex = timing["exps"]
-    c = ex["contract"]["ms"]
-    # what each probe removes, in ms of the production contraction
+    c, cm = ex["contract"]["ms"], ex["contract_masked"]["ms"]
+    # what each probe removes, in ms of the contraction it changes: the
+    # unmasked one (noweight) or the route's masked one (the others)
     timing["split_ms"] = {
+        "dead_pixel_skip": c - cm,
         "weights_load_and_multiply": c - ex["noweight"]["ms"],
-        "T_traffic": c - ex["tshare"]["ms"],
-        "weight_traffic": c - ex["wshare"]["ms"],
-        "both_streams": c - ex["bothshare"]["ms"],
-        "issue_order": c - ex["pipelined"]["ms"]}
+        "T_traffic": cm - ex["tshare"]["ms"],
+        "weight_traffic": cm - ex["wshare"]["ms"],
+        "both_streams": cm - ex["bothshare"]["ms"],
+        "issue_order": cm - ex["pipelined"]["ms"]}
     timing["plain_ms"] = plain_ms
     print(f"[44 decomposition] {card}, {F}x{RH}x{RW} bf16 at {ROT[3]} deg, "
           "device ms per batch (CUDA-graph replays, best of 2) / bound ms: "
           + ", ".join(f"{e} {v['ms']:.4f} / {v['bound_ms']:.4f}"
                       for e, v in ex.items())
-          + "; the contraction's split (contract minus the probe): "
+          + "; the contraction's split (contract, unmasked, or "
+          "contract_masked minus the probe): "
           + ", ".join(f"{k} {v:.4f}" for k, v in timing["split_ms"].items()))
     print(json.dumps({"probe_timing": timing}))
 
@@ -2550,6 +2599,266 @@ def contract_probe_phases(make, card) -> list:
             row("contract_pipelined", "392", ("pipelined",))]
 
 
+def masked_contract_phase(make, card, op, plan, cplan) -> dict:
+    """Phase 45: the route's masked contraction against the unmasked
+    instance and the masked plain version, its dead shares and time.
+    Returns the unmasked instance's entry of the JSON summary."""
+    dev = make.device
+    # the route launches the masked form, 2 launches per request
+    reqs = [make(torch.bfloat16, (F, RH, RW)) for _ in range(2)]
+    torch.cuda.synchronize()
+    reset_launches()
+    for x in reqs:
+        at.area_average_interpolate(x, *ROT, operator=op)
+    torch.cuda.synchronize()
+    _launched(_route(len(reqs)), "masked route", t_api.SHEAR_PLAN_FALLBACKS)
+    del reqs
+    err = 0.0
+    for name, p in (("flagship", plan), ("compat", cplan)):
+        live = cuda_shear.live_mask(p, dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            t = make(dtype, (F, p.TH, p.TW))
+            got = cuda_shear.contract_kernel(
+                t, p, out=filled((F, p.Hd, p.Wd), dtype, dev))
+            un = cuda_shear.contract_unmasked_kernel(
+                t, p, out=filled((F, p.Hd, p.Wd), dtype, dev))
+            torch.cuda.synchronize()
+            check(torch.equal(got, un), f"masked {name} {dtype}: differs "
+                  "from the unmasked instance on finite T")
+            check(torch.equal(got, cuda_shear.contract_plain(t, p,
+                                                             fused=True)),
+                  f"masked {name} {dtype}: differs from its plain version")
+            err = max(err, max_err(got, cuda_shear.contract_plain(
+                t, p, out_dtype=torch.float32, fused=True)))
+            t.fill_(float("nan"))
+            nan = cuda_shear.contract_kernel(t, p)
+            torch.cuda.synchronize()
+            check(bool((nan[:, ~live] == 0).all()), f"masked {name} "
+                  f"{dtype}: a pixel outside its row's span is not 0 on NaN T")
+            del t, got, un, nan
+        print(f"[45 masked contraction] {name} ({p.Hd}x{p.Wd}, Ka x Kb "
+              f"{p.Ka}x{p.Kb}), bf16 and f32 into NaN-filled outputs: "
+              "torch.equal to the unmasked instance and to the masked plain "
+              "version (fused multiply-adds); on all-NaN T every pixel "
+              "outside its row's span is 0")
+    # dead shares: pixels with all-zero weights, outside their row's span,
+    # and the kernel's warps (32 columns) and blocks (256) wholly outside
+    contract_threads = 256                  # contract.cuh's kThreads
+    live_w = (plan.w2 != 0).any(axis=0)
+    cols = np.arange(plan.Wd)[None, :]
+    inside = (cols >= plan.span[:, :1]) & (cols < plan.span[:, 1:])
+    def outside(width):        # groups of `width` columns from column 0
+        pad = np.zeros((plan.Hd, -(-plan.Wd // width) * width), bool)
+        pad[:, :plan.Wd] = inside
+        return float(1 - pad.reshape(plan.Hd, -1, width).any(axis=2).mean())
+
+    shares = {
+        "pixels_all_zero_weights": float(1 - live_w.mean()),
+        "pixels_outside_spans": float(1 - inside.mean()),
+        "warps_outside": outside(32),
+        "blocks_outside": outside(contract_threads)}
+    # times: both instances and the route, CUDA-graph replays on distinct
+    # inputs, mirrored turns
+    ts = [make(torch.bfloat16, (F, plan.TH, plan.TW)) for _ in range(5)]
+    qs = [make(torch.bfloat16, (F, RH, RW)) for _ in range(5)]
+    fns = {"masked": (lambda t: cuda_shear.contract_kernel(t, plan), ts),
+           "unmasked": (lambda t: cuda_shear.contract_unmasked_kernel(
+               t, plan), ts),
+           "route": (lambda q: cuda_shear.apply_ell_shear_kernel(q, plan),
+                     qs)}
+    ms = {}
+    for name in list(fns) + list(reversed(fns)):
+        fn, xs = fns[name]
+        t = probe_harness.graph_ms(fn, xs[1:], xs[:1])
+        ms[name] = min(ms.get(name, t), t)
+    plain_ms = probe_harness.graph_ms(
+        lambda t: cuda_shear.contract_plain(t, plan, masked=False), ts[1:3],
+        ts[:1], reps=2)
+    del ts, qs
+    bounds = {m: bound(*rot_experiments.traffic(plan, F, 2, e))
+              for m, e in (("masked", "contract_masked"),
+                           ("unmasked", "contract"))}
+    timing = {"card": card, "shape": [F, RH, RW], "dtype": "bfloat16",
+              "dead_shares": shares, "ms": ms, "bounds": bounds,
+              "unmasked_plain_ms": plain_ms}
+    print(f"[45 masked contraction] {card}, {F}x{plan.TH}x{plan.TW} bf16 -> "
+          f"{F}x{plan.Hd}x{plan.Wd}, device ms per batch (CUDA-graph "
+          f"replays, mirrored turns): masked {ms['masked']:.4f} (bound "
+          f"{bounds['masked']['bound_ms']:.4f}), unmasked "
+          f"{ms['unmasked']:.4f} (bound {bounds['unmasked']['bound_ms']:.4f})"
+          f"; the exact route {ms['route']:.4f} ms; dead shares: "
+          + ", ".join(f"{k} {100 * v:.1f} %" for k, v in shares.items()))
+    print(json.dumps({"masked_contract_timing": timing}))
+    return {
+        "name": "contract_unmasked",
+        "route": "cuda",
+        "source": "aainterp_torch/csrc/ell_shear.cu",
+        "replaces": "aainterp/ops/pallas_shear.py:164",
+        "launches": 0,           # the route launches the masked form only
+        "max_abs_err": err,
+        "ms": ms["unmasked"],
+        "plain_ms": plain_ms,
+        **bounds["unmasked"],
+        # no single PyTorch call contracts windows with per-pixel weights
+        "library_ms": None,
+    }
+
+
+def copy_fill_phase(copy_row, card) -> None:
+    """Phase 46: the copy's grid at the four geometries of phase 42, and
+    its rate at 1024^2 beside copy_'s (phase 42's measurements)."""
+    for name, Hc, Wc, ty, dtype in COPY_GEOMS:
+        g = copy_row["geometries"][name]
+        es = torch.empty((), dtype=dtype).element_size()
+        blocks = copy_ceiling.grid_blocks(F, Hc, Wc, ty, es)
+        nbytes = 2 * F * (Hc // ty * ty) * Wc * es
+        print(f"[46 copy fill] {card}, {name} {F}x{Hc}x{Wc} tile_y {ty}: "
+              f"{F * (Hc // ty)} row tiles on {blocks} blocks; copy_rows "
+              f"{nbytes / (g['kernel_ms'] * 1e-3) / 1e9:.1f} GB/s, copy_ "
+              f"{nbytes / (g['library_ms'] * 1e-3) / 1e9:.1f} GB/s")
+        if name == "rgb1024":
+            check(blocks >= 2 * 132, f"copy at 1024^2 on {blocks} blocks, "
+                  "fewer than two per SM")
+
+
+def band_probe_phase(make, card) -> list:
+    """Phase 47: kernel 1's probe modes at the 4K flagship against their
+    plain versions, then through the entry points' experiments, beside the
+    production kernel; one flagship_probe_timing line.  Returns the
+    probes' entries of the JSON summary."""
+    dev = make.device
+    tables = band_probes.flagship_tables((H, W))
+    plan = band_probes._plan(tables)
+    check((plan["TY"], plan["TX"], plan["SY"], plan["SX"]) ==
+          (8, 240, 18, 482), f"kernel 1's flagship plan {plan}")
+    err = {}
+    for dtype, (mod, _) in BAND_EXPS.items():
+        modes = (band_probes.U8_MODES if dtype == torch.uint8
+                 else band_probes.FLOAT_MODES)
+        x = make(dtype)
+        prod = cuda_apply.apply_separable_kernel(x, *tables)
+        for mode in modes:
+            before = band_probes.LAUNCHES[mode]
+            buf = filled(tuple(prod.shape), dtype, dev)
+            got = mod.band_probe_kernel(x, tables, mode, out=buf)
+            torch.cuda.synchronize()
+            check(got is buf and band_probes.LAUNCHES[mode] == before + 1,
+                  f"{mode}: not one launch per call")
+            plain = mod.band_probe_plain(x, tables, mode)
+            e = max_err(got, plain)
+            err[mode] = max(err.get(mode, 0.0), e)
+            if mode == "xpair":          # its taps in production's order?
+                check(e <= 1.0, f"xpair differs from plain by {e} > 1 level")
+            else:
+                check(torch.equal(got, plain), f"{mode} {dtype} differs from "
+                      f"its plain version (max {e})")
+            if mode not in ("stage", "stagey"):
+                check(torch.equal(got, prod), f"{mode} {dtype} is not "
+                      "production's output")
+            del got, plain, buf
+        check(torch.equal(prod, band_probes.band_probe_plain(
+            x, tables, "u8words" if dtype == torch.uint8 else "walk2")),
+              f"kernel 1 {dtype} differs from its exact plain version")
+        print(f"[47 kernel-1 probes] {F}x{H}x{W} {str(dtype)[6:]} into "
+              f"0xFF-filled outputs: {', '.join(modes)} torch.equal to their "
+              "plain versions (the production-output modes also to kernel 1,"
+              " which equals its exact plain version)")
+        del x, prod
+    # the entry points: every experiment, the counts read around them
+    torch.cuda.synchronize()
+    reset_launches()
+    runs = {}
+    for dtype, (mod, exps) in BAND_EXPS.items():
+        for exp in exps:
+            runs[(str(dtype)[6:], exp)] = mod.EXPS[exp](F, dtype, dev)
+    torch.cuda.synchronize()
+    want = {m: 0 for m in band_probes.MODES}
+    for (_, exp), r in runs.items():
+        if r["mode"] != "full":
+            want[r["mode"]] += 9                  # warm-up + 8 captured
+    check(dict(band_probes.LAUNCHES) == want, f"kernel-1 probes launched "
+          f"{dict(band_probes.LAUNCHES)}, want {want}")
+    check(cuda_apply.LAUNCHES == 9 * sum(r["mode"] == "full"
+                                         for r in runs.values())
+          and cuda_apply_2d.LAUNCHES == 0 and copy_ceiling.LAUNCHES == 0
+          and other_paths_idle(cuda_shear.LAUNCHES, cuda_shear3.LAUNCHES,
+                               rot_experiments.LAUNCHES),
+          "the kernel-1 probes launched a kernel of another path")
+    launches = dict(band_probes.LAUNCHES)
+    # plain versions and library calls on the same kind of inputs
+    plain_ms, library_ms = {}, {}
+    ys, yw, xs, xw = (torch.as_tensor(t, device=dev) for t in tables)
+    rows = ys.long().clamp(0, H - 1)[:, None]
+    cols = xs.long().clamp(0, W - 1)[None, :]
+    op0 = operator((H, W), 0.0)
+    dense = {dt: tuple(torch.as_tensor(m, dtype=dt, device=dev)
+                       for m in op0.dense())
+             for dt in (torch.bfloat16, torch.float32)}
+    for dtype in BAND_EXPS:
+        xb = [make(dtype) for _ in range(3)]
+        modes = (band_probes.U8_MODES if dtype == torch.uint8
+                 else band_probes.FLOAT_MODES)
+        for mode in modes:
+            plain_ms[(str(dtype)[6:], mode)] = probe_harness.graph_ms(
+                lambda x, m=mode: band_probes.band_probe_plain(x, tables, m),
+                xb[1:], xb[:1], reps=2)
+        # one call for the first tap's pixels (stage); the dense einsum for
+        # production's output in bf16 / f32 (none for u8 in, u8 out)
+        library_ms[(str(dtype)[6:], "stage")] = probe_harness.graph_ms(
+            lambda x: x[:, rows, cols], xb[1:], xb[:1])
+        if dtype != torch.uint8:
+            wy0, wx0 = dense[dtype]
+            library_ms[(str(dtype)[6:], "full")] = probe_harness.graph_ms(
+                lambda x: torch.einsum("hy,fyx,wx->fhw", wy0, x, wx0),
+                xb[1:], xb[:1], reps=3)
+        del xb
+    timing = {"card": card, "shape": [F, H, W], "plan": {
+        k: plan[k] for k in ("TY", "TX", "SY", "SX")}, "exps": {}}
+    for (dt, exp), r in runs.items():
+        key = (dt, r["mode"])
+        timing["exps"][f"{dt}_{exp}"] = {
+            "mode": r["mode"], "ms": r["ms_per_batch"],
+            "gpixel_s": r["gpixel_s"], "bytes": r["bytes"],
+            "operations": r["operations"],
+            **bound(r["bytes"], r["operations"]),
+            "plain_ms": plain_ms.get(key),
+            "library_ms": library_ms.get(
+                key, library_ms.get((dt, "full"))
+                if r["mode"] not in ("stage", "stagey") else None)}
+    ex = timing["exps"]
+    by_mode = {(v["mode"], k.split("_")[0]): v for k, v in ex.items()}
+    for dt in ("bfloat16", "float32", "uint8"):
+        full = ex[f"{dt}_full"]["ms"]
+        print(f"[47 kernel-1 probes] {card}, {F}x{H}x{W} {dt}, device ms per"
+              " batch (CUDA-graph replays, best of 2) / bound ms: "
+              + ", ".join(f"{k[len(dt) + 1:]} {v['ms']:.4f} / "
+                          f"{v['bound_ms']:.4f}"
+                          for k, v in ex.items() if k.startswith(dt))
+              + f"; kernel 1 {full:.4f}")
+    print(json.dumps({"flagship_probe_timing": timing}))
+
+    def row(mode, dt):
+        r = by_mode[(mode, dt)]
+        return {
+            "name": f"band_{mode}",
+            "route": "cuda",
+            "source": "aainterp_torch/csrc/band_probes.cu",
+            "replaces": BAND_REPLACES[mode],
+            "launches": launches[mode],
+            "max_abs_err": err[mode],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "dtype": dt,
+        }
+
+    return ([row(m, "bfloat16") for m in band_probes.FLOAT_MODES]
+            + [row(m, "uint8") for m in band_probes.U8_MODES
+               if m not in ("stage", "stagey")])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2566,7 +2875,7 @@ def main() -> int:
 
 
 def run(work: str) -> int:
-    """Phases 1-44; ``work`` is a temporary directory for files."""
+    """Phases 1-47; ``work`` is a temporary directory for files."""
     # ---- 1. device -------------------------------------------------------
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
@@ -2585,13 +2894,14 @@ def run(work: str) -> int:
 
     # ---- 2. build: every library, all compilers at once ---------------------
     libs = (_build.SEPARABLE, _build.SEPARABLE_2D, _build.ELL_SHEAR,
-            _build.SHEAR3_STAGE, _build.PROBES, _build.NATIVE)
+            _build.SHEAR3_STAGE, _build.PROBES, _build.BAND_PROBES,
+            _build.NATIVE)
     build_s = _build.timed_build(libs)
     for lib in libs:
         _build.load(lib)
     print(f"[2 build] nvcc {' '.join(_build.NVCC_FLAGS)} "
           f"(separable_apply.cu, separable_apply_2d.cu, ell_shear.cu, "
-          f"shear3_stage.cu, probes.cu) and g++ "
+          f"shear3_stage.cu, probes.cu, band_probes.cu) and g++ "
           f"{' '.join(_build.GXX_FLAGS)} (aainterp_native.cpp), in "
           f"parallel: {build_s:.2f} s")
 
@@ -2795,14 +3105,18 @@ def run(work: str) -> int:
     print(json.dumps({"timing": timing}))
     del batches, batches_f32, batches_u8, copy_dst, fns
 
-    rotated = rotated_phases(make, card)
+    rot_op, rot_plan, rotated = rotated_phases(make, card)
     sheared = shear3_phases(make, card)
     banded = regrid_phases(dev, card)
-    rotated_rest_phases(make, card, dev)
+    compat_plan = rotated_rest_phases(make, card, dev)
     cli_phases(dev, work)
     stream_phases(dev, card, work)
     cache_phases(dev, card, work)
     probes = [copy_phases(make, card)] + contract_probe_phases(make, card)
+    probes.append(masked_contract_phase(make, card, rot_op, rot_plan,
+                                        compat_plan))
+    copy_fill_phase(probes[0], card)
+    probes += band_probe_phase(make, card)
 
     print(json.dumps({"kernels": [{
         "name": "separable_apply",

@@ -26,7 +26,10 @@ of two.
 * ``r_vshear``, ``r_hshear``, ``r_vhshear``, ``r_contract``: the rotated
   flagship's kernels (the same frames, exact mode): the shear kernel's
   three forms (S from q, T from S, T from q) and the contraction (on the
-  plain T).  Their tile tables are planned anew under each ``--set`` (for
+  plain T);
+* ``c_4k``, ``c_rot2048``, ``c_rgb1024``, ``c_regrid``: the copy probe
+  (``csrc/probes.cu``) at ``chip_smoke.py``'s four copy geometries, 8
+  frames each (its grid: variants ``copy*``).  Their tile tables are planned anew under each ``--set`` (for
   example ``--set 'cuda_shear._TILES=((32, 128),)'``).
 
 Each cell's kernel output is checked against its plain version first
@@ -47,6 +50,12 @@ shear tile shapes: ``--set 'shear3._Y_TILES=((32, 64),);shear3._X_TILES=
 
 Prints the card's name and power limit, then one JSON line per (variant,
 setting) with each cell's ms and plan.
+
+``--sass`` instead builds the production libraries of ``--repo`` (the
+separable kernels, the rotated kernels) and prints one JSON line with the
+SASS instruction count of each kernel function (``cuobjdump -sass``, names
+demangled with ``cu++filt``): a source change that must leave a kernel's
+code as it was shows the same counts in both checkouts.
 """
 
 from __future__ import annotations
@@ -109,6 +118,15 @@ VARIANTS = {
                                   "constexpr int kThreads = 256;")]},
     "t128": {"ell_shear.cu": [(r"constexpr int kThreads = 256;",
                                "constexpr int kThreads = 128;")]},
+    # probes.cu, the copy's grid: 1024 or 512 threads per block instead of
+    # 128, parts of 4 sweeps instead of 1
+    "copy1024": {"probes.cu": [(r"constexpr int kCopyThreads = 128;",
+                                "constexpr int kCopyThreads = 1024;")]},
+    "copy512": {"probes.cu": [(r"constexpr int kCopyThreads = 128;",
+                               "constexpr int kCopyThreads = 512;")]},
+    "copypart4": {"probes.cu": [(
+        r"constexpr long long kPartBytes = 16LL \* kUnroll \* kCopyThreads;",
+        "constexpr long long kPartBytes = 4 * 16LL * kUnroll * kCopyThreads;")]},
     # shear3_stage.cu: no output or mid cell is computed (zeros stored)
     "nocompute": {"shear3_stage.cu": [
         (r"out_cells<kForm, kVec>\([^;]*;",
@@ -117,7 +135,8 @@ VARIANTS = {
          "for (int q = 0; q < kVec; ++q) r[q] = 0.0f;")]},
 }
 EXACT = ("cur", "lane8", "t256", "t128", "tilemajor",   # variants that
-         "colmajor")                                # compute everything
+         "colmajor", "copy1024", "copy512",         # compute everything
+         "copypart4")
 
 
 def variant_sources(lib, name: str) -> dict:
@@ -159,6 +178,35 @@ def build_variant(_build, lib, name: str):
         fn.argtypes = list(argtypes)
         fn.restype = restype
     return cdll
+
+
+def sass_counts(_build, libs) -> dict:
+    """{library: {kernel function: SASS instructions}} of ``libs`` as
+    built (``cuobjdump -sass``; names demangled where ``cu++filt`` is
+    there)."""
+    bindir = Path(_build.compiler_path("nvcc")).parent
+    counts = {}
+    for lib in libs:
+        so = _build.build(lib)
+        text = subprocess.run([str(bindir / "cuobjdump"), "-sass", str(so)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        fns, name = {}, None
+        for line in text.splitlines():
+            m = re.match(r"\s*Function : (\S+)", line)
+            if m:
+                name = m.group(1)
+                fns[name] = 0
+            elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line):
+                fns[name] += 1
+        filt = bindir / "cu++filt"
+        if filt.exists() and fns:
+            names = subprocess.run([str(filt)], input="\n".join(fns),
+                                   capture_output=True, text=True,
+                                   check=True).stdout.splitlines()
+            fns = dict(zip(names, fns.values()))
+        counts[lib.name] = dict(sorted(fns.items()))
+    return counts
 
 
 def make_cells(dev):
@@ -304,6 +352,23 @@ def make_cells(dev):
     for name in ("vshear", "hshear", "vhshear", "contract"):
         if hasattr(cuda_shear, f"{name}_kernel"):
             cells[f"r_{name}"] = r_cell(name)
+
+    def c_cell(H, W, ty, dtype):
+        from aainterp_torch.probes import copy_ceiling
+
+        def prepare():
+            return (lambda x: copy_ceiling.copy_rows_kernel(x, ty),
+                    lambda x: copy_ceiling.copy_rows_plain(x, ty),
+                    {"tile_y": ty, "bytes": 2 * 8 * (H // ty * ty) * W
+                     * torch.empty((), dtype=dtype).element_size()})
+        return prepare, lambda: rand(("copy", H, W, dtype), (8, H, W),
+                                     dtype), 0.0
+
+    for name, H, W, ty, dtype in (("4k", 2160, 3840, 120, bf16),
+                                  ("rot2048", 2048, 2048, 128, bf16),
+                                  ("rgb1024", 1024, 1024, 128, bf16),
+                                  ("regrid", 1800, 3600, 120, torch.float32)):
+        cells[f"c_{name}"] = c_cell(H, W, ty, dtype)
     return cells
 
 
@@ -313,8 +378,15 @@ def main() -> int:
     ap.add_argument("--cells", default="k1,k2,s3,r")
     ap.add_argument("--variants", default="cur")
     ap.add_argument("--set", action="append", default=[])
+    ap.add_argument("--sass", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.repo).resolve()))
+    if args.sass:
+        from aainterp_torch import _build
+        print(json.dumps({"repo": args.repo, "sass": sass_counts(
+            _build, (_build.SEPARABLE, _build.SEPARABLE_2D,
+                     _build.ELL_SHEAR))}), flush=True)
+        return 0
     import torch
 
     if not torch.cuda.is_available():
@@ -337,7 +409,8 @@ def main() -> int:
     caches = (cuda_apply._PLAN_CACHE, cuda_apply_2d._PLAN_CACHE,
               shear3._STAGE_CACHE)
     libs = (_build.SEPARABLE, _build.SEPARABLE_2D, _build.SHEAR3_STAGE,
-            _build.ELL_SHEAR)
+            _build.ELL_SHEAR) + ((_build.PROBES,) if hasattr(_build, "PROBES")
+                                 else ())
     defaults = {}      # (module, name) -> value before any setting
     for variant in args.variants.split(","):
         for lib in libs:

@@ -188,7 +188,10 @@ def test_import_pulls_in_neither_jax_nor_aainterp():
         "aainterp_torch.utils.log, aainterp_torch.utils.cache, "
         "aainterp_torch.probes, aainterp_torch.probes.harness, "
         "aainterp_torch.probes.copy_ceiling, "
-        "aainterp_torch.probes.rot_experiments\n"
+        "aainterp_torch.probes.rot_experiments, "
+        "aainterp_torch.probes.band_probes, "
+        "aainterp_torch.probes.flagship_experiments, "
+        "aainterp_torch.probes.u8_experiments\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'aainterp') "
         "or m.startswith(('jax.', 'jaxlib', 'aainterp.')))\n"
         "print(bad)\n"

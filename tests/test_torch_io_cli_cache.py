@@ -514,7 +514,7 @@ def test_shear_plan_disk_cache_roundtrip(tmp_path, mode):
     built = cuda_shear.kernel_plan_cached(op, cache_dir=d)
     path = cuda_shear.plan_cache_path(op, d)
     assert os.path.basename(path).startswith(
-        t_cache.spec_key(op.spec, mode, "cuda_shear_v1"))
+        t_cache.spec_key(op.spec, mode, "cuda_shear_v2"))
     assert os.path.exists(path) and not [
         f for f in os.listdir(d) if f.endswith(".tmp")]
     cuda_shear._PLAN_CACHE.clear()

@@ -32,6 +32,14 @@ gradient within f32 atol 1e-5 (bf16: one bf16 ulp) of native autograd of
 the plain gather (the scatter's atomics sum in no fixed order); fused
 within 2e-4 of the host route (the JAX package's pin); the separable
 transpose and variance on kernel 1 within f32 atol 1e-5 of the CPU.
+
+The masked contraction (the route's) bit-equal to the unmasked one and to
+its plain version on finite T, into NaN-filled outputs, with ragged spans,
+empty rows and F > 8; on NaN T it writes 0 outside every span.  The copy
+probe split over blocks (8 x 1024^2, odd widths) and kernel 1's probe
+modes (``csrc/band_probes.cu``) bit-equal to their plain versions, into
+0xFF-filled outputs, bf16, f32 and u8, at a small and an odd-pitch
+geometry.
 """
 
 import dataclasses
@@ -214,7 +222,8 @@ def test_shear_kernels_match_plain(cuda, args, dtype):
     out = cuda_shear.contract_kernel(t, plan)
     torch.cuda.synchronize()
     assert {k: cuda_shear.LAUNCHES[k] - before[k] for k in before} == {
-        "vshear": 1, "hshear": 1, "vhshear": 1, "contract": 1}
+        "vshear": 1, "hshear": 1, "vhshear": 1, "contract": 1,
+        "contract_unmasked": 0}
     assert torch.equal(s, cuda_shear.vshear_plain(q, plan))
     assert torch.equal(t, cuda_shear.hshear_plain(s, plan))
     assert torch.equal(t2, cuda_shear.vhshear_plain(q, plan))
@@ -274,7 +283,8 @@ def test_rotated_api_routes(cuda, args, dtype):
     torch.cuda.synchronize()
     # the route: the fused shear (T straight from q), then the contraction
     assert {k: cuda_shear.LAUNCHES[k] - before[k] for k in before} == {
-        "vshear": 0, "hshear": 0, "vhshear": 1, "contract": 1}
+        "vshear": 0, "hshear": 0, "vhshear": 1, "contract": 1,
+        "contract_unmasked": 0}
     want_dtype = torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
     assert got.dtype == want_dtype and got.is_cuda
     scale = 255.0 if dtype == torch.uint8 else 1.0
@@ -921,7 +931,8 @@ def test_compat_kernel_route_matches_gather(cuda, args, dtype):
     got = at.area_average_interpolate(x, *args[1:], mode="compat").dst
     torch.cuda.synchronize()
     assert {k: cuda_shear.LAUNCHES[k] - before[0][k] for k in before[0]} == {
-        "vshear": 0, "hshear": 0, "vhshear": 1, "contract": 1}
+        "vshear": 0, "hshear": 0, "vhshear": 1, "contract": 1,
+        "contract_unmasked": 0}
     assert t_api.SHEAR_PLAN_FALLBACKS == before[1]
     assert got.dtype == dtype
     ref = at.apply_operator(op, x, impl="gather")
@@ -946,7 +957,8 @@ def test_ell_linear_kernel_route_gradient(cuda, angle, dtype):
     (gk,) = torch.autograd.grad(y, xk, g)
     torch.cuda.synchronize()
     assert {k: cuda_shear.LAUNCHES[k] - before[0][k] for k in before[0]} == {
-        "vshear": 0, "hshear": 0, "vhshear": 1, "contract": 1}
+        "vshear": 0, "hshear": 0, "vhshear": 1, "contract": 1,
+        "contract_unmasked": 0}
     assert t_api.SHEAR_PLAN_FALLBACKS == before[1]
     assert torch.equal(y.detach(), plain) and gk.dtype == dtype
     # native autograd of the plain gather on the unfolded tables
@@ -1205,3 +1217,137 @@ def test_contract_probe_rejects_what_it_cannot_take(cuda):
         rot_experiments.contract_probe_kernel(t.double(), plan, "noweight")
     with pytest.raises(ValueError, match="probe mode"):
         rot_experiments.contract_probe_kernel(t, plan, "none")
+
+
+# ---------------------------------------------------------------------------
+# the masked contraction (the route's dead-pixel skip)
+# ---------------------------------------------------------------------------
+
+
+def _ragged_plan(plan):
+    """``plan`` with some dst rows' weights cleared (empty spans) and
+    others cut to a ragged live run, spans recomputed."""
+    w2 = plan.w2.copy()
+    w2[:, ::7] = 0.0                                  # empty rows
+    for dy in range(3, plan.Hd, 5):                   # ragged ends
+        w2[:, dy, : (dy * 13) % plan.Wd] = 0.0
+    return dataclasses.replace(plan, w2=w2, span=cuda_shear.live_spans(w2),
+                               tiles={}, dev={})
+
+
+@pytest.mark.parametrize("frames", [1, 9, 11])
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("args", PROBE_GEOMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_contraction_matches_unmasked(cuda, args, dtype, ragged,
+                                              frames):
+    _, plan = _rot_plan(args)
+    if ragged:
+        plan = _ragged_plan(plan)
+        assert (plan.span[::7] == 0).all()
+    t = _frames((frames, plan.TH, plan.TW), dtype, cuda, seed=7)
+    before = dict(cuda_shear.LAUNCHES)
+    got = cuda_shear.contract_kernel(t, plan)
+    un = cuda_shear.contract_unmasked_kernel(t, plan)
+    torch.cuda.synchronize()
+    assert {k: cuda_shear.LAUNCHES[k] - before[k] for k in before} == {
+        "vshear": 0, "hshear": 0, "vhshear": 0, "contract": 1,
+        "contract_unmasked": 1}
+    assert torch.equal(got, un)
+    assert torch.equal(got, cuda_shear.contract_plain(t, plan, fused=True))
+    ref = cuda_shear.contract_plain(t, plan, out_dtype=torch.float32)
+    err = (got.double() - ref.double()).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 1e-6
+    else:
+        assert (err <= _bf16_ulp(ref)).all()
+    # into NaN-filled outputs: every element written
+    live = cuda_shear.live_mask(plan, cuda)
+    assert (got[:, ~live] == 0).all()
+    nan = torch.full((frames, plan.TH, plan.TW), float("nan"), dtype=dtype,
+                     device=cuda)
+    out = cuda_shear.contract_kernel(nan, plan)
+    torch.cuda.synchronize()
+    assert (out[:, ~live] == 0).all()
+    assert torch.isnan(out[:, torch.from_numpy(
+        (plan.w2 != 0).any(axis=0)).to(cuda)]).all()
+    assert torch.isnan(cuda_shear.contract_unmasked_kernel(nan, plan)).all()
+
+
+def test_masked_route_keeps_its_launches(cuda):
+    op, plan = _rot_plan(PROBE_GEOMS[0])
+    x = _frames((3, plan.qH, plan.qW), torch.bfloat16, cuda, seed=2)
+    before = dict(cuda_shear.LAUNCHES)
+    got = cuda_shear.apply_ell_shear_kernel(x, plan)
+    torch.cuda.synchronize()
+    assert {k: cuda_shear.LAUNCHES[k] - before[k] for k in before} == {
+        "vshear": 0, "hshear": 0, "vhshear": 1, "contract": 1,
+        "contract_unmasked": 0}
+    t = cuda_shear.vhshear_kernel(x, plan)
+    assert torch.equal(got, cuda_shear.contract_unmasked_kernel(t, plan))
+
+
+# ---------------------------------------------------------------------------
+# the copy split over blocks, and kernel 1's probe modes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape,ty", [((8, 1024, 1024), 128),
+                                      ((3, 1024, 1021), 128),
+                                      ((2, 513, 999), 64)])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.bfloat16,
+                                   torch.float32])
+def test_copy_rows_split_matches_plain(cuda, shape, ty, dtype):
+    from aainterp_torch.probes import copy_ceiling
+
+    x = _frames(shape, dtype, cuda, seed=1)
+    buf = _ff((shape[0], shape[1] // ty * ty, shape[2]), dtype, cuda)
+    got = copy_ceiling.copy_rows_kernel(x, ty, out=buf)
+    torch.cuda.synchronize()
+    assert torch.equal(got, copy_ceiling.copy_rows_plain(x, ty))
+
+
+K1_PROBE_GEOMS = [(240, 512), (250, 998), (96, 130)]
+
+
+@pytest.mark.parametrize("shape", K1_PROBE_GEOMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.uint8])
+def test_band_probes_match_plain(cuda, shape, dtype):
+    from aainterp_torch.probes import band_probes
+
+    tables = band_probes.flagship_tables(shape)
+    modes = (band_probes.U8_MODES if dtype == torch.uint8
+             else band_probes.FLOAT_MODES)
+    x = _frames((3,) + shape, dtype, cuda, seed=4)
+    prod = cuda_apply.apply_separable_kernel(x, *tables)
+    torch.cuda.synchronize()
+    before = cuda_apply.LAUNCHES
+    for mode in modes:
+        n = band_probes.LAUNCHES[mode]
+        buf = _ff(tuple(prod.shape), dtype, cuda)
+        got = band_probes.band_probe_kernel(x, tables, mode, out=buf)
+        torch.cuda.synchronize()
+        assert got is buf and band_probes.LAUNCHES[mode] == n + 1
+        plain = band_probes.band_probe_plain(x, tables, mode)
+        assert torch.equal(got, plain), mode
+        if mode not in ("stage", "stagey"):
+            assert torch.equal(got, prod), mode
+    assert torch.equal(prod, band_probes.band_probe_plain(x, tables,
+                                                          modes[-1]))
+    assert cuda_apply.LAUNCHES == before
+
+
+def test_band_probes_reject_what_they_cannot_take(cuda):
+    from aainterp_torch.probes import band_probes
+
+    tables = band_probes.flagship_tables((240, 512))
+    x = _frames((2, 240, 512), torch.float32, cuda)
+    with pytest.raises(ValueError, match="no torch.float32 instance"):
+        band_probes.band_probe_kernel(x, tables, "u8words")
+    with pytest.raises(ValueError, match="probe mode"):
+        band_probes.band_probe_kernel(x, tables, "none")
+    op, t3 = _tables(240, 512, 3.0, 1.0)
+    u8 = _frames((2, 240, 512), torch.uint8, cuda)
+    with pytest.raises(ValueError, match="exact ratio-2"):
+        band_probes.band_probe_kernel(u8, t3, "xpair")

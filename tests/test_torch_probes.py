@@ -22,11 +22,14 @@ package's probes under ``benchmarks/``, on the CPU.
   there too, so the comparison is on the live rows and columns, and JAX's
   zeros are checked on the rest.  The shares off (JAX's masked
   contraction) are held against the port's production contraction.
-* The share modes against their definitions: tshare equals the
-  contraction on frame 0, dst row 0 and is the same for every frame;
-  wshare equals it on dst row 0; bothshare equals its frame 0, dst row 0
-  everywhere; each bit for bit (the same f32 sums of the same products),
-  and every mode within 1e-5 of a float64 numpy statement of its formula.
+* The share modes against their definitions, with the dead-pixel skip of
+  the route's contraction (0 outside each dst row's live span, as JAX's
+  share probes skip dead tiles): tshare equals the contraction on frame 0,
+  dst row 0 and is the same for every frame; wshare equals it on dst row
+  0; bothshare equals the unmasked contraction's frame 0, dst row 0 on the
+  live pixels; tshare and wshare are 0 outside the spans; each bit for
+  bit (the same f32 sums of the same products), and every mode within
+  1e-5 of a float64 numpy statement of its formula (noweight unmasked).
 * The entry points: each ``EXPS`` function and ``copy_ceiling.measure``
   with ``device="cpu"`` at a small shape (the plain versions on the
   host's clock, ``clock == "host"``), no kernel launched; without a GPU
@@ -181,6 +184,15 @@ def test_copy_rows_matches_rgb1024_copy(jprobes):
     np.testing.assert_array_equal(got.float().numpy(), want)
 
 
+def test_copy_grid_fills_the_card():
+    # 8 x 1024^2 bf16, TY 128: 64 row tiles of 256 KB, 8 KB parts
+    assert copy_ceiling.grid_blocks(8, 1024, 1024, 128, 2) == 64 * 32
+    assert copy_ceiling.grid_blocks(8, 1024, 1024, 128, 2) >= 2 * 132
+    assert copy_ceiling.grid_blocks(8, 2160, 3840, 120, 2) == 144 * 112
+    # a tile under one part is one block
+    assert copy_ceiling.grid_blocks(3, 17, 5, 17, 2) == 3
+
+
 def test_copy_rows_rejects_bad_arguments():
     x = torch.zeros((2, 8, 4))
     for ty in (0, 9):
@@ -252,7 +264,8 @@ def test_weighted_probes_match_jax(jprobes, geom, dtype, probe):
 
 
 def _formula(t: np.ndarray, plan, mode: str) -> np.ndarray:
-    """float64 numpy statement of a probe mode."""
+    """float64 numpy statement of a probe mode: every mode but noweight is
+    0 outside each dst row's live span (the dead-pixel skip)."""
     tn = t.astype(np.float64)
     w2 = plan.w2.astype(np.float64)
     F_, Hd, Wd = tn.shape[0], plan.Hd, plan.Wd
@@ -271,6 +284,9 @@ def _formula(t: np.ndarray, plan, mode: str) -> np.ndarray:
             else:
                 w = w2[a * plan.Kb + b]
                 out = out + (w[:1] if share_w else w) * vals
+    if mode != "noweight":
+        cols = np.arange(Wd)[None, :]
+        out[:, (cols < plan.span[:, :1]) | (cols >= plan.span[:, 1:])] = 0.0
     return out
 
 
@@ -280,13 +296,21 @@ def test_share_modes_meet_their_definitions(geom, dtype):
     plan = _case(geom).plan
     t = _t(plan, dtype, seed=2, frames=3)
     full = cuda_shear.contract_kernel(t, plan)
+    unmasked = cuda_shear.contract_unmasked_kernel(t, plan)
+    live = cuda_shear.live_mask(plan, t.device)
+    zero = torch.zeros((), dtype=dtype)
     out = {m: rot_experiments.contract_probe_kernel(t, plan, m)
            for m in ("tshare", "wshare", "bothshare")}
     ts, ws, bs = out["tshare"], out["wshare"], out["bothshare"]
+    # the share modes skip dead pixels, as the production contraction
+    # does: frame 0 / dst row 0's sums on the live pixels, 0 on the rest
     assert torch.equal(ts[0, 0], full[0, 0])
     assert all(torch.equal(ts[f], ts[0]) for f in range(3))
     assert torch.equal(ws[:, 0], full[:, 0])
-    assert torch.equal(bs, full[0, 0].expand_as(bs))
+    for x in (ts, ws):
+        assert (x[:, ~live] == 0).all()
+    row0 = torch.where(live, unmasked[0, 0].expand_as(live), zero)
+    assert torch.equal(bs, row0.expand_as(bs))
     assert torch.equal(rot_experiments.contract_probe_kernel(
         t, plan, "pipelined"), full)
     for mode in rot_experiments.MODES:
@@ -316,14 +340,34 @@ def test_traffic_counts_what_each_mode_reads():
     t_b, o_b = F * p.TH * p.TW * e, F * p.Hd * p.Wd * e
     w_b, idx = p.Ka * p.Kb * p.Hd * p.Wd * 4, (p.Hd + p.Wd) * 4
     taps = F * p.Hd * p.Wd * p.Ka * p.Kb
+    # the dead-pixel skip: the live pixels, the live columns, and the T
+    # elements the live pixels' windows touch (brute force)
+    cols = np.arange(p.Wd)[None, :]
+    live = (cols >= p.span[:, :1]) & (cols < p.span[:, 1:])
+    touched = np.zeros((p.TH, p.TW), bool)
+    for dy, dx in zip(*np.nonzero(live)):
+        for a in range(p.Ka):
+            for b in range(p.Kb):
+                touched[min(max(p.ry0[dy] + a, 0), p.TH - 1),
+                        min(max(p.cx0[dx] + b, 0), p.TW - 1)] = True
+    n_live = int(live.sum())
+    assert 0 < n_live < p.Hd * p.Wd
+    t_lb, w_lb = F * int(touched.sum()) * e, p.Ka * p.Kb * n_live * 4
+    sp, live_taps = p.Hd * 8, F * n_live * p.Ka * p.Kb
     tr = rot_experiments.traffic
     assert tr(p, F, e, "contract") == (t_b + w_b + o_b + idx, 2 * taps)
-    assert tr(p, F, e, "pipelined") == tr(p, F, e, "contract")
+    masked = (t_lb + w_lb + o_b + idx + sp, 2 * live_taps)
+    assert tr(p, F, e, "contract_masked") == masked
+    assert tr(p, F, e, "pipelined") == masked
     assert tr(p, F, e, "noweight") == (t_b + o_b + idx, taps)
-    t_rows, w_row = p.Ka * p.TW * e, p.Ka * p.Kb * p.Wd * 4
-    assert tr(p, F, e, "wshare") == (t_b + w_row + o_b + idx, 2 * taps)
-    assert tr(p, F, e, "tshare") == (t_rows + w_b + o_b + idx, 2 * taps)
-    assert tr(p, F, e, "bothshare") == (t_rows + w_row + o_b + idx, 2 * taps)
+    t_rows = p.Ka * p.TW * e
+    w_row = p.Ka * p.Kb * int(live.any(axis=0).sum()) * 4
+    assert tr(p, F, e, "wshare") == (t_lb + w_row + o_b + idx + sp,
+                                     2 * live_taps)
+    assert tr(p, F, e, "tshare") == (t_rows + w_lb + o_b + idx + sp,
+                                     2 * live_taps)
+    assert tr(p, F, e, "bothshare") == (t_rows + w_row + o_b + idx + sp,
+                                        2 * live_taps)
 
 
 # ---------------------------------------------------------------------------
@@ -354,8 +398,6 @@ def test_rot_experiments_run_on_cpu(small_cache, exp):
     assert r["us_per_frame"] == pytest.approx(r["ms_per_batch"] * 500)
     if exp == "shears":
         assert r["vshear_ms"] > 0 and r["hshear_ms"] > 0
-    if exp == "contract_masked":
-        assert r["runs"] == "contract"
 
 
 def test_copy_ceiling_runs_on_cpu(capsys):
