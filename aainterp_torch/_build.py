@@ -1,6 +1,6 @@
 """Build the port's native libraries at first use and load them with ctypes.
 
-Seven libraries, each from one source with a plain C interface (no
+Eight libraries, each from one source with a plain C interface (no
 PyTorch headers), so each builds in seconds:
 
 * ``separable_apply`` — ``csrc/separable_apply.cu`` through nvcc;
@@ -17,6 +17,9 @@ PyTorch headers), so each builds in seconds:
 * ``band_probes`` — ``csrc/band_probes.cu`` (kernel 1's probe modes:
   the instances of ``csrc/band_apply.cuh`` under its probe modes) through
   nvcc, a library of its own so that it builds beside the others;
+* ``aligned_fused`` — ``csrc/aligned_fused.cu`` (the fused aligned
+  regrid probe: both passes of an aligned integer-ratio apply in one
+  kernel) through nvcc;
 * ``aainterp_native`` — the repository's host weight-gen and CSV engine,
   ``native/aainterp_native.cpp``, through g++ with the flags of
   ``native/Makefile``.
@@ -155,6 +158,13 @@ BAND_PROBES = Library(
     #     stream)
     (("aainterp_band_probe", (_P,) * 8 + (_I,) * 14 + (_P,), ctypes.c_int),),
     headers=_BAND_HEADERS)
+
+ALIGNED_FUSED = Library(
+    "aligned_fused", _PKG / "csrc" / "aligned_fused.cu", "nvcc", NVCC_FLAGS,
+    # aainterp_aligned_fused(src, out, wky, wkx, F, H, W, Hd, Wd, my, mx,
+    #     c0y, c0x, TXc, stream)
+    (("aainterp_aligned_fused", (_P,) * 4 + (_I,) * 10 + (_P,),
+      ctypes.c_int),))
 
 NATIVE = Library(
     "aainterp_native", _PKG.parent / "native" / "aainterp_native.cpp", "g++",

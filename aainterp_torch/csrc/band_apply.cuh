@@ -55,13 +55,14 @@
 // builds, so the two agree for finite input.
 //
 // Probe modes (band_apply_kernel's P, launched by csrc/band_probes.cu, the
-// H100 counterparts of benchmarks/flagship_experiments.py and
-// u8_experiments.py): the production kernel is P = kNone; each other mode
-// changes one thing of it (Probe, below) in an `if constexpr` branch and
-// stores one value per dst element through the production's output tile,
-// so a redesign of the kernel carries the probes with it.  The walk
-// (band_walk_kernel: a form the kernel once had, kept as a probe) runs the same
-// phases, as functions, over several row tiles per block.
+// H100 counterparts of benchmarks/flagship_experiments.py,
+// u8_experiments.py and rgb1024_experiments.py): the production kernel is
+// P = kNone; each other mode changes one thing of it (Probe, below) in an
+// `if constexpr` branch and stores one value per dst element through the
+// production's output tile, so a redesign of the kernel carries the probes
+// with it.  The walk (band_walk_kernel: a form the kernel once had, kept as
+// a probe) runs the same phases, as functions, over several row tiles per
+// block.
 //
 // Arithmetic modes (kernel 2's precision knob, pallas_apply.py:798-846):
 //   0  IEEE f32 products and sums;
@@ -441,7 +442,12 @@ enum Probe : int {
   kWalk2 = 8,       // one block walks row tiles, 1 window in flight
   kWalk3 = 9,       // ... 2 in flight
   kWalk4 = 10,      // ... 3 in flight (band_walk_kernel)
+  kXOnly = 11,      // the x pass alone, T staged from the y pass's output
+  kDenseX = 12,     // the y pass, then a dense (W, Wd) x operator
 };
+
+constexpr int kDenseRows = 8;   // kDenseX: rows a thread sums at once
+constexpr int kDenseStep = 16;  // kDenseX: columns whose weights load together
 
 __host__ __device__ constexpr int convert_chunks(int p) {
   return p == kU8Convert1 ? 1 : p == kU8Convert2 ? 2 : p == kU8Convert4 ? 4 : 0;
@@ -571,6 +577,12 @@ __global__ void __launch_bounds__(kThreads) band_apply_kernel(
   int xa, xb, ya, yb;
   clip<kClamp>(cb, d.SX, d.W, xa, xb);
   clip<kClamp>(__ldg(row_base + rt), d.SY, d.H, ya, yb);
+  if constexpr (P == kXOnly) {
+    // src is the y pass's output (F, Hd, W) (d.H = Hd): the window is the
+    // tile's own rows of it (the host makes SY >= TY)
+    ya = i0;
+    yb = i0 + rows;
+  }
 
   // ---- stage the window: rows [ya, yb), element (y, x) at shared byte
   // wbase + (y - ya) * pitch_in + (x - xa) * ei ----
@@ -654,7 +666,16 @@ __global__ void __launch_bounds__(kThreads) band_apply_kernel(
 
   // ---- y pass: T[r, c] for the tile's rows over the window's columns ----
   float* T = reinterpret_cast<float*>(smem + g.t_off);
-  if constexpr (P == kU8Words) {
+  if constexpr (P == kXOnly) {
+    // the x pass alone: T[r, c] is the staged row i0 + r of the y pass's
+    // output at column cb + c clamped to the image (as the y pass's T holds
+    // it), in f32
+    for (Walk e(tid, d.SX); e.r < rows; e.next()) {
+      const int col = (min(max(cb + e.c, xa), xb - 1) - xa) * ei;
+      T[e.r * d.SX + e.c] =
+          to_f32(*reinterpret_cast<const Tin*>(smem + wbase + e.r * g.pitch_in + col));
+    }
+  } else if constexpr (P == kU8Words) {
     y_pass_words<kClamp>(T, rowtab, wtab, d, rows, cb, xa, xb);
   } else if constexpr (kChunks > 0) {
     // the window to f32 in shared memory, chunk by chunk of T's columns,
@@ -702,6 +723,58 @@ __global__ void __launch_bounds__(kThreads) band_apply_kernel(
 #pragma unroll
       for (int b = 0; b < 4; ++b) acc.add(wreg[b], tr[min(max(xo + b, 0), d.SX - 1)]);
       store(reinterpret_cast<Tout*>(ot + r * g.pitch_out + xj * eo), acc.sum());
+    }
+  } else if constexpr (P == kDenseX) {
+    // one strip of every dst column (TX = Wd, SX = W, cb = 0): out[i, j] =
+    // sum over all W columns x, ascending, of T[i, x] * Wxd[x, j], Wxd (W,
+    // Wd) in Tin passed as wx.  A thread takes dst columns tid, tid +
+    // kThreads, ... and kDenseRows rows at a time: one Wxd load serves them,
+    // and T's reads are warp-wide broadcasts (4 columns per read where T's
+    // rows allow).  Wxd comes from L2; each step issues kDenseStep loads
+    // before its multiply-adds, so that their latencies overlap
+    const Tin* wxd = reinterpret_cast<const Tin*>(wx);
+    const int x_steps = d.SX % 4 == 0 ? d.SX - d.SX % kDenseStep : 0;
+    for (int jj = tid; jj < cols; jj += kThreads) {
+      const Tin* wc = wxd + j0 + jj;
+      for (int r0 = 0; r0 < rows; r0 += kDenseRows) {
+        float acc[kDenseRows];
+#pragma unroll
+        for (int q = 0; q < kDenseRows; ++q) acc[q] = 0.0f;
+        int x = 0;
+        for (; x < x_steps; x += kDenseStep) {
+          float w[kDenseStep];
+#pragma unroll
+          for (int k = 0; k < kDenseStep; ++k) {
+            w[k] = to_f32(wc[static_cast<long long>(x + k) * d.Wd]);
+          }
+#pragma unroll
+          for (int q = 0; q < kDenseRows; ++q) {
+            if (r0 + q < rows) {
+#pragma unroll
+              for (int k = 0; k < kDenseStep; k += 4) {
+                const float4 t4 = *reinterpret_cast<const float4*>(T + (r0 + q) * d.SX + x + k);
+                acc[q] = fmaf(t4.x, w[k], acc[q]);
+                acc[q] = fmaf(t4.y, w[k + 1], acc[q]);
+                acc[q] = fmaf(t4.z, w[k + 2], acc[q]);
+                acc[q] = fmaf(t4.w, w[k + 3], acc[q]);
+              }
+            }
+          }
+        }
+        for (; x < d.SX; ++x) {
+          const float w = to_f32(wc[static_cast<long long>(x) * d.Wd]);
+#pragma unroll
+          for (int q = 0; q < kDenseRows; ++q) {
+            if (r0 + q < rows) acc[q] = fmaf(T[(r0 + q) * d.SX + x], w, acc[q]);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kDenseRows; ++q) {
+          if (r0 + q < rows) {
+            store(reinterpret_cast<Tout*>(ot + (r0 + q) * g.pitch_out + jj * eo), acc[q]);
+          }
+        }
+      }
     }
   } else
   for (int r = x_on ? xrg : rows; r < rows; r += n_rg) {

@@ -11,9 +11,16 @@
   bothshare, pipelined; ``benchmarks/rot_experiments.py``);
 * ``band_probes`` — kernel 1's probe modes (``csrc/band_probes.cu`` on
   ``csrc/band_apply.cuh``: stage, stagey, walk2-4, u8words, u8convert1/2/4,
-  xpair), their plain versions and byte counts, run at the 4K flagship by
-  ``flagship_experiments`` (bf16, f32; ``benchmarks/flagship_experiments.py``)
-  and ``u8_experiments`` (u8; ``benchmarks/u8_experiments.py``);
+  xpair, xonly, densex), their plain versions and byte counts, run at the
+  4K flagship by ``flagship_experiments`` (bf16, f32;
+  ``benchmarks/flagship_experiments.py``) and ``u8_experiments`` (u8;
+  ``benchmarks/u8_experiments.py``), and at rgb1024 (24 planes of 1024^2,
+  150 -> 60 dpi) by ``rgb1024_experiments`` (the copy, staging, the y
+  pass, the x pass alone, a dense x operator;
+  ``benchmarks/rgb1024_experiments.py``);
+* ``aligned_fused_probe`` — the config-5 regrid's aligned route with its
+  y -> x intermediate kept on chip (``csrc/aligned_fused.cu``) beside the
+  route, the einsum and kernel 2 (``benchmarks/aligned_fused_probe.py``);
 * ``harness`` — their timer (CUDA-graph replays on distinct inputs, CUDA
   events).
 
@@ -21,7 +28,9 @@
     python -m aainterp_torch.probes.rot_experiments --exp noweight
     python -m aainterp_torch.probes.flagship_experiments --exp stage
     python -m aainterp_torch.probes.u8_experiments --exp u8words
+    python -m aainterp_torch.probes.rgb1024_experiments --exp xonly
+    python -m aainterp_torch.probes.aligned_fused_probe --exp all
 
-Both run on the card; ``--device cpu`` runs the plain versions on the
+All run on the card; ``--device cpu`` runs the plain versions on the
 CPU, timed on the host's clock (not a device time).
 """

@@ -1,8 +1,9 @@
 """Kernel 1's probe modes: the production separable kernel
 (``csrc/band_apply.cuh``) with one thing changed per mode, on
 ``csrc/band_probes.cu``, at kernel 1's own plan (``ops/cuda_apply``:
-8 x 240 dst tiles at the 4K flagship).  ``flagship_experiments`` and
-``u8_experiments`` run them; this module holds what both share.
+8 x 240 dst tiles at the 4K flagship and at rgb1024).
+``flagship_experiments``, ``u8_experiments`` and ``rgb1024_experiments``
+run them; this module holds what they share.
 
 Modes (``MODES``; each stores one value per dst element of the
 production's tiles, derived from what it keeps):
@@ -22,16 +23,26 @@ production's tiles, derived from what it keeps):
   chunks, each followed by its part of the y pass;
 * ``xpair`` (u8) — production's output from an x pass for an exact ratio-2
   band: dst column j reads source columns 2j - 1 .. 2j + 2 with weights
-  from a (4, Wd) table (``xpair_table``; ``ValueError`` on other bands).
+  from a (4, Wd) table (``xpair_table``; ``ValueError`` on other bands);
+* ``xonly`` — production's x pass alone: its input is not frames but the
+  y pass's output, (F, Hd, W) in the frame dtype, and ``out[f, i, j] =
+  cast(sum_b xw[j, b] * tmp[f, i, clamp(xs[j] + b)])``;
+* ``densex`` — production's y pass, then a dense x operator: ``out[f, i,
+  j] = cast(sum over all W columns x, ascending, of T[i, x] * Wxd[x, j])``
+  with ``Wxd`` the band as a (W, Wd) matrix in the frame dtype
+  (``dense_x_table``), on a plan of one strip of every dst column
+  (``densex_plan``).  In f32 it is production's output, bit for bit: its
+  extra products are exact zeros, which leave a fused multiply-add sum as
+  it was.
 
 ``band_probe_kernel(frames, tables, mode)`` launches one (a CPU tensor
 takes ``band_probe_plain``), counted per mode in ``LAUNCHES``.  The plain
 versions repeat the kernel's arithmetic exactly: each tap is one fused
 multiply-add rounded once to f32 (``ops.apply.fma32``), the y taps
-summed in order from 0, then the x taps; so every mode equals its plain
-version bit for bit.  A mode whose shared
-memory exceeds the card's opt-in (``smem_bytes``) raises ``ValueError``
-before any launch.
+summed in order from 0, then the x taps (``densex``: all W columns in
+order from 0); so every mode equals its plain version bit for bit.  A
+mode whose shared memory exceeds the card's opt-in (``smem_bytes``)
+raises ``ValueError`` before any launch.
 """
 
 from __future__ import annotations
@@ -49,13 +60,18 @@ from ..grids import make_grid_spec
 from ..ops import cuda_apply
 from ..ops.apply import fma32
 from ..utils.device import SMEM_LIMIT, out_buffer
+from ..utils.digest import array_digest
+from ..utils.lru import LruDict
 
 # probe mode -> the kernel's mode code (band_apply.cuh's Probe)
 MODES = {"stage": 1, "stagey": 2, "u8words": 3, "xpair": 4,
          "u8convert1": 5, "u8convert2": 6, "u8convert4": 7,
-         "walk2": 8, "walk3": 9, "walk4": 10}
+         "walk2": 8, "walk3": 9, "walk4": 10, "xonly": 11, "densex": 12}
 # the modes each input dtype has (the kernel's instances)
 FLOAT_MODES = ("stage", "stagey", "walk2", "walk3", "walk4")
+# rgb1024's x-pass probes, float frames too: xonly reads the y pass's
+# output, not frames, and densex's cost is its dense x operator
+X_MODES = ("xonly", "densex")
 U8_MODES = ("stage", "stagey", "u8words", "u8convert1", "u8convert2",
             "u8convert4", "xpair")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
@@ -66,12 +82,14 @@ WALK_TILES = 9      # row tiles a walking block takes (135 = 15 x 9 at 4K)
 H, W = 2160, 3840   # the flagship: 4K -> 1080p, exact
 
 
-@functools.lru_cache(maxsize=4)
-def flagship_tables(shape=(H, W)):
-    """Kernel 1's host tables (ys, yw, xs, xw) of ``shape`` at 2.0 -> 1.0
-    (the 4K -> 1080p flagship by default), exact, no rotation."""
-    op = build_operator(make_grid_spec(tuple(shape), 2.0, 1.0, (0.0, 0.0),
-                                       0.0))
+@functools.lru_cache(maxsize=8)
+def flagship_tables(shape=(H, W), src_res: float = 2.0,
+                    dst_res: float = 1.0):
+    """Kernel 1's host tables (ys, yw, xs, xw) of ``shape`` at ``src_res``
+    -> ``dst_res`` (the 4K -> 1080p flagship, 2.0 -> 1.0, by default),
+    exact, no rotation."""
+    op = build_operator(make_grid_spec(tuple(shape), float(src_res),
+                                       float(dst_res), (0.0, 0.0), 0.0))
     return tuple(np.ascontiguousarray(t) for t in
                  separable_linear_for(op, torch.float32, "kernel").tables)
 
@@ -86,11 +104,11 @@ def _check_mode(mode: str, dtype: torch.dtype) -> None:
     if mode not in MODES:
         raise ValueError(f"probe mode must be one of {sorted(MODES)}, got "
                          f"{mode!r}")
-    have = U8_MODES if dtype == torch.uint8 else FLOAT_MODES
+    have = U8_MODES if dtype == torch.uint8 else FLOAT_MODES + X_MODES
     if dtype not in _DTYPE_CODES or mode not in have:
         raise ValueError(f"probe mode {mode!r} has no {dtype} instance "
-                         f"(float32 / bfloat16: {FLOAT_MODES}; uint8: "
-                         f"{U8_MODES})")
+                         f"(float32 / bfloat16: {FLOAT_MODES + X_MODES}; "
+                         f"uint8: {U8_MODES})")
 
 
 def _plan(tables):
@@ -99,6 +117,13 @@ def _plan(tables):
         raise ValueError("these bands take kernel 2: kernel 1 has no plan "
                          "for them, nor its probes")
     return plan
+
+
+def window_rows(plan: dict, mode: str) -> int:
+    """The rows of a block's staged window: the plan's SY (``xonly``: at
+    least TY, its tile's rows of the y pass's output), passed to the
+    kernel as SY."""
+    return max(plan["SY"], plan["TY"]) if mode == "xonly" else plan["SY"]
 
 
 def _seg_pitch(nbytes: int, stride: int) -> int:
@@ -113,10 +138,14 @@ def _up16(n: int) -> int:
 def smem_bytes(plan: dict, mode: str, Ws: int, Wd: int, ky: int,
                elem: int) -> int:
     """Dynamic shared memory of ``mode``'s block for frames Ws pixels wide
-    (dst Wd) of ``elem``-byte pixels in and out: the production layout
-    (band_apply.cuh's ``make_geo``), plus n - 1 more windows (walk<n>) or
-    the f32 chunk buffer (u8convert<n>)."""
-    TY, TX, SY, SX = plan["TY"], plan["TX"], plan["SY"], plan["SX"]
+    (dst Wd) of ``elem``-byte pixels in and out on ``plan``: the production
+    layout (band_apply.cuh's ``make_geo``), plus n - 1 more windows
+    (walk<n>) or the f32 chunk buffer (u8convert<n>).  ``xonly`` stages
+    its tile's TY rows of the y pass's output in the window
+    (``window_rows``); ``densex`` runs on its own plan (``densex_plan``: TX
+    = Wd, SX = Ws, so T holds TY whole rows)."""
+    TY, TX, SX = plan["TY"], plan["TX"], plan["SX"]
+    SY = window_rows(plan, mode)
     pitch_in = _seg_pitch(SX * elem, Ws * elem)
     zero_off = _up16(32 + SY * pitch_in)
     o_off = (zero_off + _up16(pitch_in + 32) + _up16(4 * TY * SX)
@@ -149,6 +178,73 @@ def xpair_table(xs: np.ndarray, xw: np.ndarray) -> np.ndarray:
     jj, kk = np.nonzero(live)
     np.add.at(tab, (b[jj, kk], jj), xw[jj, kk])
     return tab
+
+
+def dense_x_table(xs: np.ndarray, xw: np.ndarray, Ws: int) -> np.ndarray:
+    """(Ws, Wd) f32: the x band as a dense matrix, as
+    ``rgb1024_experiments.exp_fulldense`` builds it (column j holds xw[j,
+    b] at row xs[j] + b; a tap outside [0, Ws) is dropped, as JAX's slice
+    assignment cuts at W)."""
+    xs = np.asarray(xs, np.int64)
+    xw = np.asarray(xw, np.float32)
+    Wd, kx = xw.shape
+    tab = np.zeros((Ws, Wd), np.float32)
+    rows = xs[:, None] + np.arange(kx)[None, :]
+    ok = (rows >= 0) & (rows < Ws)
+    jj, bb = np.nonzero(ok)
+    tab[rows[jj, bb], jj] = xw[jj, bb]
+    return tab
+
+
+_DENSEX_PLANS = LruDict(8)   # (tables' digests, Ws, elem) -> densex's plan
+
+
+def densex_plan(tables, Ws: int, elem: int) -> dict:
+    """densex's plan for frames Ws wide of ``elem``-byte pixels: kernel 1's
+    row tiles and one strip of every dst column (TX = Wd, SX = Ws, column
+    base 0).  TY halves (SY and the row bases re-tabled) until the block's
+    shared memory fits the card's opt-in; TX stays Wd.  A plan as
+    ``cuda_apply._plan_for`` makes one (its tables upload with
+    ``cuda_apply._device_tables``), plus ``wxd``, its dense operators by
+    (dtype, device); ``ValueError`` where one row does not fit."""
+    host = _host(tables)
+    key = (tuple(array_digest(t) for t in host), int(Ws), int(elem))
+    dp = _DENSEX_PLANS.get(key)
+    if dp is not None:
+        return dp
+    ys, yw, xs, xw = host
+    ky, Wd = yw.shape[1], xw.shape[0]
+    TY = _plan(tables)["TY"]
+    while True:
+        row_base, SY = cuda_apply._tiles(ys.astype(np.int64), ky, TY)
+        dp = dict(TY=TY, TX=Wd, SY=SY, SX=int(Ws),
+                  row_base=row_base.astype(np.int32),
+                  col_base=np.zeros(1, np.int32))
+        need = smem_bytes(dp, "densex", Ws, Wd, ky, elem)
+        if need <= SMEM_LIMIT or TY == 1:
+            break
+        TY //= 2
+    if need > SMEM_LIMIT:
+        raise ValueError(f"probe mode 'densex' needs {need} bytes of shared "
+                         f"memory a block at one row of {Ws} columns, over "
+                         f"the card's {SMEM_LIMIT}")
+    dp.update(tables=host + (dp["row_base"], dp["col_base"]), dev={},
+              wxd={})
+    _DENSEX_PLANS.put(key, dp)
+    return dp
+
+
+def _densex_device(tables, Ws: int, dtype: torch.dtype, device):
+    """densex's (Ws, Wd) operator in ``dtype`` on ``device`` (the frame
+    dtype, as JAX stores it), built and uploaded once (kept on densex's
+    plan)."""
+    wxd = densex_plan(tables, Ws, dtype.itemsize)["wxd"]
+    key = (dtype, torch.device(device))
+    if key not in wxd:
+        ys, yw, xs, xw = _host(tables)
+        wxd[key] = torch.from_numpy(dense_x_table(xs, xw, Ws)).to(
+            device=device, dtype=dtype)
+    return wxd[key]
 
 
 def _xpair_device(plan: dict, tables, device) -> torch.Tensor:
@@ -208,14 +304,30 @@ def x_sums(t: torch.Tensor, xs: torch.Tensor,
     return acc
 
 
+def dense_x_sums(t: torch.Tensor, wxd: torch.Tensor) -> torch.Tensor:
+    """densex's x pass, (F, Hd, W) f32 -> (F, Hd, Wd): t[f, i, x] *
+    wxd[x, j] fused-multiply-added over every column x in order from 0."""
+    acc = torch.zeros(t.shape[:2] + (wxd.shape[1],), dtype=torch.float32,
+                      device=t.device)
+    for x in range(t.shape[2]):
+        acc = fma32(t[:, :, x, None], wxd[x], acc)
+    return acc
+
+
 def band_probe_plain(frames: torch.Tensor, tables, mode: str) -> torch.Tensor:
     """The probe ``mode``'s function in plain torch, on ``frames``' device,
-    bit for bit the kernel's (output dtype = input dtype)."""
-    _check_frames(frames)
+    bit for bit the kernel's (output dtype = input dtype); ``xonly`` takes
+    the y pass's output, (F, Hd, W), as its frames."""
+    _check_frames(frames, tables, mode)
     _check_mode(mode, frames.dtype)
     ys, yw, xs, xw = _tabs(tables, frames.device)
     Hs, Ws = frames.shape[1:]
-    if mode == "stage":
+    if mode == "xonly":
+        out = x_sums(frames.float(), xs, xw)
+    elif mode == "densex":
+        wxd = _densex_device(tables, Ws, frames.dtype, frames.device)
+        out = dense_x_sums(y_sums(frames, tables), wxd.float())
+    elif mode == "stage":
         out = frames.index_select(1, ys.clamp(0, Hs - 1)).index_select(
             2, xs.clamp(0, Ws - 1)).float()
     elif mode == "stagey":
@@ -234,21 +346,25 @@ def band_probe_plain(frames: torch.Tensor, tables, mode: str) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _check_frames(frames) -> None:
+def _check_frames(frames, tables=None, mode: str = "") -> None:
     if not isinstance(frames, torch.Tensor):
         raise TypeError(f"frames must be a torch.Tensor, got {type(frames)}")
     if frames.ndim != 3 or 0 in frames.shape:
         raise ValueError(f"frames must be (F, H, W) with none of them 0, got "
                          f"{tuple(frames.shape)}")
+    if mode == "xonly" and frames.shape[1] != len(tables[0]):
+        raise ValueError(f"xonly takes the y pass's output, (F, Hd="
+                         f"{len(tables[0])}, W), got {tuple(frames.shape)}")
 
 
 def band_probe_kernel(frames: torch.Tensor, tables, mode: str, *,
                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The probe ``mode`` on ``csrc/band_probes.cu``: (F, H, W) -> (F, Hd,
-    Wd) in the frames' dtype; ``tables`` are kernel 1's host tables (ys,
-    yw, xs, xw).  A CPU tensor takes ``band_probe_plain``; ``out`` may be
-    given (any contents: every element is written)."""
-    _check_frames(frames)
+    Wd) in the frames' dtype (``xonly``: (F, Hd, W) -> (F, Hd, Wd));
+    ``tables`` are kernel 1's host tables (ys, yw, xs, xw).  A CPU tensor
+    takes ``band_probe_plain``; ``out`` may be given (any contents: every
+    element is written)."""
+    _check_frames(frames, tables, mode)
     _check_mode(mode, frames.dtype)
     ys, yw, xs, xw = _host(tables)
     F, Hs, Ws = frames.shape
@@ -261,7 +377,8 @@ def band_probe_kernel(frames: torch.Tensor, tables, mode: str, *,
         raise ValueError(f"no kernel for device {frames.device}")
     if not frames.is_contiguous():
         raise ValueError("frames must be contiguous")
-    plan = _plan(tables)
+    plan = (densex_plan(tables, Ws, frames.element_size())
+            if mode == "densex" else _plan(tables))
     need = smem_bytes(plan, mode, Ws, shape[2], yw.shape[1],
                       frames.element_size())
     if need > SMEM_LIMIT:
@@ -272,16 +389,22 @@ def band_probe_kernel(frames: torch.Tensor, tables, mode: str, *,
     out = out_buffer(out, shape, frames.dtype, frames.device)
     d_ys, d_yw, d_xs, d_xw, d_rb, d_cb = cuda_apply._device_tables(
         plan, frames.device)
-    wx_ptr = (_xpair_device(plan, tables, frames.device) if mode == "xpair"
-              else d_xw).data_ptr()
+    if mode == "xpair":
+        wx_ptr = _xpair_device(plan, tables, frames.device).data_ptr()
+    elif mode == "densex":
+        wx_ptr = _densex_device(tables, Ws, frames.dtype,
+                                frames.device).data_ptr()
+    else:
+        wx_ptr = d_xw.data_ptr()
     fn = _build.load(_build.BAND_PROBES).aainterp_band_probe
     with torch.cuda.device(frames.device):
         stream = torch.cuda.current_stream(frames.device).cuda_stream
         rc = fn(frames.data_ptr(), out.data_ptr(), d_ys.data_ptr(),
                 d_yw.data_ptr(), d_xs.data_ptr(), wx_ptr, d_rb.data_ptr(),
                 d_cb.data_ptr(), F, Hs, Ws, shape[1], shape[2], yw.shape[1],
-                xw.shape[1], plan["TY"], plan["TX"], plan["SY"], plan["SX"],
-                MODES[mode], WALK_TILES, _DTYPE_CODES[frames.dtype], stream)
+                xw.shape[1], plan["TY"], plan["TX"], window_rows(plan, mode),
+                plan["SX"], MODES[mode], WALK_TILES,
+                _DTYPE_CODES[frames.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"band probe {mode} launch failed: CUDA error {rc}"
                            f" (F={F}, H={Hs}, W={Ws}, plan TY={plan['TY']} "
@@ -292,11 +415,12 @@ def band_probe_kernel(frames: torch.Tensor, tables, mode: str, *,
 
 
 def traffic(mode: str, tables, shape, elem: int) -> tuple:
-    """(bytes, operations) of one batch of (F, H, W) frames of
+    """(bytes, operations) of one batch of (F, H, W) inputs of
     ``elem``-byte pixels through ``mode`` ('full': the production kernel):
-    the frames read once, the output written once, the tables the mode
-    reads; 2 operations per tap of each pass it keeps (``stage`` keeps
-    none, ``stagey`` the y pass)."""
+    the input read once (``xonly``'s: the y pass's output, (F, Hd, W)),
+    the output written once, the tables the mode reads; 2 operations per
+    tap of each pass it keeps (``stage`` keeps none, ``stagey`` the y pass,
+    ``xonly`` the x pass; ``densex``'s x pass has W taps per output)."""
     ys, yw, xs, xw = _host(tables)
     F, Hs, Ws = shape
     Hd, ky = yw.shape
@@ -307,6 +431,14 @@ def traffic(mode: str, tables, shape, elem: int) -> tuple:
     y_tab = ys.nbytes + yw.nbytes
     y_ops = 2 * F * Hd * Ws * ky
     x_ops = 2 * F * Hd * Wd * kx
+    if mode == "xonly":
+        return (frames + outb + xs.nbytes + xw.nbytes
+                + plan["col_base"].nbytes, x_ops)
+    if mode == "densex":
+        dp = densex_plan(tables, Ws, elem)
+        return (frames + outb + y_tab + Ws * Wd * elem
+                + dp["row_base"].nbytes + dp["col_base"].nbytes,
+                y_ops + 2 * F * Hd * Ws * Wd)
     if mode == "stage":
         return frames + outb + y_tab + xs.nbytes + bases, 0
     if mode == "stagey":
@@ -331,19 +463,23 @@ def word_pixels(buf: np.ndarray, p: int) -> np.ndarray:
 
 
 def run_exp(exp: str, mode: Optional[str], batch: int, dtype, device,
-            shape=(H, W), **extra) -> dict:
+            shape=(H, W), res=(2.0, 1.0), **extra) -> dict:
     """Time ``mode`` (None: the production kernel,
     ``cuda_apply.apply_separable_kernel``) on K = 8 distinct seeded frame
-    batches of (batch, *shape) in ``dtype`` on ``device`` (default: the
-    card), warmed up on one more; the result carries the batch's bytes and
-    operations (``traffic``)."""
+    batches of (batch, *shape) at ``res`` (source -> destination
+    resolution) in ``dtype`` on ``device`` (default: the card), warmed up
+    on one more (``xonly``: batches of the y pass's output, (batch, Hd,
+    W)); the result carries the batch's bytes and operations
+    (``traffic``)."""
     from ..utils.device import target
     from . import harness
 
     dev = target(device)
-    tables = flagship_tables(tuple(shape))
+    tables = flagship_tables(tuple(shape), *res)
     gen = harness.seeded(dev, 0)
-    xs = [harness.uniform((batch,) + tuple(shape), dtype, gen, dev)
+    in_shape = ((len(tables[0]), shape[1]) if mode == "xonly"
+                else tuple(shape))
+    xs = [harness.uniform((batch,) + in_shape, dtype, gen, dev)
           for _ in range(9)]
     if mode is None:
         def fn(x):
@@ -352,7 +488,7 @@ def run_exp(exp: str, mode: Optional[str], batch: int, dtype, device,
         def fn(x):
             return band_probe_kernel(x, tables, mode)
     t = harness.measure(fn, xs[1:], xs[:1])
-    nbytes, ops = traffic(mode or "full", tables, (batch,) + tuple(shape),
+    nbytes, ops = traffic(mode or "full", tables, (batch,) + in_shape,
                           xs[0].element_size())
     px = batch * shape[0] * shape[1]
     return {"exp": exp, "mode": mode or "full", "ms_per_batch": t.ms,
@@ -363,10 +499,11 @@ def run_exp(exp: str, mode: Optional[str], batch: int, dtype, device,
             "device": t.device, **extra}
 
 
-def main(exps: dict, doc: str, dtypes, argv=None) -> int:
+def main(exps: dict, doc: str, dtypes, argv=None, shape=(H, W),
+         res=(2.0, 1.0)) -> int:
     """The probe modules' command line: ``--exp`` (one of ``exps``),
     ``--batch``, ``--dtype`` (one of ``dtypes``), ``--device``,
-    ``--shape``."""
+    ``--shape`` (default ``shape``, at ``res``)."""
     import argparse
     import sys
 
@@ -375,8 +512,9 @@ def main(exps: dict, doc: str, dtypes, argv=None) -> int:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--dtype", default=dtypes[0], choices=dtypes)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    ap.add_argument("--shape", type=int, nargs=2, default=(H, W),
-                    metavar=("H", "W"), help="frame shape (2.0 -> 1.0)")
+    ap.add_argument("--shape", type=int, nargs=2, default=tuple(shape),
+                    metavar=("H", "W"),
+                    help=f"frame shape ({res[0]} -> {res[1]})")
     args = ap.parse_args(argv)
     try:
         r = exps[args.exp](args.batch, getattr(torch, args.dtype),

@@ -7,7 +7,8 @@ W) -> (F, nt * TY, W) with nt = H // TY, on ``csrc/probes.cu``
 block's sweep, one block each (``grid_blocks``), 16-byte loads and
 stores, raw bytes, so any dtype of 1, 2, 4 or 8 bytes copies bit for bit.
 The same kernel is the counterpart of ``benchmarks/rgb1024_experiments.py``
-``_build_copy`` (H = W = 1024, TY 128).  A CUDA tensor launches the kernel
+``_build_copy`` (H = W = 1024, TY 128; ``rgb1024_experiments.exp_copy``
+runs it at JAX's batch * 3 = 24 frames).  A CUDA tensor launches the kernel
 or raises; a CPU tensor takes ``copy_rows_plain``.  ``LAUNCHES`` counts
 the launches.
 

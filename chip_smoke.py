@@ -51,8 +51,9 @@ points (``aainterp_torch.area_average_interpolate`` for the first three):
   entry points ``aainterp_torch.probes.copy_ceiling.measure`` and
   ``aainterp_torch.probes.rot_experiments.EXPS``: the row-tiled copy at
   four frame geometries (8 x 2160 x 3840 bf16, TY 120; the rotated
-  flagship's 8 x 2048^2 bf16 and rgb1024's 8 x 1024^2 bf16, TY 128; the
-  regrid's 8 x 1800 x 3600 f32, TY 120) beside torch's ``copy_``; the
+  flagship's 8 x 2048^2 bf16 and rgb1024's 24 x 1024^2 bf16, TY 128; the
+  regrid's 8 x 1800 x 3600 f32, TY 120) beside torch's ``copy_`` into a
+  destination of its own per input; the
   rotated contraction's probe modes (noweight, tshare, wshare, bothshare,
   pipelined: ``csrc/contract.cuh``) on 4 random T stacks per dtype at the
   rotated flagship; and the flagship's decomposition (the route, its
@@ -64,7 +65,16 @@ points (``aainterp_torch.area_average_interpolate`` for the first three):
   and kernel 1's probe modes (phase 47: ``csrc/band_probes.cu`` on
   ``csrc/band_apply.cuh``) at the 4K flagship in bf16, f32 and u8,
   through ``aainterp_torch.probes.flagship_experiments.EXPS`` and
-  ``u8_experiments.EXPS``, one ``flagship_probe_timing`` JSON line.
+  ``u8_experiments.EXPS``, one ``flagship_probe_timing`` JSON line;
+* probe group 3 (phases 48-49): rgb1024 (bench.py's config 2, 24 planes
+  of 1024^2, 150 -> 60 dpi) through
+  ``aainterp_torch.probes.rgb1024_experiments.EXPS`` in bf16 and f32 —
+  the copy, kernel 1's staging (``dma``), its y pass (``ypass``), its x
+  pass alone (``xonly``), its y pass with a dense x operator
+  (``fulldense``) and kernel 1 — one ``rgb1024_probe_timing`` line; and
+  the fused aligned regrid (``csrc/aligned_fused.cu``) at config 5 through
+  ``aainterp_torch.probes.aligned_fused_probe.EXPS`` beside the aligned
+  route, the einsum and kernel 2, one ``aligned_fused_timing`` line.
 
 It builds every kernel from ``aainterp_torch/csrc`` with nvcc (and the
 host engine ``native/aainterp_native.cpp`` with g++), all compilers at
@@ -144,7 +154,14 @@ exactly 0 outside every dst row's span on NaN T.  Kernel 1's probe modes
 ``torch.equal`` to their plain versions (which repeat the kernels' fused
 multiply-adds exactly) into 0xFF-filled outputs, the modes with
 production's output also to kernel 1 (``xpair`` is held to one level,
-its tap order being production's only for the exact ratio-2 band).
+its tap order being production's only for the exact ratio-2 band).  At
+rgb1024 the probe modes stage, stagey, xonly and densex ``torch.equal``
+to their plain versions into NaN-filled outputs, bf16 and f32, and
+densex in f32 also to kernel 1 (its extra products are exact zeros).  The
+fused aligned regrid ``torch.equal`` to its plain version into a
+NaN-filled output, and against kernel 2 and the aligned route rtol 1e-6,
+atol 1e-3 on fields in [250, 300]; its ``check`` and the einsum's
+relative error below 1e-5 (JAX's bound).
 TF32 is switched off for
 matmul and cuDNN so the plain versions' and library calls' einsums run in
 full f32.  Shear plans and operators go to a disk cache in a temporary
@@ -185,8 +202,9 @@ from aainterp_torch.ops import compat as compat_ops
 from aainterp_torch.ops import (cuda_apply, cuda_apply_2d, cuda_shear,
                                 cuda_shear3, shear3)
 from aainterp_torch.ops import weights as weights_ops
-from aainterp_torch.probes import (band_probes, copy_ceiling,
-                                   flagship_experiments, rot_experiments,
+from aainterp_torch.probes import (aligned_fused_probe, band_probes,
+                                   copy_ceiling, flagship_experiments,
+                                   rgb1024_experiments, rot_experiments,
                                    u8_experiments)
 from aainterp_torch.probes import harness as probe_harness
 
@@ -224,12 +242,13 @@ LEGACY_RUNS = {
     "compat": (["--angle", "1.5", "--mode", "1", "--compat"], "compat"),
     "angle0": (["--angle", "0", "--mode", "1"], "exact"),
 }
-# the copy ceiling's frame geometries (phase 42): copy_ceiling.py's default,
-# the rotated flagship's frames, rgb1024_experiments.py's, the regrid's fields
-COPY_GEOMS = (("4k", 2160, 3840, 120, torch.bfloat16),
-              ("rot2048", 2048, 2048, 128, torch.bfloat16),
-              ("rgb1024", 1024, 1024, 128, torch.bfloat16),
-              ("regrid", 1800, 3600, 120, torch.float32))
+# the copy ceiling's frame geometries (phase 42), each with its frame count:
+# copy_ceiling.py's default, the rotated flagship's frames,
+# rgb1024_experiments.py's (batch * 3 = 24 planes), the regrid's fields
+COPY_GEOMS = (("4k", 2160, 3840, 120, torch.bfloat16, 8),
+              ("rot2048", 2048, 2048, 128, torch.bfloat16, 8),
+              ("rgb1024", 1024, 1024, 128, torch.bfloat16, 24),
+              ("regrid", 1800, 3600, 120, torch.float32, 8))
 PROBE_MODES = tuple(rot_experiments.MODES)
 SHARE_MODES = ("tshare", "wshare", "bothshare")
 # phase 44's experiments, in rot_experiments.py's names
@@ -246,6 +265,14 @@ BAND_EXPS = {torch.bfloat16: (flagship_experiments, ("stage", "ypass",
              torch.uint8: (u8_experiments, ("stage", "extract", "ydot",
                                             "u8words", "u8chunk2", "u8chunk4",
                                             "xpair", "full"))}
+# phase 48: rgb1024_experiments.py's experiments, their probe modes (the
+# checks' inputs: xonly takes the y pass's output) and JAX probes
+RGB_EXPS = tuple(rgb1024_experiments.EXPS)
+RGB_MODES = ("stage", "stagey", "xonly", "densex")
+RGB_REPLACES = {"stage": "benchmarks/rgb1024_experiments.py:88",
+                "stagey": "benchmarks/rgb1024_experiments.py:88",
+                "xonly": "benchmarks/rgb1024_experiments.py:148",
+                "densex": "benchmarks/rgb1024_experiments.py:181"}
 # each probe mode's JAX probe, file:line
 BAND_REPLACES = {
     "stage": "benchmarks/flagship_experiments.py:73,"
@@ -322,6 +349,7 @@ def reset_launches() -> None:
         rot_experiments.LAUNCHES[k] = 0
     for k in band_probes.LAUNCHES:
         band_probes.LAUNCHES[k] = 0
+    aligned_fused_probe.LAUNCHES = 0
 
 
 def other_paths_idle(*counters) -> bool:
@@ -2386,8 +2414,8 @@ def copy_phases(make, card) -> dict:
     # the entry point at each geometry, the counts read around it alone
     torch.cuda.synchronize()
     reset_launches()
-    runs = {name: copy_ceiling.measure(Hc, Wc, ty, F, dtype, dev)
-            for name, Hc, Wc, ty, dtype in COPY_GEOMS}
+    runs = {name: copy_ceiling.measure(Hc, Wc, ty, nf, dtype, dev)
+            for name, Hc, Wc, ty, dtype, nf in COPY_GEOMS}
     torch.cuda.synchronize()
     launches = copy_ceiling.LAUNCHES
     want = len(COPY_GEOMS) * (copy_ceiling.K + 1)    # warm-up + capture
@@ -2398,28 +2426,30 @@ def copy_phases(make, card) -> dict:
                            rot_experiments.LAUNCHES),
           "the copy ceiling launched another kernel")
     geoms, err = {}, 0.0
-    for name, Hc, Wc, ty, dtype in COPY_GEOMS:
-        xs = [make(dtype, (F, Hc, Wc)) for _ in range(copy_ceiling.K + 1)]
+    for name, Hc, Wc, ty, dtype, nf in COPY_GEOMS:
+        xs = [make(dtype, (nf, Hc, Wc)) for _ in range(copy_ceiling.K + 1)]
         rows = Hc // ty * ty
-        buf = filled((F, rows, Wc), dtype, dev)
+        buf = filled((nf, rows, Wc), dtype, dev)
         out = copy_ceiling.copy_rows_kernel(xs[0], ty, out=buf)
         torch.cuda.synchronize()
         plain = copy_ceiling.copy_rows_plain(xs[0], ty)
         check(out is buf and torch.equal(out, plain),
               f"copy {name}: kernel differs from its plain version")
         err = max(err, max_err(out, plain))
-        dst = torch.empty_like(plain)
+        # copy_ into a destination of its own per input, as the kernel and
+        # the plain clone write a fresh output per call
+        dst = {x.data_ptr(): torch.empty_like(plain) for x in xs}
         fns = {"kernel": lambda x: copy_ceiling.copy_rows_kernel(x, ty),
                "plain": lambda x: copy_ceiling.copy_rows_plain(x, ty),
-               "library": lambda x: dst.copy_(x[:, :rows])}
+               "library": lambda x: dst[x.data_ptr()].copy_(x[:, :rows])}
         ms = {}
         for fname in list(fns) + list(reversed(fns)):     # mirrored turns
             t = probe_harness.graph_ms(fns[fname], xs[1:], xs[:1])
             ms[fname] = min(ms.get(fname, t), t)
-        nbytes = 2 * F * rows * Wc * xs[0].element_size()
+        nbytes = 2 * nf * rows * Wc * xs[0].element_size()
         b = bound(nbytes, 0)
         geoms[name] = {
-            "shape": [F, Hc, Wc], "tile_y": ty,
+            "shape": [nf, Hc, Wc], "tile_y": ty,
             "dtype": str(dtype).split(".")[-1], "entry_ms":
             runs[name]["ms_per_batch"], "kernel_ms": ms["kernel"],
             "plain_ms": ms["plain"], "library_ms": ms["library"], **b,
@@ -2428,10 +2458,11 @@ def copy_phases(make, card) -> dict:
             "library_gb_s": nbytes / (ms["library"] * 1e-3) / 1e9,
             "entry_gb_s_combined": runs[name]["gb_s_combined"]}
         g = geoms[name]
-        print(f"[42 copy ceiling] {card}, {name} {F}x{Hc}x{Wc} "
+        print(f"[42 copy ceiling] {card}, {name} {nf}x{Hc}x{Wc} "
               f"{g['dtype']} tile_y {ty}: copy_rows {ms['kernel']:.4f} ms = "
               f"{g['kernel_gb_s']:.1f} GB/s combined (entry point "
-              f"{g['entry_gb_s_combined']:.1f}), copy_ {ms['library']:.4f} "
+              f"{g['entry_gb_s_combined']:.1f}), copy_ into a destination "
+              f"per input {ms['library']:.4f} "
               f"ms = {g['library_gb_s']:.1f} GB/s, plain clone "
               f"{ms['plain']:.4f} ms; bound {b['bound_ms']:.4f} ms "
               f"({100 * b['bound_ms'] / ms['kernel']:.1f} % of it reached); "
@@ -2707,18 +2738,26 @@ def masked_contract_phase(make, card, op, plan, cplan) -> dict:
 def copy_fill_phase(copy_row, card) -> None:
     """Phase 46: the copy's grid at the four geometries of phase 42, and
     its rate at 1024^2 beside copy_'s (phase 42's measurements)."""
-    for name, Hc, Wc, ty, dtype in COPY_GEOMS:
+    for name, Hc, Wc, ty, dtype, nf in COPY_GEOMS:
         g = copy_row["geometries"][name]
         es = torch.empty((), dtype=dtype).element_size()
-        blocks = copy_ceiling.grid_blocks(F, Hc, Wc, ty, es)
-        nbytes = 2 * F * (Hc // ty * ty) * Wc * es
-        print(f"[46 copy fill] {card}, {name} {F}x{Hc}x{Wc} tile_y {ty}: "
-              f"{F * (Hc // ty)} row tiles on {blocks} blocks; copy_rows "
+        blocks = copy_ceiling.grid_blocks(nf, Hc, Wc, ty, es)
+        nbytes = 2 * nf * (Hc // ty * ty) * Wc * es
+        print(f"[46 copy fill] {card}, {name} {nf}x{Hc}x{Wc} tile_y {ty}: "
+              f"{nf * (Hc // ty)} row tiles on {blocks} blocks; copy_rows "
               f"{nbytes / (g['kernel_ms'] * 1e-3) / 1e9:.1f} GB/s, copy_ "
               f"{nbytes / (g['library_ms'] * 1e-3) / 1e9:.1f} GB/s")
         if name == "rgb1024":
             check(blocks >= 2 * 132, f"copy at 1024^2 on {blocks} blocks, "
                   "fewer than two per SM")
+
+
+def column_picker(cols: torch.Tensor, width: int, dtype) -> torch.Tensor:
+    """(width, len(cols)) 0/1 in ``dtype``: column j picks column cols[j],
+    so that ``x @ sel`` is ``x[..., cols]`` as one library product."""
+    sel = torch.zeros((width, cols.shape[0]), dtype=dtype, device=cols.device)
+    sel[cols, torch.arange(cols.shape[0], device=cols.device)] = 1
+    return sel
 
 
 def band_probe_phase(make, card) -> list:
@@ -2802,12 +2841,17 @@ def band_probe_phase(make, card) -> list:
             plain_ms[(str(dtype)[6:], mode)] = probe_harness.graph_ms(
                 lambda x, m=mode: band_probes.band_probe_plain(x, tables, m),
                 xb[1:], xb[:1], reps=2)
-        # one call for the first tap's pixels (stage); the dense einsum for
-        # production's output in bf16 / f32 (none for u8 in, u8 out)
+        # one call for the first tap's pixels (stage); dense einsums for the
+        # y pass at those columns (stagey) and for production's output in
+        # bf16 / f32 (none for u8 in, u8 out)
         library_ms[(str(dtype)[6:], "stage")] = probe_harness.graph_ms(
             lambda x: x[:, rows, cols], xb[1:], xb[:1])
         if dtype != torch.uint8:
             wy0, wx0 = dense[dtype]
+            sel = column_picker(cols[0], W, dtype)
+            library_ms[(str(dtype)[6:], "stagey")] = probe_harness.graph_ms(
+                lambda x: torch.einsum("hy,fyx,xw->fhw", wy0, x, sel),
+                xb[1:], xb[:1], reps=3)
             library_ms[(str(dtype)[6:], "full")] = probe_harness.graph_ms(
                 lambda x: torch.einsum("hy,fyx,wx->fhw", wy0, x, wx0),
                 xb[1:], xb[:1], reps=3)
@@ -2859,6 +2903,246 @@ def band_probe_phase(make, card) -> list:
                if m not in ("stage", "stagey")])
 
 
+
+def rgb1024_phase(make, card, copy_row) -> list:
+    """Phase 48: rgb1024 (bench.py's config 2: 24 planes of 1024^2, 150 ->
+    60 dpi), kernel 1's probe modes against their plain versions, then
+    every experiment of ``rgb1024_experiments.EXPS`` through its entry
+    point in bf16 and f32, beside their plain versions and library calls;
+    one rgb1024_probe_timing line.  Returns rows 13b-d of the JSON
+    summary."""
+    dev = make.device
+    R = rgb1024_experiments.H
+    nf = rgb1024_experiments.CHANNELS * F
+    tables = rgb1024_experiments.tables()
+    plan = band_probes._plan(tables)
+    check((plan["TY"], plan["TX"], plan["SY"], plan["SX"]) ==
+          (8, 240, 21, 600), f"kernel 1's rgb1024 plan {plan}")
+    Hd, Wd = len(tables[0]), len(tables[2])
+    dtypes = (torch.bfloat16, torch.float32)
+    err = {}
+    for dtype in dtypes:
+        dt = str(dtype)[6:]
+        x = make(dtype, (nf, R, R))
+        tmp = make(dtype, (nf, Hd, R))
+        prod = cuda_apply.apply_separable_kernel(x, *tables)
+        for mode in RGB_MODES:
+            inp = tmp if mode == "xonly" else x
+            before = band_probes.LAUNCHES[mode]
+            buf = filled((nf, Hd, Wd), dtype, dev)
+            got = band_probes.band_probe_kernel(inp, tables, mode, out=buf)
+            torch.cuda.synchronize()
+            check(got is buf and band_probes.LAUNCHES[mode] == before + 1,
+                  f"rgb1024 {mode}: not one launch per call")
+            plain = band_probes.band_probe_plain(inp, tables, mode)
+            err[(dt, mode)] = max_err(got, plain)
+            check(torch.equal(got, plain), f"rgb1024 {mode} {dt} differs "
+                  f"from its plain version (max {err[(dt, mode)]})")
+            if mode == "densex" and dtype == torch.float32:
+                check(torch.equal(got, prod), "rgb1024 densex f32 is not "
+                      "kernel 1's output")
+            del got, plain, buf
+        print(f"[48 rgb1024] {nf}x{R}x{R} {dt} -> {Hd}x{Wd}, plan TY 8 TX "
+              f"240 SY 21 SX 600 (densex: TX {Wd}, SX {R}) into NaN-filled "
+              f"outputs: {', '.join(RGB_MODES)} torch.equal to their plain "
+              "versions" + (" (densex also to kernel 1)"
+                            if dtype == torch.float32 else ""))
+        del x, tmp, prod
+    # the entry points: every experiment, the counts read around them
+    torch.cuda.synchronize()
+    reset_launches()
+    runs = {(str(dt)[6:], exp): rgb1024_experiments.EXPS[exp](F, dt, dev)
+            for dt in dtypes for exp in RGB_EXPS}
+    torch.cuda.synchronize()
+    want = {m: 0 for m in band_probes.MODES}
+    for r in runs.values():
+        if r["mode"] in want:
+            want[r["mode"]] += 9                  # warm-up + 8 captured
+    n_dt = len(dtypes)
+    check(dict(band_probes.LAUNCHES) == want, f"rgb1024 probes launched "
+          f"{dict(band_probes.LAUNCHES)}, want {want}")
+    check(copy_ceiling.LAUNCHES == 9 * n_dt and cuda_apply.LAUNCHES ==
+          9 * n_dt and cuda_apply_2d.LAUNCHES == 0
+          and aligned_fused_probe.LAUNCHES == 0
+          and other_paths_idle(cuda_shear.LAUNCHES, cuda_shear3.LAUNCHES,
+                               rot_experiments.LAUNCHES),
+          "the rgb1024 experiments launched a kernel of another path")
+    launches = dict(band_probes.LAUNCHES)
+    # plain versions and library calls on the same kind of inputs
+    plain_ms, library_ms = {}, {}
+    ys, yw, xs, xw = (torch.as_tensor(t, device=dev) for t in tables)
+    rows = ys.long().clamp(0, R - 1)[:, None]
+    cols = xs.long().clamp(0, R - 1)[None, :]
+    dense = operator((R, R), 0.0, ratio=rgb1024_experiments.RES).dense()
+    for dtype in dtypes:
+        dt = str(dtype)[6:]
+        xb = [make(dtype, (nf, R, R)) for _ in range(3)]
+        tb = [make(dtype, (nf, Hd, R)) for _ in range(3)]
+        for mode in ("stage", "stagey", "xonly"):
+            ins = tb if mode == "xonly" else xb
+            plain_ms[(dt, mode)] = probe_harness.graph_ms(
+                lambda x, m=mode: band_probes.band_probe_plain(x, tables, m),
+                ins[1:], ins[:1], reps=2)
+        # 1024 fused multiply-add steps of (24, 410, 410) in float64: eager
+        plain_ms[(dt, "densex")] = eager_ms(
+            lambda x: band_probes.band_probe_plain(x, tables, "densex"),
+            xb[1:], 1)
+        wy0, wx0 = (torch.as_tensor(m, dtype=dtype, device=dev)
+                    for m in dense)
+        wxd = band_probes._densex_device(tables, R, dtype, dev)
+        library_ms[(dt, "stage")] = probe_harness.graph_ms(
+            lambda x: x[:, rows, cols], xb[1:], xb[:1])
+        sel = column_picker(cols[0], R, dtype)
+        library_ms[(dt, "stagey")] = probe_harness.graph_ms(
+            lambda x: torch.einsum("hy,fyx,xw->fhw", wy0, x, sel),
+            xb[1:], xb[:1], reps=3)
+        library_ms[(dt, "xonly")] = probe_harness.graph_ms(
+            lambda t: torch.matmul(t, wxd), tb[1:], tb[:1])
+        library_ms[(dt, "densex")] = probe_harness.graph_ms(
+            lambda x: torch.einsum("hy,fyx,wx->fhw", wy0, x, wx0),
+            xb[1:], xb[:1], reps=3)
+        library_ms[(dt, "full")] = library_ms[(dt, "densex")]
+        if dtype == torch.bfloat16:          # phase 42's, the same geometry
+            g = copy_row["geometries"]["rgb1024"]
+            plain_ms[(dt, "copy")] = g["plain_ms"]
+            library_ms[(dt, "copy")] = g["library_ms"]
+        del xb, tb
+    timing = {"card": card, "shape": [nf, R, R], "dst": [Hd, Wd],
+              "plan": {k: plan[k] for k in ("TY", "TX", "SY", "SX")},
+              "exps": {}}
+    for (dt, exp), r in runs.items():
+        key = (dt, r["mode"])
+        timing["exps"][f"{dt}_{exp}"] = {
+            "mode": r["mode"], "ms": r["ms_per_batch"],
+            "gpixel_s": r["gpixel_s"], "us_per_frame": r["us_per_frame"],
+            "bytes": r["bytes"], "operations": r["operations"],
+            **bound(r["bytes"], r["operations"]),
+            "plain_ms": plain_ms.get(key), "library_ms": library_ms.get(key)}
+    ex = timing["exps"]
+    for dt in ("bfloat16", "float32"):
+        print(f"[48 rgb1024] {card}, {nf}x{R}x{R} {dt}, device ms per batch "
+              "(CUDA-graph replays, best of 2) / bound ms / library ms: "
+              + ", ".join(f"{k[len(dt) + 1:]} {v['ms']:.4f} / "
+                          f"{v['bound_ms']:.4f} ({v['bound_by']}) / "
+                          + (f"{v['library_ms']:.4f}"
+                             if v["library_ms"] is not None else "none")
+                          for k, v in ex.items() if k.startswith(dt)))
+    print(json.dumps({"rgb1024_probe_timing": timing}))
+
+    def row(name, mode, exp):
+        r = ex[f"bfloat16_{exp}"]
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "aainterp_torch/csrc/band_probes.cu",
+            "replaces": RGB_REPLACES[mode],
+            "launches": launches[mode],
+            "max_abs_err": max(err[(dt, mode)] for dt in ("bfloat16",
+                                                          "float32")),
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "dtype": "bfloat16",
+            "float32": {k: ex[f"float32_{exp}"][k] for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms")},
+        }
+
+    return [row("rgb1024_dma", "stage", "dma"),
+            row("rgb1024_ypass", "stagey", "ypass"),
+            row("band_xonly", "xonly", "xonly"),
+            row("band_densex", "densex", "fulldense")]
+
+
+def aligned_fused_phase(make, card) -> dict:
+    """Phase 49: the fused aligned regrid at config 5 (8 f32 fields 1800 x
+    3600 -> 180 x 360, m = 10) against its plain version, kernel 2 and the
+    aligned route, then every experiment of ``aligned_fused_probe.EXPS``
+    through its entry point; one aligned_fused_timing line.  Returns row
+    12 of the JSON summary."""
+    dev = make.device
+    af = aligned_fused_probe
+    src, dst = t_regrid.LatLonGrid(*RG_SRC), t_regrid.LatLonGrid(*RG_DST)
+    by, bx = t_regrid.conservative_regrid_operator(src, dst)
+    yp, xp = (dict(p, wk=torch.as_tensor(p["wk"], device=dev))
+              for p in af.geometry(RG_SRC, RG_DST))
+    check((yp["m"], yp["c0"], xp["m"], xp["c0"]) == (10, 0, 10, 0),
+          f"config 5's aligned plans: m {yp['m']}, {xp['m']}")
+    x = make(torch.float32, (RG_F,) + RG_SRC) * 50.0 + 250.0
+    before = af.LAUNCHES
+    buf = filled((RG_F,) + RG_DST, torch.float32, dev)
+    got = af.aligned_fused_kernel(x, yp, xp, out=buf)
+    torch.cuda.synchronize()
+    check(got is buf and af.LAUNCHES == before + 1,
+          "fused aligned: not one launch per call")
+    plain = af.aligned_fused_plain(x, yp, xp)
+    err = max_err(got, plain)
+    check(torch.equal(got, plain), f"fused aligned differs from its plain "
+          f"version (max {err})")
+    others = {"kernel 2": t_regrid.apply_band_operators(x, by, bx,
+                                                        impl="kernel"),
+              "aligned route": apply_ops.apply_separable_aligned(x, yp, xp)}
+    for name, ref in others.items():
+        check(torch.allclose(got, ref, rtol=1e-6, atol=1e-3),
+              f"fused aligned vs {name}: max |diff| {max_err(got, ref)}")
+    rel = af.check(dev)
+    print(f"[49 fused aligned] {RG_F}x{RG_SRC[0]}x{RG_SRC[1]} f32 -> "
+          f"{RG_DST}: torch.equal to its plain version into a NaN-filled "
+          f"output; vs kernel 2 {max_err(got, others['kernel 2']):.3e}, vs "
+          f"the aligned route {max_err(got, others['aligned route']):.3e} "
+          f"(rtol 1e-6, atol 1e-3); check: fused rel {rel['fused']:.2e}, "
+          f"einsum rel {rel['einsum']:.2e} (< 1e-5)")
+    del x, buf, got, plain, others
+    # the entry points: every experiment, the counts read around them
+    torch.cuda.synchronize()
+    reset_launches()
+    runs = {name: af.EXPS[name](RG_F, dev) for name in af.EXPS}
+    torch.cuda.synchronize()
+    check(af.LAUNCHES == 9 and cuda_apply_2d.LAUNCHES == 9
+          and cuda_apply.LAUNCHES == 0 and copy_ceiling.LAUNCHES == 0
+          and other_paths_idle(band_probes.LAUNCHES, cuda_shear.LAUNCHES,
+                               cuda_shear3.LAUNCHES,
+                               rot_experiments.LAUNCHES),
+          f"fused aligned experiments: {af.LAUNCHES} fused and "
+          f"{cuda_apply_2d.LAUNCHES} kernel-2 launches, want 9 and 9, no "
+          "other")
+    launches = af.LAUNCHES
+    xb = [make(torch.float32, (RG_F,) + RG_SRC) * 50.0 + 250.0
+          for _ in range(3)]
+    plain_ms = probe_harness.graph_ms(
+        lambda f: af.aligned_fused_plain(f, yp, xp), xb[1:], xb[:1], reps=2)
+    del xb
+    pal = runs["pallas"]
+    b = bound(pal["bytes"], pal["operations"])
+    timing = {"card": card, "shape": [RG_F, *RG_SRC], "dst": list(RG_DST),
+              "m": [yp["m"], xp["m"]], "plain_ms": plain_ms, **b,
+              "exps": {k: {"ms": r["ms_per_batch"], "gpixel_s":
+                           r["gpixel_s"], "us_per_frame": r["us_per_frame"]}
+                       for k, r in runs.items()}}
+    print(f"[49 fused aligned] {card}, device ms per batch (CUDA-graph "
+          "replays, best of 2): " + ", ".join(
+              f"{k} {v['ms']:.4f}" for k, v in timing["exps"].items())
+          + f"; plain {plain_ms:.4f}; bound {b['bound_ms']:.4f} "
+          f"({b['bound_by']}, {100 * b['bound_ms'] / pal['ms_per_batch']:.1f}"
+          " % of it reached by the fused kernel)")
+    print(json.dumps({"aligned_fused_timing": timing}))
+    return {
+        "name": "aligned_fused",
+        "route": "cuda",
+        "source": "aainterp_torch/csrc/aligned_fused.cu",
+        "replaces": "benchmarks/aligned_fused_probe.py:100",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": pal["ms_per_batch"],
+        "plain_ms": plain_ms,
+        "bound_ms": b["bound_ms"],
+        "bound_by": b["bound_by"],
+        # JAX's einsum experiment: one double contraction, TF32 off
+        "library_ms": runs["einsum"]["ms_per_batch"],
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2875,7 +3159,7 @@ def main() -> int:
 
 
 def run(work: str) -> int:
-    """Phases 1-47; ``work`` is a temporary directory for files."""
+    """Phases 1-49; ``work`` is a temporary directory for files."""
     # ---- 1. device -------------------------------------------------------
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
@@ -2895,13 +3179,14 @@ def run(work: str) -> int:
     # ---- 2. build: every library, all compilers at once ---------------------
     libs = (_build.SEPARABLE, _build.SEPARABLE_2D, _build.ELL_SHEAR,
             _build.SHEAR3_STAGE, _build.PROBES, _build.BAND_PROBES,
-            _build.NATIVE)
+            _build.ALIGNED_FUSED, _build.NATIVE)
     build_s = _build.timed_build(libs)
     for lib in libs:
         _build.load(lib)
     print(f"[2 build] nvcc {' '.join(_build.NVCC_FLAGS)} "
           f"(separable_apply.cu, separable_apply_2d.cu, ell_shear.cu, "
-          f"shear3_stage.cu, probes.cu, band_probes.cu) and g++ "
+          f"shear3_stage.cu, probes.cu, band_probes.cu, aligned_fused.cu) "
+          f"and g++ "
           f"{' '.join(_build.GXX_FLAGS)} (aainterp_native.cpp), in "
           f"parallel: {build_s:.2f} s")
 
@@ -3117,6 +3402,8 @@ def run(work: str) -> int:
                                         compat_plan))
     copy_fill_phase(probes[0], card)
     probes += band_probe_phase(make, card)
+    probes += rgb1024_phase(make, card, probes[0])
+    probes.append(aligned_fused_phase(make, card))
 
     print(json.dumps({"kernels": [{
         "name": "separable_apply",

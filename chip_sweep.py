@@ -29,7 +29,7 @@ of two.
   plain T);
 * ``c_4k``, ``c_rot2048``, ``c_rgb1024``, ``c_regrid``: the copy probe
   (``csrc/probes.cu``) at ``chip_smoke.py``'s four copy geometries, 8
-  frames each (its grid: variants ``copy*``).  Their tile tables are planned anew under each ``--set`` (for
+  frames each but rgb1024's 24 (its grid: variants ``copy*``).  Their tile tables are planned anew under each ``--set`` (for
   example ``--set 'cuda_shear._TILES=((32, 128),)'``).
 
 Each cell's kernel output is checked against its plain version first
@@ -51,11 +51,11 @@ shear tile shapes: ``--set 'shear3._Y_TILES=((32, 64),);shear3._X_TILES=
 Prints the card's name and power limit, then one JSON line per (variant,
 setting) with each cell's ms and plan.
 
-``--sass`` instead builds the production libraries of ``--repo`` (the
-separable kernels, the rotated kernels) and prints one JSON line with the
-SASS instruction count of each kernel function (``cuobjdump -sass``, names
-demangled with ``cu++filt``): a source change that must leave a kernel's
-code as it was shows the same counts in both checkouts.
+``--sass`` instead builds every CUDA library of ``--repo`` (the
+production kernels and the probes, all at once) and prints one JSON line
+with the SASS instruction count of each kernel function (``cuobjdump
+-sass``, names demangled with ``cu++filt``): a source change that must
+leave a kernel's code as it was shows the same counts in both checkouts.
 """
 
 from __future__ import annotations
@@ -353,22 +353,24 @@ def make_cells(dev):
         if hasattr(cuda_shear, f"{name}_kernel"):
             cells[f"r_{name}"] = r_cell(name)
 
-    def c_cell(H, W, ty, dtype):
+    def c_cell(H, W, ty, dtype, nf):
         from aainterp_torch.probes import copy_ceiling
 
         def prepare():
             return (lambda x: copy_ceiling.copy_rows_kernel(x, ty),
                     lambda x: copy_ceiling.copy_rows_plain(x, ty),
-                    {"tile_y": ty, "bytes": 2 * 8 * (H // ty * ty) * W
+                    {"tile_y": ty, "frames": nf,
+                     "bytes": 2 * nf * (H // ty * ty) * W
                      * torch.empty((), dtype=dtype).element_size()})
-        return prepare, lambda: rand(("copy", H, W, dtype), (8, H, W),
+        return prepare, lambda: rand(("copy", H, W, dtype), (nf, H, W),
                                      dtype), 0.0
 
-    for name, H, W, ty, dtype in (("4k", 2160, 3840, 120, bf16),
-                                  ("rot2048", 2048, 2048, 128, bf16),
-                                  ("rgb1024", 1024, 1024, 128, bf16),
-                                  ("regrid", 1800, 3600, 120, torch.float32)):
-        cells[f"c_{name}"] = c_cell(H, W, ty, dtype)
+    for name, H, W, ty, dtype, nf in (
+            ("4k", 2160, 3840, 120, bf16, 8),
+            ("rot2048", 2048, 2048, 128, bf16, 8),
+            ("rgb1024", 1024, 1024, 128, bf16, 24),
+            ("regrid", 1800, 3600, 120, torch.float32, 8)):
+        cells[f"c_{name}"] = c_cell(H, W, ty, dtype, nf)
     return cells
 
 
@@ -383,9 +385,11 @@ def main() -> int:
     sys.path.insert(0, str(Path(args.repo).resolve()))
     if args.sass:
         from aainterp_torch import _build
+        libs = [lib for lib in vars(_build).values()
+                if isinstance(lib, _build.Library) and lib.compiler == "nvcc"]
+        _build.build_many(libs)
         print(json.dumps({"repo": args.repo, "sass": sass_counts(
-            _build, (_build.SEPARABLE, _build.SEPARABLE_2D,
-                     _build.ELL_SHEAR))}), flush=True)
+            _build, libs)}), flush=True)
         return 0
     import torch
 

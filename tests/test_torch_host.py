@@ -191,7 +191,9 @@ def test_import_pulls_in_neither_jax_nor_aainterp():
         "aainterp_torch.probes.rot_experiments, "
         "aainterp_torch.probes.band_probes, "
         "aainterp_torch.probes.flagship_experiments, "
-        "aainterp_torch.probes.u8_experiments\n"
+        "aainterp_torch.probes.u8_experiments, "
+        "aainterp_torch.probes.rgb1024_experiments, "
+        "aainterp_torch.probes.aligned_fused_probe\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'aainterp') "
         "or m.startswith(('jax.', 'jaxlib', 'aainterp.')))\n"
         "print(bad)\n"

@@ -39,7 +39,11 @@ empty rows and F > 8; on NaN T it writes 0 outside every span.  The copy
 probe split over blocks (8 x 1024^2, odd widths) and kernel 1's probe
 modes (``csrc/band_probes.cu``) bit-equal to their plain versions, into
 0xFF-filled outputs, bf16, f32 and u8, at a small and an odd-pitch
-geometry.
+geometry.  rgb1024's x-pass modes (``xonly``, ``densex``) and the fused
+aligned regrid (``csrc/aligned_fused.cu``) bit-equal to their plain
+versions into NaN-filled outputs: rgb1024, a ragged strip, one row tile
+and an upsampling plan; config 5, ``c0`` offsets on odd widths and a dst
+row split into chunks; ``densex`` in f32 equal to kernel 1.
 """
 
 import dataclasses
@@ -1351,3 +1355,96 @@ def test_band_probes_reject_what_they_cannot_take(cuda):
     u8 = _frames((2, 240, 512), torch.uint8, cuda)
     with pytest.raises(ValueError, match="exact ratio-2"):
         band_probes.band_probe_kernel(u8, t3, "xpair")
+
+
+# ---------------------------------------------------------------------------
+# rgb1024's x-pass probes (xonly, densex) and the fused aligned regrid
+# ---------------------------------------------------------------------------
+
+X_PROBE_GEOMS = [((1024, 1024), 150.0, 60.0),   # rgb1024: Wd 410, 2 strips
+                 ((250, 998), 2.0, 1.0),        # Wd 499: a ragged strip
+                 ((12, 500), 2.0, 1.0),         # Hd 6: one row tile
+                 ((64, 160), 1.0, 2.0)]         # upsampling: SY 5 < TY 8
+
+
+@pytest.mark.parametrize("geom", X_PROBE_GEOMS,
+                         ids=["rgb1024", "ragged", "one-tile", "upsampling"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_x_probes_match_plain(cuda, geom, dtype):
+    from aainterp_torch.probes import band_probes
+
+    shape, sr, dr = geom
+    tables = band_probes.flagship_tables(shape, sr, dr)
+    Hd, Wd = len(tables[0]), len(tables[2])
+    x = _frames((3,) + shape, dtype, cuda, seed=5)
+    tmp = _frames((3, Hd, shape[1]), dtype, cuda, seed=6)
+    before = cuda_apply.LAUNCHES
+    for mode, inp in (("xonly", tmp), ("densex", x)):
+        n = band_probes.LAUNCHES[mode]
+        buf = _ff((3, Hd, Wd), dtype, cuda)
+        got = band_probes.band_probe_kernel(inp, tables, mode, out=buf)
+        torch.cuda.synchronize()
+        assert got is buf and band_probes.LAUNCHES[mode] == n + 1
+        assert torch.equal(got, band_probes.band_probe_plain(inp, tables,
+                                                             mode)), mode
+    assert cuda_apply.LAUNCHES == before
+    if dtype == torch.float32:          # densex's zeros leave the sums as
+        assert torch.equal(got, cuda_apply.apply_separable_kernel(
+            x, *tables))                # production's
+
+
+def test_x_probes_reject_what_they_cannot_take(cuda):
+    from aainterp_torch.probes import band_probes
+
+    tables = band_probes.flagship_tables((64, 160), 150.0, 60.0)
+    x = _frames((2, 64, 160), torch.float32, cuda)
+    with pytest.raises(ValueError, match="y pass's output"):
+        band_probes.band_probe_kernel(x, tables, "xonly")
+    with pytest.raises(ValueError, match="no torch.uint8 instance"):
+        band_probes.band_probe_kernel(x.to(torch.uint8), tables, "densex")
+    wide = band_probes.flagship_tables((8, 60000), 2.0, 1.0)
+    with pytest.raises(ValueError, match="shared memory"):
+        band_probes.band_probe_kernel(_frames((1, 8, 60000), torch.float32,
+                                              cuda), wide, "densex")
+
+
+def _synthetic_plans(my, cy, hd, mx, cx, wd, seed):
+    rng = np.random.default_rng(seed)
+    return (dict(m=my, c0=cy, wk=rng.uniform(0, 1, (hd, my))
+                 .astype(np.float32)),
+            dict(m=mx, c0=cx, wk=rng.uniform(0, 1, (wd, mx))
+                 .astype(np.float32)))
+
+
+FUSED_CASES = {
+    "config5": ((1800, 3600), (180, 360)),
+    "small": ((180, 360), (18, 36)),
+    # c0 offsets, odd widths (4-byte loads), extra rows and columns
+    "offsets": ((2 + 3 * 7 + 1, 1 + 5 * 9 + 3), (3, 2, 7, 5, 1, 9)),
+    # a dst row's y sums beyond one block: 250 columns in chunks
+    "chunked": ((10, 60 * 250), (2, 0, 5, 60, 0, 250)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+def test_aligned_fused_matches_plain(cuda, case):
+    from aainterp_torch.ops.apply import apply_separable_aligned
+    from aainterp_torch.probes import aligned_fused_probe as af
+
+    src, spec = FUSED_CASES[case]
+    if case in ("config5", "small"):
+        yp, xp = af.geometry(src, spec)
+    else:
+        yp, xp = _synthetic_plans(*spec, seed=7)
+    x = _frames((2,) + src, torch.float32, cuda, seed=8) * 100.0 + 200.0
+    hd, wd = len(yp["wk"]), len(xp["wk"])
+    n = af.LAUNCHES
+    buf = _ff((2, hd, wd), torch.float32, cuda)
+    got = af.aligned_fused_kernel(x, yp, xp, out=buf)
+    torch.cuda.synchronize()
+    assert got is buf and af.LAUNCHES == n + 1
+    assert torch.equal(got, af.aligned_fused_plain(x, yp, xp))
+    torch.testing.assert_close(got, apply_separable_aligned(x, yp, xp),
+                               rtol=1e-6, atol=1e-3)
+    if case == "chunked":
+        assert af.chunk_cols(wd, 60) < wd
