@@ -1,6 +1,6 @@
 """Build the port's native libraries at first use and load them with ctypes.
 
-Eight libraries, each from one source with a plain C interface (no
+Nine libraries, each from one source with a plain C interface (no
 PyTorch headers), so each builds in seconds:
 
 * ``separable_apply`` — ``csrc/separable_apply.cu`` through nvcc;
@@ -20,6 +20,9 @@ PyTorch headers), so each builds in seconds:
 * ``aligned_fused`` — ``csrc/aligned_fused.cu`` (the fused aligned
   regrid probe: both passes of an aligned integer-ratio apply in one
   kernel) through nvcc;
+* ``watchlist`` — ``csrc/watchlist.cu`` (the Mosaic watchlist's six
+  probes on TMA, 1-D bulk copies with mbarriers and wgmma, from the
+  Hopper primitives of ``csrc/hopper.cuh``) through nvcc;
 * ``aainterp_native`` — the repository's host weight-gen and CSV engine,
   ``native/aainterp_native.cpp``, through g++ with the flags of
   ``native/Makefile``.
@@ -30,7 +33,8 @@ The four CUDA sources of the production kernels include
 contraction's body under its probe modes; ``separable_apply.cu``,
 ``separable_apply_2d.cu`` and ``band_probes.cu`` include
 ``csrc/band_apply.cuh``, the separable kernels' body under its probe
-modes.
+modes; ``watchlist.cu`` includes ``csrc/hopper.cuh`` and, for the
+shared-memory opt-in, ``csrc/stage_common.cuh``.
 
 Each shared library lands in ``aainterp_torch/_build/`` under a name that
 carries a hash of its source, the headers it includes, its compiler and
@@ -165,6 +169,28 @@ ALIGNED_FUSED = Library(
     #     c0y, c0x, TXc, stream)
     (("aainterp_aligned_fused", (_P,) * 4 + (_I,) * 10 + (_P,),
       ctypes.c_int),))
+
+WATCHLIST = Library(
+    "watchlist", _PKG / "csrc" / "watchlist.cu", "nvcc", NVCC_FLAGS,
+    (
+        # aainterp_strided_y_bf16(x, out, frames, rows, m, C, frame, parity,
+        #     R, stream)
+        ("aainterp_strided_y_bf16", (_P,) * 2 + (_I,) * 7 + (_P,),
+         ctypes.c_int),
+        # aainterp_strided_load(x, out, R, W, stream)
+        ("aainterp_strided_load", (_P,) * 2 + (_I,) * 2 + (_P,), ctypes.c_int),
+        # aainterp_value_slice(x, out, R, W, stream)
+        ("aainterp_value_slice", (_P,) * 2 + (_I,) * 2 + (_P,), ctypes.c_int),
+        # aainterp_unaligned_dma(x, out, H, W, r0, n, stream)
+        ("aainterp_unaligned_dma", (_P,) * 2 + (_I,) * 4 + (_P,),
+         ctypes.c_int),
+        # aainterp_high_dot(a, b, out, M, N, K, stream)
+        ("aainterp_high_dot", (_P,) * 3 + (_I,) * 3 + (_P,), ctypes.c_int),
+        # aainterp_vpu_dyn_rows(x, off, out, rows, C, R, stream)
+        ("aainterp_vpu_dyn_rows", (_P,) * 3 + (_I,) * 3 + (_P,),
+         ctypes.c_int),
+    ),
+    headers=(_PKG / "csrc" / "hopper.cuh", _STAGE_HEADER))
 
 NATIVE = Library(
     "aainterp_native", _PKG.parent / "native" / "aainterp_native.cpp", "g++",

@@ -21,6 +21,11 @@
 * ``aligned_fused_probe`` — the config-5 regrid's aligned route with its
   y -> x intermediate kept on chip (``csrc/aligned_fused.cu``) beside the
   route, the einsum and kernel 2 (``benchmarks/aligned_fused_probe.py``);
+* ``mosaic_watchlist`` — the Mosaic watchlist's six probes on
+  ``csrc/watchlist.cu``, each computing its JAX probe's function with the
+  Hopper feature its parked design needs (TMA tile loads, 1-D bulk copies
+  on an mbarrier, wgmma; ``csrc/hopper.cuh``), each reported "available"
+  or "blocked" (``benchmarks/mosaic_watchlist.py``);
 * ``harness`` — their timer (CUDA-graph replays on distinct inputs, CUDA
   events).
 
@@ -30,6 +35,7 @@
     python -m aainterp_torch.probes.u8_experiments --exp u8words
     python -m aainterp_torch.probes.rgb1024_experiments --exp xonly
     python -m aainterp_torch.probes.aligned_fused_probe --exp all
+    python -m aainterp_torch.probes.mosaic_watchlist [--probe high_dot]
 
 All run on the card; ``--device cpu`` runs the plain versions on the
 CPU, timed on the host's clock (not a device time).

@@ -74,7 +74,14 @@ points (``aainterp_torch.area_average_interpolate`` for the first three):
   (``fulldense``) and kernel 1 — one ``rgb1024_probe_timing`` line; and
   the fused aligned regrid (``csrc/aligned_fused.cu``) at config 5 through
   ``aainterp_torch.probes.aligned_fused_probe.EXPS`` beside the aligned
-  route, the einsum and kernel 2, one ``aligned_fused_timing`` line.
+  route, the einsum and kernel 2, one ``aligned_fused_timing`` line;
+* probe group 4 (phase 50): the Mosaic watchlist
+  (``aainterp_torch.probes.mosaic_watchlist``), six probes on
+  ``csrc/watchlist.cu`` built from the Hopper primitives of
+  ``csrc/hopper.cuh`` (a 4-D and a 2-D TMA tile load, 1-D bulk copies in
+  and out on an mbarrier, wgmma m64n128k16, a 16-byte pair sum and rows
+  at dynamic offsets) at JAX's shapes, through ``run_watchlist`` and
+  ``measure``, one ``watchlist_timing`` line.
 
 It builds every kernel from ``aainterp_torch/csrc`` with nvcc (and the
 host engine ``native/aainterp_native.cpp`` with g++), all compilers at
@@ -83,8 +90,11 @@ inputs; checks small inputs against dense float64 references; and times
 the kernels, their plain versions, one PyTorch library call per kernel
 where one computes the same function (a dense ``torch.einsum``, a
 ``torch.gather``) and a device-to-device copy; the separable kernels in
-every input dtype (phase 8: kernel 1 at bf16, f32 and u8; phase 30:
-kernel 2 at f32, bf16, u8, 0.25 degree and in its direct form).  Each
+every input dtype (phase 8: kernel 1 at bf16, f32 and u8, the dense
+einsum in bf16 and f32; phase 30: kernel 2 at f32, bf16, u8, 0.25 degree
+and in its direct form, with the dense einsums of f32 and bf16, 0.25
+degree and the direct form's operators beside it; phase 35: kernel 1 as
+the transpose beside the einsum on the transposed operators).  Each
 kernel's bound is the larger of its bytes (each input read once, each
 output written once) over the H100's published 3.35 TB/s and its
 operations over the published 67 TFLOP/s of float32 outside the tensor
@@ -161,7 +171,10 @@ densex in f32 also to kernel 1 (its extra products are exact zeros).  The
 fused aligned regrid ``torch.equal`` to its plain version into a
 NaN-filled output, and against kernel 2 and the aligned route rtol 1e-6,
 atol 1e-3 on fields in [250, 300]; its ``check`` and the einsum's
-relative error below 1e-5 (JAX's bound).
+relative error below 1e-5 (JAX's bound).  The watchlist's kernels
+``torch.equal`` to their plain versions into NaN-filled outputs, high_dot
+(bf16x3 on wgmma, f32 sums on the tensor cores against the three products
+summed in float64) within 1e-5 of its plain output's largest magnitude.
 TF32 is switched off for
 matmul and cuDNN so the plain versions' and library calls' einsums run in
 full f32.  Shear plans and operators go to a disk cache in a temporary
@@ -204,8 +217,8 @@ from aainterp_torch.ops import (cuda_apply, cuda_apply_2d, cuda_shear,
 from aainterp_torch.ops import weights as weights_ops
 from aainterp_torch.probes import (aligned_fused_probe, band_probes,
                                    copy_ceiling, flagship_experiments,
-                                   rgb1024_experiments, rot_experiments,
-                                   u8_experiments)
+                                   mosaic_watchlist, rgb1024_experiments,
+                                   rot_experiments, u8_experiments)
 from aainterp_torch.probes import harness as probe_harness
 
 H, W, F = 2160, 3840, 8                 # the flagship: 4K -> 1080p, 8 frames
@@ -287,12 +300,17 @@ BAND_REPLACES = {
     "u8convert2": "benchmarks/flagship_experiments.py:497",
     "u8convert4": "benchmarks/flagship_experiments.py:497",
     "xpair": "benchmarks/u8_experiments.py:86"}
+# phase 50: each watchlist probe's pallas_call in the JAX file
+WATCHLIST_LINES = {"strided_y_bf16": 67, "strided_load": 87,
+                   "value_slice": 103, "unaligned_dma": 122, "high_dot": 144,
+                   "vpu_dyn_rows": 171}
 # bench.py's stream case (bench.py:306-357): 48 distinct 4K frames, batch 8
 STREAM_N, STREAM_BATCH = 48, 8
 REPO = os.path.dirname(os.path.abspath(__file__))
 # NVIDIA's data sheet for the H100 SXM (dense rates, 700 W)
 PEAK_BYTES_S = 3.35e12           # HBM3
 PEAK_F32_FLOP_S = 67e12          # float32 outside the tensor cores
+PEAK_BF16_TC_FLOP_S = 989e12     # bf16 on the tensor cores, dense
 
 
 def check(cond: bool, msg: str) -> None:
@@ -350,6 +368,8 @@ def reset_launches() -> None:
     for k in band_probes.LAUNCHES:
         band_probes.LAUNCHES[k] = 0
     aligned_fused_probe.LAUNCHES = 0
+    for k in mosaic_watchlist.LAUNCHES:
+        mosaic_watchlist.LAUNCHES[k] = 0
 
 
 def other_paths_idle(*counters) -> bool:
@@ -357,11 +377,13 @@ def other_paths_idle(*counters) -> bool:
     return all(v == 0 for c in counters for v in c.values())
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float,
+          peak_flop_s: float = PEAK_F32_FLOP_S) -> dict:
     """The least time the card could take for work that moves ``nbytes``
-    and does ``flops`` float32 operations: the larger of the two times at
-    the published peaks, and which of them bounds it."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOP_S
+    and does ``flops`` operations at ``peak_flop_s`` (float32 outside the
+    tensor cores unless given): the larger of the two times at the
+    published peaks, and which of them bounds it."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak_flop_s
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -1755,9 +1777,18 @@ def rotated_rest_phases(make, card, dev):
     check(tuple(rt.shape) == frames_shape and bool(torch.isfinite(rt).all()),
           f"rotated transpose {tuple(rt.shape)}")
     gs32 = [g.float() for g in gs]
+    # kernel 1 as the transpose's library call: one einsum with the dense
+    # operators transposed, bf16 like the cotangents
+    wyt, wxt = (torch.as_tensor(m, dtype=torch.bfloat16, device=dev)
+                for m in op0.dense())
+    el = max_err(torch.einsum("hy,fhw,wx->fyx", wyt, cots[0], wxt),
+                 at.apply_operator_transpose(op0, cots[0]))
+    check(el <= 1e-2, f"the transpose's library einsum differs by {el}")
     timing.update(
         separable_transpose_device_ms=graph_ms(
             lambda c: at.apply_operator_transpose(op0, c), cots, 20),
+        separable_transpose_library_device_ms=graph_ms(
+            lambda c: torch.einsum("hy,fhw,wx->fyx", wyt, c, wxt), cots, 5),
         separable_variance_device_ms=graph_ms(
             lambda q: at.propagate_variance(op0, q),
             [make(torch.bfloat16, (F, H, W)) for _ in range(3)], 20),
@@ -1769,7 +1800,9 @@ def rotated_rest_phases(make, card, dev):
             lambda q: at.propagate_variance(op, q), vs, 10))
     print(f"[35 transpose/variance] separable flagship bf16: "
           f"apply_operator_transpose 1 kernel-1 launch, max |kernel - plain| "
-          f"{et:.3e}, {timing['separable_transpose_device_ms']:.4f} ms; "
+          f"{et:.3e}, {timing['separable_transpose_device_ms']:.4f} ms "
+          f"(library einsum "
+          f"{timing['separable_transpose_library_device_ms']:.4f} ms); "
           f"propagate_variance 1 launch, err {ev:.3e}, "
           f"{timing['separable_variance_device_ms']:.4f} ms; f32 adjoint "
           f"identity rel {adj_sep:.3e}.  Rotated flagship: variance "
@@ -1778,7 +1811,7 @@ def rotated_rest_phases(make, card, dev):
           f"{timing['rotated_variance_eager_ms']:.4f} eager; the squared "
           f"operator cached); transpose (index_add_ scatter) "
           f"{timing['rotated_transpose_eager_ms']:.3f} ms eager")
-    del rv, rt, vs, gs, gs32, cots, op, plan, fn
+    del rv, rt, vs, gs, gs32, cots, op, plan, fn, wyt, wxt
 
     # ---- 36. compose: 4K -> 1080p -> 540p as one operator ------------------
     op2 = operator((H // 2, W // 2), 0.0)
@@ -2279,7 +2312,8 @@ def regrid_timing(card, fields, tabs, qtabs, by, bx) -> dict:
     5 (f32 forced, bf16, u8 -> u8), at 0.25 degree and in its direct form
     (480-tap bands, 8 fields 480x480 -> 4x4), of the aligned route, the
     plain version, kernel 1 on the same tables, the dense einsum library
-    call and a copy of the f32 batch (207 MB, beyond the 50 MB L2)."""
+    calls (f32, bf16, 0.25 degree, the direct form's (4, 480) operators)
+    and a copy of the f32 batch (207 MB, beyond the 50 MB L2)."""
     n = 4                                    # distinct batches, 207 MB each
     xs = [fields() for _ in range(n)]
     xb = [x.to(torch.bfloat16) for x in xs]
@@ -2294,11 +2328,13 @@ def regrid_timing(card, fields, tabs, qtabs, by, bx) -> dict:
     copy_dst = torch.empty_like(xs[0])
     dev = xs[0].device
     dense = {}
-    for key, t, n_src in (("c5", tabs, RG_SRC), ("q", qtabs, RG_SRC)):
+    for key, t, n_src in (("c5", tabs, RG_SRC), ("q", qtabs, RG_SRC),
+                          ("direct", wtabs, (480, 480))):
         dense[key] = (torch.as_tensor(dense_band(t[0], t[1], n_src[0]),
                                       dtype=torch.float32, device=dev),
                       torch.as_tensor(dense_band(t[2], t[3], n_src[1]),
                                       dtype=torch.float32, device=dev))
+    dense["c5_bf16"] = tuple(m.to(torch.bfloat16) for m in dense["c5"])
     k2d = cuda_apply_2d.apply_separable_kernel_2d
     # the plain version's tables on the card already: an upload would be a
     # host copy inside the graph capture
@@ -2322,6 +2358,11 @@ def regrid_timing(card, fields, tabs, qtabs, by, bx) -> dict:
                                                x, dense["c5"][1]), xs),
         "library_q_f32": (lambda x: torch.einsum(
             "hy,fyx,wx->fhw", dense["q"][0], x, dense["q"][1]), xs),
+        "library_bf16": (lambda x: torch.einsum(
+            "hy,fyx,wx->fhw", dense["c5_bf16"][0], x, dense["c5_bf16"][1]),
+            xb),
+        "library_direct_f32": (lambda x: torch.einsum(
+            "hy,fyx,wx->fhw", dense["direct"][0], x, dense["direct"][1]), xw),
         "copy": (lambda x: copy_dst.copy_(x), xs),
     }
     timing = {"card": card, "shape": [RG_F, *RG_SRC], "dst": list(RG_DST),
@@ -2392,7 +2433,9 @@ def regrid_timing(card, fields, tabs, qtabs, by, bx) -> dict:
     print(f"[30 regrid timing] plain f32 {t['plain_f32_device_ms']:.4f} ms "
           f"(0.25 deg {t['plain_q_f32_device_ms']:.4f}); library einsum f32 "
           f"{t['library_f32_device_ms']:.4f} ms (0.25 deg "
-          f"{t['library_q_f32_device_ms']:.4f}); eager: aligned "
+          f"{t['library_q_f32_device_ms']:.4f}, bf16 "
+          f"{t['library_bf16_device_ms']:.4f}, the direct form's 480-tap "
+          f"bands {t['library_direct_f32_device_ms']:.4f}); eager: aligned "
           f"{t['aligned_f32_eager_ms']:.4f} ms, kernel route "
           f"{t['k2d_f32_api_eager_ms']:.4f} ms; copy of the 207 MB f32 batch "
           f"{t['copy_gb_s']:.1f} GB/s")
@@ -3143,6 +3186,93 @@ def aligned_fused_phase(make, card) -> dict:
     }
 
 
+def watchlist_phase(make, card) -> list:
+    """Phase 50: the Mosaic watchlist's six probes (``csrc/watchlist.cu`` on
+    ``csrc/hopper.cuh``: TMA, 1-D bulk copies with mbarriers, wgmma) each
+    against its plain version on JAX's inputs and 8 distinct seeded inputs
+    into NaN-filled outputs (``torch.equal``; high_dot |diff| <= 1e-5 *
+    max|plain|; unaligned_dma takes all 16 rows in one block, 230,400
+    bytes of shared memory); then the entry points with the counts set to
+    0 around them: ``run_watchlist`` (every probe "available") and
+    ``measure`` of each (kernel, plain version and library call); one
+    watchlist_timing line.  Returns the six rows of the JSON summary."""
+    dev = make.device
+    mw = mosaic_watchlist
+    err = {}
+    for name, kernel, plain, _, _ in mw.PROBES:
+        for seed in range(9):                 # JAX's inputs, then 8 more
+            args = mw.inputs(name, dev, seed)
+            want = plain(*args)
+            before = mw.LAUNCHES[name]
+            got = kernel(*args, out=torch.full_like(want, float("nan")))
+            torch.cuda.synchronize()
+            check(mw.LAUNCHES[name] == before + 1,
+                  f"watchlist {name}: not one launch per call")
+            e = max_err(got, want)
+            check(mw.equal(name, got, want), f"watchlist {name} (seed {seed})"
+                  f" differs from its plain version: max |diff| {e}")
+            err[name] = max(err.get(name, 0.0), e)
+    a, b = (mw.inputs("high_dot", dev, seed)[0] for seed in (1, 2))
+    got, want = mw.high_dot_kernel(a - 0.25, b), mw.high_dot_plain(a - 0.25, b)
+    check(mw.equal("high_dot", got, want) and not mw.equal(
+        "high_dot", got, mw.high_dot_plain(b, a - 0.25)),
+          f"watchlist high_dot with a != b: max |diff| {max_err(got, want)}")
+    print(f"[50 watchlist] {', '.join(mw.NAMES)}: each kernel equal to its "
+          f"plain version on JAX's inputs and 8 seeded ones into NaN-filled "
+          f"outputs (torch.equal; high_dot max |diff| "
+          f"{err['high_dot']:.3e} <= 1e-5 * max|plain|; unaligned_dma's 16 "
+          f"rows in one block, "
+          f"{mw.DMA_ROWS * mw.SHAPES['unaligned_dma'][1] * 4} bytes of "
+          f"shared memory)")
+    del got
+    torch.cuda.synchronize()
+    reset_launches()
+    status = mw.run_watchlist(dev, verbose=True)
+    runs = {name: mw.measure(name, dev) for name in mw.NAMES}
+    torch.cuda.synchronize()
+    launches = dict(mw.LAUNCHES)
+    check(all(s == "available" for s, _ in status.values()),
+          f"watchlist: not every probe available: {status}")
+    check(launches == {name: 10 for name in mw.NAMES}
+          and cuda_apply.LAUNCHES == 0 and cuda_apply_2d.LAUNCHES == 0
+          and copy_ceiling.LAUNCHES == 0 and aligned_fused_probe.LAUNCHES == 0
+          and other_paths_idle(band_probes.LAUNCHES, cuda_shear.LAUNCHES,
+                               cuda_shear3.LAUNCHES,
+                               rot_experiments.LAUNCHES),
+          f"watchlist entry points: launches {launches}, want 10 each (1 "
+          "check, 1 warm-up, 8 captured), no other kernel")
+    timing = {"card": card, "probes": {}}
+    for name, r in runs.items():
+        check(r["clock"] == "cuda_events", f"{name} timed on {r['clock']}")
+        timing["probes"][name] = dict(
+            ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+            library_ms=r["library_ms"], bytes=r["bytes"],
+            operations=r["operations"], **bound(
+                r["bytes"], r["operations"],
+                PEAK_BF16_TC_FLOP_S if name in mw.TENSOR_CORE_BF16
+                else PEAK_F32_FLOP_S))
+    print(f"[50 watchlist] {card}, device ms per call (CUDA-graph replays on "
+          f"8 distinct inputs, best of 2): " + "; ".join(
+              f"{n} {v['ms']:.4f} (plain {v['plain_ms']:.4f}, library "
+              f"{v['library_ms']:.4f}, bound {v['bound_ms']:.6f})"
+              for n, v in timing["probes"].items())
+          + " (high_dot's bound: its 3 bf16 products on the tensor cores)")
+    print(json.dumps({"watchlist_timing": timing}))
+    return [{
+        "name": f"watchlist_{name}",
+        "route": "cuda",
+        "source": "aainterp_torch/csrc/watchlist.cu",
+        "replaces": f"benchmarks/mosaic_watchlist.py:{WATCHLIST_LINES[name]}",
+        "launches": launches[name],
+        "max_abs_err": err[name],
+        "ms": v["ms"],
+        "plain_ms": v["plain_ms"],
+        "bound_ms": v["bound_ms"],
+        "bound_by": v["bound_by"],
+        "library_ms": v["library_ms"],
+    } for name, v in timing["probes"].items()]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3159,7 +3289,7 @@ def main() -> int:
 
 
 def run(work: str) -> int:
-    """Phases 1-49; ``work`` is a temporary directory for files."""
+    """Phases 1-50; ``work`` is a temporary directory for files."""
     # ---- 1. device -------------------------------------------------------
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
@@ -3179,13 +3309,14 @@ def run(work: str) -> int:
     # ---- 2. build: every library, all compilers at once ---------------------
     libs = (_build.SEPARABLE, _build.SEPARABLE_2D, _build.ELL_SHEAR,
             _build.SHEAR3_STAGE, _build.PROBES, _build.BAND_PROBES,
-            _build.ALIGNED_FUSED, _build.NATIVE)
+            _build.ALIGNED_FUSED, _build.WATCHLIST, _build.NATIVE)
     build_s = _build.timed_build(libs)
     for lib in libs:
         _build.load(lib)
     print(f"[2 build] nvcc {' '.join(_build.NVCC_FLAGS)} "
           f"(separable_apply.cu, separable_apply_2d.cu, ell_shear.cu, "
-          f"shear3_stage.cu, probes.cu, band_probes.cu, aligned_fused.cu) "
+          f"shear3_stage.cu, probes.cu, band_probes.cu, aligned_fused.cu, "
+          f"watchlist.cu) "
           f"and g++ "
           f"{' '.join(_build.GXX_FLAGS)} (aainterp_native.cpp), in "
           f"parallel: {build_s:.2f} s")
@@ -3309,6 +3440,9 @@ def run(work: str) -> int:
     # like the frames (f32 sums inside each product)
     wy0, wx0 = (torch.as_tensor(m, dtype=torch.bfloat16, device=dev)
                 for m in op0.dense())
+    # and in f32 on the f32 frames (TF32 off): kernel 1's f32 library call
+    wy0f, wx0f = (torch.as_tensor(m, dtype=torch.float32, device=dev)
+                  for m in op0.dense())
     batches_f32 = [b.float() for b in batches[:4]]
     batches_u8 = [(b.float() * 255).round().to(torch.uint8)
                   for b in batches[:4]]
@@ -3319,6 +3453,8 @@ def run(work: str) -> int:
         "plain": lambda b: cuda_apply.apply_separable_plain(b, *dev_tabs),
         "api": lambda b: at.apply_operator(op0, b),
         "library": lambda b: torch.einsum("hy,fyx,wx->fhw", wy0, b, wx0),
+        "library_f32": lambda b: torch.einsum("hy,fyx,wx->fhw", wy0f, b,
+                                              wx0f),
         "copy": lambda b: copy_dst.copy_(b),
     }
     px = F * H * W
@@ -3327,11 +3463,12 @@ def run(work: str) -> int:
               "bytes_per_frame": frame_bytes}
     # device time (CUDA graphs) and eager per-call time, in turns; kernel 1
     # at f32 and u8 (u8 in, u8 out) on the same frames, device time only
-    inputs = {"kernel_f32": batches_f32, "kernel_u8": batches_u8}
+    inputs = {"kernel_f32": batches_f32, "kernel_u8": batches_u8,
+              "library_f32": batches_f32}
     for name in ("kernel", "kernel_f32", "kernel_u8", "plain", "library",
-                 "copy", "api", "api", "copy", "library", "plain", "kernel_u8",
-                 "kernel_f32", "kernel"):
-        reps = 10 if name in ("plain", "library") else 30
+                 "library_f32", "copy", "api", "api", "copy", "library_f32",
+                 "library", "plain", "kernel_u8", "kernel_f32", "kernel"):
+        reps = 10 if name in ("plain", "library", "library_f32") else 30
         for how, timer in (("device", graph_ms), ("eager", eager_ms)):
             if how == "eager" and name in inputs:
                 continue
@@ -3360,7 +3497,8 @@ def run(work: str) -> int:
         timing[f"{name}_share_of_bound"] = b["bound_ms"] / ms[
             f"{name}_device_ms"]
     timing.update(
-        library_device_ms=ms["library_device_ms"], **flagship_bound,
+        library_device_ms=ms["library_device_ms"],
+        library_f32_device_ms=ms["library_f32_device_ms"], **flagship_bound,
         kernel_device_gb_s=F * frame_bytes / (kernel_ms * 1e-3) / 1e9,
         copy_gb_s=copy_bw / 1e9,
         bound_us_per_frame=bound_us,
@@ -3374,7 +3512,8 @@ def run(work: str) -> int:
           f"kernel {timing['kernel_eager_us_per_frame']:.3f}, api "
           f"{timing['api_eager_us_per_frame']:.3f}, plain "
           f"{timing['plain_eager_us_per_frame']:.3f} us/frame; library "
-          f"einsum {ms['library_device_ms']:.4f} ms/batch; bound "
+          f"einsum {ms['library_device_ms']:.4f} ms/batch (f32 "
+          f"{ms['library_f32_device_ms']:.4f}); bound "
           f"{flagship_bound['bound_ms']:.4f} ms/batch at the published "
           f"peaks ({flagship_bound['bound_by']}); copy "
           f"{timing['copy_gb_s']:.1f} GB/s -> bytes bound "
@@ -3388,7 +3527,7 @@ def run(work: str) -> int:
               f"({100 * b['bound_ms'] / ms[f'{name}_device_ms']:.1f} % of it "
               f"reached)")
     print(json.dumps({"timing": timing}))
-    del batches, batches_f32, batches_u8, copy_dst, fns
+    del batches, batches_f32, batches_u8, copy_dst, fns, wy0f, wx0f
 
     rot_op, rot_plan, rotated = rotated_phases(make, card)
     sheared = shear3_phases(make, card)
@@ -3404,6 +3543,7 @@ def run(work: str) -> int:
     probes += band_probe_phase(make, card)
     probes += rgb1024_phase(make, card, probes[0])
     probes.append(aligned_fused_phase(make, card))
+    probes += watchlist_phase(make, card)
 
     print(json.dumps({"kernels": [{
         "name": "separable_apply",
