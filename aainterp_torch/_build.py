@@ -109,7 +109,12 @@ SEPARABLE_2D = Library(
     #     col_base, F, H, W, Hd, Wd, ky, kx, TY, TX, SY, SX, mode,
     #     in_code, out_code, stream)
     (("aainterp_separable_apply_2d", (_P,) * 8 + (_I,) * 14 + (_P,),
-      ctypes.c_int),),
+      ctypes.c_int),
+     # aainterp_separable_apply_2d_direct(src, out, T, ys, wy, xs, wx, F,
+     #     H, W, Hd, Wd, ky, kx, c0, span, vec, mode, in_code, out_code,
+     #     stream)
+     ("aainterp_separable_apply_2d_direct", (_P,) * 7 + (_I,) * 13 + (_P,),
+      ctypes.c_int)),
     headers=_BAND_HEADERS)
 
 ELL_SHEAR = Library(

@@ -11,8 +11,9 @@
 //   value_slice     probe_value_slice (:103)    out = x[:, ::2] + x[:, 1::2]; a 16-byte
 //                   load per thread, the pair sums in registers (sm_80 is enough)
 //   unaligned_dma   probe_unaligned_dma (:122)  out = x[r0:r0 + n, :] for rows of any
-//                   16-byte multiple; one 1-D bulk copy per row onto one mbarrier,
-//                   as many rows a block as fit in shared memory, bulk stores back
+//                   16-byte multiple; rows cut into pieces of whole 16-byte chunks,
+//                   one block a piece: a 1-D bulk copy onto an mbarrier, a bulk
+//                   store back
 //   high_dot        probe_high_dot (:144)       a @ b at bf16x3 (Precision.HIGH):
 //                   hi*hi + hi*lo + lo*hi with hi = bf16(a), lo = bf16(a - hi), f32
 //                   sums, on wgmma m64n128k16
@@ -21,10 +22,10 @@
 //
 // What bounds them: launch cost.  At JAX's shapes each moves at most 2.8 MB
 // (a bytes bound under 1 us) and high_dot's three bf16 products are 12.6
-// MFLOP on the tensor cores; so each is one launch of as few blocks as the
-// work needs, and what it tests is that the feature builds, launches and
-// gives its plain version's result (probes/mosaic_watchlist.py holds each
-// against it).
+// MFLOP on the tensor cores; so each is one launch, spread over enough
+// blocks that latency and not one SM sets its time, and what it tests is
+// that the feature builds, launches and gives its plain version's result
+// (probes/mosaic_watchlist.py holds each against it).
 //
 // Plain C interface for ctypes; each launch goes on the caller's stream and
 // does not synchronise.  Each entry returns cudaGetLastError() after the
@@ -130,40 +131,37 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---- unaligned_dma ---------------------------------------------------------------
-// One warp per block: its rows_per_block rows of W floats (as many as fit in
-// the shared-memory opt-in; all 16 of JAX's 14,400-byte rows, 230,400 B, in
-// one block) land through one bulk copy each on one mbarrier, then go back
-// out through one bulk store each.
+// Each row of W floats is cut into pieces of whole 16-byte chunks, at most
+// kPieceBytes each (the last piece of a row may be shorter), and each block,
+// one warp, moves one piece: one 1-D bulk copy into shared memory that
+// completes on an mbarrier, then one bulk store.  JAX's 16 rows of 14,400
+// bytes are 16 x 8 pieces (7 of 1,808 bytes and one of 1,744), 128 blocks
+// spread over the card, so the time is one piece's load latency and not
+// one SM's chain of 230,400 bytes.  A piece is far below the 48 KB of
+// dynamic shared memory a block has without an opt-in.
 
-std::atomic<int> dma_opted_in[stage::kMaxDevices];
+constexpr int kPieceBytes = 2048;
 
 __global__ void __launch_bounds__(32)
-    row_dma_kernel(const float* __restrict__ x, float* __restrict__ out, int r0, int n, int W,
-                   int rows_per_block) {
+    row_dma_kernel(const float* __restrict__ x, float* __restrict__ out, int r0, int W,
+                   int pieces, int piece_floats) {
   extern __shared__ unsigned char raw[];
   unsigned char* base = aligned<16>(raw);
-  float* buf = reinterpret_cast<float*>(base);
-  const uint32_t row_bytes = static_cast<uint32_t>(W) * 4;
-  const int first = blockIdx.x * rows_per_block;
-  const int rows = min(rows_per_block, n - first);
-  uint64_t* bar = reinterpret_cast<uint64_t*>(base + static_cast<size_t>(rows_per_block) * row_bytes);
+  const int row = blockIdx.x / pieces;
+  const int first = (blockIdx.x % pieces) * piece_floats;
+  const uint32_t bytes = 4u * static_cast<uint32_t>(min(piece_floats, W - first));
+  uint64_t* bar = reinterpret_cast<uint64_t*>(base + 4 * piece_floats);
   if (threadIdx.x == 0) {
     hopper::mbar_init(bar, 1);
     hopper::fence_mbarrier_init();
   }
   __syncthreads();
-  if (threadIdx.x == 0) hopper::mbar_arrive_expect_tx(bar, rows * row_bytes);
-  __syncwarp();
-  for (int r = threadIdx.x; r < rows; r += 32) {
-    hopper::bulk_load(buf + static_cast<long long>(r) * W,
-                      x + static_cast<long long>(r0 + first + r) * W, row_bytes, bar);
-  }
+  if (threadIdx.x != 0) return;
+  hopper::mbar_arrive_expect_tx(bar, bytes);
+  hopper::bulk_load(base, x + static_cast<long long>(r0 + row) * W + first, bytes, bar);
   hopper::mbar_wait(bar, 0);
   hopper::fence_proxy_async();
-  for (int r = threadIdx.x; r < rows; r += 32) {
-    hopper::bulk_store(out + static_cast<long long>(first + r) * W,
-                       buf + static_cast<long long>(r) * W, row_bytes);
-  }
+  hopper::bulk_store(out + static_cast<long long>(row) * W + first, base, bytes);
   hopper::bulk_commit();
   hopper::bulk_wait_all();
 }
@@ -361,28 +359,23 @@ extern "C" int aainterp_value_slice(const void* x, void* out, int R, int W, void
 }
 
 // x (H, W) f32, out (n, W) = x[r0:r0 + n, :]; W a multiple of 4 (rows of
-// whole 16-byte chunks), both 16-byte aligned; as many rows a block as fit in
-// the opt-in of dynamic shared memory (a row wider than it is refused).
+// whole 16-byte chunks), both 16-byte aligned; one block per piece of a row
+// (row_dma_kernel), n x ceil(4 W / kPieceBytes) blocks.
 extern "C" int aainterp_unaligned_dma(const void* x, void* out, int H, int W, int r0, int n,
                                       void* stream) {
   if (H <= 0 || W <= 0 || W % 4 != 0 || r0 < 0 || n <= 0 || r0 + n > H || !aligned16(x) ||
       !aligned16(out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int dev = 0, limit = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long long row_bytes = 4ll * W, spare = 16 + 8;   // alignment slack, the mbarrier
-  const long long fit = (limit - spare) / row_bytes;
-  if (fit < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int rows_per_block = static_cast<int>(fit < n ? fit : n);
-  const long long smem = spare + rows_per_block * row_bytes;
-  const int rc = stage::opt_in(reinterpret_cast<const void*>(row_dma_kernel), smem, dma_opted_in);
-  if (rc != 0) return rc;
-  const int blocks = (n + rows_per_block - 1) / rows_per_block;
-  row_dma_kernel<<<blocks, 32, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(out), r0, n, W, rows_per_block);
+  const int chunks = W / 4;                                   // 16-byte chunks a row
+  const int per = (4 * W + kPieceBytes - 1) / kPieceBytes;    // pieces a row at most
+  const int piece_chunks = (chunks + per - 1) / per;
+  const int pieces = (chunks + piece_chunks - 1) / piece_chunks;  // none empty
+  const long long blocks = static_cast<long long>(n) * pieces;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const size_t smem = 16 * static_cast<size_t>(piece_chunks) + 16 + 8;  // slack, mbarrier
+  row_dma_kernel<<<static_cast<unsigned>(blocks), 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(out), r0, W, pieces, 4 * piece_chunks);
   return launched();
 }
 

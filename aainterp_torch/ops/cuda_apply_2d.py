@@ -17,10 +17,14 @@ bands are wide (the config-5 regrid: 12 taps at a 10x ratio).
   rows, the tile's tap table and an output tile; ``cuda_apply.band_smem``
   at f32) fits ``SMEM_TARGET``; at one dst pixel per tile it accepts up to
   the card's 227 KB limit.  Each block takes one row tile of one column
-  strip.  Beyond the limit the plan is the kernel's direct form
-  (one thread per output element, taps read from device memory, the same
-  bits), so no band pair is rejected.  None of the TPU kernel's 8/32/128
-  alignments or padding remain.
+  strip.  Beyond the limit the plan is the kernel's direct form, so no
+  band pair is rejected: two grids in one call of its entry point, the y
+  pass over every source column of the union of the x windows
+  (``direct_columns``; a column a thread, or a 16-byte chunk of them where
+  rows allow and columns are many, ``direct_vec``) into an f32 scratch
+  (F, Hd, span) taken from the caching allocator, then the x pass, one
+  warp per output element; the same sums in the same order, so the same
+  bits.  None of the TPU kernel's 8/32/128 alignments or padding remain.
 * ``make_plan`` adds the host tables to a plan; each plan uploads them to a
   device once (``device_tables``).  ``kernel_plan`` caches plans by table
   content, for callers that hold only the tables.
@@ -71,6 +75,9 @@ PRECISIONS = ("auto", "default", "high", "highest", "bf16x3")
 _MODES = {"auto": 0, "high": 0, "highest": 0, "default": 1, "bf16x3": 2}
 TILE = 32
 SMEM_TARGET = 112 * 1024        # bytes of dynamic shared memory a block aims at
+# the direct form's y pass takes a 16-byte chunk of columns a thread from
+# this many columns (frames x dst rows x span) on, one column below it
+VEC_MIN_COLUMNS = 1 << 16
 
 # bounded: each plan holds its host tables plus one device copy per device
 _PLAN_CACHE = LruDict(32, max_bytes=256 << 20)
@@ -97,32 +104,58 @@ def plan_separable_2d(ys: np.ndarray, xs: np.ndarray, ky: int, kx: int,
                       smem_limit: int = SMEM_LIMIT) -> dict:
     """Tile plan of the 2-D kernel (module docstring).
 
-    Returns dict(direct, TY, TX, SY, SX, nty, ntx, smem, row_base,
+    Returns dict(direct=False, TY, TX, SY, SX, nty, ntx, smem, row_base,
     col_base): every tap of dst row i lies in rows [row_base[i // TY], +SY)
     and every tap of dst column j in columns [col_base[j // TX], +SX); a
     block takes one row tile of one strip.  Starts need not be monotone
     (descending sin-lat bands are reversed, clamped starts repeat).  Where
     one dst pixel's block exceeds ``smem_limit`` bytes the plan is the
-    direct form: ``direct`` True, 1 x 1 tiles, spans ky x kx and no shared
-    memory.
+    direct form, dict(direct=True, smem=0, x_lo, x_hi): every tap of every
+    dst column lies in source columns [x_lo, x_hi) (``direct_columns``
+    clips them to the image); its kernel reads the band tables alone.
     """
     plan = band_plan(ys, xs, ky, kx, tile_y=TILE, tile_x=TILE,
                      smem_target=smem_target, smem_limit=smem_limit)
     if plan is not None:
         return dict(plan, direct=False)
-    Hd, Wd = int(ys.shape[0]), int(xs.shape[0])
-    return dict(direct=True, TY=1, TX=1, SY=int(ky), SX=int(kx), nty=Hd,
-                ntx=Wd, smem=0,
-                row_base=np.asarray(ys, np.int32).copy(),
-                col_base=np.asarray(xs, np.int32).copy())
+    xs64 = np.asarray(xs, np.int64)
+    return dict(direct=True, smem=0, x_lo=int(xs64.min()),
+                x_hi=int(xs64.max()) + int(kx))
+
+
+def direct_columns(plan: dict, W: int, vec: int = 1):
+    """(c0, span) of a direct-form plan on frames W wide: the source
+    columns [c0, c0 + span) that the y pass sums, every tap column of
+    every dst column that lies inside the image (span 0 if none does),
+    widened to multiples of ``vec`` columns (W a multiple of ``vec``)."""
+    lo, hi = min(max(plan["x_lo"], 0), W), max(min(plan["x_hi"], W), 0)
+    if hi <= lo:
+        return lo, 0
+    c0 = lo // vec * vec
+    return c0, -(-hi // vec) * vec - c0
+
+
+def direct_vec(frames: torch.Tensor, columns: int) -> int:
+    """The direct form's y-pass columns a thread for ``frames`` when
+    ``columns`` (frames x dst rows x span) are summed: those of one 16-byte
+    chunk where every row's chunks are 16-byte aligned and the columns are
+    at least VEC_MIN_COLUMNS, else one."""
+    elem = frames.element_size()
+    if (frames.shape[-1] * elem) % 16 or frames.data_ptr() % 16 \
+            or columns < VEC_MIN_COLUMNS:
+        return 1
+    return 16 // elem
 
 
 def make_plan(ys: np.ndarray, yw: np.ndarray, xs: np.ndarray,
               xw: np.ndarray) -> dict:
     """``plan_separable_2d`` of host tables (int32 starts, f32 weights),
-    keeping the tables for ``device_tables``."""
-    plan = plan_separable_2d(ys, xs, yw.shape[1], xw.shape[1])
-    plan["tables"] = (ys, yw, xs, xw, plan["row_base"], plan["col_base"])
+    keeping the tables for ``device_tables`` (a staged plan's with its
+    row and column bases)."""
+    plan = plan_separable_2d(ys, xs, yw.shape[1], xw.shape[1],
+                             smem_limit=SMEM_LIMIT)
+    bases = () if plan["direct"] else (plan["row_base"], plan["col_base"])
+    plan["tables"] = (ys, yw, xs, xw) + bases
     plan["dev"] = {}
     return plan
 
@@ -140,8 +173,8 @@ def kernel_plan(ys: np.ndarray, yw: np.ndarray, xs: np.ndarray,
 
 
 def device_tables(plan, device: torch.device, pinned: bool = False):
-    """The plan's tables (ys, yw, xs, xw, row_base, col_base) on
-    ``device``, uploaded once and kept on the plan (``pinned``: see
+    """The plan's tables (ys, yw, xs, xw and, staged, row_base, col_base)
+    on ``device``, uploaded once and kept on the plan (``pinned``: see
     ``utils.device.upload``)."""
     device = torch.device(device)
     dev = plan["dev"].get(device)
@@ -231,7 +264,9 @@ def apply_separable_kernel_2d(frames: torch.Tensor, y_start, y_w, x_start,
     if given, is ``make_plan`` of these tables, held by the caller; the
     content cache is then not consulted.  ``out``, if given, is a
     contiguous tensor of the output's shape, dtype and device that
-    receives the result (the kernel writes every element).
+    receives the result (the kernel writes every element).  A direct-form
+    plan launches two grids (y pass, x pass) in its one entry point call,
+    counted as one launch.
     """
     global LAUNCHES
     if not isinstance(frames, torch.Tensor):
@@ -270,23 +305,35 @@ def apply_separable_kernel_2d(frames: torch.Tensor, y_start, y_w, x_start,
         raise ValueError("frames have an empty spatial axis")
     if plan is None:
         plan = kernel_plan(ys, yw, xs, xw)
-    d_ys, d_yw, d_xs, d_xw, d_rb, d_cb = device_tables(plan, frames.device)
-    # SY = SX = 0 launches the direct form
-    SY, SX = (0, 0) if plan["direct"] else (plan["SY"], plan["SX"])
-    fn = _build.load(_build.SEPARABLE_2D).aainterp_separable_apply_2d
+    d_ys, d_yw, d_xs, d_xw, *bases = device_tables(plan, frames.device)
+    lib = _build.load(_build.SEPARABLE_2D)
+    codes = (mode, _DTYPE_CODES[frames.dtype], _DTYPE_CODES[kernel_out])
     with torch.cuda.device(frames.device):
         stream = torch.cuda.current_stream(frames.device).cuda_stream
-        rc = fn(frames.data_ptr(), out.data_ptr(), d_ys.data_ptr(),
+        if plan["direct"]:
+            # the y pass's sums, on the current stream's allocator
+            vec = direct_vec(frames, F * Hd * direct_columns(plan, W)[1])
+            c0, span = direct_columns(plan, W, vec)
+            T = torch.empty(F * Hd * span, dtype=torch.float32,
+                            device=frames.device)
+            rc = lib.aainterp_separable_apply_2d_direct(
+                frames.data_ptr(), out.data_ptr(), T.data_ptr(),
+                d_ys.data_ptr(), d_yw.data_ptr(), d_xs.data_ptr(),
+                d_xw.data_ptr(), F, H, W, Hd, Wd, ky, kx, c0, span, vec,
+                *codes, stream)
+        else:
+            rc = lib.aainterp_separable_apply_2d(
+                frames.data_ptr(), out.data_ptr(), d_ys.data_ptr(),
                 d_yw.data_ptr(), d_xs.data_ptr(), d_xw.data_ptr(),
-                d_rb.data_ptr(), d_cb.data_ptr(), F, H, W, Hd, Wd, ky, kx,
-                plan["TY"], plan["TX"], SY, SX, mode,
-                _DTYPE_CODES[frames.dtype], _DTYPE_CODES[kernel_out], stream)
+                *(b.data_ptr() for b in bases), F, H, W, Hd, Wd, ky, kx,
+                plan["TY"], plan["TX"], plan["SY"], plan["SX"], *codes,
+                stream)
     if rc != 0:
+        form = "direct" if plan["direct"] else ", ".join(
+            f"{k}={plan[k]}" for k in ("TY", "TX", "SY", "SX"))
         raise RuntimeError(
             f"separable_apply_2d kernel launch failed: CUDA error {rc} "
             f"(F={F}, H={H}, W={W}, Hd={Hd}, Wd={Wd}, ky={ky}, kx={kx}, "
-            f"plan TY={plan['TY']} TX={plan['TX']} SY={plan['SY']} "
-            f"SX={plan['SX']} direct={plan['direct']}, "
-            f"mode {mode})")
+            f"plan {form}, mode {mode})")
     LAUNCHES += 1
     return out if kernel_out == out_dtype else out.to(out_dtype)

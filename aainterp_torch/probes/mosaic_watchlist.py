@@ -15,8 +15,9 @@ needs on this card, built from the primitives of ``csrc/hopper.cuh``:
 * ``value_slice`` — ``out = x[:, ::2] + x[:, 1::2]`` of (8, 512) f32: one
   16-byte load a thread, the pair sums in registers (the ``xpair`` form);
 * ``unaligned_dma`` — ``out = x[8:24]`` of (64, 3600) f32, rows of 14,400
-  bytes (not a multiple of 512): one 1-D bulk copy a row onto one
-  mbarrier, all 16 rows in one block's shared memory, bulk stores back;
+  bytes (not a multiple of 512): each row cut into pieces of whole
+  16-byte chunks of at most 2 KB (16 x 8 here), one block a piece: a 1-D
+  bulk copy into shared memory onto an mbarrier, a bulk store back;
 * ``high_dot`` — ``a @ b`` at ``Precision.HIGH`` (bf16x3: ``hi·hi + hi·lo
   + lo·hi``, ``hi = bf16(a)``, ``lo = bf16(a − hi)``, f32 sums) of
   (128, 128) f32: ``wgmma`` m64n128k16 on the split in shared memory;
@@ -235,10 +236,10 @@ def value_slice_kernel(x: torch.Tensor, *,
 def unaligned_dma_kernel(x: torch.Tensor, start: int = DMA_START,
                          rows: int = DMA_ROWS, *,
                          out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``x[start:start + rows]`` through one 1-D bulk copy a row onto one
-    mbarrier and bulk stores back, as many rows a block as fit in the
-    shared-memory opt-in (JAX's 16 rows of 14,400 bytes in one block; W a
-    multiple of 4)."""
+    """``x[start:start + rows]``, each row cut into pieces of whole
+    16-byte chunks of at most 2 KB, one block a piece: a 1-D bulk copy
+    onto an mbarrier, then a bulk store (JAX's 16 rows of 14,400 bytes: 128
+    blocks; W a multiple of 4)."""
     _check_dtype("unaligned_dma", x, torch.float32, 2)
     H, W = x.shape
     if not (0 <= start and 1 <= rows and start + rows <= H):

@@ -243,6 +243,9 @@ SHEAR_AXES = {"quality": ("x", "y", "x"), "fast": ("y", "x", "y")}
 # the conservative regrid: BASELINE config 5 (0.1 -> 1 degree) and the
 # 0.1 -> 0.25 degree regrid onto the cell-centred grid of ERA5-class data
 RG_F, RG_SRC, RG_DST, RG_QDEG = 8, (1800, 3600), (180, 360), (720, 1440)
+# a thumbnail of the flagship's frames: 4K -> 16 x 9 through build_operator
+# and apply_operator, 242-tap bands, kernel 2's direct form
+THUMB, THUMB_DST = (240.0, 1.0), (9, 16)
 # the reference program's own geometry (SURVEY.md §L5, Source.cpp:1528-1534):
 # a 910 x 910 film-dose image at 150 dpi -> 25.4 dpi, 1.5 degrees about
 # (455, 455); the legacy command's runs and the operator mode of each
@@ -404,6 +407,16 @@ def dense_band(start, weights, n_src: int) -> np.ndarray:
     return m
 
 
+def covered(start, k: int, n: int) -> int:
+    """How many of the source indices [0, n) lie in some window
+    [start[i], start[i] + k) of a band: the rows (or columns) a banded
+    apply must read."""
+    hit = np.zeros(n, bool)
+    for s in np.asarray(start, np.int64):
+        hit[min(max(s, 0), n):max(min(s + k, n), 0)] = True
+    return int(hit.sum())
+
+
 def folded_tables(op):
     """The kernel's host tables (quadrant-folded ys, yw, xs, xw)."""
     return at.separable_linear_for(op, torch.float32, "kernel").tables
@@ -435,10 +448,11 @@ def eager_ms(fn, inputs, reps: int) -> float:
     return _events_ms(lambda i: fn(inputs[i]), len(inputs), reps)
 
 
-def graph_ms(fn, inputs, reps: int) -> float:
-    """Device ms per call: ``fn`` on each input captured in its own CUDA
-    graph, then replayed back to back, so no host work between calls can
-    show up in the number (compare ``eager_ms`` for the host's share)."""
+def graph_ms(fn, inputs, reps: int, calls: int = 1) -> float:
+    """Device ms per call: ``fn`` on each input captured ``calls`` times in
+    its own CUDA graph, then replayed back to back, so no host work between
+    calls can show up in the number (compare ``eager_ms`` for the host's
+    share); ``calls`` > 1 for work shorter than a replay's host cost."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):           # warm-up: plans, table uploads
@@ -449,9 +463,10 @@ def graph_ms(fn, inputs, reps: int) -> float:
     for x in inputs:
         g = torch.cuda.CUDAGraph()
         with torch.cuda.graph(g):
-            keep.append(fn(x))
+            keep.extend(fn(x) for _ in range(calls))
         graphs.append(g)
-    return _events_ms(lambda i: graphs[i].replay(), len(graphs), reps)
+    return _events_ms(lambda i: graphs[i].replay(), len(graphs),
+                      reps) / calls
 
 def ell_operator_for(shape, res_src, res_dst, iso, angle, mode="exact"):
     """Build a rotated operator once (host, native weight-gen) and check
@@ -1283,28 +1298,77 @@ def regrid_phases(dev, card):
     k2 = at.apply_band_operators(reqs[0], by, bx, impl="kernel")
     torch.testing.assert_close(al, k2, rtol=1e-6, atol=1e-3)
     e_al = max_err(al, k2)
-    # bands whose one-pixel block exceeds shared memory: the direct form
+    # bands whose one-pixel block exceeds shared memory: the direct form, at
+    # the 480-tap cell and at the 4K -> 16 x 9 thumbnail, f32 and bf16
     wide = t_regrid.Band1D(start=np.zeros(4, np.int32),
                            weights=np.full((4, 480), 1 / 480), n_src=480,
                            n_dst=4)
     wtabs = regrid_tables(wide, wide)
-    check(cuda_apply_2d.kernel_plan(*wtabs)["direct"],
-          "480-tap bands must take the direct form")
+    thumb = operator((H, W), 0.0, ratio=THUMB)
+    ttabs = folded_tables(thumb)
+    check(cuda_apply_2d.kernel_plan(*wtabs)["direct"]
+          and cuda_apply_2d.kernel_plan(*ttabs)["direct"]
+          and cuda_apply._plan_for(*ttabs)["kernel_2d"],
+          "480-tap and thumbnail bands must take the direct form")
     xw = fields(shape=(RG_F, 480, 480))
+    xt = fields(shape=(F, H, W))
+    for name, x, t in (("480-tap f32", xw, wtabs), ("thumb f32", xt, ttabs),
+                       ("thumb bf16", xt.to(torch.bfloat16), ttabs)):
+        for precision in ("auto", "default", "bf16x3"):
+            buf = torch.full((x.shape[0], t[1].shape[0], t[3].shape[0]),
+                             float("nan"), device=dev).to(x.dtype)
+            got = cuda_apply_2d.apply_separable_kernel_2d(
+                x, *t, precision=precision, out=buf)
+            want = cuda_apply_2d.apply_separable_2d_plain(
+                x, *t, precision=precision)
+            torch.cuda.synchronize()
+            what = f"direct {name} {precision}"
+            check(got is buf and bool(torch.isfinite(buf.float()).all()),
+                  f"{what}: elements of a NaN-filled output left")
+            if precision != "auto":
+                check(torch.equal(got, want), f"{what}: not the plain "
+                      f"version's bits (max {max_err(got, want):.3e})")
+            elif x.dtype == torch.float32:
+                torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-3)
+            else:
+                within_bf16_ulp(got, cuda_apply_2d.apply_separable_2d_plain(
+                    x, *t, out_dtype=torch.float32), what)
+            perr[what] = max_err(got, want)
+        if name.startswith("thumb"):
+            # the entry point a user calls: one launch, the kernel's output
+            before = cuda_apply_2d.LAUNCHES
+            api = at.apply_operator(thumb, x)
+            check(cuda_apply_2d.LAUNCHES == before + 1
+                  and torch.equal(api, cuda_apply_2d.apply_separable_kernel_2d(
+                      x, *ttabs)), f"apply_operator, {name} thumbnail: not "
+                  "one launch of the direct form")
+    # where both forms run (config 5's 12-tap bands, the direct form forced
+    # by a plan without shared memory): the same bits in every mode
+    limit, cuda_apply_2d.SMEM_LIMIT = cuda_apply_2d.SMEM_LIMIT, 0
+    try:
+        dplan = cuda_apply_2d.make_plan(*tabs)
+    finally:
+        cuda_apply_2d.SMEM_LIMIT = limit
+    check(dplan["direct"], "a plan without shared memory must be direct")
     for precision in ("auto", "default", "bf16x3"):
-        buf = torch.full((RG_F, 4, 4), float("nan"), device=dev)
-        got = cuda_apply_2d.apply_separable_kernel_2d(
-            xw, *wtabs, precision=precision, out=buf)
-        want = cuda_apply_2d.apply_separable_2d_plain(xw, *wtabs,
-                                                      precision=precision)
-        check(bool(torch.isfinite(buf).all()), "direct form left elements")
-        torch.testing.assert_close(got, want, rtol=1e-6,
-                                   atol=1e-3 if precision == "auto" else 0)
-        perr[f"direct {precision}"] = max_err(got, want)
+        for dtype in (torch.float32, torch.bfloat16):
+            xd = reqs[0].to(dtype)
+            a = cuda_apply_2d.apply_separable_kernel_2d(
+                xd, *tabs, precision=precision, plan=dplan,
+                out=torch.full((RG_F,) + RG_DST, float("nan"),
+                               device=dev).to(dtype))
+            b = cuda_apply_2d.apply_separable_kernel_2d(xd, *tabs,
+                                                        precision=precision)
+            check(torch.equal(a, b), f"direct form vs staged form, config 5 "
+                  f"{precision} {dtype}: max {max_err(a, b):.3e}")
+    del xt, api, a, b
     print(f"[26 regrid kernel] every precision, f32 and bf16, into NaN-filled"
           f" outputs: all written; max |kernel - plain| "
           + ", ".join(f"{k} {v:.3e}" for k, v in perr.items())
-          + f"; aligned route vs kernel {e_al:.3e}")
+          + f"; aligned route vs kernel {e_al:.3e}; direct form (480-tap "
+          f"cell, {F}x{H}x{W} -> {THUMB_DST} thumbnail: bit-equal to plain in "
+          f"'default' and 'bf16x3', apply_operator 1 launch) and staged form "
+          f"torch.equal at config 5 in every precision, f32 and bf16")
 
     # the kernel route's gradient: backward = the kernel on Wy^T, Wx^T
     g = torch.rand((RG_F,) + RG_DST, generator=gen, device=dev)
@@ -2313,7 +2377,10 @@ def regrid_timing(card, fields, tabs, qtabs, by, bx) -> dict:
     (480-tap bands, 8 fields 480x480 -> 4x4), of the aligned route, the
     plain version, kernel 1 on the same tables, the dense einsum library
     calls (f32, bf16, 0.25 degree, the direct form's (4, 480) operators)
-    and a copy of the f32 batch (207 MB, beyond the 50 MB L2)."""
+    and a copy of the f32 batch (207 MB, beyond the 50 MB L2); then the
+    direct form at the 4K -> 16 x 9 thumbnail (8 frames, 242-tap bands),
+    f32 and bf16, beside the einsum on its dense (9, 2160) and (16, 3840)
+    operators."""
     n = 4                                    # distinct batches, 207 MB each
     xs = [fields() for _ in range(n)]
     xb = [x.to(torch.bfloat16) for x in xs]
@@ -2325,16 +2392,23 @@ def regrid_timing(card, fields, tabs, qtabs, by, bx) -> dict:
     check(cuda_apply_2d.kernel_plan(*wtabs)["direct"],
           "480-tap bands must take the direct form")
     xw = [fields(shape=(RG_F, 480, 480)) for _ in range(n)]
+    ttabs = folded_tables(operator((H, W), 0.0, ratio=THUMB))
+    check(cuda_apply_2d.kernel_plan(*ttabs)["direct"],
+          "thumbnail bands must take the direct form")
+    xt = [fields(shape=(F, H, W)) for _ in range(n)]
+    xtb = [x.to(torch.bfloat16) for x in xt]
     copy_dst = torch.empty_like(xs[0])
     dev = xs[0].device
     dense = {}
     for key, t, n_src in (("c5", tabs, RG_SRC), ("q", qtabs, RG_SRC),
-                          ("direct", wtabs, (480, 480))):
+                          ("direct", wtabs, (480, 480)),
+                          ("thumb", ttabs, (H, W))):
         dense[key] = (torch.as_tensor(dense_band(t[0], t[1], n_src[0]),
                                       dtype=torch.float32, device=dev),
                       torch.as_tensor(dense_band(t[2], t[3], n_src[1]),
                                       dtype=torch.float32, device=dev))
-    dense["c5_bf16"] = tuple(m.to(torch.bfloat16) for m in dense["c5"])
+    for key in ("c5", "thumb"):
+        dense[f"{key}_bf16"] = tuple(m.to(torch.bfloat16) for m in dense[key])
     k2d = cuda_apply_2d.apply_separable_kernel_2d
     # the plain version's tables on the card already: an upload would be a
     # host copy inside the graph capture
@@ -2346,6 +2420,8 @@ def regrid_timing(card, fields, tabs, qtabs, by, bx) -> dict:
         "k2d_u8": (lambda x: k2d(x, *tabs), xu),
         "k2d_q_f32": (lambda x: k2d(x, *qtabs), xs),
         "k2d_direct_f32": (lambda x: k2d(x, *wtabs), xw),
+        "k2d_thumb_f32": (lambda x: k2d(x, *ttabs), xt),
+        "k2d_thumb_bf16": (lambda x: k2d(x, *ttabs), xtb),
         "aligned_f32": (lambda x: at.apply_band_operators(
             x, by, bx, impl="aligned"), xs),
         "kernel1_f32": (lambda x: cuda_apply.apply_separable_kernel(x, *tabs),
@@ -2363,6 +2439,11 @@ def regrid_timing(card, fields, tabs, qtabs, by, bx) -> dict:
             xb),
         "library_direct_f32": (lambda x: torch.einsum(
             "hy,fyx,wx->fhw", dense["direct"][0], x, dense["direct"][1]), xw),
+        "library_thumb_f32": (lambda x: torch.einsum(
+            "hy,fyx,wx->fhw", dense["thumb"][0], x, dense["thumb"][1]), xt),
+        "library_thumb_bf16": (lambda x: torch.einsum(
+            "hy,fyx,wx->fhw", dense["thumb_bf16"][0], x,
+            dense["thumb_bf16"][1]), xtb),
         "copy": (lambda x: copy_dst.copy_(x), xs),
     }
     timing = {"card": card, "shape": [RG_F, *RG_SRC], "dst": list(RG_DST),
@@ -2371,7 +2452,9 @@ def regrid_timing(card, fields, tabs, qtabs, by, bx) -> dict:
     for name in order:
         fn, inputs = fns[name]
         reps = 3 if name.startswith(("plain", "library")) else 20
-        ms = graph_ms(fn, inputs, reps)
+        # the 480-tap cell's calls are shorter than a replay's host cost
+        calls = 20 if name in ("k2d_direct_f32", "library_direct_f32") else 1
+        ms = graph_ms(fn, inputs, reps, calls)
         timing.setdefault(f"{name}_device_ms", []).append(ms)
     timing["aligned_f32_eager_ms"] = eager_ms(fns["aligned_f32"][0], xs, 20)
     timing["k2d_f32_api_eager_ms"] = eager_ms(
@@ -2400,6 +2483,14 @@ def regrid_timing(card, fields, tabs, qtabs, by, bx) -> dict:
                            + table_bytes(*wtabs),
                            2 * RG_F * 4 * (480 * 480 + 4 * 480)),
     }
+    tky, tkx = ttabs[1].shape[1], ttabs[3].shape[1]
+    # the thumbnail reads only the rows and columns its windows cover
+    rows, cols = covered(ttabs[0], tky, H), covered(ttabs[2], tkx, W)
+    timing["thumb_read"] = [rows, cols]
+    for key, size in (("k2d_thumb_f32", f32), ("k2d_thumb_bf16", bf)):
+        work[key] = (F * (rows * cols + THUMB_DST[0] * THUMB_DST[1]) * size
+                     + table_bytes(*ttabs),
+                     2 * F * THUMB_DST[0] * (cols * tky + THUMB_DST[1] * tkx))
     work["aligned_f32"] = work["kernel1_f32"] = work["k2d_f32"]
     timing["bounds"] = {k: bound(*w) for k, w in work.items()}
     copy_bw = 2 * xs[0].nbytes / (timing["copy_device_ms"] * 1e-3)   # B/s
@@ -2407,7 +2498,8 @@ def regrid_timing(card, fields, tabs, qtabs, by, bx) -> dict:
     for k, (nbytes, _) in work.items():
         t = timing[f"{k}_device_ms"]
         timing[f"{k}_gb_s"] = nbytes / (t * 1e-3) / 1e9
-        pixels = RG_F * 480 * 480 if k == "k2d_direct_f32" else px
+        pixels = {"k2d_direct_f32": RG_F * 480 * 480, "k2d_thumb_f32":
+                  F * H * W, "k2d_thumb_bf16": F * H * W}.get(k, px)
         timing[f"{k}_gpixel_s"] = pixels / (t * 1e-3) / 1e9
         timing[f"{k}_bytes"] = nbytes
         timing[f"{k}_copy_bound_ms"] = nbytes / copy_bw * 1e3
@@ -2420,6 +2512,11 @@ def regrid_timing(card, fields, tabs, qtabs, by, bx) -> dict:
                     ("k2d_q_f32", "2-D kernel, 0.25 deg f32"),
                     ("k2d_direct_f32", "2-D kernel, direct form, 480-tap "
                      "bands, 8x480x480 f32"),
+                    ("k2d_thumb_f32", f"2-D kernel, direct form, {F}x{H}x{W} "
+                     f"f32 -> {THUMB_DST} thumbnail, {tky}-tap bands, "
+                     f"{rows}x{cols} source pixels read a frame"),
+                    ("k2d_thumb_bf16", f"2-D kernel, direct form, {F}x{H}x{W}"
+                     f" bf16 -> {THUMB_DST} thumbnail"),
                     ("aligned_f32", "aligned route, config 5 f32"),
                     ("kernel1_f32", "kernel 1 on the config-5 tables")):
         print(f"[30 regrid timing] {card}: {what}: "
@@ -2435,7 +2532,9 @@ def regrid_timing(card, fields, tabs, qtabs, by, bx) -> dict:
           f"{t['library_f32_device_ms']:.4f} ms (0.25 deg "
           f"{t['library_q_f32_device_ms']:.4f}, bf16 "
           f"{t['library_bf16_device_ms']:.4f}, the direct form's 480-tap "
-          f"bands {t['library_direct_f32_device_ms']:.4f}); eager: aligned "
+          f"bands {t['library_direct_f32_device_ms']:.4f}, the thumbnail f32 "
+          f"{t['library_thumb_f32_device_ms']:.4f}, bf16 "
+          f"{t['library_thumb_bf16_device_ms']:.4f}); eager: aligned "
           f"{t['aligned_f32_eager_ms']:.4f} ms, kernel route "
           f"{t['k2d_f32_api_eager_ms']:.4f} ms; copy of the 207 MB f32 batch "
           f"{t['copy_gb_s']:.1f} GB/s")
@@ -3191,8 +3290,8 @@ def watchlist_phase(make, card) -> list:
     ``csrc/hopper.cuh``: TMA, 1-D bulk copies with mbarriers, wgmma) each
     against its plain version on JAX's inputs and 8 distinct seeded inputs
     into NaN-filled outputs (``torch.equal``; high_dot |diff| <= 1e-5 *
-    max|plain|; unaligned_dma takes all 16 rows in one block, 230,400
-    bytes of shared memory); then the entry points with the counts set to
+    max|plain|; unaligned_dma's 16 rows of 14,400 bytes in 128 blocks of
+    one piece each); then the entry points with the counts set to
     0 around them: ``run_watchlist`` (every probe "available") and
     ``measure`` of each (kernel, plain version and library call); one
     watchlist_timing line.  Returns the six rows of the JSON summary."""
@@ -3220,10 +3319,9 @@ def watchlist_phase(make, card) -> list:
     print(f"[50 watchlist] {', '.join(mw.NAMES)}: each kernel equal to its "
           f"plain version on JAX's inputs and 8 seeded ones into NaN-filled "
           f"outputs (torch.equal; high_dot max |diff| "
-          f"{err['high_dot']:.3e} <= 1e-5 * max|plain|; unaligned_dma's 16 "
-          f"rows in one block, "
-          f"{mw.DMA_ROWS * mw.SHAPES['unaligned_dma'][1] * 4} bytes of "
-          f"shared memory)")
+          f"{err['high_dot']:.3e} <= 1e-5 * max|plain|; unaligned_dma's "
+          f"{mw.DMA_ROWS} rows of {mw.SHAPES['unaligned_dma'][1] * 4} bytes "
+          f"in pieces of at most 2 KB, one block each)")
     del got
     torch.cuda.synchronize()
     reset_launches()

@@ -12,14 +12,17 @@ kernel 1, and ``csrc/separable_apply_2d.cu``, kernel 2, both built on
 Cells are chosen by name, or by a prefix of their names (``k1``, ``k2``,
 ``s3``, ``r``).  Each is timed as ``chip_smoke.py`` times it: device ms per batch
 from CUDA-graph replays on distinct inputs (``chip_smoke.graph_ms``), best
-of two.
+of two; ``k2_direct``, whose calls are shorter than a replay's host cost,
+with 20 calls in each graph (``CALLS``).
 
 * ``k1_bf16``, ``k1_f32``, ``k1_u8``: kernel 1 at the flagship, 8 frames
   2160x3840 -> 1080x1920 (4-tap bands);
 * ``k2_f32``, ``k2_bf16``, ``k2_u8``: kernel 2 at the config-5 regrid, 8
   fields 1800x3600 -> 180x360 (12-tap bands); ``k2q_f32``: 0.1 -> 0.25
   degree (720x1440, 5-tap bands); ``k2_direct``: its direct form on 8
-  fields 480x480 -> 4x4 (480-tap bands);
+  fields 480x480 -> 4x4 (480-tap bands); ``k2_thumb``, ``k2_thumb_f32``:
+  the direct form at the 4K -> 16x9 thumbnail, 8 frames of 2160x3840 bf16
+  and f32 (242-tap bands, the tables ``apply_operator`` gives it);
 * ``s3_quality_s0`` .. ``s3_fast_s2``: the six stages of the shear flagship
   (8 frames of 2048x2048 bf16 at 30 degrees, 1.0 -> 0.5, both
   decompositions), each stage on the plain output of the one before;
@@ -38,7 +41,7 @@ the shear stages and the rotated shear forms bit for bit), except in the build v
 
 ``--repo`` imports ``aainterp_torch`` and ``chip_smoke`` from another
 checkout (the parent commit, for a before/after comparison in one run on
-one card).  ``--variants`` lists build variants: edits of the sources
+one card; a checkout whose ``chip_smoke.graph_ms`` takes ``calls``).  ``--variants`` lists build variants: edits of the sources
 (``VARIANTS``, regular expression -> replacement per source file), built
 with nvcc into ``aainterp_torch/_build/sweep/<variant>/``; a library whose
 files a variant does not edit is used as it is.  Each ``--set`` is one
@@ -109,6 +112,23 @@ VARIANTS = {
         "const int n_ty = g.n_tiles / g.n_tx;\n"
         "  const int walk = blockIdx.x % g.n_tiles;\n"
         "  const int tile = (walk % n_ty) * g.n_tx + walk / n_ty;")]},
+    # separable_apply_2d.cu, the direct form: groups of 4 rows in the y
+    # pass's ring instead of 8, 2 groups of 32 taps in the x pass instead
+    # of 4
+    "group4": {"separable_apply_2d.cu": [(r"constexpr int kGroupRows = 8;",
+                                          "constexpr int kGroupRows = 4;")]},
+    "xgroups2": {"separable_apply_2d.cu": [(r"constexpr int kXGroups = 4;",
+                                            "constexpr int kXGroups = 2;")]},
+    # the direct form's ablations: no x pass, no y pass (the x pass reads
+    # stale T), the y pass's ring without its weights
+    "noxpass": {"separable_apply_2d.cu": [(r"  switch \(out_code\) \{\n"
+                                           r"    case 0: return direct_x",
+                                           "  return 0;\n  switch (out_code) "
+                                           "{\n    case 0: return direct_x")]},
+    "noypass": {"separable_apply_2d.cu": [(r"if \(a\.span > 0\) \{",
+                                           "if (false) {")]},
+    "nowload": {"separable_apply_2d.cu": [(
+        r"wv\[r\] = wmine\[wget \+ r\];", "wv[r] = 1.0f;")]},
     # band_apply.cuh: 8 columns per lane in the y pass instead of 4
     "lane8": {"band_apply.cuh": [(r"constexpr int kLaneCols = 4;",
                                   "constexpr int kLaneCols = 8;")]},
@@ -134,9 +154,12 @@ VARIANTS = {
         (r"band_rows<kVec>\(bv, t, mlo \+ mi, s\.K, r\);",
          "for (int q = 0; q < kVec; ++q) r[q] = 0.0f;")]},
 }
+# cells timed with this many calls in each CUDA graph (their calls are
+# shorter than a replay's host cost)
+CALLS = {"k2_direct": 20}
 EXACT = ("cur", "lane8", "t256", "t128", "tilemajor",   # variants that
          "colmajor", "copy1024", "copy512",         # compute everything
-         "copypart4")
+         "copypart4", "group4", "xgroups2")
 
 
 def variant_sources(lib, name: str) -> dict:
@@ -247,6 +270,10 @@ def make_cells(dev):
                      bx.weights.astype(np.float32))
     wide = (np.zeros(4, np.int32), np.full((4, 480), 1 / 480, np.float32))
     tabs["wide"] = wide + wide
+    thumb = at.build_operator(at.make_grid_spec((2160, 3840), 240.0, 1.0,
+                                                (0.0, 0.0), 0.0))
+    tabs["thumb"] = at.separable_linear_for(thumb, torch.float32,
+                                            "kernel").tables
     keys = ("TY", "TX", "SY", "SX", "smem", "direct")
 
     def k1_cell(dtype):
@@ -279,6 +306,8 @@ def make_cells(dev):
                    ("u8", torch.uint8))})
     cells["k2q_f32"] = k2_cell("q", torch.float32)
     cells["k2_direct"] = k2_cell("wide", torch.float32, (8, 480, 480))
+    cells["k2_thumb"] = k2_cell("thumb", torch.bfloat16, (8, 2160, 3840))
+    cells["k2_thumb_f32"] = k2_cell("thumb", torch.float32, (8, 2160, 3840))
 
     spec = at.make_grid_spec((2048, 2048), 1.0, 0.5, (1024.0, 1024.0), 30.0)
     bf16 = torch.bfloat16
@@ -443,7 +472,9 @@ def main() -> int:
                     if err > tol or (tol == 0 and not torch.equal(got, want)):
                         raise RuntimeError(f"{variant} {name}: |kernel - "
                                            f"plain| {err}")
-                ms[name] = round(min(cs.graph_ms(fn, xs, 20)
+                # calls shorter than a replay's host cost: several a graph
+                ms[name] = round(min(cs.graph_ms(fn, xs, 20,
+                                                 CALLS.get(name, 1))
                                      for _ in range(2)), 4)
             print(json.dumps({"repo": args.repo, "variant": variant,
                               "set": setting, "card": card, "ms": ms,

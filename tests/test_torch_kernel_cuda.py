@@ -25,7 +25,12 @@ for every (axis, form) and whole pipelines; the route within one bf16 ulp
 (test_shear3.py:256-259); gradients atol 1e-5.  2-D banded-tile kernel:
 f32 atol 1e-5 on [0, 1] inputs, bf16 within one bf16 ulp, uint8 within
 one gray level; 'default' and 'bf16x3' rtol 1e-6 (the same bf16 operands
-summed in the same order).  The rest of the rotated family: compat on the
+summed in the same order).  Its direct form (bands beyond shared memory):
+bit-equal to the plain version in 'default' and 'bf16x3', into NaN-filled
+outputs, at whole-image boxes, ragged widths, many frames, starts off the
+edges, descending starts, the y pass's 16-byte chunks and the 4K -> 16 x 9
+thumbnail through ``apply_operator``; and bit-equal to the staged form in
+every mode where both run.  The rest of the rotated family: compat on the
 kernel route as the exact operator's (1 fused shear + 1 contraction per
 request); ``EllLinear``'s forward bit-equal to the kernel route and its
 gradient within f32 atol 1e-5 (bf16: one bf16 ulp) of native autograd of
@@ -65,11 +70,12 @@ pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
-def cuda():
+def cuda(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # TF32 off for this test only (restored after it)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     return torch.device("cuda:0")
 
 
@@ -733,18 +739,51 @@ def test_band_apply_routes_and_launches(cuda):
     torch.testing.assert_close(xk.grad, xp.grad, rtol=1e-5, atol=1e-6)
 
 
+def _band(starts, k, n_src, seed):
+    """A band of ``k`` taps per dst index at ``starts`` over ``n_src``
+    source indices, seeded positive weights, zero on taps outside the
+    source (as every table of the port has)."""
+    starts = np.asarray(starts, np.int32)
+    w = np.random.default_rng(seed).uniform(0.5, 1.5, (starts.size, k))
+    taps = starts[:, None].astype(np.int64) + np.arange(k)
+    w[(taps < 0) | (taps >= n_src)] = 0.0
+    return t_regrid.Band1D(start=starts, weights=w / w.sum(1, keepdims=True),
+                           n_src=n_src, n_dst=starts.size)
+
+
+# (F, H, W, y starts, ky, x starts, kx) of band pairs beyond shared memory:
+# whole-image boxes; a ragged W (1001 columns, not a multiple of the y
+# pass's 128) with Hd x Wd = 35 outputs a frame (beyond one x-pass block of
+# 8) and 13 frames; starts off the image's edges; descending starts (a
+# flipped quadrant) with windows in the middle of the image; enough
+# columns for the y pass's 16-byte chunks, starts off the edges
+DIRECT_CASES = {
+    "boxes": (2, 400, 400, [0, 0, 0], 400, [0, 0, 0], 400),
+    "ragged_many": (13, 300, 1001, [0, 10, 20, 40, 60], 240,
+                    [0, 120, 300, 450, 600, 700, 761], 240),
+    "edges": (3, 330, 517, [-37, 100, 200], 260, [-250, -3, 300], 260),
+    "flipped": (2, 320, 640, [60, 40, 20, 0], 270, [370, 250, 130, 10], 260),
+    # 8 x 9 x 1024 columns: the y pass's 16-byte chunks a thread
+    "chunks_edges": (8, 300, 1024, [-40, -5, 0, 10, 20, 30, 35, 39, 40], 260,
+                     [-200, 100, 500, 800], 260),
+}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.uint8])
 @pytest.mark.parametrize("precision", ["auto", "default", "bf16x3"])
-def test_kernel_2d_wide_band_takes_the_direct_form(cuda, dtype, precision):
+@pytest.mark.parametrize("case", list(DIRECT_CASES))
+def test_kernel_2d_wide_band_takes_the_direct_form(cuda, dtype, precision,
+                                                   case):
     # one dst pixel's block beyond shared memory: the direct form, one
-    # launch, the plain version's bits in the bf16 modes
-    band = t_regrid.Band1D(start=np.zeros(3, np.int32),
-                           weights=np.full((3, 400), 1 / 400), n_src=400,
-                           n_dst=3)
-    tabs = t_regrid.band_tables(band, band)
+    # launch into a NaN-filled output, the plain version's bits in the bf16
+    # modes
+    F, H, W, ys, ky, xs, kx = DIRECT_CASES[case]
+    by, bx = _band(ys, ky, H, 1), _band(xs, kx, W, 2)
+    tabs = t_regrid.band_tables(by, bx)
     assert tabs.plan["direct"]
-    x = _frames((2, 400, 400), dtype, cuda)
-    out = torch.full((2, 3, 3), float("nan"), device=cuda).to(dtype)
+    x = _frames((F, H, W), dtype, cuda)
+    out = torch.full((F, len(ys), len(xs)), float("nan"),
+                     device=cuda).to(dtype)
     before = cuda_apply_2d.LAUNCHES
     got = cuda_apply_2d.apply_separable_kernel_2d(
         x, tabs.ys, tabs.yw, tabs.xs, tabs.xw, precision=precision, out=out,
@@ -755,18 +794,91 @@ def test_kernel_2d_wide_band_takes_the_direct_form(cuda, dtype, precision):
     want = cuda_apply_2d.apply_separable_2d_plain(
         x, tabs.ys, tabs.yw, tabs.xs, tabs.xw, precision=precision)
     err = (got.double() - want.double()).abs()
-    if dtype == torch.uint8:
+    if precision != "auto":
+        assert torch.equal(got, want)
+    elif dtype == torch.uint8:
         assert err.max().item() <= 1.0
-    elif precision != "auto":
-        assert (err <= 1e-6 * want.double().abs() + 1e-30).all()
     elif dtype == torch.float32:
         assert err.max().item() <= 1e-5
     else:
         assert (err <= _bf16_ulp(want)).all()
     n = cuda_apply_2d.LAUNCHES
-    routed = at.apply_band_operators(x, band, band, precision=precision)
+    routed = at.apply_band_operators(x, by, bx, precision=precision)
     assert cuda_apply_2d.LAUNCHES == n + 1
     assert torch.equal(routed, got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.uint8])
+def test_kernel_2d_direct_form_thumbnail(cuda, dtype):
+    # 4K -> 16 x 9 through apply_operator: kernel 1's planner hands the
+    # 242-tap bands to kernel 2, whose direct form takes them
+    op, tabs = _tables(2160, 3840, 240.0, 1.0)
+    assert cuda_apply._plan_for(*tabs)["kernel_2d"]
+    assert cuda_apply_2d.kernel_plan(*tabs)["direct"]
+    x = _frames((8, 2160, 3840), dtype, cuda)
+    before = cuda_apply_2d.LAUNCHES
+    got = at.apply_operator(op, x)
+    torch.cuda.synchronize()
+    assert cuda_apply_2d.LAUNCHES == before + 1
+    # u8 frames give f32, as the separable path does for u8 input
+    assert got.dtype == (torch.float32 if dtype == torch.uint8 else dtype)
+    assert tuple(got.shape) == (8, 9, 16)
+    assert torch.equal(got, cuda_apply_2d.apply_separable_kernel_2d(
+        x, *tabs, out_dtype=got.dtype))
+    for precision in ("auto", "default", "bf16x3"):
+        out = torch.full((8, 9, 16), float("nan"), device=cuda).to(dtype)
+        k = cuda_apply_2d.apply_separable_kernel_2d(x, *tabs,
+                                                    precision=precision,
+                                                    out=out)
+        want = cuda_apply_2d.apply_separable_2d_plain(x, *tabs,
+                                                      precision=precision)
+        torch.cuda.synchronize()
+        assert k is out and torch.isfinite(k.float()).all()
+        if precision != "auto":
+            assert torch.equal(k, want)
+        elif dtype == torch.bfloat16:
+            assert ((k.double() - want.double()).abs()
+                    <= _bf16_ulp(want)).all()
+        else:
+            assert (k.double() - want.double()).abs().max().item() <= (
+                1.0 if dtype == torch.uint8 else 1e-5)
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.float32, torch.uint8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.uint8])
+@pytest.mark.parametrize("precision", ["auto", "default", "bf16x3"])
+@pytest.mark.parametrize("W,vec_min", [(1003, 0), (1024, 0),
+                                       (1024, 1 << 40)],
+                         ids=["ragged", "chunks", "columns"])
+def test_kernel_2d_direct_form_equals_staged_form(cuda, monkeypatch, W,
+                                                  vec_min, precision, dtype,
+                                                  out_dtype):
+    # a band pair both forms can run, the direct form forced by a plan
+    # with no shared memory: the same sums in the same order, the same
+    # bits in every mode, with the y pass's 16-byte chunks a thread (W
+    # 1024) and a column a thread (rows of 1003, or chunks turned off);
+    # starts off the edges
+    monkeypatch.setattr(cuda_apply_2d, "VEC_MIN_COLUMNS", vec_min)
+    by = _band([-3, 20, 41, 62, 83, 104, 125, 146, 167], 24, 181, 3)
+    bx = _band(np.arange(-5, W, 20), 26, W, 4)
+    tabs = (by.start, by.weights.astype(np.float32), bx.start,
+            bx.weights.astype(np.float32))
+    staged = cuda_apply_2d.make_plan(*tabs)
+    monkeypatch.setattr(cuda_apply_2d, "SMEM_LIMIT", 0)
+    direct = cuda_apply_2d.make_plan(*tabs)
+    assert not staged["direct"] and direct["direct"]
+    x = _frames((5, 181, W), dtype, cuda)
+    got = {}
+    for name, plan in (("staged", staged), ("direct", direct)):
+        want_dtype = out_dtype or dtype
+        out = torch.full((5, 9, bx.n_dst), float("nan"),
+                         device=cuda).to(want_dtype)
+        got[name] = cuda_apply_2d.apply_separable_kernel_2d(
+            x, *tabs, precision=precision, out_dtype=out_dtype, out=out,
+            plan=plan)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got["direct"].float()).all()
+    assert torch.equal(got["direct"], got["staged"])
 
 
 def test_front_doors_on_the_kernel(cuda):

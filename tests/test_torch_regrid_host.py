@@ -134,9 +134,8 @@ def test_plan_2d_budget_and_rejection():
     assert cuda_apply_2d.SMEM_TARGET < plan["smem"] <= cuda_apply_2d.SMEM_LIMIT
     # beyond the limit: not rejected, but the direct form (no shared memory)
     plan = cuda_apply_2d.plan_separable_2d(ys, xs, 300, 300)
-    assert (plan["TY"], plan["TX"], plan["direct"], plan["smem"]) == \
-        (1, 1, True, 0)
-    assert (plan["SY"], plan["SX"]) == (300, 300)
+    assert (plan["direct"], plan["smem"]) == (True, 0)
+    assert (plan["x_lo"], plan["x_hi"]) == (0, 300)
     # a smaller budget halves TX, then TY, the larger first
     by, bx = t_api.resize_bands((2160, 3840), (720, 1280))
     sizes = [(p["TY"], p["TX"]) for p in (

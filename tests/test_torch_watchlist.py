@@ -16,9 +16,9 @@ On the card (marker ``cuda``, skipped here; imports no JAX, so it runs
 with ``--noconftest -m cuda``): each kernel against its plain version into
 NaN-filled outputs at JAX's shapes and at one other shape per probe —
 strided_y_bf16 at parity 0 of a later frame with ragged boxes,
-strided_load and value_slice on ragged tiles, unaligned_dma at another row
-offset and with all 16 rows in one block (230,400 bytes of shared
-memory), high_dot with a ≠ b on a 2 x 3 grid of tiles and at K 16 and
+strided_load and value_slice on ragged tiles, unaligned_dma at JAX's
+shape (16 rows x 8 pieces), at other row offsets and counts, on narrow
+rows and on one row beyond the shared-memory opt-in, high_dot with a ≠ b on a 2 x 3 grid of tiles and at K 16 and
 224 (its smallest and largest compile-time instances), vpu_dyn_rows with
 shuffled offsets (``arange`` hides an index slip) — ``torch.equal``, or
 the high_dot tolerance, and one launch per call.
@@ -329,12 +329,15 @@ def test_strided_load_and_value_slice_ragged(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [(5, 11, 1004), (3, 20, 3600),
-                                  (8, 16, 3600), (0, 64, 3600)],
-                         ids=["offset5", "two_blocks", "one_block",
-                              "all_rows"])
+                                  (8, 16, 3600), (0, 64, 3600),
+                                  (2, 7, 36), (1, 1, 60000)],
+                         ids=["offset5", "twenty_rows", "jax_shape",
+                              "all_rows", "narrow_odd_rows", "wide_row"])
 def test_unaligned_dma_offsets_and_blocks(cuda, case):
-    # 16 rows of 3600 f32 fill one block's shared memory: 20 rows take two
-    # blocks (16 + 4), 64 rows four
+    # rows cut into pieces of whole 16-byte chunks of at most 2 KB, one
+    # block a piece: 3600 f32 in 8 pieces (7 of 113 chunks, one of 109),
+    # 1004 f32 in 2 (126 + 125), 36 f32 in one, 60,000 f32 (240,000 bytes,
+    # beyond the shared-memory opt-in) in 118
     start, rows, W = case
     x = _uniform((64, W), 10, cuda)
     _held("unaligned_dma", mw.unaligned_dma_kernel, mw.unaligned_dma_plain,
@@ -392,7 +395,6 @@ def test_kernels_raise_on_shapes_they_cannot_take(cuda):
     with pytest.raises(ValueError, match="up to 224"):
         mw.high_dot_kernel(torch.zeros(128, 240, device=cuda),
                            torch.zeros(240, 128, device=cuda))
-    with pytest.raises(RuntimeError, match="launch failed"):
-        # one row of 60,000 f32 (240,000 bytes) exceeds the shared-memory
-        # opt-in
-        mw.unaligned_dma_kernel(torch.zeros(2, 60000, device=cuda), 0, 1)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        # rows of 30 f32 (120 bytes) are not whole 16-byte chunks
+        mw.unaligned_dma_kernel(torch.zeros(2, 30, device=cuda), 0, 1)
