@@ -1,6 +1,6 @@
 """Build the port's native libraries at first use and load them with ctypes.
 
-Nine libraries, each from one source with a plain C interface (no
+Ten libraries, each from one source with a plain C interface (no
 PyTorch headers), so each builds in seconds:
 
 * ``separable_apply`` — ``csrc/separable_apply.cu`` through nvcc;
@@ -23,6 +23,9 @@ PyTorch headers), so each builds in seconds:
 * ``watchlist`` — ``csrc/watchlist.cu`` (the Mosaic watchlist's six
   probes on TMA, 1-D bulk copies with mbarriers and wgmma, from the
   Hopper primitives of ``csrc/hopper.cuh``) through nvcc;
+* ``dense_x`` — ``csrc/dense_x.cu`` (kernel 1's dense-x probe: the y
+  pass, then a dense x operator as a wgmma product on a bf16 split, on
+  ``csrc/hopper.cuh``) through nvcc;
 * ``aainterp_native`` — the repository's host weight-gen and CSV engine,
   ``native/aainterp_native.cpp``, through g++ with the flags of
   ``native/Makefile``.
@@ -33,8 +36,8 @@ The four CUDA sources of the production kernels include
 contraction's body under its probe modes; ``separable_apply.cu``,
 ``separable_apply_2d.cu`` and ``band_probes.cu`` include
 ``csrc/band_apply.cuh``, the separable kernels' body under its probe
-modes; ``watchlist.cu`` includes ``csrc/hopper.cuh`` and, for the
-shared-memory opt-in, ``csrc/stage_common.cuh``.
+modes; ``watchlist.cu`` and ``dense_x.cu`` include ``csrc/hopper.cuh``
+and, for the shared-memory opt-in, ``csrc/stage_common.cuh``.
 
 Each shared library lands in ``aainterp_torch/_build/`` under a name that
 carries a hash of its source, the headers it includes, its compiler and
@@ -195,6 +198,13 @@ WATCHLIST = Library(
         ("aainterp_vpu_dyn_rows", (_P,) * 3 + (_I,) * 3 + (_P,),
          ctypes.c_int),
     ),
+    headers=(_PKG / "csrc" / "hopper.cuh", _STAGE_HEADER))
+
+DENSE_X = Library(
+    "dense_x", _PKG / "csrc" / "dense_x.cu", "nvcc", NVCC_FLAGS,
+    # aainterp_dense_x(frames, out, ys, wy, row_base, ops, F, H, W, Hd, Wd,
+    #     ky, SY, warpgroups, window_budget, dtype_code, stream)
+    (("aainterp_dense_x", (_P,) * 6 + (_I,) * 10 + (_P,), ctypes.c_int),),
     headers=(_PKG / "csrc" / "hopper.cuh", _STAGE_HEADER))
 
 NATIVE = Library(

@@ -443,11 +443,7 @@ enum Probe : int {
   kWalk3 = 9,       // ... 2 in flight
   kWalk4 = 10,      // ... 3 in flight (band_walk_kernel)
   kXOnly = 11,      // the x pass alone, T staged from the y pass's output
-  kDenseX = 12,     // the y pass, then a dense (W, Wd) x operator
 };
-
-constexpr int kDenseRows = 8;   // kDenseX: rows a thread sums at once
-constexpr int kDenseStep = 16;  // kDenseX: columns whose weights load together
 
 __host__ __device__ constexpr int convert_chunks(int p) {
   return p == kU8Convert1 ? 1 : p == kU8Convert2 ? 2 : p == kU8Convert4 ? 4 : 0;
@@ -723,58 +719,6 @@ __global__ void __launch_bounds__(kThreads) band_apply_kernel(
 #pragma unroll
       for (int b = 0; b < 4; ++b) acc.add(wreg[b], tr[min(max(xo + b, 0), d.SX - 1)]);
       store(reinterpret_cast<Tout*>(ot + r * g.pitch_out + xj * eo), acc.sum());
-    }
-  } else if constexpr (P == kDenseX) {
-    // one strip of every dst column (TX = Wd, SX = W, cb = 0): out[i, j] =
-    // sum over all W columns x, ascending, of T[i, x] * Wxd[x, j], Wxd (W,
-    // Wd) in Tin passed as wx.  A thread takes dst columns tid, tid +
-    // kThreads, ... and kDenseRows rows at a time: one Wxd load serves them,
-    // and T's reads are warp-wide broadcasts (4 columns per read where T's
-    // rows allow).  Wxd comes from L2; each step issues kDenseStep loads
-    // before its multiply-adds, so that their latencies overlap
-    const Tin* wxd = reinterpret_cast<const Tin*>(wx);
-    const int x_steps = d.SX % 4 == 0 ? d.SX - d.SX % kDenseStep : 0;
-    for (int jj = tid; jj < cols; jj += kThreads) {
-      const Tin* wc = wxd + j0 + jj;
-      for (int r0 = 0; r0 < rows; r0 += kDenseRows) {
-        float acc[kDenseRows];
-#pragma unroll
-        for (int q = 0; q < kDenseRows; ++q) acc[q] = 0.0f;
-        int x = 0;
-        for (; x < x_steps; x += kDenseStep) {
-          float w[kDenseStep];
-#pragma unroll
-          for (int k = 0; k < kDenseStep; ++k) {
-            w[k] = to_f32(wc[static_cast<long long>(x + k) * d.Wd]);
-          }
-#pragma unroll
-          for (int q = 0; q < kDenseRows; ++q) {
-            if (r0 + q < rows) {
-#pragma unroll
-              for (int k = 0; k < kDenseStep; k += 4) {
-                const float4 t4 = *reinterpret_cast<const float4*>(T + (r0 + q) * d.SX + x + k);
-                acc[q] = fmaf(t4.x, w[k], acc[q]);
-                acc[q] = fmaf(t4.y, w[k + 1], acc[q]);
-                acc[q] = fmaf(t4.z, w[k + 2], acc[q]);
-                acc[q] = fmaf(t4.w, w[k + 3], acc[q]);
-              }
-            }
-          }
-        }
-        for (; x < d.SX; ++x) {
-          const float w = to_f32(wc[static_cast<long long>(x) * d.Wd]);
-#pragma unroll
-          for (int q = 0; q < kDenseRows; ++q) {
-            if (r0 + q < rows) acc[q] = fmaf(T[(r0 + q) * d.SX + x], w, acc[q]);
-          }
-        }
-#pragma unroll
-        for (int q = 0; q < kDenseRows; ++q) {
-          if (r0 + q < rows) {
-            store(reinterpret_cast<Tout*>(ot + (r0 + q) * g.pitch_out + jj * eo), acc[q]);
-          }
-        }
-      }
     }
   } else
   for (int r = x_on ? xrg : rows; r < rows; r += n_rg) {

@@ -25,8 +25,9 @@
 //                           (pallas_call at :141; "dma", "ypass"), at 1024^2
 //                           150 -> 60 dpi
 //   kXOnly               <- rgb1024_experiments.py:148 _build_xonly (:174)
-//   kDenseX              <- rgb1024_experiments.py:181 _build_full_dense_x
-//                           (:238)
+//
+// (rgb1024_experiments.py:181 _build_full_dense_x, the dense x probe, is
+// csrc/dense_x.cu's, on the tensor cores.)
 //
 // What each keeps and stores (band_apply.cuh's Probe): kStage the window
 // staging and the output stores (the first tap's pixel); kStageY those and
@@ -38,12 +39,7 @@
 // band from a (4, Wd) table; kXOnly production's x pass alone, its T
 // converted from the tile's rows of an input that holds the y pass's
 // output, (F, Hd, W) in the frame dtype (H passed as Hd), staged as the
-// window is; kDenseX production's y pass, then every output
-// summed over all W columns of T with a dense (W, Wd) operator in the
-// frame dtype (passed as wx), on a plan of one strip: TX = Wd, SX = W,
-// col_base 0.  What bounds them: bytes, as kernel 1, but kDenseX:
-// operations, 2 * W per output (the TPU probe's dense matrix product; a
-// plain f32 FMA loop here, as the probe asks what the dense form costs); a mode
+// window is.  What bounds them: bytes, as kernel 1; a mode
 // whose shared memory exceeds the card's opt-in returns
 // cudaErrorInvalidValue before any launch (the host checks it first).
 //
@@ -117,7 +113,6 @@ int float_modes(int mode, const void* src, void* out, const void* ys, const void
     case band::kWalk3: return launch_probe<T, T, band::kWalk3>(src, out, ys, wy, xs, wx, rb, cb, F, d, steps, st);
     case band::kWalk4: return launch_probe<T, T, band::kWalk4>(src, out, ys, wy, xs, wx, rb, cb, F, d, steps, st);
     case band::kXOnly: return launch_probe<T, T, band::kXOnly>(src, out, ys, wy, xs, wx, rb, cb, F, d, steps, st);
-    case band::kDenseX: return launch_probe<T, T, band::kDenseX>(src, out, ys, wy, xs, wx, rb, cb, F, d, steps, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -142,23 +137,22 @@ int u8_modes(int mode, const void* src, void* out, const void* ys, const void* w
 }  // namespace
 
 // mode: band_apply.cuh's Probe (1 stage, 2 stagey, 3 u8words, 4 xpair,
-// 5-7 u8 convert in 1/2/4 chunks, 8-10 walk with 2/3/4 slots, 11 xonly,
-// 12 densex); dtype_code (input and output): 0 = float32, 1 = bfloat16
-// (stage, stagey, walk, xonly, densex), 2 = uint8 (stage, stagey, u8words,
+// 5-7 u8 convert in 1/2/4 chunks, 8-10 walk with 2/3/4 slots, 11
+// xonly); dtype_code (input and output): 0 = float32, 1 = bfloat16
+// (stage, stagey, walk, xonly), 2 = uint8 (stage, stagey, u8words,
 // xpair, u8 convert).  The other arguments are aainterp_separable_apply's
 // (csrc/separable_apply.cu); for xpair wx is the (4, Wd) table of source
 // columns 2j - 1 .. 2j + 2 and xs is not read; for xonly src is (F, Hd,
-// W), H = Hd and SY >= TY (the window holds the tile's rows); for densex wx is the (W, Wd) operator in the frame dtype,
-// TX = Wd (the one strip may exceed the block's threads) and SX = W;
-// steps: row tiles per block of the walk.
+// W), H = Hd and SY >= TY (the window holds the tile's rows); steps: row
+// tiles per block of the walk.
 extern "C" int aainterp_band_probe(
     const void* src, void* out, const void* ys, const void* wy, const void* xs,
     const void* wx, const void* row_base, const void* col_base, int F, int H, int W,
     int Hd, int Wd, int ky, int kx, int TY, int TX, int SY, int SX, int mode, int steps,
     int dtype_code, void* stream) {
   if (F <= 0 || H <= 0 || W <= 0 || Hd <= 0 || Wd <= 0 || ky <= 0 || kx <= 0 || TY <= 0 ||
-      TX <= 0 || (TX > band::kThreads && mode != band::kDenseX) || SY < ky || SX < kx ||
-      (mode == band::kDenseX && (TX != Wd || SX != W)) || (mode == band::kXOnly && (H != Hd || SY < TY)) ||
+      TX <= 0 || TX > band::kThreads || SY < ky || SX < kx ||
+      (mode == band::kXOnly && (H != Hd || SY < TY)) ||
       (mode == band::kXPair && kx > 4)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

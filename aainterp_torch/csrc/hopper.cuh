@@ -1,11 +1,13 @@
 // Hopper primitives (sm_90a) as inline PTX, for the port's kernels to share:
 // mbarriers, the async-proxy fences, 1-D bulk copies (cp.async.bulk) in both
 // directions, TMA tile loads (cp.async.bulk.tensor) from a CUtensorMap, the
-// wgmma shared-memory matrix descriptor and one wgmma shape, and a host helper
+// wgmma shared-memory matrix descriptor and the wgmma shapes the kernels use,
+// the bf16 hi / lo split of f32 values into that layout, and a host helper
 // that encodes a tiled tensor map.
 //
 // First used by csrc/watchlist.cu, whose six probes hold each primitive
-// against a plain PyTorch version on the card.
+// against a plain PyTorch version on the card; csrc/dense_x.cu runs a
+// product of a bf16 split on the same wgmma path.
 //
 // mbarrier protocol: one thread calls mbar_init, then fence_mbarrier_init,
 // then the block synchronises before any copy names the barrier.  The thread
@@ -28,6 +30,7 @@
 #pragma once
 
 #include <cuda.h>            // CUtensorMap and its enums
+#include <cuda_bf16.h>
 #include <cudaTypedefs.h>    // PFN_cuTensorMapEncodeTiled
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -144,6 +147,15 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
                                             int c2, int c3, uint64_t* bar) {
   asm volatile(
@@ -188,35 +200,88 @@ __device__ __forceinline__ void fence_operands(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (64 x 128 f32, the warpgroup's fragment) += A (64 x 16 bf16) * B (16 x
-// 128 bf16), both K-major in shared memory; scale_d 0 discards d's old value.
+// d (64 x N f32, the warpgroup's fragment) += A (64 x 16 bf16) * B (16 x N
+// bf16), both K-major in shared memory; scale_d 0 discards d's old value.
 // Thread t of the warpgroup holds d[i] at row 16 * (t / 32) + (t % 32) / 4 +
-// 8 * ((i / 2) % 2), column 8 * (i / 4) + 2 * (t % 4) + i % 2.
-__device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t desc_a,
-                                                      uint64_t desc_b, int scale_d) {
+// 8 * ((i / 2) % 2), column 8 * (i / 4) + 2 * (t % 4) + i % 2.  One
+// instance per N the kernels use: N = 32 (high_dot's 64 x 32 tiles) and
+// 208 (dense_x.cu's column slice of a warpgroup).
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                           int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<32>(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                               int scale_d) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
+        "+f"(d[14]), "+f"(d[15])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<208>(float (&d)[104], uint64_t desc_a, uint64_t desc_b,
+                                               int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %106, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n208k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103"
+      "}, %104, %105, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// ---- the split and the core-matrix layout -------------------------------------
+
+// the element offset of (row r, column k) of a K-major operand of kg core
+// matrices along K (K / 8), unswizzled: core matrix (r / 8, k / 8) at
+// ((r / 8) * kg + k / 8) * 64 elements, row r % 8 of it 16 bytes at (r % 8) * 8
+__host__ __device__ __forceinline__ int core_offset(int r, int k, int kg) {
+  return ((r >> 3) * kg + (k >> 3)) * 64 + (r & 7) * 8 + (k & 7);
+}
+
+// 8 values along K split into hi = bf16(v) and lo = bf16(v - hi) (the
+// difference exact in f32), one 16-byte store each
+__device__ __forceinline__ void split8(const float (&v)[8], __nv_bfloat16* hi, __nv_bfloat16* lo) {
+  __align__(16) __nv_bfloat16 h[8], l[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    h[j] = __float2bfloat16_rn(v[j]);
+    l[j] = __float2bfloat16_rn(v[j] - __bfloat162float(h[j]));
+  }
+  *reinterpret_cast<uint4*>(hi) = *reinterpret_cast<const uint4*>(h);
+  *reinterpret_cast<uint4*>(lo) = *reinterpret_cast<const uint4*>(l);
 }
 
 // ---- host: tiled tensor maps -------------------------------------------------

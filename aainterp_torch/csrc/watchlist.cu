@@ -16,7 +16,8 @@
 //                   store back
 //   high_dot        probe_high_dot (:144)       a @ b at bf16x3 (Precision.HIGH):
 //                   hi*hi + hi*lo + lo*hi with hi = bf16(a), lo = bf16(a - hi), f32
-//                   sums, on wgmma m64n128k16
+//                   sums, on wgmma m64n32k16: 64 x 32 tiles, K through a
+//                   two-stage ring of TMA boxes
 //   vpu_dyn_rows    probe_vpu_dyn_rows (:171)   out[r] = x[off[r]] + x[off[r] + 1] at
 //                   offsets the block reads itself
 //
@@ -40,7 +41,6 @@
 
 #include <atomic>
 #include <climits>
-#include <utility>
 
 #include "hopper.cuh"
 #include "stage_common.cuh"
@@ -167,91 +167,116 @@ __global__ void __launch_bounds__(32)
 }
 
 // ---- high_dot --------------------------------------------------------------------
-// One block of two warpgroups per 128 x 128 tile of out: the block splits its
-// 128 rows of a and 128 columns of b into hi and lo bf16 in shared memory, in
-// K-major core matrices (b stored as b^T: row n holds column n of b), core
-// matrix (r / 8, k / 8) at ((r / 8) * (K / 8) + k / 8) * 128 bytes; then
-// warpgroup g takes rows 64 g .. 64 g + 63 through K / 16 steps of three
-// wgmma each, lo*hi, hi*lo, hi*hi, into one f32 accumulator.  K is a
-// template argument: around a loop of a runtime trip count ptxas serialises
-// the wgmma (warning C7520), so the steps are unrolled at compile time, one
-// instance per K that fits the opt-in.
+// One warpgroup per 64 x 32 tile of out (JAX's 128 x 128: 8 blocks, where
+// one block of the whole tile ran its loads, split and products one after
+// another on one SM).  K comes in chunks of 32 through a ring of two
+// stages: thread 0 issues a chunk's two TMA boxes onto the stage's
+// mbarrier (a: 64 rows x 32 K, b: 32 K rows x 32 columns, f32, zeros out
+// of bounds); the threads split the chunk into hi and lo bf16 in K-major
+// core matrices (b^T: column n of b as row n, transposed as it is
+// written), issue its wgmma m64n32k16, lo*hi, hi*lo, hi*hi per 16 K, into
+// one f32 accumulator, and split the next chunk while they run;
+// wgmma_wait<1> before a stage's bf16 is written again.  Four stages: at
+// JAX's K = 128 every box is in flight from the start.  The chunk loop's
+// trip count is K's, at run time; the accumulator is never zeroed by other
+// instructions (the first product scales it by 0), so ptxas keeps the
+// products asynchronous.
 
-constexpr int kTile = 128;
-constexpr int kMaxKSteps = 14;    // K <= 224: 4 * 128 * 224 bf16 = 229,376 B
 
-// the element offset of (row r, column k) in the core-matrix layout
-__device__ __forceinline__ int core_offset(int r, int k, int kg) {
-  return ((r >> 3) * kg + (k >> 3)) * 64 + (r & 7) * 8 + (k & 7);
-}
+constexpr int kDotRows = 64, kDotCols = 32, kDotK = 32, kDotStages = 4;
+constexpr int kDotKg = kDotK / 8;                            // core matrices along K
+constexpr uint32_t kDotAF = 4 * kDotRows * kDotK;            // a's f32 box, bytes
+constexpr uint32_t kDotBF = 4 * kDotK * kDotCols;            // b's f32 box
+constexpr int kDotAH = kDotRows * kDotK, kDotBH = kDotCols * kDotK;  // bf16 elements
+constexpr uint32_t kDotStage = kDotAF + kDotBF + 2 * 2 * (kDotAH + kDotBH);
+constexpr size_t kDotSmem = 128 + kDotStages * static_cast<size_t>(kDotStage) + 8 * kDotStages;
 
-// 8 values along K split into hi and lo, one 16-byte store each
-__device__ __forceinline__ void split8(const float (&v)[8], __nv_bfloat16* hi, __nv_bfloat16* lo) {
-  __align__(16) __nv_bfloat16 h[8], l[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    h[j] = __float2bfloat16_rn(v[j]);
-    l[j] = __float2bfloat16_rn(v[j] - __bfloat162float(h[j]));
-  }
-  *reinterpret_cast<uint4*>(hi) = *reinterpret_cast<const uint4*>(h);
-  *reinterpret_cast<uint4*>(lo) = *reinterpret_cast<const uint4*>(l);
-}
-
-template <int K>
-__global__ void __launch_bounds__(2 * kTile)
-    high_dot_kernel(const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ out,
-                    int N) {
+__global__ void __launch_bounds__(128)
+    high_dot_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap bmap,
+                    float* __restrict__ out, int M, int N, int K) {
   extern __shared__ unsigned char raw[];
-  __nv_bfloat16* ops = reinterpret_cast<__nv_bfloat16*>(aligned<128>(raw));
-  const int tile = kTile * K;                      // elements of one operand
-  __nv_bfloat16 *ahi = ops, *alo = ops + tile, *bhi = ops + 2 * tile, *blo = ops + 3 * tile;
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
-  constexpr int kg = K / 8;
-  for (int e = threadIdx.x; e < kTile * kg; e += 2 * kTile) {   // a: k groups fastest
-    const int r = e / kg, k = 8 * (e - r * kg);
-    const float4* src = reinterpret_cast<const float4*>(a + static_cast<long long>(m0 + r) * K + k);
-    const float4 p = src[0], q = src[1];
-    const float v[8] = {p.x, p.y, p.z, p.w, q.x, q.y, q.z, q.w};
-    split8(v, ahi + core_offset(r, k, kg), alo + core_offset(r, k, kg));
+  unsigned char* base = aligned<128>(raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(base + kDotStages * kDotStage);
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * kDotRows, n0 = blockIdx.x * kDotCols;
+  const int nc = (K + kDotK - 1) / kDotK;
+  if (tid == 0) {
+    for (int s = 0; s < kDotStages; ++s) hopper::mbar_init(&bar[s], 1);
+    hopper::fence_mbarrier_init();
   }
-  for (int e = threadIdx.x; e < kg * kTile; e += 2 * kTile) {   // b: columns fastest
-    const int k = 8 * (e / kTile), n = e % kTile;
-    float v[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = b[static_cast<long long>(k + j) * N + n0 + n];
-    split8(v, bhi + core_offset(n, k, kg), blo + core_offset(n, k, kg));
-  }
-  hopper::fence_proxy_async();
   __syncthreads();
-
-  // warpgroup: rows 64 g ..; read from lane 0 so the compiler sees it uniform
-  const int g = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / kTile, 0);
-  constexpr uint32_t lbo = 128, sbo = 128u * kg;   // bytes along K, along M / N
-  const int a_rows = g * 64 * K;                   // element offset of its 64 rows
-  float d[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) d[i] = 0.0f;
-  hopper::fence_operands(d);
-  hopper::wgmma_fence();
-#pragma unroll
-  for (int s = 0; s < K / 16; ++s) {
-    const int ka = a_rows + 128 * s, kb = 128 * s;  // 16 K = two core matrices = 256 B
-    hopper::wgmma_m64n128k16_bf16(d, hopper::wgmma_desc(alo + ka, lbo, sbo),
-                                  hopper::wgmma_desc(bhi + kb, lbo, sbo), 1);
-    hopper::wgmma_m64n128k16_bf16(d, hopper::wgmma_desc(ahi + ka, lbo, sbo),
-                                  hopper::wgmma_desc(blo + kb, lbo, sbo), 1);
-    hopper::wgmma_m64n128k16_bf16(d, hopper::wgmma_desc(ahi + ka, lbo, sbo),
-                                  hopper::wgmma_desc(bhi + kb, lbo, sbo), 1);
+  if (tid == 0) {
+    for (int c = 0; c < kDotStages && c < nc; ++c) {
+      unsigned char* st = base + c * kDotStage;
+      hopper::mbar_arrive_expect_tx(&bar[c], kDotAF + kDotBF);
+      hopper::tma_load_2d(st, &amap, c * kDotK, m0, &bar[c]);
+      hopper::tma_load_2d(st + kDotAF, &bmap, n0, c * kDotK, &bar[c]);
+    }
   }
-  hopper::wgmma_commit();
+  float d[kDotCols / 2];   // set by the first product (scale_d 0)
+  for (int c = 0; c < nc; ++c) {
+    const int s = c % kDotStages;
+    unsigned char* st = base + s * kDotStage;
+    const float* af = reinterpret_cast<const float*>(st);             // (64, 32) row-major
+    const float* bf = reinterpret_cast<const float*>(st + kDotAF);    // (32 K, 32) row-major
+    __nv_bfloat16* ahi = reinterpret_cast<__nv_bfloat16*>(st + kDotAF + kDotBF);
+    __nv_bfloat16 *alo = ahi + kDotAH, *bhi = alo + kDotAH, *blo = bhi + kDotBH;
+    hopper::mbar_wait(&bar[s], (c / kDotStages) & 1);
+    // a: group e is row 8 (e / 32) + (e % 32) / 4, K 8 (e % 4) .. + 7:
+    // four lanes read a row's 128 bytes, a warp 1 KB without bank conflicts
+#pragma unroll
+    for (int e = tid; e < kDotRows * kDotKg; e += 128) {
+      const int r = 8 * (e / 32) + (e % 32) / 4, k = 8 * (e % 4);
+      const float4 p = *reinterpret_cast<const float4*>(af + r * kDotK + k);
+      const float4 q = *reinterpret_cast<const float4*>(af + r * kDotK + k + 4);
+      const float v[8] = {p.x, p.y, p.z, p.w, q.x, q.y, q.z, q.w};
+      const int o = hopper::core_offset(r, k, kDotKg);
+      hopper::split8(v, ahi + o, alo + o);
+    }
+    // b^T: group tid is column n = tid % 32, K 8 (tid / 32) .. + 7: a
+    // warp's 32 columns of one K row in each read
+    {
+      const int n = tid % 32, k = 8 * (tid / 32);
+      float v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = bf[(k + j) * kDotCols + n];
+      const int o = hopper::core_offset(n, k, kDotKg);
+      hopper::split8(v, bhi + o, blo + o);
+    }
+    hopper::fence_proxy_async();
+    __syncthreads();   // the f32 stage is consumed, the bf16 one written
+    if (tid == 0 && c + kDotStages < nc) {
+      hopper::mbar_arrive_expect_tx(&bar[s], kDotAF + kDotBF);
+      hopper::tma_load_2d(st, &amap, (c + kDotStages) * kDotK, m0, &bar[s]);
+      hopper::tma_load_2d(st + kDotAF, &bmap, n0, (c + kDotStages) * kDotK, &bar[s]);
+    }
+    constexpr uint32_t lbo = 128, sbo = 128 * kDotKg;   // bytes along K, along M / N
+    hopper::fence_operands(d);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < kDotK / 16; ++k) {   // 16 K = two core matrices
+      hopper::wgmma_bf16<kDotCols>(d, hopper::wgmma_desc(alo + 128 * k, lbo, sbo),
+                                   hopper::wgmma_desc(bhi + 128 * k, lbo, sbo), (c | k) != 0);
+      hopper::wgmma_bf16<kDotCols>(d, hopper::wgmma_desc(ahi + 128 * k, lbo, sbo),
+                                   hopper::wgmma_desc(blo + 128 * k, lbo, sbo), 1);
+      hopper::wgmma_bf16<kDotCols>(d, hopper::wgmma_desc(ahi + 128 * k, lbo, sbo),
+                                   hopper::wgmma_desc(bhi + 128 * k, lbo, sbo), 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();   // chunk c - 1's products are done: its bf16 may be rewritten
+    hopper::fence_operands(d);
+    __syncthreads();
+  }
   hopper::wgmma_wait<0>();
   hopper::fence_operands(d);
-  const int t = threadIdx.x % kTile, w = t / 32, l = t % 32;
+  const int w = tid / 32, l = tid % 32;
 #pragma unroll
-  for (int i = 0; i < 64; i += 2) {
-    const int row = m0 + 64 * g + 16 * w + l / 4 + 8 * ((i / 2) % 2);
+  for (int i = 0; i < kDotCols / 2; i += 2) {
+    const int row = m0 + 16 * w + l / 4 + 8 * ((i / 2) % 2);
     const int col = n0 + 8 * (i / 4) + 2 * (l % 4);
-    *reinterpret_cast<float2*>(out + static_cast<long long>(row) * N + col) = make_float2(d[i], d[i + 1]);
+    if (row < M && col < N) {   // N a multiple of 4: col + 1 < N too
+      *reinterpret_cast<float2*>(out + static_cast<long long>(row) * N + col) = make_float2(d[i], d[i + 1]);
+    }
   }
 }
 
@@ -278,27 +303,6 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 inline int launched() { return static_cast<int>(cudaGetLastError()); }
-
-template <int K>
-int launch_high_dot(const float* a, const float* b, float* out, int M, int N, cudaStream_t stream) {
-  static std::atomic<int> opted_in[stage::kMaxDevices];   // this instance's limit per device
-  const long long smem = 128 + 4ll * kTile * K * 2;
-  const int rc = stage::opt_in(reinterpret_cast<const void*>(high_dot_kernel<K>), smem, opted_in);
-  if (rc != 0) return rc;
-  high_dot_kernel<K><<<dim3(N / kTile, M / kTile), 2 * kTile, static_cast<size_t>(smem), stream>>>(
-      a, b, out, N);
-  return launched();
-}
-
-// the instance of K = 16 (s + 1), s < kMaxKSteps
-template <int... S>
-int dispatch_high_dot(std::integer_sequence<int, S...>, int K, const float* a, const float* b,
-                      float* out, int M, int N, cudaStream_t stream) {
-  int rc = static_cast<int>(cudaErrorInvalidValue);
-  (void)((K == 16 * (S + 1) && (rc = launch_high_dot<16 * (S + 1)>(a, b, out, M, N, stream), true)) ||
-         ...);
-  return rc;
-}
 
 }  // namespace
 
@@ -379,17 +383,35 @@ extern "C" int aainterp_unaligned_dma(const void* x, void* out, int H, int W, in
   return launched();
 }
 
-// a (M, K), b (K, N), out (M, N) f32, row-major: out = a @ b at bf16x3; M and
-// N multiples of 128, K a multiple of 16 up to 224; a and out 16-byte
-// aligned.
+// a (M, K), b (K, N), out (M, N) f32, row-major: out = a @ b at bf16x3; K
+// and N multiples of 4 (the 16-byte row strides a tensor map needs), a, b
+// and out 16-byte aligned; one block per 64 x 32 tile of out.
 extern "C" int aainterp_high_dot(const void* a, const void* b, void* out, int M, int N, int K,
                                  void* stream) {
-  if (M <= 0 || N <= 0 || M % kTile != 0 || N % kTile != 0 || !aligned16(a) || !aligned16(out)) {
+  if (M <= 0 || N <= 0 || K <= 0 || N % 4 != 0 || K % 4 != 0 || !aligned16(a) || !aligned16(b) ||
+      !aligned16(out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return dispatch_high_dot(std::make_integer_sequence<int, kMaxKSteps>(), K,
-                           static_cast<const float*>(a), static_cast<const float*>(b),
-                           static_cast<float*>(out), M, N, static_cast<cudaStream_t>(stream));
+  const cuuint64_t adims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(M)};
+  const cuuint64_t astrides[1] = {4ull * K};
+  const cuuint32_t abox[2] = {kDotK, kDotRows};
+  const cuuint64_t bdims[2] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(K)};
+  const cuuint64_t bstrides[1] = {4ull * N};
+  const cuuint32_t bbox[2] = {kDotCols, kDotK};
+  CUtensorMap amap, bmap;
+  int rc = hopper::encode_tiled(&amap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, a, adims, astrides, abox);
+  if (rc == 0) {
+    rc = hopper::encode_tiled(&bmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, b, bdims, bstrides, bbox);
+  }
+  if (rc != 0) return rc;
+  static std::atomic<int> opted_in[stage::kMaxDevices];   // the kernel's limit per device
+  rc = stage::opt_in(reinterpret_cast<const void*>(high_dot_kernel), static_cast<long long>(kDotSmem),
+                     opted_in);
+  if (rc != 0) return rc;
+  const dim3 grid((N + kDotCols - 1) / kDotCols, (M + kDotRows - 1) / kDotRows);
+  high_dot_kernel<<<grid, 128, kDotSmem, static_cast<cudaStream_t>(stream)>>>(
+      amap, bmap, static_cast<float*>(out), M, N, K);
+  return launched();
 }
 
 // x (rows, C) f32, off (R,) int32, out (R, C) = x[off] + x[off + 1].

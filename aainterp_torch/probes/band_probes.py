@@ -1,7 +1,8 @@
 """Kernel 1's probe modes: the production separable kernel
 (``csrc/band_apply.cuh``) with one thing changed per mode, on
 ``csrc/band_probes.cu``, at kernel 1's own plan (``ops/cuda_apply``:
-8 x 240 dst tiles at the 4K flagship and at rgb1024).
+8 x 240 dst tiles at the 4K flagship and at rgb1024); ``densex`` on
+``csrc/dense_x.cu``, a wgmma product on the tensor cores.
 ``flagship_experiments``, ``u8_experiments`` and ``rgb1024_experiments``
 run them; this module holds what they share.
 
@@ -28,21 +29,28 @@ production's tiles, derived from what it keeps):
   y pass's output, (F, Hd, W) in the frame dtype, and ``out[f, i, j] =
   cast(sum_b xw[j, b] * tmp[f, i, clamp(xs[j] + b)])``;
 * ``densex`` — production's y pass, then a dense x operator: ``out[f, i,
-  j] = cast(sum over all W columns x, ascending, of T[i, x] * Wxd[x, j])``
-  with ``Wxd`` the band as a (W, Wd) matrix in the frame dtype
-  (``dense_x_table``), on a plan of one strip of every dst column
-  (``densex_plan``).  In f32 it is production's output, bit for bit: its
-  extra products are exact zeros, which leave a fused multiply-add sum as
-  it was.
+  j] = cast(sum over all W columns x of T[i, x] * Wxd[x, j])`` with
+  ``Wxd`` the band as a (W, Wd) matrix in the frame dtype
+  (``dense_x_table``).  Its plain version is the f32 statement, every
+  column fused-multiply-added in order from 0, which in f32 is
+  production's output bit for bit (the extra products are exact zeros).
+  The kernel (``csrc/dense_x.cu``, ``densex_plan``) takes the sum as a
+  wgmma product on a bf16 split of T, two products for bf16 frames and
+  all four of the split of T and the operator for f32 (bf16x3 and lo·lo;
+  ``dense_x_split_plain`` states them in float64), with the
+  operator packed once on the host into the shared-memory image of a
+  chunk (``pack_dense_x``): its sums come in the tensor cores' order, so
+  it is held to ``DENSEX_RTOL`` (f32) or one bf16 ulp (bf16) of the plain
+  version, not bit for bit.
 
 ``band_probe_kernel(frames, tables, mode)`` launches one (a CPU tensor
 takes ``band_probe_plain``), counted per mode in ``LAUNCHES``.  The plain
 versions repeat the kernel's arithmetic exactly: each tap is one fused
 multiply-add rounded once to f32 (``ops.apply.fma32``), the y taps
-summed in order from 0, then the x taps (``densex``: all W columns in
-order from 0); so every mode equals its plain version bit for bit.  A
-mode whose shared memory exceeds the card's opt-in (``smem_bytes``)
-raises ``ValueError`` before any launch.
+summed in order from 0, then the x taps; so every mode but ``densex``
+equals its plain version bit for bit.  A mode whose shared memory
+exceeds the card's opt-in (``smem_bytes``) raises ``ValueError`` before
+any launch; ``densex``'s holds two chunks of K and fits at any width.
 """
 
 from __future__ import annotations
@@ -63,10 +71,11 @@ from ..utils.device import SMEM_LIMIT, out_buffer
 from ..utils.digest import array_digest
 from ..utils.lru import LruDict
 
-# probe mode -> the kernel's mode code (band_apply.cuh's Probe)
+# probe mode -> the kernel's mode code (band_apply.cuh's Probe; densex
+# runs on csrc/dense_x.cu)
 MODES = {"stage": 1, "stagey": 2, "u8words": 3, "xpair": 4,
          "u8convert1": 5, "u8convert2": 6, "u8convert4": 7,
-         "walk2": 8, "walk3": 9, "walk4": 10, "xonly": 11, "densex": 12}
+         "walk2": 8, "walk3": 9, "walk4": 10, "xonly": 11, "densex": None}
 # the modes each input dtype has (the kernel's instances)
 FLOAT_MODES = ("stage", "stagey", "walk2", "walk3", "walk4")
 # rgb1024's x-pass probes, float frames too: xonly reads the y pass's
@@ -80,6 +89,18 @@ LAUNCHES = {m: 0 for m in MODES}
 WALK_TILES = 9      # row tiles a walking block takes (135 = 15 x 9 at 4K)
 
 H, W = 2160, 3840   # the flagship: 4K -> 1080p, exact
+
+# densex's kernel (csrc/dense_x.cu): dst rows a block (one wgmma M tile),
+# source columns a chunk of K, dst columns a warpgroup (one m64n208k16)
+DENSE_ROWS, DENSE_K, DENSE_N = 64, 32, 208
+# warpgroups a block by frame element size (its columns: 208 each): bf16
+# takes rgb1024's 410 dst columns in two blocks of one (336 blocks, up to
+# three an SM), f32, whose operator and windows weigh twice as much, in
+# one block of two (the y pass once a tile), each the faster at rgb1024
+DENSE_WARPGROUPS = {2: 1, 4: 2}
+# densex f32 (its four split products): |kernel - plain| <= 1e-5
+# max|plain|, high_dot's tolerance for bf16x3
+DENSEX_RTOL = 1e-5
 
 
 @functools.lru_cache(maxsize=8)
@@ -142,8 +163,8 @@ def smem_bytes(plan: dict, mode: str, Ws: int, Wd: int, ky: int,
     layout (band_apply.cuh's ``make_geo``), plus n - 1 more windows
     (walk<n>) or the f32 chunk buffer (u8convert<n>).  ``xonly`` stages
     its tile's TY rows of the y pass's output in the window
-    (``window_rows``); ``densex`` runs on its own plan (``densex_plan``: TX
-    = Wd, SX = Ws, so T holds TY whole rows)."""
+    (``window_rows``).  ``densex`` runs on ``csrc/dense_x.cu``
+    (``dense_x_smem``)."""
     TY, TX, SX = plan["TY"], plan["TX"], plan["SX"]
     SY = window_rows(plan, mode)
     pitch_in = _seg_pitch(SX * elem, Ws * elem)
@@ -196,40 +217,52 @@ def dense_x_table(xs: np.ndarray, xw: np.ndarray, Ws: int) -> np.ndarray:
     return tab
 
 
-_DENSEX_PLANS = LruDict(8)   # (tables' digests, Ws, elem) -> densex's plan
+def dense_x_smem(elem: int, SY: int = 0) -> int:
+    """Dynamic shared memory of a ``csrc/dense_x.cu`` block for
+    ``elem``-byte frames: 128 bytes of alignment slack and 128 for the
+    mbarriers; two stages, each the chunk's operator (two bf16 parts for
+    f32 frames, one for bf16; 208 columns a warpgroup) and T's hi and lo
+    (64 rows), 32 source columns each; and, where the y pass reads a
+    window of ``SY`` source rows (``dense_x_window``), two windows of SY
+    rows x 32 columns, each in whole 128-byte lines."""
+    parts = 2 if elem == 4 else 1
+    stage = (parts * DENSE_WARPGROUPS[elem] * DENSE_N
+             + 2 * DENSE_ROWS) * DENSE_K
+    window = -(-SY * DENSE_K * elem // 128) * 128
+    return 128 + 128 + 2 * 2 * stage + 2 * window
 
 
-def densex_plan(tables, Ws: int, elem: int) -> dict:
-    """densex's plan for frames Ws wide of ``elem``-byte pixels: kernel 1's
-    row tiles and one strip of every dst column (TX = Wd, SX = Ws, column
-    base 0).  TY halves (SY and the row bases re-tabled) until the block's
-    shared memory fits the card's opt-in; TX stays Wd.  A plan as
-    ``cuda_apply._plan_for`` makes one (its tables upload with
-    ``cuda_apply._device_tables``), plus ``wxd``, its dense operators by
-    (dtype, device); ``ValueError`` where one row does not fit."""
+def dense_x_window(SY: int, W: int, elem: int) -> bool:
+    """Whether ``csrc/dense_x.cu``'s y pass reads its tile's window from a
+    TMA box (rows a whole number of 16-byte chunks, SY at most 256 rows,
+    the block within the card's opt-in; frames 16-byte aligned, as a
+    contiguous tensor's storage is) or global memory."""
+    return (W * elem % 16 == 0 and SY <= 256
+            and dense_x_smem(elem, SY) <= SMEM_LIMIT)
+
+
+_DENSEX_PLANS = LruDict(8)   # (tables' digests, Ws) -> densex's plan
+
+
+def densex_plan(tables, Ws: int) -> dict:
+    """densex's plan for frames Ws wide: kernel 1's y tables and each
+    64-row tile's first tap row (``tables``: ys, yw, row_base, uploaded by
+    ``cuda_apply._device_tables``), the rows every tile's taps span
+    (``SY``), the grid of ``csrc/dense_x.cu`` (blocks of 64 dst rows, K in
+    chunks of 32 source columns), and, by (dtype, device), the dense (Ws,
+    Wd) operator (``wxd``) and its packed image (``packed``), each built
+    and uploaded once."""
     host = _host(tables)
-    key = (tuple(array_digest(t) for t in host), int(Ws), int(elem))
+    key = (tuple(array_digest(t) for t in host), int(Ws))
     dp = _DENSEX_PLANS.get(key)
     if dp is not None:
         return dp
     ys, yw, xs, xw = host
-    ky, Wd = yw.shape[1], xw.shape[0]
-    TY = _plan(tables)["TY"]
-    while True:
-        row_base, SY = cuda_apply._tiles(ys.astype(np.int64), ky, TY)
-        dp = dict(TY=TY, TX=Wd, SY=SY, SX=int(Ws),
-                  row_base=row_base.astype(np.int32),
-                  col_base=np.zeros(1, np.int32))
-        need = smem_bytes(dp, "densex", Ws, Wd, ky, elem)
-        if need <= SMEM_LIMIT or TY == 1:
-            break
-        TY //= 2
-    if need > SMEM_LIMIT:
-        raise ValueError(f"probe mode 'densex' needs {need} bytes of shared "
-                         f"memory a block at one row of {Ws} columns, over "
-                         f"the card's {SMEM_LIMIT}")
-    dp.update(tables=host + (dp["row_base"], dp["col_base"]), dev={},
-              wxd={})
+    row_base, SY = cuda_apply._tiles(ys.astype(np.int64), yw.shape[1],
+                                     DENSE_ROWS)
+    dp = dict(tables=(ys, yw, row_base.astype(np.int32)), SY=SY, dev={},
+              wxd={}, packed={}, Ws=int(Ws), n_rt=len(row_base),
+              nc=-(-int(Ws) // DENSE_K))
     _DENSEX_PLANS.put(key, dp)
     return dp
 
@@ -238,13 +271,52 @@ def _densex_device(tables, Ws: int, dtype: torch.dtype, device):
     """densex's (Ws, Wd) operator in ``dtype`` on ``device`` (the frame
     dtype, as JAX stores it), built and uploaded once (kept on densex's
     plan)."""
-    wxd = densex_plan(tables, Ws, dtype.itemsize)["wxd"]
+    wxd = densex_plan(tables, Ws)["wxd"]
     key = (dtype, torch.device(device))
     if key not in wxd:
         ys, yw, xs, xw = _host(tables)
         wxd[key] = torch.from_numpy(dense_x_table(xs, xw, Ws)).to(
             device=device, dtype=dtype)
     return wxd[key]
+
+
+def pack_dense_x(wxd: torch.Tensor) -> torch.Tensor:
+    """The dense (Ws, Wd) operator (float32 or bfloat16) as
+    ``csrc/dense_x.cu`` reads it: bf16 (n_cb, nc, parts, 208 NW x 32) with
+    NW the dtype's warpgroups (``DENSE_WARPGROUPS``), for each block of 208
+    NW dst columns and each chunk of 32 source columns one stage's exact
+    shared-memory image, zero-padded
+    past Ws and Wd.  Part 0 is hi = bf16(Wxd), part 1 (float32 only) lo =
+    bf16(Wxd - hi); column n, source column k of a part at the K-major core
+    matrix offset ((n // 8) * 4 + k // 8) * 64 + (n % 8) * 8 + k % 8."""
+    if wxd.ndim != 2 or wxd.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"pack_dense_x takes a 2-D float32 or bfloat16 "
+                         f"operator, got {wxd.dtype} {tuple(wxd.shape)}")
+    Ws, Wd = wxd.shape
+    nb = DENSE_WARPGROUPS[wxd.element_size()] * DENSE_N
+    nc, n_cb = -(-Ws // DENSE_K), -(-Wd // nb)
+    w = torch.zeros(nc * DENSE_K, n_cb * nb, dtype=torch.float32)
+    w[:Ws, :Wd] = wxd.detach().cpu().float()
+    hi = w.to(torch.bfloat16)
+    parts = [hi] if wxd.dtype == torch.bfloat16 else [
+        hi, (w - hi.float()).to(torch.bfloat16)]
+    p = torch.stack(parts)
+    # (part, chunk, k // 8, k % 8, block, n // 8, n % 8) -> (block, chunk,
+    # part, n // 8, k // 8, n % 8, k % 8)
+    p = p.view(len(parts), nc, DENSE_K // 8, 8, n_cb, nb // 8, 8)
+    return p.permute(4, 1, 0, 5, 2, 6, 3).contiguous().view(
+        n_cb, nc, len(parts), nb * DENSE_K)
+
+
+def _densex_packed(tables, Ws: int, dtype: torch.dtype, device):
+    """densex's packed operator (``pack_dense_x``) on ``device``, built and
+    uploaded once (kept on densex's plan)."""
+    packed = densex_plan(tables, Ws)["packed"]
+    key = (dtype, torch.device(device))
+    if key not in packed:
+        packed[key] = pack_dense_x(_densex_device(
+            tables, Ws, dtype, "cpu")).to(device)
+    return packed[key]
 
 
 def _xpair_device(plan: dict, tables, device) -> torch.Tensor:
@@ -314,6 +386,35 @@ def dense_x_sums(t: torch.Tensor, wxd: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def dense_x_split_plain(t: torch.Tensor, wxd: torch.Tensor,
+                        passes: int) -> torch.Tensor:
+    """densex's x pass as ``csrc/dense_x.cu`` takes it on the tensor
+    cores, (F, Hd, W) f32 -> (F, Hd, Wd) f32, stated in float64: T split
+    into hi = bf16(T) and lo = bf16(T - hi), the operator ``wxd`` (in the
+    frame dtype) likewise, each product exact, the sum rounded once to f32.
+    ``passes`` 4: all four products, bf16x3 + lo·Wlo (f32 frames); 3:
+    bf16x3, hi·Whi + hi·Wlo + lo·Whi (high_dot's); 2: hi·W + lo·W (bf16
+    frames, whose operator is exact in bf16); 1: one bf16 pass, hi·Whi (the
+    TPU's DEFAULT precision, which densex's f32 check refuses)."""
+    if passes not in (1, 2, 3, 4):
+        raise ValueError(f"passes must be 1, 2, 3 or 4, got {passes}")
+    th = t.to(torch.bfloat16)
+    tl = (t - th.float()).to(torch.bfloat16)
+    w = wxd.float()
+    wh = w.to(torch.bfloat16)
+    wl = (w - wh.float()).to(torch.bfloat16)
+    th, tl, wh, wl = (v.double() for v in (th, tl, wh, wl))
+    if passes == 1:
+        out = th @ wh
+    elif passes == 2:
+        out = (th + tl) @ wh
+    else:
+        out = th @ wh + th @ wl + tl @ wh
+        if passes == 4:
+            out = out + tl @ wl
+    return out.float()
+
+
 def band_probe_plain(frames: torch.Tensor, tables, mode: str) -> torch.Tensor:
     """The probe ``mode``'s function in plain torch, on ``frames``' device,
     bit for bit the kernel's (output dtype = input dtype); ``xonly`` takes
@@ -377,8 +478,9 @@ def band_probe_kernel(frames: torch.Tensor, tables, mode: str, *,
         raise ValueError(f"no kernel for device {frames.device}")
     if not frames.is_contiguous():
         raise ValueError("frames must be contiguous")
-    plan = (densex_plan(tables, Ws, frames.element_size())
-            if mode == "densex" else _plan(tables))
+    if mode == "densex":
+        return _dense_x_kernel(frames, tables, shape, out)
+    plan = _plan(tables)
     need = smem_bytes(plan, mode, Ws, shape[2], yw.shape[1],
                       frames.element_size())
     if need > SMEM_LIMIT:
@@ -391,9 +493,6 @@ def band_probe_kernel(frames: torch.Tensor, tables, mode: str, *,
         plan, frames.device)
     if mode == "xpair":
         wx_ptr = _xpair_device(plan, tables, frames.device).data_ptr()
-    elif mode == "densex":
-        wx_ptr = _densex_device(tables, Ws, frames.dtype,
-                                frames.device).data_ptr()
     else:
         wx_ptr = d_xw.data_ptr()
     fn = _build.load(_build.BAND_PROBES).aainterp_band_probe
@@ -414,13 +513,59 @@ def band_probe_kernel(frames: torch.Tensor, tables, mode: str, *,
     return out
 
 
+def _dense_x_kernel(frames: torch.Tensor, tables, shape,
+                    out: Optional[torch.Tensor]) -> torch.Tensor:
+    """densex on ``csrc/dense_x.cu`` (CUDA frames, checked by the caller)."""
+    F, Hs, Ws = frames.shape
+    elem = frames.element_size()
+    dp = densex_plan(tables, Ws)
+    d_ys, d_yw, d_rb = cuda_apply._device_tables(dp, frames.device)
+    ops = _densex_packed(tables, Ws, frames.dtype, frames.device)
+    out = out_buffer(out, shape, frames.dtype, frames.device)
+    # the bytes the two windows may take: what the card's opt-in leaves
+    budget = SMEM_LIMIT - dense_x_smem(elem)
+    fn = _build.load(_build.DENSE_X).aainterp_dense_x
+    with torch.cuda.device(frames.device):
+        stream = torch.cuda.current_stream(frames.device).cuda_stream
+        rc = fn(frames.data_ptr(), out.data_ptr(), d_ys.data_ptr(),
+                d_yw.data_ptr(), d_rb.data_ptr(), ops.data_ptr(), F, Hs, Ws,
+                shape[1], shape[2], d_yw.shape[1], dp["SY"],
+                DENSE_WARPGROUPS[elem], budget, _DTYPE_CODES[frames.dtype],
+                stream)
+    if rc != 0:
+        window = dense_x_window(dp["SY"], Ws, elem)
+        raise RuntimeError(
+            f"band probe densex launch failed: CUDA error {rc} (F={F}, H={Hs},"
+            f" W={Ws}, Hd={shape[1]}, Wd={shape[2]}, SY={dp['SY']}, "
+            f"{DENSE_WARPGROUPS[elem]} warpgroup(s), y pass from "
+            f"{'a TMA window' if window else 'global memory'}, "
+            f"{dense_x_smem(elem, dp['SY'] if window else 0)} bytes of "
+            "shared memory)")
+    LAUNCHES["densex"] += 1
+    return out
+
+
+def tensor_core_ops(mode: str, tables, shape, elem: int) -> int:
+    """The operations of ``traffic(mode, ...)`` that run on the tensor
+    cores in bf16: ``densex``'s split products, 2 · F·Hd·W·Wd each, two
+    for bf16 frames and four for f32; 0 for every other mode."""
+    if mode != "densex":
+        return 0
+    _, yw, _, xw = _host(tables)
+    F, _, Ws = shape
+    return (4 if elem == 4 else 2) * 2 * F * yw.shape[0] * Ws * xw.shape[0]
+
+
 def traffic(mode: str, tables, shape, elem: int) -> tuple:
     """(bytes, operations) of one batch of (F, H, W) inputs of
     ``elem``-byte pixels through ``mode`` ('full': the production kernel):
     the input read once (``xonly``'s: the y pass's output, (F, Hd, W)),
     the output written once, the tables the mode reads; 2 operations per
     tap of each pass it keeps (``stage`` keeps none, ``stagey`` the y pass,
-    ``xonly`` the x pass; ``densex``'s x pass has W taps per output)."""
+    ``xonly`` the x pass); ``densex`` reads the y tables, its tiles' row
+    bases and its dense operator (W x Wd in the frame dtype) and does the y
+    pass's f32 taps plus its split products on the tensor cores
+    (``tensor_core_ops``)."""
     ys, yw, xs, xw = _host(tables)
     F, Hs, Ws = shape
     Hd, ky = yw.shape
@@ -435,10 +580,9 @@ def traffic(mode: str, tables, shape, elem: int) -> tuple:
         return (frames + outb + xs.nbytes + xw.nbytes
                 + plan["col_base"].nbytes, x_ops)
     if mode == "densex":
-        dp = densex_plan(tables, Ws, elem)
-        return (frames + outb + y_tab + Ws * Wd * elem
-                + dp["row_base"].nbytes + dp["col_base"].nbytes,
-                y_ops + 2 * F * Hd * Ws * Wd)
+        bases = densex_plan(tables, Ws)["tables"][2].nbytes
+        return (frames + outb + y_tab + bases + Ws * Wd * elem,
+                y_ops + tensor_core_ops(mode, tables, shape, elem))
     if mode == "stage":
         return frames + outb + y_tab + xs.nbytes + bases, 0
     if mode == "stagey":

@@ -20,7 +20,10 @@ needs on this card, built from the primitives of ``csrc/hopper.cuh``:
   bulk copy into shared memory onto an mbarrier, a bulk store back;
 * ``high_dot`` — ``a @ b`` at ``Precision.HIGH`` (bf16x3: ``hi·hi + hi·lo
   + lo·hi``, ``hi = bf16(a)``, ``lo = bf16(a − hi)``, f32 sums) of
-  (128, 128) f32: ``wgmma`` m64n128k16 on the split in shared memory;
+  (128, 128) f32: ``wgmma`` m64n32k16 on the split in shared memory, one
+  warpgroup per 64 x 32 tile (8 blocks), K through a two-stage ring of
+  TMA boxes on mbarriers, each chunk split while the last one's products
+  run;
 * ``vpu_dyn_rows`` — ``out[r] = x[off[r]] + x[off[r] + 1]``, r < 16, of
   (64, 256) f32 at offsets the kernel reads itself (JAX's scalar
   prefetch).
@@ -65,11 +68,10 @@ SHAPES = {"strided_y_bf16": (1, 32, 2, 256), "strided_load": (120, 3840),
 DMA_START, DMA_ROWS = 8, 16      # unaligned_dma's x[8:24]
 DYN_ROWS = 16                    # vpu_dyn_rows' 16 offsets
 HIGH_DOT_RTOL = 1e-5             # high_dot: |kernel - plain| <= 1e-5 max|plain|
-TILE = 128                       # high_dot's block tile (M and N multiples)
+HIGH_DOT_TILE = (64, 32)         # high_dot's block tile of out (rows, columns)
 # probes whose operations (in ``traffic``) are bf16 products on the tensor
 # cores: high_dot's three, not f32 multiply-adds
 TENSOR_CORE_BF16 = ("high_dot",)
-MAX_K = 224                      # high_dot: its K instances (K multiple of 16)
 
 
 def inputs(name: str, device: Device = "cpu", seed: int = 0) -> tuple:
@@ -259,21 +261,23 @@ def unaligned_dma_kernel(x: torch.Tensor, start: int = DMA_START,
 
 def high_dot_kernel(a: torch.Tensor, b: torch.Tensor, *,
                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``high_dot_plain`` on wgmma m64n128k16 (M and N multiples of 128, K
-    a multiple of 16 up to 224)."""
+    """``high_dot_plain`` on wgmma m64n32k16, one block per 64 x 32 tile of
+    out, K through a two-stage ring of TMA boxes (any M; K and N multiples
+    of 4, the 16-byte row strides of the tensor maps, checked on CPU
+    tensors too)."""
     _check_dtype("high_dot", a, torch.float32, 2)
     _check_dtype("high_dot", b, torch.float32, 2)
     (M, K), (Kb, N) = a.shape, b.shape
     if K != Kb:
         raise ValueError(f"high_dot: a {tuple(a.shape)} @ b "
                          f"{tuple(b.shape)}")
+    if K % 4 or N % 4:
+        raise ValueError(f"high_dot: K={K} and N={N} must be multiples of 4 "
+                         "(a tensor map's 16-byte row stride)")
     if not _cuda("high_dot", a, b):
         y = high_dot_plain(a, b)
         return y if out is None else out_buffer(
             out, y.shape, y.dtype, a.device).copy_(y)
-    if M % TILE or N % TILE or K % 16 or K > MAX_K:
-        raise ValueError(f"high_dot: M={M} and N={N} must be multiples of "
-                         f"{TILE}, K={K} one of 16 up to {MAX_K}")
     out = out_buffer(out, (M, N), torch.float32, a.device)
     return _launch("high_dot", _lib().aainterp_high_dot, out, a.data_ptr(),
                    b.data_ptr(), out.data_ptr(), M, N, K)
@@ -342,7 +346,7 @@ PROBES: Tuple[Tuple[str, Callable, Callable, str, str], ...] = (
      "1-D bulk copies of 14,400-byte rows onto one mbarrier, bulk stores",
      "a producer warp staging row windows of any width (kernels 1, 7-8)"),
     ("high_dot", high_dot_kernel, high_dot_plain,
-     "wgmma m64n128k16 bf16 -> f32 on a bf16x3 split in shared memory",
+     "wgmma m64n32k16 bf16 -> f32 on a bf16x3 split, K in a TMA ring",
      "tensor-core densex and y pass of kernel 1 at f32 precision"),
     ("vpu_dyn_rows", vpu_dyn_rows_kernel, vpu_dyn_rows_plain,
      "offsets read into shared memory, rows at dynamic offsets",

@@ -165,9 +165,12 @@ exactly 0 outside every dst row's span on NaN T.  Kernel 1's probe modes
 multiply-adds exactly) into 0xFF-filled outputs, the modes with
 production's output also to kernel 1 (``xpair`` is held to one level,
 its tap order being production's only for the exact ratio-2 band).  At
-rgb1024 the probe modes stage, stagey, xonly and densex ``torch.equal``
-to their plain versions into NaN-filled outputs, bf16 and f32, and
-densex in f32 also to kernel 1 (its extra products are exact zeros).  The
+rgb1024 the probe modes stage, stagey and xonly ``torch.equal`` to their
+plain versions into NaN-filled outputs, bf16 and f32; densex, a wgmma
+product on a bf16 split whose sums come in the tensor cores' order, in
+f32 within 1e-5 * max|plain| of its plain version (the f32 statement)
+and of kernel 1, in bf16 within one bf16 ulp, with a guard that one bf16
+pass lies more than 10 x the f32 tolerance from the plain version.  The
 fused aligned regrid ``torch.equal`` to its plain version into a
 NaN-filled output, and against kernel 2 and the aligned route rtol 1e-6,
 atol 1e-3 on fields in [250, 300]; its ``check`` and the einsum's
@@ -381,12 +384,15 @@ def other_paths_idle(*counters) -> bool:
 
 
 def bound(nbytes: float, flops: float,
-          peak_flop_s: float = PEAK_F32_FLOP_S) -> dict:
+          peak_flop_s: float = PEAK_F32_FLOP_S, tc_flops: float = 0.0) -> dict:
     """The least time the card could take for work that moves ``nbytes``
     and does ``flops`` operations at ``peak_flop_s`` (float32 outside the
-    tensor cores unless given): the larger of the two times at the
-    published peaks, and which of them bounds it."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak_flop_s
+    tensor cores unless given), plus ``tc_flops`` bf16 operations on the
+    tensor cores: the larger of the two times at the published peaks (the
+    operations' time summed over their types), and which of them bounds
+    it."""
+    t_bytes = nbytes / PEAK_BYTES_S
+    t_ops = flops / peak_flop_s + tc_flops / PEAK_BF16_TC_FLOP_S
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -3046,6 +3052,37 @@ def band_probe_phase(make, card) -> list:
 
 
 
+def densex_check(got, plain, prod, x, tables) -> str:
+    """densex (csrc/dense_x.cu, a wgmma product on a bf16 split) against
+    its plain version, the f32 statement: f32 within DENSEX_RTOL *
+    max|plain| of it and of kernel 1's output ``prod``; bf16 within one
+    bf16 ulp of it everywhere.  The guard: on the same f32 inputs one bf16
+    pass (T and the operator rounded to bf16 once) lies more than 10 x the
+    f32 tolerance from the plain version, so the check would refuse a
+    kernel that ignored the split.  Returns what was found, for the
+    phase's line."""
+    if got.dtype == torch.float32:
+        tol = band_probes.DENSEX_RTOL * float(plain.abs().max())
+        e, ek = max_err(got, plain), max_err(got, prod)
+        check(e <= tol and ek <= band_probes.DENSEX_RTOL * float(
+            prod.abs().max()), f"rgb1024 densex f32: |kernel - plain| {e:.3e}"
+              f", |kernel - kernel 1| {ek:.3e}, over {tol:.3e}")
+        wxd = band_probes._densex_device(tables, x.shape[2], x.dtype,
+                                         x.device)
+        one = band_probes.dense_x_split_plain(
+            band_probes.y_sums(x, tables), wxd, 1)
+        e1 = max_err(one, plain)
+        check(e1 > 10 * tol, f"rgb1024 densex guard: one bf16 pass lies "
+              f"{e1:.3e} from the plain version, within 10 x {tol:.3e}")
+        return (f"f32 |kernel - plain| {e:.3e}, |kernel - kernel 1| {ek:.3e}"
+                f" <= {band_probes.DENSEX_RTOL:g} * max|plain| = {tol:.3e}; "
+                f"one bf16 pass {e1:.3e} > 10 x that (the guard)")
+    e = within_bf16_ulp(got, plain, "rgb1024 densex bf16")
+    n = int((got != plain).sum())
+    return (f"bf16 within one bf16 ulp of the plain version, {n} of "
+            f"{plain.numel()} elements differ (max |diff| {e:.3e})")
+
+
 def rgb1024_phase(make, card, copy_row) -> list:
     """Phase 48: rgb1024 (bench.py's config 2: 24 planes of 1024^2, 150 ->
     60 dpi), kernel 1's probe modes against their plain versions, then
@@ -3063,8 +3100,12 @@ def rgb1024_phase(make, card, copy_row) -> list:
     Hd, Wd = len(tables[0]), len(tables[2])
     dtypes = (torch.bfloat16, torch.float32)
     err = {}
+    SY = band_probes.densex_plan(tables, R)["SY"]
     for dtype in dtypes:
         dt = str(dtype)[6:]
+        dense_src = (f"TMA windows of {SY} rows"
+                     if band_probes.dense_x_window(SY, R, dtype.itemsize)
+                     else "global memory")
         x = make(dtype, (nf, R, R))
         tmp = make(dtype, (nf, Hd, R))
         prod = cuda_apply.apply_separable_kernel(x, *tables)
@@ -3078,17 +3119,19 @@ def rgb1024_phase(make, card, copy_row) -> list:
                   f"rgb1024 {mode}: not one launch per call")
             plain = band_probes.band_probe_plain(inp, tables, mode)
             err[(dt, mode)] = max_err(got, plain)
-            check(torch.equal(got, plain), f"rgb1024 {mode} {dt} differs "
-                  f"from its plain version (max {err[(dt, mode)]})")
-            if mode == "densex" and dtype == torch.float32:
-                check(torch.equal(got, prod), "rgb1024 densex f32 is not "
-                      "kernel 1's output")
+            if mode == "densex":
+                dense_note = densex_check(got, plain, prod, x, tables)
+            else:
+                check(torch.equal(got, plain), f"rgb1024 {mode} {dt} differs "
+                      f"from its plain version (max {err[(dt, mode)]})")
             del got, plain, buf
         print(f"[48 rgb1024] {nf}x{R}x{R} {dt} -> {Hd}x{Wd}, plan TY 8 TX "
-              f"240 SY 21 SX 600 (densex: TX {Wd}, SX {R}) into NaN-filled "
-              f"outputs: {', '.join(RGB_MODES)} torch.equal to their plain "
-              "versions" + (" (densex also to kernel 1)"
-                            if dtype == torch.float32 else ""))
+              f"240 SY 21 SX 600 into NaN-filled outputs: stage, stagey, "
+              f"xonly torch.equal to their plain versions; densex (dense_x.cu, "
+              f"{band_probes.DENSE_WARPGROUPS[dtype.itemsize]} warpgroup(s) "
+              f"a block of 64 "
+              f"rows, K in chunks of {band_probes.DENSE_K}, the y pass from "
+              f"{dense_src}): {dense_note}")
         del x, tmp, prod
     # the entry points: every experiment, the counts read around them
     torch.cuda.synchronize()
@@ -3154,12 +3197,21 @@ def rgb1024_phase(make, card, copy_row) -> list:
               "exps": {}}
     for (dt, exp), r in runs.items():
         key = (dt, r["mode"])
+        # densex: its split products at the tensor-core rate, the y pass
+        # at the f32 rate; beside it the bound first stated, one dense
+        # product as f32 FMAs (its passes: 4 products for f32, 2 for bf16)
+        passes = 4 if dt == "float32" else 2
+        tc = band_probes.tensor_core_ops(r["mode"], tables, (nf, R, R),
+                                         4 if dt == "float32" else 2)
         timing["exps"][f"{dt}_{exp}"] = {
             "mode": r["mode"], "ms": r["ms_per_batch"],
             "gpixel_s": r["gpixel_s"], "us_per_frame": r["us_per_frame"],
             "bytes": r["bytes"], "operations": r["operations"],
-            **bound(r["bytes"], r["operations"]),
+            **bound(r["bytes"], r["operations"] - tc, tc_flops=tc),
             "plain_ms": plain_ms.get(key), "library_ms": library_ms.get(key)}
+        if tc:
+            timing["exps"][f"{dt}_{exp}"]["f32_fma_bound_ms"] = bound(
+                r["bytes"], r["operations"] - tc + tc // passes)["bound_ms"]
     ex = timing["exps"]
     for dt in ("bfloat16", "float32"):
         print(f"[48 rgb1024] {card}, {nf}x{R}x{R} {dt}, device ms per batch "
@@ -3169,6 +3221,15 @@ def rgb1024_phase(make, card, copy_row) -> list:
                           + (f"{v['library_ms']:.4f}"
                              if v["library_ms"] is not None else "none")
                           for k, v in ex.items() if k.startswith(dt)))
+        v = ex[f"{dt}_fulldense"]
+        print(f"[48 rgb1024] {card}, densex {dt} on the tensor cores: "
+              f"{v['ms']:.4f} ms; bound {v['bound_ms']:.4f} ms "
+              f"({v['bound_by']}: {v['bytes'] / 1e6:.1f} MB at 3.35 TB/s, "
+              f"its split products at 989 TFLOP/s, the y pass at 67), "
+              f"{v['f32_fma_bound_ms']:.4f} ms as first stated (one dense "
+              f"product as f32 FMAs); the dense einsum {v['library_ms']:.4f} "
+              f"ms in the same call ({v['library_ms'] / v['ms']:.2f} x the "
+              "kernel's time)")
     print(json.dumps({"rgb1024_probe_timing": timing}))
 
     def row(name, mode, exp):
@@ -3176,7 +3237,8 @@ def rgb1024_phase(make, card, copy_row) -> list:
         return {
             "name": name,
             "route": "cuda",
-            "source": "aainterp_torch/csrc/band_probes.cu",
+            "source": ("aainterp_torch/csrc/dense_x.cu" if mode == "densex"
+                       else "aainterp_torch/csrc/band_probes.cu"),
             "replaces": RGB_REPLACES[mode],
             "launches": launches[mode],
             "max_abs_err": max(err[(dt, mode)] for dt in ("bfloat16",
@@ -3318,8 +3380,10 @@ def watchlist_phase(make, card) -> list:
           f"watchlist high_dot with a != b: max |diff| {max_err(got, want)}")
     print(f"[50 watchlist] {', '.join(mw.NAMES)}: each kernel equal to its "
           f"plain version on JAX's inputs and 8 seeded ones into NaN-filled "
-          f"outputs (torch.equal; high_dot max |diff| "
-          f"{err['high_dot']:.3e} <= 1e-5 * max|plain|; unaligned_dma's "
+          f"outputs (torch.equal; high_dot, one block per "
+          f"{mw.HIGH_DOT_TILE[0]} x {mw.HIGH_DOT_TILE[1]} tile with K in a "
+          f"TMA ring, max |diff| {err['high_dot']:.3e} <= 1e-5 * "
+          f"max|plain|; unaligned_dma's "
           f"{mw.DMA_ROWS} rows of {mw.SHAPES['unaligned_dma'][1] * 4} bytes "
           f"in pieces of at most 2 KB, one block each)")
     del got
@@ -3407,14 +3471,15 @@ def run(work: str) -> int:
     # ---- 2. build: every library, all compilers at once ---------------------
     libs = (_build.SEPARABLE, _build.SEPARABLE_2D, _build.ELL_SHEAR,
             _build.SHEAR3_STAGE, _build.PROBES, _build.BAND_PROBES,
-            _build.ALIGNED_FUSED, _build.WATCHLIST, _build.NATIVE)
+            _build.ALIGNED_FUSED, _build.WATCHLIST, _build.DENSE_X,
+            _build.NATIVE)
     build_s = _build.timed_build(libs)
     for lib in libs:
         _build.load(lib)
     print(f"[2 build] nvcc {' '.join(_build.NVCC_FLAGS)} "
           f"(separable_apply.cu, separable_apply_2d.cu, ell_shear.cu, "
           f"shear3_stage.cu, probes.cu, band_probes.cu, aligned_fused.cu, "
-          f"watchlist.cu) "
+          f"watchlist.cu, dense_x.cu) "
           f"and g++ "
           f"{' '.join(_build.GXX_FLAGS)} (aainterp_native.cpp), in "
           f"parallel: {build_s:.2f} s")

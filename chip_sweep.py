@@ -3,8 +3,10 @@
 GPU: the two separable band-apply kernels (``csrc/separable_apply.cu``,
 kernel 1, and ``csrc/separable_apply_2d.cu``, kernel 2, both built on
 ``csrc/band_apply.cuh``), the shear-mode stage kernels
-(``csrc/shear3_stage.cu``) and the exact rotated route's kernels
-(``csrc/ell_shear.cu``).
+(``csrc/shear3_stage.cu``), the exact rotated route's kernels
+(``csrc/ell_shear.cu``), and the tensor-core probes: rgb1024's dense-x
+probe (``csrc/dense_x.cu``) and the watchlist's high_dot
+(``csrc/watchlist.cu``).
 
     python3 chip_sweep.py [--repo DIR] [--cells k1,k2,s3,r]
         [--variants cur,nostage,...] [--set 'MOD.NAME=VALUE;...']...
@@ -33,7 +35,13 @@ with 20 calls in each graph (``CALLS``).
 * ``c_4k``, ``c_rot2048``, ``c_rgb1024``, ``c_regrid``: the copy probe
   (``csrc/probes.cu``) at ``chip_smoke.py``'s four copy geometries, 8
   frames each but rgb1024's 24 (its grid: variants ``copy*``).  Their tile tables are planned anew under each ``--set`` (for
-  example ``--set 'cuda_shear._TILES=((32, 128),)'``).
+  example ``--set 'cuda_shear._TILES=((32, 128),)'``);
+* ``densex_bf16``, ``densex_f32``: the dense-x probe (``band_probes``
+  mode ``densex``) at rgb1024, 24 planes of 1024^2 -> 410^2 (variants
+  ``dxnoy``, ``dxnomma``, ``dxnoop``, ``dxbare``, ``dxnostore``);
+* ``high_dot``: the watchlist's bf16x3 product of (128, 128) f32 at JAX's
+  shape, 20 calls in each graph (variants ``hdnomma``, ``hdnosplit``,
+  ``hdloads``: loads only; each matches the parent's kernel too).
 
 Each cell's kernel output is checked against its plain version first
 (kernel 1 and 2 and the contraction within a bf16 ulp or one grey level,
@@ -73,6 +81,16 @@ import sys
 from pathlib import Path
 
 NOT_REACHED = "if (off < -(1 << 30)) cp_async16"
+# dense_x.cu's y-pass tap loops, its wgmma calls, its operator's copies
+DX_NOY = (r"for \(int a = 0; a < ky; \+\+a\)", "for (int a = 0; a < 0; ++a)")
+DX_NOMMA = (r"hopper::wgmma_bf16<kCols>\(d, [^;]*;", "")
+DX_NOOP = [(r"mbar_arrive_expect_tx\((&bar\[[^\]]*\]), kBBytes\);",
+            r"mbar_arrive_expect_tx(\1, 0);"),
+           (r"hopper::bulk_load\([^;]*;", "")]
+# high_dot's wgmma calls and split calls, in this kernel and the parent's
+HD_MMA = r"hopper::wgmma_(m64n128k16_bf16|bf16<kDotCols>)\(d, [^;]*;"
+HD_SPLIT = r"((hopper::)?split8\(v, )"
+HD_SPLIT_OFF = r"if (v[0] == -1.0f) \1"
 VARIANTS = {
     "cur": {},
     # no source window is copied (the passes read stale shared memory)
@@ -153,10 +171,26 @@ VARIANTS = {
          "for (int q = 0; q < kVec; ++q) r[q] = 0.0f;"),
         (r"band_rows<kVec>\(bv, t, mlo \+ mi, s\.K, r\);",
          "for (int q = 0; q < kVec; ++q) r[q] = 0.0f;")]},
+    # dense_x.cu: the y pass reads no tap; no wgmma is issued; no output
+    # is stored
+    "dxnoy": {"dense_x.cu": [DX_NOY]},
+    "dxnomma": {"dense_x.cu": [DX_NOMMA]},
+    "dxnostore": {"dense_x.cu": [(r"if \(row >= Hd \|\| col >= Wd\) continue;",
+                                  "continue;")]},
+    # dense_x.cu: no operator is copied (the barriers expect no bytes)
+    "dxnoop": {"dense_x.cu": DX_NOOP},
+    # dense_x.cu: none of the three (the windows' loads, split, barriers
+    # and stores are left)
+    "dxbare": {"dense_x.cu": [DX_NOY, DX_NOMMA] + DX_NOOP},
+    # watchlist.cu's high_dot, this kernel's and the parent's: no wgmma; no
+    # split (the loads kept, nothing stored); loads only (neither)
+    "hdnomma": {"watchlist.cu": [(HD_MMA, "")]},
+    "hdnosplit": {"watchlist.cu": [(HD_SPLIT, HD_SPLIT_OFF)]},
+    "hdloads": {"watchlist.cu": [(HD_MMA, ""), (HD_SPLIT, HD_SPLIT_OFF)]},
 }
 # cells timed with this many calls in each CUDA graph (their calls are
 # shorter than a replay's host cost)
-CALLS = {"k2_direct": 20}
+CALLS = {"k2_direct": 20, "high_dot": 20}
 EXACT = ("cur", "lane8", "t256", "t128", "tilemajor",   # variants that
          "colmajor", "copy1024", "copy512",         # compute everything
          "copypart4", "group4", "xgroups2")
@@ -400,6 +434,39 @@ def make_cells(dev):
             ("rgb1024", 1024, 1024, 128, bf16, 24),
             ("regrid", 1800, 3600, 120, torch.float32, 8)):
         cells[f"c_{name}"] = c_cell(H, W, ty, dtype, nf)
+
+    def densex_cell(dtype):
+        from aainterp_torch.probes import band_probes, rgb1024_experiments
+
+        tables = rgb1024_experiments.tables()
+
+        def prepare():
+            return (lambda x: band_probes.band_probe_kernel(x, tables,
+                                                            "densex"),
+                    lambda x: band_probes.band_probe_plain(x, tables,
+                                                           "densex"),
+                    {"warpgroups": getattr(band_probes, "DENSE_WARPGROUPS",
+                                           {}).get(dtype.itemsize)})
+        # densex's checks: f32 1e-5 of max|plain| (<= 1 on [0, 1]), bf16
+        # one ulp at 1
+        return (prepare, lambda: rand(("rgb", dtype), (24, 1024, 1024),
+                                      dtype),
+                1e-5 if dtype == torch.float32 else 2.0 ** -8)
+
+    cells["densex_bf16"] = densex_cell(bf16)
+    cells["densex_f32"] = densex_cell(torch.float32)
+
+    def high_dot_cell():
+        from aainterp_torch.probes import mosaic_watchlist as mw
+
+        def prepare():
+            return (lambda ab: mw.high_dot_kernel(*ab),
+                    lambda ab: mw.high_dot_plain(*ab), {})
+        # 1e-5 of max|plain|, at most 128 on [0, 1] inputs
+        return (prepare, lambda: [mw.inputs("high_dot", dev, seed)
+                                  for seed in range(1, 9)], 128e-5)
+
+    cells["high_dot"] = high_dot_cell()
     return cells
 
 
@@ -441,9 +508,9 @@ def main() -> int:
             "cuda_shear": cuda_shear, "shear3": shear3}
     caches = (cuda_apply._PLAN_CACHE, cuda_apply_2d._PLAN_CACHE,
               shear3._STAGE_CACHE)
-    libs = (_build.SEPARABLE, _build.SEPARABLE_2D, _build.SHEAR3_STAGE,
-            _build.ELL_SHEAR) + ((_build.PROBES,) if hasattr(_build, "PROBES")
-                                 else ())
+    libs = tuple(getattr(_build, n) for n in (
+        "SEPARABLE", "SEPARABLE_2D", "SHEAR3_STAGE", "ELL_SHEAR", "PROBES",
+        "BAND_PROBES", "WATCHLIST", "DENSE_X") if hasattr(_build, n))
     defaults = {}      # (module, name) -> value before any setting
     for variant in args.variants.split(","):
         for lib in libs:

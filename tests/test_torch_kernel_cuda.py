@@ -44,11 +44,16 @@ empty rows and F > 8; on NaN T it writes 0 outside every span.  The copy
 probe split over blocks (8 x 1024^2, odd widths) and kernel 1's probe
 modes (``csrc/band_probes.cu``) bit-equal to their plain versions, into
 0xFF-filled outputs, bf16, f32 and u8, at a small and an odd-pitch
-geometry.  rgb1024's x-pass modes (``xonly``, ``densex``) and the fused
-aligned regrid (``csrc/aligned_fused.cu``) bit-equal to their plain
-versions into NaN-filled outputs: rgb1024, a ragged strip, one row tile
-and an upsampling plan; config 5, ``c0`` offsets on odd widths and a dst
-row split into chunks; ``densex`` in f32 equal to kernel 1.
+geometry.  rgb1024's x-only mode (``xonly``) and the fused aligned regrid
+(``csrc/aligned_fused.cu``) bit-equal to their plain versions into
+NaN-filled outputs: rgb1024, a ragged strip, one row tile and an
+upsampling plan; config 5, ``c0`` offsets on odd widths and a dst row
+split into chunks.  The dense-x mode (``densex``, ``csrc/dense_x.cu``, a
+wgmma product on a bf16 split, its sums in the tensor cores' order) at
+the same geometries within ``DENSEX_RTOL`` · max|plain| of its plain
+version and of kernel 1 in f32, within one bf16 ulp in bf16, at a
+width whose old form's shared memory refused it (12,000 columns), and
+with its y pass from global memory where no TMA window takes the rows.
 """
 
 import dataclasses
@@ -1497,12 +1502,51 @@ def test_x_probes_match_plain(cuda, geom, dtype):
         got = band_probes.band_probe_kernel(inp, tables, mode, out=buf)
         torch.cuda.synchronize()
         assert got is buf and band_probes.LAUNCHES[mode] == n + 1
-        assert torch.equal(got, band_probes.band_probe_plain(inp, tables,
-                                                             mode)), mode
+        plain = band_probes.band_probe_plain(inp, tables, mode)
+        if mode == "xonly":
+            assert torch.equal(got, plain)
     assert cuda_apply.LAUNCHES == before
-    if dtype == torch.float32:          # densex's zeros leave the sums as
-        assert torch.equal(got, cuda_apply.apply_separable_kernel(
-            x, *tables))                # production's
+    # densex: the tensor cores' sums against the f32 statement, and in f32
+    # against production's (the statement's extra products are exact zeros)
+    _densex_close(got, plain)
+    if dtype == torch.float32:
+        _densex_close(got, cuda_apply.apply_separable_kernel(x, *tables))
+
+
+@pytest.mark.parametrize("case", [((1200, 512), 40.0, 1.0),
+                                  ((250, 998), 2.0, 1.0),
+                                  ((130, 1001), 2.0, 1.0)],
+                         ids=["rows-past-a-box", "ragged-rows", "odd-width"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_densex_reads_global_memory_where_no_window_fits(cuda, case, dtype):
+    # the y pass reads global memory where no TMA box takes the tile's
+    # rows: 1,182 rows (over 256), rows of 998 or 1,001 pixels (not a
+    # whole number of 16-byte chunks; 1,001 scalar loads)
+    from aainterp_torch.probes import band_probes
+
+    shape, sr, dr = case
+    tables = band_probes.flagship_tables(shape, sr, dr)
+    dp = band_probes.densex_plan(tables, shape[1])
+    assert not band_probes.dense_x_window(dp["SY"], shape[1], dtype.itemsize)
+    x = _frames((2,) + shape, dtype, cuda, seed=7)
+    buf = _ff((2, len(tables[0]), len(tables[2])), dtype, cuda)
+    got = band_probes.band_probe_kernel(x, tables, "densex", out=buf)
+    torch.cuda.synchronize()
+    assert got is buf
+    _densex_close(got, band_probes.band_probe_plain(x, tables, "densex"))
+
+
+def _densex_close(got, want):
+    """densex's tolerance: f32 |got - want| <= DENSEX_RTOL * max|want|,
+    bf16 within one bf16 ulp of want everywhere."""
+    from aainterp_torch.probes import band_probes
+
+    err = (got.double() - want.double()).abs()
+    if got.dtype == torch.float32:
+        assert float(err.max()) <= band_probes.DENSEX_RTOL * float(
+            want.double().abs().max())
+    else:
+        assert bool((err <= _bf16_ulp(want)).all()), float(err.max())
 
 
 def test_x_probes_reject_what_they_cannot_take(cuda):
@@ -1514,10 +1558,17 @@ def test_x_probes_reject_what_they_cannot_take(cuda):
         band_probes.band_probe_kernel(x, tables, "xonly")
     with pytest.raises(ValueError, match="no torch.uint8 instance"):
         band_probes.band_probe_kernel(x.to(torch.uint8), tables, "densex")
-    wide = band_probes.flagship_tables((8, 60000), 2.0, 1.0)
-    with pytest.raises(ValueError, match="shared memory"):
-        band_probes.band_probe_kernel(_frames((1, 8, 60000), torch.float32,
-                                              cuda), wide, "densex")
+    with pytest.raises(ValueError, match="contiguous"):
+        band_probes.band_probe_kernel(x.transpose(1, 2), tables, "densex")
+    # a width that the old form's shared memory refused (T held whole
+    # rows) now computes: K walks the 12,000 columns in chunks
+    wide = band_probes.flagship_tables((8, 12000), 2.0, 1.0)
+    xw = _frames((1, 8, 12000), torch.float32, cuda, seed=3)
+    n = band_probes.LAUNCHES["densex"]
+    got = band_probes.band_probe_kernel(xw, wide, "densex")
+    torch.cuda.synchronize()
+    assert band_probes.LAUNCHES["densex"] == n + 1
+    _densex_close(got, band_probes.band_probe_plain(xw, wide, "densex"))
 
 
 def _synthetic_plans(my, cy, hd, mx, cx, wd, seed):

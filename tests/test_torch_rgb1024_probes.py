@@ -18,11 +18,19 @@ them.
   TPU probes sum through matrix products in another order), bf16 within
   one bf16 ulp.
 * ``densex`` in f32 equal to production's plain output bit for bit; its
-  dense operator equal to the one JAX builds.
+  dense operator equal to the one JAX builds.  The kernel's arithmetic, a
+  bf16 split on the tensor cores, stated in float64
+  (``dense_x_split_plain``): f32's four products within 2^-17 ·
+  max|plain| of the f32 statement (under ``DENSEX_RTOL``), bf16x3 within
+  ``DENSEX_RTOL``, bf16's two products within one bf16 ulp, at the small
+  geometry and at one 1024^2 frame, while one bf16 pass misses the f32
+  tolerance by more than 10 x; the packed operator unpacks to the table.
 * The byte and operation counts, the plans and their shared memory at
   1024^2, the entry points with ``device="cpu"`` (no launch, the host's
   clock) and, without a GPU, the default device raising.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -238,6 +246,109 @@ def test_densex_f32_is_production_bit_for_bit(shape):
     assert torch.equal(got, band_probes.band_probe_plain(x, tables, "walk2"))
 
 
+DENSE_GEOMS = [SMALL, (1024, 1024)]
+
+
+@functools.lru_cache(maxsize=4)
+def _split_cases(shape, dtype):
+    """T (1 frame; the y pass's f32 sums), the operator in ``dtype`` and
+    the plain x pass, the f32 statement (W float64 steps of the frame's
+    outputs: on one thread, which is faster than several contending with
+    the other test workers)."""
+    tables = rgb.tables(shape)
+    x = _x(dtype, (1,) + shape, 9)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        t = band_probes.y_sums(x, tables)
+        wxd = band_probes._densex_device(tables, shape[1], dtype, "cpu")
+        return t, wxd, band_probes.dense_x_sums(t, wxd.float())
+    finally:
+        torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("shape", DENSE_GEOMS, ids=["small", "rgb1024"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_dense_x_split_meets_the_tolerances(shape, dtype):
+    t, wxd, plain = _split_cases(shape, dtype)
+    if dtype == torch.float32:          # against the f32 statement
+        top = float(plain.abs().max())
+        for passes, rtol in ((4, 2.0 ** -17), (3, band_probes.DENSEX_RTOL)):
+            got = band_probes.dense_x_split_plain(t, wxd, passes)
+            d = float((got.double() - plain.double()).abs().max())
+            assert d <= rtol * top, passes
+    else:                               # hi + lo, stored in bf16
+        got = band_probes.dense_x_split_plain(t, wxd, 2).to(dtype)
+        want = plain.to(dtype)
+        _close(got, want.float().numpy())
+
+
+@pytest.mark.parametrize("shape", DENSE_GEOMS, ids=["small", "rgb1024"])
+def test_one_bf16_pass_misses_the_f32_tolerance(shape):
+    t, wxd, plain = _split_cases(shape, torch.float32)
+    tol = band_probes.DENSEX_RTOL * float(plain.abs().max())
+    one = band_probes.dense_x_split_plain(t, wxd, 1)
+    assert float((one.double() - plain.double()).abs().max()) > 10 * tol
+    with pytest.raises(ValueError, match="passes"):
+        band_probes.dense_x_split_plain(t, wxd, 5)
+
+
+def _unpack(ops: torch.Tensor, Ws: int, Wd: int) -> torch.Tensor:
+    """``pack_dense_x``'s image back to (parts, Ws, Wd) float32, element
+    by element at its core-matrix offset."""
+    n_cb, nc, parts, size = ops.shape
+    nb, kc = size // 32, 32
+    n = np.arange(nb)[:, None]
+    k = np.arange(kc)[None, :]
+    off = torch.from_numpy(((n // 8) * 4 + k // 8) * 64 + (n % 8) * 8
+                           + k % 8)
+    out = torch.zeros(parts, nc * kc, n_cb * nb)
+    for b in range(n_cb):
+        for c in range(nc):
+            for p in range(parts):
+                img = ops[b, c, p].float()[off]         # (nb, kc): [n, k]
+                out[p, c * kc:(c + 1) * kc, b * nb:(b + 1) * nb] = img.T
+    return out[:, :Ws, :Wd]
+
+
+@pytest.mark.parametrize("shape", [SMALL, (97, 131), (64, 1000)])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_packed_operator_unpacks_to_the_table(shape, dtype):
+    tables = rgb.tables(shape)
+    W = shape[1]
+    table = torch.from_numpy(band_probes.dense_x_table(tables[2], tables[3],
+                                                       W))
+    wxd = table.to(dtype)
+    ops = band_probes.pack_dense_x(wxd)
+    # f32: blocks of 416 columns (two warpgroups), bf16: of 208
+    nb = 416 if dtype == torch.float32 else 208
+    assert band_probes.DENSE_WARPGROUPS[dtype.itemsize] * 208 == nb
+    parts = 2 if dtype == torch.float32 else 1
+    assert ops.dtype == torch.bfloat16 and ops.shape == (
+        -(-table.shape[1] // nb), -(-W // 32), parts, nb * 32)
+    got = _unpack(ops, *table.shape)
+    hi = wxd.float().to(torch.bfloat16)
+    assert torch.equal(got[0], hi.float())
+    if dtype == torch.float32:
+        lo = (table - hi.float()).to(torch.bfloat16)
+        assert torch.equal(got[1], lo.float())
+        # hi + lo carries the f32 operator to 2^-16 of each weight
+        d = (got[0].double() + got[1].double() - table.double()).abs()
+        assert bool((d <= table.double().abs() * 2.0 ** -16).all())
+    else:
+        assert torch.equal(got[0], wxd.float())   # exact in bf16
+    # the padding past W and Wd is zeros
+    full = ops.float().sum()
+    assert float(full) == pytest.approx(float(sum(g.sum() for g in got)))
+
+
+def test_pack_dense_x_rejects_other_operators():
+    with pytest.raises(ValueError, match="2-D float32 or bfloat16"):
+        band_probes.pack_dense_x(torch.zeros(4, 4, dtype=torch.float64))
+    with pytest.raises(ValueError, match="2-D float32 or bfloat16"):
+        band_probes.pack_dense_x(torch.zeros(4))
+
+
 def test_dense_x_table_drops_taps_outside_the_image():
     xs = np.array([0, 3, 5])
     xw = np.array([[0.5, 0.5, 0.0], [0.25, 0.5, 0.25], [0.5, 0.25, 0.25]],
@@ -261,53 +372,78 @@ def test_rgb1024_plans_and_shared_memory():
     assert (plan["TY"], plan["TX"], plan["SY"], plan["SX"]) == (8, 240, 21,
                                                                 600)
     assert band_probes.window_rows(plan, "xonly") == 21
-    for elem, dense_smem in ((2, 85696), (4, 137312)):
+    for elem, dense_smem in ((2, 64000), (4, 164352)):
         # xonly: production's layout
         assert band_probes.smem_bytes(plan, "xonly", 1024, 410, 4, elem) == \
             band_probes.smem_bytes(plan, "stagey", 1024, 410, 4, elem)
-        dp = band_probes.densex_plan(tables, 1024, elem)
-        assert (dp["TY"], dp["TX"], dp["SY"], dp["SX"]) == (8, 410, 21, 1024)
-        np.testing.assert_array_equal(dp["row_base"], plan["row_base"])
-        np.testing.assert_array_equal(dp["col_base"], [0])
-        # T holds 8 whole rows of 1024 f32: 32 KB of it
-        need = band_probes.smem_bytes(dp, "densex", 1024, 410, 4, elem)
-        assert need == dense_smem <= band_probes.SMEM_LIMIT
+        # densex (csrc/dense_x.cu): 7 row tiles of 64 whose taps span 161
+        # rows, 32 chunks of 32 columns; two stages of the chunk's operator
+        # (f32: hi and lo) and T's hi and lo, and two windows of 161 rows
+        dp = band_probes.densex_plan(tables, 1024)
+        assert (dp["n_rt"], dp["nc"], dp["Ws"], dp["SY"]) == (7, 32, 1024,
+                                                               161)
+        np.testing.assert_array_equal(dp["tables"][2], [0, 159, 319, 479,
+                                                        639, 799, 959])
+        parts, nw = (2, 2) if elem == 4 else (1, 1)
+        window = -(-161 * 32 * elem // 128) * 128
+        assert dense_smem == 256 + 2 * 2 * 32 * (parts * nw * 208 + 128) \
+            + 2 * window
+        assert band_probes.dense_x_smem(elem, 161) == dense_smem
+        assert band_probes.dense_x_window(161, 1024, elem)
+    # no box for rows of a ragged number of 16-byte chunks, nor past 256
+    # rows: the y pass then reads global memory
+    assert not band_probes.dense_x_window(161, 1022, 2)
+    assert not band_probes.dense_x_window(257, 1024, 2)
+    assert band_probes.dense_x_window(256, 1024, 4)
     assert band_probes.smem_bytes(plan, "stagey", 1024, 410, 4, 4) <= \
         cuda_apply.band_smem(8, 240, 21, 600, 4)
 
 
 def test_densex_plan_halves_rows_and_keeps_one_strip():
-    tables = band_probes.flagship_tables()          # 4K: T of 3840 columns
-    for elem, ty in ((2, 4), (4, 2)):
-        dp = band_probes.densex_plan(tables, 3840, elem)
-        assert (dp["TY"], dp["TX"], dp["SX"]) == (ty, 1920, 3840)
-        assert band_probes.smem_bytes(dp, "densex", 3840, 1920, 4, elem) \
-            <= band_probes.SMEM_LIMIT
+    # the tensor-core kernel halves no rows: its blocks keep 64 dst rows at
+    # any width, K walks the source columns in chunks of 32, and shared
+    # memory holds two chunks (dense_x_smem), not a row
+    tables = band_probes.flagship_tables()          # 4K: 3840 columns
+    dp = band_probes.densex_plan(tables, 3840)
+    assert (dp["n_rt"], dp["nc"]) == (-(-1080 // 64), 3840 // 32)
+    assert band_probes.dense_x_window(dp["SY"], 3840, 4)
     # upsampling: the window of xonly holds the tile's TY rows
     plan = band_probes._plan(band_probes.flagship_tables((64, 160), 1.0,
                                                          2.0))
     assert plan["SY"] < plan["TY"] == band_probes.window_rows(plan, "xonly")
+    # the width that raised "shared memory" before now plans: 1875 chunks,
+    # the last one whole
     wide = band_probes.flagship_tables((8, 60000), 2.0, 1.0)
-    with pytest.raises(ValueError, match="shared memory"):
-        band_probes.densex_plan(wide, 60000, 4)
+    assert band_probes.densex_plan(wide, 60000)["nc"] == 1875
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_densex_plan_is_cached_and_uploads_as_kernel_1s(dtype):
     tables = band_probes.flagship_tables((64, 160), 150.0, 60.0)
-    dp = band_probes.densex_plan(tables, 160, dtype.itemsize)
-    assert band_probes.densex_plan(tables, 160, dtype.itemsize) is dp
+    dp = band_probes.densex_plan(tables, 160)
+    assert band_probes.densex_plan(tables, 160) is dp
     dev = cuda_apply._device_tables(dp, "cpu")
     assert cuda_apply._device_tables(dp, "cpu") is dev
+    # kernel 1's y tables, ys and yw, and each 64-row tile's first tap row
+    assert len(dev) == 3
     for host, got in zip(dp["tables"], dev):
         np.testing.assert_array_equal(got.numpy(), host)
-    np.testing.assert_array_equal(dev[4].numpy(), dp["row_base"])
+    for host, want in zip(dp["tables"], tables[:2]):
+        np.testing.assert_array_equal(host, want)
+    base, SY = cuda_apply._tiles(tables[0].astype(np.int64),
+                                 tables[1].shape[1], 64)
+    np.testing.assert_array_equal(dp["tables"][2], base)
+    assert dp["SY"] == SY
     # the dense operator in the frame dtype, built once per dtype and device
     wxd = band_probes._densex_device(tables, 160, dtype, "cpu")
     assert band_probes._densex_device(tables, 160, dtype, "cpu") is wxd
     assert wxd.dtype == dtype and wxd.shape == (160, len(tables[2]))
     assert torch.equal(wxd, torch.from_numpy(band_probes.dense_x_table(
         tables[2], tables[3], 160)).to(dtype))
+    # and its packed image, once per dtype, device and warpgroups
+    ops = band_probes._densex_packed(tables, 160, dtype, "cpu")
+    assert band_probes._densex_packed(tables, 160, dtype, "cpu") is ops
+    assert torch.equal(ops, band_probes.pack_dense_x(wxd))
 
 
 def test_traffic_counts_what_each_mode_reads():
@@ -327,12 +463,24 @@ def test_traffic_counts_what_each_mode_reads():
         tmp + out + xs.nbytes + xw.nbytes + plan["col_base"].nbytes,
         2 * F24 * 410 * 410 * 4)
     nbytes, ops = tr("densex", tables, (F24, 1024, 1024), e)
-    assert nbytes == frames + out + y_tab + 1024 * 410 * e \
-        + plan["row_base"].nbytes + 4
-    assert ops == y_ops + 2 * F24 * 410 * 1024 * 410
-    # the bounds of the kernel table: bytes over 3.35 TB/s, operations over
-    # 67 TFLOP/s
-    assert round(ops / 67e12 * 1e3, 4) == 0.1245
+    # the frames, the output, the y tables, 7 row bases, the operator
+    assert nbytes == frames + out + y_tab + 7 * 4 + 1024 * 410 * e
+    # the split's products on the tensor cores: two for bf16 frames, three
+    # (bf16x3) for f32
+    tc = band_probes.tensor_core_ops("densex", tables, (F24, 1024, 1024), e)
+    assert tc == 2 * 2 * F24 * 410 * 1024 * 410
+    assert band_probes.tensor_core_ops("densex", tables, (F24, 1024, 1024),
+                                       4) == 2 * tc
+    assert band_probes.tensor_core_ops("xonly", tables, (F24, 410, 1024),
+                                       e) == 0
+    assert ops == y_ops + tc
+    # the bounds of the kernel table: bytes over 3.35 TB/s, the products
+    # over 989 TFLOP/s and the y pass over 67 (every product an f32 FMA,
+    # as first stated: 0.1245 ms)
+    assert round(nbytes / 3.35e12 * 1e3, 4) == 0.0177
+    assert round(tc / 989e12 * 1e3, 4) == 0.0167
+    assert round(y_ops / 67e12 * 1e3, 4) == 0.0012
+    assert round((y_ops + tc // 2) / 67e12 * 1e3, 4) == 0.1245
     assert round(tr("full", tables, (F24, 1024, 1024), e)[0] / 3.35e12
                  * 1e3, 4) == 0.0174
     assert round(tr("xonly", tables, (F24, 410, 1024), e)[0] / 3.35e12

@@ -18,8 +18,11 @@ NaN-filled outputs at JAX's shapes and at one other shape per probe —
 strided_y_bf16 at parity 0 of a later frame with ragged boxes,
 strided_load and value_slice on ragged tiles, unaligned_dma at JAX's
 shape (16 rows x 8 pieces), at other row offsets and counts, on narrow
-rows and on one row beyond the shared-memory opt-in, high_dot with a ≠ b on a 2 x 3 grid of tiles and at K 16 and
-224 (its smallest and largest compile-time instances), vpu_dyn_rows with
+rows and on one row beyond the shared-memory opt-in, high_dot with a ≠ b
+(64 x 32 tiles, K through a two-stage TMA ring) on a 4 x 12 grid of
+tiles, at K 16 (one chunk, half out of bounds) and 224, on ragged tiles
+(100 x 36 @ 36 x 68: zeros past every edge) and at K 1000 (32 chunks of
+the ring), vpu_dyn_rows with
 shuffled offsets (``arange`` hides an index slip) — ``torch.equal``, or
 the high_dot tolerance, and one launch per call.
 """
@@ -243,6 +246,34 @@ def test_kernels_reject_what_they_cannot_take():
                               out=torch.empty(8, 255))
 
 
+@pytest.mark.parametrize("shape", [(128, 30, 128), (128, 32, 66)],
+                         ids=["k30", "n66"])
+def test_high_dot_limits_raise_before_any_launch(shape):
+    # K and N must be multiples of 4 (the tensor maps' 16-byte row
+    # strides), checked on CPU tensors too, before any launch
+    M, K, N = shape
+    before = dict(mw.LAUNCHES)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        mw.high_dot_kernel(torch.zeros(M, K), torch.zeros(K, N))
+    assert mw.LAUNCHES == before
+
+
+@pytest.mark.parametrize("shape", [(100, 36, 68), (64, 1000, 32),
+                                   (1, 4, 4)], ids=["ragged", "k1000", "one"])
+def test_high_dot_takes_any_m_and_k_n_multiples_of_4(shape):
+    # the tile no longer limits the shape: any M, K beyond one chunk's
+    # worth; on the CPU the wrapper takes the plain version
+    M, K, N = shape
+    a = torch.from_numpy(np.random.default_rng(M).uniform(
+        -1, 1, (M, K)).astype(np.float32))
+    b = torch.from_numpy(np.random.default_rng(N).uniform(
+        0, 1, (K, N)).astype(np.float32))
+    got = mw.high_dot_kernel(a, b)
+    assert got.shape == (M, N) and torch.equal(got, mw.high_dot_plain(a, b))
+    assert _rel(got.numpy(), (a.double() @ b.double()).numpy()) \
+        <= mw.HIGH_DOT_RTOL
+
+
 def test_build_hashes_hopper_header(tmp_path):
     lib = _build.WATCHLIST
     assert lib.compiler == "nvcc" and lib.flags == _build.NVCC_FLAGS
@@ -346,8 +377,10 @@ def test_unaligned_dma_offsets_and_blocks(cuda, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(128, 128, 128), (256, 64, 384),
-                                   (128, 224, 128), (128, 16, 256)],
-                         ids=["jax", "2x3_tiles", "k224", "k16"])
+                                   (128, 224, 128), (128, 16, 256),
+                                   (100, 36, 68), (64, 1000, 32)],
+                         ids=["jax", "2x3_tiles", "k224", "k16", "ragged",
+                              "k1000"])
 def test_high_dot_with_a_not_b(cuda, shape):
     M, K, N = shape
     a = _uniform((M, K), 11, cuda) - 0.25
@@ -389,12 +422,13 @@ def test_kernels_raise_on_shapes_they_cannot_take(cuda):
     with pytest.raises(ValueError, match="multiple of 8"):
         mw.strided_y_bf16_kernel(torch.zeros(1, 4, 2, 12, dtype=torch.bfloat16,
                                              device=cuda), rows=2)
-    with pytest.raises(ValueError, match="multiples of 128"):
-        mw.high_dot_kernel(torch.zeros(64, 16, device=cuda),
-                           torch.zeros(16, 128, device=cuda))
-    with pytest.raises(ValueError, match="up to 224"):
+    # the tensor maps' 16-byte row strides: K and N multiples of 4
+    with pytest.raises(ValueError, match="multiples of 4"):
+        mw.high_dot_kernel(torch.zeros(64, 30, device=cuda),
+                           torch.zeros(30, 128, device=cuda))
+    with pytest.raises(ValueError, match="multiples of 4"):
         mw.high_dot_kernel(torch.zeros(128, 240, device=cuda),
-                           torch.zeros(240, 128, device=cuda))
+                           torch.zeros(240, 130, device=cuda))
     with pytest.raises(ValueError, match="multiple of 4"):
         # rows of 30 f32 (120 bytes) are not whole 16-byte chunks
         mw.unaligned_dma_kernel(torch.zeros(2, 30, device=cuda), 0, 1)
