@@ -5,9 +5,11 @@
 //
 // Replaces (benchmarks/mosaic_watchlist.py, pallas_call at the line given):
 //   strided_y_bf16  probe_strided_y_bf16 (:67)  out[i, j] = f32(x[f, i, p, j]): one
-//                   parity p of a size-m axis; a 4-D TMA box 1 wide on that axis
-//   strided_load    probe_strided_load (:87)    out = x[:, ::2]; 2-D TMA tiles, then a
-//                   stride-2 read of shared memory
+//                   parity p of a size-m axis; a 4-D TMA box 1 wide on that axis,
+//                   one block per box of one row x 256 columns, 16-byte stores
+//   strided_load    probe_strided_load (:87)    out = x[:, ::2]; 2-D TMA windows of 4
+//                   rows x 256 columns, one block each, then a stride-2 read of
+//                   shared memory into 16-byte stores
 //   value_slice     probe_value_slice (:103)    out = x[:, ::2] + x[:, 1::2]; a 16-byte
 //                   load per thread, the pair sums in registers (sm_80 is enough)
 //   unaligned_dma   probe_unaligned_dma (:122)  out = x[r0:r0 + n, :] for rows of any
@@ -17,16 +19,19 @@
 //   high_dot        probe_high_dot (:144)       a @ b at bf16x3 (Precision.HIGH):
 //                   hi*hi + hi*lo + lo*hi with hi = bf16(a), lo = bf16(a - hi), f32
 //                   sums, on wgmma m64n32k16: 64 x 32 tiles, K through a
-//                   two-stage ring of TMA boxes
+//                   four-stage ring of TMA boxes
 //   vpu_dyn_rows    probe_vpu_dyn_rows (:171)   out[r] = x[off[r]] + x[off[r] + 1] at
 //                   offsets the block reads itself
 //
-// What bounds them: launch cost.  At JAX's shapes each moves at most 2.8 MB
-// (a bytes bound under 1 us) and high_dot's three bf16 products are 12.6
-// MFLOP on the tensor cores; so each is one launch, spread over enough
-// blocks that latency and not one SM sets its time, and what it tests is
-// that the feature builds, launches and gives its plain version's result
-// (probes/mosaic_watchlist.py holds each against it).
+// What bounds them: launch cost and one load's latency.  At JAX's shapes
+// each moves at most 2.8 MB (a bytes bound under 1 us) and high_dot's three
+// bf16 products are 12.6 MFLOP on the tensor cores; so each is one launch,
+// spread over enough blocks that each block waits for one small load and no
+// SM runs a chain of them (strided_load: 450 windows of 4 KB, where 60 of
+// 32 KB left 72 SMs idle; strided_y_bf16: 16 boxes of 512 bytes, where one
+// block loaded all 8 KB and stored 4,096 values one at a time), and what it
+// tests is that the feature builds, launches and gives its plain version's
+// result (probes/mosaic_watchlist.py holds each against it).
 //
 // Plain C interface for ctypes; each launch goes on the caller's stream and
 // does not synchronise.  Each entry returns cudaGetLastError() after the
@@ -58,64 +63,93 @@ __device__ __forceinline__ unsigned char* aligned(unsigned char* p) {
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 // ---- strided_y_bf16 ------------------------------------------------------------
-// x (frames, rows, m, C) bf16 as a 4-D map (C, m, rows, frames); each block
-// loads one box {bc, 1, br, 1} at (c0, parity, r0, frame): br rows of bc
-// values of one parity, landing densely, then converts them to f32.
+// x (frames, rows, m, C) bf16 as a 4-D map (C, m, rows, frames).  The output
+// is cut into boxes of kYRows rows x at most kYCols columns, one block each
+// (JAX's 16 x 256: 16 blocks, where one block waited for the whole box on one
+// SM): thread 0 loads the block's box {bc, 1, br, 1} at (c0, parity, r0,
+// frame), br rows of bc values of one parity landing densely, onto an
+// mbarrier; then each thread widens four bf16 values of it (one 8-byte shared
+// read) to f32 and writes them with one 16-byte store.
 
-__global__ void __launch_bounds__(kThreads)
-    strided_y_kernel(const __grid_constant__ CUtensorMap xmap, float* __restrict__ out, int R,
-                     int C, int frame, int parity, int bc, int br) {
+constexpr int kYRows = 1, kYCols = 256;
+constexpr int kYThreads = kYRows * kYCols / 4;   // a group of 4 values a thread
+
+__global__ void __launch_bounds__(kYThreads)
+    strided_y_kernel(const __grid_constant__ CUtensorMap xmap, float* __restrict__ out, int R, int C,
+                     int frame, int parity, int bc, int br, int col_blocks) {
   extern __shared__ unsigned char raw[];
   unsigned char* base = aligned<128>(raw);
   const __nv_bfloat16* tile = reinterpret_cast<const __nv_bfloat16*>(base);
   const uint32_t box_bytes = static_cast<uint32_t>(bc) * br * 2;
   uint64_t* bar = reinterpret_cast<uint64_t*>(base + box_bytes);
-  const int c0 = blockIdx.x * bc, r0 = blockIdx.y * br;
-  if (threadIdx.x == 0) {
+  const int c0 = (blockIdx.x % col_blocks) * bc, r0 = (blockIdx.x / col_blocks) * br;
+  if (threadIdx.x == 0) {   // the issuing thread itself orders its init before the copy
     hopper::mbar_init(bar, 1);
     hopper::fence_mbarrier_init();
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
     hopper::mbar_arrive_expect_tx(bar, box_bytes);
     hopper::tma_load_4d(const_cast<__nv_bfloat16*>(tile), &xmap, c0, parity, r0, frame, bar);
   }
+  __syncthreads();   // the barrier is initialised before any thread waits on it
+  const int gc = bc / 4, rows = min(br, R - r0);   // groups a box row
   hopper::mbar_wait(bar, 0);
-  const int rows = min(br, R - r0), cols = min(bc, C - c0);
-  for (int e = threadIdx.x; e < rows * bc; e += kThreads) {
-    const int r = e / bc, c = e - r * bc;
-    if (c < cols) out[static_cast<long long>(r0 + r) * C + c0 + c] = __bfloat162float(tile[e]);
+  for (int e = threadIdx.x; e < rows * gc; e += kYThreads) {
+    const int r = e / gc, q = e - r * gc;
+    if (c0 + 4 * q >= C) continue;
+    // bf16 -> f32 is exact: the 16 bits move to the top of the word
+    const uint2 u = *reinterpret_cast<const uint2*>(tile + r * bc + 4 * q);
+    const float4 v = make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xFFFF0000u),
+                                 __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xFFFF0000u));
+    *reinterpret_cast<float4*>(out + static_cast<long long>(r0 + r) * C + c0 + 4 * q) = v;
   }
 }
 
 // ---- strided_load ----------------------------------------------------------------
-// x (R, W) f32 as a 2-D map; each block loads a box of br rows x bc columns
-// and writes the box's even columns.
+// x (R, W) f32 as a 2-D map; the output is cut into windows of kLoadRows rows
+// x at most kLoadCols input columns, one block each (JAX's (120, 3840): 30 x
+// 15 = 450 blocks, where windows of 32 rows left 72 SMs idle).  Thread 0
+// loads the window as one box onto an mbarrier (a box a row, each on its own
+// mbarrier so that the first rows could be stored while the last ones land,
+// was slower: each further TMA issue costs more than it overlaps); then each
+// thread reads a group of 8 columns (two 16-byte shared reads) and writes
+// its 4 even ones with one 16-byte store.  Where W / 2 is not a multiple of
+// 4, odd rows of out are not 16-byte aligned and a row's last group holds 2
+// columns: 8-byte stores there, and no shared read past the window's row.
 
-__global__ void __launch_bounds__(kThreads)
-    strided_load_kernel(const __grid_constant__ CUtensorMap xmap, float* __restrict__ out, int R,
-                        int W, int bc, int br) {
+constexpr int kLoadRows = 4, kLoadCols = 256;
+constexpr int kLoadThreads = kLoadRows * kLoadCols / 8;   // a group of 8 columns a thread
+
+__global__ void __launch_bounds__(kLoadThreads)
+    strided_load_kernel(const __grid_constant__ CUtensorMap xmap, float* __restrict__ out, int R, int W,
+                        int bc, int br, int col_blocks) {
   extern __shared__ unsigned char raw[];
   unsigned char* base = aligned<128>(raw);
-  const float* tile = reinterpret_cast<const float*>(base);
-  const uint32_t box_bytes = static_cast<uint32_t>(bc) * br * 4;
-  uint64_t* bar = reinterpret_cast<uint64_t*>(base + box_bytes);
-  const int c0 = blockIdx.x * bc, r0 = blockIdx.y * br;
-  if (threadIdx.x == 0) {
+  const float* win = reinterpret_cast<const float*>(base);
+  const uint32_t win_bytes = static_cast<uint32_t>(bc) * br * 4;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(base + win_bytes);
+  const int c0 = (blockIdx.x % col_blocks) * bc, r0 = (blockIdx.x / col_blocks) * br;
+  if (threadIdx.x == 0) {   // the issuing thread itself orders its init before the copy
     hopper::mbar_init(bar, 1);
     hopper::fence_mbarrier_init();
+    hopper::mbar_arrive_expect_tx(bar, win_bytes);
+    hopper::tma_load_2d(base, &xmap, c0, r0, bar);
   }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    hopper::mbar_arrive_expect_tx(bar, box_bytes);
-    hopper::tma_load_2d(const_cast<float*>(tile), &xmap, c0, r0, bar);
-  }
+  __syncthreads();   // the barrier is initialised before any thread waits on it
+  const int Wo = W / 2, gc = (bc + 7) / 8, rows = min(br, R - r0);   // groups a window row
   hopper::mbar_wait(bar, 0);
-  const int Wo = W / 2, half = bc / 2;
-  const int rows = min(br, R - r0), cols = min(half, Wo - c0 / 2);
-  for (int e = threadIdx.x; e < rows * half; e += kThreads) {
-    const int r = e / half, c = e - r * half;
-    if (c < cols) out[static_cast<long long>(r0 + r) * Wo + c0 / 2 + c] = tile[r * bc + 2 * c];
+  for (int e = threadIdx.x; e < rows * gc; e += kLoadThreads) {
+    const int r = e / gc, g = e - r * gc;
+    const int oc = c0 / 2 + 4 * g;   // the group's first output column
+    if (oc >= Wo) continue;
+    const float* p = win + r * bc + 8 * g;
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    const float4 b = 8 * g + 8 <= bc ? *reinterpret_cast<const float4*>(p + 4) : a;
+    float* o = out + static_cast<long long>(r0 + r) * Wo + oc;
+    if (oc + 4 <= Wo && (reinterpret_cast<uintptr_t>(o) & 15) == 0) {
+      *reinterpret_cast<float4*>(o) = make_float4(a.x, a.z, b.x, b.z);
+    } else {
+      *reinterpret_cast<float2*>(o) = make_float2(a.x, a.z);
+      if (oc + 4 <= Wo) *reinterpret_cast<float2*>(o + 2) = make_float2(b.x, b.z);
+    }
   }
 }
 
@@ -169,7 +203,7 @@ __global__ void __launch_bounds__(32)
 // ---- high_dot --------------------------------------------------------------------
 // One warpgroup per 64 x 32 tile of out (JAX's 128 x 128: 8 blocks, where
 // one block of the whole tile ran its loads, split and products one after
-// another on one SM).  K comes in chunks of 32 through a ring of two
+// another on one SM).  K comes in chunks of 32 through a ring of four
 // stages: thread 0 issues a chunk's two TMA boxes onto the stage's
 // mbarrier (a: 64 rows x 32 K, b: 32 K rows x 32 columns, f32, zeros out
 // of bounds); the threads split the chunk into hi and lo bf16 in K-major
@@ -307,14 +341,19 @@ inline int launched() { return static_cast<int>(cudaGetLastError()); }
 }  // namespace
 
 // x (frames, rows, m, C) bf16, out (R, C) f32 = x[frame, :R, parity, :];
-// C a multiple of 8 (the 16-byte stride a tensor map needs), x 16-byte aligned.
+// C a multiple of 8 (the 16-byte stride a tensor map needs), x and out
+// 16-byte aligned; one block per box of kYRows rows x kYCols columns.
 extern "C" int aainterp_strided_y_bf16(const void* x, void* out, int frames, int rows, int m, int C,
                                        int frame, int parity, int R, void* stream) {
   if (frames <= 0 || rows <= 0 || m <= 0 || C <= 0 || C % 8 != 0 || frame < 0 ||
-      frame >= frames || parity < 0 || parity >= m || R <= 0 || R > rows || !aligned16(x)) {
+      frame >= frames || parity < 0 || parity >= m || R <= 0 || R > rows || !aligned16(x) ||
+      !aligned16(out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int bc = C < 256 ? C : 256, br = R < 64 ? R : 64;
+  const int bc = C < kYCols ? C : kYCols, br = R < kYRows ? R : kYRows;
+  const int col_blocks = (C + bc - 1) / bc;
+  const long long blocks = static_cast<long long>(col_blocks) * ((R + br - 1) / br);
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(m),
                               static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(frames)};
   const cuuint64_t strides[3] = {2ull * C, 2ull * C * m, 2ull * C * m * rows};
@@ -322,29 +361,33 @@ extern "C" int aainterp_strided_y_bf16(const void* x, void* out, int frames, int
   CUtensorMap map;
   const int rc = hopper::encode_tiled(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, x, dims, strides, box);
   if (rc != 0) return rc;
-  const dim3 grid((C + bc - 1) / bc, (R + br - 1) / br);
   const size_t smem = 128 + static_cast<size_t>(bc) * br * 2 + 8;
-  strided_y_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      map, static_cast<float*>(out), R, C, frame, parity, bc, br);
+  strided_y_kernel<<<static_cast<unsigned>(blocks), kYThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      map, static_cast<float*>(out), R, C, frame, parity, bc, br, col_blocks);
   return launched();
 }
 
-// x (R, W) f32, out (R, W / 2) = x[:, ::2]; W a multiple of 4, x 16-byte aligned.
+// x (R, W) f32, out (R, W / 2) = x[:, ::2]; W a multiple of 4, x and out
+// 16-byte aligned; one block per window of kLoadRows rows x kLoadCols
+// columns.
 extern "C" int aainterp_strided_load(const void* x, void* out, int R, int W, void* stream) {
-  if (R <= 0 || W <= 0 || W % 4 != 0 || !aligned16(x)) {
+  if (R <= 0 || W <= 0 || W % 4 != 0 || !aligned16(x) || !aligned16(out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int bc = W < 256 ? W : 256, br = R < 32 ? R : 32;
+  const int bc = W < kLoadCols ? W : kLoadCols, br = R < kLoadRows ? R : kLoadRows;
+  const int col_blocks = (W + bc - 1) / bc;
+  const long long blocks = static_cast<long long>(col_blocks) * ((R + br - 1) / br);
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(W), static_cast<cuuint64_t>(R)};
   const cuuint64_t strides[1] = {4ull * W};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(bc), static_cast<cuuint32_t>(br)};
   CUtensorMap map;
   const int rc = hopper::encode_tiled(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, x, dims, strides, box);
   if (rc != 0) return rc;
-  const dim3 grid((W + bc - 1) / bc, (R + br - 1) / br);
   const size_t smem = 128 + static_cast<size_t>(bc) * br * 4 + 8;
-  strided_load_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      map, static_cast<float*>(out), R, W, bc, br);
+  strided_load_kernel<<<static_cast<unsigned>(blocks), kLoadThreads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(map, static_cast<float*>(out), R, W, bc, br,
+                                                             col_blocks);
   return launched();
 }
 

@@ -9,9 +9,13 @@ needs on this card, built from the primitives of ``csrc/hopper.cuh``:
 
 * ``strided_y_bf16`` — ``out[i, j] = f32(x[0, i, 1, j])``, one parity of
   a size-2 axis of bf16 (1, 32, 2, 256): a 4-D TMA box one wide on the
-  parity axis, completing on an mbarrier;
+  parity axis, completing on an mbarrier, one block per box of one row x
+  256 columns (16 here), four values widened a thread into one 16-byte
+  store;
 * ``strided_load`` — ``out = x[:, ::2]`` of (120, 3840) f32: 2-D TMA
-  tiles, then a stride-2 read of shared memory;
+  windows of 4 rows x 256 columns, one block each (450 here), then a
+  stride-2 read of shared memory, four even columns a thread into one
+  16-byte store;
 * ``value_slice`` — ``out = x[:, ::2] + x[:, 1::2]`` of (8, 512) f32: one
   16-byte load a thread, the pair sums in registers (the ``xpair`` form);
 * ``unaligned_dma`` — ``out = x[8:24]`` of (64, 3600) f32, rows of 14,400
@@ -21,7 +25,7 @@ needs on this card, built from the primitives of ``csrc/hopper.cuh``:
 * ``high_dot`` — ``a @ b`` at ``Precision.HIGH`` (bf16x3: ``hi·hi + hi·lo
   + lo·hi``, ``hi = bf16(a)``, ``lo = bf16(a − hi)``, f32 sums) of
   (128, 128) f32: ``wgmma`` m64n32k16 on the split in shared memory, one
-  warpgroup per 64 x 32 tile (8 blocks), K through a two-stage ring of
+  warpgroup per 64 x 32 tile (8 blocks), K through a four-stage ring of
   TMA boxes on mbarriers, each chunk split while the last one's products
   run;
 * ``vpu_dyn_rows`` — ``out[r] = x[off[r]] + x[off[r] + 1]``, r < 16, of
@@ -69,6 +73,8 @@ DMA_START, DMA_ROWS = 8, 16      # unaligned_dma's x[8:24]
 DYN_ROWS = 16                    # vpu_dyn_rows' 16 offsets
 HIGH_DOT_RTOL = 1e-5             # high_dot: |kernel - plain| <= 1e-5 max|plain|
 HIGH_DOT_TILE = (64, 32)         # high_dot's block tile of out (rows, columns)
+STRIDED_LOAD_WINDOW = (4, 256)   # strided_load's TMA window a block (rows, columns)
+STRIDED_Y_BOX = (1, 256)         # strided_y_bf16's TMA box a block (rows, columns)
 # probes whose operations (in ``traffic``) are bf16 products on the tensor
 # cores: high_dot's three, not f32 multiply-adds
 TENSOR_CORE_BF16 = ("high_dot",)
@@ -179,16 +185,27 @@ def _check_dtype(name: str, x: torch.Tensor, dtype: torch.dtype,
                          f"{tuple(x.shape)}")
 
 
+def _check_out_aligned(name: str, out: Optional[torch.Tensor]) -> None:
+    """The 16-byte stores' limit: a given ``out`` starts 16-byte aligned
+    (checked on any device, before any launch)."""
+    if out is not None and out.data_ptr() % 16:
+        raise ValueError(f"{name}: out must be 16-byte aligned (its kernel "
+                         "writes 16-byte stores)")
+
+
 def strided_y_bf16_kernel(x: torch.Tensor, frame: int = 0, parity: int = 1,
                           rows: int = 16, *,
                           out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``strided_y_bf16_plain`` on a 4-D TMA box one wide on the parity axis
-    (C a multiple of 8)."""
+    """``strided_y_bf16_plain`` on 4-D TMA boxes one wide on the parity
+    axis, one block per box of one row x 256 columns, 16-byte stores (C a
+    multiple of 8; a given ``out`` 16-byte aligned, checked on CPU tensors
+    too)."""
     _check_dtype("strided_y_bf16", x, torch.bfloat16, 4)
     F, R, m, C = x.shape
     if not (0 <= frame < F and 0 <= parity < m and 1 <= rows <= R):
         raise ValueError(f"strided_y_bf16: frame {frame}, parity {parity}, "
                          f"rows {rows} outside {tuple(x.shape)}")
+    _check_out_aligned("strided_y_bf16", out)
     if not _cuda("strided_y_bf16", x):
         y = strided_y_bf16_plain(x, frame, parity, rows)
         return y if out is None else out_buffer(
@@ -204,8 +221,11 @@ def strided_y_bf16_kernel(x: torch.Tensor, frame: int = 0, parity: int = 1,
 
 def strided_load_kernel(x: torch.Tensor, *,
                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``x[:, ::2]`` on 2-D TMA tiles (W a multiple of 4)."""
+    """``x[:, ::2]`` on 2-D TMA windows of 4 rows x 256 columns, one block
+    each, 16-byte stores (W a multiple of 4; a given ``out`` 16-byte
+    aligned, checked on CPU tensors too)."""
     _check_dtype("strided_load", x, torch.float32, 2)
+    _check_out_aligned("strided_load", out)
     if not _cuda("strided_load", x):
         y = strided_load_plain(x)
         return y if out is None else out_buffer(
@@ -262,7 +282,7 @@ def unaligned_dma_kernel(x: torch.Tensor, start: int = DMA_START,
 def high_dot_kernel(a: torch.Tensor, b: torch.Tensor, *,
                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``high_dot_plain`` on wgmma m64n32k16, one block per 64 x 32 tile of
-    out, K through a two-stage ring of TMA boxes (any M; K and N multiples
+    out, K through a four-stage ring of TMA boxes (any M; K and N multiples
     of 4, the 16-byte row strides of the tensor maps, checked on CPU
     tensors too)."""
     _check_dtype("high_dot", a, torch.float32, 2)

@@ -78,9 +78,10 @@ points (``aainterp_torch.area_average_interpolate`` for the first three):
 * probe group 4 (phase 50): the Mosaic watchlist
   (``aainterp_torch.probes.mosaic_watchlist``), six probes on
   ``csrc/watchlist.cu`` built from the Hopper primitives of
-  ``csrc/hopper.cuh`` (a 4-D and a 2-D TMA tile load, 1-D bulk copies in
-  and out on an mbarrier, wgmma m64n128k16, a 16-byte pair sum and rows
-  at dynamic offsets) at JAX's shapes, through ``run_watchlist`` and
+  ``csrc/hopper.cuh`` (a 4-D and a 2-D TMA tile load spread over many
+  blocks, 1-D bulk copies in and out on an mbarrier, wgmma m64n32k16, a
+  16-byte pair sum and rows at dynamic offsets) at JAX's shapes, and the
+  two TMA-load probes at ragged shapes, through ``run_watchlist`` and
   ``measure``, one ``watchlist_timing`` line.
 
 It builds every kernel from ``aainterp_torch/csrc`` with nvcc (and the
@@ -3373,6 +3374,23 @@ def watchlist_phase(make, card) -> list:
             check(mw.equal(name, got, want), f"watchlist {name} (seed {seed})"
                   f" differs from its plain version: max |diff| {e}")
             err[name] = max(err.get(name, 0.0), e)
+    # strided_load's windows and strided_y_bf16's boxes at ragged shapes:
+    # several blocks each way, R = 1, W / 2 not a multiple of 4 (odd rows of
+    # out not 16-byte aligned), W under one window; other frames, parities
+    # and row counts, two column blocks
+    ragged = [("strided_load", (make(torch.float32, shape),))
+              for shape in ((70, 600), (1, 3840), (9, 3844), (13, 12))]
+    xy = make(torch.bfloat16, (3, 20, 3, 264))
+    ragged += [("strided_y_bf16", (xy, f, p, r))
+               for f, p, r in ((2, 0, 20), (1, 2, 1), (0, 1, 7))]
+    for name, args in ragged:
+        _, kernel, plain, _, _ = mw.probe(name)
+        want = plain(*args)
+        got = kernel(*args, out=torch.full_like(want, float("nan")))
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"watchlist {name} at "
+              f"{tuple(args[0].shape)} {args[1:]}: max |diff| "
+              f"{max_err(got, want)}")
     a, b = (mw.inputs("high_dot", dev, seed)[0] for seed in (1, 2))
     got, want = mw.high_dot_kernel(a - 0.25, b), mw.high_dot_plain(a - 0.25, b)
     check(mw.equal("high_dot", got, want) and not mw.equal(
@@ -3385,7 +3403,11 @@ def watchlist_phase(make, card) -> list:
           f"TMA ring, max |diff| {err['high_dot']:.3e} <= 1e-5 * "
           f"max|plain|; unaligned_dma's "
           f"{mw.DMA_ROWS} rows of {mw.SHAPES['unaligned_dma'][1] * 4} bytes "
-          f"in pieces of at most 2 KB, one block each)")
+          f"in pieces of at most 2 KB, one block each; strided_load in TMA "
+          f"windows of {mw.STRIDED_LOAD_WINDOW[0]} x "
+          f"{mw.STRIDED_LOAD_WINDOW[1]} and strided_y_bf16 in boxes of "
+          f"{mw.STRIDED_Y_BOX[0]} x {mw.STRIDED_Y_BOX[1]}, a block each, also "
+          f"at {len(ragged)} ragged shapes)")
     del got
     torch.cuda.synchronize()
     reset_launches()

@@ -4,9 +4,10 @@ GPU: the two separable band-apply kernels (``csrc/separable_apply.cu``,
 kernel 1, and ``csrc/separable_apply_2d.cu``, kernel 2, both built on
 ``csrc/band_apply.cuh``), the shear-mode stage kernels
 (``csrc/shear3_stage.cu``), the exact rotated route's kernels
-(``csrc/ell_shear.cu``), and the tensor-core probes: rgb1024's dense-x
+(``csrc/ell_shear.cu``), the tensor-core probes: rgb1024's dense-x
 probe (``csrc/dense_x.cu``) and the watchlist's high_dot
-(``csrc/watchlist.cu``).
+(``csrc/watchlist.cu``), and the watchlist's two TMA-load probes beside
+their library calls.
 
     python3 chip_sweep.py [--repo DIR] [--cells k1,k2,s3,r]
         [--variants cur,nostage,...] [--set 'MOD.NAME=VALUE;...']...
@@ -14,8 +15,9 @@ probe (``csrc/dense_x.cu``) and the watchlist's high_dot
 Cells are chosen by name, or by a prefix of their names (``k1``, ``k2``,
 ``s3``, ``r``).  Each is timed as ``chip_smoke.py`` times it: device ms per batch
 from CUDA-graph replays on distinct inputs (``chip_smoke.graph_ms``), best
-of two; ``k2_direct``, whose calls are shorter than a replay's host cost,
-with 20 calls in each graph (``CALLS``).
+of two; the cells whose calls are shorter than a replay's host cost
+(``k2_direct``, ``high_dot``, the strided probes) with 20 calls in each
+graph (``CALLS``).
 
 * ``k1_bf16``, ``k1_f32``, ``k1_u8``: kernel 1 at the flagship, 8 frames
   2160x3840 -> 1080x1920 (4-tap bands);
@@ -41,7 +43,19 @@ with 20 calls in each graph (``CALLS``).
   ``dxnoy``, ``dxnomma``, ``dxnoop``, ``dxbare``, ``dxnostore``);
 * ``high_dot``: the watchlist's bf16x3 product of (128, 128) f32 at JAX's
   shape, 20 calls in each graph (variants ``hdnomma``, ``hdnosplit``,
-  ``hdloads``: loads only; each matches the parent's kernel too).
+  ``hdloads``: loads only; each matches the parent's kernel too);
+* ``strided_load``, ``strided_y_bf16``: the watchlist's ``x[:, ::2]`` of
+  (120, 3840) f32 and ``f32(x[0, :16, 1, :])`` of (1, 32, 2, 256) bf16 on
+  8 seeded inputs, 20 calls in each graph, and ``lib_strided_load``,
+  ``lib_strided_y_bf16``, their library calls (the plain versions) in the
+  same turns (variants ``sltma``, ``sytma``: a TMA 2-D store of the dense
+  output box; ``sl1``, ``sl2``, ``sl8``, ``sl16``: windows of that many
+  rows; ``slbox1``: a window as a box a row, each on its own mbarrier; ``slc128``:
+  windows of 128 columns; ``sy2``: boxes of two rows; ``slglobal``,
+  ``syglobal``: plain 16-byte global loads in place of TMA; ``slnostore``,
+  ``synostore``: no stores);
+* ``lib_c_4k``, ``lib_c_rgb1024``: ``copy_`` into a destination of its own
+  per input at the copy cells ``c_4k`` and ``c_rgb1024``.
 
 Each cell's kernel output is checked against its plain version first
 (kernel 1 and 2 and the contraction within a bf16 ulp or one grey level,
@@ -91,6 +105,114 @@ DX_NOOP = [(r"mbar_arrive_expect_tx\((&bar\[[^\]]*\]), kBBytes\);",
 HD_MMA = r"hopper::wgmma_(m64n128k16_bf16|bf16<kDotCols>)\(d, [^;]*;"
 HD_SPLIT = r"((hopper::)?split8\(v, )"
 HD_SPLIT_OFF = r"if (v[0] == -1.0f) \1"
+# strided_load and strided_y_bf16 reading x with plain 16-byte global loads
+# (valid at JAX's shapes): the kernel takes x; no TMA, no mbarrier, no block
+# barrier, no wait
+SL_INIT = (r"  if \(threadIdx\.x == 0\) \{   // the issuing thread[^\n]*\n(?:    [^\n]*\n)*?"
+           r"    hopper::tma_load_2d\([^\n]*\n  \}\n  __syncthreads\(\);[^\n]*\n")
+SY_INIT = (r"  if \(threadIdx\.x == 0\) \{   // the issuing thread[^\n]*\n(?:    [^\n]*\n)*?"
+           r"    hopper::tma_load_4d\([^\n]*\n  \}\n  __syncthreads\(\);[^\n]*\n")
+SL_WAIT = r"(const int Wo = W / 2[^\n]*\n)  hopper::mbar_wait\(bar, 0\);\n"
+SY_WAIT = r"(const int gc = bc / 4[^\n]*\n)  hopper::mbar_wait\(bar, 0\);\n"
+SL_GLOBAL = [
+    (r"(float\* __restrict__ out, int R, int W,)",
+     r"const float* __restrict__ xg, \1"),
+    (r"(static_cast<float\*>\(out\), R, W,)",
+     r"static_cast<const float*>(x), \1"),
+    (SL_INIT, ""), (SL_WAIT, r"\1"),
+    (r"const float\* p = win \+ r \* bc \+ 8 \* g;",
+     "const float* p = xg + static_cast<long long>(r0 + r) * W + c0 + 8 * g;")]
+SY_GLOBAL = [
+    (r"(float\* __restrict__ out, int R, int C,)",
+     r"const __nv_bfloat16* __restrict__ xg, int xstride, \1"),
+    (r"(static_cast<float\*>\(out\), R, C, frame)",
+     r"static_cast<const __nv_bfloat16*>(x) + (static_cast<long long>(frame)"
+     r" * rows * m + parity) * C, m * C, \1"),
+    (SY_INIT, ""), (SY_WAIT, r"\1"),
+    (r"uint2\*>\(tile \+ r \* bc \+ 4 \* q\)",
+     "uint2*>(xg + static_cast<long long>(r0 + r) * xstride + c0 + 4 * q)")]
+# strided_load's window as a box a row, each on its own mbarrier, each
+# thread waiting for its row's (valid where a row of the window spans a
+# multiple of 128 bytes and R of the window rows, as at JAX's shape)
+SL_BOX_A_ROW = [
+    (r"    hopper::mbar_init\(bar, 1\);\n    hopper::fence_mbarrier_init\(\);\n"
+     r"    hopper::mbar_arrive_expect_tx\(bar, win_bytes\);\n"
+     r"    hopper::tma_load_2d\(base, &xmap, c0, r0, bar\);",
+     "    for (int i = 0; i < br; ++i) hopper::mbar_init(&bar[i], 1);\n"
+     "    hopper::fence_mbarrier_init();\n"
+     "    for (int i = 0; i < br; ++i) {\n"
+     "      hopper::mbar_arrive_expect_tx(&bar[i], bc * 4);\n"
+     "      hopper::tma_load_2d(base + i * bc * 4, &xmap, c0, r0 + i, &bar[i]);\n"
+     "    }"),
+    (SL_WAIT, r"\1"),
+    (r"(    if \(oc >= Wo\) continue;\n)", r"\1    hopper::mbar_wait(&bar[r], 0);\n"),
+    (r"const cuuint32_t box\[2\] = \{static_cast<cuuint32_t>\(bc\), "
+     r"static_cast<cuuint32_t>\(br\)\};",
+     "const cuuint32_t box[2] = {static_cast<cuuint32_t>(bc), 1};"),
+    (r"const size_t smem = 128 \+ static_cast<size_t>\(bc\) \* br \* 4 \+ 8;",
+     "const size_t smem = 128 + static_cast<size_t>(bc) * br * 4 + 8 * br;")]
+# the other store form of both: the threads write the dense output box to
+# shared memory, then fence_proxy_async, a block barrier and one TMA 2-D
+# store (cp.async.bulk.tensor, added to hopper.cuh by the edit); valid where
+# the output rows are whole 16-byte multiples (strided_load: W a multiple
+# of 8)
+TMA_STORE_2D = (r"(\n// ---- wgmma)", r"""
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, int c0, int c1, const void* src) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+\1""")
+TMA_STORE_TAIL = """
+  }
+  hopper::fence_proxy_async();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    hopper::tma_store_2d(&omap, %s, r0, %s);
+    hopper::bulk_commit();
+    hopper::bulk_wait_all();
+  }
+}"""
+OUT_MAP = """CUtensorMap omap;
+  const cuuint64_t odims[2] = {static_cast<cuuint64_t>(%s), static_cast<cuuint64_t>(R)};
+  const cuuint64_t ostrides[1] = {%s};
+  const cuuint32_t obox[2] = {static_cast<cuuint32_t>(%s), static_cast<cuuint32_t>(br)};
+  const int orc = hopper::encode_tiled(&omap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, out, odims,
+                                       ostrides, obox);
+  if (orc != 0) return orc;
+  """
+SL_OTILE = "reinterpret_cast<float*>(aligned<128>(base + win_bytes + 8))"
+SY_OTILE = "reinterpret_cast<float*>(aligned<128>(base + box_bytes + 8))"
+SL_TMA_STORE = {
+    "hopper.cuh": [TMA_STORE_2D],
+    "watchlist.cu": [
+        (r"(float\* __restrict__ out, int R, int W,)",
+         r"const __grid_constant__ CUtensorMap omap, \1"),
+        (r"(static_cast<float\*>\(out\), R, W,)", r"omap, \1"),
+        (r"    if \(oc \+ 4 <= Wo && [^\n]*\n(.*\n){5}  \}\n\}",
+         "    *reinterpret_cast<float4*>(" + SL_OTILE + " + r * (bc / 2) + 4 * g) ="
+         " make_float4(a.x, a.z, b.x, b.z);"
+         + TMA_STORE_TAIL % ("c0 / 2", SL_OTILE)),
+        (r"const size_t smem = 128 \+ static_cast<size_t>\(bc\) \* br \* 4 \+ 8;",
+         OUT_MAP % ("W / 2", "2ull * W", "bc / 2")
+         + "const size_t smem = 128 + static_cast<size_t>(bc) * br * 4 + 8 + 128 + "
+           "static_cast<size_t>(bc / 2) * br * 4;")]}
+SY_TMA_STORE = {
+    "hopper.cuh": [TMA_STORE_2D],
+    "watchlist.cu": [
+        (r"(float\* __restrict__ out, int R, int C,)",
+         r"const __grid_constant__ CUtensorMap omap, \1"),
+        (r"(static_cast<float\*>\(out\), R, C, frame)", r"omap, \1"),
+        (r"\*reinterpret_cast<float4\*>\(out \+ static_cast<long long>\(r0 \+ r\) "
+         r"\* C \+ c0 \+ 4 \* q\) = v;\n  \}\n\}",
+         "*reinterpret_cast<float4*>(" + SY_OTILE + " + r * bc + 4 * q) = v;"
+         + TMA_STORE_TAIL % ("c0", SY_OTILE)),
+        (r"const size_t smem = 128 \+ static_cast<size_t>\(bc\) \* br \* 2 \+ 8;",
+         OUT_MAP % ("C", "4ull * C", "bc")
+         + "const size_t smem = 128 + static_cast<size_t>(bc) * br * 2 + 8 + 128 + "
+           "static_cast<size_t>(bc) * br * 4;")]}
 VARIANTS = {
     "cur": {},
     # no source window is copied (the passes read stale shared memory)
@@ -187,13 +309,46 @@ VARIANTS = {
     "hdnomma": {"watchlist.cu": [(HD_MMA, "")]},
     "hdnosplit": {"watchlist.cu": [(HD_SPLIT, HD_SPLIT_OFF)]},
     "hdloads": {"watchlist.cu": [(HD_MMA, ""), (HD_SPLIT, HD_SPLIT_OFF)]},
+    # watchlist.cu's strided_load and strided_y_bf16: the dense output box
+    # written by a TMA 2-D store instead of 16-byte stores; windows of 4 or
+    # 16 rows instead of 8, boxes of 2 rows instead of 1; plain 16-byte
+    # global loads in place of the TMA box (its barrier expects no bytes);
+    # no stores (the box is loaded and waited for)
+    "sltma": SL_TMA_STORE,
+    "sytma": SY_TMA_STORE,
+    "sl1": {"watchlist.cu": [(r"kLoadRows = 4,", "kLoadRows = 1,")]},
+    "sl2": {"watchlist.cu": [(r"kLoadRows = 4,", "kLoadRows = 2,")]},
+    "sl8": {"watchlist.cu": [(r"kLoadRows = 4,", "kLoadRows = 8,")]},
+    "sl16": {"watchlist.cu": [(r"kLoadRows = 4,", "kLoadRows = 16,")]},
+    "slbox1": {"watchlist.cu": SL_BOX_A_ROW},
+    "slc128": {"watchlist.cu": [(r"kLoadCols = 256;", "kLoadCols = 128;")]},
+    "sy2": {"watchlist.cu": [(r"kYRows = 1,", "kYRows = 2,")]},
+    # tensor maps that promote their boxes' L2 fetches to 256 bytes;
+    # strided_load's map prefetched by thread 0 before its barriers
+    "l2promo": {"hopper.cuh": [(r"CU_TENSOR_MAP_L2_PROMOTION_NONE",
+                                "CU_TENSOR_MAP_L2_PROMOTION_L2_256B")]},
+    "slpf": {"watchlist.cu": [(
+        r"(  if \(threadIdx\.x == 0\) \{[^\n]*\n)(    hopper::mbar_init\(bar, 1\);\n"
+        r"    hopper::fence_mbarrier_init\(\);\n    hopper::mbar_arrive_expect_tx"
+        r"\(bar, win_bytes\))",
+        r'\1    asm volatile("prefetch.tensormap [%0];" :: "l"(reinterpret_cast<'
+        r'uint64_t>(&xmap)) : "memory");\n\2')]},
+    "slglobal": {"watchlist.cu": SL_GLOBAL},
+    "syglobal": {"watchlist.cu": SY_GLOBAL},
+    "slnostore": {"watchlist.cu": [(r"(float\* o = out \+)",
+                                    r"if (oc >= 0) continue;\n    \1")]},
+    "synostore": {"watchlist.cu": [(r"if \(c0 \+ 4 \* q >= C\) continue;",
+                                    "continue;")]},
 }
 # cells timed with this many calls in each CUDA graph (their calls are
 # shorter than a replay's host cost)
-CALLS = {"k2_direct": 20, "high_dot": 20}
+CALLS = {"k2_direct": 20, "high_dot": 20, "strided_load": 20,
+         "strided_y_bf16": 20, "lib_strided_load": 20,
+         "lib_strided_y_bf16": 20}
 EXACT = ("cur", "lane8", "t256", "t128", "tilemajor",   # variants that
          "colmajor", "copy1024", "copy512",         # compute everything
-         "copypart4", "group4", "xgroups2")
+         "copypart4", "group4", "xgroups2", "sltma", "sytma", "sl1", "sl2",
+         "sl8", "sl16", "slbox1", "slc128", "sy2", "slglobal", "syglobal")
 
 
 def variant_sources(lib, name: str) -> dict:
@@ -467,6 +622,43 @@ def make_cells(dev):
                                   for seed in range(1, 9)], 128e-5)
 
     cells["high_dot"] = high_dot_cell()
+
+    def watch_cell(name, library):
+        from aainterp_torch.probes import mosaic_watchlist as mw
+
+        _, kernel, plain, _, _ = mw.probe(name)
+
+        def prepare():
+            # the library call of these two probes is their plain version
+            fn = plain if library else kernel
+            return lambda a: fn(*a), lambda a: plain(*a), {}
+        return (prepare, lambda: [mw.inputs(name, dev, seed)
+                                  for seed in range(1, 9)], 0.0)
+
+    for name in ("strided_load", "strided_y_bf16"):
+        cells[name] = watch_cell(name, False)
+        cells[f"lib_{name}"] = watch_cell(name, True)
+
+    def c_lib_cell(H, W, ty, dtype, nf):
+        from aainterp_torch.probes import copy_ceiling
+
+        prepare_k, inputs, _ = c_cell(H, W, ty, dtype, nf)
+        rows = H // ty * ty
+
+        def prepare():
+            # copy_ into a destination of its own per input, as the kernel
+            # writes a fresh output per call
+            dst = {x.data_ptr(): torch.empty((nf, rows, W), dtype=dtype,
+                                             device=dev) for x in inputs()}
+            return (lambda x: dst[x.data_ptr()].copy_(x[:, :rows]),
+                    lambda x: copy_ceiling.copy_rows_plain(x, ty),
+                    prepare_k()[2])
+        return prepare, inputs, 0.0
+
+    for name, H, W, ty, dtype, nf in (
+            ("4k", 2160, 3840, 120, bf16, 8),
+            ("rgb1024", 1024, 1024, 128, bf16, 24)):
+        cells[f"lib_c_{name}"] = c_lib_cell(H, W, ty, dtype, nf)
     return cells
 
 

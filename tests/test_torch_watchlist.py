@@ -14,17 +14,23 @@ versions on CPU tensors, and the build hashing ``hopper.cuh``.
 
 On the card (marker ``cuda``, skipped here; imports no JAX, so it runs
 with ``--noconftest -m cuda``): each kernel against its plain version into
-NaN-filled outputs at JAX's shapes and at one other shape per probe —
-strided_y_bf16 at parity 0 of a later frame with ragged boxes,
-strided_load and value_slice on ragged tiles, unaligned_dma at JAX's
-shape (16 rows x 8 pieces), at other row offsets and counts, on narrow
-rows and on one row beyond the shared-memory opt-in, high_dot with a ≠ b
-(64 x 32 tiles, K through a two-stage TMA ring) on a 4 x 12 grid of
-tiles, at K 16 (one chunk, half out of bounds) and 224, on ragged tiles
-(100 x 36 @ 36 x 68: zeros past every edge) and at K 1000 (32 chunks of
-the ring), vpu_dyn_rows with
-shuffled offsets (``arange`` hides an index slip) — ``torch.equal``, or
-the high_dot tolerance, and one launch per call.
+NaN-filled outputs at JAX's shapes and at other shapes per probe —
+strided_y_bf16 (one block per box of one row x 256 columns) at every
+parity and frame of a ragged (3, 20, 3, 264) x, for R = 1 .. 20, and at
+C = 8; strided_load (one block per window of 4 rows x 256 columns) with
+several blocks each way, R = 1, R not a multiple of 4, W / 2 not a
+multiple of 4 (odd rows of out not 16-byte aligned, a last group of 2
+columns) and W under one window; value_slice on ragged tiles,
+unaligned_dma at JAX's shape (16 rows x 8 pieces), at other row offsets
+and counts, on narrow rows and on one row beyond the shared-memory
+opt-in, high_dot with a ≠ b (64 x 32 tiles, K through a four-stage TMA
+ring) on a 4 x 12 grid of tiles, at K 16 (one chunk, half out of bounds)
+and 224, on ragged tiles (100 x 36 @ 36 x 68: zeros past every edge) and
+at K 1000 (32 chunks of the ring), vpu_dyn_rows with shuffled offsets
+(``arange`` hides an index slip) — ``torch.equal``, or the high_dot
+tolerance, and one launch per call.  strided_y_bf16 and strided_load
+write 16-byte stores: an ``out`` that is not 16-byte aligned raises
+before any launch, on the CPU too.
 """
 
 import dataclasses
@@ -244,6 +250,30 @@ def test_kernels_reject_what_they_cannot_take():
     with pytest.raises(ValueError, match="out must be"):
         mw.value_slice_kernel(mw.inputs("value_slice")[0],
                               out=torch.empty(8, 255))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mw.strided_load_kernel(torch.zeros(4, 8),
+                               out=torch.empty(17)[1:].view(4, 4))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mw.strided_y_bf16_kernel(torch.zeros(1, 4, 2, 8, dtype=torch.bfloat16),
+                                 rows=2, out=torch.empty(17)[1:].view(2, 8))
+
+
+@pytest.mark.parametrize("name", ["strided_y_bf16", "strided_load"])
+@pytest.mark.parametrize("shift", [1, 2, 3])
+def test_strided_kernels_need_a_16_byte_aligned_out(name, shift):
+    # their 16-byte stores: an out 4, 8 or 12 bytes past a 16-byte boundary
+    # raises before any launch, on CPU tensors too; an aligned one is taken
+    kernel, plain = getattr(mw, f"{name}_kernel"), getattr(mw, f"{name}_plain")
+    args = mw.inputs(name, seed=shift)
+    want = plain(*args)
+    flat = torch.full((want.numel() + 4,), float("nan"))
+    assert flat.data_ptr() % 16 == 0
+    before = dict(mw.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kernel(*args, out=flat[shift:shift + want.numel()].view(want.shape))
+    assert mw.LAUNCHES == before
+    out = flat[4:].view(want.shape)
+    assert kernel(*args, out=out) is out and torch.equal(out, want)
 
 
 @pytest.mark.parametrize("shape", [(128, 30, 128), (128, 32, 66)],
@@ -350,11 +380,43 @@ def test_strided_y_other_parity_frame_and_ragged_boxes(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("frame", [0, 1, 2])
+@pytest.mark.parametrize("parity", [0, 1, 2])
+def test_strided_y_every_parity_frame_and_row_count(cuda, frame, parity):
+    # one block per box of one row x 256 columns: C = 264 takes two column
+    # blocks (256 + 8), R = 1 .. 20 one to twenty row blocks
+    x = _uniform((3, 20, 3, 264), 14 + 3 * frame + parity, cuda,
+                 torch.bfloat16)
+    for rows in range(1, 21):
+        _held("strided_y_bf16", mw.strided_y_bf16_kernel,
+              mw.strided_y_bf16_plain, (x, frame, parity, rows))
+    x = _uniform((2, 5, 2, 8), 15, cuda, torch.bfloat16)   # C = 8: 2 groups
+    _held("strided_y_bf16", mw.strided_y_bf16_kernel, mw.strided_y_bf16_plain,
+          (x, frame % 2, parity % 2, 5))
+
+
+@pytest.mark.cuda
 def test_strided_load_and_value_slice_ragged(cuda):
     x = _uniform((70, 600), 8, cuda)
     _held("strided_load", mw.strided_load_kernel, mw.strided_load_plain, (x,))
     x = _uniform((5, 36), 9, cuda)
     _held("value_slice", mw.value_slice_kernel, mw.value_slice_plain, (x,))
+    _held("strided_load", mw.strided_load_kernel, mw.strided_load_plain, (x,))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(120, 3840), (70, 600), (1, 3840),
+                                   (9, 3844), (13, 12), (1, 4), (17, 520),
+                                   (33, 1028)],
+                         ids=["jax", "blocks_each_way", "one_row",
+                              "half_not_4", "under_one_window", "one_pair",
+                              "last_window_8", "rows_33_half_not_4"])
+def test_strided_load_windows(cuda, shape):
+    # windows of 4 rows x 256 columns: R not a multiple of 4 and R = 1; W /
+    # 2 not a multiple of 4 (3844, 12, 4, 1028: odd rows of out are not
+    # 16-byte aligned, a row's last group holds 2 columns); W under one
+    # window; a last window of 8 columns
+    x = _uniform(shape, shape[0] + shape[1], cuda)
     _held("strided_load", mw.strided_load_kernel, mw.strided_load_plain, (x,))
 
 
@@ -432,3 +494,14 @@ def test_kernels_raise_on_shapes_they_cannot_take(cuda):
     with pytest.raises(ValueError, match="multiple of 4"):
         # rows of 30 f32 (120 bytes) are not whole 16-byte chunks
         mw.unaligned_dma_kernel(torch.zeros(2, 30, device=cuda), 0, 1)
+    # 16-byte stores: an out 4 bytes past a 16-byte boundary, before any
+    # launch
+    before = dict(mw.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mw.strided_load_kernel(torch.zeros(4, 8, device=cuda),
+                               out=torch.empty(17, device=cuda)[1:].view(4, 4))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mw.strided_y_bf16_kernel(
+            torch.zeros(1, 4, 2, 8, dtype=torch.bfloat16, device=cuda), rows=2,
+            out=torch.empty(17, device=cuda)[1:].view(2, 8))
+    assert mw.LAUNCHES == before
