@@ -13,7 +13,8 @@ PyTorch headers), so each builds in seconds:
 * ``shear3_stage`` — ``csrc/shear3_stage.cu`` (the two stage kernels of
   ``mode='shear'``) through nvcc;
 * ``probes`` — ``csrc/probes.cu`` (the row-tiled copy of the copy
-  ceiling and the rotated contraction's probe modes) through nvcc;
+  ceiling, a ring of 1-D bulk copies on ``csrc/hopper.cuh``, and the
+  rotated contraction's probe modes) through nvcc;
 * ``band_probes`` — ``csrc/band_probes.cu`` (kernel 1's probe modes:
   the instances of ``csrc/band_apply.cuh`` under its probe modes) through
   nvcc, a library of its own so that it builds beside the others;
@@ -33,7 +34,9 @@ PyTorch headers), so each builds in seconds:
 The four CUDA sources of the production kernels include
 ``csrc/stage_common.cuh``, the staging helpers of their staged kernels;
 ``ell_shear.cu`` and ``probes.cu`` include ``csrc/contract.cuh``, the
-contraction's body under its probe modes; ``separable_apply.cu``,
+contraction's tiled form and its direct form under its probe modes
+(``probes.cu`` also ``csrc/hopper.cuh`` and ``csrc/stage_common.cuh``
+for the copy's bulk copies and shared-memory opt-in); ``separable_apply.cu``,
 ``separable_apply_2d.cu`` and ``band_probes.cu`` include
 ``csrc/band_apply.cuh``, the separable kernels' body under its probe
 modes; ``watchlist.cu`` and ``dense_x.cu`` include ``csrc/hopper.cuh``
@@ -132,9 +135,13 @@ ELL_SHEAR = Library(
         # aainterp_vhshear(q, T, gy, hx, win, F, qH, qW, TH, TW, TY, TX,
         #     win_rows, win_cols, elem_bytes, stream)
         ("aainterp_vhshear", (_P,) * 5 + (_I,) * 10 + (_P,), ctypes.c_int),
-        # aainterp_contract(T, out, ry0, cx0, w2, span, F, TH, TW, Hd, Wd,
-        #     Ka, Kb, dtype_code, stream)
-        ("aainterp_contract", (_P,) * 6 + (_I,) * 8 + (_P,), ctypes.c_int),
+        # aainterp_contract(T, out, ry0, cx0, w2, span, tiles, F, TH, TW,
+        #     Hd, Wd, Ka, Kb, TYd, TXd, smem, dtype_code, stream)
+        ("aainterp_contract", (_P,) * 7 + (_I,) * 11 + (_P,), ctypes.c_int),
+        # aainterp_contract_direct(T, out, ry0, cx0, w2, span, F, TH, TW,
+        #     Hd, Wd, Ka, Kb, dtype_code, stream)
+        ("aainterp_contract_direct", (_P,) * 6 + (_I,) * 8 + (_P,),
+         ctypes.c_int),
         # aainterp_contract_unmasked(T, out, ry0, cx0, w2, F, TH, TW, Hd,
         #     Wd, Ka, Kb, dtype_code, stream)
         ("aainterp_contract_unmasked", (_P,) * 5 + (_I,) * 8 + (_P,),
@@ -161,7 +168,7 @@ PROBES = Library(
         ("aainterp_contract_probe", (_P,) * 6 + (_I,) * 9 + (_P,),
          ctypes.c_int),
     ),
-    headers=(_CONTRACT_HEADER,))
+    headers=(_CONTRACT_HEADER, _PKG / "csrc" / "hopper.cuh", _STAGE_HEADER))
 
 BAND_PROBES = Library(
     "band_probes", _PKG / "csrc" / "band_probes.cu", "nvcc", NVCC_FLAGS,

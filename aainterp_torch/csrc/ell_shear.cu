@@ -8,7 +8,9 @@
 //   aainterp_vhshear  <- both at once: the rotated route's shear
 //   aainterp_contract <- _build_contract (:164, pallas_call at :291),
 //                        masked=True as the route launches it (:802);
-//                        aainterp_contract_unmasked is masked=False
+//                        aainterp_contract_direct is the same function in
+//                        the direct form, aainterp_contract_unmasked the
+//                        direct form with masked=False
 //
 // With the host plan of ops/shear_apply.build_shear_plan (gy, hx, ry0, cx0
 // and the re-indexed weights w2, laid out by ops/cuda_shear.py, which also
@@ -63,18 +65,21 @@
 //   * the forms differ only in which shift table they read (kGy: vertical,
 //     kHx: horizontal; vshear = fused with hx = 0, hshear = fused with
 //     gy = 0); the tile's slice of each table is staged in shared memory;
-//   * the contraction gives one thread to one (dy, dx) and loops over the
-//     frames inside, up to kFrames at a time with the sums in registers, so
-//     each weight tap is read from device memory once per kFrames frames
-//     (once per batch at the flagship's 8), not once per frame — the
-//     reason the TPU grid runs frames innermost (pallas_shear.py:197-199).
-//     Weights are tap-major, so neighbouring threads read neighbouring
-//     words; T rows shared by neighbouring dst rows come from L2.  A
-//     per-row span of live dst columns (host table) lets a thread outside
-//     it store zeros and read nothing: 46 % of the flagship's dst pixels.
-//     Its body lives in csrc/contract.cuh, under a probe mode; this file
-//     launches the production mode, masked and unmasked (csrc/probes.cu
-//     the probes).
+//   * the contraction (csrc/contract.cuh, which says more) gives one
+//     thread to one (dy, dx) and loops over the frames inside, up to
+//     kFrames at a time with the sums in registers, so each weight tap is
+//     read from device memory once per kFrames frames (once per batch at
+//     the flagship's 8), not once per frame — the reason the TPU grid runs
+//     frames innermost (pallas_shear.py:197-199).  Weights are tap-major,
+//     so neighbouring threads read neighbouring words.  A per-row span of
+//     live dst columns (host table) lets a pixel outside it store zeros
+//     and read nothing: 46 % of the flagship's dst pixels.  The route's
+//     masked form is tiled: one block per dst tile stages the tile's T
+//     window (a host table) for 8 frames into shared memory,
+//     frame-interleaved, so a tap is one 16-byte shared read.  The direct
+//     form (each tap's T values gathered from device memory) stays for
+//     the unmasked instance and for plans whose windows do not fit in
+//     shared memory (aainterp_contract_direct).
 //
 // Plain C interface for ctypes; each launch goes on the caller's stream and
 // does not synchronise.  The return value is cudaGetLastError() after the
@@ -305,8 +310,8 @@ extern "C" int aainterp_vhshear(const void* q, void* t, const void* gy, const vo
 
 namespace {
 
-// the production contraction (masked: span is (Hd, 2) int32) or, with span
-// null, its unmasked instance
+// the direct form, masked (span is (Hd, 2) int32) or, with span null, its
+// unmasked instance
 int contract_launch(const void* t, void* out, const void* ry0, const void* cx0,
                     const void* w2, const void* span, int F, int TH, int TW, int Hd,
                     int Wd, int Ka, int Kb, int dtype_code, void* stream) {
@@ -346,20 +351,74 @@ int contract_launch(const void* t, void* out, const void* ry0, const void* cx0,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the tiled form on n_tx x n_ty tiles of TYd x TXd with smem bytes of
+// dynamic shared memory (above 48 KB, stage::opt_in)
+template <typename T>
+int launch_tiled(const void* t, void* out, const int* r, const int* c, const float* w,
+                 const int* sp, const int4* tiles, int F, int TH, int TW, int Hd, int Wd,
+                 int Ka, int Kb, int TYd, int TXd, int smem, cudaStream_t st) {
+  const long long n_tx = (Wd + TXd - 1) / TXd;
+  const long long blocks = n_tx * ((Hd + TYd - 1) / TYd);
+  if (blocks > INT_MAX || static_cast<long long>(TYd) * TXd > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  // 16-byte loads where every row of every frame starts 16-byte aligned
+  const int vec = reinterpret_cast<uintptr_t>(t) % 16 == 0 &&
+                  (static_cast<long long>(TW) * sizeof(T)) % 16 == 0;
+  auto kern = contract::contract_tiled_kernel<T>;
+  static std::atomic<int> opted_in[stage::kMaxDevices];  // kern's limit per device
+  if (const int e = stage::opt_in(reinterpret_cast<const void*>(kern), smem, opted_in)) return e;
+  kern<<<static_cast<unsigned>(blocks), contract::kThreads, static_cast<size_t>(smem), st>>>(
+      static_cast<const T*>(t), static_cast<T*>(out), r, c, w, sp, tiles, F, TH, TW, Hd, Wd,
+      Ka, Kb, TYd, TXd, static_cast<int>(n_tx), vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// dtype_code: 0 = float32, 1 = bfloat16 (T and out share it); span: (Hd, 2)
-// int32, each dst row's live columns [lo, hi) (outside them out is 0)
+// The route's masked contraction, tiled.  dtype_code: 0 = float32, 1 =
+// bfloat16 (T and out share it); span: (Hd, 2) int32, each dst row's live
+// columns [lo, hi) (outside them out is 0); tiles: (n_ty * n_tx, 4) int32,
+// each TYd x TXd dst tile's T window (r0, c0, rows, cols), rows 0 for a dead
+// tile (ops/cuda_shear.contract_tiles); smem: bytes of the largest window.
 extern "C" int aainterp_contract(const void* t, void* out, const void* ry0,
                                  const void* cx0, const void* w2, const void* span,
-                                 int F, int TH, int TW, int Hd, int Wd,
-                                 int Ka, int Kb, int dtype_code, void* stream) {
+                                 const void* tiles, int F, int TH, int TW, int Hd, int Wd,
+                                 int Ka, int Kb, int TYd, int TXd, int smem, int dtype_code,
+                                 void* stream) {
+  if (span == nullptr || tiles == nullptr || F <= 0 || TH <= 0 || TW <= 0 || Hd <= 0 ||
+      Wd <= 0 || Ka <= 0 || Kb <= 0 || TYd <= 0 || TXd <= 0 || smem < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* r = static_cast<const int*>(ry0);
+  const int* c = static_cast<const int*>(cx0);
+  const float* w = static_cast<const float*>(w2);
+  const int* sp = static_cast<const int*>(span);
+  const int4* tb = static_cast<const int4*>(tiles);
+  if (dtype_code == 0) {
+    return launch_tiled<float>(t, out, r, c, w, sp, tb, F, TH, TW, Hd, Wd, Ka, Kb, TYd, TXd,
+                               smem, st);
+  }
+  if (dtype_code == 1) {
+    return launch_tiled<__nv_bfloat16>(t, out, r, c, w, sp, tb, F, TH, TW, Hd, Wd, Ka, Kb, TYd,
+                                       TXd, smem, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the same function in the direct form (the route of a plan whose windows
+// do not fit in shared memory)
+extern "C" int aainterp_contract_direct(const void* t, void* out, const void* ry0,
+                                        const void* cx0, const void* w2, const void* span,
+                                        int F, int TH, int TW, int Hd, int Wd, int Ka, int Kb,
+                                        int dtype_code, void* stream) {
   if (span == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return contract_launch(t, out, ry0, cx0, w2, span, F, TH, TW, Hd, Wd, Ka, Kb,
                          dtype_code, stream);
 }
 
-// the same without the dead-pixel skip: every dst pixel sums its taps
+// the direct form without the dead-pixel skip: every dst pixel sums its taps
 extern "C" int aainterp_contract_unmasked(const void* t, void* out, const void* ry0,
                                           const void* cx0, const void* w2, int F, int TH,
                                           int TW, int Hd, int Wd, int Ka, int Kb,

@@ -7,7 +7,8 @@
 //
 // First used by csrc/watchlist.cu, whose six probes hold each primitive
 // against a plain PyTorch version on the card; csrc/dense_x.cu runs a
-// product of a bf16 split on the same wgmma path.
+// product of a bf16 split on the same wgmma path, and csrc/probes.cu's copy
+// a ring of bulk loads and stores.
 //
 // mbarrier protocol: one thread calls mbar_init, then fence_mbarrier_init,
 // then the block synchronises before any copy names the barrier.  The thread
@@ -130,6 +131,13 @@ __device__ __forceinline__ void bulk_commit() {
 // waits until every committed bulk group of this thread has completed
 __device__ __forceinline__ void bulk_wait_all() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// waits until at most N of this thread's committed bulk groups are still
+// reading their source: the shared memory of the older ones may be written
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 
 // ---- TMA tile loads ----------------------------------------------------------

@@ -16,27 +16,35 @@
 // (frame, row tile) each.  A row tile of a frame is TY full rows, so it is
 // one contiguous span of TY*W elements in the source and in the output.
 // What bounds it: bytes, each read once and written once, nothing else.
-// So each span is split into parts of about kPartBytes, one sweep of a
-// block (kCopyThreads threads with kUnroll 16-byte loads in flight each),
-// one block per part.  One 1024-thread block per span left half the SMs
-// idle at 8 x 1024^2 with TY 128 (64 spans); of the grids timed on the
-// H100 (chip_sweep.py cells c_*, variants copy*: 128 to 1024 threads, one
-// to four sweeps per part, one block per part or one wave of blocks
-// taking parts in turn), small blocks of one sweep each were the fastest
-// at every geometry (PERF.md).  A block copies its part in 16-byte loads
-// and stores, each thread keeping kUnroll loads in flight before it
-// stores them; the ragged ends of the span (its start not 16-byte
-// aligned, a tail of under 16 bytes) are copied word by word by its first
-// and last parts.  The parts split the span's 16-byte units, so a split
-// never breaks a unit.  Where the source and output
-// spans differ in their alignment mod 16 (an odd row pitch, say), the
-// widest unit both share (8 or 4 bytes) takes the 16-byte unit's place.
 // The kernel moves raw bytes, so any element type of 1, 2, 4 or 8 bytes
 // copies bit for bit.
 //
-// The contraction probes are csrc/contract.cuh's body under one probe mode
-// each (noweight, tshare, wshare, bothshare, pipelined); that header says
-// what each removes and why these are the H100 meanings of the TPU probes.
+// Design: a persistent grid of kBlocksPerSm blocks an SM (fewer where there
+// are fewer pieces), each a ring of kStages buffers of kPieceBytes in
+// shared memory.  Each span is cut into pieces of kPieceBytes (the last
+// one shorter); the pieces of all spans, span-major, are dealt to the
+// blocks in turn, so the blocks sweep the frames side by side.  Where a
+// span's source and output agree mod 16, its 16-byte aligned body moves
+// by 1-D bulk copies (cp.async.bulk, csrc/hopper.cuh): one thread of the
+// block loads piece after piece into the ring, each on its stage's
+// mbarrier, kStages - 1 loads ahead, stores each piece from its stage as
+// soon as it has landed, and reuses a stage once the store from it has
+// read its bytes (bulk_wait_read).  No register or issue slot is spent
+// per 16 bytes.  The span's unaligned head and its tail of under 16 bytes
+// are copied word by word by the block's other warps, which also copy
+// every span whose source and output differ mod 16 (an odd row pitch,
+// say) on the unit path: the widest unit both share (8 or 4 bytes, else
+// the element), each thread keeping kUnroll loads in flight.  Of the
+// rings timed on the H100 (chip_sweep.py variants cstage*, cpiece*,
+// cbps*), 2 stages of 16 KB and 2 blocks an SM were the fastest; none
+// reached the earlier grid's time (PERF.md).
+// The earlier form launched one 128-thread block per 8 KB part, 7.6 waves
+// at 4K, every byte through registers (chip_sweep.py cells c_*, PERF.md).
+//
+// The contraction probes are csrc/contract.cuh's direct form under one
+// probe mode each (noweight, tshare, wshare, bothshare, pipelined); that
+// header says what each removes and why these are the H100 meanings of
+// the TPU probes.
 // What bounds them: bytes, the streams each mode still reads (PERF.md).
 //
 // Plain C interface for ctypes; each launch goes on the caller's stream and
@@ -48,28 +56,38 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <atomic>
 #include <climits>
 
 #include "contract.cuh"
+#include "hopper.cuh"
+#include "stage_common.cuh"
 
 namespace {
 
 constexpr int kCopyThreads = 128;
 constexpr int kUnroll = 4;
-constexpr long long kPartBytes = 16LL * kUnroll * kCopyThreads;   // 8 KB
+// the ring: a piece of each span's aligned body per bulk copy, kStages
+// stages in shared memory, kBlocksPerSm blocks an SM
+constexpr long long kPieceBytes = 16 * 1024;
+constexpr int kStages = 2;
+constexpr int kBlocksPerSm = 2;
+// the threads that copy words and units: warps 1 and up (warp 0 issues the
+// bulk copies)
+constexpr int kWordThreads = kCopyThreads - 32;
 
 __device__ __forceinline__ uintptr_t addr(const void* p) {
   return reinterpret_cast<uintptr_t>(p);
 }
 
-// units [lo, hi) of U from s to d (s and d aligned to U)
+// units [lo, hi) of U from s to d (s and d aligned to U), by thread tid of
+// the step threads that share the range
 template <typename U>
 __device__ __forceinline__ void copy_units(const unsigned char* s, unsigned char* d,
-                                           long long lo, long long hi) {
+                                           long long lo, long long hi, int tid, int step) {
   const U* su = reinterpret_cast<const U*>(s);
   U* du = reinterpret_cast<U*>(d);
-  const long long step = blockDim.x;
-  long long i = lo + threadIdx.x;
+  long long i = lo + tid;
   for (; i + (kUnroll - 1) * step < hi; i += kUnroll * step) {
     U r[kUnroll];
 #pragma unroll
@@ -85,55 +103,155 @@ __device__ __forceinline__ void copy_units(const unsigned char* s, unsigned char
 // then words for the tail (the last part); s and d agree mod sizeof(U)
 template <typename U, typename Word>
 __device__ __forceinline__ void copy_span(const unsigned char* s, unsigned char* d,
-                                          long long n, int part, int parts) {
+                                          long long n, int part, int parts, int tid,
+                                          int step) {
   constexpr long long u = sizeof(U);
   constexpr long long w = sizeof(Word);
   const long long head = min(n, static_cast<long long>((u - (addr(s) & (u - 1))) & (u - 1)));
   const long long units = (n - head) / u;
   const long long end = head + units * u;
-  if (part == 0) copy_units<Word>(s, d, 0, head / w);
-  copy_units<U>(s + head, d + head, units * part / parts, units * (part + 1) / parts);
-  if (part == parts - 1) copy_units<Word>(s + end, d + end, 0, (n - end) / w);
+  if (part == 0) copy_units<Word>(s, d, 0, head / w, tid, step);
+  copy_units<U>(s + head, d + head, units * part / parts, units * (part + 1) / parts, tid,
+                step);
+  if (part == parts - 1) copy_units<Word>(s + end, d + end, 0, (n - end) / w, tid, step);
 }
 
-// block b copies part b % parts of row tile (b / parts) % nt of frame
-// b / parts / nt: tile bytes from src + f * src_frame + r * tile to
-// dst + (b / parts) * tile
+// the copy's geometry: row tiles of `tile` bytes, nt a frame `src_frame`
+// bytes apart in the source, packed in the output; pps pieces a span
+struct CopyGeo {
+  const unsigned char* src;
+  unsigned char* dst;
+  long long src_frame, tile;
+  int nt, pps;
+
+  // span `span`'s source and output
+  __device__ __forceinline__ const unsigned char* s(long long span) const {
+    const long long f = span / nt;
+    return src + f * src_frame + (span - f * nt) * tile;
+  }
+  __device__ __forceinline__ unsigned char* d(long long span) const { return dst + span * tile; }
+  // bytes of the head of a span whose source agrees with its output mod
+  // 16: up to its first 16-byte aligned byte
+  __device__ __forceinline__ long long head(const unsigned char* s) const {
+    return min(tile, static_cast<long long>((16 - (addr(s) & 15)) & 15));
+  }
+};
+
+// The next piece g, g + step, ... (below hi) that moves by bulk copies:
+// its span agrees mod 16 and the piece holds bytes of the body; false if
+// none.
+__device__ __forceinline__ bool next_bulk(const CopyGeo& c, long long& g, long long step,
+                                          long long hi, const unsigned char*& s,
+                                          unsigned char*& d, uint32_t& bytes) {
+  for (; g < hi; g += step) {
+    const long long span = g / c.pps;
+    const long long off = (g - span * c.pps) * kPieceBytes;
+    const unsigned char* ss = c.s(span);
+    unsigned char* dd = c.d(span);
+    if ((addr(ss) ^ addr(dd)) & 15) continue;
+    const long long head = c.head(ss);
+    const long long body = (c.tile - head) / 16 * 16;
+    if (off >= body) continue;
+    s = ss + head + off;
+    d = dd + head + off;
+    bytes = static_cast<uint32_t>(min(kPieceBytes, body - off));
+    return true;
+  }
+  return false;
+}
+
+// block b copies pieces b, b + G, b + 2G, ... of the spans' pieces
+// (span-major, pps a span), so the blocks sweep the frames side by side:
+// thread 0 their bulk bodies through the ring, warps 1 and up their words
+// and unit-path spans
 template <typename Word>
-__global__ void __launch_bounds__(kCopyThreads) copy_rows_kernel(
-    const unsigned char* __restrict__ src, unsigned char* __restrict__ dst, int nt,
-    int parts, long long src_frame, long long tile) {
-  const long long span = blockIdx.x / parts;
-  const int part = static_cast<int>(blockIdx.x - span * parts);
-  const long long f = span / nt;
-  const long long r = span - f * nt;
-  const unsigned char* s = src + f * src_frame + r * tile;
-  unsigned char* d = dst + span * tile;
-  const uintptr_t mis = addr(s) ^ addr(d);
-  if ((mis & 15) == 0) {
-    copy_span<uint4, Word>(s, d, tile, part, parts);
-  } else if ((mis & 7) == 0) {
-    copy_span<uint2, Word>(s, d, tile, part, parts);
-  } else if ((mis & 3) == 0) {
-    copy_span<uint32_t, Word>(s, d, tile, part, parts);
-  } else {
-    copy_span<Word, Word>(s, d, tile, part, parts);
+__global__ void __launch_bounds__(kCopyThreads) copy_rows_kernel(CopyGeo c, long long pieces) {
+  // the ring's stages, then their mbarriers (all dynamic: a kernel with
+  // static shared memory cannot opt in to the whole limit)
+  extern __shared__ __align__(128) unsigned char ring[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(ring + kStages * kPieceBytes);
+  const long long lo = blockIdx.x, step = gridDim.x, hi = pieces;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) hopper::mbar_init(&bar[i], 1);
+    hopper::fence_mbarrier_init();
+    long long gl = lo, gs = lo;      // the next piece to load, to store
+    int nl = 0;                      // loads issued
+    const unsigned char* s;
+    unsigned char* d;
+    uint32_t bytes;
+    for (; nl < kStages - 1 && next_bulk(c, gl, step, hi, s, d, bytes); ++nl, gl += step) {
+      hopper::mbar_arrive_expect_tx(&bar[nl], bytes);
+      hopper::bulk_load(ring + nl * kPieceBytes, s, bytes, &bar[nl]);
+    }
+    for (int i = 0; next_bulk(c, gs, step, hi, s, d, bytes); ++i, gs += step) {
+      const int st = i % kStages;
+      hopper::mbar_wait(&bar[st], (i / kStages) & 1);
+      hopper::bulk_store(d, ring + st * kPieceBytes, bytes);
+      hopper::bulk_commit();
+      // piece i + kStages - 1 into stage (i - 1) % kStages, once the store
+      // of piece i - 1 from it has read its bytes
+      if (next_bulk(c, gl, step, hi, s, d, bytes)) {
+        hopper::bulk_wait_read<1>();
+        const int sl = nl % kStages;
+        hopper::mbar_arrive_expect_tx(&bar[sl], bytes);
+        hopper::bulk_load(ring + sl * kPieceBytes, s, bytes, &bar[sl]);
+        ++nl;
+        gl += step;
+      }
+    }
+    hopper::bulk_wait_all();
+    return;
+  }
+  if (threadIdx.x < 32) return;
+  const int tid = threadIdx.x - 32;
+  constexpr long long w = sizeof(Word);
+  for (long long g = lo; g < hi; g += step) {
+    const long long span = g / c.pps;
+    const int part = static_cast<int>(g - span * c.pps);
+    const unsigned char* s = c.s(span);
+    unsigned char* d = c.d(span);
+    const uintptr_t mis = addr(s) ^ addr(d);
+    if ((mis & 15) == 0) {
+      const long long head = c.head(s);
+      const long long end = head + (c.tile - head) / 16 * 16;
+      if (part == 0) copy_units<Word>(s, d, 0, head / w, tid, kWordThreads);
+      if (part == c.pps - 1) {
+        copy_units<Word>(s + end, d + end, 0, (c.tile - end) / w, tid, kWordThreads);
+      }
+    } else if ((mis & 7) == 0) {
+      copy_span<uint2, Word>(s, d, c.tile, part, c.pps, tid, kWordThreads);
+    } else if ((mis & 3) == 0) {
+      copy_span<uint32_t, Word>(s, d, c.tile, part, c.pps, tid, kWordThreads);
+    } else {
+      copy_span<Word, Word>(s, d, c.tile, part, c.pps, tid, kWordThreads);
+    }
   }
 }
 
 template <typename Word>
 int launch_copy(const void* src, void* dst, int F, int H, int W, int TY, cudaStream_t st) {
   const int nt = H / TY;
-  const long long spans = static_cast<long long>(F) * nt;
   const long long row = static_cast<long long>(W) * sizeof(Word);
-  const long long tile = static_cast<long long>(TY) * row;
-  // parts of about one sweep each, one block per part
-  const long long parts = std::max(1LL, tile / kPartBytes);
-  const long long blocks = spans * parts;
-  if (nt <= 0 || blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  copy_rows_kernel<Word><<<static_cast<unsigned>(blocks), kCopyThreads, 0, st>>>(
-      static_cast<const unsigned char*>(src), static_cast<unsigned char*>(dst), nt,
-      static_cast<int>(parts), static_cast<long long>(H) * row, tile);
+  CopyGeo c;
+  c.src = static_cast<const unsigned char*>(src);
+  c.dst = static_cast<unsigned char*>(dst);
+  c.src_frame = static_cast<long long>(H) * row;
+  c.tile = static_cast<long long>(TY) * row;
+  c.nt = nt;
+  const long long pps = (c.tile + kPieceBytes - 1) / kPieceBytes;
+  const long long pieces = static_cast<long long>(F) * nt * pps;
+  if (nt <= 0 || pps > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  c.pps = static_cast<int>(pps);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long blocks = std::min(pieces, static_cast<long long>(sms) * kBlocksPerSm);
+  const long long smem = kStages * (kPieceBytes + 8);
+  auto kern = copy_rows_kernel<Word>;
+  static std::atomic<int> opted_in[stage::kMaxDevices];  // kern's limit per device
+  if (const int r = stage::opt_in(reinterpret_cast<const void*>(kern), smem, opted_in)) return r;
+  kern<<<static_cast<unsigned>(blocks), kCopyThreads, static_cast<size_t>(smem), st>>>(c, pieces);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -33,12 +33,20 @@ contraction, with the exact ELL weights re-indexed by
 * The contraction skips dead pixels, as the TPU route's
   (``_build_contract(masked=True)``, pallas_shear.py:802) skips dead
   tiles: a dst pixel outside its row's span of live columns is 0 and
-  reads neither T nor the weights.  For finite T the output is the
-  unmasked sum's (a dead pixel sums zero weights); with NaN or Inf in T a
-  pixel outside its row's span is 0 where the unmasked sum can be NaN (JAX
-  gives 0 on its dead 128 x 128 tiles and NaN on dead pixels of live
-  ones): the area average over no source area is 0.
-  ``contract_unmasked_kernel`` launches the same kernel without the
+  reads neither T nor the weights.  Its kernel is tiled: one block per
+  dst tile stages the tile's T window in shared memory.  The windows are
+  a host table (``ContractTiles``: ``contract_tiles`` / ``plan_contract``,
+  planned per element size at the first launch, the way ``plan_tiles``
+  plans the shear's).  A plan whose smallest tile window does not fit in
+  shared memory takes the direct form instead (every tap gathered from
+  device memory), counted as ``LAUNCHES["contract_direct"]``;
+  ``contract_tiled_plain`` is the tiled form's plain version.  For
+  finite T the output is the unmasked sum's (a dead pixel sums zero
+  weights); with NaN or Inf in T a pixel outside its row's span is 0
+  where the unmasked sum can be NaN (JAX gives 0 on its dead 128 x 128
+  tiles and NaN on dead pixels of live ones): the area average over no
+  source area is 0.
+  ``contract_unmasked_kernel`` launches the direct form without the
   skip (``contract_plain(masked=False)`` its plain version).
 * ``apply_ell_shear_kernel`` is the route on the card: the fused shear,
   then the masked contraction (two launches; S never reaches device
@@ -76,7 +84,7 @@ from .weights import EllOperator
 
 # Kernel launches so far, counted where each wrapper launches its kernel.
 LAUNCHES = {"vshear": 0, "hshear": 0, "vhshear": 0, "contract": 0,
-            "contract_unmasked": 0}
+            "contract_unmasked": 0, "contract_direct": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -88,6 +96,16 @@ FORMS = {"vshear": (True, False), "hshear": (False, True),
 # windows fit the card's opt-in for every geometry build_shear_plan takes
 _TILES = ((64, 64), (32, 64), (32, 32), (16, 32), (8, 32), (4, 16), (1, 16))
 SMEM_BUDGET = 48 * 1024
+
+# the tiled contraction (contract.cuh): dst tile shapes (TYd rows x TXd
+# columns, a warp a tile row), the first whose largest window fits
+# CONTRACT_SMEM_BUDGET at the frames' element size is taken, else the last
+# one if it fits SMEM_LIMIT, else the plan takes the direct form; windows
+# start at multiples of COL_ALIGN columns and hold KFRAMES frames a cell
+_CONTRACT_TILES = ((8, 32), (4, 32), (2, 32), (1, 32))
+CONTRACT_SMEM_BUDGET = 75 * 1024          # three blocks an SM
+COL_ALIGN = 8
+KFRAMES = 8
 
 # bounded: each plan holds its f32 weight table (196 MB at 2048^2/30 deg)
 # on the host and once more per device
@@ -209,6 +227,102 @@ def plan_tiles(plan, form: str) -> ShearTiles:
     return t
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class ContractTiles:
+    """The tiled contraction's tiles: TYd x TXd dst pixels each,
+    row-major over the dst plane, and each tile's T window."""
+
+    TYd: int
+    TXd: int
+    win: np.ndarray   # (tiles, 4) int32 (r0, c0, rows, cols); all 0: dead
+    cells: int        # the largest window's rows * cols
+
+    def smem(self, elem: int) -> int:
+        """Dynamic shared memory of a block, in bytes, for frames of
+        ``elem`` bytes: the largest window's cells of KFRAMES frames,
+        rounded up to a 128-byte line (the kernel's swizzle permutes
+        16-byte units within a line)."""
+        return -(-self.cells * KFRAMES * elem // 128) * 128
+
+
+def contract_tiles(plan, TYd: int, TXd: int) -> ContractTiles:
+    """The tiled contraction's tiles of TYd x TXd dst pixels and the T
+    window of each: rows [r0, r0 + rows) and columns [c0, c0 + cols) that
+    hold every tap ``T[clamp(ry0[dy] + a), clamp(cx0[dx] + b)]`` of the
+    tile's pixels inside their rows' spans, and no tap of another pixel
+    (rows and columns outside the footprint carry ry0 = cx0 = 0); c0 is
+    rounded down to a multiple of COL_ALIGN and c0 + cols up to one, or to
+    TW.  A tile with no in-span pixel is dead (all four 0).  Raises
+    RuntimeError if an in-span pixel's taps leave its tile's window."""
+    Hd, Wd, TH, TW = plan.Hd, plan.Wd, plan.TH, plan.TW
+    n_ty, n_tx = -(-Hd // TYd), -(-Wd // TXd)
+    lo = plan.span[:, :1].astype(np.int64)
+    hi = plan.span[:, 1:].astype(np.int64)
+    x0 = np.arange(n_tx, dtype=np.int64)[None, :] * TXd
+    clo = np.maximum(lo, x0)                        # (Hd, n_tx): each row's
+    chi = np.minimum(hi, np.minimum(x0 + TXd, Wd))  # in-span columns per tile
+    live = clo < chi
+    cmin, cmax = _range_min_max(plan.cx0, clo, chi)
+    ry0 = plan.ry0.astype(np.int64)[:, None]
+    taps = {"r0": np.clip(ry0, 0, TH - 1),
+            "r1": np.clip(ry0 + plan.Ka - 1, 0, TH - 1) + 1,
+            "c0": np.clip(cmin, 0, TW - 1),
+            "c1": np.clip(cmax + plan.Kb - 1, 0, TW - 1) + 1}
+    big = np.int64(1) << 40
+    pad = np.zeros((n_ty * TYd - Hd, n_tx), bool)
+    live_t = np.concatenate([live, pad]).reshape(n_ty, TYd, n_tx)
+    ends = {}
+    for k, v in taps.items():
+        fill, pick = (big, np.min) if k in ("r0", "c0") else (-big, np.max)
+        v = np.broadcast_to(v, live.shape)
+        v = np.concatenate([v, np.zeros_like(pad, dtype=np.int64)])
+        ends[k] = pick(np.where(live_t, v.reshape(live_t.shape), fill),
+                       axis=1).reshape(-1)
+    c0 = ends["c0"] // COL_ALIGN * COL_ALIGN
+    c1 = np.minimum(-(-ends["c1"] // COL_ALIGN) * COL_ALIGN, TW)
+    win = np.stack([ends["r0"], c0, ends["r1"] - ends["r0"], c1 - c0], -1)
+    win[~live_t.any(axis=1).reshape(-1)] = 0
+    win = np.ascontiguousarray(win, dtype=np.int32)
+    _check_windows(plan, win, TYd, TXd)
+    return ContractTiles(TYd=TYd, TXd=TXd, win=win,
+                         cells=int((win[:, 2].astype(np.int64)
+                                    * win[:, 3]).max()))
+
+
+def _check_windows(plan, win: np.ndarray, TYd: int, TXd: int) -> None:
+    """Raise RuntimeError unless every in-span pixel's taps lie inside its
+    tile's window (each pixel checked, the tile table as the kernel reads
+    it)."""
+    n_tx = -(-plan.Wd // TXd)
+    dy = np.arange(plan.Hd)[:, None]
+    dx = np.arange(plan.Wd)[None, :]
+    w = win[(dy // TYd) * n_tx + dx // TXd]               # (Hd, Wd, 4)
+    inside = (dx >= plan.span[:, :1]) & (dx < plan.span[:, 1:])
+    ry0 = plan.ry0.astype(np.int64)[:, None]
+    cx0 = plan.cx0.astype(np.int64)[None, :]
+    r_lo, r_hi = (np.clip(ry0 + k, 0, plan.TH - 1) for k in (0, plan.Ka - 1))
+    c_lo, c_hi = (np.clip(cx0 + k, 0, plan.TW - 1) for k in (0, plan.Kb - 1))
+    ok = ((r_lo >= w[..., 0]) & (r_hi < w[..., 0] + w[..., 2])
+          & (c_lo >= w[..., 1]) & (c_hi < w[..., 1] + w[..., 3]))
+    bad = inside & ~ok
+    if bad.any():
+        y, x = np.argwhere(bad)[0]
+        raise RuntimeError(f"contraction tile window {w[y, x].tolist()} "
+                           f"misses the taps of dst pixel ({y}, {x})")
+
+
+def plan_contract(plan, elem: int) -> Optional[ContractTiles]:
+    """The tiled contraction's tiles for frames of ``elem`` bytes: the
+    first shape of ``_CONTRACT_TILES`` whose largest window fits
+    ``CONTRACT_SMEM_BUDGET``, else the last one if it fits the card's
+    opt-in (``SMEM_LIMIT``), else None: the plan takes the direct form."""
+    for TYd, TXd in _CONTRACT_TILES:
+        t = contract_tiles(plan, TYd, TXd)
+        if t.smem(elem) <= CONTRACT_SMEM_BUDGET:
+            return t
+    return t if t.smem(elem) <= SMEM_LIMIT else None
+
+
 @dataclasses.dataclass(eq=False)
 class ShearKernelPlan:
     """Host tables of the kernels for one EllOperator."""
@@ -227,8 +341,9 @@ class ShearKernelPlan:
     cx0: np.ndarray   # (Wd,) int32 first T column of each dst column's window
     w2: np.ndarray    # (Ka*Kb, Hd, Wd) float32, tap a*Kb+b
     span: np.ndarray  # (Hd, 2) int32 live columns [lo, hi) per dst row
-    # the tiles of each shear form planned so far (form_tiles)
-    tiles: Dict[str, ShearTiles] = dataclasses.field(
+    # the tiles of each shear form (form_tiles) and of the contraction
+    # per element size (contract_plan, "contract<elem>") planned so far
+    tiles: Dict[str, object] = dataclasses.field(
         default_factory=dict, repr=False)
     dev: Dict[torch.device, Dict[str, torch.Tensor]] = dataclasses.field(
         default_factory=dict, repr=False)
@@ -240,6 +355,15 @@ class ShearKernelPlan:
         if hit is None:
             hit = self.tiles[form] = plan_tiles(self, form)
         return hit
+
+    def contract_plan(self, elem: int) -> Optional[ContractTiles]:
+        """The tiled contraction's tiles for frames of ``elem`` bytes
+        (``plan_contract``; None: the direct form), planned at the first
+        call and kept."""
+        key = f"contract{elem}"
+        if key not in self.tiles:
+            self.tiles[key] = plan_contract(self, elem)
+        return self.tiles[key]
 
     def tables(self, device: torch.device,
                pinned: bool = False) -> Dict[str, torch.Tensor]:
@@ -583,6 +707,48 @@ def contract_plain(t: torch.Tensor, plan: ShearKernelPlan, *,
     return acc.to(out_dtype or _out_dtype(t.dtype))
 
 
+def contract_tiled_plain(t: torch.Tensor, plan: ShearKernelPlan,
+                         tiles: ContractTiles, *,
+                         out_dtype: Optional[torch.dtype] = None
+                         ) -> torch.Tensor:
+    """The tiled kernel's plain version: ``contract_plain(masked=True,
+    fused=True)``, each tile's pixels reading T only through the tile's
+    window ``tiles.win`` and indices local to it (an index outside the
+    window raises); a dead tile and a pixel outside its row's span are 0.
+    A loop over the tiles: for small planes."""
+    _check_frames(t, (plan.TH, plan.TW), "T")
+    F = t.shape[0]
+    tabs = plan.tables(t.device)
+    ry0 = tabs["ry0"].to(torch.int64)
+    cx0 = tabs["cx0"].to(torch.int64)
+    live = live_mask(plan, t.device)
+    out = torch.zeros((F, plan.Hd, plan.Wd), dtype=torch.float32,
+                      device=t.device)
+    n_tx = -(-plan.Wd // tiles.TXd)
+    for i, (r0, c0, rows, cols) in enumerate(tiles.win.tolist()):
+        if rows == 0:
+            continue
+        y0, x0 = i // n_tx * tiles.TYd, i % n_tx * tiles.TXd
+        ys = slice(y0, min(y0 + tiles.TYd, plan.Hd))
+        xs = slice(x0, min(x0 + tiles.TXd, plan.Wd))
+        window = t[:, r0:r0 + rows, c0:c0 + cols]
+        acc = torch.zeros((F, ys.stop - y0, xs.stop - x0),
+                          dtype=torch.float32, device=t.device)
+        for a in range(plan.Ka):
+            lr = (ry0[ys] + a).clamp(0, plan.TH - 1) - r0
+            # a row or column without an in-span pixel reads window 0
+            lr = torch.where(live[ys, xs].any(dim=1), lr, 0)
+            rows_a = window.index_select(1, lr)
+            for b in range(plan.Kb):
+                lc = (cx0[xs] + b).clamp(0, plan.TW - 1) - c0
+                lc = torch.where(live[ys, xs].any(dim=0), lc, 0)
+                vals = rows_a.index_select(2, lc)
+                w = tabs["w2"][a * plan.Kb + b, ys, xs]
+                acc = fma32(w, vals.to(torch.float32), acc)
+        out[:, ys, xs] = torch.where(live[ys, xs], acc, 0.0)
+    return out.to(out_dtype or _out_dtype(t.dtype))
+
+
 def apply_ell_shear_plain(q: torch.Tensor, plan: ShearKernelPlan, *,
                           out_dtype: Optional[torch.dtype] = None
                           ) -> torch.Tensor:
@@ -661,7 +827,9 @@ def vhshear_kernel(q: torch.Tensor, plan: ShearKernelPlan, *,
 def _contract(name: str, t: torch.Tensor, plan: ShearKernelPlan,
               masked: bool, out: Optional[torch.Tensor]) -> torch.Tensor:
     """Launch the contraction, masked or not (a CPU tensor takes
-    ``contract_plain``); every element of ``out`` is written."""
+    ``contract_plain``); every element of ``out`` is written.  Masked, the
+    plan's tiles for T's element size pick the tiled kernel, or, where
+    ``contract_plan`` gives none, the direct form (``contract_direct``)."""
     _check_frames(t, (plan.TH, plan.TW), "T")
     F = t.shape[0]
     if t.device.type == "cpu":
@@ -673,27 +841,40 @@ def _contract(name: str, t: torch.Tensor, plan: ShearKernelPlan,
     lib = _build.load(_build.ELL_SHEAR)
     ptrs = [t.data_ptr(), out.data_ptr(), tabs["ry0"].data_ptr(),
             tabs["cx0"].data_ptr(), tabs["w2"].data_ptr()]
-    if masked:
+    dims = [F, plan.TH, plan.TW, plan.Hd, plan.Wd, plan.Ka, plan.Kb]
+    what = (f"F={F}, TH={plan.TH}, TW={plan.TW}, Hd={plan.Hd}, "
+            f"Wd={plan.Wd}, Ka={plan.Ka}, Kb={plan.Kb}")
+    tiles = plan.contract_plan(t.element_size()) if masked else None
+    if tiles is not None:
         fn = lib.aainterp_contract
+        key = f"win_contract{t.element_size()}"   # uploaded once
+        if key not in tabs:
+            tabs[key] = torch.from_numpy(tiles.win).to(t.device)
+        ptrs += [tabs["span"].data_ptr(), tabs[key].data_ptr()]
+        dims += [tiles.TYd, tiles.TXd, tiles.smem(t.element_size())]
+        what += (f", tiles {tiles.TYd}x{tiles.TXd}, "
+                 f"{tiles.smem(t.element_size())} bytes of shared memory")
+    elif masked:
+        name = "contract_direct"
+        fn = lib.aainterp_contract_direct
         ptrs.append(tabs["span"].data_ptr())
     else:
         fn = lib.aainterp_contract_unmasked
     with torch.cuda.device(t.device):
         stream = torch.cuda.current_stream(t.device).cuda_stream
-        _launch(name, fn, (
-            *ptrs, F, plan.TH, plan.TW, plan.Hd, plan.Wd, plan.Ka, plan.Kb,
-            _DTYPE_CODES[t.dtype], stream),
-            f"F={F}, TH={plan.TH}, TW={plan.TW}, Hd={plan.Hd}, "
-            f"Wd={plan.Wd}, Ka={plan.Ka}, Kb={plan.Kb}")
+        _launch(name, fn, (*ptrs, *dims, _DTYPE_CODES[t.dtype], stream),
+                what)
     return out
 
 
 def contract_kernel(t: torch.Tensor, plan: ShearKernelPlan, *,
                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Window contraction (F, TH, TW) -> (F, Hd, Wd) in T's dtype on the
-    CUDA kernel, dead pixels skipped (0 outside each dst row's span); a
-    CPU tensor takes ``contract_plain``.  ``out`` may be given (any
-    contents: every element is written)."""
+    CUDA kernel, dead pixels skipped (0 outside each dst row's span): the
+    tiled kernel, or the direct form for a plan whose windows do not fit
+    in shared memory (``contract_plan`` None); a CPU tensor takes
+    ``contract_plain``.  ``out`` may be given (any contents: every element
+    is written)."""
     return _contract("contract", t, plan, True, out)
 
 

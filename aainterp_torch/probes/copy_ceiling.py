@@ -3,9 +3,13 @@
 
 ``copy_rows_kernel(x, tile_y)`` computes ``_build_copy``'s function, (F, H,
 W) -> (F, nt * TY, W) with nt = H // TY, on ``csrc/probes.cu``
-``aainterp_copy_rows``: each (frame, row tile) split into parts of one
-block's sweep, one block each (``grid_blocks``), 16-byte loads and
-stores, raw bytes, so any dtype of 1, 2, 4 or 8 bytes copies bit for bit.
+``aainterp_copy_rows``: each (frame, row tile) is one span, cut into
+pieces of PIECE_BYTES, the pieces split over a persistent grid of
+BLOCKS_PER_SM blocks an SM (``grid_blocks``); each block moves its
+pieces' 16-byte aligned bytes through a ring of 1-D bulk copies in shared
+memory, and their ragged ends, and every span whose source and output
+differ mod 16, word by word (``span_segments`` says which bytes go which
+way).  Raw bytes, so any dtype of 1, 2, 4 or 8 bytes copies bit for bit.
 The same kernel is the counterpart of ``benchmarks/rgb1024_experiments.py``
 ``_build_copy`` (H = W = 1024, TY 128; ``rgb1024_experiments.exp_copy``
 runs it at JAX's batch * 3 = 24 frames).  A CUDA tensor launches the kernel
@@ -34,16 +38,65 @@ from . import harness
 # kernel launches so far, counted where the wrapper launches the kernel
 LAUNCHES = 0
 K = 8              # distinct batches measure() times (JAX's timed_scan: 8)
-# probes.cu: a part is about one sweep of a block (128 threads, 4 loads of
-# 16 bytes each), one block per part
-PART_BYTES = 16 * 4 * 128
+# probes.cu's kPieceBytes and kBlocksPerSm: a span's pieces, and the
+# persistent grid's blocks an SM
+PIECE_BYTES = 16 * 1024
+BLOCKS_PER_SM = 2
 
 
-def grid_blocks(F: int, H: int, W: int, tile_y: int, elem: int) -> int:
-    """The blocks of one launch (``launch_copy`` in probes.cu): each of the
-    F * (H // tile_y) row tiles split into parts of about PART_BYTES, one
-    block each."""
-    return F * (H // tile_y) * max(1, tile_y * W * elem // PART_BYTES)
+def pieces(F: int, H: int, W: int, tile_y: int, elem: int) -> int:
+    """The pieces of one launch: each of the F * (H // tile_y) row tiles
+    cut into pieces of PIECE_BYTES, the last one shorter."""
+    return F * (H // tile_y) * -(-tile_y * W * elem // PIECE_BYTES)
+
+
+def grid_blocks(F: int, H: int, W: int, tile_y: int, elem: int,
+                sms: int) -> int:
+    """The blocks of one launch on a card of ``sms`` SMs (``launch_copy``
+    in probes.cu): BLOCKS_PER_SM an SM, fewer where there are fewer
+    pieces."""
+    return min(pieces(F, H, W, tile_y, elem), BLOCKS_PER_SM * sms)
+
+
+def span_segments(src: int, dst: int, n: int, elem: int, part: int,
+                  parts: int) -> list:
+    """How ``copy_rows_kernel`` moves piece ``part`` of the ``parts`` of
+    an n-byte span from address ``src`` to ``dst`` (both multiples of
+    ``elem``), as (kind, offset, bytes, unit) segments, offsets from the
+    span's start: ``bulk`` a 1-D bulk copy (16-byte aligned on both
+    sides, a multiple of 16, at most PIECE_BYTES), ``words`` a run of
+    ``unit``-byte words or units copied by the block's threads.  A span
+    whose source and output agree mod 16: piece 0 also copies the head up
+    to the first 16-byte aligned source byte, the last piece the tail of
+    under 16 bytes.  Otherwise the unit path: the widest unit both
+    share (8 or 4 bytes, else the element), the units split evenly over
+    the parts, head and tail in words.  ``copy_rows_kernel`` mirrors it
+    (probes.cu ``next_bulk`` and ``copy_span``)."""
+    mis = src ^ dst
+    out = []
+    if mis & 15 == 0:
+        head = min(n, (16 - (src & 15)) & 15)
+        end = head + (n - head) // 16 * 16
+        if part == 0 and head:
+            out.append(("words", 0, head, elem))
+        off = head + part * PIECE_BYTES
+        if off < end:
+            out.append(("bulk", off, min(PIECE_BYTES, end - off), 16))
+        if part == parts - 1 and n > end:
+            out.append(("words", end, n - end, elem))
+        return out
+    u = 8 if mis & 7 == 0 else 4 if mis & 3 == 0 else elem
+    head = min(n, (u - (src & (u - 1))) & (u - 1))
+    units = (n - head) // u
+    end = head + units * u
+    if part == 0 and head:
+        out.append(("words", 0, head, elem))
+    lo, hi = units * part // parts, units * (part + 1) // parts
+    if hi > lo:
+        out.append(("words", head + lo * u, (hi - lo) * u, u))
+    if part == parts - 1 and n > end:
+        out.append(("words", end, n - end, elem))
+    return out
 
 
 def _rows(x: torch.Tensor, tile_y: int) -> int:

@@ -5,10 +5,11 @@ The route is two kernels (``ops/cuda_shear.py``): the fused shear, which
 writes the sheared plane T straight from the frames, and the window
 contraction with its dead-pixel skip (0 outside each dst row's span of
 live columns: JAX's masked contraction).  The contraction's probe modes
-(``csrc/contract.cuh`` under ``csrc/probes.cu``, each the production
-kernel with one thing changed) split its time between the streams it
-reads; like JAX's, the share and pipelined modes skip dead pixels and
-noweight does not:
+(``csrc/contract.cuh`` under ``csrc/probes.cu``, each the contraction's
+direct form, one thread per pixel gathering its taps from device memory,
+with one thing changed) split its time between the streams it reads;
+like JAX's, the share and pipelined modes skip dead pixels and noweight
+does not:
 
 * ``noweight`` — ``out = sum_ab T window``: no weight load, no multiply
   (``_build_contract_noweight``, rot_experiments.py:130);

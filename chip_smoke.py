@@ -59,9 +59,10 @@ points (``aainterp_torch.area_average_interpolate`` for the first three):
   rotated flagship; and the flagship's decomposition (the route, its
   shear forms, the contraction with and without its dead-pixel skip and
   each probe), one ``probe_timing`` JSON line;
-* the route's masked contraction (phase 45: the dead-pixel skip against
-  the unmasked instance and its plain version, at the rotated flagship
-  and for compat, its dead shares and time), the copy's grid (phase 46)
+* the route's masked contraction (phase 45: the tiled kernel against
+  the unmasked instance, its direct form and its plain version, at the
+  rotated flagship and for compat, its tile tables, dead shares and time
+  beside the direct form's), the copy's persistent grid (phase 46)
   and kernel 1's probe modes (phase 47: ``csrc/band_probes.cu`` on
   ``csrc/band_apply.cuh``) at the 4K flagship in bf16, f32 and u8,
   through ``aainterp_torch.probes.flagship_experiments.EXPS`` and
@@ -237,7 +238,7 @@ ROT_Q1 = (1.0, 0.5, (1024.0, 1024.0), 120.0)    # the same frames, quadrant 1
 EQ = (1.0, 1.0, (1024.0, 1024.0), 30.0)
 EQ_DST = (2798, 2798)
 SHEAR_KERNELS = ("vshear", "hshear", "vhshear", "contract",
-                 "contract_unmasked")
+                 "contract_unmasked", "contract_direct")
 # the rotated route's kernels: the fused shear, then the contraction
 ROUTE_KERNELS = ("vhshear", "contract")
 # mode='shear' on the rotated flagship: both decompositions and their passes
@@ -2623,8 +2624,23 @@ def copy_phases(make, card) -> dict:
     check(torch.equal(copy_ceiling.copy_rows_kernel(x, 125, out=buf),
                       copy_ceiling.copy_rows_plain(x, 125)),
           "copy u8 (3, 1001, 1023) TY 125 differs from its plain version")
+    # source and output 3 and 5 bytes past 16-byte boundaries: every span
+    # takes the word-and-unit path, none the bulk copies
+    for dtype, shape, ty in ((torch.uint8, (2, 1080, 1920), 120),
+                             (torch.bfloat16, (3, 250, 1021), 64)):
+        n = math.prod(shape)
+        rows = shape[1] // ty * ty
+        x = make(dtype, (n + 3,))[3:].view(shape)
+        buf = filled((shape[0] * rows * shape[2] + 5,), dtype, dev)[5:]
+        out = copy_ceiling.copy_rows_kernel(
+            x, ty, out=buf.view(shape[0], rows, shape[2]))
+        check(torch.equal(out, copy_ceiling.copy_rows_plain(x, ty)),
+              f"copy {dtype} {shape} TY {ty} at element offsets 3 and 5 "
+              "differs from its plain version")
     print("[42 copy ceiling] u8 (3, 1001, 1023), TY 125 (a ragged last "
-          "tile, 1023-byte rows): torch.equal to plain")
+          "tile, 1023-byte rows); u8 (2, 1080, 1920) TY 120 and bf16 (3, "
+          "250, 1021) TY 64 with source and output at offsets that differ "
+          "mod 16: torch.equal to plain")
     print(json.dumps({"copy_timing": {"card": card, "geometries": geoms}}))
     top = geoms["4k"]
     return {
@@ -2779,12 +2795,36 @@ def contract_probe_phases(make, card) -> list:
             row("contract_pipelined", "392", ("pipelined",))]
 
 
-def masked_contract_phase(make, card, op, plan, cplan) -> dict:
-    """Phase 45: the route's masked contraction against the unmasked
-    instance and the masked plain version, its dead shares and time.
-    Returns the unmasked instance's entry of the JSON summary."""
+def direct_plan(plan):
+    """``plan`` with its contraction sent to the direct form (no tile
+    table at either element size), sharing its device tables."""
+    return dataclasses.replace(plan, tiles={"contract2": None,
+                                            "contract4": None})
+
+
+def contract_tile_stats(p, elem: int) -> dict:
+    """The tiled contraction's table for frames of ``elem`` bytes: tiles,
+    dead share, largest window, shared bytes, and the blocks an SM that
+    the SM's 228 KB of shared memory allow (1 KB reserved a block; the
+    thread limit allows 8 blocks of 256)."""
+    t = p.contract_plan(elem)
+    win = t.win[t.win[:, 2] > 0]
+    return {"TYd": t.TYd, "TXd": t.TXd, "tiles": len(t.win),
+            "dead": float((t.win[:, 2] == 0).mean()),
+            "rows": int(win[:, 2].max()), "cols": int(win[:, 3].max()),
+            "cells": t.cells, "smem": t.smem(elem),
+            "blocks_per_sm": min(8, 233472 // (t.smem(elem) + 1024))}
+
+
+def masked_contract_phase(make, card, op, plan, cplan) -> list:
+    """Phase 45: the route's masked contraction, tiled, against the
+    unmasked instance, the masked plain version and its direct form; its
+    tile tables, dead shares and time beside the direct form's.  Returns
+    the unmasked instance's and the direct form's entries of the JSON
+    summary."""
     dev = make.device
-    # the route launches the masked form, 2 launches per request
+    # the route launches the tiled masked form, 2 launches per request,
+    # never the direct form
     reqs = [make(torch.bfloat16, (F, RH, RW)) for _ in range(2)]
     torch.cuda.synchronize()
     reset_launches()
@@ -2794,17 +2834,31 @@ def masked_contract_phase(make, card, op, plan, cplan) -> dict:
     _launched(_route(len(reqs)), "masked route", t_api.SHEAR_PLAN_FALLBACKS)
     del reqs
     err = 0.0
+    stats = {}
     for name, p in (("flagship", plan), ("compat", cplan)):
         live = cuda_shear.live_mask(p, dev)
+        dp = direct_plan(p)
         for dtype in (torch.bfloat16, torch.float32):
+            es = torch.empty((), dtype=dtype).element_size()
+            stats[f"{name}_{str(dtype).split('.')[-1]}"] = st = \
+                contract_tile_stats(p, es)
             t = make(dtype, (F, p.TH, p.TW))
+            before = dict(cuda_shear.LAUNCHES)
             got = cuda_shear.contract_kernel(
                 t, p, out=filled((F, p.Hd, p.Wd), dtype, dev))
+            direct = cuda_shear.contract_kernel(
+                t, dp, out=filled((F, p.Hd, p.Wd), dtype, dev))
             un = cuda_shear.contract_unmasked_kernel(
                 t, p, out=filled((F, p.Hd, p.Wd), dtype, dev))
             torch.cuda.synchronize()
+            moved = {k: cuda_shear.LAUNCHES[k] - before[k] for k in before}
+            check(moved == {**{k: 0 for k in SHEAR_KERNELS}, "contract": 1,
+                            "contract_direct": 1, "contract_unmasked": 1},
+                  f"masked {name} {dtype}: launches {moved}")
             check(torch.equal(got, un), f"masked {name} {dtype}: differs "
                   "from the unmasked instance on finite T")
+            check(torch.equal(got, direct), f"masked {name} {dtype}: "
+                  "differs from the direct form")
             check(torch.equal(got, cuda_shear.contract_plain(t, p,
                                                              fused=True)),
                   f"masked {name} {dtype}: differs from its plain version")
@@ -2815,14 +2869,22 @@ def masked_contract_phase(make, card, op, plan, cplan) -> dict:
             torch.cuda.synchronize()
             check(bool((nan[:, ~live] == 0).all()), f"masked {name} "
                   f"{dtype}: a pixel outside its row's span is not 0 on NaN T")
-            del t, got, un, nan
+            del t, got, direct, un, nan
+            print(f"[45 masked contraction] {name} {dtype}: tiles "
+                  f"{st['TYd']}x{st['TXd']}, {st['tiles']} of them, "
+                  f"{100 * st['dead']:.1f} % dead, windows up to "
+                  f"{st['rows']}x{st['cols']} T cells ({st['cells']} cells "
+                  f"the largest), {st['smem']} bytes of shared memory, "
+                  f"{st['blocks_per_sm']} blocks an SM by shared memory")
         print(f"[45 masked contraction] {name} ({p.Hd}x{p.Wd}, Ka x Kb "
-              f"{p.Ka}x{p.Kb}), bf16 and f32 into NaN-filled outputs: "
-              "torch.equal to the unmasked instance and to the masked plain "
-              "version (fused multiply-adds); on all-NaN T every pixel "
-              "outside its row's span is 0")
+              f"{p.Ka}x{p.Kb}), bf16 and f32 into NaN-filled outputs: the "
+              "tiled kernel torch.equal to the unmasked instance, to the "
+              "direct form and to the masked plain version (fused "
+              "multiply-adds); on all-NaN T every pixel outside its row's "
+              "span is 0")
     # dead shares: pixels with all-zero weights, outside their row's span,
-    # and the kernel's warps (32 columns) and blocks (256) wholly outside
+    # and the direct form's warps (32 columns) and blocks (256) wholly
+    # outside
     contract_threads = 256                  # contract.cuh's kThreads
     live_w = (plan.w2 != 0).any(axis=0)
     cols = np.arange(plan.Wd)[None, :]
@@ -2836,12 +2898,15 @@ def masked_contract_phase(make, card, op, plan, cplan) -> dict:
         "pixels_all_zero_weights": float(1 - live_w.mean()),
         "pixels_outside_spans": float(1 - inside.mean()),
         "warps_outside": outside(32),
-        "blocks_outside": outside(contract_threads)}
-    # times: both instances and the route, CUDA-graph replays on distinct
-    # inputs, mirrored turns
+        "blocks_outside": outside(contract_threads),
+        "tiles_dead": stats["flagship_bfloat16"]["dead"]}
+    # times: the tiled kernel, its direct form, the unmasked instance and
+    # the route, CUDA-graph replays on distinct inputs, mirrored turns
     ts = [make(torch.bfloat16, (F, plan.TH, plan.TW)) for _ in range(5)]
     qs = [make(torch.bfloat16, (F, RH, RW)) for _ in range(5)]
+    dplan = direct_plan(plan)
     fns = {"masked": (lambda t: cuda_shear.contract_kernel(t, plan), ts),
+           "direct": (lambda t: cuda_shear.contract_kernel(t, dplan), ts),
            "unmasked": (lambda t: cuda_shear.contract_unmasked_kernel(
                t, plan), ts),
            "route": (lambda q: cuda_shear.apply_ell_shear_kernel(q, plan),
@@ -2851,25 +2916,28 @@ def masked_contract_phase(make, card, op, plan, cplan) -> dict:
         fn, xs = fns[name]
         t = probe_harness.graph_ms(fn, xs[1:], xs[:1])
         ms[name] = min(ms.get(name, t), t)
-    plain_ms = probe_harness.graph_ms(
-        lambda t: cuda_shear.contract_plain(t, plan, masked=False), ts[1:3],
-        ts[:1], reps=2)
+    plain_ms = {m: probe_harness.graph_ms(
+        lambda t, m=m: cuda_shear.contract_plain(t, plan, masked=m),
+        ts[1:3], ts[:1], reps=2) for m in (False, True)}
     del ts, qs
     bounds = {m: bound(*rot_experiments.traffic(plan, F, 2, e))
               for m, e in (("masked", "contract_masked"),
                            ("unmasked", "contract"))}
     timing = {"card": card, "shape": [F, RH, RW], "dtype": "bfloat16",
-              "dead_shares": shares, "ms": ms, "bounds": bounds,
-              "unmasked_plain_ms": plain_ms}
+              "dead_shares": shares, "tiles": stats, "ms": ms,
+              "bounds": bounds, "unmasked_plain_ms": plain_ms[False],
+              "masked_plain_ms": plain_ms[True]}
     print(f"[45 masked contraction] {card}, {F}x{plan.TH}x{plan.TW} bf16 -> "
           f"{F}x{plan.Hd}x{plan.Wd}, device ms per batch (CUDA-graph "
-          f"replays, mirrored turns): masked {ms['masked']:.4f} (bound "
+          f"replays, mirrored turns): masked, tiled {ms['masked']:.4f}, "
+          f"direct form {ms['direct']:.4f} (bound "
           f"{bounds['masked']['bound_ms']:.4f}), unmasked "
           f"{ms['unmasked']:.4f} (bound {bounds['unmasked']['bound_ms']:.4f})"
           f"; the exact route {ms['route']:.4f} ms; dead shares: "
           + ", ".join(f"{k} {100 * v:.1f} %" for k, v in shares.items()))
     print(json.dumps({"masked_contract_timing": timing}))
-    return {
+    # no single PyTorch call contracts windows with per-pixel weights
+    return [{
         "name": "contract_unmasked",
         "route": "cuda",
         "source": "aainterp_torch/csrc/ell_shear.cu",
@@ -2877,28 +2945,44 @@ def masked_contract_phase(make, card, op, plan, cplan) -> dict:
         "launches": 0,           # the route launches the masked form only
         "max_abs_err": err,
         "ms": ms["unmasked"],
-        "plain_ms": plain_ms,
+        "plain_ms": plain_ms[False],
         **bounds["unmasked"],
-        # no single PyTorch call contracts windows with per-pixel weights
         "library_ms": None,
-    }
+    }, {
+        "name": "contract_direct",
+        "route": "cuda",
+        "source": "aainterp_torch/csrc/ell_shear.cu",
+        "replaces": "aainterp/ops/pallas_shear.py:164",
+        "launches": 0,           # the route's plans all take the tiled form
+        "max_abs_err": err,
+        "ms": ms["direct"],
+        "plain_ms": plain_ms[True],
+        **bounds["masked"],
+        "library_ms": None,
+    }]
 
 
 def copy_fill_phase(copy_row, card) -> None:
-    """Phase 46: the copy's grid at the four geometries of phase 42, and
-    its rate at 1024^2 beside copy_'s (phase 42's measurements)."""
+    """Phase 46: the copy's persistent grid at the four geometries of
+    phase 42, and its rate beside copy_'s (phase 42's measurements)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name, Hc, Wc, ty, dtype, nf in COPY_GEOMS:
         g = copy_row["geometries"][name]
         es = torch.empty((), dtype=dtype).element_size()
-        blocks = copy_ceiling.grid_blocks(nf, Hc, Wc, ty, es)
+        pieces = copy_ceiling.pieces(nf, Hc, Wc, ty, es)
+        blocks = copy_ceiling.grid_blocks(nf, Hc, Wc, ty, es, sms)
         nbytes = 2 * nf * (Hc // ty * ty) * Wc * es
         print(f"[46 copy fill] {card}, {name} {nf}x{Hc}x{Wc} tile_y {ty}: "
-              f"{nf * (Hc // ty)} row tiles on {blocks} blocks; copy_rows "
+              f"{nf * (Hc // ty)} row tiles, {pieces} pieces of "
+              f"{copy_ceiling.PIECE_BYTES} bytes on {blocks} blocks "
+              f"({blocks / sms:.2f} an SM of {sms}); copy_rows "
               f"{nbytes / (g['kernel_ms'] * 1e-3) / 1e9:.1f} GB/s, copy_ "
               f"{nbytes / (g['library_ms'] * 1e-3) / 1e9:.1f} GB/s")
-        if name == "rgb1024":
-            check(blocks >= 2 * 132, f"copy at 1024^2 on {blocks} blocks, "
-                  "fewer than two per SM")
+        # the persistent grid: BLOCKS_PER_SM blocks on every SM, each with
+        # at least one piece
+        check(blocks == copy_ceiling.BLOCKS_PER_SM * sms <= pieces,
+              f"copy {name}: {blocks} blocks for {pieces} pieces, not "
+              f"{copy_ceiling.BLOCKS_PER_SM} on each of {sms} SMs")
 
 
 def column_picker(cols: torch.Tensor, width: int, dtype) -> torch.Tensor:
@@ -3722,8 +3806,8 @@ def run(work: str) -> int:
     stream_phases(dev, card, work)
     cache_phases(dev, card, work)
     probes = [copy_phases(make, card)] + contract_probe_phases(make, card)
-    probes.append(masked_contract_phase(make, card, rot_op, rot_plan,
-                                        compat_plan))
+    probes += masked_contract_phase(make, card, rot_op, rot_plan,
+                                    compat_plan)
     copy_fill_phase(probes[0], card)
     probes += band_probe_phase(make, card)
     probes += rgb1024_phase(make, card, probes[0])

@@ -33,11 +33,20 @@ graph (``CALLS``).
 * ``r_vshear``, ``r_hshear``, ``r_vhshear``, ``r_contract``: the rotated
   flagship's kernels (the same frames, exact mode): the shear kernel's
   three forms (S from q, T from S, T from q) and the contraction (on the
-  plain T);
+  plain T).  Their tile tables are planned anew under each ``--set``
+  (for example ``--set 'cuda_shear._TILES=((32, 128),)'``, or the
+  contraction's ``--set 'cuda_shear._CONTRACT_TILES=((16, 32),)'``); the
+  contraction's variants ``ctnostage`` (a zeroed window staged), ``ctnoweight``,
+  ``ctnostore``, ``ctscalar`` (windows staged element by element),
+  ``ctgroup4``, ``ctgroup8`` (weights loaded 4 or 8 taps at a time
+  instead of 16), ``ctmin1``, ``ctmin4``, ``ctmin8`` (registers for that
+  many blocks an SM instead of 6);
 * ``c_4k``, ``c_rot2048``, ``c_rgb1024``, ``c_regrid``: the copy probe
   (``csrc/probes.cu``) at ``chip_smoke.py``'s four copy geometries, 8
-  frames each but rgb1024's 24 (its grid: variants ``copy*``).  Their tile tables are planned anew under each ``--set`` (for
-  example ``--set 'cuda_shear._TILES=((32, 128),)'``);
+  frames each but rgb1024's 24 (its ring: variants ``cstage3``,
+  ``cstage4``, ``cstage8``, ``cpiece8``, ``cpiece32``, ``cbps1``,
+  ``cbps4``, ``cchunk``, ``copyunits``, ``copyhint``; the parent's grid:
+  ``copy*``);
 * ``densex_bf16``, ``densex_f32``: the dense-x probe (``band_probes``
   mode ``densex``) at rgb1024, 24 planes of 1024^2 -> 410^2 (variants
   ``dxnoy``, ``dxnomma``, ``dxnoop``, ``dxbare``, ``dxnostore``);
@@ -287,6 +296,62 @@ VARIANTS = {
     "copypart4": {"probes.cu": [(
         r"constexpr long long kPartBytes = 16LL \* kUnroll \* kCopyThreads;",
         "constexpr long long kPartBytes = 4 * 16LL * kUnroll * kCopyThreads;")]},
+    # probes.cu, the copy's ring: 3, 4 or 8 stages instead of 2, pieces of
+    # 8 or 32 KB instead of 16, 1 or 4 blocks an SM instead of 2; every
+    # span on the word-and-unit path (no bulk copies); streaming loads and
+    # stores on that path (on the parent's grid: every byte)
+    "cstage3": {"probes.cu": [(r"constexpr int kStages = 2;",
+                               "constexpr int kStages = 3;")]},
+    "cstage4": {"probes.cu": [(r"constexpr int kStages = 2;",
+                               "constexpr int kStages = 4;")]},
+    "cstage8": {"probes.cu": [(r"constexpr int kStages = 2;",
+                               "constexpr int kStages = 8;")]},
+    "cpiece8": {"probes.cu": [(r"kPieceBytes = 16 \* 1024;",
+                               "kPieceBytes = 8 * 1024;")]},
+    "cpiece32": {"probes.cu": [(r"kPieceBytes = 16 \* 1024;",
+                                "kPieceBytes = 32 * 1024;")]},
+    "cbps1": {"probes.cu": [(r"constexpr int kBlocksPerSm = 2;",
+                             "constexpr int kBlocksPerSm = 1;")]},
+    "cbps4": {"probes.cu": [(r"constexpr int kBlocksPerSm = 2;",
+                             "constexpr int kBlocksPerSm = 4;")]},
+    # probes.cu: each block a contiguous range of pieces instead of every
+    # G-th piece
+    "cchunk": {"probes.cu": [(
+        r"const long long lo = blockIdx\.x, step = gridDim\.x, hi = pieces;",
+        "const long long lo = pieces * blockIdx.x / gridDim.x, step = 1, "
+        "hi = pieces * (blockIdx.x + 1) / gridDim.x;")]},
+    "copyunits": {"probes.cu": [
+        (r"if \(\(addr\(ss\) \^ addr\(dd\)\) & 15\) continue;", "continue;"),
+        (r"if \(\(mis & 15\) == 0\) \{", "if (false) {")]},
+    "copyhint": {"probes.cu": [
+        (r"r\[u\] = su\[i \+ u \* step\];",
+         "r[u] = __ldcs(su + i + u * step);"),
+        (r"du\[i \+ u \* step\] = r\[u\];",
+         "__stcs(du + i + u * step, r[u]);")]},
+    # contract.cuh, the tiled contraction: no T read (a zeroed window is
+    # staged), no weight read (1.0), no sums stored (the dead pixels' and
+    # tiles' zeros are); every window staged element by element
+    "ctnostage": {"contract.cuh": [(
+        r"if \(4 \* h \+ i < nf\) u = __ldg\([^;]*;", "")]},
+    "ctnoweight": {"contract.cuh": [(
+        r"w2\[static_cast<long long>\(k0 \+ j\) \* plane \+ pix\]", "1.0f")]},
+    # contract.cuh: weights loaded 8 or 32 taps at a time instead of 16
+    "ctgroup4": {"contract.cuh": [(r"constexpr int kTapGroup = 16;",
+                                   "constexpr int kTapGroup = 4;")]},
+    "ctgroup8": {"contract.cuh": [(r"constexpr int kTapGroup = 16;",
+                                   "constexpr int kTapGroup = 8;")]},
+    # contract.cuh: registers sized for 1, 4 or 8 blocks an SM instead of 6
+    # (at most 255, 64 or 32 a thread instead of 40)
+    "ctmin1": {"contract.cuh": [(r"constexpr int kTiledMinBlocks = 6;",
+                                 "constexpr int kTiledMinBlocks = 1;")]},
+    "ctmin4": {"contract.cuh": [(r"constexpr int kTiledMinBlocks = 6;",
+                                 "constexpr int kTiledMinBlocks = 4;")]},
+    "ctmin8": {"contract.cuh": [(r"constexpr int kTiledMinBlocks = 6;",
+                                 "constexpr int kTiledMinBlocks = 8;")]},
+    "ctnostore": {"contract.cuh": [(r"if \(i < nf\) store\(o \+ i \* plane, "
+                                    r"acc\[i\]\);", "")]},
+    "ctscalar": {"contract.cuh": [(r"const bool chunked = vec && ",
+                                   "const bool chunked = false && vec && ")]},
     # shear3_stage.cu: no output or mid cell is computed (zeros stored)
     "nocompute": {"shear3_stage.cu": [
         (r"out_cells<kForm, kVec>\([^;]*;",
@@ -348,7 +413,11 @@ CALLS = {"k2_direct": 20, "high_dot": 20, "strided_load": 20,
 EXACT = ("cur", "lane8", "t256", "t128", "tilemajor",   # variants that
          "colmajor", "copy1024", "copy512",         # compute everything
          "copypart4", "group4", "xgroups2", "sltma", "sytma", "sl1", "sl2",
-         "sl8", "sl16", "slbox1", "slc128", "sy2", "slglobal", "syglobal")
+         "sl8", "sl16", "slbox1", "slc128", "sy2", "slglobal", "syglobal",
+         "cstage3", "cstage4", "cstage8", "cpiece8", "cpiece32", "cbps1",
+         "cbps4",
+         "copyunits", "copyhint", "ctscalar", "ctgroup4", "ctgroup8",
+         "cchunk", "ctmin1", "ctmin4", "ctmin8")
 
 
 def variant_sources(lib, name: str) -> dict:
@@ -560,6 +629,10 @@ def make_cells(dev):
                     t = plan.form_tiles(name)
                     summary = {"TY": t.TY, "TX": t.TX, "rows": t.rows,
                                "cols": t.cols}
+            if name == "contract" and hasattr(plan, "contract_plan"):
+                t = plan.contract_plan(2)        # the cell's bf16 T
+                summary.update(TYd=t.TYd, TXd=t.TXd, cells=t.cells,
+                               smem=t.smem(2))
             kern = getattr(cuda_shear, f"{name}_kernel")
             plain = getattr(cuda_shear, f"{name}_plain")
             return (lambda x: kern(x, plan), lambda x: plain(x, plan),

@@ -238,7 +238,7 @@ def test_shear_kernels_match_plain(cuda, args, dtype):
     torch.cuda.synchronize()
     assert {k: cuda_shear.LAUNCHES[k] - before[k] for k in before} == {
         "vshear": 1, "hshear": 1, "vhshear": 1, "contract": 1,
-        "contract_unmasked": 0}
+        "contract_unmasked": 0, "contract_direct": 0}
     assert torch.equal(s, cuda_shear.vshear_plain(q, plan))
     assert torch.equal(t, cuda_shear.hshear_plain(s, plan))
     assert torch.equal(t2, cuda_shear.vhshear_plain(q, plan))
@@ -299,7 +299,7 @@ def test_rotated_api_routes(cuda, args, dtype):
     # the route: the fused shear (T straight from q), then the contraction
     assert {k: cuda_shear.LAUNCHES[k] - before[k] for k in before} == {
         "vshear": 0, "hshear": 0, "vhshear": 1, "contract": 1,
-        "contract_unmasked": 0}
+        "contract_unmasked": 0, "contract_direct": 0}
     want_dtype = torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
     assert got.dtype == want_dtype and got.is_cuda
     scale = 255.0 if dtype == torch.uint8 else 1.0
@@ -1053,7 +1053,7 @@ def test_compat_kernel_route_matches_gather(cuda, args, dtype):
     torch.cuda.synchronize()
     assert {k: cuda_shear.LAUNCHES[k] - before[0][k] for k in before[0]} == {
         "vshear": 0, "hshear": 0, "vhshear": 1, "contract": 1,
-        "contract_unmasked": 0}
+        "contract_unmasked": 0, "contract_direct": 0}
     assert t_api.SHEAR_PLAN_FALLBACKS == before[1]
     assert got.dtype == dtype
     ref = at.apply_operator(op, x, impl="gather")
@@ -1079,7 +1079,7 @@ def test_ell_linear_kernel_route_gradient(cuda, angle, dtype):
     torch.cuda.synchronize()
     assert {k: cuda_shear.LAUNCHES[k] - before[0][k] for k in before[0]} == {
         "vshear": 0, "hshear": 0, "vhshear": 1, "contract": 1,
-        "contract_unmasked": 0}
+        "contract_unmasked": 0, "contract_direct": 0}
     assert t_api.SHEAR_PLAN_FALLBACKS == before[1]
     assert torch.equal(y.detach(), plain) and gk.dtype == dtype
     # native autograd of the plain gather on the unfolded tables
@@ -1373,7 +1373,7 @@ def test_masked_contraction_matches_unmasked(cuda, args, dtype, ragged,
     torch.cuda.synchronize()
     assert {k: cuda_shear.LAUNCHES[k] - before[k] for k in before} == {
         "vshear": 0, "hshear": 0, "vhshear": 0, "contract": 1,
-        "contract_unmasked": 1}
+        "contract_unmasked": 1, "contract_direct": 0}
     assert torch.equal(got, un)
     assert torch.equal(got, cuda_shear.contract_plain(t, plan, fused=True))
     ref = cuda_shear.contract_plain(t, plan, out_dtype=torch.float32)
@@ -1403,7 +1403,7 @@ def test_masked_route_keeps_its_launches(cuda):
     torch.cuda.synchronize()
     assert {k: cuda_shear.LAUNCHES[k] - before[k] for k in before} == {
         "vshear": 0, "hshear": 0, "vhshear": 1, "contract": 1,
-        "contract_unmasked": 0}
+        "contract_unmasked": 0, "contract_direct": 0}
     t = cuda_shear.vhshear_kernel(x, plan)
     assert torch.equal(got, cuda_shear.contract_unmasked_kernel(t, plan))
 

@@ -185,12 +185,18 @@ def test_copy_rows_matches_rgb1024_copy(jprobes):
 
 
 def test_copy_grid_fills_the_card():
-    # 8 x 1024^2 bf16, TY 128: 64 row tiles of 256 KB, 8 KB parts
-    assert copy_ceiling.grid_blocks(8, 1024, 1024, 128, 2) == 64 * 32
-    assert copy_ceiling.grid_blocks(8, 1024, 1024, 128, 2) >= 2 * 132
-    assert copy_ceiling.grid_blocks(8, 2160, 3840, 120, 2) == 144 * 112
-    # a tile under one part is one block
-    assert copy_ceiling.grid_blocks(3, 17, 5, 17, 2) == 3
+    # the persistent grid: BLOCKS_PER_SM blocks on each of the H100's 132
+    # SMs wherever there are that many pieces
+    full = copy_ceiling.BLOCKS_PER_SM * 132
+    # 8 x 1024^2 bf16, TY 128: 64 row tiles of 256 KB, 16 pieces each
+    assert copy_ceiling.pieces(8, 1024, 1024, 128, 2) == 64 * 16
+    assert copy_ceiling.grid_blocks(8, 1024, 1024, 128, 2, 132) == full
+    # rgb1024's 24 planes and 4K: every SM busy, many pieces a block
+    assert copy_ceiling.grid_blocks(24, 1024, 1024, 128, 2, 132) == full
+    assert copy_ceiling.pieces(8, 2160, 3840, 120, 2) == 144 * 57
+    assert copy_ceiling.grid_blocks(8, 2160, 3840, 120, 2, 132) == full
+    # fewer pieces than the grid: a block a piece
+    assert copy_ceiling.grid_blocks(3, 17, 5, 17, 2, 132) == 3
 
 
 def test_copy_rows_rejects_bad_arguments():
