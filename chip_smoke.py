@@ -83,7 +83,18 @@ points (``aainterp_torch.area_average_interpolate`` for the first three):
   blocks, 1-D bulk copies in and out on an mbarrier, wgmma m64n32k16, a
   16-byte pair sum and rows at dynamic offsets) at JAX's shapes, and the
   two TMA-load probes at ragged shapes, through ``run_watchlist`` and
-  ``measure``, one ``watchlist_timing`` line.
+  ``measure``, one ``watchlist_timing`` line;
+* the row-sharded applies (phases 51-52) on ``torch.distributed`` ranks
+  (``aainterp_torch.parallel``): 4 gloo ranks that share the card (NCCL
+  refuses two ranks on one card; gloo stages through pinned host memory)
+  at meshes (1, 4) and (2, 2), each rank running kernel 1
+  (``sharded_apply_separable``: the separable flagship in bf16, u8, f32
+  with the conservation flux and at 90 degrees, folded) or kernel 2
+  (``conservative_regrid_sharded``: config 5, with the flux and a mask)
+  on its halo-extended block; then one rank over NCCL (mesh (1, 1)),
+  and, with two cards or more, NCCL over ``min(4, count)`` cards, one
+  rank a card.  The kernels are built here before any rank starts; a
+  rank that fails fails the run.  One ``sharded_timing`` line.
 
 It builds every kernel from ``aainterp_torch/csrc`` with nvcc (and the
 host engine ``native/aainterp_native.cpp`` with g++), all compilers at
@@ -180,6 +191,14 @@ relative error below 1e-5 (JAX's bound).  The watchlist's kernels
 ``torch.equal`` to their plain versions into NaN-filled outputs, high_dot
 (bf16x3 on wgmma, f32 sums on the tensor cores against the three products
 summed in float64) within 1e-5 of its plain output's largest magnitude.
+Sharded: the gathered output of the sharded kernel route bit-equal
+(``torch.equal``) to the unsharded kernel's on the same frames, bf16, u8
+and f32, and to the unsharded regrid (kernel 2), masked too (each dst row
+sums the same taps in the same order; only the row indices are rebased);
+the 90-degree fold within 1e-5 * max|out| of the unsharded
+``apply_operator`` in f32 (the folded inner apply sums in another
+orientation); |flux_dst - flux_src| <= 1e-5 * |flux_src|, and flux_src
+within 1e-5 relative of a float64 sum on the host.
 TF32 is switched off for
 matmul and cuDNN so the plain versions' and library calls' einsums run in
 full f32.  Shear plans and operators go to a disk cache in a temporary
@@ -204,6 +223,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import aainterp_torch as at
 from aainterp_torch import _build
@@ -220,6 +240,9 @@ from aainterp_torch.ops import compat as compat_ops
 from aainterp_torch.ops import (cuda_apply, cuda_apply_2d, cuda_shear,
                                 cuda_shear3, shear3)
 from aainterp_torch.ops import weights as weights_ops
+from aainterp_torch.parallel import conserve as t_conserve
+from aainterp_torch.parallel import mesh as t_mesh
+from aainterp_torch.parallel import sharding as t_sharding
 from aainterp_torch.probes import (aligned_fused_probe, band_probes,
                                    copy_ceiling, flagship_experiments,
                                    mosaic_watchlist, rgb1024_experiments,
@@ -3541,6 +3564,336 @@ def watchlist_phase(make, card) -> list:
     } for name, v in timing["probes"].items()]
 
 
+# ---------------------------------------------------------------------------
+# Phases 51-52: the row-sharded applies on torch.distributed ranks
+# ---------------------------------------------------------------------------
+
+# 4 gloo ranks share the card; each case runs on one mesh of them
+SHARD_RANKS = 4
+SHARD_REQUESTS = 2          # sharded calls per case on the main path
+# (phase, mesh, case, timed) over the 4 gloo ranks
+GLOO_CASES = (("51", (1, 4), "bf16", True), ("51", (2, 2), "bf16", True),
+              ("51", (1, 4), "u8", False), ("51", (2, 2), "f32", False),
+              ("51", (1, 4), "fold", False), ("52", (1, 4), "plain", True),
+              ("52", (2, 2), "plain", True), ("52", (1, 4), "conserve", False),
+              ("52", (1, 4), "mask", False))
+SHARD_DTYPES = {"bf16": torch.bfloat16, "u8": torch.uint8,
+                "f32": torch.float32, "fold": torch.float32}
+
+
+@contextlib.contextmanager
+def no_plain_routes():
+    """Every plain route the sharded applies could take raises inside."""
+    names = ((t_sharding, "apply_separable_banded"),
+             (t_sharding, "apply_separable_aligned"),
+             (cuda_apply, "apply_separable_plain"),
+             (cuda_apply_2d, "apply_separable_2d_plain"),
+             (t_regrid, "apply_separable_banded"),
+             (t_regrid, "apply_separable_aligned"))
+    saved = [getattr(m, n) for m, n in names]
+
+    def refuse(name):
+        def plain(*a, **k):
+            raise RuntimeError(f"a sharded call took the plain route {name}")
+        return plain
+
+    for m, n in names:
+        setattr(m, n, refuse(n))
+    try:
+        yield
+    finally:
+        for (m, n), f in zip(names, saved):
+            setattr(m, n, f)
+
+
+def same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit, NaN where the other has NaN."""
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.isnan(), b.isnan())
+            and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)))
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Mean ms per call of a collective ``fn()`` on this rank: a warm-up,
+    a barrier, then ``reps`` calls to a synchronised end."""
+    fn()
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    dist.barrier()
+    return ms
+
+
+def turns_ms(fn, reps: int) -> float:
+    """Device ms per call of a rank-local ``fn()`` on CUDA events, the
+    ranks in turn, so no other rank's work shares the card meanwhile."""
+    ms = 0.0
+    for r in range(dist.get_world_size()):
+        dist.barrier()
+        if dist.get_rank() == r:
+            ms = _events_ms(lambda i: fn(), 1, reps)
+    dist.barrier()
+    return ms
+
+
+def shard_timing(local, y_band, x_band, mesh, local_apply, call,
+                 unsharded) -> dict:
+    """This rank's local-apply ms (in turns), its halo exchange's ms and
+    bytes (one exchange, read from the traffic count), and the whole
+    sharded call's ms (all ranks at once); on a one-rank mesh also the
+    sharded and the unsharded call on CUDA events, in turns (sharded,
+    unsharded, unsharded, sharded; the best of each)."""
+    ext, band = t_sharding.sharded_local_apply(
+        y_band, x_band, mesh, lambda ext, band, x: (ext, band), local)
+    halo = (band.n_src - local.shape[-2]) // 2
+    before = t_mesh.TRAFFIC["p2p"]
+    t_sharding._halo_extend(local, halo, mesh)
+    res = {"local_ms": turns_ms(lambda: local_apply(ext, band), 20),
+           "halo_rows": halo, "halo_bytes": t_mesh.TRAFFIC["p2p"] - before,
+           "halo_ms": wall_ms(lambda: t_sharding._halo_extend(local, halo,
+                                                              mesh), 10),
+           "call_ms": wall_ms(call, 10)}
+    if mesh.mesh.numel() == 1:
+        for name, fn in (("call_events_ms", call), ("unsharded_ms", unsharded),
+                         ("unsharded_ms", unsharded), ("call_events_ms", call)):
+            ms = _events_ms(lambda i: fn(), 1, 20)
+            res[name] = min(res.get(name, ms), ms)
+    return res
+
+
+def rank_ready(mesh) -> int:
+    """A rank that has joined its process group and built its mesh."""
+    return dist.get_rank()
+
+
+def rank_sharded_flagship(mesh, what: str, timing: bool) -> dict:
+    """Phase 51 on one rank: the 4K flagship (``what``: bf16, u8, f32 with
+    the flux, or fold: f32 at 90 degrees) through
+    ``sharded_apply_separable`` against the unsharded kernel route."""
+    dev = t_mesh.rank_device()
+    fold = what == "fold"
+    op = operator((H, W), 90.0 if fold else 0.0)
+    frames = Inputs(dev)(SHARD_DTYPES[what])       # the same on every rank
+    tabs = folded_tables(op)
+    ref = (at.apply_operator(op, frames) if fold
+           else cuda_apply.apply_separable_kernel(frames, *tabs))
+    local = t_mesh.shard_rows(frames, mesh)
+    conserve = what == "f32"
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_launches()
+    with no_plain_routes():
+        outs = [t_sharding.sharded_apply_separable(local, op, mesh,
+                                                   conserve=conserve)
+                for _ in range(SHARD_REQUESTS)]
+        torch.cuda.synchronize()
+    res = {"rank": dist.get_rank(), "device": str(dev),
+           "launches": (cuda_apply.LAUNCHES, cuda_apply_2d.LAUNCHES)}
+    out = outs[-1][0] if conserve else outs[-1]
+    whole = t_mesh.gather_rows(out, mesh)
+    res.update(local_shape=tuple(out.shape), shape=tuple(whole.shape),
+               dtype=str(whole.dtype), equal=same(whole, ref),
+               n_diff=int((whole != ref).sum()) if whole.shape == ref.shape
+               else -1, max_abs_err=max_err(whole, ref),
+               ref_max=float(ref.double().abs().max()))
+    if conserve:
+        res["flux"] = outs[-1][1].tolist()
+        if dist.get_rank() == 0:
+            _, _, covy, covx = t_conserve.separable_flux_factors(
+                op.wy, op.wx, raw_sums=op.raw_row_sums)
+            res["host_fs"] = float(sum(
+                np.einsum("yx,y,x->", f.cpu().double().numpy(), covy, covx)
+                for f in frames))
+    if timing:
+        x = op.wx
+
+        def local_apply(ext, band):
+            return cuda_apply.apply_separable_kernel(
+                ext, band.start, band.weights.astype(np.float32),
+                x.start, x.weights.astype(np.float32))
+
+        res.update(shard_timing(
+            local, op.wy, x, mesh, local_apply,
+            lambda: t_sharding.sharded_apply_separable(local, op, mesh),
+            lambda: at.apply_operator(op, frames)))
+    return res
+
+
+def rank_sharded_regrid(mesh, what: str, timing: bool) -> dict:
+    """Phase 52 on one rank: config 5 (8 f32 fields, 1800 x 3600 -> 180 x
+    360) through ``conservative_regrid_sharded`` (``what``: plain,
+    conserve, or mask) against the unsharded regrid (kernel 2)."""
+    dev = t_mesh.rank_device()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    fields = (torch.rand((RG_F,) + RG_SRC, generator=gen, device=dev) * 50.0
+              + 250.0)
+    src, dst = at.LatLonGrid(*RG_SRC), at.LatLonGrid(*RG_DST)
+    mask = None
+    if what == "mask":
+        mask = torch.rand(RG_SRC, generator=gen, device=dev) > 0.3
+        mask[:100] = False              # 10 dst rows with no valid cell
+    ref = at.conservative_regrid(fields, src, dst, src_mask=mask)
+    local = t_mesh.shard_rows(fields, mesh)
+    conserve = what == "conserve"
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_launches()
+    with no_plain_routes():
+        outs = [t_regrid.conservative_regrid_sharded(
+            local, src, dst, mesh, conserve=conserve, src_mask=mask)
+            for _ in range(SHARD_REQUESTS)]
+        torch.cuda.synchronize()
+    res = {"rank": dist.get_rank(), "device": str(dev),
+           "launches": (cuda_apply.LAUNCHES, cuda_apply_2d.LAUNCHES)}
+    out = outs[-1][0] if conserve else outs[-1]
+    whole = t_mesh.gather_rows(out, mesh)
+    res.update(shape=tuple(whole.shape), equal=same(whole, ref),
+               max_abs_err=float((whole - ref).nan_to_num(0.0).abs().max()),
+               nan_rows=int(whole.isnan().all(dim=-1).any(dim=0).sum()))
+    if conserve:
+        res["flux"] = outs[-1][1].tolist()
+        if dist.get_rank() == 0:
+            my = np.abs(np.diff(np.sin(np.radians(src.lat_edges))))
+            mx = np.diff(src.lon_edges)
+            res["host_fs"] = float(np.einsum(
+                "fyx,y,x->", fields.cpu().double().numpy(), my, mx))
+    if timing:
+        by, bx = at.conservative_regrid_operator(src, dst)
+        res.update(shard_timing(
+            local, by, bx, mesh,
+            lambda ext, band: t_regrid.apply_band_operators(ext, band, bx),
+            lambda: t_regrid.conservative_regrid_sharded(local, src, dst,
+                                                         mesh),
+            lambda: at.conservative_regrid(fields, src, dst)))
+    return res
+
+
+def _report(phase: str, what: str, mesh_shape, backend: str, res: list,
+            want: tuple) -> int:
+    """Check and print one case's ranks; returns their launches of the
+    kernel the case runs."""
+    for r in res:
+        check(tuple(r["launches"]) == want,
+              f"[{phase}] {what} {mesh_shape} {backend}: rank {r['rank']} "
+              f"launched kernels 1 and 2 {tuple(r['launches'])} times, want "
+              f"{want}")
+    exact = all(r["equal"] for r in res)
+    if what == "fold":
+        tol = 1e-5 * res[0]["ref_max"]
+        err = max(r["max_abs_err"] for r in res)
+        check(err <= tol, f"[{phase}] 90-degree fold err {err} > {tol}")
+        verdict = f"max |sharded - unsharded| {err:.3e} <= {tol:.3e}"
+    else:
+        check(exact, f"[{phase}] {what} {mesh_shape} {backend}: the gathered "
+              f"output is not bit-equal to the unsharded call's: "
+              + "; ".join(f"rank {r['rank']}: {r.get('n_diff', '?')} "
+                          f"elements differ, max {r['max_abs_err']:.3e}"
+                          for r in res))
+        verdict = "bit-equal to the unsharded call"
+    if "flux" in res[0]:
+        fd, fs = res[0]["flux"]
+        check(all(r["flux"] == res[0]["flux"] for r in res),
+              f"[{phase}] the ranks' flux pairs differ")
+        check(abs(fd - fs) <= 1e-5 * abs(fs),
+              f"[{phase}] flux_dst {fd} vs flux_src {fs}")
+        host = res[0]["host_fs"]
+        check(abs(fs - host) <= 1e-5 * abs(host),
+              f"[{phase}] flux_src {fs} vs float64 host sum {host}")
+        verdict += (f"; flux dst {fd:.9e} src {fs:.9e} (rel "
+                    f"{abs(fd - fs) / abs(fs):.2e}), host float64 "
+                    f"{host:.9e}")
+    if "nan_rows" in res[0] and res[0]["nan_rows"]:
+        verdict += f"; {res[0]['nan_rows']} dst rows without coverage (NaN)"
+    print(f"[{phase} sharded] {what} mesh {mesh_shape} over {len(res)} "
+          f"{backend} rank(s) on {sorted({r['device'] for r in res})}: "
+          f"{res[0]['shape']} {res[0].get('dtype', 'float32')}, "
+          f"launches (kernel 1, kernel 2) per rank "
+          f"{[tuple(r['launches']) for r in res]}, {verdict}")
+    return sum(sum(r["launches"]) for r in res)
+
+
+def _timing_line(phase: str, card: str, what: str, mesh_shape, backend,
+                 res: list, shared: bool) -> dict:
+    row = {"phase": phase, "case": what, "mesh": list(mesh_shape),
+           "backend": backend, "ranks_share_one_card": shared,
+           **{k: [r[k] for r in res] for k in
+              ("local_ms", "halo_rows", "halo_ms", "halo_bytes", "call_ms")}}
+    for k in ("unsharded_ms", "call_events_ms"):
+        if k in res[0]:
+            row[k] = res[0][k]
+    note = ("ranks that share one card, so not a scaling figure" if shared
+            else "one rank a card")
+    print(f"[{phase} timing] {card}: {what} mesh {mesh_shape} {backend}: "
+          f"local apply ms per rank {[round(v, 4) for v in row['local_ms']]}"
+          f" (in turns, CUDA events); halo of {row['halo_rows'][0]} rows: ms "
+          f"per rank {[round(v, 4) for v in row['halo_ms']]}, bytes sent per "
+          f"rank {row['halo_bytes']}; whole sharded call ms per rank "
+          f"{[round(v, 4) for v in row['call_ms']]} ({note})")
+    if "unsharded_ms" in row:
+        print(f"[{phase} timing] {card}: one {backend} rank, CUDA events per call:"
+              f" sharded call {row['call_events_ms']:.4f} ms, unsharded call "
+              f"{row['unsharded_ms']:.4f} ms")
+    return row
+
+
+def sharded_phases(card: str) -> dict:
+    """Phases 51-52.  Returns the launches of kernels 1 and 2 on the
+    sharded paths (by kernel row) and the timing rows."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    count = torch.cuda.device_count()
+    launches = {"separable_apply": 0, "separable_apply_2d": 0}
+    rows = []
+
+    def run_cases(pool, backend, cases):
+        shared = count < pool.world
+        for phase, mesh_shape, what, timed in cases:
+            if phase == "51":
+                res = pool.run(rank_sharded_flagship, mesh_shape, what, timed)
+                n = _report(phase, what, mesh_shape, backend, res,
+                            (SHARD_REQUESTS, 0))
+                launches["separable_apply"] += n
+            else:
+                per_call = 2 if what == "mask" else 1
+                res = pool.run(rank_sharded_regrid, mesh_shape, what, timed)
+                n = _report(phase, what, mesh_shape, backend, res,
+                            (0, SHARD_REQUESTS * per_call))
+                launches["separable_apply_2d"] += n
+            if timed:
+                rows.append(_timing_line(phase, card, what, mesh_shape,
+                                         backend, res, shared))
+
+    def pool_of(world, backend):
+        t0 = time.perf_counter()
+        pool = t_mesh.RankPool(world, backend=backend, device="cuda")
+        pool.run(rank_ready, (1, world))
+        print(f"[51 sharded] {world} {backend} rank(s) on {count} card(s) "
+              f"ready in {time.perf_counter() - t0:.1f} s"
+              + (" (collectives staged through pinned host memory)"
+                 if backend == "gloo" else ""))
+        return pool
+
+    with pool_of(SHARD_RANKS, "gloo") as pool:
+        run_cases(pool, "gloo", GLOO_CASES)
+    with pool_of(1, "nccl") as pool:
+        run_cases(pool, "nccl", (("51", (1, 1), "bf16", True),
+                                 ("52", (1, 1), "plain", True)))
+    if count >= 2:
+        k = min(4, count)
+        with pool_of(k, "nccl") as pool:
+            run_cases(pool, "nccl", (("51", (1, k), "bf16", True),
+                                     ("52", (1, k), "plain", True)))
+    else:
+        print(f"[51-52 sharded] {count} card: NCCL over several cards (one "
+              f"rank a card) did not run")
+    print(json.dumps({"sharded_timing": {"card": card, "rows": rows}}))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3557,7 +3910,7 @@ def main() -> int:
 
 
 def run(work: str) -> int:
-    """Phases 1-50; ``work`` is a temporary directory for files."""
+    """Phases 1-52; ``work`` is a temporary directory for files."""
     # ---- 1. device -------------------------------------------------------
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
@@ -3813,6 +4166,8 @@ def run(work: str) -> int:
     probes += rgb1024_phase(make, card, probes[0])
     probes.append(aligned_fused_phase(make, card))
     probes += watchlist_phase(make, card)
+    sharded = sharded_phases(card)
+    banded[0]["sharded_launches"] = sharded["separable_apply_2d"]
 
     print(json.dumps({"kernels": [{
         "name": "separable_apply",
@@ -3825,6 +4180,7 @@ def run(work: str) -> int:
         "plain_ms": plain_ms,
         **flagship_bound,
         "library_ms": ms["library_device_ms"],
+        "sharded_launches": sharded["separable_apply"],
     }] + rotated + sheared + banded + probes}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

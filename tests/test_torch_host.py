@@ -194,7 +194,10 @@ def test_import_pulls_in_neither_jax_nor_aainterp():
         "aainterp_torch.probes.u8_experiments, "
         "aainterp_torch.probes.rgb1024_experiments, "
         "aainterp_torch.probes.aligned_fused_probe, "
-        "aainterp_torch.probes.mosaic_watchlist\n"
+        "aainterp_torch.probes.mosaic_watchlist, "
+        "aainterp_torch.parallel, aainterp_torch.parallel.mesh, "
+        "aainterp_torch.parallel.sharding, "
+        "aainterp_torch.parallel.conserve\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'aainterp') "
         "or m.startswith(('jax.', 'jaxlib', 'aainterp.')))\n"
         "print(bad)\n"

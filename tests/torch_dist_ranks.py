@@ -1,0 +1,319 @@
+"""Rank-side functions of tests/test_torch_sharded.py and
+tests/test_torch_sharded_cuda.py.
+
+Each runs on every rank of an ``aainterp_torch.parallel.mesh.RankPool``
+as ``fn(mesh, *args)``: it cuts the rank's block out of the whole input
+(numpy, made by the test from a seed, or made on the rank from a seed),
+runs the port's sharded function, gathers the result and returns numpy.
+``check_sharded_vs_unsharded`` checks the ranks' results of
+``sharded_vs_unsharded`` for both files.  This module imports neither jax
+nor the test files, so the rank processes never load JAX.
+"""
+
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+import torch
+
+import aainterp_torch as at
+from aainterp_torch import convert
+from aainterp_torch import regrid
+from aainterp_torch.ops import cuda_apply, cuda_apply_2d
+from aainterp_torch.ops.overlap1d import Band1D
+from aainterp_torch.parallel import conserve, mesh as pmesh, sharding
+
+
+def _op(tables: dict):
+    return convert.operator_from_numpy(**tables)
+
+
+def _band(b) -> Band1D:
+    return convert.band_from_numpy(b)
+
+
+def _traffic() -> dict:
+    return dict(pmesh.TRAFFIC)
+
+
+def _delta(before: dict) -> dict:
+    return {k: pmesh.TRAFFIC[k] - before[k] for k in before}
+
+
+def _flux(flux):
+    return None if flux is None else flux.numpy()
+
+
+def separable(mesh, frames, tables, impl="auto", conserve=False):
+    """sharded_apply_separable on this rank's block; the gathered output,
+    this rank's block, the flux and the traffic of the call (or the
+    ValueError's message)."""
+    op = _op(tables)
+    x = pmesh.shard_rows(torch.as_tensor(frames), mesh)
+    before = _traffic()
+    try:
+        res = sharding.sharded_apply_separable(
+            x, op, mesh, impl=impl, conserve=conserve)
+    except ValueError as e:
+        return {"error": str(e)}
+    traffic = _delta(before)
+    out, flux = res if conserve else (res, None)
+    return {"out": pmesh.gather_rows(out, mesh).numpy(),
+            "local": out.numpy(), "flux": _flux(flux), "traffic": traffic,
+            "folded": sharding._folded_sharded_bands(
+                op, pmesh.axis(mesh, "rows")[0]) is not None}
+
+
+def banded(mesh, frames, y, x, kernel=False):
+    """sharded_apply_banded (or, with ``kernel``, the kernel-1 route,
+    whose wrapper takes its plain version on the CPU) of two Band1D
+    tables; the gathered output and the halo's bytes (or the error)."""
+    fn = (sharding.sharded_apply_banded_kernel if kernel
+          else sharding.sharded_apply_banded)
+    blk = pmesh.shard_rows(torch.as_tensor(frames), mesh)
+    before = _traffic()
+    try:
+        out = fn(blk, _band(y), _band(x), mesh)
+    except ValueError as e:
+        return {"error": str(e)}
+    return {"out": pmesh.gather_rows(out, mesh).numpy(),
+            "dtype": str(out.dtype), "traffic": _delta(before)}
+
+
+def corrupted_flux(mesh, frames, tables):
+    """The flux of a good sharded apply and of its output with two dst
+    rows zeroed (a rank-local fault)."""
+    op = _op(tables)
+    blk = pmesh.shard_rows(torch.as_tensor(frames), mesh)
+    good = sharding.sharded_apply_separable(blk, op, mesh)
+    bad = pmesh.gather_rows(good, mesh).clone()
+    bad[:, 5:7, :] = 0.0
+    factors = conserve.separable_flux_factors(op.wy, op.wx,
+                                              raw_sums=op.raw_row_sums)
+    return [conserve.sharded_flux_separable(
+        blk, pmesh.shard_rows(d, mesh), factors, mesh).numpy()
+        for d in (pmesh.gather_rows(good, mesh), bad)]
+
+
+def regrid_sharded(mesh, fields, src, dst, conserve=False, mask=None,
+                   col_axis=None):
+    """conservative_regrid_sharded on this rank's block; the gathered
+    output, the flux, and how many local applies took the aligned route."""
+    calls = []
+    aligned = regrid.apply_separable_aligned
+
+    def counted(*a, **k):
+        calls.append(1)
+        return aligned(*a, **k)
+
+    regrid.apply_separable_aligned = counted
+    try:
+        blk = pmesh.shard_rows(torch.as_tensor(fields), mesh)
+        res = regrid.conservative_regrid_sharded(
+            blk, regrid.LatLonGrid(*src), regrid.LatLonGrid(*dst), mesh,
+            conserve=conserve, src_mask=mask, col_axis=col_axis)
+    except NotImplementedError as e:
+        return {"error": str(e)}
+    finally:
+        regrid.apply_separable_aligned = aligned
+    out, flux = res if conserve else (res, None)
+    return {"out": pmesh.gather_rows(out, mesh).numpy(), "flux": _flux(flux),
+            "aligned_calls": len(calls)}
+
+
+def rows_roundtrip(mesh, frames):
+    """shard_rows then gather_rows, with this rank's block's shape."""
+    blk = pmesh.shard_rows(torch.as_tensor(frames), mesh)
+    return {"shape": tuple(blk.shape),
+            "out": pmesh.gather_rows(blk, mesh).numpy()}
+
+
+def loaded_modules(mesh):
+    """The modules of jax or of the JAX package this rank has loaded."""
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "aainterp"))
+
+
+def fail_on(mesh, rank):
+    """Raises on one rank (the others return its index)."""
+    me = pmesh.axis(mesh, "rows")[1]
+    if me == rank:
+        raise ValueError(f"rank {me} fails on purpose")
+    return me
+
+
+# ---------------------------------------------------------------------------
+# the same functions on the rank's device, against the unsharded calls
+# (tests/test_torch_sharded_cuda.py runs them over NCCL on the card; the
+# CPU tests run them over gloo, where the kernels' wrappers take their
+# plain versions)
+# ---------------------------------------------------------------------------
+
+
+def _rand(shape, seed, dev, dtype=torch.float32):
+    """The same uniform [0, 1) tensor on every rank."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.rand(shape, generator=g).to(device=dev, dtype=dtype)
+
+
+def _cmp(got: torch.Tensor, ref: torch.Tensor) -> dict:
+    """Bit equality (NaN where the other has NaN) and the largest
+    difference, of two whole outputs."""
+    same = (got.shape == ref.shape and got.dtype == ref.dtype
+            and torch.equal(got.isnan(), ref.isnan())
+            and torch.equal(got.nan_to_num(0.0), ref.nan_to_num(0.0)))
+    err = ((got.double() - ref.double()).nan_to_num(0.0).abs().max().item()
+           if got.shape == ref.shape else float("inf"))
+    return {"equal": same, "max_abs_err": err,
+            "device": str(got.device)}
+
+
+def _kernel1(frames, y, x):
+    """The unsharded kernel-1 apply of a (y, x) Band1D pair."""
+    return cuda_apply.apply_separable_kernel(
+        frames, np.ascontiguousarray(y.start, np.int32),
+        np.ascontiguousarray(y.weights, np.float32),
+        np.ascontiguousarray(x.start, np.int32),
+        np.ascontiguousarray(x.weights, np.float32))
+
+
+def sharded_vs_unsharded(mesh):
+    """Every sharded route on this rank's device against the unsharded
+    call on the same inputs: kernel 1 at bf16 and u8, the f32 flux, the
+    90-degree fold, the full-ring halo (the last ranks' taps reach rank
+    0, so the exchange takes n - 1 hops and middle ranks post nothing on
+    the later ones) on both routes, the regrid (kernel 2) plain and
+    masked, and shard/gather of rows that do not divide.  Also counts
+    the kernels' launches of the sharded calls."""
+    dev = pmesh.rank_device()
+    n_rows = pmesh.axis(mesh, pmesh.ROWS)[0]
+    res = {}
+    shape = (4, 256, 384)
+    op = at.build_operator(at.make_grid_spec(shape[1:], 2.0, 1.0,
+                                             (0.0, 0.0), 0.0))
+    launches = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("u8", torch.uint8)):
+        frames = _rand(shape, 1, dev)
+        frames = ((frames * 255).round().to(dtype) if dtype == torch.uint8
+                  else frames.to(dtype))
+        ref = _kernel1(frames, op.wy, op.wx)
+        before = cuda_apply.LAUNCHES
+        out = sharding.sharded_apply_separable(
+            pmesh.shard_rows(frames, mesh), op, mesh)
+        launches[name] = cuda_apply.LAUNCHES - before
+        res[name] = _cmp(pmesh.gather_rows(out, mesh), ref)
+    frames = _rand(shape, 2, dev)
+    out, flux = sharding.sharded_apply_separable(
+        pmesh.shard_rows(frames, mesh), op, mesh, conserve=True)
+    res["f32"] = _cmp(pmesh.gather_rows(out, mesh), _kernel1(frames, op.wy,
+                                                             op.wx))
+    _, _, covy, covx = conserve.separable_flux_factors(
+        op.wy, op.wx, raw_sums=op.raw_row_sums)
+    res["flux"] = flux.cpu().tolist()
+    res["flux_device"] = str(flux.device)
+    res["host_fs"] = float(np.einsum("fyx,y,x->",
+                                     frames.cpu().double().numpy(), covy,
+                                     covx))
+    fold = at.build_operator(at.make_grid_spec(shape[1:], 2.0, 1.0,
+                                               (3.0, 5.0), 90.0))
+    out = sharding.sharded_apply_separable(pmesh.shard_rows(frames, mesh),
+                                           fold, mesh)
+    res["fold"] = _cmp(pmesh.gather_rows(out, mesh),
+                       at.apply_operator(fold, frames))
+    res["ref_max"] = float(frames.abs().max())
+    n = 8 * n_rows
+    ring = Band1D(start=np.zeros(n, np.int32),
+                  weights=np.full((n, 3), 1.0 / 3.0), n_src=n, n_dst=n)
+    frames = _rand((2, n, n), 3, dev)
+    blk = pmesh.shard_rows(frames, mesh)
+    before = dict(pmesh.TRAFFIC)
+    out = sharding.sharded_apply_banded_kernel(blk, ring, ring, mesh)
+    res["ring_p2p"] = pmesh.TRAFFIC["p2p"] - before["p2p"]
+    res["ring_kernel"] = _cmp(pmesh.gather_rows(out, mesh),
+                              _kernel1(frames, ring, ring))
+    out = sharding.sharded_apply_banded(blk, ring, ring, mesh)
+    res["ring_banded"] = _cmp(pmesh.gather_rows(out, mesh),
+                              _kernel1(frames, ring, ring))
+    src, dst = regrid.LatLonGrid(360, 720), regrid.LatLonGrid(36, 72)
+    fields = _rand((4, 360, 720), 4, dev) * 50.0 + 250.0
+    mask = _rand((360, 720), 5, dev) > 0.3
+    mask[:20] = False                   # two dst rows with no valid cell
+    for name, m in (("regrid", None), ("regrid_masked", mask)):
+        before = cuda_apply_2d.LAUNCHES
+        out = regrid.conservative_regrid_sharded(
+            pmesh.shard_rows(fields, mesh), src, dst, mesh, src_mask=m)
+        launches[name] = cuda_apply_2d.LAUNCHES - before
+        res[name] = _cmp(pmesh.gather_rows(out, mesh),
+                         regrid.conservative_regrid(fields, src, dst,
+                                                    src_mask=m))
+    res["launches"] = launches
+    odd = _rand((2, 50, 6), 6, dev)      # 50 rows: ceil blocks
+    res["roundtrip"] = _cmp(pmesh.gather_rows(pmesh.shard_rows(odd, mesh),
+                                              mesh), odd)
+    return res
+
+
+def check_sharded_vs_unsharded(res: list, mesh_shape, on_card: bool):
+    """Check every rank's ``sharded_vs_unsharded`` result.
+
+    Bit equality wherever the sharded and the unsharded call take the
+    same route: each dst row sums the same taps in the same order, only
+    the row indices are rebased.  Within f32 1e-5 (times the input's
+    largest value for the fold) where they do not: the fold's residual
+    flip or transpose against ``apply_operator``, and the ring on the
+    plain banded route against kernel 1.  On the CPU ``impl='auto'``
+    takes the plain banded route, which gives bf16 in float32 out: it is
+    held within one bf16 ulp of kernel 1's plain version there.  On the
+    card every rank launches kernel 1 once a separable call and kernel 2
+    once a regrid (twice masked); on the CPU the wrappers launch nothing.
+    """
+    n_data, n_rows = mesh_shape
+    for r in res:
+        exact = ["u8", "f32", "regrid", "regrid_masked", "ring_kernel",
+                 "roundtrip"] + (["bf16"] if on_card else [])
+        for name in exact:
+            assert r[name]["equal"], (name, r[name])
+        assert on_card or r["bf16"]["max_abs_err"] <= 2.0 ** -8, r["bf16"]
+        assert r["fold"]["max_abs_err"] <= 1e-5 * r["ref_max"], r["fold"]
+        assert r["ring_banded"]["max_abs_err"] <= 1e-5, r["ring_banded"]
+        want = "cuda" if on_card else "cpu"
+        assert all(r[k]["device"].startswith(want) for k in exact)
+        assert r["flux_device"].startswith(want)
+        fd, fs = r["flux"]
+        assert abs(fd - fs) <= 1e-5 * abs(fs), r["flux"]
+        assert abs(fs - r["host_fs"]) <= 1e-5 * abs(r["host_fs"]), r
+        assert r["flux"] == res[0]["flux"]
+        assert r["launches"] == (
+            {"bf16": 1, "u8": 1, "regrid": 1, "regrid_masked": 2} if on_card
+            else {"bf16": 0, "u8": 0, "regrid": 0, "regrid_masked": 0})
+    # rank 0 sends its whole f32 block, b x 8 rows x (8 n_rows) columns,
+    # on each of the ring's n_rows - 1 hops
+    assert res[0]["ring_p2p"] == ((n_rows - 1) * (2 // n_data) * 8
+                                  * 8 * n_rows * 4)
+
+
+def collectives_to_self(mesh):
+    """The three collectives on this rank's device, each rank sending to
+    itself: ``exchange`` with the rank as its own peer, ``all_gather``
+    and ``all_reduce``.  Returns whether each gave what it must.  NCCL
+    sends to the sending rank; gloo's pairs do not (a rank has no pair
+    to itself there)."""
+    dev = pmesh.rank_device()
+    n, i, group = pmesh.axis(mesh, pmesh.ROWS)
+    res = {}
+    for dtype in (torch.bfloat16, torch.float32, torch.uint8):
+        x = (torch.arange(24, device=dev) + 3 * i).reshape(2, 3, 4).to(dtype)
+        into = torch.zeros((2, 2, 4), dtype=dtype, device=dev)
+        pmesh.exchange([(x[:, 1:], i)], [(into, i)], group)   # a strided send
+        res[f"exchange_{dtype}"] = torch.equal(into, x[:, 1:])
+    parts = pmesh.all_gather(torch.full((5,), float(i), device=dev), group)
+    res["all_gather"] = (len(parts) == n and all(
+        p.device == dev and torch.equal(p, torch.full((5,), float(r),
+                                                      device=dev))
+        for r, p in enumerate(parts)))
+    t = torch.tensor([1.0, 2.0], dtype=torch.float64, device=dev)
+    pmesh.all_reduce(t, None)
+    res["all_reduce"] = (t.device == dev and t.tolist()
+                         == [1.0 * mesh.mesh.numel(), 2.0 * mesh.mesh.numel()])
+    return res
