@@ -52,6 +52,11 @@ contraction, with the exact ELL weights re-indexed by
   then the masked contraction (two launches; S never reaches device
   memory).  ``apply_ell_shear_plain`` composes the three plain stages
   unmasked (JAX's 'sheared' route has no mask either).
+* ``build_sharded_kernel_plan(op, n)`` (the counterpart of
+  pallas_shear.py:537) gives the row-sharded apply its plans: each rank's
+  ``ShearKernelPlan`` over its halo-extended block is the global plan's
+  rows shifted (``ShardedKernelPlan.rank``), so the same two kernels run
+  per shard (``parallel.sharding.sharded_apply_ell_kernel``).
 
 Dtype contract (pallas_shear.py:789-792): bf16 and f32 frames give that
 dtype out; any other real dtype is cast to f32 first and gives f32.
@@ -561,6 +566,121 @@ def kernel_plan_cached(op: EllOperator,
                     warnings.warn(f"shear plan not saved: {e}",
                                   RuntimeWarning)
         _PLAN_CACHE.put(key, hit)
+    if isinstance(hit, str):
+        raise ValueError(hit)
+    return hit
+
+
+# row-sharded plans by table content and rank count (build_sharded_kernel_plan)
+_SHARDED_CACHE = LruDict(4, max_bytes=2 << 30)
+
+
+@dataclasses.dataclass(eq=False)
+class ShardedKernelPlan:
+    """The row-sharded rotated apply's plans (counterpart of
+    ``ShardedShearPlan``, pallas_shear.py:487-535): ``n_dev`` ranks along
+    the rows, each holding ``sb`` source rows extended by ``halo`` on
+    each side (``Hloc = sb + 2 * halo``) and computing ``db`` dst rows.
+
+    The vertical shear commutes with row sharding: with rank offset
+    ``off_i = i * sb - halo``, a local sheared row is the global one
+    shifted by ``off_i``, so rank i's plan is the global ``plan``'s rows
+    shifted (``rank``): ``hx`` sliced, ``ry0 - off_i``, its dst rows of
+    ``w2`` and ``span``; the column tables ``gy``, ``cx0`` and ``TW`` are
+    the global ones.  Each rank's plan is an ordinary ``ShearKernelPlan``,
+    tiled by the usual planners at its first launch."""
+
+    n_dev: int
+    halo: int
+    sb: int
+    db: int
+    Hloc: int
+    plan: ShearKernelPlan
+    ranks: Dict[int, ShearKernelPlan] = dataclasses.field(
+        default_factory=dict, repr=False)
+
+    def rank(self, i: int) -> ShearKernelPlan:
+        """Rank i's plan over its extended block, derived at the first
+        call and kept."""
+        hit = self.ranks.get(i)
+        if hit is None:
+            p, off = self.plan, i * self.sb - self.halo
+            rows = slice(i * self.db, (i + 1) * self.db)
+            TH = self.Hloc + int(p.gy.max()) + 1
+            u = np.clip(off + np.arange(TH), 0, p.TH - 1)
+            hit = self.ranks[i] = ShearKernelPlan(
+                qH=self.Hloc, qW=p.qW, TH=TH, TW=p.TW, Hd=self.db, Wd=p.Wd,
+                Ka=p.Ka, Kb=p.Kb, gy=p.gy,
+                hx=np.ascontiguousarray(p.hx[u]),
+                ry0=np.ascontiguousarray(p.ry0[rows] - off, dtype=np.int32),
+                cx0=p.cx0, w2=np.ascontiguousarray(p.w2[:, rows]),
+                span=np.ascontiguousarray(p.span[rows]))
+        return hit
+
+
+def check_rank_rows(op: EllOperator, plan: ShearKernelPlan, n_dev: int,
+                    halo: int) -> None:
+    """Raise ValueError unless, on every rank, every live tap of its dst
+    rows reads a source row inside its extended block (the ELL table's
+    live taps) and a T row inside its local plane ``[0, Hloc + max gy +
+    1)`` (the plan's live taps), with ``halo`` rows on each side."""
+    Hd, qH = op.spec.dst_shape[0], op.spec.qrot_shape[0]
+    db, sb = Hd // n_dev, qH // n_dev
+    Hloc = sb + 2 * halo
+    TH = Hloc + int(plan.gy.max()) + 1
+    off = (np.arange(Hd) // db * sb - halo).astype(np.int64)
+    big = np.int64(1) << 40
+
+    def outside(first, taps, live, hi):
+        """Rows whose live taps (rows first + a, live (rows, ..., a))
+        leave [0, hi) once rebased by their rank's offset."""
+        a = np.arange(taps, dtype=np.int64)
+        r = first.astype(np.int64)[..., None] + a - off.reshape(
+            (-1,) + (1,) * (first.ndim - 1) + (1,))
+        lo = np.where(live, r, big).reshape(Hd, -1).min(axis=1)
+        top = np.where(live, r, -big).reshape(Hd, -1).max(axis=1)
+        return np.nonzero((lo < 0) | (top >= hi))[0]
+
+    live_ell = (np.asarray(op.weights) != 0).any(axis=-1)   # (Hd, Wd, K)
+    bad = outside(op.base[..., 0], op.window, live_ell, Hloc)
+    if len(bad):
+        raise ValueError(f"dst row {bad[0]} reads source rows outside its "
+                         f"rank's block of {sb} rows and a halo of {halo}")
+    live_t = np.zeros((Hd, plan.Ka), bool)
+    for t in range(plan.Ka * plan.Kb):
+        live_t[:, t // plan.Kb] |= (plan.w2[t] != 0).any(axis=1)
+    bad = outside(plan.ry0, plan.Ka, live_t, TH)
+    if len(bad):
+        raise ValueError(f"dst row {bad[0]} reads T rows outside its rank's "
+                         f"local plane of {TH} rows")
+
+
+def build_sharded_kernel_plan(op: EllOperator,
+                              n_dev: int) -> ShardedKernelPlan:
+    """The row-sharded plans of ``op`` over ``n_dev`` ranks (counterpart of
+    ``build_sharded_kernel_plan``, pallas_shear.py:537), cached by table
+    content and ``n_dev``; the global plan comes through
+    ``kernel_plan_cached``.  Raises ValueError (cached too) where the row
+    counts do not divide ``n_dev``, the halo needs more than ``n_dev -
+    1`` ring hops, ``build_shear_plan`` rejects the geometry, or a live
+    tap of some rank's rows would leave its block (``check_rank_rows``).
+    Every rank checks every rank's rows, so all take the same route.
+    The halo is exact (``parallel.sharding._ell_rows``); JAX's 8-row
+    rounding and 8-aligned blocks are TPU layout and are not kept."""
+    from ..parallel.sharding import _ell_rows
+
+    key = _plan_key(op) + (int(n_dev),)
+    hit = _SHARDED_CACHE.get(key)
+    if hit is None:
+        try:
+            db, sb, halo = _ell_rows(op, n_dev)
+            plan = kernel_plan_cached(op)
+            check_rank_rows(op, plan, n_dev, halo)
+            hit = ShardedKernelPlan(n_dev=int(n_dev), halo=halo, sb=sb,
+                                    db=db, Hloc=sb + 2 * halo, plan=plan)
+        except ValueError as e:
+            hit = str(e)
+        _SHARDED_CACHE.put(key, hit)
     if isinstance(hit, str):
         raise ValueError(hit)
     return hit

@@ -699,6 +699,39 @@ def fold_quadrant_ell_cached(op: EllOperator):
     return hit
 
 
+def fold_tables_device(base: torch.Tensor, w: torch.Tensor, quadrant: int,
+                       qH: int, qW: int):
+    """The quadrant fold of explicit ELL tables, on their own device.
+
+    ``base`` (Hd, Wd, 2) and ``w`` (Hd, Wd, K, K) are tensors standing in
+    for an operator's own tables; ``qH, qW`` are the unfolded operator's
+    ``qrot_shape``.  Returns (folded_base, folded_weights), bit-equal to
+    ``fold_quadrant_ell`` of the same host tables: the weights are
+    permuted by flips and transposes, never recomputed.  Quadrant 0
+    returns the tables unchanged.
+    """
+    q = quadrant % 4
+    if q == 0:
+        return base, w
+    K = w.shape[-1]
+    by, bx = base[..., 0], base[..., 1]
+    H, W = (qW, qH) if q in (1, 3) else (qH, qW)
+    if q == 1:
+        nb_y, nb_x = H - K - bx, by
+        nw = w.flip(-1).transpose(-1, -2)
+        dst_perm = (lambda x: x.flip(0).transpose(0, 1))
+    elif q == 2:
+        nb_y, nb_x = H - K - by, W - K - bx
+        nw = w.flip(-2, -1)
+        dst_perm = (lambda x: x.flip(0, 1))
+    else:
+        nb_y, nb_x = bx, W - K - by
+        nw = w.flip(-2).transpose(-1, -2)
+        dst_perm = (lambda x: x.flip(1).transpose(0, 1))
+    nb = torch.stack([dst_perm(nb_y), dst_perm(nb_x)], dim=-1)
+    return nb.to(base.dtype).contiguous(), dst_perm(nw).contiguous()
+
+
 def ell_fold_post_inv(quadrant: int) -> Optional[Callable]:
     """Inverse of fold_quadrant_ell's ``post`` dst permutation, or None.
 

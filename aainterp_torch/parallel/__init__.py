@@ -5,10 +5,12 @@
   batch (``shard_rows``, ``gather_rows``), the staged collectives and the
   rank processes (``RankPool``, ``run_spmd``);
 * ``sharding`` — the row-sharded separable apply (plain, and on kernel 1
-  per shard), its ring halo and the quadrant fold under sharding;
+  per shard) and rotated (ELL) apply (plain gather, and the fused shear
+  and the masked contraction per shard), their ring halo and the
+  quadrant fold under sharding;
 * ``conserve`` — the global conservation flux: local float64 dots, then
   one ``all_reduce``.
 
-1-D (data x rows) meshes and the separable forward only; the ELL applies,
-2-D meshes and the transposes are not ported yet (ROADMAP.md, Queue 1).
+1-D (data x rows) meshes and the forward applies only; 2-D meshes and
+the transposes are not ported yet (ROADMAP.md, Queue 1).
 """

@@ -1,4 +1,4 @@
-"""Sharded global conservation check (counterpart of the separable part of
+"""Sharded global conservation check (counterpart of the 1-D part of
 ``aainterp/parallel/conserve.py``): local dots, then one ``all_reduce``.
 
 The check is an exact linear identity.  For a resampling operator
@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.device import upload
 from . import mesh as mesh_ops
 
 
@@ -52,6 +53,29 @@ def separable_flux_factors(y_band, x_band, raw_sums=None):
     for k in range(xw.shape[1]):
         np.add.at(covx, np.clip(xs + k, 0, x_band.n_src - 1), mx * xw[:, k])
     return my, mx, covy, covx
+
+
+def ell_flux_factors(op):
+    """Host factors (m2, cov) for an ELL operator.
+
+    m2[d] = raw 2-D overlap area of dst cell d (op.raw_row_sums);
+    cov[jy, jx] = sum_d m2[d] * weights[d, a, b] scattered to the source
+    cell each tap addresses (indices clipped as the apply clips them) —
+    the coverage of that rotated-source cell.  The scatter is a
+    ``np.bincount`` in the taps' order, the same sums in the same order
+    as JAX's ``np.add.at``.
+    """
+    qH, qW = op.spec.qrot_shape
+    K = op.window
+    m2 = np.asarray(op.raw_row_sums, np.float64)
+    w = np.asarray(op.weights, np.float64) * m2[..., None, None]
+    a = np.arange(K)
+    jy = np.clip(op.base[..., 0:1, None] + a[:, None], 0, qH - 1)
+    jx = np.clip(op.base[..., 1:2, None].swapaxes(-1, -2) + a[None, :], 0,
+                 qW - 1)
+    idx = np.broadcast_to(jy * qW + jx, w.shape)
+    cov = np.bincount(idx.ravel(), weights=w.ravel(), minlength=qH * qW)
+    return m2, cov.reshape(qH, qW)
 
 
 def _block(v: np.ndarray, n: int, i: int, local_rows: int, what: str):
@@ -85,4 +109,29 @@ def sharded_flux_separable(src: torch.Tensor, dst: torch.Tensor, factors,
                             torch.as_tensor(cols, device=dev))
 
     out = torch.stack([dot(dst, my, mx), dot(src.to(dev), covy, covx)])
+    return mesh_ops.all_reduce(out, None)
+
+
+def sharded_flux_ell(src: torch.Tensor, dst: torch.Tensor, factors,
+                     mesh) -> torch.Tensor:
+    """(2,) float64 [flux_dst, flux_src] of the rotated (ELL) apply on
+    ``dst``'s device, the same on every rank: this rank's float64 dots
+    ``sum(dst * m2)`` and ``sum(src * cov)`` over its rows, then one
+    ``all_reduce`` over the whole mesh.
+
+    src: this rank's source rows in the orientation of the operator whose
+    ``ell_flux_factors`` these are; dst: its output rows.  (m2, cov) are
+    whole (Hd, Wd) and (qH, qW) host arrays, cut to the rank's rows.
+    """
+    m2, cov = (np.ascontiguousarray(f, dtype=np.float64) for f in factors)
+    n, i, _ = mesh_ops.axis(mesh, mesh_ops.ROWS)
+    dev = dst.device
+    m2 = _block(m2, n, i, dst.shape[-2], "dst")
+    cov = _block(cov, n, i, src.shape[-2], "src")
+
+    def dot(x, f):
+        return torch.einsum("...rc,rc->", x.to(torch.float64),
+                            upload(f, dev))
+
+    out = torch.stack([dot(dst, m2), dot(src.to(dev), cov)])
     return mesh_ops.all_reduce(out, None)

@@ -1,5 +1,5 @@
-"""Row-sharded separable apply with a ring halo exchange, on
-``torch.distributed`` (counterpart of the 1-D separable part of
+"""Row-sharded separable and rotated (ELL) applies with a ring halo
+exchange, on ``torch.distributed`` (counterpart of the 1-D part of
 ``aainterp/parallel/sharding.py``).
 
 Every rank holds its block of the batch, ``(B / n_data, qH / n_rows, W)``
@@ -33,21 +33,46 @@ The local apply is one of three:
 (``_folded_sharded_bands``) and moves the residual flip or transpose to
 the small dst side; where the folded row counts do not divide the mesh,
 the source is gathered, rotated and cut again (the global rot90 route).
+
+``sharded_apply_ell`` is the rotated apply under the same scheme.  Its
+halo is the overhang of each rank's K-window bases (``_ell_axis_halo``),
+which grows with W * sin(angle) and may take several hops.  The local
+apply is the plain ``apply_ell`` on the rank's rows of the table, rebased
+('gather'), or the fused shear and the masked contraction of
+``ops.cuda_shear`` on the rank's plan, the global shear plan's rows
+shifted (``sharded_apply_ell_kernel``, ``build_sharded_kernel_plan``).
+JAX's ``make_sharded_ell_pallas`` returns its plan tables to pass them
+as jit arguments; a rank here plans once and keeps its plan, so the
+maker has no counterpart.  A quadrant folds into the table, explicit
+tables with it (``fold_tables_device``), on both routes.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import warnings
+
 import numpy as np
 import torch
 
-from ..ops import cuda_apply
+from .. import api as api_mod
+from ..ops import cuda_apply, cuda_shear
 from ..ops import overlap1d
 from ..ops import weights as weights_ops
-from ..ops.apply import (aligned_axis_plan, apply_separable_aligned,
-                         apply_separable_banded, quadrant_rotate)
+from ..ops.apply import (aligned_axis_plan, apply_ell,
+                         apply_separable_aligned, apply_separable_banded,
+                         quadrant_rotate)
+from ..utils.device import upload
+from ..utils.digest import array_digest
+from ..utils.lru import LruDict
 from . import mesh as mesh_ops
 
 IMPLS = ("auto", "kernel", "banded")
+ELL_IMPLS = ("auto", "kernel", "gather")
+
+# ELL halos by base table content and blocks (_ell_rows): milliseconds of
+# host work a call at 2048^2 otherwise
+_HALO_CACHE = LruDict(16)
 
 
 def _folded_sharded_bands(op: weights_ops.SeparableOperator, n_dev: int):
@@ -327,3 +352,220 @@ def sharded_apply_separable(frames: torch.Tensor,
     if not conserve:
         return out
     return out, flux
+
+
+# ---------------------------------------------------------------------------
+# the rotated (ELL) apply
+# ---------------------------------------------------------------------------
+
+
+def _ell_axis_halo(base_axis, K: int, db: int, sb: int, n_dev: int) -> int:
+    """Most rows any rank's dst block reaches past its own source block
+    along one sharded axis: the overhang of its K-window bases
+    (``op.base[..., 0]`` for rows).  Exact: no rounding to a tile."""
+    halo = 0
+    for i in range(n_dev):
+        blk = base_axis[i * db: (i + 1) * db]
+        halo = max(halo, i * sb - int(blk.min()),
+                   int(blk.max()) + K - (i + 1) * sb)
+    return max(halo, 0)
+
+
+def _ell_rows(op: weights_ops.EllOperator, n_dev: int):
+    """(db, sb, halo) of the row-sharded apply of ``op`` over ``n_dev``
+    ranks.  ValueError where the rows do not divide or the halo needs more
+    than ``n_dev - 1`` ring hops."""
+    qH, Hd = op.spec.qrot_shape[0], op.spec.dst_shape[0]
+    if Hd % n_dev or qH % n_dev:
+        raise ValueError(
+            "row-sharded ELL apply requires divisible row counts "
+            f"(dst {Hd}, src {qH}, devices {n_dev})")
+    db, sb = Hd // n_dev, qH // n_dev
+    key = (array_digest(op.base), op.base.shape, op.window, sb, n_dev)
+    halo = _HALO_CACHE.get(key)
+    if halo is None:
+        halo = _ell_axis_halo(op.base[..., 0], op.window, db, sb, n_dev)
+        _HALO_CACHE.put(key, halo)
+    hops = -(-halo // sb)
+    if hops > n_dev - 1:
+        raise ValueError(
+            f"halo of {halo} needs {hops} ring hops but only {n_dev - 1} "
+            f"neighbours exist (per-rank block {sb}); use fewer shards "
+            "along this axis for this operator")
+    return db, sb, halo
+
+
+def _check_tables(op: weights_ops.EllOperator, base, weights) -> None:
+    Hd, Wd = op.spec.dst_shape
+    K = op.window
+    for name, t, shape in (("base", base, (Hd, Wd, 2)),
+                           ("weights", weights, (Hd, Wd, K, K))):
+        if t is None:
+            continue
+        if not isinstance(t, torch.Tensor) or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be a tensor of shape {shape} for "
+                             f"this operator, got {type(t).__name__} "
+                             f"{tuple(getattr(t, 'shape', ()))}")
+
+
+def _ell_fold(op: weights_ops.EllOperator, n_dev: int, base, weights):
+    """The apply's orientation, decided on the host: (op, post, base,
+    weights, rotate).  A quadrant folds into the table
+    (``fold_quadrant_ell_cached``), explicit tables with it
+    (``fold_tables_device``), and ``post`` is the residual flip or
+    transpose of the dst; where the folded row counts do not divide the
+    mesh, ``rotate`` asks for the global rot90 route instead."""
+    q = op.spec.quadrant % 4
+    if q == 0:
+        return op, None, base, weights, False
+    folded, post = weights_ops.fold_quadrant_ell_cached(op)
+    if folded.spec.dst_shape[0] % n_dev or folded.spec.qrot_shape[0] % n_dev:
+        return op, None, base, weights, True
+    if base is not None or weights is not None:
+        dev = (base if base is not None else weights).device
+        base, weights = weights_ops.fold_tables_device(
+            upload(op.base, dev) if base is None else base,
+            upload(op.weights, dev) if weights is None else weights, q,
+            *op.spec.qrot_shape)
+    return folded, post, base, weights, False
+
+
+def _host_tables(op: weights_ops.EllOperator, base, weights,
+                 with_weights: bool) -> weights_ops.EllOperator:
+    """``op`` with explicit tables in place of its own, copied to the host
+    once: the base always (the halo reads it), the weights where
+    ``with_weights`` (the kernel route plans from them; the plan cache
+    keys on their content)."""
+    kw = {}
+    if base is not None:
+        kw["base"] = np.ascontiguousarray(base.detach().cpu().numpy(),
+                                          dtype=np.int32)
+    if weights is not None and with_weights:
+        kw["weights"] = weights.detach().cpu().to(torch.float64).numpy()
+    return dataclasses.replace(op, **kw) if kw else op
+
+
+def _ell_route(op: weights_ops.EllOperator, n_dev: int, impl: str,
+               on_cuda: bool):
+    """(route, ShardedKernelPlan or None), decided on the host before any
+    launch (``api._ell_route``'s rule under sharding): 'auto' takes
+    'kernel' for a CUDA tensor and 'gather' for a CPU one; a geometry that
+    ``build_sharded_kernel_plan`` rejects sends 'auto' to 'gather' with a
+    RuntimeWarning, counted in ``api.SHEAR_PLAN_FALLBACKS``, and makes
+    'kernel' raise."""
+    if impl == "gather" or (impl == "auto" and not on_cuda):
+        return "gather", None
+    try:
+        return "kernel", cuda_shear.build_sharded_kernel_plan(op, n_dev)
+    except ValueError as e:
+        if impl == "kernel":
+            raise
+        warnings.warn(f"sharded rotated apply takes the plain gather route: "
+                      f"{e}", RuntimeWarning)
+        api_mod.SHEAR_PLAN_FALLBACKS += 1
+        return "gather", None
+
+
+def _rows_on(t, rows: slice, device, dtype) -> torch.Tensor:
+    """Rows of a table (numpy or a tensor on any device) on ``device``."""
+    if isinstance(t, torch.Tensor):
+        return t[rows].to(device=device, dtype=dtype)
+    return upload(t[rows], device, dtype)
+
+
+def _sharded_ell(frames, op, mesh, impl, base, weights, conserve):
+    """The body of both ELL entry points; ``impl`` is checked by them."""
+    n, i, _ = mesh_ops.axis(mesh, mesh_ops.ROWS)
+    _check_tables(op, base, weights)
+    quadrant = op.spec.quadrant
+    op, post, base, weights, rotate = _ell_fold(op, n, base, weights)
+    on_cuda = frames.is_cuda
+    host = _host_tables(op, base, weights,
+                        impl == "kernel" or (impl == "auto" and on_cuda))
+    db, sb, halo = _ell_rows(host, n)
+    route, kp = _ell_route(host, n, impl, on_cuda)
+    if rotate:
+        frames = _rot90_rows(frames, quadrant, mesh)
+    qW = op.spec.qrot_shape[1]
+    if frames.ndim < 2 or tuple(frames.shape[-2:]) != (sb, qW):
+        raise ValueError(f"this rank's block must end in ({sb}, {qW}) rows "
+                         f"x columns, got {tuple(frames.shape)}")
+    ext = _halo_extend(frames, halo, mesh)
+    if route == "kernel":
+        out = cuda_shear.apply_ell_shear_kernel(ext, kp.rank(i))
+    else:
+        rows = slice(i * db, (i + 1) * db)
+        b = _rows_on(op.base if base is None else base, rows, ext.device,
+                     torch.int64)
+        b = b - b.new_tensor([i * sb - halo, 0])
+        out = apply_ell(ext, b, _rows_on(op.weights if weights is None
+                                         else weights, rows, ext.device,
+                                         torch.float32))
+    if conserve:
+        from .conserve import ell_flux_factors, sharded_flux_ell
+
+        # the folded operator's factors pair with the un-rotated frames
+        # and the output before ``post``, row-sharded as its tables are
+        flux = sharded_flux_ell(frames, out, ell_flux_factors(op), mesh)
+    if post is not None:
+        out = _post_rows(post, out, mesh)
+    return (out, flux) if conserve else out
+
+
+def sharded_apply_ell_kernel(frames: torch.Tensor,
+                             op: weights_ops.EllOperator, mesh, *,
+                             base=None, weights=None) -> torch.Tensor:
+    """Row-sharded rotated apply with the fused shear and the masked
+    contraction per shard (counterpart of ``make_sharded_ell_pallas`` and
+    ``sharded_apply_ell_pallas``): the halo exchange, then
+    ``cuda_shear.apply_ell_shear_kernel`` on this rank's extended block
+    with its plan ``build_sharded_kernel_plan(op, n).rank(i)``.  A
+    quadrant folds as in ``sharded_apply_ell``.  bf16 and f32 frames give
+    that dtype out, others are cast to f32; on a CPU tensor the wrappers
+    take their plain versions.  Raises ValueError where the planner
+    rejects the geometry."""
+    return _sharded_ell(frames, op, mesh, "kernel", base, weights, False)
+
+
+def sharded_apply_ell(frames: torch.Tensor, op: weights_ops.EllOperator,
+                      mesh, *, conserve: bool = False, base=None,
+                      weights=None, impl: str = "auto"):
+    """Row-sharded rotated (ELL) apply: this rank's block (B / n_data,
+    qH / n_rows, qW) of the source (``mesh.shard_rows``) -> its block of
+    the dst (dst rows that do not divide the mesh after a fold: blocks of
+    ceil(Hd / n_rows) rows).  Each rank fetches the rows its dst rows'
+    windows reach from its ring neighbours (``_halo_extend``; the halo
+    grows with the angle and may take several hops).
+
+    impl: 'kernel' the fused shear and the masked contraction per shard
+    (``sharded_apply_ell_kernel``; raises on a CPU tensor or where the
+    planner rejects the geometry), 'gather' the plain
+    ``ops.apply.apply_ell`` on the extended block with this rank's rows
+    of the tables rebased (f32 out), 'auto' the kernel for a CUDA tensor
+    (the gather route, with a RuntimeWarning counted in
+    ``api.SHEAR_PLAN_FALLBACKS``, for a geometry the planner rejects) and
+    the gather route on the CPU.
+
+    conserve: also return the (2,) float64 [flux_dst, flux_src] global
+    conservation pair, the same on every rank (``conserve.py``).
+
+    base / weights: tensors (on any device) of shape (Hd, Wd, 2) and
+    (Hd, Wd, K, K) in place of ``op.base`` / ``op.weights``, honoured on
+    both routes: the whole tables go to every rank; the kernel route
+    copies them to the host once and plans from them.
+
+    A quadrant != 0 folds into the table (``fold_quadrant_ell_cached``,
+    explicit tables through ``fold_tables_device``): the source stays
+    sharded un-rotated and only the dst pays a flip or transpose
+    (``_post_rows``).  Where the folded row counts do not divide the
+    mesh, the global rot90 route runs instead.
+    """
+    if impl not in ELL_IMPLS:
+        raise ValueError(
+            f"unknown impl {impl!r} for the sharded ELL apply; expected one "
+            f"of {ELL_IMPLS}")
+    if impl == "kernel" and not frames.is_cuda:
+        raise ValueError(
+            "impl='kernel' needs a CUDA tensor; got one on "
+            f"{frames.device} (use impl='auto' or 'gather' on the CPU)")
+    return _sharded_ell(frames, op, mesh, impl, base, weights, conserve)

@@ -1,6 +1,7 @@
 """Memoized content digests for host operator tables.
 
-Counterpart of ``aainterp/utils/digest.py``, carried over unchanged.
+Counterpart of ``aainterp/utils/digest.py``, carried over but for the
+memo of ndarray subclasses (``array_digest``).
 
 Every plan/linear-fn cache in the package is keyed by table CONTENT
 (two operators with equal tables share one kernel plan).  Hashing the
@@ -41,8 +42,11 @@ def _hash_array(a: np.ndarray) -> int:
 
 
 def array_digest(a) -> int:
-    """Content hash of a host array, computed once per array object."""
-    a = np.asarray(a)
+    """Content hash of a host array, computed once per array object.  An
+    ndarray subclass is memoized as itself: ``np.asarray`` of a memory map
+    (a disk-cached operator's table) is a new view on every call, which
+    would hash the whole table again each time."""
+    a = np.asanyarray(a)
     k = id(a)
     ent = _MEMO.get(k)
     if ent is not None and ent[0]() is a:

@@ -33,7 +33,9 @@ graph (``CALLS``).
 * ``r_vshear``, ``r_hshear``, ``r_vhshear``, ``r_contract``: the rotated
   flagship's kernels (the same frames, exact mode): the shear kernel's
   three forms (S from q, T from S, T from q) and the contraction (on the
-  plain T).  Their tile tables are planned anew under each ``--set``
+  plain T), at 30 degrees unless ``--set 'sweep.ROT_ANGLE=30.2'`` moves
+  them (T's width, so its rows' 16-byte alignment, follows the angle).
+  Their tile tables are planned anew under each ``--set``
   (for example ``--set 'cuda_shear._TILES=((32, 128),)'``, or the
   contraction's ``--set 'cuda_shear._CONTRACT_TILES=((16, 32),)'``); the
   contraction's variants ``ctnostage`` (a zeroed window staged), ``ctnoweight``,
@@ -104,6 +106,9 @@ import sys
 from pathlib import Path
 
 NOT_REACHED = "if (off < -(1 << 30)) cp_async16"
+# the r_* cells' angle (``--set 'sweep.ROT_ANGLE=30.2'``): T's width, and
+# so the alignment of its rows, moves with it
+ROT_ANGLE = 30.0
 # dense_x.cu's y-pass tap loops, its wgmma calls, its operator's copies
 DX_NOY = (r"for \(int a = 0; a < ky; \+\+a\)", "for (int a = 0; a < 0; ++a)")
 DX_NOMMA = (r"hopper::wgmma_bf16<kCols>\(d, [^;]*;", "")
@@ -603,10 +608,11 @@ def make_cells(dev):
     rot = {}                        # the rotated flagship's plan, made once
 
     def rot_plan():
-        if not rot:
-            op = at.build_operator(spec)
-            rot["plan"] = cuda_shear.kernel_plan(op)
-            rot["q"] = rand("s3", (8, 2048, 2048), bf16)
+        if rot.get("angle") != ROT_ANGLE:
+            op = at.build_operator(at.make_grid_spec(
+                (2048, 2048), 1.0, 0.5, (1024.0, 1024.0), ROT_ANGLE))
+            rot.update(angle=ROT_ANGLE, plan=cuda_shear.kernel_plan(op),
+                       q=rand("s3", (8, 2048, 2048), bf16))
         return rot["plan"]
 
     def r_cell(name):
@@ -621,7 +627,8 @@ def make_cells(dev):
 
         def prepare():
             plan = rot_plan()
-            summary = {"Ka": plan.Ka, "Kb": plan.Kb}
+            summary = {"angle": ROT_ANGLE, "TW": plan.TW, "Ka": plan.Ka,
+                       "Kb": plan.Kb}
             if hasattr(plan, "form_tiles"):     # not in older checkouts
                 plan.tiles.clear()              # re-planned under --set
                 plan.dev.clear()
@@ -770,7 +777,8 @@ def main() -> int:
     wanted = [c for c in cells
               if any(c.startswith(p) for p in args.cells.split(","))]
     mods = {"cuda_apply": cuda_apply, "cuda_apply_2d": cuda_apply_2d,
-            "cuda_shear": cuda_shear, "shear3": shear3}
+            "cuda_shear": cuda_shear, "shear3": shear3,
+            "sweep": sys.modules[__name__]}
     caches = (cuda_apply._PLAN_CACHE, cuda_apply_2d._PLAN_CACHE,
               shear3._STAGE_CACHE)
     libs = tuple(getattr(_build, n) for n in (

@@ -171,6 +171,23 @@ def test_array_digest_memoized_and_content_keyed():
     assert array_digest(a) != array_digest(a + 1.0)
 
 
+def test_array_digest_memoizes_memory_maps(tmp_path):
+    # a disk-cached operator's tables are memory maps: one hash each, not
+    # one a call (np.asarray of a memmap is a new view every time)
+    from aainterp_torch.utils.digest import digest_stats
+
+    path = tmp_path / "t.npy"
+    np.save(path, np.arange(1000.0))
+    m = np.load(path, mmap_mode="r")
+    before = digest_stats()
+    d = array_digest(m)
+    assert array_digest(m) == array_digest(m) == d
+    after = digest_stats()
+    assert (after["hashed"] - before["hashed"],
+            after["memo_hits"] - before["memo_hits"]) == (1, 2)
+    assert d == array_digest(np.arange(1000.0))
+
+
 def test_import_pulls_in_neither_jax_nor_aainterp():
     code = (
         "import sys, aainterp_torch, aainterp_torch.api, "

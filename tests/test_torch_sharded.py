@@ -30,6 +30,7 @@ from aainterp.parallel import sharding as j_sharding
 import torch_dist_ranks as ranks
 from aainterp_torch.parallel import mesh as pmesh
 from aainterp_torch.parallel import sharding as t_sharding
+from aainterp_torch.utils import cache as t_cache
 
 pytestmark = pytest.mark.skipif(
     jax.device_count() < 8, reason="needs 8 (virtual) devices")
@@ -37,6 +38,20 @@ pytestmark = pytest.mark.skipif(
 MESHES = ((1, 4), (2, 2), (2, 4))
 ATOL = 1e-5
 RTOL_FLUX = 1e-5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def plan_cache_dir(tmp_path_factory):
+    """The rotated kernel route's shear plans (``kernel_plan_cached``) go
+    to a directory of the module's own, in this process and in the ranks,
+    which read ``AAINTERP_CACHE_DIR`` when they start (after this
+    fixture: autouse fixtures of a scope come first)."""
+    path = str(tmp_path_factory.mktemp("plans"))
+    mp = pytest.MonkeyPatch()
+    mp.setenv("AAINTERP_CACHE_DIR", path)
+    mp.setattr(t_cache, "DEFAULT_CACHE_DIR", path)
+    yield path
+    mp.undo()
 
 
 @pytest.fixture(scope="module")

@@ -5,9 +5,11 @@ NCCL takes one rank a card.  ``test_nccl_collectives_to_self`` runs one
 rank, which sends to itself, so it runs on one card;
 ``test_nccl_across_cards`` runs one rank on each of ``min(4, count)``
 cards at meshes (1, k) and, with four, (2, 2), and skips with fewer than
-two.  The ranks' side is tests/torch_dist_ranks.py (tolerances there:
-bit equality where the sharded and unsharded calls take one route, f32
-1e-5 where they do not, flux rtol 1e-5).
+two; its ranks run kernels 1 and 2 and the rotated route's fused shear
+and masked contraction per shard.  The ranks' side is
+tests/torch_dist_ranks.py (tolerances there: bit equality where the
+sharded and unsharded calls take one route, f32 1e-5 where they do not,
+flux rtol 1e-5).
 
 Skips without ``torch.cuda.is_available()``.  Imports no JAX, so it runs
 on a machine with only PyTorch; there, skip the repo's conftest (which
@@ -28,13 +30,19 @@ pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture(scope="module")
-def cards():
+def cards(tmp_path_factory):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
-    # kernels 1 and 2 are built here, before any rank starts: the ranks
-    # load the built libraries
-    _build.build_many([_build.SEPARABLE, _build.SEPARABLE_2D])
-    return torch.cuda.device_count()
+    # kernels 1 and 2 and the rotated route's are built here, before any
+    # rank starts: the ranks load the built libraries; their shear plans
+    # go to a directory of the module's own (AAINTERP_CACHE_DIR, read
+    # when a rank starts)
+    _build.build_many([_build.SEPARABLE, _build.SEPARABLE_2D,
+                       _build.ELL_SHEAR])
+    mp = pytest.MonkeyPatch()
+    mp.setenv("AAINTERP_CACHE_DIR", str(tmp_path_factory.mktemp("plans")))
+    yield torch.cuda.device_count()
+    mp.undo()
 
 
 def test_nccl_collectives_to_self(cards):

@@ -1,5 +1,5 @@
-"""Rank-side functions of tests/test_torch_sharded.py and
-tests/test_torch_sharded_cuda.py.
+"""Rank-side functions of tests/test_torch_sharded.py,
+tests/test_torch_sharded_ell.py and tests/test_torch_sharded_cuda.py.
 
 Each runs on every rank of an ``aainterp_torch.parallel.mesh.RankPool``
 as ``fn(mesh, *args)``: it cuts the rank's block out of the whole input
@@ -20,7 +20,9 @@ import torch
 import aainterp_torch as at
 from aainterp_torch import convert
 from aainterp_torch import regrid
-from aainterp_torch.ops import cuda_apply, cuda_apply_2d
+from aainterp_torch.ops import cuda_apply, cuda_apply_2d, cuda_shear
+from aainterp_torch.ops import weights as weights_ops
+from aainterp_torch.ops.apply import quadrant_rotate
 from aainterp_torch.ops.overlap1d import Band1D
 from aainterp_torch.parallel import conserve, mesh as pmesh, sharding
 
@@ -122,6 +124,108 @@ def regrid_sharded(mesh, fields, src, dst, conserve=False, mask=None,
             "aligned_calls": len(calls)}
 
 
+def _ell_op(tables: dict):
+    return convert.ell_operator_from_numpy(**tables)
+
+
+def ell(mesh, frames, tables, impl="auto", conserve=False, kernel=False,
+        tables_as=None):
+    """sharded_apply_ell (or, with ``kernel``, sharded_apply_ell_kernel,
+    whose wrappers take their plain versions on the CPU) on this rank's
+    block; the gathered output, this rank's block, the flux and the
+    traffic of the call (or the ValueError's message).  ``tables_as``: a
+    dtype name; the operator's own tables go in again as explicit
+    ``base`` / ``weights`` tensors, the weights in that dtype."""
+    op = _ell_op(tables)
+    x = pmesh.shard_rows(torch.as_tensor(frames), mesh)
+    kw = {}
+    if tables_as is not None:
+        kw = dict(base=torch.as_tensor(op.base),
+                  weights=torch.as_tensor(op.weights).to(
+                      getattr(torch, tables_as)))
+    before = _traffic()
+    try:
+        if kernel:
+            res = sharding.sharded_apply_ell_kernel(x, op, mesh, **kw)
+        else:
+            res = sharding.sharded_apply_ell(x, op, mesh, impl=impl,
+                                             conserve=conserve, **kw)
+    except ValueError as e:
+        return {"error": str(e)}
+    traffic = _delta(before)
+    out, flux = res if conserve else (res, None)
+    return {"out": pmesh.gather_rows(out, mesh).numpy(),
+            "local": out.numpy(), "flux": _flux(flux), "traffic": traffic,
+            "dtype": str(out.dtype)}
+
+
+def ell_tables_of(mesh, frames, tables, other, kernel):
+    """The sharded ELL apply of ``tables``' operator with ``other``'s base
+    and weights as explicit tensors, on the gather route or (``kernel``)
+    the kernel route; the gathered output."""
+    op, o = _ell_op(tables), _ell_op(other)
+    x = pmesh.shard_rows(torch.as_tensor(frames), mesh)
+    kw = dict(base=torch.as_tensor(o.base), weights=torch.as_tensor(o.weights))
+    fn = (sharding.sharded_apply_ell_kernel if kernel
+          else sharding.sharded_apply_ell)
+    return {"out": pmesh.gather_rows(fn(x, op, mesh, **kw), mesh).numpy()}
+
+
+def _ell_unsharded_kernel(frames: torch.Tensor, op, n_rows: int):
+    """The unsharded kernel route, on any device (on the CPU the wrappers
+    take their plain versions), in the orientation the sharded route
+    takes over ``n_rows`` row shards: the quadrant folded into the table,
+    as ``apply_operator(impl='kernel')`` folds it, where the folded rows
+    divide; else the frames rotated.  Returns (output, folded)."""
+    q = op.spec.quadrant % 4
+    fold = weights_ops.fold_quadrant_ell_cached(op) if q else None
+    folded = fold is not None and not (fold[0].spec.dst_shape[0] % n_rows
+                                       or fold[0].spec.qrot_shape[0] % n_rows)
+    if folded:
+        op, post = fold
+    elif q:
+        frames = quadrant_rotate(frames, q)
+    out = cuda_shear.apply_ell_shear_kernel(frames,
+                                            cuda_shear.kernel_plan(op))
+    return (post(out) if folded else out), folded
+
+
+def ell_kernel_vs_unsharded(mesh, frames, tables):
+    """The sharded kernel route against the unsharded one on this rank's
+    device, bit for bit; the gathered output, the flux pair of the
+    kernel route's output and its launches."""
+    op = _ell_op(tables)
+    whole = torch.as_tensor(frames)
+    ref, folded = _ell_unsharded_kernel(whole, op,
+                                        pmesh.axis(mesh, pmesh.ROWS)[0])
+    before = dict(cuda_shear.LAUNCHES)
+    out = sharding.sharded_apply_ell_kernel(pmesh.shard_rows(whole, mesh),
+                                            op, mesh)
+    launches = {k: cuda_shear.LAUNCHES[k] - before[k] for k in before}
+    got = pmesh.gather_rows(out, mesh)
+    res = {"out": got.numpy(), "cmp": _cmp(got, ref), "launches": launches,
+           "folded": folded}
+    if op.spec.quadrant == 0:
+        res["flux"] = conserve.sharded_flux_ell(
+            pmesh.shard_rows(whole, mesh), out,
+            conserve.ell_flux_factors(op), mesh).numpy()
+    return res
+
+
+def ell_corrupted_flux(mesh, frames, tables):
+    """The flux of a good sharded ELL apply and of its output with two dst
+    rows zeroed (a rank-local fault)."""
+    op = _ell_op(tables)
+    blk = pmesh.shard_rows(torch.as_tensor(frames), mesh)
+    good = pmesh.gather_rows(sharding.sharded_apply_ell(blk, op, mesh), mesh)
+    bad = good.clone()
+    bad[:, 5:7, :] = 0.0
+    factors = conserve.ell_flux_factors(op)
+    return [conserve.sharded_flux_ell(blk, pmesh.shard_rows(d, mesh),
+                                      factors, mesh).numpy()
+            for d in (good, bad)]
+
+
 def rows_roundtrip(mesh, frames):
     """shard_rows then gather_rows, with this rank's block's shape."""
     blk = pmesh.shard_rows(torch.as_tensor(frames), mesh)
@@ -184,8 +288,9 @@ def sharded_vs_unsharded(mesh):
     90-degree fold, the full-ring halo (the last ranks' taps reach rank
     0, so the exchange takes n - 1 hops and middle ranks post nothing on
     the later ones) on both routes, the regrid (kernel 2) plain and
-    masked, and shard/gather of rows that do not divide.  Also counts
-    the kernels' launches of the sharded calls."""
+    masked, the rotated apply's kernel route in bf16, and shard/gather
+    of rows that do not divide.  Also counts the kernels' launches of
+    the sharded calls."""
     dev = pmesh.rank_device()
     n_rows = pmesh.axis(mesh, pmesh.ROWS)[0]
     res = {}
@@ -247,6 +352,19 @@ def sharded_vs_unsharded(mesh):
         res[name] = _cmp(pmesh.gather_rows(out, mesh),
                          regrid.conservative_regrid(fields, src, dst,
                                                     src_mask=m))
+    # the rotated apply's kernel route (the fused shear and the masked
+    # contraction per shard): 8 degrees, dst rows 68 over 128 src rows
+    ell = at.build_operator(at.make_grid_spec((128, 64), 1.0, 0.5,
+                                              (32.0, 64.0), 8.0))
+    frames = _rand((2, 128, 64), 7, dev, torch.bfloat16)
+    before = dict(cuda_shear.LAUNCHES)
+    out = sharding.sharded_apply_ell_kernel(pmesh.shard_rows(frames, mesh),
+                                            ell, mesh)
+    launches["ell"] = {k: cuda_shear.LAUNCHES[k] - before[k]
+                       for k in ("vhshear", "contract")}
+    res["ell"] = _cmp(pmesh.gather_rows(out, mesh), cuda_shear.
+                      apply_ell_shear_kernel(frames,
+                                             cuda_shear.kernel_plan(ell)))
     res["launches"] = launches
     odd = _rand((2, 50, 6), 6, dev)      # 50 rows: ceil blocks
     res["roundtrip"] = _cmp(pmesh.gather_rows(pmesh.shard_rows(odd, mesh),
@@ -259,19 +377,21 @@ def check_sharded_vs_unsharded(res: list, mesh_shape, on_card: bool):
 
     Bit equality wherever the sharded and the unsharded call take the
     same route: each dst row sums the same taps in the same order, only
-    the row indices are rebased.  Within f32 1e-5 (times the input's
+    the row indices are rebased (the rotated kernel route's too: each
+    rank's plan is the global plan's rows shifted).  Within f32 1e-5 (times the input's
     largest value for the fold) where they do not: the fold's residual
     flip or transpose against ``apply_operator``, and the ring on the
     plain banded route against kernel 1.  On the CPU ``impl='auto'``
     takes the plain banded route, which gives bf16 in float32 out: it is
     held within one bf16 ulp of kernel 1's plain version there.  On the
-    card every rank launches kernel 1 once a separable call and kernel 2
-    once a regrid (twice masked); on the CPU the wrappers launch nothing.
+    card every rank launches kernel 1 once a separable call, kernel 2
+    once a regrid (twice masked) and the fused shear and the contraction
+    once a rotated call; on the CPU the wrappers launch nothing.
     """
     n_data, n_rows = mesh_shape
     for r in res:
         exact = ["u8", "f32", "regrid", "regrid_masked", "ring_kernel",
-                 "roundtrip"] + (["bf16"] if on_card else [])
+                 "ell", "roundtrip"] + (["bf16"] if on_card else [])
         for name in exact:
             assert r[name]["equal"], (name, r[name])
         assert on_card or r["bf16"]["max_abs_err"] <= 2.0 ** -8, r["bf16"]
@@ -285,8 +405,10 @@ def check_sharded_vs_unsharded(res: list, mesh_shape, on_card: bool):
         assert abs(fs - r["host_fs"]) <= 1e-5 * abs(r["host_fs"]), r
         assert r["flux"] == res[0]["flux"]
         assert r["launches"] == (
-            {"bf16": 1, "u8": 1, "regrid": 1, "regrid_masked": 2} if on_card
-            else {"bf16": 0, "u8": 0, "regrid": 0, "regrid_masked": 0})
+            {"bf16": 1, "u8": 1, "regrid": 1, "regrid_masked": 2,
+             "ell": {"vhshear": 1, "contract": 1}} if on_card
+            else {"bf16": 0, "u8": 0, "regrid": 0, "regrid_masked": 0,
+                  "ell": {"vhshear": 0, "contract": 0}})
     # rank 0 sends its whole f32 block, b x 8 rows x (8 n_rows) columns,
     # on each of the ring's n_rows - 1 hops
     assert res[0]["ring_p2p"] == ((n_rows - 1) * (2 // n_data) * 8
