@@ -57,6 +57,11 @@ contraction, with the exact ELL weights re-indexed by
   ``ShearKernelPlan`` over its halo-extended block is the global plan's
   rows shifted (``ShardedKernelPlan.rank``), so the same two kernels run
   per shard (``parallel.sharding.sharded_apply_ell_kernel``).
+  ``build_sharded_kernel_plan_2d(op, n_r, n_c)`` (pallas_shear.py:872)
+  does the same on a rows x cols mesh: both shears commute with 2-D
+  sharding, so rank (i, j)'s plan is the global plan shifted along both
+  axes, with its live spans recomputed on its block of the weights
+  (``Sharded2DKernelPlan.rank``).
 
 Dtype contract (pallas_shear.py:789-792): bf16 and f32 frames give that
 dtype out; any other real dtype is cast to f32 first and gives f32.
@@ -74,7 +79,7 @@ import os
 import tempfile
 import warnings
 import zipfile
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -618,41 +623,88 @@ class ShardedKernelPlan:
         return hit
 
 
-def check_rank_rows(op: EllOperator, plan: ShearKernelPlan, n_dev: int,
-                    halo: int) -> None:
+def _rank_shears(p: ShearKernelPlan, off_i: int, off_j: int, Hloc: int,
+                 Wloc: int, cols: slice):
+    """(gy, hx, cx0, TH, TW) of the plan of a rank whose extended block of
+    Hloc x Wloc source pixels starts at global (off_i, off_j) and whose
+    dst columns are ``cols``: T_loc[t, x] = T_glob[t + off_i, x + off_j],
+    so ``gy`` is the global table at the block's columns, ``hx`` at its
+    sheared rows and ``cx0`` shifted; TH and TW hold every T row and
+    column that is not all zero and every window (indices past the
+    global tables clip to their ends, where the block holds zeros)."""
+    gy = np.ascontiguousarray(p.gy[np.clip(off_j + np.arange(Wloc), 0,
+                                           p.qW - 1)])
+    TH = Hloc + int(gy.max()) + 1
+    hx = np.ascontiguousarray(p.hx[np.clip(off_i + np.arange(TH), 0,
+                                           p.TH - 1)])
+    cx0 = np.ascontiguousarray(p.cx0[cols].astype(np.int64) - off_j,
+                               dtype=np.int32)
+    TW = max(Wloc + int(hx.max()) + 1, int(cx0.max()) + p.Kb)
+    return gy, hx, cx0, TH, TW
+
+
+def check_rank_blocks(op: EllOperator, plan: ShearKernelPlan, n_r: int,
+                      halo_y: int, n_c: int = 0, halo_x: int = 0) -> None:
     """Raise ValueError unless, on every rank, every live tap of its dst
-    rows reads a source row inside its extended block (the ELL table's
-    live taps) and a T row inside its local plane ``[0, Hloc + max gy +
-    1)`` (the plan's live taps), with ``halo`` rows on each side."""
-    Hd, qH = op.spec.dst_shape[0], op.spec.qrot_shape[0]
-    db, sb = Hd // n_dev, qH // n_dev
-    Hloc = sb + 2 * halo
-    TH = Hloc + int(plan.gy.max()) + 1
-    off = (np.arange(Hd) // db * sb - halo).astype(np.int64)
+    pixels reads a source pixel inside its extended block (the ELL
+    table's live taps) and a T pixel inside its local plane (the plan's
+    live taps, ``_rank_shears``' TH x TW), with ``halo_y`` rows (and with
+    ``n_c`` column ranks, ``halo_x`` columns) on each side.  ``n_c`` 0:
+    the columns are not sharded, the rows alone are checked against
+    ``[0, Hloc + max gy + 1)`` (the row-sharded plan keeps the global
+    TW).  Every rank checks every rank, so all ranks take the same
+    route."""
+    Hd, Wd = op.spec.dst_shape
+    qH, qW = op.spec.qrot_shape
+    cols_split = n_c > 0
+    n_c = max(n_c, 1)
+    db_r, sb_r, db_c, sb_c = Hd // n_r, qH // n_r, Wd // n_c, qW // n_c
+    Hloc, Wloc = sb_r + 2 * halo_y, sb_c + 2 * halo_x
+    ri, cj = np.arange(Hd) // db_r, np.arange(Wd) // db_c
+    off_r = (ri * sb_r - halo_y).astype(np.int64)[:, None]    # (Hd, 1)
+    off_c = (cj * sb_c - halo_x).astype(np.int64)[None, :]    # (1, Wd)
+    ext = np.zeros((2, n_r, n_c), np.int64)                    # TH, TW
+    for i in range(n_r):
+        for j in range(n_c):
+            ext[:, i, j] = _rank_shears(
+                plan, i * sb_r - halo_y, j * sb_c - halo_x, Hloc, Wloc,
+                slice(j * db_c, (j + 1) * db_c))[3:]
+    TH, TW = (e[ri][:, cj] for e in ext)                       # (Hd, Wd)
     big = np.int64(1) << 40
 
-    def outside(first, taps, live, hi):
-        """Rows whose live taps (rows first + a, live (rows, ..., a))
-        leave [0, hi) once rebased by their rank's offset."""
-        a = np.arange(taps, dtype=np.int64)
-        r = first.astype(np.int64)[..., None] + a - off.reshape(
-            (-1,) + (1,) * (first.ndim - 1) + (1,))
-        lo = np.where(live, r, big).reshape(Hd, -1).min(axis=1)
-        top = np.where(live, r, -big).reshape(Hd, -1).max(axis=1)
-        return np.nonzero((lo < 0) | (top >= hi))[0]
+    def outside(first, off, live, hi):
+        """Pixels whose live taps (first + k, live (Hd, Wd, k)) leave
+        [0, hi) once rebased by their rank's offset."""
+        r = (np.broadcast_to(first, (Hd, Wd)).astype(np.int64) - off)[
+            ..., None] + np.arange(live.shape[-1])
+        lo = np.where(live, r, big).min(axis=-1)
+        top = np.where(live, r, -big).max(axis=-1)
+        return np.argwhere((lo < 0) | (top >= hi))
 
-    live_ell = (np.asarray(op.weights) != 0).any(axis=-1)   # (Hd, Wd, K)
-    bad = outside(op.base[..., 0], op.window, live_ell, Hloc)
-    if len(bad):
-        raise ValueError(f"dst row {bad[0]} reads source rows outside its "
-                         f"rank's block of {sb} rows and a halo of {halo}")
-    live_t = np.zeros((Hd, plan.Ka), bool)
+    live_ell = np.asarray(op.weights) != 0                     # (Hd, Wd, K, K)
+    checks = [(op.base[..., 0], off_r, live_ell.any(axis=-1), Hloc,
+               f"source rows outside its rank's block of {sb_r} rows and a "
+               f"halo of {halo_y}")]
+    live_a = np.zeros((Hd, Wd, plan.Ka), bool)
+    live_b = np.zeros((Hd, Wd, plan.Kb), bool)
     for t in range(plan.Ka * plan.Kb):
-        live_t[:, t // plan.Kb] |= (plan.w2[t] != 0).any(axis=1)
-    bad = outside(plan.ry0, plan.Ka, live_t, TH)
-    if len(bad):
-        raise ValueError(f"dst row {bad[0]} reads T rows outside its rank's "
-                         f"local plane of {TH} rows")
+        nz = plan.w2[t] != 0
+        live_a[..., t // plan.Kb] |= nz
+        live_b[..., t % plan.Kb] |= nz
+    checks.append((plan.ry0[:, None], off_r, live_a, TH,
+                   "T rows outside its rank's local plane"))
+    if cols_split:
+        checks += [(op.base[..., 1], off_c, live_ell.any(axis=-2), Wloc,
+                    f"source columns outside its rank's block of {sb_c} "
+                    f"columns and a halo of {halo_x}"),
+                   (plan.cx0[None, :], off_c, live_b, TW,
+                    "T columns outside its rank's local plane")]
+    for first, off, live, hi, what in checks:
+        bad = outside(first, off, live, hi)
+        if len(bad):
+            y, x = bad[0]
+            raise ValueError(f"dst pixel ({y}, {x}) (dst row {y}) reads "
+                             f"{what}")
 
 
 def build_sharded_kernel_plan(op: EllOperator,
@@ -663,21 +715,115 @@ def build_sharded_kernel_plan(op: EllOperator,
     ``kernel_plan_cached``.  Raises ValueError (cached too) where the row
     counts do not divide ``n_dev``, the halo needs more than ``n_dev -
     1`` ring hops, ``build_shear_plan`` rejects the geometry, or a live
-    tap of some rank's rows would leave its block (``check_rank_rows``).
+    tap of some rank's rows would leave its block (``check_rank_blocks``).
     Every rank checks every rank's rows, so all take the same route.
-    The halo is exact (``parallel.sharding._ell_rows``); JAX's 8-row
+    The halo is exact (``parallel.sharding._ell_blocks``); JAX's 8-row
     rounding and 8-aligned blocks are TPU layout and are not kept."""
-    from ..parallel.sharding import _ell_rows
+    from ..parallel.sharding import _ell_blocks
 
     key = _plan_key(op) + (int(n_dev),)
     hit = _SHARDED_CACHE.get(key)
     if hit is None:
         try:
-            db, sb, halo = _ell_rows(op, n_dev)
+            db, sb, halo = _ell_blocks(op, n_dev)[:3]
             plan = kernel_plan_cached(op)
-            check_rank_rows(op, plan, n_dev, halo)
+            check_rank_blocks(op, plan, n_dev, halo)
             hit = ShardedKernelPlan(n_dev=int(n_dev), halo=halo, sb=sb,
                                     db=db, Hloc=sb + 2 * halo, plan=plan)
+        except ValueError as e:
+            hit = str(e)
+        _SHARDED_CACHE.put(key, hit)
+    if isinstance(hit, str):
+        raise ValueError(hit)
+    return hit
+
+
+@dataclasses.dataclass(eq=False)
+class Sharded2DKernelPlan:
+    """The (rows x cols) sharded rotated apply's plans (counterpart of
+    ``Sharded2DShearPlan``, pallas_shear.py:819-870): ``n_r`` x ``n_c``
+    ranks, rank (i, j) holding ``sb_r`` x ``sb_c`` source pixels extended
+    by ``halo_y`` rows and ``halo_x`` columns on each side (``Hloc`` x
+    ``Wloc``) and computing ``db_r`` x ``db_c`` dst pixels.
+
+    Both shears commute with 2-D sharding: gy is indexed by source column
+    and hx by sheared row, so with offsets ``off_i = i * sb_r - halo_y``
+    and ``off_j = j * sb_c - halo_x`` a rank's T is the global T shifted,
+    ``T_loc[t, x] = T_glob[t + off_i, x + off_j]``, and its plan is the
+    global ``plan`` shifted along both axes (``rank``): ``gy`` at its
+    columns, ``hx`` at its sheared rows, ``ry0 - off_i``, ``cx0 - off_j``,
+    its block of ``w2``, and its live spans recomputed on that block (a
+    dst row may have no live pixel in a column block: span (0, 0), dead
+    tiles).  Each rank's plan is an ordinary ``ShearKernelPlan``, tiled by
+    the usual planners at its first launch."""
+
+    n_r: int
+    n_c: int
+    halo_y: int
+    halo_x: int
+    sb_r: int
+    sb_c: int
+    db_r: int
+    db_c: int
+    plan: ShearKernelPlan
+    ranks: Dict[Tuple[int, int], ShearKernelPlan] = dataclasses.field(
+        default_factory=dict, repr=False)
+
+    @property
+    def Hloc(self) -> int:
+        return self.sb_r + 2 * self.halo_y
+
+    @property
+    def Wloc(self) -> int:
+        return self.sb_c + 2 * self.halo_x
+
+    def rank(self, i: int, j: int) -> ShearKernelPlan:
+        """Rank (i, j)'s plan over its extended block, derived at the
+        first call and kept."""
+        hit = self.ranks.get((i, j))
+        if hit is None:
+            p = self.plan
+            rows = slice(i * self.db_r, (i + 1) * self.db_r)
+            cols = slice(j * self.db_c, (j + 1) * self.db_c)
+            off_i = i * self.sb_r - self.halo_y
+            gy, hx, cx0, TH, TW = _rank_shears(
+                p, off_i, j * self.sb_c - self.halo_x, self.Hloc, self.Wloc,
+                cols)
+            w2 = np.ascontiguousarray(p.w2[:, rows, cols])
+            hit = self.ranks[(i, j)] = ShearKernelPlan(
+                qH=self.Hloc, qW=self.Wloc, TH=TH, TW=TW, Hd=self.db_r,
+                Wd=self.db_c, Ka=p.Ka, Kb=p.Kb, gy=gy, hx=hx,
+                ry0=np.ascontiguousarray(p.ry0[rows] - off_i,
+                                         dtype=np.int32),
+                cx0=cx0, w2=w2, span=live_spans(w2))
+        return hit
+
+
+def build_sharded_kernel_plan_2d(op: EllOperator, n_r: int,
+                                 n_c: int) -> Sharded2DKernelPlan:
+    """The (rows x cols) sharded plans of ``op`` over ``n_r`` x ``n_c``
+    ranks (counterpart of ``build_sharded_kernel_plan_2d``,
+    pallas_shear.py:872), cached by table content and ``(n_r, n_c)``; the
+    global plan comes through ``kernel_plan_cached``.  Raises ValueError
+    (cached too) where a count does not divide the mesh, a halo needs
+    more ring hops than its axis has neighbours, ``build_shear_plan``
+    rejects the geometry, or a live tap of some rank would leave its
+    block or its local T plane (``check_rank_blocks``).  The halos are
+    exact (``parallel.sharding._ell_blocks``); JAX's 8-row rounding, its
+    ``sb_r % 8`` rule and its 128-column bases are TPU layout and are not
+    kept."""
+    from ..parallel.sharding import _ell_blocks
+
+    key = _plan_key(op) + (int(n_r), int(n_c))
+    hit = _SHARDED_CACHE.get(key)
+    if hit is None:
+        try:
+            db_r, sb_r, halo_y, db_c, sb_c, halo_x = _ell_blocks(op, n_r, n_c)
+            plan = kernel_plan_cached(op)
+            check_rank_blocks(op, plan, n_r, halo_y, n_c, halo_x)
+            hit = Sharded2DKernelPlan(
+                n_r=int(n_r), n_c=int(n_c), halo_y=halo_y, halo_x=halo_x,
+                sb_r=sb_r, sb_c=sb_c, db_r=db_r, db_c=db_c, plan=plan)
         except ValueError as e:
             hit = str(e)
         _SHARDED_CACHE.put(key, hit)

@@ -1,16 +1,18 @@
-"""Multi-GPU parallelism: row sharding with a ring halo exchange, on
-``torch.distributed`` (counterpart of ``aainterp/parallel``).
+"""Multi-GPU parallelism: row sharding and 2-D (rows x cols) sharding
+with a ring halo exchange, on ``torch.distributed`` (counterpart of
+``aainterp/parallel``).
 
-* ``mesh`` — the ``("data", "rows")`` device mesh, a rank's block of a
-  batch (``shard_rows``, ``gather_rows``), the staged collectives and the
-  rank processes (``RankPool``, ``run_spmd``);
-* ``sharding`` — the row-sharded separable apply (plain, and on kernel 1
-  per shard) and rotated (ELL) apply (plain gather, and the fused shear
-  and the masked contraction per shard), their ring halo and the
-  quadrant fold under sharding;
+* ``mesh`` — the ``("data", "rows")`` and ``("data", "rows", "cols")``
+  device meshes, a rank's block of a batch (``shard_rows`` /
+  ``gather_rows``, ``shard_blocks`` / ``gather_blocks``), the staged
+  collectives and the rank processes (``RankPool``, ``run_spmd``);
+* ``sharding`` — the sharded separable apply (plain, and on kernel 1 per
+  shard) and rotated (ELL) apply (plain gather, and the fused shear and
+  the masked contraction per shard), row-sharded and ``_2d``, their ring
+  halos and the quadrant folds under sharding;
 * ``conserve`` — the global conservation flux: local float64 dots, then
   one ``all_reduce``.
 
-1-D (data x rows) meshes and the forward applies only; 2-D meshes and
-the transposes are not ported yet (ROADMAP.md, Queue 1).
+The forward applies only; the transposes and the autograd wrappers are
+not ported yet (ROADMAP.md, Queue 1).
 """

@@ -1,5 +1,6 @@
-"""Sharded global conservation check (counterpart of the 1-D part of
-``aainterp/parallel/conserve.py``): local dots, then one ``all_reduce``.
+"""Sharded global conservation check (counterpart of
+``aainterp/parallel/conserve.py``): local dots, then one ``all_reduce``,
+for row-sharded and 2-D (rows x cols) sharded applies.
 
 The check is an exact linear identity.  For a resampling operator
 ``dst = W_norm @ src`` with raw (un-normalised) overlap weights
@@ -78,38 +79,76 @@ def ell_flux_factors(op):
     return m2, cov.reshape(qH, qW)
 
 
-def _block(v: np.ndarray, n: int, i: int, local_rows: int, what: str):
-    if len(v) % n or len(v) // n != local_rows:
-        raise ValueError(f"{what} block has {local_rows} rows; the factors "
-                         f"give {len(v)} rows over {n} row shards")
-    return v[i * local_rows:(i + 1) * local_rows]
+def _cut(v: np.ndarray, mesh, name: str, local: int, what: str):
+    """This rank's block of a host factor ``v`` along its leading axis,
+    cut over the mesh dim ``name``; ``local`` is the block's length."""
+    n, i, _ = mesh_ops.axis(mesh, name)
+    if len(v) % n or len(v) // n != local:
+        raise ValueError(f"{what} block has {local} {name}; the factors "
+                         f"give {len(v)} {name} over {n} shards")
+    return v[i * local:(i + 1) * local]
 
 
-def sharded_flux_separable(src: torch.Tensor, dst: torch.Tensor, factors,
-                           mesh) -> torch.Tensor:
-    """(2,) float64 [flux_dst, flux_src] on ``dst``'s device, the same on
-    every rank: this rank's float64 dots, then one ``all_reduce`` over the
-    whole mesh (``mesh.make_mesh`` spans every rank of the process
-    group).
+def _reduce(fd: torch.Tensor, fs: torch.Tensor) -> torch.Tensor:
+    """The (2,) float64 pair of this rank's dots, summed over the whole
+    mesh (``mesh.make_mesh`` spans every rank of the process group) in
+    one ``all_reduce``."""
+    return mesh_ops.all_reduce(torch.stack([fd, fs]), None)
 
-    src/dst: this rank's row blocks, (b, rows, cols) (src in the
-    orientation of the band operators).  The row factors are cut to the
-    rank's rows; the column factors are whole.
-    """
+
+def _separable(src, dst, factors, mesh, cols: bool) -> torch.Tensor:
     my, mx, covy, covx = (np.ascontiguousarray(f, dtype=np.float64)
                           for f in factors)
-    n, i, _ = mesh_ops.axis(mesh, mesh_ops.ROWS)
     dev = dst.device
-    my = _block(my, n, i, dst.shape[-2], "dst")
-    covy = _block(covy, n, i, src.shape[-2], "src")
+    my = _cut(my, mesh, mesh_ops.ROWS, dst.shape[-2], "dst")
+    covy = _cut(covy, mesh, mesh_ops.ROWS, src.shape[-2], "src")
+    if cols:
+        mx = _cut(mx, mesh, mesh_ops.COLS, dst.shape[-1], "dst")
+        covx = _cut(covx, mesh, mesh_ops.COLS, src.shape[-1], "src")
 
     def dot(x, rows, cols):
         return torch.einsum("...rc,r,c->", x.to(torch.float64),
                             torch.as_tensor(rows, device=dev),
                             torch.as_tensor(cols, device=dev))
 
-    out = torch.stack([dot(dst, my, mx), dot(src.to(dev), covy, covx)])
-    return mesh_ops.all_reduce(out, None)
+    return _reduce(dot(dst, my, mx), dot(src.to(dev), covy, covx))
+
+
+def sharded_flux_separable(src: torch.Tensor, dst: torch.Tensor, factors,
+                           mesh) -> torch.Tensor:
+    """(2,) float64 [flux_dst, flux_src] on ``dst``'s device, the same on
+    every rank: this rank's float64 dots, then one ``all_reduce`` over the
+    whole mesh.
+
+    src/dst: this rank's row blocks, (b, rows, cols) (src in the
+    orientation of the band operators).  The row factors are cut to the
+    rank's rows; the column factors are whole.
+    """
+    return _separable(src, dst, factors, mesh, False)
+
+
+def sharded_flux_separable_2d(src: torch.Tensor, dst: torch.Tensor,
+                              factors, mesh) -> torch.Tensor:
+    """``sharded_flux_separable`` for 2-D (rows x cols) sharded applies:
+    src/dst are this rank's 2-D blocks; the row factors are cut to its
+    rows and the column factors to its columns (JAX: conserve.py:128)."""
+    return _separable(src, dst, factors, mesh, True)
+
+
+def _ell(src, dst, factors, mesh, cols: bool) -> torch.Tensor:
+    m2, cov = (np.ascontiguousarray(f, dtype=np.float64) for f in factors)
+    dev = dst.device
+    m2 = _cut(m2, mesh, mesh_ops.ROWS, dst.shape[-2], "dst")
+    cov = _cut(cov, mesh, mesh_ops.ROWS, src.shape[-2], "src")
+    if cols:
+        m2 = _cut(m2.T, mesh, mesh_ops.COLS, dst.shape[-1], "dst").T
+        cov = _cut(cov.T, mesh, mesh_ops.COLS, src.shape[-1], "src").T
+
+    def dot(x, f):
+        return torch.einsum("...rc,rc->", x.to(torch.float64),
+                            upload(np.ascontiguousarray(f), dev))
+
+    return _reduce(dot(dst, m2), dot(src.to(dev), cov))
 
 
 def sharded_flux_ell(src: torch.Tensor, dst: torch.Tensor, factors,
@@ -123,15 +162,12 @@ def sharded_flux_ell(src: torch.Tensor, dst: torch.Tensor, factors,
     ``ell_flux_factors`` these are; dst: its output rows.  (m2, cov) are
     whole (Hd, Wd) and (qH, qW) host arrays, cut to the rank's rows.
     """
-    m2, cov = (np.ascontiguousarray(f, dtype=np.float64) for f in factors)
-    n, i, _ = mesh_ops.axis(mesh, mesh_ops.ROWS)
-    dev = dst.device
-    m2 = _block(m2, n, i, dst.shape[-2], "dst")
-    cov = _block(cov, n, i, src.shape[-2], "src")
+    return _ell(src, dst, factors, mesh, False)
 
-    def dot(x, f):
-        return torch.einsum("...rc,rc->", x.to(torch.float64),
-                            upload(f, dev))
 
-    out = torch.stack([dot(dst, m2), dot(src.to(dev), cov)])
-    return mesh_ops.all_reduce(out, None)
+def sharded_flux_ell_2d(src: torch.Tensor, dst: torch.Tensor, factors,
+                        mesh) -> torch.Tensor:
+    """``sharded_flux_ell`` for the 2-D (rows x cols) sharded rotated
+    apply: m2 and cov are cut to this rank's rows and columns (JAX:
+    conserve.py:203)."""
+    return _ell(src, dst, factors, mesh, True)

@@ -1,5 +1,6 @@
-"""The ("data", "rows") device mesh, a rank's block of a batch, the
-collectives of the sharded applies, and the rank processes.
+"""The ("data", "rows") and ("data", "rows", "cols") device meshes, a
+rank's block of a batch, the collectives of the sharded applies, and the
+rank processes.
 
 Counterpart of the JAX package's ``Mesh``, of
 ``device_put(frames, NamedSharding(mesh, P("data", "rows", None)))`` and
@@ -9,11 +10,15 @@ block of the batch, ``(B / n_data, H / n_rows, W)``, and calls the same
 function.
 
 * ``make_mesh`` builds a ``torch.distributed.device_mesh.DeviceMesh``
-  with dims ``("data", "rows")`` over every rank of the process group.
+  over every rank of the process group: dims ``("data", "rows")`` from
+  ``(n_data, n_rows)``, or ``("data", "rows", "cols")`` from ``(n_data,
+  n_rows, n_cols)`` for the 2-D (rows x cols) sharded applies.
 * ``shard_rows`` cuts a rank's block out of a whole batch, and
-  ``gather_rows`` puts the whole batch back together on every rank.  Row
-  counts that do not divide the mesh split as JAX's uneven sharding does:
-  blocks of ceil(H / n) rows, the last ones shorter.
+  ``gather_rows`` puts the whole batch back together on every rank;
+  ``shard_blocks`` / ``gather_blocks`` do the same for the 2-D blocks
+  ``(B / n_data, H / n_rows, W / n_cols)``.  Counts that do not divide
+  the mesh split as JAX's uneven sharding does: blocks of ceil(H / n)
+  rows (or columns), the last ones shorter.
 * ``exchange``, ``all_gather`` and ``all_reduce`` are the collectives the
   sharded applies use.  Under NCCL a CUDA tensor goes to the collective as
   it is.  Under gloo a CUDA tensor is staged through pinned host memory:
@@ -43,7 +48,8 @@ import torch
 import torch.distributed as dist
 
 DIMS = ("data", "rows")
-DATA, ROWS = DIMS
+DIMS_2D = ("data", "rows", "cols")
+DATA, ROWS, COLS = DIMS_2D
 BACKENDS = ("nccl", "gloo")
 DEVICES = ("cuda", "cpu")
 
@@ -65,21 +71,29 @@ def rank_device() -> torch.device:
 
 
 def make_mesh(mesh_shape: Sequence[int], backend: str):
-    """The ``(n_data, n_rows)`` DeviceMesh over every rank of the default
-    process group.  Its device type is the collectives' own: ``cuda``
-    under NCCL, ``cpu`` under gloo (which stages CUDA tensors)."""
+    """The DeviceMesh over every rank of the default process group: dims
+    ``("data", "rows")`` for an ``(n_data, n_rows)`` shape, ``("data",
+    "rows", "cols")`` for ``(n_data, n_rows, n_cols)``.  Its device type
+    is the collectives' own: ``cuda`` under NCCL, ``cpu`` under gloo
+    (which stages CUDA tensors)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     shape = tuple(int(n) for n in mesh_shape)
-    if len(shape) != len(DIMS) or math.prod(shape) != dist.get_world_size():
-        raise ValueError(f"mesh shape {shape} must be (n_data, n_rows) with "
-                         f"n_data * n_rows == {dist.get_world_size()} ranks")
+    dims = {len(DIMS): DIMS, len(DIMS_2D): DIMS_2D}.get(len(shape))
+    if dims is None or math.prod(shape) != dist.get_world_size():
+        raise ValueError(f"mesh shape {shape} must be (n_data, n_rows) or "
+                         f"(n_data, n_rows, n_cols) with its product == "
+                         f"{dist.get_world_size()} ranks")
     return init_device_mesh("cuda" if backend == "nccl" else "cpu", shape,
-                            mesh_dim_names=DIMS)
+                            mesh_dim_names=dims)
 
 
 def axis(mesh, name: str):
     """(size, this rank's index, process group) of the mesh dim ``name``."""
+    if name not in mesh.mesh_dim_names:
+        raise ValueError(f"the mesh has no {name!r} dim (dims "
+                         f"{mesh.mesh_dim_names}); a 2-D sharded apply takes "
+                         f"a make_mesh((n_data, n_rows, n_cols), ...) mesh")
     dim = mesh.mesh_dim_names.index(name)
     return mesh.size(dim), mesh.get_local_rank(name), mesh.get_group(name)
 
@@ -157,34 +171,77 @@ def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     return t
 
 
-def shard_rows(frames: torch.Tensor, mesh) -> torch.Tensor:
-    """This rank's block of a whole batch: (B, H, W) -> (B / n_data, rows
-    of its block, W)."""
+def _block_along(x: torch.Tensor, name: str, mesh, dim: int) -> torch.Tensor:
+    """This rank's block of ``x`` along tensor dim ``dim``, cut over the
+    mesh dim ``name`` (``row_block``)."""
+    n, i, _ = axis(mesh, name)
+    lo, hi = row_block(x.shape[dim], n, i)
+    return x.narrow(dim, lo, hi - lo)
+
+
+def _gather_along(local: torch.Tensor, name: str, mesh,
+                  dim: int) -> torch.Tensor:
+    """The whole of tensor dim ``dim`` from every rank of the mesh dim
+    ``name`` (blocks of ``row_block``'s sizes, padded to one size for
+    the all-gather), on ``local``'s device."""
+    group = axis(mesh, name)[2]
+    dim = dim % local.ndim
+    n = torch.tensor([local.shape[dim]], dtype=torch.int64,
+                     device=local.device)
+    counts = [int(c) for c in all_gather(n, group)]
+    most = max(counts)
+    if local.shape[dim] < most:         # blocks of one size for the gather
+        shape = list(local.shape)
+        shape[dim] = most - local.shape[dim]
+        local = torch.cat([local, local.new_zeros(shape)], dim=dim)
+    parts = all_gather(local, group)
+    return torch.cat([p.narrow(dim, 0, c) for p, c in zip(parts, counts)],
+                     dim=dim)
+
+
+def _data_block(frames: torch.Tensor, mesh) -> torch.Tensor:
     n_d, i_d, _ = axis(mesh, DATA)
     if frames.ndim != 3 or frames.shape[0] % n_d:
         raise ValueError(f"frames {tuple(frames.shape)} must be (B, H, W) "
                          f"with B divisible by the {n_d} data shards")
-    n_r, i_r, _ = axis(mesh, ROWS)
-    lo, hi = row_block(frames.shape[-2], n_r, i_r)
     b = frames.shape[0] // n_d
-    return frames[i_d * b:(i_d + 1) * b, lo:hi].contiguous()
+    return frames[i_d * b:(i_d + 1) * b]
+
+
+def shard_rows(frames: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's block of a whole batch: (B, H, W) -> (B / n_data, rows
+    of its block, W)."""
+    return _block_along(_data_block(frames, mesh), ROWS, mesh,
+                        -2).contiguous()
 
 
 def gather_rows(local: torch.Tensor, mesh) -> torch.Tensor:
     """The whole batch from every rank's block (``shard_rows``' inverse),
     on every rank, on ``local``'s device."""
-    group = axis(mesh, ROWS)[2]
-    rows = torch.tensor([local.shape[-2]], dtype=torch.int64,
-                        device=local.device)
-    counts = [int(c) for c in all_gather(rows, group)]
-    most = max(counts)
-    if local.shape[-2] < most:          # blocks of one size for the gather
-        pad = local.new_zeros(local.shape[:-2] + (most - local.shape[-2],
-                                                  local.shape[-1]))
-        local = torch.cat([local, pad], dim=-2)
-    parts = all_gather(local, group)
-    out = torch.cat([p[..., :c, :] for p, c in zip(parts, counts)], dim=-2)
+    out = _gather_along(local, ROWS, mesh, -2)
     return torch.cat(all_gather(out, axis(mesh, DATA)[2]), dim=0)
+
+
+def plane_block(whole: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's (rows, cols) block of whole (..., H, W) planes on a
+    ("data", "rows", "cols") mesh (``row_block`` on each axis)."""
+    return _block_along(_block_along(whole, ROWS, mesh, -2), COLS, mesh,
+                        -1).contiguous()
+
+
+def shard_blocks(frames: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's 2-D block of a whole batch on a ("data", "rows",
+    "cols") mesh: (B, H, W) -> (B / n_data, rows of its block, columns of
+    its block)."""
+    return plane_block(_data_block(frames, mesh), mesh)
+
+
+def gather_blocks(local: torch.Tensor, mesh) -> torch.Tensor:
+    """The whole batch from every rank's 2-D block (``shard_blocks``'
+    inverse), on every rank, on ``local``'s device."""
+    planes = _gather_along(_gather_along(local, COLS, mesh, -1), ROWS, mesh,
+                           -2)
+    return torch.cat(all_gather(planes, axis(mesh, DATA)[2]), dim=0)
 
 
 # ---------------------------------------------------------------------------

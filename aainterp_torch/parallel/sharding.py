@@ -1,6 +1,6 @@
-"""Row-sharded separable and rotated (ELL) applies with a ring halo
-exchange, on ``torch.distributed`` (counterpart of the 1-D part of
-``aainterp/parallel/sharding.py``).
+"""Row-sharded and 2-D (rows x cols) sharded separable and rotated (ELL)
+applies with a ring halo exchange, on ``torch.distributed`` (counterpart
+of the forward part of ``aainterp/parallel/sharding.py``).
 
 Every rank holds its block of the batch, ``(B / n_data, qH / n_rows, W)``
 (``mesh.shard_rows``), and computes its own block of destination rows,
@@ -14,36 +14,49 @@ where a neighbour is missing, as ``ppermute`` gives, so every block is
 ``sb + 2 * halo`` rows and the rebase is the same on every rank; the
 rebased taps never reach those rows.
 
+The ``_2d`` applies shard the columns too, over the ``cols`` dim of a
+``("data", "rows", "cols")`` mesh (``mesh.shard_blocks``): a rank holds
+``(B / n_data, qH / n_rows, W / n_cols)``, extends it by the row halo
+and then by the column halo of the row-extended block (so the corners
+arrive through the edge neighbour, as JAX's ``sharded_apply_separable_2d``
+documents), and rebases both bands: ``x_start - (j * sb_c - halo_x)``.
+``sharded_local_apply`` is that step for every separable route, 1-D and
+2-D, so only it knows the rebase.
+
 The local apply is one of three:
 
-* ``sharded_apply_banded``: the plain banded apply, or, for float32
-  frames whose y band partitions the source into equal integer blocks
-  (``c0 == 0``, ``qH == m * Hd``), the aligned apply;
-* ``sharded_apply_banded_kernel``: kernel 1 (``ops.cuda_apply``, the port
-  of ``pallas_apply.py:230``), planned by its own planner on each rank's
-  tables; band pairs too wide for shared memory go on to kernel 2 there,
-  as they do unsharded.  JAX needs one kernel plan uniform over the chips
-  (its ``_sharded_pallas_plan``) because ``shard_map`` runs one program;
+* ``sharded_apply_banded`` (``_2d``): the plain banded apply, or, for
+  float32 frames whose bands partition the source into equal integer
+  blocks (the y band's, and on a 2-D mesh the x band's too: ``c0 == 0``,
+  ``n_src == m * n_dst``), the aligned apply;
+* ``sharded_apply_banded_kernel`` (``_2d_kernel``): kernel 1
+  (``ops.cuda_apply``, the port of ``pallas_apply.py:230``), planned by
+  its own planner on each rank's tables; band pairs too wide for shared
+  memory go on to kernel 2 there, as they do unsharded.  JAX needs one
+  kernel plan uniform over the chips (its ``_sharded_pallas_plan`` and
+  ``_sharded_pallas_plan_2d``) because ``shard_map`` runs one program;
   here each rank is a process of its own and plans its own shard.  On a
   CPU tensor the wrapper takes its plain version;
 * the regrid's (``regrid.conservative_regrid_sharded``): the route of the
   unsharded ``regrid.apply_band_operators(impl='auto')``.
 
-``sharded_apply_separable`` folds a 90-degree quadrant into the bands
-(``_folded_sharded_bands``) and moves the residual flip or transpose to
-the small dst side; where the folded row counts do not divide the mesh,
-the source is gathered, rotated and cut again (the global rot90 route).
+``sharded_apply_separable`` (``_2d``) folds a 90-degree quadrant into the
+bands (``_folded_sharded_bands``, ``_2d``) and moves the residual flip or
+transpose to the small dst side; where the folded counts do not divide
+the mesh, the source is gathered, rotated and cut again (the global rot90
+route).
 
-``sharded_apply_ell`` is the rotated apply under the same scheme.  Its
-halo is the overhang of each rank's K-window bases (``_ell_axis_halo``),
-which grows with W * sin(angle) and may take several hops.  The local
-apply is the plain ``apply_ell`` on the rank's rows of the table, rebased
-('gather'), or the fused shear and the masked contraction of
-``ops.cuda_shear`` on the rank's plan, the global shear plan's rows
-shifted (``sharded_apply_ell_kernel``, ``build_sharded_kernel_plan``).
-JAX's ``make_sharded_ell_pallas`` returns its plan tables to pass them
-as jit arguments; a rank here plans once and keeps its plan, so the
-maker has no counterpart.  A quadrant folds into the table, explicit
+``sharded_apply_ell`` (``_2d``) is the rotated apply under the same
+scheme.  Its halo is the overhang of each rank's K-window bases
+(``_ell_axis_halo``, per axis), which grows with W * sin(angle) and may
+take several hops.  The local apply is the plain ``apply_ell`` on the
+rank's block of the table, rebased ('gather'), or the fused shear and the
+masked contraction of ``ops.cuda_shear`` on the rank's plan, the global
+shear plan shifted (``sharded_apply_ell_kernel``,
+``build_sharded_kernel_plan``; ``_2d``: ``build_sharded_kernel_plan_2d``).
+JAX's ``make_sharded_ell_pallas`` (``_2d``) returns its plan tables to
+pass them as jit arguments; a rank here plans once and keeps its plan, so
+the makers have no counterpart.  A quadrant folds into the table, explicit
 tables with it (``fold_tables_device``), on both routes.
 """
 
@@ -66,11 +79,12 @@ from ..utils.device import upload
 from ..utils.digest import array_digest
 from ..utils.lru import LruDict
 from . import mesh as mesh_ops
+from .mesh import COLS, ROWS
 
 IMPLS = ("auto", "kernel", "banded")
 ELL_IMPLS = ("auto", "kernel", "gather")
 
-# ELL halos by base table content and blocks (_ell_rows): milliseconds of
+# ELL halos by base table content and blocks (_ell_blocks): milliseconds of
 # host work a call at 2048^2 otherwise
 _HALO_CACHE = LruDict(16)
 
@@ -121,6 +135,56 @@ def _folded_sharded_bands(op: weights_ops.SeparableOperator, n_dev: int):
                 measures=meas)
 
 
+def _folded_sharded_bands_2d(op: weights_ops.SeparableOperator, n_r: int,
+                             n_c: int):
+    """Quadrant folding under 2-D (rows x cols) sharding, or None (use the
+    rot90 route).
+
+    Not the 1-D fold with a second axis: with columns sharded the x band
+    must slide forward too, so a flipped x band takes the same dst-order
+    reversal as a flipped y band (``rr(flip(.))``) and the residual
+    column reversal moves into ``post`` (R_r = dst-row reversal, T =
+    trailing transpose):
+
+      q=0:  out =      inner             y = wy            x = wx
+      q=1:  out = T(R_r inner)           y = rr(flip(wx))  x = wy
+      q=2:  out = rot180(inner)          y = rr(flip(wy))  x = rr(flip(wx))
+      q=3:  out = R_r(T(inner))          y = wx            x = rr(flip(wy))
+
+    Returns dict(y, x, post, post_inv, measures) as
+    ``_folded_sharded_bands``; None when the folded row counts do not
+    divide ``n_r`` or the folded column counts ``n_c``.
+    """
+    q = op.spec.quadrant % 4
+    ry, rx = op.raw_row_sums
+    flip, rr = overlap1d.flip_band, overlap1d.reverse_rows_band
+    if q == 0:
+        y_use, x_use, post, post_inv, meas = (
+            op.wy, op.wx, None, None, (ry, rx))
+    elif q == 1:
+        y_use = rr(flip(op.wx))
+        x_use = op.wy
+        post = lambda o: o.flip(-2).transpose(-1, -2)
+        post_inv = lambda g: g.transpose(-1, -2).flip(-2)
+        meas = (rx[::-1], ry)
+    elif q == 2:
+        y_use = rr(flip(op.wy))
+        x_use = rr(flip(op.wx))
+        post = post_inv = lambda o: o.flip(-2, -1)
+        meas = (ry[::-1], rx[::-1])
+    else:
+        y_use = op.wx
+        x_use = rr(flip(op.wy))
+        post = lambda o: o.transpose(-1, -2).flip(-2)
+        post_inv = lambda g: g.flip(-2).transpose(-1, -2)
+        meas = (rx, ry[::-1])
+    if (y_use.n_dst % n_r or y_use.n_src % n_r
+            or x_use.n_dst % n_c or x_use.n_src % n_c):
+        return None
+    return dict(y=y_use, x=x_use, post=post, post_inv=post_inv,
+                measures=meas)
+
+
 def _row_halo(y_start: np.ndarray, band: int, n_src: int, n_dst: int,
               n_dev: int) -> int:
     """Most rows any rank needs beyond its own source row block."""
@@ -139,20 +203,24 @@ def _row_halo(y_start: np.ndarray, band: int, n_src: int, n_dst: int,
     return max(h, 0)
 
 
-def _halo_extend(x: torch.Tensor, h: int, mesh) -> torch.Tensor:
-    """Extend a rank's row block (axis -2) by ``h`` rows on each side from
-    its ring neighbours.
+def _halo_extend(x: torch.Tensor, h: int, mesh, name: str = ROWS
+                 ) -> torch.Tensor:
+    """Extend a rank's block by ``h`` entries on each side from its ring
+    neighbours along the mesh dim ``name``: rows (tensor axis -2) over
+    ``rows``, columns (axis -1) over ``cols`` (JAX's ``_halo_extend(x, h,
+    axis_name, n_dev, axis=)``).
 
     Hop k in 1..ceil(h / sb) fetches a block (partial on the last hop)
     from the ranks k places away on each side, in one batch of
-    point-to-point sends and receives.  A missing neighbour gives zero
-    rows.  Band indices lie in [0, n_src), so the halo is at most
-    (n - 1) * sb and any valid operator is covered; more hops raise.
+    point-to-point sends and receives.  A missing neighbour gives zeros.
+    Band indices lie in [0, n_src), so the halo is at most (n - 1) * sb
+    and any valid operator is covered; more hops raise.
     """
     if h == 0:
         return x
-    n, i, group = mesh_ops.axis(mesh, mesh_ops.ROWS)
-    sb = x.shape[-2]
+    dim = -2 if name == ROWS else -1
+    n, i, group = mesh_ops.axis(mesh, name)
+    sb = x.shape[dim]
     hops = -(-h // sb)
     if hops > n - 1:
         raise ValueError(
@@ -162,62 +230,100 @@ def _halo_extend(x: torch.Tensor, h: int, mesh) -> torch.Tensor:
     parts_prev, parts_next = [], []
     for k in range(1, hops + 1):
         hk = min(sb, h - (k - 1) * sb)     # partial block on the last hop
-        shape = x.shape[:-2] + (hk, x.shape[-1])
-        nxt = x.new_zeros(shape)           # leading hk rows of rank i + k
-        prv = x.new_zeros(shape)           # trailing hk rows of rank i - k
+        shape = list(x.shape)
+        shape[dim] = hk
+        nxt = x.new_zeros(shape)           # leading hk of rank i + k
+        prv = x.new_zeros(shape)           # trailing hk of rank i - k
         sends, recvs = [], []
         if i + k < n:
             recvs.append((nxt, i + k))
-            sends.append((x[..., sb - hk:, :], i + k))
+            sends.append((x.narrow(dim, sb - hk, hk), i + k))
         if i - k >= 0:
-            sends.append((x[..., :hk, :], i - k))
+            sends.append((x.narrow(dim, 0, hk), i - k))
             recvs.append((prv, i - k))
         mesh_ops.exchange(sends, recvs, group)
         parts_next.append(nxt)
         parts_prev.append(prv)
-    return torch.cat(parts_prev[::-1] + [x] + parts_next, dim=-2)
+    return torch.cat(parts_prev[::-1] + [x] + parts_next, dim=dim)
 
 
-def sharded_local_apply(y_band, x_band, mesh, apply_fn, *blocks):
-    """The step every row-sharded apply shares: halo-extend each of this
-    rank's row blocks ``blocks`` (each ending in (qH / n_rows, W) rows x
-    columns), rebase this rank's rows of the y band into the extended
-    block, and return ``apply_fn(*extended_blocks, y_local, x_band)``.
+def _local_band(band, mesh, name: str):
+    """(this rank's band, halo) along the mesh dim ``name``: its
+    ``n_dst / n`` dst rows of ``band``, rebased into a block extended by
+    ``halo`` on each side (``start - (i * sb - halo)``)."""
+    n, i, _ = mesh_ops.axis(mesh, name)
+    halo = _row_halo(band.start, band.band, band.n_src, band.n_dst, n)
+    sb, db = band.n_src // n, band.n_dst // n
+    rows = slice(i * db, (i + 1) * db)
+    return overlap1d.Band1D(
+        start=(np.asarray(band.start[rows], np.int64)
+               - (i * sb - halo)).astype(np.int32),
+        weights=np.asarray(band.weights[rows]),
+        n_src=sb + 2 * halo, n_dst=db), halo
+
+
+def sharded_local_apply(y_band, x_band, mesh, apply_fn, *blocks,
+                        cols: bool = False):
+    """The step every sharded separable apply shares: halo-extend each of
+    this rank's blocks ``blocks`` (each ending in (qH / n_rows, W) rows x
+    columns; with ``cols``, (qH / n_rows, W / n_cols), extended by rows
+    first, then by columns of the row-extended block), rebase this rank's
+    rows of the y band (and with ``cols`` of the x band) into the
+    extended block, and return ``apply_fn(*extended_blocks, y_local,
+    x_local)``.
 
     ``y_local`` is a Band1D of this rank's Hd / n_rows dst rows over the
-    sb + 2 * halo rows of an extended block.
+    sb + 2 * halo rows of an extended block; ``x_local`` is the whole x
+    band, or with ``cols`` its Wd / n_cols dst columns over the extended
+    block's columns.
     """
-    n, i, _ = mesh_ops.axis(mesh, mesh_ops.ROWS)
-    qH, Hd = y_band.n_src, y_band.n_dst
-    halo = _row_halo(y_band.start, y_band.band, qH, Hd, n)
-    sb, db = qH // n, Hd // n
+    y, halo_y = _local_band(y_band, mesh, ROWS)
+    x, halo_x = _local_band(x_band, mesh, COLS) if cols else (x_band, 0)
+    want = (y.n_src - 2 * halo_y, x.n_src - 2 * halo_x)
     for b in blocks:
-        if b.ndim < 2 or tuple(b.shape[-2:]) != (sb, x_band.n_src):
-            raise ValueError(f"this rank's block must end in ({sb}, "
-                             f"{x_band.n_src}) rows x columns, got "
-                             f"{tuple(b.shape)}")
-    ext = [_halo_extend(b, halo, mesh) for b in blocks]
-    rows = slice(i * db, (i + 1) * db)
-    local = overlap1d.Band1D(
-        start=(np.asarray(y_band.start[rows], np.int64)
-               - (i * sb - halo)).astype(np.int32),
-        weights=np.asarray(y_band.weights[rows]),
-        n_src=sb + 2 * halo, n_dst=db)
-    return apply_fn(*ext, local, x_band)
+        if b.ndim < 2 or tuple(b.shape[-2:]) != want:
+            raise ValueError(f"this rank's block must end in {want} rows x "
+                             f"columns, got {tuple(b.shape)}")
+    ext = [_halo_extend(_halo_extend(b, halo_y, mesh), halo_x, mesh, COLS)
+           for b in blocks]
+    return apply_fn(*ext, y, x)
 
 
-def _aligned_x_plan(y_band, x_band):
-    """The x band's aligned plan where the pair is a strict integer-ratio
-    partition (the y band's ``c0 == 0`` and ``qH == m * Hd``), else None.
-    Every rank's rebased y rows are then aligned too, at ``c0 = halo``."""
-    yp = aligned_axis_plan(y_band.start, y_band.weights, y_band.n_src)
-    if yp is None or yp["c0"] != 0 or yp["m"] * y_band.n_dst != y_band.n_src:
-        return None
-    return aligned_axis_plan(x_band.start, x_band.weights, x_band.n_src)
+def _strict_partition(band) -> bool:
+    """Whether ``band`` partitions its source into equal integer blocks
+    from cell 0 (``c0 == 0``, ``n_src == m * n_dst``): every rank's
+    rebased rows are then aligned too, at ``c0 = halo``."""
+    p = aligned_axis_plan(band.start, band.weights, band.n_src)
+    return p is not None and p["c0"] == 0 and p["m"] * band.n_dst == band.n_src
 
 
 def _f32(a) -> np.ndarray:
     return np.ascontiguousarray(a, dtype=np.float32)
+
+
+def _banded(frames, y_band, x_band, mesh, cols: bool) -> torch.Tensor:
+    """The plain local apply of ``sharded_apply_banded`` (``_2d``): the
+    aligned apply for float32 frames where the y band is a strict
+    partition and the x band aligned (on a 2-D mesh: a strict partition
+    too), else the banded apply."""
+    aligned = (frames.dtype == torch.float32 and _strict_partition(y_band)
+               and (_strict_partition(x_band) if cols else aligned_axis_plan(
+                   x_band.start, x_band.weights, x_band.n_src) is not None))
+
+    def local(ext, y, x):
+        if aligned:
+            return apply_separable_aligned(
+                ext, aligned_axis_plan(y.start, y.weights, y.n_src),
+                aligned_axis_plan(x.start, x.weights, x.n_src))
+        dev = ext.device
+        return apply_separable_banded(
+            ext, torch.as_tensor(y.start, dtype=torch.int64, device=dev),
+            torch.as_tensor(_f32(y.weights), device=dev),
+            torch.as_tensor(x.start, dtype=torch.int64, device=dev),
+            torch.as_tensor(_f32(x.weights), device=dev))
+
+    return sharded_local_apply(y_band, x_band, mesh, local, frames,
+                               cols=cols)
 
 
 def sharded_apply_banded(frames: torch.Tensor, y_band, x_band,
@@ -227,21 +333,25 @@ def sharded_apply_banded(frames: torch.Tensor, y_band, x_band,
     plain route's accumulation dtype).  Float32 frames on a strict
     integer-ratio partition take the aligned apply.  Only the rows group
     talks; the batch needs no collective."""
-    xp = (_aligned_x_plan(y_band, x_band)
-          if frames.dtype == torch.float32 else None)
+    return _banded(frames, y_band, x_band, mesh, False)
 
-    def local(ext, y, x):
-        if xp is not None:
-            return apply_separable_aligned(
-                ext, aligned_axis_plan(y.start, y.weights, y.n_src), xp)
-        dev = ext.device
-        return apply_separable_banded(
-            ext, torch.as_tensor(y.start, dtype=torch.int64, device=dev),
-            torch.as_tensor(_f32(y.weights), device=dev),
-            torch.as_tensor(x.start, dtype=torch.int64, device=dev),
-            torch.as_tensor(_f32(x.weights), device=dev))
 
-    return sharded_local_apply(y_band, x_band, mesh, local, frames)
+def sharded_apply_banded_2d(frames: torch.Tensor, y_band, x_band,
+                            mesh) -> torch.Tensor:
+    """2-D sharded banded apply of a (y, x) Band1D pair on this rank's
+    block, in plain torch: (b, qH / n_rows, W / n_cols) -> (b, Hd /
+    n_rows, Wd / n_cols), f32.  One ring-halo exchange per mesh dim (rows,
+    then the columns of the row-extended block), both bands rebased.
+    Float32 frames whose bands are both strict integer-ratio partitions
+    take the aligned apply (JAX: sharding.py:841-879)."""
+    return _banded(frames, y_band, x_band, mesh, True)
+
+
+def _kernel1(ext, y, x):
+    return cuda_apply.apply_separable_kernel(
+        ext.contiguous(), np.ascontiguousarray(y.start, dtype=np.int32),
+        _f32(y.weights), np.ascontiguousarray(x.start, dtype=np.int32),
+        _f32(x.weights))
 
 
 def sharded_apply_banded_kernel(frames: torch.Tensor, y_band, x_band,
@@ -252,35 +362,117 @@ def sharded_apply_banded_kernel(frames: torch.Tensor, y_band, x_band,
     and rebased tables.  bf16, f32 and uint8 frames give that dtype out
     (the kernel's contract); on a CPU tensor the wrapper takes its plain
     version."""
-
-    def local(ext, y, x):
-        return cuda_apply.apply_separable_kernel(
-            ext.contiguous(), y.start, _f32(y.weights),
-            np.ascontiguousarray(x.start, dtype=np.int32), _f32(x.weights))
-
-    return sharded_local_apply(y_band, x_band, mesh, local, frames)
+    return sharded_local_apply(y_band, x_band, mesh, _kernel1, frames)
 
 
-def _rot90_rows(frames: torch.Tensor, quadrant: int, mesh):
-    """The global rot90 route: gather the source over the rows group,
-    rotate it, and cut this rank's rows out of the rotated source."""
-    if quadrant % 4 == 0:
-        return frames
-    n, i, group = mesh_ops.axis(mesh, mesh_ops.ROWS)
-    whole = torch.cat(mesh_ops.all_gather(frames, group), dim=-2)
-    rot = quadrant_rotate(whole, quadrant)
-    lo, hi = mesh_ops.row_block(rot.shape[-2], n, i)
-    return rot[..., lo:hi, :].contiguous()
+def sharded_apply_banded_2d_kernel(frames: torch.Tensor, y_band, x_band,
+                                   mesh) -> torch.Tensor:
+    """2-D sharded apply with kernel 1 per shard (counterpart of
+    ``sharded_apply_banded_2d_pallas``): both halo exchanges, then
+    ``cuda_apply.apply_separable_kernel`` on this rank's extended block
+    with its rows of the y band and its columns of the x band rebased.
+    The kernel's own planner plans the shard (kernel 2 for bands too wide
+    for shared memory); JAX's uniform ``_sharded_pallas_plan_2d`` has no
+    counterpart.  Dtypes as ``sharded_apply_banded_kernel``."""
+    return sharded_local_apply(y_band, x_band, mesh, _kernel1, frames,
+                               cols=True)
 
 
-def _post_rows(post, out: torch.Tensor, mesh) -> torch.Tensor:
-    """Apply a dst-side flip or transpose to the row-sharded inner output:
-    gather the inner dst over the rows group, permute it, and keep this
-    rank's rows (the dst-sized reshard; the source never moves)."""
-    n, i, group = mesh_ops.axis(mesh, mesh_ops.ROWS)
-    whole = post(torch.cat(mesh_ops.all_gather(out, group), dim=-2))
+def _gather_whole(t: torch.Tensor, mesh, cols: bool) -> torch.Tensor:
+    """Whole planes from equal blocks: over the cols group (with
+    ``cols``), then the rows group."""
+    if cols:
+        t = torch.cat(mesh_ops.all_gather(t, mesh_ops.axis(mesh, COLS)[2]),
+                      dim=-1)
+    return torch.cat(mesh_ops.all_gather(t, mesh_ops.axis(mesh, ROWS)[2]),
+                     dim=-2)
+
+
+def _own_block(whole: torch.Tensor, mesh, cols: bool) -> torch.Tensor:
+    """This rank's rows (with ``cols``: rows and columns) of whole planes,
+    ceil blocks (``mesh.row_block``)."""
+    if cols:
+        return mesh_ops.plane_block(whole, mesh)
+    n, i, _ = mesh_ops.axis(mesh, ROWS)
     lo, hi = mesh_ops.row_block(whole.shape[-2], n, i)
     return whole[..., lo:hi, :].contiguous()
+
+
+def _rot90(frames: torch.Tensor, quadrant: int, mesh, cols: bool = False):
+    """The global rot90 route: gather the source over the rows group (and
+    the cols group), rotate it, and cut this rank's block out of the
+    rotated source."""
+    if quadrant % 4 == 0:
+        return frames
+    whole = quadrant_rotate(_gather_whole(frames, mesh, cols), quadrant)
+    return _own_block(whole, mesh, cols)
+
+
+def _post(post, out: torch.Tensor, mesh, cols: bool = False) -> torch.Tensor:
+    """Apply a dst-side flip or transpose to the sharded inner output:
+    gather the inner dst over the rows group (and the cols group), permute
+    it, and keep this rank's block (the dst-sized reshard; the source
+    never moves)."""
+    return _own_block(post(_gather_whole(out, mesh, cols)), mesh, cols)
+
+
+def _check_impl(frames: torch.Tensor, impl: str, conserve: bool) -> str:
+    """The separable route for ``impl`` ('auto': the kernel for a CUDA
+    tensor, 'banded' on the CPU); raises on an unknown impl, 'kernel' on
+    a CPU tensor and ``conserve`` with uint8 frames."""
+    if frames.dtype == torch.uint8 and conserve:
+        raise ValueError(
+            "conserve=True needs float outputs (the u8 round+saturate "
+            "quantisation breaks the exact flux identity); cast the "
+            "frames to float32 for conservation checks")
+    if impl not in IMPLS:
+        raise ValueError(
+            f"unknown impl {impl!r} for the sharded separable apply; "
+            f"expected one of {IMPLS}")
+    if impl == "auto":
+        impl = "kernel" if frames.is_cuda else "banded"
+    if impl == "kernel" and not frames.is_cuda:
+        raise ValueError(
+            "impl='kernel' needs a CUDA tensor; got one on "
+            f"{frames.device} (use impl='auto' or 'banded' on the CPU)")
+    return impl
+
+
+def _separable(frames, op, mesh, impl, conserve, cols):
+    """The body of both separable entry points."""
+    impl = _check_impl(frames, impl, conserve)
+    n_r = mesh_ops.axis(mesh, ROWS)[0]
+    fold = (_folded_sharded_bands_2d(op, n_r, mesh_ops.axis(mesh, COLS)[0])
+            if cols else _folded_sharded_bands(op, n_r))
+    if fold is None:
+        # the folded counts do not divide: rotate the whole source
+        frames = _rot90(frames, op.spec.quadrant, mesh, cols)
+        fold = dict(y=op.wy, x=op.wx, post=None, post_inv=None,
+                    measures=op.raw_row_sums)
+    y_use, x_use, post = fold["y"], fold["x"], fold["post"]
+    u8 = frames.dtype == torch.uint8    # u8 in -> u8 out, like apply_operator
+    if impl == "kernel":
+        out = sharded_local_apply(y_use, x_use, mesh, _kernel1, frames,
+                                  cols=cols)
+    else:
+        out = _banded(frames.to(torch.float32) if u8 else frames, y_use,
+                      x_use, mesh, cols)
+        if u8:      # quantise as the kernel does
+            out = out.round().clamp(0.0, 255.0).to(torch.uint8)
+    if conserve:
+        from . import conserve as cons
+
+        # the factors pair with the inner orientation, where frames and
+        # out are sharded as the band tables are
+        factors = cons.separable_flux_factors(y_use, x_use,
+                                              raw_sums=fold["measures"])
+        flux = (cons.sharded_flux_separable_2d if cols
+                else cons.sharded_flux_separable)(frames, out, factors, mesh)
+    if post is not None:
+        out = _post(post, out, mesh, cols)
+    if not conserve:
+        return out
+    return out, flux
 
 
 def sharded_apply_separable(frames: torch.Tensor,
@@ -308,50 +500,34 @@ def sharded_apply_separable(frames: torch.Tensor,
     where the folded row counts do not divide the mesh, the global rot90
     route runs instead.
     """
-    n = mesh_ops.axis(mesh, mesh_ops.ROWS)[0]
-    u8 = frames.dtype == torch.uint8    # u8 in -> u8 out, like apply_operator
-    if u8 and conserve:
-        raise ValueError(
-            "conserve=True needs float outputs (the u8 round+saturate "
-            "quantisation breaks the exact flux identity); cast the "
-            "frames to float32 for conservation checks")
-    if impl not in IMPLS:
-        raise ValueError(
-            f"unknown impl {impl!r} for the sharded separable apply; "
-            f"expected one of {IMPLS}")
-    if impl == "auto":
-        impl = "kernel" if frames.is_cuda else "banded"
-    if impl == "kernel" and not frames.is_cuda:
-        raise ValueError(
-            "impl='kernel' needs a CUDA tensor; got one on "
-            f"{frames.device} (use impl='auto' or 'banded' on the CPU)")
-    fold = _folded_sharded_bands(op, n)
-    if fold is None:
-        # the folded row counts do not divide: rotate the whole source
-        frames = _rot90_rows(frames, op.spec.quadrant, mesh)
-        fold = dict(y=op.wy, x=op.wx, post=None, post_inv=None,
-                    measures=op.raw_row_sums)
-    y_use, x_use, post = fold["y"], fold["x"], fold["post"]
-    if impl == "kernel":
-        out = sharded_apply_banded_kernel(frames, y_use, x_use, mesh)
-    else:
-        out = sharded_apply_banded(frames.to(torch.float32) if u8 else frames,
-                                   y_use, x_use, mesh)
-        if u8:      # quantise as the kernel does
-            out = out.round().clamp(0.0, 255.0).to(torch.uint8)
-    if conserve:
-        from .conserve import separable_flux_factors, sharded_flux_separable
+    return _separable(frames, op, mesh, impl, conserve, False)
 
-        # the factors pair with the inner orientation, where frames and
-        # out are row-sharded as the band tables are
-        factors = separable_flux_factors(y_use, x_use,
-                                         raw_sums=fold["measures"])
-        flux = sharded_flux_separable(frames, out, factors, mesh)
-    if post is not None:
-        out = _post_rows(post, out, mesh)
-    if not conserve:
-        return out
-    return out, flux
+
+def sharded_apply_separable_2d(frames: torch.Tensor,
+                               op: weights_ops.SeparableOperator, mesh, *,
+                               impl: str = "auto", conserve: bool = False):
+    """Apply a separable operator with BOTH image axes sharded: rows over
+    the ``rows`` dim and columns over the ``cols`` dim of a ("data",
+    "rows", "cols") mesh (``mesh.make_mesh((n_data, n_rows, n_cols),
+    ...)``), the batch over ``data``.  The scaling form for frames too
+    large for a 1-D row split: the blocks stay square.
+
+    ``frames`` is this rank's block, (B / n_data, H / n_rows, W / n_cols)
+    (``mesh.shard_blocks``); returns its block of the dst (counts that do
+    not divide after a fold: ceil blocks on each axis).  One ring-halo
+    exchange per mesh dim, rows first, then the columns of the
+    row-extended block; never an all-gather of the source on the main
+    route.
+
+    impl, uint8 and conserve as ``sharded_apply_separable`` ('kernel':
+    ``sharded_apply_banded_2d_kernel``, 'banded':
+    ``sharded_apply_banded_2d``; the flux is reduced over the whole
+    mesh).  A quadrant != 0 folds into both bands
+    (``_folded_sharded_bands_2d``) and only the dst pays the flip,
+    rot180 or transpose; where the folded counts do not divide the mesh,
+    the global rot90 route runs instead.
+    """
+    return _separable(frames, op, mesh, impl, conserve, True)
 
 
 # ---------------------------------------------------------------------------
@@ -371,28 +547,42 @@ def _ell_axis_halo(base_axis, K: int, db: int, sb: int, n_dev: int) -> int:
     return max(halo, 0)
 
 
-def _ell_rows(op: weights_ops.EllOperator, n_dev: int):
-    """(db, sb, halo) of the row-sharded apply of ``op`` over ``n_dev``
-    ranks.  ValueError where the rows do not divide or the halo needs more
-    than ``n_dev - 1`` ring hops."""
-    qH, Hd = op.spec.qrot_shape[0], op.spec.dst_shape[0]
-    if Hd % n_dev or qH % n_dev:
+def _ell_blocks(op: weights_ops.EllOperator, n_r: int, n_c: int = 0):
+    """(db_r, sb_r, halo_y, db_c, sb_c, halo_x) of the sharded apply of
+    ``op`` over ``n_r`` row ranks and, with ``n_c``, ``n_c`` column ranks
+    (JAX's ``_ell_halo_2d``; ``n_c`` 0: rows only, the column entries
+    whole and 0).  The halos are exact and cached by table content.
+    ValueError where a count does not divide or a halo needs more ring
+    hops than the axis has neighbours."""
+    qH, qW = op.spec.qrot_shape
+    Hd, Wd = op.spec.dst_shape
+    if n_c and (Hd % n_r or qH % n_r or Wd % n_c or qW % n_c):
+        raise ValueError(
+            "2-D-sharded ELL apply requires divisible row and column counts "
+            f"(dst {Hd}x{Wd}, src {qH}x{qW}, mesh {n_r}x{n_c})")
+    if Hd % n_r or qH % n_r:
         raise ValueError(
             "row-sharded ELL apply requires divisible row counts "
-            f"(dst {Hd}, src {qH}, devices {n_dev})")
-    db, sb = Hd // n_dev, qH // n_dev
-    key = (array_digest(op.base), op.base.shape, op.window, sb, n_dev)
-    halo = _HALO_CACHE.get(key)
-    if halo is None:
-        halo = _ell_axis_halo(op.base[..., 0], op.window, db, sb, n_dev)
-        _HALO_CACHE.put(key, halo)
-    hops = -(-halo // sb)
-    if hops > n_dev - 1:
-        raise ValueError(
-            f"halo of {halo} needs {hops} ring hops but only {n_dev - 1} "
-            f"neighbours exist (per-rank block {sb}); use fewer shards "
-            "along this axis for this operator")
-    return db, sb, halo
+            f"(dst {Hd}, src {qH}, devices {n_r})")
+    key = (array_digest(op.base), op.base.shape, op.window, n_r, n_c)
+    hit = _HALO_CACHE.get(key)
+    if hit is None:
+        K = op.window
+        hit = (_ell_axis_halo(op.base[..., 0], K, Hd // n_r, qH // n_r, n_r),
+               _ell_axis_halo(op.base[..., 1].T, K, Wd // n_c, qW // n_c, n_c)
+               if n_c else 0)
+        _HALO_CACHE.put(key, hit)
+    halo_y, halo_x = hit
+    out = (Hd // n_r, qH // n_r, halo_y) + (
+        (Wd // n_c, qW // n_c, halo_x) if n_c else (Wd, qW, 0))
+    for n, sb, halo in ((n_r, out[1], halo_y), (n_c, out[4], halo_x)):
+        hops = -(-halo // sb)
+        if n and hops > n - 1:
+            raise ValueError(
+                f"halo of {halo} needs {hops} ring hops but only {n - 1} "
+                f"neighbours exist (per-rank block {sb}); use fewer shards "
+                "along this axis for this operator")
+    return out
 
 
 def _check_tables(op: weights_ops.EllOperator, base, weights) -> None:
@@ -408,18 +598,21 @@ def _check_tables(op: weights_ops.EllOperator, base, weights) -> None:
                              f"{tuple(getattr(t, 'shape', ()))}")
 
 
-def _ell_fold(op: weights_ops.EllOperator, n_dev: int, base, weights):
+def _ell_fold(op: weights_ops.EllOperator, n_r: int, base, weights,
+              n_c: int = 0):
     """The apply's orientation, decided on the host: (op, post, base,
     weights, rotate).  A quadrant folds into the table
     (``fold_quadrant_ell_cached``), explicit tables with it
     (``fold_tables_device``), and ``post`` is the residual flip or
-    transpose of the dst; where the folded row counts do not divide the
-    mesh, ``rotate`` asks for the global rot90 route instead."""
+    transpose of the dst; where the folded row counts (with ``n_c``, and
+    column counts) do not divide the mesh, ``rotate`` asks for the global
+    rot90 route instead."""
     q = op.spec.quadrant % 4
     if q == 0:
         return op, None, base, weights, False
     folded, post = weights_ops.fold_quadrant_ell_cached(op)
-    if folded.spec.dst_shape[0] % n_dev or folded.spec.qrot_shape[0] % n_dev:
+    (Hd, Wd), (qH, qW) = folded.spec.dst_shape, folded.spec.qrot_shape
+    if Hd % n_r or qH % n_r or (n_c and (Wd % n_c or qW % n_c)):
         return op, None, base, weights, True
     if base is not None or weights is not None:
         dev = (base if base is not None else weights).device
@@ -446,17 +639,20 @@ def _host_tables(op: weights_ops.EllOperator, base, weights,
 
 
 def _ell_route(op: weights_ops.EllOperator, n_dev: int, impl: str,
-               on_cuda: bool):
-    """(route, ShardedKernelPlan or None), decided on the host before any
-    launch (``api._ell_route``'s rule under sharding): 'auto' takes
+               on_cuda: bool, n_c: int = 0):
+    """(route, sharded kernel plan or None), decided on the host before
+    any launch (``api._ell_route``'s rule under sharding): 'auto' takes
     'kernel' for a CUDA tensor and 'gather' for a CPU one; a geometry that
-    ``build_sharded_kernel_plan`` rejects sends 'auto' to 'gather' with a
-    RuntimeWarning, counted in ``api.SHEAR_PLAN_FALLBACKS``, and makes
-    'kernel' raise."""
+    ``build_sharded_kernel_plan`` (with ``n_c``,
+    ``build_sharded_kernel_plan_2d``) rejects sends 'auto' to 'gather'
+    with a RuntimeWarning, counted in ``api.SHEAR_PLAN_FALLBACKS``, and
+    makes 'kernel' raise."""
     if impl == "gather" or (impl == "auto" and not on_cuda):
         return "gather", None
     try:
-        return "kernel", cuda_shear.build_sharded_kernel_plan(op, n_dev)
+        return "kernel", (
+            cuda_shear.build_sharded_kernel_plan_2d(op, n_dev, n_c) if n_c
+            else cuda_shear.build_sharded_kernel_plan(op, n_dev))
     except ValueError as e:
         if impl == "kernel":
             raise
@@ -466,50 +662,68 @@ def _ell_route(op: weights_ops.EllOperator, n_dev: int, impl: str,
         return "gather", None
 
 
-def _rows_on(t, rows: slice, device, dtype) -> torch.Tensor:
-    """Rows of a table (numpy or a tensor on any device) on ``device``."""
+def _block_on(t, rows: slice, cols: slice, device, dtype) -> torch.Tensor:
+    """A block of a table (numpy or a tensor on any device) on
+    ``device``."""
     if isinstance(t, torch.Tensor):
-        return t[rows].to(device=device, dtype=dtype)
-    return upload(t[rows], device, dtype)
+        return t[rows, cols].to(device=device, dtype=dtype)
+    return upload(t[rows, cols], device, dtype)
 
 
-def _sharded_ell(frames, op, mesh, impl, base, weights, conserve):
-    """The body of both ELL entry points; ``impl`` is checked by them."""
-    n, i, _ = mesh_ops.axis(mesh, mesh_ops.ROWS)
+def _sharded_ell(frames, op, mesh, impl, base, weights, conserve,
+                 cols=False):
+    """The body of the ELL entry points, 1-D and (``cols``) 2-D; ``impl``
+    is checked by them."""
+    n_r, i, _ = mesh_ops.axis(mesh, ROWS)
+    n_c, j, _ = mesh_ops.axis(mesh, COLS) if cols else (0, 0, None)
     _check_tables(op, base, weights)
     quadrant = op.spec.quadrant
-    op, post, base, weights, rotate = _ell_fold(op, n, base, weights)
+    op, post, base, weights, rotate = _ell_fold(op, n_r, base, weights, n_c)
     on_cuda = frames.is_cuda
     host = _host_tables(op, base, weights,
                         impl == "kernel" or (impl == "auto" and on_cuda))
-    db, sb, halo = _ell_rows(host, n)
-    route, kp = _ell_route(host, n, impl, on_cuda)
+    db_r, sb_r, halo_y, db_c, sb_c, halo_x = _ell_blocks(host, n_r, n_c)
+    route, kp = _ell_route(host, n_r, impl, on_cuda, n_c)
     if rotate:
-        frames = _rot90_rows(frames, quadrant, mesh)
-    qW = op.spec.qrot_shape[1]
-    if frames.ndim < 2 or tuple(frames.shape[-2:]) != (sb, qW):
-        raise ValueError(f"this rank's block must end in ({sb}, {qW}) rows "
-                         f"x columns, got {tuple(frames.shape)}")
-    ext = _halo_extend(frames, halo, mesh)
+        frames = _rot90(frames, quadrant, mesh, cols)
+    if frames.ndim < 2 or tuple(frames.shape[-2:]) != (sb_r, sb_c):
+        raise ValueError(f"this rank's block must end in ({sb_r}, {sb_c}) "
+                         f"rows x columns, got {tuple(frames.shape)}")
+    ext = _halo_extend(_halo_extend(frames, halo_y, mesh), halo_x, mesh,
+                       COLS)
     if route == "kernel":
-        out = cuda_shear.apply_ell_shear_kernel(ext, kp.rank(i))
+        out = cuda_shear.apply_ell_shear_kernel(
+            ext, kp.rank(i, j) if cols else kp.rank(i))
     else:
-        rows = slice(i * db, (i + 1) * db)
-        b = _rows_on(op.base if base is None else base, rows, ext.device,
-                     torch.int64)
-        b = b - b.new_tensor([i * sb - halo, 0])
-        out = apply_ell(ext, b, _rows_on(op.weights if weights is None
-                                         else weights, rows, ext.device,
-                                         torch.float32))
+        rows = slice(i * db_r, (i + 1) * db_r)
+        cs = slice(j * db_c, (j + 1) * db_c)
+        b = _block_on(op.base if base is None else base, rows, cs,
+                      ext.device, torch.int64)
+        b = b - b.new_tensor([i * sb_r - halo_y, j * sb_c - halo_x])
+        out = apply_ell(ext, b, _block_on(op.weights if weights is None
+                                          else weights, rows, cs, ext.device,
+                                          torch.float32))
     if conserve:
-        from .conserve import ell_flux_factors, sharded_flux_ell
+        from . import conserve as cons
 
         # the folded operator's factors pair with the un-rotated frames
-        # and the output before ``post``, row-sharded as its tables are
-        flux = sharded_flux_ell(frames, out, ell_flux_factors(op), mesh)
+        # and the output before ``post``, sharded as its tables are
+        flux = (cons.sharded_flux_ell_2d if cols else cons.sharded_flux_ell)(
+            frames, out, cons.ell_flux_factors(op), mesh)
     if post is not None:
-        out = _post_rows(post, out, mesh)
+        out = _post(post, out, mesh, cols)
     return (out, flux) if conserve else out
+
+
+def _check_ell_impl(frames: torch.Tensor, impl: str) -> None:
+    if impl not in ELL_IMPLS:
+        raise ValueError(
+            f"unknown impl {impl!r} for the sharded ELL apply; expected one "
+            f"of {ELL_IMPLS}")
+    if impl == "kernel" and not frames.is_cuda:
+        raise ValueError(
+            "impl='kernel' needs a CUDA tensor; got one on "
+            f"{frames.device} (use impl='auto' or 'gather' on the CPU)")
 
 
 def sharded_apply_ell_kernel(frames: torch.Tensor,
@@ -525,6 +739,19 @@ def sharded_apply_ell_kernel(frames: torch.Tensor,
     take their plain versions.  Raises ValueError where the planner
     rejects the geometry."""
     return _sharded_ell(frames, op, mesh, "kernel", base, weights, False)
+
+
+def sharded_apply_ell_2d_kernel(frames: torch.Tensor,
+                                op: weights_ops.EllOperator, mesh, *,
+                                base=None, weights=None) -> torch.Tensor:
+    """2-D sharded rotated apply with the fused shear and the masked
+    contraction per shard (counterpart of ``make_sharded_ell_pallas_2d``):
+    both halo exchanges, then ``cuda_shear.apply_ell_shear_kernel`` on
+    this rank's extended block with its plan
+    ``build_sharded_kernel_plan_2d(op, n_r, n_c).rank(i, j)``.  Folds,
+    dtypes and CPU tensors as ``sharded_apply_ell_kernel``."""
+    return _sharded_ell(frames, op, mesh, "kernel", base, weights, False,
+                        True)
 
 
 def sharded_apply_ell(frames: torch.Tensor, op: weights_ops.EllOperator,
@@ -557,15 +784,33 @@ def sharded_apply_ell(frames: torch.Tensor, op: weights_ops.EllOperator,
     A quadrant != 0 folds into the table (``fold_quadrant_ell_cached``,
     explicit tables through ``fold_tables_device``): the source stays
     sharded un-rotated and only the dst pays a flip or transpose
-    (``_post_rows``).  Where the folded row counts do not divide the
-    mesh, the global rot90 route runs instead.
+    (``_post``).  Where the folded row counts do not divide the mesh,
+    the global rot90 route runs instead.
     """
-    if impl not in ELL_IMPLS:
-        raise ValueError(
-            f"unknown impl {impl!r} for the sharded ELL apply; expected one "
-            f"of {ELL_IMPLS}")
-    if impl == "kernel" and not frames.is_cuda:
-        raise ValueError(
-            "impl='kernel' needs a CUDA tensor; got one on "
-            f"{frames.device} (use impl='auto' or 'gather' on the CPU)")
+    _check_ell_impl(frames, impl)
     return _sharded_ell(frames, op, mesh, impl, base, weights, conserve)
+
+
+def sharded_apply_ell_2d(frames: torch.Tensor, op: weights_ops.EllOperator,
+                         mesh, *, conserve: bool = False, base=None,
+                         weights=None, impl: str = "auto"):
+    """Rotated (ELL) apply with BOTH image axes sharded, over the rows and
+    cols dims of a ("data", "rows", "cols") mesh: this rank's block
+    (B / n_data, qH / n_rows, qW / n_cols) (``mesh.shard_blocks``) -> its
+    block of the dst.  One ring-halo exchange per mesh dim (rows, then the
+    columns of the row-extended block); each halo grows with the angle
+    and may take several hops.
+
+    impl: 'kernel' (``sharded_apply_ell_2d_kernel``), 'gather' (the plain
+    ``apply_ell`` on the extended block with this rank's (dst rows, dst
+    columns) block of the tables, both bases rebased) or 'auto', with the
+    rules of ``sharded_apply_ell``.  conserve: the flux pair reduced over
+    the whole mesh.  base / weights: explicit tables, honoured on both
+    routes and folded with a quadrant (JAX's Pallas 2-D route drops them:
+    sharding.py:1664-1696).  A quadrant folds into the table where the
+    folded row and column counts divide the mesh, else the global rot90
+    route runs.
+    """
+    _check_ell_impl(frames, impl)
+    return _sharded_ell(frames, op, mesh, impl, base, weights, conserve,
+                        True)

@@ -398,42 +398,51 @@ def conservative_regrid_sharded(field: torch.Tensor, src: LatLonGrid,
                                 min_coverage: float = 1e-6):
     """Multi-device conservative regrid (BASELINE config 5): latitude rows
     sharded over the mesh's ``rows`` dim with a ring halo exchange
-    (``parallel.sharding``), the batch over its ``data`` dim.
+    (``parallel.sharding``), the batch over its ``data`` dim; with
+    ``col_axis="cols"`` longitude too, over the ``cols`` dim of a
+    ("data", "rows", "cols") mesh, with a second ring halo (for global
+    grids too large for a latitude-only split).  Any other ``col_axis``
+    raises.
 
     ``field`` is this rank's block, (B / n_data, n_lat / n_rows, n_lon)
-    (``parallel.mesh.shard_rows``); returns its block of the dst.  Each
-    rank applies its rows of the bands, rebased into its halo-extended
-    block (``parallel.sharding.sharded_local_apply``), on the route
+    (``parallel.mesh.shard_rows``), or with ``col_axis`` (B / n_data,
+    n_lat / n_rows, n_lon / n_cols) (``parallel.mesh.shard_blocks``);
+    returns its block of the dst.  Each rank applies its rows (and
+    columns) of the bands, rebased into its halo-extended block
+    (``parallel.sharding.sharded_local_apply``), on the route
     ``apply_band_operators(impl='auto')`` takes: kernel 2 on a CUDA
     tensor, the aligned or banded plain route on the CPU.
 
     src_mask: the whole (n_lat, n_lon) validity mask (nonzero = valid),
-    the same on every rank; its rows are halo-extended as the field's are,
+    the same on every rank; its block is halo-extended as the field's is,
     and the result is ``apply_band_operators_masked``'s
     valid-cell-renormalised mean, as ``conservative_regrid`` gives it.
 
     conserve: also return the (2,) float64 [flux_dst, flux_src] global
     spherical-flux pair, the same on every rank (area-weighted dst
     integral == coverage-weighted src integral; ``parallel.conserve``).
-
-    ``col_axis`` (longitude sharded too, on a 2-D mesh) is not ported.
     """
-    if col_axis is not None:
-        raise NotImplementedError(
-            "the longitude-sharded regrid on a 2-D (rows x cols) mesh is "
-            "not ported yet: slice 6 step 3 of the port (ROADMAP.md)")
-    from .parallel.mesh import ROWS, axis, row_block
+    if col_axis not in (None, "cols"):
+        raise ValueError(f"col_axis must be None or 'cols' (the mesh's "
+                         f"column dim), got {col_axis!r}")
+    from .parallel import conserve as cons
+    from .parallel.mesh import ROWS, axis, plane_block, row_block
     from .parallel.sharding import sharded_local_apply
 
+    cols = col_axis is not None
     by, bx = conservative_regrid_operator(src, dst)
     if src_mask is not None:
         if conserve:
             raise ValueError("conserve=True with src_mask is not supported: "
                              "the masked result is a renormalised mean, not "
                              "a flux-conserving map of the raw field")
-        n, i, _ = axis(mesh, ROWS)
-        lo, hi = row_block(src.n_lat, n, i)
-        m = torch.as_tensor(src_mask, device=field.device)[lo:hi]
+        m = torch.as_tensor(src_mask, device=field.device)
+        if cols:
+            m = plane_block(m, mesh)
+        else:
+            n, i, _ = axis(mesh, ROWS)
+            lo, hi = row_block(src.n_lat, n, i)
+            m = m[lo:hi]
 
         def masked(f, mk, y, x):
             return apply_band_operators_masked(
@@ -441,18 +450,19 @@ def conservative_regrid_sharded(field: torch.Tensor, src: LatLonGrid,
                 min_coverage=min_coverage)[0]
 
         return sharded_local_apply(by, bx, mesh, masked, field,
-                                   m.to(torch.float32).contiguous())
-    out = sharded_local_apply(by, bx, mesh, apply_band_operators, field)
+                                   m.to(torch.float32).contiguous(),
+                                   cols=cols)
+    out = sharded_local_apply(by, bx, mesh, apply_band_operators, field,
+                              cols=cols)
     if not conserve:
         return out
-    from .parallel.conserve import (separable_flux_factors,
-                                    sharded_flux_separable)
-
     # true spherical dst cell measures: |d sin(lat)| x d lon
     my = np.abs(np.diff(np.sin(np.radians(dst.lat_edges))))
     mx = np.diff(dst.lon_edges)
-    factors = separable_flux_factors(by, bx, raw_sums=(my, mx))
-    return out, sharded_flux_separable(field, out, factors, mesh)
+    factors = cons.separable_flux_factors(by, bx, raw_sums=(my, mx))
+    flux = (cons.sharded_flux_separable_2d if cols
+            else cons.sharded_flux_separable)
+    return out, flux(field, out, factors, mesh)
 
 
 def area_weighted_mean(field, grid: LatLonGrid,

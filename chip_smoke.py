@@ -105,7 +105,19 @@ points (``aainterp_torch.area_average_interpolate`` for the first three):
   operator's tables as explicit CUDA tensors; one NCCL rank.  The
   operators and the global shear plans are built here first and the
   ranks load them from the run's disk caches.  One
-  ``sharded_rotated_timing`` line.
+  ``sharded_rotated_timing`` line;
+* the 2-D (rows x cols) sharded applies (phases 54-55) on the same ranks,
+  over ``("data", "rows", "cols")`` meshes (1, 2, 2) and (1, 1, 4):
+  ``sharded_apply_separable_2d`` (kernel 1 per shard) on bench.py's
+  sharded2d frames, 8 x 2048 x 3840 (bench.py:659-685), in bf16, u8, f32
+  with the flux and folded at 90 and 180 degrees;
+  ``conservative_regrid_sharded(col_axis="cols")`` (kernel 2 per shard)
+  at config 5, plain, with the flux and masked; and
+  ``sharded_apply_ell_2d`` (the fused shear and the masked contraction
+  per shard on ``build_sharded_kernel_plan_2d``'s rank plans) at phase
+  53's angle, bf16, f32 with the flux, the fold and explicit tables;
+  one NCCL rank on (1, 1, 1), and four cards at (1, 2, 2) where there
+  are four.  One ``sharded_2d_timing`` line.
 
 It builds every kernel from ``aainterp_torch/csrc`` with nvcc (and the
 host engine ``native/aainterp_native.cpp`` with g++), all compilers at
@@ -215,7 +227,9 @@ reads the same T value and the contraction sums in the same order; a
 zero-weight tap reads a finite value), the fold at 120.2 degrees within
 1e-5 * max|out| of it (its bit equality is printed), the explicit
 tables bit-equal to the call without them; the flux pair as above, with
-flux_src within 1e-9 relative of the float64 host sum.
+flux_src within 1e-9 relative of the float64 host sum.  Sharded 2-D
+(phases 54-55): the same rules, each dst pixel summing the same taps in
+the same order with both indices rebased.
 TF32 is switched off for
 matmul and cuDNN so the plain versions' and library calls' einsums run in
 full f32.  Shear plans and operators go to a disk cache in a temporary
@@ -3610,6 +3624,34 @@ SHARD_ROT_CASES = (("53", (1, 4), "rot_bf16", True),
                    ("53", (1, 4), "rot_tables", False))
 SHARD_ROT_DTYPES = {"rot_bf16": torch.bfloat16, "rot_f32": torch.float32,
                     "rot_fold": torch.float32, "rot_tables": torch.float32}
+# phases 54-55, the 2-D (rows x cols) sharded applies on the same 4 gloo
+# ranks: 54 the separable apply at bench.py's sharded2d geometry
+# (bench.py:659-685: 8 frames of 2048 x 3840, exact 2x) and config 5
+# sharded in latitude and longitude; 55 the rotated flagship's frames at
+# phase 53's angle and its fold
+S2_H, S2_W = 2048, 3840
+SHARD2D_CASES = (("54", (1, 2, 2), "bf16", True),
+                 ("54", (1, 1, 4), "bf16", True),
+                 ("54", (1, 2, 2), "u8", False),
+                 ("54", (1, 2, 2), "f32", False),
+                 ("54", (1, 2, 2), "fold90", False),
+                 ("54", (1, 2, 2), "fold180", False),
+                 ("54", (1, 2, 2), "plain", True),
+                 ("54", (1, 2, 2), "conserve", False),
+                 ("54", (1, 2, 2), "mask", False),
+                 ("55", (1, 2, 2), "rot_bf16", True),
+                 ("55", (1, 1, 4), "rot_bf16", True),
+                 ("55", (1, 2, 2), "rot_f32", False),
+                 ("55", (1, 2, 2), "rot_fold", False),
+                 ("55", (1, 2, 2), "rot_tables", False))
+# one NCCL rank on one card, a case of each sharded phase
+NCCL_ONE_RANK_CASES = (("51", (1, 1), "bf16", True),
+                       ("52", (1, 1), "plain", True),
+                       ("53", (1, 1), "rot_bf16", True),
+                       ("54", (1, 1, 1), "bf16", True),
+                       ("55", (1, 1, 1), "rot_bf16", True))
+SHARD_DTYPES.update(fold90=torch.float32, fold180=torch.float32)
+REGRID_CASES = ("plain", "conserve", "mask")      # phases 52 and 54
 
 
 @contextlib.contextmanager
@@ -3685,27 +3727,91 @@ def turns_ms(fn, reps: int, graph: bool = False) -> float:
     return ms
 
 
+def two_d(mesh) -> bool:
+    """A ("data", "rows", "cols") mesh: 2-D blocks, the _2d applies."""
+    return t_mesh.COLS in mesh.mesh_dim_names
+
+
+def shard(x, mesh):
+    return (t_mesh.shard_blocks if two_d(mesh) else t_mesh.shard_rows)(
+        x, mesh)
+
+
+def gather(x, mesh):
+    return (t_mesh.gather_blocks if two_d(mesh) else t_mesh.gather_rows)(
+        x, mesh)
+
+
 def band_shard(local, y_band, x_band, mesh):
-    """(halo, extended block, rebased y band) of a separable shard."""
-    ext, band = t_sharding.sharded_local_apply(
-        y_band, x_band, mesh, lambda ext, band, x: (ext, band), local)
-    return (band.n_src - local.shape[-2]) // 2, ext, band
+    """((halo_y, halo_x), extended block, rebased y band, x band) of a
+    separable shard (the x band rebased too on a 2-D mesh)."""
+    cols = two_d(mesh)
+    ext, y, x = t_sharding.sharded_local_apply(
+        y_band, x_band, mesh, lambda ext, y, x: (ext, y, x), local,
+        cols=cols)
+    halos = ((y.n_src - local.shape[-2]) // 2,
+             (x.n_src - local.shape[-1]) // 2 if cols else 0)
+    return halos, ext, y, x
 
 
-def shard_timing(local, halo, mesh, local_fn, call, unsharded) -> dict:
+def local_bound(ext, y, x) -> float:
+    """The bound of a separable shard's local apply on its extended block
+    ``ext`` with bands ``y``, ``x``: the block read once, the output
+    written once, the tables; a y pass over the block's columns then an x
+    pass, 2 operations a tap."""
+    b, es = ext.shape[0], ext.element_size()
+    nbytes = (ext.numel() * es + b * y.n_dst * x.n_dst * es
+              + (y.n_dst + x.n_dst) * 4 + (y.weights.size + x.weights.size) * 4)
+    flops = 2 * b * (y.n_dst * x.n_src * y.band + y.n_dst * x.n_dst * x.band)
+    return bound(nbytes, flops)["bound_ms"]
+
+
+def rank_halos(op, n_r: int, n_c: int) -> list:
+    """Each rank's own (top, bottom, left, right) halo, rows and columns
+    inside the frame that its dst block's windows reach past its source
+    block.  The port keeps JAX's ``_ell_halo_2d``: one halo, the largest
+    of these, on every side of every rank, zeros past the frame's
+    edges."""
+    (Hd, Wd), (qH, qW) = op.spec.dst_shape, op.spec.qrot_shape
+    db_r, sb_r, db_c, sb_c = Hd // n_r, qH // n_r, Wd // n_c, qW // n_c
+    out = []
+    for i in range(n_r):
+        for j in range(n_c):
+            blk = op.base[i * db_r:(i + 1) * db_r, j * db_c:(j + 1) * db_c]
+            lo = np.maximum(blk.reshape(-1, 2).min(axis=0), 0)
+            hi = np.minimum(blk.reshape(-1, 2).max(axis=0) + op.window,
+                            (qH, qW))
+            out.append((max(i * sb_r - int(lo[0]), 0),
+                        max(int(hi[0]) - (i + 1) * sb_r, 0),
+                        max(j * sb_c - int(lo[1]), 0),
+                        max(int(hi[1]) - (j + 1) * sb_c, 0)))
+    return out
+
+
+def shard_timing(local, halos, mesh, local_fn, call, unsharded) -> dict:
     """This rank's local-apply ms (``local_fn()`` on its extended block,
-    in turns), its halo exchange's ms and bytes (one exchange, read from
-    the traffic count), and the whole sharded call's ms (all ranks at
-    once); on a one-rank mesh also the sharded and the unsharded call on
-    CUDA events, in turns (sharded, unsharded, unsharded, sharded; the
-    best of each)."""
-    before = t_mesh.TRAFFIC["p2p"]
-    t_sharding._halo_extend(local, halo, mesh)
-    res = {"local_ms": turns_ms(local_fn, 20),
-           "halo_rows": halo, "halo_bytes": t_mesh.TRAFFIC["p2p"] - before,
-           "halo_ms": wall_ms(lambda: t_sharding._halo_extend(local, halo,
-                                                              mesh), 10),
-           "call_ms": wall_ms(call, 10)}
+    in turns), its halo exchange's ms and bytes per axis (``halos``: rows,
+    then on a 2-D mesh the columns of the row-extended block; one exchange
+    each, read from the traffic count), and the whole sharded call's ms
+    (all ranks at once); on a one-rank mesh also the sharded and the
+    unsharded call on CUDA events, in turns (sharded, unsharded,
+    unsharded, sharded; the best of each)."""
+    halo_y, halo_x = halos
+    blocks = {t_mesh.ROWS: local}
+    blocks[t_mesh.COLS] = t_sharding._halo_extend(local, halo_y, mesh)
+    res = {"local_ms": turns_ms(local_fn, 20), "halo_rows": halo_y}
+    for name, h in ((t_mesh.ROWS, halo_y), (t_mesh.COLS, halo_x)):
+        if name == t_mesh.COLS and not two_d(mesh):
+            continue
+        key = "" if name == t_mesh.ROWS else "_cols"
+        before = t_mesh.TRAFFIC["p2p"]
+        t_sharding._halo_extend(blocks[name], h, mesh, name)
+        res["halo_bytes" + key] = t_mesh.TRAFFIC["p2p"] - before
+        res["halo_ms" + key] = wall_ms(
+            lambda: t_sharding._halo_extend(blocks[name], h, mesh, name), 10)
+        if key:
+            res["halo_cols"] = h
+    res["call_ms"] = wall_ms(call, 10)
     if mesh.mesh.numel() == 1:
         for name, fn in (("call_events_ms", call), ("unsharded_ms", unsharded),
                          ("unsharded_ms", unsharded), ("call_events_ms", call)):
@@ -3722,28 +3828,35 @@ def rank_ready(mesh) -> int:
 def rank_sharded_flagship(mesh, what: str, timing: bool) -> dict:
     """Phase 51 on one rank: the 4K flagship (``what``: bf16, u8, f32 with
     the flux, or fold: f32 at 90 degrees) through
-    ``sharded_apply_separable`` against the unsharded kernel route."""
+    ``sharded_apply_separable`` against the unsharded kernel route; on a
+    2-D mesh phase 54: bench.py's sharded2d frames (8 x 2048 x 3840)
+    through ``sharded_apply_separable_2d`` (fold90, fold180: f32 at 90
+    and 180 degrees)."""
     dev = t_mesh.rank_device()
-    fold = what == "fold"
-    op = operator((H, W), 90.0 if fold else 0.0)
-    frames = Inputs(dev)(SHARD_DTYPES[what])       # the same on every rank
+    cols = two_d(mesh)
+    fold = what.startswith("fold")
+    shape = (S2_H, S2_W) if cols else (H, W)
+    op = operator(shape, (180.0 if what == "fold180" else 90.0) if fold
+                  else 0.0)
+    frames = Inputs(dev)(SHARD_DTYPES[what], (F,) + shape)  # same everywhere
     tabs = folded_tables(op)
     ref = (at.apply_operator(op, frames) if fold
            else cuda_apply.apply_separable_kernel(frames, *tabs))
-    local = t_mesh.shard_rows(frames, mesh)
+    local = shard(frames, mesh)
     conserve = what == "f32"
+    apply = (t_sharding.sharded_apply_separable_2d if cols
+             else t_sharding.sharded_apply_separable)
     torch.cuda.synchronize()
     dist.barrier()
     reset_launches()
     with no_plain_routes():
-        outs = [t_sharding.sharded_apply_separable(local, op, mesh,
-                                                   conserve=conserve)
+        outs = [apply(local, op, mesh, conserve=conserve)
                 for _ in range(SHARD_REQUESTS)]
         torch.cuda.synchronize()
     res = {"rank": dist.get_rank(), "device": str(dev),
            "launches": (cuda_apply.LAUNCHES, cuda_apply_2d.LAUNCHES)}
     out = outs[-1][0] if conserve else outs[-1]
-    whole = t_mesh.gather_rows(out, mesh)
+    whole = gather(out, mesh)
     res.update(local_shape=tuple(out.shape), shape=tuple(whole.shape),
                dtype=str(whole.dtype), equal=same(whole, ref),
                n_diff=int((whole != ref).sum()) if whole.shape == ref.shape
@@ -3758,24 +3871,27 @@ def rank_sharded_flagship(mesh, what: str, timing: bool) -> dict:
                 np.einsum("yx,y,x->", f.cpu().double().numpy(), covy, covx)
                 for f in frames))
     if timing:
-        x = op.wx
-
-        halo, ext, band = band_shard(local, op.wy, x, mesh)
+        halos, ext, y, x = band_shard(local, op.wy, op.wx, mesh)
         res.update(shard_timing(
-            local, halo, mesh,
+            local, halos, mesh,
             lambda: cuda_apply.apply_separable_kernel(
-                ext, band.start, band.weights.astype(np.float32),
-                x.start, x.weights.astype(np.float32)),
-            lambda: t_sharding.sharded_apply_separable(local, op, mesh),
+                ext, y.start, y.weights.astype(np.float32),
+                np.ascontiguousarray(x.start, dtype=np.int32),
+                x.weights.astype(np.float32)),
+            lambda: apply(local, op, mesh),
             lambda: at.apply_operator(op, frames)))
+        res["ext_shape"] = tuple(ext.shape)
+        res["local_bound_ms"] = local_bound(ext, y, x)
     return res
 
 
 def rank_sharded_regrid(mesh, what: str, timing: bool) -> dict:
     """Phase 52 on one rank: config 5 (8 f32 fields, 1800 x 3600 -> 180 x
     360) through ``conservative_regrid_sharded`` (``what``: plain,
-    conserve, or mask) against the unsharded regrid (kernel 2)."""
+    conserve, or mask) against the unsharded regrid (kernel 2); on a 2-D
+    mesh phase 54's lat-and-lon sharded regrid (``col_axis="cols"``)."""
     dev = t_mesh.rank_device()
+    cols = two_d(mesh)
     gen = torch.Generator(device=dev).manual_seed(5)
     fields = (torch.rand((RG_F,) + RG_SRC, generator=gen, device=dev) * 50.0
               + 250.0)
@@ -3785,20 +3901,22 @@ def rank_sharded_regrid(mesh, what: str, timing: bool) -> dict:
         mask = torch.rand(RG_SRC, generator=gen, device=dev) > 0.3
         mask[:100] = False              # 10 dst rows with no valid cell
     ref = at.conservative_regrid(fields, src, dst, src_mask=mask)
-    local = t_mesh.shard_rows(fields, mesh)
+    local = shard(fields, mesh)
     conserve = what == "conserve"
+    col_axis = t_mesh.COLS if cols else None
     torch.cuda.synchronize()
     dist.barrier()
     reset_launches()
     with no_plain_routes():
         outs = [t_regrid.conservative_regrid_sharded(
-            local, src, dst, mesh, conserve=conserve, src_mask=mask)
+            local, src, dst, mesh, conserve=conserve, src_mask=mask,
+            col_axis=col_axis)
             for _ in range(SHARD_REQUESTS)]
         torch.cuda.synchronize()
     res = {"rank": dist.get_rank(), "device": str(dev),
            "launches": (cuda_apply.LAUNCHES, cuda_apply_2d.LAUNCHES)}
     out = outs[-1][0] if conserve else outs[-1]
-    whole = t_mesh.gather_rows(out, mesh)
+    whole = gather(out, mesh)
     res.update(shape=tuple(whole.shape), equal=same(whole, ref),
                max_abs_err=float((whole - ref).nan_to_num(0.0).abs().max()),
                nan_rows=int(whole.isnan().all(dim=-1).any(dim=0).sum()))
@@ -3811,26 +3929,30 @@ def rank_sharded_regrid(mesh, what: str, timing: bool) -> dict:
                 "fyx,y,x->", fields.cpu().double().numpy(), my, mx))
     if timing:
         by, bx = at.conservative_regrid_operator(src, dst)
-        halo, ext, band = band_shard(local, by, bx, mesh)
+        halos, ext, y, x = band_shard(local, by, bx, mesh)
+        res["local_bound_ms"] = local_bound(ext, y, x)
         res.update(shard_timing(
-            local, halo, mesh,
-            lambda: t_regrid.apply_band_operators(ext, band, bx),
-            lambda: t_regrid.conservative_regrid_sharded(local, src, dst,
-                                                         mesh),
+            local, halos, mesh,
+            lambda: t_regrid.apply_band_operators(ext, y, x),
+            lambda: t_regrid.conservative_regrid_sharded(
+                local, src, dst, mesh, col_axis=col_axis),
             lambda: at.conservative_regrid(fields, src, dst)))
     return res
 
 
 def sharded_rot_angle() -> float:
-    """Phase 53's angle: up from SHARD_ROT_FROM in 0.1-degree steps until
-    the dst rows and qH divide SHARD_RANKS (bench.py:559-566)."""
+    """Phases 53 and 55's angle: up from SHARD_ROT_FROM in 0.1-degree
+    steps until the dst rows and columns and the source's (qH, qW) divide
+    SHARD_RANKS (bench.py:559-566, with the columns of its sharded2d
+    scan, bench.py:688-698)."""
     for d in range(20):
         angle = round(SHARD_ROT_FROM + d / 10.0, 1)
         spec = at.make_grid_spec((RH, RW), *ROT[:3], angle)
-        if not (spec.dst_shape[0] % SHARD_RANKS
-                or spec.qrot_shape[0] % SHARD_RANKS):
+        if not any(n % SHARD_RANKS
+                   for n in spec.dst_shape + spec.qrot_shape):
             return angle
-    raise RuntimeError("no angle within 2 degrees divides the ranks' rows")
+    raise RuntimeError("no angle within 2 degrees divides the ranks' rows "
+                       "and columns")
 
 
 def sharded_rot_operator(angle: float, validate: bool):
@@ -3861,6 +3983,8 @@ def sharded_rot_prep() -> float:
     cuda_shear.kernel_plan_cached(folded)
     plan_s = time.perf_counter() - t0
     kps = {n: cuda_shear.build_sharded_kernel_plan(op, n) for n in (4, 2)}
+    kp2 = {m: cuda_shear.build_sharded_kernel_plan_2d(op, *m)
+           for m in ((2, 2), (1, 4))}
     check((op.spec.dst_shape, op.window, plan.Ka, plan.Kb,
            folded.spec.dst_shape[0] % SHARD_RANKS,
            folded.spec.qrot_shape[0] % SHARD_RANKS) ==
@@ -3878,6 +4002,18 @@ def sharded_rot_prep() -> float:
           f"({-(-kps[2].halo // kps[2].sb)} hop); weight-gen and fold "
           f"{gen_s:.2f} s, both shear plans {plan_s:.2f} s (saved for the "
           f"ranks)")
+    for m, kp in kp2.items():
+        planes = [kp.rank(i, j) for i in range(kp.n_r) for j in range(kp.n_c)]
+        print(f"[55 sharded 2-D rotated host] rows x cols {m}: halo "
+              f"{kp.halo_y} rows x {kp.halo_x} columns over blocks of "
+              f"{kp.sb_r} x {kp.sb_c} (each rank's own (top, bottom, "
+              f"left, right) inside the frame: {rank_halos(op, *m)}), "
+              f"extended block {kp.Hloc} x "
+              f"{kp.Wloc}; each rank's T (TH x TW_loc) "
+              f"{[(p.TH, p.TW) for p in planes]} against the global "
+              f"{plan.TH} x {plan.TW} and (1, 4)'s {kps[4].rank(0).TH} x "
+              f"{plan.TW}; bf16 rows 16-byte aligned "
+              f"{[p.TW * 2 % 16 == 0 for p in planes]}")
     return angle
 
 
@@ -3891,30 +4027,32 @@ def rank_sharded_ell(mesh, what: str, timing: bool, angle: float,
     (``what``: rot_bf16; rot_f32 with the flux; rot_fold at angle + 90,
     quadrant 1 folded; rot_tables: that fold with the operator's own
     tables as explicit CUDA tensors) against the unsharded kernel route
-    (rot_tables: against the same sharded call without them)."""
+    (rot_tables: against the same sharded call without them); on a 2-D
+    mesh phase 55, the same through ``sharded_apply_ell_2d``."""
     t_cache.DEFAULT_CACHE_DIR = cache_dir       # the parent's disk caches
     dev = t_mesh.rank_device()
+    cols = two_d(mesh)
     fold = what in ("rot_fold", "rot_tables")
     a = angle + (90.0 if fold else 0.0)
     if a not in _RANK_OPS:
         _RANK_OPS[a] = sharded_rot_operator(a, False)
     op = _RANK_OPS[a]
     frames = Inputs(dev)(SHARD_ROT_DTYPES[what], (F, RH, RW))
-    local = t_mesh.shard_rows(frames, mesh)
+    local = shard(frames, mesh)
     conserve = what == "rot_f32"
+    apply = (t_sharding.sharded_apply_ell_2d if cols
+             else t_sharding.sharded_apply_ell)
     kw = {}
     if what == "rot_tables":
         kw = dict(base=upload(op.base, dev), weights=upload(op.weights, dev))
-        ref = t_mesh.gather_rows(t_sharding.sharded_apply_ell(local, op, mesh),
-                                 mesh)
+        ref = gather(apply(local, op, mesh), mesh)
     else:
         ref = at.apply_operator(op, frames, impl="kernel")
     torch.cuda.synchronize()
     dist.barrier()
     reset_launches()
     with no_plain_routes():
-        outs = [t_sharding.sharded_apply_ell(local, op, mesh,
-                                             conserve=conserve, **kw)
+        outs = [apply(local, op, mesh, conserve=conserve, **kw)
                 for _ in range(SHARD_REQUESTS)]
         torch.cuda.synchronize()
     ln = cuda_shear.LAUNCHES
@@ -3923,7 +4061,7 @@ def rank_sharded_ell(mesh, what: str, timing: bool, angle: float,
                         sum(ln.values()) - ln["vhshear"] - ln["contract"],
                         cuda_apply.LAUNCHES, cuda_apply_2d.LAUNCHES)}
     out = outs[-1][0] if conserve else outs[-1]
-    whole = t_mesh.gather_rows(out, mesh)
+    whole = gather(out, mesh)
     res.update(local_shape=tuple(out.shape), shape=tuple(whole.shape),
                dtype=str(whole.dtype), equal=same(whole, ref),
                n_diff=int((whole != ref).sum()) if whole.shape == ref.shape
@@ -3938,14 +4076,21 @@ def rank_sharded_ell(mesh, what: str, timing: bool, angle: float,
                 for f in frames))
     if timing:
         n, i, _ = t_mesh.axis(mesh, t_mesh.ROWS)
-        kp = cuda_shear.build_sharded_kernel_plan(op, n)
-        plan = kp.rank(i)
-        ext = t_sharding._halo_extend(local, kp.halo, mesh)
+        if cols:
+            n_c, j, _ = t_mesh.axis(mesh, t_mesh.COLS)
+            kp = cuda_shear.build_sharded_kernel_plan_2d(op, n, n_c)
+            plan, halos = kp.rank(i, j), (kp.halo_y, kp.halo_x)
+        else:
+            kp = cuda_shear.build_sharded_kernel_plan(op, n)
+            plan, halos = kp.rank(i), (kp.halo, 0)
+        ext = t_sharding._halo_extend(
+            t_sharding._halo_extend(local, halos[0], mesh), halos[1], mesh,
+            t_mesh.COLS)
         t = cuda_shear.vhshear_kernel(ext, plan)
         res.update(shard_timing(
-            local, kp.halo, mesh,
+            local, halos, mesh,
             lambda: cuda_shear.apply_ell_shear_kernel(ext, plan),
-            lambda: t_sharding.sharded_apply_ell(local, op, mesh),
+            lambda: apply(local, op, mesh),
             lambda: at.apply_operator(op, frames)))
         # 200 replays: a turn starts on a card left idle by the barrier
         res.update(
@@ -3955,7 +4100,9 @@ def rank_sharded_ell(mesh, what: str, timing: bool, angle: float,
                                  200, graph=True),
             bounds={k: bound(*rot_experiments.traffic(
                 plan, local.shape[0], frames.element_size(), k))["bound_ms"]
-                for k in ("shears", "contract_masked", "full")})
+                for k in ("shears", "contract_masked", "full")},
+            T_loc=(plan.TH, plan.TW), ext_shape=tuple(ext.shape[-2:]),
+            T_aligned=plan.TW * frames.element_size() % 16 == 0)
     return res
 
 
@@ -3970,7 +4117,7 @@ def _report(phase: str, what: str, mesh_shape, backend: str, res: list,
               f"launched ({kernels}) {tuple(r['launches'])} times, want "
               f"{want}")
     exact = all(r["equal"] for r in res)
-    if what in ("fold", "rot_fold"):
+    if what.startswith("fold") or what == "rot_fold":
         tol = 1e-5 * res[0]["ref_max"]
         err = max(r["max_abs_err"] for r in res)
         check(err <= tol, f"[{phase}] {what} err {err} > {tol}")
@@ -4011,18 +4158,28 @@ def _timing_line(phase: str, card: str, what: str, mesh_shape, backend,
     row = {"phase": phase, "case": what, "mesh": list(mesh_shape),
            "backend": backend, "ranks_share_one_card": shared,
            **{k: [r[k] for r in res] for k in
-              ("local_ms", "halo_rows", "halo_ms", "halo_bytes", "call_ms",
-               "vhshear_ms", "contract_ms", "bounds") if k in res[0]}}
+              ("local_ms", "local_bound_ms", "halo_rows", "halo_ms",
+               "halo_bytes", "halo_cols",
+               "halo_ms_cols", "halo_bytes_cols", "call_ms", "vhshear_ms",
+               "contract_ms", "bounds", "T_loc", "T_aligned", "ext_shape")
+              if k in res[0]}}
     for k in ("unsharded_ms", "call_events_ms"):
         if k in res[0]:
             row[k] = res[0][k]
     note = ("ranks that share one card, so not a scaling figure" if shared
             else "one rank a card")
+    halo = (f"halo of {row['halo_rows'][0]} rows: ms per rank "
+            f"{[round(v, 4) for v in row['halo_ms']]}, bytes sent per rank "
+            f"{row['halo_bytes']}")
+    if "halo_cols" in row:
+        halo += (f"; then {row['halo_cols'][0]} columns of the row-extended "
+                 f"block: ms {[round(v, 4) for v in row['halo_ms_cols']]}, "
+                 f"bytes {row['halo_bytes_cols']}")
+    lb = (f" against bounds {[round(v, 4) for v in row['local_bound_ms']]}"
+          if "local_bound_ms" in row else "")
     print(f"[{phase} timing] {card}: {what} mesh {mesh_shape} {backend}: "
           f"local apply ms per rank {[round(v, 4) for v in row['local_ms']]}"
-          f" (in turns, CUDA events); halo of {row['halo_rows'][0]} rows: ms "
-          f"per rank {[round(v, 4) for v in row['halo_ms']]}, bytes sent per "
-          f"rank {row['halo_bytes']}; whole sharded call ms per rank "
+          f"{lb} (in turns, CUDA events); {halo}; whole sharded call ms per rank "
           f"{[round(v, 4) for v in row['call_ms']]} ({note})")
     if "vhshear_ms" in row:
         bounds = [(round(b["shears"], 4), round(b["contract_masked"], 4))
@@ -4032,7 +4189,9 @@ def _timing_line(phase: str, card: str, what: str, mesh_shape, backend,
               f"shear "
               f"{[round(v, 4) for v in row['vhshear_ms']]}, contraction ms "
               f"{[round(v, 4) for v in row['contract_ms']]}, their bounds "
-              f"{bounds}")
+              f"{bounds}; extended block {row['ext_shape']}, local T (TH, "
+              f"TW_loc) {row['T_loc']}, bf16 rows 16-byte aligned "
+              f"{row['T_aligned']}")
     if "unsharded_ms" in row:
         print(f"[{phase} timing] {card}: one {backend} rank, CUDA events per call:"
               f" sharded call {row['call_events_ms']:.4f} ms, unsharded call "
@@ -4041,52 +4200,58 @@ def _timing_line(phase: str, card: str, what: str, mesh_shape, backend,
 
 
 def sharded_phases(card: str) -> dict:
-    """Phases 51-53.  Returns the launches of kernels 1 and 2, the fused
-    shear and the contraction on the sharded paths (by kernel row)."""
+    """Phases 51-55.  Returns the launches of kernels 1 and 2, the fused
+    shear and the contraction on the sharded paths, by kernel row:
+    ``["rows"]`` of the row-sharded phases 51-53, ``["2d"]`` of the 2-D
+    phases 54-55."""
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     count = torch.cuda.device_count()
     rot_t0 = time.perf_counter()
     rot_angle = sharded_rot_prep()
     rot_s = [time.perf_counter() - rot_t0]
-    launches = {"separable_apply": 0, "separable_apply_2d": 0,
-                "vhshear": 0, "contract": 0}
-    rows, rot_rows = [], []
-    rot_case = ("53", (1, 1), "rot_bf16", True)
+    launches = {mode: {k: 0 for k in ("separable_apply", "separable_apply_2d",
+                                      "vhshear", "contract")}
+                for mode in ("rows", "2d")}
+    rows, rot_rows, rows_2d = [], [], []
+    s2_s = []
 
     def run_cases(pool, backend, cases):
         shared = count < pool.world
         for phase, mesh_shape, what, timed in cases:
-            if phase == "53":
-                t0 = time.perf_counter()
+            t0 = time.perf_counter()
+            cols = len(mesh_shape) == 3
+            counts = launches["2d" if cols else "rows"]
+            if phase in ("53", "55"):
                 res = pool.run(rank_sharded_ell, mesh_shape, what, timed,
                                rot_angle, t_cache.DEFAULT_CACHE_DIR)
                 _report(phase, what, mesh_shape, backend, res,
                         (SHARD_REQUESTS, SHARD_REQUESTS, 0, 0, 0),
                         "fused shear, contraction, other shear kernels, "
                         "kernel 1, kernel 2", host_rtol=1e-9)
-                launches["vhshear"] += sum(r["launches"][0] for r in res)
-                launches["contract"] += sum(r["launches"][1] for r in res)
+                counts["vhshear"] += sum(r["launches"][0] for r in res)
+                counts["contract"] += sum(r["launches"][1] for r in res)
                 if timed:
-                    rot_rows.append(_timing_line(phase, card, what,
-                                                 mesh_shape, backend, res,
-                                                 shared))
-                rot_s.append(time.perf_counter() - t0)
+                    (rows_2d if cols else rot_rows).append(_timing_line(
+                        phase, card, what, mesh_shape, backend, res, shared))
+                (s2_s if cols else rot_s).append(time.perf_counter() - t0)
                 continue
-            if phase == "51":
-                res = pool.run(rank_sharded_flagship, mesh_shape, what, timed)
-                n = _report(phase, what, mesh_shape, backend, res,
-                            (SHARD_REQUESTS, 0))
-                launches["separable_apply"] += n
-            else:
+            if what in REGRID_CASES:
                 per_call = 2 if what == "mask" else 1
                 res = pool.run(rank_sharded_regrid, mesh_shape, what, timed)
                 n = _report(phase, what, mesh_shape, backend, res,
                             (0, SHARD_REQUESTS * per_call))
-                launches["separable_apply_2d"] += n
+                counts["separable_apply_2d"] += n
+            else:
+                res = pool.run(rank_sharded_flagship, mesh_shape, what, timed)
+                n = _report(phase, what, mesh_shape, backend, res,
+                            (SHARD_REQUESTS, 0))
+                counts["separable_apply"] += n
             if timed:
-                rows.append(_timing_line(phase, card, what, mesh_shape,
-                                         backend, res, shared))
+                (rows_2d if cols else rows).append(_timing_line(
+                    phase, card, what, mesh_shape, backend, res, shared))
+            if cols:
+                s2_s.append(time.perf_counter() - t0)
 
     def pool_of(world, backend):
         t0 = time.perf_counter()
@@ -4099,27 +4264,35 @@ def sharded_phases(card: str) -> dict:
         return pool
 
     with pool_of(SHARD_RANKS, "gloo") as pool:
-        run_cases(pool, "gloo", GLOO_CASES + SHARD_ROT_CASES)
-    with pool_of(1, "nccl") as pool:
-        run_cases(pool, "nccl", (("51", (1, 1), "bf16", True),
-                                 ("52", (1, 1), "plain", True), rot_case))
+        run_cases(pool, "gloo", GLOO_CASES + SHARD_ROT_CASES + SHARD2D_CASES)
+    if NCCL_ONE_RANK_CASES:
+        with pool_of(1, "nccl") as pool:
+            run_cases(pool, "nccl", NCCL_ONE_RANK_CASES)
     if count >= 2:
         k = min(4, count)
         with pool_of(k, "nccl") as pool:
             run_cases(pool, "nccl", (("51", (1, k), "bf16", True),
                                      ("52", (1, k), "plain", True),
-                                     ("53", (1, k), "rot_bf16", True)))
+                                     ("53", (1, k), "rot_bf16", True))
+                      + ((("54", (1, 2, 2), "bf16", True),
+                          ("55", (1, 2, 2), "rot_bf16", True))
+                         if k == 4 else ()))
     else:
-        print(f"[51-53 sharded] {count} card: NCCL over several cards (one "
+        print(f"[51-55 sharded] {count} card: NCCL over several cards (one "
               f"rank a card) did not run")
     print(f"[53 sharded rotated] {sum(rot_s):.1f} s: host {rot_s[0]:.1f} s "
-          f"in this process, then {len(rot_s) - 1} cases "
-          f"{[round(v, 1) for v in rot_s[1:]]} s (the ranks' first case "
-          f"loads the operator and the plan)")
+          f"in this process (with phase 55's 2-D plans), then "
+          f"{len(rot_s) - 1} cases {[round(v, 1) for v in rot_s[1:]]} s (the "
+          f"ranks' first case loads the operator and the plan)")
+    print(f"[54-55 sharded 2-D] {sum(s2_s):.1f} s: {len(s2_s)} cases "
+          f"{[round(v, 1) for v in s2_s]} s")
     print(json.dumps({"sharded_timing": {"card": card, "rows": rows}}))
     print(json.dumps({"sharded_rotated_timing": {
         "card": card, "angle": rot_angle, "rows": rot_rows,
         "phase_s": sum(rot_s)}}))
+    print(json.dumps({"sharded_2d_timing": {
+        "card": card, "angle": rot_angle, "rows": rows_2d,
+        "phase_s": sum(s2_s)}}))
     return launches
 
 
@@ -4139,7 +4312,7 @@ def main() -> int:
 
 
 def run(work: str) -> int:
-    """Phases 1-53; ``work`` is a temporary directory for files."""
+    """Phases 1-55; ``work`` is a temporary directory for files."""
     # ---- 1. device -------------------------------------------------------
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
@@ -4396,10 +4569,12 @@ def run(work: str) -> int:
     probes.append(aligned_fused_phase(make, card))
     probes += watchlist_phase(make, card)
     sharded = sharded_phases(card)
-    banded[0]["sharded_launches"] = sharded["separable_apply_2d"]
+    banded[0]["sharded_launches"] = sharded["rows"]["separable_apply_2d"]
+    banded[0]["sharded_2d_launches"] = sharded["2d"]["separable_apply_2d"]
     for row in rotated:
         if row["name"] in ("vhshear", "contract"):
-            row["sharded_launches"] = sharded[row["name"]]
+            row["sharded_launches"] = sharded["rows"][row["name"]]
+            row["sharded_2d_launches"] = sharded["2d"][row["name"]]
 
     print(json.dumps({"kernels": [{
         "name": "separable_apply",
@@ -4412,7 +4587,8 @@ def run(work: str) -> int:
         "plain_ms": plain_ms,
         **flagship_bound,
         "library_ms": ms["library_device_ms"],
-        "sharded_launches": sharded["separable_apply"],
+        "sharded_launches": sharded["rows"]["separable_apply"],
+        "sharded_2d_launches": sharded["2d"]["separable_apply"],
     }] + rotated + sheared + banded + probes}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -6,7 +6,10 @@ rank, which sends to itself, so it runs on one card;
 ``test_nccl_across_cards`` runs one rank on each of ``min(4, count)``
 cards at meshes (1, k) and, with four, (2, 2), and skips with fewer than
 two; its ranks run kernels 1 and 2 and the rotated route's fused shear
-and masked contraction per shard.  The ranks' side is
+and masked contraction per shard.  ``test_nccl_2d_one_rank`` runs the
+2-D (rows x cols) sharded paths on one NCCL rank, mesh (1, 1, 1), and
+``test_nccl_2d_across_four_cards`` at (1, 2, 2), one rank a card (it
+skips with fewer than four).  The ranks' side is
 tests/torch_dist_ranks.py (tolerances there: bit equality where the
 sharded and unsharded calls take one route, f32 1e-5 where they do not,
 flux rtol 1e-5).
@@ -63,3 +66,20 @@ def test_nccl_across_cards(cards):
             assert [r["bf16"]["device"] for r in res] == [
                 f"cuda:{r}" for r in range(k)]
             ranks.check_sharded_vs_unsharded(res, shape, on_card=True)
+
+
+def test_nccl_2d_one_rank(cards):
+    res = pmesh.run_spmd(ranks.sharded_2d_vs_unsharded, (1, 1, 1),
+                         backend="nccl", timeout=300.0)
+    assert res[0]["bf16"]["device"] == "cuda:0"
+    ranks.check_sharded_2d_vs_unsharded(res, on_card=True)
+
+
+def test_nccl_2d_across_four_cards(cards):
+    if cards < 4:
+        pytest.skip(f"needs four cards, one NCCL rank a card; {cards} here")
+    with pmesh.RankPool(4, backend="nccl", timeout=600.0) as pool:
+        res = pool.run(ranks.sharded_2d_vs_unsharded, (1, 2, 2))
+    assert [r["bf16"]["device"] for r in res] == [
+        f"cuda:{r}" for r in range(4)]
+    ranks.check_sharded_2d_vs_unsharded(res, on_card=True)

@@ -263,9 +263,9 @@ def test_rank_rows_check_catches_a_short_halo():
     # without a halo the ranks' live taps leave their blocks
     op = _port(_op(128, 64, 8.0))
     kp = cuda_shear.build_sharded_kernel_plan(op, 4)
-    cuda_shear.check_rank_rows(op, kp.plan, 4, kp.halo)
+    cuda_shear.check_rank_blocks(op, kp.plan, 4, kp.halo)
     with pytest.raises(ValueError, match="outside"):
-        cuda_shear.check_rank_rows(op, kp.plan, 4, 0)
+        cuda_shear.check_rank_blocks(op, kp.plan, 4, 0)
 
 
 def test_auto_falls_back_to_gather_with_a_warning(pools):

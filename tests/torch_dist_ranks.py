@@ -1,13 +1,19 @@
 """Rank-side functions of tests/test_torch_sharded.py,
-tests/test_torch_sharded_ell.py and tests/test_torch_sharded_cuda.py.
+tests/test_torch_sharded_ell.py, tests/test_torch_sharded_2d.py,
+tests/test_torch_sharded_ell_2d.py and tests/test_torch_sharded_cuda.py.
 
 Each runs on every rank of an ``aainterp_torch.parallel.mesh.RankPool``
 as ``fn(mesh, *args)``: it cuts the rank's block out of the whole input
 (numpy, made by the test from a seed, or made on the rank from a seed),
 runs the port's sharded function, gathers the result and returns numpy.
-``check_sharded_vs_unsharded`` checks the ranks' results of
-``sharded_vs_unsharded`` for both files.  This module imports neither jax
-nor the test files, so the rank processes never load JAX.
+On a ("data", "rows") mesh the block is the rank's rows and the function
+the row-sharded one; on a ("data", "rows", "cols") mesh the block is the
+rank's 2-D block and the function the ``_2d`` one.
+``check_sharded_vs_unsharded`` and ``check_sharded_2d_vs_unsharded``
+check the ranks' results of ``sharded_vs_unsharded`` and
+``sharded_2d_vs_unsharded`` for the CPU and the card files.  This module
+imports neither jax nor the test files, so the rank processes never load
+JAX.
 """
 
 from __future__ import annotations
@@ -47,61 +53,109 @@ def _flux(flux):
     return None if flux is None else flux.numpy()
 
 
+def _is_2d(mesh) -> bool:
+    """A ("data", "rows", "cols") mesh: 2-D blocks and the _2d functions."""
+    return pmesh.COLS in mesh.mesh_dim_names
+
+
+def _shard(x, mesh) -> torch.Tensor:
+    """This rank's block: its 2-D block on a 2-D mesh, else its rows."""
+    x = torch.as_tensor(x)
+    return (pmesh.shard_blocks if _is_2d(mesh) else pmesh.shard_rows)(x, mesh)
+
+
+def _gather(x, mesh) -> torch.Tensor:
+    return (pmesh.gather_blocks if _is_2d(mesh) else pmesh.gather_rows)(
+        x, mesh)
+
+
+def _shape(mesh):
+    """(n_rows, n_cols) of the mesh, n_cols 0 without a cols dim."""
+    return (pmesh.axis(mesh, pmesh.ROWS)[0],
+            pmesh.axis(mesh, pmesh.COLS)[0] if _is_2d(mesh) else 0)
+
+
+def _folded(op, mesh) -> bool:
+    n_r, n_c = _shape(mesh)
+    fold = (sharding._folded_sharded_bands_2d(op, n_r, n_c) if n_c
+            else sharding._folded_sharded_bands(op, n_r))
+    return fold is not None
+
+
 def separable(mesh, frames, tables, impl="auto", conserve=False):
-    """sharded_apply_separable on this rank's block; the gathered output,
-    this rank's block, the flux and the traffic of the call (or the
-    ValueError's message)."""
+    """sharded_apply_separable (``_2d``) on this rank's block; the gathered
+    output, this rank's block, the flux and the traffic of the call (or
+    the ValueError's message)."""
     op = _op(tables)
-    x = pmesh.shard_rows(torch.as_tensor(frames), mesh)
+    x = _shard(frames, mesh)
+    fn = (sharding.sharded_apply_separable_2d if _is_2d(mesh)
+          else sharding.sharded_apply_separable)
     before = _traffic()
     try:
-        res = sharding.sharded_apply_separable(
-            x, op, mesh, impl=impl, conserve=conserve)
+        res = fn(x, op, mesh, impl=impl, conserve=conserve)
     except ValueError as e:
         return {"error": str(e)}
     traffic = _delta(before)
     out, flux = res if conserve else (res, None)
-    return {"out": pmesh.gather_rows(out, mesh).numpy(),
+    return {"out": _gather(out, mesh).numpy(),
             "local": out.numpy(), "flux": _flux(flux), "traffic": traffic,
-            "folded": sharding._folded_sharded_bands(
-                op, pmesh.axis(mesh, "rows")[0]) is not None}
+            "folded": _folded(op, mesh)}
 
 
 def banded(mesh, frames, y, x, kernel=False):
-    """sharded_apply_banded (or, with ``kernel``, the kernel-1 route,
-    whose wrapper takes its plain version on the CPU) of two Band1D
-    tables; the gathered output and the halo's bytes (or the error)."""
-    fn = (sharding.sharded_apply_banded_kernel if kernel
-          else sharding.sharded_apply_banded)
-    blk = pmesh.shard_rows(torch.as_tensor(frames), mesh)
+    """sharded_apply_banded (``_2d``; or, with ``kernel``, the kernel-1
+    route, whose wrapper takes its plain version on the CPU) of two
+    Band1D tables; the gathered output, the halo's bytes and how many
+    local applies took the aligned route (or the error)."""
+    fn = {(False, False): sharding.sharded_apply_banded,
+          (False, True): sharding.sharded_apply_banded_kernel,
+          (True, False): sharding.sharded_apply_banded_2d,
+          (True, True): sharding.sharded_apply_banded_2d_kernel}[
+        (_is_2d(mesh), bool(kernel))]
+    blk = _shard(frames, mesh)
+    calls = []
+    aligned = sharding.apply_separable_aligned
+
+    def counted(*a, **k):
+        calls.append(1)
+        return aligned(*a, **k)
+
+    sharding.apply_separable_aligned = counted
     before = _traffic()
     try:
         out = fn(blk, _band(y), _band(x), mesh)
     except ValueError as e:
         return {"error": str(e)}
-    return {"out": pmesh.gather_rows(out, mesh).numpy(),
-            "dtype": str(out.dtype), "traffic": _delta(before)}
+    finally:
+        sharding.apply_separable_aligned = aligned
+    return {"out": _gather(out, mesh).numpy(),
+            "dtype": str(out.dtype), "traffic": _delta(before),
+            "aligned_calls": len(calls)}
 
 
 def corrupted_flux(mesh, frames, tables):
     """The flux of a good sharded apply and of its output with two dst
     rows zeroed (a rank-local fault)."""
     op = _op(tables)
-    blk = pmesh.shard_rows(torch.as_tensor(frames), mesh)
-    good = sharding.sharded_apply_separable(blk, op, mesh)
-    bad = pmesh.gather_rows(good, mesh).clone()
+    blk = _shard(frames, mesh)
+    two_d = _is_2d(mesh)
+    good = (sharding.sharded_apply_separable_2d if two_d
+            else sharding.sharded_apply_separable)(blk, op, mesh)
+    bad = _gather(good, mesh).clone()
     bad[:, 5:7, :] = 0.0
     factors = conserve.separable_flux_factors(op.wy, op.wx,
                                               raw_sums=op.raw_row_sums)
-    return [conserve.sharded_flux_separable(
-        blk, pmesh.shard_rows(d, mesh), factors, mesh).numpy()
-        for d in (pmesh.gather_rows(good, mesh), bad)]
+    flux = (conserve.sharded_flux_separable_2d if two_d
+            else conserve.sharded_flux_separable)
+    return [flux(blk, _shard(d, mesh), factors, mesh).numpy()
+            for d in (_gather(good, mesh), bad)]
 
 
 def regrid_sharded(mesh, fields, src, dst, conserve=False, mask=None,
                    col_axis=None):
-    """conservative_regrid_sharded on this rank's block; the gathered
-    output, the flux, and how many local applies took the aligned route."""
+    """conservative_regrid_sharded on this rank's block (its 2-D block on
+    a 2-D mesh); the gathered output, the flux, and how many local
+    applies took the aligned route (or the ValueError's message)."""
     calls = []
     aligned = regrid.apply_separable_aligned
 
@@ -111,16 +165,16 @@ def regrid_sharded(mesh, fields, src, dst, conserve=False, mask=None,
 
     regrid.apply_separable_aligned = counted
     try:
-        blk = pmesh.shard_rows(torch.as_tensor(fields), mesh)
+        blk = _shard(fields, mesh)
         res = regrid.conservative_regrid_sharded(
             blk, regrid.LatLonGrid(*src), regrid.LatLonGrid(*dst), mesh,
             conserve=conserve, src_mask=mask, col_axis=col_axis)
-    except NotImplementedError as e:
+    except ValueError as e:
         return {"error": str(e)}
     finally:
         regrid.apply_separable_aligned = aligned
     out, flux = res if conserve else (res, None)
-    return {"out": pmesh.gather_rows(out, mesh).numpy(), "flux": _flux(flux),
+    return {"out": _gather(out, mesh).numpy(), "flux": _flux(flux),
             "aligned_calls": len(calls)}
 
 
@@ -128,33 +182,42 @@ def _ell_op(tables: dict):
     return convert.ell_operator_from_numpy(**tables)
 
 
+def _ell_fn(mesh, kernel: bool):
+    """The sharded ELL entry point for this mesh: row-sharded or 2-D, the
+    kernel route or the one that takes ``impl``."""
+    if _is_2d(mesh):
+        return (sharding.sharded_apply_ell_2d_kernel if kernel
+                else sharding.sharded_apply_ell_2d)
+    return (sharding.sharded_apply_ell_kernel if kernel
+            else sharding.sharded_apply_ell)
+
+
 def ell(mesh, frames, tables, impl="auto", conserve=False, kernel=False,
         tables_as=None):
-    """sharded_apply_ell (or, with ``kernel``, sharded_apply_ell_kernel,
-    whose wrappers take their plain versions on the CPU) on this rank's
-    block; the gathered output, this rank's block, the flux and the
-    traffic of the call (or the ValueError's message).  ``tables_as``: a
-    dtype name; the operator's own tables go in again as explicit
-    ``base`` / ``weights`` tensors, the weights in that dtype."""
+    """sharded_apply_ell (``_2d``; or, with ``kernel``,
+    sharded_apply_ell_kernel (``_2d``), whose wrappers take their plain
+    versions on the CPU) on this rank's block; the gathered output, this
+    rank's block, the flux and the traffic of the call (or the
+    ValueError's message).  ``tables_as``: a dtype name; the operator's
+    own tables go in again as explicit ``base`` / ``weights`` tensors,
+    the weights in that dtype."""
     op = _ell_op(tables)
-    x = pmesh.shard_rows(torch.as_tensor(frames), mesh)
+    x = _shard(frames, mesh)
     kw = {}
     if tables_as is not None:
         kw = dict(base=torch.as_tensor(op.base),
                   weights=torch.as_tensor(op.weights).to(
                       getattr(torch, tables_as)))
+    if not kernel:
+        kw.update(impl=impl, conserve=conserve)
     before = _traffic()
     try:
-        if kernel:
-            res = sharding.sharded_apply_ell_kernel(x, op, mesh, **kw)
-        else:
-            res = sharding.sharded_apply_ell(x, op, mesh, impl=impl,
-                                             conserve=conserve, **kw)
+        res = _ell_fn(mesh, kernel)(x, op, mesh, **kw)
     except ValueError as e:
         return {"error": str(e)}
     traffic = _delta(before)
-    out, flux = res if conserve else (res, None)
-    return {"out": pmesh.gather_rows(out, mesh).numpy(),
+    out, flux = res if conserve and not kernel else (res, None)
+    return {"out": _gather(out, mesh).numpy(),
             "local": out.numpy(), "flux": _flux(flux), "traffic": traffic,
             "dtype": str(out.dtype)}
 
@@ -164,23 +227,26 @@ def ell_tables_of(mesh, frames, tables, other, kernel):
     and weights as explicit tensors, on the gather route or (``kernel``)
     the kernel route; the gathered output."""
     op, o = _ell_op(tables), _ell_op(other)
-    x = pmesh.shard_rows(torch.as_tensor(frames), mesh)
     kw = dict(base=torch.as_tensor(o.base), weights=torch.as_tensor(o.weights))
-    fn = (sharding.sharded_apply_ell_kernel if kernel
-          else sharding.sharded_apply_ell)
-    return {"out": pmesh.gather_rows(fn(x, op, mesh, **kw), mesh).numpy()}
+    out = _ell_fn(mesh, kernel)(_shard(frames, mesh), op, mesh, **kw)
+    return {"out": _gather(out, mesh).numpy()}
 
 
-def _ell_unsharded_kernel(frames: torch.Tensor, op, n_rows: int):
+def _ell_unsharded_kernel(frames: torch.Tensor, op, n_rows: int,
+                          n_cols: int = 0):
     """The unsharded kernel route, on any device (on the CPU the wrappers
     take their plain versions), in the orientation the sharded route
-    takes over ``n_rows`` row shards: the quadrant folded into the table,
-    as ``apply_operator(impl='kernel')`` folds it, where the folded rows
-    divide; else the frames rotated.  Returns (output, folded)."""
+    takes over ``n_rows`` row shards (and ``n_cols`` column shards): the
+    quadrant folded into the table, as ``apply_operator(impl='kernel')``
+    folds it, where the folded counts divide; else the frames rotated.
+    Returns (output, folded)."""
     q = op.spec.quadrant % 4
     fold = weights_ops.fold_quadrant_ell_cached(op) if q else None
-    folded = fold is not None and not (fold[0].spec.dst_shape[0] % n_rows
-                                       or fold[0].spec.qrot_shape[0] % n_rows)
+    folded = fold is not None
+    if folded:
+        (Hd, Wd), (qH, qW) = fold[0].spec.dst_shape, fold[0].spec.qrot_shape
+        folded = not (Hd % n_rows or qH % n_rows
+                      or (n_cols and (Wd % n_cols or qW % n_cols)))
     if folded:
         op, post = fold
     elif q:
@@ -196,19 +262,18 @@ def ell_kernel_vs_unsharded(mesh, frames, tables):
     kernel route's output and its launches."""
     op = _ell_op(tables)
     whole = torch.as_tensor(frames)
-    ref, folded = _ell_unsharded_kernel(whole, op,
-                                        pmesh.axis(mesh, pmesh.ROWS)[0])
+    ref, folded = _ell_unsharded_kernel(whole, op, *_shape(mesh))
     before = dict(cuda_shear.LAUNCHES)
-    out = sharding.sharded_apply_ell_kernel(pmesh.shard_rows(whole, mesh),
-                                            op, mesh)
+    out = _ell_fn(mesh, True)(_shard(whole, mesh), op, mesh)
     launches = {k: cuda_shear.LAUNCHES[k] - before[k] for k in before}
-    got = pmesh.gather_rows(out, mesh)
+    got = _gather(out, mesh)
     res = {"out": got.numpy(), "cmp": _cmp(got, ref), "launches": launches,
            "folded": folded}
     if op.spec.quadrant == 0:
-        res["flux"] = conserve.sharded_flux_ell(
-            pmesh.shard_rows(whole, mesh), out,
-            conserve.ell_flux_factors(op), mesh).numpy()
+        flux = (conserve.sharded_flux_ell_2d if _is_2d(mesh)
+                else conserve.sharded_flux_ell)
+        res["flux"] = flux(_shard(whole, mesh), out,
+                           conserve.ell_flux_factors(op), mesh).numpy()
     return res
 
 
@@ -216,21 +281,66 @@ def ell_corrupted_flux(mesh, frames, tables):
     """The flux of a good sharded ELL apply and of its output with two dst
     rows zeroed (a rank-local fault)."""
     op = _ell_op(tables)
-    blk = pmesh.shard_rows(torch.as_tensor(frames), mesh)
-    good = pmesh.gather_rows(sharding.sharded_apply_ell(blk, op, mesh), mesh)
+    blk = _shard(frames, mesh)
+    good = _gather(_ell_fn(mesh, False)(blk, op, mesh), mesh)
     bad = good.clone()
     bad[:, 5:7, :] = 0.0
     factors = conserve.ell_flux_factors(op)
-    return [conserve.sharded_flux_ell(blk, pmesh.shard_rows(d, mesh),
-                                      factors, mesh).numpy()
+    flux = (conserve.sharded_flux_ell_2d if _is_2d(mesh)
+            else conserve.sharded_flux_ell)
+    return [flux(blk, _shard(d, mesh), factors, mesh).numpy()
             for d in (good, bad)]
 
 
 def rows_roundtrip(mesh, frames):
-    """shard_rows then gather_rows, with this rank's block's shape."""
-    blk = pmesh.shard_rows(torch.as_tensor(frames), mesh)
-    return {"shape": tuple(blk.shape),
-            "out": pmesh.gather_rows(blk, mesh).numpy()}
+    """shard_rows then gather_rows (on a 2-D mesh shard_blocks then
+    gather_blocks), with this rank's block's shape."""
+    blk = _shard(frames, mesh)
+    return {"shape": tuple(blk.shape), "out": _gather(blk, mesh).numpy()}
+
+
+def halo_extend(mesh, x, h, dim):
+    """``sharding._halo_extend`` of this rank's 2-D block by ``h`` along
+    the mesh dim ``dim`` ('rows' or 'cols'); the extended block and the
+    point-to-point bytes this rank sent."""
+    before = _traffic()
+    ext = sharding._halo_extend(_shard(x, mesh), h, mesh, dim)
+    return {"ext": ext.numpy(), "p2p": _delta(before)["p2p"]}
+
+
+def collective_sizes(mesh, kind, frames, tables, conserve=False):
+    """The bytes of each collective one sharded call hands over, by kind
+    (each point-to-point send, each rank's block of an all-gather, each
+    all-reduced tensor): ``kind`` 'separable' or 'ell', on this rank's
+    block (its 2-D block on a 2-D mesh), with ``conserve``."""
+    sizes = {"p2p": [], "all_gather": [], "all_reduce": []}
+    saved = pmesh.exchange, pmesh.all_gather, pmesh.all_reduce
+
+    def exchange(sends, recvs, group):
+        sizes["p2p"] += [t.nbytes for t, _ in sends]
+        return saved[0](sends, recvs, group)
+
+    def all_gather(t, group):
+        sizes["all_gather"].append(t.nbytes)
+        return saved[1](t, group)
+
+    def all_reduce(t, group):
+        sizes["all_reduce"].append(t.nbytes)
+        return saved[2](t, group)
+
+    x = _shard(frames, mesh)
+    pmesh.exchange, pmesh.all_gather, pmesh.all_reduce = (
+        exchange, all_gather, all_reduce)
+    try:
+        if kind == "separable":
+            fn = (sharding.sharded_apply_separable_2d if _is_2d(mesh)
+                  else sharding.sharded_apply_separable)
+            fn(x, _op(tables), mesh, conserve=conserve)
+        else:
+            _ell_fn(mesh, False)(x, _ell_op(tables), mesh, conserve=conserve)
+    finally:
+        pmesh.exchange, pmesh.all_gather, pmesh.all_reduce = saved
+    return {"sizes": sizes, "block": x.nbytes}
 
 
 def loaded_modules(mesh):
@@ -413,6 +523,119 @@ def check_sharded_vs_unsharded(res: list, mesh_shape, on_card: bool):
     # on each of the ring's n_rows - 1 hops
     assert res[0]["ring_p2p"] == ((n_rows - 1) * (2 // n_data) * 8
                                   * 8 * n_rows * 4)
+
+
+def sharded_2d_vs_unsharded(mesh):
+    """The 2-D (rows x cols) sharded routes on this rank's device against
+    the unsharded calls on the same inputs: kernel 1 at bf16 and u8, f32
+    with the flux, the 90-degree fold, the lon-sharded regrid (kernel 2)
+    plain and masked, the rotated apply's kernel route in bf16, and
+    shard/gather of counts that do not divide; with the kernels' launches
+    of the sharded calls."""
+    dev = pmesh.rank_device()
+    res, launches = {}, {}
+    shape = (4, 256, 384)
+    op = at.build_operator(at.make_grid_spec(shape[1:], 2.0, 1.0,
+                                             (0.0, 0.0), 0.0))
+    for name, dtype in (("bf16", torch.bfloat16), ("u8", torch.uint8)):
+        frames = _rand(shape, 11, dev)
+        frames = ((frames * 255).round().to(dtype) if dtype == torch.uint8
+                  else frames.to(dtype))
+        ref = _kernel1(frames, op.wy, op.wx)
+        before = cuda_apply.LAUNCHES
+        out = sharding.sharded_apply_separable_2d(
+            pmesh.shard_blocks(frames, mesh), op, mesh)
+        launches[name] = cuda_apply.LAUNCHES - before
+        res[name] = _cmp(pmesh.gather_blocks(out, mesh), ref)
+    frames = _rand(shape, 12, dev)
+    out, flux = sharding.sharded_apply_separable_2d(
+        pmesh.shard_blocks(frames, mesh), op, mesh, conserve=True)
+    res["f32"] = _cmp(pmesh.gather_blocks(out, mesh),
+                      _kernel1(frames, op.wy, op.wx))
+    _, _, covy, covx = conserve.separable_flux_factors(
+        op.wy, op.wx, raw_sums=op.raw_row_sums)
+    res["flux"] = flux.cpu().tolist()
+    res["flux_device"] = str(flux.device)
+    res["host_fs"] = float(np.einsum("fyx,y,x->",
+                                     frames.cpu().double().numpy(), covy,
+                                     covx))
+    fold = at.build_operator(at.make_grid_spec(shape[1:], 2.0, 1.0,
+                                               (3.0, 5.0), 90.0))
+    out = sharding.sharded_apply_separable_2d(
+        pmesh.shard_blocks(frames, mesh), fold, mesh)
+    res["fold"] = _cmp(pmesh.gather_blocks(out, mesh),
+                       at.apply_operator(fold, frames))
+    res["ref_max"] = float(frames.abs().max())
+    src, dst = regrid.LatLonGrid(360, 720), regrid.LatLonGrid(36, 72)
+    fields = _rand((4, 360, 720), 14, dev) * 50.0 + 250.0
+    mask = _rand((360, 720), 15, dev) > 0.3
+    mask[:20] = False                   # two dst rows with no valid cell
+    for name, m in (("regrid", None), ("regrid_masked", mask)):
+        before = cuda_apply_2d.LAUNCHES
+        out = regrid.conservative_regrid_sharded(
+            pmesh.shard_blocks(fields, mesh), src, dst, mesh, src_mask=m,
+            col_axis="cols")
+        launches[name] = cuda_apply_2d.LAUNCHES - before
+        res[name] = _cmp(pmesh.gather_blocks(out, mesh),
+                         regrid.conservative_regrid(fields, src, dst,
+                                                    src_mask=m))
+    # the rotated apply's kernel route: 31 degrees on a 128 x 128 source
+    # (JAX's 2-D multi-hop geometry), whose dst rows divide 2 and columns
+    # divide 4
+    ell = at.build_operator(at.make_grid_spec((128, 128), 1.0, 0.5,
+                                              (64.0, 64.0), 31.0))
+    frames = _rand((2, 128, 128), 16, dev, torch.bfloat16)
+    before = dict(cuda_shear.LAUNCHES)
+    out = sharding.sharded_apply_ell_2d_kernel(
+        pmesh.shard_blocks(frames, mesh), ell, mesh)
+    launches["ell"] = {k: cuda_shear.LAUNCHES[k] - before[k]
+                       for k in ("vhshear", "contract")}
+    res["ell"] = _cmp(pmesh.gather_blocks(out, mesh), cuda_shear.
+                      apply_ell_shear_kernel(frames,
+                                             cuda_shear.kernel_plan(ell)))
+    res["launches"] = launches
+    odd = _rand((2, 50, 7), 17, dev)    # ceil blocks on both axes
+    res["roundtrip"] = _cmp(pmesh.gather_blocks(pmesh.shard_blocks(odd, mesh),
+                                                mesh), odd)
+    return res
+
+
+def check_sharded_2d_vs_unsharded(res: list, on_card: bool):
+    """Check every rank's ``sharded_2d_vs_unsharded`` result.
+
+    On the card, bit equality wherever the sharded and the unsharded call
+    take one route (each dst pixel sums the same taps in the same order,
+    only both indices are rebased).  On the CPU the separable routes are
+    plain torch, whose sums run in an order that follows the block
+    shapes: bf16 within one bf16 ulp (the plain route gives float32 out),
+    u8 within one level (a .5 tie), f32 within 1e-5, the regrid's fields
+    (250-300) within 1e-4; the rotated route's plain stages and
+    shard/gather stay bit-equal.  Everywhere: the fold within f32 1e-5 of the largest
+    input, the flux pair equal on every rank and within rtol 1e-5 of the
+    float64 host sum, and the launches."""
+    for r in res:
+        exact = ["ell", "roundtrip"] + (
+            ["bf16", "u8", "f32", "regrid", "regrid_masked"] if on_card
+            else [])
+        for name in exact:
+            assert r[name]["equal"], (name, r[name])
+        if not on_card:             # regrid fields lie in [250, 300)
+            for name, tol in (("bf16", 2.0 ** -8), ("u8", 1.0),
+                              ("f32", 1e-5), ("regrid", 1e-4),
+                              ("regrid_masked", 1e-4)):
+                assert r[name]["max_abs_err"] <= tol, (name, r[name])
+        assert r["fold"]["max_abs_err"] <= 1e-5 * r["ref_max"], r["fold"]
+        want = "cuda" if on_card else "cpu"
+        assert all(r[k]["device"].startswith(want) for k in exact)
+        assert r["flux_device"].startswith(want)
+        fd, fs = r["flux"]
+        assert abs(fd - fs) <= 1e-5 * abs(fs), r["flux"]
+        assert abs(fs - r["host_fs"]) <= 1e-5 * abs(r["host_fs"]), r
+        assert r["flux"] == res[0]["flux"]
+        n = 1 if on_card else 0
+        assert r["launches"] == {"bf16": n, "u8": n, "regrid": n,
+                                 "regrid_masked": 2 * n,
+                                 "ell": {"vhshear": n, "contract": n}}
 
 
 def collectives_to_self(mesh):
