@@ -9,10 +9,12 @@ with a ring halo exchange, on ``torch.distributed`` (counterpart of
 * ``sharding`` — the sharded separable apply (plain, and on kernel 1 per
   shard) and rotated (ELL) apply (plain gather, and the fused shear and
   the masked contraction per shard), row-sharded and ``_2d``, their ring
-  halos and the quadrant folds under sharding;
+  halos and the quadrant folds under sharding; their transposes (kernel 1
+  per shard on the transposed bands; the ELL scatter per shard and the
+  reverse ring, ``_halo_reduce``) and the ``make_sharded_*_linear``
+  autograd wrappers;
 * ``conserve`` — the global conservation flux: local float64 dots, then
-  one ``all_reduce``.
-
-The forward applies only; the transposes and the autograd wrappers are
-not ported yet (ROADMAP.md, Queue 1).
+  one ``all_reduce``;
+* ``dryrun`` — ``dryrun_multichip(n)``: one step of every sharded path,
+  gradients included, over n gloo ranks on the CPU at tiny shapes.
 """

@@ -1,6 +1,7 @@
 """Row-sharded and 2-D (rows x cols) sharded separable and rotated (ELL)
-applies with a ring halo exchange, on ``torch.distributed`` (counterpart
-of the forward part of ``aainterp/parallel/sharding.py``).
+applies with a ring halo exchange, their transposes and autograd
+wrappers, on ``torch.distributed`` (counterpart of
+``aainterp/parallel/sharding.py``).
 
 Every rank holds its block of the batch, ``(B / n_data, qH / n_rows, W)``
 (``mesh.shard_rows``), and computes its own block of destination rows,
@@ -58,6 +59,19 @@ JAX's ``make_sharded_ell_pallas`` (``_2d``) returns its plan tables to
 pass them as jit arguments; a rank here plans once and keeps its plan, so
 the makers have no counterpart.  A quadrant folds into the table, explicit
 tables with it (``fold_tables_device``), on both routes.
+
+The transposes run the same scheme backwards.  The separable ones
+(``sharded_apply_separable_transpose``, ``_2d``) are the forward's apply
+on the transposed bands (kernel 1 per shard on the card): the halo comes
+from the transposed y band and the cotangent's rows move.  The ELL ones
+(``sharded_apply_ell_transpose``, ``_2d``) scatter each rank's cotangent
+block into its extended source block (``ops.apply.apply_ell_transpose``)
+and send the halo's sums back to their owners (``_halo_reduce``, the
+exact adjoint of ``_halo_extend``).  ``make_sharded_separable_linear``,
+``make_sharded_separable_2d_linear``, ``make_sharded_ell_linear`` and
+``make_sharded_ell_2d_linear`` wrap a forward and its transpose in one
+``torch.autograd.Function`` (``ShardedLinear``); its backward holds
+collectives, so every rank must run it.
 """
 
 from __future__ import annotations
@@ -69,10 +83,11 @@ import numpy as np
 import torch
 
 from .. import api as api_mod
+from .. import autodiff as autodiff_ops
 from ..ops import cuda_apply, cuda_shear
 from ..ops import overlap1d
 from ..ops import weights as weights_ops
-from ..ops.apply import (aligned_axis_plan, apply_ell,
+from ..ops.apply import (aligned_axis_plan, apply_ell, apply_ell_transpose,
                          apply_separable_aligned, apply_separable_banded,
                          quadrant_rotate)
 from ..utils.device import upload
@@ -87,6 +102,9 @@ ELL_IMPLS = ("auto", "kernel", "gather")
 # ELL halos by base table content and blocks (_ell_blocks): milliseconds of
 # host work a call at 2048^2 otherwise
 _HALO_CACHE = LruDict(16)
+
+# a rank's blocks of host ELL tables on its device (_block_on)
+_TABLE_BLOCKS = LruDict(8, max_bytes=4 << 30)
 
 
 def _folded_sharded_bands(op: weights_ops.SeparableOperator, n_dev: int):
@@ -185,6 +203,37 @@ def _folded_sharded_bands_2d(op: weights_ops.SeparableOperator, n_r: int,
                 measures=meas)
 
 
+def _folded_transposes(op: weights_ops.SeparableOperator, cols: bool):
+    """(t_y, t_x): the transposes of the folded bands of
+    ``_folded_sharded_bands`` (with ``cols``, ``_folded_sharded_bands_2d``),
+    keyed by the same q, from the content-cached (Wy^T, Wx^T) of
+    ``autodiff.transposed_separable`` through (W P)^T = P W^T and
+    (R W)^T = W^T R:
+
+      t(flip(b))     = rr(t(b))
+      t(rr(flip(b))) = flip(rr(t(b)))
+
+            1-D                       2-D
+      q=0:  (ty, tx)                  (ty, tx)
+      q=1:  (flip(rr(tx)), ty)        (flip(rr(tx)), ty)
+      q=2:  (flip(rr(ty)), rr(tx))    (flip(rr(ty)), flip(rr(tx)))
+      q=3:  (tx, rr(ty))              (tx, flip(rr(ty)))
+
+    Not ``transpose_band`` of a folded band: a backward-sliding band
+    (``flip(w)``) breaks its non-decreasing ``start`` and comes out many
+    taps wider (JAX: sharding.py:1047-1054, 1853-1860)."""
+    ty, tx = autodiff_ops.transposed_separable(op)
+    flip, rr = overlap1d.flip_band, overlap1d.reverse_rows_band
+    q = op.spec.quadrant % 4
+    if q == 0:
+        return ty, tx
+    if q == 1:
+        return flip(rr(tx)), ty
+    if q == 2:
+        return flip(rr(ty)), (flip(rr(tx)) if cols else rr(tx))
+    return tx, (flip(rr(ty)) if cols else rr(ty))
+
+
 def _row_halo(y_start: np.ndarray, band: int, n_src: int, n_dst: int,
               n_dev: int) -> int:
     """Most rows any rank needs beyond its own source row block."""
@@ -201,6 +250,18 @@ def _row_halo(y_start: np.ndarray, band: int, n_src: int, n_dst: int,
         hi = int(y_start[i * db: (i + 1) * db].max()) + band
         h = max(h, i * sb - lo, hi - (i + 1) * sb)
     return max(h, 0)
+
+
+def _ring_hops(h: int, sb: int, n: int) -> int:
+    """Ring hops a halo of ``h`` over blocks of ``sb`` takes on an axis of
+    ``n`` ranks; ValueError where it needs more than ``n - 1``."""
+    hops = -(-h // sb)
+    if hops > n - 1:
+        raise ValueError(
+            f"halo of {h} needs {hops} ring hops but only "
+            f"{n - 1} neighbours exist (per-rank block {sb}); "
+            "use fewer shards along this axis for this operator")
+    return hops
 
 
 def _halo_extend(x: torch.Tensor, h: int, mesh, name: str = ROWS
@@ -221,12 +282,7 @@ def _halo_extend(x: torch.Tensor, h: int, mesh, name: str = ROWS
     dim = -2 if name == ROWS else -1
     n, i, group = mesh_ops.axis(mesh, name)
     sb = x.shape[dim]
-    hops = -(-h // sb)
-    if hops > n - 1:
-        raise ValueError(
-            f"halo of {h} needs {hops} ring hops but only "
-            f"{n - 1} neighbours exist (per-rank block {sb}); "
-            "use fewer shards along this axis for this operator")
+    hops = _ring_hops(h, sb, n)
     parts_prev, parts_next = [], []
     for k in range(1, hops + 1):
         hk = min(sb, h - (k - 1) * sb)     # partial block on the last hop
@@ -245,6 +301,52 @@ def _halo_extend(x: torch.Tensor, h: int, mesh, name: str = ROWS
         parts_next.append(nxt)
         parts_prev.append(prv)
     return torch.cat(parts_prev[::-1] + [x] + parts_next, dim=dim)
+
+
+def _halo_reduce(x_ext: torch.Tensor, h: int, mesh, name: str = ROWS
+                 ) -> torch.Tensor:
+    """The exact adjoint of ``_halo_extend``: fold the ``h`` halo entries on
+    each side of a rank's extended block back into their owners' blocks,
+    along the mesh dim ``name`` (rows, tensor axis -2; or columns, axis
+    -1) (JAX's ``_halo_reduce``, sharding.py:1767-1809).
+
+    Hop k sends this rank's hop-k slab of the leading halo to rank i - k
+    (whose trailing rows it mirrors) and its slab of the trailing halo to
+    rank i + k, in one ``mesh.exchange``, and adds what arrives into its
+    own trailing and leading ``hk`` entries: the forward's schedule with
+    the direction reversed, so the bytes sent equal the forward's at one
+    dtype.  An edge rank's orphan slabs, the forward's zero fill, are
+    dropped.  Returns the block without the halo, (..., sb) along the
+    axis; more hops than the axis has neighbours raise, as they do in
+    the forward.
+    """
+    if h == 0:
+        return x_ext
+    dim = -2 if name == ROWS else -1
+    n, i, group = mesh_ops.axis(mesh, name)
+    sb = x_ext.shape[dim] - 2 * h
+    hops = _ring_hops(h, sb, n)
+    core = x_ext.narrow(dim, h, sb).clone()
+    for k in range(1, hops + 1):
+        hk = min(sb, h - (k - 1) * sb)     # partial block on the last hop
+        shape = list(x_ext.shape)
+        shape[dim] = hk
+        sends, recvs, adds = [], [], []
+        if i - k >= 0:      # leading slab k: rank i - k's trailing entries
+            sends.append((x_ext.narrow(dim, h - (k - 1) * sb - hk, hk),
+                          i - k))
+            top = x_ext.new_empty(shape)    # rank i - k's trailing slab
+            recvs.append((top, i - k))
+            adds.append((0, top))
+        if i + k < n:       # trailing slab k: rank i + k's leading entries
+            sends.append((x_ext.narrow(dim, h + k * sb, hk), i + k))
+            bottom = x_ext.new_empty(shape)
+            recvs.append((bottom, i + k))
+            adds.append((sb - hk, bottom))
+        mesh_ops.exchange(sends, recvs, group)
+        for lo, part in adds:
+            core.narrow(dim, lo, hk).add_(part)
+    return core
 
 
 def _local_band(band, mesh, name: str):
@@ -379,13 +481,14 @@ def sharded_apply_banded_2d_kernel(frames: torch.Tensor, y_band, x_band,
 
 
 def _gather_whole(t: torch.Tensor, mesh, cols: bool) -> torch.Tensor:
-    """Whole planes from equal blocks: over the cols group (with
-    ``cols``), then the rows group."""
+    """Whole planes from every rank's block: over the cols group (with
+    ``cols``), then the rows group.  The blocks may be uneven (the ceil
+    blocks of ``mesh.row_block`` that ``shard_rows`` cuts from counts that
+    do not divide the mesh): ``mesh._gather_along`` pads them to one size
+    for the all-gather and cuts them back."""
     if cols:
-        t = torch.cat(mesh_ops.all_gather(t, mesh_ops.axis(mesh, COLS)[2]),
-                      dim=-1)
-    return torch.cat(mesh_ops.all_gather(t, mesh_ops.axis(mesh, ROWS)[2]),
-                     dim=-2)
+        t = mesh_ops._gather_along(t, COLS, mesh, -1)
+    return mesh_ops._gather_along(t, ROWS, mesh, -2)
 
 
 def _own_block(whole: torch.Tensor, mesh, cols: bool) -> torch.Tensor:
@@ -530,6 +633,67 @@ def sharded_apply_separable_2d(frames: torch.Tensor,
     return _separable(frames, op, mesh, impl, conserve, True)
 
 
+def _separable_transpose(cot, op, mesh, impl, cols):
+    """The body of both separable transposes."""
+    impl = _check_impl(cot, impl, False)
+    n_r = mesh_ops.axis(mesh, ROWS)[0]
+    fold = (_folded_sharded_bands_2d(op, n_r, mesh_ops.axis(mesh, COLS)[0])
+            if cols else _folded_sharded_bands(op, n_r))
+    if fold is None:
+        # the rot90 route: the unfolded transposes, then rotate back
+        t_y, t_x = autodiff_ops.transposed_separable(op)
+    else:
+        t_y, t_x = _folded_transposes(op, cols)
+        if fold["post_inv"] is not None:
+            cot = _post(fold["post_inv"], cot, mesh, cols)
+    if impl == "kernel":
+        out = sharded_local_apply(t_y, t_x, mesh, _kernel1, cot, cols=cols)
+    else:
+        out = _banded(cot, t_y, t_x, mesh, cols)
+    if fold is None:
+        out = _rot90(out, -op.spec.quadrant, mesh, cols)
+    return out
+
+
+def sharded_apply_separable_transpose(cot: torch.Tensor,
+                                      op: weights_ops.SeparableOperator,
+                                      mesh, *, impl: str = "auto"
+                                      ) -> torch.Tensor:
+    """The adjoint of ``sharded_apply_separable``: this rank's block of a
+    dst cotangent, (B / n_data, Hd / n_rows, Wd) (the forward's output
+    blocks), -> its block of the source, (B / n_data, H / n_rows, W).
+
+    The transpose of a banded separable operator is another one, so this
+    is the forward's machinery on the transposed bands: the halo comes
+    from the transposed y band and the cotangent's rows are exchanged
+    (JAX: sharding.py:1812).  A quadrant folds as in the forward: the
+    cotangent pays the small inverse permutation first (``post_inv``, a
+    dst-sized gather), and the transposes of the folded bands
+    (``_folded_transposes``) give the source in its own orientation; on
+    the rot90 route the output is rotated back by -quadrant.
+
+    impl: 'kernel' runs kernel 1 per shard on the transposed bands (kernel
+    2 for a band pair too wide for shared memory; raises on a CPU tensor),
+    'banded' the plain banded apply, 'auto' the kernel for a CUDA tensor
+    and 'banded' on the CPU.  The kernel gives the cotangent's dtype out,
+    'banded' float32.
+    """
+    return _separable_transpose(cot, op, mesh, impl, False)
+
+
+def sharded_apply_separable_2d_transpose(cot: torch.Tensor,
+                                         op: weights_ops.SeparableOperator,
+                                         mesh, *, impl: str = "auto"
+                                         ) -> torch.Tensor:
+    """The adjoint of ``sharded_apply_separable_2d``: this rank's 2-D block
+    of a dst cotangent -> its 2-D block of the source, over the rows and
+    cols dims of a ("data", "rows", "cols") mesh (JAX: sharding.py:1010).
+    The transposed bands run under the forward's two-axis ring halo; a
+    quadrant folds with the 2-D table of ``_folded_transposes``.  impl
+    and dtypes as ``sharded_apply_separable_transpose``."""
+    return _separable_transpose(cot, op, mesh, impl, True)
+
+
 # ---------------------------------------------------------------------------
 # the rotated (ELL) apply
 # ---------------------------------------------------------------------------
@@ -576,12 +740,8 @@ def _ell_blocks(op: weights_ops.EllOperator, n_r: int, n_c: int = 0):
     out = (Hd // n_r, qH // n_r, halo_y) + (
         (Wd // n_c, qW // n_c, halo_x) if n_c else (Wd, qW, 0))
     for n, sb, halo in ((n_r, out[1], halo_y), (n_c, out[4], halo_x)):
-        hops = -(-halo // sb)
-        if n and hops > n - 1:
-            raise ValueError(
-                f"halo of {halo} needs {hops} ring hops but only {n - 1} "
-                f"neighbours exist (per-rank block {sb}); use fewer shards "
-                "along this axis for this operator")
+        if n:
+            _ring_hops(halo, sb, n)
     return out
 
 
@@ -664,10 +824,19 @@ def _ell_route(op: weights_ops.EllOperator, n_dev: int, impl: str,
 
 def _block_on(t, rows: slice, cols: slice, device, dtype) -> torch.Tensor:
     """A block of a table (numpy or a tensor on any device) on
-    ``device``."""
+    ``device``: a tensor's sliced, a host table's uploaded once per
+    content, block, device and dtype (a rank's block of the rotated
+    flagship's weights is 70 MB; its upload took longer than the
+    scatter)."""
     if isinstance(t, torch.Tensor):
         return t[rows, cols].to(device=device, dtype=dtype)
-    return upload(t[rows, cols], device, dtype)
+    key = (array_digest(t), t.shape, rows.start, rows.stop, cols.start,
+           cols.stop, torch.device(device), dtype)
+    hit = _TABLE_BLOCKS.get(key)
+    if hit is None:
+        hit = upload(t[rows, cols], device, dtype)
+        _TABLE_BLOCKS.put(key, hit)
+    return hit
 
 
 def _sharded_ell(frames, op, mesh, impl, base, weights, conserve,
@@ -814,3 +983,164 @@ def sharded_apply_ell_2d(frames: torch.Tensor, op: weights_ops.EllOperator,
     _check_ell_impl(frames, impl)
     return _sharded_ell(frames, op, mesh, impl, base, weights, conserve,
                         True)
+
+
+def _sharded_ell_transpose(cot, op, mesh, base, weights, cols):
+    """The body of both ELL transposes."""
+    n_r, i, _ = mesh_ops.axis(mesh, ROWS)
+    n_c, j, _ = mesh_ops.axis(mesh, COLS) if cols else (0, 0, None)
+    _check_tables(op, base, weights)
+    quadrant = op.spec.quadrant
+    op, post, base, weights, rotate = _ell_fold(op, n_r, base, weights, n_c)
+    host = _host_tables(op, base, weights, False)
+    db_r, sb_r, halo_y, db_c, sb_c, halo_x = _ell_blocks(host, n_r, n_c)
+    if post is not None:
+        cot = _post(weights_ops.ell_fold_post_inv(quadrant), cot, mesh, cols)
+    if cot.ndim < 2 or tuple(cot.shape[-2:]) != (db_r, db_c):
+        raise ValueError(f"this rank's cotangent block must end in ({db_r}, "
+                         f"{db_c}) rows x columns, got {tuple(cot.shape)}")
+    rows = slice(i * db_r, (i + 1) * db_r)
+    cs = slice(j * db_c, (j + 1) * db_c)
+    b = _block_on(op.base if base is None else base, rows, cs, cot.device,
+                  torch.int64)
+    b = b - b.new_tensor([i * sb_r - halo_y, j * sb_c - halo_x])
+    w = _block_on(op.weights if weights is None else weights, rows, cs,
+                  cot.device, torch.float32)
+    ext = apply_ell_transpose(cot, b, w, (sb_r + 2 * halo_y,
+                                          sb_c + 2 * halo_x))
+    out = _halo_reduce(_halo_reduce(ext, halo_x, mesh, COLS), halo_y, mesh)
+    if rotate:
+        out = _rot90(out, -quadrant, mesh, cols)
+    return out
+
+
+def sharded_apply_ell_transpose(cot: torch.Tensor,
+                                op: weights_ops.EllOperator, mesh, *,
+                                base=None, weights=None) -> torch.Tensor:
+    """The adjoint of ``sharded_apply_ell``: this rank's block of a dst
+    cotangent (the forward's output blocks) -> its block of the source,
+    (B / n_data, H / n_rows, W), float32 (JAX: sharding.py:1887).
+
+    Each rank scatters its cotangent block into its halo-extended source
+    block with the forward's rebased window bases
+    (``ops.apply.apply_ell_transpose``, ``index_add_``: the plain scatter
+    on every device, as JAX's is XLA's), then ``_halo_reduce`` sends the
+    halo's sums back to the ranks that own those rows, hop for hop the
+    forward's exchange reversed.  A quadrant folds as in the forward: the
+    cotangent pays the inverse dst permutation first
+    (``weights.ell_fold_post_inv``) and the scatter lands in the source's
+    own orientation; where the folded counts do not divide the mesh, the
+    rot90 route runs and the output is rotated back.  ``base`` /
+    ``weights``: explicit tables as in the forward, folded with the
+    quadrant (``fold_tables_device``).
+    """
+    return _sharded_ell_transpose(cot, op, mesh, base, weights, False)
+
+
+def sharded_apply_ell_2d_transpose(cot: torch.Tensor,
+                                   op: weights_ops.EllOperator, mesh, *,
+                                   base=None, weights=None) -> torch.Tensor:
+    """The adjoint of ``sharded_apply_ell_2d``: this rank's 2-D block of a
+    dst cotangent -> its 2-D block of the source, float32 (JAX:
+    sharding.py:2005).  The local scatter, then ``_halo_reduce`` over the
+    columns and then the rows, the forward's order reversed.  Folds and
+    tables as ``sharded_apply_ell_transpose``."""
+    return _sharded_ell_transpose(cot, op, mesh, base, weights, True)
+
+
+# ---------------------------------------------------------------------------
+# the autograd wrappers
+# ---------------------------------------------------------------------------
+
+
+class ShardedLinear(torch.autograd.Function):
+    """A sharded apply whose backward is its sharded transpose (JAX's
+    ``custom_vjp`` of the ``make_sharded_*_linear`` makers).  The whole
+    sharded call is one node: autograd never traces ``mesh.exchange`` or
+    an all-gather.  Both directions hold collectives, so every rank of the
+    mesh must run the forward and the backward.  The cotangent comes back
+    in the frames' dtype; explicit tables get no gradient."""
+
+    @staticmethod
+    def forward(ctx, frames: torch.Tensor, base, weights, fwd, bwd):
+        ctx.bwd, ctx.dtype = bwd, frames.dtype
+        ctx.tables = (base, weights)
+        return fwd(frames, *ctx.tables)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return (ctx.bwd(g.contiguous(), *ctx.tables).to(ctx.dtype), None,
+                None, None, None)
+
+
+def _check_maker_impl(impl: str, impls) -> None:
+    if impl not in impls:
+        raise ValueError(f"unknown impl {impl!r} for the sharded apply; "
+                         f"expected one of {impls}")
+
+
+def make_sharded_separable_linear(op: weights_ops.SeparableOperator, mesh,
+                                  *, impl: str = "auto"):
+    """``f(frames)``: ``sharded_apply_separable`` on this rank's block, with
+    ``sharded_apply_separable_transpose`` as its backward (JAX:
+    sharding.py:1969), both on ``impl``'s route.  The backward holds
+    collectives: every rank must call ``backward`` (or ``autograd.grad``)
+    through ``f``'s output, never only some of them."""
+    _check_maker_impl(impl, IMPLS)
+    return lambda frames: ShardedLinear.apply(
+        frames, None, None,
+        lambda x, b, w: sharded_apply_separable(x, op, mesh, impl=impl),
+        lambda g, b, w: sharded_apply_separable_transpose(g, op, mesh,
+                                                          impl=impl))
+
+
+def make_sharded_separable_2d_linear(op: weights_ops.SeparableOperator,
+                                     mesh, *, impl: str = "auto"):
+    """``f(frames)``: ``sharded_apply_separable_2d`` with
+    ``sharded_apply_separable_2d_transpose`` as its backward (JAX:
+    sharding.py:1082).  Every rank must run the backward, as
+    ``make_sharded_separable_linear`` says."""
+    _check_maker_impl(impl, IMPLS)
+    return lambda frames: ShardedLinear.apply(
+        frames, None, None,
+        lambda x, b, w: sharded_apply_separable_2d(x, op, mesh, impl=impl),
+        lambda g, b, w: sharded_apply_separable_2d_transpose(g, op, mesh,
+                                                             impl=impl))
+
+
+def make_sharded_ell_linear(op: weights_ops.EllOperator, mesh, *,
+                            impl: str = "auto"):
+    """``f(frames, base=None, weights=None)``: ``sharded_apply_ell`` on
+    ``impl``'s route (the fused shear and the masked contraction per shard
+    on the card) with ``sharded_apply_ell_transpose`` (the scatter per
+    shard and ``_halo_reduce``) as its backward, the explicit tables in
+    both (JAX: sharding.py:2126, whose tables ride as arguments as
+    here).  The tables get no gradient.  Every rank must run the
+    backward."""
+    _check_maker_impl(impl, ELL_IMPLS)
+
+    def f(frames, base=None, weights=None):
+        return ShardedLinear.apply(
+            frames, base, weights,
+            lambda x, b, w: sharded_apply_ell(x, op, mesh, base=b, weights=w,
+                                              impl=impl),
+            lambda g, b, w: sharded_apply_ell_transpose(g, op, mesh, base=b,
+                                                        weights=w))
+    return f
+
+
+def make_sharded_ell_2d_linear(op: weights_ops.EllOperator, mesh, *,
+                               impl: str = "auto"):
+    """``f(frames, base=None, weights=None)``: ``sharded_apply_ell_2d`` with
+    ``sharded_apply_ell_2d_transpose`` as its backward (JAX:
+    sharding.py:2090); tables and ranks as ``make_sharded_ell_linear``."""
+    _check_maker_impl(impl, ELL_IMPLS)
+
+    def f(frames, base=None, weights=None):
+        return ShardedLinear.apply(
+            frames, base, weights,
+            lambda x, b, w: sharded_apply_ell_2d(x, op, mesh, base=b,
+                                                 weights=w, impl=impl),
+            lambda g, b, w: sharded_apply_ell_2d_transpose(g, op, mesh,
+                                                           base=b, weights=w))
+    return f

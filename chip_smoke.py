@@ -117,7 +117,15 @@ points (``aainterp_torch.area_average_interpolate`` for the first three):
   per shard on ``build_sharded_kernel_plan_2d``'s rank plans) at phase
   53's angle, bf16, f32 with the flux, the fold and explicit tables;
   one NCCL rank on (1, 1, 1), and four cards at (1, 2, 2) where there
-  are four.  One ``sharded_2d_timing`` line.
+  are four.  One ``sharded_2d_timing`` line;
+* the sharded gradient steps (phase 56) on the same ranks: forward then
+  backward with a fixed cotangent through ``make_sharded_separable_linear``
+  (the 4K flagship in bf16 at (1, 4), ``_2d`` at (1, 2, 2), and f32
+  folded at 90 degrees on both; the backward is kernel 1 per shard on the
+  transposed bands) and ``make_sharded_ell_linear`` (phase 53's operator
+  at (1, 4), f32: the fused shear and the contraction forward, the
+  scatter and ``_halo_reduce`` backward); one NCCL rank.  One
+  ``sharded_grad_timing`` line.
 
 It builds every kernel from ``aainterp_torch/csrc`` with nvcc (and the
 host engine ``native/aainterp_native.cpp`` with g++), all compilers at
@@ -229,7 +237,13 @@ zero-weight tap reads a finite value), the fold at 120.2 degrees within
 tables bit-equal to the call without them; the flux pair as above, with
 flux_src within 1e-9 relative of the float64 host sum.  Sharded 2-D
 (phases 54-55): the same rules, each dst pixel summing the same taps in
-the same order with both indices rebased.
+the same order with both indices rebased.  Sharded gradients (phase 56):
+the separable forward and gradient at quadrant 0 bit-equal to the
+unsharded ``SeparableLinear`` step (kernel 1 on each rank's rows of the
+same transposed tables), the 90-degree folds within 1e-6 x the largest
+value of the unsharded ones (their bit equality printed: the unsharded
+fold sums in another orientation); the rotated forward bit-equal, its
+gradient (the scatter's atomics) within f32 atol 1e-5.
 TF32 is switched off for
 matmul and cuDNN so the plain versions' and library calls' einsums run in
 full f32.  Shear plans and operators go to a disk cache in a temporary
@@ -3652,6 +3666,17 @@ NCCL_ONE_RANK_CASES = (("51", (1, 1), "bf16", True),
                        ("55", (1, 1, 1), "rot_bf16", True))
 SHARD_DTYPES.update(fold90=torch.float32, fold180=torch.float32)
 REGRID_CASES = ("plain", "conserve", "mask")      # phases 52 and 54
+# phase 56, the sharded gradient steps on the same 4 gloo ranks: the
+# separable makers on the 4K flagship (bf16, and f32 folded at 90
+# degrees) at (1, 4) and (1, 2, 2), the rotated maker at phase 53's angle
+# at (1, 4), f32 (the scatter's dtype)
+SHARD_GRAD_CASES = (("56", (1, 4), "grad_bf16", True),
+                    ("56", (1, 2, 2), "grad_bf16", True),
+                    ("56", (1, 4), "grad_fold90", False),
+                    ("56", (1, 2, 2), "grad_fold90", False),
+                    ("56", (1, 4), "grad_rot", True))
+NCCL_ONE_RANK_CASES += (("56", (1, 1), "grad_bf16", True),
+                        ("56", (1, 1), "grad_rot", True))
 
 
 @contextlib.contextmanager
@@ -3811,7 +3836,15 @@ def shard_timing(local, halos, mesh, local_fn, call, unsharded) -> dict:
             lambda: t_sharding._halo_extend(blocks[name], h, mesh, name), 10)
         if key:
             res["halo_cols"] = h
-    res["call_ms"] = wall_ms(call, 10)
+    res.update(call_timing(mesh, call, unsharded))
+    return res
+
+
+def call_timing(mesh, call, unsharded) -> dict:
+    """The whole sharded call's ms (all ranks at once); on a one-rank mesh
+    also the sharded and the unsharded call on CUDA events, in turns
+    (sharded, unsharded, unsharded, sharded; the best of each)."""
+    res = {"call_ms": wall_ms(call, 10)}
     if mesh.mesh.numel() == 1:
         for name, fn in (("call_events_ms", call), ("unsharded_ms", unsharded),
                          ("unsharded_ms", unsharded), ("call_events_ms", call)):
@@ -4106,6 +4139,210 @@ def rank_sharded_ell(mesh, what: str, timing: bool, angle: float,
     return res
 
 
+def rank_sharded_grad(mesh, what: str, timing: bool, angle: float,
+                      cache_dir: str) -> dict:
+    """Phase 56 on one rank: a gradient step through a sharded maker,
+    forward then backward with a fixed cotangent, against the unsharded
+    forward and backward (``apply_operator`` on the kernel routes:
+    ``SeparableLinear``, ``EllLinear``).  ``what``: grad_bf16 (the 4K
+    flagship, ``make_sharded_separable_linear``, on a 2-D mesh ``_2d``),
+    grad_fold90 (f32 at 90 degrees, folded), grad_rot (8 x 2048^2 f32 at
+    phase 53's angle, ``make_sharded_ell_linear``).  Counts kernel 1's
+    launches in the forwards and in the backwards apart."""
+    t_cache.DEFAULT_CACHE_DIR = cache_dir       # the parent's disk caches
+    dev = t_mesh.rank_device()
+    cols = two_d(mesh)
+    rot = what == "grad_rot"
+    if rot:
+        if angle not in _RANK_OPS:
+            _RANK_OPS[angle] = sharded_rot_operator(angle, False)
+        op, shape, dtype = _RANK_OPS[angle], (RH, RW), torch.float32
+        maker = t_sharding.make_sharded_ell_linear
+    else:
+        op = operator((H, W), 90.0 if what == "grad_fold90" else 0.0)
+        shape = (H, W)
+        dtype = torch.bfloat16 if what == "grad_bf16" else torch.float32
+        maker = (t_sharding.make_sharded_separable_2d_linear if cols
+                 else t_sharding.make_sharded_separable_linear)
+    make = Inputs(dev)                          # the same on every rank
+    frames = make(dtype, (F,) + shape)
+    xr = frames.clone().requires_grad_(True)
+    ref_out = at.apply_operator(op, xr, differentiable=True)
+    g = make(ref_out.dtype, tuple(ref_out.shape))
+    (ref,) = torch.autograd.grad(ref_out, xr, g)
+    ref_out = ref_out.detach()
+    lin = maker(op, mesh)
+    local, g_local = shard(frames, mesh), shard(g, mesh)
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_launches()
+    fwd_k1 = bwd_k1 = 0
+    with no_plain_routes():
+        for _ in range(SHARD_REQUESTS):
+            x = local.clone().requires_grad_(True)
+            before = cuda_apply.LAUNCHES
+            out = lin(x)
+            fwd_k1 += cuda_apply.LAUNCHES - before
+            before = cuda_apply.LAUNCHES
+            (gx,) = torch.autograd.grad(out, x, g_local)
+            bwd_k1 += cuda_apply.LAUNCHES - before
+        torch.cuda.synchronize()
+    ln = cuda_shear.LAUNCHES
+    res = {"rank": dist.get_rank(), "device": str(dev),
+           "launches": (fwd_k1, bwd_k1, ln["vhshear"], ln["contract"],
+                        cuda_apply_2d.LAUNCHES)}
+    whole, grad = gather(out.detach(), mesh), gather(gx, mesh)
+    res.update(shape=tuple(grad.shape), dtype=str(grad.dtype),
+               fwd_equal=same(whole, ref_out),
+               fwd_err=max_err(whole, ref_out), equal=same(grad, ref),
+               n_diff=int((grad != ref).sum()) if grad.shape == ref.shape
+               else -1, max_abs_err=max_err(grad, ref),
+               ref_max=float(ref.double().abs().max()),
+               out_max=float(ref_out.double().abs().max()))
+    if timing:
+        res.update(grad_timing(mesh, op, rot, local, g_local, lin, g))
+    return res
+
+
+def grad_timing(mesh, op, rot: bool, local, g_local, lin, g) -> dict:
+    """Phase 56's times on one rank: the local transpose's device ms (in
+    turns, CUDA events) against its bound, the halo's ms and bytes (the
+    separable transpose extends the cotangent, ``_halo_extend``; the ELL
+    one returns the halo's sums, ``_halo_reduce``), the sharded transpose
+    call's and the whole gradient step's ms (all ranks at once); on one
+    rank also the unsharded backward on CUDA events."""
+    cols = two_d(mesh)
+    if rot:
+        n_r, i, _ = t_mesh.axis(mesh, t_mesh.ROWS)
+        db, sb, halo = t_sharding._ell_blocks(op, n_r)[:3]
+        rows = slice(i * db, (i + 1) * db)
+        dev = g_local.device
+        b = upload(op.base[rows], dev, torch.int64)
+        b = b - b.new_tensor([i * sb - halo, 0])
+        w = upload(op.weights[rows], dev, torch.float32)
+        qshape = (sb + 2 * halo, op.spec.qrot_shape[1])
+        scatter = lambda: apply_ops.apply_ell_transpose(g_local, b, w, qshape)
+        ext = scatter()
+        K = op.window
+        res = {"local_ms": turns_ms(scatter, 20),
+               "local_bound_ms": bound(
+                   g_local.nbytes + w.nbytes + b.numel() * 4 + ext.nbytes,
+                   2 * g_local.numel() * K * K)["bound_ms"],
+               "halo_rows": halo}
+        before = t_mesh.TRAFFIC["p2p"]
+        t_sharding._halo_reduce(ext, halo, mesh)
+        res["halo_bytes"] = t_mesh.TRAFFIC["p2p"] - before
+        res["halo_ms"] = wall_ms(
+            lambda: t_sharding._halo_reduce(ext, halo, mesh), 10)
+        res.update(call_timing(
+            mesh, lambda: t_sharding.sharded_apply_ell_transpose(
+                g_local, op, mesh),
+            lambda: at.apply_operator_transpose(op, g)))
+    else:
+        ty, tx = t_sharding._folded_transposes(op, cols)
+        halos, ext, y, x = band_shard(g_local, ty, tx, mesh)
+        transpose = (t_sharding.sharded_apply_separable_2d_transpose if cols
+                     else t_sharding.sharded_apply_separable_transpose)
+        res = shard_timing(
+            g_local, halos, mesh,
+            lambda: cuda_apply.apply_separable_kernel(
+                ext, y.start, y.weights.astype(np.float32),
+                np.ascontiguousarray(x.start, dtype=np.int32),
+                x.weights.astype(np.float32)),
+            lambda: transpose(g_local, op, mesh),
+            lambda: at.apply_operator_transpose(op, g))
+        res["local_bound_ms"] = local_bound(ext, y, x)
+        res["ext_shape"] = tuple(ext.shape)
+
+    def step():
+        x = local.clone().requires_grad_(True)
+        torch.autograd.grad(lin(x), x, g_local)
+
+    res["step_ms"] = wall_ms(step, 10)
+    return res
+
+
+def _report_grad(what: str, mesh_shape, backend: str, res: list) -> None:
+    """Check and print one phase-56 case's ranks: 2 kernel-1 launches a
+    rank in the forwards and 2 in the backwards (separable) or 2 + 2 of
+    the fused shear and the contraction (rotated); the gathered forward
+    and gradient against the unsharded ones: bit-equal at quadrant 0
+    (separable and rotated forward), the fold within 1e-6 x max|ref|
+    (its bit equality printed), the rotated gradient (the scatter's
+    atomics) within f32 atol 1e-5."""
+    n = SHARD_REQUESTS
+    want = (0, 0, n, n, 0) if what == "grad_rot" else (n, n, 0, 0, 0)
+    for r in res:
+        check(tuple(r["launches"]) == want,
+              f"[56] {what} {mesh_shape} {backend}: rank {r['rank']} "
+              f"launched (kernel 1 forward, kernel 1 backward, fused shear, "
+              f"contraction, kernel 2) {tuple(r['launches'])}, want {want}")
+    err = max(r["max_abs_err"] for r in res)
+    ferr = max(r["fwd_err"] for r in res)
+    exact = all(r["equal"] for r in res)
+    fexact = all(r["fwd_equal"] for r in res)
+    if what == "grad_bf16":
+        check(exact and fexact, f"[56] {what} {mesh_shape} {backend}: not "
+              f"bit-equal to the unsharded forward ({ferr:.3e}) and "
+              f"backward ({err:.3e}, "
+              f"{sum(r['n_diff'] for r in res)} elements differ)")
+        verdict = "forward and gradient bit-equal to the unsharded ones"
+    elif what == "grad_fold90":
+        tol, ftol = 1e-6 * res[0]["ref_max"], 1e-6 * res[0]["out_max"]
+        check(err <= tol and ferr <= ftol,
+              f"[56] {what}: forward err {ferr} > {ftol} or gradient err "
+              f"{err} > {tol}")
+        verdict = (f"forward max err {ferr:.3e} (bit-equal {fexact}), "
+                   f"gradient max err {err:.3e} <= {tol:.3e} (bit-equal "
+                   f"{exact}; {sum(r['n_diff'] for r in res)} elements "
+                   f"differ)")
+    else:
+        check(fexact and err <= 1e-5,
+              f"[56] {what}: forward bit-equal {fexact}, gradient err "
+              f"{err} > 1e-5")
+        verdict = (f"forward bit-equal, gradient max err {err:.3e} <= 1e-5 "
+                   f"(bit-equal {exact})")
+    print(f"[56 sharded gradient] {what} mesh {mesh_shape} over {len(res)} "
+          f"{backend} rank(s) on {sorted({r['device'] for r in res})}: "
+          f"gradient {res[0]['shape']} {res[0]['dtype']}, launches per rank "
+          f"{[tuple(r['launches']) for r in res]}, {verdict}")
+
+
+def _grad_timing_line(card: str, what: str, mesh_shape, backend, res: list,
+                      shared: bool) -> dict:
+    row = {"phase": "56", "case": what, "mesh": list(mesh_shape),
+           "backend": backend, "ranks_share_one_card": shared,
+           **{k: [r[k] for r in res] for k in
+              ("local_ms", "local_bound_ms", "halo_rows", "halo_ms",
+               "halo_bytes", "halo_cols", "halo_ms_cols", "halo_bytes_cols",
+               "call_ms", "step_ms", "ext_shape") if k in res[0]}}
+    for k in ("unsharded_ms", "call_events_ms"):
+        if k in res[0]:
+            row[k] = res[0][k]
+    local = "scatter (index_add_)" if what == "grad_rot" else "kernel 1"
+    halo = ("_halo_reduce" if what == "grad_rot"
+            else "the cotangent's _halo_extend")
+    cols = (f" + {row['halo_cols'][0]} columns "
+            f"{[round(v, 4) for v in row['halo_ms_cols']]} ms"
+            if "halo_cols" in row else "")
+    print(f"[56 timing] {card}: {what} mesh {mesh_shape} {backend}: local "
+          f"transpose ({local}) ms per rank "
+          f"{[round(v, 4) for v in row['local_ms']]} against bounds "
+          f"{[round(v, 4) for v in row['local_bound_ms']]} (in turns, CUDA "
+          f"events); {halo} of {row['halo_rows'][0]} rows "
+          f"{[round(v, 4) for v in row['halo_ms']]} ms, bytes "
+          f"{row['halo_bytes']}{cols}; sharded transpose call ms "
+          f"{[round(v, 4) for v in row['call_ms']]}, gradient step ms "
+          f"{[round(v, 4) for v in row['step_ms']]} ("
+          + ("ranks that share one card" if shared else "one rank a card")
+          + ")")
+    if "unsharded_ms" in row:
+        print(f"[56 timing] {card}: one {backend} rank, CUDA events: sharded "
+              f"transpose {row['call_events_ms']:.4f} ms, unsharded "
+              f"transpose {row['unsharded_ms']:.4f} ms")
+    return row
+
+
 def _report(phase: str, what: str, mesh_shape, backend: str, res: list,
             want: tuple, kernels: str = "kernel 1, kernel 2",
             host_rtol: float = 1e-5) -> int:
@@ -4200,10 +4437,11 @@ def _timing_line(phase: str, card: str, what: str, mesh_shape, backend,
 
 
 def sharded_phases(card: str) -> dict:
-    """Phases 51-55.  Returns the launches of kernels 1 and 2, the fused
+    """Phases 51-56.  Returns the launches of kernels 1 and 2, the fused
     shear and the contraction on the sharded paths, by kernel row:
     ``["rows"]`` of the row-sharded phases 51-53, ``["2d"]`` of the 2-D
-    phases 54-55."""
+    phases 54-55, ``["grad"]`` of the gradient steps of phase 56 (kernel
+    1's forwards and, apart, its launches on the transposed bands)."""
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     count = torch.cuda.device_count()
@@ -4212,9 +4450,10 @@ def sharded_phases(card: str) -> dict:
     rot_s = [time.perf_counter() - rot_t0]
     launches = {mode: {k: 0 for k in ("separable_apply", "separable_apply_2d",
                                       "vhshear", "contract")}
-                for mode in ("rows", "2d")}
-    rows, rot_rows, rows_2d = [], [], []
-    s2_s = []
+                for mode in ("rows", "2d", "grad")}
+    launches["grad"]["separable_apply_transposed"] = 0
+    rows, rot_rows, rows_2d, grad_rows = [], [], [], []
+    s2_s, grad_s = [], []
 
     def run_cases(pool, backend, cases):
         shared = count < pool.world
@@ -4222,6 +4461,20 @@ def sharded_phases(card: str) -> dict:
             t0 = time.perf_counter()
             cols = len(mesh_shape) == 3
             counts = launches["2d" if cols else "rows"]
+            if phase == "56":
+                res = pool.run(rank_sharded_grad, mesh_shape, what, timed,
+                               rot_angle, t_cache.DEFAULT_CACHE_DIR)
+                _report_grad(what, mesh_shape, backend, res)
+                g = launches["grad"]
+                for k, col in (("separable_apply", 0),
+                               ("separable_apply_transposed", 1),
+                               ("vhshear", 2), ("contract", 3)):
+                    g[k] += sum(r["launches"][col] for r in res)
+                if timed:
+                    grad_rows.append(_grad_timing_line(
+                        card, what, mesh_shape, backend, res, shared))
+                grad_s.append(time.perf_counter() - t0)
+                continue
             if phase in ("53", "55"):
                 res = pool.run(rank_sharded_ell, mesh_shape, what, timed,
                                rot_angle, t_cache.DEFAULT_CACHE_DIR)
@@ -4264,7 +4517,8 @@ def sharded_phases(card: str) -> dict:
         return pool
 
     with pool_of(SHARD_RANKS, "gloo") as pool:
-        run_cases(pool, "gloo", GLOO_CASES + SHARD_ROT_CASES + SHARD2D_CASES)
+        run_cases(pool, "gloo", GLOO_CASES + SHARD_ROT_CASES + SHARD2D_CASES
+                  + SHARD_GRAD_CASES)
     if NCCL_ONE_RANK_CASES:
         with pool_of(1, "nccl") as pool:
             run_cases(pool, "nccl", NCCL_ONE_RANK_CASES)
@@ -4273,7 +4527,8 @@ def sharded_phases(card: str) -> dict:
         with pool_of(k, "nccl") as pool:
             run_cases(pool, "nccl", (("51", (1, k), "bf16", True),
                                      ("52", (1, k), "plain", True),
-                                     ("53", (1, k), "rot_bf16", True))
+                                     ("53", (1, k), "rot_bf16", True),
+                                     ("56", (1, k), "grad_bf16", True))
                       + ((("54", (1, 2, 2), "bf16", True),
                           ("55", (1, 2, 2), "rot_bf16", True))
                          if k == 4 else ()))
@@ -4293,6 +4548,11 @@ def sharded_phases(card: str) -> dict:
     print(json.dumps({"sharded_2d_timing": {
         "card": card, "angle": rot_angle, "rows": rows_2d,
         "phase_s": sum(s2_s)}}))
+    print(f"[56 sharded gradient] {sum(grad_s):.1f} s: {len(grad_s)} cases "
+          f"{[round(v, 1) for v in grad_s]} s")
+    print(json.dumps({"sharded_grad_timing": {
+        "card": card, "angle": rot_angle, "rows": grad_rows,
+        "phase_s": sum(grad_s)}}))
     return launches
 
 
@@ -4312,7 +4572,7 @@ def main() -> int:
 
 
 def run(work: str) -> int:
-    """Phases 1-55; ``work`` is a temporary directory for files."""
+    """Phases 1-56; ``work`` is a temporary directory for files."""
     # ---- 1. device -------------------------------------------------------
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
@@ -4575,6 +4835,7 @@ def run(work: str) -> int:
         if row["name"] in ("vhshear", "contract"):
             row["sharded_launches"] = sharded["rows"][row["name"]]
             row["sharded_2d_launches"] = sharded["2d"][row["name"]]
+            row["sharded_grad_launches"] = sharded["grad"][row["name"]]
 
     print(json.dumps({"kernels": [{
         "name": "separable_apply",
@@ -4589,6 +4850,9 @@ def run(work: str) -> int:
         "library_ms": ms["library_device_ms"],
         "sharded_launches": sharded["rows"]["separable_apply"],
         "sharded_2d_launches": sharded["2d"]["separable_apply"],
+        "sharded_grad_launches": sharded["grad"]["separable_apply"],
+        "sharded_grad_transposed_launches":
+            sharded["grad"]["separable_apply_transposed"],
     }] + rotated + sheared + banded + probes}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

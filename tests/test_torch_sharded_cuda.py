@@ -9,7 +9,11 @@ two; its ranks run kernels 1 and 2 and the rotated route's fused shear
 and masked contraction per shard.  ``test_nccl_2d_one_rank`` runs the
 2-D (rows x cols) sharded paths on one NCCL rank, mesh (1, 1, 1), and
 ``test_nccl_2d_across_four_cards`` at (1, 2, 2), one rank a card (it
-skips with fewer than four).  The ranks' side is
+skips with fewer than four).  ``test_nccl_grad_one_rank`` runs the
+``make_sharded_*_linear`` gradient steps on one NCCL rank, meshes (1, 1)
+and (1, 1, 1), and ``test_nccl_grad_across_four_cards`` at (1, 4) and
+(1, 2, 2) (it skips with fewer than four): kernel 1 per shard on the
+transposed bands, the rotated scatter and ``_halo_reduce``.  The ranks' side is
 tests/torch_dist_ranks.py (tolerances there: bit equality where the
 sharded and unsharded calls take one route, f32 1e-5 where they do not,
 flux rtol 1e-5).
@@ -83,3 +87,22 @@ def test_nccl_2d_across_four_cards(cards):
     assert [r["bf16"]["device"] for r in res] == [
         f"cuda:{r}" for r in range(4)]
     ranks.check_sharded_2d_vs_unsharded(res, on_card=True)
+
+
+def test_nccl_grad_one_rank(cards):
+    with pmesh.RankPool(1, backend="nccl", timeout=300.0) as pool:
+        for shape in ((1, 1), (1, 1, 1)):
+            res = pool.run(ranks.sharded_grad_vs_unsharded, shape)
+            assert res[0]["bf16"]["device"] == "cuda:0"
+            ranks.check_sharded_grad_vs_unsharded(res, on_card=True)
+
+
+def test_nccl_grad_across_four_cards(cards):
+    if cards < 4:
+        pytest.skip(f"needs four cards, one NCCL rank a card; {cards} here")
+    with pmesh.RankPool(4, backend="nccl", timeout=600.0) as pool:
+        for shape in ((1, 4), (1, 2, 2)):
+            res = pool.run(ranks.sharded_grad_vs_unsharded, shape)
+            assert [r["bf16"]["device"] for r in res] == [
+                f"cuda:{r}" for r in range(4)]
+            ranks.check_sharded_grad_vs_unsharded(res, on_card=True)

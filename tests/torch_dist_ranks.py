@@ -1,6 +1,8 @@
 """Rank-side functions of tests/test_torch_sharded.py,
 tests/test_torch_sharded_ell.py, tests/test_torch_sharded_2d.py,
-tests/test_torch_sharded_ell_2d.py and tests/test_torch_sharded_cuda.py.
+tests/test_torch_sharded_ell_2d.py, tests/test_torch_sharded_autodiff.py,
+tests/test_torch_sharded_autodiff_2d.py and
+tests/test_torch_sharded_cuda.py.
 
 Each runs on every rank of an ``aainterp_torch.parallel.mesh.RankPool``
 as ``fn(mesh, *args)``: it cuts the rank's block out of the whole input
@@ -312,7 +314,9 @@ def collective_sizes(mesh, kind, frames, tables, conserve=False):
     """The bytes of each collective one sharded call hands over, by kind
     (each point-to-point send, each rank's block of an all-gather, each
     all-reduced tensor): ``kind`` 'separable' or 'ell', on this rank's
-    block (its 2-D block on a 2-D mesh), with ``conserve``."""
+    block (its 2-D block on a 2-D mesh), with ``conserve``; or
+    'separable_transpose' or 'ell_transpose' on this rank's block of the
+    cotangent ``frames``."""
     sizes = {"p2p": [], "all_gather": [], "all_reduce": []}
     saved = pmesh.exchange, pmesh.all_gather, pmesh.all_reduce
 
@@ -332,7 +336,11 @@ def collective_sizes(mesh, kind, frames, tables, conserve=False):
     pmesh.exchange, pmesh.all_gather, pmesh.all_reduce = (
         exchange, all_gather, all_reduce)
     try:
-        if kind == "separable":
+        if kind.endswith("_transpose"):
+            ell = kind == "ell_transpose"
+            _transpose_fn(mesh, ell)(x, (_ell_op if ell else _op)(tables),
+                                     mesh)
+        elif kind == "separable":
             fn = (sharding.sharded_apply_separable_2d if _is_2d(mesh)
                   else sharding.sharded_apply_separable)
             fn(x, _op(tables), mesh, conserve=conserve)
@@ -341,6 +349,133 @@ def collective_sizes(mesh, kind, frames, tables, conserve=False):
     finally:
         pmesh.exchange, pmesh.all_gather, pmesh.all_reduce = saved
     return {"sizes": sizes, "block": x.nbytes}
+
+
+# ---------------------------------------------------------------------------
+# the transposes and the autograd wrappers
+# ---------------------------------------------------------------------------
+
+
+def _is_ell(tables: dict) -> bool:
+    return "base" in tables
+
+
+def _any_op(tables: dict):
+    return _ell_op(tables) if _is_ell(tables) else _op(tables)
+
+
+def _transpose_fn(mesh, ell: bool):
+    if ell:
+        return (sharding.sharded_apply_ell_2d_transpose if _is_2d(mesh)
+                else sharding.sharded_apply_ell_transpose)
+    return (sharding.sharded_apply_separable_2d_transpose if _is_2d(mesh)
+            else sharding.sharded_apply_separable_transpose)
+
+
+def _maker(mesh, ell: bool):
+    if ell:
+        return (sharding.make_sharded_ell_2d_linear if _is_2d(mesh)
+                else sharding.make_sharded_ell_linear)
+    return (sharding.make_sharded_separable_2d_linear if _is_2d(mesh)
+            else sharding.make_sharded_separable_linear)
+
+
+def transpose(mesh, cot, tables, impl=None, tables_as=None):
+    """The sharded transpose (separable or ELL by ``tables``; row-sharded
+    or ``_2d`` by the mesh) of this rank's block of the dst cotangent
+    ``cot``: the gathered output, this rank's block, its dtype and the
+    traffic of the call (or the ValueError's message).  ``impl``: the
+    separable route; ``tables_as``: a dtype name, the ELL operator's own
+    tables as explicit tensors, the weights in that dtype."""
+    ell = _is_ell(tables)
+    op = _any_op(tables)
+    kw = {} if impl is None else {"impl": impl}
+    if tables_as is not None:
+        kw = dict(base=torch.as_tensor(op.base),
+                  weights=torch.as_tensor(op.weights).to(
+                      getattr(torch, tables_as)))
+    g = _shard(cot, mesh)
+    before = _traffic()
+    try:
+        out = _transpose_fn(mesh, ell)(g, op, mesh, **kw)
+    except ValueError as e:
+        return {"error": str(e)}
+    traffic = _delta(before)
+    return {"out": _gather(out, mesh).numpy(), "local": out.numpy(),
+            "dtype": str(out.dtype), "traffic": traffic}
+
+
+def adjoint_pair(mesh, x, y, tables):
+    """<A x, y> and <x, A^T y> in float64, each from the sharded forward
+    and the sharded transpose on this rank's blocks (local float64 dots,
+    then one all_reduce)."""
+    ell = _is_ell(tables)
+    op = _any_op(tables)
+    fwd = (_ell_fn(mesh, False) if ell else
+           (sharding.sharded_apply_separable_2d if _is_2d(mesh)
+            else sharding.sharded_apply_separable))
+    xs, ys = _shard(x, mesh), _shard(y, mesh)
+    ax = fwd(xs, op, mesh)
+    aty = _transpose_fn(mesh, ell)(ys, op, mesh)
+    dots = torch.stack([(ax.double() * ys.double()).sum(),
+                        (xs.double() * aty.double()).sum()])
+    return pmesh.all_reduce(dots, None).tolist()
+
+
+def grad(mesh, frames, tables, tgt=None, impl="auto", explicit=False):
+    """The gradient of sum((f(x) - tgt)^2) (without ``tgt``: sum(f(x)^2))
+    through the maker of ``tables``' kind on this rank's block, each rank
+    running its own loss's backward; the gathered forward output and
+    gradient, and the gradient's dtype.  ``explicit``: the ELL tables go
+    in as arguments, float32."""
+    ell = _is_ell(tables)
+    op = _any_op(tables)
+    lin = _maker(mesh, ell)(op, mesh, impl=impl)
+    x = _shard(frames, mesh).clone().requires_grad_(True)
+    args = ()
+    if explicit:
+        args = (torch.as_tensor(op.base),
+                torch.as_tensor(op.weights, dtype=torch.float32))
+    out = lin(x, *args)
+    r = out if tgt is None else out - _shard(tgt, mesh)
+    (r.float() ** 2).sum().backward()
+    return {"out": _gather(out.detach(), mesh).numpy(),
+            "grad": _gather(x.grad, mesh).numpy(),
+            "dtype": str(x.grad.dtype)}
+
+
+def halo_pair(mesh, x, h, dim):
+    """``_halo_extend`` of this rank's block of ``x`` (its 2-D block on a
+    2-D mesh) by ``h`` along the mesh dim ``dim``, and ``_halo_reduce`` of
+    a random block ``y`` of the extended shape (seeded by the rank):
+    <extend(x), y> and <x, reduce(y)> summed over the mesh in float64,
+    and each one's point-to-point bytes on this rank; or, where a halo
+    needs more hops than the axis has neighbours, both calls' messages."""
+    xs = _shard(x, mesh)
+    axis = -2 if dim == pmesh.ROWS else -1
+    shape = list(xs.shape)
+    shape[axis] += 2 * h
+    y = _rand(tuple(shape), 100 + torch.distributed.get_rank(), xs.device,
+              xs.dtype)
+    res = {}
+    before = _traffic()
+    try:
+        ext = sharding._halo_extend(xs, h, mesh, dim)
+    except ValueError as e:
+        res["error"] = str(e)
+    res["p2p_extend"] = _delta(before)["p2p"]
+    before = _traffic()
+    try:
+        red = sharding._halo_reduce(y, h, mesh, dim)
+    except ValueError as e:
+        res["error_reduce"] = str(e)
+        return res
+    res["p2p_reduce"] = _delta(before)["p2p"]
+    dots = torch.stack([(ext.double() * y.double()).sum(),
+                        (xs.double() * red.double()).sum()])
+    res.update(dots=pmesh.all_reduce(dots, None).tolist(),
+               shape=tuple(red.shape), block=tuple(xs.shape))
+    return res
 
 
 def loaded_modules(mesh):
@@ -636,6 +771,70 @@ def check_sharded_2d_vs_unsharded(res: list, on_card: bool):
         assert r["launches"] == {"bf16": n, "u8": n, "regrid": n,
                                  "regrid_masked": 2 * n,
                                  "ell": {"vhshear": n, "contract": n}}
+
+
+def sharded_grad_vs_unsharded(mesh):
+    """The makers' gradient steps on this rank's device against the
+    unsharded autograd (``apply_operator(differentiable=True)``:
+    ``SeparableLinear``, ``EllLinear``) on the same frames and cotangent:
+    the separable maker at bf16 and, folded at 90 degrees, f32 (row-sharded
+    or ``_2d`` by the mesh), and the rotated maker at f32 (8 degrees on
+    128 x 64, or on a 2-D mesh 31 degrees on 128 x 128); kernel 1's
+    launches of each separable step, forward and backward."""
+    dev = pmesh.rank_device()
+    res, launches = {}, {}
+    spec = lambda ang: at.make_grid_spec((256, 384), 2.0, 1.0, (3.0, 5.0),
+                                         ang)
+    ell_spec = (at.make_grid_spec((128, 128), 1.0, 0.5, (64.0, 64.0), 31.0)
+                if _is_2d(mesh) else
+                at.make_grid_spec((128, 64), 1.0, 0.5, (32.0, 64.0), 8.0))
+    cases = (("bf16", spec(0.0), torch.bfloat16, False),
+             ("fold", spec(90.0), torch.float32, False),
+             ("ell", ell_spec, torch.float32, True))
+    for name, sp, dtype, ell in cases:
+        op = at.build_operator(sp)
+        frames = _rand((4,) + sp.src_shape, 21, dev, dtype)
+        xr = frames.clone().requires_grad_(True)
+        out_ref = at.apply_operator(op, xr, differentiable=True)
+        g = _rand(tuple(out_ref.shape), 22, dev, out_ref.dtype)
+        (ref,) = torch.autograd.grad(out_ref, xr, g)
+        lin = _maker(mesh, ell)(op, mesh)
+        x = _shard(frames, mesh).clone().requires_grad_(True)
+        before = cuda_apply.LAUNCHES
+        out = lin(x)
+        (gx,) = torch.autograd.grad(out, x, _shard(g, mesh))
+        launches[name] = cuda_apply.LAUNCHES - before
+        res[name] = _cmp(_gather(gx, mesh), ref)
+        res[name + "_fwd"] = _cmp(_gather(out.detach(), mesh),
+                                  out_ref.detach())
+        res[name + "_max"] = float(ref.abs().max())
+    res["launches"] = launches
+    return res
+
+
+def check_sharded_grad_vs_unsharded(res: list, on_card: bool):
+    """Check every rank's ``sharded_grad_vs_unsharded`` result.  On the
+    card the bf16 step is bit-equal to the unsharded one, forward and
+    gradient (kernel 1 on each rank's rows of the same tables, and of the
+    transposed tables), with 1 launch in the forward and 1 in the
+    backward; on the CPU (plain routes, sums in a shape-dependent order)
+    within one bf16 ulp.  The fold within 1e-6 x the largest gradient on
+    the card (1e-5 on the CPU); the rotated gradient (the scatter) within
+    f32 1e-5, its forward bit-equal on the card."""
+    for r in res:
+        want = "cuda" if on_card else "cpu"
+        assert all(r[k]["device"].startswith(want)
+                   for k in ("bf16", "fold", "ell")), r
+        if on_card:
+            assert r["bf16"]["equal"] and r["bf16_fwd"]["equal"], r
+            assert r["ell_fwd"]["equal"], r["ell_fwd"]
+        else:
+            assert r["bf16"]["max_abs_err"] <= 2.0 ** -8 * r["bf16_max"], r
+        tol = (1e-6 if on_card else 1e-5) * r["fold_max"]
+        assert r["fold"]["max_abs_err"] <= tol, r["fold"]
+        assert r["ell"]["max_abs_err"] <= 1e-5, r["ell"]
+        n = 2 if on_card else 0
+        assert r["launches"] == {"bf16": n, "fold": n, "ell": 0}, r
 
 
 def collectives_to_self(mesh):
