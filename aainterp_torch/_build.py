@@ -163,9 +163,10 @@ PROBES = Library(
     (
         # aainterp_copy_rows(src, dst, F, H, W, TY, elem_bytes, stream)
         ("aainterp_copy_rows", (_P,) * 2 + (_I,) * 5 + (_P,), ctypes.c_int),
-        # aainterp_contract_probe(T, out, ry0, cx0, w2, span, F, TH, TW,
-        #     Hd, Wd, Ka, Kb, mode, dtype_code, stream)
-        ("aainterp_contract_probe", (_P,) * 6 + (_I,) * 9 + (_P,),
+        # aainterp_contract_probe(T, out, ry0, cx0, w2, span, tiles, order,
+        #     F, TH, TW, Hd, Wd, Ka, Kb, TYd, TXd, smem, wtile, n_live, mode,
+        #     dtype_code, stream)
+        ("aainterp_contract_probe", (_P,) * 8 + (_I,) * 14 + (_P,),
          ctypes.c_int),
     ),
     headers=(_CONTRACT_HEADER, _PKG / "csrc" / "hopper.cuh", _STAGE_HEADER))

@@ -47,45 +47,67 @@
 // * The direct form (body(), the earlier design): one thread per (dy, dx),
 //   each tap kFrames gathers from T in device memory through clamped
 //   indices.  It stays for the unmasked instance (contract_unmasked_kernel,
-//   aainterp_contract_unmasked), the probes below, and, masked
+//   aainterp_contract_unmasked), the noweight probe below, and, masked
 //   (contract_kernel, aainterp_contract_direct), for a geometry whose
 //   smallest tile window does not fit in shared memory: the host planner
 //   sends such a plan there, a named and counted route.
 //
-// csrc/probes.cu launches the probe modes (contract_probe_kernel), the H100
-// counterparts of the TPU contraction probes of
-// benchmarks/rot_experiments.py.  Each probe is the direct form with one
-// thing changed; like the TPU probes, the share and pipelined modes skip
-// dead pixels and noweight does not:
+// csrc/probes.cu launches the probe forms, the H100 counterparts of the
+// TPU contraction probes of benchmarks/rot_experiments.py.  Like the TPU
+// probes, each changes one thing in the production kernel it splits: the
+// share and pipelined probes change the tiled form (the route's masked
+// contraction: the same tile table, the same swizzled frame-interleaved
+// windows, the same a-major sums) and, like it, write 0 and read nothing
+// for dead tiles and for pixels outside their row's span; noweight
+// changes the direct form, unmasked, as its yardstick
+// contract_unmasked_kernel is:
 //
 //   kNoWeight  (_build_contract_noweight, :130)  out = sum_ab T window: no
 //              weight load, no multiply (acc += v);
-//   kWShare    (_build_contract_share, :247, wshare)  the weights of dst
-//              row 0, w2[ab, 0, dx], for every row: the weight stream from
-//              device memory (196 MB per batch at the 2048^2 / 30 degree
-//              flagship) shrinks to one row that stays in L2;
-//   kTShare    (the same, tshare)  T of frame 0 in dst row 0's window,
-//              T[0, ry0[0]+a, cx0[dx]+b], for every row and frame: the T
-//              reads from device memory go away.  The frame stride is a
-//              runtime 0, so the compiler cannot fold the kFrames loads
-//              into one;
+//   kTShare    (_build_contract_share, :247, tshare)  every live tile stages
+//              frame 0's cells at T's origin, T[0, 0:rows, 0:cols], in its
+//              own window's shape, into every frame slot of every frame
+//              group, and sums that window as production sums its own: the
+//              T stream from device memory shrinks to one corner that stays
+//              in L2 (JAX's one T block fetched at step 0 for every (tile,
+//              frame)).  The frame stride is a runtime 0, so the staging
+//              keeps its loads, transposes and stores; the corner's anchor
+//              (0, 0) keeps the window's 16-byte chunks aligned wherever
+//              production's are;
+//   kWShare    (the same, wshare)  every tile reads the weights of tile
+//              wtile at the pixel's position within it (clamped to the dst
+//              plane): the weight stream shrinks to one tile's Ka*Kb*TYd*TXd
+//              floats (JAX's w2t block pinned to block 0).  The host passes
+//              the first live tile: tile 0 is a dead corner, all of whose
+//              weights are 0, and a probe whose output is all zeros checks
+//              nothing;
 //   kBothShare both of the above;
-//   kPipelined (_build_contract_pipelined, :392)  the same function and
-//              sum order as production, with tap k+1's T values and weight
-//              loaded into registers before tap k's FMAs: bit-equal to
-//              production, only the issue order differs.
+//   kPipelined (_build_contract_pipelined, :392)  production's function
+//              and sum order, bit-equal to contract_tiled_kernel, with the
+//              staging overlapped with the sums: a persistent grid (blocks
+//              an SM from the occupancy of two windows), each block walking
+//              the frame groups of its share of the live tiles (a host
+//              order, the fullest tiles first, dealt in turn) through two
+//              window buffers.  kStageThreads staging threads stage step
+//              s + 1 into one buffer while kThreads summing threads sum
+//              step s from the other; the summing threads write the dead
+//              tiles' zeros first.
+//              The frame-interleaved window is a
+//              transpose, which a raw bulk copy cannot give, so the staging
+//              threads stage through registers as production does.
 //
 // Why these are the H100 meanings: the TPU contraction gathered each dst
-// tile's T block by one-hot MXU matmuls, and its share probes pinned "tile
-// 0's T block" and "weight block 0" of that tiling, which the direct form
-// does not have (a thread reads any address).  What carries over is what
-// each probe removes: the weight multiply (noweight), the T traffic
-// (tshare), the weight traffic (wshare), or the issue order (pipelined).
+// tile's T block by one-hot MXU matmuls, and its probes pinned "tile 0's T
+// block" and "weight block 0" of that tiling, or reordered the production
+// kernel's issue; the tiled form has the same tiles, so each probe pins
+// the same stream of it: the T windows (tshare), the weights (wshare),
+// both, or the issue order (pipelined).
 //
 // What bounds the contraction: bytes (T, the f32 weight table w2 and the
-// output); but the probes showed that the direct form's time follows the
-// per-tap gathers' instruction stream, not those streams (PERF.md), which
-// is what the tiled form's shared-memory windows take away.
+// output); but the direct form's time followed the per-tap gathers'
+// instruction stream, not those streams (PERF.md), which is what the
+// tiled form's shared-memory windows take away.
+
 
 #pragma once
 
@@ -122,22 +144,21 @@ inline bool row_grid(long long rows, int cols, dim3* grid) {
   return true;
 }
 
-// The body.  fstride is T's frame stride in elements: TH * TW, or 0 (a
-// runtime value) for the T-sharing probes.
+// The direct form's body: production (kNone) or the noweight probe.
 // kMasked: the dead-pixel skip on span (Hd, 2).
 template <typename T, Probe P, bool kMasked>
 __device__ __forceinline__ void body(
     const T* __restrict__ t, T* __restrict__ out,
     const int* __restrict__ ry0, const int* __restrict__ cx0,
     const float* __restrict__ w2, const int* __restrict__ span,
-    int F, int TH, int TW, int Hd, int Wd, int Ka, int Kb, long long fstride) {
-  constexpr bool kShareT = P == kTShare || P == kBothShare;
-  constexpr bool kShareW = P == kWShare || P == kBothShare;
+    int F, int TH, int TW, int Hd, int Wd, int Ka, int Kb) {
+  static_assert(P == kNone || P == kNoWeight, "the direct form's probe is noweight");
   const int dx = blockIdx.y * blockDim.x + threadIdx.x;
   if (dx >= Wd) return;
   const int dy = blockIdx.x;
   const long long plane = static_cast<long long>(Hd) * Wd;
   const long long pix = static_cast<long long>(dy) * Wd + dx;
+  const long long fstride = static_cast<long long>(TH) * TW;
   if constexpr (kMasked) {
     const int2 s = __ldg(reinterpret_cast<const int2*>(span) + dy);
     if (dx < s.x || dx >= s.y) {
@@ -145,8 +166,7 @@ __device__ __forceinline__ void body(
       return;
     }
   }
-  const long long wpix = kShareW ? static_cast<long long>(dx) : pix;
-  const int r0 = ry0[kShareT ? 0 : dy];
+  const int r0 = ry0[dy];
   const int c0 = cx0[dx];
   for (int f0 = 0; f0 < F; f0 += kFrames) {
     const int nf = min(kFrames, F - f0);
@@ -154,59 +174,20 @@ __device__ __forceinline__ void body(
     float acc[kFrames];
 #pragma unroll
     for (int i = 0; i < kFrames; ++i) acc[i] = 0.0f;
-    if constexpr (P == kPipelined) {
-      // tap (a, b)'s operands in registers one tap ahead of its FMAs
-      const int taps = Ka * Kb;
-      int a = 0, b = 0;
-      const T* trow = tf + static_cast<long long>(min(max(r0, 0), TH - 1)) * TW;
-      float w = w2[wpix];
-      T v[kFrames];
-      {
-        const int c = min(max(c0, 0), TW - 1);
+    for (int a = 0; a < Ka; ++a) {
+      const T* trow = tf + static_cast<long long>(min(max(r0 + a, 0), TH - 1)) * TW;
+      for (int b = 0; b < Kb; ++b) {
+        const int c = min(max(c0 + b, 0), TW - 1);
+        if constexpr (P == kNoWeight) {
 #pragma unroll
-        for (int i = 0; i < kFrames; ++i) v[i] = i < nf ? trow[i * fstride + c] : T(0.0f);
-      }
-      for (int k = 0; k < taps; ++k) {
-        float wn = 0.0f;
-        T vn[kFrames];
-        if (++b == Kb) {
-          b = 0;
-          ++a;
-          trow = tf + static_cast<long long>(min(max(r0 + a, 0), TH - 1)) * TW;
-        }
-        if (k + 1 < taps) {
-          const int c = min(max(c0 + b, 0), TW - 1);
-          wn = w2[static_cast<long long>(k + 1) * plane + wpix];
-#pragma unroll
-          for (int i = 0; i < kFrames; ++i) vn[i] = i < nf ? trow[i * fstride + c] : T(0.0f);
+          for (int i = 0; i < kFrames; ++i) {
+            if (i < nf) acc[i] += to_f32(trow[i * fstride + c]);
+          }
         } else {
+          const float w = w2[static_cast<long long>(a * Kb + b) * plane + pix];
 #pragma unroll
-          for (int i = 0; i < kFrames; ++i) vn[i] = T(0.0f);
-        }
-#pragma unroll
-        for (int i = 0; i < kFrames; ++i) {
-          if (i < nf) acc[i] = fmaf(w, to_f32(v[i]), acc[i]);
-        }
-        w = wn;
-#pragma unroll
-        for (int i = 0; i < kFrames; ++i) v[i] = vn[i];
-      }
-    } else {
-      for (int a = 0; a < Ka; ++a) {
-        const T* trow = tf + static_cast<long long>(min(max(r0 + a, 0), TH - 1)) * TW;
-        for (int b = 0; b < Kb; ++b) {
-          const int c = min(max(c0 + b, 0), TW - 1);
-          if constexpr (P == kNoWeight) {
-#pragma unroll
-            for (int i = 0; i < kFrames; ++i) {
-              if (i < nf) acc[i] += to_f32(trow[i * fstride + c]);
-            }
-          } else {
-            const float w = w2[static_cast<long long>(a * Kb + b) * plane + wpix];
-#pragma unroll
-            for (int i = 0; i < kFrames; ++i) {
-              if (i < nf) acc[i] = fmaf(w, to_f32(trow[i * fstride + c]), acc[i]);
-            }
+          for (int i = 0; i < kFrames; ++i) {
+            if (i < nf) acc[i] = fmaf(w, to_f32(trow[i * fstride + c]), acc[i]);
           }
         }
       }
@@ -218,15 +199,15 @@ __device__ __forceinline__ void body(
   }
 }
 
-// The production contraction, masked (ell_shear.cu's aainterp_contract).
+// The production contraction's direct form, masked (ell_shear.cu's
+// aainterp_contract_direct).
 template <typename T>
 __global__ void __launch_bounds__(kThreads) contract_kernel(
     const T* __restrict__ t, T* __restrict__ out,
     const int* __restrict__ ry0, const int* __restrict__ cx0,
     const float* __restrict__ w2, const int* __restrict__ span,
     int F, int TH, int TW, int Hd, int Wd, int Ka, int Kb) {
-  body<T, kNone, true>(t, out, ry0, cx0, w2, span, F, TH, TW, Hd, Wd, Ka, Kb,
-                       static_cast<long long>(TH) * TW);
+  body<T, kNone, true>(t, out, ry0, cx0, w2, span, F, TH, TW, Hd, Wd, Ka, Kb);
 }
 
 // The same without the skip (ell_shear.cu's aainterp_contract_unmasked).
@@ -236,21 +217,16 @@ __global__ void __launch_bounds__(kThreads) contract_unmasked_kernel(
     const int* __restrict__ ry0, const int* __restrict__ cx0,
     const float* __restrict__ w2,
     int F, int TH, int TW, int Hd, int Wd, int Ka, int Kb) {
-  body<T, kNone, false>(t, out, ry0, cx0, w2, nullptr, F, TH, TW, Hd, Wd, Ka, Kb,
-                        static_cast<long long>(TH) * TW);
+  body<T, kNone, false>(t, out, ry0, cx0, w2, nullptr, F, TH, TW, Hd, Wd, Ka, Kb);
 }
 
-// A probe (P != kNone), masked but for kNoWeight; zero is 0 at run time.
-template <typename T, Probe P>
-__global__ void __launch_bounds__(kThreads) contract_probe_kernel(
+// The noweight probe: the unmasked direct form without weights.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) contract_noweight_kernel(
     const T* __restrict__ t, T* __restrict__ out,
     const int* __restrict__ ry0, const int* __restrict__ cx0,
-    const float* __restrict__ w2, const int* __restrict__ span,
-    int F, int TH, int TW, int Hd, int Wd, int Ka, int Kb, int zero) {
-  constexpr bool kShareT = P == kTShare || P == kBothShare;
-  body<T, P, P != kNoWeight>(
-      t, out, ry0, cx0, w2, span, F, TH, TW, Hd, Wd, Ka, Kb,
-      kShareT ? static_cast<long long>(zero) : static_cast<long long>(TH) * TW);
+    int F, int TH, int TW, int Hd, int Wd, int Ka, int Kb) {
+  body<T, kNoWeight, false>(t, out, ry0, cx0, nullptr, nullptr, F, TH, TW, Hd, Wd, Ka, Kb);
 }
 
 // ---- the tiled form --------------------------------------------------------
@@ -356,20 +332,98 @@ __device__ __forceinline__ void stage_cell(uint4* win, int cell, const float* sr
   win[swz(2 * cell + 1)] = make_uint4(h[4], h[5], h[6], h[7]);
 }
 
-// The tiled masked contraction: block b is dst tile b (row-major, n_tx
+// Stage nf frames of window w = (r0, c0, rows, cols) into win, by thread
+// tid of nthreads: src is the window's first element in its first frame,
+// fstride the frame stride in elements (a runtime 0 under tshare: every
+// frame slot gets the first frame's value); whole 16-byte chunks where
+// `chunked`, else a cell at a time.
+template <typename T>
+__device__ __forceinline__ void stage_window(uint4* win, const T* src, int4 w, int TW,
+                                             long long fstride, int nf, bool chunked, int tid,
+                                             int nthreads) {
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  if (chunked) {
+    const int chunks = w.w / kVec;
+    for (int it = tid; it < w.z * chunks; it += nthreads) {
+      const int r = it / chunks;
+      const int k = it - r * chunks;
+      stage_chunk(win, r * w.w + k * kVec, src + static_cast<long long>(r) * TW + k * kVec,
+                  fstride, nf);
+    }
+  } else {
+    for (int it = tid; it < w.z * w.w; it += nthreads) {
+      const int r = it / w.w;
+      const int c = it - r * w.w;
+      stage_cell(win, it, src + static_cast<long long>(r) * TW + c, fstride, nf);
+    }
+  }
+}
+
+// the first weights of taps k0 .. k0 + kTapGroup - 1 at wpix (0 past the
+// last tap)
+__device__ __forceinline__ void load_weights(float (&wt)[kTapGroup], const float* __restrict__ w2,
+                                             long long plane, long long wpix, int k0, int taps) {
+#pragma unroll
+  for (int j = 0; j < kTapGroup; ++j) {
+    wt[j] = k0 + j < taps ? w2[static_cast<long long>(k0 + j) * plane + wpix] : 0.0f;
+  }
+}
+
+// One in-span pixel's sums over its Ka x Kb taps in the staged window win
+// of tile window w: taps k = a * Kb + b in order, their weights (tap k at
+// w2[k * plane + wpix]) loaded kTapGroup at a time, since one tap's load
+// at a time would leave the sums waiting on device memory's latency at
+// every tap.
+template <typename T>
+__device__ __forceinline__ void sum_taps(const uint4* win, int4 w, const float* __restrict__ w2,
+                                         long long plane, long long wpix, int r0, int c0, int TH,
+                                         int TW, int Ka, int Kb, int nf, float (&acc)[kFrames]) {
+#pragma unroll
+  for (int i = 0; i < kFrames; ++i) acc[i] = 0.0f;
+  float wt[kTapGroup];
+  const int taps = Ka * Kb;
+  int b = 0;
+  int row = (min(max(r0, 0), TH - 1) - w.x) * w.w;
+  for (int k0 = 0, a = 0; k0 < taps; k0 += kTapGroup) {
+    load_weights(wt, w2, plane, wpix, k0, taps);
+#pragma unroll
+    for (int j = 0; j < kTapGroup; ++j) {
+      if (k0 + j < taps) {
+        float v[kFrames];
+        load_cell<T>(win, row + min(max(c0 + b, 0), TW - 1) - w.y, v);
+#pragma unroll
+        for (int i = 0; i < kFrames; ++i) {
+          if (i < nf) acc[i] = fmaf(wt[j], v[i], acc[i]);
+        }
+        if (++b == Kb) {
+          b = 0;
+          row = (min(max(r0 + ++a, 0), TH - 1) - w.x) * w.w;
+        }
+      }
+    }
+  }
+}
+
+// The tiled masked contraction's body (P == kNone) and its share probes
+// (kTShare, kWShare, kBothShare): block b is dst tile b (row-major, n_tx
 // tiles a row of TYd x TXd pixels); tiles[b] = (r0, c0, rows, cols) is its
 // window, rows == 0 for a dead tile.  vec: T's rows are 16-byte aligned,
 // so a tile whose c0 and cols are whole chunks stages in 16-byte loads
 // (the host starts every window at a multiple of 8 columns, COL_ALIGN).
-// Dynamic shared memory: the largest window, rows * cols cells of
-// kFrames * sizeof(T) bytes (the host's ContractTiles.smem).
-template <typename T>
-__global__ void __launch_bounds__(kThreads, kTiledMinBlocks) contract_tiled_kernel(
-    const T* __restrict__ t, T* __restrict__ out, const int* __restrict__ ry0,
+// win: dynamic shared memory for the largest window, rows * cols cells of
+// kFrames * sizeof(T) bytes (the host's ContractTiles.smem).  wtile: the
+// tile whose weights wshare reads; zero: 0 at run time, T's frame stride
+// under tshare.
+template <typename T, Probe P>
+__device__ __forceinline__ void tiled_body(
+    uint4* win, const T* __restrict__ t, T* __restrict__ out, const int* __restrict__ ry0,
     const int* __restrict__ cx0, const float* __restrict__ w2, const int* __restrict__ span,
     const int4* __restrict__ tiles, int F, int TH, int TW, int Hd, int Wd, int Ka, int Kb,
-    int TYd, int TXd, int n_tx, int vec) {
-  extern __shared__ __align__(128) uint4 win[];
+    int TYd, int TXd, int n_tx, int vec, int wtile, int zero) {
+  static_assert(P == kNone || P == kTShare || P == kWShare || P == kBothShare,
+                "the tiled body's probes are the shares");
+  constexpr bool kShareT = P == kTShare || P == kBothShare;
+  constexpr bool kShareW = P == kWShare || P == kBothShare;
   constexpr int kVec = 16 / static_cast<int>(sizeof(T));
   const int ty = blockIdx.x / n_tx;
   const int y0 = ty * TYd;
@@ -392,23 +446,11 @@ __global__ void __launch_bounds__(kThreads, kTiledMinBlocks) contract_tiled_kern
   const bool chunked = vec && w.y % kVec == 0 && w.w % kVec == 0;
   for (int f0 = 0; f0 < F; f0 += kFrames) {
     const int nf = min(kFrames, F - f0);
-    const T* tf = t + f0 * fstride + static_cast<long long>(w.x) * TW + w.y;
+    // the window's first element in frame f0 (tshare: frame 0's corner)
+    const T* tf = kShareT ? t : t + f0 * fstride + static_cast<long long>(w.x) * TW + w.y;
     if (f0 > 0) __syncthreads();   // every sum of the last group has read the window
-    if (chunked) {
-      const int chunks = w.w / kVec;
-      for (int it = threadIdx.x; it < w.z * chunks; it += kThreads) {
-        const int r = it / chunks;
-        const int k = it - r * chunks;
-        stage_chunk(win, r * w.w + k * kVec, tf + static_cast<long long>(r) * TW + k * kVec,
-                    fstride, nf);
-      }
-    } else {
-      for (int it = threadIdx.x; it < w.z * w.w; it += kThreads) {
-        const int r = it / w.w;
-        const int c = it - r * w.w;
-        stage_cell(win, it, tf + static_cast<long long>(r) * TW + c, fstride, nf);
-      }
-    }
+    stage_window(win, tf, w, TW, kShareT ? static_cast<long long>(zero) : fstride, nf, chunked,
+                 threadIdx.x, kThreads);
     __syncthreads();
     for (int p = threadIdx.x; p < npix; p += kThreads) {
       const int py = p / TXd;
@@ -421,45 +463,157 @@ __global__ void __launch_bounds__(kThreads, kTiledMinBlocks) contract_tiled_kern
         for (int i = 0; i < nf; ++i) store(out + (f0 + i) * plane + pix, 0.0f);
         continue;
       }
-      const int r0 = __ldg(ry0 + dy);
-      const int c0 = __ldg(cx0 + dx);
-      float acc[kFrames];
-#pragma unroll
-      for (int i = 0; i < kFrames; ++i) acc[i] = 0.0f;
-      // taps k = a * Kb + b in order, their weights loaded kTapGroup at a
-      // time: one tap's load at a time would leave the sums waiting on
-      // device memory's latency at every tap
-      const int taps = Ka * Kb;
-      int b = 0;
-      int row = (min(max(r0, 0), TH - 1) - w.x) * w.w;
-      for (int k0 = 0, a = 0; k0 < taps; k0 += kTapGroup) {
-        float wt[kTapGroup];
-#pragma unroll
-        for (int j = 0; j < kTapGroup; ++j) {
-          wt[j] = k0 + j < taps ? w2[static_cast<long long>(k0 + j) * plane + pix] : 0.0f;
-        }
-#pragma unroll
-        for (int j = 0; j < kTapGroup; ++j) {
-          if (k0 + j < taps) {
-            float v[kFrames];
-            load_cell<T>(win, row + min(max(c0 + b, 0), TW - 1) - w.y, v);
-#pragma unroll
-            for (int i = 0; i < kFrames; ++i) {
-              if (i < nf) acc[i] = fmaf(wt[j], v[i], acc[i]);
-            }
-            if (++b == Kb) {
-              b = 0;
-              row = (min(max(r0 + ++a, 0), TH - 1) - w.x) * w.w;
-            }
-          }
-        }
+      long long wpix = pix;
+      if constexpr (kShareW) {
+        const int wy = wtile / n_tx;
+        wpix = static_cast<long long>(min(wy * TYd + py, Hd - 1)) * Wd +
+               min((wtile - wy * n_tx) * TXd + p - py * TXd, Wd - 1);
       }
+      float acc[kFrames];
+      sum_taps<T>(win, w, w2, plane, wpix, __ldg(ry0 + dy), __ldg(cx0 + dx), TH, TW, Ka, Kb, nf,
+                  acc);
       T* o = out + f0 * plane + pix;
 #pragma unroll
       for (int i = 0; i < kFrames; ++i) {
         if (i < nf) store(o + i * plane, acc[i]);
       }
     }
+  }
+}
+
+// The route's masked contraction, tiled (ell_shear.cu's aainterp_contract).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kTiledMinBlocks) contract_tiled_kernel(
+    const T* __restrict__ t, T* __restrict__ out, const int* __restrict__ ry0,
+    const int* __restrict__ cx0, const float* __restrict__ w2, const int* __restrict__ span,
+    const int4* __restrict__ tiles, int F, int TH, int TW, int Hd, int Wd, int Ka, int Kb,
+    int TYd, int TXd, int n_tx, int vec) {
+  extern __shared__ __align__(128) uint4 win[];
+  tiled_body<T, kNone>(win, t, out, ry0, cx0, w2, span, tiles, F, TH, TW, Hd, Wd, Ka, Kb, TYd,
+                       TXd, n_tx, vec, 0, 0);
+}
+
+// A share probe (P: kTShare, kWShare or kBothShare) on the tiled form.
+template <typename T, Probe P>
+__global__ void __launch_bounds__(kThreads, kTiledMinBlocks) contract_share_kernel(
+    const T* __restrict__ t, T* __restrict__ out, const int* __restrict__ ry0,
+    const int* __restrict__ cx0, const float* __restrict__ w2, const int* __restrict__ span,
+    const int4* __restrict__ tiles, int F, int TH, int TW, int Hd, int Wd, int Ka, int Kb,
+    int TYd, int TXd, int n_tx, int vec, int wtile, int zero) {
+  extern __shared__ __align__(128) uint4 win[];
+  tiled_body<T, P>(win, t, out, ry0, cx0, w2, span, tiles, F, TH, TW, Hd, Wd, Ka, Kb, TYd, TXd,
+                   n_tx, vec, wtile, zero);
+}
+
+// ---- the pipelined probe ---------------------------------------------------
+
+// the pipelined form's staging threads (the warps after the kThreads
+// summing threads) and the blocks an SM its registers are sized for (56 a
+// thread: at 40, 4 blocks an SM, it spilled over 300 bytes a thread and
+// was slower; chip_sweep.py variants pipe*, PERF.md)
+constexpr int kStageThreads = 128;
+constexpr int kPipeMinBlocks = 3;
+
+// Summing thread p's dst pixel (dy, dx) in tile `tile`: false if p lies
+// past the tile or its pixel off the plane.
+__device__ __forceinline__ bool tile_pixel(int tile, int p, int n_tx, int TYd, int TXd, int Hd,
+                                           int Wd, int& dy, int& dx) {
+  if (p >= TYd * TXd) return false;
+  const int ty = tile / n_tx;
+  const int py = p / TXd;
+  dy = ty * TYd + py;
+  dx = (tile - ty * n_tx) * TXd + p - py * TXd;
+  return dy < Hd && dx < Wd;
+}
+
+// The pipelined probe: the tiled form's function (the host checks TYd *
+// TXd <= kThreads, a pixel a summing thread) on a persistent grid.
+// order: the tiles, the n_live live ones first (the host puts those with
+// the most in-span pixels first, so that the blocks' shares of the sums
+// come out even), then the dead ones.  Block b takes live tiles order[b],
+// order[b + gridDim.x], ...; its steps are their frame groups in turn.
+// Step s + 1 is staged into buffer (s + 1) & 1 (buf_units 16-byte units
+// each, 128-byte aligned) while step s is summed from buffer s & 1.  The
+// summing threads write the zeros of dead tiles order[n_live + b], ...
+// while step 0 is staged.
+template <typename T>
+__global__ void __launch_bounds__(kThreads + kStageThreads, kPipeMinBlocks)
+    contract_pipelined_kernel(const T* __restrict__ t, T* __restrict__ out,
+                              const int* __restrict__ ry0, const int* __restrict__ cx0,
+                              const float* __restrict__ w2, const int* __restrict__ span,
+                              const int4* __restrict__ tiles, const int* __restrict__ order,
+                              int F, int TH, int TW, int Hd, int Wd, int Ka, int Kb, int TYd,
+                              int TXd, int n_tx, int vec, int n_tiles, int n_live,
+                              int buf_units) {
+  extern __shared__ __align__(128) uint4 bufs[];
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  const int grid = gridDim.x;
+  const long long plane = static_cast<long long>(Hd) * Wd;
+  const long long fstride = static_cast<long long>(TH) * TW;
+  const bool stager = threadIdx.x >= kThreads;
+  const int p = threadIdx.x;
+  // step s: live tile order[i], frames from f0
+  int i = blockIdx.x;
+  int f0 = 0;
+  int tile = i < n_live ? __ldg(order + i) : 0;
+  int4 w = i < n_live ? __ldg(tiles + tile) : make_int4(0, 0, 0, 0);
+  if (stager) {
+    if (i < n_live) {
+      stage_window(bufs, t + static_cast<long long>(w.x) * TW + w.y, w, TW, fstride,
+                   min(kFrames, F), vec && w.y % kVec == 0 && w.w % kVec == 0, p - kThreads,
+                   kStageThreads);
+    }
+  } else {
+    int dy, dx;
+    for (int k = n_live + blockIdx.x; k < n_tiles; k += grid) {
+      if (!tile_pixel(__ldg(order + k), p, n_tx, TYd, TXd, Hd, Wd, dy, dx)) continue;
+      const long long pix = static_cast<long long>(dy) * Wd + dx;
+      for (int f = 0; f < F; ++f) store(out + f * plane + pix, 0.0f);
+    }
+  }
+  __syncthreads();
+  for (int s = 0; i < n_live; ++s) {
+    int i_n = i, f0_n = f0 + kFrames;
+    if (f0_n >= F) {
+      f0_n = 0;
+      i_n += grid;
+    }
+    const bool more = i_n < n_live;
+    const int tile_n = more ? __ldg(order + i_n) : 0;
+    const int4 w_n = more ? __ldg(tiles + tile_n) : make_int4(0, 0, 0, 0);
+    if (stager) {
+      if (more) {
+        stage_window(bufs + ((s + 1) & 1) * buf_units,
+                     t + f0_n * fstride + static_cast<long long>(w_n.x) * TW + w_n.y, w_n, TW,
+                     fstride, min(kFrames, F - f0_n),
+                     vec && w_n.y % kVec == 0 && w_n.w % kVec == 0, p - kThreads,
+                     kStageThreads);
+      }
+    } else {
+      int dy, dx;
+      if (tile_pixel(tile, p, n_tx, TYd, TXd, Hd, Wd, dy, dx)) {
+        const int nf = min(kFrames, F - f0);
+        const long long pix = static_cast<long long>(dy) * Wd + dx;
+        T* o = out + f0 * plane + pix;
+        const int2 sp = __ldg(reinterpret_cast<const int2*>(span) + dy);
+        if (dx < sp.x || dx >= sp.y) {
+          for (int k = 0; k < nf; ++k) store(o + k * plane, 0.0f);
+        } else {
+          float acc[kFrames];
+          sum_taps<T>(bufs + (s & 1) * buf_units, w, w2, plane, pix, __ldg(ry0 + dy),
+                      __ldg(cx0 + dx), TH, TW, Ka, Kb, nf, acc);
+#pragma unroll
+          for (int k = 0; k < kFrames; ++k) {
+            if (k < nf) store(o + k * plane, acc[k]);
+          }
+        }
+      }
+    }
+    i = i_n;
+    tile = tile_n;
+    f0 = f0_n;
+    w = w_n;
+    __syncthreads();   // step s + 1 staged; every sum of step s has read its buffer
   }
 }
 

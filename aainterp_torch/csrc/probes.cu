@@ -41,10 +41,13 @@
 // The earlier form launched one 128-thread block per 8 KB part, 7.6 waves
 // at 4K, every byte through registers (chip_sweep.py cells c_*, PERF.md).
 //
-// The contraction probes are csrc/contract.cuh's direct form under one
-// probe mode each (noweight, tshare, wshare, bothshare, pipelined); that
-// header says what each removes and why these are the H100 meanings of
-// the TPU probes.
+// The contraction probes are csrc/contract.cuh's forms under one probe
+// mode each: noweight on the direct form; tshare, wshare and bothshare on
+// the tiled form (contract_share_kernel, a block a dst tile); pipelined
+// on a persistent grid of the tiled form (contract_pipelined_kernel).  The
+// tiled ones read the route's tile table as ell_shear.cu's
+// aainterp_contract does.  That header says what each removes and why
+// these are the H100 meanings of the TPU probes.
 // What bounds them: bytes, the streams each mode still reads (PERF.md).
 //
 // Plain C interface for ctypes; each launch goes on the caller's stream and
@@ -255,36 +258,110 @@ int launch_copy(const void* src, void* dst, int F, int H, int W, int TY, cudaStr
   return static_cast<int>(cudaGetLastError());
 }
 
+// the contraction probes' arguments: aainterp_contract's, plus the tile
+// whose weights wshare reads and the pipelined form's tile order
+struct ProbeArgs {
+  const void* t;
+  void* out;
+  const int* ry0;
+  const int* cx0;
+  const float* w2;
+  const int* span;
+  const int4* tiles;
+  const int* order;
+  int F, TH, TW, Hd, Wd, Ka, Kb, TYd, TXd, smem, wtile, n_live;
+};
+
+template <typename T>
+int launch_noweight(const ProbeArgs& a, cudaStream_t st) {
+  dim3 grid;
+  if (!contract::row_grid(a.Hd, a.Wd, &grid)) return static_cast<int>(cudaErrorInvalidValue);
+  contract::contract_noweight_kernel<T><<<grid, contract::kThreads, 0, st>>>(
+      static_cast<const T*>(a.t), static_cast<T*>(a.out), a.ry0, a.cx0, a.F, a.TH, a.TW, a.Hd,
+      a.Wd, a.Ka, a.Kb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dst tiles of TYd x TXd (n_tx a row); false if they overflow an int
+inline bool tile_count(const ProbeArgs& a, int* n_tx, int* n_tiles) {
+  const long long nx = (a.Wd + a.TXd - 1) / a.TXd;
+  const long long n = nx * ((a.Hd + a.TYd - 1) / a.TYd);
+  if (n > INT_MAX || static_cast<long long>(a.TYd) * a.TXd > INT_MAX) return false;
+  *n_tx = static_cast<int>(nx);
+  *n_tiles = static_cast<int>(n);
+  return true;
+}
+
+// 16-byte loads where every row of every frame starts 16-byte aligned
+template <typename T>
+int aligned_rows(const ProbeArgs& a) {
+  return reinterpret_cast<uintptr_t>(a.t) % 16 == 0 &&
+         (static_cast<long long>(a.TW) * sizeof(T)) % 16 == 0;
+}
+
+// a share probe: a block a dst tile, a.smem bytes of dynamic shared memory
 template <typename T, contract::Probe P>
-int launch_probe(const void* t, void* out, const int* r, const int* c, const float* w,
-                 const int* sp, int F, int TH, int TW, int Hd, int Wd, int Ka, int Kb,
-                 dim3 grid, cudaStream_t st) {
-  contract::contract_probe_kernel<T, P><<<grid, contract::kThreads, 0, st>>>(
-      static_cast<const T*>(t), static_cast<T*>(out), r, c, w, sp, F, TH, TW, Hd, Wd, Ka, Kb,
+int launch_share(const ProbeArgs& a, cudaStream_t st) {
+  int n_tx, n_tiles;
+  if (!tile_count(a, &n_tx, &n_tiles) || a.wtile < 0 || a.wtile >= n_tiles) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kern = contract::contract_share_kernel<T, P>;
+  static std::atomic<int> opted_in[stage::kMaxDevices];  // kern's limit per device
+  if (const int e = stage::opt_in(reinterpret_cast<const void*>(kern), a.smem, opted_in)) return e;
+  kern<<<static_cast<unsigned>(n_tiles), contract::kThreads, static_cast<size_t>(a.smem), st>>>(
+      static_cast<const T*>(a.t), static_cast<T*>(a.out), a.ry0, a.cx0, a.w2, a.span, a.tiles,
+      a.F, a.TH, a.TW, a.Hd, a.Wd, a.Ka, a.Kb, a.TYd, a.TXd, n_tx, aligned_rows<T>(a), a.wtile,
       0);
   return static_cast<int>(cudaGetLastError());
 }
 
+// the pipelined probe: two windows of a.smem bytes a block, as many blocks
+// an SM as they and the registers allow, on every SM (fewer where there are
+// fewer tiles)
 template <typename T>
-int probe(int mode, const void* t, void* out, const int* r, const int* c, const float* w,
-          const int* sp, int F, int TH, int TW, int Hd, int Wd, int Ka, int Kb, dim3 grid,
-          cudaStream_t st) {
+int launch_pipelined(const ProbeArgs& a, cudaStream_t st) {
+  int n_tx, n_tiles;
+  if (!tile_count(a, &n_tx, &n_tiles) || a.TYd * a.TXd > contract::kThreads || a.smem % 128 ||
+      a.order == nullptr || a.n_live < 0 || a.n_live > n_tiles) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  constexpr int threads = contract::kThreads + contract::kStageThreads;
+  const long long smem = 2LL * a.smem;
+  auto kern = contract::contract_pipelined_kernel<T>;
+  static std::atomic<int> opted_in[stage::kMaxDevices];  // kern's limit per device
+  if (const int e = stage::opt_in(reinterpret_cast<const void*>(kern), smem, opted_in)) return e;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+                                                      static_cast<size_t>(smem));
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (per_sm <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long blocks = std::min(static_cast<long long>(n_tiles),
+                                    static_cast<long long>(sms) * per_sm);
+  kern<<<static_cast<unsigned>(blocks), threads, static_cast<size_t>(smem), st>>>(
+      static_cast<const T*>(a.t), static_cast<T*>(a.out), a.ry0, a.cx0, a.w2, a.span, a.tiles,
+      a.order, a.F, a.TH, a.TW, a.Hd, a.Wd, a.Ka, a.Kb, a.TYd, a.TXd, n_tx, aligned_rows<T>(a),
+      n_tiles, a.n_live, a.smem / 16);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int probe(int mode, const ProbeArgs& a, cudaStream_t st) {
   switch (mode) {
     case contract::kNoWeight:
-      return launch_probe<T, contract::kNoWeight>(t, out, r, c, w, sp, F, TH, TW, Hd, Wd, Ka,
-                                                  Kb, grid, st);
+      return launch_noweight<T>(a, st);
     case contract::kTShare:
-      return launch_probe<T, contract::kTShare>(t, out, r, c, w, sp, F, TH, TW, Hd, Wd, Ka, Kb,
-                                                grid, st);
+      return launch_share<T, contract::kTShare>(a, st);
     case contract::kWShare:
-      return launch_probe<T, contract::kWShare>(t, out, r, c, w, sp, F, TH, TW, Hd, Wd, Ka, Kb,
-                                                grid, st);
+      return launch_share<T, contract::kWShare>(a, st);
     case contract::kBothShare:
-      return launch_probe<T, contract::kBothShare>(t, out, r, c, w, sp, F, TH, TW, Hd, Wd, Ka,
-                                                   Kb, grid, st);
+      return launch_share<T, contract::kBothShare>(a, st);
     case contract::kPipelined:
-      return launch_probe<T, contract::kPipelined>(t, out, r, c, w, sp, F, TH, TW, Hd, Wd, Ka,
-                                                   Kb, grid, st);
+      return launch_pipelined<T>(a, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -311,29 +388,32 @@ extern "C" int aainterp_copy_rows(const void* src, void* dst, int F, int H, int 
 
 // mode: contract::Probe, 1 = noweight, 2 = tshare, 3 = wshare, 4 = bothshare,
 // 5 = pipelined; dtype_code: 0 = float32, 1 = bfloat16 (T and out share it).
-// The arguments are aainterp_contract's (csrc/ell_shear.cu): every mode but
-// noweight skips the dead pixels outside span.
+// The arguments are aainterp_contract's (csrc/ell_shear.cu): span (Hd, 2)
+// int32, each dst row's live columns; tiles (n_ty * n_tx, 4) int32, each
+// TYd x TXd dst tile's T window, rows 0 for a dead tile; smem the bytes of
+// the largest window; wtile the tile whose weights wshare and bothshare
+// read; order (n_ty * n_tx,) int32, the tiles in the order the pipelined
+// form deals them out, its n_live live tiles first (the other modes do not
+// read it: it may be null).  noweight (the unmasked direct form) reads
+// neither span nor tiles: they may be null, and TYd, TXd, smem and wtile
+// are not read.
 extern "C" int aainterp_contract_probe(const void* t, void* out, const void* ry0,
                                        const void* cx0, const void* w2, const void* span,
-                                       int F, int TH, int TW, int Hd, int Wd, int Ka, int Kb,
-                                       int mode, int dtype_code, void* stream) {
-  dim3 grid;
-  if (F <= 0 || TH <= 0 || TW <= 0 || Ka <= 0 || Kb <= 0 ||
-      (span == nullptr && mode != contract::kNoWeight) ||
-      !contract::row_grid(Hd, Wd, &grid)) {
+                                       const void* tiles, const void* order, int F, int TH,
+                                       int TW, int Hd, int Wd, int Ka, int Kb, int TYd, int TXd,
+                                       int smem, int wtile, int n_live, int mode,
+                                       int dtype_code, void* stream) {
+  const bool tiled = mode != contract::kNoWeight;
+  if (F <= 0 || TH <= 0 || TW <= 0 || Hd <= 0 || Wd <= 0 || Ka <= 0 || Kb <= 0 ||
+      (tiled && (span == nullptr || tiles == nullptr || TYd <= 0 || TXd <= 0 || smem < 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const ProbeArgs a{t, out, static_cast<const int*>(ry0), static_cast<const int*>(cx0),
+                    static_cast<const float*>(w2), static_cast<const int*>(span),
+                    static_cast<const int4*>(tiles), static_cast<const int*>(order), F, TH,
+                    TW, Hd, Wd, Ka, Kb, TYd, TXd, smem, wtile, n_live};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* r = static_cast<const int*>(ry0);
-  const int* c = static_cast<const int*>(cx0);
-  const float* w = static_cast<const float*>(w2);
-  const int* sp = static_cast<const int*>(span);
-  if (dtype_code == 0) {
-    return probe<float>(mode, t, out, r, c, w, sp, F, TH, TW, Hd, Wd, Ka, Kb, grid, st);
-  }
-  if (dtype_code == 1) {
-    return probe<__nv_bfloat16>(mode, t, out, r, c, w, sp, F, TH, TW, Hd, Wd, Ka, Kb, grid,
-                                st);
-  }
+  if (dtype_code == 0) return probe<float>(mode, a, st);
+  if (dtype_code == 1) return probe<__nv_bfloat16>(mode, a, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -378,7 +378,8 @@ class ShearKernelPlan:
     def tables(self, device: torch.device,
                pinned: bool = False) -> Dict[str, torch.Tensor]:
         """The plan's tables on ``device``, uploaded once and kept; a
-        form's tile windows join them as ``win_<form>`` (``form_windows``).
+        form's tile windows join them as ``win_<form>`` (``form_windows``),
+        the contraction's as ``win_contract<elem>`` (``contract_windows``).
         ``pinned``: see ``utils.device.upload``."""
         device = torch.device(device)
         hit = self.dev.get(device)
@@ -395,6 +396,18 @@ class ShearKernelPlan:
         key = f"win_{form}"
         if key not in tabs:
             tabs[key] = torch.from_numpy(self.form_tiles(form).win).to(device)
+        return tabs[key]
+
+    def contract_windows(self, elem: int,
+                         device: torch.device) -> torch.Tensor:
+        """The tiled contraction's tile windows for frames of ``elem``
+        bytes on ``device``, (tiles, 4) int32, uploaded at the first call;
+        the plan must have tiles (``contract_plan(elem)`` not None)."""
+        tabs = self.tables(device)
+        key = f"win_contract{elem}"
+        if key not in tabs:
+            tabs[key] = torch.from_numpy(self.contract_plan(elem).win).to(
+                device)
         return tabs[key]
 
 
@@ -1113,10 +1126,8 @@ def _contract(name: str, t: torch.Tensor, plan: ShearKernelPlan,
     tiles = plan.contract_plan(t.element_size()) if masked else None
     if tiles is not None:
         fn = lib.aainterp_contract
-        key = f"win_contract{t.element_size()}"   # uploaded once
-        if key not in tabs:
-            tabs[key] = torch.from_numpy(tiles.win).to(t.device)
-        ptrs += [tabs["span"].data_ptr(), tabs[key].data_ptr()]
+        ptrs += [tabs["span"].data_ptr(),
+                 plan.contract_windows(t.element_size(), t.device).data_ptr()]
         dims += [tiles.TYd, tiles.TXd, tiles.smem(t.element_size())]
         what += (f", tiles {tiles.TYd}x{tiles.TXd}, "
                  f"{tiles.smem(t.element_size())} bytes of shared memory")

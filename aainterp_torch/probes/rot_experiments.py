@@ -4,33 +4,49 @@ counterpart of ``benchmarks/rot_experiments.py``.
 The route is two kernels (``ops/cuda_shear.py``): the fused shear, which
 writes the sheared plane T straight from the frames, and the window
 contraction with its dead-pixel skip (0 outside each dst row's span of
-live columns: JAX's masked contraction).  The contraction's probe modes
-(``csrc/contract.cuh`` under ``csrc/probes.cu``, each the contraction's
-direct form, one thread per pixel gathering its taps from device memory,
-with one thing changed) split its time between the streams it reads;
-like JAX's, the share and pipelined modes skip dead pixels and noweight
-does not:
+live columns: JAX's masked contraction), tiled: one block per dst tile
+on the tile's T window, staged in shared memory from the route's tile
+table (``contract_tiled_kernel``).  The contraction's probe modes
+(``csrc/contract.cuh`` under ``csrc/probes.cu``) each change one thing in
+the kernel they split and so split its time between the streams it
+reads:
 
-* ``noweight`` — ``out = sum_ab T window``: no weight load, no multiply
-  (``_build_contract_noweight``, rot_experiments.py:130);
-* ``wshare`` — the weights of dst row 0, ``w2[ab, 0, dx]``, for every row:
-  no weight stream from device memory (``_build_contract_share``, :247);
-* ``tshare`` — T of frame 0 in dst row 0's window, ``T[0, ry0[0]+a,
-  cx0[dx]+b]``, for every row and frame: no T stream (the same);
+* ``noweight`` — the unmasked direct form (``contract_unmasked_kernel``:
+  a thread a pixel, its taps gathered from device memory) with ``out =
+  sum_ab T window``: no weight load, no multiply
+  (``_build_contract_noweight``, rot_experiments.py:130); unmasked, as
+  JAX's;
+* ``tshare`` — the tiled kernel with every live tile's window staged from
+  frame 0 at T's origin, ``T[0, 0:rows, 0:cols]``, for every frame: no T
+  stream from device memory, the same output for every frame
+  (``_build_contract_share``, :247);
+* ``wshare`` — the tiled kernel with every tile reading the weights of
+  the first live tile (``shared_tile``) at the pixel's position within
+  it: no weight stream (the same);
 * ``bothshare`` — both;
-* ``pipelined`` — the production function and sum order with tap k+1's
-  operands loaded before tap k's FMAs: bit-equal to ``contract``
+* ``pipelined`` — the tiled kernel's function and sum order on a
+  persistent grid, each block staging its next tile's window while it
+  sums the current one, the live tiles dealt out to the blocks in
+  ``pipeline_order``: bit-equal to ``contract_kernel``
   (``_build_contract_pipelined``, :392).
+
+Like JAX's, every mode but noweight writes 0 and reads nothing for dead
+tiles and for pixels outside their row's span.  The tiled modes read the
+route's tile table (``plan.contract_plan``); a plan without one (windows
+beyond shared memory, where the route takes the direct form) raises
+``RuntimeError`` naming the mode.
 
 ``contract_probe_kernel(t, plan, mode)`` launches one (a CPU tensor takes
 ``contract_probe_plain``), counted per mode in ``LAUNCHES``; the plain
-versions are ``ops.cuda_shear.contract_plain`` with those substitutions.
+versions are ``ops.cuda_shear.contract_plain`` with those substitutions,
+each tile window indexed as ``contract_tiled_plain`` indexes it and each
+tap a fused multiply-add (``fma32``) as in the kernels.
 
 ``EXPS`` are the JAX file's experiments under its names: ``full`` (the
 route's two kernels), ``shears`` (the fused shear, with the single forms
 beside it), ``contract`` (the contraction without the skip,
 ``contract_unmasked_kernel``), ``contract_masked`` (the route's
-contraction, ``contract_kernel``), and the five probes.
+contraction, ``contract_kernel``, tiled), and the five probes.
 Each builds the flagship's plan (``_plan``: 2048^2 at 1.0 -> 0.5, 30
 degrees about the center, exact; K 6, Ka x Kb 5 x 5), makes seeded
 inputs on the device and times the kernels with ``harness.measure``.
@@ -56,8 +72,9 @@ import torch
 from .. import _build
 from ..grids import make_grid_spec
 from ..ops import cuda_shear
+from ..ops.apply import fma32
 from ..ops.weights import ell_operator
-from ..utils.device import Device, target
+from ..utils.device import SMEM_LIMIT, Device, target
 from . import harness
 
 # probe mode -> the kernel's mode code (contract.cuh's Probe)
@@ -75,39 +92,134 @@ def _shares(mode: str):
     return mode in ("tshare", "bothshare"), mode in ("wshare", "bothshare")
 
 
+def probe_tiles(plan: cuda_shear.ShearKernelPlan, mode: str,
+                elem: int) -> cuda_shear.ContractTiles:
+    """The route's tile table for frames of ``elem`` bytes, which the
+    tiled probe ``mode`` reads; RuntimeError naming the mode where the
+    plan has none (its windows exceed shared memory, and the route takes
+    the direct form, which no tiled probe splits)."""
+    tiles = plan.contract_plan(elem)
+    if tiles is None:
+        raise RuntimeError(
+            f"contract probe {mode}: the plan has no contraction tiles for "
+            f"{elem}-byte frames (windows beyond shared memory; the route "
+            "takes the direct form there)")
+    return tiles
+
+
+def shared_tile(tiles: cuda_shear.ContractTiles) -> int:
+    """The tile whose weights wshare and bothshare read: the first live
+    tile in row-major order (tile 0 is a dead corner at the rotated
+    flagship, all of whose weights are 0), or 0 where none is live."""
+    live = np.flatnonzero(tiles.win[:, 2] > 0)
+    return int(live[0]) if live.size else 0
+
+
+def pipeline_order(plan: cuda_shear.ShearKernelPlan,
+                   tiles: cuda_shear.ContractTiles):
+    """(order, n_live): the tiles in the order the pipelined form deals
+    them out to its blocks in turn, (tiles,) int32: the n_live live ones
+    first, most in-span pixels first (ties in tile order), so that the
+    blocks' shares of the sums come out even, then the dead ones."""
+    TYd, TXd = tiles.TYd, tiles.TXd
+    n_ty, n_tx = -(-plan.Hd // TYd), -(-plan.Wd // TXd)
+    cols = np.arange(plan.Wd)[None, :]
+    live = np.zeros((n_ty * TYd, n_tx * TXd), bool)
+    live[:plan.Hd, :plan.Wd] = ((cols >= plan.span[:, :1])
+                                & (cols < plan.span[:, 1:]))
+    work = live.reshape(n_ty, TYd, n_tx, TXd).sum(axis=(1, 3)).reshape(-1)
+    is_live = tiles.win[:, 2] > 0
+    lv = np.flatnonzero(is_live)
+    order = np.concatenate([lv[np.argsort(-work[lv], kind="stable")],
+                            np.flatnonzero(~is_live)])
+    return order.astype(np.int32), len(lv)
+
+
+def _window_origins(plan, tiles, elem: int, device):
+    """(r0, c0), (Hd, Wd) int64: the origin of each dst pixel's tile
+    window."""
+    win = plan.contract_windows(elem, device).to(torch.int64)
+    n_tx = -(-plan.Wd // tiles.TXd)
+    tile = ((torch.arange(plan.Hd, device=device) // tiles.TYd)[:, None]
+            * n_tx + (torch.arange(plan.Wd, device=device)
+                      // tiles.TXd)[None, :])
+    return win[tile, 0], win[tile, 1]
+
+
+def _shared_weights(plan, tiles, device):
+    """(rows (Hd,), cols (Wd,)) int64 of the weights wshare reads at each
+    dst pixel: ``shared_tile``'s pixel at the same position within its
+    tile, clamped to the plane (made on ``device``: no host copy, so a
+    CUDA graph can capture it)."""
+    n_tx = -(-plan.Wd // tiles.TXd)
+    wt = shared_tile(tiles)
+    y0, x0 = wt // n_tx * tiles.TYd, wt % n_tx * tiles.TXd
+    rows = torch.arange(plan.Hd, device=device) % tiles.TYd + y0
+    cols = torch.arange(plan.Wd, device=device) % tiles.TXd + x0
+    return rows.clamp(max=plan.Hd - 1), cols.clamp(max=plan.Wd - 1)
+
+
 def contract_probe_plain(t: torch.Tensor, plan: cuda_shear.ShearKernelPlan,
                          mode: str, *,
                          out_dtype: Optional[torch.dtype] = None
                          ) -> torch.Tensor:
     """The probe ``mode``'s function in plain torch, f32 sums (taps
     a-major, then b) cast to ``out_dtype`` (default: T's dtype for
-    bf16/f32, else f32): ``contract_plain`` with T of frame 0 in dst row
-    0's window (tshare, bothshare), the weights of dst row 0 (wshare,
-    bothshare), no weights (noweight), or as it is (pipelined); every mode
-    but noweight is 0 outside each dst row's span, as the route's
-    contraction is."""
+    bf16/f32, else f32).  noweight: the unmasked sums of the T windows,
+    no weights.  The tiled modes (RuntimeError without the plan's tiles,
+    ``probe_tiles``): ``contract_plain(fused=True)``, 0 outside each dst
+    row's span, with each tile's window read from frame 0 at T's origin,
+    ``T[0, lr, lc]`` at the tap's window-local row and column (tshare,
+    bothshare: the same for every frame), and the weights of
+    ``shared_tile`` at the pixel's position within its tile (wshare,
+    bothshare); pipelined: as it is."""
     share_t, share_w = _shares(mode)
-    if mode == "pipelined":
-        return cuda_shear.contract_plain(t, plan, out_dtype=out_dtype)
     cuda_shear._check_frames(t, (plan.TH, plan.TW), "T")
-    tabs = plan.tables(t.device)
+    out_dtype = out_dtype or cuda_shear._out_dtype(t.dtype)
+    F, dev = t.shape[0], t.device
+    tabs = plan.tables(dev)
     ry0 = tabs["ry0"].to(torch.int64)
     cx0 = tabs["cx0"].to(torch.int64)
-    src, ry0 = (t[:1], ry0[:1]) if share_t else (t, ry0)
-    acc = torch.zeros((t.shape[0], plan.Hd, plan.Wd), dtype=torch.float32,
-                      device=t.device)
+    if mode == "noweight":
+        acc = torch.zeros((F, plan.Hd, plan.Wd), dtype=torch.float32,
+                          device=dev)
+        for a in range(plan.Ka):
+            rows = t.index_select(1, (ry0 + a).clamp(0, plan.TH - 1))
+            for b in range(plan.Kb):
+                acc = acc + rows.index_select(
+                    2, (cx0 + b).clamp(0, plan.TW - 1)).to(torch.float32)
+        return acc.to(out_dtype)
+    elem = t.element_size()
+    tiles = probe_tiles(plan, mode, elem)
+    if mode == "pipelined":
+        return cuda_shear.contract_plain(t, plan, out_dtype=out_dtype,
+                                         fused=True)
+    if share_t:
+        r0, c0 = _window_origins(plan, tiles, elem, dev)
+        corner = t[0].reshape(-1)
+    if share_w:
+        wr, wc = _shared_weights(plan, tiles, dev)
+    acc = torch.zeros((1 if share_t else F, plan.Hd, plan.Wd),
+                      dtype=torch.float32, device=dev)
     for a in range(plan.Ka):
-        rows = src.index_select(1, (ry0 + a).clamp(0, plan.TH - 1))
+        rows = (ry0 + a).clamp(0, plan.TH - 1)
+        if not share_t:
+            t_rows = t.index_select(1, rows)
         for b in range(plan.Kb):
-            vals = rows.index_select(2, (cx0 + b).clamp(0, plan.TW - 1))
-            if mode == "noweight":
-                acc = acc + vals.to(torch.float32)
-                continue
+            cols = (cx0 + b).clamp(0, plan.TW - 1)
+            if share_t:
+                # the window-local (row, col) in frame 0's corner; a pixel
+                # outside its span (0 below) may fall off the corner
+                at = ((rows[:, None] - r0) * plan.TW + cols[None, :] - c0)
+                vals = corner[at.clamp(0, corner.numel() - 1)][None]
+            else:
+                vals = t_rows.index_select(2, cols)
             w = tabs["w2"][a * plan.Kb + b]
-            acc = acc + (w[:1] if share_w else w) * vals.to(torch.float32)
-    if mode != "noweight":
-        acc = torch.where(cuda_shear.live_mask(plan, t.device), acc, 0.0)
-    return acc.to(out_dtype or cuda_shear._out_dtype(t.dtype))
+            if share_w:
+                w = w.index_select(0, wr).index_select(1, wc)
+            acc = fma32(w, vals.to(torch.float32), acc)
+    acc = torch.where(cuda_shear.live_mask(plan, dev), acc, 0.0)
+    return acc.to(out_dtype).expand(F, -1, -1).contiguous()
 
 
 def contract_probe_kernel(t: torch.Tensor, plan: cuda_shear.ShearKernelPlan,
@@ -116,7 +228,11 @@ def contract_probe_kernel(t: torch.Tensor, plan: cuda_shear.ShearKernelPlan,
     """The probe ``mode`` on the CUDA kernel, (F, TH, TW) -> (F, Hd, Wd)
     in T's dtype (bf16 or f32); a CPU tensor takes
     ``contract_probe_plain``.  ``out`` may be given (any contents: every
-    element is written)."""
+    element is written).  The tiled modes raise RuntimeError where the
+    plan has no tiles (``probe_tiles``), and pipelined where its two
+    windows exceed the card's shared memory; the launch's own refusal
+    (pipelined: a tile of more pixels than the kernel's summing threads)
+    raises RuntimeError too."""
     _shares(mode)
     cuda_shear._check_frames(t, (plan.TH, plan.TW), "T")
     shape = (t.shape[0], plan.Hd, plan.Wd)
@@ -125,70 +241,94 @@ def contract_probe_kernel(t: torch.Tensor, plan: cuda_shear.ShearKernelPlan,
         return y if out is None else cuda_shear._out_buffer(
             out, shape, y).copy_(y)
     cuda_shear._cuda_frames(t, "T")
-    out = cuda_shear._out_buffer(out, shape, t)
+    elem = t.element_size()
     tabs = plan.tables(t.device)
+    # tiles, order, TYd, TXd, smem, wtile, n_live
+    tiled = (0, 0, 0, 0, 0, 0, 0)
+    if mode != "noweight":
+        tiles = probe_tiles(plan, mode, elem)
+        smem = tiles.smem(elem)
+        if mode == "pipelined" and 2 * smem > SMEM_LIMIT:
+            raise RuntimeError(
+                f"contract probe pipelined: two windows of {smem} bytes "
+                f"(limit {SMEM_LIMIT}) do not fit")
+        order, n_live = 0, 0
+        if mode == "pipelined":
+            key = f"order_contract{elem}"        # uploaded once
+            if key not in tabs:
+                tabs[key] = torch.from_numpy(
+                    pipeline_order(plan, tiles)[0]).to(t.device)
+            order = tabs[key].data_ptr()
+            n_live = int((tiles.win[:, 2] > 0).sum())
+        tiled = (plan.contract_windows(elem, t.device).data_ptr(), order,
+                 tiles.TYd, tiles.TXd, smem, shared_tile(tiles), n_live)
+    out = cuda_shear._out_buffer(out, shape, t)
     fn = _build.load(_build.PROBES).aainterp_contract_probe
     with torch.cuda.device(t.device):
         stream = torch.cuda.current_stream(t.device).cuda_stream
         rc = fn(t.data_ptr(), out.data_ptr(), tabs["ry0"].data_ptr(),
                 tabs["cx0"].data_ptr(), tabs["w2"].data_ptr(),
-                tabs["span"].data_ptr(), t.shape[0],
+                tabs["span"].data_ptr(), *tiled[:2], t.shape[0],
                 plan.TH, plan.TW, plan.Hd, plan.Wd, plan.Ka, plan.Kb,
-                MODES[mode], cuda_shear._DTYPE_CODES[t.dtype], stream)
+                *tiled[2:], MODES[mode], cuda_shear._DTYPE_CODES[t.dtype],
+                stream)
     if rc != 0:
         raise RuntimeError(f"contract probe {mode} launch failed: CUDA error "
                            f"{rc} (F={t.shape[0]}, TH={plan.TH}, "
-                           f"TW={plan.TW}, Hd={plan.Hd}, Wd={plan.Wd})")
+                           f"TW={plan.TW}, Hd={plan.Hd}, Wd={plan.Wd}, "
+                           f"tiles {tiled[2]}x{tiled[3]}, {tiled[4]} bytes "
+                           "of shared memory)")
     LAUNCHES[mode] += 1
     return out
 
 
 def _live(plan: cuda_shear.ShearKernelPlan):
-    """(live dst pixels, live columns, T elements their windows read) of
-    the dead-pixel skip: the pixels inside their rows' spans, the columns
-    inside any span, and the T elements the windows of the live pixels
-    touch."""
+    """(live dst pixels, T elements their windows read) of the dead-pixel
+    skip: the pixels inside their rows' spans, and the T elements the
+    windows of those pixels touch."""
     span = plan.span.astype(np.int64)
     width = span[:, 1] - span[:, 0]
-    rows = np.nonzero(width > 0)[0]
-    cols = np.zeros(plan.Wd, bool)
     touched = np.zeros((plan.TH, plan.TW), bool)
-    for dy in rows:
+    for dy in np.nonzero(width > 0)[0]:
         lo, hi = span[dy]
-        cols[lo:hi] = True
         c = np.clip(plan.cx0[lo:hi, None] + np.arange(plan.Kb), 0,
                     plan.TW - 1)
         r = np.clip(plan.ry0[dy] + np.arange(plan.Ka), 0, plan.TH - 1)
         touched[np.ix_(r, np.unique(c))] = True
-    return int(width.sum()), int(cols.sum()), int(touched.sum())
+    return int(width.sum()), int(touched.sum())
 
 
 def traffic(plan: cuda_shear.ShearKernelPlan, batch: int, elem: int,
             what: str) -> tuple:
     """(bytes, operations) of one batch of ``what`` (an experiment, a
     probe mode, or a shear form): each input read once and each output
-    written once, as far as this plan's data needs it (a shared T is
-    frame 0's Ka rows; shared weights are one dst row; the dead-pixel
+    written once, as far as this plan's data needs it (the dead-pixel
     skip reads the weights of the live pixels and the T elements of their
-    windows, and does their taps only); 2 operations per weighted tap, 1
-    per unweighted one."""
+    windows, and does their taps only; a shared T is frame 0's largest
+    tile window, ``tiles.cells`` elements; shared weights are one tile's,
+    Ka * Kb * TYd * TXd floats); 2 operations per weighted tap, 1 per
+    unweighted one."""
     p = plan
-    n_live, c_live, t_live = _live(p)
+    n_live, t_live = _live(p)
     taps = p.Ka * p.Kb
     t_b = batch * p.TH * p.TW * elem
     t_lb = batch * t_live * elem                 # T the live windows read
-    t_rows = p.Ka * p.TW * elem                  # frame 0, Ka rows of T
     q_b = batch * p.qH * p.qW * elem
     s_b = batch * p.TH * p.qW * elem
     w_b = taps * p.Hd * p.Wd * 4
     w_lb = taps * n_live * 4                     # the live pixels' weights
-    w_row = taps * c_live * 4                    # one dst row, live columns
     o_b = batch * p.Hd * p.Wd * elem
     idx = (p.Hd + p.Wd) * 4                       # ry0, cx0
     sp = p.Hd * 8                                 # span
     ops = batch * p.Hd * p.Wd * taps
     ops_l = batch * n_live * taps
     masked = (t_lb + w_lb + o_b + idx + sp, 2 * ops_l)
+    if what in ("tshare", "wshare", "bothshare"):
+        tiles = probe_tiles(p, what, elem)
+        share_t, share_w = _shares(what)
+        t_read = tiles.cells * elem if share_t else t_lb
+        w_read = taps * tiles.TYd * tiles.TXd * 4 if share_w else w_lb
+        return (t_read + w_read + o_b + idx + sp, 2 * ops_l)
     return {
         "vshear": (q_b + s_b + p.qW * 4, 0),
         "hshear": (s_b + t_b + p.TH * 4, 0),
@@ -197,9 +337,6 @@ def traffic(plan: cuda_shear.ShearKernelPlan, batch: int, elem: int,
         "contract_masked": masked,
         "pipelined": masked,
         "noweight": (t_b + o_b + idx, ops),
-        "wshare": (t_lb + w_row + o_b + idx + sp, 2 * ops_l),
-        "tshare": (t_rows + w_lb + o_b + idx + sp, 2 * ops_l),
-        "bothshare": (t_rows + w_row + o_b + idx + sp, 2 * ops_l),
         # T written by the fused shear, its live windows read by the
         # masked contraction
         "full": (q_b + t_b + (p.qW + p.TH) * 4 + masked[0], masked[1]),

@@ -54,11 +54,14 @@ points (``aainterp_torch.area_average_interpolate`` for the first three):
   flagship's 8 x 2048^2 bf16 and rgb1024's 24 x 1024^2 bf16, TY 128; the
   regrid's 8 x 1800 x 3600 f32, TY 120) beside torch's ``copy_`` into a
   destination of its own per input; the
-  rotated contraction's probe modes (noweight, tshare, wshare, bothshare,
-  pipelined: ``csrc/contract.cuh``) on 4 random T stacks per dtype at the
-  rotated flagship; and the flagship's decomposition (the route, its
-  shear forms, the contraction with and without its dead-pixel skip and
-  each probe), one ``probe_timing`` JSON line;
+  rotated contraction's probe modes (``csrc/contract.cuh``: noweight on
+  the unmasked direct form; tshare, wshare, bothshare and pipelined on
+  the route's tiled contraction and its tile table) on random T stacks of
+  8 and 11 frames per dtype at the rotated flagship's 30.0 degrees and at
+  30.2 (T's rows not 16-byte aligned); and the flagship's decomposition
+  (the route, its shear forms, the contraction with and without its
+  dead-pixel skip and each probe; the split subtracts each tiled probe
+  from the route's tiled kernel), one ``probe_timing`` JSON line;
 * the route's masked contraction (phase 45: the tiled kernel against
   the unmasked instance, its direct form and its plain version, at the
   rotated flagship and for compat, its tile tables, dead shares and time
@@ -197,11 +200,12 @@ the direct apply of its batch, every multi-input CSV byte-equal to the
 single-file command's, the loaded shear plan equal to the built one field
 for field and its route output bit-equal.  Probes: the copy ``torch.equal``
 to its plain version into 0xFF-filled outputs at every geometry (and u8
-with a ragged last tile and 1023-byte rows); noweight and the share modes
-f32 atol 1e-6 on [0, 1] inputs and bf16 within one bf16 ulp of their
-plain f32 results (the production contraction's tolerances), into
-NaN-filled outputs; pipelined ``torch.equal`` to the production
-contraction; one launch per probe call, the production counts unmoved.
+with a ragged last tile and 1023-byte rows); noweight and the tiled share
+modes f32 atol 1e-6 on [0, 1] inputs and bf16 within one bf16 ulp of
+their plain f32 results (the production contraction's tolerances), into
+NaN-filled outputs; the tiled pipelined form ``torch.equal`` to the
+production contraction; one launch per probe call, the production counts
+unmoved.
 The masked contraction ``torch.equal`` to the unmasked instance and to
 ``contract_plain(fused=True)`` on finite T into NaN-filled outputs, and
 exactly 0 outside every dst row's span on NaN T.  Kernel 1's probe modes
@@ -341,6 +345,12 @@ COPY_GEOMS = (("4k", 2160, 3840, 120, torch.bfloat16, 8),
               ("regrid", 1800, 3600, 120, torch.float32, 8))
 PROBE_MODES = tuple(rot_experiments.MODES)
 SHARE_MODES = ("tshare", "wshare", "bothshare")
+# phase 43's angles: 30.2 degrees (T's rows not 16-byte aligned: TW 3,457,
+# the staging's per-cell path), then the flagship's 30.0 (TW 3,448), which
+# phase 44 goes on with; and its frame counts: the flagship's 8 and 11, past
+# the kernels' 8 frames a group, so the tiled probes restage their windows
+PROBE_ANGLES = (30.2, ROT[3])
+PROBE_FRAMES = (F, 11)
 # phase 44's experiments, in rot_experiments.py's names
 PROBE_EXPS = ("full", "shears", "contract", "contract_masked", "noweight",
               "tshare", "wshare", "bothshare", "pipelined")
@@ -2738,50 +2748,68 @@ def contract_probe_phases(make, card) -> list:
     rot_experiments' entry points.  Returns the probes' entries of the
     JSON summary."""
     dev = make.device
+
+    # ---- 43. every probe mode against its plain version ----------------------
+    err = {m: 0.0 for m in PROBE_MODES}
+    bit_equal = {m: True for m in SHARE_MODES}   # to plain, throughout
+    geoms = {}
+    for angle in PROBE_ANGLES:
+        _, _, kp = rot_experiments._plan((RH, RW), angle)
+        for dtype in (torch.bfloat16, torch.float32):
+            tiles = kp.contract_plan(torch.empty((), dtype=dtype).element_size())
+            check(tiles is not None, f"no contraction tiles at {angle} deg")
+            geoms[f"{angle}_{str(dtype).split('.')[-1]}"] = {
+                "TW": kp.TW, "tiles": len(tiles.win),
+                "live": int((tiles.win[:, 2] > 0).sum()),
+                "shared_tile": rot_experiments.shared_tile(tiles)}
+            for nf in PROBE_FRAMES:
+                t = make(dtype, (nf, kp.TH, kp.TW))
+                prod = cuda_shear.contract_kernel(t, kp)
+                torch.cuda.synchronize()
+                shear_before = dict(cuda_shear.LAUNCHES)
+                for mode in PROBE_MODES:
+                    before = rot_experiments.LAUNCHES[mode]
+                    buf = torch.full((nf, kp.Hd, kp.Wd), float("nan"),
+                                     dtype=dtype, device=dev)
+                    got = rot_experiments.contract_probe_kernel(t, kp, mode,
+                                                                out=buf)
+                    torch.cuda.synchronize()
+                    check(got is buf and rot_experiments.LAUNCHES[mode] ==
+                          before + 1, f"{mode}: not one launch per call")
+                    what = f"{mode} {dtype} F {nf} at {angle} deg"
+                    if mode == "pipelined":
+                        check(torch.equal(got, prod), f"{what} is not "
+                              "bit-equal to the production contraction")
+                        continue
+                    ref = rot_experiments.contract_probe_plain(
+                        t, kp, mode, out_dtype=torch.float32)
+                    if mode in bit_equal:
+                        bit_equal[mode] &= torch.equal(got, ref.to(dtype))
+                    if dtype == torch.bfloat16:
+                        err[mode] = max(err[mode], within_bf16_ulp(
+                            got, ref, f"{what} vs plain"))
+                    else:
+                        e = max_err(got, ref)
+                        check(e <= 1e-6, f"{what}: err {e} > 1e-6")
+                check(dict(cuda_shear.LAUNCHES) == shear_before,
+                      f"the probes moved the production counts: "
+                      f"{dict(cuda_shear.LAUNCHES)} (was {shear_before})")
+                del t, prod, buf, got
     spec, op, kp = rot_experiments._plan((RH, RW), ROT[3])
     check((spec.dst_shape, op.window, kp.Ka, kp.Kb) == (ROT_DST, 6, 5, 5),
           f"probe plan: dst {spec.dst_shape}, K {op.window}, Ka x Kb "
           f"{kp.Ka}x{kp.Kb}")
-
-    # ---- 43. every probe mode against its plain version ----------------------
-    err = {m: 0.0 for m in PROBE_MODES}
-    for dtype in (torch.bfloat16, torch.float32):
-        for i in range(4):
-            t = make(dtype, (F, kp.TH, kp.TW))
-            prod = cuda_shear.contract_kernel(t, kp)
-            torch.cuda.synchronize()
-            shear_before = dict(cuda_shear.LAUNCHES)
-            for mode in PROBE_MODES:
-                before = rot_experiments.LAUNCHES[mode]
-                buf = torch.full((F, kp.Hd, kp.Wd), float("nan"), dtype=dtype,
-                                 device=dev)
-                got = rot_experiments.contract_probe_kernel(t, kp, mode,
-                                                            out=buf)
-                torch.cuda.synchronize()
-                check(got is buf and rot_experiments.LAUNCHES[mode] ==
-                      before + 1, f"{mode}: not one launch per call")
-                if mode == "pipelined":
-                    check(torch.equal(got, prod), f"pipelined {dtype} is not "
-                          "bit-equal to the production contraction")
-                    continue
-                ref = rot_experiments.contract_probe_plain(
-                    t, kp, mode, out_dtype=torch.float32)
-                if dtype == torch.bfloat16:
-                    err[mode] = max(err[mode], within_bf16_ulp(
-                        got, ref, f"{mode} bf16 vs plain"))
-                else:
-                    e = max_err(got, ref)
-                    check(e <= 1e-6, f"{mode} f32 err {e} > 1e-6")
-            check(dict(cuda_shear.LAUNCHES) == shear_before,
-                  f"the probes moved the production counts: "
-                  f"{dict(cuda_shear.LAUNCHES)} (was {shear_before})")
-            del t, prod, buf, got
-    print(f"[43 contraction probes] {F}x{kp.TH}x{kp.TW} T stacks (4 per "
-          f"dtype) -> {F}x{kp.Hd}x{kp.Wd}, bf16 and f32, into NaN-filled "
-          f"outputs: noweight and the share modes within one bf16 ulp (bf16;"
-          f" f32 atol 1e-6) of plain, max bf16 |diff| "
+    print(f"[43 contraction probes] {RH}x{RW} at "
+          + " and ".join(f"{a} deg" for a in PROBE_ANGLES)
+          + f" (tile tables {geoms}), bf16 and f32, F "
+          + " and ".join(str(n) for n in PROBE_FRAMES)
+          + ", into NaN-filled outputs: noweight (direct form) and the "
+          "tiled share modes within one bf16 ulp (bf16; f32 atol 1e-6) of "
+          "plain, max bf16 |diff| "
           + ", ".join(f"{m} {err[m]:.3e}" for m in PROBE_MODES
                       if m != "pipelined")
+          + "; the shares bit-equal to plain: "
+          + ", ".join(f"{m} {v}" for m, v in bit_equal.items())
           + "; pipelined bit-equal to the production contraction; one "
           "launch per call, the production counts unmoved")
 
@@ -2821,7 +2849,8 @@ def contract_probe_phases(make, card) -> list:
     ex = timing["exps"]
     c, cm = ex["contract"]["ms"], ex["contract_masked"]["ms"]
     # what each probe removes, in ms of the contraction it changes: the
-    # unmasked one (noweight) or the route's masked one (the others)
+    # unmasked direct form (noweight) or the route's tiled masked
+    # contraction (the others, tiled too)
     timing["split_ms"] = {
         "dead_pixel_skip": c - cm,
         "weights_load_and_multiply": c - ex["noweight"]["ms"],
@@ -2834,8 +2863,9 @@ def contract_probe_phases(make, card) -> list:
           "device ms per batch (CUDA-graph replays, best of 2) / bound ms: "
           + ", ".join(f"{e} {v['ms']:.4f} / {v['bound_ms']:.4f}"
                       for e, v in ex.items())
-          + "; the contraction's split (contract, unmasked, or "
-          "contract_masked minus the probe): "
+          + "; the contraction's split (contract, unmasked, minus "
+          "noweight; contract_masked, the route's tiled kernel, minus "
+          "each tiled probe): "
           + ", ".join(f"{k} {v:.4f}" for k, v in timing["split_ms"].items()))
     print(json.dumps({"probe_timing": timing}))
 
@@ -2856,7 +2886,10 @@ def contract_probe_phases(make, card) -> list:
             "library_ms": None,
             "modes": {m: {"launches": launches[m], "ms": ex[m]["ms"],
                           "plain_ms": plain_ms[m], "max_abs_err": err[m],
-                          "bound_ms": ex[m]["bound_ms"]} for m in modes},
+                          "bound_ms": ex[m]["bound_ms"],
+                          # the share modes' (pipelined: to production)
+                          "bit_equal_to_plain": bit_equal.get(m)}
+                      for m in modes},
         }
 
     return [row("contract_noweight", "130", ("noweight",)),

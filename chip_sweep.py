@@ -13,7 +13,7 @@ their library calls.
         [--variants cur,nostage,...] [--set 'MOD.NAME=VALUE;...']...
 
 Cells are chosen by name, or by a prefix of their names (``k1``, ``k2``,
-``s3``, ``r``).  Each is timed as ``chip_smoke.py`` times it: device ms per batch
+``s3``, ``r``, ``p``).  Each is timed as ``chip_smoke.py`` times it: device ms per batch
 from CUDA-graph replays on distinct inputs (``chip_smoke.graph_ms``), best
 of two; the cells whose calls are shorter than a replay's host cost
 (``k2_direct``, ``high_dot``, the strided probes) with 20 calls in each
@@ -33,7 +33,7 @@ graph (``CALLS``).
 * ``r_vshear``, ``r_hshear``, ``r_vhshear``, ``r_contract``: the rotated
   flagship's kernels (the same frames, exact mode): the shear kernel's
   three forms (S from q, T from S, T from q) and the contraction (on the
-  plain T), at 30 degrees unless ``--set 'sweep.ROT_ANGLE=30.2'`` moves
+  plain T; ``r_contract_f32`` on it in f32), at 30 degrees unless ``--set 'sweep.ROT_ANGLE=30.2'`` moves
   them (T's width, so its rows' 16-byte alignment, follows the angle).
   Their tile tables are planned anew under each ``--set``
   (for example ``--set 'cuda_shear._TILES=((32, 128),)'``, or the
@@ -42,7 +42,16 @@ graph (``CALLS``).
   ``ctnostore``, ``ctscalar`` (windows staged element by element),
   ``ctgroup4``, ``ctgroup8`` (weights loaded 4 or 8 taps at a time
   instead of 16), ``ctmin1``, ``ctmin4``, ``ctmin8`` (registers for that
-  many blocks an SM instead of 6);
+  many blocks an SM instead of 6); the pipelined probe's variants
+  ``pipemin2``, ``pipemin4`` (registers for 2 or 4 blocks an SM
+  instead of 3), ``pipestage64``, ``pipestage96`` (staging threads
+  instead of 128);
+* ``p_tshare``, ``p_wshare``, ``p_bothshare``, ``p_pipelined``: the
+  contraction's probe modes (``probes/rot_experiments.py``) on the
+  ``r_contract`` cell's inputs, plan and angle, each checked against its
+  plain version within one bf16 ulp; with ``--repo`` a parent checkout's
+  probes (before this repo's tiled probes: the direct form) in the same
+  call;
 * ``c_4k``, ``c_rot2048``, ``c_rgb1024``, ``c_regrid``: the copy probe
   (``csrc/probes.cu``) at ``chip_smoke.py``'s four copy geometries, 8
   frames each but rgb1024's 24 (its ring: variants ``cstage3``,
@@ -109,6 +118,19 @@ NOT_REACHED = "if (off < -(1 << 30)) cp_async16"
 # the r_* cells' angle (``--set 'sweep.ROT_ANGLE=30.2'``): T's width, and
 # so the alignment of its rows, moves with it
 ROT_ANGLE = 30.0
+
+
+# contract.cuh's pipelined probe: its blocks an SM, its staging threads
+def PIPE_MIN(n):
+    return (r"constexpr int kPipeMinBlocks = \d+;",
+            f"constexpr int kPipeMinBlocks = {n};")
+
+
+def PIPE_STAGE(n):
+    return (r"constexpr int kStageThreads = \d+;",
+            f"constexpr int kStageThreads = {n};")
+
+
 # dense_x.cu's y-pass tap loops, its wgmma calls, its operator's copies
 DX_NOY = (r"for \(int a = 0; a < ky; \+\+a\)", "for (int a = 0; a < 0; ++a)")
 DX_NOMMA = (r"hopper::wgmma_bf16<kCols>\(d, [^;]*;", "")
@@ -339,7 +361,7 @@ VARIANTS = {
     "ctnostage": {"contract.cuh": [(
         r"if \(4 \* h \+ i < nf\) u = __ldg\([^;]*;", "")]},
     "ctnoweight": {"contract.cuh": [(
-        r"w2\[static_cast<long long>\(k0 \+ j\) \* plane \+ pix\]", "1.0f")]},
+        r"w2\[static_cast<long long>\(k0 \+ j\) \* plane \+ wpix\]", "1.0f")]},
     # contract.cuh: weights loaded 8 or 32 taps at a time instead of 16
     "ctgroup4": {"contract.cuh": [(r"constexpr int kTapGroup = 16;",
                                    "constexpr int kTapGroup = 4;")]},
@@ -357,6 +379,13 @@ VARIANTS = {
                                     r"acc\[i\]\);", "")]},
     "ctscalar": {"contract.cuh": [(r"const bool chunked = vec && ",
                                    "const bool chunked = false && vec && ")]},
+    # contract.cuh, the pipelined probe: registers for 2 or 4 blocks
+    # an SM (80 or 40 a thread) instead of 3 (56); 64 or 96 staging threads
+    # instead of 128
+    "pipemin2": {"contract.cuh": [PIPE_MIN(2)]},
+    "pipemin4": {"contract.cuh": [PIPE_MIN(4)]},
+    "pipestage64": {"contract.cuh": [PIPE_STAGE(64)]},
+    "pipestage96": {"contract.cuh": [PIPE_STAGE(96)]},
     # shear3_stage.cu: no output or mid cell is computed (zeros stored)
     "nocompute": {"shear3_stage.cu": [
         (r"out_cells<kForm, kVec>\([^;]*;",
@@ -422,7 +451,8 @@ EXACT = ("cur", "lane8", "t256", "t128", "tilemajor",   # variants that
          "cstage3", "cstage4", "cstage8", "cpiece8", "cpiece32", "cbps1",
          "cbps4",
          "copyunits", "copyhint", "ctscalar", "ctgroup4", "ctgroup8",
-         "cchunk", "ctmin1", "ctmin4", "ctmin8")
+         "cchunk", "ctmin1", "ctmin4", "ctmin8", "pipemin2",
+         "pipemin4", "pipestage64", "pipestage96")
 
 
 def variant_sources(lib, name: str) -> dict:
@@ -615,7 +645,7 @@ def make_cells(dev):
                        q=rand("s3", (8, 2048, 2048), bf16))
         return rot["plan"]
 
-    def r_cell(name):
+    def r_cell(name, dtype=bf16):
         def inputs():
             plan, qs = rot_plan(), rot["q"]
             if name in ("vshear", "vhshear"):
@@ -623,7 +653,7 @@ def make_cells(dev):
             if name == "hshear":
                 return [cuda_shear.vshear_plain(q, plan) for q in qs]
             return [cuda_shear.hshear_plain(cuda_shear.vshear_plain(
-                q, plan), plan) for q in qs]
+                q, plan), plan).to(dtype) for q in qs]
 
         def prepare():
             plan = rot_plan()
@@ -637,19 +667,40 @@ def make_cells(dev):
                     summary = {"TY": t.TY, "TX": t.TX, "rows": t.rows,
                                "cols": t.cols}
             if name == "contract" and hasattr(plan, "contract_plan"):
-                t = plan.contract_plan(2)        # the cell's bf16 T
+                es = dtype.itemsize              # the cell's T
+                t = plan.contract_plan(es)
                 summary.update(TYd=t.TYd, TXd=t.TXd, cells=t.cells,
-                               smem=t.smem(2))
+                               smem=t.smem(es))
             kern = getattr(cuda_shear, f"{name}_kernel")
             plain = getattr(cuda_shear, f"{name}_plain")
             return (lambda x: kern(x, plan), lambda x: plain(x, plan),
                     summary)
-        # the contraction's bf16 output: one bf16 ulp on [0, 1]
-        return prepare, inputs, 1e-2 if name == "contract" else 0.0
+        # the contraction's output: one bf16 ulp on [0, 1]; f32 1e-5
+        if name != "contract":
+            return prepare, inputs, 0.0
+        return prepare, inputs, 1e-2 if dtype == bf16 else 1e-5
 
     for name in ("vshear", "hshear", "vhshear", "contract"):
         if hasattr(cuda_shear, f"{name}_kernel"):
             cells[f"r_{name}"] = r_cell(name)
+    cells["r_contract_f32"] = r_cell("contract", torch.float32)
+
+    def p_cell(mode):
+        from aainterp_torch.probes import rot_experiments
+
+        prepare_c, inputs, tol = r_cell("contract")
+
+        def prepare():
+            summary = prepare_c()[2]     # the plan, re-planned under --set
+            plan = rot_plan()
+            return (lambda x: rot_experiments.contract_probe_kernel(
+                        x, plan, mode),
+                    lambda x: rot_experiments.contract_probe_plain(
+                        x, plan, mode), {"mode": mode, **summary})
+        return prepare, inputs, tol
+
+    for mode in ("tshare", "wshare", "bothshare", "pipelined"):
+        cells[f"p_{mode}"] = p_cell(mode)
 
     def c_cell(H, W, ty, dtype, nf):
         from aainterp_torch.probes import copy_ceiling

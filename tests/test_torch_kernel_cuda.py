@@ -40,7 +40,12 @@ transpose and variance on kernel 1 within f32 atol 1e-5 of the CPU.
 
 The masked contraction (the route's) bit-equal to the unmasked one and to
 its plain version on finite T, into NaN-filled outputs, with ragged spans,
-empty rows and F > 8; on NaN T it writes 0 outside every span.  The copy
+empty rows and F > 8; on NaN T it writes 0 outside every span.  The
+contraction's probes (``csrc/probes.cu``) into NaN-filled outputs, F 3
+and 11, bf16 and f32, with T's rows 16-byte aligned and not: noweight
+and the tiled share probes within f32 atol 1e-6 (bf16: one bf16 ulp) of
+their plain versions, the pipelined form bit-equal to the route's tiled
+contraction, and a plan without tiles raising for every tiled probe.  The copy
 probe split over blocks (8 x 1024^2, odd widths) and kernel 1's probe
 modes (``csrc/band_probes.cu``) bit-equal to their plain versions, into
 0xFF-filled outputs, bf16, f32 and u8, at a small and an odd-pitch
@@ -1294,18 +1299,29 @@ def test_copy_rows_kernel_at_a_view_offset(cuda):
         copy_ceiling.copy_rows_kernel(x.transpose(1, 2), 8)
 
 
+# the contraction probes' geometries: 256^2 at 30.0 degrees has T's rows
+# 16-byte aligned (TW 432), at 30.2 not (TW 433), as the rotated flagship;
+# at 1024^2 (1,936 tiles) each block of the pipelined form's persistent
+# grid walks several tiles
 PROBE_GEOMS = [((300, 260), 1.0, 0.5, (130.0, 150.0), 17.0, "exact"),
+               ((256, 256), 1.0, 0.5, (128.0, 128.0), 30.0, "exact"),
+               ((256, 256), 1.0, 0.5, (128.0, 128.0), 30.2, "exact"),
+               ((1024, 1024), 1.0, 0.5, (512.0, 512.0), 30.0, "exact"),
                ROT_GEOMS[0], ROT_GEOMS[2]]
+TILED_PROBES = ("tshare", "wshare", "bothshare", "pipelined")
 
 
-@pytest.mark.parametrize("frames", [3, 9])
+@pytest.mark.parametrize("frames", [3, 11])
 @pytest.mark.parametrize("args", PROBE_GEOMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_contract_probes_match_plain(cuda, args, dtype, frames):
+    # the tiled probes on the route's tile table, into NaN-filled outputs,
+    # with F past the kernel's 8 frames a group (11: the windows restage)
     from aainterp_torch.probes import rot_experiments
 
     _, plan = _rot_plan(args)
     t = _frames((frames, plan.TH, plan.TW), dtype, cuda, seed=5)
+    assert plan.contract_plan(t.element_size()) is not None
     prod = cuda_shear.contract_kernel(t, plan)
     torch.cuda.synchronize()
     shear_before = dict(cuda_shear.LAUNCHES)
@@ -1338,6 +1354,14 @@ def test_contract_probe_rejects_what_it_cannot_take(cuda):
         rot_experiments.contract_probe_kernel(t.double(), plan, "noweight")
     with pytest.raises(ValueError, match="probe mode"):
         rot_experiments.contract_probe_kernel(t, plan, "none")
+    # a plan without tiles: every tiled probe raises, launching nothing
+    bare = dataclasses.replace(plan, tiles={"contract2": None,
+                                            "contract4": None})
+    before = dict(rot_experiments.LAUNCHES)
+    for mode in TILED_PROBES:
+        with pytest.raises(RuntimeError, match=f"contract probe {mode}"):
+            rot_experiments.contract_probe_kernel(t, bare, mode)
+    assert dict(rot_experiments.LAUNCHES) == before
 
 
 # ---------------------------------------------------------------------------

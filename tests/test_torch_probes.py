@@ -22,14 +22,16 @@ package's probes under ``benchmarks/``, on the CPU.
   there too, so the comparison is on the live rows and columns, and JAX's
   zeros are checked on the rest.  The shares off (JAX's masked
   contraction) are held against the port's production contraction.
-* The share modes against their definitions, with the dead-pixel skip of
-  the route's contraction (0 outside each dst row's live span, as JAX's
-  share probes skip dead tiles): tshare equals the contraction on frame 0,
-  dst row 0 and is the same for every frame; wshare equals it on dst row
-  0; bothshare equals the unmasked contraction's frame 0, dst row 0 on the
-  live pixels; tshare and wshare are 0 outside the spans; each bit for
-  bit (the same f32 sums of the same products), and every mode within
-  1e-5 of a float64 numpy statement of its formula (noweight unmasked).
+* The tiled probes against their definitions (the route's tiled
+  contraction with one stream pinned; 0 outside each dst row's live span,
+  as JAX's share probes skip dead tiles): pipelined is the tiled
+  contraction's plain version bit for bit; tshare is the same for every
+  frame and reads nothing of T outside frame 0's corner of the largest
+  window's rows and columns; wshare is the tiled contraction on the
+  shared tile's own pixels, and everywhere on a plan with one live tile;
+  every mode is within 1e-5 of a float64 numpy statement of it, tile by
+  tile (noweight, unmasked, 2e-5); the plain versions launch nothing; a
+  plan without tiles makes every tiled mode raise, naming it.
 * The entry points: each ``EXPS`` function and ``copy_ceiling.measure``
   with ``device="cpu"`` at a small shape (the plain versions on the
   host's clock, ``clock == "host"``), no kernel launched; without a GPU
@@ -265,34 +267,61 @@ def test_weighted_probes_match_jax(jprobes, geom, dtype, probe):
 
 
 # ---------------------------------------------------------------------------
-# the share modes against their definitions
+# the tiled probes against their definitions
 # ---------------------------------------------------------------------------
 
+TILED = ("tshare", "wshare", "bothshare", "pipelined")
 
-def _formula(t: np.ndarray, plan, mode: str) -> np.ndarray:
-    """float64 numpy statement of a probe mode: every mode but noweight is
-    0 outside each dst row's live span (the dead-pixel skip)."""
+
+def _elem(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def _formula(t: np.ndarray, plan, mode: str, elem: int) -> np.ndarray:
+    """float64 numpy statement of a probe mode.  noweight: the unmasked
+    sums of the T windows.  The tiled modes, tile by tile on the route's
+    table for ``elem``-byte frames: each in-span pixel of a live tile sums
+    its taps from its tile's window at window-local indices, the window
+    taken from frame 0 at T's origin (tshare, bothshare), the weights
+    from the first live tile at the pixel's position within it, clamped
+    (wshare, bothshare); every other pixel is 0."""
     tn = t.astype(np.float64)
     w2 = plan.w2.astype(np.float64)
-    F_, Hd, Wd = tn.shape[0], plan.Hd, plan.Wd
-    out = np.zeros((F_, Hd, Wd))
+    Ka, Kb, Hd, Wd = plan.Ka, plan.Kb, plan.Hd, plan.Wd
+    out = np.zeros((tn.shape[0], Hd, Wd))
+    if mode == "noweight":
+        for a in range(Ka):
+            for b in range(Kb):
+                rows = np.clip(plan.ry0 + a, 0, plan.TH - 1)
+                cols = np.clip(plan.cx0 + b, 0, plan.TW - 1)
+                out += tn[:, rows][:, :, cols]
+        return out
     share_t = mode in ("tshare", "bothshare")
     share_w = mode in ("wshare", "bothshare")
-    for a in range(plan.Ka):
-        r = plan.ry0[:1] if share_t else plan.ry0
-        rows = np.clip(r + a, 0, plan.TH - 1)
-        src = tn[:1] if share_t else tn
-        for b in range(plan.Kb):
-            cols = np.clip(plan.cx0 + b, 0, plan.TW - 1)
-            vals = src[:, rows][:, :, cols]
-            if mode == "noweight":
-                out = out + vals
-            else:
-                w = w2[a * plan.Kb + b]
-                out = out + (w[:1] if share_w else w) * vals
-    if mode != "noweight":
-        cols = np.arange(Wd)[None, :]
-        out[:, (cols < plan.span[:, :1]) | (cols >= plan.span[:, 1:])] = 0.0
+    tiles = plan.contract_plan(elem)
+    TYd, TXd = tiles.TYd, tiles.TXd
+    n_tx = -(-Wd // TXd)
+    first = int(np.flatnonzero(tiles.win[:, 2] > 0)[0])
+    wy0, wx0 = first // n_tx * TYd, first % n_tx * TXd
+    for i, (r0, c0, rows, cols) in enumerate(tiles.win.tolist()):
+        if rows == 0:
+            continue
+        y0, x0 = i // n_tx * TYd, i % n_tx * TXd
+        window = (tn[:1, :rows, :cols] if share_t
+                  else tn[:, r0:r0 + rows, c0:c0 + cols])
+        for dy in range(y0, min(y0 + TYd, Hd)):
+            lo, hi = plan.span[dy]
+            lr = np.clip(plan.ry0[dy] + np.arange(Ka), 0, plan.TH - 1) - r0
+            for dx in range(max(x0, lo), min(x0 + TXd, hi)):
+                lc = (np.clip(plan.cx0[dx] + np.arange(Kb), 0, plan.TW - 1)
+                      - c0)
+                assert lr.min() >= 0 and lr.max() < rows
+                assert lc.min() >= 0 and lc.max() < cols
+                wy, wx = ((min(wy0 + dy - y0, Hd - 1), min(wx0 + dx - x0,
+                                                          Wd - 1))
+                          if share_w else (dy, dx))
+                taps = w2[:, wy, wx].reshape(Ka, Kb)
+                out[:, dy, dx] = (window[:, lr][:, :, lc] * taps).sum((1, 2))
     return out
 
 
@@ -301,30 +330,148 @@ def _formula(t: np.ndarray, plan, mode: str) -> np.ndarray:
 def test_share_modes_meet_their_definitions(geom, dtype):
     plan = _case(geom).plan
     t = _t(plan, dtype, seed=2, frames=3)
-    full = cuda_shear.contract_kernel(t, plan)
-    unmasked = cuda_shear.contract_unmasked_kernel(t, plan)
+    tiles = plan.contract_plan(_elem(dtype))
+    tiled = cuda_shear.contract_tiled_plain(t, plan, tiles)
     live = cuda_shear.live_mask(plan, t.device)
-    zero = torch.zeros((), dtype=dtype)
     out = {m: rot_experiments.contract_probe_kernel(t, plan, m)
-           for m in ("tshare", "wshare", "bothshare")}
+           for m in TILED}
     ts, ws, bs = out["tshare"], out["wshare"], out["bothshare"]
-    # the share modes skip dead pixels, as the production contraction
-    # does: frame 0 / dst row 0's sums on the live pixels, 0 on the rest
-    assert torch.equal(ts[0, 0], full[0, 0])
-    assert all(torch.equal(ts[f], ts[0]) for f in range(3))
-    assert torch.equal(ws[:, 0], full[:, 0])
-    for x in (ts, ws):
-        assert (x[:, ~live] == 0).all()
-    row0 = torch.where(live, unmasked[0, 0].expand_as(live), zero)
-    assert torch.equal(bs, row0.expand_as(bs))
-    assert torch.equal(rot_experiments.contract_probe_kernel(
-        t, plan, "pipelined"), full)
+    # pipelined is the route's tiled contraction, bit for bit
+    assert torch.equal(out["pipelined"], tiled)
+    # every mode skips dead pixels, as the route's contraction does
+    for x in out.values():
+        assert x.dtype == dtype and (x[:, ~live] == 0).all()
+    # tshare and bothshare sum frame 0's corner: the same for every frame
+    for x in (ts, bs):
+        assert all(torch.equal(x[f], x[0]) for f in range(3))
+    # on the shared tile's own pixels wshare reads its own weights, and
+    # bothshare's weights are tshare's
+    first = rot_experiments.shared_tile(tiles)
+    assert tiles.win[first, 2] > 0 and (tiles.win[:first, 2] == 0).all()
+    n_tx = -(-plan.Wd // tiles.TXd)
+    ys = slice(first // n_tx * tiles.TYd, (first // n_tx + 1) * tiles.TYd)
+    xs = slice(first % n_tx * tiles.TXd, (first % n_tx + 1) * tiles.TXd)
+    assert torch.equal(ws[:, ys, xs], tiled[:, ys, xs])
+    assert torch.equal(bs[:, ys, xs], ts[:, ys, xs])
+    assert (ws[:, ys, xs] != 0).any()
+
+
+@pytest.mark.parametrize("mode", sorted(rot_experiments.MODES))
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("geom", GEOMS, ids=GIDS)
+def test_probe_modes_match_float64_statement(geom, dtype, mode):
+    plan = _case(geom).plan
+    t = _t(plan, dtype, seed=3, frames=3)
+    got = rot_experiments.contract_probe_plain(t, plan, mode,
+                                               out_dtype=torch.float32)
+    want = _formula(t.float().numpy(), plan, mode, _elem(dtype))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=2e-5 if mode == "noweight" else 1e-5)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("geom", GEOMS, ids=GIDS)
+def test_tshare_reads_only_frame0_corner(geom, dtype):
+    plan = _case(geom).plan
+    t = _t(plan, dtype, seed=4, frames=3)
+    win = plan.contract_plan(_elem(dtype)).win
+    rows, cols = int(win[:, 2].max()), int(win[:, 3].max())
+    assert rows < plan.TH or cols < plan.TW
+    other = _t(plan, dtype, seed=5, frames=3)
+    other[0, :rows, :cols] = t[0, :rows, :cols]
+    assert not torch.equal(other, t)
+    for mode in ("tshare", "bothshare"):
+        assert torch.equal(
+            rot_experiments.contract_probe_plain(other, plan, mode),
+            rot_experiments.contract_probe_plain(t, plan, mode))
+    assert not torch.equal(
+        rot_experiments.contract_probe_plain(other, plan, "wshare"),
+        rot_experiments.contract_probe_plain(t, plan, "wshare"))
+
+
+def _one_live_tile(plan, elem):
+    """``plan`` with every dst pixel outside one live tile of its tile
+    table made dead (its rows' spans cut to the tile), so that its table
+    has that one live tile."""
+    tiles = plan.contract_plan(elem)
+    n_tx = -(-plan.Wd // tiles.TXd)
+    pick = np.flatnonzero(tiles.win[:, 2] > 0)
+    i = int(pick[len(pick) // 2])
+    y0, x0 = i // n_tx * tiles.TYd, i % n_tx * tiles.TXd
+    span = np.zeros_like(plan.span)
+    ys = slice(y0, min(y0 + tiles.TYd, plan.Hd))
+    span[ys, 0] = np.clip(plan.span[ys, 0], x0, x0 + tiles.TXd)
+    span[ys, 1] = np.clip(plan.span[ys, 1], x0, x0 + tiles.TXd)
+    span[span[:, 0] >= span[:, 1]] = 0
+    one = dataclasses.replace(plan, span=span, tiles={}, dev={})
+    assert (one.contract_plan(elem).win[:, 2] > 0).sum() == 1
+    return one
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("geom", GEOMS, ids=GIDS)
+def test_wshare_on_one_live_tile_is_the_tiled_contraction(geom, dtype):
+    plan = _one_live_tile(_case(geom).plan, _elem(dtype))
+    t = _t(plan, dtype, seed=6, frames=3)
+    want = cuda_shear.contract_tiled_plain(
+        t, plan, plan.contract_plan(_elem(dtype)))
+    assert (want != 0).any()
+    assert torch.equal(
+        rot_experiments.contract_probe_plain(t, plan, "wshare"), want)
+
+
+@pytest.mark.parametrize("geom", GEOMS, ids=GIDS)
+def test_pipeline_order_deals_the_fullest_live_tiles_first(geom):
+    plan = _case(geom).plan
+    tiles = plan.contract_plan(2)
+    order, n_live = rot_experiments.pipeline_order(plan, tiles)
+    assert order.dtype == np.int32
+    assert sorted(order.tolist()) == list(range(len(tiles.win)))
+    live = tiles.win[:, 2] > 0
+    assert n_live == live.sum() and live[order[:n_live]].all()
+    assert not live[order[n_live:]].any()
+    # in-span pixels of each live tile, brute force: non-increasing,
+    # ties in tile order
+    n_tx = -(-plan.Wd // tiles.TXd)
+    work = []
+    for i in order[:n_live]:
+        y0, x0 = i // n_tx * tiles.TYd, i % n_tx * tiles.TXd
+        work.append(sum(max(0, min(x0 + tiles.TXd, plan.Wd, hi)
+                            - max(x0, lo))
+                        for lo, hi in plan.span[y0:y0 + tiles.TYd]))
+    assert all(a > b or (a == b and i < j) for a, b, i, j in zip(
+        work, work[1:], order[:n_live], order[1:n_live]))
+
+
+def test_plain_versions_launch_nothing():
+    plan = _case(GEOMS[0]).plan
+    t = _t(plan, torch.bfloat16, frames=11)
+    before = (dict(rot_experiments.LAUNCHES), dict(cuda_shear.LAUNCHES))
     for mode in rot_experiments.MODES:
-        got = rot_experiments.contract_probe_plain(t, plan, mode,
-                                                   out_dtype=torch.float32)
-        want = _formula(t.float().numpy(), plan, mode)
-        np.testing.assert_allclose(got.numpy(), want, rtol=0,
-                                   atol=2e-5 if mode == "noweight" else 1e-5)
+        y = rot_experiments.contract_probe_plain(t, plan, mode)
+        assert y.shape == (11, plan.Hd, plan.Wd) and y.is_contiguous()
+        z = rot_experiments.contract_probe_kernel(t, plan, mode)
+        assert torch.equal(y, z)
+    assert (dict(rot_experiments.LAUNCHES), dict(cuda_shear.LAUNCHES)) == \
+        before
+
+
+@pytest.mark.parametrize("mode", TILED)
+def test_tiled_probes_need_the_plans_tiles(mode):
+    plan = _case(GEOMS[0]).plan
+    bare = dataclasses.replace(plan, tiles={"contract2": None,
+                                            "contract4": None})
+    t = _t(plan, torch.float32)
+    for fn in (rot_experiments.contract_probe_plain,
+               rot_experiments.contract_probe_kernel):
+        with pytest.raises(RuntimeError, match=f"contract probe {mode}"):
+            fn(t, bare, mode)
+    if mode != "pipelined":         # its traffic is the route's
+        with pytest.raises(RuntimeError, match=f"contract probe {mode}"):
+            rot_experiments.traffic(bare, F, 4, mode)
+    assert torch.equal(
+        rot_experiments.contract_probe_plain(t, bare, "noweight"),
+        rot_experiments.contract_probe_plain(t, plan, "noweight"))
 
 
 def test_contract_probe_rejects_bad_arguments():
@@ -346,8 +493,8 @@ def test_traffic_counts_what_each_mode_reads():
     t_b, o_b = F * p.TH * p.TW * e, F * p.Hd * p.Wd * e
     w_b, idx = p.Ka * p.Kb * p.Hd * p.Wd * 4, (p.Hd + p.Wd) * 4
     taps = F * p.Hd * p.Wd * p.Ka * p.Kb
-    # the dead-pixel skip: the live pixels, the live columns, and the T
-    # elements the live pixels' windows touch (brute force)
+    # the dead-pixel skip: the live pixels and the T elements the live
+    # pixels' windows touch (brute force)
     cols = np.arange(p.Wd)[None, :]
     live = (cols >= p.span[:, :1]) & (cols < p.span[:, 1:])
     touched = np.zeros((p.TH, p.TW), bool)
@@ -366,13 +513,16 @@ def test_traffic_counts_what_each_mode_reads():
     assert tr(p, F, e, "contract_masked") == masked
     assert tr(p, F, e, "pipelined") == masked
     assert tr(p, F, e, "noweight") == (t_b + o_b + idx, taps)
-    t_rows = p.Ka * p.TW * e
-    w_row = p.Ka * p.Kb * int(live.any(axis=0).sum()) * 4
-    assert tr(p, F, e, "wshare") == (t_lb + w_row + o_b + idx + sp,
+    # a shared T: frame 0's largest window, once; shared weights: one
+    # tile's
+    win = p.contract_plan(e).win
+    t_win = int((win[:, 2] * win[:, 3]).max()) * e
+    w_tile = p.Ka * p.Kb * 8 * 32 * 4
+    assert tr(p, F, e, "tshare") == (t_win + w_lb + o_b + idx + sp,
                                      2 * live_taps)
-    assert tr(p, F, e, "tshare") == (t_rows + w_lb + o_b + idx + sp,
+    assert tr(p, F, e, "wshare") == (t_lb + w_tile + o_b + idx + sp,
                                      2 * live_taps)
-    assert tr(p, F, e, "bothshare") == (t_rows + w_row + o_b + idx + sp,
+    assert tr(p, F, e, "bothshare") == (t_win + w_tile + o_b + idx + sp,
                                         2 * live_taps)
 
 
