@@ -16,7 +16,8 @@ PyTorch headers), so each builds in seconds:
   ceiling, a ring of 1-D bulk copies on ``csrc/hopper.cuh``, and the
   rotated contraction's probe modes) through nvcc;
 * ``band_probes`` — ``csrc/band_probes.cu`` (kernel 1's probe modes:
-  the instances of ``csrc/band_apply.cuh`` under its probe modes) through
+  the instances of ``csrc/band_apply.cuh`` under its probe modes, and
+  the walk probe's launch geometry) through
   nvcc, a library of its own so that it builds beside the others;
 * ``aligned_fused`` — ``csrc/aligned_fused.cu`` (the fused aligned
   regrid probe: both passes of an aligned integer-ratio apply in one
@@ -39,7 +40,8 @@ contraction's tiled form and its direct form under its probe modes
 for the copy's bulk copies and shared-memory opt-in); ``separable_apply.cu``,
 ``separable_apply_2d.cu`` and ``band_probes.cu`` include
 ``csrc/band_apply.cuh``, the separable kernels' body under its probe
-modes; ``watchlist.cu`` and ``dense_x.cu`` include ``csrc/hopper.cuh``
+modes (it includes ``csrc/hopper.cuh`` for the walk probe's ring);
+``watchlist.cu`` and ``dense_x.cu`` include ``csrc/hopper.cuh``
 and, for the shared-memory opt-in, ``csrc/stage_common.cuh``.
 
 Each shared library lands in ``aainterp_torch/_build/`` under a name that
@@ -96,7 +98,8 @@ class Library:
 
 _STAGE_HEADER = _PKG / "csrc" / "stage_common.cuh"
 _CONTRACT_HEADER = _PKG / "csrc" / "contract.cuh"
-_BAND_HEADERS = (_PKG / "csrc" / "band_apply.cuh", _STAGE_HEADER)
+_BAND_HEADERS = (_PKG / "csrc" / "band_apply.cuh",
+                 _PKG / "csrc" / "hopper.cuh", _STAGE_HEADER)
 
 SEPARABLE = Library(
     "separable_apply", _PKG / "csrc" / "separable_apply.cu", "nvcc",
@@ -173,10 +176,15 @@ PROBES = Library(
 
 BAND_PROBES = Library(
     "band_probes", _PKG / "csrc" / "band_probes.cu", "nvcc", NVCC_FLAGS,
-    # aainterp_band_probe(src, out, ys, wy, xs, wx, row_base, col_base, F,
-    #     H, W, Hd, Wd, ky, kx, TY, TX, SY, SX, mode, steps, dtype_code,
-    #     stream)
-    (("aainterp_band_probe", (_P,) * 8 + (_I,) * 14 + (_P,), ctypes.c_int),),
+    (
+        # aainterp_band_probe(src, out, ys, wy, xs, wx, row_base, col_base,
+        #     F, H, W, Hd, Wd, ky, kx, TY, TX, SY, SX, mode, dtype_code,
+        #     stream)
+        ("aainterp_band_probe", (_P,) * 8 + (_I,) * 13 + (_P,), ctypes.c_int),
+        # aainterp_band_walk_grid(H, W, Hd, Wd, ky, kx, TY, TX, SY, SX,
+        #     mode, dtype_code, out[4])
+        ("aainterp_band_walk_grid", (_I,) * 12 + (_P,), ctypes.c_int),
+    ),
     headers=_BAND_HEADERS)
 
 ALIGNED_FUSED = Library(

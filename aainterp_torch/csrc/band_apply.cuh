@@ -26,10 +26,14 @@
 //     16-byte aligned and holds at least one byte of the row, so it never
 //     leaves the input's memory pages.  Only rows and columns inside the
 //     image are copied.  The tile's tap table is built while the copies
-//     are in flight.  (A block that walked several row tiles with the next
-//     window in flight was slower at every cell timed on the H100: the
-//     second window costs blocks per SM, and the copy is a small part of
-//     the time: PERF.md);
+//     are in flight.  (The walk probe, kWalk<n> below, takes the other road:
+//     a persistent grid, a producer warp filling a ring of n windows with
+//     bulk copies, the copy hidden under the consumers' passes.  On the
+//     H100 it beat this form by a few per cent where its ring left 3
+//     blocks an SM (bf16 walk2, walk3), matched it at 2 (f32 walk2) and
+//     lost at 1-2 with the larger rings: the copy is a few per cent of
+//     the time, and the passes want the warps of several blocks to hide
+//     their shared-memory latency: PERF.md);
 //   * y pass (y_pass): each warp takes (dst row, group of 128 window
 //     columns) items; a lane computes 4 columns 32 apart and neighbouring
 //     lanes read neighbouring pixels.  The tile's tap row offsets and
@@ -60,9 +64,9 @@
 // P = kNone; each other mode changes one thing of it (Probe, below) in an
 // `if constexpr` branch and stores one value per dst element through the
 // production's output tile, so a redesign of the kernel carries the probes
-// with it.  The walk (band_walk_kernel: a form the kernel once had, kept as
-// a probe) runs the same phases, as functions, over several row tiles per
-// block.
+// with it.  The walk (band_walk_kernel) runs the same phases, as functions,
+// on a persistent grid whose blocks take their windows from a ring that a
+// producer warp fills with bulk copies.
 //
 // Arithmetic modes (kernel 2's precision knob, pallas_apply.py:798-846):
 //   0  IEEE f32 products and sums;
@@ -84,6 +88,7 @@
 #include <atomic>
 #include <climits>
 
+#include "hopper.cuh"
 #include "stage_common.cuh"
 
 // internal linkage: each library that includes this header keeps its own
@@ -100,6 +105,12 @@ using stage::cp_async16;
 using stage::seg_pitch;
 using stage::up16;
 using Walk = stage::Walk<kThreads>;
+
+// a barrier of the kThreads consumer threads alone (the walk's producer
+// warp, threads kThreads.., takes no part)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -296,46 +307,56 @@ __device__ __forceinline__ int window_base(const unsigned char* seg0, int base) 
   return base + 16 + static_cast<int>(reinterpret_cast<uintptr_t>(seg0) & 15);
 }
 
-// stage the window: rows [ya, yb) copied raw with cp.async (not committed)
+// The walk's window loads (band_walk_kernel's producer warp, lane `lane`):
+// each row of the tile's window [ya, yb) is one 1-D bulk copy of the
+// aligned 16-byte chunks that hold it, landing where the staged form's
+// cp.async chunks land (the window at shared byte `base`, a multiple of 16:
+// the shared pitch equals the row stride mod 16, so each row's first chunk
+// is 16-byte aligned in both spaces).  The rows' bytes are summed over the
+// warp and expected on `bar` (lane 0's arrival, which also publishes what
+// the warp wrote before it) before any copy is issued.  (A TMA tensor map
+// would take two boxes a row, a box holding at most 256 of the SX = 482
+// columns at the flagship, and would land them densely, off the layout
+// that y_pass reads.)
 template <typename Tin>
-__device__ __forceinline__ int stage_window(const Tin* __restrict__ src, const Dims& d,
-                                            const Geo& g, const Tile& t, int base, int tid) {
+__device__ __forceinline__ void load_window(const Tin* __restrict__ src, const Dims& d,
+                                           const Geo& g, const Tile& t, int base, uint64_t* bar,
+                                           int lane) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int ei = sizeof(Tin);
   const unsigned char* seg0 = window_src(src, d, t);
   const int wbase = window_base<Tin>(seg0, base);
-  if (t.yb > t.ya && t.xb > t.xa) {  // zero fill only: a window may hold no pixel
-    const long long stride = static_cast<long long>(d.W) * ei;
-    const int nbytes = (t.xb - t.xa) * ei;
-    const int n_chunk = (nbytes + 30) / 16;  // aligned chunks a row can touch
-    for (Walk e(tid, n_chunk); e.r < t.yb - t.ya; e.next()) {
-      const unsigned char* a = seg0 + e.r * stride;
-      const int off = e.c * 16 - static_cast<int>(reinterpret_cast<uintptr_t>(a) & 15);
-      if (off < nbytes) cp_async16(smem + wbase + e.r * g.pitch_in + off, a + off);
-    }
+  const long long stride = static_cast<long long>(d.W) * ei;
+  const int nbytes = (t.xb - t.xa) * ei;
+  const int rows = t.yb - t.ya;  // clamped taps: at least one row and column
+  auto span = [&](int r, int& head) {
+    const unsigned char* a = seg0 + r * stride;
+    head = static_cast<int>(reinterpret_cast<uintptr_t>(a) & 15);
+    return static_cast<uint32_t>(up16(head + nbytes));
+  };
+  uint32_t mine = 0;
+  int head;
+  for (int r = lane; r < rows; r += 32) mine += span(r, head);
+  const uint32_t total = __reduce_add_sync(0xffffffffu, mine);
+  __syncwarp();
+  if (lane == 0) hopper::mbar_arrive_expect_tx(bar, total);
+  __syncwarp();
+  for (int r = lane; r < rows; r += 32) {
+    const uint32_t bytes = span(r, head);
+    hopper::bulk_load(smem + wbase + r * g.pitch_in - head, seg0 + r * stride - head, bytes, bar);
   }
-  return wbase;
 }
 
-// the tile's taps: the shared byte offset of each tap row (in the window
-// staged at wbase, or a zero row), and its weight.  pitch and origin give
-// the rows' layout: row y at origin + (y - ya) * pitch
-template <bool kClamp>
-__device__ __forceinline__ void tap_table(int* rowtab, float* wtab, const int* __restrict__ ys,
+// the tile's taps (clamped), by the lanes of one warp: the shared byte
+// offset of each tap row in the window staged at wbase, and its weight
+__device__ __forceinline__ void walk_taps(int* rowtab, float* wtab, const int* __restrict__ ys,
                                           const float* __restrict__ wy, const Dims& d,
-                                          const Geo& g, const Tile& t, int origin, int pitch,
-                                          int tid) {
-  const int zero_row = g.zero_off + 16;
-  for (Walk e(tid, d.ky); e.r < t.rows; e.next()) {
-    const int y = __ldg(ys + t.i0 + e.r) + e.c;
-    int row;
-    if (kClamp) {
-      row = origin + (min(max(y, 0), d.H - 1) - t.ya) * pitch;
-    } else {
-      row = (y >= t.ya && y < t.yb) ? origin + (y - t.ya) * pitch : zero_row;
-    }
-    rowtab[e.r * d.ky + e.c] = row;
-    wtab[e.r * d.ky + e.c] = __ldg(wy + static_cast<long long>(t.i0 + e.r) * d.ky + e.c);
+                                          const Geo& g, const Tile& t, int wbase, int lane) {
+  for (int e = lane; e < t.rows * d.ky; e += 32) {
+    const int r = e / d.ky;
+    const int y = __ldg(ys + t.i0 + r) + (e - r * d.ky);
+    rowtab[e] = wbase + (min(max(y, 0), d.H - 1) - t.ya) * g.pitch_in;
+    wtab[e] = __ldg(wy + static_cast<long long>(t.i0) * d.ky + e);
   }
 }
 
@@ -436,12 +457,12 @@ enum Probe : int {
   kStageY = 2,      // staging, the y pass, stores: T at the first x tap
   kU8Words = 3,     // u8: the y pass reads 4 pixels per 32-bit word
   kXPair = 4,       // an exact ratio-2 x pass from a (4, Wd) table
-  kU8Convert1 = 5,  // u8: the window converted to f32 in shared memory ...
+  kU8Convert1 = 5,  // u8: the window converted to bf16 in shared memory ...
   kU8Convert2 = 6,  // ... in 2 column chunks, each then y-passed
   kU8Convert4 = 7,  // ... in 4
-  kWalk2 = 8,       // one block walks row tiles, 1 window in flight
-  kWalk3 = 9,       // ... 2 in flight
-  kWalk4 = 10,      // ... 3 in flight (band_walk_kernel)
+  kWalk2 = 8,       // a persistent block walks tiles, a ring of 2 windows
+  kWalk3 = 9,       // ... of 3
+  kWalk4 = 10,      // ... of 4 (band_walk_kernel)
   kXOnly = 11,      // the x pass alone, T staged from the y pass's output
 };
 
@@ -452,14 +473,102 @@ __host__ __device__ constexpr int walk_slots(int p) {
   return p == kWalk2 ? 2 : p == kWalk3 ? 3 : p == kWalk4 ? 4 : 0;
 }
 
+// ---- kU8Convert<n>: the u8 window converted to bf16 in shared memory in
+// n column chunks, each then y-passed from its converted copy ----
+//
+// The chunks cut the window's columns [0, xb - xa) on its 16-byte chunks:
+// chunk c takes window columns [wlo, whi), wlo = 16 * (c * nk / n) with nk
+// = ceil((xb - xa) / 16), the last one up to xb - xa.  A column's y sum
+// does not depend on which chunk holds it, so the cut is free.  Row r's
+// column w lies in the aligned shared chunk (m_r + w) / 16 of its row,
+// m_r its first pixel's offset in that chunk (rows differ where the row
+// stride is no multiple of 16): the chunk converts, for each row, its
+// aligned chunks (m_r + wlo) / 16 = wlo / 16 .. (m_r + whi - 1) / 16, each
+// by one thread (16 pixels: one 16-byte shared read, two 16-byte stores),
+// to 32 bytes at buf + r * cpitch + 32 * (j - wlo / 16).  So (r, w) sits at
+// buf + r * cpitch + 2 * m_r + 2 * (w - wlo): the tap table holds r * cpitch
+// + 2 * m_r, and the y pass adds buf - 2 * wlo.  A u8 value is exact in
+// bf16, so the sums are production's.  (An aligned chunk that holds bytes
+// of two column chunks is converted for each.)
+//
+// Schedule: two chunk buffers.  Chunk 0 is converted, then each step c
+// converts chunk c + 1 into the other buffer and y-passes chunk c, one
+// block barrier a step: warps that finish converting go on to the y pass
+// while others still convert.
+
+// a row's bytes per converted chunk buffer: 32 bytes for each aligned
+// chunk a column chunk may take (its share of the SX-column bound, plus
+// one where a row starts inside a chunk)
+__host__ __device__ constexpr int convert_pitch(int SX, int n) {
+  return 32 * (((SX + 15) / 16 + n - 1) / n + 1);
+}
+
+// column chunk c of n: window columns [wlo, whi) and the T columns [c_lo,
+// c_hi) whose clamped taps read them (T column ct reads window column
+// clamp(ct + cb - xa, 0, xb - xa - 1))
+struct ColChunk {
+  int wlo, whi, c_lo, c_hi;
+};
+
+__device__ __forceinline__ int chunk_first_col(int c, int n, int nwin, int d0, int SX) {
+  // T columns before the first window column > 0 that a chunk starts on
+  // read window column 0 or later ones of the chunks before it
+  const int wlo = 16 * (c * ((nwin + 15) / 16) / n);
+  return c == 0 || wlo == 0 ? 0 : min(max(wlo - d0, 0), SX);
+}
+
+__device__ __forceinline__ ColChunk col_chunk(int c, int n, int nwin, int d0, int SX) {
+  const int nk = (nwin + 15) / 16;
+  ColChunk k;
+  k.wlo = 16 * (c * nk / n);
+  k.whi = c == n - 1 ? nwin : 16 * ((c + 1) * nk / n);
+  k.c_lo = chunk_first_col(c, n, nwin, d0, SX);
+  k.c_hi = c == n - 1 ? SX : chunk_first_col(c + 1, n, nwin, d0, SX);
+  return k;
+}
+
+// 4 bytes to bf16 exactly, in two 32-bit words (low half: the lower
+// address): byte b becomes the float 2^23 + b by prmt, then b by one
+// subtraction, and its high 16 bits are b in bf16 (8 significant bits)
+__device__ __forceinline__ uint2 bytes_to_bf16(uint32_t w) {
+  float f[4];
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    f[b] = __uint_as_float(__byte_perm(w, 0x4Bu, 0x4550u + b)) - 8388608.0f;
+  }
+  return make_uint2(__byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632u),
+                    __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632u));
+}
+
+// convert column chunk k of the window (rows [0, rows), staged from shared
+// byte wbase at pitch_in) into the buffer at shared byte buf
+__device__ __forceinline__ void convert_chunk(int buf, int cpitch, int wbase, int pitch_in,
+                                              int rows, const ColChunk& k, int tid) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  if (k.whi <= k.wlo) return;
+  const int j0 = k.wlo / 16;
+  const int per_row = (15 + k.whi - 1) / 16 - j0 + 1;  // at most, over the rows
+  for (Walk e(tid, per_row); e.r < rows; e.next()) {
+    const int row = wbase + e.r * pitch_in;
+    if (j0 + e.c > ((row & 15) + k.whi - 1) / 16) continue;
+    const uint4 v = *reinterpret_cast<const uint4*>(smem + (row & ~15) + 16 * (j0 + e.c));
+    const uint2 p0 = bytes_to_bf16(v.x), p1 = bytes_to_bf16(v.y);
+    const uint2 p2 = bytes_to_bf16(v.z), p3 = bytes_to_bf16(v.w);
+    uint4* o = reinterpret_cast<uint4*>(smem + buf + e.r * cpitch + 32 * e.c);
+    o[0] = make_uint4(p0.x, p0.y, p1.x, p1.y);
+    o[1] = make_uint4(p2.x, p2.y, p3.x, p3.y);
+  }
+}
+
 // The y pass over T columns [c_lo, c_hi) only (MODE 0), pixels read as Tv
-// with column x at byte (x - x_org) * sizeof(Tv) of each tap row: the
-// converted f32 chunks of kU8Convert.  The items, lanes and tap order are
-// y_pass's.
+// with window column w at byte buf + (w - wlo) * sizeof(Tv) of each tap
+// row: the converted chunks of kU8Convert.  The items, lanes and tap order
+// are y_pass's.
 template <typename Tv>
 __device__ __forceinline__ void y_pass_cols(float* __restrict__ T, const int* rowtab,
                                             const float* wtab, const Dims& d, int rows, int cb,
-                                            int xa, int xb, int c_lo, int c_hi, int x_org) {
+                                            int xa, int xb, int c_lo, int c_hi, int wlo,
+                                            int buf) {
   constexpr int kGroup = 32 * kLaneCols;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -474,7 +583,7 @@ __device__ __forceinline__ void y_pass_cols(float* __restrict__ T, const int* ro
       // a column past the chunk (read, not stored) reads its last one:
       // only the chunk's columns are converted
       const int c = min(c0 + 32 * q, c_hi - 1);
-      off[q] = (min(max(cb + c, xa), xb - 1) - x_org) * static_cast<int>(sizeof(Tv));
+      off[q] = buf + (min(max(cb + c, xa), xb - 1) - xa - wlo) * static_cast<int>(sizeof(Tv));
     }
     Acc<0, true> acc[kLaneCols];
     const int* rt_r = rowtab + r * d.ky;
@@ -608,12 +717,13 @@ __global__ void __launch_bounds__(kThreads) band_apply_kernel(
   float* wtab = reinterpret_cast<float*>(rowtab + d.TY * d.ky);
   const int zero_row = g.zero_off + 16;
   if constexpr (kChunks > 0) {
-    // the y pass reads the f32 chunk buffer at g.smem: window row y - ya
-    // at g.smem + (y - ya) * (SX / kChunks) * 4
-    const int fpitch = (d.SX + kChunks - 1) / kChunks * 4;
+    // the y pass reads the bf16 chunk buffers (from g.smem): window row r
+    // at r * cpitch + 2 * m_r of a buffer (convert_chunk)
+    const int cpitch = convert_pitch(d.SX, kChunks);
     for (Walk e(tid, d.ky); e.r < rows; e.next()) {
       const int y = __ldg(ys + i0 + e.r) + e.c;
-      rowtab[e.r * d.ky + e.c] = g.smem + (min(max(y, 0), d.H - 1) - ya) * fpitch;
+      const int r = min(max(y, 0), d.H - 1) - ya;
+      rowtab[e.r * d.ky + e.c] = r * cpitch + 2 * ((wbase + r * g.pitch_in) & 15);
       wtab[e.r * d.ky + e.c] = __ldg(wy + static_cast<long long>(i0 + e.r) * d.ky + e.c);
     }
   } else
@@ -674,21 +784,22 @@ __global__ void __launch_bounds__(kThreads) band_apply_kernel(
   } else if constexpr (P == kU8Words) {
     y_pass_words<kClamp>(T, rowtab, wtab, d, rows, cb, xa, xb);
   } else if constexpr (kChunks > 0) {
-    // the window to f32 in shared memory, chunk by chunk of T's columns,
-    // each chunk then y-passed from it
-    float* fb = reinterpret_cast<float*>(smem + g.smem);
-    const int cpitch = (d.SX + kChunks - 1) / kChunks;
-    for (int c_lo = 0; c_lo < d.SX; c_lo += cpitch) {
-      const int c_hi = min(d.SX, c_lo + cpitch);
-      const int wlo = min(max(cb + c_lo, xa), xb - 1) - xa;
-      const int nw = min(max(cb + c_hi - 1, xa), xb - 1) - xa + 1 - wlo;
-      for (Walk e(tid, nw); e.r < yb - ya; e.next()) {
-        fb[e.r * cpitch + e.c] = to_f32(
-            *reinterpret_cast<const Tin*>(smem + wbase + e.r * g.pitch_in + (wlo + e.c) * ei));
+    // the window to bf16 chunk by chunk into two buffers, chunk c + 1
+    // converted while chunk c is y-passed (convert_chunk)
+    const int cpitch = convert_pitch(d.SX, kChunks);
+    const int cbytes = static_cast<int>(up16(static_cast<long long>(d.SY) * cpitch));
+    auto chunk = [&](int c) { return col_chunk(c, kChunks, xb - xa, cb - xa, d.SX); };
+    convert_chunk(g.smem, cpitch, wbase, g.pitch_in, yb - ya, chunk(0), tid);
+    __syncthreads();
+    for (int c = 0; c < kChunks; ++c) {
+      if (c + 1 < kChunks) {
+        convert_chunk(g.smem + ((c + 1) & 1) * cbytes, cpitch, wbase, g.pitch_in, yb - ya,
+                      chunk(c + 1), tid);
       }
-      __syncthreads();
-      y_pass_cols<float>(T, rowtab, wtab, d, rows, cb, xa, xb, c_lo, c_hi, xa + wlo);
-      __syncthreads();
+      const ColChunk k = chunk(c);
+      y_pass_cols<__nv_bfloat16>(T, rowtab, wtab, d, rows, cb, xa, xb, k.c_lo, k.c_hi, k.wlo,
+                                 g.smem + (c & 1) * cbytes);
+      if (c + 1 < kChunks) __syncthreads();
     }
   } else if constexpr (P != kStage) {
     y_pass<Tin, MODE, kClamp>(T, rowtab, wtab, d, rows, cb, xa, xb);
@@ -764,61 +875,99 @@ __global__ void __launch_bounds__(kThreads) band_apply_kernel(
   }
 }
 
-// kWalk<n> (probe): one block per (frame, strip, run of `steps` row tiles),
-// walking its run with n - 1 windows in flight: tile k + n - 1's window is
-// staged (slot (k + n - 1) % n) before tile k is computed.  Each tile goes
-// through the production kernel's phases (the functions above, the same
-// arithmetic): its output is production's bit for bit.  Slot 0 is the
-// production window's place, slots 1.. follow the production layout
-// (from g.smem).
+// kWalk<n> (probe): production's function on a persistent grid, each block
+// a ring of n windows in shared memory, filled by a producer warp and read
+// by kThreads consumer threads (csrc/band_probes.cu sizes the grid: as many
+// blocks an SM as the ring's shared memory and the registers allow, on
+// every SM, fewer where there are fewer tiles).
+//
+//   * Items: the (frame, strip, row tile) tiles, row tiles fastest; block b
+//     takes the contiguous share [b * items / G, (b + 1) * items / G), so it
+//     walks the row tiles of a strip in order (a share crosses a strip or
+//     frame at most a few times; the x pass's registers are set again there).
+//   * The producer (the last warp) fills slot k % n for item k once the
+//     consumers have released the slot's previous item on its empty
+//     mbarrier: the tile's tap table (the slot's own, walk_taps), then its
+//     window (laid out as production's), one 1-D bulk copy a row
+//     (load_window) onto the slot's full mbarrier.  It runs up to n - 1
+//     items ahead, so the tap table's global loads and the copies stay off
+//     the consumers' path.
+//   * The consumers wait on the full mbarrier, run the y pass and release
+//     the slot right after it (the x pass reads only T), so the producer
+//     refills it while the x pass and the stores run.  They synchronise
+//     among themselves on a named barrier, two a tile (after the y pass,
+//     after the x pass), never with the producer.
+//
+// The phases are production's arithmetic (y_pass, x_col, x_pass,
+// store_tile): the output is production's bit for bit.  Layout (walk_geo):
+// the n windows, T, the n tap tables, the output tile, the 2n mbarriers;
+// the walk's taps are clamped, so it has no zero row.
 template <typename Tin, typename Tout, int kSlots>
-__global__ void __launch_bounds__(kThreads) band_walk_kernel(
+__global__ void __launch_bounds__(kThreads + 32) band_walk_kernel(
     const Tin* __restrict__ src, Tout* __restrict__ out, const int* __restrict__ ys,
     const float* __restrict__ wy, const int* __restrict__ xs, const float* __restrict__ wx,
     const int* __restrict__ row_base, const int* __restrict__ col_base, Dims d, Geo g,
-    int steps) {
+    long long items) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x;
-  const int n_run = (d.n_rt + steps - 1) / steps;
-  const int strip = blockIdx.x % d.n_strip;
-  const int rest = blockIdx.x / d.n_strip;
-  const long long f = rest / n_run;
-  const int first = (rest % n_run) * steps;
-  const int n = min(steps, d.n_rt - first);
-  auto slot = [&](int k) { return k % kSlots == 0 ? 0 : g.smem + (k % kSlots - 1) * g.zero_off; };
-  for (int k = 0; k < kSlots - 1; ++k) {
-    if (k < n) {
-      stage_window(src, d, g, tile_at<true>(d, row_base, col_base, strip, first + k, f),
-                   slot(k), tid);
+  const int tab = static_cast<int>(up16(8LL * d.TY * d.ky));  // slot s's at tab_off + s * tab
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + g.smem - 16 * kSlots);
+  uint64_t* empty = full + kSlots;
+  if (tid == 0) {
+    for (int s = 0; s < kSlots; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 1);
     }
-    asm volatile("cp.async.commit_group;\n" ::);
+    hopper::fence_mbarrier_init();
   }
-  int* rowtab = reinterpret_cast<int*>(smem + g.tab_off);
-  float* wtab = reinterpret_cast<float*>(rowtab + d.TY * d.ky);
+  __syncthreads();
+  // the share [lo, lo + n) (the host keeps items within an int); each side
+  // walks it with its own cursor (rt, strip, f), row tiles fastest
+  const int lo = static_cast<int>(blockIdx.x * items / gridDim.x);
+  const int n = static_cast<int>((blockIdx.x + 1) * items / gridDim.x) - lo;
+  int rt = lo % d.n_rt, strip = lo / d.n_rt % d.n_strip, f = lo / d.n_rt / d.n_strip;
+  auto next = [&]() {
+    if (++rt == d.n_rt) {
+      rt = 0;
+      if (++strip == d.n_strip) {
+        strip = 0;
+        ++f;
+      }
+    }
+  };
+  auto slot = [&](int s) { return s * g.zero_off; };
+  auto rowtab = [&](int s) { return reinterpret_cast<int*>(smem + g.tab_off + s * tab); };
+  auto wtab = [&](int s) { return reinterpret_cast<float*>(rowtab(s) + d.TY * d.ky); };
+  if (tid >= kThreads) {  // the producer warp
+    const int lane = tid - kThreads;
+    for (int k = 0, s = 0; k < n; ++k, s = s + 1 == kSlots ? 0 : s + 1, next()) {
+      if (k >= kSlots) hopper::mbar_wait(&empty[s], (k / kSlots - 1) & 1);
+      const Tile t = tile_at<true>(d, row_base, col_base, strip, rt, f);
+      walk_taps(rowtab(s), wtab(s), ys, wy, d, g, t,
+                window_base<Tin>(window_src(src, d, t), slot(s)), lane);
+      load_window(src, d, g, t, slot(s), &full[s], lane);
+    }
+    return;
+  }
   float* T = reinterpret_cast<float*>(smem + g.t_off);
   XCol x;
-  x_col<Tin>(x, xs, wx, d, tile_at<true>(d, row_base, col_base, strip, first, f), tid);
-  for (int k = 0; k < n; ++k) {
-    const int ahead = k + kSlots - 1;
-    if (ahead < n) {
-      stage_window(src, d, g, tile_at<true>(d, row_base, col_base, strip, first + ahead, f),
-                   slot(ahead), tid);
+  int x_strip = -1;
+  for (int k = 0, s = 0; k < n; ++k, s = s + 1 == kSlots ? 0 : s + 1, next()) {
+    const Tile t = tile_at<true>(d, row_base, col_base, strip, rt, f);
+    if (t.j0 != x_strip) {
+      x_col<Tin>(x, xs, wx, d, t, tid);
+      x_strip = t.j0;
     }
-    asm volatile("cp.async.commit_group;\n" ::);
-    const Tile t = tile_at<true>(d, row_base, col_base, strip, first + k, f);
-    tap_table<true>(rowtab, wtab, ys, wy, d, g, t, window_base<Tin>(window_src(src, d, t), slot(k)),
-                    g.pitch_in, tid);
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(kSlots - 1));
-    __syncthreads();
-    y_pass<Tin, 0, true>(T, rowtab, wtab, d, t.rows, t.cb, t.xa, t.xb);
-    __syncthreads();
+    hopper::mbar_wait(&full[s], (k / kSlots) & 1);
+    y_pass<Tin, 0, true>(T, rowtab(s), wtab(s), d, t.rows, t.cb, t.xa, t.xb);
+    consumer_sync();  // T whole; slot s read
+    if (tid == 0) hopper::mbar_arrive(&empty[s]);
     Tout* orow0 = out + (t.f * d.Hd + t.i0) * static_cast<long long>(d.Wd) + t.j0;
     unsigned char* ot =
         smem + g.o_off + 16 + static_cast<int>(reinterpret_cast<uintptr_t>(orow0) & 15);
     x_pass<Tout, 0>(T, x, d, g, t.rows, ot);
-    __syncthreads();
+    consumer_sync();  // the output tile whole; T read
     store_tile(orow0, ot, d, g, t.rows, t.cols, tid);
-    __syncthreads();  // the tap table and output tile are the next tile's
   }
 }
 
@@ -841,6 +990,24 @@ inline Geo make_geo(const Dims& d, int ei, int eo) {
   g.tab_off = static_cast<int>(tab_off);
   g.o_off = static_cast<int>(o_off);
   g.pitch_out = static_cast<int>(pitch_out);
+  g.smem = total > INT_MAX ? INT_MAX : static_cast<int>(total);
+  return g;
+}
+
+// the walk's shared-memory layout for `slots` windows (band_walk_kernel):
+// window s at s * zero_off (each laid out as production's), T at t_off,
+// the slots' tap tables from tab_off, the output tile at o_off, the 2n
+// mbarriers in the last 16n bytes of smem
+inline Geo walk_geo(const Dims& d, int ei, int eo, int slots) {
+  Geo g = make_geo(d, ei, eo);
+  const long long t_off = static_cast<long long>(slots) * g.zero_off;
+  const long long tab_off = t_off + up16(4LL * d.TY * d.SX);
+  const long long o_off = tab_off + slots * up16(8LL * d.TY * d.ky);
+  const long long total = o_off + up16(32 + static_cast<long long>(d.TY) * g.pitch_out) +
+                          16LL * slots;
+  g.t_off = static_cast<int>(t_off);
+  g.tab_off = static_cast<int>(tab_off);
+  g.o_off = static_cast<int>(o_off);
   g.smem = total > INT_MAX ? INT_MAX : static_cast<int>(total);
   return g;
 }

@@ -32,10 +32,12 @@
 // What each keeps and stores (band_apply.cuh's Probe): kStage the window
 // staging and the output stores (the first tap's pixel); kStageY those and
 // the y pass (T at the first x tap); kWalk<n> production's output from a
-// block that walks `steps` row tiles of one strip with n - 1 windows in
-// flight; kU8Words, kU8Convert<n> and kXPair production's output with the
-// y pass reading 4 u8 pixels per 32-bit word, the window converted to f32
-// in shared memory in n column chunks, or an x pass for an exact ratio-2
+// persistent grid whose blocks walk their shares of the tiles through a
+// ring of n windows, filled by a producer warp with bulk copies;
+// kU8Words, kU8Convert<n> and kXPair production's output with the y pass
+// reading 4 u8 pixels per 32-bit word, the window converted to bf16 in
+// shared memory in n column chunks (chunk c + 1 converted while chunk c is
+// y-passed), or an x pass for an exact ratio-2
 // band from a (4, Wd) table; kXOnly production's x pass alone, its T
 // converted from the tile's rows of an input that holds the y pass's
 // output, (F, Hd, W) in the frame dtype (H passed as Hd), staged as the
@@ -47,6 +49,8 @@
 // does not synchronise.  The return value is cudaGetLastError() after the
 // launch (0 on success).
 
+#include <algorithm>
+
 #include "band_apply.cuh"
 
 namespace {
@@ -54,26 +58,53 @@ namespace {
 using band::Dims;
 using band::Geo;
 
+// the probe's dynamic shared memory: the walk's layout (g from walk_geo),
+// or production's plus the two bf16 chunk buffers (one for a single chunk)
+template <int P>
+long long probe_smem(const Geo& g, const Dims& d) {
+  constexpr int kChunks = band::convert_chunks(P);
+  if constexpr (kChunks > 0) {
+    return g.smem + (kChunks > 1 ? 2 : 1) *
+                        band::up16(static_cast<long long>(d.SY) *
+                                   band::convert_pitch(d.SX, kChunks));
+  }
+  return g.smem;
+}
+
+// the walk's persistent grid for `smem` bytes a block: SMs, and blocks an SM
+// from the occupancy of band_walk_kernel (0 or a cudaError_t)
+template <typename Tin, typename Tout, int kSlots>
+int walk_occupancy(long long smem, int* sms, int* per_sm, int* regs) {
+  auto kern = band::band_walk_kernel<Tin, Tout, kSlots>;
+  static std::atomic<int> opted_in[stage::kMaxDevices];  // kern's limit per device
+  if (const int e = stage::opt_in(reinterpret_cast<const void*>(kern), smem, opted_in)) return e;
+  int dev = 0;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern, band::kThreads + 32,
+                                                      static_cast<size_t>(smem));
+  }
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kern);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *regs = attr.numRegs;
+  return *per_sm > 0 ? 0 : static_cast<int>(cudaErrorInvalidConfiguration);
+}
+
 template <typename Tin, typename Tout, int P>
 int launch_probe(const void* src, void* out, const void* ys, const void* wy, const void* xs,
                  const void* wx, const void* row_base, const void* col_base, int F, Dims d,
-                 int steps, cudaStream_t stream) {
+                 cudaStream_t stream) {
   constexpr int kSlots = band::walk_slots(P);
-  constexpr int kChunks = band::convert_chunks(P);
   d.n_strip = (d.Wd + d.TX - 1) / d.TX;
   d.n_rt = (d.Hd + d.TY - 1) / d.TY;
-  const Geo g = band::make_geo(d, sizeof(Tin), sizeof(Tout));
-  long long smem = g.smem;
-  if constexpr (kSlots > 0) smem += static_cast<long long>(kSlots - 1) * g.zero_off;
-  if constexpr (kChunks > 0) {
-    smem += band::up16(4LL * d.SY * ((d.SX + kChunks - 1) / kChunks));
-  }
-  if (smem > INT_MAX || (kSlots > 0 && steps <= 0)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const long long runs = kSlots > 0 ? (d.n_rt + steps - 1) / steps : d.n_rt;
-  const long long blocks = static_cast<long long>(F) * d.n_strip * runs;
-  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const Geo g = kSlots > 0 ? band::walk_geo(d, sizeof(Tin), sizeof(Tout), kSlots)
+                           : band::make_geo(d, sizeof(Tin), sizeof(Tout));
+  const long long smem = probe_smem<P>(g, d);
+  if (smem > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const long long items = static_cast<long long>(F) * d.n_strip * d.n_rt;
+  if (items > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
   const Tin* s = static_cast<const Tin*>(src);
   Tout* o = static_cast<Tout*>(out);
   const int* y = static_cast<const int*>(ys);
@@ -82,37 +113,51 @@ int launch_probe(const void* src, void* out, const void* ys, const void* wy, con
   const float* b = static_cast<const float*>(wx);
   const int* rb = static_cast<const int*>(row_base);
   const int* cb = static_cast<const int*>(col_base);
-  const dim3 grid(static_cast<unsigned>(blocks));
   const size_t bytes = static_cast<size_t>(smem);
-  static std::atomic<int> opted_in[stage::kMaxDevices];  // kern's limit per device
   if constexpr (kSlots > 0) {
-    auto kern = band::band_walk_kernel<Tin, Tout, kSlots>;
-    if (const int e = stage::opt_in(reinterpret_cast<const void*>(kern), smem, opted_in)) {
-      return e;
-    }
-    kern<<<grid, band::kThreads, bytes, stream>>>(s, o, y, a, x, b, rb, cb, d, g, steps);
+    int sms = 0, per_sm = 0, regs = 0;
+    if (const int e = walk_occupancy<Tin, Tout, kSlots>(smem, &sms, &per_sm, &regs)) return e;
+    const long long blocks = std::min(items, static_cast<long long>(sms) * per_sm);
+    band::band_walk_kernel<Tin, Tout, kSlots>
+        <<<static_cast<unsigned>(blocks), band::kThreads + 32, bytes, stream>>>(
+            s, o, y, a, x, b, rb, cb, d, g, items);
   } else {
     auto kern = band::band_apply_kernel<Tin, Tout, 0, true, P>;
+    static std::atomic<int> opted_in[stage::kMaxDevices];  // kern's limit per device
     if (const int e = stage::opt_in(reinterpret_cast<const void*>(kern), smem, opted_in)) {
       return e;
     }
-    kern<<<grid, band::kThreads, bytes, stream>>>(s, o, y, a, x, b, rb, cb, d, g);
+    kern<<<static_cast<unsigned>(items), band::kThreads, bytes, stream>>>(s, o, y, a, x, b, rb,
+                                                                          cb, d, g);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// the walk's launch geometry (aainterp_band_walk_grid)
+template <typename T>
+int walk_grid(int mode, const Dims& d, int* out) {
+  const int smem = band::walk_geo(d, sizeof(T), sizeof(T), band::walk_slots(mode)).smem;
+  out[3] = smem;
+  switch (mode) {
+    case band::kWalk2: return walk_occupancy<T, T, 2>(smem, &out[0], &out[1], &out[2]);
+    case band::kWalk3: return walk_occupancy<T, T, 3>(smem, &out[0], &out[1], &out[2]);
+    case band::kWalk4: return walk_occupancy<T, T, 4>(smem, &out[0], &out[1], &out[2]);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // the flagship module's modes, in = out = float32 or bfloat16
 template <typename T>
 int float_modes(int mode, const void* src, void* out, const void* ys, const void* wy,
                 const void* xs, const void* wx, const void* rb, const void* cb, int F,
-                const Dims& d, int steps, cudaStream_t st) {
+                const Dims& d, cudaStream_t st) {
   switch (mode) {
-    case band::kStage: return launch_probe<T, T, band::kStage>(src, out, ys, wy, xs, wx, rb, cb, F, d, steps, st);
-    case band::kStageY: return launch_probe<T, T, band::kStageY>(src, out, ys, wy, xs, wx, rb, cb, F, d, steps, st);
-    case band::kWalk2: return launch_probe<T, T, band::kWalk2>(src, out, ys, wy, xs, wx, rb, cb, F, d, steps, st);
-    case band::kWalk3: return launch_probe<T, T, band::kWalk3>(src, out, ys, wy, xs, wx, rb, cb, F, d, steps, st);
-    case band::kWalk4: return launch_probe<T, T, band::kWalk4>(src, out, ys, wy, xs, wx, rb, cb, F, d, steps, st);
-    case band::kXOnly: return launch_probe<T, T, band::kXOnly>(src, out, ys, wy, xs, wx, rb, cb, F, d, steps, st);
+    case band::kStage: return launch_probe<T, T, band::kStage>(src, out, ys, wy, xs, wx, rb, cb, F, d, st);
+    case band::kStageY: return launch_probe<T, T, band::kStageY>(src, out, ys, wy, xs, wx, rb, cb, F, d, st);
+    case band::kWalk2: return launch_probe<T, T, band::kWalk2>(src, out, ys, wy, xs, wx, rb, cb, F, d, st);
+    case band::kWalk3: return launch_probe<T, T, band::kWalk3>(src, out, ys, wy, xs, wx, rb, cb, F, d, st);
+    case band::kWalk4: return launch_probe<T, T, band::kWalk4>(src, out, ys, wy, xs, wx, rb, cb, F, d, st);
+    case band::kXOnly: return launch_probe<T, T, band::kXOnly>(src, out, ys, wy, xs, wx, rb, cb, F, d, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -120,16 +165,16 @@ int float_modes(int mode, const void* src, void* out, const void* ys, const void
 // the u8 module's modes, uint8 in and out
 int u8_modes(int mode, const void* src, void* out, const void* ys, const void* wy,
              const void* xs, const void* wx, const void* rb, const void* cb, int F,
-             const Dims& d, int steps, cudaStream_t st) {
+             const Dims& d, cudaStream_t st) {
   using U = uint8_t;
   switch (mode) {
-    case band::kStage: return launch_probe<U, U, band::kStage>(src, out, ys, wy, xs, wx, rb, cb, F, d, steps, st);
-    case band::kStageY: return launch_probe<U, U, band::kStageY>(src, out, ys, wy, xs, wx, rb, cb, F, d, steps, st);
-    case band::kU8Words: return launch_probe<U, U, band::kU8Words>(src, out, ys, wy, xs, wx, rb, cb, F, d, steps, st);
-    case band::kXPair: return launch_probe<U, U, band::kXPair>(src, out, ys, wy, xs, wx, rb, cb, F, d, steps, st);
-    case band::kU8Convert1: return launch_probe<U, U, band::kU8Convert1>(src, out, ys, wy, xs, wx, rb, cb, F, d, steps, st);
-    case band::kU8Convert2: return launch_probe<U, U, band::kU8Convert2>(src, out, ys, wy, xs, wx, rb, cb, F, d, steps, st);
-    case band::kU8Convert4: return launch_probe<U, U, band::kU8Convert4>(src, out, ys, wy, xs, wx, rb, cb, F, d, steps, st);
+    case band::kStage: return launch_probe<U, U, band::kStage>(src, out, ys, wy, xs, wx, rb, cb, F, d, st);
+    case band::kStageY: return launch_probe<U, U, band::kStageY>(src, out, ys, wy, xs, wx, rb, cb, F, d, st);
+    case band::kU8Words: return launch_probe<U, U, band::kU8Words>(src, out, ys, wy, xs, wx, rb, cb, F, d, st);
+    case band::kXPair: return launch_probe<U, U, band::kXPair>(src, out, ys, wy, xs, wx, rb, cb, F, d, st);
+    case band::kU8Convert1: return launch_probe<U, U, band::kU8Convert1>(src, out, ys, wy, xs, wx, rb, cb, F, d, st);
+    case band::kU8Convert2: return launch_probe<U, U, band::kU8Convert2>(src, out, ys, wy, xs, wx, rb, cb, F, d, st);
+    case band::kU8Convert4: return launch_probe<U, U, band::kU8Convert4>(src, out, ys, wy, xs, wx, rb, cb, F, d, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -143,13 +188,15 @@ int u8_modes(int mode, const void* src, void* out, const void* ys, const void* w
 // xpair, u8 convert).  The other arguments are aainterp_separable_apply's
 // (csrc/separable_apply.cu); for xpair wx is the (4, Wd) table of source
 // columns 2j - 1 .. 2j + 2 and xs is not read; for xonly src is (F, Hd,
-// W), H = Hd and SY >= TY (the window holds the tile's rows); steps: row
-// tiles per block of the walk.
+// W), H = Hd and SY >= TY (the window holds the tile's rows).  The walk
+// takes no count of row tiles a block: its grid is persistent, min(tiles,
+// SMs x blocks an SM), and each block's share follows from the grid
+// (aainterp_band_walk_grid).
 extern "C" int aainterp_band_probe(
     const void* src, void* out, const void* ys, const void* wy, const void* xs,
     const void* wx, const void* row_base, const void* col_base, int F, int H, int W,
-    int Hd, int Wd, int ky, int kx, int TY, int TX, int SY, int SX, int mode, int steps,
-    int dtype_code, void* stream) {
+    int Hd, int Wd, int ky, int kx, int TY, int TX, int SY, int SX, int mode, int dtype_code,
+    void* stream) {
   if (F <= 0 || H <= 0 || W <= 0 || Hd <= 0 || Wd <= 0 || ky <= 0 || kx <= 0 || TY <= 0 ||
       TX <= 0 || TX > band::kThreads || SY < ky || SX < kx ||
       (mode == band::kXOnly && (H != Hd || SY < TY)) ||
@@ -159,9 +206,27 @@ extern "C" int aainterp_band_probe(
   Dims d{H, W, Hd, Wd, ky, kx, TY, TX, SY, SX, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype_code) {
-    case 0: return float_modes<float>(mode, src, out, ys, wy, xs, wx, row_base, col_base, F, d, steps, s);
-    case 1: return float_modes<__nv_bfloat16>(mode, src, out, ys, wy, xs, wx, row_base, col_base, F, d, steps, s);
-    case 2: return u8_modes(mode, src, out, ys, wy, xs, wx, row_base, col_base, F, d, steps, s);
+    case 0: return float_modes<float>(mode, src, out, ys, wy, xs, wx, row_base, col_base, F, d, s);
+    case 1: return float_modes<__nv_bfloat16>(mode, src, out, ys, wy, xs, wx, row_base, col_base, F, d, s);
+    case 2: return u8_modes(mode, src, out, ys, wy, xs, wx, row_base, col_base, F, d, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The walk's launch geometry for a walk mode (8-10) and dtype_code (0, 1)
+// at these dims (aainterp_band_probe's): out[0] the SMs, out[1] blocks an
+// SM, out[2] the kernel's registers a thread, out[3] its shared memory a
+// block.  Returns 0 or a cudaError_t (cudaErrorInvalidValue where the
+// ring exceeds the card's opt-in).
+extern "C" int aainterp_band_walk_grid(int H, int W, int Hd, int Wd, int ky, int kx, int TY,
+                                       int TX, int SY, int SX, int mode, int dtype_code,
+                                       int* out) {
+  if (H <= 0 || W <= 0 || Hd <= 0 || Wd <= 0 || ky <= 0 || kx <= 0 || TY <= 0 || TX <= 0 ||
+      TX > band::kThreads || SY < ky || SX < kx || band::walk_slots(mode) == 0 ||
+      dtype_code < 0 || dtype_code > 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Dims d{H, W, Hd, Wd, ky, kx, TY, TX, SY, SX, 0, 0};
+  return dtype_code == 0 ? walk_grid<float>(mode, d, out)
+                         : walk_grid<__nv_bfloat16>(mode, d, out);
 }

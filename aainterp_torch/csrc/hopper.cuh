@@ -7,8 +7,9 @@
 //
 // First used by csrc/watchlist.cu, whose six probes hold each primitive
 // against a plain PyTorch version on the card; csrc/dense_x.cu runs a
-// product of a bf16 split on the same wgmma path, and csrc/probes.cu's copy
-// a ring of bulk loads and stores.
+// product of a bf16 split on the same wgmma path, csrc/probes.cu's copy
+// a ring of bulk loads and stores, and csrc/band_apply.cuh's walk a ring
+// of windows filled by bulk loads and released by its consumers.
 //
 // mbarrier protocol: one thread calls mbar_init, then fence_mbarrier_init,
 // then the block synchronises before any copy names the barrier.  The thread
@@ -77,6 +78,11 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
                "r"(bytes)
                : "memory");
+}
+
+// one arrival on the barrier, no bytes: a consumer releasing a buffer
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 
 __device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {

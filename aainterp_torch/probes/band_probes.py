@@ -14,14 +14,17 @@ production's tiles, derived from what it keeps):
   (clamped to the image, as every tap is);
 * ``stagey`` — staging and the y pass: ``out[f, i, j] = cast(T[i, xs[j]])``
   with ``T`` the y pass's f32 sums, the first x tap's y sum;
-* ``walk2``, ``walk3``, ``walk4`` — production's output from a block that
-  walks ``WALK_TILES`` row tiles of one strip with n - 1 windows in flight;
+* ``walk2``, ``walk3``, ``walk4`` — production's output from a persistent
+  grid (``walk_grid``) whose blocks each walk a contiguous share of the
+  (frame, strip, row tile) tiles (``walk_shares``) through a ring of n
+  windows that a producer warp fills with bulk copies;
 * ``u8words`` (u8) — production's output, the y pass reading 4 pixels per
   32-bit shared word, byte k of a word the pixel of column x0 + k
   (little-endian, ``word_bytes``);
 * ``u8convert1``, ``u8convert2``, ``u8convert4`` (u8) — production's
-  output, the staged window converted to f32 in shared memory in n column
-  chunks, each followed by its part of the y pass;
+  output, the staged window converted to bf16 (exact for u8) in shared
+  memory in n column chunks, 16 pixels a thread, chunk c + 1 converted
+  while chunk c is y-passed;
 * ``xpair`` (u8) — production's output from an x pass for an exact ratio-2
   band: dst column j reads source columns 2j - 1 .. 2j + 2 with weights
   from a (4, Wd) table (``xpair_table``; ``ValueError`` on other bands);
@@ -55,6 +58,7 @@ any launch; ``densex``'s holds two chunks of K and fits at any width.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional
 
@@ -86,7 +90,6 @@ U8_MODES = ("stage", "stagey", "u8words", "u8convert1", "u8convert2",
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
 # kernel launches so far per mode, counted where the wrapper launches
 LAUNCHES = {m: 0 for m in MODES}
-WALK_TILES = 9      # row tiles a walking block takes (135 = 15 x 9 at 4K)
 
 H, W = 2160, 3840   # the flagship: 4K -> 1080p, exact
 
@@ -160,24 +163,78 @@ def smem_bytes(plan: dict, mode: str, Ws: int, Wd: int, ky: int,
                elem: int) -> int:
     """Dynamic shared memory of ``mode``'s block for frames Ws pixels wide
     (dst Wd) of ``elem``-byte pixels in and out on ``plan``: the production
-    layout (band_apply.cuh's ``make_geo``), plus n - 1 more windows
-    (walk<n>) or the f32 chunk buffer (u8convert<n>).  ``xonly`` stages
+    layout (band_apply.cuh's ``make_geo``), or the walk's (``walk_geo``:
+    n windows, n tap tables and 2n mbarriers, no zero row), plus the bf16
+    chunk buffers for u8convert<n> (two, one for n = 1; ``convert_pitch``
+    bytes a window row).  ``xonly`` stages
     its tile's TY rows of the y pass's output in the window
     (``window_rows``).  ``densex`` runs on ``csrc/dense_x.cu``
     (``dense_x_smem``)."""
     TY, TX, SX = plan["TY"], plan["TX"], plan["SX"]
     SY = window_rows(plan, mode)
     pitch_in = _seg_pitch(SX * elem, Ws * elem)
-    zero_off = _up16(32 + SY * pitch_in)
-    o_off = (zero_off + _up16(pitch_in + 32) + _up16(4 * TY * SX)
-             + _up16(8 * TY * ky))
-    total = o_off + _up16(32 + TY * _seg_pitch(TX * elem, Wd * elem))
-    if mode.startswith("walk"):
-        total += (int(mode[-1]) - 1) * zero_off
+    window = _up16(32 + SY * pitch_in)
+    out_tile = _up16(32 + TY * _seg_pitch(TX * elem, Wd * elem))
+    tab = _up16(8 * TY * ky)
+    if mode.startswith("walk"):   # no zero row: the walk's taps are clamped
+        n = int(mode[-1])
+        return n * (window + tab + 16) + _up16(4 * TY * SX) + out_tile
+    total = (window + _up16(pitch_in + 32) + _up16(4 * TY * SX) + tab
+             + out_tile)
     if mode.startswith("u8convert"):
         n = int(mode[-1])
-        total += _up16(4 * SY * -(-SX // n))
+        total += min(n, 2) * _up16(SY * convert_pitch(SX, n))
     return total
+
+
+def convert_pitch(SX: int, n: int) -> int:
+    """Bytes a window row of a u8convert<n> chunk buffer (band_apply.cuh's
+    ``convert_pitch``): 32 bytes of bf16 for each aligned 16-byte window
+    chunk a column chunk may take, its share of ceil(SX / 16) and one
+    more where a row starts inside a chunk."""
+    chunks = -(-SX // 16)
+    return 32 * (-(-chunks // n) + 1)
+
+
+def walk_shares(items: int, blocks: int) -> list:
+    """The walk's split of ``items`` tiles (row tiles fastest, then
+    strips, then frames) over its persistent grid of G = min(items,
+    ``blocks``) blocks, ``blocks`` being SMs x blocks an SM
+    (csrc/band_probes.cu and band_apply.cuh's ``band_walk_kernel``): block
+    b takes tiles [b * items // G, (b + 1) * items // G)."""
+    grid = min(items, blocks)
+    return [(b * items // grid, (b + 1) * items // grid)
+            for b in range(grid)]
+
+
+def walk_grid(frames: torch.Tensor, tables, mode: str) -> dict:
+    """The walk mode ``mode``'s launch on ``frames`` (CUDA, float32 or
+    bfloat16; the card is asked): the SMs, blocks an SM (the occupancy of
+    its shared memory and registers), registers a thread, shared memory a
+    block, tiles and the persistent grid, min(tiles, SMs x blocks an SM).
+    ``RuntimeError`` where the card refuses the ring."""
+    if not mode.startswith("walk") or frames.device.type != "cuda":
+        raise ValueError(f"walk_grid takes a walk mode on CUDA frames, got "
+                         f"{mode!r} on {frames.device}")
+    _check_mode(mode, frames.dtype)
+    ys, yw, xs, xw = _host(tables)
+    plan = _plan(tables)
+    F, Hs, Ws = frames.shape
+    out = (ctypes.c_int * 4)()
+    fn = _build.load(_build.BAND_PROBES).aainterp_band_walk_grid
+    with torch.cuda.device(frames.device):
+        rc = fn(Hs, Ws, yw.shape[0], xw.shape[0], yw.shape[1], xw.shape[1],
+                plan["TY"], plan["TX"], plan["SY"], plan["SX"], MODES[mode],
+                _DTYPE_CODES[frames.dtype], ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"band probe {mode}: no launch geometry, CUDA "
+                           f"error {rc}")
+    sms, per_sm, regs, smem = out
+    tiles = (F * -(-xw.shape[0] // plan["TX"])
+             * -(-yw.shape[0] // plan["TY"]))
+    return {"sms": sms, "blocks_per_sm": per_sm, "registers": regs,
+            "smem": smem, "tiles": tiles,
+            "grid": len(walk_shares(tiles, sms * per_sm))}
 
 
 def xpair_table(xs: np.ndarray, xw: np.ndarray) -> np.ndarray:
@@ -502,8 +559,7 @@ def band_probe_kernel(frames: torch.Tensor, tables, mode: str, *,
                 d_yw.data_ptr(), d_xs.data_ptr(), wx_ptr, d_rb.data_ptr(),
                 d_cb.data_ptr(), F, Hs, Ws, shape[1], shape[2], yw.shape[1],
                 xw.shape[1], plan["TY"], plan["TX"], window_rows(plan, mode),
-                plan["SX"], MODES[mode], WALK_TILES,
-                _DTYPE_CODES[frames.dtype], stream)
+                plan["SX"], MODES[mode], _DTYPE_CODES[frames.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"band probe {mode} launch failed: CUDA error {rc}"
                            f" (F={F}, H={Hs}, W={Ws}, plan TY={plan['TY']} "

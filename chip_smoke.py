@@ -3106,6 +3106,7 @@ def band_probe_phase(make, card) -> list:
     check((plan["TY"], plan["TX"], plan["SY"], plan["SX"]) ==
           (8, 240, 18, 482), f"kernel 1's flagship plan {plan}")
     err = {}
+    grids = {}      # (dtype, mode) -> the walk's grid, u8convert's buffers
     for dtype, (mod, _) in BAND_EXPS.items():
         modes = (band_probes.U8_MODES if dtype == torch.uint8
                  else band_probes.FLOAT_MODES)
@@ -3137,6 +3138,26 @@ def band_probe_phase(make, card) -> list:
               f"0xFF-filled outputs: {', '.join(modes)} torch.equal to their "
               "plain versions (the production-output modes also to kernel 1,"
               " which equals its exact plain version)")
+        for mode in modes:
+            if mode.startswith("walk"):
+                grids[(str(dtype)[6:], mode)] = band_probes.walk_grid(
+                    x, tables, mode)
+            elif mode.startswith("u8convert"):
+                n = int(mode[-1])
+                grids[("uint8", mode)] = {
+                    "buffer_dtype": "bfloat16", "buffers": min(n, 2),
+                    "row_bytes": band_probes.convert_pitch(plan["SX"], n),
+                    "smem": band_probes.smem_bytes(plan, mode, W, W // 2, 4,
+                                                   1)}
+        print(f"[47 kernel-1 probes] {str(dtype)[6:]} launch geometry: "
+              + "; ".join(
+                  f"{m} grid {g['grid']} ({g['blocks_per_sm']} blocks an SM "
+                  f"x {g['sms']} SMs, {g['tiles']} tiles), {g['smem']} bytes"
+                  f" of shared memory a block, {g['registers']} registers"
+                  if "grid" in g else
+                  f"{m} chunk buffers {g['buffers']} x {g['row_bytes']} bytes"
+                  f" a row, {g['buffer_dtype']}, {g['smem']} bytes a block"
+                  for (dt, m), g in grids.items() if dt == str(dtype)[6:]))
         del x, prod
     # the entry points: every experiment, the counts read around them
     torch.cuda.synchronize()
@@ -3192,7 +3213,8 @@ def band_probe_phase(make, card) -> list:
                 xb[1:], xb[:1], reps=3)
         del xb
     timing = {"card": card, "shape": [F, H, W], "plan": {
-        k: plan[k] for k in ("TY", "TX", "SY", "SX")}, "exps": {}}
+        k: plan[k] for k in ("TY", "TX", "SY", "SX")}, "exps": {},
+        "geometry": {f"{dt}_{m}": g for (dt, m), g in grids.items()}}
     for (dt, exp), r in runs.items():
         key = (dt, r["mode"])
         timing["exps"][f"{dt}_{exp}"] = {

@@ -12,8 +12,9 @@ their library calls.
     python3 chip_sweep.py [--repo DIR] [--cells k1,k2,s3,r]
         [--variants cur,nostage,...] [--set 'MOD.NAME=VALUE;...']...
 
-Cells are chosen by name, or by a prefix of their names (``k1``, ``k2``,
-``s3``, ``r``, ``p``).  Each is timed as ``chip_smoke.py`` times it: device ms per batch
+Cells are chosen by name, or by a prefix of their names (``k1``, ``b``,
+``k2``, ``s3``, ``r``, ``p``).  Each is timed as ``chip_smoke.py`` times
+it: device ms per batch
 from CUDA-graph replays on distinct inputs (``chip_smoke.graph_ms``), best
 of two; the cells whose calls are shorter than a replay's host cost
 (``k2_direct``, ``high_dot``, the strided probes) with 20 calls in each
@@ -21,6 +22,11 @@ graph (``CALLS``).
 
 * ``k1_bf16``, ``k1_f32``, ``k1_u8``: kernel 1 at the flagship, 8 frames
   2160x3840 -> 1080x1920 (4-tap bands);
+* ``b_walk2_bf16`` .. ``b_walk4_f32``, ``b_u8convert1`` ..
+  ``b_u8convert4``: kernel 1's walk and u8 conversion probe modes
+  (``probes/band_probes.py``) on the ``k1_*`` cells' frames, each checked
+  bit for bit against its plain version (with ``--repo`` a parent
+  checkout's, in the same call);
 * ``k2_f32``, ``k2_bf16``, ``k2_u8``: kernel 2 at the config-5 regrid, 8
   fields 1800x3600 -> 180x360 (12-tap bands); ``k2q_f32``: 0.1 -> 0.25
   degree (720x1440, 5-tap bands); ``k2_direct``: its direct form on 8
@@ -251,6 +257,24 @@ SY_TMA_STORE = {
            "static_cast<size_t>(bc) * br * 4;")]}
 VARIANTS = {
     "cur": {},
+    # the walk probe (band_walk_kernel) without one phase: its consumers'
+    # y pass, x pass or stores, or its producer's bulk copies (the expected
+    # bytes 0: the passes read stale windows)
+    "wknoy": {"band_apply.cuh": [(r"y_pass<Tin, 0, true>\(T, rowtab\(s\)[^;]*;",
+                                  "")]},
+    "wknox": {"band_apply.cuh": [(r"x_pass<Tout, 0>\(T, x, d, g, t\.rows, ot\);",
+                                  "")]},
+    "wknostore": {"band_apply.cuh": [
+        (r"store_tile\(orow0, ot, d, g, t\.rows, t\.cols, tid\);", "")]},
+    "wknocopy": {"band_apply.cuh": [
+        (r"hopper::mbar_arrive_expect_tx\(bar, total\);",
+         "hopper::mbar_arrive_expect_tx(bar, 0);"),
+        (r"hopper::bulk_load\(smem \+ wbase[^;]*;", "")]},
+    # u8convert<n> without its conversion (the y pass reads stale chunk
+    # buffers) or without its y pass
+    "u8noconv": {"band_apply.cuh": [(r"if \(k\.whi <= k\.wlo\) return;",
+                                     "return;")]},
+    "u8noy": {"band_apply.cuh": [(r"y_pass_cols<__nv_bfloat16>\([^;]*;", "")]},
     # no source window is copied (the passes read stale shared memory)
     "nostage": {
         "band_apply.cuh": [(r"if \(off < nbytes\) cp_async16", NOT_REACHED)],
@@ -597,6 +621,22 @@ def make_cells(dev):
     cells.update({f"k2_{n}": k2_cell("c5", dt) for n, dt in
                   (("f32", torch.float32), ("bf16", torch.bfloat16),
                    ("u8", torch.uint8))})
+    def b_cell(mode, dtype):
+        from aainterp_torch.probes import band_probes
+
+        def prepare():
+            p = cuda_apply._plan_for(*t1)
+            return (lambda x: band_probes.band_probe_kernel(x, t1, mode),
+                    lambda x: band_probes.band_probe_plain(x, t1, mode),
+                    {"mode": mode, **{k: p[k] for k in keys if k in p}})
+        return (prepare, lambda: rand(("flag", dtype), (8, 2160, 3840), dtype),
+                0.0)
+
+    for n in (2, 3, 4):
+        for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            cells[f"b_walk{n}_{name}"] = b_cell(f"walk{n}", dt)
+    for n in (1, 2, 4):
+        cells[f"b_u8convert{n}"] = b_cell(f"u8convert{n}", torch.uint8)
     cells["k2q_f32"] = k2_cell("q", torch.float32)
     cells["k2_direct"] = k2_cell("wide", torch.float32, (8, 480, 480))
     cells["k2_thumb"] = k2_cell("thumb", torch.bfloat16, (8, 2160, 3840))

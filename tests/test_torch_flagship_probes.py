@@ -12,7 +12,9 @@ and after.  The port's plain versions run at the same geometry on kernel
 wrapper takes them.
 
 * ``full2/3/4`` (the port's walk modes: production's output) against
-  ``flagship_experiments._build_full_nslot``, and ``full`` (the production
+  ``flagship_experiments._build_full_nslot``, ``u8chunk2/4`` (the port's
+  ``u8convert2/4``: production's output) against ``_build_u8chunk`` (its
+  SY 112, SX 384 at this geometry), and ``full`` (the production
   kernel's plain version) against ``apply_separable_pallas``: f32 atol 1e-5
   on [0, 1] inputs (the TPU kernel sums through matrix products in another
   order), bf16 within one bf16 ulp, u8 within one level (a .5 can round
@@ -29,8 +31,10 @@ wrapper takes them.
   arithmetic (one double-rounding case included); the u8 word order of
   ``u8words`` (``word_pixels``: little-endian) on the host; the plain
   versions of the production-output modes all equal; the tables and byte
-  counts; the entry points with ``device="cpu"`` (no launch, the host's
-  clock) and, without a GPU, the default device raising.
+  counts; the walk's split of the tiles over its persistent grid
+  (``walk_shares``: each tile once, a strip's row tiles in order); the
+  entry points with ``device="cpu"`` (no launch, the host's clock) and,
+  without a GPU, the default device raising.
 """
 
 from fractions import Fraction
@@ -59,6 +63,13 @@ def jflag(monkeypatch):
 
 
 @pytest.fixture
+def jchunk(monkeypatch):
+    from benchmarks import flagship_experiments as fe
+    _patch(monkeypatch, fe, (fe._build_u8chunk,))
+    return fe
+
+
+@pytest.fixture
 def ju8(monkeypatch):
     from benchmarks import u8_experiments as ue
     _patch(monkeypatch, ue, (ue._build_stage_probe,))
@@ -79,7 +90,7 @@ def _clear_jax_builders():
     yield
     from benchmarks import flagship_experiments as fe
     from benchmarks import u8_experiments as ue
-    for b in (fe._build_full_nslot, fe._build_band_probe,
+    for b in (fe._build_full_nslot, fe._build_band_probe, fe._build_u8chunk,
               ue._build_stage_probe):
         b.cache_clear()
 
@@ -160,6 +171,23 @@ def test_walk_modes_match_full_nslot(jflag, nslot, dtype):
     got = band_probes.band_probe_kernel(x, tables, f"walk{nslot}")
     assert got.dtype == dtype and got.shape == (1, HD, WD)
     _close(got, want)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_u8convert_modes_match_u8chunk(jchunk, n):
+    op, row_base, wy_p, SY, col_base, wx_b, SX = jchunk._u8chunk_setup(
+        n, interpret=True)
+    assert (SY, SX) == (112, 384)
+    probe = jchunk._build_u8chunk(1, SY, SX, wy_p.shape[0], wx_b.shape[0], WD,
+                                  n, interpret=True)
+    x = _x(torch.uint8, seed=7)
+    want = np.asarray(probe(jnp.asarray(row_base), jnp.asarray(col_base),
+                            _jx(x), jnp.asarray(wy_p), jnp.asarray(wx_b)))
+    assert want.shape == (1, HD, WD)
+    tables = band_probes.flagship_tables(SMALL)
+    got = band_probes.band_probe_kernel(x, tables, f"u8convert{n}")
+    assert got.dtype == torch.uint8 and got.shape == (1, HD, WD)
+    _close(got, want.astype(np.float64))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
@@ -327,11 +355,50 @@ def test_flagship_plan_and_shared_memory():
     assert base <= cuda_apply.band_smem(8, 240, 18, 482, 4)
     w4 = band_probes.smem_bytes(plan, "walk4", 3840, 1920, 4, 4)
     # three more windows: 18 rows at a pitch of 482 * 4 + 32 bytes rounded
-    # up to the row stride mod 16 (3840 * 4: 1968 bytes), from 16 bytes in
-    assert w4 - base == 3 * (-(-(32 + 18 * 1968) // 16) * 16)
-    assert (band_probes.smem_bytes(plan, "u8convert1", 3840, 1920, 4, 1)
-            - band_probes.smem_bytes(plan, "stage", 3840, 1920, 4, 1)
-            == 18 * 482 * 4)
+    # up to the row stride mod 16 (3840 * 4: 1968 bytes), from 16 bytes in;
+    # three more tap tables (8 rows x 4 taps, an int and a float each) and
+    # the ring's 8 mbarriers; no zero row (a row's pitch + 32 bytes)
+    window = -(-(32 + 18 * 1968) // 16) * 16
+    assert w4 - base == 3 * window + 3 * 8 * 4 * 8 + 8 * 8 - (1968 + 32)
+    # walk2's ring leaves 4 bf16 blocks an SM (227 KB, 1 KB reserved a
+    # block), as many as production's 5 less one
+    w2 = band_probes.smem_bytes(plan, "walk2", 3840, 1920, 4, 2)
+    assert 233472 // (w2 + 1024) == 4
+    # u8convert<n>: bf16 chunk buffers of 18 rows, 32 bytes for each of
+    # ceil(31 / n) + 1 aligned window chunks a row; two buffers, one for n 1
+    u8 = band_probes.smem_bytes(plan, "stage", 3840, 1920, 4, 1)
+    for n, pitch, bufs in ((1, 1024, 1), (2, 544, 2), (4, 288, 2)):
+        assert band_probes.convert_pitch(482, n) == pitch
+        assert (band_probes.smem_bytes(plan, f"u8convert{n}", 3840, 1920, 4,
+                                       1) - u8 == bufs * 18 * pitch)
+    assert [band_probes.smem_bytes(plan, m, 3840, 1920, 4, 1)
+            for m in ("u8convert1", "u8convert2", "u8convert4")] == [
+                46416, 47568, 38352]
+
+
+@pytest.mark.parametrize("F", [1, 8, 11])
+@pytest.mark.parametrize("blocks", [66, 264, 528, 1081, 10 ** 5])
+def test_walk_shares_deal_every_tile_once(F, blocks):
+    tables = band_probes.flagship_tables()
+    plan = band_probes._plan(tables)
+    n_strip, n_rt = 1920 // plan["TX"], 1080 // plan["TY"]
+    items = F * n_strip * n_rt
+    shares = band_probes.walk_shares(items, blocks)
+    assert len(shares) == min(items, blocks)
+    sizes = [hi - lo for lo, hi in shares]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    tiles = []
+    for lo, hi in shares:
+        walk = [(i // n_rt // n_strip, i // n_rt % n_strip, i % n_rt)
+                for i in range(lo, hi)]
+        # a strip's row tiles in order along the share
+        for a, b in zip(walk, walk[1:]):
+            assert b[:2] != a[:2] or b[2] == a[2] + 1
+        tiles += walk
+    assert len(tiles) == items
+    assert sorted(set(tiles)) == [(f, s, r) for f in range(F)
+                                  for s in range(n_strip)
+                                  for r in range(n_rt)]
 
 
 def test_traffic_counts_what_each_mode_reads():

@@ -48,11 +48,13 @@ their plain versions, the pipelined form bit-equal to the route's tiled
 contraction, and a plan without tiles raising for every tiled probe.  The copy
 probe split over blocks (8 x 1024^2, odd widths) and kernel 1's probe
 modes (``csrc/band_probes.cu``) bit-equal to their plain versions, into
-0xFF-filled outputs, bf16, f32 and u8, at a small and an odd-pitch
-geometry.  rgb1024's x-only mode (``xonly``) and the fused aligned regrid
-(``csrc/aligned_fused.cu``) bit-equal to their plain versions into
-NaN-filled outputs: rgb1024, a ragged strip, one row tile and an
-upsampling plan; config 5, ``c0`` offsets on odd widths and a dst row
+0xFF-filled outputs, bf16, f32 and u8, F 1, 3 and 11, at a small and two
+odd-pitch geometries (rows not 16-byte aligned); the walk's persistent
+grid against its tile count; a walk ring or u8 chunk buffers beyond the
+opt-in raising before any launch.  rgb1024's x-only mode (``xonly``) and
+the fused aligned regrid (``csrc/aligned_fused.cu``) bit-equal to their
+plain versions into NaN-filled outputs: rgb1024, a ragged strip, one
+row tile and an upsampling plan; config 5, ``c0`` offsets on odd widths and a dst row
 split into chunks.  The dense-x mode (``densex``, ``csrc/dense_x.cu``, a
 wgmma product on a bf16 split, its sums in the tensor cores' order) at
 the same geometries within ``DENSEX_RTOL`` · max|plain| of its plain
@@ -1455,16 +1457,19 @@ def test_copy_rows_split_matches_plain(cuda, shape, ty, dtype):
 K1_PROBE_GEOMS = [(240, 512), (250, 998), (96, 130)]
 
 
+# frames: 1 (at (240, 512) 30 tiles, fewer than the walk's persistent
+# grid), 3, and 11
+@pytest.mark.parametrize("F", [1, 3, 11])
 @pytest.mark.parametrize("shape", K1_PROBE_GEOMS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
                                    torch.uint8])
-def test_band_probes_match_plain(cuda, shape, dtype):
+def test_band_probes_match_plain(cuda, shape, dtype, F):
     from aainterp_torch.probes import band_probes
 
     tables = band_probes.flagship_tables(shape)
     modes = (band_probes.U8_MODES if dtype == torch.uint8
              else band_probes.FLOAT_MODES)
-    x = _frames((3,) + shape, dtype, cuda, seed=4)
+    x = _frames((F,) + shape, dtype, cuda, seed=4)
     prod = cuda_apply.apply_separable_kernel(x, *tables)
     torch.cuda.synchronize()
     before = cuda_apply.LAUNCHES
@@ -1481,9 +1486,22 @@ def test_band_probes_match_plain(cuda, shape, dtype):
     assert torch.equal(prod, band_probes.band_probe_plain(x, tables,
                                                           modes[-1]))
     assert cuda_apply.LAUNCHES == before
+    # the walk's persistent grid: every SM, as many blocks as fit, fewer
+    # where there are fewer tiles
+    plan = band_probes._plan(tables)
+    tiles = (F * -(-prod.shape[2] // plan["TX"])
+             * -(-prod.shape[1] // plan["TY"]))
+    for mode in modes:
+        if mode.startswith("walk"):
+            g = band_probes.walk_grid(x, tables, mode)
+            assert g["blocks_per_sm"] >= 1 and g["smem"] == (
+                band_probes.smem_bytes(plan, mode, shape[1], prod.shape[2],
+                                       tables[1].shape[1], x.element_size()))
+            assert g["tiles"] == tiles and g["grid"] == min(
+                tiles, g["sms"] * g["blocks_per_sm"])
 
 
-def test_band_probes_reject_what_they_cannot_take(cuda):
+def test_band_probes_reject_what_they_cannot_take(cuda, monkeypatch):
     from aainterp_torch.probes import band_probes
 
     tables = band_probes.flagship_tables((240, 512))
@@ -1496,6 +1514,30 @@ def test_band_probes_reject_what_they_cannot_take(cuda):
     u8 = _frames((2, 240, 512), torch.uint8, cuda)
     with pytest.raises(ValueError, match="exact ratio-2"):
         band_probes.band_probe_kernel(u8, t3, "xpair")
+    # a ring or chunk buffers beyond the card's opt-in: a ValueError that
+    # names the mode and the bytes, before any launch.  At 20:1 (SY 162)
+    # f32 walk2 fits and walk4 does not; u8convert's buffers never outgrow
+    # the f32 window the plan is sized for, so a lower limit stands in
+    t20 = band_probes.flagship_tables((960, 960), 20.0, 1.0)
+    plan = band_probes._plan(t20)
+    x20 = _frames((1, 960, 960), torch.float32, cuda)
+    n = dict(band_probes.LAUNCHES)
+    need = band_probes.smem_bytes(plan, "walk4", 960, 48, t20[1].shape[1], 4)
+    assert need > band_probes.SMEM_LIMIT
+    with pytest.raises(ValueError, match=f"'walk4' needs {need} bytes"):
+        band_probes.band_probe_kernel(x20, t20, "walk4")
+    with pytest.raises(RuntimeError, match="walk4"):
+        band_probes.walk_grid(x20, t20, "walk4")
+    got = band_probes.band_probe_kernel(x20, t20, "walk2")
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_apply.apply_separable_kernel(x20, *t20))
+    u8 = _frames((1, 960, 960), torch.uint8, cuda)
+    need = band_probes.smem_bytes(plan, "u8convert2", 960, 48,
+                                  t20[1].shape[1], 1)
+    monkeypatch.setattr(band_probes, "SMEM_LIMIT", need - 1)
+    with pytest.raises(ValueError, match=f"'u8convert2' needs {need} bytes"):
+        band_probes.band_probe_kernel(u8, t20, "u8convert2")
+    assert band_probes.LAUNCHES == dict(n, walk2=n["walk2"] + 1)
 
 
 # ---------------------------------------------------------------------------
