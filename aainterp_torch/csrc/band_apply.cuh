@@ -66,7 +66,11 @@
 // production's output tile, so a redesign of the kernel carries the probes
 // with it.  The walk (band_walk_kernel) runs the same phases, as functions,
 // on a persistent grid whose blocks take their windows from a ring that a
-// producer warp fills with bulk copies.
+// producer warp fills with bulk copies.  The stage ring (band_stage_kernel)
+// runs kStage's and kStageY's functions on the same kind of grid, with a
+// y pass of its own (stage_y_pass, register-blocked over a tile's rows);
+// the kStage and kStageY branches of band_apply_kernel stay as their first
+// forms.
 //
 // Arithmetic modes (kernel 2's precision knob, pallas_apply.py:798-846):
 //   0  IEEE f32 products and sums;
@@ -464,6 +468,8 @@ enum Probe : int {
   kWalk3 = 9,       // ... of 3
   kWalk4 = 10,      // ... of 4 (band_walk_kernel)
   kXOnly = 11,      // the x pass alone, T staged from the y pass's output
+  kRingStage = 12,  // kStage's function on a persistent ring (band_stage_kernel)
+  kRingStageY = 13, // kStageY's
 };
 
 __host__ __device__ constexpr int convert_chunks(int p) {
@@ -971,6 +977,388 @@ __global__ void __launch_bounds__(kThreads + 32) band_walk_kernel(
   }
 }
 
+// ---- the stage ring (band_stage_kernel): kStage's and kStageY's
+// functions on a persistent grid, the counterpart of JAX's band probe
+// (flagship_experiments.py:73, rgb1024_experiments.py:88), whose schedule
+// starts band t + 1's copy before band t is waited on ----
+
+constexpr int kStageRows = 8;     // TY at most: kernel 1's plans (cuda_apply.TILE_Y)
+constexpr int kStageSlots = 2;    // the ring's windows (3 and 4 were no faster on the H100: PERF.md)
+constexpr int kShiftTaps = 4;     // y bands up to this wide keep their pixels in registers
+constexpr int kFloatCols = 4;     // window columns a y-pass thread owns, bf16 and f32
+
+// blocks an SM the stage ring's registers are capped for, by measurement
+// on the H100 (PERF.md): kStage 4 (its shared memory allows 4-5 in bf16
+// and u8); kStageY 3 in bf16 and u8 (4 spilled, none left 2 at 96
+// registers), 2 in f32, as many as its shared memory allows (none left 1
+// at 127)
+template <typename Tin, bool kY>
+__host__ __device__ constexpr int stage_min_blocks() {
+  return !kY ? 4 : sizeof(Tin) < 4 ? 3 : 2;
+}
+
+// window columns a y-pass thread owns (a group): u8 4, bf16 and f32
+// kFloatCols
+template <typename Tin>
+__host__ __device__ constexpr int y_cols() {
+  return sizeof(Tin) == 1 ? 4 : kFloatCols;
+}
+
+// whether the y pass takes a row's taps from the registers where they
+// overlap the row before's (the shift): f32; bf16 and u8 read every tap,
+// which was faster on the H100 (the selects cost more than the reads they
+// save: PERF.md)
+template <typename Tin>
+__host__ __device__ constexpr bool shift_reuse() {
+  return sizeof(Tin) == 4;
+}
+
+// T's row pitch in floats: SX rounded up to 4, so that each group's T
+// columns start on a 16-byte boundary
+__host__ __device__ inline int stage_t_pitch(int SX) { return (SX + 3) / 4 * 4; }
+
+// bytes of one slot's tap table: kStage the first tap's row offset a dst
+// row; kStageY the (TY, ky) row offsets, the (TY, ky) weights and the
+// shift a dst row (stage_taps)
+__host__ __device__ inline int stage_tab_bytes(int TY, int ky, bool with_y) {
+  return static_cast<int>(up16(with_y ? 8LL * TY * ky + 4LL * TY : 4LL * TY));
+}
+
+// The global loads of a tile's taps by one lane of the producer warp,
+// issued a tile ahead (stage_taps writes them once the slot is free): the
+// first tap row ys[i0 + lane] of dst row `lane`, and the row before's
+// (kStageY: its shift); kStageY also entry `lane` of the (rows, ky) tap
+// table, its tap row and weight
+struct TapLoads {
+  int y0, y1, y;
+  float w;
+};
+
+template <bool kY>
+__device__ __forceinline__ TapLoads tap_loads(const int* __restrict__ ys,
+                                              const float* __restrict__ wy, const Dims& d,
+                                              const Tile& t, int lane) {
+  TapLoads p{0, 0, 0, 0.0f};
+  if (lane < t.rows) {
+    p.y0 = __ldg(ys + t.i0 + lane);
+    if (kY && lane > 0) p.y1 = __ldg(ys + t.i0 + lane - 1);
+  }
+  if (kY && lane < t.rows * d.ky) {
+    const int r = lane / d.ky;
+    p.y = __ldg(ys + t.i0 + r) + lane - r * d.ky;
+    p.w = __ldg(wy + static_cast<long long>(t.i0) * d.ky + lane);
+  }
+  return p;
+}
+
+// The tile's taps in a slot's table (the producer warp's lanes, from
+// tap_loads): kStage the shared byte offset of each dst row's first
+// (clamped) tap row in the window staged at wbase; kStageY every tap's
+// (as walk_taps; entries past the warp's 32 loaded here), then each dst
+// row's shift: ys[i] - ys[i - 1] where that lies in [0, ky], else ky (and
+// ky for the tile's first row), the window rows its pixels move by from
+// the row before (stage_y_pass)
+template <bool kY>
+__device__ __forceinline__ void stage_taps(int* tab, const TapLoads& p,
+                                           const int* __restrict__ ys,
+                                           const float* __restrict__ wy, const Dims& d,
+                                           const Geo& g, const Tile& t, int wbase, int lane) {
+  auto row_at = [&](int y) { return wbase + (min(max(y, 0), d.H - 1) - t.ya) * g.pitch_in; };
+  if constexpr (!kY) {
+    if (lane < t.rows) tab[lane] = row_at(p.y0);
+  } else {
+    float* wtab = reinterpret_cast<float*>(tab + d.TY * d.ky);
+    for (int e = lane; e < t.rows * d.ky; e += 32) {
+      int y = p.y;
+      float w = p.w;
+      if (e != lane) {
+        const int r = e / d.ky;
+        y = __ldg(ys + t.i0 + r) + e - r * d.ky;
+        w = __ldg(wy + static_cast<long long>(t.i0) * d.ky + e);
+      }
+      tab[e] = row_at(y);
+      wtab[e] = w;
+    }
+    if (lane < t.rows) {
+      const int v = p.y0 - p.y1;
+      tab[2 * d.TY * d.ky + lane] = lane > 0 && v >= 0 && v <= d.ky ? v : d.ky;
+    }
+  }
+}
+
+// kC pixels of the window row at shared byte `row`, columns colb[k] (bytes
+// from the row's first pixel), as f32, one read each (a group's pixels in
+// one read where aligned was slower on the H100: PERF.md)
+template <typename Tin, int kC>
+__device__ __forceinline__ void load_px(float (&p)[kC], int row, const int (&colb)[kC]) {
+  extern __shared__ __align__(16) unsigned char smem[];
+#pragma unroll
+  for (int k = 0; k < kC; ++k) p[k] = to_f32(*reinterpret_cast<const Tin*>(smem + row + colb[k]));
+}
+
+// kC f32 to shared memory at p (aligned to their size) in one store
+template <int kC>
+__device__ __forceinline__ void st_shared(float* p, const float (&v)[kC]) {
+  if constexpr (kC == 4) {
+    asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(hopper::smem_u32(p)),
+                 "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3])
+                 : "memory");
+  } else {
+    static_assert(kC == 2, "T is stored in pairs or quads");
+    asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(hopper::smem_u32(p)), "f"(v[0]),
+                 "f"(v[1])
+                 : "memory");
+  }
+}
+
+// One group's dst rows [r0, r1) of a tile's y pass (stage_y_pass): the
+// row's tap offsets read first (one broadcast each), q moved by the shift,
+// the new taps' pixels read, the taps summed in order, T's kC columns
+// stored at once
+template <typename Tin, int kC>
+__device__ __forceinline__ void y_rows(float* trow, int tp, const int* rowtab, const float* wtab,
+                                       const int* shift, int ky, int r0, int r1,
+                                       const int (&colb)[kC]) {
+  constexpr bool kReuse = shift_reuse<Tin>();
+  float q[kShiftTaps][kC] = {};
+#pragma unroll 1
+  for (int r = r0; r < r1; ++r) {
+    const int* rt = rowtab + r * ky;
+    const float* wt = wtab + r * ky;
+    int row[kShiftTaps];
+#pragma unroll
+    for (int a = 0; a < kShiftTaps; ++a) row[a] = a < ky ? rt[a] : 0;
+    // s in [0, ky]; kShiftTaps at the first row: every tap read.  q[a]
+    // takes q[a + s] in place (a ascending: q[a + s] not yet moved)
+    const int s = kReuse && r > r0 ? shift[r] : kShiftTaps;
+#pragma unroll
+    for (int a = 0; a < kShiftTaps; ++a) {
+#pragma unroll
+      for (int k = 0; k < kC; ++k) {
+        float v = q[a][k];
+        if (a + 1 < kShiftTaps) v = s == 1 ? q[a + 1][k] : v;
+        if (a + 2 < kShiftTaps) v = s == 2 ? q[a + 2][k] : v;
+        if (a + 3 < kShiftTaps) v = s == 3 ? q[a + 3][k] : v;
+        q[a][k] = v;
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < kShiftTaps; ++a) {
+      if (a < ky && a + s >= ky) load_px<Tin, kC>(q[a], row[a], colb);
+    }
+    float acc[kC] = {};
+#pragma unroll
+    for (int a = 0; a < kShiftTaps; ++a) {
+      if (a < ky) {
+        const float w = wt[a];
+#pragma unroll
+        for (int k = 0; k < kC; ++k) acc[k] = fmaf(w, q[a][k], acc[k]);
+      }
+    }
+    st_shared<kC>(trow + r * tp, acc);
+  }
+}
+
+// the same for bands wider than kShiftTaps: every tap's pixels read
+template <typename Tin, int kC>
+__device__ __forceinline__ void y_rows_wide(float* trow, int tp, const int* rowtab,
+                                            const float* wtab, int ky, int r0, int r1,
+                                            const int (&colb)[kC]) {
+  for (int r = r0; r < r1; ++r) {
+    float acc[kC] = {};
+    for (int a = 0; a < ky; ++a) {
+      float p[kC];
+      load_px<Tin, kC>(p, rowtab[r * ky + a], colb);
+      const float w = wtab[r * ky + a];
+#pragma unroll
+      for (int k = 0; k < kC; ++k) acc[k] = fmaf(w, p[k], acc[k]);
+    }
+    st_shared<kC>(trow + r * tp, acc);
+  }
+}
+
+// kStageY's y pass, register-blocked: T[r, c] = sum_a wy[i0 + r, a] *
+// window[tap row, cb + c] (clamped) for the tile's rows over the window's
+// SX columns, MODE 0, as y_pass computes it; T column c at T + r * tp + c
+// (stage_t_pitch).
+//
+// A thread owns kC adjacent T columns (a group) and walks the tile's dst
+// rows in order (y_rows), keeping the pixels of the current row's taps,
+// q[a] = pixel(clamp(ys[i] + a)), in registers.  With shift_reuse (f32)
+// the next row's taps start `shift` window rows further down, so q[a]
+// takes q[a + shift] (selects, no branch) and only the last `shift` taps
+// are read from shared memory: each window row of the thread's columns is
+// so read once where the rows' bands overlap (twice at ratio 2 in
+// y_pass); bf16 and u8 read every tap.  Each dst row sums its taps a = 0
+// .. ky - 1 in order, one fmaf each, as the plain version does, so T is
+// y_pass's bit for bit.  The schedule (which taps a row reads, how far q
+// moves) is the same for every thread of the tile, so no branch diverges.
+// Where the groups are fewer than the block's threads the rows are split
+// among `parts` threads a group, each part's first row reading all its
+// taps.  Bands wider than kShiftTaps read every tap's pixels
+// (y_rows_wide).
+template <typename Tin>
+__device__ __forceinline__ void stage_y_pass(float* __restrict__ T, int tp, const int* rowtab,
+                                             const float* wtab, const int* shift, const Dims& d,
+                                             const Tile& t, int tid) {
+  constexpr int ei = sizeof(Tin);
+  constexpr int kC = y_cols<Tin>();
+  const int ng = (d.SX + kC - 1) / kC;
+  const int parts = max(1, min(t.rows, kThreads / ng));
+  for (int it = tid; it < ng * parts; it += kThreads) {
+    const int part = it / ng;
+    const int gi = it - part * ng;
+    const int c0 = gi * kC;
+    const int r0 = part * t.rows / parts;
+    const int r1 = (part + 1) * t.rows / parts;
+    int colb[kC];
+#pragma unroll
+    for (int k = 0; k < kC; ++k) colb[k] = (min(max(t.cb + c0 + k, t.xa), t.xb - 1) - t.xa) * ei;
+    float* trow = T + c0;
+    if (d.ky <= kShiftTaps) {
+      y_rows<Tin, kC>(trow, tp, rowtab, wtab, shift, d.ky, r0, r1, colb);
+    } else {
+      y_rows_wide<Tin, kC>(trow, tp, rowtab, wtab, d.ky, r0, r1, colb);
+    }
+  }
+}
+
+// kRingStage / kRingStageY (probes): kStage's and kStageY's functions (the
+// first tap's pixel; T at the first x tap) on a persistent grid, each block
+// a ring of kStageSlots windows filled by a producer warp and read by
+// kThreads consumer threads (csrc/band_probes.cu sizes the grid as the
+// walk's: as many blocks an SM as the ring's shared memory and the
+// registers allow).
+//
+//   * Items: the (frame, strip, row tile) tiles.  Block b of G takes items
+//     b, b + G, ... in production's order, strips fastest, so the blocks
+//     at work at any moment read neighbouring windows, as production's
+//     grid does (band_probes.stage_shares states it; the walk's contiguous
+//     shares were slower on the H100: PERF.md).
+//   * The producer (the last warp) fills slot k % n for item k once it is
+//     released (its empty mbarrier): the tap table first (stage_taps, from
+//     global loads issued a tile ahead), then the window, one 1-D bulk
+//     copy a row (load_window) onto the slot's full mbarrier, up to n - 1
+//     items ahead.
+//   * The consumers load each tile's bases and each dst column's first x
+//     tap (xo, the only x table kStage and kStageY read) a tile ahead.
+//     kStageY runs stage_y_pass into T and releases the slot; kStage
+//     releases it after the tile's elements are picked.  Each element is
+//     cast into an output tile laid out like the output rows, whose rows
+//     leave by store_tile's 16-byte stores (scalar stores at the ragged
+//     ends; bulk stores of the rows' whole 16-byte chunks were slower on
+//     the H100: PERF.md).
+//
+// One consumer barrier a tile for kStage, two for kStageY.  Layout
+// (stage_geo): the n windows, T (kStageY), the n tap tables, the output
+// tiles (kStage two, written in turn, as its one barrier a tile lets a
+// tile's writes meet the last tile's stores; kStageY one), the 2n
+// mbarriers; no zero row (the taps are clamped).
+template <typename Tin, typename Tout, bool kY>
+__global__ void __launch_bounds__(kThreads + 32, stage_min_blocks<Tin, kY>()) band_stage_kernel(
+    const Tin* __restrict__ src, Tout* __restrict__ out, const int* __restrict__ ys,
+    const float* __restrict__ wy, const int* __restrict__ xs,
+    const int* __restrict__ row_base, const int* __restrict__ col_base, Dims d, Geo g,
+    long long items) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int ei = sizeof(Tin);
+  constexpr int n_slots = kStageSlots;
+  const int tid = threadIdx.x;
+  const int tab = stage_tab_bytes(d.TY, d.ky, kY);  // slot s's at tab_off + s * tab
+  const int otile = static_cast<int>(up16(32 + static_cast<long long>(d.TY) * g.pitch_out));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + g.smem - 16 * n_slots);
+  uint64_t* empty = full + n_slots;
+  if (tid == 0) {
+    for (int s = 0; s < n_slots; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 1);
+    }
+    hopper::fence_mbarrier_init();
+  }
+  __syncthreads();
+  // the block's items: n of them, item k at blockIdx.x + k * G
+  const long long G = gridDim.x;
+  const int n = static_cast<int>((items - blockIdx.x + G - 1) / G);
+  auto tile_k = [&](int k) {
+    const long long i = blockIdx.x + k * G;
+    const int strip = static_cast<int>(i % d.n_strip);  // strips fastest
+    long long rest = i / d.n_strip;
+    const int rt = static_cast<int>(rest % d.n_rt);
+    rest /= d.n_rt;
+    return tile_at<true>(d, row_base, col_base, strip, rt, rest);
+  };
+  auto slot = [&](int s) { return s * g.zero_off; };
+  auto taps = [&](int s) { return reinterpret_cast<int*>(smem + g.tab_off + s * tab); };
+  if (n <= 0) return;
+  if (tid >= kThreads) {  // the producer warp
+    const int lane = tid - kThreads;
+    Tile tn = tile_k(0);
+    TapLoads pn = tap_loads<kY>(ys, wy, d, tn, lane);
+    for (int k = 0, s = 0; k < n; ++k, s = s + 1 == n_slots ? 0 : s + 1) {
+      const Tile t = tn;
+      const TapLoads p = pn;
+      if (k + 1 < n) {  // the next tile's loads in flight while this one waits
+        tn = tile_k(k + 1);
+        pn = tap_loads<kY>(ys, wy, d, tn, lane);
+      }
+      if (k >= n_slots) hopper::mbar_wait(&empty[s], (k / n_slots - 1) & 1);
+      stage_taps<kY>(taps(s), p, ys, wy, d, g, t,
+                     window_base<Tin>(window_src(src, d, t), slot(s)), lane);
+      load_window(src, d, g, t, slot(s), &full[s], lane);
+    }
+    return;
+  }
+  float* T = reinterpret_cast<float*>(smem + g.t_off);
+  const int tp = stage_t_pitch(d.SX);
+  // thread (xrg, xj) owns dst column j0 + xj at rows xrg, xrg + n_rg, ...
+  const int n_rg = kThreads / d.TX;
+  const int xj = tid % d.TX;
+  const int xrg = tid / d.TX;
+  auto x_first = [&](const Tile& t) {
+    return xj < t.cols && xrg < n_rg ? __ldg(xs + t.j0 + xj) - t.cb : 0;
+  };
+  Tile tn = tile_k(0);
+  int xon = x_first(tn);
+  for (int k = 0, s = 0; k < n; ++k, s = s + 1 == n_slots ? 0 : s + 1) {
+    const Tile t = tn;
+    const int xo = xon;
+    if (k + 1 < n) {  // the next tile's bases and first x taps in flight
+      tn = tile_k(k + 1);
+      xon = x_first(tn);
+    }
+    const bool on = xj < t.cols && xrg < n_rg;
+    const int* rowtab = taps(s);
+    Tout* orow0 = out + (t.f * d.Hd + t.i0) * static_cast<long long>(d.Wd) + t.j0;
+    unsigned char* ot = smem + g.o_off + (kY ? 0 : (k & 1) * otile) + 16 +
+                        static_cast<int>(reinterpret_cast<uintptr_t>(orow0) & 15);
+    hopper::mbar_wait(&full[s], (k / n_slots) & 1);
+    if constexpr (kY) {
+      stage_y_pass<Tin>(T, tp, rowtab, reinterpret_cast<const float*>(rowtab + d.TY * d.ky),
+                        rowtab + 2 * d.TY * d.ky, d, t, tid);
+      consumer_sync();  // T whole; slot s read; the output tile's last stores done
+      if (tid == 0) hopper::mbar_arrive(&empty[s]);
+    }
+    // the tile's elements: kStage the first tap's pixel, (ys[i], xs[j])
+    // clamped, from the window; kStageY T at the first x tap
+    const int colx = (min(max(t.cb + xo, t.xa), t.xb - 1) - t.xa) * ei;
+    for (int r = on ? xrg : t.rows; r < t.rows; r += n_rg) {
+      float v;
+      if constexpr (kY) {
+        v = T[r * tp + xo];
+      } else {
+        v = to_f32(*reinterpret_cast<const Tin*>(smem + rowtab[r] + colx));
+      }
+      store(reinterpret_cast<Tout*>(ot + r * g.pitch_out + xj * static_cast<int>(sizeof(Tout))),
+            v);
+    }
+    consumer_sync();  // the output tile whole (kStage: slot s read)
+    if constexpr (!kY) {
+      if (tid == 0) hopper::mbar_arrive(&empty[s]);
+    }
+    store_tile(orow0, ot, d, g, t.rows, t.cols, tid);
+  }
+}
+
 // the staged form's shared-memory layout for elements of ei (in) and eo
 // (out) bytes; ops/cuda_apply.band_smem bounds it from above
 inline Geo make_geo(const Dims& d, int ei, int eo) {
@@ -1009,6 +1397,31 @@ inline Geo walk_geo(const Dims& d, int ei, int eo, int slots) {
   g.tab_off = static_cast<int>(tab_off);
   g.o_off = static_cast<int>(o_off);
   g.smem = total > INT_MAX ? INT_MAX : static_cast<int>(total);
+  return g;
+}
+
+// the stage ring's layout (band_stage_kernel): kStageSlots = n windows,
+// window s at s * zero_off (each laid out as production's), T at t_off
+// (with_y only), the n tap tables (stage_tab_bytes) from tab_off, the
+// output tiles from o_off (two; with_y one), the 2n mbarriers in the last
+// 16n bytes of smem
+inline Geo stage_geo(const Dims& d, int ei, int eo, bool with_y) {
+  Geo g = make_geo(d, ei, eo);
+  const long long t_off = static_cast<long long>(kStageSlots) * g.zero_off;
+  const long long tab_off = t_off + (with_y ? up16(4LL * d.TY * stage_t_pitch(d.SX)) : 0);
+  const long long o_off = tab_off + static_cast<long long>(kStageSlots) *
+                                        stage_tab_bytes(d.TY, d.ky, with_y);
+  const long long total = o_off + (with_y ? 1 : 2) *
+                                      up16(32 + static_cast<long long>(d.TY) * g.pitch_out) +
+                          16LL * kStageSlots;
+  if (total > INT_MAX) {
+    g.smem = INT_MAX;
+    return g;
+  }
+  g.t_off = static_cast<int>(t_off);
+  g.tab_off = static_cast<int>(tab_off);
+  g.o_off = static_cast<int>(o_off);
+  g.smem = static_cast<int>(total);
   return g;
 }
 

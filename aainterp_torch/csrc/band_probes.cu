@@ -5,11 +5,14 @@
 //
 // Replaces the TPU Pallas probes of benchmarks/:
 //
-//   kStage, kStageY      <- flagship_experiments.py:73 _build_band_probe
-//                           (pallas_call at :137; with_y False "dma", True
+//   kRingStage,          <- flagship_experiments.py:73 _build_band_probe
+//   kRingStageY             (pallas_call at :137; with_y False "dma", True
 //                           "ypass") and u8_experiments.py:86
 //                           _build_stage_probe (:226) stages dma, ydot,
-//                           xstore
+//                           xstore (band_stage_kernel, aainterp_band_stage);
+//                           kStage, kStageY, their first form (one block a
+//                           tile), stay as the modes stage_direct and
+//                           stagey_direct
 //   kWalk2/3/4           <- flagship_experiments.py:144 _build_full_nslot
 //                           (:218): full2, full3, full4
 //   kU8Words             <- flagship_experiments.py:341 _build_u8bitcast
@@ -21,8 +24,8 @@
 //                           flagship_experiments.py:497 _build_u8chunk
 //                           (:591; n = 2, 4)
 //   kXPair               <- u8_experiments.py stage xpair (:150-169)
-//   kStage, kStageY      <- rgb1024_experiments.py:88 _build_band_probe
-//                           (pallas_call at :141; "dma", "ypass"), at 1024^2
+//   kRingStage,          <- rgb1024_experiments.py:88 _build_band_probe
+//   kRingStageY             (pallas_call at :141; "dma", "ypass"), at 1024^2
 //                           150 -> 60 dpi
 //   kXOnly               <- rgb1024_experiments.py:148 _build_xonly (:174)
 //
@@ -31,7 +34,10 @@
 //
 // What each keeps and stores (band_apply.cuh's Probe): kStage the window
 // staging and the output stores (the first tap's pixel); kStageY those and
-// the y pass (T at the first x tap); kWalk<n> production's output from a
+// the y pass (T at the first x tap); kRingStage and kRingStageY the same
+// from a persistent grid whose blocks walk their shares of the tiles
+// through a ring of 2 windows filled by a producer warp with bulk copies,
+// the y pass register-blocked over the tile's rows; kWalk<n> production's output from a
 // persistent grid whose blocks walk their shares of the tiles through a
 // ring of n windows, filled by a producer warp with bulk copies;
 // kU8Words, kU8Convert<n> and kXPair production's output with the y pass
@@ -71,13 +77,13 @@ long long probe_smem(const Geo& g, const Dims& d) {
   return g.smem;
 }
 
-// the walk's persistent grid for `smem` bytes a block: SMs, and blocks an SM
-// from the occupancy of band_walk_kernel (0 or a cudaError_t)
-template <typename Tin, typename Tout, int kSlots>
-int walk_occupancy(long long smem, int* sms, int* per_sm, int* regs) {
-  auto kern = band::band_walk_kernel<Tin, Tout, kSlots>;
-  static std::atomic<int> opted_in[stage::kMaxDevices];  // kern's limit per device
-  if (const int e = stage::opt_in(reinterpret_cast<const void*>(kern), smem, opted_in)) return e;
+// a persistent grid's geometry for `kern` at `smem` bytes a block (kThreads
+// consumers and a producer warp): SMs, blocks an SM from its occupancy,
+// registers a thread (0 or a cudaError_t; cudaErrorInvalidValue where smem
+// exceeds the opt-in)
+int grid_occupancy(const void* kern, long long smem, std::atomic<int> (&opted_in)[stage::kMaxDevices],
+                   int* sms, int* per_sm, int* regs) {
+  if (const int e = stage::opt_in(kern, smem, opted_in)) return e;
   int dev = 0;
   cudaFuncAttributes attr;
   cudaError_t e = cudaGetDevice(&dev);
@@ -90,6 +96,22 @@ int walk_occupancy(long long smem, int* sms, int* per_sm, int* regs) {
   if (e != cudaSuccess) return static_cast<int>(e);
   *regs = attr.numRegs;
   return *per_sm > 0 ? 0 : static_cast<int>(cudaErrorInvalidConfiguration);
+}
+
+// the walk's persistent grid (band_walk_kernel)
+template <typename Tin, typename Tout, int kSlots>
+int walk_occupancy(long long smem, int* sms, int* per_sm, int* regs) {
+  static std::atomic<int> opted_in[stage::kMaxDevices];  // the kernel's limit per device
+  return grid_occupancy(reinterpret_cast<const void*>(band::band_walk_kernel<Tin, Tout, kSlots>),
+                        smem, opted_in, sms, per_sm, regs);
+}
+
+// the stage ring's persistent grid (band_stage_kernel)
+template <typename Tin, typename Tout, bool kY>
+int stage_occupancy(long long smem, int* sms, int* per_sm, int* regs) {
+  static std::atomic<int> opted_in[stage::kMaxDevices];  // the kernel's limit per device
+  return grid_occupancy(reinterpret_cast<const void*>(band::band_stage_kernel<Tin, Tout, kY>),
+                        smem, opted_in, sms, per_sm, regs);
 }
 
 template <typename Tin, typename Tout, int P>
@@ -131,6 +153,69 @@ int launch_probe(const void* src, void* out, const void* ys, const void* wy, con
                                                                           cb, d, g);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// the stage ring (kRingStage, kRingStageY): its grid, min(tiles, SMs x
+// blocks an SM); `geo` (SMs, blocks an SM, registers, shared memory) is
+// filled and nothing launched where it is given
+template <typename Tin, typename Tout, bool kY>
+int launch_stage(const void* src, void* out, const void* ys, const void* wy, const void* xs,
+                 const void* row_base, const void* col_base, int F, Dims d,
+                 cudaStream_t stream, int* geo) {
+  d.n_strip = (d.Wd + d.TX - 1) / d.TX;
+  d.n_rt = (d.Hd + d.TY - 1) / d.TY;
+  const Geo g = band::stage_geo(d, sizeof(Tin), sizeof(Tout), kY);
+  if (g.smem == INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const long long items = static_cast<long long>(F) * d.n_strip * d.n_rt;
+  if (items > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  int sms = 0, per_sm = 0, regs = 0;
+  if (const int e = stage_occupancy<Tin, Tout, kY>(g.smem, &sms, &per_sm, &regs)) return e;
+  if (geo != nullptr) {
+    geo[0] = sms;
+    geo[1] = per_sm;
+    geo[2] = regs;
+    geo[3] = g.smem;
+    return 0;
+  }
+  const long long blocks = std::min(items, static_cast<long long>(sms) * per_sm);
+  band::band_stage_kernel<Tin, Tout, kY>
+      <<<static_cast<unsigned>(blocks), band::kThreads + 32, static_cast<size_t>(g.smem),
+         stream>>>(static_cast<const Tin*>(src), static_cast<Tout*>(out),
+                   static_cast<const int*>(ys), static_cast<const float*>(wy),
+                   static_cast<const int*>(xs), static_cast<const int*>(row_base),
+                   static_cast<const int*>(col_base), d, g, items);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the stage ring's arguments, checked: 0 or cudaErrorInvalidValue
+int stage_args(int H, int W, int Hd, int Wd, int ky, int kx, int TY, int TX, int SY, int SX,
+               int mode, int dtype_code) {
+  const bool ok = H > 0 && W > 0 && Hd > 0 && Wd > 0 && ky > 0 && kx > 0 && TY > 0 &&
+                  TY <= band::kStageRows && TX > 0 && TX <= band::kThreads && SY >= ky &&
+                  SX >= kx && (mode == band::kRingStage || mode == band::kRingStageY) &&
+                  dtype_code >= 0 && dtype_code <= 2;
+  return ok ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the stage ring's instance for mode (kRingStage, kRingStageY) and
+// dtype_code, in = out
+template <typename T>
+int stage_modes(int mode, const void* src, void* out, const void* ys, const void* wy,
+                const void* xs, const void* rb, const void* cb, int F, const Dims& d,
+                cudaStream_t st, int* geo) {
+  return mode == band::kRingStageY
+             ? launch_stage<T, T, true>(src, out, ys, wy, xs, rb, cb, F, d, st, geo)
+             : launch_stage<T, T, false>(src, out, ys, wy, xs, rb, cb, F, d, st, geo);
+}
+
+int stage_dispatch(int mode, int dtype_code, const void* src, void* out, const void* ys,
+                   const void* wy, const void* xs, const void* rb, const void* cb, int F,
+                   const Dims& d, cudaStream_t st, int* geo) {
+  switch (dtype_code) {
+    case 0: return stage_modes<float>(mode, src, out, ys, wy, xs, rb, cb, F, d, st, geo);
+    case 1: return stage_modes<__nv_bfloat16>(mode, src, out, ys, wy, xs, rb, cb, F, d, st, geo);
+    default: return stage_modes<uint8_t>(mode, src, out, ys, wy, xs, rb, cb, F, d, st, geo);
+  }
 }
 
 // the walk's launch geometry (aainterp_band_walk_grid)
@@ -229,4 +314,39 @@ extern "C" int aainterp_band_walk_grid(int H, int W, int Hd, int Wd, int ky, int
   Dims d{H, W, Hd, Wd, ky, kx, TY, TX, SY, SX, 0, 0};
   return dtype_code == 0 ? walk_grid<float>(mode, d, out)
                          : walk_grid<__nv_bfloat16>(mode, d, out);
+}
+
+// The stage ring (band_apply.cuh's band_stage_kernel): mode 12 (kStage's
+// function) or 13 (kStageY's) on a persistent grid whose blocks walk their
+// shares of the tiles through a ring of 2 windows; dtype_code 0 = float32,
+// 1 = bfloat16, 2 = uint8 (in and out).  The other arguments are
+// aainterp_band_probe's, without wx (the stage ring reads no x weights);
+// TY at most 8.  Returns 0 or a cudaError_t (cudaErrorInvalidValue where
+// the ring exceeds the card's opt-in, before any launch).
+extern "C" int aainterp_band_stage(const void* src, void* out, const void* ys, const void* wy,
+                                   const void* xs, const void* row_base, const void* col_base,
+                                   int F, int H, int W, int Hd, int Wd, int ky, int kx, int TY,
+                                   int TX, int SY, int SX, int mode, int dtype_code,
+                                   void* stream) {
+  if (F <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (const int e = stage_args(H, W, Hd, Wd, ky, kx, TY, TX, SY, SX, mode, dtype_code)) {
+    return e;
+  }
+  Dims d{H, W, Hd, Wd, ky, kx, TY, TX, SY, SX, 0, 0};
+  return stage_dispatch(mode, dtype_code, src, out, ys, wy, xs, row_base, col_base, F, d,
+                        static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// The stage ring's launch geometry at these dims (aainterp_band_stage's):
+// out[0] the SMs, out[1] blocks an SM, out[2] the kernel's registers a
+// thread, out[3] its shared memory a block.  Returns 0 or a cudaError_t.
+extern "C" int aainterp_band_stage_grid(int H, int W, int Hd, int Wd, int ky, int kx, int TY,
+                                        int TX, int SY, int SX, int mode, int dtype_code,
+                                        int* out) {
+  if (const int e = stage_args(H, W, Hd, Wd, ky, kx, TY, TX, SY, SX, mode, dtype_code)) {
+    return e;
+  }
+  Dims d{H, W, Hd, Wd, ky, kx, TY, TX, SY, SX, 0, 0};
+  return stage_dispatch(mode, dtype_code, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                        nullptr, 1, d, nullptr, out);
 }

@@ -13,7 +13,16 @@ production's tiles, derived from what it keeps):
   ``out[f, i, j] = cast(frames[f, ys[i], xs[j]])``, the first tap's pixel
   (clamped to the image, as every tap is);
 * ``stagey`` — staging and the y pass: ``out[f, i, j] = cast(T[i, xs[j]])``
-  with ``T`` the y pass's f32 sums, the first x tap's y sum;
+  with ``T`` the y pass's f32 sums, the first x tap's y sum.  Both run on
+  the stage ring (``band_stage_kernel``): a persistent grid
+  (``stage_grid``; its blocks deal the tiles round-robin, ``stage_shares``) whose
+  blocks take their windows from a ring of ``STAGE_SLOTS`` that a
+  producer warp fills with bulk copies, ``stagey``'s y pass
+  register-blocked over a group of adjacent columns, walking the tile's
+  dst rows (the f32 instance shifts the tap pixels from row to row);
+* ``stage_direct``, ``stagey_direct`` — the same two functions on their
+  first form, production's kernel with one block a tile (kept beside the
+  ring so that kernel 1's split is read on production's own layout);
 * ``walk2``, ``walk3``, ``walk4`` — production's output from a persistent
   grid (``walk_grid``) whose blocks each walk a contiguous share of the
   (frame, strip, row tile) tiles (``walk_shares``) through a ring of n
@@ -77,11 +86,21 @@ from ..utils.lru import LruDict
 
 # probe mode -> the kernel's mode code (band_apply.cuh's Probe; densex
 # runs on csrc/dense_x.cu)
-MODES = {"stage": 1, "stagey": 2, "u8words": 3, "xpair": 4,
-         "u8convert1": 5, "u8convert2": 6, "u8convert4": 7,
-         "walk2": 8, "walk3": 9, "walk4": 10, "xonly": 11, "densex": None}
-# the modes each input dtype has (the kernel's instances)
+MODES = {"stage": 12, "stagey": 13, "stage_direct": 1, "stagey_direct": 2,
+         "u8words": 3, "xpair": 4, "u8convert1": 5, "u8convert2": 6,
+         "u8convert4": 7, "walk2": 8, "walk3": 9, "walk4": 10, "xonly": 11,
+         "densex": None}
+# the modes each input dtype has (the kernel's instances); every dtype also
+# has DIRECT_MODES
 FLOAT_MODES = ("stage", "stagey", "walk2", "walk3", "walk4")
+# the stage ring's modes and the first form of each (its mode + "_direct")
+RING_MODES = ("stage", "stagey")
+DIRECT_MODES = ("stage_direct", "stagey_direct")
+# the stage ring's windows (band_apply.cuh kStageSlots); a ring that does
+# not fit the card's opt-in raises
+STAGE_SLOTS = 2
+# the stage ring's dst rows a tile at most (band_apply.cuh kStageRows)
+STAGE_ROWS = 8
 # rgb1024's x-pass probes, float frames too: xonly reads the y pass's
 # output, not frames, and densex's cost is its dense x operator
 X_MODES = ("xonly", "densex")
@@ -128,11 +147,12 @@ def _check_mode(mode: str, dtype: torch.dtype) -> None:
     if mode not in MODES:
         raise ValueError(f"probe mode must be one of {sorted(MODES)}, got "
                          f"{mode!r}")
-    have = U8_MODES if dtype == torch.uint8 else FLOAT_MODES + X_MODES
+    have = (U8_MODES if dtype == torch.uint8 else FLOAT_MODES + X_MODES) \
+        + DIRECT_MODES
     if dtype not in _DTYPE_CODES or mode not in have:
         raise ValueError(f"probe mode {mode!r} has no {dtype} instance "
                          f"(float32 / bfloat16: {FLOAT_MODES + X_MODES}; "
-                         f"uint8: {U8_MODES})")
+                         f"uint8: {U8_MODES}; each: {DIRECT_MODES})")
 
 
 def _plan(tables):
@@ -163,13 +183,17 @@ def smem_bytes(plan: dict, mode: str, Ws: int, Wd: int, ky: int,
                elem: int) -> int:
     """Dynamic shared memory of ``mode``'s block for frames Ws pixels wide
     (dst Wd) of ``elem``-byte pixels in and out on ``plan``: the production
-    layout (band_apply.cuh's ``make_geo``), or the walk's (``walk_geo``:
-    n windows, n tap tables and 2n mbarriers, no zero row), plus the bf16
-    chunk buffers for u8convert<n> (two, one for n = 1; ``convert_pitch``
-    bytes a window row).  ``xonly`` stages
-    its tile's TY rows of the y pass's output in the window
-    (``window_rows``).  ``densex`` runs on ``csrc/dense_x.cu``
-    (``dense_x_smem``)."""
+    layout (band_apply.cuh's ``make_geo``; the direct modes'), the walk's
+    (``walk_geo``: n windows, n tap tables and 2n mbarriers, no zero row),
+    or the stage ring's (``stage_geo``: ``STAGE_SLOTS`` windows, each with
+    its tap table (``stage``: a row offset a dst row; ``stagey``: the (TY,
+    ky) offsets and weights and a shift a row)
+    and two mbarriers, T for ``stagey`` only (``stage_t_pitch`` floats a
+    row), two output tiles for ``stage`` and one for ``stagey``, no zero
+    row), plus the bf16 chunk buffers for u8convert<n> (two, one for n = 1;
+    ``convert_pitch`` bytes a window row).  ``xonly`` stages its tile's TY
+    rows of the y pass's output in the window (``window_rows``).
+    ``densex`` runs on ``csrc/dense_x.cu`` (``dense_x_smem``)."""
     TY, TX, SX = plan["TY"], plan["TX"], plan["SX"]
     SY = window_rows(plan, mode)
     pitch_in = _seg_pitch(SX * elem, Ws * elem)
@@ -179,12 +203,25 @@ def smem_bytes(plan: dict, mode: str, Ws: int, Wd: int, ky: int,
     if mode.startswith("walk"):   # no zero row: the walk's taps are clamped
         n = int(mode[-1])
         return n * (window + tab + 16) + _up16(4 * TY * SX) + out_tile
+    if mode in RING_MODES:
+        n = STAGE_SLOTS
+        y = mode == "stagey"
+        tab = _up16(8 * TY * ky + 4 * TY if y else 4 * TY)
+        t = _up16(4 * TY * stage_t_pitch(SX)) if y else 0
+        return n * (window + tab + 16) + t + (1 if y else 2) * out_tile
     total = (window + _up16(pitch_in + 32) + _up16(4 * TY * SX) + tab
              + out_tile)
     if mode.startswith("u8convert"):
         n = int(mode[-1])
         total += min(n, 2) * _up16(SY * convert_pitch(SX, n))
     return total
+
+
+def stage_t_pitch(SX: int) -> int:
+    """Floats a row of the stage ring's T (band_apply.cuh's
+    ``stage_t_pitch``): SX rounded up to 4, so that every y-pass group's
+    columns start on a 16-byte boundary."""
+    return (SX + 3) // 4 * 4
 
 
 def convert_pitch(SX: int, n: int) -> int:
@@ -205,6 +242,16 @@ def walk_shares(items: int, blocks: int) -> list:
     grid = min(items, blocks)
     return [(b * items // grid, (b + 1) * items // grid)
             for b in range(grid)]
+
+
+def stage_shares(items: int, blocks: int) -> list:
+    """The stage ring's split of ``items`` tiles over its persistent grid
+    of G = min(items, ``blocks``) blocks (band_apply.cuh's
+    ``band_stage_kernel``): block b takes tiles b, b + G, b + 2G, ... in
+    production's order (strips fastest, then row tiles, then frames), so
+    the blocks at work at any moment hold neighbouring windows."""
+    grid = min(items, blocks)
+    return [list(range(b, items, grid)) for b in range(grid)]
 
 
 def walk_grid(frames: torch.Tensor, tables, mode: str) -> dict:
@@ -235,6 +282,37 @@ def walk_grid(frames: torch.Tensor, tables, mode: str) -> dict:
     return {"sms": sms, "blocks_per_sm": per_sm, "registers": regs,
             "smem": smem, "tiles": tiles,
             "grid": len(walk_shares(tiles, sms * per_sm))}
+
+
+def stage_grid(frames: torch.Tensor, tables, mode: str) -> dict:
+    """The stage ring's launch for ``mode`` (``stage`` or ``stagey``) on
+    ``frames`` (CUDA; the card is asked): the SMs, blocks an SM, registers
+    a thread, shared memory a block, the ring depth, tiles and the
+    persistent grid,
+    min(tiles, SMs x blocks an SM), split by ``stage_shares``.
+    ``RuntimeError`` where the card refuses the ring."""
+    if mode not in RING_MODES or frames.device.type != "cuda":
+        raise ValueError(f"stage_grid takes a stage ring mode {RING_MODES} "
+                         f"on CUDA frames, got {mode!r} on {frames.device}")
+    _check_mode(mode, frames.dtype)
+    ys, yw, xs, xw = _host(tables)
+    plan = _plan(tables)
+    F, Hs, Ws = frames.shape
+    out = (ctypes.c_int * 4)()
+    fn = _build.load(_build.BAND_PROBES).aainterp_band_stage_grid
+    with torch.cuda.device(frames.device):
+        rc = fn(Hs, Ws, yw.shape[0], xw.shape[0], yw.shape[1], xw.shape[1],
+                plan["TY"], plan["TX"], plan["SY"], plan["SX"], MODES[mode],
+                _DTYPE_CODES[frames.dtype], ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"band probe {mode}: no launch geometry for a ring "
+                           f"of {STAGE_SLOTS} windows, CUDA error {rc}")
+    sms, per_sm, regs, smem = out
+    tiles = (F * -(-xw.shape[0] // plan["TX"])
+             * -(-yw.shape[0] // plan["TY"]))
+    return {"sms": sms, "blocks_per_sm": per_sm, "registers": regs,
+            "smem": smem, "slots": STAGE_SLOTS, "tiles": tiles,
+            "grid": len(stage_shares(tiles, sms * per_sm))}
 
 
 def xpair_table(xs: np.ndarray, xw: np.ndarray) -> np.ndarray:
@@ -475,9 +553,11 @@ def dense_x_split_plain(t: torch.Tensor, wxd: torch.Tensor,
 def band_probe_plain(frames: torch.Tensor, tables, mode: str) -> torch.Tensor:
     """The probe ``mode``'s function in plain torch, on ``frames``' device,
     bit for bit the kernel's (output dtype = input dtype); ``xonly`` takes
-    the y pass's output, (F, Hd, W), as its frames."""
+    the y pass's output, (F, Hd, W), as its frames; ``stage_direct`` and
+    ``stagey_direct`` are ``stage``'s and ``stagey``'s."""
     _check_frames(frames, tables, mode)
     _check_mode(mode, frames.dtype)
+    mode = mode.removesuffix("_direct")      # a first form's function
     ys, yw, xs, xw = _tabs(tables, frames.device)
     Hs, Ws = frames.shape[1:]
     if mode == "xonly":
@@ -543,6 +623,8 @@ def band_probe_kernel(frames: torch.Tensor, tables, mode: str, *,
     if need > SMEM_LIMIT:
         raise ValueError(f"probe mode {mode!r} needs {need} bytes of shared "
                          f"memory a block, over the card's {SMEM_LIMIT}")
+    if mode in RING_MODES:
+        return _stage_kernel(frames, tables, mode, plan, shape, need, out)
     if mode == "xpair":
         xpair_table(xs, xw)                          # raises on other bands
     out = out_buffer(out, shape, frames.dtype, frames.device)
@@ -565,6 +647,37 @@ def band_probe_kernel(frames: torch.Tensor, tables, mode: str, *,
                            f" (F={F}, H={Hs}, W={Ws}, plan TY={plan['TY']} "
                            f"TX={plan['TX']} SY={plan['SY']} "
                            f"SX={plan['SX']}, {need} bytes of shared memory)")
+    LAUNCHES[mode] += 1
+    return out
+
+
+def _stage_kernel(frames: torch.Tensor, tables, mode: str, plan: dict, shape,
+                  need: int, out: Optional[torch.Tensor]) -> torch.Tensor:
+    """``stage`` or ``stagey`` on the stage ring (``aainterp_band_stage``;
+    CUDA frames and the ring's shared memory checked by the caller)."""
+    F, Hs, Ws = frames.shape
+    _, yw, _, xw = _host(tables)
+    if plan["TY"] > STAGE_ROWS:
+        raise ValueError(f"probe mode {mode!r} takes row tiles of at most "
+                         f"{STAGE_ROWS} rows, the plan has {plan['TY']}")
+    out = out_buffer(out, shape, frames.dtype, frames.device)
+    d_ys, d_yw, d_xs, _, d_rb, d_cb = cuda_apply._device_tables(
+        plan, frames.device)
+    fn = _build.load(_build.BAND_PROBES).aainterp_band_stage
+    with torch.cuda.device(frames.device):
+        stream = torch.cuda.current_stream(frames.device).cuda_stream
+        rc = fn(frames.data_ptr(), out.data_ptr(), d_ys.data_ptr(),
+                d_yw.data_ptr(), d_xs.data_ptr(), d_rb.data_ptr(),
+                d_cb.data_ptr(), F, Hs, Ws, shape[1], shape[2], yw.shape[1],
+                xw.shape[1], plan["TY"], plan["TX"], plan["SY"], plan["SX"],
+                MODES[mode], _DTYPE_CODES[frames.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"band probe {mode} launch failed: CUDA error {rc}"
+                           f" (F={F}, H={Hs}, W={Ws}, plan TY={plan['TY']} "
+                           f"TX={plan['TX']} SY={plan['SY']} "
+                           f"SX={plan['SX']}, a ring of {STAGE_SLOTS} windows, "
+                           f"{need} "
+                           "bytes of shared memory)")
     LAUNCHES[mode] += 1
     return out
 
@@ -615,13 +728,16 @@ def tensor_core_ops(mode: str, tables, shape, elem: int) -> int:
 def traffic(mode: str, tables, shape, elem: int) -> tuple:
     """(bytes, operations) of one batch of (F, H, W) inputs of
     ``elem``-byte pixels through ``mode`` ('full': the production kernel):
-    the input read once (``xonly``'s: the y pass's output, (F, Hd, W)),
-    the output written once, the tables the mode reads; 2 operations per
+    the input read once (``xonly``'s: the y pass's output, (F, Hd, W);
+    ``stage`` and ``stagey``: the rows and columns their functions read,
+    ``read_sectors``), the output written once, the tables the mode reads
+    (``stage`` no y weights); 2 operations per
     tap of each pass it keeps (``stage`` keeps none, ``stagey`` the y pass,
     ``xonly`` the x pass); ``densex`` reads the y tables, its tiles' row
     bases and its dense operator (W x Wd in the frame dtype) and does the y
     pass's f32 taps plus its split products on the tensor cores
     (``tensor_core_ops``)."""
+    mode = mode.removesuffix("_direct")
     ys, yw, xs, xw = _host(tables)
     F, Hs, Ws = shape
     Hd, ky = yw.shape
@@ -639,15 +755,39 @@ def traffic(mode: str, tables, shape, elem: int) -> tuple:
         bases = densex_plan(tables, Ws)["tables"][2].nbytes
         return (frames + outb + y_tab + bases + Ws * Wd * elem,
                 y_ops + tensor_core_ops(mode, tables, shape, elem))
-    if mode == "stage":
-        return frames + outb + y_tab + xs.nbytes + bases, 0
-    if mode == "stagey":
-        return frames + outb + y_tab + xs.nbytes + bases, y_ops
+    if mode in ("stage", "stagey"):
+        # the first tap's pixel (stage), or the y sum of every tap (stagey),
+        # at each dst column's first x tap, clamped
+        taps = 1 if mode == "stage" else ky
+        rows = np.clip(ys[:, None] + np.arange(taps), 0, Hs - 1)
+        read = read_sectors(rows, np.clip(xs, 0, Ws - 1), F, Hs, Ws, elem)
+        if mode == "stage":
+            return read + outb + ys.nbytes + xs.nbytes + bases, 0
+        return read + outb + y_tab + xs.nbytes + bases, y_ops
     if mode == "xpair":                  # the (4, Wd) table, 4 taps
         return (frames + outb + y_tab + 4 * Wd * 4 + bases,
                 y_ops + 2 * F * Hd * Wd * 4)
     return (frames + outb + y_tab + xs.nbytes + xw.nbytes + bases,
             y_ops + x_ops)
+
+
+def read_sectors(rows, cols, F: int, Hs: int, Ws: int, elem: int) -> int:
+    """Bytes of the whole 32-byte sectors that reading pixels (r, c), r in
+    ``rows`` and c in ``cols``, of each of F contiguous (Hs, Ws) frames of
+    ``elem``-byte pixels touches (the batch 32-byte aligned, as the
+    allocator gives it).  A row's sectors are those of its picked columns,
+    which depend on its start mod 32 alone; rows in address order, a
+    row's sectors all precede the next row's, so two rows share at most
+    the one sector where the first ends and the next begins."""
+    rows, cols = np.unique(rows), np.unique(cols).astype(np.int64)
+    starts = ((np.arange(F, dtype=np.int64)[:, None] * Hs + rows)
+              * (Ws * elem)).ravel()
+    res, n = np.unique(starts % 32, return_counts=True)
+    each = sum(int(k) * len(np.unique((r + cols * elem) // 32))
+               for r, k in zip(res, n))
+    first = (starts + cols[0] * elem) // 32
+    last = (starts + cols[-1] * elem) // 32
+    return 32 * (each - int(np.count_nonzero(last[:-1] == first[1:])))
 
 
 def word_pixels(buf: np.ndarray, p: int) -> np.ndarray:

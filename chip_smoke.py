@@ -368,9 +368,12 @@ BAND_EXPS = {torch.bfloat16: (flagship_experiments, ("stage", "ypass",
 # phase 48: rgb1024_experiments.py's experiments, their probe modes (the
 # checks' inputs: xonly takes the y pass's output) and JAX probes
 RGB_EXPS = tuple(rgb1024_experiments.EXPS)
-RGB_MODES = ("stage", "stagey", "xonly", "densex")
+RGB_MODES = ("stage", "stagey", "stage_direct", "stagey_direct", "xonly",
+             "densex")
 RGB_REPLACES = {"stage": "benchmarks/rgb1024_experiments.py:88",
                 "stagey": "benchmarks/rgb1024_experiments.py:88",
+                "stage_direct": "benchmarks/rgb1024_experiments.py:88",
+                "stagey_direct": "benchmarks/rgb1024_experiments.py:88",
                 "xonly": "benchmarks/rgb1024_experiments.py:148",
                 "densex": "benchmarks/rgb1024_experiments.py:181"}
 # each probe mode's JAX probe, file:line
@@ -379,6 +382,10 @@ BAND_REPLACES = {
              "benchmarks/u8_experiments.py:86",
     "stagey": "benchmarks/flagship_experiments.py:73,"
               "benchmarks/u8_experiments.py:86",
+    "stage_direct": "benchmarks/flagship_experiments.py:73,"
+                    "benchmarks/u8_experiments.py:86",
+    "stagey_direct": "benchmarks/flagship_experiments.py:73,"
+                     "benchmarks/u8_experiments.py:86",
     "walk2": "benchmarks/flagship_experiments.py:144",
     "walk3": "benchmarks/flagship_experiments.py:144",
     "walk4": "benchmarks/flagship_experiments.py:144",
@@ -387,6 +394,13 @@ BAND_REPLACES = {
     "u8convert2": "benchmarks/flagship_experiments.py:497",
     "u8convert4": "benchmarks/flagship_experiments.py:497",
     "xpair": "benchmarks/u8_experiments.py:86"}
+# phase 47: a geometry whose rows are not 16-byte aligned in any dtype (an
+# odd W; its 962-pixel dst rows no 16-byte multiple either), for the stage
+# ring's ragged row ends
+STAGE_ODD_SHAPE = (3, 540, 1923)
+# phase 47: the first forms of the stage probes, timed beside the ring
+# (launched by no experiment), as the experiments name them
+DIRECT_EXPS = {"stage_direct": "stage", "stagey_direct": "ypass"}
 # phase 50: each watchlist probe's pallas_call in the JAX file
 WATCHLIST_LINES = {"strided_y_bf16": 67, "strided_load": 87,
                    "value_slice": 103, "unaligned_dma": 122, "high_dot": 144,
@@ -3097,19 +3111,23 @@ def column_picker(cols: torch.Tensor, width: int, dtype) -> torch.Tensor:
 
 def band_probe_phase(make, card) -> list:
     """Phase 47: kernel 1's probe modes at the 4K flagship against their
-    plain versions, then through the entry points' experiments, beside the
-    production kernel; one flagship_probe_timing line.  Returns the
-    probes' entries of the JSON summary."""
+    plain versions (the stage ring's also at STAGE_ODD_SHAPE), then through
+    the entry points' experiments, beside the production kernel and the
+    first forms of stage and stagey (kernel 1's split is read from those);
+    one flagship_probe_timing line.  Returns the probes' entries of the
+    JSON summary."""
     dev = make.device
     tables = band_probes.flagship_tables((H, W))
     plan = band_probes._plan(tables)
     check((plan["TY"], plan["TX"], plan["SY"], plan["SX"]) ==
           (8, 240, 18, 482), f"kernel 1's flagship plan {plan}")
     err = {}
-    grids = {}      # (dtype, mode) -> the walk's grid, u8convert's buffers
+    grids = {}      # (dtype, mode) -> the walk's and the ring's grids,
+    #                 u8convert's buffers
+    first_forms = band_probes.RING_MODES + band_probes.DIRECT_MODES
     for dtype, (mod, _) in BAND_EXPS.items():
         modes = (band_probes.U8_MODES if dtype == torch.uint8
-                 else band_probes.FLOAT_MODES)
+                 else band_probes.FLOAT_MODES) + band_probes.DIRECT_MODES
         x = make(dtype)
         prod = cuda_apply.apply_separable_kernel(x, *tables)
         for mode in modes:
@@ -3127,7 +3145,7 @@ def band_probe_phase(make, card) -> list:
             else:
                 check(torch.equal(got, plain), f"{mode} {dtype} differs from "
                       f"its plain version (max {e})")
-            if mode not in ("stage", "stagey"):
+            if mode not in first_forms:
                 check(torch.equal(got, prod), f"{mode} {dtype} is not "
                       "production's output")
             del got, plain, buf
@@ -3142,6 +3160,9 @@ def band_probe_phase(make, card) -> list:
             if mode.startswith("walk"):
                 grids[(str(dtype)[6:], mode)] = band_probes.walk_grid(
                     x, tables, mode)
+            elif mode in band_probes.RING_MODES:
+                grids[(str(dtype)[6:], mode)] = band_probes.stage_grid(
+                    x, tables, mode)
             elif mode.startswith("u8convert"):
                 n = int(mode[-1])
                 grids[("uint8", mode)] = {
@@ -3152,13 +3173,17 @@ def band_probe_phase(make, card) -> list:
         print(f"[47 kernel-1 probes] {str(dtype)[6:]} launch geometry: "
               + "; ".join(
                   f"{m} grid {g['grid']} ({g['blocks_per_sm']} blocks an SM "
-                  f"x {g['sms']} SMs, {g['tiles']} tiles), {g['smem']} bytes"
+                  f"x {g['sms']} SMs, {g['tiles']} tiles"
+                  + (f", a ring of {g['slots']} windows" if "slots" in g
+                     else "")
+                  + f"), {g['smem']} bytes"
                   f" of shared memory a block, {g['registers']} registers"
                   if "grid" in g else
                   f"{m} chunk buffers {g['buffers']} x {g['row_bytes']} bytes"
                   f" a row, {g['buffer_dtype']}, {g['smem']} bytes a block"
                   for (dt, m), g in grids.items() if dt == str(dtype)[6:]))
         del x, prod
+    stage_odd_check(make, dev)
     # the entry points: every experiment, the counts read around them
     torch.cuda.synchronize()
     reset_launches()
@@ -3180,6 +3205,12 @@ def band_probe_phase(make, card) -> list:
                                rot_experiments.LAUNCHES),
           "the kernel-1 probes launched a kernel of another path")
     launches = dict(band_probes.LAUNCHES)
+    # the first forms of stage and stagey, timed beside the ring (after the
+    # experiments' counts: no experiment launches them)
+    for dtype in BAND_EXPS:
+        for m, exp in DIRECT_EXPS.items():
+            runs[(str(dtype)[6:], f"{exp}_direct")] = band_probes.run_exp(
+                f"{exp}_direct", m, F, dtype, dev)
     # plain versions and library calls on the same kind of inputs
     plain_ms, library_ms = {}, {}
     ys, yw, xs, xw = (torch.as_tensor(t, device=dev) for t in tables)
@@ -3216,7 +3247,7 @@ def band_probe_phase(make, card) -> list:
         k: plan[k] for k in ("TY", "TX", "SY", "SX")}, "exps": {},
         "geometry": {f"{dt}_{m}": g for (dt, m), g in grids.items()}}
     for (dt, exp), r in runs.items():
-        key = (dt, r["mode"])
+        key = (dt, r["mode"].removesuffix("_direct"))
         timing["exps"][f"{dt}_{exp}"] = {
             "mode": r["mode"], "ms": r["ms_per_batch"],
             "gpixel_s": r["gpixel_s"], "bytes": r["bytes"],
@@ -3225,7 +3256,7 @@ def band_probe_phase(make, card) -> list:
             "plain_ms": plain_ms.get(key),
             "library_ms": library_ms.get(
                 key, library_ms.get((dt, "full"))
-                if r["mode"] not in ("stage", "stagey") else None)}
+                if r["mode"] not in first_forms else None)}
     ex = timing["exps"]
     by_mode = {(v["mode"], k.split("_")[0]): v for k, v in ex.items()}
     for dt in ("bfloat16", "float32", "uint8"):
@@ -3236,6 +3267,22 @@ def band_probe_phase(make, card) -> list:
                           f"{v['bound_ms']:.4f}"
                           for k, v in ex.items() if k.startswith(dt))
               + f"; kernel 1 {full:.4f}")
+    # kernel 1's split, read from the first forms (production's layout):
+    # staging and stores, what the y pass adds, what the x pass adds
+    for dt in ("bfloat16", "float32", "uint8"):
+        full = ex[f"{dt}_full"]["ms"]
+        st = by_mode[("stage_direct", dt)]["ms"]
+        sty = by_mode[("stagey_direct", dt)]["ms"]
+        timing[f"split_{dt}"] = {"staging_stores": st / full,
+                                 "y_pass": (sty - st) / full,
+                                 "x_pass": (full - sty) / full}
+        print(f"[47 kernel-1 probes] {card}, kernel 1's split {dt} from the "
+              f"first forms (kernel 1 {full:.4f} ms): staging and stores "
+              f"{100 * st / full:.1f} % (stage_direct {st:.4f}), y pass "
+              f"{100 * (sty - st) / full:.1f} % (stagey_direct {sty:.4f}), x "
+              f"pass {100 * (full - sty) / full:.1f} %; the stage ring: stage "
+              f"{by_mode[('stage', dt)]['ms']:.4f}, stagey "
+              f"{by_mode[('stagey', dt)]['ms']:.4f} ms")
     print(json.dumps({"flagship_probe_timing": timing}))
 
     def row(mode, dt):
@@ -3255,9 +3302,34 @@ def band_probe_phase(make, card) -> list:
             "dtype": dt,
         }
 
-    return ([row(m, "bfloat16") for m in band_probes.FLOAT_MODES]
+    return ([row(m, "bfloat16") for m in band_probes.FLOAT_MODES
+             + band_probes.DIRECT_MODES]
             + [row(m, "uint8") for m in band_probes.U8_MODES
                if m not in ("stage", "stagey")])
+
+
+def stage_odd_check(make, dev) -> None:
+    """Phase 47: the stage ring (stage, stagey) and its first forms at
+    STAGE_ODD_SHAPE, whose source and dst rows are not 16-byte aligned in
+    any dtype, torch.equal to their plain versions into 0xFF-filled
+    outputs."""
+    shape = STAGE_ODD_SHAPE
+    tables = band_probes.flagship_tables(shape[1:])
+    out_shape = (shape[0], len(tables[0]), len(tables[2]))
+    modes = band_probes.RING_MODES + band_probes.DIRECT_MODES
+    for dtype in BAND_EXPS:
+        x = make(dtype, shape)
+        for mode in modes:
+            got = band_probes.band_probe_kernel(
+                x, tables, mode, out=filled(out_shape, dtype, dev))
+            torch.cuda.synchronize()
+            plain = band_probes.band_probe_plain(x, tables, mode)
+            check(torch.equal(got, plain), f"{mode} {dtype} at {shape} "
+                  f"differs from its plain version (max {max_err(got, plain)})")
+    print(f"[47 kernel-1 probes] {'x'.join(map(str, shape))} -> "
+          f"{out_shape[1]}x{out_shape[2]} (rows of no 16-byte multiple in "
+          f"any dtype) into 0xFF-filled outputs: {', '.join(modes)} in "
+          "bfloat16, float32, uint8 torch.equal to their plain versions")
 
 
 
@@ -3334,8 +3406,16 @@ def rgb1024_phase(make, card, copy_row) -> list:
                 check(torch.equal(got, plain), f"rgb1024 {mode} {dt} differs "
                       f"from its plain version (max {err[(dt, mode)]})")
             del got, plain, buf
+        grid = {m: band_probes.stage_grid(x, tables, m)
+                for m in band_probes.RING_MODES}
+        print(f"[48 rgb1024] {dt} launch geometry: " + "; ".join(
+            f"{m} grid {g['grid']} ({g['blocks_per_sm']} blocks an SM x "
+            f"{g['sms']} SMs, {g['tiles']} tiles, a ring of {g['slots']} "
+            f"windows), {g['smem']} bytes of shared memory a block, "
+            f"{g['registers']} registers" for m, g in grid.items()))
         print(f"[48 rgb1024] {nf}x{R}x{R} {dt} -> {Hd}x{Wd}, plan TY 8 TX "
-              f"240 SY 21 SX 600 into NaN-filled outputs: stage, stagey, "
+              f"240 SY 21 SX 600 into NaN-filled outputs: stage, stagey (the "
+              f"stage ring), stage_direct, stagey_direct, "
               f"xonly torch.equal to their plain versions; densex (dense_x.cu, "
               f"{band_probes.DENSE_WARPGROUPS[dtype.itemsize]} warpgroup(s) "
               f"a block of 64 "
@@ -3362,6 +3442,13 @@ def rgb1024_phase(make, card, copy_row) -> list:
                                rot_experiments.LAUNCHES),
           "the rgb1024 experiments launched a kernel of another path")
     launches = dict(band_probes.LAUNCHES)
+    # the first forms of dma and ypass, timed beside the ring (after the
+    # experiments' counts: no experiment launches them)
+    for dtype in dtypes:
+        for m, exp in (("stage_direct", "dma"), ("stagey_direct", "ypass")):
+            runs[(str(dtype)[6:], f"{exp}_direct")] = band_probes.run_exp(
+                f"{exp}_direct", m, nf, dtype, dev, (R, R),
+                rgb1024_experiments.RES)
     # plain versions and library calls on the same kind of inputs
     plain_ms, library_ms = {}, {}
     ys, yw, xs, xw = (torch.as_tensor(t, device=dev) for t in tables)
@@ -3405,7 +3492,7 @@ def rgb1024_phase(make, card, copy_row) -> list:
               "plan": {k: plan[k] for k in ("TY", "TX", "SY", "SX")},
               "exps": {}}
     for (dt, exp), r in runs.items():
-        key = (dt, r["mode"])
+        key = (dt, r["mode"].removesuffix("_direct"))
         # densex: its split products at the tensor-core rate, the y pass
         # at the f32 rate; beside it the bound first stated, one dense
         # product as f32 FMAs (its passes: 4 products for f32, 2 for bf16)
@@ -3464,6 +3551,8 @@ def rgb1024_phase(make, card, copy_row) -> list:
 
     return [row("rgb1024_dma", "stage", "dma"),
             row("rgb1024_ypass", "stagey", "ypass"),
+            row("rgb1024_dma_direct", "stage_direct", "dma_direct"),
+            row("rgb1024_ypass_direct", "stagey_direct", "ypass_direct"),
             row("band_xonly", "xonly", "xonly"),
             row("band_densex", "densex", "fulldense")]
 

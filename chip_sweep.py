@@ -26,7 +26,15 @@ graph (``CALLS``).
   ``b_u8convert4``: kernel 1's walk and u8 conversion probe modes
   (``probes/band_probes.py``) on the ``k1_*`` cells' frames, each checked
   bit for bit against its plain version (with ``--repo`` a parent
-  checkout's, in the same call);
+  checkout's, in the same call); ``b_stage_bf16`` .. ``b_stagey_u8``: its
+  stage probes (``stage``, ``stagey``: the stage ring; a parent's first
+  form) on the same frames, and ``b_rgb_stage_bf16`` ..
+  ``b_rgb_stagey_f32`` at rgb1024, 24 planes of 1024^2 (variants
+  ``stnoy``, stagey without its y pass, ``stynoload`` / ``stynotstore``,
+  it without its pixel reads / T stores, ``stcols2``, 2 columns a y-pass
+  thread for bf16 and f32, ``stnoreuse`` / ``streuse``, every tap read /
+  the register shift in every dtype (not f32 alone), ``stmin1``, registers
+  uncapped);
 * ``k2_f32``, ``k2_bf16``, ``k2_u8``: kernel 2 at the config-5 regrid, 8
   fields 1800x3600 -> 180x360 (12-tap bands); ``k2q_f32``: 0.1 -> 0.25
   degree (720x1440, 5-tap bands); ``k2_direct``: its direct form on 8
@@ -121,6 +129,10 @@ import sys
 from pathlib import Path
 
 NOT_REACHED = "if (off < -(1 << 30)) cp_async16"
+# band_apply.cuh's stage ring: the blocks an SM its registers are capped for
+STAGE_MIN = r"return !kY \? 4 : sizeof\(Tin\) < 4 \? 3 : 2;"
+# ... and the element sizes whose y pass shifts its registers (f32)
+SHIFT_REUSE = r"return sizeof\(Tin\) == 4;"
 # the r_* cells' angle (``--set 'sweep.ROT_ANGLE=30.2'``): T's width, and
 # so the alignment of its rows, moves with it
 ROT_ANGLE = 30.0
@@ -257,6 +269,25 @@ SY_TMA_STORE = {
            "static_cast<size_t>(bc) * br * 4;")]}
 VARIANTS = {
     "cur": {},
+    # the stage ring (band_stage_kernel) without its y pass (T left as it
+    # was: the time of the rest); its y pass without its pixel reads (a dependent add in their place)
+    # or without its T stores; 2 columns a y-pass thread for bf16 and f32
+    # (not 4); every tap read, or the register shift, in every dtype (not
+    # by shift_reuse); its registers uncapped (not by stage_min_blocks)
+    "stnoy": {"band_apply.cuh": [(r"for \(int it = tid; it < ng \* parts; "
+                                  r"it \+= kThreads\)",
+                                  "for (int it = tid; it < 0; it += kThreads)")]},
+    "stynoload": {"band_apply.cuh": [
+        (r"if \(a < ky && a \+ s >= ky\) load_px<Tin, kC>\(q\[a\], row\[a\], colb\);",
+         "if (a < ky && a + s >= ky) q[a][0] += 1.0f;")]},
+    "stynotstore": {"band_apply.cuh": [
+        (r"    st_shared<kC>\(trow \+ r \* tp, acc\);\n  \}\n\}\n\n// the same for bands",
+         "    if (acc[0] == -1.0f) trow[0] = acc[1];\n  }\n}\n\n// the same for bands")]},
+    "stcols2": {"band_apply.cuh": [(r"constexpr int kFloatCols = 4;",
+                                    "constexpr int kFloatCols = 2;")]},
+    "stnoreuse": {"band_apply.cuh": [(SHIFT_REUSE, "return false;")]},
+    "streuse": {"band_apply.cuh": [(SHIFT_REUSE, "return true;")]},
+    "stmin1": {"band_apply.cuh": [(STAGE_MIN, "return 1;")]},
     # the walk probe (band_walk_kernel) without one phase: its consumers'
     # y pass, x pass or stores, or its producer's bulk copies (the expected
     # bytes 0: the passes read stale windows)
@@ -475,7 +506,7 @@ EXACT = ("cur", "lane8", "t256", "t128", "tilemajor",   # variants that
          "cstage3", "cstage4", "cstage8", "cpiece8", "cpiece32", "cbps1",
          "cbps4",
          "copyunits", "copyhint", "ctscalar", "ctgroup4", "ctgroup8",
-         "cchunk", "ctmin1", "ctmin4", "ctmin8", "pipemin2",
+         "cchunk", "ctmin1", "ctmin4", "ctmin8", "pipemin2", "stcols2", "stnoreuse", "streuse", "stmin1",
          "pipemin4", "pipestage64", "pipestage96")
 
 
@@ -500,24 +531,33 @@ def variant_sources(lib, name: str) -> dict:
     return texts
 
 
-def build_variant(_build, lib, name: str):
-    """``lib`` built with ``name``'s edits, loaded; None if it has none."""
-    texts = variant_sources(lib, name)
-    if not texts:
-        return None
-    out = _build.BUILD_DIR / "sweep" / name
-    out.mkdir(parents=True, exist_ok=True)
-    for fname, text in texts.items():
-        (out / fname).write_text(text)
-    so = out / f"{lib.name}.so"
-    subprocess.run([_build.compiler_path("nvcc"), *lib.flags, "-o", str(so),
-                    str(out / lib.source.name)], check=True)
-    cdll = ctypes.CDLL(str(so))
-    for sym, argtypes, restype in lib.symbols:
-        fn = getattr(cdll, sym)
-        fn.argtypes = list(argtypes)
-        fn.restype = restype
-    return cdll
+def build_variant(_build, libs, name: str) -> dict:
+    """{library name: CDLL} of ``libs`` built with ``name``'s edits (those
+    it edits, compiled in parallel), loaded."""
+    jobs = []
+    for lib in libs:
+        texts = variant_sources(lib, name)
+        if not texts:
+            continue
+        out = _build.BUILD_DIR / "sweep" / name
+        out.mkdir(parents=True, exist_ok=True)
+        for fname, text in texts.items():
+            (out / fname).write_text(text)
+        so = out / f"{lib.name}.so"
+        jobs.append((lib, so, subprocess.Popen(
+            [_build.compiler_path("nvcc"), *lib.flags, "-o", str(so),
+             str(out / lib.source.name)])))
+    built = {}
+    for lib, so, proc in jobs:
+        if proc.wait() != 0:
+            raise RuntimeError(f"variant {name}: {lib.name} did not build")
+        cdll = ctypes.CDLL(str(so))
+        for sym, argtypes, restype in lib.symbols:
+            fn = getattr(cdll, sym)
+            fn.argtypes = list(argtypes)
+            fn.restype = restype
+        built[lib.name] = cdll
+    return built
 
 
 def sass_counts(_build, libs) -> dict:
@@ -621,22 +661,38 @@ def make_cells(dev):
     cells.update({f"k2_{n}": k2_cell("c5", dt) for n, dt in
                   (("f32", torch.float32), ("bf16", torch.bfloat16),
                    ("u8", torch.uint8))})
-    def b_cell(mode, dtype):
+    def b_cell(mode, dtype, t=t1, key="flag", shape=(8, 2160, 3840)):
         from aainterp_torch.probes import band_probes
 
         def prepare():
-            p = cuda_apply._plan_for(*t1)
-            return (lambda x: band_probes.band_probe_kernel(x, t1, mode),
-                    lambda x: band_probes.band_probe_plain(x, t1, mode),
-                    {"mode": mode, **{k: p[k] for k in keys if k in p}})
-        return (prepare, lambda: rand(("flag", dtype), (8, 2160, 3840), dtype),
-                0.0)
+            p = cuda_apply._plan_for(*t)
+            info = {"mode": mode, **{k: p[k] for k in keys if k in p}}
+            if mode in getattr(band_probes, "RING_MODES", ()):
+                # the ring's blocks an SM, registers, shared memory
+                g = band_probes.stage_grid(rand((key, dtype), shape,
+                                                dtype)[0], t, mode)
+                info.update({k: g[k] for k in (
+                    "blocks_per_sm", "registers", "smem")})
+            return (lambda x: band_probes.band_probe_kernel(x, t, mode),
+                    lambda x: band_probes.band_probe_plain(x, t, mode),
+                    info)
+        return (prepare, lambda: rand((key, dtype), shape, dtype), 0.0)
 
     for n in (2, 3, 4):
         for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
             cells[f"b_walk{n}_{name}"] = b_cell(f"walk{n}", dt)
     for n in (1, 2, 4):
         cells[f"b_u8convert{n}"] = b_cell(f"u8convert{n}", torch.uint8)
+    t_rgb = at.separable_linear_for(at.build_operator(at.make_grid_spec(
+        (1024, 1024), 150.0, 60.0, (0.0, 0.0), 0.0)), torch.float32,
+        "kernel").tables
+    for mode in ("stage", "stagey"):
+        for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32),
+                         ("u8", torch.uint8)):
+            cells[f"b_{mode}_{name}"] = b_cell(mode, dt)
+            if dt != torch.uint8:
+                cells[f"b_rgb_{mode}_{name}"] = b_cell(
+                    mode, dt, t_rgb, "rgb", (24, 1024, 1024))
     cells["k2q_f32"] = k2_cell("q", torch.float32)
     cells["k2_direct"] = k2_cell("wide", torch.float32, (8, 480, 480))
     cells["k2_thumb"] = k2_cell("thumb", torch.bfloat16, (8, 2160, 3840))
@@ -879,9 +935,7 @@ def main() -> int:
     for variant in args.variants.split(","):
         for lib in libs:
             _build._LOADED.pop(lib.name, None)
-            cdll = build_variant(_build, lib, variant)
-            if cdll is not None:
-                _build._LOADED[lib.name] = cdll
+        _build._LOADED.update(build_variant(_build, libs, variant))
         for setting in args.set or [""]:
             for (mod, name), value in defaults.items():
                 setattr(mods[mod], name, value)

@@ -351,7 +351,10 @@ def test_flagship_plan_and_shared_memory():
         for elem in (1, 2, 4):
             need = band_probes.smem_bytes(plan, mode, 3840, 1920, 4, elem)
             assert need <= band_probes.SMEM_LIMIT, (mode, elem)
-    base = band_probes.smem_bytes(plan, "stage", 3840, 1920, 4, 4)
+    # production's layout: the first forms of stage and stagey
+    base = band_probes.smem_bytes(plan, "stage_direct", 3840, 1920, 4, 4)
+    assert base == band_probes.smem_bytes(plan, "stagey_direct", 3840, 1920,
+                                          4, 4)
     assert base <= cuda_apply.band_smem(8, 240, 18, 482, 4)
     w4 = band_probes.smem_bytes(plan, "walk4", 3840, 1920, 4, 4)
     # three more windows: 18 rows at a pitch of 482 * 4 + 32 bytes rounded
@@ -366,7 +369,7 @@ def test_flagship_plan_and_shared_memory():
     assert 233472 // (w2 + 1024) == 4
     # u8convert<n>: bf16 chunk buffers of 18 rows, 32 bytes for each of
     # ceil(31 / n) + 1 aligned window chunks a row; two buffers, one for n 1
-    u8 = band_probes.smem_bytes(plan, "stage", 3840, 1920, 4, 1)
+    u8 = band_probes.smem_bytes(plan, "stage_direct", 3840, 1920, 4, 1)
     for n, pitch, bufs in ((1, 1024, 1), (2, 544, 2), (4, 288, 2)):
         assert band_probes.convert_pitch(482, n) == pitch
         assert (band_probes.smem_bytes(plan, f"u8convert{n}", 3840, 1920, 4,
@@ -401,6 +404,82 @@ def test_walk_shares_deal_every_tile_once(F, blocks):
                                   for r in range(n_rt)]
 
 
+def _ring_layout(plan, mode, n, Ws, Wd, ky, elem):
+    """The stage ring's layout (band_apply.cuh's stage_geo), by its parts:
+    n windows as production stages them, n tap tables and 2n mbarriers, T
+    for stagey alone, two output tiles, no zero row."""
+    TY, TX, SY, SX = plan["TY"], plan["TX"], plan["SY"], plan["SX"]
+
+    def up16(v):
+        return -(-v // 16) * 16
+
+    pitch = (SX * elem + 32) + ((Ws * elem - (SX * elem + 32)) % 16)
+    window = up16(32 + SY * pitch)
+    tab = up16(8 * TY * ky + 4 * TY) if mode == "stagey" else up16(4 * TY)
+    # T's rows padded to SX rounded up to 4 floats
+    t = up16(4 * TY * ((SX + 3) // 4 * 4)) if mode == "stagey" else 0
+    pitch_out = (TX * elem + 32) + ((Wd * elem - (TX * elem + 32)) % 16)
+    tiles = 1 if mode == "stagey" else 2
+    return n * window + t + n * tab + tiles * up16(32 + TY * pitch_out) \
+        + 16 * n
+
+
+@pytest.mark.parametrize("elem", [1, 2, 4])
+def test_stage_ring_shared_memory(elem):
+    tables = band_probes.flagship_tables()
+    plan = band_probes._plan(tables)
+    n = band_probes.STAGE_SLOTS
+    assert n == 2
+    got = {}
+    for mode in band_probes.RING_MODES:
+        got[mode] = band_probes.smem_bytes(plan, mode, 3840, 1920, 4, elem)
+        assert got[mode] == _ring_layout(plan, mode, n, 3840, 1920, 4, elem)
+        assert got[mode] <= band_probes.SMEM_LIMIT
+    pitch = band_probes._seg_pitch(482 * elem, 3840 * elem)
+    window = -(-(32 + 18 * pitch) // 16) * 16
+    # stagey: one T (8 rows of 482 f32, padded to 484) and its larger tap
+    # tables, one output tile less
+    assert band_probes.stage_t_pitch(482) == 484
+    out_tile = -(-(32 + 8 * band_probes._seg_pitch(240 * elem, 1920 * elem))
+                 // 16) * 16
+    assert got["stagey"] - got["stage"] == \
+        8 * 484 * 4 + n * (8 * 8 * 4 + 32 - 32) - out_tile
+    # no zero row and no T in the ring's stage, two output tiles: the ring
+    # of 2 holds one more window than the first form, less its zero row and
+    # T, plus an output tile
+    direct = band_probes.smem_bytes(plan, "stage_direct", 3840, 1920, 4, elem)
+    assert got["stage"] - direct == (
+        window - (pitch + 32 + (-(pitch + 32)) % 16) - 8 * 482 * 4
+        + 2 * 32 - 8 * 4 * 8 + out_tile + 32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.uint8])
+def test_direct_modes_share_plain_and_rejections(dtype):
+    tables = band_probes.flagship_tables((97, 131))
+    x = _x(dtype, F=2, seed=12, shape=(97, 131))
+    for mode in band_probes.RING_MODES:
+        want = band_probes.band_probe_plain(x, tables, mode)
+        direct = f"{mode}_direct"
+        assert torch.equal(band_probes.band_probe_plain(x, tables, direct),
+                           want)
+        buf = torch.empty_like(want)
+        got = band_probes.band_probe_kernel(x, tables, direct, out=buf)
+        assert got is buf and torch.equal(got, want)
+        assert band_probes.traffic(direct, tables, (2, 97, 131), 4) == \
+            band_probes.traffic(mode, tables, (2, 97, 131), 4)
+        # what the ring's mode rejects, its first form rejects alike
+        for bad, err in ((x[0], ValueError), ("frames", TypeError),
+                         (x.double(), ValueError)):
+            for m in (mode, direct):
+                with pytest.raises(err):
+                    band_probes.band_probe_kernel(bad, tables, m)
+    with pytest.raises(ValueError, match="stage_grid takes"):
+        band_probes.stage_grid(x, tables, "stage")
+    with pytest.raises(ValueError, match="stage_grid takes"):
+        band_probes.stage_grid(x, tables, "stage_direct")
+
+
 def test_traffic_counts_what_each_mode_reads():
     tables = band_probes.flagship_tables()
     ys, yw, xs, xw = tables
@@ -410,14 +489,33 @@ def test_traffic_counts_what_each_mode_reads():
     bases = plan["row_base"].nbytes + plan["col_base"].nbytes
     y_ops, x_ops = 2 * 8 * 1080 * 3840 * 4, 2 * 8 * 1080 * 1920 * 4
     tr = band_probes.traffic
+    # stage reads the rows of the dst rows' first taps alone (1080 of
+    # 2160), each at its dst columns' first taps, every other pixel: every
+    # 32-byte sector of the row; stagey every row its taps cover, all
+    assert len(np.unique(np.clip(ys, 0, 2159))) == 1080
     assert tr("stage", tables, shape, e) == (
-        frames + out + ys.nbytes + yw.nbytes + xs.nbytes + bases, 0)
-    assert tr("stagey", tables, shape, e)[1] == y_ops
+        8 * 1080 * 3840 * e + out + ys.nbytes + xs.nbytes + bases, 0)
+    assert tr("stagey", tables, shape, e) == (
+        frames + out + ys.nbytes + yw.nbytes + xs.nbytes + bases, y_ops)
     full = (frames + out + ys.nbytes + yw.nbytes + xs.nbytes + xw.nbytes
             + bases, y_ops + x_ops)
     for mode in ("full", "walk2", "walk4", "u8words", "u8convert2"):
         assert tr(mode, tables, shape, e) == full
     assert tr("xpair", tables, shape, 1)[1] == y_ops + x_ops
+
+
+@pytest.mark.parametrize("F,Hs,Ws", [(1, 5, 64), (3, 7, 33), (2, 4, 1923)])
+@pytest.mark.parametrize("elem", [1, 2, 4])
+def test_read_sectors_counts_the_touched_sectors(F, Hs, Ws, elem):
+    # against the set of 32-byte sectors that the picked pixels' bytes
+    # fall in, batch at byte 0; rows and columns repeated and unsorted
+    rng = np.random.default_rng(F * 100 + Ws + elem)
+    rows = rng.integers(0, Hs, 2 * Hs)
+    cols = rng.integers(0, Ws, Ws // 2 + 1)
+    want = {((f * Hs + r) * Ws + c) * elem // 32
+            for f in range(F) for r in rows for c in cols}
+    assert band_probes.read_sectors(rows, cols, F, Hs, Ws, elem) == \
+        32 * len(want)
 
 
 def test_probes_reject_what_they_cannot_take(monkeypatch):

@@ -49,9 +49,12 @@ contraction, and a plan without tiles raising for every tiled probe.  The copy
 probe split over blocks (8 x 1024^2, odd widths) and kernel 1's probe
 modes (``csrc/band_probes.cu``) bit-equal to their plain versions, into
 0xFF-filled outputs, bf16, f32 and u8, F 1, 3 and 11, at a small and two
-odd-pitch geometries (rows not 16-byte aligned); the walk's persistent
-grid against its tile count; a walk ring or u8 chunk buffers beyond the
-opt-in raising before any launch.  rgb1024's x-only mode (``xonly``) and
+odd-pitch geometries (rows not 16-byte aligned), the first forms of stage
+and stagey beside the stage ring; the walk's and the ring's persistent
+grids against their tile counts; the stage ring at every ring depth that
+fits (rgb1024's ratio 2.5, one row tile, upsampling, a 22-tap band); a
+walk ring, a stage ring or u8 chunk buffers beyond the opt-in raising
+before any launch.  rgb1024's x-only mode (``xonly``) and
 the fused aligned regrid (``csrc/aligned_fused.cu``) bit-equal to their
 plain versions into NaN-filled outputs: rgb1024, a ragged strip, one
 row tile and an upsampling plan; config 5, ``c0`` offsets on odd widths and a dst row
@@ -1468,7 +1471,8 @@ def test_band_probes_match_plain(cuda, shape, dtype, F):
 
     tables = band_probes.flagship_tables(shape)
     modes = (band_probes.U8_MODES if dtype == torch.uint8
-             else band_probes.FLOAT_MODES)
+             else band_probes.FLOAT_MODES) + band_probes.DIRECT_MODES
+    first_forms = band_probes.RING_MODES + band_probes.DIRECT_MODES
     x = _frames((F,) + shape, dtype, cuda, seed=4)
     prod = cuda_apply.apply_separable_kernel(x, *tables)
     torch.cuda.synchronize()
@@ -1481,10 +1485,10 @@ def test_band_probes_match_plain(cuda, shape, dtype, F):
         assert got is buf and band_probes.LAUNCHES[mode] == n + 1
         plain = band_probes.band_probe_plain(x, tables, mode)
         assert torch.equal(got, plain), mode
-        if mode not in ("stage", "stagey"):
+        if mode not in first_forms:
             assert torch.equal(got, prod), mode
     assert torch.equal(prod, band_probes.band_probe_plain(x, tables,
-                                                          modes[-1]))
+                                                          modes[-3]))
     assert cuda_apply.LAUNCHES == before
     # the walk's persistent grid: every SM, as many blocks as fit, fewer
     # where there are fewer tiles
@@ -1492,13 +1496,48 @@ def test_band_probes_match_plain(cuda, shape, dtype, F):
     tiles = (F * -(-prod.shape[2] // plan["TX"])
              * -(-prod.shape[1] // plan["TY"]))
     for mode in modes:
-        if mode.startswith("walk"):
-            g = band_probes.walk_grid(x, tables, mode)
+        if mode.startswith("walk") or mode in band_probes.RING_MODES:
+            g = (band_probes.walk_grid(x, tables, mode)
+                 if mode.startswith("walk")
+                 else band_probes.stage_grid(x, tables, mode))
             assert g["blocks_per_sm"] >= 1 and g["smem"] == (
                 band_probes.smem_bytes(plan, mode, shape[1], prod.shape[2],
                                        tables[1].shape[1], x.element_size()))
             assert g["tiles"] == tiles and g["grid"] == min(
                 tiles, g["sms"] * g["blocks_per_sm"])
+
+
+# the stage ring at the other shapes of its plans: rgb1024's ratio 2.5
+# (Wd 410: a strip of 170 columns, rows of 820 / 1,640 bytes), a tile of 6
+# rows, upsampling (shifts of 0 and 1, SY 5 < TY), a 22-tap band (its y
+# pass reads every tap)
+STAGE_GEOMS = [((1024, 1024), 150.0, 60.0), ((12, 500), 2.0, 1.0),
+               ((64, 160), 1.0, 2.0), ((960, 960), 20.0, 1.0)]
+
+
+@pytest.mark.parametrize("geom", STAGE_GEOMS,
+                         ids=["rgb1024", "one-tile", "upsampling", "20:1"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.uint8])
+def test_stage_ring_matches_plain_at_its_plans(cuda, geom, dtype):
+    from aainterp_torch.probes import band_probes
+
+    shape, sr, dr = geom
+    tables = band_probes.flagship_tables(shape, sr, dr)
+    plan = band_probes._plan(tables)
+    x = _frames((5,) + shape, dtype, cuda, seed=9)
+    out_shape = (5, len(tables[0]), len(tables[2]))
+    e = x.element_size()
+    for mode in band_probes.RING_MODES:
+        plain = band_probes.band_probe_plain(x, tables, mode)
+        got = band_probes.band_probe_kernel(
+            x, tables, mode, out=_ff(out_shape, dtype, cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain), mode
+        g = band_probes.stage_grid(x, tables, mode)
+        assert g["slots"] == band_probes.STAGE_SLOTS and g["smem"] == (
+            band_probes.smem_bytes(plan, mode, shape[1], out_shape[2],
+                                   tables[1].shape[1], e))
 
 
 def test_band_probes_reject_what_they_cannot_take(cuda, monkeypatch):
@@ -1538,6 +1577,17 @@ def test_band_probes_reject_what_they_cannot_take(cuda, monkeypatch):
     with pytest.raises(ValueError, match=f"'u8convert2' needs {need} bytes"):
         band_probes.band_probe_kernel(u8, t20, "u8convert2")
     assert band_probes.LAUNCHES == dict(n, walk2=n["walk2"] + 1)
+    # the stage ring beyond the opt-in (a lower limit stands in, as its
+    # two f32 windows of 162 rows fit): the ValueError names the mode and
+    # the bytes, before any launch, and the first form is never taken in
+    # its place
+    need = band_probes.smem_bytes(plan, "stagey", 960, 48, t20[1].shape[1],
+                                  4)
+    monkeypatch.setattr(band_probes, "SMEM_LIMIT", need - 1)
+    n = dict(band_probes.LAUNCHES)
+    with pytest.raises(ValueError, match=f"'stagey' needs {need} bytes"):
+        band_probes.band_probe_kernel(x20, t20, "stagey")
+    assert band_probes.LAUNCHES == n
 
 
 # ---------------------------------------------------------------------------

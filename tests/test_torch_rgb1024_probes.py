@@ -373,9 +373,9 @@ def test_rgb1024_plans_and_shared_memory():
                                                                 600)
     assert band_probes.window_rows(plan, "xonly") == 21
     for elem, dense_smem in ((2, 64000), (4, 164352)):
-        # xonly: production's layout
+        # xonly: production's layout, as stagey's first form
         assert band_probes.smem_bytes(plan, "xonly", 1024, 410, 4, elem) == \
-            band_probes.smem_bytes(plan, "stagey", 1024, 410, 4, elem)
+            band_probes.smem_bytes(plan, "stagey_direct", 1024, 410, 4, elem)
         # densex (csrc/dense_x.cu): 7 row tiles of 64 whose taps span 161
         # rows, 32 chunks of 32 columns; two stages of the chunk's operator
         # (f32: hi and lo) and T's hi and lo, and two windows of 161 rows
@@ -395,8 +395,57 @@ def test_rgb1024_plans_and_shared_memory():
     assert not band_probes.dense_x_window(161, 1022, 2)
     assert not band_probes.dense_x_window(257, 1024, 2)
     assert band_probes.dense_x_window(256, 1024, 4)
-    assert band_probes.smem_bytes(plan, "stagey", 1024, 410, 4, 4) <= \
+    assert band_probes.smem_bytes(plan, "stagey_direct", 1024, 410, 4, 4) <= \
         cuda_apply.band_smem(8, 240, 21, 600, 4)
+
+
+@pytest.mark.parametrize("elem", [2, 4])
+def test_stage_ring_shared_memory_at_rgb1024(elem):
+    # the stage ring's layout at rgb1024's plan (SY 21, SX 600): n windows
+    # (each with its tap table and two mbarriers), T for stagey alone,
+    # output tiles of 8 rows of 240 dst pixels (stage two, stagey one), no
+    # zero row
+    tables = rgb.tables()
+    plan = band_probes._plan(tables)
+
+    def up16(v):
+        return -(-v // 16) * 16
+
+    pitch = band_probes._seg_pitch(600 * elem, 1024 * elem)
+    window = up16(32 + 21 * pitch)
+    out_tile = up16(32 + 8 * band_probes._seg_pitch(240 * elem, 410 * elem))
+    n = band_probes.STAGE_SLOTS
+    stage = band_probes.smem_bytes(plan, "stage", 1024, 410, 4, elem)
+    stagey = band_probes.smem_bytes(plan, "stagey", 1024, 410, 4, elem)
+    assert stage == n * (window + 32 + 16) + 2 * out_tile
+    # T: 8 rows of 600 f32 (stage_t_pitch, a multiple of 4 already); one
+    # output tile
+    assert band_probes.stage_t_pitch(600) == 600
+    assert stagey == n * (window + 8 * 8 * 4 + 32 + 16) + 8 * 600 * 4 \
+        + out_tile
+    assert max(stage, stagey) <= band_probes.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("F", [1, 24, 25])
+@pytest.mark.parametrize("blocks", [132, 264, 528, 2496, 10 ** 5])
+def test_stage_grid_deals_every_tile_once(F, blocks):
+    # rgb1024: two strips (240 and 170 dst columns), 52 row tiles (the last
+    # of 2 rows); the ring's persistent grid deals each tile to one block,
+    # round-robin (the blocks' k-th tiles then lie side by side)
+    tables = rgb.tables()
+    plan = band_probes._plan(tables)
+    n_strip, n_rt = -(-410 // plan["TX"]), -(-410 // plan["TY"])
+    assert (n_strip, n_rt) == (2, 52)
+    items = F * n_strip * n_rt
+    shares = band_probes.stage_shares(items, blocks)
+    grid = min(items, blocks)
+    assert len(shares) == grid
+    sizes = [len(sh) for sh in shares]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    assert sorted(i for sh in shares for i in sh) == list(range(items))
+    for k in range(max(sizes)):
+        kth = [sh[k] for sh in shares if k < len(sh)]
+        assert kth == list(range(k * grid, k * grid + len(kth)))
 
 
 def test_densex_plan_halves_rows_and_keeps_one_strip():
@@ -457,8 +506,14 @@ def test_traffic_counts_what_each_mode_reads():
     y_tab = ys.nbytes + yw.nbytes
     y_ops = 2 * F24 * 410 * 1024 * 4
     tr = band_probes.traffic
+    # stage reads the 410 rows of the dst rows' first taps alone, each at
+    # its dst columns' first taps, 2.5 pixels apart: every 32-byte sector
+    # of the row (rows of 2,048 bytes); stagey every row its taps cover
+    assert len(np.unique(np.clip(ys, 0, 1023))) == 410
     assert tr("stage", tables, (F24, 1024, 1024), e) == (
-        frames + out + y_tab + xs.nbytes + bases, 0)
+        F24 * 410 * 1024 * e + out + ys.nbytes + xs.nbytes + bases, 0)
+    assert tr("stagey", tables, (F24, 1024, 1024), e) == (
+        frames + out + y_tab + xs.nbytes + bases, y_ops)
     assert tr("xonly", tables, (F24, 410, 1024), e) == (
         tmp + out + xs.nbytes + xw.nbytes + plan["col_base"].nbytes,
         2 * F24 * 410 * 410 * 4)
