@@ -184,9 +184,10 @@ BAND_PROBES = Library(
         # aainterp_band_walk_grid(H, W, Hd, Wd, ky, kx, TY, TX, SY, SX,
         #     mode, dtype_code, out[4])
         ("aainterp_band_walk_grid", (_I,) * 12 + (_P,), ctypes.c_int),
-        # aainterp_band_stage(src, out, ys, wy, xs, row_base, col_base, F,
-        #     H, W, Hd, Wd, ky, kx, TY, TX, SY, SX, mode, dtype_code, stream)
-        ("aainterp_band_stage", (_P,) * 7 + (_I,) * 13 + (_P,),
+        # aainterp_band_stage(src, out, ys, wy, xs, wx, row_base, col_base,
+        #     F, H, W, Hd, Wd, ky, kx, TY, TX, SY, SX, mode, dtype_code,
+        #     stream)
+        ("aainterp_band_stage", (_P,) * 8 + (_I,) * 13 + (_P,),
          ctypes.c_int),
         # aainterp_band_stage_grid(H, W, Hd, Wd, ky, kx, TY, TX, SY, SX,
         #     mode, dtype_code, out[4])

@@ -67,10 +67,14 @@
 // with it.  The walk (band_walk_kernel) runs the same phases, as functions,
 // on a persistent grid whose blocks take their windows from a ring that a
 // producer warp fills with bulk copies.  The stage ring (band_stage_kernel)
-// runs kStage's and kStageY's functions on the same kind of grid, with a
-// y pass of its own (stage_y_pass, register-blocked over a tile's rows);
-// the kStage and kStageY branches of band_apply_kernel stay as their first
-// forms.
+// runs kStage's, kStageY's, kU8Words' and kXPair's functions on the same
+// kind of grid (kRingStage .. kRingPair): stagey with a y pass of its own
+// (stage_y_pass, register-blocked over a tile's rows), u8words with one
+// aligned word a tap row into a T shifted to the window's words
+// (words_y_pass) and production's x pass, xpair with no T at all (each
+// lane's column sums feed its 4 dst columns from registers, pair_tile).
+// The kStage, kStageY, kU8Words and kXPair branches of band_apply_kernel
+// stay as their first forms (the modes stage_direct .. xpair_direct).
 //
 // Arithmetic modes (kernel 2's precision knob, pallas_apply.py:798-846):
 //   0  IEEE f32 products and sums;
@@ -459,8 +463,8 @@ enum Probe : int {
   kNone = 0,
   kStage = 1,       // staging and stores only: the first tap's pixel
   kStageY = 2,      // staging, the y pass, stores: T at the first x tap
-  kU8Words = 3,     // u8: the y pass reads 4 pixels per 32-bit word
-  kXPair = 4,       // an exact ratio-2 x pass from a (4, Wd) table
+  kU8Words = 3,     // u8: the y pass reads 4 pixels per 32-bit word (kRingWords' first form)
+  kXPair = 4,       // an exact ratio-2 x pass from a (4, Wd) table (kRingPair's first form)
   kU8Convert1 = 5,  // u8: the window converted to bf16 in shared memory ...
   kU8Convert2 = 6,  // ... in 2 column chunks, each then y-passed
   kU8Convert4 = 7,  // ... in 4
@@ -470,6 +474,8 @@ enum Probe : int {
   kXOnly = 11,      // the x pass alone, T staged from the y pass's output
   kRingStage = 12,  // kStage's function on a persistent ring (band_stage_kernel)
   kRingStageY = 13, // kStageY's
+  kRingWords = 14,  // kU8Words' function on the ring: a word a tap row
+  kRingPair = 15,   // kXPair's on the ring, its y sums fed to the x taps in registers
 };
 
 __host__ __device__ constexpr int convert_chunks(int p) {
@@ -607,12 +613,14 @@ __device__ __forceinline__ void y_pass_cols(float* __restrict__ T, const int* ro
   }
 }
 
-// kU8Words' y pass (u8, MODE 0, clamped taps): a lane takes 4 neighbouring
-// T columns and reads their 4 pixels of a tap row as one 32-bit word,
-// funnel-shifted from the two aligned words that hold it (a window row
-// starts at its global row's alignment), bytes in little-endian order
-// (byte k is column x0 + k); columns clamped to the window's edge read
-// pixel by pixel.  Each column sums its taps in order, as y_pass does.
+// kU8Words' y pass (its first form; u8, MODE 0, clamped taps): a lane
+// takes 4 neighbouring T columns and reads their 4 pixels of a tap row as
+// one 32-bit word, funnel-shifted from the two aligned words that hold it
+// (a window row starts at its global row's alignment), bytes in
+// little-endian order (byte k is column x0 + k); columns clamped to the
+// window's edge read pixel by pixel.  Each column sums its taps in order,
+// as y_pass does.  (The stage ring's words_y_pass lines T up with the
+// window's words instead.)
 template <bool kClamp>
 __device__ __forceinline__ void y_pass_words(float* __restrict__ T, const int* rowtab,
                                              const float* wtab, const Dims& d, int rows,
@@ -977,10 +985,10 @@ __global__ void __launch_bounds__(kThreads + 32) band_walk_kernel(
   }
 }
 
-// ---- the stage ring (band_stage_kernel): kStage's and kStageY's
-// functions on a persistent grid, the counterpart of JAX's band probe
-// (flagship_experiments.py:73, rgb1024_experiments.py:88), whose schedule
-// starts band t + 1's copy before band t is waited on ----
+// ---- the stage ring (band_stage_kernel): kStage's, kStageY's, kU8Words'
+// and kXPair's functions on a persistent grid, the counterpart of JAX's
+// band probe (flagship_experiments.py:73, rgb1024_experiments.py:88),
+// whose schedule starts band t + 1's copy before band t is waited on ----
 
 constexpr int kStageRows = 8;     // TY at most: kernel 1's plans (cuda_apply.TILE_Y)
 constexpr int kStageSlots = 2;    // the ring's windows (3 and 4 were no faster on the H100: PERF.md)
@@ -988,13 +996,25 @@ constexpr int kShiftTaps = 4;     // y bands up to this wide keep their pixels i
 constexpr int kFloatCols = 4;     // window columns a y-pass thread owns, bf16 and f32
 
 // blocks an SM the stage ring's registers are capped for, by measurement
-// on the H100 (PERF.md): kStage 4 (its shared memory allows 4-5 in bf16
-// and u8); kStageY 3 in bf16 and u8 (4 spilled, none left 2 at 96
-// registers), 2 in f32, as many as its shared memory allows (none left 1
-// at 127)
-template <typename Tin, bool kY>
+// on the H100 (PERF.md): kRingStage 4 (its shared memory allows 4-5 in
+// bf16 and u8); kRingStageY 3 in bf16 and u8 (4 spilled, none left 2 at
+// 96 registers), 2 in f32, as many as its shared memory allows (none left
+// 1 at 127); kRingWords 4 (u8; 3 was slower); kRingPair 3 (u8; 4
+// spilled)
+template <typename Tin, int P>
 __host__ __device__ constexpr int stage_min_blocks() {
-  return !kY ? 4 : sizeof(Tin) < 4 ? 3 : 2;
+  return P == kRingStage || P == kRingWords ? 4 : sizeof(Tin) < 4 ? 3 : 2;
+}
+
+// what each of the ring's functions keeps in its slot and beside it: the
+// (TY, ky) tap table (all but kRingStage, which reads each dst row's
+// first tap row alone), T (kRingStageY, kRingWords), output tiles
+// (kRingStage two, kRingPair none: its words go straight to global
+// memory; it keeps its (4, Wd) x table there instead, pair_pitch)
+__host__ __device__ constexpr bool ring_y_taps(int P) { return P != kRingStage; }
+__host__ __device__ constexpr bool ring_t(int P) { return P == kRingStageY || P == kRingWords; }
+__host__ __device__ constexpr int ring_out_tiles(int P) {
+  return P == kRingStage ? 2 : P == kRingPair ? 0 : 1;
 }
 
 // window columns a y-pass thread owns (a group): u8 4, bf16 and f32
@@ -1014,8 +1034,12 @@ __host__ __device__ constexpr bool shift_reuse() {
 }
 
 // T's row pitch in floats: SX rounded up to 4, so that each group's T
-// columns start on a 16-byte boundary
+// columns start on a 16-byte boundary (kRingWords: SX + 3, its columns
+// shifted by up to 3 to the window's word alignment, words_y_pass)
 __host__ __device__ inline int stage_t_pitch(int SX) { return (SX + 3) / 4 * 4; }
+__host__ __device__ inline int ring_t_pitch(int SX, int P) {
+  return stage_t_pitch(P == kRingWords ? SX + 3 : SX);
+}
 
 // bytes of one slot's tap table: kStage the first tap's row offset a dst
 // row; kStageY the (TY, ky) row offsets, the (TY, ky) weights and the
@@ -1223,12 +1247,316 @@ __device__ __forceinline__ void stage_y_pass(float* __restrict__ T, int tp, cons
   }
 }
 
-// kRingStage / kRingStageY (probes): kStage's and kStageY's functions (the
-// first tap's pixel; T at the first x tap) on a persistent grid, each block
-// a ring of kStageSlots windows filled by a producer warp and read by
-// kThreads consumer threads (csrc/band_probes.cu sizes the grid as the
-// walk's: as many blocks an SM as the ring's shared memory and the
-// registers allow).
+// byte k of a little-endian u8 word as f32, exactly: the float 2^23 + b
+// by one prmt, then b by one subtraction (no conversion instruction)
+__device__ __forceinline__ float byte_f32(uint32_t v, int k) {
+  return __uint_as_float(__byte_perm(v, 0x4Bu, 0x4550u + k)) - 8388608.0f;
+}
+
+// the 32-bit shared word at byte p (a multiple of 4)
+__device__ __forceinline__ uint32_t lds_u32(int p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  return *reinterpret_cast<const uint32_t*>(smem + p);
+}
+
+// the two 32-bit shared words at byte p (a multiple of 8), in one read
+__device__ __forceinline__ uint2 lds_u64(int p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  return *reinterpret_cast<const uint2*>(smem + p);
+}
+
+// a dst row's n tap row offsets and weights from its (ky)-long rows of
+// the tap table: n = 4 = ky in one 16-byte read each (the rows start on
+// 16 bytes: stage_tab_bytes), else one read a tap under a test
+template <int n, int kT>
+__device__ __forceinline__ void row_taps(int (&row)[n], float (&wa)[n], const int* rt,
+                                         const float* wt, int ky) {
+  if constexpr (kT == 4) {
+    const int4 r4 = *reinterpret_cast<const int4*>(rt);
+    const float4 w4 = *reinterpret_cast<const float4*>(wt);
+    row[0] = r4.x, row[1] = r4.y, row[2] = r4.z, row[3] = r4.w;
+    wa[0] = w4.x, wa[1] = w4.y, wa[2] = w4.z, wa[3] = w4.w;
+  } else {
+    const int nt = kT > 0 ? kT : ky;
+#pragma unroll
+    for (int a = 0; a < n; ++a) {
+      row[a] = a < nt ? rt[a] : 0;
+      wa[a] = a < nt ? wt[a] : 0.0f;
+    }
+  }
+}
+
+// the 4 pixels from shared byte p as one word, byte k the pixel at p + k:
+// one aligned read (kAligned: p a multiple of 4), else two joined by a
+// funnel shift (rows whose alignment differs row by row: W mod 4 != 0)
+template <bool kAligned>
+__device__ __forceinline__ uint32_t word_at(int p) {
+  if constexpr (kAligned) {
+    return lds_u32(p);
+  } else {
+    const int q = p & ~3;
+    return __funnelshift_r(lds_u32(q), lds_u32(q + 4), 8 * (p & 3));
+  }
+}
+
+// One group's dst rows [r0, r1) of kRingWords' y pass: each row's tap
+// offsets and weights read first, then each tap row's 4 pixels of the
+// group (byte pb past the row's base in rowtab) as one word, all in flight
+// together, then each column's taps summed in order and T's 4 columns
+// stored at once.  kT taps (kT 0: ky of them, at most kShiftTaps, each
+// under a test)
+template <bool kAligned, int kT>
+__device__ __forceinline__ void words_rows(float* trow, int tp, const int* rowtab,
+                                           const float* wtab, int ky, int r0, int r1, int pb) {
+  constexpr int n = kT > 0 ? kT : kShiftTaps;
+  const int nt = kT > 0 ? kT : ky;
+#pragma unroll 1
+  for (int r = r0; r < r1; ++r) {
+    const int* rt = rowtab + r * ky;
+    const float* wt = wtab + r * ky;
+    int row[n];
+    float wa[n];
+    row_taps<n, kT>(row, wa, rt, wt, ky);
+    uint32_t v[n];
+#pragma unroll
+    for (int a = 0; a < n; ++a) v[a] = a < nt ? word_at<kAligned>(row[a] + pb) : 0u;
+    float acc[4] = {};
+#pragma unroll
+    for (int a = 0; a < n; ++a) {
+      if (a < nt) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[k] = fmaf(wa[a], byte_f32(v[a], k), acc[k]);
+      }
+    }
+    st_shared<4>(trow + r * tp, acc);
+  }
+}
+
+template <bool kAligned>
+__device__ __forceinline__ void words_group(float* trow, int tp, const int* rowtab,
+                                            const float* wtab, int ky, int r0, int r1, int pb) {
+  if (ky == kShiftTaps) {
+    words_rows<kAligned, kShiftTaps>(trow, tp, rowtab, wtab, ky, r0, r1, pb);
+  } else {
+    words_rows<kAligned, 0>(trow, tp, rowtab, wtab, ky, r0, r1, pb);
+  }
+}
+
+// kRingWords' y pass (u8, clamped taps): T[r, c] = sum_a wy[i0 + r, a] *
+// window[tap row, cb + c], as y_pass computes it, with T column c at T + r
+// * tp + o + c.  o = (wbase + cb - xa) mod 4 lines T's columns up with the
+// window's words: a group of 4 T columns starting at a multiple of 4 in T
+// reads, in every tap row whose base is a multiple of 4 from the window's
+// first (all of them where the row pitch is: W mod 4 == 0), one aligned
+// 32-bit word, and stores its 4 sums with one st.shared.v4.  A thread owns
+// a group and walks the tile's dst rows (as stage_y_pass; rows split into
+// `parts` where the groups are fewer than the threads), reading every tap
+// (no register shift: the word read is one instruction for 4 pixels).
+// Groups with a column outside the window's [xa, xb), and bands wider
+// than kShiftTaps, read pixel by pixel, clamped (y_rows_wide).
+__device__ __forceinline__ void words_y_pass(float* __restrict__ T, int tp, int o,
+                                             const int* rowtab, const float* wtab, const Dims& d,
+                                             const Geo& g, const Tile& t, int tid) {
+  const int ng = (d.SX + o + 3) / 4;
+  const int parts = max(1, min(t.rows, kThreads / ng));
+  const bool aligned = (g.pitch_in & 3) == 0;
+  for (int it = tid; it < parts * ng; it += kThreads) {
+    const int part = it / ng;
+    const int gi = it - part * ng;
+    const int x0 = t.cb + 4 * gi - o;  // the group's first source column
+    const int r0 = part * t.rows / parts;
+    const int r1 = (part + 1) * t.rows / parts;
+    float* trow = T + 4 * gi;
+    if (x0 >= t.xa && x0 + 4 <= t.xb && d.ky <= kShiftTaps) {
+      if (aligned) {
+        words_group<true>(trow, tp, rowtab, wtab, d.ky, r0, r1, x0 - t.xa);
+      } else {
+        words_group<false>(trow, tp, rowtab, wtab, d.ky, r0, r1, x0 - t.xa);
+      }
+    } else {
+      int colb[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) colb[k] = min(max(x0 + k, t.xa), t.xb - 1) - t.xa;
+      y_rows_wide<uint8_t, 4>(trow, tp, rowtab, wtab, d.ky, r0, r1, colb);
+    }
+  }
+}
+
+// kRingPair's warps (xpair, u8 in and out; the exact ratio-2 band, dst
+// column j on source columns 2j - 1 .. 2j + 2): a lane owns the 4 dst
+// columns J .. J + 3 (J = j0 + 4 gi) of a part of the tile's rows.  Warp
+// w takes chunk w % n_chunk of 32 groups and part w / n_chunk of the rows,
+// a split fixed by TX and TY (at the flagship 2 chunks x 4 parts of 2
+// rows).
+struct PairLane {
+  int gi, r0, r1;  // group; rows [r0, r1) of a whole tile
+  int lane;
+  bool busy;       // the warp has a (chunk, part)
+};
+
+__device__ __forceinline__ PairLane pair_lane(const Dims& d, int tid) {
+  const int n_chunk = ((d.TX + 3) / 4 + 31) / 32;
+  const int parts = max(1, min(d.TY, kWarps / n_chunk));
+  const int warp = tid / 32;
+  const int part = warp / n_chunk;
+  PairLane p;
+  p.lane = tid % 32;
+  p.gi = (warp - part * n_chunk) * 32 + p.lane;
+  p.busy = warp < n_chunk * parts;
+  p.r0 = part * d.TY / parts;
+  p.r1 = (part + 1) * d.TY / parts;
+  return p;
+}
+
+// the (4, Wd) x table's rows in shared memory (kRingPair): row b at
+// b * pair_pitch(Wd) floats, so each lane's 4 weights of a tap are one
+// 16-byte read where the strip starts on a multiple of 4
+__host__ __device__ inline int pair_pitch(int Wd) { return (Wd + 3) / 4 * 4; }
+
+// a lane's x weights: w[b][k] = table row b (the taps o_prev, e, o,
+// e_next) at dst column J + k (J = j0 + jj), from the shared table
+__device__ __forceinline__ void pair_weights(float (&w)[4][4], const float* tab, int wp, int J,
+                                             bool vec) {
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    const float* r = tab + b * wp + J;
+    if (vec) {
+      const float4 v = *reinterpret_cast<const float4*>(r);
+      w[b][0] = v.x, w[b][1] = v.y, w[b][2] = v.z, w[b][3] = v.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) w[b][k] = r[k];
+    }
+  }
+}
+
+// One dst row of a pair lane, c[m] += the y sums of source columns x0 - 1
+// + m (m = 0 .. 9, x0 = 2J; pb = x0 - xa): each tap row's 10 pixels from
+// four words, the lane's own 8 columns (kAligned: pb + the row's base a
+// multiple of 8, one 8-byte read; else each word funnel-shifted from two)
+// and the last byte of the word before and the first of the word after
+// (the neighbouring lanes' columns: read again, not shuffled, which was
+// slower on the H100: PERF.md); the row's tap offsets, weights and words
+// all read before the sums.  kT taps (kT 0: ky of them, at most
+// kShiftTaps, each under a test)
+template <bool kAligned, int kT>
+__device__ __forceinline__ void pair_sums(float (&c)[10], const int* rt, const float* wt, int ky,
+                                          int pb) {
+  constexpr int n = kT > 0 ? kT : kShiftTaps;
+  const int nt = kT > 0 ? kT : ky;
+  int row[n];
+  float wa[n];
+  row_taps<n, kT>(row, wa, rt, wt, ky);
+  uint32_t vm[n], v0[n], v1[n], vp[n];
+#pragma unroll
+  for (int a = 0; a < n; ++a) {
+    if (a < nt) {
+      const int p = row[a] + pb;
+      if constexpr (kAligned) {
+        const uint2 v = lds_u64(p);
+        v0[a] = v.x;
+        v1[a] = v.y;
+        vm[a] = lds_u32(p - 4);
+        vp[a] = lds_u32(p + 8);
+      } else {
+        vm[a] = word_at<false>(p - 4);
+        v0[a] = word_at<false>(p);
+        v1[a] = word_at<false>(p + 4);
+        vp[a] = word_at<false>(p + 8);
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < n; ++a) {
+    if (a < nt) {
+      c[0] = fmaf(wa[a], byte_f32(vm[a], 3), c[0]);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        c[1 + k] = fmaf(wa[a], byte_f32(v0[a], k), c[1 + k]);
+        c[5 + k] = fmaf(wa[a], byte_f32(v1[a], k), c[5 + k]);
+      }
+      c[9] = fmaf(wa[a], byte_f32(vp[a], 0), c[9]);
+    }
+  }
+}
+
+// The same sums pixel by pixel, each column clamped to the window's [xa,
+// xb): lanes astride the window's edges, and bands wider than kShiftTaps
+__device__ __forceinline__ void pair_sums_clamped(float (&c)[10], const int* rt, const float* wt,
+                                                  int ky, int x0, const Tile& t) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  for (int a = 0; a < ky; ++a) {
+    const int row = rt[a];
+    const float w = wt[a];
+#pragma unroll
+    for (int m = 0; m < 10; ++m) {
+      const int col = min(max(x0 - 1 + m, t.xa), t.xb - 1) - t.xa;
+      c[m] = fmaf(w, static_cast<float>(smem[row + col]), c[m]);
+    }
+  }
+}
+
+// dst row r's 10 column sums of a pair lane (pair_sums, or
+// pair_sums_clamped where `whole` is false)
+template <bool kAligned>
+__device__ __forceinline__ void pair_row_sums(float (&c)[10], const int* rt, const float* wt,
+                                              int ky, int x0, const Tile& t, bool whole) {
+  if (!whole) {
+    pair_sums_clamped(c, rt, wt, ky, x0, t);
+  } else if (ky == kShiftTaps) {
+    pair_sums<kAligned, kShiftTaps>(c, rt, wt, ky, x0 - t.xa);
+  } else {
+    pair_sums<kAligned, 0>(c, rt, wt, ky, x0 - t.xa);
+  }
+}
+
+// kRingPair's work on one tile: each of the lane's rows' 10 column y sums
+// in registers (pair_row_sums), then its 4 dst values, taps b = 0 .. 3 in
+// the table's order, rounded half to even and saturated as store() does,
+// packed into one word and stored straight to the output row (one 32-bit
+// store; bytes where the row's 4 columns are not 4-byte aligned or run
+// past the strip)
+template <bool kAligned>
+__device__ __forceinline__ void pair_tile(uint8_t* __restrict__ out, const int* rowtab,
+                                          const float* wtab, const float* xtab, const Dims& d,
+                                          const Tile& t, const PairLane& p) {
+  const int jj = 4 * p.gi;  // the lane's first column in the strip
+  if (jj >= t.cols) return;
+  const int r1 = min(p.r1, t.rows);
+  const int x0 = 2 * (t.j0 + jj);
+  const bool whole = x0 - 1 >= t.xa && x0 + 9 <= t.xb && d.ky <= kShiftTaps;
+  const int wp = pair_pitch(d.Wd);
+  const bool vec = (t.j0 & 3) == 0;  // the lane's weights 16-byte aligned
+  for (int r = p.r0; r < r1; ++r) {
+    float c[10] = {};
+    pair_row_sums<kAligned>(c, rowtab + r * d.ky, wtab + r * d.ky, d.ky, x0, t, whole);
+    float w[4][4];  // read a row at a time: held across rows, they spilled
+    pair_weights(w, xtab, wp, t.j0 + jj, vec);
+    uint32_t word = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) acc = fmaf(w[b][k], c[2 * k + b], acc);
+      word |= static_cast<uint32_t>(fminf(fmaxf(rintf(acc), 0.0f), 255.0f)) << (8 * k);
+    }
+    uint8_t* o = out + (t.f * d.Hd + t.i0 + r) * static_cast<long long>(d.Wd) + t.j0 + jj;
+    if (jj + 4 <= t.cols && (reinterpret_cast<uintptr_t>(o) & 3) == 0) {
+      *reinterpret_cast<uint32_t*>(o) = word;
+    } else {
+      for (int k = 0; k < min(4, t.cols - jj); ++k) o[k] = static_cast<uint8_t>(word >> (8 * k));
+    }
+  }
+}
+
+// The stage ring (probes): kStage's, kStageY's, kU8Words' and kXPair's
+// functions (P = kRingStage, kRingStageY, kRingWords, kRingPair: the first
+// tap's pixel; T at the first x tap; production's output with the y pass
+// reading a word a tap row; production's output from the exact ratio-2 x
+// taps) on a persistent grid, each block a ring of kStageSlots windows
+// filled by a producer warp and read by kThreads consumer threads
+// (csrc/band_probes.cu sizes the grid as the walk's: as many blocks an SM
+// as the ring's shared memory and the registers allow).
 //
 //   * Items: the (frame, strip, row tile) tiles.  Block b of G takes items
 //     b, b + G, ... in production's order, strips fastest, so the blocks
@@ -1240,29 +1568,45 @@ __device__ __forceinline__ void stage_y_pass(float* __restrict__ T, int tp, cons
 //     global loads issued a tile ahead), then the window, one 1-D bulk
 //     copy a row (load_window) onto the slot's full mbarrier, up to n - 1
 //     items ahead.
-//   * The consumers load each tile's bases and each dst column's first x
-//     tap (xo, the only x table kStage and kStageY read) a tile ahead.
-//     kStageY runs stage_y_pass into T and releases the slot; kStage
-//     releases it after the tile's elements are picked.  Each element is
-//     cast into an output tile laid out like the output rows, whose rows
-//     leave by store_tile's 16-byte stores (scalar stores at the ragged
-//     ends; bulk stores of the rows' whole 16-byte chunks were slower on
-//     the H100: PERF.md).
+//   * kRingStage, kRingStageY: the consumers load each tile's bases and
+//     each dst column's first x tap (xo, the only x table they read) a
+//     tile ahead.  kRingStageY runs stage_y_pass into T and releases the
+//     slot; kRingStage releases it after the tile's elements are picked.
+//     Each element is cast into an output tile laid out like the output
+//     rows, whose rows leave by store_tile's 16-byte stores (scalar stores
+//     at the ragged ends; bulk stores of the rows' whole 16-byte chunks
+//     were slower on the H100: PERF.md).  One consumer barrier a tile for
+//     kRingStage, two for kRingStageY.
+//   * kRingWords: words_y_pass into T (its columns offset to the window's
+//     word alignment), the slot released, then production's x pass
+//     (x_col, loaded where the strip changes, before the slot is waited
+//     on; x_pass at T's offset origin) into the output tile and
+//     store_tile; two consumer barriers a tile.
+//   * kRingPair: no T, no output tile, no consumer barrier.  The block
+//     stages the (4, Wd) x table in shared memory once.  Each warp takes
+//     its (chunk, part) of every tile (pair_lane), sums its rows' columns
+//     in registers, reads its lanes' x weights a row at a time and stores
+//     its words (pair_tile), and releases the slot by one arrival of its
+//     own (the empty mbarrier counts kWarps).
 //
-// One consumer barrier a tile for kStage, two for kStageY.  Layout
-// (stage_geo): the n windows, T (kStageY), the n tap tables, the output
-// tiles (kStage two, written in turn, as its one barrier a tile lets a
-// tile's writes meet the last tile's stores; kStageY one), the 2n
-// mbarriers; no zero row (the taps are clamped).
-template <typename Tin, typename Tout, bool kY>
-__global__ void __launch_bounds__(kThreads + 32, stage_min_blocks<Tin, kY>()) band_stage_kernel(
+// Layout (stage_geo): the n windows, T (kRingStageY, kRingWords), the n
+// tap tables, the output tiles (ring_out_tiles: kRingStage two, written
+// in turn, as its one barrier a tile lets a tile's writes meet the last
+// tile's stores; kRingStageY and kRingWords one; kRingPair none, its x
+// table in their place), the 2n mbarriers; no zero row (the taps are
+// clamped).
+template <typename Tin, typename Tout, int P>
+__global__ void __launch_bounds__(kThreads + 32, stage_min_blocks<Tin, P>()) band_stage_kernel(
     const Tin* __restrict__ src, Tout* __restrict__ out, const int* __restrict__ ys,
-    const float* __restrict__ wy, const int* __restrict__ xs,
+    const float* __restrict__ wy, const int* __restrict__ xs, const float* __restrict__ wx,
     const int* __restrict__ row_base, const int* __restrict__ col_base, Dims d, Geo g,
     long long items) {
+  static_assert(P == kRingStage || P == kRingStageY || sizeof(Tin) == 1,
+                "the word and pair functions are u8 probes");
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int ei = sizeof(Tin);
   constexpr int n_slots = kStageSlots;
+  constexpr bool kY = ring_y_taps(P);
   const int tid = threadIdx.x;
   const int tab = stage_tab_bytes(d.TY, d.ky, kY);  // slot s's at tab_off + s * tab
   const int otile = static_cast<int>(up16(32 + static_cast<long long>(d.TY) * g.pitch_out));
@@ -1271,9 +1615,17 @@ __global__ void __launch_bounds__(kThreads + 32, stage_min_blocks<Tin, kY>()) ba
   if (tid == 0) {
     for (int s = 0; s < n_slots; ++s) {
       hopper::mbar_init(&full[s], 1);
-      hopper::mbar_init(&empty[s], 1);
+      hopper::mbar_init(&empty[s], P == kRingPair ? kWarps : 1);
     }
     hopper::fence_mbarrier_init();
+  }
+  if constexpr (P == kRingPair) {  // the (4, Wd) x table, once a block
+    const int wp = pair_pitch(d.Wd);
+    float* xtab = reinterpret_cast<float*>(smem + g.o_off);
+    for (int e = tid; e < 4 * d.Wd; e += kThreads + 32) {
+      const int b = e / d.Wd;
+      xtab[b * wp + e - b * d.Wd] = __ldg(wx + e);
+    }
   }
   __syncthreads();
   // the block's items: n of them, item k at blockIdx.x + k * G
@@ -1308,54 +1660,110 @@ __global__ void __launch_bounds__(kThreads + 32, stage_min_blocks<Tin, kY>()) ba
     }
     return;
   }
-  float* T = reinterpret_cast<float*>(smem + g.t_off);
-  const int tp = stage_t_pitch(d.SX);
-  // thread (xrg, xj) owns dst column j0 + xj at rows xrg, xrg + n_rg, ...
-  const int n_rg = kThreads / d.TX;
-  const int xj = tid % d.TX;
-  const int xrg = tid / d.TX;
-  auto x_first = [&](const Tile& t) {
-    return xj < t.cols && xrg < n_rg ? __ldg(xs + t.j0 + xj) - t.cb : 0;
-  };
-  Tile tn = tile_k(0);
-  int xon = x_first(tn);
-  for (int k = 0, s = 0; k < n; ++k, s = s + 1 == n_slots ? 0 : s + 1) {
-    const Tile t = tn;
-    const int xo = xon;
-    if (k + 1 < n) {  // the next tile's bases and first x taps in flight
-      tn = tile_k(k + 1);
-      xon = x_first(tn);
+  if constexpr (P == kRingPair) {
+    const PairLane pl = pair_lane(d, tid);
+    const float* xtab = reinterpret_cast<const float*>(smem + g.o_off);
+    for (int k = 0, s = 0; k < n; ++k, s = s + 1 == n_slots ? 0 : s + 1) {
+      const Tile t = tile_k(k);
+      const int* rowtab = taps(s);
+      const float* wtab = reinterpret_cast<const float*>(rowtab + d.TY * d.ky);
+      // the lanes' 8 own columns one 8-byte word in every tap row: the row
+      // pitch and the strip's first even column 2 j0 on multiples of 8 (x0
+      // = 2 j0 + 8 gi)
+      const int wb = window_base<Tin>(window_src(src, d, t), slot(s));
+      const bool aligned = ((g.pitch_in | (wb + 2 * t.j0 - t.xa)) & 7) == 0;
+      hopper::mbar_wait(&full[s], (k / n_slots) & 1);
+      if (pl.busy) {
+        if (aligned) {
+          pair_tile<true>(out, rowtab, wtab, xtab, d, t, pl);
+        } else {
+          pair_tile<false>(out, rowtab, wtab, xtab, d, t, pl);
+        }
+      }
+      __syncwarp();  // the warp's reads of slot s done
+      if (pl.lane == 0) hopper::mbar_arrive(&empty[s]);
     }
-    const bool on = xj < t.cols && xrg < n_rg;
-    const int* rowtab = taps(s);
-    Tout* orow0 = out + (t.f * d.Hd + t.i0) * static_cast<long long>(d.Wd) + t.j0;
-    unsigned char* ot = smem + g.o_off + (kY ? 0 : (k & 1) * otile) + 16 +
-                        static_cast<int>(reinterpret_cast<uintptr_t>(orow0) & 15);
-    hopper::mbar_wait(&full[s], (k / n_slots) & 1);
-    if constexpr (kY) {
-      stage_y_pass<Tin>(T, tp, rowtab, reinterpret_cast<const float*>(rowtab + d.TY * d.ky),
-                        rowtab + 2 * d.TY * d.ky, d, t, tid);
+  } else if constexpr (P == kRingWords) {
+    float* T = reinterpret_cast<float*>(smem + g.t_off);
+    const int tp = ring_t_pitch(d.SX, P);
+    XCol x;
+    int x_strip = -1;
+    for (int k = 0, s = 0; k < n; ++k, s = s + 1 == n_slots ? 0 : s + 1) {
+      const Tile t = tile_k(k);
+      if (t.j0 != x_strip) {  // loads in flight through the y pass
+        x_col<Tin>(x, xs, wx, d, t, tid);
+        x_strip = t.j0;
+      }
+      const int* rowtab = taps(s);
+      const int o = (window_base<Tin>(window_src(src, d, t), slot(s)) + t.cb - t.xa) & 3;
+      Tout* orow0 = out + (t.f * d.Hd + t.i0) * static_cast<long long>(d.Wd) + t.j0;
+      unsigned char* ot =
+          smem + g.o_off + 16 + static_cast<int>(reinterpret_cast<uintptr_t>(orow0) & 15);
+      hopper::mbar_wait(&full[s], (k / n_slots) & 1);
+      words_y_pass(T, tp, o, rowtab, reinterpret_cast<const float*>(rowtab + d.TY * d.ky), d,
+                   g, t, tid);
       consumer_sync();  // T whole; slot s read; the output tile's last stores done
       if (tid == 0) hopper::mbar_arrive(&empty[s]);
+      // production's x pass on T's rows at pitch tp, column c at c + o
+      XCol xt = x;
+      xt.xo += o;
+      xt.pairs = d.kx <= kRegTaps && d.kx % 2 == 0 && xt.xo % 2 == 0;
+      Dims dt = d;
+      dt.SX = tp;
+      x_pass<Tout, 0>(T, xt, dt, g, t.rows, ot);
+      consumer_sync();  // the output tile whole; T read
+      store_tile(orow0, ot, d, g, t.rows, t.cols, tid);
     }
-    // the tile's elements: kStage the first tap's pixel, (ys[i], xs[j])
-    // clamped, from the window; kStageY T at the first x tap
-    const int colx = (min(max(t.cb + xo, t.xa), t.xb - 1) - t.xa) * ei;
-    for (int r = on ? xrg : t.rows; r < t.rows; r += n_rg) {
-      float v;
-      if constexpr (kY) {
-        v = T[r * tp + xo];
-      } else {
-        v = to_f32(*reinterpret_cast<const Tin*>(smem + rowtab[r] + colx));
+  } else {
+    float* T = reinterpret_cast<float*>(smem + g.t_off);
+    const int tp = stage_t_pitch(d.SX);
+    // thread (xrg, xj) owns dst column j0 + xj at rows xrg, xrg + n_rg, ...
+    const int n_rg = kThreads / d.TX;
+    const int xj = tid % d.TX;
+    const int xrg = tid / d.TX;
+    auto x_first = [&](const Tile& t) {
+      return xj < t.cols && xrg < n_rg ? __ldg(xs + t.j0 + xj) - t.cb : 0;
+    };
+    Tile tn = tile_k(0);
+    int xon = x_first(tn);
+    for (int k = 0, s = 0; k < n; ++k, s = s + 1 == n_slots ? 0 : s + 1) {
+      const Tile t = tn;
+      const int xo = xon;
+      if (k + 1 < n) {  // the next tile's bases and first x taps in flight
+        tn = tile_k(k + 1);
+        xon = x_first(tn);
       }
-      store(reinterpret_cast<Tout*>(ot + r * g.pitch_out + xj * static_cast<int>(sizeof(Tout))),
-            v);
+      const bool on = xj < t.cols && xrg < n_rg;
+      const int* rowtab = taps(s);
+      Tout* orow0 = out + (t.f * d.Hd + t.i0) * static_cast<long long>(d.Wd) + t.j0;
+      unsigned char* ot = smem + g.o_off + (kY ? 0 : (k & 1) * otile) + 16 +
+                          static_cast<int>(reinterpret_cast<uintptr_t>(orow0) & 15);
+      hopper::mbar_wait(&full[s], (k / n_slots) & 1);
+      if constexpr (kY) {
+        stage_y_pass<Tin>(T, tp, rowtab, reinterpret_cast<const float*>(rowtab + d.TY * d.ky),
+                          rowtab + 2 * d.TY * d.ky, d, t, tid);
+        consumer_sync();  // T whole; slot s read; the output tile's last stores done
+        if (tid == 0) hopper::mbar_arrive(&empty[s]);
+      }
+      // the tile's elements: kRingStage the first tap's pixel, (ys[i],
+      // xs[j]) clamped, from the window; kRingStageY T at the first x tap
+      const int colx = (min(max(t.cb + xo, t.xa), t.xb - 1) - t.xa) * ei;
+      for (int r = on ? xrg : t.rows; r < t.rows; r += n_rg) {
+        float v;
+        if constexpr (kY) {
+          v = T[r * tp + xo];
+        } else {
+          v = to_f32(*reinterpret_cast<const Tin*>(smem + rowtab[r] + colx));
+        }
+        store(reinterpret_cast<Tout*>(ot + r * g.pitch_out + xj * static_cast<int>(sizeof(Tout))),
+              v);
+      }
+      consumer_sync();  // the output tile whole (kRingStage: slot s read)
+      if constexpr (!kY) {
+        if (tid == 0) hopper::mbar_arrive(&empty[s]);
+      }
+      store_tile(orow0, ot, d, g, t.rows, t.cols, tid);
     }
-    consumer_sync();  // the output tile whole (kStage: slot s read)
-    if constexpr (!kY) {
-      if (tid == 0) hopper::mbar_arrive(&empty[s]);
-    }
-    store_tile(orow0, ot, d, g, t.rows, t.cols, tid);
   }
 }
 
@@ -1400,20 +1808,22 @@ inline Geo walk_geo(const Dims& d, int ei, int eo, int slots) {
   return g;
 }
 
-// the stage ring's layout (band_stage_kernel): kStageSlots = n windows,
-// window s at s * zero_off (each laid out as production's), T at t_off
-// (with_y only), the n tap tables (stage_tab_bytes) from tab_off, the
-// output tiles from o_off (two; with_y one), the 2n mbarriers in the last
+// the stage ring's layout (band_stage_kernel) for function P:
+// kStageSlots = n windows, window s at s * zero_off (each laid out as
+// production's), T at t_off (ring_t only; ring_t_pitch floats a row), the
+// n tap tables (stage_tab_bytes) from tab_off, the ring_out_tiles output
+// tiles (kRingPair: its x table) from o_off, the 2n mbarriers in the last
 // 16n bytes of smem
-inline Geo stage_geo(const Dims& d, int ei, int eo, bool with_y) {
+inline Geo stage_geo(const Dims& d, int ei, int eo, int P) {
   Geo g = make_geo(d, ei, eo);
   const long long t_off = static_cast<long long>(kStageSlots) * g.zero_off;
-  const long long tab_off = t_off + (with_y ? up16(4LL * d.TY * stage_t_pitch(d.SX)) : 0);
+  const long long tab_off =
+      t_off + (ring_t(P) ? up16(4LL * d.TY * ring_t_pitch(d.SX, P)) : 0);
   const long long o_off = tab_off + static_cast<long long>(kStageSlots) *
-                                        stage_tab_bytes(d.TY, d.ky, with_y);
-  const long long total = o_off + (with_y ? 1 : 2) *
-                                      up16(32 + static_cast<long long>(d.TY) * g.pitch_out) +
-                          16LL * kStageSlots;
+                                        stage_tab_bytes(d.TY, d.ky, ring_y_taps(P));
+  const long long total =
+      o_off + ring_out_tiles(P) * up16(32 + static_cast<long long>(d.TY) * g.pitch_out) +
+      (P == kRingPair ? up16(16LL * pair_pitch(d.Wd)) : 0) + 16LL * kStageSlots;
   if (total > INT_MAX) {
     g.smem = INT_MAX;
     return g;

@@ -15,15 +15,18 @@
 //                           stagey_direct
 //   kWalk2/3/4           <- flagship_experiments.py:144 _build_full_nslot
 //                           (:218): full2, full3, full4
-//   kU8Words             <- flagship_experiments.py:341 _build_u8bitcast
+//   kRingWords           <- flagship_experiments.py:341 _build_u8bitcast
 //                           (:428), in the byte order that :305
 //                           discover_u8_pack_order asks the TPU for (on the
 //                           card a 32-bit word holds 4 neighbouring pixels of
-//                           a row, little-endian)
+//                           a row, little-endian), on the stage ring; its
+//                           first form kU8Words stays as u8words_direct
 //   kU8Convert1/2/4      <- u8_experiments.py stage extract (n = 1) and
 //                           flagship_experiments.py:497 _build_u8chunk
 //                           (:591; n = 2, 4)
-//   kXPair               <- u8_experiments.py stage xpair (:150-169)
+//   kRingPair            <- u8_experiments.py:86 stage xpair (:150-169), on
+//                           the stage ring; its first form kXPair stays as
+//                           xpair_direct
 //   kRingStage,          <- rgb1024_experiments.py:88 _build_band_probe
 //   kRingStageY             (pallas_call at :141; "dma", "ypass"), at 1024^2
 //                           150 -> 60 dpi
@@ -37,14 +40,19 @@
 // the y pass (T at the first x tap); kRingStage and kRingStageY the same
 // from a persistent grid whose blocks walk their shares of the tiles
 // through a ring of 2 windows filled by a producer warp with bulk copies,
-// the y pass register-blocked over the tile's rows; kWalk<n> production's output from a
-// persistent grid whose blocks walk their shares of the tiles through a
-// ring of n windows, filled by a producer warp with bulk copies;
-// kU8Words, kU8Convert<n> and kXPair production's output with the y pass
-// reading 4 u8 pixels per 32-bit word, the window converted to bf16 in
-// shared memory in n column chunks (chunk c + 1 converted while chunk c is
-// y-passed), or an x pass for an exact ratio-2
-// band from a (4, Wd) table; kXOnly production's x pass alone, its T
+// the y pass register-blocked over the tile's rows; kRingWords and
+// kRingPair production's output on the same ring, the y pass reading one
+// aligned 32-bit word of 4 u8 pixels a tap row into T, or no T at all and
+// an x pass for an exact ratio-2 band from a (4, Wd) table fed from each
+// lane's y sums in registers, 4 dst pixels stored as one word; kWalk<n>
+// production's output from a persistent grid whose blocks walk their
+// shares of the tiles through a ring of n windows, filled by a producer
+// warp with bulk copies; kU8Words, kU8Convert<n> and kXPair (the first
+// forms) production's output with the y pass reading 4 u8 pixels per
+// 32-bit word, the window converted to bf16 in shared memory in n column
+// chunks (chunk c + 1 converted while chunk c is y-passed), or an x pass
+// for an exact ratio-2 band from a (4, Wd) table through T; kXOnly
+// production's x pass alone, its T
 // converted from the tile's rows of an input that holds the y pass's
 // output, (F, Hd, W) in the frame dtype (H passed as Hd), staged as the
 // window is.  What bounds them: bytes, as kernel 1; a mode
@@ -107,10 +115,10 @@ int walk_occupancy(long long smem, int* sms, int* per_sm, int* regs) {
 }
 
 // the stage ring's persistent grid (band_stage_kernel)
-template <typename Tin, typename Tout, bool kY>
+template <typename Tin, typename Tout, int P>
 int stage_occupancy(long long smem, int* sms, int* per_sm, int* regs) {
   static std::atomic<int> opted_in[stage::kMaxDevices];  // the kernel's limit per device
-  return grid_occupancy(reinterpret_cast<const void*>(band::band_stage_kernel<Tin, Tout, kY>),
+  return grid_occupancy(reinterpret_cast<const void*>(band::band_stage_kernel<Tin, Tout, P>),
                         smem, opted_in, sms, per_sm, regs);
 }
 
@@ -155,21 +163,22 @@ int launch_probe(const void* src, void* out, const void* ys, const void* wy, con
   return static_cast<int>(cudaGetLastError());
 }
 
-// the stage ring (kRingStage, kRingStageY): its grid, min(tiles, SMs x
-// blocks an SM); `geo` (SMs, blocks an SM, registers, shared memory) is
-// filled and nothing launched where it is given
-template <typename Tin, typename Tout, bool kY>
+// the stage ring (function P: kRingStage, kRingStageY, kRingWords,
+// kRingPair): its grid, min(tiles, SMs x blocks an SM); `geo` (SMs, blocks
+// an SM, registers, shared memory) is filled and nothing launched where it
+// is given
+template <typename Tin, typename Tout, int P>
 int launch_stage(const void* src, void* out, const void* ys, const void* wy, const void* xs,
-                 const void* row_base, const void* col_base, int F, Dims d,
+                 const void* wx, const void* row_base, const void* col_base, int F, Dims d,
                  cudaStream_t stream, int* geo) {
   d.n_strip = (d.Wd + d.TX - 1) / d.TX;
   d.n_rt = (d.Hd + d.TY - 1) / d.TY;
-  const Geo g = band::stage_geo(d, sizeof(Tin), sizeof(Tout), kY);
+  const Geo g = band::stage_geo(d, sizeof(Tin), sizeof(Tout), P);
   if (g.smem == INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   const long long items = static_cast<long long>(F) * d.n_strip * d.n_rt;
   if (items > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
   int sms = 0, per_sm = 0, regs = 0;
-  if (const int e = stage_occupancy<Tin, Tout, kY>(g.smem, &sms, &per_sm, &regs)) return e;
+  if (const int e = stage_occupancy<Tin, Tout, P>(g.smem, &sms, &per_sm, &regs)) return e;
   if (geo != nullptr) {
     geo[0] = sms;
     geo[1] = per_sm;
@@ -178,43 +187,60 @@ int launch_stage(const void* src, void* out, const void* ys, const void* wy, con
     return 0;
   }
   const long long blocks = std::min(items, static_cast<long long>(sms) * per_sm);
-  band::band_stage_kernel<Tin, Tout, kY>
+  band::band_stage_kernel<Tin, Tout, P>
       <<<static_cast<unsigned>(blocks), band::kThreads + 32, static_cast<size_t>(g.smem),
          stream>>>(static_cast<const Tin*>(src), static_cast<Tout*>(out),
                    static_cast<const int*>(ys), static_cast<const float*>(wy),
-                   static_cast<const int*>(xs), static_cast<const int*>(row_base),
-                   static_cast<const int*>(col_base), d, g, items);
+                   static_cast<const int*>(xs), static_cast<const float*>(wx),
+                   static_cast<const int*>(row_base), static_cast<const int*>(col_base), d, g,
+                   items);
   return static_cast<int>(cudaGetLastError());
 }
 
-// the stage ring's arguments, checked: 0 or cudaErrorInvalidValue
+// the stage ring's arguments, checked: 0 or cudaErrorInvalidValue.  The
+// word and pair functions take u8 alone, the pair's table 4 taps at most
 int stage_args(int H, int W, int Hd, int Wd, int ky, int kx, int TY, int TX, int SY, int SX,
                int mode, int dtype_code) {
+  const bool u8_fn = mode == band::kRingWords || mode == band::kRingPair;
   const bool ok = H > 0 && W > 0 && Hd > 0 && Wd > 0 && ky > 0 && kx > 0 && TY > 0 &&
                   TY <= band::kStageRows && TX > 0 && TX <= band::kThreads && SY >= ky &&
-                  SX >= kx && (mode == band::kRingStage || mode == band::kRingStageY) &&
-                  dtype_code >= 0 && dtype_code <= 2;
+                  SX >= kx && mode >= band::kRingStage && mode <= band::kRingPair &&
+                  dtype_code >= 0 && dtype_code <= 2 && (!u8_fn || dtype_code == 2) &&
+                  (mode != band::kRingPair || kx <= 4);
   return ok ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// the stage ring's instance for mode (kRingStage, kRingStageY) and
-// dtype_code, in = out
+// the stage ring's instance for mode (kRingStage .. kRingPair, checked by
+// stage_args) and element type T, in = out
 template <typename T>
 int stage_modes(int mode, const void* src, void* out, const void* ys, const void* wy,
-                const void* xs, const void* rb, const void* cb, int F, const Dims& d,
-                cudaStream_t st, int* geo) {
+                const void* xs, const void* wx, const void* rb, const void* cb, int F,
+                const Dims& d, cudaStream_t st, int* geo) {
+  if constexpr (sizeof(T) == 1) {
+    if (mode == band::kRingWords) {
+      return launch_stage<T, T, band::kRingWords>(src, out, ys, wy, xs, wx, rb, cb, F, d, st,
+                                                  geo);
+    }
+    if (mode == band::kRingPair) {
+      return launch_stage<T, T, band::kRingPair>(src, out, ys, wy, xs, wx, rb, cb, F, d, st,
+                                                 geo);
+    }
+  }
   return mode == band::kRingStageY
-             ? launch_stage<T, T, true>(src, out, ys, wy, xs, rb, cb, F, d, st, geo)
-             : launch_stage<T, T, false>(src, out, ys, wy, xs, rb, cb, F, d, st, geo);
+             ? launch_stage<T, T, band::kRingStageY>(src, out, ys, wy, xs, wx, rb, cb, F, d, st,
+                                                     geo)
+             : launch_stage<T, T, band::kRingStage>(src, out, ys, wy, xs, wx, rb, cb, F, d, st,
+                                                    geo);
 }
 
 int stage_dispatch(int mode, int dtype_code, const void* src, void* out, const void* ys,
-                   const void* wy, const void* xs, const void* rb, const void* cb, int F,
-                   const Dims& d, cudaStream_t st, int* geo) {
+                   const void* wy, const void* xs, const void* wx, const void* rb,
+                   const void* cb, int F, const Dims& d, cudaStream_t st, int* geo) {
   switch (dtype_code) {
-    case 0: return stage_modes<float>(mode, src, out, ys, wy, xs, rb, cb, F, d, st, geo);
-    case 1: return stage_modes<__nv_bfloat16>(mode, src, out, ys, wy, xs, rb, cb, F, d, st, geo);
-    default: return stage_modes<uint8_t>(mode, src, out, ys, wy, xs, rb, cb, F, d, st, geo);
+    case 0: return stage_modes<float>(mode, src, out, ys, wy, xs, wx, rb, cb, F, d, st, geo);
+    case 1:
+      return stage_modes<__nv_bfloat16>(mode, src, out, ys, wy, xs, wx, rb, cb, F, d, st, geo);
+    default: return stage_modes<uint8_t>(mode, src, out, ys, wy, xs, wx, rb, cb, F, d, st, geo);
   }
 }
 
@@ -266,12 +292,13 @@ int u8_modes(int mode, const void* src, void* out, const void* ys, const void* w
 
 }  // namespace
 
-// mode: band_apply.cuh's Probe (1 stage, 2 stagey, 3 u8words, 4 xpair,
-// 5-7 u8 convert in 1/2/4 chunks, 8-10 walk with 2/3/4 slots, 11
-// xonly); dtype_code (input and output): 0 = float32, 1 = bfloat16
-// (stage, stagey, walk, xonly), 2 = uint8 (stage, stagey, u8words,
-// xpair, u8 convert).  The other arguments are aainterp_separable_apply's
-// (csrc/separable_apply.cu); for xpair wx is the (4, Wd) table of source
+// mode: band_apply.cuh's Probe (1 stage, 2 stagey, 3 u8words, 4 xpair:
+// the stage ring's first forms; 5-7 u8 convert in 1/2/4 chunks, 8-10 walk
+// with 2/3/4 slots, 11 xonly); dtype_code (input and output): 0 =
+// float32, 1 = bfloat16 (stage, stagey, walk, xonly), 2 = uint8 (stage,
+// stagey, u8words, xpair, u8 convert).  The other arguments are
+// aainterp_separable_apply's (csrc/separable_apply.cu); for xpair wx is
+// the (4, Wd) table of source
 // columns 2j - 1 .. 2j + 2 and xs is not read; for xonly src is (F, Hd,
 // W), H = Hd and SY >= TY (the window holds the tile's rows).  The walk
 // takes no count of row tiles a block: its grid is persistent, min(tiles,
@@ -317,23 +344,26 @@ extern "C" int aainterp_band_walk_grid(int H, int W, int Hd, int Wd, int ky, int
 }
 
 // The stage ring (band_apply.cuh's band_stage_kernel): mode 12 (kStage's
-// function) or 13 (kStageY's) on a persistent grid whose blocks walk their
-// shares of the tiles through a ring of 2 windows; dtype_code 0 = float32,
-// 1 = bfloat16, 2 = uint8 (in and out).  The other arguments are
-// aainterp_band_probe's, without wx (the stage ring reads no x weights);
-// TY at most 8.  Returns 0 or a cudaError_t (cudaErrorInvalidValue where
-// the ring exceeds the card's opt-in, before any launch).
+// function), 13 (kStageY's), 14 (kU8Words') or 15 (kXPair's) on a
+// persistent grid whose blocks walk their shares of the tiles through a
+// ring of 2 windows; dtype_code 0 = float32, 1 = bfloat16, 2 = uint8 (in
+// and out; modes 14 and 15 uint8 alone).  The other arguments are
+// aainterp_band_probe's: wx is read by mode 14 (production's x weights)
+// and 15 (the (4, Wd) table of source columns 2j - 1 .. 2j + 2; kx at most
+// 4), xs by 12-14; TY at most 8.  Returns 0 or a cudaError_t
+// (cudaErrorInvalidValue where the ring exceeds the card's opt-in, before
+// any launch).
 extern "C" int aainterp_band_stage(const void* src, void* out, const void* ys, const void* wy,
-                                   const void* xs, const void* row_base, const void* col_base,
-                                   int F, int H, int W, int Hd, int Wd, int ky, int kx, int TY,
-                                   int TX, int SY, int SX, int mode, int dtype_code,
-                                   void* stream) {
+                                   const void* xs, const void* wx, const void* row_base,
+                                   const void* col_base, int F, int H, int W, int Hd, int Wd,
+                                   int ky, int kx, int TY, int TX, int SY, int SX, int mode,
+                                   int dtype_code, void* stream) {
   if (F <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (const int e = stage_args(H, W, Hd, Wd, ky, kx, TY, TX, SY, SX, mode, dtype_code)) {
     return e;
   }
   Dims d{H, W, Hd, Wd, ky, kx, TY, TX, SY, SX, 0, 0};
-  return stage_dispatch(mode, dtype_code, src, out, ys, wy, xs, row_base, col_base, F, d,
+  return stage_dispatch(mode, dtype_code, src, out, ys, wy, xs, wx, row_base, col_base, F, d,
                         static_cast<cudaStream_t>(stream), nullptr);
 }
 
@@ -348,5 +378,5 @@ extern "C" int aainterp_band_stage_grid(int H, int W, int Hd, int Wd, int ky, in
   }
   Dims d{H, W, Hd, Wd, ky, kx, TY, TX, SY, SX, 0, 0};
   return stage_dispatch(mode, dtype_code, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                        nullptr, 1, d, nullptr, out);
+                        nullptr, nullptr, 1, d, nullptr, out);
 }

@@ -13,30 +13,39 @@ production's tiles, derived from what it keeps):
   ``out[f, i, j] = cast(frames[f, ys[i], xs[j]])``, the first tap's pixel
   (clamped to the image, as every tap is);
 * ``stagey`` — staging and the y pass: ``out[f, i, j] = cast(T[i, xs[j]])``
-  with ``T`` the y pass's f32 sums, the first x tap's y sum.  Both run on
+  with ``T`` the y pass's f32 sums, the first x tap's y sum.  Both, and
+  ``u8words`` and ``xpair`` below (``RING_MODES``), run on
   the stage ring (``band_stage_kernel``): a persistent grid
   (``stage_grid``; its blocks deal the tiles round-robin, ``stage_shares``) whose
   blocks take their windows from a ring of ``STAGE_SLOTS`` that a
   producer warp fills with bulk copies, ``stagey``'s y pass
   register-blocked over a group of adjacent columns, walking the tile's
   dst rows (the f32 instance shifts the tap pixels from row to row);
-* ``stage_direct``, ``stagey_direct`` — the same two functions on their
-  first form, production's kernel with one block a tile (kept beside the
-  ring so that kernel 1's split is read on production's own layout);
 * ``walk2``, ``walk3``, ``walk4`` — production's output from a persistent
   grid (``walk_grid``) whose blocks each walk a contiguous share of the
   (frame, strip, row tile) tiles (``walk_shares``) through a ring of n
   windows that a producer warp fills with bulk copies;
 * ``u8words`` (u8) — production's output, the y pass reading 4 pixels per
   32-bit shared word, byte k of a word the pixel of column x0 + k
-  (little-endian, ``word_bytes``);
+  (little-endian, ``word_pixels``), on the stage ring: T's columns
+  shifted so that each group's word is aligned where the row pitch is a
+  multiple of 4 (else a funnel shift of two), then production's x pass;
 * ``u8convert1``, ``u8convert2``, ``u8convert4`` (u8) — production's
   output, the staged window converted to bf16 (exact for u8) in shared
   memory in n column chunks, 16 pixels a thread, chunk c + 1 converted
   while chunk c is y-passed;
 * ``xpair`` (u8) — production's output from an x pass for an exact ratio-2
   band: dst column j reads source columns 2j - 1 .. 2j + 2 with weights
-  from a (4, Wd) table (``xpair_table``; ``ValueError`` on other bands);
+  from a (4, Wd) table (``xpair_table``; ``ValueError`` on other bands),
+  on the stage ring with no T: a lane sums the y taps of its 4 dst
+  columns' 10 source columns in registers (two words a tap row, the
+  edge columns as the neighbouring words' bytes) and stores the 4 pixels
+  as one word;
+* ``stage_direct``, ``stagey_direct``, ``u8words_direct``,
+  ``xpair_direct`` — the four stage-ring functions on their first form,
+  production's kernel with one block a tile (kept beside the ring so that
+  kernel 1's split is read on production's own layout, and the ring's
+  gain in the same call);
 * ``xonly`` — production's x pass alone: its input is not frames but the
   y pass's output, (F, Hd, W) in the frame dtype, and ``out[f, i, j] =
   cast(sum_b xw[j, b] * tmp[f, i, clamp(xs[j] + b)])``;
@@ -86,16 +95,18 @@ from ..utils.lru import LruDict
 
 # probe mode -> the kernel's mode code (band_apply.cuh's Probe; densex
 # runs on csrc/dense_x.cu)
-MODES = {"stage": 12, "stagey": 13, "stage_direct": 1, "stagey_direct": 2,
-         "u8words": 3, "xpair": 4, "u8convert1": 5, "u8convert2": 6,
+MODES = {"stage": 12, "stagey": 13, "u8words": 14, "xpair": 15,
+         "stage_direct": 1, "stagey_direct": 2, "u8words_direct": 3,
+         "xpair_direct": 4, "u8convert1": 5, "u8convert2": 6,
          "u8convert4": 7, "walk2": 8, "walk3": 9, "walk4": 10, "xonly": 11,
          "densex": None}
-# the modes each input dtype has (the kernel's instances); every dtype also
-# has DIRECT_MODES
+# the modes each input dtype has (the kernel's instances); each also has
+# the first forms of its stage-ring modes (``first_forms``)
 FLOAT_MODES = ("stage", "stagey", "walk2", "walk3", "walk4")
-# the stage ring's modes and the first form of each (its mode + "_direct")
-RING_MODES = ("stage", "stagey")
-DIRECT_MODES = ("stage_direct", "stagey_direct")
+# the stage ring's modes and the first form of each (its mode + "_direct":
+# production's kernel with one block a tile, launched by no experiment)
+RING_MODES = ("stage", "stagey", "u8words", "xpair")
+DIRECT_MODES = tuple(f"{m}_direct" for m in RING_MODES)
 # the stage ring's windows (band_apply.cuh kStageSlots); a ring that does
 # not fit the card's opt-in raises
 STAGE_SLOTS = 2
@@ -143,16 +154,30 @@ def _host(tables):
             np.asarray(xs, np.int32), np.asarray(xw, np.float32))
 
 
+def first_forms(modes) -> tuple:
+    """The first forms (mode + "_direct") of the stage-ring modes among
+    ``modes``."""
+    return tuple(f"{m}_direct" for m in modes if m in RING_MODES)
+
+
+def modes_of(dtype: torch.dtype) -> tuple:
+    """Kernel 1's probe modes at the flagship for frames of ``dtype``: the
+    dtype's modes and the first forms of its stage-ring modes (rgb1024's
+    ``X_MODES`` apart)."""
+    have = U8_MODES if dtype == torch.uint8 else FLOAT_MODES
+    return have + first_forms(have)
+
+
 def _check_mode(mode: str, dtype: torch.dtype) -> None:
     if mode not in MODES:
         raise ValueError(f"probe mode must be one of {sorted(MODES)}, got "
                          f"{mode!r}")
-    have = (U8_MODES if dtype == torch.uint8 else FLOAT_MODES + X_MODES) \
-        + DIRECT_MODES
+    floats = modes_of(torch.float32) + X_MODES
+    have = modes_of(dtype) if dtype == torch.uint8 else floats
     if dtype not in _DTYPE_CODES or mode not in have:
         raise ValueError(f"probe mode {mode!r} has no {dtype} instance "
-                         f"(float32 / bfloat16: {FLOAT_MODES + X_MODES}; "
-                         f"uint8: {U8_MODES}; each: {DIRECT_MODES})")
+                         f"(float32 / bfloat16: {floats}; uint8: "
+                         f"{modes_of(torch.uint8)})")
 
 
 def _plan(tables):
@@ -190,7 +215,10 @@ def smem_bytes(plan: dict, mode: str, Ws: int, Wd: int, ky: int,
     ky) offsets and weights and a shift a row)
     and two mbarriers, T for ``stagey`` only (``stage_t_pitch`` floats a
     row), two output tiles for ``stage`` and one for ``stagey``, no zero
-    row), plus the bf16 chunk buffers for u8convert<n> (two, one for n = 1;
+    row; ``u8words``: T's rows 3 columns longer, ``ring_t_pitch``;
+    ``xpair``: no T and no output tile, its (4, Wd) x table instead, rows
+    of Wd rounded up to 4 floats),
+    plus the bf16 chunk buffers for u8convert<n> (two, one for n = 1;
     ``convert_pitch`` bytes a window row).  ``xonly`` stages its tile's TY
     rows of the y pass's output in the window (``window_rows``).
     ``densex`` runs on ``csrc/dense_x.cu`` (``dense_x_smem``)."""
@@ -205,10 +233,14 @@ def smem_bytes(plan: dict, mode: str, Ws: int, Wd: int, ky: int,
         return n * (window + tab + 16) + _up16(4 * TY * SX) + out_tile
     if mode in RING_MODES:
         n = STAGE_SLOTS
-        y = mode == "stagey"
+        y = mode != "stage"
         tab = _up16(8 * TY * ky + 4 * TY if y else 4 * TY)
-        t = _up16(4 * TY * stage_t_pitch(SX)) if y else 0
-        return n * (window + tab + 16) + t + (1 if y else 2) * out_tile
+        t = (_up16(4 * TY * ring_t_pitch(SX, mode))
+             if mode in ("stagey", "u8words") else 0)
+        tiles = {"stage": 2, "xpair": 0}.get(mode, 1)
+        # xpair keeps its (4, Wd) x table whole, rows of Wd rounded up to 4
+        xtab = _up16(16 * (-(-Wd // 4) * 4)) if mode == "xpair" else 0
+        return n * (window + tab + 16) + t + tiles * out_tile + xtab
     total = (window + _up16(pitch_in + 32) + _up16(4 * TY * SX) + tab
              + out_tile)
     if mode.startswith("u8convert"):
@@ -222,6 +254,13 @@ def stage_t_pitch(SX: int) -> int:
     ``stage_t_pitch``): SX rounded up to 4, so that every y-pass group's
     columns start on a 16-byte boundary."""
     return (SX + 3) // 4 * 4
+
+
+def ring_t_pitch(SX: int, mode: str) -> int:
+    """Floats a row of T for the ring's ``mode`` (band_apply.cuh's
+    ``ring_t_pitch``): ``u8words`` holds SX + 3 columns, its T shifted by
+    0-3 columns to the window's word alignment."""
+    return stage_t_pitch(SX + 3 if mode == "u8words" else SX)
 
 
 def convert_pitch(SX: int, n: int) -> int:
@@ -285,7 +324,7 @@ def walk_grid(frames: torch.Tensor, tables, mode: str) -> dict:
 
 
 def stage_grid(frames: torch.Tensor, tables, mode: str) -> dict:
-    """The stage ring's launch for ``mode`` (``stage`` or ``stagey``) on
+    """The stage ring's launch for ``mode`` (one of ``RING_MODES``) on
     ``frames`` (CUDA; the card is asked): the SMs, blocks an SM, registers
     a thread, shared memory a block, the ring depth, tiles and the
     persistent grid,
@@ -623,17 +662,14 @@ def band_probe_kernel(frames: torch.Tensor, tables, mode: str, *,
     if need > SMEM_LIMIT:
         raise ValueError(f"probe mode {mode!r} needs {need} bytes of shared "
                          f"memory a block, over the card's {SMEM_LIMIT}")
+    if mode in ("xpair", "xpair_direct"):
+        xpair_table(xs, xw)                          # raises on other bands
     if mode in RING_MODES:
         return _stage_kernel(frames, tables, mode, plan, shape, need, out)
-    if mode == "xpair":
-        xpair_table(xs, xw)                          # raises on other bands
     out = out_buffer(out, shape, frames.dtype, frames.device)
     d_ys, d_yw, d_xs, d_xw, d_rb, d_cb = cuda_apply._device_tables(
         plan, frames.device)
-    if mode == "xpair":
-        wx_ptr = _xpair_device(plan, tables, frames.device).data_ptr()
-    else:
-        wx_ptr = d_xw.data_ptr()
+    wx_ptr = _wx_ptr(mode, plan, tables, d_xw, frames.device)
     fn = _build.load(_build.BAND_PROBES).aainterp_band_probe
     with torch.cuda.device(frames.device):
         stream = torch.cuda.current_stream(frames.device).cuda_stream
@@ -651,23 +687,34 @@ def band_probe_kernel(frames: torch.Tensor, tables, mode: str, *,
     return out
 
 
+def _wx_ptr(mode: str, plan: dict, tables, d_xw: torch.Tensor,
+            device) -> int:
+    """The x weights a mode's kernel reads: the (4, Wd) table for xpair
+    (and its first form), production's otherwise."""
+    if mode.removesuffix("_direct") == "xpair":
+        return _xpair_device(plan, tables, device).data_ptr()
+    return d_xw.data_ptr()
+
+
 def _stage_kernel(frames: torch.Tensor, tables, mode: str, plan: dict, shape,
                   need: int, out: Optional[torch.Tensor]) -> torch.Tensor:
-    """``stage`` or ``stagey`` on the stage ring (``aainterp_band_stage``;
-    CUDA frames and the ring's shared memory checked by the caller)."""
+    """A stage-ring mode (``RING_MODES``) on the stage ring
+    (``aainterp_band_stage``; CUDA frames, the ring's shared memory and
+    xpair's band checked by the caller)."""
     F, Hs, Ws = frames.shape
     _, yw, _, xw = _host(tables)
     if plan["TY"] > STAGE_ROWS:
         raise ValueError(f"probe mode {mode!r} takes row tiles of at most "
                          f"{STAGE_ROWS} rows, the plan has {plan['TY']}")
     out = out_buffer(out, shape, frames.dtype, frames.device)
-    d_ys, d_yw, d_xs, _, d_rb, d_cb = cuda_apply._device_tables(
+    d_ys, d_yw, d_xs, d_xw, d_rb, d_cb = cuda_apply._device_tables(
         plan, frames.device)
+    wx_ptr = _wx_ptr(mode, plan, tables, d_xw, frames.device)
     fn = _build.load(_build.BAND_PROBES).aainterp_band_stage
     with torch.cuda.device(frames.device):
         stream = torch.cuda.current_stream(frames.device).cuda_stream
         rc = fn(frames.data_ptr(), out.data_ptr(), d_ys.data_ptr(),
-                d_yw.data_ptr(), d_xs.data_ptr(), d_rb.data_ptr(),
+                d_yw.data_ptr(), d_xs.data_ptr(), wx_ptr, d_rb.data_ptr(),
                 d_cb.data_ptr(), F, Hs, Ws, shape[1], shape[2], yw.shape[1],
                 xw.shape[1], plan["TY"], plan["TX"], plan["SY"], plan["SX"],
                 MODES[mode], _DTYPE_CODES[frames.dtype], stream)

@@ -14,13 +14,17 @@ bases).  The experiments, under the JAX files' names:
 * ``ydot`` (and JAX's ``xstore``) — staging, the y pass and the stores
   (``stagey``);
 * ``u8words`` (flagship_experiments.py's ``u8bitcast``) — production's
-  output, the y pass reading 4 pixels per 32-bit word (``u8words``);
+  output, the y pass reading 4 pixels per 32-bit word (``u8words``, on
+  the stage ring; its first form ``u8words_direct`` is launched by no
+  experiment);
 * ``u8chunk2``, ``u8chunk4`` (``_build_u8chunk``) — the conversion in 2 or
   4 column chunks, each followed by its part of the y pass
   (``u8convert2``, ``u8convert4``);
 * ``xpair`` — production's output from an x pass for the exact ratio-2
   band: fixed stride-2 source columns and a (4, Wd) tap table
-  (``xpair``);
+  (``xpair``, on the stage ring with no T: the y sums feed the x taps
+  from registers; its first form ``xpair_direct`` is launched by no
+  experiment);
 * ``full`` — the production kernel.
 
 JAX's ``xdot`` and ``xdot1`` isolate a TPU scratch round trip and dynamic

@@ -211,8 +211,8 @@ The masked contraction ``torch.equal`` to the unmasked instance and to
 exactly 0 outside every dst row's span on NaN T.  Kernel 1's probe modes
 ``torch.equal`` to their plain versions (which repeat the kernels' fused
 multiply-adds exactly) into 0xFF-filled outputs, the modes with
-production's output also to kernel 1 (``xpair`` is held to one level,
-its tap order being production's only for the exact ratio-2 band).  At
+production's output also to kernel 1 (``xpair`` too: its tap order is
+production's for the exact ratio-2 band of the flagship).  At
 rgb1024 the probe modes stage, stagey and xonly ``torch.equal`` to their
 plain versions into NaN-filled outputs, bf16 and f32; densex, a wgmma
 product on a bf16 split whose sums come in the tensor cores' order, in
@@ -390,17 +390,24 @@ BAND_REPLACES = {
     "walk3": "benchmarks/flagship_experiments.py:144",
     "walk4": "benchmarks/flagship_experiments.py:144",
     "u8words": "benchmarks/flagship_experiments.py:341,305",
+    "u8words_direct": "benchmarks/flagship_experiments.py:341,305",
     "u8convert1": "benchmarks/u8_experiments.py:86",
     "u8convert2": "benchmarks/flagship_experiments.py:497",
     "u8convert4": "benchmarks/flagship_experiments.py:497",
-    "xpair": "benchmarks/u8_experiments.py:86"}
+    "xpair": "benchmarks/u8_experiments.py:86",
+    "xpair_direct": "benchmarks/u8_experiments.py:86"}
 # phase 47: a geometry whose rows are not 16-byte aligned in any dtype (an
 # odd W; its 962-pixel dst rows no 16-byte multiple either), for the stage
 # ring's ragged row ends
 STAGE_ODD_SHAPE = (3, 540, 1923)
-# phase 47: the first forms of the stage probes, timed beside the ring
-# (launched by no experiment), as the experiments name them
+# phase 47: the first forms of the stage-ring probes, timed beside the
+# ring (launched by no experiment), as the experiments name them; u8 also
+# the first forms of u8words and xpair
 DIRECT_EXPS = {"stage_direct": "stage", "stagey_direct": "ypass"}
+U8_DIRECT_EXPS = {"u8words_direct": "u8words", "xpair_direct": "xpair"}
+# phase 47: the modes whose function is not production's output (the
+# stage cuts), held to their plain versions alone
+STAGE_CUTS = ("stage", "stagey", "stage_direct", "stagey_direct")
 # phase 50: each watchlist probe's pallas_call in the JAX file
 WATCHLIST_LINES = {"strided_y_bf16": 67, "strided_load": 87,
                    "value_slice": 103, "unaligned_dma": 122, "high_dot": 144,
@@ -3124,10 +3131,8 @@ def band_probe_phase(make, card) -> list:
     err = {}
     grids = {}      # (dtype, mode) -> the walk's and the ring's grids,
     #                 u8convert's buffers
-    first_forms = band_probes.RING_MODES + band_probes.DIRECT_MODES
     for dtype, (mod, _) in BAND_EXPS.items():
-        modes = (band_probes.U8_MODES if dtype == torch.uint8
-                 else band_probes.FLOAT_MODES) + band_probes.DIRECT_MODES
+        modes = band_probes.modes_of(dtype)
         x = make(dtype)
         prod = cuda_apply.apply_separable_kernel(x, *tables)
         for mode in modes:
@@ -3140,12 +3145,9 @@ def band_probe_phase(make, card) -> list:
             plain = mod.band_probe_plain(x, tables, mode)
             e = max_err(got, plain)
             err[mode] = max(err.get(mode, 0.0), e)
-            if mode == "xpair":          # its taps in production's order?
-                check(e <= 1.0, f"xpair differs from plain by {e} > 1 level")
-            else:
-                check(torch.equal(got, plain), f"{mode} {dtype} differs from "
-                      f"its plain version (max {e})")
-            if mode not in first_forms:
+            check(torch.equal(got, plain), f"{mode} {dtype} differs from "
+                  f"its plain version (max {e})")
+            if mode not in STAGE_CUTS:
                 check(torch.equal(got, prod), f"{mode} {dtype} is not "
                       "production's output")
             del got, plain, buf
@@ -3208,7 +3210,9 @@ def band_probe_phase(make, card) -> list:
     # the first forms of stage and stagey, timed beside the ring (after the
     # experiments' counts: no experiment launches them)
     for dtype in BAND_EXPS:
-        for m, exp in DIRECT_EXPS.items():
+        direct = dict(DIRECT_EXPS, **(U8_DIRECT_EXPS if dtype == torch.uint8
+                                      else {}))
+        for m, exp in direct.items():
             runs[(str(dtype)[6:], f"{exp}_direct")] = band_probes.run_exp(
                 f"{exp}_direct", m, F, dtype, dev)
     # plain versions and library calls on the same kind of inputs
@@ -3256,7 +3260,7 @@ def band_probe_phase(make, card) -> list:
             "plain_ms": plain_ms.get(key),
             "library_ms": library_ms.get(
                 key, library_ms.get((dt, "full"))
-                if r["mode"] not in first_forms else None)}
+                if r["mode"] not in STAGE_CUTS else None)}
     ex = timing["exps"]
     by_mode = {(v["mode"], k.split("_")[0]): v for k, v in ex.items()}
     for dt in ("bfloat16", "float32", "uint8"):
@@ -3282,7 +3286,10 @@ def band_probe_phase(make, card) -> list:
               f"{100 * (sty - st) / full:.1f} % (stagey_direct {sty:.4f}), x "
               f"pass {100 * (full - sty) / full:.1f} %; the stage ring: stage "
               f"{by_mode[('stage', dt)]['ms']:.4f}, stagey "
-              f"{by_mode[('stagey', dt)]['ms']:.4f} ms")
+              f"{by_mode[('stagey', dt)]['ms']:.4f} ms"
+              + "".join(f", {m} {by_mode[(m, dt)]['ms']:.4f} (first form "
+                        f"{by_mode[(m + '_direct', dt)]['ms']:.4f})"
+                        for m in ("u8words", "xpair") if dt == "uint8"))
     print(json.dumps({"flagship_probe_timing": timing}))
 
     def row(mode, dt):
@@ -3302,23 +3309,26 @@ def band_probe_phase(make, card) -> list:
             "dtype": dt,
         }
 
-    return ([row(m, "bfloat16") for m in band_probes.FLOAT_MODES
-             + band_probes.DIRECT_MODES]
-            + [row(m, "uint8") for m in band_probes.U8_MODES
-               if m not in ("stage", "stagey")])
+    return ([row(m, "bfloat16") for m in band_probes.modes_of(torch.bfloat16)]
+            + [row(m, "uint8") for m in band_probes.modes_of(torch.uint8)
+               if m not in STAGE_CUTS])
 
 
 def stage_odd_check(make, dev) -> None:
-    """Phase 47: the stage ring (stage, stagey) and its first forms at
-    STAGE_ODD_SHAPE, whose source and dst rows are not 16-byte aligned in
-    any dtype, torch.equal to their plain versions into 0xFF-filled
-    outputs."""
+    """Phase 47: the stage ring (stage, stagey; u8words and xpair in u8)
+    and its first forms at STAGE_ODD_SHAPE, whose source and dst rows are
+    not 16-byte aligned in any dtype (nor 4-byte aligned: u8words' and
+    xpair's funnel-shift reads and byte stores), torch.equal to their plain
+    versions into 0xFF-filled outputs, and u8words' and xpair's also to
+    kernel 1."""
     shape = STAGE_ODD_SHAPE
     tables = band_probes.flagship_tables(shape[1:])
     out_shape = (shape[0], len(tables[0]), len(tables[2]))
-    modes = band_probes.RING_MODES + band_probes.DIRECT_MODES
     for dtype in BAND_EXPS:
         x = make(dtype, shape)
+        prod = cuda_apply.apply_separable_kernel(x, *tables)
+        modes = [m for m in band_probes.modes_of(dtype)
+                 if m.removesuffix("_direct") in band_probes.RING_MODES]
         for mode in modes:
             got = band_probes.band_probe_kernel(
                 x, tables, mode, out=filled(out_shape, dtype, dev))
@@ -3326,10 +3336,13 @@ def stage_odd_check(make, dev) -> None:
             plain = band_probes.band_probe_plain(x, tables, mode)
             check(torch.equal(got, plain), f"{mode} {dtype} at {shape} "
                   f"differs from its plain version (max {max_err(got, plain)})")
-    print(f"[47 kernel-1 probes] {'x'.join(map(str, shape))} -> "
-          f"{out_shape[1]}x{out_shape[2]} (rows of no 16-byte multiple in "
-          f"any dtype) into 0xFF-filled outputs: {', '.join(modes)} in "
-          "bfloat16, float32, uint8 torch.equal to their plain versions")
+            if mode not in STAGE_CUTS:
+                check(torch.equal(got, prod), f"{mode} {dtype} at {shape} is "
+                      "not production's output")
+        print(f"[47 kernel-1 probes] {'x'.join(map(str, shape))} -> "
+              f"{out_shape[1]}x{out_shape[2]} {str(dtype)[6:]} (rows of no "
+              f"16-byte multiple) into 0xFF-filled outputs: "
+              f"{', '.join(modes)} torch.equal to their plain versions")
 
 
 
@@ -3407,7 +3420,7 @@ def rgb1024_phase(make, card, copy_row) -> list:
                       f"from its plain version (max {err[(dt, mode)]})")
             del got, plain, buf
         grid = {m: band_probes.stage_grid(x, tables, m)
-                for m in band_probes.RING_MODES}
+                for m in ("stage", "stagey")}
         print(f"[48 rgb1024] {dt} launch geometry: " + "; ".join(
             f"{m} grid {g['grid']} ({g['blocks_per_sm']} blocks an SM x "
             f"{g['sms']} SMs, {g['tiles']} tiles, a ring of {g['slots']} "

@@ -34,7 +34,14 @@ graph (``CALLS``).
   it without its pixel reads / T stores, ``stcols2``, 2 columns a y-pass
   thread for bf16 and f32, ``stnoreuse`` / ``streuse``, every tap read /
   the register shift in every dtype (not f32 alone), ``stmin1``, registers
-  uncapped);
+  uncapped); ``b_u8words``, ``b_xpair``: its u8 word and ratio-2 x-pass
+  probes on the stage ring (a parent's first forms), and
+  ``b_direct_u8words``, ``b_direct_xpair`` their first forms in this
+  checkout (variants ``wdbytes``, u8words' y pass reading 4 bytes, not
+  one word, ``wdnox`` / ``wdnoy``, without its x pass / y pass,
+  ``wdmin3``, its registers capped for 3 blocks an SM (not 4);
+  ``prnoy``, xpair without its y sums, ``prmin4``, ``prmin5``,
+  registers capped for 4 or 5 blocks an SM (not 3));
 * ``k2_f32``, ``k2_bf16``, ``k2_u8``: kernel 2 at the config-5 regrid, 8
   fields 1800x3600 -> 180x360 (12-tap bands); ``k2q_f32``: 0.1 -> 0.25
   degree (720x1440, 5-tap bands); ``k2_direct``: its direct form on 8
@@ -130,7 +137,8 @@ from pathlib import Path
 
 NOT_REACHED = "if (off < -(1 << 30)) cp_async16"
 # band_apply.cuh's stage ring: the blocks an SM its registers are capped for
-STAGE_MIN = r"return !kY \? 4 : sizeof\(Tin\) < 4 \? 3 : 2;"
+STAGE_MIN = r"return P == kRingStage \|\| P == kRingWords \? 4 : sizeof\(Tin\) < 4 \? 3 : 2;"
+STAGE_MIN_REST = "P == kRingStage || P == kRingWords ? 4 : sizeof(Tin) < 4 ? 3 : 2;"
 # ... and the element sizes whose y pass shifts its registers (f32)
 SHIFT_REUSE = r"return sizeof\(Tin\) == 4;"
 # the r_* cells' angle (``--set 'sweep.ROT_ANGLE=30.2'``): T's width, and
@@ -288,6 +296,40 @@ VARIANTS = {
     "stnoreuse": {"band_apply.cuh": [(SHIFT_REUSE, "return false;")]},
     "streuse": {"band_apply.cuh": [(SHIFT_REUSE, "return true;")]},
     "stmin1": {"band_apply.cuh": [(STAGE_MIN, "return 1;")]},
+    # the ring's u8words: its y pass reading a tap row's 4 pixels as 4
+    # bytes (not one word); without its x pass or its y pass; its
+    # registers capped for 3 blocks an SM (not 4)
+    "wdbytes": {"band_apply.cuh": [(
+        r"(    uint32_t v\[n\];\n#pragma unroll\n    for \(int a = 0; a < "
+        r"n; \+\+a\) )v\[a\] = a < nt \? word_at<kAligned>\(row\[a\] \+ pb\) "
+        r": 0u;",
+        r"extern __shared__ __align__(16) unsigned char smem[];\n\1{\n      const "
+        r"unsigned char* q = smem + row[a] + pb;\n      v[a] = a < nt ? (q[0] | q[1] "
+        r"<< 8 | q[2] << 16 | static_cast<uint32_t>(q[3]) << 24) : 0u;\n    }")]},
+    "wdnox": {"band_apply.cuh": [
+        (r"x_pass<Tout, 0>\(T, xt, dt, g, t\.rows, ot\);", "")]},
+    "wdnoy": {"band_apply.cuh": [(r"words_y_pass\(T, tp, o, rowtab, [^;]*;", "")]},
+    # ... T not shifted to the window's words (o = 0: the words read by
+    # funnel shifts, the x pass's taps in 8-byte pairs where production's
+    # are); two dst rows of a group in flight at once (not one)
+    "wdfunnel": {"band_apply.cuh": [
+        (r"const int o = \(window_base<Tin>\(window_src\(src, d, t\), slot\(s\)\) \+ "
+         r"t\.cb - t\.xa\) & 3;", "const int o = 0;"),
+        (r"const bool aligned = \(g\.pitch_in & 3\) == 0;", "const bool aligned = false;")]},
+    "wdunroll2": {"band_apply.cuh": [
+        (r"#pragma unroll 1\n  for \(int r = r0; r < r1; \+\+r\) \{\n    const int\* rt = "
+         r"rowtab \+ r \* ky;\n    const float\* wt = wtab \+ r \* ky;\n    int row\[n\];",
+         "#pragma unroll 2\n  for (int r = r0; r < r1; ++r) {\n    const int* rt = rowtab "
+         "+ r * ky;\n    const float* wt = wtab + r * ky;\n    int row[n];")]},
+    "wdmin3": {"band_apply.cuh": [(STAGE_MIN, "return P == kRingWords ? 3 : "
+                                   + STAGE_MIN_REST)]},
+    # the ring's xpair: without its y sums (the x taps on zeros); its
+    # registers capped for 4 or 5 blocks an SM (not 3)
+    "prnoy": {"band_apply.cuh": [(r"pair_row_sums<kAligned>\(c, [^;]*;", "")]},
+    "prmin4": {"band_apply.cuh": [(STAGE_MIN, "return P == kRingPair ? 4 : "
+                                   + STAGE_MIN_REST)]},
+    "prmin5": {"band_apply.cuh": [(STAGE_MIN, "return P == kRingPair ? 5 : "
+                                   + STAGE_MIN_REST)]},
     # the walk probe (band_walk_kernel) without one phase: its consumers'
     # y pass, x pass or stores, or its producer's bulk copies (the expected
     # bytes 0: the passes read stale windows)
@@ -507,6 +549,7 @@ EXACT = ("cur", "lane8", "t256", "t128", "tilemajor",   # variants that
          "cbps4",
          "copyunits", "copyhint", "ctscalar", "ctgroup4", "ctgroup8",
          "cchunk", "ctmin1", "ctmin4", "ctmin8", "pipemin2", "stcols2", "stnoreuse", "streuse", "stmin1",
+         "wdbytes", "wdmin3", "prmin4", "prmin5", "wdfunnel", "wdunroll2",
          "pipemin4", "pipestage64", "pipestage96")
 
 
@@ -693,6 +736,11 @@ def make_cells(dev):
             if dt != torch.uint8:
                 cells[f"b_rgb_{mode}_{name}"] = b_cell(
                     mode, dt, t_rgb, "rgb", (24, 1024, 1024))
+    # u8words and xpair (the stage ring; a parent's first form) and, under
+    # names of their own, their first forms
+    for mode in ("u8words", "xpair"):
+        cells[f"b_{mode}"] = b_cell(mode, torch.uint8)
+        cells[f"b_direct_{mode}"] = b_cell(f"{mode}_direct", torch.uint8)
     cells["k2q_f32"] = k2_cell("q", torch.float32)
     cells["k2_direct"] = k2_cell("wide", torch.float32, (8, 480, 480))
     cells["k2_thumb"] = k2_cell("thumb", torch.bfloat16, (8, 2160, 3840))

@@ -70,6 +70,13 @@ def jchunk(monkeypatch):
 
 
 @pytest.fixture
+def jbitcast(monkeypatch):
+    from benchmarks import flagship_experiments as fe
+    _patch(monkeypatch, fe, (fe._build_u8bitcast,))
+    return fe
+
+
+@pytest.fixture
 def ju8(monkeypatch):
     from benchmarks import u8_experiments as ue
     _patch(monkeypatch, ue, (ue._build_stage_probe,))
@@ -91,7 +98,7 @@ def _clear_jax_builders():
     from benchmarks import flagship_experiments as fe
     from benchmarks import u8_experiments as ue
     for b in (fe._build_full_nslot, fe._build_band_probe, fe._build_u8chunk,
-              ue._build_stage_probe):
+              fe._build_u8bitcast, ue._build_stage_probe):
         b.cache_clear()
 
 
@@ -188,6 +195,26 @@ def test_u8convert_modes_match_u8chunk(jchunk, n):
     got = band_probes.band_probe_kernel(x, tables, f"u8convert{n}")
     assert got.dtype == torch.uint8 and got.shape == (1, HD, WD)
     _close(got, want.astype(np.float64))
+
+
+def test_u8words_matches_u8bitcast(jbitcast):
+    # JAX's bitcast byte-split probe (flagship_experiments.py:341), its rows
+    # scrambled by the interpret backend's pack order and unscrambled in wy,
+    # against the port's u8words (the word read of 4 neighbouring pixels)
+    op, row_base, wy_p, SY, col_base, wx_b, SX = jbitcast._u8bitcast_setup(
+        interpret=True)
+    assert (SY, SX) == (112, 384)
+    probe = jbitcast._build_u8bitcast(1, SY, SX, wy_p.shape[0],
+                                      wx_b.shape[0], WD, interpret=True)
+    x = _x(torch.uint8, seed=13)
+    want = np.asarray(probe(jnp.asarray(row_base), jnp.asarray(col_base),
+                            _jx(x), jnp.asarray(wy_p), jnp.asarray(wx_b)))
+    assert want.shape == (1, HD, WD)
+    tables = band_probes.flagship_tables(SMALL)
+    for mode in ("u8words", "u8words_direct"):
+        got = u8_experiments.band_probe_kernel(x, tables, mode)
+        assert got.dtype == torch.uint8 and got.shape == (1, HD, WD)
+        _close(got, want.astype(np.float64))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
@@ -407,7 +434,11 @@ def test_walk_shares_deal_every_tile_once(F, blocks):
 def _ring_layout(plan, mode, n, Ws, Wd, ky, elem):
     """The stage ring's layout (band_apply.cuh's stage_geo), by its parts:
     n windows as production stages them, n tap tables and 2n mbarriers, T
-    for stagey alone, two output tiles, no zero row."""
+    for stagey and u8words alone (u8words' rows 3 columns longer, for its
+    shift to the window's words), two output tiles for stage, one for
+    stagey and u8words, none for xpair (its words go straight out; it
+    keeps its (4, Wd) x table whole instead, rows of Wd rounded up to 4
+    floats), no zero row."""
     TY, TX, SY, SX = plan["TY"], plan["TX"], plan["SY"], plan["SX"]
 
     def up16(v):
@@ -415,13 +446,14 @@ def _ring_layout(plan, mode, n, Ws, Wd, ky, elem):
 
     pitch = (SX * elem + 32) + ((Ws * elem - (SX * elem + 32)) % 16)
     window = up16(32 + SY * pitch)
-    tab = up16(8 * TY * ky + 4 * TY) if mode == "stagey" else up16(4 * TY)
-    # T's rows padded to SX rounded up to 4 floats
-    t = up16(4 * TY * ((SX + 3) // 4 * 4)) if mode == "stagey" else 0
+    tab = up16(8 * TY * ky + 4 * TY) if mode != "stage" else up16(4 * TY)
+    t_cols = {"stagey": SX, "u8words": SX + 3}.get(mode)
+    t = up16(4 * TY * ((t_cols + 3) // 4 * 4)) if t_cols else 0
     pitch_out = (TX * elem + 32) + ((Wd * elem - (TX * elem + 32)) % 16)
-    tiles = 1 if mode == "stagey" else 2
+    tiles = {"stage": 2, "xpair": 0}.get(mode, 1)
+    xtab = up16(4 * 4 * ((Wd + 3) // 4 * 4)) if mode == "xpair" else 0
     return n * window + t + n * tab + tiles * up16(32 + TY * pitch_out) \
-        + 16 * n
+        + xtab + 16 * n
 
 
 @pytest.mark.parametrize("elem", [1, 2, 4])
@@ -430,8 +462,13 @@ def test_stage_ring_shared_memory(elem):
     plan = band_probes._plan(tables)
     n = band_probes.STAGE_SLOTS
     assert n == 2
+    dtype = {1: torch.uint8, 2: torch.bfloat16, 4: torch.float32}[elem]
+    modes = [m for m in band_probes.RING_MODES
+             if m in band_probes.modes_of(dtype)]
+    assert modes == (["stage", "stagey", "u8words", "xpair"] if elem == 1
+                     else ["stage", "stagey"])
     got = {}
-    for mode in band_probes.RING_MODES:
+    for mode in modes:
         got[mode] = band_probes.smem_bytes(plan, mode, 3840, 1920, 4, elem)
         assert got[mode] == _ring_layout(plan, mode, n, 3840, 1920, 4, elem)
         assert got[mode] <= band_probes.SMEM_LIMIT
@@ -451,6 +488,18 @@ def test_stage_ring_shared_memory(elem):
     assert got["stage"] - direct == (
         window - (pitch + 32 + (-(pitch + 32)) % 16) - 8 * 482 * 4
         + 2 * 32 - 8 * 4 * 8 + out_tile + 32)
+    if elem == 1:
+        # u8words: stagey's layout with T's rows 488 floats, not 484;
+        # xpair: stagey's without T and without its output tile, with the
+        # (4, 1920) f32 x table
+        assert band_probes.ring_t_pitch(482, "u8words") == 488
+        assert got["u8words"] - got["stagey"] == 8 * (488 - 484) * 4
+        assert got["xpair"] == (got["stagey"] - 8 * 484 * 4 - out_tile
+                                + 4 * 1920 * 4)
+        # the first forms keep production's layout
+        for mode in ("u8words", "xpair"):
+            assert band_probes.smem_bytes(plan, f"{mode}_direct", 3840,
+                                          1920, 4, 1) == direct
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
@@ -458,7 +507,11 @@ def test_stage_ring_shared_memory(elem):
 def test_direct_modes_share_plain_and_rejections(dtype):
     tables = band_probes.flagship_tables((97, 131))
     x = _x(dtype, F=2, seed=12, shape=(97, 131))
-    for mode in band_probes.RING_MODES:
+    ring = [m for m in band_probes.RING_MODES
+            if m in band_probes.modes_of(dtype)]
+    assert [f"{m}_direct" for m in ring] == [
+        m for m in band_probes.modes_of(dtype) if m.endswith("_direct")]
+    for mode in ring:
         want = band_probes.band_probe_plain(x, tables, mode)
         direct = f"{mode}_direct"
         assert torch.equal(band_probes.band_probe_plain(x, tables, direct),
@@ -474,10 +527,72 @@ def test_direct_modes_share_plain_and_rejections(dtype):
             for m in (mode, direct):
                 with pytest.raises(err):
                     band_probes.band_probe_kernel(bad, tables, m)
+    # the u8 ring modes and their first forms have no float instance
+    for m in ("u8words", "xpair", "u8words_direct", "xpair_direct"):
+        if dtype != torch.uint8:
+            with pytest.raises(ValueError, match="instance"):
+                band_probes.band_probe_kernel(x, tables, m)
     with pytest.raises(ValueError, match="stage_grid takes"):
         band_probes.stage_grid(x, tables, "stage")
     with pytest.raises(ValueError, match="stage_grid takes"):
         band_probes.stage_grid(x, tables, "stage_direct")
+
+
+def _window_bytes(plan, strip, H, W, elem=1):
+    """(wbase, cb, xa, xb, pitch) of strip ``strip``'s window of frame 0's
+    first row tile, staged at shared byte 0 from a batch at a 16-byte
+    aligned address, as band_apply.cuh lays it out (window_base: the first
+    pixel at 16 + its address mod 16; the row pitch equal to the row
+    stride mod 16)."""
+    cb = int(plan["col_base"][strip])
+    xa = min(max(cb, 0), W - 1)
+    xb = min(max(cb + plan["SX"] - 1, 0), W - 1) + 1
+    ya = min(max(int(plan["row_base"][0]), 0), H - 1)
+    wbase = 16 + (ya * W + xa) * elem % 16
+    return wbase, cb, xa, xb, band_probes._seg_pitch(plan["SX"] * elem,
+                                                     W * elem)
+
+
+@pytest.mark.parametrize("shape", [(2160, 3840), (540, 1923), (250, 998)])
+def test_ring_words_and_pairs_align(shape):
+    # u8words: T shifted by o = (wbase + cb - xa) mod 4, so that every
+    # whole group's 4 pixels are one aligned word in every tap row where
+    # the row pitch is a multiple of 4 (W mod 4 == 0), and where it is not
+    # (W 1923, 998) the rows' alignment differs and the kernel takes the
+    # funnel-shift read.  xpair: the lanes' 8 source columns from 2 J (J a
+    # multiple of 4) are two aligned words exactly where the pitch and the
+    # strip's 2 j0 are
+    H, W = shape
+    tables = band_probes.flagship_tables(shape)
+    plan = band_probes._plan(tables)
+    SX, TX = plan["SX"], plan["TX"]
+    flagship = W % 4 == 0
+    for strip in range(len(plan["col_base"])):
+        wbase, cb, xa, xb, pitch = _window_bytes(plan, strip, H, W)
+        o = (wbase + cb - xa) & 3             # words_y_pass's T offset
+        assert 0 <= o < 4
+        ng = (SX + o + 3) // 4
+        assert 4 * ng <= band_probes.ring_t_pitch(SX, "u8words")
+        whole = 0
+        for gi in range(ng):
+            x0 = cb + 4 * gi - o
+            if x0 < xa or x0 + 4 > xb:
+                continue
+            whole += 1
+            assert (wbase + x0 - xa) % 4 == 0
+            rows_aligned = all((wbase + r * pitch + x0 - xa) % 4 == 0
+                               for r in range(plan["SY"]))
+            assert rows_aligned == flagship
+        # the groups astride the window's edges alone read pixel by pixel
+        assert whole >= (xb - xa) // 4 - 1
+        j0 = strip * TX
+        pair_aligned = (pitch | (wbase + 2 * j0 - xa)) & 3 == 0
+        assert pair_aligned == flagship
+        if flagship:
+            for gi in range(-(-min(TX, tables[2].shape[0] - j0) // 4)):
+                x0 = 2 * (j0 + 4 * gi)
+                if xa <= x0 and x0 + 8 <= xb:
+                    assert (wbase + x0 - xa) % 4 == 0
 
 
 def test_traffic_counts_what_each_mode_reads():

@@ -1470,9 +1470,9 @@ def test_band_probes_match_plain(cuda, shape, dtype, F):
     from aainterp_torch.probes import band_probes
 
     tables = band_probes.flagship_tables(shape)
-    modes = (band_probes.U8_MODES if dtype == torch.uint8
-             else band_probes.FLOAT_MODES) + band_probes.DIRECT_MODES
-    first_forms = band_probes.RING_MODES + band_probes.DIRECT_MODES
+    modes = band_probes.modes_of(dtype)
+    # the modes whose function is not production's output
+    cuts = ("stage", "stagey", "stage_direct", "stagey_direct")
     x = _frames((F,) + shape, dtype, cuda, seed=4)
     prod = cuda_apply.apply_separable_kernel(x, *tables)
     torch.cuda.synchronize()
@@ -1485,10 +1485,10 @@ def test_band_probes_match_plain(cuda, shape, dtype, F):
         assert got is buf and band_probes.LAUNCHES[mode] == n + 1
         plain = band_probes.band_probe_plain(x, tables, mode)
         assert torch.equal(got, plain), mode
-        if mode not in first_forms:
+        if mode not in cuts:
             assert torch.equal(got, prod), mode
-    assert torch.equal(prod, band_probes.band_probe_plain(x, tables,
-                                                          modes[-3]))
+    assert torch.equal(prod, band_probes.band_probe_plain(
+        x, tables, "u8words" if dtype == torch.uint8 else "walk4"))
     assert cuda_apply.LAUNCHES == before
     # the walk's persistent grid: every SM, as many blocks as fit, fewer
     # where there are fewer tiles
@@ -1528,7 +1528,10 @@ def test_stage_ring_matches_plain_at_its_plans(cuda, geom, dtype):
     x = _frames((5,) + shape, dtype, cuda, seed=9)
     out_shape = (5, len(tables[0]), len(tables[2]))
     e = x.element_size()
-    for mode in band_probes.RING_MODES:
+    # u8words at every plan; xpair where the band is an exact ratio-2 one
+    for mode in [m for m in band_probes.RING_MODES
+                 if m in band_probes.modes_of(dtype)
+                 and (m != "xpair" or (sr, dr) == (2.0, 1.0))]:
         plain = band_probes.band_probe_plain(x, tables, mode)
         got = band_probes.band_probe_kernel(
             x, tables, mode, out=_ff(out_shape, dtype, cuda))
@@ -1538,6 +1541,40 @@ def test_stage_ring_matches_plain_at_its_plans(cuda, geom, dtype):
         assert g["slots"] == band_probes.STAGE_SLOTS and g["smem"] == (
             band_probes.smem_bytes(plan, mode, shape[1], out_shape[2],
                                    tables[1].shape[1], e))
+
+
+# u8words and xpair on the stage ring at the flagship, at the stage ring's
+# odd shape (rows of no 4- or 16-byte multiple: the funnel-shift reads, the
+# pair's byte stores) and at a W mod 4 != 0 ratio-2 shape with one frame
+# (ragged last strip and row tile)
+RING_U8_GEOMS = [(8, 2160, 3840), (3, 540, 1923), (1, 250, 998)]
+
+
+@pytest.mark.parametrize("shape", RING_U8_GEOMS,
+                         ids=["flagship", "odd", "ragged"])
+def test_ring_words_and_pair_match_plain_and_production(cuda, shape):
+    from aainterp_torch.probes import band_probes
+
+    tables = band_probes.flagship_tables(shape[1:])
+    x = _frames(shape, torch.uint8, cuda, seed=17)
+    prod = cuda_apply.apply_separable_kernel(x, *tables)
+    plan = band_probes._plan(tables)
+    for mode in ("u8words", "xpair"):
+        for m in (mode, f"{mode}_direct"):
+            n = dict(band_probes.LAUNCHES)
+            got = band_probes.band_probe_kernel(
+                x, tables, m, out=_ff(tuple(prod.shape), torch.uint8, cuda))
+            torch.cuda.synchronize()
+            assert band_probes.LAUNCHES == dict(n, **{m: n[m] + 1})
+            assert torch.equal(got, band_probes.band_probe_plain(x, tables,
+                                                                 m)), m
+            assert torch.equal(got, prod), m
+        g = band_probes.stage_grid(x, tables, mode)
+        assert g["slots"] == band_probes.STAGE_SLOTS and g["smem"] == (
+            band_probes.smem_bytes(plan, mode, shape[2], prod.shape[2],
+                                   tables[1].shape[1], 1))
+        assert g["blocks_per_sm"] >= 1 and g["grid"] == min(
+            g["tiles"], g["sms"] * g["blocks_per_sm"])
 
 
 def test_band_probes_reject_what_they_cannot_take(cuda, monkeypatch):
@@ -1551,8 +1588,23 @@ def test_band_probes_reject_what_they_cannot_take(cuda, monkeypatch):
         band_probes.band_probe_kernel(x, tables, "none")
     op, t3 = _tables(240, 512, 3.0, 1.0)
     u8 = _frames((2, 240, 512), torch.uint8, cuda)
-    with pytest.raises(ValueError, match="exact ratio-2"):
-        band_probes.band_probe_kernel(u8, t3, "xpair")
+    for mode in ("xpair", "xpair_direct"):
+        n = dict(band_probes.LAUNCHES)
+        with pytest.raises(ValueError, match="exact ratio-2"):
+            band_probes.band_probe_kernel(u8, t3, mode)
+        assert band_probes.LAUNCHES == n
+    # the ring takes row tiles of at most 8 rows: a plan of 16 raises
+    # before any launch, and the first form is not taken in its place
+    monkeypatch.setattr(cuda_apply, "TILE_Y", 16)
+    monkeypatch.setattr(cuda_apply, "_PLAN_CACHE", type(
+        cuda_apply._PLAN_CACHE)(16, max_bytes=256 << 20))
+    u8s = _frames((1, 240, 512), torch.uint8, cuda)
+    assert band_probes._plan(tables)["TY"] == 16
+    n = dict(band_probes.LAUNCHES)
+    for mode in band_probes.RING_MODES:
+        with pytest.raises(ValueError, match="at most 8 rows"):
+            band_probes.band_probe_kernel(u8s, tables, mode)
+    assert band_probes.LAUNCHES == n
     # a ring or chunk buffers beyond the card's opt-in: a ValueError that
     # names the mode and the bytes, before any launch.  At 20:1 (SY 162)
     # f32 walk2 fits and walk4 does not; u8convert's buffers never outgrow
