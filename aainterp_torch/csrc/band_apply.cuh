@@ -67,14 +67,16 @@
 // with it.  The walk (band_walk_kernel) runs the same phases, as functions,
 // on a persistent grid whose blocks take their windows from a ring that a
 // producer warp fills with bulk copies.  The stage ring (band_stage_kernel)
-// runs kStage's, kStageY's, kU8Words' and kXPair's functions on the same
-// kind of grid (kRingStage .. kRingPair): stagey with a y pass of its own
-// (stage_y_pass, register-blocked over a tile's rows), u8words with one
-// aligned word a tap row into a T shifted to the window's words
+// runs kStage's, kStageY's, kU8Words', kXPair's and kXOnly's functions on
+// the same kind of grid (kRingStage .. kRingX): stagey with a y pass of
+// its own (stage_y_pass, register-blocked over a tile's rows), u8words
+// with one aligned word a tap row into a T shifted to the window's words
 // (words_y_pass) and production's x pass, xpair with no T at all (each
-// lane's column sums feed its 4 dst columns from registers, pair_tile).
-// The kStage, kStageY, kU8Words and kXPair branches of band_apply_kernel
-// stay as their first forms (the modes stage_direct .. xpair_direct).
+// lane's column sums feed its 4 dst columns from registers, pair_tile),
+// xonly with no T either (each lane's taps read from the window into
+// registers, ring_x_tile).  The kStage, kStageY, kU8Words, kXPair
+// and kXOnly branches of band_apply_kernel stay as their first forms (the
+// modes stage_direct .. xpair_direct, xonly_direct).
 //
 // Arithmetic modes (kernel 2's precision knob, pallas_apply.py:798-846):
 //   0  IEEE f32 products and sums;
@@ -476,6 +478,7 @@ enum Probe : int {
   kRingStageY = 13, // kStageY's
   kRingWords = 14,  // kU8Words' function on the ring: a word a tap row
   kRingPair = 15,   // kXPair's on the ring, its y sums fed to the x taps in registers
+  kRingX = 16,      // kXOnly's on the ring: no T, each lane's taps read into registers
 };
 
 __host__ __device__ constexpr int convert_chunks(int p) {
@@ -985,8 +988,8 @@ __global__ void __launch_bounds__(kThreads + 32) band_walk_kernel(
   }
 }
 
-// ---- the stage ring (band_stage_kernel): kStage's, kStageY's, kU8Words'
-// and kXPair's functions on a persistent grid, the counterpart of JAX's
+// ---- the stage ring (band_stage_kernel): kStage's, kStageY's, kU8Words',
+// kXPair's and kXOnly's functions on a persistent grid, the counterpart of JAX's
 // band probe (flagship_experiments.py:73, rgb1024_experiments.py:88),
 // whose schedule starts band t + 1's copy before band t is waited on ----
 
@@ -1000,21 +1003,24 @@ constexpr int kFloatCols = 4;     // window columns a y-pass thread owns, bf16 a
 // bf16 and u8); kRingStageY 3 in bf16 and u8 (4 spilled, none left 2 at
 // 96 registers), 2 in f32, as many as its shared memory allows (none left
 // 1 at 127); kRingWords 4 (u8; 3 was slower); kRingPair 3 (u8; 4
-// spilled)
+// spilled); kRingX 3 in bf16 and f32 (4, at 56 registers, was slower;
+// 5, at 40, spilled)
 template <typename Tin, int P>
 __host__ __device__ constexpr int stage_min_blocks() {
+  if (P == kRingX) return 3;
   return P == kRingStage || P == kRingWords ? 4 : sizeof(Tin) < 4 ? 3 : 2;
 }
 
 // what each of the ring's functions keeps in its slot and beside it: the
 // (TY, ky) tap table (all but kRingStage, which reads each dst row's
-// first tap row alone), T (kRingStageY, kRingWords), output tiles
-// (kRingStage two, kRingPair none: its words go straight to global
-// memory; it keeps its (4, Wd) x table there instead, pair_pitch)
-__host__ __device__ constexpr bool ring_y_taps(int P) { return P != kRingStage; }
+// first tap row alone, and kRingX, which reads none: its window rows are
+// the tile's own rows), T (kRingStageY, kRingWords), output tiles
+// (kRingStage two, kRingPair and kRingX none: their values go straight
+// to global memory; they keep their x tables there instead, pair_pitch)
+__host__ __device__ constexpr bool ring_y_taps(int P) { return P != kRingStage && P != kRingX; }
 __host__ __device__ constexpr bool ring_t(int P) { return P == kRingStageY || P == kRingWords; }
 __host__ __device__ constexpr int ring_out_tiles(int P) {
-  return P == kRingStage ? 2 : P == kRingPair ? 0 : 1;
+  return P == kRingStage ? 2 : P == kRingPair || P == kRingX ? 0 : 1;
 }
 
 // window columns a y-pass thread owns (a group): u8 4, bf16 and f32
@@ -1047,6 +1053,7 @@ __host__ __device__ inline int ring_t_pitch(int SX, int P) {
 __host__ __device__ inline int stage_tab_bytes(int TY, int ky, bool with_y) {
   return static_cast<int>(up16(with_y ? 8LL * TY * ky + 4LL * TY : 4LL * TY));
 }
+
 
 // The global loads of a tile's taps by one lane of the producer warp,
 // issued a tile ahead (stage_taps writes them once the slot is free): the
@@ -1408,9 +1415,10 @@ __device__ __forceinline__ PairLane pair_lane(const Dims& d, int tid) {
   return p;
 }
 
-// the (4, Wd) x table's rows in shared memory (kRingPair): row b at
-// b * pair_pitch(Wd) floats, so each lane's 4 weights of a tap are one
-// 16-byte read where the strip starts on a multiple of 4
+// the x tables' rows in shared memory (kRingPair's (4, Wd), kRingX's kx
+// rows of weights and its xs): row b at b * pair_pitch(Wd) floats, so
+// each lane's 4 weights of a tap are one 16-byte read where the strip
+// starts on a multiple of 4
 __host__ __device__ inline int pair_pitch(int Wd) { return (Wd + 3) / 4 * 4; }
 
 // a lane's x weights: w[b][k] = table row b (the taps o_prev, e, o,
@@ -1549,11 +1557,116 @@ __device__ __forceinline__ void pair_tile(uint8_t* __restrict__ out, const int* 
   }
 }
 
-// The stage ring (probes): kStage's, kStageY's, kU8Words' and kXPair's
-// functions (P = kRingStage, kRingStageY, kRingWords, kRingPair: the first
-// tap's pixel; T at the first x tap; production's output with the y pass
-// reading a word a tap row; production's output from the exact ratio-2 x
-// taps) on a persistent grid, each block a ring of kStageSlots windows
+// kRingX's lanes (xonly: production's x pass alone, on the y pass's
+// output, bf16 or f32 in and out): a lane owns the 4 dst columns J .. J +
+// 3 (J = j0 + 4 gi) of a part of the tile's rows, pair_lane's split.  Its
+// columns' first taps xs[J + k] and weights (kx <= kShiftTaps taps) come
+// from the block's x table in shared memory (kx rows of weights by dst
+// column, then xs, each pair_pitch(Wd) long), read once a tile.  In each
+// of its rows it reads each column's taps, pixel(xs[J + k] + b) clamped
+// to the window's [xa, xb) as T holds them, from the staged window into
+// registers, converting to f32 there, and sums them b = 0 .. kx - 1 in
+// order from 0, one fmaf each, as x_pass does: no T.  (Reading each
+// source column of the group once, a column taking the taps it shares
+// with the one before from registers by selects, read 10-11 pixels for
+// 16 taps at rgb1024 and was slower on the H100: PERF.md, chip_sweep.py
+// xrreuse.)  The 4 values leave in one 8-byte (bf16) or 16-byte (f32)
+// store where the output row allows it (else two of half the width, else
+// one a value): no output tile.
+
+template <typename T>
+__device__ __forceinline__ void ring_x_store(T* o, const float (&acc)[4], int nk) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(o);
+  if constexpr (sizeof(T) == 2) {
+    uint32_t h[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) h[k] = __bfloat16_as_ushort(__float2bfloat16_rn(acc[k]));
+    const uint32_t lo = h[0] | (h[1] << 16);
+    const uint32_t hi = h[2] | (h[3] << 16);
+    if (nk == 4 && (a & 7) == 0) {
+      *reinterpret_cast<uint2*>(o) = make_uint2(lo, hi);
+      return;
+    }
+    if (nk == 4 && (a & 3) == 0) {
+      reinterpret_cast<uint32_t*>(o)[0] = lo;
+      reinterpret_cast<uint32_t*>(o)[1] = hi;
+      return;
+    }
+  } else {
+    if (nk == 4 && (a & 15) == 0) {
+      *reinterpret_cast<float4*>(o) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+      return;
+    }
+    if (nk == 4 && (a & 7) == 0) {
+      reinterpret_cast<float2*>(o)[0] = make_float2(acc[0], acc[1]);
+      reinterpret_cast<float2*>(o)[1] = make_float2(acc[2], acc[3]);
+      return;
+    }
+  }
+  for (int k = 0; k < nk; ++k) store(o + k, acc[k]);
+}
+
+// kRingX's work on one tile (the window staged at shared byte wb)
+template <typename T>
+__device__ __forceinline__ void ring_x_tile(T* __restrict__ out, const float* xtab,
+                                            const Dims& d, const Geo& g, const Tile& t,
+                                            const PairLane& p, int wb) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int ei = sizeof(T);
+  constexpr int n = kShiftTaps;
+  const int jj = 4 * p.gi;  // the lane's first column in the strip
+  if (jj >= t.cols) return;
+  const int nk = min(4, t.cols - jj);
+  const int r1 = min(p.r1, t.rows);
+  const int wp = pair_pitch(d.Wd);
+  const int J = t.j0 + jj;
+  const int* xst = reinterpret_cast<const int*>(xtab + d.kx * wp);
+  int x0[4];
+  float w[4][n];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) x0[k] = xst[min(J + k, d.Wd - 1)];
+  if ((J & 3) == 0) {  // 4 columns' weights of a tap in one 16-byte read
+#pragma unroll
+    for (int b = 0; b < n; ++b) {
+      const float4 v = b < d.kx ? *reinterpret_cast<const float4*>(xtab + b * wp + J)
+                                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      w[0][b] = v.x, w[1][b] = v.y, w[2][b] = v.z, w[3][b] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int b = 0; b < n; ++b) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) w[k][b] = b < d.kx ? xtab[b * wp + min(J + k, d.Wd - 1)] : 0.0f;
+    }
+  }
+  for (int r = p.r0; r < r1; ++r) {
+    const unsigned char* row = smem + wb + r * g.pitch_in;
+    float acc[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float v[n];
+#pragma unroll
+      for (int b = 0; b < n; ++b) {
+        const int c = min(max(x0[k] + b, t.xa), t.xb - 1) - t.xa;
+        v[b] = b < d.kx ? to_f32(*reinterpret_cast<const T*>(row + c * ei)) : 0.0f;
+      }
+      float a = 0.0f;
+#pragma unroll
+      for (int b = 0; b < n; ++b) {
+        if (b < d.kx) a = fmaf(w[k][b], v[b], a);
+      }
+      acc[k] = a;
+    }
+    ring_x_store(out + (t.f * d.Hd + t.i0 + r) * static_cast<long long>(d.Wd) + J, acc, nk);
+  }
+}
+
+// The stage ring (probes): kStage's, kStageY's, kU8Words', kXPair's and
+// kXOnly's functions (P = kRingStage, kRingStageY, kRingWords, kRingPair,
+// kRingX: the first tap's pixel; T at the first x tap; production's
+// output with the y pass reading a word a tap row; production's output
+// from the exact ratio-2 x taps; production's x pass alone, on the y
+// pass's output) on a persistent grid, each block a ring of kStageSlots windows
 // filled by a producer warp and read by kThreads consumer threads
 // (csrc/band_probes.cu sizes the grid as the walk's: as many blocks an SM
 // as the ring's shared memory and the registers allow).
@@ -1588,21 +1701,27 @@ __device__ __forceinline__ void pair_tile(uint8_t* __restrict__ out, const int* 
 //     in registers, reads its lanes' x weights a row at a time and stores
 //     its words (pair_tile), and releases the slot by one arrival of its
 //     own (the empty mbarrier counts kWarps).
+//   * kRingX: as kRingPair, on windows of the tile's own TY rows of the y
+//     pass's output (no tap tables: the producer loads the windows
+//     alone), its x table (weights and xs) staged once a block, each
+//     warp's lanes summing their 4 columns' taps in registers
+//     (ring_x_tile).
 //
 // Layout (stage_geo): the n windows, T (kRingStageY, kRingWords), the n
-// tap tables, the output tiles (ring_out_tiles: kRingStage two, written
-// in turn, as its one barrier a tile lets a tile's writes meet the last
-// tile's stores; kRingStageY and kRingWords one; kRingPair none, its x
-// table in their place), the 2n mbarriers; no zero row (the taps are
-// clamped).
+// tap tables (none for kRingX), the output tiles (ring_out_tiles:
+// kRingStage two, written in turn, as its one barrier a tile lets a
+// tile's writes meet the last tile's stores; kRingStageY and kRingWords
+// one; kRingPair and kRingX none, their x tables in their place), the 2n
+// mbarriers; no zero row (the taps are clamped).
 template <typename Tin, typename Tout, int P>
 __global__ void __launch_bounds__(kThreads + 32, stage_min_blocks<Tin, P>()) band_stage_kernel(
     const Tin* __restrict__ src, Tout* __restrict__ out, const int* __restrict__ ys,
     const float* __restrict__ wy, const int* __restrict__ xs, const float* __restrict__ wx,
     const int* __restrict__ row_base, const int* __restrict__ col_base, Dims d, Geo g,
     long long items) {
-  static_assert(P == kRingStage || P == kRingStageY || sizeof(Tin) == 1,
-                "the word and pair functions are u8 probes");
+  static_assert(P == kRingX ? sizeof(Tin) > 1
+                           : P == kRingStage || P == kRingStageY || sizeof(Tin) == 1,
+                "the word and pair functions are u8 probes, xonly's float");
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int ei = sizeof(Tin);
   constexpr int n_slots = kStageSlots;
@@ -1615,7 +1734,7 @@ __global__ void __launch_bounds__(kThreads + 32, stage_min_blocks<Tin, P>()) ban
   if (tid == 0) {
     for (int s = 0; s < n_slots; ++s) {
       hopper::mbar_init(&full[s], 1);
-      hopper::mbar_init(&empty[s], P == kRingPair ? kWarps : 1);
+      hopper::mbar_init(&empty[s], P == kRingPair || P == kRingX ? kWarps : 1);
     }
     hopper::fence_mbarrier_init();
   }
@@ -1627,6 +1746,17 @@ __global__ void __launch_bounds__(kThreads + 32, stage_min_blocks<Tin, P>()) ban
       xtab[b * wp + e - b * d.Wd] = __ldg(wx + e);
     }
   }
+  if constexpr (P == kRingX) {  // the x weights by tap and dst column, then xs, once a block
+    const int wp = pair_pitch(d.Wd);
+    float* xtab = reinterpret_cast<float*>(smem + g.o_off);
+    int* xst = reinterpret_cast<int*>(xtab + d.kx * wp);
+    for (int e = tid; e < d.kx * wp; e += kThreads + 32) {
+      const int b = e / wp;
+      const int j = e - b * wp;
+      xtab[e] = j < d.Wd ? __ldg(wx + static_cast<long long>(j) * d.kx + b) : 0.0f;
+    }
+    for (int j = tid; j < wp; j += kThreads + 32) xst[j] = j < d.Wd ? __ldg(xs + j) : 0;
+  }
   __syncthreads();
   // the block's items: n of them, item k at blockIdx.x + k * G
   const long long G = gridDim.x;
@@ -1637,7 +1767,12 @@ __global__ void __launch_bounds__(kThreads + 32, stage_min_blocks<Tin, P>()) ban
     long long rest = i / d.n_strip;
     const int rt = static_cast<int>(rest % d.n_rt);
     rest /= d.n_rt;
-    return tile_at<true>(d, row_base, col_base, strip, rt, rest);
+    Tile t = tile_at<true>(d, row_base, col_base, strip, rt, rest);
+    if constexpr (P == kRingX) {  // the window: the tile's own rows of the y pass's output
+      t.ya = t.i0;
+      t.yb = t.i0 + t.rows;
+    }
+    return t;
   };
   auto slot = [&](int s) { return s * g.zero_off; };
   auto taps = [&](int s) { return reinterpret_cast<int*>(smem + g.tab_off + s * tab); };
@@ -1645,17 +1780,20 @@ __global__ void __launch_bounds__(kThreads + 32, stage_min_blocks<Tin, P>()) ban
   if (tid >= kThreads) {  // the producer warp
     const int lane = tid - kThreads;
     Tile tn = tile_k(0);
-    TapLoads pn = tap_loads<kY>(ys, wy, d, tn, lane);
+    TapLoads pn{0, 0, 0, 0.0f};
+    if constexpr (P != kRingX) pn = tap_loads<kY>(ys, wy, d, tn, lane);
     for (int k = 0, s = 0; k < n; ++k, s = s + 1 == n_slots ? 0 : s + 1) {
       const Tile t = tn;
       const TapLoads p = pn;
       if (k + 1 < n) {  // the next tile's loads in flight while this one waits
         tn = tile_k(k + 1);
-        pn = tap_loads<kY>(ys, wy, d, tn, lane);
+        if constexpr (P != kRingX) pn = tap_loads<kY>(ys, wy, d, tn, lane);
       }
       if (k >= n_slots) hopper::mbar_wait(&empty[s], (k / n_slots - 1) & 1);
-      stage_taps<kY>(taps(s), p, ys, wy, d, g, t,
-                     window_base<Tin>(window_src(src, d, t), slot(s)), lane);
+      if constexpr (P != kRingX) {
+        stage_taps<kY>(taps(s), p, ys, wy, d, g, t,
+                       window_base<Tin>(window_src(src, d, t), slot(s)), lane);
+      }
       load_window(src, d, g, t, slot(s), &full[s], lane);
     }
     return;
@@ -1680,6 +1818,17 @@ __global__ void __launch_bounds__(kThreads + 32, stage_min_blocks<Tin, P>()) ban
           pair_tile<false>(out, rowtab, wtab, xtab, d, t, pl);
         }
       }
+      __syncwarp();  // the warp's reads of slot s done
+      if (pl.lane == 0) hopper::mbar_arrive(&empty[s]);
+    }
+  } else if constexpr (P == kRingX) {
+    const PairLane pl = pair_lane(d, tid);
+    const float* xtab = reinterpret_cast<const float*>(smem + g.o_off);
+    for (int k = 0, s = 0; k < n; ++k, s = s + 1 == n_slots ? 0 : s + 1) {
+      const Tile t = tile_k(k);
+      const int wb = window_base<Tin>(window_src(src, d, t), slot(s));
+      hopper::mbar_wait(&full[s], (k / n_slots) & 1);
+      if (pl.busy) ring_x_tile<Tin>(out, xtab, d, g, t, pl, wb);
       __syncwarp();  // the warp's reads of slot s done
       if (pl.lane == 0) hopper::mbar_arrive(&empty[s]);
     }
@@ -1811,19 +1960,21 @@ inline Geo walk_geo(const Dims& d, int ei, int eo, int slots) {
 // the stage ring's layout (band_stage_kernel) for function P:
 // kStageSlots = n windows, window s at s * zero_off (each laid out as
 // production's), T at t_off (ring_t only; ring_t_pitch floats a row), the
-// n tap tables (stage_tab_bytes) from tab_off, the ring_out_tiles output
-// tiles (kRingPair: its x table) from o_off, the 2n mbarriers in the last
-// 16n bytes of smem
+// n tap tables (stage_tab_bytes; none for kRingX) from tab_off, the ring_out_tiles output
+// tiles (kRingPair, kRingX: their x tables) from o_off, the 2n mbarriers
+// in the last 16n bytes of smem
 inline Geo stage_geo(const Dims& d, int ei, int eo, int P) {
   Geo g = make_geo(d, ei, eo);
   const long long t_off = static_cast<long long>(kStageSlots) * g.zero_off;
   const long long tab_off =
       t_off + (ring_t(P) ? up16(4LL * d.TY * ring_t_pitch(d.SX, P)) : 0);
-  const long long o_off = tab_off + static_cast<long long>(kStageSlots) *
-                                        stage_tab_bytes(d.TY, d.ky, ring_y_taps(P));
+  const long long o_off =
+      tab_off + static_cast<long long>(kStageSlots) *
+                    (P == kRingX ? 0 : stage_tab_bytes(d.TY, d.ky, ring_y_taps(P)));
   const long long total =
       o_off + ring_out_tiles(P) * up16(32 + static_cast<long long>(d.TY) * g.pitch_out) +
-      (P == kRingPair ? up16(16LL * pair_pitch(d.Wd)) : 0) + 16LL * kStageSlots;
+      (P == kRingPair ? up16(16LL * pair_pitch(d.Wd)) : 0) +
+      (P == kRingX ? up16(4LL * (d.kx + 1) * pair_pitch(d.Wd)) : 0) + 16LL * kStageSlots;
   if (total > INT_MAX) {
     g.smem = INT_MAX;
     return g;

@@ -30,7 +30,9 @@
 //   kRingStage,          <- rgb1024_experiments.py:88 _build_band_probe
 //   kRingStageY             (pallas_call at :141; "dma", "ypass"), at 1024^2
 //                           150 -> 60 dpi
-//   kXOnly               <- rgb1024_experiments.py:148 _build_xonly (:174)
+//   kRingX               <- rgb1024_experiments.py:148 _build_xonly (:174),
+//                           on the stage ring; its first form kXOnly stays
+//                           as xonly_direct
 //
 // (rgb1024_experiments.py:181 _build_full_dense_x, the dense x probe, is
 // csrc/dense_x.cu's, on the tensor cores.)
@@ -55,7 +57,10 @@
 // production's x pass alone, its T
 // converted from the tile's rows of an input that holds the y pass's
 // output, (F, Hd, W) in the frame dtype (H passed as Hd), staged as the
-// window is.  What bounds them: bytes, as kernel 1; a mode
+// window is; kRingX the same function on the stage ring, its windows the
+// tile's TY rows of that input, no T: each lane reads its 4 dst columns'
+// taps from the window into registers once and stores its 4 values at
+// once.  What bounds them: bytes, as kernel 1; a mode
 // whose shared memory exceeds the card's opt-in returns
 // cudaErrorInvalidValue before any launch (the host checks it first).
 //
@@ -164,7 +169,7 @@ int launch_probe(const void* src, void* out, const void* ys, const void* wy, con
 }
 
 // the stage ring (function P: kRingStage, kRingStageY, kRingWords,
-// kRingPair): its grid, min(tiles, SMs x blocks an SM); `geo` (SMs, blocks
+// kRingPair, kRingX): its grid, min(tiles, SMs x blocks an SM); `geo` (SMs, blocks
 // an SM, registers, shared memory) is filled and nothing launched where it
 // is given
 template <typename Tin, typename Tout, int P>
@@ -198,24 +203,34 @@ int launch_stage(const void* src, void* out, const void* ys, const void* wy, con
 }
 
 // the stage ring's arguments, checked: 0 or cudaErrorInvalidValue.  The
-// word and pair functions take u8 alone, the pair's table 4 taps at most
+// word and pair functions take u8 alone, the pair's table 4 taps at most;
+// the x-only function bf16 and f32 alone, x bands of kShiftTaps taps at
+// most, its input the y pass's output (H = Hd) and its window the tile's
+// rows (SY = TY, which the other functions' ky need not reach)
 int stage_args(int H, int W, int Hd, int Wd, int ky, int kx, int TY, int TX, int SY, int SX,
                int mode, int dtype_code) {
   const bool u8_fn = mode == band::kRingWords || mode == band::kRingPair;
+  const bool x_fn = mode == band::kRingX;
   const bool ok = H > 0 && W > 0 && Hd > 0 && Wd > 0 && ky > 0 && kx > 0 && TY > 0 &&
-                  TY <= band::kStageRows && TX > 0 && TX <= band::kThreads && SY >= ky &&
-                  SX >= kx && mode >= band::kRingStage && mode <= band::kRingPair &&
+                  TY <= band::kStageRows && TX > 0 && TX <= band::kThreads &&
+                  (x_fn ? H == Hd && SY == TY && kx <= band::kShiftTaps : SY >= ky) &&
+                  SX >= kx && mode >= band::kRingStage && mode <= band::kRingX &&
                   dtype_code >= 0 && dtype_code <= 2 && (!u8_fn || dtype_code == 2) &&
-                  (mode != band::kRingPair || kx <= 4);
+                  (!x_fn || dtype_code <= 1) && (mode != band::kRingPair || kx <= 4);
   return ok ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// the stage ring's instance for mode (kRingStage .. kRingPair, checked by
+// the stage ring's instance for mode (kRingStage .. kRingX, checked by
 // stage_args) and element type T, in = out
 template <typename T>
 int stage_modes(int mode, const void* src, void* out, const void* ys, const void* wy,
                 const void* xs, const void* wx, const void* rb, const void* cb, int F,
                 const Dims& d, cudaStream_t st, int* geo) {
+  if constexpr (sizeof(T) > 1) {
+    if (mode == band::kRingX) {
+      return launch_stage<T, T, band::kRingX>(src, out, ys, wy, xs, wx, rb, cb, F, d, st, geo);
+    }
+  }
   if constexpr (sizeof(T) == 1) {
     if (mode == band::kRingWords) {
       return launch_stage<T, T, band::kRingWords>(src, out, ys, wy, xs, wx, rb, cb, F, d, st,
@@ -292,9 +307,9 @@ int u8_modes(int mode, const void* src, void* out, const void* ys, const void* w
 
 }  // namespace
 
-// mode: band_apply.cuh's Probe (1 stage, 2 stagey, 3 u8words, 4 xpair:
-// the stage ring's first forms; 5-7 u8 convert in 1/2/4 chunks, 8-10 walk
-// with 2/3/4 slots, 11 xonly); dtype_code (input and output): 0 =
+// mode: band_apply.cuh's Probe (1 stage, 2 stagey, 3 u8words, 4 xpair,
+// 11 xonly: the stage ring's first forms; 5-7 u8 convert in 1/2/4 chunks,
+// 8-10 walk with 2/3/4 slots); dtype_code (input and output): 0 =
 // float32, 1 = bfloat16 (stage, stagey, walk, xonly), 2 = uint8 (stage,
 // stagey, u8words, xpair, u8 convert).  The other arguments are
 // aainterp_separable_apply's (csrc/separable_apply.cu); for xpair wx is
@@ -344,13 +359,16 @@ extern "C" int aainterp_band_walk_grid(int H, int W, int Hd, int Wd, int ky, int
 }
 
 // The stage ring (band_apply.cuh's band_stage_kernel): mode 12 (kStage's
-// function), 13 (kStageY's), 14 (kU8Words') or 15 (kXPair's) on a
-// persistent grid whose blocks walk their shares of the tiles through a
-// ring of 2 windows; dtype_code 0 = float32, 1 = bfloat16, 2 = uint8 (in
-// and out; modes 14 and 15 uint8 alone).  The other arguments are
-// aainterp_band_probe's: wx is read by mode 14 (production's x weights)
-// and 15 (the (4, Wd) table of source columns 2j - 1 .. 2j + 2; kx at most
-// 4), xs by 12-14; TY at most 8.  Returns 0 or a cudaError_t
+// function), 13 (kStageY's), 14 (kU8Words'), 15 (kXPair's) or 16
+// (kXOnly's) on a persistent grid whose blocks walk their shares of the
+// tiles through a ring of 2 windows; dtype_code 0 = float32, 1 =
+// bfloat16, 2 = uint8 (in and out; modes 14 and 15 uint8 alone, 16 float32
+// and bfloat16 alone).  The other arguments are aainterp_band_probe's: wx
+// is read by modes 14 and 16 (production's x weights) and 15 (the (4, Wd)
+// table of source columns 2j - 1 .. 2j + 2; kx at most 4), xs by 12-14
+// and 16; TY at most 8.  Mode 16 takes the y pass's output, (F, Hd, W),
+// as src (H = Hd), SY = TY (its window: the tile's rows) and kx at most
+// 4; it reads neither ys nor wy.  Returns 0 or a cudaError_t
 // (cudaErrorInvalidValue where the ring exceeds the card's opt-in, before
 // any launch).
 extern "C" int aainterp_band_stage(const void* src, void* out, const void* ys, const void* wy,

@@ -47,10 +47,10 @@
 // * The direct form (body(), the earlier design): one thread per (dy, dx),
 //   each tap kFrames gathers from T in device memory through clamped
 //   indices.  It stays for the unmasked instance (contract_unmasked_kernel,
-//   aainterp_contract_unmasked), the noweight probe below, and, masked
-//   (contract_kernel, aainterp_contract_direct), for a geometry whose
-//   smallest tile window does not fit in shared memory: the host planner
-//   sends such a plan there, a named and counted route.
+//   aainterp_contract_unmasked), the noweight probe's first form below,
+//   and, masked (contract_kernel, aainterp_contract_direct), for a
+//   geometry whose smallest tile window does not fit in shared memory: the
+//   host planner sends such a plan there, a named and counted route.
 //
 // csrc/probes.cu launches the probe forms, the H100 counterparts of the
 // TPU contraction probes of benchmarks/rot_experiments.py.  Like the TPU
@@ -59,11 +59,25 @@
 // contraction: the same tile table, the same swizzled frame-interleaved
 // windows, the same a-major sums) and, like it, write 0 and read nothing
 // for dead tiles and for pixels outside their row's span; noweight
-// changes the direct form, unmasked, as its yardstick
-// contract_unmasked_kernel is:
+// changes the tiled form too, on a tile table of its own:
 //
 //   kNoWeight  (_build_contract_noweight, :130)  out = sum_ab T window: no
-//              weight load, no multiply (acc += v);
+//              weight load, no multiply (acc += v, each tap one f32 add),
+//              on the tiled form (contract_noweight_tiled_kernel).  JAX's
+//              function: its one-hot selectors take the live rows and
+//              columns only (those whose weights are not all 0), so it
+//              writes 0 on every other dst row and column.  The host
+//              passes the live rectangle as the span, (first live column,
+//              last + 1) on each live row and (0, 0) on the others
+//              (rot_experiments.noweight_span; the live columns are one
+//              range), with the tiles contract_tiles plans for that span:
+//              JAX's zeros come from the tiled body's skip and cost
+//              nothing, and every pixel of the rectangle sums its window,
+//              dead pixels of live rows and columns included;
+//   kNoWeightDirect  the same function on the direct form, its first
+//              form (contract_noweight_kernel: body() masked by the same
+//              span), kept to be timed beside it and beside the unmasked
+//              direct contraction, its yardstick before;
 //   kTShare    (_build_contract_share, :247, tshare)  every live tile stages
 //              frame 0's cells at T's origin, T[0, 0:rows, 0:cols], in its
 //              own window's shape, into every frame slot of every frame
@@ -101,7 +115,8 @@
 // block" and "weight block 0" of that tiling, or reordered the production
 // kernel's issue; the tiled form has the same tiles, so each probe pins
 // the same stream of it: the T windows (tshare), the weights (wshare),
-// both, or the issue order (pipelined).
+// both, or the issue order (pipelined); noweight drops the weights from
+// the sums on the same windows.
 //
 // What bounds the contraction: bytes (T, the f32 weight table w2 and the
 // output); but the direct form's time followed the per-tap gathers'
@@ -128,6 +143,7 @@ enum Probe : int {
   kWShare = 3,
   kBothShare = 4,
   kPipelined = 5,
+  kNoWeightDirect = 6,
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -220,13 +236,14 @@ __global__ void __launch_bounds__(kThreads) contract_unmasked_kernel(
   body<T, kNone, false>(t, out, ry0, cx0, w2, nullptr, F, TH, TW, Hd, Wd, Ka, Kb);
 }
 
-// The noweight probe: the unmasked direct form without weights.
+// The noweight probe's first form: the direct form without weights, 0
+// outside span (the live rectangle: kNoWeightDirect above).
 template <typename T>
 __global__ void __launch_bounds__(kThreads) contract_noweight_kernel(
     const T* __restrict__ t, T* __restrict__ out,
-    const int* __restrict__ ry0, const int* __restrict__ cx0,
+    const int* __restrict__ ry0, const int* __restrict__ cx0, const int* __restrict__ span,
     int F, int TH, int TW, int Hd, int Wd, int Ka, int Kb) {
-  body<T, kNoWeight, false>(t, out, ry0, cx0, nullptr, nullptr, F, TH, TW, Hd, Wd, Ka, Kb);
+  body<T, kNoWeight, true>(t, out, ry0, cx0, nullptr, span, F, TH, TW, Hd, Wd, Ka, Kb);
 }
 
 // ---- the tiled form --------------------------------------------------------
@@ -404,9 +421,30 @@ __device__ __forceinline__ void sum_taps(const uint4* win, int4 w, const float* 
   }
 }
 
-// The tiled masked contraction's body (P == kNone) and its share probes
-// (kTShare, kWShare, kBothShare): block b is dst tile b (row-major, n_tx
-// tiles a row of TYd x TXd pixels); tiles[b] = (r0, c0, rows, cols) is its
+// The noweight probe's sums of one pixel: sum_taps without weights, each
+// tap's kFrames cells added in order (taps a-major, then b)
+template <typename T>
+__device__ __forceinline__ void sum_cells(const uint4* win, int4 w, int r0, int c0, int TH,
+                                          int TW, int Ka, int Kb, int nf, float (&acc)[kFrames]) {
+#pragma unroll
+  for (int i = 0; i < kFrames; ++i) acc[i] = 0.0f;
+  for (int a = 0; a < Ka; ++a) {
+    const int row = (min(max(r0 + a, 0), TH - 1) - w.x) * w.w;
+    for (int b = 0; b < Kb; ++b) {
+      float v[kFrames];
+      load_cell<T>(win, row + min(max(c0 + b, 0), TW - 1) - w.y, v);
+#pragma unroll
+      for (int i = 0; i < kFrames; ++i) {
+        if (i < nf) acc[i] += v[i];
+      }
+    }
+  }
+}
+
+// The tiled masked contraction's body (P == kNone), its share probes
+// (kTShare, kWShare, kBothShare) and the noweight probe (kNoWeight: no
+// weights, sum_cells; span and tiles its own): block b is dst tile b
+// (row-major, n_tx tiles a row of TYd x TXd pixels); tiles[b] = (r0, c0, rows, cols) is its
 // window, rows == 0 for a dead tile.  vec: T's rows are 16-byte aligned,
 // so a tile whose c0 and cols are whole chunks stages in 16-byte loads
 // (the host starts every window at a multiple of 8 columns, COL_ALIGN).
@@ -420,8 +458,9 @@ __device__ __forceinline__ void tiled_body(
     const int* __restrict__ cx0, const float* __restrict__ w2, const int* __restrict__ span,
     const int4* __restrict__ tiles, int F, int TH, int TW, int Hd, int Wd, int Ka, int Kb,
     int TYd, int TXd, int n_tx, int vec, int wtile, int zero) {
-  static_assert(P == kNone || P == kTShare || P == kWShare || P == kBothShare,
-                "the tiled body's probes are the shares");
+  static_assert(P == kNone || P == kTShare || P == kWShare || P == kBothShare ||
+                    P == kNoWeight,
+                "the tiled body's probes are the shares and noweight");
   constexpr bool kShareT = P == kTShare || P == kBothShare;
   constexpr bool kShareW = P == kWShare || P == kBothShare;
   constexpr int kVec = 16 / static_cast<int>(sizeof(T));
@@ -470,8 +509,12 @@ __device__ __forceinline__ void tiled_body(
                min((wtile - wy * n_tx) * TXd + p - py * TXd, Wd - 1);
       }
       float acc[kFrames];
-      sum_taps<T>(win, w, w2, plane, wpix, __ldg(ry0 + dy), __ldg(cx0 + dx), TH, TW, Ka, Kb, nf,
-                  acc);
+      if constexpr (P == kNoWeight) {
+        sum_cells<T>(win, w, __ldg(ry0 + dy), __ldg(cx0 + dx), TH, TW, Ka, Kb, nf, acc);
+      } else {
+        sum_taps<T>(win, w, w2, plane, wpix, __ldg(ry0 + dy), __ldg(cx0 + dx), TH, TW, Ka, Kb,
+                    nf, acc);
+      }
       T* o = out + f0 * plane + pix;
 #pragma unroll
       for (int i = 0; i < kFrames; ++i) {
@@ -503,6 +546,18 @@ __global__ void __launch_bounds__(kThreads, kTiledMinBlocks) contract_share_kern
   extern __shared__ __align__(128) uint4 win[];
   tiled_body<T, P>(win, t, out, ry0, cx0, w2, span, tiles, F, TH, TW, Hd, Wd, Ka, Kb, TYd, TXd,
                    n_tx, vec, wtile, zero);
+}
+
+// The noweight probe on the tiled form: span and tiles are the live
+// rectangle's (kNoWeight above); w2 is not read.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kTiledMinBlocks) contract_noweight_tiled_kernel(
+    const T* __restrict__ t, T* __restrict__ out, const int* __restrict__ ry0,
+    const int* __restrict__ cx0, const int* __restrict__ span, const int4* __restrict__ tiles,
+    int F, int TH, int TW, int Hd, int Wd, int Ka, int Kb, int TYd, int TXd, int n_tx, int vec) {
+  extern __shared__ __align__(128) uint4 win[];
+  tiled_body<T, kNoWeight>(win, t, out, ry0, cx0, nullptr, span, tiles, F, TH, TW, Hd, Wd, Ka,
+                           Kb, TYd, TXd, n_tx, vec, 0, 0);
 }
 
 // ---- the pipelined probe ---------------------------------------------------

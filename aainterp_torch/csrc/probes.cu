@@ -42,11 +42,13 @@
 // at 4K, every byte through registers (chip_sweep.py cells c_*, PERF.md).
 //
 // The contraction probes are csrc/contract.cuh's forms under one probe
-// mode each: noweight on the direct form; tshare, wshare and bothshare on
-// the tiled form (contract_share_kernel, a block a dst tile); pipelined
-// on a persistent grid of the tiled form (contract_pipelined_kernel).  The
-// tiled ones read the route's tile table as ell_shear.cu's
-// aainterp_contract does.  That header says what each removes and why
+// mode each: noweight on the tiled form (contract_noweight_tiled_kernel,
+// a block a dst tile of the live rectangle's table), its first form
+// noweight_direct on the direct form; tshare, wshare and bothshare on the
+// tiled form (contract_share_kernel); pipelined on a persistent grid of
+// the tiled form (contract_pipelined_kernel).  The share and pipelined
+// ones read the route's tile table as ell_shear.cu's aainterp_contract
+// does.  That header says what each removes and why
 // these are the H100 meanings of the TPU probes.
 // What bounds them: bytes, the streams each mode still reads (PERF.md).
 //
@@ -272,13 +274,15 @@ struct ProbeArgs {
   int F, TH, TW, Hd, Wd, Ka, Kb, TYd, TXd, smem, wtile, n_live;
 };
 
+// noweight's first form: the direct form, a thread a dst pixel, 0 outside
+// the live rectangle's span
 template <typename T>
-int launch_noweight(const ProbeArgs& a, cudaStream_t st) {
+int launch_noweight_direct(const ProbeArgs& a, cudaStream_t st) {
   dim3 grid;
   if (!contract::row_grid(a.Hd, a.Wd, &grid)) return static_cast<int>(cudaErrorInvalidValue);
   contract::contract_noweight_kernel<T><<<grid, contract::kThreads, 0, st>>>(
-      static_cast<const T*>(a.t), static_cast<T*>(a.out), a.ry0, a.cx0, a.F, a.TH, a.TW, a.Hd,
-      a.Wd, a.Ka, a.Kb);
+      static_cast<const T*>(a.t), static_cast<T*>(a.out), a.ry0, a.cx0, a.span, a.F, a.TH, a.TW,
+      a.Hd, a.Wd, a.Ka, a.Kb);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -313,6 +317,21 @@ int launch_share(const ProbeArgs& a, cudaStream_t st) {
       static_cast<const T*>(a.t), static_cast<T*>(a.out), a.ry0, a.cx0, a.w2, a.span, a.tiles,
       a.F, a.TH, a.TW, a.Hd, a.Wd, a.Ka, a.Kb, a.TYd, a.TXd, n_tx, aligned_rows<T>(a), a.wtile,
       0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// noweight on the tiled form: a block a dst tile of the live rectangle's
+// table, a.smem bytes of dynamic shared memory
+template <typename T>
+int launch_noweight(const ProbeArgs& a, cudaStream_t st) {
+  int n_tx, n_tiles;
+  if (!tile_count(a, &n_tx, &n_tiles)) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = contract::contract_noweight_tiled_kernel<T>;
+  static std::atomic<int> opted_in[stage::kMaxDevices];  // kern's limit per device
+  if (const int e = stage::opt_in(reinterpret_cast<const void*>(kern), a.smem, opted_in)) return e;
+  kern<<<static_cast<unsigned>(n_tiles), contract::kThreads, static_cast<size_t>(a.smem), st>>>(
+      static_cast<const T*>(a.t), static_cast<T*>(a.out), a.ry0, a.cx0, a.span, a.tiles, a.F,
+      a.TH, a.TW, a.Hd, a.Wd, a.Ka, a.Kb, a.TYd, a.TXd, n_tx, aligned_rows<T>(a));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -362,6 +381,8 @@ int probe(int mode, const ProbeArgs& a, cudaStream_t st) {
       return launch_share<T, contract::kBothShare>(a, st);
     case contract::kPipelined:
       return launch_pipelined<T>(a, st);
+    case contract::kNoWeightDirect:
+      return launch_noweight_direct<T>(a, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -387,25 +408,28 @@ extern "C" int aainterp_copy_rows(const void* src, void* dst, int F, int H, int 
 }
 
 // mode: contract::Probe, 1 = noweight, 2 = tshare, 3 = wshare, 4 = bothshare,
-// 5 = pipelined; dtype_code: 0 = float32, 1 = bfloat16 (T and out share it).
-// The arguments are aainterp_contract's (csrc/ell_shear.cu): span (Hd, 2)
-// int32, each dst row's live columns; tiles (n_ty * n_tx, 4) int32, each
-// TYd x TXd dst tile's T window, rows 0 for a dead tile; smem the bytes of
-// the largest window; wtile the tile whose weights wshare and bothshare
-// read; order (n_ty * n_tx,) int32, the tiles in the order the pipelined
-// form deals them out, its n_live live tiles first (the other modes do not
-// read it: it may be null).  noweight (the unmasked direct form) reads
-// neither span nor tiles: they may be null, and TYd, TXd, smem and wtile
-// are not read.
+// 5 = pipelined, 6 = noweight_direct; dtype_code: 0 = float32, 1 = bfloat16
+// (T and out share it).  The arguments are aainterp_contract's
+// (csrc/ell_shear.cu): span (Hd, 2) int32, each dst row's live columns;
+// tiles (n_ty * n_tx, 4) int32, each TYd x TXd dst tile's T window, rows 0
+// for a dead tile; smem the bytes of the largest window; wtile the tile
+// whose weights wshare and bothshare read; order (n_ty * n_tx,) int32, the
+// tiles in the order the pipelined form deals them out, its n_live live
+// tiles first (the other modes do not read it: it may be null).  noweight
+// and noweight_direct take the live rectangle's span
+// (rot_experiments.noweight_span) and noweight its tiles; neither reads
+// w2 (it may be null).  noweight_direct (the direct form) reads no tiles:
+// they may be null, and TYd, TXd, smem and wtile are not read.
 extern "C" int aainterp_contract_probe(const void* t, void* out, const void* ry0,
                                        const void* cx0, const void* w2, const void* span,
                                        const void* tiles, const void* order, int F, int TH,
                                        int TW, int Hd, int Wd, int Ka, int Kb, int TYd, int TXd,
                                        int smem, int wtile, int n_live, int mode,
                                        int dtype_code, void* stream) {
-  const bool tiled = mode != contract::kNoWeight;
+  const bool tiled = mode != contract::kNoWeightDirect;
   if (F <= 0 || TH <= 0 || TW <= 0 || Hd <= 0 || Wd <= 0 || Ka <= 0 || Kb <= 0 ||
-      (tiled && (span == nullptr || tiles == nullptr || TYd <= 0 || TXd <= 0 || smem < 0))) {
+      span == nullptr ||
+      (tiled && (tiles == nullptr || TYd <= 0 || TXd <= 0 || smem < 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const ProbeArgs a{t, out, static_cast<const int*>(ry0), static_cast<const int*>(cx0),

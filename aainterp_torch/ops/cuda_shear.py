@@ -357,6 +357,17 @@ class ShearKernelPlan:
         default_factory=dict, repr=False)
     dev: Dict[torch.device, Dict[str, torch.Tensor]] = dataclasses.field(
         default_factory=dict, repr=False)
+    # the plan whose device tables this one shares but for the span
+    # (with_span); None: its own
+    base: Optional["ShearKernelPlan"] = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    def with_span(self, span: np.ndarray) -> "ShearKernelPlan":
+        """This plan with ``span`` (Hd, 2) for its span table: tiles of its
+        own, planned for that span, and on each device this plan's tables
+        but the span, so that the weights are not uploaded again."""
+        return dataclasses.replace(self, span=span, tiles={}, dev={},
+                                   base=self if self.base is None else self.base)
 
     def form_tiles(self, form: str) -> ShearTiles:
         """``form``'s tiles (``plan_tiles``), planned at the first call
@@ -384,7 +395,10 @@ class ShearKernelPlan:
         device = torch.device(device)
         hit = self.dev.get(device)
         if hit is None:
-            hit = {name: upload(getattr(self, name), device, pinned=pinned)
+            shared = (self.base.tables(device, pinned)
+                      if self.base is not None else {})
+            hit = {name: shared[name] if name in shared and name != "span"
+                   else upload(getattr(self, name), device, pinned=pinned)
                    for name in _PLAN_ARRAYS}
             self.dev[device] = hit
         return hit

@@ -7,12 +7,13 @@
 * ``rot_experiments`` — the rotated route's decomposition at the rotated
   flagship: the route, its shear forms, the contraction with and without
   its dead-pixel skip and the contraction's probe modes
-  (``csrc/contract.cuh`` under ``probes.cu``: noweight on the direct form;
+  (``csrc/contract.cuh`` under ``probes.cu``: noweight on the tiled form
+  and the live rectangle's tiles, its first form on the direct form;
   tshare, wshare, bothshare and pipelined on the route's tiled form;
   ``benchmarks/rot_experiments.py``);
 * ``band_probes`` — kernel 1's probe modes (``csrc/band_probes.cu`` on
   ``csrc/band_apply.cuh``: stage, stagey, walk2-4, u8words, u8convert1/2/4,
-  xpair, xonly, densex), their plain versions and byte counts, run at the
+  xpair, xonly (on the stage ring), densex), their plain versions and byte counts, run at the
   4K flagship by ``flagship_experiments`` (bf16, f32;
   ``benchmarks/flagship_experiments.py``) and ``u8_experiments`` (u8;
   ``benchmarks/u8_experiments.py``), and at rgb1024 (24 planes of 1024^2,

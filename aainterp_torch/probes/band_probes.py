@@ -42,13 +42,19 @@ production's tiles, derived from what it keeps):
   edge columns as the neighbouring words' bytes) and stores the 4 pixels
   as one word;
 * ``stage_direct``, ``stagey_direct``, ``u8words_direct``,
-  ``xpair_direct`` — the four stage-ring functions on their first form,
+  ``xpair_direct``, ``xonly_direct`` — the five stage-ring functions on
+  their first form,
   production's kernel with one block a tile (kept beside the ring so that
   kernel 1's split is read on production's own layout, and the ring's
   gain in the same call);
 * ``xonly`` — production's x pass alone: its input is not frames but the
   y pass's output, (F, Hd, W) in the frame dtype, and ``out[f, i, j] =
-  cast(sum_b xw[j, b] * tmp[f, i, clamp(xs[j] + b)])``;
+  cast(sum_b xw[j, b] * tmp[f, i, clamp(xs[j] + b)])``, on the stage ring
+  with no T: its windows are the tile's TY rows of that input
+  (``window_rows``), a lane reads its 4 dst columns' taps from the
+  window into registers, sums each column's taps in order and stores its
+  4 values at once, the x weights and offsets staged once a block (x
+  bands of at most ``RING_X_TAPS`` taps; ``ValueError`` on wider ones);
 * ``densex`` — production's y pass, then a dense x operator: ``out[f, i,
   j] = cast(sum over all W columns x of T[i, x] * Wxd[x, j])`` with
   ``Wxd`` the band as a (W, Wd) matrix in the frame dtype
@@ -96,16 +102,16 @@ from ..utils.lru import LruDict
 # probe mode -> the kernel's mode code (band_apply.cuh's Probe; densex
 # runs on csrc/dense_x.cu)
 MODES = {"stage": 12, "stagey": 13, "u8words": 14, "xpair": 15,
-         "stage_direct": 1, "stagey_direct": 2, "u8words_direct": 3,
-         "xpair_direct": 4, "u8convert1": 5, "u8convert2": 6,
-         "u8convert4": 7, "walk2": 8, "walk3": 9, "walk4": 10, "xonly": 11,
-         "densex": None}
+         "xonly": 16, "stage_direct": 1, "stagey_direct": 2,
+         "u8words_direct": 3, "xpair_direct": 4, "xonly_direct": 11,
+         "u8convert1": 5, "u8convert2": 6, "u8convert4": 7, "walk2": 8,
+         "walk3": 9, "walk4": 10, "densex": None}
 # the modes each input dtype has (the kernel's instances); each also has
 # the first forms of its stage-ring modes (``first_forms``)
 FLOAT_MODES = ("stage", "stagey", "walk2", "walk3", "walk4")
 # the stage ring's modes and the first form of each (its mode + "_direct":
 # production's kernel with one block a tile, launched by no experiment)
-RING_MODES = ("stage", "stagey", "u8words", "xpair")
+RING_MODES = ("stage", "stagey", "u8words", "xpair", "xonly")
 DIRECT_MODES = tuple(f"{m}_direct" for m in RING_MODES)
 # the stage ring's windows (band_apply.cuh kStageSlots); a ring that does
 # not fit the card's opt-in raises
@@ -115,6 +121,9 @@ STAGE_ROWS = 8
 # rgb1024's x-pass probes, float frames too: xonly reads the y pass's
 # output, not frames, and densex's cost is its dense x operator
 X_MODES = ("xonly", "densex")
+# the x taps a column the ring's xonly takes at most (band_apply.cuh
+# kShiftTaps)
+RING_X_TAPS = 4
 U8_MODES = ("stage", "stagey", "u8words", "u8convert1", "u8convert2",
             "u8convert4", "xpair")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
@@ -172,7 +181,7 @@ def _check_mode(mode: str, dtype: torch.dtype) -> None:
     if mode not in MODES:
         raise ValueError(f"probe mode must be one of {sorted(MODES)}, got "
                          f"{mode!r}")
-    floats = modes_of(torch.float32) + X_MODES
+    floats = modes_of(torch.float32) + X_MODES + first_forms(X_MODES)
     have = modes_of(dtype) if dtype == torch.uint8 else floats
     if dtype not in _DTYPE_CODES or mode not in have:
         raise ValueError(f"probe mode {mode!r} has no {dtype} instance "
@@ -189,10 +198,14 @@ def _plan(tables):
 
 
 def window_rows(plan: dict, mode: str) -> int:
-    """The rows of a block's staged window: the plan's SY (``xonly``: at
-    least TY, its tile's rows of the y pass's output), passed to the
-    kernel as SY."""
-    return max(plan["SY"], plan["TY"]) if mode == "xonly" else plan["SY"]
+    """The rows of a block's staged window, passed to the kernel as SY:
+    the plan's SY; ``xonly`` TY, its tile's rows of the y pass's output
+    (the ring's windows hold them alone), ``xonly_direct`` at least TY
+    (production's layout, sized by SY)."""
+    if mode == "xonly":
+        return plan["TY"]
+    return max(plan["SY"], plan["TY"]) if mode == "xonly_direct" \
+        else plan["SY"]
 
 
 def _seg_pitch(nbytes: int, stride: int) -> int:
@@ -217,10 +230,14 @@ def smem_bytes(plan: dict, mode: str, Ws: int, Wd: int, ky: int,
     row), two output tiles for ``stage`` and one for ``stagey``, no zero
     row; ``u8words``: T's rows 3 columns longer, ``ring_t_pitch``;
     ``xpair``: no T and no output tile, its (4, Wd) x table instead, rows
-    of Wd rounded up to 4 floats),
+    of Wd rounded up to 4 floats; ``xonly``: no tap table, no T and no
+    output tile, its windows of TY rows (``window_rows``) and its x table
+    instead, kx rows of weights and one of offsets, each of Wd rounded up
+    to 4),
     plus the bf16 chunk buffers for u8convert<n> (two, one for n = 1;
-    ``convert_pitch`` bytes a window row).  ``xonly`` stages its tile's TY
-    rows of the y pass's output in the window (``window_rows``).
+    ``convert_pitch`` bytes a window row).  ``xonly_direct`` stages its
+    tile's TY rows of the y pass's output in production's window
+    (``window_rows``).
     ``densex`` runs on ``csrc/dense_x.cu`` (``dense_x_smem``)."""
     TY, TX, SX = plan["TY"], plan["TX"], plan["SX"]
     SY = window_rows(plan, mode)
@@ -231,6 +248,10 @@ def smem_bytes(plan: dict, mode: str, Ws: int, Wd: int, ky: int,
     if mode.startswith("walk"):   # no zero row: the walk's taps are clamped
         n = int(mode[-1])
         return n * (window + tab + 16) + _up16(4 * TY * SX) + out_tile
+    if mode == "xonly":
+        kx = plan["tables"][3].shape[1]
+        xtab = _up16(4 * (kx + 1) * (-(-Wd // 4) * 4))
+        return STAGE_SLOTS * (window + 16) + xtab
     if mode in RING_MODES:
         n = STAGE_SLOTS
         y = mode != "stage"
@@ -333,6 +354,7 @@ def stage_grid(frames: torch.Tensor, tables, mode: str) -> dict:
     if mode not in RING_MODES or frames.device.type != "cuda":
         raise ValueError(f"stage_grid takes a stage ring mode {RING_MODES} "
                          f"on CUDA frames, got {mode!r} on {frames.device}")
+    _check_frames(frames, tables, mode)
     _check_mode(mode, frames.dtype)
     ys, yw, xs, xw = _host(tables)
     plan = _plan(tables)
@@ -341,8 +363,9 @@ def stage_grid(frames: torch.Tensor, tables, mode: str) -> dict:
     fn = _build.load(_build.BAND_PROBES).aainterp_band_stage_grid
     with torch.cuda.device(frames.device):
         rc = fn(Hs, Ws, yw.shape[0], xw.shape[0], yw.shape[1], xw.shape[1],
-                plan["TY"], plan["TX"], plan["SY"], plan["SX"], MODES[mode],
-                _DTYPE_CODES[frames.dtype], ctypes.addressof(out))
+                plan["TY"], plan["TX"], window_rows(plan, mode), plan["SX"],
+                MODES[mode], _DTYPE_CODES[frames.dtype],
+                ctypes.addressof(out))
     if rc != 0:
         raise RuntimeError(f"band probe {mode}: no launch geometry for a ring "
                            f"of {STAGE_SLOTS} windows, CUDA error {rc}")
@@ -629,7 +652,8 @@ def _check_frames(frames, tables=None, mode: str = "") -> None:
     if frames.ndim != 3 or 0 in frames.shape:
         raise ValueError(f"frames must be (F, H, W) with none of them 0, got "
                          f"{tuple(frames.shape)}")
-    if mode == "xonly" and frames.shape[1] != len(tables[0]):
+    if mode.removesuffix("_direct") == "xonly" and \
+            frames.shape[1] != len(tables[0]):
         raise ValueError(f"xonly takes the y pass's output, (F, Hd="
                          f"{len(tables[0])}, W), got {tuple(frames.shape)}")
 
@@ -637,7 +661,8 @@ def _check_frames(frames, tables=None, mode: str = "") -> None:
 def band_probe_kernel(frames: torch.Tensor, tables, mode: str, *,
                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The probe ``mode`` on ``csrc/band_probes.cu``: (F, H, W) -> (F, Hd,
-    Wd) in the frames' dtype (``xonly``: (F, Hd, W) -> (F, Hd, Wd));
+    Wd) in the frames' dtype (``xonly`` and ``xonly_direct``: (F, Hd, W)
+    -> (F, Hd, Wd));
     ``tables`` are kernel 1's host tables (ys, yw, xs, xw).  A CPU tensor
     takes ``band_probe_plain``; ``out`` may be given (any contents: every
     element is written)."""
@@ -664,6 +689,9 @@ def band_probe_kernel(frames: torch.Tensor, tables, mode: str, *,
                          f"memory a block, over the card's {SMEM_LIMIT}")
     if mode in ("xpair", "xpair_direct"):
         xpair_table(xs, xw)                          # raises on other bands
+    if mode == "xonly" and xw.shape[1] > RING_X_TAPS:
+        raise ValueError(f"probe mode 'xonly' takes x bands of at most "
+                         f"{RING_X_TAPS} taps, these have {xw.shape[1]}")
     if mode in RING_MODES:
         return _stage_kernel(frames, tables, mode, plan, shape, need, out)
     out = out_buffer(out, shape, frames.dtype, frames.device)
@@ -716,12 +744,12 @@ def _stage_kernel(frames: torch.Tensor, tables, mode: str, plan: dict, shape,
         rc = fn(frames.data_ptr(), out.data_ptr(), d_ys.data_ptr(),
                 d_yw.data_ptr(), d_xs.data_ptr(), wx_ptr, d_rb.data_ptr(),
                 d_cb.data_ptr(), F, Hs, Ws, shape[1], shape[2], yw.shape[1],
-                xw.shape[1], plan["TY"], plan["TX"], plan["SY"], plan["SX"],
-                MODES[mode], _DTYPE_CODES[frames.dtype], stream)
+                xw.shape[1], plan["TY"], plan["TX"], window_rows(plan, mode),
+                plan["SX"], MODES[mode], _DTYPE_CODES[frames.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"band probe {mode} launch failed: CUDA error {rc}"
                            f" (F={F}, H={Hs}, W={Ws}, plan TY={plan['TY']} "
-                           f"TX={plan['TX']} SY={plan['SY']} "
+                           f"TX={plan['TX']} SY={window_rows(plan, mode)} "
                            f"SX={plan['SX']}, a ring of {STAGE_SLOTS} windows, "
                            f"{need} "
                            "bytes of shared memory)")
@@ -855,8 +883,8 @@ def run_exp(exp: str, mode: Optional[str], batch: int, dtype, device,
     ``cuda_apply.apply_separable_kernel``) on K = 8 distinct seeded frame
     batches of (batch, *shape) at ``res`` (source -> destination
     resolution) in ``dtype`` on ``device`` (default: the card), warmed up
-    on one more (``xonly``: batches of the y pass's output, (batch, Hd,
-    W)); the result carries the batch's bytes and operations
+    on one more (``xonly`` and its first form: batches of the y pass's
+    output, (batch, Hd, W)); the result carries the batch's bytes and operations
     (``traffic``)."""
     from ..utils.device import target
     from . import harness
@@ -864,7 +892,8 @@ def run_exp(exp: str, mode: Optional[str], batch: int, dtype, device,
     dev = target(device)
     tables = flagship_tables(tuple(shape), *res)
     gen = harness.seeded(dev, 0)
-    in_shape = ((len(tables[0]), shape[1]) if mode == "xonly"
+    in_shape = ((len(tables[0]), shape[1])
+                if mode and mode.removesuffix("_direct") == "xonly"
                 else tuple(shape))
     xs = [harness.uniform((batch,) + in_shape, dtype, gen, dev)
           for _ in range(9)]

@@ -15,7 +15,9 @@ blocks).  The experiments, under the JAX file's names:
 * ``ypass`` (``_build_band_probe(with_y=True)``) — staging, the y pass and
   the stores (``stagey``);
 * ``xonly`` (``_build_xonly``) — production's x pass alone, from seeded
-  random batches of the y pass's output, (24, 410, 1024) (``xonly``);
+  random batches of the y pass's output, (24, 410, 1024) (``xonly``, on
+  the stage ring with no T; its first form ``xonly_direct`` is launched
+  by no experiment);
 * ``fulldense`` (``_build_full_dense_x``) — production's y pass, then one
   dense (1024, 410) x operator in the frame dtype in place of the 4-tap
   band, summed over all 1024 columns (``densex``);

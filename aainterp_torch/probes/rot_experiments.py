@@ -11,11 +11,19 @@ table (``contract_tiled_kernel``).  The contraction's probe modes
 the kernel they split and so split its time between the streams it
 reads:
 
-* ``noweight`` — the unmasked direct form (``contract_unmasked_kernel``:
-  a thread a pixel, its taps gathered from device memory) with ``out =
-  sum_ab T window``: no weight load, no multiply
-  (``_build_contract_noweight``, rot_experiments.py:130); unmasked, as
-  JAX's;
+* ``noweight`` — the tiled kernel with ``out = sum_ab T window``: no
+  weight load, no multiply, each tap one f32 add
+  (``_build_contract_noweight``, rot_experiments.py:130), and JAX's
+  function on every pixel: JAX's one-hot selectors take the live dst
+  rows and columns only (those whose weights are not all 0), so it writes
+  0 on every other row and column.  The kernel
+  (``contract_noweight_tiled_kernel``) runs on a plan of its own,
+  ``noweight_plan``: the live rectangle as its span (``noweight_span``:
+  the live columns, one range, on each live row) and the tiles
+  ``contract_tiles`` plans for that span, so JAX's zeros come from the
+  tiled body's skip; ``noweight_direct`` is its first form, the direct
+  form (a thread a pixel, its taps gathered from device memory) masked by
+  the same span;
 * ``tshare`` — the tiled kernel with every live tile's window staged from
   frame 0 at T's origin, ``T[0, 0:rows, 0:cols]``, for every frame: no T
   stream from device memory, the same output for every frame
@@ -30,11 +38,14 @@ reads:
   ``pipeline_order``: bit-equal to ``contract_kernel``
   (``_build_contract_pipelined``, :392).
 
-Like JAX's, every mode but noweight writes 0 and reads nothing for dead
-tiles and for pixels outside their row's span.  The tiled modes read the
-route's tile table (``plan.contract_plan``); a plan without one (windows
-beyond shared memory, where the route takes the direct form) raises
-``RuntimeError`` naming the mode.
+Like JAX's, every mode writes 0 and reads nothing for dead tiles and
+for pixels outside their row's span (noweight's: the live rectangle).
+The share and pipelined modes read the route's tile table
+(``plan.contract_plan``), noweight the live rectangle's
+(``noweight_tiles``); a plan without one (windows beyond shared memory,
+where the route takes the direct form) raises ``RuntimeError`` naming the
+mode, and a plan whose live columns are not one range raises
+``ValueError`` for both noweight modes.
 
 ``contract_probe_kernel(t, plan, mode)`` launches one (a CPU tensor takes
 ``contract_probe_plain``), counted per mode in ``LAUNCHES``; the plain
@@ -46,7 +57,10 @@ tap a fused multiply-add (``fma32``) as in the kernels.
 route's two kernels), ``shears`` (the fused shear, with the single forms
 beside it), ``contract`` (the contraction without the skip,
 ``contract_unmasked_kernel``), ``contract_masked`` (the route's
-contraction, ``contract_kernel``, tiled), and the five probes.
+contraction, ``contract_kernel``, tiled), and the six probe modes; and
+``contract_tiled_unmasked``, noweight's tiled yardstick: the route's
+tiled kernel on ``noweight_plan``, the weighted sums on the live
+rectangle (``contract_tiled_unmasked_kernel``).
 Each builds the flagship's plan (``_plan``: 2048^2 at 1.0 -> 0.5, 30
 degrees about the center, exact; K 6, Ka x Kb 5 x 5), makes seeded
 inputs on the device and times the kernels with ``harness.measure``.
@@ -75,13 +89,19 @@ from ..ops import cuda_shear
 from ..ops.apply import fma32
 from ..ops.weights import ell_operator
 from ..utils.device import SMEM_LIMIT, Device, target
+from ..utils.lru import LruDict
 from . import harness
 
 # probe mode -> the kernel's mode code (contract.cuh's Probe)
-MODES = {"noweight": 1, "tshare": 2, "wshare": 3, "bothshare": 4,
-         "pipelined": 5}
+MODES = {"noweight": 1, "noweight_direct": 6, "tshare": 2, "wshare": 3,
+         "bothshare": 4, "pipelined": 5}
+# the modes of noweight's function: the tiled kernel and its first form
+NOWEIGHT = ("noweight", "noweight_direct")
 # kernel launches so far per mode, counted where the wrapper launches
 LAUNCHES = {m: 0 for m in MODES}
+# id(plan) -> (plan, noweight_plan(plan)): the probe's own plans, kept
+# out of the route's plan caches
+_NOWEIGHT_PLANS = LruDict(4)
 
 
 def _shares(mode: str):
@@ -90,6 +110,61 @@ def _shares(mode: str):
         raise ValueError(f"probe mode must be one of {sorted(MODES)}, got "
                          f"{mode!r}")
     return mode in ("tshare", "bothshare"), mode in ("wshare", "bothshare")
+
+
+def noweight_span(plan: cuda_shear.ShearKernelPlan) -> np.ndarray:
+    """(Hd, 2) int32: the live rectangle as a span table, the dst pixels
+    JAX's noweight sums (``_build_contract_noweight`` selects the live rows
+    and columns alone, ``lv_row`` and ``lv_col`` of pallas_shear.py:372-373:
+    those whose weights are not all 0): (first live column, last + 1) on
+    each live row, (0, 0) on every other.  ``ValueError`` naming noweight
+    where the live columns are not one range (a rectangle's rotation never
+    gives that, but a span table cannot carry a gap)."""
+    live = plan.w2 != 0
+    rows = live.any(axis=(0, 2))
+    cols = np.flatnonzero(live.any(axis=(0, 1)))
+    if cols.size and cols[-1] + 1 - cols[0] != cols.size:
+        raise ValueError(
+            f"contract probe noweight: the live dst columns are not one "
+            f"range ({cols.size} live in [{cols[0]}, {cols[-1] + 1})), so "
+            "no span table holds JAX's zeros")
+    span = np.zeros((plan.Hd, 2), np.int32)
+    if cols.size:
+        span[rows] = (cols[0], cols[-1] + 1)
+    return span
+
+
+def noweight_plan(plan: cuda_shear.ShearKernelPlan,
+                  device=None) -> cuda_shear.ShearKernelPlan:
+    """``plan`` with the live rectangle for its span (``noweight_span``,
+    ``ShearKernelPlan.with_span``), made once a plan and kept here:
+    noweight's tile table is its ``contract_plan`` (``contract_tiles`` on
+    that span, whose window check then covers every pixel noweight
+    computes), and the route's tiled kernel on it is
+    ``contract_tiled_unmasked``.  Its tables on a device are the plan's,
+    but for the span: the weights are not uploaded again.  ``device``
+    (optional) uploads them there now."""
+    hit = _NOWEIGHT_PLANS.get(id(plan))
+    if hit is None or hit[0] is not plan:
+        hit = (plan, plan.with_span(noweight_span(plan)))
+        _NOWEIGHT_PLANS.put(id(plan), hit)
+    if device is not None:
+        hit[1].tables(torch.device(device))
+    return hit[1]
+
+
+def noweight_tiles(plan: cuda_shear.ShearKernelPlan,
+                   elem: int) -> cuda_shear.ContractTiles:
+    """noweight's tile table for frames of ``elem`` bytes: the first shape
+    of the route's that fits (``plan_contract`` on ``noweight_plan``);
+    ``RuntimeError`` naming noweight where none fits (its windows exceed
+    shared memory), as ``probe_tiles`` raises for the share probes."""
+    tiles = noweight_plan(plan).contract_plan(elem)
+    if tiles is None:
+        raise RuntimeError(
+            f"contract probe noweight: the live rectangle's windows do not "
+            f"fit in shared memory for {elem}-byte frames at any tile shape")
+    return tiles
 
 
 def probe_tiles(plan: cuda_shear.ShearKernelPlan, mode: str,
@@ -165,14 +240,15 @@ def contract_probe_plain(t: torch.Tensor, plan: cuda_shear.ShearKernelPlan,
                          ) -> torch.Tensor:
     """The probe ``mode``'s function in plain torch, f32 sums (taps
     a-major, then b) cast to ``out_dtype`` (default: T's dtype for
-    bf16/f32, else f32).  noweight: the unmasked sums of the T windows,
-    no weights.  The tiled modes (RuntimeError without the plan's tiles,
-    ``probe_tiles``): ``contract_plain(fused=True)``, 0 outside each dst
+    bf16/f32, else f32).  The share and pipelined modes (RuntimeError
+    without the plan's tiles, ``probe_tiles``): ``contract_plain(fused=True)``, 0 outside each dst
     row's span, with each tile's window read from frame 0 at T's origin,
     ``T[0, lr, lc]`` at the tap's window-local row and column (tshare,
     bothshare: the same for every frame), and the weights of
     ``shared_tile`` at the pixel's position within its tile (wshare,
-    bothshare); pipelined: as it is."""
+    bothshare); pipelined: as it is.  noweight and noweight_direct: the
+    sums of the T windows without weights, 0 outside the live rectangle
+    (``noweight_span``), as JAX's."""
     share_t, share_w = _shares(mode)
     cuda_shear._check_frames(t, (plan.TH, plan.TW), "T")
     out_dtype = out_dtype or cuda_shear._out_dtype(t.dtype)
@@ -180,7 +256,8 @@ def contract_probe_plain(t: torch.Tensor, plan: cuda_shear.ShearKernelPlan,
     tabs = plan.tables(dev)
     ry0 = tabs["ry0"].to(torch.int64)
     cx0 = tabs["cx0"].to(torch.int64)
-    if mode == "noweight":
+    if mode in NOWEIGHT:
+        nw = noweight_plan(plan, dev)
         acc = torch.zeros((F, plan.Hd, plan.Wd), dtype=torch.float32,
                           device=dev)
         for a in range(plan.Ka):
@@ -188,6 +265,7 @@ def contract_probe_plain(t: torch.Tensor, plan: cuda_shear.ShearKernelPlan,
             for b in range(plan.Kb):
                 acc = acc + rows.index_select(
                     2, (cx0 + b).clamp(0, plan.TW - 1)).to(torch.float32)
+        acc = torch.where(cuda_shear.live_mask(nw, dev), acc, 0.0)
         return acc.to(out_dtype)
     elem = t.element_size()
     tiles = probe_tiles(plan, mode, elem)
@@ -229,8 +307,10 @@ def contract_probe_kernel(t: torch.Tensor, plan: cuda_shear.ShearKernelPlan,
     in T's dtype (bf16 or f32); a CPU tensor takes
     ``contract_probe_plain``.  ``out`` may be given (any contents: every
     element is written).  The tiled modes raise RuntimeError where the
-    plan has no tiles (``probe_tiles``), and pipelined where its two
-    windows exceed the card's shared memory; the launch's own refusal
+    plan has no tiles (``probe_tiles``, ``noweight_tiles``), and pipelined
+    where its two windows exceed the card's shared memory; both noweight
+    modes ValueError where the live columns are not one range
+    (``noweight_span``, on the CPU too); the launch's own refusal
     (pipelined: a tile of more pixels than the kernel's summing threads)
     raises RuntimeError too."""
     _shares(mode)
@@ -243,9 +323,17 @@ def contract_probe_kernel(t: torch.Tensor, plan: cuda_shear.ShearKernelPlan,
     cuda_shear._cuda_frames(t, "T")
     elem = t.element_size()
     tabs = plan.tables(t.device)
+    span = tabs["span"]
     # tiles, order, TYd, TXd, smem, wtile, n_live
     tiled = (0, 0, 0, 0, 0, 0, 0)
-    if mode != "noweight":
+    if mode in NOWEIGHT:
+        nw = noweight_plan(plan, t.device)
+        span = nw.tables(t.device)["span"]
+        if mode == "noweight":
+            tiles = noweight_tiles(plan, elem)
+            tiled = (nw.contract_windows(elem, t.device).data_ptr(), 0,
+                     tiles.TYd, tiles.TXd, tiles.smem(elem), 0, 0)
+    else:
         tiles = probe_tiles(plan, mode, elem)
         smem = tiles.smem(elem)
         if mode == "pipelined" and 2 * smem > SMEM_LIMIT:
@@ -268,7 +356,7 @@ def contract_probe_kernel(t: torch.Tensor, plan: cuda_shear.ShearKernelPlan,
         stream = torch.cuda.current_stream(t.device).cuda_stream
         rc = fn(t.data_ptr(), out.data_ptr(), tabs["ry0"].data_ptr(),
                 tabs["cx0"].data_ptr(), tabs["w2"].data_ptr(),
-                tabs["span"].data_ptr(), *tiled[:2], t.shape[0],
+                span.data_ptr(), *tiled[:2], t.shape[0],
                 plan.TH, plan.TW, plan.Hd, plan.Wd, plan.Ka, plan.Kb,
                 *tiled[2:], MODES[mode], cuda_shear._DTYPE_CODES[t.dtype],
                 stream)
@@ -280,6 +368,38 @@ def contract_probe_kernel(t: torch.Tensor, plan: cuda_shear.ShearKernelPlan,
                            "of shared memory)")
     LAUNCHES[mode] += 1
     return out
+
+
+def contract_tiled_unmasked_plain(t: torch.Tensor,
+                                  plan: cuda_shear.ShearKernelPlan
+                                  ) -> torch.Tensor:
+    """``contract_tiled_unmasked_kernel``'s function: ``contract_plain
+    (fused=True)`` on ``noweight_plan``, the weighted sums of every pixel
+    of the live rectangle, 0 elsewhere."""
+    cuda_shear._check_frames(t, (plan.TH, plan.TW), "T")
+    return cuda_shear.contract_plain(t, noweight_plan(plan, t.device),
+                                     fused=True)
+
+
+def contract_tiled_unmasked_kernel(t: torch.Tensor,
+                                   plan: cuda_shear.ShearKernelPlan, *,
+                                   out: Optional[torch.Tensor] = None
+                                   ) -> torch.Tensor:
+    """noweight's tiled yardstick: the route's own tiled kernel
+    (``cuda_shear.contract_kernel``, counted there as ``contract``) on
+    ``noweight_plan`` and noweight's tile table, so that it and noweight
+    differ by the weights alone.  A CPU tensor takes
+    ``contract_tiled_unmasked_plain``; a plan without noweight's tiles
+    raises RuntimeError (``noweight_tiles``), never taking the direct
+    form."""
+    cuda_shear._check_frames(t, (plan.TH, plan.TW), "T")
+    if t.device.type == "cpu":
+        y = contract_tiled_unmasked_plain(t, plan)
+        return y if out is None else cuda_shear._out_buffer(
+            out, y.shape, y).copy_(y)
+    noweight_tiles(plan, t.element_size())
+    return cuda_shear.contract_kernel(t, noweight_plan(plan, t.device),
+                                      out=out)
 
 
 def _live(plan: cuda_shear.ShearKernelPlan):
@@ -323,6 +443,12 @@ def traffic(plan: cuda_shear.ShearKernelPlan, batch: int, elem: int,
     ops = batch * p.Hd * p.Wd * taps
     ops_l = batch * n_live * taps
     masked = (t_lb + w_lb + o_b + idx + sp, 2 * ops_l)
+    if what in NOWEIGHT + ("contract_tiled_unmasked",):
+        n_nw, t_nw = _live(noweight_plan(p))
+        nw = batch * t_nw * elem + o_b + idx + sp
+        if what in NOWEIGHT:
+            return nw, batch * n_nw * taps
+        return nw + taps * n_nw * 4, 2 * batch * n_nw * taps
     if what in ("tshare", "wshare", "bothshare"):
         tiles = probe_tiles(p, what, elem)
         share_t, share_w = _shares(what)
@@ -336,7 +462,6 @@ def traffic(plan: cuda_shear.ShearKernelPlan, batch: int, elem: int,
         "contract": (t_b + w_b + o_b + idx, 2 * ops),
         "contract_masked": masked,
         "pipelined": masked,
-        "noweight": (t_b + o_b + idx, ops),
         # T written by the fused shear, its live windows read by the
         # masked contraction
         "full": (q_b + t_b + (p.qW + p.TH) * 4 + masked[0], masked[1]),
@@ -437,6 +562,17 @@ def exp_contract_masked(batch: int = 8, dtype=torch.bfloat16,
                   batch, dtype, device, shape, angle)
 
 
+def exp_contract_tiled_unmasked(batch: int = 8, dtype=torch.bfloat16,
+                                device: Device = None, shape=(2048, 2048),
+                                angle: float = 30.0):
+    """The route's tiled kernel on the live rectangle
+    (``contract_tiled_unmasked_kernel``), noweight's yardstick, on K = 4
+    random T stacks."""
+    return _timed("contract_tiled_unmasked", contract_tiled_unmasked_kernel,
+                  lambda kp, dev: _contract_inputs(kp, batch, dtype, dev),
+                  batch, dtype, device, shape, angle)
+
+
 def _probe_exp(mode: str):
     def exp(batch: int = 8, dtype=torch.bfloat16, device: Device = None,
             shape=(2048, 2048), angle: float = 30.0):
@@ -451,8 +587,10 @@ def _probe_exp(mode: str):
 
 EXPS = {"full": exp_full, "shears": exp_shears, "contract": exp_contract,
         "contract_masked": exp_contract_masked,
+        "contract_tiled_unmasked": exp_contract_tiled_unmasked,
         **{mode: _probe_exp(mode) for mode in
-           ("noweight", "pipelined", "tshare", "wshare", "bothshare")}}
+           ("noweight", "noweight_direct", "pipelined", "tshare", "wshare",
+            "bothshare")}}
 
 
 def main(argv=None) -> int:

@@ -55,13 +55,17 @@ points (``aainterp_torch.area_average_interpolate`` for the first three):
   regrid's 8 x 1800 x 3600 f32, TY 120) beside torch's ``copy_`` into a
   destination of its own per input; the
   rotated contraction's probe modes (``csrc/contract.cuh``: noweight on
-  the unmasked direct form; tshare, wshare, bothshare and pipelined on
-  the route's tiled contraction and its tile table) on random T stacks of
-  8 and 11 frames per dtype at the rotated flagship's 30.0 degrees and at
-  30.2 (T's rows not 16-byte aligned); and the flagship's decomposition
-  (the route, its shear forms, the contraction with and without its
-  dead-pixel skip and each probe; the split subtracts each tiled probe
-  from the route's tiled kernel), one ``probe_timing`` JSON line;
+  the tiled form and the live rectangle's tile table, its first form
+  noweight_direct on the direct form; tshare, wshare, bothshare and
+  pipelined on the route's tiled contraction and its tile table) on
+  random T stacks of 8 and 11 frames per dtype at the rotated flagship's
+  30.0 degrees and at 30.2 (T's rows not 16-byte aligned); and the
+  flagship's decomposition (the route, its shear forms, the contraction
+  with and without its dead-pixel skip, the route's tiled kernel on the
+  live rectangle and each probe; the split subtracts noweight_direct
+  from the unmasked direct contraction, noweight from the tiled kernel on
+  the live rectangle, each share and pipelined probe from the route's
+  tiled kernel), one ``probe_timing`` JSON line;
 * the route's masked contraction (phase 45: the tiled kernel against
   the unmasked instance, its direct form and its plain version, at the
   rotated flagship and for compat, its tile tables, dead shares and time
@@ -74,7 +78,8 @@ points (``aainterp_torch.area_average_interpolate`` for the first three):
   of 1024^2, 150 -> 60 dpi) through
   ``aainterp_torch.probes.rgb1024_experiments.EXPS`` in bf16 and f32 —
   the copy, kernel 1's staging (``dma``), its y pass (``ypass``), its x
-  pass alone (``xonly``), its y pass with a dense x operator
+  pass alone (``xonly``, on the stage ring; its first form timed beside
+  it), its y pass with a dense x operator
   (``fulldense``) and kernel 1 — one ``rgb1024_probe_timing`` line; and
   the fused aligned regrid (``csrc/aligned_fused.cu``) at config 5 through
   ``aainterp_torch.probes.aligned_fused_probe.EXPS`` beside the aligned
@@ -200,10 +205,11 @@ the direct apply of its batch, every multi-input CSV byte-equal to the
 single-file command's, the loaded shear plan equal to the built one field
 for field and its route output bit-equal.  Probes: the copy ``torch.equal``
 to its plain version into 0xFF-filled outputs at every geometry (and u8
-with a ragged last tile and 1023-byte rows); noweight and the tiled share
-modes f32 atol 1e-6 on [0, 1] inputs and bf16 within one bf16 ulp of
-their plain f32 results (the production contraction's tolerances), into
-NaN-filled outputs; the tiled pipelined form ``torch.equal`` to the
+with a ragged last tile and 1023-byte rows); noweight and noweight_direct
+``torch.equal`` to their plain version (JAX's function, 0 off the live
+rectangle) and to each other; the tiled share modes f32 atol 1e-6 on
+[0, 1] inputs and bf16 within one bf16 ulp of their plain f32 results
+(the production contraction's tolerances), into NaN-filled outputs; the tiled pipelined form ``torch.equal`` to the
 production contraction; one launch per probe call, the production counts
 unmoved.
 The masked contraction ``torch.equal`` to the unmasked instance and to
@@ -213,8 +219,9 @@ exactly 0 outside every dst row's span on NaN T.  Kernel 1's probe modes
 multiply-adds exactly) into 0xFF-filled outputs, the modes with
 production's output also to kernel 1 (``xpair`` too: its tap order is
 production's for the exact ratio-2 band of the flagship).  At
-rgb1024 the probe modes stage, stagey and xonly ``torch.equal`` to their
-plain versions into NaN-filled outputs, bf16 and f32; densex, a wgmma
+rgb1024 the probe modes stage, stagey and xonly (the stage ring) and
+their first forms ``torch.equal`` to their plain versions into
+NaN-filled outputs, bf16 and f32, xonly also to xonly_direct; densex, a wgmma
 product on a bf16 split whose sums come in the tensor cores' order, in
 f32 within 1e-5 * max|plain| of its plain version (the f32 statement)
 and of kernel 1, in bf16 within one bf16 ulp, with a guard that one bf16
@@ -352,7 +359,8 @@ SHARE_MODES = ("tshare", "wshare", "bothshare")
 PROBE_ANGLES = (30.2, ROT[3])
 PROBE_FRAMES = (F, 11)
 # phase 44's experiments, in rot_experiments.py's names
-PROBE_EXPS = ("full", "shears", "contract", "contract_masked", "noweight",
+PROBE_EXPS = ("full", "shears", "contract", "contract_masked",
+              "contract_tiled_unmasked", "noweight", "noweight_direct",
               "tshare", "wshare", "bothshare", "pipelined")
 # phase 47: kernel 1's probe modes per frame dtype, through the entry
 # points' experiments (flagship_experiments.py / u8_experiments.py names)
@@ -369,12 +377,13 @@ BAND_EXPS = {torch.bfloat16: (flagship_experiments, ("stage", "ypass",
 # checks' inputs: xonly takes the y pass's output) and JAX probes
 RGB_EXPS = tuple(rgb1024_experiments.EXPS)
 RGB_MODES = ("stage", "stagey", "stage_direct", "stagey_direct", "xonly",
-             "densex")
+             "xonly_direct", "densex")
 RGB_REPLACES = {"stage": "benchmarks/rgb1024_experiments.py:88",
                 "stagey": "benchmarks/rgb1024_experiments.py:88",
                 "stage_direct": "benchmarks/rgb1024_experiments.py:88",
                 "stagey_direct": "benchmarks/rgb1024_experiments.py:88",
                 "xonly": "benchmarks/rgb1024_experiments.py:148",
+                "xonly_direct": "benchmarks/rgb1024_experiments.py:148",
                 "densex": "benchmarks/rgb1024_experiments.py:181"}
 # each probe mode's JAX probe, file:line
 BAND_REPLACES = {
@@ -2763,6 +2772,32 @@ def copy_phases(make, card) -> dict:
     }
 
 
+def noweight_selectors(plan, dtype, device):
+    """(R (Hd, TH), C (Wd, TW)) in ``dtype``: R[dy, r] counts the taps a
+    with clamp(ry0[dy] + a) = r on the live rectangle's rows (0 on the
+    others), C the same for its columns and cx0, so that noweight's
+    function is ``R @ T[f] @ C^T``, one einsum: JAX's own one-hot selector
+    products (benchmarks/rot_experiments.py:166-172) as a library call."""
+    span = rot_experiments.noweight_span(plan)
+    live_r = span[:, 1] > span[:, 0]
+    live_c = np.zeros(plan.Wd, bool)
+    if live_r.any():
+        lo, hi = span[live_r][0]
+        live_c[lo:hi] = True
+    sel_r = np.zeros((plan.Hd, plan.TH), np.float32)
+    sel_c = np.zeros((plan.Wd, plan.TW), np.float32)
+    for a in range(plan.Ka):
+        np.add.at(sel_r, (np.arange(plan.Hd),
+                          np.clip(plan.ry0 + a, 0, plan.TH - 1)), 1)
+    for b in range(plan.Kb):
+        np.add.at(sel_c, (np.arange(plan.Wd),
+                          np.clip(plan.cx0 + b, 0, plan.TW - 1)), 1)
+    sel_r[~live_r] = 0
+    sel_c[~live_c] = 0
+    return (torch.from_numpy(sel_r).to(device, dtype),
+            torch.from_numpy(sel_c).to(device, dtype))
+
+
 def contract_probe_phases(make, card) -> list:
     """Phases 43-44: the contraction's probe modes against their plain
     versions, then the rotated flagship's decomposition through
@@ -2772,22 +2807,29 @@ def contract_probe_phases(make, card) -> list:
 
     # ---- 43. every probe mode against its plain version ----------------------
     err = {m: 0.0 for m in PROBE_MODES}
-    bit_equal = {m: True for m in SHARE_MODES}   # to plain, throughout
+    # to plain, throughout
+    bit_equal = {m: True for m in SHARE_MODES + rot_experiments.NOWEIGHT}
     geoms = {}
     for angle in PROBE_ANGLES:
         _, _, kp = rot_experiments._plan((RH, RW), angle)
         for dtype in (torch.bfloat16, torch.float32):
             tiles = kp.contract_plan(torch.empty((), dtype=dtype).element_size())
             check(tiles is not None, f"no contraction tiles at {angle} deg")
+            nwt = rot_experiments.noweight_tiles(
+                kp, torch.empty((), dtype=dtype).element_size())
             geoms[f"{angle}_{str(dtype).split('.')[-1]}"] = {
                 "TW": kp.TW, "tiles": len(tiles.win),
                 "live": int((tiles.win[:, 2] > 0).sum()),
-                "shared_tile": rot_experiments.shared_tile(tiles)}
+                "shared_tile": rot_experiments.shared_tile(tiles),
+                "noweight_live": int((nwt.win[:, 2] > 0).sum()),
+                "noweight_smem": nwt.smem(
+                    torch.empty((), dtype=dtype).element_size())}
             for nf in PROBE_FRAMES:
                 t = make(dtype, (nf, kp.TH, kp.TW))
                 prod = cuda_shear.contract_kernel(t, kp)
                 torch.cuda.synchronize()
                 shear_before = dict(cuda_shear.LAUNCHES)
+                got_nw = {}
                 for mode in PROBE_MODES:
                     before = rot_experiments.LAUNCHES[mode]
                     buf = torch.full((nf, kp.Hd, kp.Wd), float("nan"),
@@ -2804,6 +2846,16 @@ def contract_probe_phases(make, card) -> list:
                         continue
                     ref = rot_experiments.contract_probe_plain(
                         t, kp, mode, out_dtype=torch.float32)
+                    if mode in rot_experiments.NOWEIGHT:
+                        # JAX's zeros off the live rectangle; each tap one
+                        # f32 add in the plain version's order
+                        e = max_err(got, ref.to(dtype))
+                        check(e == 0 and torch.equal(got, ref.to(dtype)),
+                              f"{what} is not bit-equal to its plain "
+                              f"version (max {e})")
+                        err[mode] = max(err[mode], e)
+                        got_nw[mode] = got.clone()
+                        continue
                     if mode in bit_equal:
                         bit_equal[mode] &= torch.equal(got, ref.to(dtype))
                     if dtype == torch.bfloat16:
@@ -2812,10 +2864,14 @@ def contract_probe_phases(make, card) -> list:
                     else:
                         e = max_err(got, ref)
                         check(e <= 1e-6, f"{what}: err {e} > 1e-6")
+                check(torch.equal(got_nw["noweight"],
+                                  got_nw["noweight_direct"]),
+                      f"noweight {dtype} F {nf} at {angle} deg: the tiled "
+                      "form differs from its first form")
                 check(dict(cuda_shear.LAUNCHES) == shear_before,
                       f"the probes moved the production counts: "
                       f"{dict(cuda_shear.LAUNCHES)} (was {shear_before})")
-                del t, prod, buf, got
+                del t, prod, buf, got, got_nw
     spec, op, kp = rot_experiments._plan((RH, RW), ROT[3])
     check((spec.dst_shape, op.window, kp.Ka, kp.Kb) == (ROT_DST, 6, 5, 5),
           f"probe plan: dst {spec.dst_shape}, K {op.window}, Ka x Kb "
@@ -2824,12 +2880,13 @@ def contract_probe_phases(make, card) -> list:
           + " and ".join(f"{a} deg" for a in PROBE_ANGLES)
           + f" (tile tables {geoms}), bf16 and f32, F "
           + " and ".join(str(n) for n in PROBE_FRAMES)
-          + ", into NaN-filled outputs: noweight (direct form) and the "
-          "tiled share modes within one bf16 ulp (bf16; f32 atol 1e-6) of "
-          "plain, max bf16 |diff| "
-          + ", ".join(f"{m} {err[m]:.3e}" for m in PROBE_MODES
-                      if m != "pipelined")
-          + "; the shares bit-equal to plain: "
+          + ", into NaN-filled outputs: noweight (tiled, on the live "
+          "rectangle's table) and noweight_direct torch.equal to plain (JAX's "
+          "zeros off the rectangle) and to each other; the tiled share modes "
+          "within one bf16 ulp (bf16; f32 atol 1e-6) of plain, max bf16 "
+          "|diff| "
+          + ", ".join(f"{m} {err[m]:.3e}" for m in SHARE_MODES)
+          + "; bit-equal to plain: "
           + ", ".join(f"{m} {v}" for m, v in bit_equal.items())
           + "; pipelined bit-equal to the production contraction; one "
           "launch per call, the production counts unmoved")
@@ -2853,8 +2910,27 @@ def contract_probe_phases(make, card) -> list:
     ts = [make(torch.bfloat16, (F, kp.TH, kp.TW)) for _ in range(5)]
     plain_ms = {m: probe_harness.graph_ms(
         lambda t, m=m: rot_experiments.contract_probe_plain(t, kp, m),
-        ts[1:], ts[:1], reps=2) for m in PROBE_MODES}
-    del ts
+        ts[1:], ts[:1], reps=2) for m in PROBE_MODES
+        if m != "noweight_direct"}
+    # noweight's first form computes its function: one plain version
+    plain_ms["noweight_direct"] = plain_ms["noweight"]
+    # noweight's library call: R @ T @ C^T in T's dtype (its product R @ T
+    # is rounded to bf16 before the second, so within two bf16 ulps of the
+    # plain version's f32 sums, not one)
+    sel_r, sel_c = noweight_selectors(kp, torch.bfloat16, dev)
+    lib = torch.einsum("ya,fab,xb->fyx", sel_r, ts[0], sel_c)
+    ref = rot_experiments.contract_probe_plain(ts[0], kp, "noweight",
+                                               out_dtype=torch.float32)
+    lib_err = max_err(lib, ref)
+    bad = int(((lib.double() - ref.double()).abs()
+               > 2 * bf16_ulp(ref)).sum())
+    check(bad == 0, f"noweight's library einsum: {bad} elements beyond two "
+          f"bf16 ulps of plain (max |diff| {lib_err:.3e})")
+    library_ms = {m: probe_harness.graph_ms(
+        lambda t: torch.einsum("ya,fab,xb->fyx", sel_r, t, sel_c),
+        ts[1:], ts[:1], reps=2) for m in ("noweight",)}
+    library_ms["noweight_direct"] = library_ms["noweight"]
+    del ts, lib, ref, sel_r, sel_c
     timing = {"card": card, "shape": [F, RH, RW], "dtype": "bfloat16",
               "angle": ROT[3], "T": [kp.TH, kp.TW], "exps": {}}
     for exp, r in runs.items():
@@ -2870,24 +2946,33 @@ def contract_probe_phases(make, card) -> list:
     ex = timing["exps"]
     c, cm = ex["contract"]["ms"], ex["contract_masked"]["ms"]
     # what each probe removes, in ms of the contraction it changes: the
-    # unmasked direct form (noweight) or the route's tiled masked
-    # contraction (the others, tiled too)
+    # unmasked direct form (noweight_direct, the direct split), the route's
+    # tiled kernel on the live rectangle (noweight, the tiled split), or
+    # the route's tiled masked contraction (the others, tiled too)
     timing["split_ms"] = {
         "dead_pixel_skip": c - cm,
-        "weights_load_and_multiply": c - ex["noweight"]["ms"],
+        "weights_load_and_multiply": c - ex["noweight_direct"]["ms"],
+        "weights_load_and_multiply_tiled":
+            ex["contract_tiled_unmasked"]["ms"] - ex["noweight"]["ms"],
         "T_traffic": cm - ex["tshare"]["ms"],
         "weight_traffic": cm - ex["wshare"]["ms"],
         "both_streams": cm - ex["bothshare"]["ms"],
         "issue_order": cm - ex["pipelined"]["ms"]}
     timing["plain_ms"] = plain_ms
+    timing["library_ms"] = {**library_ms, "library_max_abs_err": lib_err}
     print(f"[44 decomposition] {card}, {F}x{RH}x{RW} bf16 at {ROT[3]} deg, "
           "device ms per batch (CUDA-graph replays, best of 2) / bound ms: "
           + ", ".join(f"{e} {v['ms']:.4f} / {v['bound_ms']:.4f}"
                       for e, v in ex.items())
           + "; the contraction's split (contract, unmasked, minus "
-          "noweight; contract_masked, the route's tiled kernel, minus "
-          "each tiled probe): "
-          + ", ".join(f"{k} {v:.4f}" for k, v in timing["split_ms"].items()))
+          "noweight_direct; contract_tiled_unmasked, the route's tiled "
+          "kernel on the live rectangle, minus noweight; contract_masked, "
+          "the route's tiled kernel, minus each share and pipelined "
+          "probe): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in timing["split_ms"].items())
+          + f"; noweight's library call (einsum R @ T @ C^T, bf16) "
+          f"{library_ms['noweight']:.4f} ms, max |diff| to plain "
+          f"{lib_err:.3e} (within two bf16 ulps)")
     print(json.dumps({"probe_timing": timing}))
 
     def row(name, line, modes):
@@ -2903,17 +2988,19 @@ def contract_probe_phases(make, card) -> list:
             "plain_ms": plain_ms[m0],
             "bound_ms": ex[m0]["bound_ms"],
             "bound_by": ex[m0]["bound_by"],
-            # no single PyTorch call contracts windows with per-pixel weights
-            "library_ms": None,
+            # noweight: one einsum of selectors; the weighted modes: no
+            # single PyTorch call contracts windows with per-pixel weights
+            "library_ms": library_ms.get(m0),
             "modes": {m: {"launches": launches[m], "ms": ex[m]["ms"],
                           "plain_ms": plain_ms[m], "max_abs_err": err[m],
+                          "library_ms": library_ms.get(m),
                           "bound_ms": ex[m]["bound_ms"],
                           # the share modes' (pipelined: to production)
                           "bit_equal_to_plain": bit_equal.get(m)}
                       for m in modes},
         }
 
-    return [row("contract_noweight", "130", ("noweight",)),
+    return [row("contract_noweight", "130", ("noweight", "noweight_direct")),
             row("contract_share", "247", SHARE_MODES),
             row("contract_pipelined", "392", ("pipelined",))]
 
@@ -3403,8 +3490,9 @@ def rgb1024_phase(make, card, copy_row) -> list:
         x = make(dtype, (nf, R, R))
         tmp = make(dtype, (nf, Hd, R))
         prod = cuda_apply.apply_separable_kernel(x, *tables)
+        outs = {}
         for mode in RGB_MODES:
-            inp = tmp if mode == "xonly" else x
+            inp = tmp if mode.startswith("xonly") else x
             before = band_probes.LAUNCHES[mode]
             buf = filled((nf, Hd, Wd), dtype, dev)
             got = band_probes.band_probe_kernel(inp, tables, mode, out=buf)
@@ -3418,18 +3506,28 @@ def rgb1024_phase(make, card, copy_row) -> list:
             else:
                 check(torch.equal(got, plain), f"rgb1024 {mode} {dt} differs "
                       f"from its plain version (max {err[(dt, mode)]})")
+            if mode.startswith("xonly"):
+                outs[mode] = got
             del got, plain, buf
-        grid = {m: band_probes.stage_grid(x, tables, m)
-                for m in ("stage", "stagey")}
+        check(torch.equal(outs["xonly"], outs["xonly_direct"]),
+              f"rgb1024 xonly {dt}: the ring differs from its first form")
+        del outs
+        grid = {m: band_probes.stage_grid(tmp if m == "xonly" else x, tables,
+                                          m)
+                for m in ("stage", "stagey", "xonly")}
         print(f"[48 rgb1024] {dt} launch geometry: " + "; ".join(
             f"{m} grid {g['grid']} ({g['blocks_per_sm']} blocks an SM x "
             f"{g['sms']} SMs, {g['tiles']} tiles, a ring of {g['slots']} "
             f"windows), {g['smem']} bytes of shared memory a block, "
-            f"{g['registers']} registers" for m, g in grid.items()))
+            f"{g['registers']} registers" for m, g in grid.items())
+            + f"; xonly's windows {band_probes.window_rows(plan, 'xonly')} "
+            "rows, a lane's 4 columns reading their 16 taps a row into "
+            "registers, no T")
         print(f"[48 rgb1024] {nf}x{R}x{R} {dt} -> {Hd}x{Wd}, plan TY 8 TX "
-              f"240 SY 21 SX 600 into NaN-filled outputs: stage, stagey (the "
-              f"stage ring), stage_direct, stagey_direct, "
-              f"xonly torch.equal to their plain versions; densex (dense_x.cu, "
+              f"240 SY 21 SX 600 into NaN-filled outputs: stage, stagey, xonly "
+              f"(the stage ring), stage_direct, stagey_direct, xonly_direct "
+              f"torch.equal to their plain versions (xonly also to "
+              f"xonly_direct); densex (dense_x.cu, "
               f"{band_probes.DENSE_WARPGROUPS[dtype.itemsize]} warpgroup(s) "
               f"a block of 64 "
               f"rows, K in chunks of {band_probes.DENSE_K}, the y pass from "
@@ -3455,10 +3553,11 @@ def rgb1024_phase(make, card, copy_row) -> list:
                                rot_experiments.LAUNCHES),
           "the rgb1024 experiments launched a kernel of another path")
     launches = dict(band_probes.LAUNCHES)
-    # the first forms of dma and ypass, timed beside the ring (after the
-    # experiments' counts: no experiment launches them)
+    # the first forms of dma, ypass and xonly, timed beside the ring (after
+    # the experiments' counts: no experiment launches them)
     for dtype in dtypes:
-        for m, exp in (("stage_direct", "dma"), ("stagey_direct", "ypass")):
+        for m, exp in (("stage_direct", "dma"), ("stagey_direct", "ypass"),
+                       ("xonly_direct", "xonly")):
             runs[(str(dtype)[6:], f"{exp}_direct")] = band_probes.run_exp(
                 f"{exp}_direct", m, nf, dtype, dev, (R, R),
                 rgb1024_experiments.RES)
@@ -3541,8 +3640,13 @@ def rgb1024_phase(make, card, copy_row) -> list:
               "kernel's time)")
     print(json.dumps({"rgb1024_probe_timing": timing}))
 
-    def row(name, mode, exp):
+    def row(name, mode, exp, firsts=()):
         r = ex[f"bfloat16_{exp}"]
+        modes = {m: {dt: {"launches": launches[m], "max_abs_err": err[(dt, m)],
+                          **{k: ex[f"{dt}_{e}"][k] for k in (
+                              "ms", "plain_ms", "bound_ms", "library_ms")}}
+                     for dt in ("bfloat16", "float32")}
+                 for m, e in ((mode, exp),) + tuple(firsts)}
         return {
             "name": name,
             "route": "cuda",
@@ -3560,13 +3664,15 @@ def rgb1024_phase(make, card, copy_row) -> list:
             "dtype": "bfloat16",
             "float32": {k: ex[f"float32_{exp}"][k] for k in (
                 "ms", "plain_ms", "bound_ms", "library_ms")},
+            **({"modes": modes} if firsts else {}),
         }
 
     return [row("rgb1024_dma", "stage", "dma"),
             row("rgb1024_ypass", "stagey", "ypass"),
             row("rgb1024_dma_direct", "stage_direct", "dma_direct"),
             row("rgb1024_ypass_direct", "stagey_direct", "ypass_direct"),
-            row("band_xonly", "xonly", "xonly"),
+            row("band_xonly", "xonly", "xonly",
+                (("xonly_direct", "xonly_direct"),)),
             row("band_densex", "densex", "fulldense")]
 
 

@@ -37,7 +37,15 @@ graph (``CALLS``).
   uncapped); ``b_u8words``, ``b_xpair``: its u8 word and ratio-2 x-pass
   probes on the stage ring (a parent's first forms), and
   ``b_direct_u8words``, ``b_direct_xpair`` their first forms in this
-  checkout (variants ``wdbytes``, u8words' y pass reading 4 bytes, not
+  checkout; ``b_rgb_xonly_bf16``, ``b_rgb_xonly_f32``: rgb1024's x-only
+  probe on the stage ring on 24 planes of the y pass's output, 410 x 1024
+  (a parent's first form), and ``b_rgb_direct_xonly_bf16``,
+  ``b_rgb_direct_xonly_f32`` its first form in this checkout (variants
+  ``xrreuse``, ``xrreuse4``, each source column of a lane's group read
+  once, the taps a column shares with the one before taken from
+  registers, at 3 or 4 blocks an SM, ``xrmin2``, ``xrmin4``, ``xrmin5``,
+  its registers capped for that many blocks an SM (not 3), ``xrnostore``,
+  no stores) (variants ``wdbytes``, u8words' y pass reading 4 bytes, not
   one word, ``wdnox`` / ``wdnoy``, without its x pass / y pass,
   ``wdmin3``, its registers capped for 3 blocks an SM (not 4);
   ``prnoy``, xpair without its y sums, ``prmin4``, ``prmin5``,
@@ -67,12 +75,16 @@ graph (``CALLS``).
   ``pipemin2``, ``pipemin4`` (registers for 2 or 4 blocks an SM
   instead of 3), ``pipestage64``, ``pipestage96`` (staging threads
   instead of 128);
-* ``p_tshare``, ``p_wshare``, ``p_bothshare``, ``p_pipelined``: the
-  contraction's probe modes (``probes/rot_experiments.py``) on the
-  ``r_contract`` cell's inputs, plan and angle, each checked against its
-  plain version within one bf16 ulp; with ``--repo`` a parent checkout's
-  probes (before this repo's tiled probes: the direct form) in the same
-  call;
+* ``p_tshare``, ``p_wshare``, ``p_bothshare``, ``p_pipelined``,
+  ``p_noweight``: the contraction's probe modes
+  (``probes/rot_experiments.py``) on the ``r_contract`` cell's inputs,
+  plan and angle, each checked against its plain version within one bf16
+  ulp (noweight's two forms bit for bit, ``torch.equal``); with
+  ``--repo`` a parent checkout's probes (before this repo's tiled
+  probes: the direct form) in the same call; ``p_direct_noweight``
+  (noweight's first form) and ``p_contract_tiled_unmasked`` (the route's
+  tiled kernel on the live rectangle, noweight's yardstick): a parent has
+  no such cells, leave them out with ``--repo``;
 * ``c_4k``, ``c_rot2048``, ``c_rgb1024``, ``c_regrid``: the copy probe
   (``csrc/probes.cu``) at ``chip_smoke.py``'s four copy geometries, 8
   frames each but rgb1024's 24 (its ring: variants ``cstage3``,
@@ -141,6 +153,37 @@ STAGE_MIN = r"return P == kRingStage \|\| P == kRingWords \? 4 : sizeof\(Tin\) <
 STAGE_MIN_REST = "P == kRingStage || P == kRingWords ? 4 : sizeof(Tin) < 4 ? 3 : 2;"
 # ... and the element sizes whose y pass shifts its registers (f32)
 SHIFT_REUSE = r"return sizeof\(Tin\) == 4;"
+# ... and the xonly ring's (kRingX) blocks an SM
+XRING_MIN = r"if \(P == kRingX\) return 3;"
+# ... and its column loop, where each column reads its kx taps; the
+# variant xrreuse reads each source column of a lane's group once, a
+# column taking the taps it shares with the one before from registers
+# (selects), only the new ones read (the design first built: slower)
+XR_TAPS = (r"    float acc\[4\];\n#pragma unroll\n    for \(int k = 0; k < 4; \+\+k\) "
+           r"\{\n      float v\[n\];\n#pragma unroll\n      for \(int b = 0; b < n; "
+           r"\+\+b\) \{\n        const int c = [^\n]*\n        v\[b\] = [^\n]*\n      \}\n")
+XR_REUSE = """    float acc[4];
+    float v[n] = {};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int dk = k > 0 ? x0[k] - x0[k - 1] : n;
+      const int sk = dk >= 0 && dk < d.kx ? dk : n;
+#pragma unroll
+      for (int b = 0; b < n; ++b) {
+        float u = v[b];
+        if (b + 1 < n) u = sk == 1 ? v[b + 1] : u;
+        if (b + 2 < n) u = sk == 2 ? v[b + 2] : u;
+        if (b + 3 < n) u = sk == 3 ? v[b + 3] : u;
+        v[b] = u;
+      }
+#pragma unroll
+      for (int b = 0; b < n; ++b) {
+        if (b < d.kx && b + sk >= d.kx) {
+          const int c = min(max(x0[k] + b, t.xa), t.xb - 1) - t.xa;
+          v[b] = to_f32(*reinterpret_cast<const T*>(row + c * ei));
+        }
+      }
+"""
 # the r_* cells' angle (``--set 'sweep.ROT_ANGLE=30.2'``): T's width, and
 # so the alignment of its rows, moves with it
 ROT_ANGLE = 30.0
@@ -330,6 +373,17 @@ VARIANTS = {
                                    + STAGE_MIN_REST)]},
     "prmin5": {"band_apply.cuh": [(STAGE_MIN, "return P == kRingPair ? 5 : "
                                    + STAGE_MIN_REST)]},
+    # the ring's xonly: each source column of a group read once (the
+    # shift from the column before), at 3 or 4 blocks an SM; its
+    # registers capped for 2, 4 or 5 blocks an SM (not 3); no stores
+    "xrreuse": {"band_apply.cuh": [(XR_TAPS, XR_REUSE)]},
+    "xrreuse4": {"band_apply.cuh": [(XR_TAPS, XR_REUSE),
+                                    (XRING_MIN, "if (P == kRingX) return 4;")]},
+    "xrmin2": {"band_apply.cuh": [(XRING_MIN, "if (P == kRingX) return 2;")]},
+    "xrmin4": {"band_apply.cuh": [(XRING_MIN, "if (P == kRingX) return 4;")]},
+    "xrmin5": {"band_apply.cuh": [(XRING_MIN, "if (P == kRingX) return 5;")]},
+    "xrnostore": {"band_apply.cuh": [
+        (r"ring_x_store\(out \+ [^;]*;", "if (acc[0] == -1.0f) out[0] = acc[1];")]},
     # the walk probe (band_walk_kernel) without one phase: its consumers'
     # y pass, x pass or stores, or its producer's bulk copies (the expected
     # bytes 0: the passes read stale windows)
@@ -550,6 +604,7 @@ EXACT = ("cur", "lane8", "t256", "t128", "tilemajor",   # variants that
          "copyunits", "copyhint", "ctscalar", "ctgroup4", "ctgroup8",
          "cchunk", "ctmin1", "ctmin4", "ctmin8", "pipemin2", "stcols2", "stnoreuse", "streuse", "stmin1",
          "wdbytes", "wdmin3", "prmin4", "prmin5", "wdfunnel", "wdunroll2",
+         "xrreuse", "xrreuse4", "xrmin2", "xrmin4", "xrmin5",
          "pipemin4", "pipestage64", "pipestage96")
 
 
@@ -741,6 +796,13 @@ def make_cells(dev):
     for mode in ("u8words", "xpair"):
         cells[f"b_{mode}"] = b_cell(mode, torch.uint8)
         cells[f"b_direct_{mode}"] = b_cell(f"{mode}_direct", torch.uint8)
+    # xonly at rgb1024 on the y pass's output, (24, 410, 1024) (the stage
+    # ring; a parent's first form), and its first form
+    for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        cells[f"b_rgb_xonly_{name}"] = b_cell("xonly", dt, t_rgb, "rgbtmp",
+                                              (24, 410, 1024))
+        cells[f"b_rgb_direct_xonly_{name}"] = b_cell(
+            "xonly_direct", dt, t_rgb, "rgbtmp", (24, 410, 1024))
     cells["k2q_f32"] = k2_cell("q", torch.float32)
     cells["k2_direct"] = k2_cell("wide", torch.float32, (8, 480, 480))
     cells["k2_thumb"] = k2_cell("thumb", torch.bfloat16, (8, 2160, 3840))
@@ -837,14 +899,29 @@ def make_cells(dev):
         def prepare():
             summary = prepare_c()[2]     # the plan, re-planned under --set
             plan = rot_plan()
+            if mode == "contract_tiled_unmasked":
+                return (lambda x: rot_experiments
+                        .contract_tiled_unmasked_kernel(x, plan),
+                        lambda x: rot_experiments
+                        .contract_tiled_unmasked_plain(x, plan),
+                        {"mode": mode, **summary})
             return (lambda x: rot_experiments.contract_probe_kernel(
                         x, plan, mode),
                     lambda x: rot_experiments.contract_probe_plain(
                         x, plan, mode), {"mode": mode, **summary})
-        return prepare, inputs, tol
+        # this repo's noweight forms (NOWEIGHT): each tap one f32 add in
+        # the plain version's order, so bit-equal (tolerance 0:
+        # torch.equal); a parent's noweight, before NOWEIGHT, was held
+        # within one bf16 ulp of its sums, which reach 25: 0.125
+        nw = getattr(rot_experiments, "NOWEIGHT", None)
+        if nw is not None and mode in nw:
+            return prepare, inputs, 0.0
+        return prepare, inputs, 0.125 if mode == "noweight" else tol
 
-    for mode in ("tshare", "wshare", "bothshare", "pipelined"):
+    for mode in ("tshare", "wshare", "bothshare", "pipelined", "noweight",
+                 "contract_tiled_unmasked"):
         cells[f"p_{mode}"] = p_cell(mode)
+    cells["p_direct_noweight"] = p_cell("noweight_direct")
 
     def c_cell(H, W, ty, dtype, nf):
         from aainterp_torch.probes import copy_ceiling

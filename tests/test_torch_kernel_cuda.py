@@ -43,8 +43,10 @@ its plain version on finite T, into NaN-filled outputs, with ragged spans,
 empty rows and F > 8; on NaN T it writes 0 outside every span.  The
 contraction's probes (``csrc/probes.cu``) into NaN-filled outputs, F 3
 and 11, bf16 and f32, with T's rows 16-byte aligned and not: noweight
-and the tiled share probes within f32 atol 1e-6 (bf16: one bf16 ulp) of
-their plain versions, the pipelined form bit-equal to the route's tiled
+(tiled, on the live rectangle's table) and its first form noweight_direct
+bit-equal to their plain version (JAX's zeros off the rectangle) and to
+each other, also at a plan of 4 x 32 tiles and F 13; the tiled share
+probes within f32 atol 1e-6 (bf16: one bf16 ulp) of their plain versions, the pipelined form bit-equal to the route's tiled
 contraction, and a plan without tiles raising for every tiled probe.  The copy
 probe split over blocks (8 x 1024^2, odd widths) and kernel 1's probe
 modes (``csrc/band_probes.cu``) bit-equal to their plain versions, into
@@ -54,7 +56,10 @@ and stagey beside the stage ring; the walk's and the ring's persistent
 grids against their tile counts; the stage ring at every ring depth that
 fits (rgb1024's ratio 2.5, one row tile, upsampling, a 22-tap band); a
 walk ring, a stage ring or u8 chunk buffers beyond the opt-in raising
-before any launch.  rgb1024's x-only mode (``xonly``) and
+before any launch.  rgb1024's x-only mode (``xonly``, on the stage ring,
+and its first form ``xonly_direct``, bit-equal to each other, also at
+widths 1023 and 998, one row tile and F 13; a band wider than the ring's
+registers refused before any launch) and
 the fused aligned regrid (``csrc/aligned_fused.cu``) bit-equal to their
 plain versions into NaN-filled outputs: rgb1024, a ragged strip, one
 row tile and an upsampling plan; config 5, ``c0`` offsets on odd widths and a dst row
@@ -1342,12 +1347,54 @@ def test_contract_probes_match_plain(cuda, args, dtype, frames):
             continue
         ref = rot_experiments.contract_probe_plain(t, plan, mode,
                                                    out_dtype=torch.float32)
+        if mode in rot_experiments.NOWEIGHT:
+            assert torch.equal(got, ref.to(dtype)), mode
+            continue
         err = (got.double() - ref.double()).abs()
         if dtype == torch.float32:
             assert err.max().item() <= 1e-6, mode
         else:
             assert (err <= _bf16_ulp(ref)).all(), mode
     assert dict(cuda_shear.LAUNCHES) == shear_before
+
+
+# noweight's plans: a one-row-tile plan of 4 x 32 tiles (8 x 8 taps),
+# T's rows unaligned at 30.2 degrees, the rotated flagship's geometry at
+# 1024^2
+NOWEIGHT_GEOMS = [((40, 120), 150.0, 25.4, (60.0, 20.0), 1.5, "exact"),
+                  PROBE_GEOMS[2], PROBE_GEOMS[3]]
+
+
+@pytest.mark.parametrize("frames", [1, 13])
+@pytest.mark.parametrize("args", NOWEIGHT_GEOMS,
+                         ids=["4x32-tiles", "unaligned", "1024"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_noweight_tiled_equals_first_form_and_plain(cuda, args, dtype,
+                                                    frames):
+    # F 13: a second frame group of 5 (the kernel's 8 frames a group)
+    from aainterp_torch.probes import rot_experiments
+
+    _, plan = _rot_plan(args)
+    t = _frames((frames, plan.TH, plan.TW), dtype, cuda, seed=11)
+    tiles = rot_experiments.noweight_tiles(plan, t.element_size())
+    plain = rot_experiments.contract_probe_plain(t, plan, "noweight")
+    outs = {}
+    for mode in rot_experiments.NOWEIGHT:
+        buf = torch.full(plain.shape, float("nan"), dtype=dtype, device=cuda)
+        outs[mode] = rot_experiments.contract_probe_kernel(t, plan, mode,
+                                                           out=buf)
+    torch.cuda.synchronize()
+    assert torch.equal(outs["noweight"], plain)
+    assert torch.equal(outs["noweight_direct"], plain)
+    assert (tiles.win[:, 2] > 0).any() and (plain != 0).any()
+    # the tiled yardstick on the same table: the route's kernel, the
+    # weighted contraction on the live rectangle
+    n = cuda_shear.LAUNCHES["contract"]
+    got = rot_experiments.contract_tiled_unmasked_kernel(t, plan)
+    torch.cuda.synchronize()
+    assert cuda_shear.LAUNCHES["contract"] == n + 1
+    assert torch.equal(got, rot_experiments.contract_tiled_unmasked_plain(
+        t, plan))
 
 
 def test_contract_probe_rejects_what_it_cannot_take(cuda):
@@ -1359,6 +1406,7 @@ def test_contract_probe_rejects_what_it_cannot_take(cuda):
         rot_experiments.contract_probe_kernel(t.double(), plan, "noweight")
     with pytest.raises(ValueError, match="probe mode"):
         rot_experiments.contract_probe_kernel(t, plan, "none")
+    n_contract = cuda_shear.LAUNCHES["contract"]
     # a plan without tiles: every tiled probe raises, launching nothing
     bare = dataclasses.replace(plan, tiles={"contract2": None,
                                             "contract4": None})
@@ -1366,7 +1414,32 @@ def test_contract_probe_rejects_what_it_cannot_take(cuda):
     for mode in TILED_PROBES:
         with pytest.raises(RuntimeError, match=f"contract probe {mode}"):
             rot_experiments.contract_probe_kernel(t, bare, mode)
+    # noweight's own tiles that do not fit: it raises, naming itself, and
+    # never takes its first form; nor does its tiled yardstick take the
+    # direct form
+    tight = dataclasses.replace(plan, tiles={}, dev={})
+    import aainterp_torch.ops.cuda_shear as cs
+    budget, limit = cs.CONTRACT_SMEM_BUDGET, cs.SMEM_LIMIT
+    cs.CONTRACT_SMEM_BUDGET = cs.SMEM_LIMIT = 0
+    try:
+        for fn in (lambda: rot_experiments.contract_probe_kernel(
+                       t, tight, "noweight"),
+                   lambda: rot_experiments.contract_tiled_unmasked_kernel(
+                       t, tight)):
+            with pytest.raises(RuntimeError, match="contract probe noweight"):
+                fn()
+    finally:
+        cs.CONTRACT_SMEM_BUDGET, cs.SMEM_LIMIT = budget, limit
+    # live columns that are not one range: both noweight modes refuse
+    cols = np.flatnonzero((plan.w2 != 0).any(axis=(0, 1)))
+    w2 = plan.w2.copy()
+    w2[:, :, cols[len(cols) // 2]] = 0
+    gap = dataclasses.replace(plan, w2=w2, tiles={}, dev={})
+    for mode in ("noweight", "noweight_direct"):
+        with pytest.raises(ValueError, match="not one range"):
+            rot_experiments.contract_probe_kernel(t, gap, mode)
     assert dict(rot_experiments.LAUNCHES) == before
+    assert cuda_shear.LAUNCHES["contract"] == n_contract
 
 
 # ---------------------------------------------------------------------------
@@ -1602,8 +1675,11 @@ def test_band_probes_reject_what_they_cannot_take(cuda, monkeypatch):
     assert band_probes._plan(tables)["TY"] == 16
     n = dict(band_probes.LAUNCHES)
     for mode in band_probes.RING_MODES:
+        # xonly's input: the y pass's output, float
+        inp = (_frames((1, 120, 512), torch.float32, cuda)
+               if mode == "xonly" else u8s)
         with pytest.raises(ValueError, match="at most 8 rows"):
-            band_probes.band_probe_kernel(u8s, tables, mode)
+            band_probes.band_probe_kernel(inp, tables, mode)
     assert band_probes.LAUNCHES == n
     # a ring or chunk buffers beyond the card's opt-in: a ValueError that
     # names the mode and the bytes, before any launch.  At 20:1 (SY 162)
@@ -1664,21 +1740,58 @@ def test_x_probes_match_plain(cuda, geom, dtype):
     x = _frames((3,) + shape, dtype, cuda, seed=5)
     tmp = _frames((3, Hd, shape[1]), dtype, cuda, seed=6)
     before = cuda_apply.LAUNCHES
-    for mode, inp in (("xonly", tmp), ("densex", x)):
+    for mode, inp in (("xonly", tmp), ("xonly_direct", tmp), ("densex", x)):
         n = band_probes.LAUNCHES[mode]
         buf = _ff((3, Hd, Wd), dtype, cuda)
         got = band_probes.band_probe_kernel(inp, tables, mode, out=buf)
         torch.cuda.synchronize()
         assert got is buf and band_probes.LAUNCHES[mode] == n + 1
         plain = band_probes.band_probe_plain(inp, tables, mode)
-        if mode == "xonly":
-            assert torch.equal(got, plain)
+        if mode.startswith("xonly"):
+            assert torch.equal(got, plain), mode
     assert cuda_apply.LAUNCHES == before
     # densex: the tensor cores' sums against the f32 statement, and in f32
     # against production's (the statement's extra products are exact zeros)
     _densex_close(got, plain)
     if dtype == torch.float32:
         _densex_close(got, cuda_apply.apply_separable_kernel(x, *tables))
+
+
+# the xonly ring at odd widths (W 1023 and 998 at rgb1024's ratio: rows of
+# no 4-byte multiple in bf16, Wd 410 and 400 of no 8-byte one), one row
+# tile (Hd 6) and F 1 and 13 (rgb1024's 2 strips x 52 row tiles x 13 is
+# no multiple of the persistent grid)
+XONLY_GEOMS = [((1024, 1023), 150.0, 60.0), ((64, 998), 150.0, 60.0),
+               ((15, 1024), 150.0, 60.0), ((1024, 1024), 150.0, 60.0)]
+
+
+@pytest.mark.parametrize("F", [1, 13])
+@pytest.mark.parametrize("geom", XONLY_GEOMS,
+                         ids=["w1023", "w998", "one-row-tile", "rgb1024"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_xonly_ring_equals_first_form_and_plain(cuda, geom, dtype, F):
+    from aainterp_torch.probes import band_probes
+
+    shape, sr, dr = geom
+    tables = band_probes.flagship_tables(shape, sr, dr)
+    plan = band_probes._plan(tables)
+    Hd, Wd = len(tables[0]), len(tables[2])
+    tmp = _frames((F, Hd, shape[1]), dtype, cuda, seed=13)
+    plain = band_probes.band_probe_plain(tmp, tables, "xonly")
+    got = {}
+    for mode in ("xonly", "xonly_direct"):
+        got[mode] = band_probes.band_probe_kernel(
+            tmp, tables, mode, out=_ff((F, Hd, Wd), dtype, cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got["xonly"], plain)
+    assert torch.equal(got["xonly_direct"], plain)
+    g = band_probes.stage_grid(tmp, tables, "xonly")
+    assert g["smem"] == band_probes.smem_bytes(plan, "xonly", shape[1], Wd,
+                                               tables[1].shape[1], tmp
+                                               .element_size())
+    tiles = F * -(-Wd // plan["TX"]) * -(-Hd // plan["TY"])
+    assert g["tiles"] == tiles and g["grid"] == min(
+        tiles, g["sms"] * g["blocks_per_sm"])
 
 
 @pytest.mark.parametrize("case", [((1200, 512), 40.0, 1.0),
@@ -1728,6 +1841,19 @@ def test_x_probes_reject_what_they_cannot_take(cuda):
         band_probes.band_probe_kernel(x.to(torch.uint8), tables, "densex")
     with pytest.raises(ValueError, match="contiguous"):
         band_probes.band_probe_kernel(x.transpose(1, 2), tables, "densex")
+    # the xonly ring holds 4 x taps a column in registers: 22-tap bands
+    # raise before any launch, naming it; its first form takes them
+    t20 = band_probes.flagship_tables((40, 960), 20.0, 1.0)
+    tmp = _frames((1, len(t20[0]), 960), torch.float32, cuda)
+    n = dict(band_probes.LAUNCHES)
+    with pytest.raises(ValueError, match="'xonly' takes x bands of at most"):
+        band_probes.band_probe_kernel(tmp, t20, "xonly")
+    with pytest.raises(ValueError, match="y pass's output"):
+        band_probes.band_probe_kernel(x, tables, "xonly_direct")
+    assert band_probes.LAUNCHES == n
+    got = band_probes.band_probe_kernel(tmp, t20, "xonly_direct")
+    torch.cuda.synchronize()
+    assert torch.equal(got, band_probes.band_probe_plain(tmp, t20, "xonly"))
     # a width that the old form's shared memory refused (T held whole
     # rows) now computes: K walks the 12,000 columns in chunks
     wide = band_probes.flagship_tables((8, 12000), 2.0, 1.0)

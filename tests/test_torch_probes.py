@@ -18,10 +18,16 @@ package's probes under ``benchmarks/``, on the CPU.
   interpret-mode Pallas), bf16 within one bf16 ulp of each other (both
   round an f32 sum).  JAX's noweight selects no tap of a dst row or column
   whose weights are all 0 (its one-hot selectors are built on the live
-  rows and columns only) and writes 0 there; the port's sums the window
-  there too, so the comparison is on the live rows and columns, and JAX's
-  zeros are checked on the rest.  The shares off (JAX's masked
-  contraction) are held against the port's production contraction.
+  rows and columns only) and writes 0 there; so do the port's, both
+  noweight (tiled) and noweight_direct, so the comparison is on every
+  pixel.  The shares off (JAX's masked contraction) are held against the
+  port's production contraction.
+* noweight's own plan (``noweight_plan``): its span is the live
+  rectangle, its tile table holds every tap of every pixel there and has
+  no live tile off it, a plan whose live columns are not one range
+  raises ``ValueError`` naming noweight, and its tiled yardstick
+  (``contract_tiled_unmasked``) is the weighted contraction on the
+  rectangle.
 * The tiled probes against their definitions (the route's tiled
   contraction with one stream pinned; 0 outside each dst row's live span,
   as JAX's share probes skip dead tiles): pipelined is the tiled
@@ -30,8 +36,9 @@ package's probes under ``benchmarks/``, on the CPU.
   window's rows and columns; wshare is the tiled contraction on the
   shared tile's own pixels, and everywhere on a plan with one live tile;
   every mode is within 1e-5 of a float64 numpy statement of it, tile by
-  tile (noweight, unmasked, 2e-5); the plain versions launch nothing; a
-  plan without tiles makes every tiled mode raise, naming it.
+  tile (noweight on the live rectangle, 2e-5); the plain versions launch
+  nothing; a plan without tiles makes every share and pipelined mode
+  raise, naming it.
 * The entry points: each ``EXPS`` function and ``copy_ceiling.measure``
   with ``device="cpu"`` at a small shape (the plain versions on the
   host's clock, ``clock == "host"``), no kernel launched; without a GPU
@@ -226,17 +233,18 @@ def test_noweight_matches_jax(jprobes, geom, dtype):
     j = _jax_inputs(case, t, dtype)
     fn = j_rot._build_contract_noweight(F, *_dims(case.kp), j["dname"], True)
     want = _crop(case, fn(j["r0"], j["c0"], j["t"], j["rsel"], j["csel"]))
-    got = rot_experiments.contract_probe_kernel(t, case.plan, "noweight")
-    assert got.dtype == dtype
-    got = got.float().numpy()
     live = case.live_rows[:, None] & case.live_cols[None, :]
-    assert live.any()
-    assert (want[:, ~live] == 0).all()
-    if dtype == torch.float32:
-        np.testing.assert_allclose(got[:, live], want[:, live], rtol=0,
-                                   atol=2e-5)
-    else:
-        assert_within_bf16_ulp(got[:, live], want[:, live])
+    assert live.any() and (want[:, ~live] == 0).all()
+    for mode in rot_experiments.NOWEIGHT:
+        got = rot_experiments.contract_probe_kernel(t, case.plan, mode)
+        assert got.dtype == dtype
+        # every pixel, JAX's zeros included
+        got = got.float().numpy()
+        assert (got[:, ~live] == 0).all()
+        if dtype == torch.float32:
+            np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
+        else:
+            assert_within_bf16_ulp(got, want)
 
 
 @pytest.mark.parametrize("probe", ["pipelined", "shares_off"])
@@ -278,8 +286,9 @@ def _elem(dtype) -> int:
 
 
 def _formula(t: np.ndarray, plan, mode: str, elem: int) -> np.ndarray:
-    """float64 numpy statement of a probe mode.  noweight: the unmasked
-    sums of the T windows.  The tiled modes, tile by tile on the route's
+    """float64 numpy statement of a probe mode.  noweight (and its first
+    form): the sums of the T windows on the live rows and columns (those
+    whose weights are not all 0), 0 elsewhere.  The tiled modes, tile by tile on the route's
     table for ``elem``-byte frames: each in-span pixel of a live tile sums
     its taps from its tile's window at window-local indices, the window
     taken from frame 0 at T's origin (tshare, bothshare), the weights
@@ -289,12 +298,15 @@ def _formula(t: np.ndarray, plan, mode: str, elem: int) -> np.ndarray:
     w2 = plan.w2.astype(np.float64)
     Ka, Kb, Hd, Wd = plan.Ka, plan.Kb, plan.Hd, plan.Wd
     out = np.zeros((tn.shape[0], Hd, Wd))
-    if mode == "noweight":
+    if mode in rot_experiments.NOWEIGHT:
         for a in range(Ka):
             for b in range(Kb):
                 rows = np.clip(plan.ry0 + a, 0, plan.TH - 1)
                 cols = np.clip(plan.cx0 + b, 0, plan.TW - 1)
                 out += tn[:, rows][:, :, cols]
+        live = plan.w2 != 0
+        out[:, ~(live.any(axis=(0, 2))[:, None]
+                 & live.any(axis=(0, 1))[None, :])] = 0
         return out
     share_t = mode in ("tshare", "bothshare")
     share_w = mode in ("wshare", "bothshare")
@@ -366,7 +378,8 @@ def test_probe_modes_match_float64_statement(geom, dtype, mode):
                                                out_dtype=torch.float32)
     want = _formula(t.float().numpy(), plan, mode, _elem(dtype))
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
-                               atol=2e-5 if mode == "noweight" else 1e-5)
+                               atol=2e-5 if mode in rot_experiments.NOWEIGHT
+                               else 1e-5)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
@@ -512,7 +525,23 @@ def test_traffic_counts_what_each_mode_reads():
     masked = (t_lb + w_lb + o_b + idx + sp, 2 * live_taps)
     assert tr(p, F, e, "contract_masked") == masked
     assert tr(p, F, e, "pipelined") == masked
-    assert tr(p, F, e, "noweight") == (t_b + o_b + idx, taps)
+    # noweight and its tiled yardstick: the live rectangle's pixels and
+    # the T elements their windows touch (brute force)
+    live_r = (p.w2 != 0).any(axis=(0, 2))
+    live_c = (p.w2 != 0).any(axis=(0, 1))
+    rect = live_r[:, None] & live_c[None, :]
+    assert rect.sum() > n_live
+    t_nw = np.zeros((p.TH, p.TW), bool)
+    for dy, dx in zip(*np.nonzero(rect)):
+        t_nw[np.ix_(np.clip(p.ry0[dy] + np.arange(p.Ka), 0, p.TH - 1),
+                    np.clip(p.cx0[dx] + np.arange(p.Kb), 0, p.TW - 1))] = True
+    nw = F * int(t_nw.sum()) * e + o_b + idx + sp
+    n_rect = int(rect.sum())
+    for mode in rot_experiments.NOWEIGHT:
+        assert tr(p, F, e, mode) == (nw, F * n_rect * p.Ka * p.Kb)
+    assert tr(p, F, e, "contract_tiled_unmasked") == (
+        nw + p.Ka * p.Kb * n_rect * 4, 2 * F * n_rect * p.Ka * p.Kb)
+    assert t_nw.sum() < p.TH * p.TW
     # a shared T: frame 0's largest window, once; shared weights: one
     # tile's
     win = p.contract_plan(e).win
@@ -524,6 +553,151 @@ def test_traffic_counts_what_each_mode_reads():
                                      2 * live_taps)
     assert tr(p, F, e, "bothshare") == (t_win + w_tile + o_b + idx + sp,
                                         2 * live_taps)
+
+
+# ---------------------------------------------------------------------------
+# noweight's plan: the live rectangle, its tiles, its yardstick
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("elem", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("geom", GEOMS, ids=GIDS)
+def test_noweight_tiles_cover_the_live_rectangle(geom, elem):
+    case = _case(geom)
+    plan = case.plan
+    span = rot_experiments.noweight_span(plan)
+    cols = np.flatnonzero(case.live_cols)
+    # the live rectangle: the live columns on each live row, (0, 0) on
+    # every other row
+    assert span.dtype == np.int32 and span.shape == (plan.Hd, 2)
+    assert (span[case.live_rows] == (cols[0], cols[-1] + 1)).all()
+    assert (span[~case.live_rows] == 0).all()
+    assert (case.live_cols[cols[0]:cols[-1] + 1]).all()
+    nw = rot_experiments.noweight_plan(plan)
+    assert nw is rot_experiments.noweight_plan(plan)   # made once a plan
+    assert np.array_equal(nw.span, span) and nw.w2 is plan.w2
+    # kept by the probe, not in the route's tile cache
+    assert all(v is not nw for v in plan.tiles.values())
+    assert nw.base is plan and nw.with_span(span).base is plan
+    tiles = rot_experiments.noweight_tiles(plan, elem)
+    assert (tiles.TYd, tiles.TXd) == (8, 32)            # the route's first
+    assert tiles.smem(elem) <= cuda_shear.CONTRACT_SMEM_BUDGET
+    # brute force: every pixel of the rectangle has its taps inside its
+    # tile's window; a tile with no pixel of it is dead
+    n_tx = -(-plan.Wd // tiles.TXd)
+    rect = case.live_rows[:, None] & case.live_cols[None, :]
+    for i, (r0, c0, rows, ncols) in enumerate(tiles.win.tolist()):
+        y0, x0 = i // n_tx * tiles.TYd, i % n_tx * tiles.TXd
+        mine = rect[y0:y0 + tiles.TYd, x0:x0 + tiles.TXd]
+        assert (rows > 0) == mine.any()
+        for py, px in zip(*np.nonzero(mine)):
+            dy, dx = y0 + py, x0 + px
+            r = np.clip(plan.ry0[dy] + np.arange(plan.Ka), 0, plan.TH - 1)
+            c = np.clip(plan.cx0[dx] + np.arange(plan.Kb), 0, plan.TW - 1)
+            assert r0 <= r.min() and r.max() < r0 + rows
+            assert c0 <= c.min() and c.max() < c0 + ncols
+    # more live tiles than the route's, whose span skips dead pixels
+    route = plan.contract_plan(elem)
+    assert (tiles.win[:, 2] > 0).sum() >= (route.win[:, 2] > 0).sum()
+
+
+def test_noweight_rejects_live_columns_that_are_not_one_range():
+    # a dst column whose weights are all 0 between live ones: no span
+    # table holds JAX's zeros there, so both modes raise, naming noweight
+    plan = _case(GEOMS[0]).plan
+    cols = np.flatnonzero((plan.w2 != 0).any(axis=(0, 1)))
+    w2 = plan.w2.copy()
+    w2[:, :, cols[len(cols) // 2]] = 0
+    gap = dataclasses.replace(plan, w2=w2, tiles={}, dev={})
+    t = _t(plan, torch.float32)
+    with pytest.raises(ValueError, match="contract probe noweight: the "
+                       "live dst columns are not one range"):
+        rot_experiments.noweight_span(gap)
+    for mode in rot_experiments.NOWEIGHT:
+        for fn in (rot_experiments.contract_probe_plain,
+                   rot_experiments.contract_probe_kernel):
+            with pytest.raises(ValueError, match="noweight"):
+                fn(t, gap, mode)
+    with pytest.raises(ValueError, match="noweight"):
+        rot_experiments.traffic(gap, F, 4, "noweight")
+    # the rest of the plan's probes are untouched by it: wshare still
+    # gives its float64 statement on the plan with the gap
+    np.testing.assert_allclose(
+        rot_experiments.contract_probe_kernel(t, gap, "wshare").numpy(),
+        _formula(t.numpy(), gap, "wshare", 4), rtol=0, atol=1e-5)
+
+
+def test_noweight_without_fitting_tiles_names_it(monkeypatch):
+    plan = dataclasses.replace(_case(GEOMS[0]).plan, tiles={}, dev={})
+    monkeypatch.setattr(cuda_shear, "CONTRACT_SMEM_BUDGET", 0)
+    monkeypatch.setattr(cuda_shear, "SMEM_LIMIT", 0)
+    with pytest.raises(RuntimeError, match="contract probe noweight: the "
+                       "live rectangle's windows do not fit"):
+        rot_experiments.noweight_tiles(plan, 2)
+
+
+@pytest.mark.parametrize("frames", [3, 11])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("geom", GEOMS, ids=GIDS)
+def test_noweight_direct_is_the_tiled_function(geom, dtype, frames):
+    plan = _case(geom).plan
+    t = _t(plan, dtype, seed=7, frames=frames)
+    want = rot_experiments.contract_probe_plain(t, plan, "noweight")
+    buf = torch.full(want.shape, float("nan"), dtype=dtype)
+    got = rot_experiments.contract_probe_kernel(t, plan, "noweight_direct",
+                                                out=buf)
+    assert got is buf and torch.equal(got, want)
+    assert torch.equal(rot_experiments.contract_probe_plain(
+        t, plan, "noweight_direct"), want)
+    # the weights dropped: a sum of 25 values in [0, 1], 0 off the
+    # rectangle, nonzero on it
+    inside = cuda_shear.live_mask(rot_experiments.noweight_plan(plan),
+                                  t.device)
+    assert (want[:, ~inside] == 0).all() and (want[:, inside] > 0).all()
+    assert want.float().max() <= plan.Ka * plan.Kb
+
+
+@pytest.mark.parametrize("elem", [2, 4], ids=["bf16", "f32"])
+def test_noweight_windows_are_its_own_after_the_routes(elem):
+    # the route's tile windows uploaded first (its contraction ran on the
+    # device): noweight's device tables (with_span) take the plan's
+    # arrays alone, so its windows are its own table's, not the route's
+    plan = dataclasses.replace(_case(GEOMS[1]).plan, tiles={}, dev={})
+    route = plan.contract_windows(elem, "cpu")
+    nw = rot_experiments.noweight_plan(plan, "cpu")
+    assert set(nw.tables("cpu")) == set(cuda_shear._PLAN_ARRAYS)
+    own = nw.contract_windows(elem, "cpu")
+    want = rot_experiments.noweight_tiles(plan, elem).win
+    assert np.array_equal(own.numpy(), want)
+    assert not np.array_equal(route.numpy(), want)
+    assert np.array_equal(plan.contract_windows(elem, "cpu").numpy(),
+                          plan.contract_plan(elem).win)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("geom", GEOMS, ids=GIDS)
+def test_contract_tiled_unmasked_is_the_contraction_on_the_rectangle(
+        geom, dtype):
+    plan = _case(geom).plan
+    t = _t(plan, dtype, seed=8, frames=3)
+    got = rot_experiments.contract_tiled_unmasked_kernel(t, plan)
+    nw = rot_experiments.noweight_plan(plan, t.device)
+    # the device tables are the plan's but for the span: the weights are
+    # not uploaded again
+    assert nw.tables(t.device)["w2"] is plan.tables(t.device)["w2"]
+    assert np.array_equal(nw.tables(t.device)["span"].numpy(), nw.span)
+    # unmasked contraction on the live rectangle, 0 off it, bit for bit
+    full = cuda_shear.contract_plain(t, plan, masked=False, fused=True)
+    inside = cuda_shear.live_mask(nw, t.device)
+    assert torch.equal(got, torch.where(inside, full, torch.zeros((),
+                                                                  dtype=dtype)))
+    # the tiled plain version on noweight's table agrees, and the route's
+    # masked contraction is the same on every in-span pixel
+    assert torch.equal(got, cuda_shear.contract_tiled_plain(
+        t, nw, rot_experiments.noweight_tiles(plan, t.element_size())))
+    masked = cuda_shear.live_mask(plan, t.device)
+    assert torch.equal(got[:, masked], cuda_shear.contract_plain(
+        t, plan, fused=True)[:, masked])
 
 
 # ---------------------------------------------------------------------------

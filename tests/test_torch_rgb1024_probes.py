@@ -13,7 +13,8 @@ same geometry on kernel 1's own tables; on a CPU tensor the wrapper takes
 them.
 
 * ``ypass`` against the port's ``stagey`` at JAX's columns ``xs[j]``,
-  ``xonly`` on ``[:Hd, :Wd]`` with the same ``tmp[:Hd]``, ``fulldense``
+  ``xonly`` (the stage ring) and ``xonly_direct`` (its first form) on
+  ``[:Hd, :Wd]`` with the same ``tmp[:Hd]``, ``fulldense``
   against ``densex`` on ``[:Hd, :Wd]``: f32 atol 1e-5 on [0, 1] inputs (the
   TPU probes sum through matrix products in another order), bf16 within
   one bf16 ulp.
@@ -26,7 +27,7 @@ them.
   geometry and at one 1024^2 frame, while one bf16 pass misses the f32
   tolerance by more than 10 x; the packed operator unpacks to the table.
 * The byte and operation counts, the plans and their shared memory at
-  1024^2, the entry points with ``device="cpu"`` (no launch, the host's
+  1024^2 (the xonly ring's windows of TY rows and its x table), the entry points with ``device="cpu"`` (no launch, the host's
   clock) and, without a GPU, the default device raising.
 """
 
@@ -169,10 +170,12 @@ def test_xonly_matches_build_xonly(jrgb, dtype):
                       jnp.asarray(col_base), _jx(tmp),
                       jnp.asarray(wx_b))[:, :HD, :WD]
     before = dict(band_probes.LAUNCHES)
-    got = rgb.band_probe_kernel(tmp[:, :HD].contiguous(), _tables(), "xonly")
+    for mode in ("xonly", "xonly_direct"):
+        got = rgb.band_probe_kernel(tmp[:, :HD].contiguous(), _tables(),
+                                    mode)
+        assert got.dtype == dtype and got.shape == (F, HD, WD)
+        _close(got, want)
     assert dict(band_probes.LAUNCHES) == before
-    assert got.dtype == dtype and got.shape == (F, HD, WD)
-    _close(got, want)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
@@ -229,7 +232,8 @@ def test_x_modes_meet_their_definitions(shape, dtype):
     want = np.zeros((F, len(ys), len(xs)))
     for b in range(xw.shape[1]):
         want += xw[None, None, :, b] * t64[:, :, np.clip(xs + b, 0, W - 1)]
-    _close(band_probes.band_probe_plain(tmp, tables, "xonly"), want)
+    for mode in ("xonly", "xonly_direct"):
+        _close(band_probes.band_probe_plain(tmp, tables, mode), want)
     x = _x(dtype, (F,) + shape, 6)
     wxd = band_probes.dense_x_table(xs, xw, W)
     wxd = torch.from_numpy(wxd).to(dtype).double().numpy()   # as stored
@@ -371,10 +375,14 @@ def test_rgb1024_plans_and_shared_memory():
     plan = band_probes._plan(tables)
     assert (plan["TY"], plan["TX"], plan["SY"], plan["SX"]) == (8, 240, 21,
                                                                 600)
-    assert band_probes.window_rows(plan, "xonly") == 21
+    # the ring's xonly stages its tile's 8 rows alone; its first form
+    # production's window of SY rows
+    assert band_probes.window_rows(plan, "xonly") == 8
+    assert band_probes.window_rows(plan, "xonly_direct") == 21
     for elem, dense_smem in ((2, 64000), (4, 164352)):
-        # xonly: production's layout, as stagey's first form
-        assert band_probes.smem_bytes(plan, "xonly", 1024, 410, 4, elem) == \
+        # xonly_direct: production's layout, as stagey's first form
+        assert band_probes.smem_bytes(plan, "xonly_direct", 1024, 410, 4,
+                                      elem) == \
             band_probes.smem_bytes(plan, "stagey_direct", 1024, 410, 4, elem)
         # densex (csrc/dense_x.cu): 7 row tiles of 64 whose taps span 161
         # rows, 32 chunks of 32 columns; two stages of the chunk's operator
@@ -424,6 +432,64 @@ def test_stage_ring_shared_memory_at_rgb1024(elem):
     assert stagey == n * (window + 8 * 8 * 4 + 32 + 16) + 8 * 600 * 4 \
         + out_tile
     assert max(stage, stagey) <= band_probes.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("elem", [2, 4])
+def test_xonly_ring_geometry_at_rgb1024(elem):
+    # two windows of the tile's 8 rows of the y pass's output (each with
+    # its two mbarriers), no tap table, no T, no output tile; the x table
+    # once a block: 4 rows of weights and one of offsets, 410 columns
+    # rounded up to 412
+    tables = rgb.tables()
+    plan = band_probes._plan(tables)
+
+    def up16(v):
+        return -(-v // 16) * 16
+
+    pitch = band_probes._seg_pitch(600 * elem, 1024 * elem)
+    window = up16(32 + 8 * pitch)
+    ring = band_probes.smem_bytes(plan, "xonly", 1024, 410, 4, elem)
+    assert ring == 2 * (window + 16) + 5 * 412 * 4
+    # less than the first form's one window of 21 rows, T and an output
+    # tile, though it holds two windows: room for 4 blocks an SM or more
+    direct = band_probes.smem_bytes(plan, "xonly_direct", 1024, 410, 4,
+                                    elem)
+    assert ring < direct and 233472 // (ring + 1024) >= 4
+    assert "xonly" in band_probes.RING_MODES
+    assert "xonly_direct" in band_probes.DIRECT_MODES
+    assert band_probes.MODES["xonly_direct"] == 11
+
+
+@pytest.mark.parametrize("elem", [2, 4])
+def test_xonly_ring_geometry_at_an_upsampling_band(elem):
+    # 64 x 160 at 1 -> 2: 2-tap x bands, SY 5 under TY 8: the ring's
+    # windows still hold the tile's 8 rows of the y pass's output (its
+    # first form's, production's layout, SY rows raised to TY), the x
+    # table 2 rows of weights and one of offsets, 320 columns
+    tables = band_probes.flagship_tables((64, 160), 1.0, 2.0)
+    plan = band_probes._plan(tables)
+    assert plan["SY"] < plan["TY"] == 8 and tables[3].shape == (320, 2)
+    assert band_probes.window_rows(plan, "xonly") == 8
+    assert band_probes.window_rows(plan, "xonly_direct") == 8
+    pitch = band_probes._seg_pitch(plan["SX"] * elem, 160 * elem)
+    window = -(-(32 + 8 * pitch) // 16) * 16
+    assert band_probes.smem_bytes(plan, "xonly", 160, 320, 2, elem) == \
+        2 * (window + 16) + 3 * 320 * 4
+    assert plan["tables"][3].shape[1] <= band_probes.RING_X_TAPS
+
+
+def test_xonly_wide_x_bands_take_the_plain_function():
+    # 20:1 has 22-tap x bands, more than the ring's registers hold (on the
+    # card it refuses them before any launch, naming the mode); its first
+    # form and the plain version take them, and on the CPU both modes are
+    # the plain function
+    tables = band_probes.flagship_tables((40, 960), 20.0, 1.0)
+    tmp = _x(torch.float32, (1, len(tables[0]), 960), 9)
+    assert tables[3].shape[1] == 22 > band_probes.RING_X_TAPS
+    want = band_probes.band_probe_plain(tmp, tables, "xonly")
+    for mode in ("xonly", "xonly_direct"):
+        assert torch.equal(band_probes.band_probe_kernel(tmp, tables, mode),
+                           want)
 
 
 @pytest.mark.parametrize("F", [1, 24, 25])
@@ -517,6 +583,8 @@ def test_traffic_counts_what_each_mode_reads():
     assert tr("xonly", tables, (F24, 410, 1024), e) == (
         tmp + out + xs.nbytes + xw.nbytes + plan["col_base"].nbytes,
         2 * F24 * 410 * 410 * 4)
+    assert tr("xonly_direct", tables, (F24, 410, 1024), e) == \
+        tr("xonly", tables, (F24, 410, 1024), e)
     nbytes, ops = tr("densex", tables, (F24, 1024, 1024), e)
     # the frames, the output, the y tables, 7 row bases, the operator
     assert nbytes == frames + out + y_tab + 7 * 4 + 1024 * 410 * e
@@ -578,6 +646,7 @@ def test_experiments_run_on_cpu(exp):
         assert r["bytes"] == 2 * 3 * 256 * 256 * 4
     else:
         shape = (3, HD, SMALL[1]) if exp == "xonly" else (3,) + SMALL
+        assert exp != "xonly" or r["mode"] in band_probes.RING_MODES
         assert (r["bytes"], r["operations"]) == band_probes.traffic(
             r["mode"], _tables(), shape, 4)
 
