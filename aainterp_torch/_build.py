@@ -24,7 +24,8 @@ PyTorch headers), so each builds in seconds:
   kernel) through nvcc;
 * ``watchlist`` — ``csrc/watchlist.cu`` (the Mosaic watchlist's six
   probes on TMA, 1-D bulk copies with mbarriers and wgmma, from the
-  Hopper primitives of ``csrc/hopper.cuh``) through nvcc;
+  Hopper primitives of ``csrc/hopper.cuh``, and their launch floor)
+  through nvcc;
 * ``dense_x`` — ``csrc/dense_x.cu`` (kernel 1's dense-x probe: the y
   pass, then a dense x operator as a wgmma product on a bf16 split, on
   ``csrc/hopper.cuh``) through nvcc;
@@ -221,6 +222,11 @@ WATCHLIST = Library(
         # aainterp_vpu_dyn_rows(x, off, out, rows, C, R, stream)
         ("aainterp_vpu_dyn_rows", (_P,) * 3 + (_I,) * 3 + (_P,),
          ctypes.c_int),
+        # aainterp_watchlist_floor(probe, a, b, stream): an empty kernel
+        # launched as the probe's kernel is at sizes (a, b)
+        ("aainterp_watchlist_floor", (_I,) * 3 + (_P,), ctypes.c_int),
+        # aainterp_graph_edges(graph, int* programmatic, int* total)
+        ("aainterp_graph_edges", (_P,) * 3, ctypes.c_int),
     ),
     headers=(_PKG / "csrc" / "hopper.cuh", _STAGE_HEADER))
 

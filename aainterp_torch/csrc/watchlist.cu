@@ -11,7 +11,8 @@
 //                   rows x 256 columns, one block each, then a stride-2 read of
 //                   shared memory into 16-byte stores
 //   value_slice     probe_value_slice (:103)    out = x[:, ::2] + x[:, 1::2]; a 16-byte
-//                   load per thread, the pair sums in registers (sm_80 is enough)
+//                   load per thread, the pair sums in registers (sm_80 is enough);
+//                   a programmatic dependent launch
 //   unaligned_dma   probe_unaligned_dma (:122)  out = x[r0:r0 + n, :] for rows of any
 //                   16-byte multiple; rows cut into pieces of whole 16-byte chunks,
 //                   one block a piece: a 1-D bulk copy onto an mbarrier, a bulk
@@ -21,7 +22,9 @@
 //                   sums, on wgmma m64n32k16: 64 x 32 tiles, K through a
 //                   four-stage ring of TMA boxes
 //   vpu_dyn_rows    probe_vpu_dyn_rows (:171)   out[r] = x[off[r]] + x[off[r] + 1] at
-//                   offsets the block reads itself
+//                   offsets the kernel reads itself: one block a row and 256
+//                   columns, its offset one uniform load, two 16-byte row loads and
+//                   one 16-byte store a thread; a programmatic dependent launch
 //
 // What bounds them: launch cost and one load's latency.  At JAX's shapes
 // each moves at most 2.8 MB (a bytes bound under 1 us) and high_dot's three
@@ -29,9 +32,27 @@
 // spread over enough blocks that each block waits for one small load and no
 // SM runs a chain of them (strided_load: 450 windows of 4 KB, where 60 of
 // 32 KB left 72 SMs idle; strided_y_bf16: 16 boxes of 512 bytes, where one
-// block loaded all 8 KB and stored 4,096 values one at a time), and what it
-// tests is that the feature builds, launches and gives its plain version's
-// result (probes/mosaic_watchlist.py holds each against it).
+// block loaded all 8 KB and stored 4,096 values one at a time; vpu_dyn_rows:
+// 16 blocks of one row, where one block ran 16 rows' loads one after
+// another), and what it tests is that the feature builds, launches and
+// gives its plain version's result (probes/mosaic_watchlist.py holds each
+// against it).  The least time a launch takes is an empty kernel's
+// launched the same way (aainterp_watchlist_floor: the same grid, block,
+// dynamic shared memory and launch attributes, from the same geometry()),
+// which probes/mosaic_watchlist.measure times beside each probe (phase 50
+// of chip_smoke.py).  On an NVIDIA H100 80GB HBM3 at 700 W, in CUDA graphs
+// of 20 launches (chip_sweep.py), that floor is 0.0011 ms a launch for
+// value_slice's and vpu_dyn_rows' grids launched as <<<>>> launches are,
+// 0.0007-0.0008 with the programmatic attribute, and the two kernels take
+// 0.0008-0.0009 and 0.0010-0.0011 ms.
+//
+// value_slice and vpu_dyn_rows launch with programmatic stream
+// serialization (cudaLaunchKernelEx): the kernel may start while the one
+// before it on the stream still runs.  Its threads let the next kernel
+// launch at once (griddepcontrol.launch_dependents) and wait for the one
+// before to finish and flush (griddepcontrol.wait) before their first
+// global read, offsets included, since it may have written their inputs;
+// only launch, block scheduling and index arithmetic overlap it.
 //
 // Plain C interface for ctypes; each launch goes on the caller's stream and
 // does not synchronise.  Each entry returns cudaGetLastError() after the
@@ -46,13 +67,17 @@
 
 #include <atomic>
 #include <climits>
+#include <utility>
+#include <vector>
 
 #include "hopper.cuh"
 #include "stage_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kSliceThreads = 256;   // value_slice's block
+// value_slice's and vpu_dyn_rows' launches carry the programmatic attribute
+constexpr bool kProgrammatic = true;
 
 // `p` advanced to the next multiple of `align` bytes of the shared window
 template <int align>
@@ -61,6 +86,18 @@ __device__ __forceinline__ unsigned char* aligned(unsigned char* p) {
 }
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// let the next kernel on the stream launch now; it waits for this one to
+// finish before it reads (griddepcontrol.wait)
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// wait until the kernel before this one on the stream has finished and its
+// writes are visible (returns at once without a programmatic launch)
+__device__ __forceinline__ void wait_for_predecessor() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
 
 // ---- strided_y_bf16 ------------------------------------------------------------
 // x (frames, rows, m, C) bf16 as a 4-D map (C, m, rows, frames).  The output
@@ -155,9 +192,11 @@ __global__ void __launch_bounds__(kLoadThreads)
 
 // ---- value_slice -----------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kSliceThreads)
     value_slice_kernel(const float4* __restrict__ x, float2* __restrict__ out, long long n4) {
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  launch_dependents();
+  const long long i = static_cast<long long>(blockIdx.x) * kSliceThreads + threadIdx.x;
+  wait_for_predecessor();
   if (i < n4) {
     const float4 v = x[i];
     out[i] = make_float2(v.x + v.y, v.z + v.w);
@@ -315,28 +354,155 @@ __global__ void __launch_bounds__(128)
 }
 
 // ---- vpu_dyn_rows ----------------------------------------------------------------
-// One thread per column; the block reads the R offsets into shared memory
-// once.  An offset outside [0, rows - 2] gives a NaN row.
+// One block a row r of out and kDynCols columns (JAX's 16 x 256: 16 blocks,
+// where one block ran the 16 rows' loads one after another on one SM): the
+// block's offset k = off[r] is one uniform load, then each thread adds rows
+// k and k + 1 at its 4 columns, two 16-byte loads and one 16-byte store
+// (kVec: every row starts 16-byte aligned), else 4 scalar loads each.  An
+// offset outside [0, rows - 2] gives a NaN row.
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kDynCols = 256;
+constexpr int kDynThreads = kDynCols / 4;   // 4 columns a thread
+
+template <bool kVec>
+__global__ void __launch_bounds__(kDynThreads)
     dyn_rows_kernel(const float* __restrict__ x, const int* __restrict__ off, float* __restrict__ out,
-                    int rows, int C, int R) {
-  extern __shared__ int soff[];
-  for (int r = threadIdx.x; r < R; r += kThreads) soff[r] = off[r];
-  __syncthreads();
-  const int c = blockIdx.x * kThreads + threadIdx.x;
+                    int rows, int C) {
+  launch_dependents();
+  const int r = blockIdx.x, c = (blockIdx.y * kDynThreads + threadIdx.x) * 4;
+  float* o = out + static_cast<long long>(r) * C + c;
+  wait_for_predecessor();
   if (c >= C) return;
-  for (int r = 0; r < R; ++r) {
-    const int o = soff[r];
-    float v = __int_as_float(0x7fc00000);
-    if (o >= 0 && o < rows - 1) {
-      v = x[static_cast<long long>(o) * C + c] + x[static_cast<long long>(o + 1) * C + c];
+  const int k = off[r];
+  const float nan = __int_as_float(0x7fc00000);
+  const bool ok = k >= 0 && k < rows - 1;
+  const float* a = x + static_cast<long long>(k) * C + c;
+  if (kVec) {
+    float4 v = make_float4(nan, nan, nan, nan);
+    if (ok) {
+      const float4 p = *reinterpret_cast<const float4*>(a);
+      const float4 q = *reinterpret_cast<const float4*>(a + C);
+      v = make_float4(p.x + q.x, p.y + q.y, p.z + q.z, p.w + q.w);
     }
-    out[static_cast<long long>(r) * C + c] = v;
+    *reinterpret_cast<float4*>(o) = v;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (c + j < C) o[j] = ok ? a[j] + a[C + j] : nan;
+    }
+  }
+}
+
+// ---- the launch floor ------------------------------------------------------------
+// An empty kernel, launched with a probe's grid, block, dynamic shared
+// memory and launch attributes; with the programmatic attribute it lets the
+// next kernel launch and waits for the one before, as the probes do.
+
+template <bool kPdl>
+__global__ void floor_kernel(int) {
+  if (kPdl) {
+    launch_dependents();
+    wait_for_predecessor();
   }
 }
 
 inline int launched() { return static_cast<int>(cudaGetLastError()); }
+
+// ---- launch geometry ---------------------------------------------------------------
+// Each entry launches its kernel with geometry(probe, a, b), and
+// aainterp_watchlist_floor an empty kernel with the same; (a, b) are the
+// two sizes the probe's launch follows.
+
+enum Probe { kStridedY, kStridedLoad, kValueSlice, kUnalignedDma, kHighDot, kDynRows, kProbes };
+
+struct Launch {
+  long long blocks;   // along x
+  unsigned rows;      // blocks along y
+  unsigned threads;
+  size_t smem;
+  bool programmatic;
+  bool fits() const { return blocks > 0 && blocks <= INT_MAX && rows > 0 && rows <= 65535; }
+};
+
+// boxes of at most `rows` x `cols` over an R x C output, one block each
+struct Boxes {
+  int bc, br, col_blocks;
+  long long blocks;
+};
+
+inline Boxes boxes(int R, int C, int rows, int cols) {
+  Boxes b;
+  b.bc = C < cols ? C : cols;
+  b.br = R < rows ? R : rows;
+  b.col_blocks = (C + b.bc - 1) / b.bc;
+  b.blocks = static_cast<long long>(b.col_blocks) * ((R + b.br - 1) / b.br);
+  return b;
+}
+
+// a row of W floats in pieces of whole 16-byte chunks, at most kPieceBytes
+// each (none empty)
+struct Pieces {
+  int piece_chunks, pieces;
+};
+
+inline Pieces pieces(int W) {
+  const int chunks = W / 4;                                   // 16-byte chunks a row
+  const int per = (4 * W + kPieceBytes - 1) / kPieceBytes;    // pieces a row at most
+  Pieces p;
+  p.piece_chunks = (chunks + per - 1) / per;
+  p.pieces = (chunks + p.piece_chunks - 1) / p.piece_chunks;
+  return p;
+}
+
+// (a, b): strided_y (R, C), strided_load and value_slice (R, W),
+// unaligned_dma (n, W), high_dot (M, N), vpu_dyn_rows (R, C)
+inline Launch geometry(int probe, int a, int b) {
+  switch (probe) {
+    case kStridedY: {
+      const Boxes y = boxes(a, b, kYRows, kYCols);
+      return {y.blocks, 1, kYThreads, 128 + static_cast<size_t>(y.bc) * y.br * 2 + 8, false};
+    }
+    case kStridedLoad: {
+      const Boxes w = boxes(a, b, kLoadRows, kLoadCols);
+      return {w.blocks, 1, kLoadThreads, 128 + static_cast<size_t>(w.bc) * w.br * 4 + 8, false};
+    }
+    case kValueSlice: {
+      const long long n4 = static_cast<long long>(a) * b / 4;
+      return {(n4 + kSliceThreads - 1) / kSliceThreads, 1, kSliceThreads, 0, kProgrammatic};
+    }
+    case kUnalignedDma: {
+      const Pieces p = pieces(b);
+      // the piece, 16 bytes of slack for its alignment, the mbarrier
+      return {static_cast<long long>(a) * p.pieces, 1, 32, 16 * static_cast<size_t>(p.piece_chunks) + 16 + 8,
+              false};
+    }
+    case kHighDot:
+      return {(b + kDotCols - 1) / kDotCols, static_cast<unsigned>((a + kDotRows - 1) / kDotRows), 128,
+              kDotSmem, false};
+    case kDynRows:
+      return {a, static_cast<unsigned>((b + kDynCols - 1) / kDynCols), kDynThreads, 0, kProgrammatic};
+  }
+  return {0, 0, 0, 0, false};
+}
+
+// launch `kernel` with `g` on `stream`: cudaLaunchKernelEx, with the
+// programmatic attribute where g asks for it
+template <typename... P, typename... A>
+int launch(const Launch& g, void (*kernel)(P...), void* stream, A&&... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(g.blocks), g.rows);
+  cfg.blockDim = dim3(g.threads);
+  cfg.dynamicSmemBytes = g.smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = g.programmatic ? 1 : 0;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, std::forward<A>(args)...);
+  const int last = launched();   // clears the error a refused launch leaves
+  return e != cudaSuccess ? static_cast<int>(e) : last;
+}
 
 }  // namespace
 
@@ -350,10 +516,10 @@ extern "C" int aainterp_strided_y_bf16(const void* x, void* out, int frames, int
       !aligned16(out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int bc = C < kYCols ? C : kYCols, br = R < kYRows ? R : kYRows;
-  const int col_blocks = (C + bc - 1) / bc;
-  const long long blocks = static_cast<long long>(col_blocks) * ((R + br - 1) / br);
-  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const Launch g = geometry(kStridedY, R, C);
+  if (!g.fits()) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const Boxes y = boxes(R, C, kYRows, kYCols);
+  const int bc = y.bc, br = y.br;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(m),
                               static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(frames)};
   const cuuint64_t strides[3] = {2ull * C, 2ull * C * m, 2ull * C * m * rows};
@@ -361,9 +527,8 @@ extern "C" int aainterp_strided_y_bf16(const void* x, void* out, int frames, int
   CUtensorMap map;
   const int rc = hopper::encode_tiled(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, x, dims, strides, box);
   if (rc != 0) return rc;
-  const size_t smem = 128 + static_cast<size_t>(bc) * br * 2 + 8;
-  strided_y_kernel<<<static_cast<unsigned>(blocks), kYThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      map, static_cast<float*>(out), R, C, frame, parity, bc, br, col_blocks);
+  strided_y_kernel<<<static_cast<unsigned>(g.blocks), g.threads, g.smem, static_cast<cudaStream_t>(stream)>>>(
+      map, static_cast<float*>(out), R, C, frame, parity, bc, br, y.col_blocks);
   return launched();
 }
 
@@ -374,35 +539,32 @@ extern "C" int aainterp_strided_load(const void* x, void* out, int R, int W, voi
   if (R <= 0 || W <= 0 || W % 4 != 0 || !aligned16(x) || !aligned16(out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int bc = W < kLoadCols ? W : kLoadCols, br = R < kLoadRows ? R : kLoadRows;
-  const int col_blocks = (W + bc - 1) / bc;
-  const long long blocks = static_cast<long long>(col_blocks) * ((R + br - 1) / br);
-  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const Launch g = geometry(kStridedLoad, R, W);
+  if (!g.fits()) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const Boxes w = boxes(R, W, kLoadRows, kLoadCols);
+  const int bc = w.bc, br = w.br;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(W), static_cast<cuuint64_t>(R)};
   const cuuint64_t strides[1] = {4ull * W};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(bc), static_cast<cuuint32_t>(br)};
   CUtensorMap map;
   const int rc = hopper::encode_tiled(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, x, dims, strides, box);
   if (rc != 0) return rc;
-  const size_t smem = 128 + static_cast<size_t>(bc) * br * 4 + 8;
-  strided_load_kernel<<<static_cast<unsigned>(blocks), kLoadThreads, smem,
+  strided_load_kernel<<<static_cast<unsigned>(g.blocks), g.threads, g.smem,
                         static_cast<cudaStream_t>(stream)>>>(map, static_cast<float*>(out), R, W, bc, br,
-                                                             col_blocks);
+                                                             w.col_blocks);
   return launched();
 }
 
 // x (R, W) f32, out (R, W / 2) = x[:, ::2] + x[:, 1::2]; W a multiple of 4,
-// both 16-byte aligned.
+// both 16-byte aligned; a programmatic launch.
 extern "C" int aainterp_value_slice(const void* x, void* out, int R, int W, void* stream) {
   if (R <= 0 || W <= 0 || W % 4 != 0 || !aligned16(x) || !aligned16(out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long n4 = static_cast<long long>(R) * W / 4;
-  const long long blocks = (n4 + kThreads - 1) / kThreads;
-  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  value_slice_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(x), static_cast<float2*>(out), n4);
-  return launched();
+  const Launch g = geometry(kValueSlice, R, W);
+  if (!g.fits()) return static_cast<int>(cudaErrorInvalidConfiguration);
+  return launch(g, value_slice_kernel, stream, static_cast<const float4*>(x), static_cast<float2*>(out),
+                static_cast<long long>(R) * W / 4);
 }
 
 // x (H, W) f32, out (n, W) = x[r0:r0 + n, :]; W a multiple of 4 (rows of
@@ -414,15 +576,11 @@ extern "C" int aainterp_unaligned_dma(const void* x, void* out, int H, int W, in
       !aligned16(out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int chunks = W / 4;                                   // 16-byte chunks a row
-  const int per = (4 * W + kPieceBytes - 1) / kPieceBytes;    // pieces a row at most
-  const int piece_chunks = (chunks + per - 1) / per;
-  const int pieces = (chunks + piece_chunks - 1) / piece_chunks;  // none empty
-  const long long blocks = static_cast<long long>(n) * pieces;
-  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t smem = 16 * static_cast<size_t>(piece_chunks) + 16 + 8;  // slack, mbarrier
-  row_dma_kernel<<<static_cast<unsigned>(blocks), 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(out), r0, W, pieces, 4 * piece_chunks);
+  const Launch g = geometry(kUnalignedDma, n, W);
+  if (!g.fits()) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const Pieces p = pieces(W);
+  row_dma_kernel<<<static_cast<unsigned>(g.blocks), g.threads, g.smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(out), r0, W, p.pieces, 4 * p.piece_chunks);
   return launched();
 }
 
@@ -451,20 +609,58 @@ extern "C" int aainterp_high_dot(const void* a, const void* b, void* out, int M,
   rc = stage::opt_in(reinterpret_cast<const void*>(high_dot_kernel), static_cast<long long>(kDotSmem),
                      opted_in);
   if (rc != 0) return rc;
-  const dim3 grid((N + kDotCols - 1) / kDotCols, (M + kDotRows - 1) / kDotRows);
-  high_dot_kernel<<<grid, 128, kDotSmem, static_cast<cudaStream_t>(stream)>>>(
-      amap, bmap, static_cast<float*>(out), M, N, K);
+  const Launch g = geometry(kHighDot, M, N);
+  if (!g.fits()) return static_cast<int>(cudaErrorInvalidConfiguration);
+  high_dot_kernel<<<dim3(static_cast<unsigned>(g.blocks), g.rows), g.threads, g.smem,
+                    static_cast<cudaStream_t>(stream)>>>(amap, bmap, static_cast<float*>(out), M, N, K);
   return launched();
 }
 
-// x (rows, C) f32, off (R,) int32, out (R, C) = x[off] + x[off + 1].
+// x (rows, C) f32, off (R,) int32, out (R, C) = x[off] + x[off + 1], NaN
+// rows where an offset lies outside [0, rows - 2]; one block a row and
+// kDynCols columns, 16-byte loads and stores where C is a multiple of 4 and
+// x and out are 16-byte aligned, else scalar ones; a programmatic launch.
 extern "C" int aainterp_vpu_dyn_rows(const void* x, const void* off, void* out, int rows, int C, int R,
                                      void* stream) {
-  if (rows < 2 || C <= 0 || R <= 0 || static_cast<long long>(R) * 4 > static_cast<long long>(stage::kDefaultSmem)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int blocks = (C + kThreads - 1) / kThreads;
-  dyn_rows_kernel<<<blocks, kThreads, static_cast<size_t>(R) * 4, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const int*>(off), static_cast<float*>(out), rows, C, R);
-  return launched();
+  if (rows < 2 || C <= 0 || R <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Launch g = geometry(kDynRows, R, C);
+  if (!g.fits()) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const bool vec = C % 4 == 0 && aligned16(x) && aligned16(out);
+  void (*kernel)(const float*, const int*, float*, int, int) = vec ? dyn_rows_kernel<true> : dyn_rows_kernel<false>;
+  return launch(g, kernel, stream, static_cast<const float*>(x), static_cast<const int*>(off), static_cast<float*>(out), rows, C);
+}
+
+// An empty kernel launched as `probe` (a Probe) launches at sizes (a, b)
+// (see geometry): its grid, block, dynamic shared memory (opted in above
+// 48 KB) and launch attributes.  The least time such a launch takes.
+extern "C" int aainterp_watchlist_floor(int probe, int a, int b, void* stream) {
+  if (probe < 0 || probe >= kProbes || a <= 0 || b <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Launch g = geometry(probe, a, b);
+  if (!g.fits()) return static_cast<int>(cudaErrorInvalidConfiguration);
+  void (*kernel)(int) = g.programmatic ? floor_kernel<true> : floor_kernel<false>;
+  static std::atomic<int> opted_in[2][stage::kMaxDevices];   // each kernel's limit per device
+  const int rc = stage::opt_in(reinterpret_cast<const void*>(kernel), static_cast<long long>(g.smem),
+                               opted_in[g.programmatic ? 1 : 0]);
+  if (rc != 0) return rc;
+  return launch(g, kernel, stream, 0);
+}
+
+// The edges of a CUDA graph (a captured one, as cudaGraph_t): `total` of
+// them, `programmatic` of those programmatic ones, which a kernel launched
+// with programmatic stream serialization after another keeps through
+// stream capture.  Returns 0 or a cudaError_t.
+extern "C" int aainterp_graph_edges(void* graph, int* programmatic, int* total) {
+  cudaGraph_t g = static_cast<cudaGraph_t>(graph);
+  size_t n = 0;
+  cudaError_t e = cudaGraphGetEdges_v2(g, nullptr, nullptr, nullptr, &n);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  std::vector<cudaGraphNode_t> from(n), to(n);
+  std::vector<cudaGraphEdgeData> data(n);
+  if (n > 0) e = cudaGraphGetEdges_v2(g, from.data(), to.data(), data.data(), &n);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int p = 0;
+  for (size_t i = 0; i < n; ++i) p += data[i].type == cudaGraphDependencyTypeProgrammatic;
+  *programmatic = p;
+  *total = static_cast<int>(n);
+  return 0;
 }

@@ -17,7 +17,8 @@ needs on this card, built from the primitives of ``csrc/hopper.cuh``:
   stride-2 read of shared memory, four even columns a thread into one
   16-byte store;
 * ``value_slice`` — ``out = x[:, ::2] + x[:, 1::2]`` of (8, 512) f32: one
-  16-byte load a thread, the pair sums in registers (the ``xpair`` form);
+  16-byte load a thread, the pair sums in registers (the ``xpair`` form),
+  launched as a programmatic dependent launch;
 * ``unaligned_dma`` — ``out = x[8:24]`` of (64, 3600) f32, rows of 14,400
   bytes (not a multiple of 512): each row cut into pieces of whole
   16-byte chunks of at most 2 KB (16 x 8 here), one block a piece: a 1-D
@@ -30,7 +31,16 @@ needs on this card, built from the primitives of ``csrc/hopper.cuh``:
   run;
 * ``vpu_dyn_rows`` — ``out[r] = x[off[r]] + x[off[r] + 1]``, r < 16, of
   (64, 256) f32 at offsets the kernel reads itself (JAX's scalar
-  prefetch).
+  prefetch): one block a row and 256 columns (16 here), its offset one
+  uniform load, two 16-byte row loads and one 16-byte store a thread
+  (scalar ones where C is not a multiple of 4 or x or out is not 16-byte
+  aligned), a NaN row for an offset outside [0, rows - 2]; a
+  programmatic dependent launch.
+
+value_slice and vpu_dyn_rows launch with programmatic stream
+serialization: a kernel may start while the one before it on the stream
+runs, and waits for it to finish (``griddepcontrol.wait``) before its
+first global read.
 
 Each ``*_kernel`` launches its kernel for a CUDA tensor (and raises on a
 failed build, encode or launch) and takes its ``*_plain`` version for a
@@ -38,11 +48,15 @@ CPU tensor; it counts its launches in ``LAUNCHES`` and writes into
 ``out=`` where given.  ``inputs(name, device, seed)`` draws JAX's arrays
 (seed 0) or distinct ones for timing.  ``run_watchlist`` reports each
 probe "available" (it builds, launches and equals its plain version:
-``torch.equal``, for ``high_dot`` |Δ| ≤ 1e-5 · max|ref|) or "blocked"
-with the first line of the error, as JAX's ``_run`` does; with
+``equal``: bit for bit, for ``high_dot`` |Δ| ≤ 1e-5 · max|ref|) or
+"blocked" with the first line of the error, as JAX's ``_run`` does; with
 ``device="cpu"`` each probe runs its plain version ("plain").
 ``measure`` times a probe's kernel, plain version and library call
-through ``harness``.
+through ``harness``, and on the card its launch floor: ``launch_floor``,
+an empty kernel launched with the probe's grid, block, dynamic shared
+memory and launch attributes (``csrc/watchlist.cu``'s ``geometry``),
+the least time such a launch takes.  ``programmatic_edges`` counts the
+programmatic edges of a CUDA graph captured as ``harness`` captures.
 
     python -m aainterp_torch.probes.mosaic_watchlist [--probe NAME] \\
         [--device cpu]
@@ -50,6 +64,7 @@ through ``harness``.
 
 from __future__ import annotations
 
+import ctypes
 import sys
 from typing import Callable, Dict, Optional, Tuple
 
@@ -65,6 +80,12 @@ NAMES = ("strided_y_bf16", "strided_load", "value_slice", "unaligned_dma",
          "high_dot", "vpu_dyn_rows")
 # kernel launches so far per probe, counted where the wrapper launches it
 LAUNCHES: Dict[str, int] = {name: 0 for name in NAMES}
+# launch-floor kernels launched so far, per probe whose launch they copy
+FLOOR_LAUNCHES: Dict[str, int] = {name: 0 for name in NAMES}
+# each probe's number in csrc/watchlist.cu (enum Probe)
+PROBE_IDS = {name: i for i, name in enumerate(NAMES)}
+# the probes whose launches carry the programmatic attribute
+PROGRAMMATIC = ("value_slice", "vpu_dyn_rows")
 # JAX's shapes: the one input of each probe (high_dot multiplies a by itself)
 SHAPES = {"strided_y_bf16": (1, 32, 2, 256), "strided_load": (120, 3840),
           "value_slice": (8, 512), "unaligned_dma": (64, 3600),
@@ -138,8 +159,13 @@ def high_dot_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def vpu_dyn_rows_plain(x: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
+    """``x[o] + x[o + 1]`` for each offset o in [0, rows - 2], a NaN row
+    for any other (the kernel's rows; JAX's probe reads out of bounds
+    there)."""
     o = off.long()
-    return x[o] + x[o + 1]
+    ok = (o >= 0) & (o <= x.shape[0] - 2)
+    o = torch.where(ok, o, 0)
+    return (x[o] + x[o + 1]).masked_fill(~ok[:, None], float("nan"))
 
 
 # ---- kernels -----------------------------------------------------------------
@@ -306,7 +332,10 @@ def high_dot_kernel(a: torch.Tensor, b: torch.Tensor, *,
 def vpu_dyn_rows_kernel(x: torch.Tensor, off: torch.Tensor, *,
                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x[off] + x[off + 1]``, the offsets read by the kernel (int32; an
-    offset outside [0, rows - 2] gives a NaN row there)."""
+    offset outside [0, rows - 2] gives a NaN row there): one block a row
+    and 256 columns, 16-byte loads and stores where C is a multiple of 4
+    and x and out are 16-byte aligned, scalar ones otherwise (any ``out``
+    is taken)."""
     _check_dtype("vpu_dyn_rows", x, torch.float32, 2)
     if off.dtype != torch.int32 or off.ndim != 1 or off.numel() == 0:
         raise ValueError(f"vpu_dyn_rows: off must be a non-empty 1-D int32 "
@@ -369,7 +398,7 @@ PROBES: Tuple[Tuple[str, Callable, Callable, str, str], ...] = (
      "wgmma m64n32k16 bf16 -> f32 on a bf16x3 split, K in a TMA ring",
      "tensor-core densex and y pass of kernel 1 at f32 precision"),
     ("vpu_dyn_rows", vpu_dyn_rows_kernel, vpu_dyn_rows_plain,
-     "offsets read into shared memory, rows at dynamic offsets",
+     "a block a row: its offset one uniform load, 16-byte row loads",
      "exact per-row band taps (kernel 1's y pass without a dense band)"),
 )
 _BY_NAME = {p[0]: p for p in PROBES}
@@ -383,12 +412,13 @@ def probe(name: str):
 
 
 def equal(name: str, got: torch.Tensor, want: torch.Tensor) -> bool:
-    """The probe's check: ``torch.equal``, for high_dot |Δ| ≤ 1e-5 ·
+    """The probe's check: bit for bit (``torch.equal`` on the bits, so
+    vpu_dyn_rows' NaN rows count), for high_dot |Δ| ≤ 1e-5 ·
     max|want|."""
-    if name != "high_dot":
-        return torch.equal(got, want)
-    if got.shape != want.shape:
+    if got.shape != want.shape or got.dtype != want.dtype:
         return False
+    if name != "high_dot":
+        return torch.equal(got.view(torch.int32), want.view(torch.int32))
     d = (got.double() - want.double()).abs().max()
     return bool(d <= HIGH_DOT_RTOL * want.double().abs().max())
 
@@ -467,17 +497,84 @@ def traffic(name: str, args: tuple) -> Tuple[int, int]:
         nbytes = a.nbytes + (0 if b.data_ptr() == a.data_ptr() else b.nbytes)
         return nbytes + M * N * 4, 3 * 2 * M * N * K
     off = args[1].long().cpu()
-    rows = torch.unique(torch.cat([off, off + 1])).numel()
+    live = off[(off >= 0) & (off <= x.shape[0] - 2)]   # NaN rows read nothing
+    rows = torch.unique(torch.cat([live, live + 1])).numel()
     C = x.shape[1]
     return (rows * C * 4 + args[1].nbytes + off.numel() * C * 4,
             off.numel() * C)
+
+
+def floor_dims(name: str, args: tuple) -> Tuple[int, int]:
+    """The two sizes a probe's launch follows on ``args`` (its wrapper's
+    defaults for the rest): strided_y_bf16 (rows, C), strided_load and
+    value_slice (R, W), unaligned_dma (rows, W), high_dot (M, N),
+    vpu_dyn_rows (R, C)."""
+    x = args[0]
+    if name == "strided_y_bf16":
+        return (args[3] if len(args) > 3 else 16), x.shape[3]
+    if name in ("strided_load", "value_slice"):
+        return tuple(x.shape)
+    if name == "unaligned_dma":
+        return (args[2] if len(args) > 2 else DMA_ROWS), x.shape[1]
+    if name == "high_dot":
+        return x.shape[0], args[1].shape[1]
+    if name == "vpu_dyn_rows":
+        return args[1].numel(), x.shape[1]
+    raise ValueError(f"no probe {name!r}; the probes are {NAMES}")
+
+
+def launch_floor(name: str, *args: torch.Tensor) -> None:
+    """Launch an empty kernel as ``name``'s kernel is launched on the CUDA
+    tensors ``args``: the same grid, block, dynamic shared memory and
+    launch attributes.  Counted in ``FLOOR_LAUNCHES``; raises on CPU
+    tensors (a plain version has no launch)."""
+    dev = args[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: a launch floor needs CUDA tensors, got "
+                         f"{dev}")
+    a, b = floor_dims(name, args)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib().aainterp_watchlist_floor(PROBE_IDS[name], a, b, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: launch floor failed: CUDA error {rc}")
+    FLOOR_LAUNCHES[name] += 1
+
+
+def programmatic_edges(name: str, device: Device = None,
+                       n: int = 8) -> Tuple[int, int]:
+    """(programmatic, all) edges of a CUDA graph that runs ``name``'s
+    kernel on ``n`` seeded inputs in turn, captured as ``harness.graph_ms``
+    captures (``torch.cuda.graph`` on the current stream, after a warm-up
+    launch); a programmatic launch after a kernel keeps its edge
+    programmatic.  Launches counted in ``LAUNCHES``."""
+    dev = target(device)
+    if dev.type != "cuda":
+        raise ValueError("programmatic_edges needs the card")
+    _, kernel, _, _, _ = probe(name)
+    xs = [inputs(name, dev, seed) for seed in range(1, n + 1)]
+    kernel(*xs[0])
+    torch.cuda.synchronize(dev)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        outs = [kernel(*x) for x in xs]   # noqa: F841 (kept alive)
+    prog, total = ctypes.c_int(0), ctypes.c_int(0)
+    rc = _lib().aainterp_graph_edges(graph.raw_cuda_graph(),
+                                     ctypes.byref(prog), ctypes.byref(total))
+    del graph, outs
+    if rc != 0:
+        raise RuntimeError(f"{name}: reading the graph's edges failed: "
+                           f"CUDA error {rc}")
+    return prog.value, total.value
 
 
 def measure(name: str, device: Device = None, n: int = 8) -> dict:
     """A probe's kernel, plain version and library call (where the plain
     version is one call, the library call is it) timed by
     ``harness.measure`` on ``n`` distinct seeded inputs (seeds 1..n, warmed
-    up on seed 0); ms per call, bytes, operations, clock and device."""
+    up on seed 0), and on the card its launch floor (``launch_floor`` on
+    the same inputs; ``floor_ms`` None on the CPU, where nothing
+    launches); ms per call, bytes, operations, clock and device."""
     dev = target(device)
     _, kernel, plain, _, _ = probe(name)
     library = LIBRARY.get(name)
@@ -491,6 +588,9 @@ def measure(name: str, device: Device = None, n: int = 8) -> dict:
             continue
         t = harness.measure(fn, xs, warm)
         res[f"{what}_ms"] = t.ms
+    res["floor_ms"] = (harness.measure(
+        lambda *a: launch_floor(name, *a), xs, warm).ms
+        if dev.type == "cuda" else None)
     res["bytes"], res["operations"] = traffic(name, xs[0])
     res.update(clock=t.clock, device=t.device)
     return res
@@ -513,9 +613,11 @@ def main(argv=None) -> int:
             if results[name][0] == "blocked":
                 continue
             r = measure(name, dev)
-            print(f"{name}: kernel {r['kernel_ms']:.4f} ms, plain "
-                  f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
-                  f"({r['device']})")
+            floor = ("" if r["floor_ms"] is None
+                     else f", launch floor {r['floor_ms']:.6f} ms")
+            print(f"{name}: kernel {r['kernel_ms']:.6f} ms, plain "
+                  f"{r['plain_ms']:.6f} ms, library {r['library_ms']:.6f} ms"
+                  f"{floor} ({r['device']})")
             if r["clock"] != "cuda_events":
                 print(f"({r['device']}: on the host's clock, not a device "
                       "time)")

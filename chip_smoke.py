@@ -89,9 +89,14 @@ points (``aainterp_torch.area_average_interpolate`` for the first three):
   ``csrc/watchlist.cu`` built from the Hopper primitives of
   ``csrc/hopper.cuh`` (a 4-D and a 2-D TMA tile load spread over many
   blocks, 1-D bulk copies in and out on an mbarrier, wgmma m64n32k16, a
-  16-byte pair sum and rows at dynamic offsets) at JAX's shapes, and the
-  two TMA-load probes at ragged shapes, through ``run_watchlist`` and
-  ``measure``, one ``watchlist_timing`` line;
+  16-byte pair sum and rows at dynamic offsets, the last two as
+  programmatic dependent launches) at JAX's shapes, the two TMA-load
+  probes at ragged shapes, vpu_dyn_rows at other widths, row counts and
+  offsets (NaN rows) into NaN-filled and misaligned outputs, the
+  programmatic launches after a PyTorch kernel that writes their inputs
+  and their edges through graph capture, then ``run_watchlist`` and
+  ``measure`` (each probe beside its launch floor: an empty kernel
+  launched as it is), one ``watchlist_timing`` line;
 * the row-sharded applies (phases 51-52) on ``torch.distributed`` ranks
   (``aainterp_torch.parallel``): 4 gloo ranks that share the card (NCCL
   refuses two ranks on one card; gloo stages through pinned host memory)
@@ -417,6 +422,17 @@ U8_DIRECT_EXPS = {"u8words_direct": "u8words", "xpair_direct": "xpair"}
 # phase 47: the modes whose function is not production's output (the
 # stage cuts), held to their plain versions alone
 STAGE_CUTS = ("stage", "stagey", "stage_direct", "stagey_direct")
+# phase 50: vpu_dyn_rows at (rows, C, offsets) beside JAX's shape: C =
+# 250 and 3 take the scalar path, 4096 16 column blocks; R = 1 and 40;
+# repeated offsets and out-of-range ones (NaN rows)
+DYN_CASES = ((64, 250, (5, 62, 0, 5, 31, -1, 63, 64, 17)),
+             (10, 3, (8, 0, 4, 4, 9, -2)),
+             (64, 4096, (62, 0, 33, 33, 7, 63, -1, 200, 12, 1, 2, 3)),
+             (64, 256, (40,)),
+             (64, 256, tuple((7 * i) % 70 - 3 for i in range(40))))
+# phase 50: launches of each programmatic probe after a PyTorch kernel
+# that writes its inputs
+PDL_LAUNCHES = 50
 # phase 50: each watchlist probe's pallas_call in the JAX file
 WATCHLIST_LINES = {"strided_y_bf16": 67, "strided_load": 87,
                    "value_slice": 103, "unaligned_dma": 122, "high_dot": 144,
@@ -487,6 +503,7 @@ def reset_launches() -> None:
     aligned_fused_probe.LAUNCHES = 0
     for k in mosaic_watchlist.LAUNCHES:
         mosaic_watchlist.LAUNCHES[k] = 0
+        mosaic_watchlist.FLOOR_LAUNCHES[k] = 0
 
 
 def other_paths_idle(*counters) -> bool:
@@ -3768,11 +3785,15 @@ def watchlist_phase(make, card) -> list:
     """Phase 50: the Mosaic watchlist's six probes (``csrc/watchlist.cu`` on
     ``csrc/hopper.cuh``: TMA, 1-D bulk copies with mbarriers, wgmma) each
     against its plain version on JAX's inputs and 8 distinct seeded inputs
-    into NaN-filled outputs (``torch.equal``; high_dot |diff| <= 1e-5 *
-    max|plain|; unaligned_dma's 16 rows of 14,400 bytes in 128 blocks of
-    one piece each); then the entry points with the counts set to
-    0 around them: ``run_watchlist`` (every probe "available") and
-    ``measure`` of each (kernel, plain version and library call); one
+    into NaN-filled outputs (``mw.equal``: bit for bit; high_dot |diff| <=
+    1e-5 * max|plain|; unaligned_dma's 16 rows of 14,400 bytes in 128
+    blocks of one piece each); vpu_dyn_rows at ``DYN_CASES`` into
+    NaN-filled and misaligned outputs; each programmatic launch
+    (value_slice, vpu_dyn_rows) ``PDL_LAUNCHES`` times right after a
+    PyTorch kernel writes its inputs, and its edges through graph capture;
+    then the entry points with the counts set to 0 around them:
+    ``run_watchlist`` (every probe "available") and ``measure`` of each
+    (kernel, plain version, library call and launch floor); one
     watchlist_timing line.  Returns the six rows of the JSON summary."""
     dev = make.device
     mw = mosaic_watchlist
@@ -3814,7 +3835,7 @@ def watchlist_phase(make, card) -> list:
           f"watchlist high_dot with a != b: max |diff| {max_err(got, want)}")
     print(f"[50 watchlist] {', '.join(mw.NAMES)}: each kernel equal to its "
           f"plain version on JAX's inputs and 8 seeded ones into NaN-filled "
-          f"outputs (torch.equal; high_dot, one block per "
+          f"outputs (bit for bit; high_dot, one block per "
           f"{mw.HIGH_DOT_TILE[0]} x {mw.HIGH_DOT_TILE[1]} tile with K in a "
           f"TMA ring, max |diff| {err['high_dot']:.3e} <= 1e-5 * "
           f"max|plain|; unaligned_dma's "
@@ -3824,6 +3845,48 @@ def watchlist_phase(make, card) -> list:
           f"{mw.STRIDED_LOAD_WINDOW[1]} and strided_y_bf16 in boxes of "
           f"{mw.STRIDED_Y_BOX[0]} x {mw.STRIDED_Y_BOX[1]}, a block each, also "
           f"at {len(ragged)} ragged shapes)")
+    # vpu_dyn_rows: one block a row and 256 columns; other widths, row
+    # counts and offsets, into NaN-filled and misaligned (scalar) outputs
+    for rows, C, offs in DYN_CASES:
+        x = make(torch.float32, (rows, C))
+        off = torch.tensor(offs, dtype=torch.int32, device=dev)
+        want = mw.vpu_dyn_rows_plain(x, off)
+        flat = torch.full((want.numel() + 4,), float("nan"), device=dev)
+        for shift in (0, 1):
+            before = mw.LAUNCHES["vpu_dyn_rows"]
+            got = mw.vpu_dyn_rows_kernel(x, off, out=flat[
+                shift:shift + want.numel()].view(want.shape))
+            torch.cuda.synchronize()
+            check(mw.LAUNCHES["vpu_dyn_rows"] == before + 1
+                  and mw.equal("vpu_dyn_rows", got, want),
+                  f"watchlist vpu_dyn_rows at ({rows}, {C}), {len(offs)} "
+                  f"offsets, out shifted {4 * shift} bytes: max |diff| "
+                  f"{max_err(got.nan_to_num(), want.nan_to_num())}")
+    # the programmatic launches: a PyTorch kernel (a float64 or int64 copy)
+    # writes the inputs right before each launch
+    for name in mw.PROGRAMMATIC:
+        _, kernel, plain, _, _ = mw.probe(name)
+        args = mw.inputs(name, dev, 1)
+        for i in range(PDL_LAUNCHES):
+            src = mw.inputs(name, dev, 100 + i)
+            for a, b in zip(args, src):
+                a.copy_(b.double() if a.is_floating_point() else b.long())
+            got = kernel(*args)
+            want = plain(*src)
+            torch.cuda.synchronize()
+            check(mw.equal(name, got, want), f"watchlist {name}: launch {i} "
+                  "after a write of its inputs differs from its plain version")
+    edges = {name: mw.programmatic_edges(name, dev) for name in mw.NAMES}
+    check(all(e == ((7 if n in mw.PROGRAMMATIC else 0), 7)
+              for n, e in edges.items()),
+          f"watchlist: programmatic / all edges of 8 captured launches "
+          f"{edges}, want 7 / 7 for {mw.PROGRAMMATIC}, 0 / 7 for the rest")
+    print(f"[50 watchlist] vpu_dyn_rows equal to its plain version at "
+          f"{len(DYN_CASES)} more shapes (out-of-range offsets: NaN rows), "
+          f"into NaN-filled and misaligned outputs; {', '.join(mw.PROGRAMMATIC)}"
+          f" launched programmatically, each equal after {PDL_LAUNCHES} "
+          f"writes of its inputs; programmatic / all graph edges of 8 "
+          f"captured launches: {edges}")
     del got
     torch.cuda.synchronize()
     reset_launches()
@@ -3833,6 +3896,9 @@ def watchlist_phase(make, card) -> list:
     launches = dict(mw.LAUNCHES)
     check(all(s == "available" for s, _ in status.values()),
           f"watchlist: not every probe available: {status}")
+    check(mw.FLOOR_LAUNCHES == {name: 9 for name in mw.NAMES},
+          f"watchlist launch floors: {mw.FLOOR_LAUNCHES}, want 9 each (1 "
+          "warm-up, 8 captured)")
     check(launches == {name: 10 for name in mw.NAMES}
           and cuda_apply.LAUNCHES == 0 and cuda_apply_2d.LAUNCHES == 0
           and copy_ceiling.LAUNCHES == 0 and aligned_fused_probe.LAUNCHES == 0
@@ -3846,15 +3912,17 @@ def watchlist_phase(make, card) -> list:
         check(r["clock"] == "cuda_events", f"{name} timed on {r['clock']}")
         timing["probes"][name] = dict(
             ms=r["kernel_ms"], plain_ms=r["plain_ms"],
-            library_ms=r["library_ms"], bytes=r["bytes"],
+            library_ms=r["library_ms"], floor_ms=r["floor_ms"],
+            bytes=r["bytes"],
             operations=r["operations"], **bound(
                 r["bytes"], r["operations"],
                 PEAK_BF16_TC_FLOP_S if name in mw.TENSOR_CORE_BF16
                 else PEAK_F32_FLOP_S))
     print(f"[50 watchlist] {card}, device ms per call (CUDA-graph replays on "
           f"8 distinct inputs, best of 2): " + "; ".join(
-              f"{n} {v['ms']:.4f} (plain {v['plain_ms']:.4f}, library "
-              f"{v['library_ms']:.4f}, bound {v['bound_ms']:.6f})"
+              f"{n} {v['ms']:.6f} (plain {v['plain_ms']:.4f}, library "
+              f"{v['library_ms']:.4f}, bound {v['bound_ms']:.6f}, launch "
+              f"floor {v['floor_ms']:.6f})"
               for n, v in timing["probes"].items())
           + " (high_dot's bound: its 3 bf16 products on the tensor cores)")
     print(json.dumps({"watchlist_timing": timing}))

@@ -107,6 +107,15 @@ graph (``CALLS``).
   windows of 128 columns; ``sy2``: boxes of two rows; ``slglobal``,
   ``syglobal``: plain 16-byte global loads in place of TMA; ``slnostore``,
   ``synostore``: no stores);
+* ``value_slice``, ``vpu_dyn_rows``: the watchlist's ``x[:, ::2] +
+  x[:, 1::2]`` of (8, 512) f32 and ``x[off] + x[off + 1]`` of (64, 256)
+  f32 at 16 offsets on 8 seeded inputs, 20 calls in each graph, beside
+  ``lib_value_slice``, ``lib_vpu_dyn_rows``, their library calls
+  (``mosaic_watchlist.LIBRARY``), and ``floor_value_slice``,
+  ``floor_vpu_dyn_rows``, their launch floors (an empty kernel launched as
+  each is; this checkout's alone) (variants ``nopdl``: both launched
+  without the programmatic attribute; ``dyn128``: 128 columns a
+  vpu_dyn_rows block);
 * ``lib_c_4k``, ``lib_c_rgb1024``: ``copy_`` into a destination of its own
   per input at the copy cells ``c_4k`` and ``c_rgb1024``.
 
@@ -236,6 +245,11 @@ SY_GLOBAL = [
     (SY_INIT, ""), (SY_WAIT, r"\1"),
     (r"uint2\*>\(tile \+ r \* bc \+ 4 \* q\)",
      "uint2*>(xg + static_cast<long long>(r0 + r) * xstride + c0 + 4 * q)")]
+# strided_load's and strided_y_bf16's dynamic shared memory in geometry()
+SL_SMEM = (r"(return \{w\.blocks, 1, kLoadThreads, 128 \+ "
+           r"static_cast<size_t>\(w\.bc\) \* w\.br \* 4 \+ 8)")
+SY_SMEM = (r"(return \{y\.blocks, 1, kYThreads, 128 \+ "
+           r"static_cast<size_t>\(y\.bc\) \* y\.br \* 2 \+ 8)")
 # strided_load's window as a box a row, each on its own mbarrier, each
 # thread waiting for its row's (valid where a row of the window spans a
 # multiple of 128 bytes and R of the window rows, as at JAX's shape)
@@ -254,8 +268,7 @@ SL_BOX_A_ROW = [
     (r"const cuuint32_t box\[2\] = \{static_cast<cuuint32_t>\(bc\), "
      r"static_cast<cuuint32_t>\(br\)\};",
      "const cuuint32_t box[2] = {static_cast<cuuint32_t>(bc), 1};"),
-    (r"const size_t smem = 128 \+ static_cast<size_t>\(bc\) \* br \* 4 \+ 8;",
-     "const size_t smem = 128 + static_cast<size_t>(bc) * br * 4 + 8 * br;")]
+    (SL_SMEM, r"\1 * w.br")]
 # the other store form of both: the threads write the dense output box to
 # shared memory, then fence_proxy_async, a block barrier and one TMA 2-D
 # store (cp.async.bulk.tensor, added to hopper.cuh by the edit); valid where
@@ -300,10 +313,9 @@ SL_TMA_STORE = {
          "    *reinterpret_cast<float4*>(" + SL_OTILE + " + r * (bc / 2) + 4 * g) ="
          " make_float4(a.x, a.z, b.x, b.z);"
          + TMA_STORE_TAIL % ("c0 / 2", SL_OTILE)),
-        (r"const size_t smem = 128 \+ static_cast<size_t>\(bc\) \* br \* 4 \+ 8;",
-         OUT_MAP % ("W / 2", "2ull * W", "bc / 2")
-         + "const size_t smem = 128 + static_cast<size_t>(bc) * br * 4 + 8 + 128 + "
-           "static_cast<size_t>(bc / 2) * br * 4;")]}
+        (r"  strided_load_kernel<<<",
+         "  " + OUT_MAP % ("W / 2", "2ull * W", "bc / 2") + "strided_load_kernel<<<"),
+        (SL_SMEM, r"\1 + 128 + static_cast<size_t>(w.bc / 2) * w.br * 4")]}
 SY_TMA_STORE = {
     "hopper.cuh": [TMA_STORE_2D],
     "watchlist.cu": [
@@ -314,10 +326,9 @@ SY_TMA_STORE = {
          r"\* C \+ c0 \+ 4 \* q\) = v;\n  \}\n\}",
          "*reinterpret_cast<float4*>(" + SY_OTILE + " + r * bc + 4 * q) = v;"
          + TMA_STORE_TAIL % ("c0", SY_OTILE)),
-        (r"const size_t smem = 128 \+ static_cast<size_t>\(bc\) \* br \* 2 \+ 8;",
-         OUT_MAP % ("C", "4ull * C", "bc")
-         + "const size_t smem = 128 + static_cast<size_t>(bc) * br * 2 + 8 + 128 + "
-           "static_cast<size_t>(bc) * br * 4;")]}
+        (r"  strided_y_kernel<<<",
+         "  " + OUT_MAP % ("C", "4ull * C", "bc") + "strided_y_kernel<<<"),
+        (SY_SMEM, r"\1 + 128 + static_cast<size_t>(y.bc) * y.br * 4")]}
 VARIANTS = {
     "cur": {},
     # the stage ring (band_stage_kernel) without its y pass (T left as it
@@ -589,12 +600,22 @@ VARIANTS = {
                                     r"if (oc >= 0) continue;\n    \1")]},
     "synostore": {"watchlist.cu": [(r"if \(c0 \+ 4 \* q >= C\) continue;",
                                     "continue;")]},
+    # watchlist.cu's value_slice and vpu_dyn_rows (and their launch floors)
+    # launched without the programmatic attribute, as <<<>>> launches; the
+    # kernels' griddepcontrol instructions are then no-ops
+    "nopdl": {"watchlist.cu": [(r"constexpr bool kProgrammatic = true;",
+                                "constexpr bool kProgrammatic = false;")]},
+    # vpu_dyn_rows with 128 columns a block (32 blocks at JAX's 16 x 256,
+    # not 16)
+    "dyn128": {"watchlist.cu": [(r"kDynCols = 256;", "kDynCols = 128;")]},
 }
 # cells timed with this many calls in each CUDA graph (their calls are
 # shorter than a replay's host cost)
 CALLS = {"k2_direct": 20, "high_dot": 20, "strided_load": 20,
          "strided_y_bf16": 20, "lib_strided_load": 20,
-         "lib_strided_y_bf16": 20}
+         "lib_strided_y_bf16": 20, "value_slice": 20, "vpu_dyn_rows": 20,
+         "lib_value_slice": 20, "lib_vpu_dyn_rows": 20,
+         "floor_value_slice": 20, "floor_vpu_dyn_rows": 20}
 EXACT = ("cur", "lane8", "t256", "t128", "tilemajor",   # variants that
          "colmajor", "copy1024", "copy512",         # compute everything
          "copypart4", "group4", "xgroups2", "sltma", "sytma", "sl1", "sl2",
@@ -605,7 +626,7 @@ EXACT = ("cur", "lane8", "t256", "t128", "tilemajor",   # variants that
          "cchunk", "ctmin1", "ctmin4", "ctmin8", "pipemin2", "stcols2", "stnoreuse", "streuse", "stmin1",
          "wdbytes", "wdmin3", "prmin4", "prmin5", "wdfunnel", "wdunroll2",
          "xrreuse", "xrreuse4", "xrmin2", "xrmin4", "xrmin5",
-         "pipemin4", "pipestage64", "pipestage96")
+         "pipemin4", "pipestage64", "pipestage96", "nopdl", "dyn128")
 
 
 def variant_sources(lib, name: str) -> dict:
@@ -975,21 +996,30 @@ def make_cells(dev):
 
     cells["high_dot"] = high_dot_cell()
 
-    def watch_cell(name, library):
+    def watch_cell(name, what):
         from aainterp_torch.probes import mosaic_watchlist as mw
 
         _, kernel, plain, _, _ = mw.probe(name)
 
         def prepare():
-            # the library call of these two probes is their plain version
-            fn = plain if library else kernel
+            if what == "floor":   # nothing to check: it computes nothing
+                return (lambda a: mw.launch_floor(name, *a), None, {})
+            # the library call of strided_load and strided_y_bf16 is their
+            # plain version
+            fn = {"kernel": kernel,
+                  "library": mw.LIBRARY.get(name, plain)}[what]
             return lambda a: fn(*a), lambda a: plain(*a), {}
         return (prepare, lambda: [mw.inputs(name, dev, seed)
                                   for seed in range(1, 9)], 0.0)
 
-    for name in ("strided_load", "strided_y_bf16"):
-        cells[name] = watch_cell(name, False)
-        cells[f"lib_{name}"] = watch_cell(name, True)
+    for name in ("strided_load", "strided_y_bf16", "value_slice",
+                 "vpu_dyn_rows"):
+        cells[name] = watch_cell(name, "kernel")
+        cells[f"lib_{name}"] = watch_cell(name, "library")
+    # the launch floors (a parent before them has no such cells: leave them
+    # out with --repo)
+    for name in ("value_slice", "vpu_dyn_rows"):
+        cells[f"floor_{name}"] = watch_cell(name, "floor")
 
     def c_lib_cell(H, W, ty, dtype, nf):
         from aainterp_torch.probes import copy_ceiling
@@ -1076,7 +1106,7 @@ def main() -> int:
                 prepare, inputs, tol = cells[name]
                 xs = inputs()
                 fn, plain, plans[name] = prepare()
-                if variant in EXACT:
+                if variant in EXACT and plain is not None:
                     got, want = fn(xs[0]), plain(xs[0])
                     err = (got.double() - want.double()).abs().max().item()
                     if err > tol or (tol == 0 and not torch.equal(got, want)):
@@ -1085,7 +1115,7 @@ def main() -> int:
                 # calls shorter than a replay's host cost: several a graph
                 ms[name] = round(min(cs.graph_ms(fn, xs, 20,
                                                  CALLS.get(name, 1))
-                                     for _ in range(2)), 4)
+                                     for _ in range(2)), 6)
             print(json.dumps({"repo": args.repo, "variant": variant,
                               "set": setting, "card": card, "ms": ms,
                               "plans": plans}), flush=True)

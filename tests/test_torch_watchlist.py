@@ -27,8 +27,14 @@ opt-in, high_dot with a ≠ b (64 x 32 tiles, K through a four-stage TMA
 ring) on a 4 x 12 grid of tiles, at K 16 (one chunk, half out of bounds)
 and 224, on ragged tiles (100 x 36 @ 36 x 68: zeros past every edge) and
 at K 1000 (32 chunks of the ring), vpu_dyn_rows with shuffled offsets
-(``arange`` hides an index slip) — ``torch.equal``, or the high_dot
-tolerance, and one launch per call.  strided_y_bf16 and strided_load
+(``arange`` hides an index slip), and at JAX's shape on 8 seeds, at C =
+250 and 3 (the scalar path), 4096 (16 column blocks), R = 1 and 40, with
+repeated and out-of-range offsets (NaN rows), into NaN-filled and
+misaligned outputs — ``mw.equal`` (bit for bit), or the high_dot
+tolerance, and one launch per call.  The programmatic launches
+(value_slice, vpu_dyn_rows) read inputs that a PyTorch kernel wrote just
+before each of 50 launches, and keep their programmatic edges through
+graph capture; each probe's launch floor launches.  strided_y_bf16 and strided_load
 write 16-byte stores: an ``out`` that is not 16-byte aligned raises
 before any launch, on the CPU too.
 """
@@ -319,7 +325,109 @@ def test_build_hashes_hopper_header(tmp_path):
     copy.write_bytes(copy.read_bytes() + b"\n// changed\n")
     assert _build.library_path(moved) != _build.library_path(lib)
     symbols = {s for s, _, _ in lib.symbols}
-    assert symbols == {f"aainterp_{n}" for n in NAMES}
+    assert symbols == {f"aainterp_{n}" for n in NAMES} | {
+        "aainterp_watchlist_floor", "aainterp_graph_edges"}
+
+
+def test_vpu_dyn_rows_plain_gives_nan_rows_out_of_range():
+    # the kernel's function: NaN rows for offsets outside [0, rows - 2]
+    # (-1 and rows wrap or raise under plain indexing), x[o] + x[o + 1]
+    # elsewhere, bit for bit
+    x = mw.inputs("vpu_dyn_rows", seed=6)[0]
+    rows = x.shape[0]
+    off = torch.tensor([3, -1, rows - 1, rows, 0, rows - 2, 3, -70],
+                       dtype=torch.int32)
+    got = mw.vpu_dyn_rows_plain(x, off)
+    assert got.shape == (8, x.shape[1]) and got.dtype == torch.float32
+    bad = [1, 2, 3, 7]
+    assert bool(torch.isnan(got[bad]).all())
+    assert np.array_equal(got[bad].numpy().view(np.uint32),
+                          np.full((4, x.shape[1]), 0x7FC00000, np.uint32))
+    for i, o in ((0, 3), (4, 0), (5, rows - 2), (6, 3)):
+        assert torch.equal(got[i], x[o] + x[o + 1])
+    assert not bool(torch.isnan(got[[0, 4, 5, 6]]).any())
+
+
+@pytest.mark.parametrize("bad", ["minus_one", "rows_minus_one", "rows"])
+def test_vpu_dyn_rows_wrapper_on_cpu_nan_row(bad):
+    x = mw.inputs("vpu_dyn_rows", seed=7)[0]
+    o = {"minus_one": -1, "rows_minus_one": x.shape[0] - 1,
+         "rows": x.shape[0]}[bad]
+    off = torch.tensor([5, o, 9], dtype=torch.int32)
+    before = dict(mw.LAUNCHES)
+    buf = torch.zeros(3, x.shape[1])
+    got = mw.vpu_dyn_rows_kernel(x, off, out=buf)
+    assert got is buf and mw.LAUNCHES == before
+    assert bool(torch.isnan(got[1]).all())
+    assert torch.equal(got[0], x[5] + x[6]) and torch.equal(got[2],
+                                                           x[9] + x[10])
+    assert mw.equal("vpu_dyn_rows", got, mw.vpu_dyn_rows_plain(x, off))
+
+
+def test_equal_is_bit_for_bit():
+    x, off = mw.inputs("vpu_dyn_rows", seed=8)
+    off[2] = -1
+    want = mw.vpu_dyn_rows_plain(x, off)
+    # NaN rows compare equal bit for bit, where torch.equal says no
+    assert not torch.equal(want, want.clone())
+    assert mw.equal("vpu_dyn_rows", want.clone(), want)
+    one_ulp = want.clone()
+    one_ulp[0, 0] = torch.nextafter(one_ulp[0, 0], torch.tensor(2.0))
+    assert not mw.equal("vpu_dyn_rows", one_ulp, want)
+    assert not mw.equal("vpu_dyn_rows", want[:3], want)
+    assert not mw.equal("vpu_dyn_rows", want.double(), want)
+
+
+def test_traffic_counts_the_rows_live_offsets_read():
+    x = mw.inputs("vpu_dyn_rows")[0]
+    off = torch.tensor([0, 0, -1, 63, 64, 5], dtype=torch.int32)
+    # rows 0, 1, 5, 6: NaN rows read nothing
+    assert mw.traffic("vpu_dyn_rows", (x, off)) == (
+        4 * 256 * 4 + 6 * 4 + 6 * 256 * 4, 6 * 256)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_measure_on_cpu_has_no_floor(name):
+    # nothing launches on the CPU: no floor, and no floor launch
+    before = dict(mw.FLOOR_LAUNCHES)
+    r = mw.measure(name, "cpu", n=1)
+    assert "floor_ms" in r and r["floor_ms"] is None
+    assert mw.FLOOR_LAUNCHES == before
+
+
+def test_floor_dims_follow_the_wrappers():
+    dims = {name: mw.floor_dims(name, mw.inputs(name)) for name in NAMES}
+    assert dims == {"strided_y_bf16": (16, 256), "strided_load": (120, 3840),
+                    "value_slice": (8, 512), "unaligned_dma": (16, 3600),
+                    "high_dot": (128, 128), "vpu_dyn_rows": (16, 256)}
+    x = mw.inputs("strided_y_bf16")[0]
+    assert mw.floor_dims("strided_y_bf16", (x, 0, 1, 7)) == (7, 256)
+    x = mw.inputs("unaligned_dma")[0]
+    assert mw.floor_dims("unaligned_dma", (x, 2, 5)) == (5, 3600)
+    assert mw.floor_dims("high_dot", (torch.zeros(100, 36),
+                                      torch.zeros(36, 68))) == (100, 68)
+    with pytest.raises(ValueError, match="no probe"):
+        mw.floor_dims("strided", (x,))
+
+
+def test_launch_floor_needs_cuda_tensors():
+    before = dict(mw.FLOOR_LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        mw.launch_floor("value_slice", *mw.inputs("value_slice"))
+    assert mw.FLOOR_LAUNCHES == before
+
+
+def test_probe_ids_follow_the_source_enum():
+    # the floor entry numbers the probes as csrc/watchlist.cu's enum Probe
+    import re
+
+    text = _build.WATCHLIST.source.read_text()
+    body = re.search(r"enum Probe \{([^}]*)\}", text).group(1)
+    names = [n.strip() for n in body.split(",")]
+    assert names == ["kStridedY", "kStridedLoad", "kValueSlice",
+                     "kUnalignedDma", "kHighDot", "kDynRows", "kProbes"]
+    assert [mw.PROBE_IDS[n] for n in NAMES] == list(range(6))
+    assert set(mw.PROGRAMMATIC) <= set(NAMES)
 
 
 def test_probes_name_their_features():
@@ -471,6 +579,87 @@ def test_vpu_dyn_rows_shuffled_offsets(cuda):
     torch.cuda.synchronize()
     assert bool(torch.isnan(got[:2]).all())
     assert torch.equal(got[2], x[2] + x[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(1, 9))
+def test_vpu_dyn_rows_at_jax_shape_eight_seeds(cuda, seed):
+    # one block a row and 256 columns: 16 blocks at JAX's (64, 256)
+    x, off = mw.inputs("vpu_dyn_rows", cuda, seed)
+    _held("vpu_dyn_rows", mw.vpu_dyn_rows_kernel, mw.vpu_dyn_rows_plain,
+          (x, off))
+
+
+# (rows, C, offsets): C = 250 and 3 take the scalar path, 4096 16 column
+# blocks; R = 1 and 40; repeated offsets, and out-of-range ones (NaN rows)
+DYN_CASES = {
+    "c250": (64, 250, [5, 62, 0, 5, 31, -1, 63, 64, 17]),
+    "c3": (10, 3, [8, 0, 4, 4, 9, -2]),
+    "c4096": (64, 4096, [62, 0, 33, 33, 7, 63, -1, 200, 12, 1, 2, 3]),
+    "r1": (64, 256, [40]),
+    "r40": (64, 256, [(7 * i) % 70 - 3 for i in range(40)]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("misaligned", [False, True],
+                         ids=["nan_out", "misaligned_out"])
+@pytest.mark.parametrize("case", sorted(DYN_CASES))
+def test_vpu_dyn_rows_shapes_offsets_and_outputs(cuda, case, misaligned):
+    rows, C, offs = DYN_CASES[case]
+    x = _uniform((rows, C), rows + C, cuda)
+    off = torch.tensor(offs, dtype=torch.int32, device=cuda)
+    want = mw.vpu_dyn_rows_plain(x, off)
+    flat = torch.full((want.numel() + 4,), float("nan"), device=cuda)
+    shift = 1 if misaligned else 0    # 4 bytes past 16: the scalar path
+    buf = flat[shift:shift + want.numel()].view(want.shape)
+    before = mw.LAUNCHES["vpu_dyn_rows"]
+    got = mw.vpu_dyn_rows_kernel(x, off, out=buf)
+    torch.cuda.synchronize()
+    assert got is buf and mw.LAUNCHES["vpu_dyn_rows"] == before + 1
+    assert mw.equal("vpu_dyn_rows", got, want)
+    bad = [i for i, o in enumerate(offs) if not 0 <= o <= rows - 2]
+    assert bool(torch.isnan(got[bad]).all()) if bad else True
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["value_slice", "vpu_dyn_rows"])
+def test_programmatic_launch_reads_what_the_op_before_wrote(cuda, name):
+    # a PyTorch kernel (a float64 -> float32 copy) writes the input right
+    # before each of 50 launches: the kernel waits for it before its first
+    # read
+    assert name in mw.PROGRAMMATIC
+    _, kernel, plain, _, _ = mw.probe(name)
+    args = mw.inputs(name, cuda, 1)
+    for i in range(50):
+        src = mw.inputs(name, cuda, 100 + i)
+        for a, b in zip(args, src):
+            a.copy_(b.double() if a.is_floating_point() else b.long())
+        before = mw.LAUNCHES[name]
+        got = kernel(*args)
+        assert mw.LAUNCHES[name] == before + 1
+        want = plain(*src)
+        torch.cuda.synchronize()
+        assert mw.equal(name, got, want), f"{name}: launch {i}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", NAMES)
+def test_graph_capture_keeps_programmatic_edges(cuda, name):
+    prog, total = mw.programmatic_edges(name, cuda, n=8)
+    assert total == 7     # a chain of 8 kernels
+    assert prog == (7 if name in mw.PROGRAMMATIC else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", NAMES)
+def test_launch_floor_launches(cuda, name):
+    args = mw.inputs(name, cuda, 0)
+    before, launches = mw.FLOOR_LAUNCHES[name], dict(mw.LAUNCHES)
+    assert mw.launch_floor(name, *args) is None
+    torch.cuda.synchronize()
+    assert mw.FLOOR_LAUNCHES[name] == before + 1
+    assert mw.LAUNCHES == launches
 
 
 @pytest.mark.cuda
