@@ -109,6 +109,7 @@ the JAX package's ``jax.image.resize`` is).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import warnings
 from typing import List, Optional, Sequence, Tuple, Union
 
@@ -125,6 +126,7 @@ from .ops import weights as weights_ops
 from .ops.overlap1d import Band1D
 from .utils.device import Device, as_input
 from .utils.digest import array_digest
+from .utils.log import build_span, span
 from .utils.lru import LruDict
 
 Operator = Union[weights_ops.SeparableOperator, weights_ops.EllOperator]
@@ -138,7 +140,7 @@ _SHEAR_AXIS_ALIGNED_IMPLS = {"auto": "auto", "kernel": "kernel",
 
 # mode='shear' plans, keyed by (spec, decomposition): O(H + W) tables and
 # an (Hd, Wd) coverage image; byte-bounded like the other table caches
-_SHEAR3_CACHE = LruDict(8, max_bytes=1 << 30)
+_SHEAR3_CACHE = LruDict(8, max_bytes=1 << 30, name="api.shear3")
 
 # 'auto' rotated applies that took 'gather' because the geometry has no
 # shear plan (see apply_operator)
@@ -152,7 +154,7 @@ _FUSED_CHUNK_CELLS = 1 << 20
 # squaring and digesting the table of a 2048^2 rotated operator anew cost
 # 0.68 s of host time per call (chip_smoke.py phase 35, "NVIDIA H100 80GB
 # HBM3, 700.00 W" host)
-_SQUARED_CACHE = LruDict(4, max_bytes=4 << 30)
+_SQUARED_CACHE = LruDict(4, max_bytes=4 << 30, name="api.squared")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,14 +188,15 @@ def build_operator(
                if mode == "shear" else ""))
     if method == "auto":
         method = "separable" if spec.is_axis_aligned else "ell"
-    if method == "separable":
-        op = weights_ops.separable_operator(spec, mode=mode)
-    elif method == "ell":
-        op = weights_ops.ell_operator(spec, mode=mode)
-    else:
+    if method not in ("separable", "ell"):
         raise ValueError(f"unknown method {method!r}")
-    if validate:
-        weights_ops.validate_operator(op)
+    with build_span("build.operator"):
+        if method == "separable":
+            op = weights_ops.separable_operator(spec, mode=mode)
+        else:
+            op = weights_ops.ell_operator(spec, mode=mode)
+        if validate:
+            weights_ops.validate_operator(op)
     return op
 
 
@@ -231,10 +234,20 @@ def apply_operator(
                                    differentiable)
     if not isinstance(op, weights_ops.SeparableOperator):
         raise TypeError(f"unknown operator type {type(op)!r}")
+    with span("aa.route"):
+        fn, src = _separable_route(op, src, weight_dtype, impl,
+                                   differentiable)
+    return fn(src)
+
+
+def _separable_route(op: weights_ops.SeparableOperator, src: torch.Tensor,
+                     weight_dtype: torch.dtype, impl: str,
+                     differentiable: bool):
+    """(fn, src): the separable route's callable and the input it takes
+    (module docstring)."""
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
     autodiff.numpy_weight_dtype(weight_dtype)  # raises on other dtypes
-    quadrant = op.spec.quadrant
 
     def _box_params():
         qH, qW = op.spec.qrot_shape
@@ -246,24 +259,24 @@ def apply_operator(
             impl = "kernel"
         else:
             box = _box_params()
-            if box is not None:
-                return _apply_box(src, quadrant, box[0], box[1], weight_dtype)
-            impl = "banded"
-    if impl == "box":
+            impl = "banded" if box is None else "box"
+    elif impl == "box":
         box = _box_params()
         if box is None:
             raise ValueError("operator is not a uniform integer box filter")
-        return _apply_box(src, quadrant, box[0], box[1], weight_dtype)
+    if impl == "box":
+        return functools.partial(_apply_box, quadrant=op.spec.quadrant,
+                                 my=box[0], mx=box[1], acc=weight_dtype), src
     if impl == "kernel":
         if not src.is_cuda:
             raise ValueError(
                 "impl='kernel' needs a CUDA tensor; got one on "
                 f"{src.device} (use impl='auto' or 'banded' on the CPU)")
-        return autodiff.separable_linear_for(
-            op, weight_dtype, "kernel")(src.contiguous())
+        return (autodiff.separable_linear_for(op, weight_dtype, "kernel"),
+                src.contiguous())
     lin = autodiff.separable_linear_for(op, weight_dtype, "banded")
     # without differentiable=True torch differentiates the plain ops itself
-    return lin(src) if differentiable else lin.forward(src)
+    return (lin if differentiable else lin.forward), src
 
 
 def _ell_route(op: weights_ops.EllOperator, impl: str, on_cuda: bool):
@@ -301,26 +314,31 @@ def _ell_route(op: weights_ops.EllOperator, impl: str, on_cuda: bool):
 
 def _apply_ell_operator(op, src, weight_dtype, impl, differentiable):
     """The rotated routes of ``apply_operator`` (module docstring)."""
-    if impl not in ELL_IMPLS:
-        raise ValueError(f"unknown impl {impl!r} for an EllOperator; "
-                         f"expected one of {ELL_IMPLS}")
-    autodiff.numpy_weight_dtype(weight_dtype)  # raises on other dtypes
-    orig_quadrant = op.spec.quadrant
-    post = post_inv = None
-    if orig_quadrant % 4:
-        # the rot90 pre-rotation folds into the table: the apply reads the
-        # ORIGINAL image and only the small output is flipped/transposed;
-        # the backward carries cotangents through post's inverse
-        op, post = weights_ops.fold_quadrant_ell_cached(op)
-        post_inv = weights_ops.ell_fold_post_inv(orig_quadrant)
-    qH, qW = op.spec.qrot_shape
-    if tuple(src.shape[-2:]) != (qH, qW):
-        raise ValueError(f"source (..., H, W) must end in {(qH, qW)} for "
-                         f"this operator, got {tuple(src.shape)}")
-    route, plan = _ell_route(op, impl, src.is_cuda)
-    if differentiable or src.requires_grad:
-        return autodiff.ell_linear_for(op, route, plan, weight_dtype, post,
-                                       post_inv, orig_quadrant)(src)
+    with span("aa.route"):
+        if impl not in ELL_IMPLS:
+            raise ValueError(f"unknown impl {impl!r} for an EllOperator; "
+                             f"expected one of {ELL_IMPLS}")
+        autodiff.numpy_weight_dtype(weight_dtype)  # raises on other dtypes
+        orig_quadrant = op.spec.quadrant
+        post = post_inv = None
+        if orig_quadrant % 4:
+            # the rot90 pre-rotation folds into the table: the apply reads
+            # the ORIGINAL image and only the small output is flipped/
+            # transposed; the backward carries cotangents through post's
+            # inverse
+            op, post = weights_ops.fold_quadrant_ell_cached(op)
+            post_inv = weights_ops.ell_fold_post_inv(orig_quadrant)
+        qH, qW = op.spec.qrot_shape
+        if tuple(src.shape[-2:]) != (qH, qW):
+            raise ValueError(f"source (..., H, W) must end in {(qH, qW)} "
+                             f"for this operator, got {tuple(src.shape)}")
+        route, plan = _ell_route(op, impl, src.is_cuda)
+        lin = None
+        if differentiable or src.requires_grad:
+            lin = autodiff.ell_linear_for(op, route, plan, weight_dtype,
+                                          post, post_inv, orig_quadrant)
+    if lin is not None:
+        return lin(src)
     out = autodiff.ell_forward(op, route, plan, src, weight_dtype)
     return out if post is None else post(out)
 
@@ -331,7 +349,9 @@ def _shear3_plan(spec: GridSpec,
     key = (spec, decomposition)
     plan = _SHEAR3_CACHE.get(key)
     if plan is None:
-        plan = shear3_ops.build_shear3_plan(spec, decomposition=decomposition)
+        with build_span("build.shear3_plan"):
+            plan = shear3_ops.build_shear3_plan(spec,
+                                                decomposition=decomposition)
         _SHEAR3_CACHE.put(key, plan)
     return plan
 
@@ -339,17 +359,18 @@ def _shear3_plan(spec: GridSpec,
 def _apply_shear3(spec: GridSpec, src: torch.Tensor, method: str,
                   decomposition: str, differentiable: bool) -> torch.Tensor:
     """The rotated mode='shear' routes (module docstring)."""
-    plan = _shear3_plan(spec, decomposition)
-    q = apply_ops.quadrant_rotate(src, spec.quadrant)
-    if method == "auto":
-        method = "kernel" if q.is_cuda else "plain"
+    with span("aa.route"):
+        plan = _shear3_plan(spec, decomposition)
+        q = apply_ops.quadrant_rotate(src, spec.quadrant)
+        if method == "auto":
+            method = "kernel" if q.is_cuda else "plain"
+        if method == "kernel" and not q.is_cuda:
+            raise ValueError(
+                "method='kernel' needs a CUDA tensor; got one on "
+                f"{q.device} (use method='auto' or 'plain' on the CPU)")
     if method == "plain":
         # torch differentiates the plain pipeline itself
         return shear3_ops.apply_shear3_plain(q, plan)
-    if not q.is_cuda:
-        raise ValueError(
-            "method='kernel' needs a CUDA tensor; got one on "
-            f"{q.device} (use method='auto' or 'plain' on the CPU)")
     if differentiable or q.requires_grad:
         return cuda_shear3.make_shear3_linear(plan)(q)
     return cuda_shear3.apply_shear3_kernel(q, plan)
@@ -396,54 +417,54 @@ def area_average_interpolate(
     if mode not in ("exact", "fast", "compat", "shear"):
         raise ValueError(
             f"mode must be exact/fast/compat/shear, got {mode!r}")
-    src = as_input(src, device)
-    spec = make_grid_spec(
-        (src.shape[-2], src.shape[-1]),
-        src_resolution,
-        dst_resolution,
-        src_isocenter,
-        rotation_angle,
-    )
-    impl = "auto"
-    if mode == "shear":
-        if method not in SHEAR_METHODS:
-            raise ValueError(f"unknown shear method {method!r} (expected "
-                             f"{'/'.join(SHEAR_METHODS)})")
-        if spec.is_axis_aligned:
-            # a zero-angle shear decomposition IS the exact separable
-            # operator; the shear method picks the separable impl
-            mode, impl, method = ("exact", _SHEAR_AXIS_ALIGNED_IMPLS[method],
-                                  "auto")
-        else:
-            if operator is not None or fused:
+    with span("aa.interpolate"):
+        with span("aa.spec"):
+            src = as_input(src, device)
+            spec = make_grid_spec((src.shape[-2], src.shape[-1]),
+                                  src_resolution, dst_resolution,
+                                  src_isocenter, rotation_angle)
+        impl = "auto"
+        if mode == "shear":
+            if method not in SHEAR_METHODS:
+                raise ValueError(f"unknown shear method {method!r} "
+                                 f"(expected {'/'.join(SHEAR_METHODS)})")
+            if spec.is_axis_aligned:
+                # a zero-angle shear decomposition IS the exact separable
+                # operator; the shear method picks the separable impl
+                mode, impl, method = (
+                    "exact", _SHEAR_AXIS_ALIGNED_IMPLS[method], "auto")
+            else:
+                if operator is not None or fused:
+                    raise ValueError(
+                        "mode='shear' builds no Operator (pass mode='exact' "
+                        "to use an explicit operator, and fused=False)")
+                autodiff.numpy_weight_dtype(weight_dtype)  # raises on others
+                dst = _apply_shear3(spec, src, method, shear_decomposition,
+                                    differentiable)
+                return InterpResult(dst=dst,
+                                    dst_isocenter=spec.dst_isocenter,
+                                    spec=spec)
+        if mode == "compat" and method == "auto":
+            # axis-aligned compat == exact separable (no taxonomy involved);
+            # rotated compat is an ELL operator (api.py:588-597)
+            if spec.is_axis_aligned:
+                mode = "exact"
+            else:
+                method = "ell"
+        if fused:
+            if mode not in ("exact", "fast"):
                 raise ValueError(
-                    "mode='shear' builds no Operator (pass mode='exact' to "
-                    "use an explicit operator, and fused=False)")
-            autodiff.numpy_weight_dtype(weight_dtype)  # raises on others
-            dst = _apply_shear3(spec, src, method, shear_decomposition,
-                                differentiable)
+                    "fused weight-gen supports mode='exact'/'fast' only "
+                    "(compat weight-gen is host-side, ops/compat.py)")
+            dst = _apply_fused(spec, src, mode)
             return InterpResult(dst=dst, dst_isocenter=spec.dst_isocenter,
                                 spec=spec)
-    if mode == "compat" and method == "auto":
-        # axis-aligned compat == exact separable (no taxonomy involved);
-        # rotated compat is an ELL operator (api.py:588-597)
-        if spec.is_axis_aligned:
-            mode = "exact"
-        else:
-            method = "ell"
-    if fused:
-        if mode not in ("exact", "fast"):
-            raise ValueError(
-                "fused weight-gen supports mode='exact'/'fast' only "
-                "(compat weight-gen is host-side, ops/compat.py)")
-        dst = _apply_fused(spec, src, mode)
+        if operator is None:
+            operator = build_operator(spec, mode=mode, method=method)
+        dst = apply_operator(operator, src, weight_dtype=weight_dtype,
+                             impl=impl, differentiable=differentiable)
         return InterpResult(dst=dst, dst_isocenter=spec.dst_isocenter,
                             spec=spec)
-    if operator is None:
-        operator = build_operator(spec, mode=mode, method=method)
-    dst = apply_operator(operator, src, weight_dtype=weight_dtype,
-                         impl=impl, differentiable=differentiable)
-    return InterpResult(dst=dst, dst_isocenter=spec.dst_isocenter, spec=spec)
 
 
 def _apply_fused(spec: GridSpec, src: torch.Tensor,

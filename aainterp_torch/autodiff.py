@@ -36,12 +36,13 @@ from .ops import overlap1d
 from .ops import weights as weights_ops
 from .utils.device import Device, as_input, upload
 from .utils.digest import array_digest
+from .utils.log import build_span
 from .utils.lru import LruDict
 
 KINDS = ("kernel", "banded")
 _NP_WEIGHT_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
-_TBAND_CACHE = LruDict(64)
+_TBAND_CACHE = LruDict(64, name="autodiff.tband")
 
 
 def transposed_separable(
@@ -152,7 +153,7 @@ class SeparableLinear(torch.autograd.Function):
         return ctx.lin.backward(g).to(ctx.src_dtype), None
 
 
-_SEP_LINEAR_CACHE = LruDict(32)
+_SEP_LINEAR_CACHE = LruDict(32, name="autodiff.sep_linear")
 
 
 def numpy_weight_dtype(weight_dtype: torch.dtype):
@@ -203,11 +204,11 @@ ELL_ROUTES = ("kernel", "sheared", "gather")
 
 # device copies of ELL tables (the 'gather' route's forward and every
 # route's backward scatter), content-keyed
-_ELL_TABLES = LruDict(4, max_bytes=4 << 30)
+_ELL_TABLES = LruDict(4, max_bytes=4 << 30, name="autodiff.ell_tables")
 
 # EllFn per (route, tables, quadrants, weight dtype); each holds its folded
 # operator (the fold cache holds the same arrays)
-_ELL_LINEAR_CACHE = LruDict(8, max_bytes=4 << 30)
+_ELL_LINEAR_CACHE = LruDict(8, max_bytes=4 << 30, name="autodiff.ell_linear")
 
 
 def ell_tables(op: weights_ops.EllOperator, weight_dtype: torch.dtype,
@@ -219,8 +220,9 @@ def ell_tables(op: weights_ops.EllOperator, weight_dtype: torch.dtype,
            op.weights.shape, weight_dtype, torch.device(device))
     hit = _ELL_TABLES.get(key)
     if hit is None:
-        hit = (upload(op.base, device, pinned=pinned),
-               upload(op.weights, device, weight_dtype, pinned=pinned))
+        with build_span("build.upload"):
+            hit = (upload(op.base, device, pinned=pinned),
+                   upload(op.weights, device, weight_dtype, pinned=pinned))
         _ELL_TABLES.put(key, hit)
     return hit
 

@@ -38,6 +38,7 @@ import torch
 from .. import _build
 from ..utils.device import SMEM_LIMIT, out_buffer, upload
 from ..utils.digest import array_digest
+from ..utils.log import build_span, span
 from ..utils.lru import LruDict
 from .apply import apply_separable_banded
 
@@ -55,7 +56,7 @@ _THREADS = 256               # threads per block of the staged form
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
 
 # bounded: each plan holds its host tables plus one device copy per device
-_PLAN_CACHE = LruDict(16, max_bytes=256 << 20)
+_PLAN_CACHE = LruDict(16, max_bytes=256 << 20, name="cuda_apply.plan")
 
 
 def _host(a, dtype) -> np.ndarray:
@@ -183,7 +184,8 @@ def _plan_for(ys, yw, xs, xw):
            array_digest(xw))
     plan = _PLAN_CACHE.get(key)
     if plan is None:
-        plan = plan_separable(ys, xs, yw.shape[1], xw.shape[1])
+        with build_span("build.band_plan"):
+            plan = plan_separable(ys, xs, yw.shape[1], xw.shape[1])
         if plan is None:
             plan = {"kernel_2d": True}
         else:
@@ -201,7 +203,9 @@ def _device_tables(plan, device: torch.device, pinned: bool = False):
     device = torch.device(device)
     dev = plan["dev"].get(device)
     if dev is None:
-        dev = tuple(upload(t, device, pinned=pinned) for t in plan["tables"])
+        with build_span("build.upload"):
+            dev = tuple(upload(t, device, pinned=pinned)
+                        for t in plan["tables"])
         plan["dev"][device] = dev
     return dev
 
@@ -282,11 +286,13 @@ def apply_separable_kernel(frames: torch.Tensor, y_start, y_w, x_start, x_w,
     fn = _build.load(_build.SEPARABLE).aainterp_separable_apply
     with torch.cuda.device(frames.device):
         stream = torch.cuda.current_stream(frames.device).cuda_stream
-        rc = fn(frames.data_ptr(), out.data_ptr(), d_ys.data_ptr(),
-                d_yw.data_ptr(), d_xs.data_ptr(), d_xw.data_ptr(),
-                d_rb.data_ptr(), d_cb.data_ptr(), F, H, W, Hd, Wd, ky, kx,
-                plan["TY"], plan["TX"], plan["SY"], plan["SX"],
-                _DTYPE_CODES[frames.dtype], _DTYPE_CODES[kernel_out], stream)
+        with span("aa.launch.separable"):
+            rc = fn(frames.data_ptr(), out.data_ptr(), d_ys.data_ptr(),
+                    d_yw.data_ptr(), d_xs.data_ptr(), d_xw.data_ptr(),
+                    d_rb.data_ptr(), d_cb.data_ptr(), F, H, W, Hd, Wd, ky,
+                    kx, plan["TY"], plan["TX"], plan["SY"], plan["SX"],
+                    _DTYPE_CODES[frames.dtype], _DTYPE_CODES[kernel_out],
+                    stream)
     if rc != 0:
         raise RuntimeError(f"separable_apply kernel launch failed: CUDA error "
                            f"{rc} (F={F}, H={H}, W={W}, Hd={Hd}, Wd={Wd}, "

@@ -63,6 +63,7 @@ import torch
 from .. import _build
 from ..utils.device import SMEM_LIMIT, out_buffer, upload
 from ..utils.digest import array_digest
+from ..utils.log import build_span, span
 from ..utils.lru import LruDict
 from .apply import _band_index, apply_separable_banded
 from .cuda_apply import (_DTYPE_CODES, _resolve_out_dtype, band_plan,
@@ -80,7 +81,7 @@ SMEM_TARGET = 112 * 1024        # bytes of dynamic shared memory a block aims at
 VEC_MIN_COLUMNS = 1 << 16
 
 # bounded: each plan holds its host tables plus one device copy per device
-_PLAN_CACHE = LruDict(32, max_bytes=256 << 20)
+_PLAN_CACHE = LruDict(32, max_bytes=256 << 20, name="cuda_apply_2d.plan")
 
 
 def check_precision(precision: str) -> None:
@@ -167,7 +168,8 @@ def kernel_plan(ys: np.ndarray, yw: np.ndarray, xs: np.ndarray,
            array_digest(xw))
     plan = _PLAN_CACHE.get(key)
     if plan is None:
-        plan = make_plan(ys, yw, xs, xw)
+        with build_span("build.band_plan"):
+            plan = make_plan(ys, yw, xs, xw)
         _PLAN_CACHE.put(key, plan)
     return plan
 
@@ -179,7 +181,9 @@ def device_tables(plan, device: torch.device, pinned: bool = False):
     device = torch.device(device)
     dev = plan["dev"].get(device)
     if dev is None:
-        dev = tuple(upload(t, device, pinned=pinned) for t in plan["tables"])
+        with build_span("build.upload"):
+            dev = tuple(upload(t, device, pinned=pinned)
+                        for t in plan["tables"])
         plan["dev"][device] = dev
     return dev
 
@@ -313,21 +317,23 @@ def apply_separable_kernel_2d(frames: torch.Tensor, y_start, y_w, x_start,
         if plan["direct"]:
             # the y pass's sums, on the current stream's allocator
             vec = direct_vec(frames, F * Hd * direct_columns(plan, W)[1])
-            c0, span = direct_columns(plan, W, vec)
-            T = torch.empty(F * Hd * span, dtype=torch.float32,
+            c0, n_cols = direct_columns(plan, W, vec)
+            T = torch.empty(F * Hd * n_cols, dtype=torch.float32,
                             device=frames.device)
-            rc = lib.aainterp_separable_apply_2d_direct(
-                frames.data_ptr(), out.data_ptr(), T.data_ptr(),
-                d_ys.data_ptr(), d_yw.data_ptr(), d_xs.data_ptr(),
-                d_xw.data_ptr(), F, H, W, Hd, Wd, ky, kx, c0, span, vec,
-                *codes, stream)
+            with span("aa.launch.separable_2d"):
+                rc = lib.aainterp_separable_apply_2d_direct(
+                    frames.data_ptr(), out.data_ptr(), T.data_ptr(),
+                    d_ys.data_ptr(), d_yw.data_ptr(), d_xs.data_ptr(),
+                    d_xw.data_ptr(), F, H, W, Hd, Wd, ky, kx, c0, n_cols,
+                    vec, *codes, stream)
         else:
-            rc = lib.aainterp_separable_apply_2d(
-                frames.data_ptr(), out.data_ptr(), d_ys.data_ptr(),
-                d_yw.data_ptr(), d_xs.data_ptr(), d_xw.data_ptr(),
-                *(b.data_ptr() for b in bases), F, H, W, Hd, Wd, ky, kx,
-                plan["TY"], plan["TX"], plan["SY"], plan["SX"], *codes,
-                stream)
+            with span("aa.launch.separable_2d"):
+                rc = lib.aainterp_separable_apply_2d(
+                    frames.data_ptr(), out.data_ptr(), d_ys.data_ptr(),
+                    d_yw.data_ptr(), d_xs.data_ptr(), d_xw.data_ptr(),
+                    *(b.data_ptr() for b in bases), F, H, W, Hd, Wd, ky,
+                    kx, plan["TY"], plan["TX"], plan["SY"], plan["SX"],
+                    *codes, stream)
     if rc != 0:
         form = "direct" if plan["direct"] else ", ".join(
             f"{k}={plan[k]}" for k in ("TY", "TX", "SY", "SX"))

@@ -86,6 +86,7 @@ import torch
 
 from .. import _build
 from ..utils.digest import array_digest
+from ..utils.log import build_span, span
 from ..utils.lru import LruDict
 from ..utils.device import SMEM_LIMIT, upload
 from .apply import fma32
@@ -119,7 +120,7 @@ KFRAMES = 8
 
 # bounded: each plan holds its f32 weight table (196 MB at 2048^2/30 deg)
 # on the host and once more per device
-_PLAN_CACHE = LruDict(4, max_bytes=4 << 30)
+_PLAN_CACHE = LruDict(4, max_bytes=4 << 30, name="cuda_shear.plan")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -374,7 +375,8 @@ class ShearKernelPlan:
         and kept."""
         hit = self.tiles.get(form)
         if hit is None:
-            hit = self.tiles[form] = plan_tiles(self, form)
+            with build_span("build.tiles"):
+                hit = self.tiles[form] = plan_tiles(self, form)
         return hit
 
     def contract_plan(self, elem: int) -> Optional[ContractTiles]:
@@ -383,7 +385,8 @@ class ShearKernelPlan:
         call and kept."""
         key = f"contract{elem}"
         if key not in self.tiles:
-            self.tiles[key] = plan_contract(self, elem)
+            with build_span("build.tiles"):
+                self.tiles[key] = plan_contract(self, elem)
         return self.tiles[key]
 
     def tables(self, device: torch.device,
@@ -397,9 +400,11 @@ class ShearKernelPlan:
         if hit is None:
             shared = (self.base.tables(device, pinned)
                       if self.base is not None else {})
-            hit = {name: shared[name] if name in shared and name != "span"
-                   else upload(getattr(self, name), device, pinned=pinned)
-                   for name in _PLAN_ARRAYS}
+            with build_span("build.upload"):
+                hit = {name: shared[name]
+                       if name in shared and name != "span"
+                       else upload(getattr(self, name), device, pinned=pinned)
+                       for name in _PLAN_ARRAYS}
             self.dev[device] = hit
         return hit
 
@@ -409,7 +414,9 @@ class ShearKernelPlan:
         tabs = self.tables(device)
         key = f"win_{form}"
         if key not in tabs:
-            tabs[key] = torch.from_numpy(self.form_tiles(form).win).to(device)
+            win = self.form_tiles(form).win
+            with build_span("build.tiles"):
+                tabs[key] = torch.from_numpy(win).to(device)
         return tabs[key]
 
     def contract_windows(self, elem: int,
@@ -420,8 +427,9 @@ class ShearKernelPlan:
         tabs = self.tables(device)
         key = f"win_contract{elem}"
         if key not in tabs:
-            tabs[key] = torch.from_numpy(self.contract_plan(elem).win).to(
-                device)
+            win = self.contract_plan(elem).win
+            with build_span("build.tiles"):
+                tabs[key] = torch.from_numpy(win).to(device)
         return tabs[key]
 
 
@@ -444,18 +452,19 @@ def live_spans(w2: np.ndarray) -> np.ndarray:
 def plan_from_operator(op: EllOperator) -> ShearKernelPlan:
     """Build the kernels' plan for ``op`` (uncached; raises ValueError
     where build_shear_plan rejects the geometry)."""
-    sp = build_shear_plan(op)
-    Hd, Wd, Ka, Kb = sp.weights.shape
-    w2 = np.ascontiguousarray(
-        np.moveaxis(sp.weights.reshape(Hd, Wd, Ka * Kb), -1, 0),
-        dtype=np.float32)
-    return ShearKernelPlan(
-        qH=sp.qH, qW=sp.qW, TH=sp.TH, TW=sp.TW, Hd=Hd, Wd=Wd, Ka=Ka, Kb=Kb,
-        gy=np.ascontiguousarray(sp.gy, dtype=np.int32),
-        hx=np.ascontiguousarray(sp.hx, dtype=np.int32),
-        ry0=np.ascontiguousarray(sp.ry0, dtype=np.int32),
-        cx0=np.ascontiguousarray(sp.cx0, dtype=np.int32),
-        w2=w2, span=live_spans(w2))
+    with build_span("build.shear_plan"):
+        sp = build_shear_plan(op)
+        Hd, Wd, Ka, Kb = sp.weights.shape
+        w2 = np.ascontiguousarray(
+            np.moveaxis(sp.weights.reshape(Hd, Wd, Ka * Kb), -1, 0),
+            dtype=np.float32)
+        return ShearKernelPlan(
+            qH=sp.qH, qW=sp.qW, TH=sp.TH, TW=sp.TW, Hd=Hd, Wd=Wd, Ka=Ka, Kb=Kb,
+            gy=np.ascontiguousarray(sp.gy, dtype=np.int32),
+            hx=np.ascontiguousarray(sp.hx, dtype=np.int32),
+            ry0=np.ascontiguousarray(sp.ry0, dtype=np.int32),
+            cx0=np.ascontiguousarray(sp.cx0, dtype=np.int32),
+            w2=w2, span=live_spans(w2))
 
 
 def _plan_key(op: EllOperator):
@@ -582,7 +591,8 @@ def kernel_plan_cached(op: EllOperator,
     key = _plan_key(op)
     hit = _PLAN_CACHE.get(key)
     if hit is None:
-        hit = load_plan(op, cache_dir)
+        with build_span("build.plan_load"):
+            hit = load_plan(op, cache_dir)
         if hit is not None:
             PLAN_DISK["loaded"] += 1
         else:
@@ -593,7 +603,8 @@ def kernel_plan_cached(op: EllOperator,
             else:
                 PLAN_DISK["built"] += 1
                 try:
-                    save_plan(hit, op, cache_dir)
+                    with build_span("build.plan_save"):
+                        save_plan(hit, op, cache_dir)
                 except OSError as e:
                     warnings.warn(f"shear plan not saved: {e}",
                                   RuntimeWarning)
@@ -604,7 +615,7 @@ def kernel_plan_cached(op: EllOperator,
 
 
 # row-sharded plans by table content and rank count (build_sharded_kernel_plan)
-_SHARDED_CACHE = LruDict(4, max_bytes=2 << 30)
+_SHARDED_CACHE = LruDict(4, max_bytes=2 << 30, name="cuda_shear.sharded")
 
 
 @dataclasses.dataclass(eq=False)
@@ -886,7 +897,8 @@ def _out_buffer(out, shape, like: torch.Tensor) -> torch.Tensor:
 
 def _launch(name: str, fn, args, what: str) -> None:
     """Call a C launcher; raise on a CUDA error, else count the launch."""
-    rc = fn(*args)
+    with span(f"aa.launch.{name}"):
+        rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
                            f"({what})")

@@ -37,6 +37,7 @@ import torch
 
 from .. import _build
 from ..utils.device import out_buffer
+from ..utils.log import span
 from ..utils.lru import LruDict
 from . import shear3 as shear3_ops
 from .shear3 import Shear3Plan, StagePlan
@@ -73,16 +74,17 @@ def _stage_kernel(x: torch.Tensor, sp: StagePlan, i: int, axis: str,
     tiles = st.tiles
     # TL = TU = 0 launches the direct form
     TL, TU = (0, 0) if tiles.direct else (tiles.TL, tiles.TU)
+    name = f"{axis}stage"
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), out.data_ptr(), t["d"].data_ptr(),
-                t["f"].data_ptr(), t["start"].data_ptr(), t["w"].data_ptr(),
-                cov.data_ptr() if use_cov else None, t["win"].data_ptr(),
-                F, st.n_lines, st.n_in, st.n_mid, st.n_t, st.crop, st.n_out,
-                st.K, st.form, TL, TU, tiles.max_win,
-                tiles.max_mid, _DTYPE_CODES[x.dtype],
-                _DTYPE_CODES[out_dtype], stream)
-    name = f"{axis}stage"
+        with span(f"aa.launch.{name}"):
+            rc = fn(x.data_ptr(), out.data_ptr(), t["d"].data_ptr(),
+                    t["f"].data_ptr(), t["start"].data_ptr(),
+                    t["w"].data_ptr(), cov.data_ptr() if use_cov else None,
+                    t["win"].data_ptr(), F, st.n_lines, st.n_in, st.n_mid,
+                    st.n_t, st.crop, st.n_out, st.K, st.form, TL, TU,
+                    tiles.max_win, tiles.max_mid, _DTYPE_CODES[x.dtype],
+                    _DTYPE_CODES[out_dtype], stream)
     if rc != 0:
         raise RuntimeError(
             f"{name} kernel launch failed: CUDA error {rc} (F={F}, "
@@ -170,7 +172,7 @@ class Shear3Linear(torch.autograd.Function):
 
 # bounded: each entry holds a plan and its adjoint (coverage image,
 # bands); their device tables live in shear3's stage-plan cache
-_LINEAR_CACHE = LruDict(16, max_bytes=1 << 30)
+_LINEAR_CACHE = LruDict(16, max_bytes=1 << 30, name="cuda_shear3.linear")
 
 
 def make_shear3_linear(plan: Shear3Plan) -> Shear3Fn:

@@ -55,6 +55,7 @@ import torch
 from ..grids import GridSpec
 from ..utils.device import SMEM_LIMIT, out_buffer
 from ..utils.digest import array_digest
+from ..utils.log import build_span
 from ..utils.lru import LruDict
 from .overlap1d import Band1D
 
@@ -581,12 +582,14 @@ class StagePlan:
         device = torch.device(device)
         hit = self.dev.get(device)
         if hit is None:
-            per = tuple({**{k: torch.from_numpy(getattr(st, k)).to(device)
-                            for k in ("d", "f", "start", "w")},
-                         "win": torch.from_numpy(st.tiles.win).to(device)}
-                        for st in self.stages)
-            cov = (None if self.inv_cov is None
-                   else torch.from_numpy(self.inv_cov).to(device))
+            with build_span("build.upload"):
+                per = tuple(
+                    {**{k: torch.from_numpy(getattr(st, k)).to(device)
+                        for k in ("d", "f", "start", "w")},
+                     "win": torch.from_numpy(st.tiles.win).to(device)}
+                    for st in self.stages)
+                cov = (None if self.inv_cov is None
+                       else torch.from_numpy(self.inv_cov).to(device))
             hit = (per, cov)
             self.dev[device] = hit
         return hit
@@ -594,7 +597,7 @@ class StagePlan:
 
 # bounded: each stage plan holds its coverage image (7.8 MB f32 at
 # 1399^2) on the host and once more per device
-_STAGE_CACHE = LruDict(16, max_bytes=1 << 30)
+_STAGE_CACHE = LruDict(16, max_bytes=1 << 30, name="shear3.stage")
 
 
 def _stage(p: Pass1D, n_in: int, n_lines: int) -> Stage:
@@ -628,7 +631,9 @@ def _stage(p: Pass1D, n_in: int, n_lines: int) -> Stage:
                d=np.ascontiguousarray(p.d, dtype=np.int32),
                f=np.ascontiguousarray(p.f, dtype=np.float32),
                start=start, w=w)
-    return dataclasses.replace(st, tiles=plan_tiles(st))
+    with build_span("build.tiles"):
+        tiles = plan_tiles(st)
+    return dataclasses.replace(st, tiles=tiles)
 
 
 # ----------------------------------------------------------------------

@@ -39,7 +39,7 @@ from .clipper import (quad_rect_overlap_area, quad_rect_overlap_area_torch,
 
 # folded quadrant ELL operators, content-keyed (fold_quadrant_ell_cached);
 # the fold copies the (Hd, Wd, K, K) table, hundreds of MB at 2048^2
-_FOLD_CACHE = LruDict(4, max_bytes=3 << 30)
+_FOLD_CACHE = LruDict(4, max_bytes=3 << 30, name="weights.fold")
 
 # which engine built each ELL operator (ell_operator): 'native' or 'numpy'
 WEIGHT_GEN_ENGINES = {"native": 0, "numpy": 0}

@@ -101,10 +101,10 @@ ELL_IMPLS = ("auto", "kernel", "gather")
 
 # ELL halos by base table content and blocks (_ell_blocks): milliseconds of
 # host work a call at 2048^2 otherwise
-_HALO_CACHE = LruDict(16)
+_HALO_CACHE = LruDict(16, name="sharding.halo")
 
 # a rank's blocks of host ELL tables on its device (_block_on)
-_TABLE_BLOCKS = LruDict(8, max_bytes=4 << 30)
+_TABLE_BLOCKS = LruDict(8, max_bytes=4 << 30, name="sharding.table_blocks")
 
 
 def _folded_sharded_bands(op: weights_ops.SeparableOperator, n_dev: int):

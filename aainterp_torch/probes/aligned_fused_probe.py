@@ -66,7 +66,8 @@ LAUNCHES = 0
 # default 48 KB of shared memory
 CHUNK_BYTES = 48 * 1024
 
-_WEIGHTS = LruDict(16)   # (digest, device) -> the weights on the device
+# (digest, device) -> the weights on the device
+_WEIGHTS = LruDict(16, name="aligned_fused_probe.weights")
 
 
 @functools.lru_cache(maxsize=2)

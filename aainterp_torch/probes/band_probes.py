@@ -438,7 +438,8 @@ def dense_x_window(SY: int, W: int, elem: int) -> bool:
             and dense_x_smem(elem, SY) <= SMEM_LIMIT)
 
 
-_DENSEX_PLANS = LruDict(8)   # (tables' digests, Ws) -> densex's plan
+# (tables' digests, Ws) -> densex's plan
+_DENSEX_PLANS = LruDict(8, name="band_probes.densex")
 
 
 def densex_plan(tables, Ws: int) -> dict:

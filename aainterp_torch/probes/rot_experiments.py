@@ -101,7 +101,7 @@ NOWEIGHT = ("noweight", "noweight_direct")
 LAUNCHES = {m: 0 for m in MODES}
 # id(plan) -> (plan, noweight_plan(plan)): the probe's own plans, kept
 # out of the route's plan caches
-_NOWEIGHT_PLANS = LruDict(4)
+_NOWEIGHT_PLANS = LruDict(4, name="rot_experiments.noweight")
 
 
 def _shares(mode: str):

@@ -243,7 +243,7 @@ class BandTables:
 
 # keyed by band-table content; each entry holds small host tables plus one
 # device copy per device
-_BAND_TABLES = LruDict(32, max_bytes=256 << 20)
+_BAND_TABLES = LruDict(32, max_bytes=256 << 20, name="regrid.band_tables")
 
 
 def band_tables(by: Band1D, bx: Band1D) -> BandTables:

@@ -18,7 +18,8 @@ them in place; mutating a table after its first digest is unsupported
 rely on.
 
 The digest is ``hash(bytes)`` (SipHash) — stable within a process,
-which is all in-process LRU keys need.
+which is all in-process LRU keys need.  Each hash is a cold path,
+``build.digest`` (``utils.log.build_span``: counted in ``log.BUILDS``).
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ from __future__ import annotations
 import weakref
 
 import numpy as np
+
+from .log import build_span
 
 # id(array) -> (weakref, digest).  The weakref's collection callback
 # removes the entry, so the table never outgrows the live arrays.
@@ -38,7 +41,8 @@ _STATS = {"hashed": 0, "memo_hits": 0}
 
 def _hash_array(a: np.ndarray) -> int:
     _STATS["hashed"] += 1
-    return hash(a.tobytes())
+    with build_span("build.digest"):
+        return hash(a.tobytes())
 
 
 def array_digest(a) -> int:

@@ -6,15 +6,25 @@ wrappers) are keyed by operator-content hashes; a long-lived server
 resampling many geometries must not grow them without bound.  dict in
 CPython preserves insertion order, so move-to-end on hit + evict-oldest
 on insert gives LRU with no extra structure.
+
+Each of the program's caches is a module constant with a ``name``
+(``cuda_apply.plan``, ``api.shear3``, ...), counts its ``hits`` and
+``misses``, and is found by that name in ``CACHES``; a miss is marked
+``cache.<name>.miss`` in a profiler's trace (``utils.log.mark``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Hashable, Optional
+from typing import Any, Dict, Hashable, Optional
 
 import numpy as np
 import torch
+
+from .log import mark
+
+# every named cache by its name: the program's module-level caches
+CACHES: Dict[str, "LruDict"] = {}
 
 
 def value_nbytes(value) -> int:
@@ -53,9 +63,14 @@ class LruDict:
     (``value_nbytes`` per entry, computed once at put).  A single
     over-budget entry is still admitted (capacity >= 1 semantics): the
     cache then holds just it.
+
+    With a ``name`` the cache registers itself in ``CACHES`` (a later one
+    of the same name takes its place).  ``get`` counts ``hits`` and
+    ``misses``.
     """
 
-    def __init__(self, capacity: int, max_bytes: Optional[int] = None):
+    def __init__(self, capacity: int, max_bytes: Optional[int] = None,
+                 name: Optional[str] = None):
         if capacity < 1:
             raise ValueError("capacity must be >= 1")
         self.capacity = capacity
@@ -63,10 +78,19 @@ class LruDict:
         self.total_bytes = 0
         self._d: dict = {}
         self._sz: dict = {}
+        self.name = name
+        self.hits = 0
+        self.misses = 0
+        self._miss_span = f"cache.{name}.miss"
+        if name is not None:
+            CACHES[name] = self
 
     def get(self, key: Hashable, default: Any = None) -> Optional[Any]:
         if key not in self._d:
+            self.misses += 1
+            mark(self._miss_span)
             return default
+        self.hits += 1
         val = self._d.pop(key)   # re-insert: most-recent position
         self._d[key] = val
         return val

@@ -145,7 +145,12 @@ def test_banner_and_logging(tmp_path, capsys):
     assert "Calculation time : " in capsys.readouterr().out
     with t_log.profile_trace(str(tmp_path / "trace")) as d:
         at.area_resize(torch.ones(1, 8, 8), (4, 4))
+        at.area_average_interpolate(torch.ones(1, 8, 8), 2.0, 1.0,
+                                    (0.0, 0.0), 0.0)
     assert os.path.getsize(os.path.join(d, "trace.json")) > 0
+    # the program's own spans are in the trace
+    with open(os.path.join(d, "trace.json")) as f:
+        assert '"aa.interpolate"' in f.read()
 
 
 # ----------------------------------------------------------------------
